@@ -1,6 +1,8 @@
-"""Drive parquet_tpu_torch's device read on one CUDA card and check it.
+"""Drive parquet_tpu_torch's device read and batched point lookup on one
+CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
+                          [--lookup-rows 8388608] [--out DIR]
 
 Phases, each fatal on failure:
 
@@ -8,25 +10,38 @@ Phases, each fatal on failure:
 2. build: the CUDA kernels of ``parquet_tpu_torch/csrc`` compile with nvcc
    (one process per source, started together);
 3. kernels against their plain PyTorch versions, on the card, bit for bit:
-   ``unpack_bits_dense`` at every width 1..32 and ``dict_unpack_gather`` at
+   ``unpack_bits_dense`` at every width 1..32, ``dict_unpack_gather`` at
    w in {1, 8, 10} over int32/int64/float32/float64 dictionaries of 2, 200
-   and 1024 entries, with median CUDA-event times;
-4. main path: the port's writer makes a 5-column file from ``--seed``
+   and 1024 entries, and ``bloom_check`` at n in {32,768; 1,048,576;
+   8,388,608} hashes x z in {1; 1,024; 65,536; 4,194,304} filter blocks
+   (also against the numpy host probe), with median device times;
+4. read path: the port's writer makes a 5-column file from ``--seed``
    (1,048,576-row row groups, 1 MiB pages, UNCOMPRESSED), and
    ``ParquetFile(path).read(device="cuda")`` decodes it once cold and
-   three times warm; every column must equal the generated arrays and
-   every kernel's launch count must grow during the read; then the time
+   three times warm; every column must equal the generated arrays and each
+   of the read's kernels must be launched during the read; then the time
    of each column alone, of each phase (host prescan, H2D staging, device
    decode), and one profiled read for the device's idle share;
-5. one ``{"kernels": [...]}`` line: each kernel at the shapes the main
-   path gives it, with its main-path launches, device time per launch
+5. lookup path: a 3-column file keyed by ``k`` (1,048,576-row row groups,
+   8 KiB pages, bloom filters on ``k``, page index, rows sorted by ``k``)
+   and a batch of ``--lookup-rows / 16`` distinct keys, one in eight
+   present; ``find_rows("k", keys, columns=["v", "cat"], device="cuda")``
+   runs once cold on a fresh handle and twice warm on the same one.  Every
+   key's rows, values and validity must equal a numpy oracle, each row
+   group's bloom stage must launch ``bloom_check`` once, and the counters
+   must equal the same lookup's on the CPU; then one warm lookup under
+   per-stage timers (key preparation, statistics, bloom probe, page
+   search, page fetch, matching, gather, assembly) and one under the
+   profiler, for the device's idle share;
+6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
+   gives it, with its launches on that path, device time per launch
    (``ms``, profiler), time per wrapper call (``call_ms``, CUDA events, the
    host's dispatch included), bound, plain-version time and the device
    time of the library call.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero before printing any result.  ``--out DIR`` also writes
-the sweep and the kernel line to ``DIR/chip_smoke_sweep.json``.
+the sweeps and the kernel line to ``DIR/chip_smoke_sweep.json``.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ import torch
 
 import parquet_tpu_torch as pq
 from parquet_tpu_torch.format.enums import Encoding
+from parquet_tpu_torch.io import bloom, lookup
 from parquet_tpu_torch.ops import _build, kernels
 from parquet_tpu_torch.parallel import device_reader
 from torch.profiler import ProfilerActivity, profile
@@ -54,6 +70,8 @@ INT_OPS_PER_S = 67e12  # H100 SXM non-tensor 32-bit rate (data sheet)
 M32 = 0xFFFFFFFF
 DEVICE = "cuda"
 ROW_GROUP = 1 << 20
+READ_KERNELS = ("unpack_bits_dense", "dict_unpack_gather")
+LOOKUP_KERNELS = ("bloom_check", "dict_unpack_gather")
 
 
 def log(obj) -> None:
@@ -135,6 +153,19 @@ def dict_bound(n: int, w: int, d: int, elem: int) -> tuple:
     return bound(n * w / 8 + d * elem + n * elem, 7 * n)
 
 
+def bloom_blocks(filt: torch.Tensor, hashes: torch.Tensor) -> torch.Tensor:
+    """The filter block each hash probes, ``((h >> 32) * z) >> 32``."""
+    return (((hashes >> 32) & M32) * filt.shape[0]) >> 32
+
+
+def bloom_bound(filt: torch.Tensor, hashes: torch.Tensor) -> tuple:
+    # read each hash (8 B) and each filter block this data touches (32 B)
+    # once, write one byte per hash; ~30 integer operations per probe
+    n = hashes.shape[0]
+    touched = int(torch.unique(bloom_blocks(filt, hashes)).numel())
+    return bound(9 * n + 32 * touched, 30 * n)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -210,8 +241,69 @@ def sweep_dict(n: int, gen: torch.Generator) -> list:
     return rows
 
 
+BLOOM_N = (32_768, 1_048_576, 8_388_608)
+BLOOM_Z = (1, 1_024, 65_536, 4_194_304)
+
+
+def random_filter(z: int, rng: np.random.Generator,
+                  inserted: np.ndarray) -> bloom.SplitBlockFilter:
+    """A z-block filter of sparse random bits holding ``inserted``."""
+    blocks = (rng.integers(0, 2**32, (z, 8), dtype=np.uint32)
+              & rng.integers(0, 2**32, (z, 8), dtype=np.uint32))
+    f = bloom.SplitBlockFilter(blocks)
+    f.insert_hashes(inserted)
+    return f
+
+
+def random_hashes(n: int, rng: np.random.Generator) -> np.ndarray:
+    """Random 64-bit hashes, every 7th with all high bits set (it probes
+    the filter's last block)."""
+    h = rng.integers(0, 2**64, n, dtype=np.uint64, endpoint=False)
+    h[::7] |= np.uint64(0xFFFFFFFF00000000)
+    return h
+
+
+def host_probe(f: bloom.SplitBlockFilter, h: np.ndarray) -> np.ndarray:
+    return np.concatenate([f.check_hashes(h[i:i + (1 << 20)])
+                           for i in range(0, len(h), 1 << 20)])
+
+
+def sweep_bloom(ns, zs, seed: int) -> list:
+    """``bloom_check`` against ``bloom_check_ref`` and the numpy host probe,
+    bit for bit, for each filter size and each prefix of one hash array.
+    Half of the first 1,048,576 hashes are in each filter."""
+    rng = np.random.default_rng(seed + 3)
+    h_host = random_hashes(max(ns), rng)
+    hashes = torch.from_numpy(h_host.view(np.int64)).to(DEVICE)
+    rows = []
+    for z in zs:
+        f = random_filter(z, rng, h_host[:1 << 20:2])
+        filt = f.device_blocks(DEVICE)
+        for n in ns:
+            h = hashes[:n]
+            got = kernels.bloom_check(filt, h)
+            want = kernels.bloom_check_ref(filt, h)
+            host = host_probe(f, h_host[:n])
+            if not torch.equal(got, want) or not np.array_equal(
+                    got.cpu().numpy(), host):
+                raise AssertionError(f"bloom_check n={n} z={z}: mismatch")
+            blk = bloom_blocks(filt, h)
+            b, by = bloom_bound(filt, h)
+            call = lambda: kernels.bloom_check(filt, h)  # noqa: E731
+            rows.append({
+                "kernel": "bloom_check", "n": n, "z": z,
+                "hit_share": float(got.float().mean()),
+                "ms": device_ms(call, "bloom_check_kernel"),
+                "call_ms": time_ms(call),
+                "plain_ms": time_ms(lambda: kernels.bloom_check_ref(filt, h),
+                                    reps=3, warmup=1, batches=1),
+                "library_ms": device_ms(lambda: filt.index_select(0, blk)),
+                "bound_ms": b, "bound_by": by, "exact": True})
+    return rows
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the read path
 # ---------------------------------------------------------------------------
 
 
@@ -299,8 +391,8 @@ def main_path(rows: int, seed: int, tmp: str) -> tuple:
     check_table(out, table)
     nbytes = decoded_bytes(out)
     del out
-    for name, n in launches.items():
-        if n == 0:
+    for name in READ_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  "main-path read")
     per_column = {}
@@ -370,27 +462,232 @@ def device_times_us(prof) -> dict:
     return out
 
 
-def device_ms(fn, kernel: str = "", reps: int = 20):
+def device_ms(fn, kernel: str = "", reps: int = 20, tries: int = 3):
     """Device milliseconds per call of ``fn``: the time of the device
     events whose name holds ``kernel`` (all of them by default), from the
-    profiler, the host's dispatch left out; None where the profiler saw
-    no such device time."""
+    profiler, the host's dispatch left out.  The profiler now and then
+    records no device events for a window, so a window without them is
+    profiled again, up to ``tries`` times; None where none had any."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(v for k, v in device_times_us(prof).items() if kernel in k)
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(v for k, v in device_times_us(prof).items() if kernel in k)
+        if us > 0:
+            return us / reps / 1e3
+    return None
 
 
-def main_shape_kernels(table: dict, launches: dict,
-                       gen: torch.Generator) -> list:
-    """Each kernel at the shapes one row group's chunk gives it on the
-    main path: ``k`` (1,048,576 indexes at w=15, unfused: 20,000-entry
-    dictionary) and ``cat`` (its present values at w=8, 200-entry int32
-    dictionary)."""
+# ---------------------------------------------------------------------------
+# phase 5: the lookup path
+# ---------------------------------------------------------------------------
+
+LOOKUP_ENCODINGS = {"k": Encoding.PLAIN, "v": Encoding.PLAIN,
+                    "cat": Encoding.RLE_DICTIONARY}
+LOOKUP_COLUMNS = ["v", "cat"]
+
+
+def make_lookup_table(rows: int, seed: int) -> dict:
+    """``k``: ``bench.py`` config 10's four rows per key, doubled so that
+    the odd keys inside every row group's range are absent; ``v`` a double
+    with 5 % nulls; ``cat`` a 200-value int32 category with 10 % nulls."""
+    rng = np.random.default_rng(seed + 1)
+    i = np.arange(rows, dtype=np.int64)
+    return {
+        "k": 2 * (i // 4),
+        "v": np.ma.masked_array(rng.random(rows),
+                                mask=rng.random(rows) < 0.05),
+        "cat": np.ma.masked_array(rng.integers(0, 200, rows).astype(np.int32),
+                                  mask=rng.random(rows) < 0.10),
+    }
+
+
+def make_keys(rows: int, seed: int) -> np.ndarray:
+    """``rows / 16`` distinct keys in [0, rows / 2), shuffled: one in eight
+    is a present even key, the rest absent odd keys."""
+    rng = np.random.default_rng(seed + 2)
+    n = rows // 16
+    present = n // 8
+    even = rng.choice(rows // 4, present, replace=False) * 2
+    odd = rng.choice(rows // 4, n - present, replace=False) * 2 + 1
+    return rng.permutation(np.concatenate([even, odd]).astype(np.int64))
+
+
+def check_lookup(res, keys: np.ndarray, table: dict) -> None:
+    """Every key's rows, ``v``, ``cat`` and validity against the numpy
+    oracle: key ``2j`` sits in rows ``[4j, 4j + 4)``, an odd key nowhere;
+    a null slot holds 0."""
+    if len(res) != len(keys):
+        raise AssertionError(f"{len(res)} hits for {len(keys)} keys")
+    lens = np.array([h.num_rows for h in res])
+    even = keys % 2 == 0
+    if not np.array_equal(lens, np.where(even, 4, 0)):
+        raise AssertionError("lookup: wrong number of rows for some keys")
+    hits = [h for h, e in zip(res, even) if e]
+    rows = np.concatenate([h.rows for h in hits])
+    want_rows = (2 * keys[even])[:, None] + np.arange(4)
+    if not np.array_equal(rows, want_rows.reshape(-1)):
+        raise AssertionError("lookup: rows differ from the oracle")
+    for c in LOOKUP_COLUMNS:
+        arr = table[c]
+        valid = ~np.ma.getmaskarray(arr)[rows]
+        want = np.where(valid, np.ma.getdata(arr)[rows], 0)
+        got = np.concatenate([h.values[c] for h in hits])
+        got_valid = np.concatenate([
+            np.ones(4, bool) if h.validity[c] is None else h.validity[c]
+            for h in hits])
+        if got.dtype != want.dtype or not np.array_equal(got, want) \
+                or not np.array_equal(got_valid, valid):
+            raise AssertionError(f"lookup: column {c} differs from the "
+                                 "oracle")
+
+
+class PhaseTimer:
+    """Exclusive wall time of the lookup's stages: each wrapped function's
+    time less that of the wrapped functions it calls."""
+
+    STAGES = (
+        (lookup, "_prepare_keys", "prepare"),
+        (lookup, "_stats_alive", "stats"),
+        (bloom.SplitBlockFilter, "check_hashes_batch", "bloom"),
+        (lookup, "_page_ords_of_keys", "page_search"),
+        (lookup._PageFetcher, "fetch", "fetch"),
+        (lookup, "_match_keys", "match"),
+        (lookup, "_gather_columns", "gather"),
+        (lookup, "_assemble_hits", "assemble"),
+    )
+
+    def __init__(self):
+        self.seconds = {name: 0.0 for _, _, name in self.STAGES}
+        self.calls = {name: 0 for _, _, name in self.STAGES}
+        self.first_bloom = None  # (filter, hashes) of the first probe
+        self._stack = []
+        self._saved = []
+
+    def _wrap(self, fn, name):
+        def timed(*args, **kwargs):
+            if name == "bloom" and self.first_bloom is None:
+                self.first_bloom = (args[0], args[1])
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                dt = time.perf_counter() - t0
+                inner = self._stack.pop()
+                self.seconds[name] += dt - inner
+                self.calls[name] += 1
+                if self._stack:
+                    self._stack[-1] += dt
+        return timed
+
+    def __enter__(self):
+        for owner, attr, name in self.STAGES:
+            fn = getattr(owner, attr)
+            self._saved.append((owner, attr, fn))
+            setattr(owner, attr, self._wrap(fn, name))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self._saved):
+            setattr(owner, attr, fn)
+        self._saved = []
+
+
+def timed_lookup(f, keys: np.ndarray, device) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = f.find_rows("k", keys, columns=LOOKUP_COLUMNS, device=device)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def lookup_path(rows: int, seed: int, tmp: str) -> tuple:
+    """The lookup path at full size; returns its report, its launches and
+    the first row group's bloom probe (filter, surviving hashes)."""
+    table = make_lookup_table(rows, seed)
+    keys = make_keys(rows, seed)
+    path = os.path.join(tmp, "lookup.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(table, path, pq.WriterOptions(
+        row_group_size=ROW_GROUP, data_page_size=8192,
+        compression="uncompressed", column_encoding=LOOKUP_ENCODINGS,
+        bloom_filters={"k": 10}, sorting_columns=[("k", False, False)]))
+    write_s = time.perf_counter() - t0
+    row_groups = -(-rows // ROW_GROUP)
+
+    pq.reset_launches()
+    f = pq.ParquetFile(path)
+    res, cold_s = timed_lookup(f, keys, DEVICE)
+    cold_launches = pq.LAUNCHES["bloom_check"]
+    check_lookup(res, keys, table)
+    warm = []
+    for _ in range(2):
+        res, s = timed_lookup(f, keys, DEVICE)
+        warm.append(s)
+    launches = dict(pq.LAUNCHES)
+    check_lookup(res, keys, table)
+    if cold_launches != row_groups or launches["bloom_check"] != 3 * \
+            row_groups:
+        raise AssertionError(
+            f"bloom_check launched {cold_launches} then "
+            f"{launches['bloom_check']} times over 3 lookups of "
+            f"{row_groups} row groups: one launch per row group expected")
+    for name in LOOKUP_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 "lookups")
+    if res.counters["rows_matched"] != 4 * (len(keys) // 8):
+        raise AssertionError(f"rows_matched {res.counters['rows_matched']}")
+    t0 = time.perf_counter()
+    cpu = pq.ParquetFile(path).find_rows("k", keys, columns=LOOKUP_COLUMNS,
+                                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if cpu.counters != res.counters:
+        raise AssertionError(f"counters on {DEVICE} {res.counters} differ "
+                             f"from the CPU's {cpu.counters}")
+    counters = dict(res.counters)
+    del res, cpu
+
+    # two more warm lookups: one under the stage timers, one profiled
+    with PhaseTimer() as timer:
+        _, timed_s = timed_lookup(f, keys, DEVICE)
+    stages = dict(timer.seconds)
+    stages["other"] = timed_s - sum(stages.values())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall_s = timed_lookup(f, keys, DEVICE)
+    by_name = device_times_us(prof)
+    busy_s = sum(by_name.values()) / 1e6
+    best = min(warm)
+    log({"lookup_path": {
+        "rows": rows, "row_groups": row_groups, "keys": len(keys),
+        "file_bytes": os.path.getsize(path), "write_s": write_s,
+        "cold_s": cold_s, "warm_s": warm, "cpu_s": cpu_s,
+        "keys_per_s_cold": len(keys) / cold_s,
+        "keys_per_s_warm": len(keys) / best,
+        "counters": counters, "launches": launches}})
+    log({"lookup_breakdown": {
+        "timed_lookup_s": timed_s, "stage_s": stages,
+        "profiled_lookup_s": wall_s,
+        "stage_calls": timer.calls, "device_busy_s": busy_s or None,
+        "device_idle_share": 1 - busy_s / wall_s if busy_s else None,
+        "top_device_us": dict(sorted(by_name.items(),
+                                     key=lambda kv: -kv[1])[:10])}})
+    return launches, timer.first_bloom
+
+
+def main_shape_kernels(table: dict, launches: dict, lookup_launches: dict,
+                       probe: tuple, gen: torch.Generator) -> list:
+    """Each kernel at the shapes one row group's chunk gives it on its
+    path: on the read path ``k`` (1,048,576 indexes at w=15, unfused:
+    20,000-entry dictionary) and ``cat`` (its present values at w=8,
+    200-entry int32 dictionary); on the lookup path the first row group's
+    bloom probe (``probe``: its filter and the hashes of the keys that
+    survive the statistics stage)."""
     out = []
     n = min(ROW_GROUP, len(table["k"]))
     w = 15
@@ -437,6 +734,35 @@ def main_shape_kernels(table: dict, launches: dict,
         "bound_ms": b, "bound_by": by,
         "library_ms": device_ms(lambda: dictionary[idx]),
         "shape": {"n": n, "w": w, "d": d, "dtype": "int32"}})
+
+    filt_obj, hashes = probe
+    filt = filt_obj.device_blocks(DEVICE)
+    h = torch.from_numpy(np.ascontiguousarray(hashes).view(np.int64)).to(
+        DEVICE)
+    got = kernels.bloom_check(filt, h)
+    want = kernels.bloom_check_ref(filt, h)
+    if not np.array_equal(got.cpu().numpy(), filt_obj.check_hashes(hashes)):
+        raise AssertionError("bloom_check differs from the host probe at "
+                             "the lookup's shape")
+    blk = bloom_blocks(filt, h)
+    b, by = bloom_bound(filt, h)
+    out.append({
+        "name": "bloom_check", "route": "cuda",
+        "source": "parquet_tpu_torch/csrc/bloom_check.cu",
+        "replaces": "parquet_tpu/ops/pallas_kernels.py:216",
+        "launches": lookup_launches["bloom_check"],
+        "max_abs_err": max_abs_err(got, want),
+        "ms": device_ms(lambda: kernels.bloom_check(filt, h),
+                        "bloom_check_kernel"),
+        "call_ms": time_ms(lambda: kernels.bloom_check(filt, h)),
+        "plain_ms": time_ms(lambda: kernels.bloom_check_ref(filt, h),
+                            reps=3, warmup=1, batches=1),
+        "bound_ms": b, "bound_by": by,
+        "library_ms": device_ms(lambda: filt.index_select(0, blk)),
+        "shape": {"n": h.shape[0], "z": filt.shape[0]}})
+    for k in out:
+        k["launches_by_path"] = {"read": launches[k["name"]],
+                                 "lookup": lookup_launches[k["name"]]}
     for k in out:
         if k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: kernel differs from its "
@@ -449,6 +775,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=8_388_608)
     ap.add_argument("--kernel-values", type=int, default=8_388_608)
+    ap.add_argument("--lookup-rows", type=int, default=8_388_608)
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke_sweep.json (none by "
                     "default)")
@@ -470,12 +797,16 @@ def main(argv=None) -> int:
     gen.manual_seed(args.seed)
     sweep = sweep_unpack(args.kernel_values, gen)
     sweep += sweep_dict(args.kernel_values, gen)
+    sweep += sweep_bloom([n for n in BLOOM_N if n <= args.kernel_values]
+                         or [args.kernel_values], BLOOM_Z, args.seed)
     for row in sweep:
         log(row)
 
     with tempfile.TemporaryDirectory() as tmp:
         table, launches = main_path(args.rows, args.seed, tmp)
-    kern = main_shape_kernels(table, launches, gen)
+        lookup_launches, probe = lookup_path(args.lookup_rows, args.seed,
+                                             tmp)
+    kern = main_shape_kernels(table, launches, lookup_launches, probe, gen)
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -1,10 +1,11 @@
-"""parquet.thrift struct definitions, cut to what flat-column reads and
-writes touch.
+"""parquet.thrift struct definitions, cut to what flat-column reads,
+writes and point lookups touch.
 
 The port's copy of ``parquet_tpu/format/metadata.py``.  Field ids, names and
-types mirror the Apache Parquet thrift IDL.  Structs this slice never reads
-(page index, bloom filters, encryption, logical types) are left out: the
-compact reader skips their fields by wire type.
+types mirror the Apache Parquet thrift IDL, so a file written by either
+package reads back in the other.  Structs this port never reads
+(encryption, logical types, size statistics) are left out: the compact
+reader skips their fields by wire type.
 """
 
 from __future__ import annotations
@@ -14,6 +15,15 @@ from .thrift import thrift_struct
 
 _L = lambda elem: (T.LIST, elem)  # noqa: E731
 _S = lambda cls: (T.STRUCT, cls)  # noqa: E731
+
+
+def _empty(name):
+    @thrift_struct
+    class _E:
+        _FIELDS = []
+
+    _E.__name__ = _E.__qualname__ = name
+    return _E
 
 
 @thrift_struct
@@ -99,11 +109,53 @@ class PageHeader:
 
 
 # ---------------------------------------------------------------------------
+# Bloom filter
+# ---------------------------------------------------------------------------
+SplitBlockAlgorithm = _empty("SplitBlockAlgorithm")
+XxHash = _empty("XxHash")
+BloomUncompressed = _empty("BloomUncompressed")
+
+
+@thrift_struct
+class BloomFilterAlgorithm:  # union
+    _FIELDS = [(1, "BLOCK", _S(SplitBlockAlgorithm))]
+
+
+@thrift_struct
+class BloomFilterHash:  # union
+    _FIELDS = [(1, "XXHASH", _S(XxHash))]
+
+
+@thrift_struct
+class BloomFilterCompression:  # union
+    _FIELDS = [(1, "UNCOMPRESSED", _S(BloomUncompressed))]
+
+
+@thrift_struct
+class BloomFilterHeader:
+    _FIELDS = [
+        (1, "numBytes", T.I32),
+        (2, "algorithm", _S(BloomFilterAlgorithm)),
+        (3, "hash", _S(BloomFilterHash)),
+        (4, "compression", _S(BloomFilterCompression)),
+    ]
+
+
+# ---------------------------------------------------------------------------
 # Column / row-group / file metadata
 # ---------------------------------------------------------------------------
 @thrift_struct
 class KeyValue:
     _FIELDS = [(1, "key", T.STRING), (2, "value", T.STRING)]
+
+
+@thrift_struct
+class SortingColumn:
+    _FIELDS = [
+        (1, "column_idx", T.I32),
+        (2, "descending", T.BOOL),
+        (3, "nulls_first", T.BOOL),
+    ]
 
 
 @thrift_struct
@@ -121,6 +173,8 @@ class ColumnMetaData:
         (10, "index_page_offset", T.I64),
         (11, "dictionary_page_offset", T.I64),
         (12, "statistics", _S(Statistics)),
+        (14, "bloom_filter_offset", T.I64),
+        (15, "bloom_filter_length", T.I32),
     ]
 
 
@@ -130,6 +184,10 @@ class ColumnChunk:
         (1, "file_path", T.STRING),
         (2, "file_offset", T.I64),
         (3, "meta_data", _S(ColumnMetaData)),
+        (4, "offset_index_offset", T.I64),
+        (5, "offset_index_length", T.I32),
+        (6, "column_index_offset", T.I64),
+        (7, "column_index_length", T.I32),
     ]
 
 
@@ -139,9 +197,41 @@ class RowGroup:
         (1, "columns", _L(_S(ColumnChunk))),
         (2, "total_byte_size", T.I64),
         (3, "num_rows", T.I64),
+        (4, "sorting_columns", _L(_S(SortingColumn))),
         (5, "file_offset", T.I64),
         (6, "total_compressed_size", T.I64),
         (7, "ordinal", T.I16),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Page index
+# ---------------------------------------------------------------------------
+@thrift_struct
+class PageLocation:
+    _FIELDS = [
+        (1, "offset", T.I64),
+        (2, "compressed_page_size", T.I32),
+        (3, "first_row_index", T.I64),
+    ]
+
+
+@thrift_struct
+class OffsetIndex:
+    _FIELDS = [
+        (1, "page_locations", _L(_S(PageLocation))),
+        (2, "unencoded_byte_array_data_bytes", _L(T.I64)),
+    ]
+
+
+@thrift_struct
+class ColumnIndex:
+    _FIELDS = [
+        (1, "null_pages", _L(T.BOOL)),
+        (2, "min_values", _L(T.BINARY)),
+        (3, "max_values", _L(T.BINARY)),
+        (4, "boundary_order", T.I32),  # enums.BoundaryOrder
+        (5, "null_counts", _L(T.I64)),
     ]
 
 

@@ -1,5 +1,6 @@
-"""Parquet file reader: footer, row groups, column-chunk pages, and the
-device read of whole files.
+"""Parquet file reader: footer, row groups, column-chunk pages, indexes
+and bloom filters, the device read of whole files and batched point
+lookups.
 
 The port's cut of ``parquet_tpu/io/reader.py`` (``ParquetFile``,
 ``RowGroupReader``, ``ColumnChunkReader``).  :meth:`ParquetFile.read` sends
@@ -8,6 +9,13 @@ every selected (column, row group) chunk through
 each column's row-group parts.  The result is a dict of
 :class:`~parquet_tpu_torch.io.column.Column` whose tensors lie on the
 requested device: CUDA by default, the CPU only when the caller asks.
+:meth:`ParquetFile.find_rows` is the batched point lookup of
+:mod:`~parquet_tpu_torch.io.lookup`.
+
+Chunk readers are memoized on the file (the file is immutable once open),
+and each memoizes its parsed column index, offset index and bloom filter,
+so repeated lookups neither re-read them nor copy a filter to the card
+again.
 """
 
 from __future__ import annotations
@@ -16,16 +24,22 @@ import struct
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import codecs
 from ..errors import MAX_PAGE_SIZE, CorruptedError
 from ..format import metadata as md
 from ..format import thrift
-from ..format.enums import PageType
+from ..format.enums import PageType, Type
 from ..schema.schema import Leaf, Schema
 from .column import Column, concat_columns
 from .source import Source, as_source
+
+_UNSET = object()  # memo sentinel: None is a valid parsed value
+
+# an index structure longer than this is corruption, not an index
+MAX_INDEX_SIZE = 64 << 20
 
 
 @dataclass
@@ -66,6 +80,7 @@ class ColumnChunkReader:
             raise CorruptedError(
                 f"column chunk {leaf.name!r} of row group {rg_index} has no "
                 "metadata")
+        self._st = self._ci = self._oi = self._bf = _UNSET
 
     @property
     def codec(self) -> codecs.Codec:
@@ -110,6 +125,92 @@ class ColumnChunkReader:
             yield page
             pos = data_pos + clen
 
+    def pages_at(self, offset: int, size: int,
+                 num_pages: Optional[int] = None) -> Iterator[PageInfo]:
+        """Parse the pages of one byte span of the chunk (an offset-index
+        seek: one pread covering just the selected pages)."""
+        raw = self.file.source.pread(offset, size)
+        pos = 0
+        yielded = 0
+        while pos < size and (num_pages is None or yielded < num_pages):
+            try:
+                header, data_pos = thrift.deserialize(md.PageHeader, raw, pos)
+            except (thrift.ThriftError, IndexError, struct.error) as e:
+                raise CorruptedError(
+                    f"bad page header at {offset + pos}: {e}") from e
+            clen = header.compressed_page_size
+            if clen is None or not 0 <= clen <= MAX_PAGE_SIZE:
+                raise CorruptedError(
+                    f"page at {offset + pos}: compressed size {clen} out of "
+                    "range")
+            payload = raw[data_pos:data_pos + clen]
+            if len(payload) != clen:
+                raise CorruptedError(
+                    f"truncated page payload at {offset + pos}")
+            yield PageInfo(header=header, payload=payload,
+                           offset=offset + pos)
+            yielded += 1
+            pos = data_pos + clen
+
+    def _read_index(self, cls, offset, length, what: str):
+        if length is None or not 0 <= length <= MAX_INDEX_SIZE:
+            raise CorruptedError(f"{what} of {self.leaf.name!r} at {offset}: "
+                                 f"length {length} out of range")
+        raw = self.file.source.pread(offset, length)
+        try:
+            return thrift.deserialize(cls, raw)[0]
+        except (thrift.ThriftError, IndexError, struct.error) as e:
+            raise CorruptedError(f"bad {what} at {offset}: {e}") from e
+
+    def column_index(self) -> Optional[md.ColumnIndex]:
+        if self._ci is _UNSET:
+            c = self.chunk
+            self._ci = (None if c.column_index_offset is None else
+                        self._read_index(md.ColumnIndex,
+                                         c.column_index_offset,
+                                         c.column_index_length,
+                                         "column index"))
+        return self._ci
+
+    def offset_index(self) -> Optional[md.OffsetIndex]:
+        if self._oi is _UNSET:
+            c = self.chunk
+            self._oi = (None if c.offset_index_offset is None else
+                        self._read_index(md.OffsetIndex,
+                                         c.offset_index_offset,
+                                         c.offset_index_length,
+                                         "offset index"))
+        return self._oi
+
+    def bloom_filter(self):
+        """The chunk's :class:`~parquet_tpu_torch.io.bloom.SplitBlockFilter`
+        or None, read once."""
+        if self._bf is _UNSET:
+            from .bloom import read_bloom_filter
+
+            self._bf = read_bloom_filter(self)
+        return self._bf
+
+    def statistics(self):
+        """The chunk's decoded statistics or None, decoded once."""
+        if self._st is _UNSET:
+            from .statistics import decode_statistics
+
+            self._st = decode_statistics(self.meta.statistics, self.leaf)
+        return self._st
+
+
+def decode_dictionary_page(reader: ColumnChunkReader,
+                           page: PageInfo) -> np.ndarray:
+    """Decompress and decode one PLAIN dictionary page to host numpy."""
+    from ..ops import ref
+
+    h = page.header
+    raw = reader.codec.decode(page.payload, h.uncompressed_page_size)
+    return ref.decode_plain(np.frombuffer(raw, np.uint8),
+                            h.dictionary_page_header.num_values,
+                            Type(reader.meta.type))
+
 
 class RowGroupReader:
     def __init__(self, file: "ParquetFile", index: int, rg: md.RowGroup):
@@ -121,9 +222,18 @@ class RowGroupReader:
     def num_rows(self) -> int:
         return self.rg.num_rows
 
+    @property
+    def sorting_columns(self):
+        return self.rg.sorting_columns
+
     def column(self, i: int) -> ColumnChunkReader:
-        return ColumnChunkReader(self.file, self.index, self.rg.columns[i],
-                                 self.file.schema.leaves[i])
+        key = (self.index, i)
+        reader = self.file._chunk_cache.get(key)
+        if reader is None:
+            reader = self.file._chunk_cache[key] = ColumnChunkReader(
+                self.file, self.index, self.rg.columns[i],
+                self.file.schema.leaves[i])
+        return reader
 
 
 def resolve_device(device) -> torch.device:
@@ -147,6 +257,7 @@ class ParquetFile:
     footer."""
 
     def __init__(self, source):
+        self._chunk_cache: Dict[Tuple[int, int], ColumnChunkReader] = {}
         self.source: Source = as_source(source)
         try:
             self._open_footer()
@@ -207,6 +318,18 @@ class ParquetFile:
             out[leaf.name] = (concat_columns(parts) if parts
                               else _empty_column(leaf, dev))
         return out
+
+    def find_rows(self, path: str, keys, columns: Optional[Sequence[str]] = None,
+                  device="cuda"):
+        """Batched point lookup: the rows where column ``path`` equals each
+        of ``keys``, with the row-aligned values of ``columns``.  The bloom
+        stage and the page decodes run on ``device`` (CUDA unless the caller
+        names the CPU).  Returns a
+        :class:`~parquet_tpu_torch.io.lookup.LookupResult` aligned with
+        ``keys``."""
+        from .lookup import find_rows
+
+        return find_rows(self, path, keys, columns=columns, device=device)
 
     def close(self) -> None:
         self.source.close()

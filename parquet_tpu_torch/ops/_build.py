@@ -34,6 +34,9 @@ SIGNATURES = {
     "dict_unpack_gather": {
         "pq_dict_unpack_gather": (_I, [_P, _P, _I, _I, _P, _LL, _I, _P]),
     },
+    "bloom_check": {
+        "pq_bloom_check": (_I, [_P, _LL, _P, _P, _LL, _P]),
+    },
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

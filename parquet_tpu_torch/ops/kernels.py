@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the read path, their wrappers and their
-plain PyTorch versions.
+"""The hand-written CUDA kernels of the read and lookup paths, their
+wrappers and their plain PyTorch versions.
 
 The port of ``parquet_tpu/ops/pallas_kernels.py``:
 
@@ -8,10 +8,15 @@ The port of ``parquet_tpu/ops/pallas_kernels.py``:
   stream whose groups of 32 values occupy w words each;
 - :func:`dict_unpack_gather` (``csrc/dict_unpack_gather.cu``) replaces the
   Pallas ``dict_unpack_gather``: the same unpack fused with a gather from a
-  dictionary of at most 1024 entries, so the indexes never reach memory.
+  dictionary of at most 1024 entries, so the indexes never reach memory;
+- :func:`bloom_check` (``csrc/bloom_check.cu``) replaces the Pallas
+  ``bloom_check_blocks`` and the XLA block gather before it: the split-block
+  bloom filter probe of 64-bit hashes against a filter resident on the
+  device, block index, gather and salted bit tests in one pass.
 
 A wrapper given a CPU tensor runs the plain version beside it
-(:func:`unpack_bits_dense_ref`, :func:`dict_unpack_gather_ref`); given a
+(:func:`unpack_bits_dense_ref`, :func:`dict_unpack_gather_ref`,
+:func:`bloom_check_ref`); given a
 CUDA tensor it launches its kernel on the current stream or raises.  Each
 wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches, and nowhere
 else.
@@ -23,7 +28,8 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"unpack_bits_dense": 0, "dict_unpack_gather": 0}
+LAUNCHES = {"unpack_bits_dense": 0, "dict_unpack_gather": 0,
+            "bloom_check": 0}
 
 MAX_FUSED_DICT = 1024  # entries the fused kernel stages in shared memory
 
@@ -161,6 +167,84 @@ def dict_unpack_gather(words: torch.Tensor, dictionary: torch.Tensor, n: int,
             dictionary.element_size(), out.data_ptr(), n, w, stream)
     _raise_on_error(rc, "dict_unpack_gather")
     LAUNCHES["dict_unpack_gather"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# bloom_check
+# ---------------------------------------------------------------------------
+
+# the split-block bloom filter's 8 salts (Parquet bloom_filter.md)
+BLOOM_SALT = (0x47B6137B, 0x44974D91, 0x8824AD5B, 0xA2B7289D,
+              0x705495C7, 0x2DF1424B, 0x9EFC4947, 0x5C6BFB31)
+
+
+def _check_bloom_operands(filter_blocks: torch.Tensor,
+                          hashes: torch.Tensor) -> None:
+    if (filter_blocks.dim() != 2 or filter_blocks.shape[1] != 8
+            or filter_blocks.dtype not in (torch.int32, torch.uint32)):
+        raise TypeError("bloom filter must be an int32/uint32 tensor of shape "
+                        f"(z, 8), got {filter_blocks.dtype} of shape "
+                        f"{tuple(filter_blocks.shape)}")
+    if not 1 <= filter_blocks.shape[0] <= 1 << 31:
+        raise ValueError(f"bloom filter of {filter_blocks.shape[0]} blocks: "
+                         "1..2^31 are supported")
+    if hashes.dim() != 1 or hashes.dtype not in (torch.int64, torch.uint64):
+        raise TypeError("hashes must be a 1-D int64/uint64 tensor (the uint64 "
+                        f"bit patterns), got {hashes.dtype} of shape "
+                        f"{tuple(hashes.shape)}")
+
+
+def bloom_check_ref(filter_blocks: torch.Tensor,
+                    hashes: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bloom_check`, on int64 words (torch
+    has no ``>>`` for uint32/uint64 on the CPU).  ``low * SALT`` is taken as
+    the sum of two products of at most 48 bits, so nothing overflows int64
+    before the mask to 32 bits."""
+    _check_bloom_operands(filter_blocks, hashes)
+    z = filter_blocks.shape[0]
+    h = hashes.view(torch.int64)
+    hi = (h >> 32) & _M32
+    block = (hi * z) >> 32  # exact: hi < 2^32, z <= 2^31
+    low = h & _M32
+    words = filter_blocks.view(torch.int32)[block].to(torch.int64) & _M32
+    lo16, hi16 = low & 0xFFFF, low >> 16
+    hit = torch.ones(h.shape[0], dtype=torch.bool, device=h.device)
+    for i, salt in enumerate(BLOOM_SALT):
+        prod = (lo16 * salt + (((hi16 * salt) & 0xFFFF) << 16)) & _M32
+        hit &= ((words[:, i] >> (prod >> 27)) & 1) == 1
+    return hit
+
+
+def bloom_check(filter_blocks: torch.Tensor,
+                hashes: torch.Tensor) -> torch.Tensor:
+    """Probe a split-block bloom filter (``filter_blocks``: z blocks of 8
+    32-bit words) with 64-bit xxhashes (``hashes``, int64 holding the
+    uint64 bit patterns).  Returns bool[n]: False where the filter proves
+    the value absent."""
+    _check_bloom_operands(filter_blocks, hashes)
+    if hashes.device.type == "cpu" and filter_blocks.device.type == "cpu":
+        return bloom_check_ref(filter_blocks, hashes)
+    if hashes.device.type != "cuda" or filter_blocks.device != hashes.device:
+        raise ValueError(f"bloom_check runs on cuda or cpu tensors of one "
+                         f"device, not {filter_blocks.device}/{hashes.device}")
+    filter_blocks = filter_blocks.contiguous()
+    hashes = hashes.contiguous()
+    if filter_blocks.data_ptr() % 16:
+        raise ValueError("bloom filter storage must be 16-byte aligned for "
+                         "the kernel's vector loads")
+    n = hashes.shape[0]
+    out = torch.empty(n, dtype=torch.bool, device=hashes.device)
+    if n == 0:
+        return out
+    lib = _build.load("bloom_check")
+    with torch.cuda.device(hashes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pq_bloom_check(filter_blocks.data_ptr(),
+                                filter_blocks.shape[0], hashes.data_ptr(),
+                                out.data_ptr(), n, stream)
+    _raise_on_error(rc, "bloom_check")
+    LAUNCHES["bloom_check"] += 1
     return out
 
 

@@ -7,7 +7,8 @@ runs three phases:
 
 - :func:`build_plan`: host prescan of the pages into a :class:`_Plan`
   (decompression, RLE run headers, delta miniblock headers: metadata-scale
-  work);
+  work), of the whole chunk or of a given span of its pages with a given
+  dictionary (the point lookup's page runs);
 - :func:`stage_plan`: the concatenated byte streams and the run tables go
   to the device;
 - :func:`decode_staged`: device decode into a :class:`Column`.  The dense
@@ -153,6 +154,10 @@ class _Plan:
     total_slots: int = 0
     total_values: int = 0
     dictionary_host: Optional[np.ndarray] = None
+    # True once a page's def levels are not the one all-present RLE run
+    # (v1) or its header counts nulls (v2): the pages whose levels the
+    # reference's host decode expands, giving the span a validity mask
+    defs_expanded: bool = False
     leaf = None
     physical: Optional[Type] = None
 
@@ -226,8 +231,11 @@ def _count_present(kinds, cnts, payloads, offs, body, width: int,
     return total + int(np.count_nonzero(vals == target))
 
 
-def build_plan(reader) -> _Plan:
-    """Host prescan of a chunk's pages into a staging plan."""
+def build_plan(reader, pages: Optional[Iterable] = None,
+               dictionary: Optional[np.ndarray] = None) -> _Plan:
+    """Host prescan of a chunk's pages into a staging plan: every page of
+    the chunk, or ``pages`` (data pages of one span) decoded with the
+    chunk's already-decoded ``dictionary``."""
     leaf = reader.leaf
     codec = reader.codec
     physical = Type(reader.meta.type)
@@ -240,8 +248,9 @@ def build_plan(reader) -> _Plan:
     plan = _Plan()
     plan.leaf = leaf
     plan.physical = physical
+    plan.dictionary_host = dictionary
 
-    for page in reader.pages():
+    for page in (reader.pages() if pages is None else pages):
         h = page.header
         pt = page.page_type
         if pt == PageType.DICTIONARY_PAGE:
@@ -268,6 +277,9 @@ def build_plan(reader) -> _Plan:
                 plan.levels.extend(body)
                 pos += 4 + length
                 n_present = _count_present(*scanned, body, 1, max_def)
+                single = _single_rle_run(body, n, 1)
+                if single is None or single[0] != 1:
+                    plan.defs_expanded = True
             _stage_values(plan, raw, pos, n_present, Encoding(dph.encoding),
                           physical)
             plan.total_slots += n
@@ -282,6 +294,7 @@ def build_plan(reader) -> _Plan:
                 body = payload[rl:rl + dl]
                 plan.def_runs.add(body, n, 1, len(plan.levels))
                 plan.levels.extend(body)
+                plan.defs_expanded |= bool(dph2.num_nulls)
             raw_body = payload[rl + dl:]
             if dph2.is_compressed is not False:
                 raw_body = codec.decode(raw_body,

@@ -1,4 +1,4 @@
-"""parquet_tpu_torch's CUDA kernels and device read on a card.
+"""parquet_tpu_torch's CUDA kernels, device read and point lookup on a card.
 
 These tests need a CUDA card and skip without one.  The file imports
 neither JAX nor parquet_tpu, so it runs on a machine that has only PyTorch:
@@ -74,7 +74,8 @@ def test_read_on_card_matches_cpu(cuda_device, version):
     pqt.reset_launches()
     got = f.read(device=cuda_device)
     torch.cuda.synchronize()
-    assert all(v > 0 for v in pqt.LAUNCHES.values()), pqt.LAUNCHES
+    read_kernels = ("unpack_bits_dense", "dict_unpack_gather")
+    assert all(pqt.LAUNCHES[k] > 0 for k in read_kernels), pqt.LAUNCHES
     for name in table:
         assert got[name].values.device.type == "cuda"
         assert torch.equal(got[name].values.cpu(), want[name].values)
@@ -82,3 +83,64 @@ def test_read_on_card_matches_cpu(cuda_device, version):
             assert got[name].validity is None
         else:
             assert torch.equal(got[name].validity.cpu(), want[name].validity)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("z", [1, 1024, 65_536, 1 << 22])
+def test_bloom_check_on_card(cuda_device, z):
+    """``bloom_check`` against its plain version and the numpy host probe,
+    hashes with all high bits set (the last block) among them."""
+    from parquet_tpu_torch.io.bloom import SplitBlockFilter
+
+    rng = np.random.default_rng(z)
+    n = (1 << 16) + 3
+    h = rng.integers(0, 2**64, n, dtype=np.uint64, endpoint=False)
+    h[::5] |= np.uint64(0xFFFFFFFF00000000)
+    blocks = (rng.integers(0, 2**32, (z, 8), dtype=np.uint64)
+              & rng.integers(0, 2**32, (z, 8), dtype=np.uint64)
+              ).astype(np.uint32)
+    f = SplitBlockFilter(blocks)
+    f.insert_hashes(h[::2])
+    filt = f.device_blocks(cuda_device)
+    hashes = torch.from_numpy(h.view(np.int64)).to(cuda_device)
+    before = kernels.LAUNCHES["bloom_check"]
+    got = kernels.bloom_check(filt, hashes)
+    assert kernels.LAUNCHES["bloom_check"] == before + 1
+    assert torch.equal(got, kernels.bloom_check_ref(filt, hashes))
+    np.testing.assert_array_equal(got.cpu().numpy(), f.check_hashes(h))
+
+
+@pytest.mark.cuda
+def test_find_rows_on_card_matches_cpu(cuda_device):
+    """A lookup whose row groups keep more than 32,768 keys after the
+    statistics stage probes with the kernel on the card, and equals the
+    same lookup on the CPU in hits and counters."""
+    rng = np.random.default_rng(3)
+    n = 80_000
+    table = {
+        "k": np.arange(n, dtype=np.int64) // 2 * 2,
+        "v": np.ma.masked_array(rng.random(n), mask=rng.random(n) < 0.05),
+        "c": np.ma.masked_array(rng.integers(0, 200, n).astype(np.int32),
+                                mask=rng.random(n) < 0.1),
+    }
+    buf = io.BytesIO()
+    pqt.write_table(table, buf, pqt.WriterOptions(
+        row_group_size=40_000, data_page_size=8192,
+        column_encoding={"c": Encoding.RLE_DICTIONARY},
+        bloom_filters={"k": 10}, sorting_columns=[("k", False, False)]))
+    keys = rng.permutation(np.arange(0, n, dtype=np.int64))
+    f = pqt.ParquetFile(buf.getvalue())
+    want = f.find_rows("k", keys, columns=["v", "c"], device="cpu")
+    pqt.reset_launches()
+    got = f.find_rows("k", keys, columns=["v", "c"], device=cuda_device)
+    assert pqt.LAUNCHES["bloom_check"] == 2
+    assert pqt.LAUNCHES["dict_unpack_gather"] > 0
+    assert got.counters == want.counters
+    assert got.counters["rows_matched"] == n
+    for g, w in zip(got, want):
+        assert np.array_equal(g.rows, w.rows)
+        for c in ("v", "c"):
+            assert np.array_equal(g.values[c], w.values[c])
+            assert (g.validity[c] is None) == (w.validity[c] is None)
+            if w.validity[c] is not None:
+                assert np.array_equal(g.validity[c], w.validity[c])

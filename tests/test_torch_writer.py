@@ -173,3 +173,100 @@ def test_page_headers_round_trip_between_the_two_thrift_modules():
     assert back.data_page_header.num_values == 5
     assert back.data_page_header.definition_level_encoding == 3
     assert tthrift.serialize(back) == jblob
+
+
+def test_indexes_filters_and_sorting_match_the_jax_writer(rng):
+    """The JAX reader parses the port-written chunk statistics, column and
+    offset indexes, bloom filters and ``sorting_columns``, and each equals
+    what the JAX writer writes for the same table.  Page offsets differ
+    (the two writers' page headers do), so each offset-index location is
+    checked to frame exactly one page header and its body."""
+    import pyarrow as pa
+
+    from parquet_tpu.format.enums import Encoding as JEncoding
+    from parquet_tpu.io.writer import WriterOptions as JWriterOptions
+    from parquet_tpu.io.writer import write_table as jwrite_table
+
+    n = 5000
+    table = {
+        "a": np.sort(rng.integers(-1000, 1000, n)).astype(np.int64),
+        "b": np.ma.masked_array(rng.random(n), mask=rng.random(n) < 0.2),
+        "c": np.ma.masked_array(rng.integers(0, 50, n).astype(np.int32),
+                                mask=rng.random(n) < 0.1),
+        "d": (rng.random(n) - 0.5).astype(np.float32),
+    }
+    table["b"].mask[1000:2500] = True  # null pages
+    blooms = {"a": 10, "b": 10, "c": 8}
+    sorting = [("a", False, False)]
+    buf = io.BytesIO()
+    pqt.write_table(table, buf, pqt.WriterOptions(
+        row_group_size=2000, data_page_size=1024, column_encoding={
+            "a": Encoding.DELTA_BINARY_PACKED, "b": Encoding.PLAIN,
+            "c": Encoding.RLE_DICTIONARY, "d": Encoding.PLAIN},
+        bloom_filters=blooms, sorting_columns=sorting))
+    arrow = pa.table({
+        k: (pa.array(np.asarray(v.data), mask=np.ma.getmaskarray(v))
+            if isinstance(v, np.ma.MaskedArray) else pa.array(v))
+        for k, v in table.items()})
+    jbuf = io.BytesIO()
+    jwrite_table(arrow, jbuf, JWriterOptions(
+        row_group_size=2000, data_page_size=1024, compression="uncompressed",
+        dictionary=["c"], column_encoding={"a": JEncoding.DELTA_BINARY_PACKED},
+        bloom_filters=blooms, sorting_columns=sorting))
+    data = buf.getvalue()
+    port = parquet_tpu.ParquetFile(data)
+    ref = parquet_tpu.ParquetFile(jbuf.getvalue())
+    orders = set()
+    for prg, jrg in zip(port.row_groups, ref.row_groups, strict=True):
+        assert prg.sorting_columns == jrg.sorting_columns
+        assert prg.sorting_columns[0].column_idx == 0
+        for i, name in enumerate(table):
+            pc, jc = prg.column(i), jrg.column(i)
+            assert pc.meta.statistics == jc.meta.statistics, name
+            assert pc.statistics() == jc.statistics(), name
+            assert pc.column_index() == jc.column_index(), name
+            orders.add(pc.column_index().boundary_order)
+            plocs = pc.offset_index().page_locations
+            jlocs = jc.offset_index().page_locations
+            assert ([p.first_row_index for p in plocs]
+                    == [p.first_row_index for p in jlocs]), name
+            for loc in plocs:
+                header, end = jthrift.deserialize(jmd.PageHeader, data,
+                                                  loc.offset)
+                assert (end - loc.offset + header.compressed_page_size
+                        == loc.compressed_page_size)
+            pb, jb = pc.bloom_filter(), jc.bloom_filter()
+            if name in blooms:
+                np.testing.assert_array_equal(pb.blocks, jb.blocks)
+            else:
+                assert pb is None and jb is None
+    assert orders == {0, 1}  # UNORDERED and ASCENDING both occur
+    # and the port reads back what it wrote
+    f = pqt.ParquetFile(data)
+    assert f.row_groups[0].sorting_columns == [tmd.SortingColumn(
+        column_idx=0, descending=False, nulls_first=False)]
+    assert tthrift.serialize(f.row_groups[1].column(2).column_index()) == \
+        jthrift.serialize(ref.row_groups[1].column(2).column_index())
+
+
+@pytest.mark.parametrize("value,physical", [
+    (-7, 1), (2**40, 2), (1.5, 4), (-0.0, 5), (float("inf"), 5)])
+def test_stat_values_encode_and_decode_as_jax(value, physical):
+    """Statistics bytes of each numeric type: the port's encoding equals
+    the JAX package's, and both decode them to the same order value."""
+    from parquet_tpu.format.enums import Type as JType
+    from parquet_tpu.io import statistics as jstats
+    from parquet_tpu.schema.schema import Leaf as JLeaf
+    from parquet_tpu.schema.schema import Node as JNode
+
+    from parquet_tpu_torch.format.enums import Type
+    from parquet_tpu_torch.io import statistics as tstats
+    from parquet_tpu_torch.schema.schema import Leaf
+
+    raw = tstats.encode_stat_value(value, Type(physical))
+    assert raw == jstats.encode_stat_value(value, JType(physical))
+    jleaf = JLeaf(0, ("x",), JNode("x", physical_type=JType(physical)), 0, 0)
+    got = tstats.decode_stat_value(raw, Leaf(0, "x", Type(physical)))
+    want = jstats.decode_stat_value(raw, jleaf)
+    assert type(got) is type(want) and repr(got) == repr(want)
+    assert tstats.encode_stat_value(None, Type(physical)) == b""
