@@ -12,9 +12,13 @@ Phases, each fatal on failure:
 3. kernels against their plain PyTorch versions, on the card, bit for bit:
    ``unpack_bits_dense`` at every width 1..32, ``dict_unpack_gather`` at
    w in {1, 8, 10} over int32/int64/float32/float64 dictionaries of 2, 200
-   and 1024 entries, and ``bloom_check`` at n in {32,768; 1,048,576;
-   8,388,608} hashes x z in {1; 1,024; 65,536; 4,194,304} filter blocks
-   (also against the numpy host probe), with median device times;
+   and 1024 entries, ``bloom_check`` (one filter) at n in {32,768;
+   1,048,576; 8,388,608} hashes x z in {1; 1,024; 65,536; 4,194,304}
+   filter blocks, and ``bloom_check_segments`` (many filters, one launch)
+   on the lookup's layout (8 filters of 65,536 blocks, 65,536 hashes each)
+   and on 64 filters of 1 to 65,536 blocks with uneven batches, some
+   empty (both bloom probes also against the numpy host probe of each
+   filter), with median device times;
 4. read path: the port's writer makes a 5-column file from ``--seed``
    (1,048,576-row row groups, 1 MiB pages, UNCOMPRESSED), and
    ``ParquetFile(path).read(device="cuda")`` decodes it once cold and
@@ -27,9 +31,10 @@ Phases, each fatal on failure:
    and a batch of ``--lookup-rows / 16`` distinct keys, one in eight
    present; ``find_rows("k", keys, columns=["v", "cat"], device="cuda")``
    runs once cold on a fresh handle and twice warm on the same one.  Every
-   key's rows, values and validity must equal a numpy oracle, each row
-   group's bloom stage must launch ``bloom_check`` once, and the counters
-   must equal the same lookup's on the CPU; then one warm lookup under
+   key's rows, values and validity must equal a numpy oracle, the bloom
+   stage of every row group together must launch ``bloom_check`` once per
+   lookup, and the counters must equal the same lookup's on the CPU; then
+   one warm lookup under
    per-stage timers (key preparation, statistics, bloom probe, page
    search, page fetch, matching, gather, assembly) and one under the
    profiler, for the device's idle share;
@@ -37,7 +42,8 @@ Phases, each fatal on failure:
    gives it, with its launches on that path, device time per launch
    (``ms``, profiler), time per wrapper call (``call_ms``, CUDA events, the
    host's dispatch included), bound, plain-version time and the device
-   time of the library call.
+   time of the library call; for ``bloom_check`` the lookup's segmented
+   probe, and beside it the one-filter launch at one row group's shape.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero before printing any result.  ``--out DIR`` also writes
@@ -159,11 +165,18 @@ def bloom_blocks(filt: torch.Tensor, hashes: torch.Tensor) -> torch.Tensor:
 
 
 def bloom_bound(filt: torch.Tensor, hashes: torch.Tensor) -> tuple:
-    # read each hash (8 B) and each filter block this data touches (32 B)
-    # once, write one byte per hash; ~30 integer operations per probe
+    return bloom_segments_bound([filt], hashes, [0, hashes.shape[0]])
+
+
+def bloom_segments_bound(filters, hashes: torch.Tensor, starts) -> tuple:
+    # read each hash (8 B), each distinct (filter, block) pair this data
+    # touches (32 B) and the segment table (20 B a segment, the single
+    # filter's included) once, write one byte per hash; ~30 integer
+    # operations per probe
     n = hashes.shape[0]
-    touched = int(torch.unique(bloom_blocks(filt, hashes)).numel())
-    return bound(9 * n + 32 * touched, 30 * n)
+    touched = sum(int(torch.unique(bloom_blocks(f, hashes[a:b])).numel())
+                  for f, a, b in zip(filters, starts, starts[1:]))
+    return bound(9 * n + 32 * touched + 20 * len(filters) + 8, 30 * n)
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +278,7 @@ def random_hashes(n: int, rng: np.random.Generator) -> np.ndarray:
 
 def host_probe(f: bloom.SplitBlockFilter, h: np.ndarray) -> np.ndarray:
     return np.concatenate([f.check_hashes(h[i:i + (1 << 20)])
-                           for i in range(0, len(h), 1 << 20)])
+                           for i in range(0, max(len(h), 1), 1 << 20)])
 
 
 def sweep_bloom(ns, zs, seed: int) -> list:
@@ -299,6 +312,78 @@ def sweep_bloom(ns, zs, seed: int) -> list:
                                     reps=3, warmup=1, batches=1),
                 "library_ms": device_ms(lambda: filt.index_select(0, blk)),
                 "bound_ms": b, "bound_by": by, "exact": True})
+    return rows
+
+
+def segmented_probe(filters, batches) -> tuple:
+    """The operands of one ``bloom_check_segments`` call: each filter's
+    device copy, every batch's hashes in one tensor on the card, and the
+    batches' starts (int64 on the CPU)."""
+    starts = np.zeros(len(batches) + 1, np.int64)
+    np.cumsum([len(h) for h in batches], out=starts[1:])
+    hashes = torch.from_numpy(np.concatenate(batches).view(np.int64)).to(
+        DEVICE)
+    return ([f.device_blocks(DEVICE) for f in filters], hashes,
+            torch.from_numpy(starts))
+
+
+def check_segmented(filters, batches, blocks, hashes, starts,
+                    what: str) -> torch.Tensor:
+    """``bloom_check_segments`` bit for bit against its plain version and
+    the numpy host probe of each segment's filter; returns the kernel's
+    result."""
+    got = kernels.bloom_check_segments(blocks, hashes, starts)
+    want = kernels.bloom_check_segments_ref(blocks, hashes, starts)
+    host = np.concatenate([host_probe(f, h) for f, h in zip(filters,
+                                                             batches)])
+    if not torch.equal(got, want) or not np.array_equal(got.cpu().numpy(),
+                                                        host):
+        raise AssertionError(f"bloom_check_segments {what}: mismatch")
+    return got
+
+
+def segmented_times(blocks, hashes, starts) -> dict:
+    """Device and call times of one ``bloom_check_segments``, its bound,
+    its plain version, and the library gather of the same blocks from the
+    concatenated filters (``index_select``, the gather alone)."""
+    st = starts.tolist()
+    cat = torch.cat(blocks)
+    base = np.cumsum([0] + [b.shape[0] for b in blocks[:-1]])
+    idx = torch.cat([int(o) + bloom_blocks(b, hashes[a:e])
+                     for o, b, a, e in zip(base, blocks, st, st[1:])])
+    b, by = bloom_segments_bound(blocks, hashes, st)
+    call = lambda: kernels.bloom_check_segments(  # noqa: E731
+        blocks, hashes, starts)
+    return {"ms": device_ms(call, "bloom_check_kernel"),
+            "call_ms": time_ms(call),
+            "plain_ms": time_ms(lambda: kernels.bloom_check_segments_ref(
+                blocks, hashes, starts), reps=3, warmup=1, batches=1),
+            "library_ms": device_ms(lambda: cat.index_select(0, idx)),
+            "bound_ms": b, "bound_by": by}
+
+
+def sweep_bloom_segments(seed: int) -> list:
+    """``bloom_check_segments`` on the lookup's layout (8 filters of 65,536
+    blocks, 65,536 hashes each) and on 64 filters of 1 to 65,536 blocks
+    with uneven batches (every 9th empty, most not a multiple of 4).  Half
+    of each batch is in its filter."""
+    rng = np.random.default_rng(seed + 4)
+    cases = {"lookup_layout": ([65_536] * 8, [65_536] * 8)}
+    sizes = rng.integers(1, 40_000, 64)
+    sizes[::9] = 0
+    cases["many_segments"] = ([1 << (i % 17) for i in range(64)],
+                              sizes.tolist())
+    rows = []
+    for name, (zs, ns) in cases.items():
+        batches = [random_hashes(n, rng) for n in ns]
+        filters = [random_filter(z, rng, h[::2]) for z, h in zip(zs, batches)]
+        blocks, hashes, starts = segmented_probe(filters, batches)
+        got = check_segmented(filters, batches, blocks, hashes, starts, name)
+        rows.append({"kernel": "bloom_check_segments", "case": name,
+                     "segments": len(zs), "n": hashes.shape[0],
+                     "hit_share": float(got.float().mean()),
+                     **segmented_times(blocks, hashes, starts),
+                     "exact": True})
     return rows
 
 
@@ -463,11 +548,14 @@ def device_times_us(prof) -> dict:
 
 
 def device_ms(fn, kernel: str = "", reps: int = 20, tries: int = 3):
-    """Device milliseconds per call of ``fn``: the time of the device
-    events whose name holds ``kernel`` (all of them by default), from the
-    profiler, the host's dispatch left out.  The profiler now and then
-    records no device events for a window, so a window without them is
-    profiled again, up to ``tries`` times; None where none had any."""
+    """Device milliseconds per call of ``fn``, a call that launches one
+    device kernel whose name holds ``kernel`` (any name by default): the
+    mean duration of those kernels over ``reps`` calls, from the profiler,
+    the host's dispatch left out.  The profiler drops some of a window's
+    device events now and then (more often after a long profiled session),
+    so the mean is over the events it recorded, and a window that recorded
+    fewer than half of them is profiled again, up to ``tries`` times; None
+    where no window did."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -475,9 +563,14 @@ def device_ms(fn, kernel: str = "", reps: int = 20, tries: int = 3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(v for k, v in device_times_us(prof).items() if kernel in k)
-        if us > 0:
-            return us / reps / 1e3
+        us, events = 0.0, 0
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0 and kernel in e.key):
+                us += e.self_device_time_total
+                events += e.count
+        if events >= reps / 2:
+            return us / events / 1e3
     return None
 
 
@@ -552,7 +645,7 @@ class PhaseTimer:
     STAGES = (
         (lookup, "_prepare_keys", "prepare"),
         (lookup, "_stats_alive", "stats"),
-        (bloom.SplitBlockFilter, "check_hashes_batch", "bloom"),
+        (bloom, "check_hashes_multi", "bloom"),
         (lookup, "_page_ords_of_keys", "page_search"),
         (lookup._PageFetcher, "fetch", "fetch"),
         (lookup, "_match_keys", "match"),
@@ -563,7 +656,8 @@ class PhaseTimer:
     def __init__(self):
         self.seconds = {name: 0.0 for _, _, name in self.STAGES}
         self.calls = {name: 0 for _, _, name in self.STAGES}
-        self.first_bloom = None  # (filter, hashes) of the first probe
+        # (filters, hash batches) of the first segmented bloom probe
+        self.first_bloom = None
         self._stack = []
         self._saved = []
 
@@ -606,8 +700,8 @@ def timed_lookup(f, keys: np.ndarray, device) -> tuple:
 
 
 def lookup_path(rows: int, seed: int, tmp: str) -> tuple:
-    """The lookup path at full size; returns its report, its launches and
-    the first row group's bloom probe (filter, surviving hashes)."""
+    """The lookup path at full size; returns its launches and one
+    lookup's segmented bloom probe (filters, surviving hashes of each)."""
     table = make_lookup_table(rows, seed)
     keys = make_keys(rows, seed)
     path = os.path.join(tmp, "lookup.parquet")
@@ -630,12 +724,11 @@ def lookup_path(rows: int, seed: int, tmp: str) -> tuple:
         warm.append(s)
     launches = dict(pq.LAUNCHES)
     check_lookup(res, keys, table)
-    if cold_launches != row_groups or launches["bloom_check"] != 3 * \
-            row_groups:
+    if cold_launches != 1 or launches["bloom_check"] != 3:
         raise AssertionError(
             f"bloom_check launched {cold_launches} then "
             f"{launches['bloom_check']} times over 3 lookups of "
-            f"{row_groups} row groups: one launch per row group expected")
+            f"{row_groups} row groups: one launch per lookup expected")
     for name in LOOKUP_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the "
@@ -685,9 +778,9 @@ def main_shape_kernels(table: dict, launches: dict, lookup_launches: dict,
     """Each kernel at the shapes one row group's chunk gives it on its
     path: on the read path ``k`` (1,048,576 indexes at w=15, unfused:
     20,000-entry dictionary) and ``cat`` (its present values at w=8,
-    200-entry int32 dictionary); on the lookup path the first row group's
-    bloom probe (``probe``: its filter and the hashes of the keys that
-    survive the statistics stage)."""
+    200-entry int32 dictionary); on the lookup path one lookup's
+    segmented bloom probe (``probe``: every row group's filter and the
+    hashes of the keys that survive its statistics stage)."""
     out = []
     n = min(ROW_GROUP, len(table["k"]))
     w = 15
@@ -735,31 +828,33 @@ def main_shape_kernels(table: dict, launches: dict, lookup_launches: dict,
         "library_ms": device_ms(lambda: dictionary[idx]),
         "shape": {"n": n, "w": w, "d": d, "dtype": "int32"}})
 
-    filt_obj, hashes = probe
-    filt = filt_obj.device_blocks(DEVICE)
-    h = torch.from_numpy(np.ascontiguousarray(hashes).view(np.int64)).to(
-        DEVICE)
-    got = kernels.bloom_check(filt, h)
-    want = kernels.bloom_check_ref(filt, h)
-    if not np.array_equal(got.cpu().numpy(), filt_obj.check_hashes(hashes)):
-        raise AssertionError("bloom_check differs from the host probe at "
-                             "the lookup's shape")
-    blk = bloom_blocks(filt, h)
-    b, by = bloom_bound(filt, h)
+    filters, batches = probe
+    blocks, h, starts = segmented_probe(filters, batches)
+    got = check_segmented(filters, batches, blocks, h, starts,
+                          "at the lookup's shape")
+    want = kernels.bloom_check_segments_ref(blocks, h, starts)
+    # the one-filter launch at one row group's shape (the lookup's launch
+    # before the probe was segmented)
+    n0 = int(starts[1])
+    one = kernels.bloom_check(blocks[0], h[:n0])
+    b1, by1 = bloom_bound(blocks[0], h[:n0])
     out.append({
         "name": "bloom_check", "route": "cuda",
         "source": "parquet_tpu_torch/csrc/bloom_check.cu",
         "replaces": "parquet_tpu/ops/pallas_kernels.py:216",
         "launches": lookup_launches["bloom_check"],
-        "max_abs_err": max_abs_err(got, want),
-        "ms": device_ms(lambda: kernels.bloom_check(filt, h),
-                        "bloom_check_kernel"),
-        "call_ms": time_ms(lambda: kernels.bloom_check(filt, h)),
-        "plain_ms": time_ms(lambda: kernels.bloom_check_ref(filt, h),
-                            reps=3, warmup=1, batches=1),
-        "bound_ms": b, "bound_by": by,
-        "library_ms": device_ms(lambda: filt.index_select(0, blk)),
-        "shape": {"n": h.shape[0], "z": filt.shape[0]}})
+        "max_abs_err": max(max_abs_err(got, want),
+                           max_abs_err(one, got[:n0])),
+        **segmented_times(blocks, h, starts),
+        "shape": {"n": h.shape[0], "segments": len(blocks),
+                  "z": sorted({b.shape[0] for b in blocks})},
+        "one_filter": {
+            "n": n0, "z": blocks[0].shape[0],
+            "ms": device_ms(lambda: kernels.bloom_check(blocks[0], h[:n0]),
+                            "bloom_check_kernel"),
+            "call_ms": time_ms(lambda: kernels.bloom_check(blocks[0],
+                                                           h[:n0])),
+            "bound_ms": b1, "bound_by": by1}})
     for k in out:
         k["launches_by_path"] = {"read": launches[k["name"]],
                                  "lookup": lookup_launches[k["name"]]}
@@ -799,6 +894,7 @@ def main(argv=None) -> int:
     sweep += sweep_dict(args.kernel_values, gen)
     sweep += sweep_bloom([n for n in BLOOM_N if n <= args.kernel_values]
                          or [args.kernel_values], BLOOM_Z, args.seed)
+    sweep += sweep_bloom_segments(args.seed)
     for row in sweep:
         log(row)
 

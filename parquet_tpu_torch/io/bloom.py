@@ -10,15 +10,16 @@ little-endian uint32 words; a value's xxh64 ``h`` picks block
 
 :meth:`SplitBlockFilter.check_hashes_batch` routes as the reference does,
 by batch size only: a batch of at least ``_DEVICE_PROBE_MIN`` hashes goes to
-the device probe (:func:`~parquet_tpu_torch.ops.kernels.bloom_check` on the
+the device probe, a smaller one to the numpy probe on the host.  The device
+probe, :func:`check_hashes_multi`, tests the batches of many filters in one
+:func:`~parquet_tpu_torch.ops.kernels.bloom_check_segments` call on the
 caller's device: the CUDA kernel for a card, its plain version for the
-CPU), a smaller one to the numpy probe on the host.  A failed build or
-launch of the kernel raises; nothing falls back.
+CPU.  A failed build or launch of the kernel raises; nothing falls back.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -141,30 +142,19 @@ class SplitBlockFilter:
             got = self._blocks_dev[key] = host.to(key)
         return got
 
-    def check_hashes_device(self, hashes: np.ndarray,
-                            device="cuda") -> torch.Tensor:
-        """The batched probe on ``device``: the hashes go there, and
-        ``kernels.bloom_check`` picks, gathers and tests each block against
-        the filter's device copy.  Returns a bool tensor on ``device``."""
-        from ..ops import kernels
-
-        blocks = self.device_blocks(device)
-        h = torch.from_numpy(
-            np.ascontiguousarray(hashes, dtype=np.uint64).view(np.int64))
-        return kernels.bloom_check(blocks, h.to(blocks.device))
-
     def check_hashes_batch(self, hashes: np.ndarray,
                            prefer_device: Optional[bool] = None,
                            device="cuda") -> np.ndarray:
         """Probe many hashes; returns host bool numpy.  A batch of at least
         ``_DEVICE_PROBE_MIN`` hashes (or any batch with
-        ``prefer_device=True``) takes the device probe on ``device``; the
-        rest the numpy probe."""
+        ``prefer_device=True``) takes the device probe on ``device``
+        (:func:`check_hashes_multi` with this one filter); the rest the
+        numpy probe."""
         use_dev = prefer_device
         if use_dev is None:
             use_dev = len(hashes) >= self._DEVICE_PROBE_MIN
         if use_dev:
-            return self.check_hashes_device(hashes, device).cpu().numpy()
+            return check_hashes_multi([self], [hashes], device)[0]
         return self.check_hashes(hashes)
 
     def to_bytes(self) -> bytes:
@@ -183,6 +173,35 @@ class SplitBlockFilter:
         blocks = np.frombuffer(raw[pos:pos + n],
                                dtype="<u4").reshape(-1, 8).copy()
         return cls(blocks)
+
+
+def check_hashes_multi(filters: Sequence[SplitBlockFilter],
+                       hash_batches: Sequence[np.ndarray],
+                       device="cuda") -> List[np.ndarray]:
+    """Probe ``hash_batches[j]`` (uint64 numpy) against ``filters[j]``, all
+    of them in one pass on ``device``: the batches go into one (pinned, on a
+    card) host buffer and reach the device in one copy, one
+    :func:`~parquet_tpu_torch.ops.kernels.bloom_check_segments` call tests
+    them against the filters' cached device copies, and one copy brings the
+    results back.  Returns one host bool array per batch."""
+    from ..ops import kernels
+
+    if not filters:
+        return []
+    blocks = [f.device_blocks(device) for f in filters]
+    dev = blocks[0].device
+    lens = [len(h) for h in hash_batches]
+    starts = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=starts[1:])
+    host = torch.empty(int(starts[-1]), dtype=torch.int64,
+                       pin_memory=dev.type == "cuda")
+    flat = host.numpy()
+    for h, a, b in zip(hash_batches, starts[:-1], starts[1:]):
+        flat[a:b] = np.asarray(h, dtype=np.uint64).view(np.int64)
+    hit = kernels.bloom_check_segments(
+        blocks, host.to(dev, non_blocking=True), torch.from_numpy(starts))
+    hit = hit.cpu().numpy()
+    return [hit[a:b] for a, b in zip(starts[:-1], starts[1:])]
 
 
 def hash_values(leaf: Leaf, values) -> np.ndarray:

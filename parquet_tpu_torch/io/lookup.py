@@ -2,14 +2,16 @@
 
 The port of ``parquet_tpu/io/lookup.py::find_rows`` for flat
 INT32/INT64/FLOAT/DOUBLE key columns.  Each row group runs the reference's
-cheapest-first cascade, in the same order and with the same counters:
+cheapest-first cascade, with the same counters:
 
 1. chunk statistics (no IO): keys outside [min, max], and every key of an
    all-null chunk, are pruned;
-2. the bloom filter, probed once with the hashes of every surviving key
-   (:meth:`~parquet_tpu_torch.io.bloom.SplitBlockFilter.check_hashes_batch`:
-   a batch of 32,768 hashes or more runs the ``bloom_check`` CUDA kernel on
-   the lookup's device);
+2. the bloom filter, probed once with the hashes of every surviving key.
+   Stages 1 and 2 run over every row group first, so that the row groups
+   whose batch has 32,768 hashes or more are probed together: one
+   :func:`~parquet_tpu_torch.io.bloom.check_hashes_multi`, one launch of
+   the ``bloom_check`` CUDA kernel per lookup on the lookup's device; a
+   smaller batch takes the numpy probe, as in the reference;
 3. the page index: a binary search (:func:`~.search.find`) per key on a
    cleanly ordered index, the zone-map walk otherwise;
 4. page reads: the needed pages of a chunk coalesce into runs of adjacent
@@ -293,7 +295,7 @@ class _PageFetcher:
 
 
 # ---------------------------------------------------------------------------
-# the cascade, one row group at a time
+# the cascade: stages 1-2 over every row group, then the rest per row group
 # ---------------------------------------------------------------------------
 
 
@@ -451,32 +453,64 @@ def _sorted_page_hits(key, entry: _PageEntry,
     return a + np.arange(lo, hi, dtype=np.int64)
 
 
-def _lookup_rg(rg, leaf, prep: _PreparedKeys, out_leaves,
+def _prune_row_groups(row_groups, leaf, prep: _PreparedKeys,
+                      counters: Dict[str, int], device
+                      ) -> List[np.ndarray]:
+    """Stages 1 and 2 over every row group: the uniq ordinals alive in each
+    after its chunk statistics and its bloom filter.  Each row group's
+    surviving hashes are one probe, routed by size alone as the reference
+    routes them: the batches of at least ``_DEVICE_PROBE_MIN`` hashes are
+    probed together by one :func:`~.bloom.check_hashes_multi` on
+    ``device``, the others by the numpy probe.  A row group that the
+    statistics prune entirely reads no filter."""
+    from . import bloom
+
+    alive_by_rg: List[np.ndarray] = []
+    on_device = []  # (row group ordinal, filter, hashes)
+    for rg in row_groups:
+        chunk = rg.column(leaf.column_index)
+        alive = np.arange(len(prep.uniq), dtype=np.int64)
+        # ---- stage 1: chunk statistics (no IO)
+        keep = _stats_alive(chunk.statistics(), chunk.meta.num_values, prep,
+                            alive)
+        counters["keys_pruned_stats"] += int(len(alive) - keep.sum())
+        alive = alive[keep]
+        # ---- stage 2: the bloom filter, every surviving key in one probe
+        bf = (chunk.bloom_filter() if len(alive) and prep.hashes is not None
+              else None)
+        if bf is not None:
+            hashes = prep.hashes[alive]
+            if len(hashes) >= bf._DEVICE_PROBE_MIN:
+                on_device.append((len(alive_by_rg), bf, hashes))
+            else:
+                alive = _bloom_survivors(alive, bf.check_hashes(hashes),
+                                         counters)
+        alive_by_rg.append(alive)
+    if on_device:
+        keeps = bloom.check_hashes_multi([bf for _, bf, _ in on_device],
+                                         [h for _, _, h in on_device], device)
+        for (j, _, _), keep in zip(on_device, keeps):
+            alive_by_rg[j] = _bloom_survivors(alive_by_rg[j], keep, counters)
+    return alive_by_rg
+
+
+def _bloom_survivors(alive: np.ndarray, keep: np.ndarray,
+                     counters: Dict[str, int]) -> np.ndarray:
+    counters["keys_pruned_bloom"] += int((~keep).sum())
+    return alive[keep]
+
+
+def _lookup_rg(rg, leaf, prep: _PreparedKeys, alive: np.ndarray, out_leaves,
                counters: Dict[str, int], device):
-    """Probe, match and gather one row group.  Returns ``(rows, cols)``:
-    ``rows[u]`` the local row ordinals of uniq key ``u`` and
-    ``cols[u][name]`` its ``(values, validity)``; None when no key
-    matched."""
+    """Match and gather one row group's ``alive`` keys (the survivors of
+    :func:`_prune_row_groups`).  Returns ``(rows, cols)``: ``rows[u]`` the
+    local row ordinals of uniq key ``u`` and ``cols[u][name]`` its
+    ``(values, validity)``; None when no key matched."""
     from ..parallel.host_scan import aligned_key_mask
 
-    chunk = rg.column(leaf.column_index)
-    alive = np.arange(len(prep.uniq), dtype=np.int64)
-    # ---- stage 1: chunk statistics (no IO)
-    keep = _stats_alive(chunk.statistics(), chunk.meta.num_values, prep,
-                        alive)
-    counters["keys_pruned_stats"] += int(len(alive) - keep.sum())
-    alive = alive[keep]
     if not len(alive):
         return None
-    # ---- stage 2: the bloom filter, every surviving key in one probe
-    if prep.hashes is not None:
-        bf = chunk.bloom_filter()
-        if bf is not None:
-            keep = bf.check_hashes_batch(prep.hashes[alive], device=device)
-            counters["keys_pruned_bloom"] += int((~keep).sum())
-            alive = alive[keep]
-            if not len(alive):
-                return None
+    chunk = rg.column(leaf.column_index)
     # ---- stage 3: the page index, then page reads
     ci = chunk.column_index()
     oi = chunk.offset_index()
@@ -622,16 +656,19 @@ def find_rows(pf, path: str, keys, columns: Optional[Sequence[str]] = None,
     counters["keys"] = len(keys)
     prep = _prepare_keys(leaf, keys)
     per_uniq: Dict[int, List[tuple]] = {}
-    rg_base = 0
-    for rg in pf.row_groups:
-        if prep.uniq:
-            got = _lookup_rg(rg, leaf, prep, out_leaves, counters, dev)
+    if prep.uniq:
+        row_groups = pf.row_groups
+        rg_base = 0
+        for rg, alive in zip(row_groups, _prune_row_groups(
+                row_groups, leaf, prep, counters, dev)):
+            got = _lookup_rg(rg, leaf, prep, alive, out_leaves, counters,
+                             dev)
             if got is not None:
                 rows_map, cols_map = got
                 for u, rows in rows_map.items():
                     per_uniq.setdefault(u, []).append(
                         (rows + rg_base, cols_map[u]))
-        rg_base += rg.num_rows
+            rg_base += rg.num_rows
     return LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
                         counters)
 

@@ -36,6 +36,7 @@ SIGNATURES = {
     },
     "bloom_check": {
         "pq_bloom_check": (_I, [_P, _LL, _P, _P, _LL, _P]),
+        "pq_bloom_check_segments": (_I, [_P, _P, _I, _P, _P, _LL, _P]),
     },
 }
 

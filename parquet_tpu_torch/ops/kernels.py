@@ -9,14 +9,16 @@ The port of ``parquet_tpu/ops/pallas_kernels.py``:
 - :func:`dict_unpack_gather` (``csrc/dict_unpack_gather.cu``) replaces the
   Pallas ``dict_unpack_gather``: the same unpack fused with a gather from a
   dictionary of at most 1024 entries, so the indexes never reach memory;
-- :func:`bloom_check` (``csrc/bloom_check.cu``) replaces the Pallas
-  ``bloom_check_blocks`` and the XLA block gather before it: the split-block
-  bloom filter probe of 64-bit hashes against a filter resident on the
-  device, block index, gather and salted bit tests in one pass.
+- :func:`bloom_check_segments` (``csrc/bloom_check.cu``) replaces the
+  Pallas ``bloom_check_blocks`` and the XLA block gather before it: the
+  split-block bloom filter probe of 64-bit hashes against filters resident
+  on the device, block index, gather and salted bit tests in one pass, many
+  filters' probes in one launch; :func:`bloom_check` is its one-filter
+  call.
 
 A wrapper given a CPU tensor runs the plain version beside it
 (:func:`unpack_bits_dense_ref`, :func:`dict_unpack_gather_ref`,
-:func:`bloom_check_ref`); given a
+:func:`bloom_check_ref`, :func:`bloom_check_segments_ref`); given a
 CUDA tensor it launches its kernel on the current stream or raises.  Each
 wrapper adds one to ``LAUNCHES[<kernel>]`` where it launches, and nowhere
 else.
@@ -24,6 +26,9 @@ else.
 
 from __future__ import annotations
 
+from typing import List, Sequence
+
+import numpy as np
 import torch
 
 from . import _build
@@ -179,8 +184,7 @@ BLOOM_SALT = (0x47B6137B, 0x44974D91, 0x8824AD5B, 0xA2B7289D,
               0x705495C7, 0x2DF1424B, 0x9EFC4947, 0x5C6BFB31)
 
 
-def _check_bloom_operands(filter_blocks: torch.Tensor,
-                          hashes: torch.Tensor) -> None:
+def _check_filter(filter_blocks: torch.Tensor) -> None:
     if (filter_blocks.dim() != 2 or filter_blocks.shape[1] != 8
             or filter_blocks.dtype not in (torch.int32, torch.uint32)):
         raise TypeError("bloom filter must be an int32/uint32 tensor of shape "
@@ -189,10 +193,35 @@ def _check_bloom_operands(filter_blocks: torch.Tensor,
     if not 1 <= filter_blocks.shape[0] <= 1 << 31:
         raise ValueError(f"bloom filter of {filter_blocks.shape[0]} blocks: "
                          "1..2^31 are supported")
+
+
+def _check_hashes(hashes: torch.Tensor) -> None:
     if hashes.dim() != 1 or hashes.dtype not in (torch.int64, torch.uint64):
         raise TypeError("hashes must be a 1-D int64/uint64 tensor (the uint64 "
                         f"bit patterns), got {hashes.dtype} of shape "
                         f"{tuple(hashes.shape)}")
+
+
+def _check_bloom_operands(filter_blocks: torch.Tensor,
+                          hashes: torch.Tensor) -> None:
+    _check_filter(filter_blocks)
+    _check_hashes(hashes)
+
+
+def _check_card_operands(filters, hashes: torch.Tensor) -> None:
+    """The kernel reads every filter and the hashes as 16-byte vectors in
+    place: each must lie on the hashes' card, contiguous and 16-byte
+    aligned (a view such as ``hashes[1:]`` is not)."""
+    if hashes.device.type != "cuda" or any(f.device != hashes.device
+                                           for f in filters):
+        raise ValueError("bloom_check runs on cuda or cpu tensors of one "
+                         f"device, not {[str(f.device) for f in filters]}/"
+                         f"{hashes.device}")
+    for what, t in [("hashes", hashes)] + [("bloom filter", f)
+                                           for f in filters]:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} must be contiguous and 16-byte aligned "
+                             "for the kernel's vector loads")
 
 
 def bloom_check_ref(filter_blocks: torch.Tensor,
@@ -221,18 +250,12 @@ def bloom_check(filter_blocks: torch.Tensor,
     """Probe a split-block bloom filter (``filter_blocks``: z blocks of 8
     32-bit words) with 64-bit xxhashes (``hashes``, int64 holding the
     uint64 bit patterns).  Returns bool[n]: False where the filter proves
-    the value absent."""
+    the value absent.  On the card, the one-segment launch of the kernel
+    that :func:`bloom_check_segments` launches."""
     _check_bloom_operands(filter_blocks, hashes)
     if hashes.device.type == "cpu" and filter_blocks.device.type == "cpu":
         return bloom_check_ref(filter_blocks, hashes)
-    if hashes.device.type != "cuda" or filter_blocks.device != hashes.device:
-        raise ValueError(f"bloom_check runs on cuda or cpu tensors of one "
-                         f"device, not {filter_blocks.device}/{hashes.device}")
-    filter_blocks = filter_blocks.contiguous()
-    hashes = hashes.contiguous()
-    if filter_blocks.data_ptr() % 16:
-        raise ValueError("bloom filter storage must be 16-byte aligned for "
-                         "the kernel's vector loads")
+    _check_card_operands([filter_blocks], hashes)
     n = hashes.shape[0]
     out = torch.empty(n, dtype=torch.bool, device=hashes.device)
     if n == 0:
@@ -243,6 +266,95 @@ def bloom_check(filter_blocks: torch.Tensor,
         rc = lib.pq_bloom_check(filter_blocks.data_ptr(),
                                 filter_blocks.shape[0], hashes.data_ptr(),
                                 out.data_ptr(), n, stream)
+    _raise_on_error(rc, "bloom_check")
+    LAUNCHES["bloom_check"] += 1
+    return out
+
+
+def _check_segment_operands(filters: Sequence[torch.Tensor],
+                            hashes: torch.Tensor,
+                            starts: torch.Tensor) -> List[int]:
+    """Check the segmented probe's operands; returns ``starts`` as a
+    list."""
+    if not isinstance(filters, (list, tuple)) or not filters:
+        raise ValueError("bloom_check_segments needs a list of at least one "
+                         "filter")
+    for f in filters:
+        _check_filter(f)
+    _check_hashes(hashes)
+    if (not isinstance(starts, torch.Tensor) or starts.dtype != torch.int64
+            or starts.dim() != 1 or starts.device.type != "cpu"):
+        raise TypeError("starts must be a 1-D int64 tensor on the CPU")
+    if starts.shape[0] != len(filters) + 1:
+        raise ValueError(f"{len(filters)} filter(s) need {len(filters) + 1} "
+                         f"starts, got {starts.shape[0]}")
+    st = starts.tolist()
+    if st[0] != 0 or st[-1] != hashes.shape[0]:
+        raise ValueError(f"starts must run from 0 to the {hashes.shape[0]} "
+                         f"hashes, not from {st[0]} to {st[-1]}")
+    if any(b < a for a, b in zip(st, st[1:])):
+        raise ValueError(f"starts must ascend: {st}")
+    return st
+
+
+def bloom_check_segments_ref(filters: Sequence[torch.Tensor],
+                             hashes: torch.Tensor,
+                             starts: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`bloom_check_segments`:
+    :func:`bloom_check_ref` per segment."""
+    st = _check_segment_operands(filters, hashes, starts)
+    out = torch.empty(hashes.shape[0], dtype=torch.bool, device=hashes.device)
+    for f, a, b in zip(filters, st, st[1:]):
+        if b > a:
+            out[a:b] = bloom_check_ref(f, hashes[a:b])
+    return out
+
+
+def _segment_table(filters: Sequence[torch.Tensor],
+                   starts: List[int]) -> torch.Tensor:
+    """The kernel's segment table (``Tables`` in ``csrc/bloom_check.cu``)
+    in one pinned host tensor: the filters' base addresses, the nseg + 1
+    starts, then the block counts as uint32."""
+    nseg = len(filters)
+    host = torch.zeros(2 * nseg + 1 + (nseg + 1) // 2, dtype=torch.int64,
+                       pin_memory=True)
+    words = host.numpy()
+    words[:nseg] = [f.data_ptr() for f in filters]
+    words[nseg:2 * nseg + 1] = starts
+    words[2 * nseg + 1:].view(np.uint32)[:nseg] = [f.shape[0]
+                                                   for f in filters]
+    return host
+
+
+def bloom_check_segments(filters: Sequence[torch.Tensor],
+                         hashes: torch.Tensor,
+                         starts: torch.Tensor) -> torch.Tensor:
+    """Probe many split-block bloom filters in one pass: hash ``i`` is
+    tested against ``filters[s]`` (int32/uint32 ``(z_s, 8)``) where
+    ``starts[s] <= i < starts[s + 1]``.  ``hashes`` is int64[n] (the uint64
+    bit patterns); ``starts`` int64[len(filters) + 1] on the CPU, ascending
+    from 0 to n.  Returns bool[n].  On the card: one launch, whatever the
+    number of filters."""
+    st = _check_segment_operands(filters, hashes, starts)
+    if hashes.device.type == "cpu" and all(f.device.type == "cpu"
+                                           for f in filters):
+        return bloom_check_segments_ref(filters, hashes, starts)
+    _check_card_operands(filters, hashes)
+    n = hashes.shape[0]
+    out = torch.empty(n, dtype=torch.bool, device=hashes.device)
+    if n == 0:
+        return out
+    lib = _build.load("bloom_check")
+    with torch.cuda.device(hashes.device):
+        # ``host`` and ``table`` stay referenced until the launch is
+        # ordered on the stream; the caching allocators keep their storage
+        # until the stream has used it
+        host = _segment_table(filters, st)
+        table = host.to(hashes.device, non_blocking=True)
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.pq_bloom_check_segments(table.data_ptr(), host.data_ptr(),
+                                         len(filters), hashes.data_ptr(),
+                                         out.data_ptr(), n, stream)
     _raise_on_error(rc, "bloom_check")
     LAUNCHES["bloom_check"] += 1
     return out

@@ -1,7 +1,7 @@
-"""parquet_tpu_torch's bloom filters and its ``bloom_check`` plain version
-against the JAX package's: xxhash, filter sizes and bitset bytes, the host
-probe, the jnp device probe and the Pallas ``bloom_check_blocks`` kernel in
-interpret mode, all exact."""
+"""parquet_tpu_torch's bloom filters and its ``bloom_check`` and
+``bloom_check_segments`` plain versions against the JAX package's: xxhash,
+filter sizes and bitset bytes, the host probe, the jnp device probe and the
+Pallas ``bloom_check_blocks`` kernel in interpret mode, all exact."""
 
 import numpy as np
 import pytest
@@ -39,6 +39,20 @@ def _filter(z: int, seed: int, hashes: np.ndarray) -> tbloom.SplitBlockFilter:
     f = tbloom.SplitBlockFilter(blocks)
     f.insert_hashes(hashes[::2])
     return f
+
+
+def _pallas_probe(blocks: np.ndarray, h: np.ndarray) -> np.ndarray:
+    """The Pallas ``bloom_check_blocks`` in interpret mode on the blocks
+    that ``h`` picks, gathered as the reference's ``jnp.take`` gathers
+    them."""
+    import jax.numpy as jnp
+
+    z = blocks.shape[0]
+    block = (((h >> np.uint64(32)) * np.uint64(z)) >> np.uint64(32)
+             ).astype(np.int64)
+    gathered = jnp.asarray(blocks[block])
+    low = jnp.asarray((h & M32).astype(np.uint32))
+    return np.asarray(pk.bloom_check_blocks(gathered, low, interpret=True))
 
 
 @pytest.mark.parametrize("dtype", [np.int64, np.float64, np.int32,
@@ -92,21 +106,61 @@ def test_device_probe_matches_jax_three_ways(z, n):
     """``check_hashes_batch(prefer_device=True, device="cpu")`` runs
     ``bloom_check_ref``; it equals the reference's host probe, its jnp
     device probe and the Pallas kernel in interpret mode."""
-    import jax.numpy as jnp
-
     h = _hashes(n, seed=z + n)
     f = _filter(z, seed=z, hashes=h)
     got = f.check_hashes_batch(h, prefer_device=True, device="cpu")
     jf = jbloom.SplitBlockFilter(f.blocks.copy())
     np.testing.assert_array_equal(got, jf.check_hashes(h))
     np.testing.assert_array_equal(got, np.asarray(jf.check_hashes_device(h)))
-    block = (((h >> np.uint64(32)) * np.uint64(z)) >> np.uint64(32)
-             ).astype(np.int64)
-    gathered = jnp.asarray(f.blocks[block])
-    low = jnp.asarray((h & M32).astype(np.uint32))
-    pallas = np.asarray(pk.bloom_check_blocks(gathered, low, interpret=True))
-    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, _pallas_probe(f.blocks, h))
     assert 0 < got.sum() < n or z == 1
+
+
+# (blocks, hashes) per segment: one segment; eight equal ones; uneven ones
+# with empty ones among them; z = 1 beside z = 65,536; batch sizes that are
+# not multiples of 4
+SEGMENT_LAYOUTS = {
+    "one": [(1024, 6_000)],
+    "eight_equal": [(65_536, 4_096)] * 8,
+    "uneven_with_empty": [(64, 0), (1024, 3_003), (1, 0), (4096, 17),
+                          (65_536, 9_001), (256, 0)],
+    "z1_beside_z65536": [(1, 2_999), (65_536, 3_001), (1, 7), (65_536, 2)],
+    "ragged": [(512, 4_097), (2048, 3), (512, 1)],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(SEGMENT_LAYOUTS))
+def test_segments_ref_matches_jax_three_ways(layout):
+    """``bloom_check_segments_ref`` (and the CPU wrapper, and
+    ``check_hashes_multi``) equals, segment by segment, the reference's
+    numpy probe, the Pallas kernel in interpret mode and the port's
+    one-filter ``bloom_check_ref``."""
+    filters, batches = [], []
+    for j, (z, n) in enumerate(SEGMENT_LAYOUTS[layout]):
+        h = _hashes(n, seed=len(layout) + j)
+        filters.append(_filter(z, seed=z + j, hashes=h))
+        batches.append(h)
+    starts = np.zeros(len(batches) + 1, np.int64)
+    np.cumsum([len(h) for h in batches], out=starts[1:])
+    blocks = [f.device_blocks("cpu") for f in filters]
+    hashes = torch.from_numpy(np.concatenate(batches).view(np.int64))
+    got = kernels.bloom_check_segments_ref(blocks, hashes,
+                                           torch.from_numpy(starts))
+    assert torch.equal(kernels.bloom_check_segments(
+        blocks, hashes, torch.from_numpy(starts)), got)
+    got = got.numpy()
+    multi = tbloom.check_hashes_multi(filters, batches, device="cpu")
+    for f, h, blk, a, b, m in zip(filters, batches, blocks, starts[:-1],
+                                  starts[1:], multi):
+        np.testing.assert_array_equal(m, got[a:b])
+        if not len(h):
+            continue
+        jf = jbloom.SplitBlockFilter(f.blocks.copy())
+        np.testing.assert_array_equal(got[a:b], jf.check_hashes(h))
+        np.testing.assert_array_equal(got[a:b], _pallas_probe(f.blocks, h))
+        np.testing.assert_array_equal(
+            got[a:b], kernels.bloom_check_ref(blk, hashes[a:b]).numpy())
+    assert 0 < got.sum() < len(got)
 
 
 def test_batch_routes_by_size_only(monkeypatch):
@@ -155,3 +209,32 @@ def test_bloom_check_rejects_bad_operands():
     with pytest.raises(ValueError):
         kernels.bloom_check(torch.zeros((0, 8), dtype=torch.int32), h)
     assert kernels.bloom_check(f, h).dtype == torch.bool
+
+
+_F = torch.zeros((4, 8), dtype=torch.int32)
+BAD_SEGMENT_OPERANDS = {
+    "starts_not_ascending": ([_F, _F, _F], [0, 6, 4, 10], ValueError),
+    "starts_not_from_zero": ([_F], [2, 10], ValueError),
+    "length_mismatch": ([_F, _F], [0, 4, 12], ValueError),
+    "starts_count": ([_F, _F], [0, 10], ValueError),
+    "starts_int32": ([_F], torch.tensor([0, 10], dtype=torch.int32),
+                     TypeError),
+    "filter_not_z_by_8": ([_F, torch.zeros((4, 4), dtype=torch.int32)],
+                          [0, 4, 10], TypeError),
+    "no_filter": ([], [0], ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_SEGMENT_OPERANDS))
+def test_bloom_check_segments_rejects_bad_operands(case):
+    """The CPU wrapper and the plain version refuse what the kernel would
+    refuse: starts that do not ascend from 0 to n, one per segment and a
+    last; a filter not of shape (z, 8); no filter at all."""
+    filters, starts, err = BAD_SEGMENT_OPERANDS[case]
+    if not isinstance(starts, torch.Tensor):
+        starts = torch.tensor(starts, dtype=torch.int64)
+    h = torch.zeros(10, dtype=torch.int64)
+    with pytest.raises(err):
+        kernels.bloom_check_segments(filters, h, starts)
+    with pytest.raises(err):
+        kernels.bloom_check_segments_ref(filters, h, starts)

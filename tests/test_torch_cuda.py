@@ -110,6 +110,77 @@ def test_bloom_check_on_card(cuda_device, z):
     np.testing.assert_array_equal(got.cpu().numpy(), f.check_hashes(h))
 
 
+# (blocks, hashes) per segment: one segment; eight equal ones; uneven ones
+# with empty ones among them; z = 1 beside z = 65,536; batch sizes that are
+# not multiples of 4; more segments than the kernel keeps in shared memory
+SEGMENT_LAYOUTS = {
+    "one": [(1024, 40_000)],
+    "eight_equal": [(65_536, 8_192)] * 8,
+    "uneven_with_empty": [(64, 0), (1024, 5_003), (1, 0), (4096, 17),
+                          (65_536, 30_001), (256, 0)],
+    "z1_beside_z65536": [(1, 9_999), (65_536, 10_001), (1, 7), (65_536, 2)],
+    "ragged": [(512, 4_097), (2048, 3), (512, 1)],
+    "past_shared_table": [(1 + i % 300, (i * 7) % 13) for i in range(1100)],
+}
+
+
+def _segments(layout, seed: int):
+    """Filters of sparse random bits, each holding half of its batch, and
+    the batches (every 7th hash probes the filter's last block)."""
+    from parquet_tpu_torch.io.bloom import SplitBlockFilter
+
+    rng = np.random.default_rng(seed)
+    filters, batches = [], []
+    for z, n in layout:
+        h = rng.integers(0, 2**64, n, dtype=np.uint64, endpoint=False)
+        h[::7] |= np.uint64(0xFFFFFFFF00000000)
+        blocks = (rng.integers(0, 2**32, (z, 8), dtype=np.uint64)
+                  & rng.integers(0, 2**32, (z, 8), dtype=np.uint64)
+                  ).astype(np.uint32)
+        f = SplitBlockFilter(blocks)
+        f.insert_hashes(h[::2])
+        filters.append(f)
+        batches.append(h)
+    return filters, batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", sorted(SEGMENT_LAYOUTS))
+def test_bloom_check_segments_on_card(cuda_device, layout):
+    """One launch of the segmented kernel equals its plain version and the
+    numpy host probe of each segment's filter, bit for bit."""
+    filters, batches = _segments(SEGMENT_LAYOUTS[layout], len(layout))
+    blocks = [f.device_blocks(cuda_device) for f in filters]
+    starts = np.zeros(len(batches) + 1, np.int64)
+    np.cumsum([len(h) for h in batches], out=starts[1:])
+    hashes = torch.from_numpy(np.concatenate(batches).view(np.int64)).to(
+        cuda_device)
+    before = kernels.LAUNCHES["bloom_check"]
+    got = kernels.bloom_check_segments(blocks, hashes,
+                                       torch.from_numpy(starts))
+    assert kernels.LAUNCHES["bloom_check"] == before + 1
+    assert torch.equal(got, kernels.bloom_check_segments_ref(
+        blocks, hashes, torch.from_numpy(starts)))
+    got = got.cpu().numpy()
+    for f, h, a, b in zip(filters, batches, starts[:-1], starts[1:]):
+        np.testing.assert_array_equal(got[a:b], f.check_hashes(h))
+
+
+@pytest.mark.cuda
+def test_bloom_check_rejects_misaligned_hashes(cuda_device):
+    """The kernel loads hashes as 16-byte vectors in place: a view that
+    starts 8 bytes into its storage raises instead of launching."""
+    filt = torch.zeros((64, 8), dtype=torch.int32, device=cuda_device)
+    hashes = torch.zeros(17, dtype=torch.int64, device=cuda_device)
+    before = kernels.LAUNCHES["bloom_check"]
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.bloom_check_segments([filt], hashes[1:],
+                                     torch.tensor([0, 16]))
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.bloom_check(filt, hashes[1:])
+    assert kernels.LAUNCHES["bloom_check"] == before
+
+
 @pytest.mark.cuda
 def test_find_rows_on_card_matches_cpu(cuda_device):
     """A lookup whose row groups keep more than 32,768 keys after the
@@ -133,7 +204,7 @@ def test_find_rows_on_card_matches_cpu(cuda_device):
     want = f.find_rows("k", keys, columns=["v", "c"], device="cpu")
     pqt.reset_launches()
     got = f.find_rows("k", keys, columns=["v", "c"], device=cuda_device)
-    assert pqt.LAUNCHES["bloom_check"] == 2
+    assert pqt.LAUNCHES["bloom_check"] == 1  # both row groups, one launch
     assert pqt.LAUNCHES["dict_unpack_gather"] > 0
     assert got.counters == want.counters
     assert got.counters["rows_matched"] == n

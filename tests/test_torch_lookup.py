@@ -175,15 +175,27 @@ def test_find_rows_matches_numpy_oracle():
     assert res.counters["keys"] == len(keys)
 
 
+def _spy_segments(monkeypatch) -> list:
+    """Record the segment sizes of each ``bloom_check_segments_ref`` call
+    (the segmented probe's plain version, which the CPU runs)."""
+    calls = []
+    real = kernels.bloom_check_segments_ref
+
+    def spy(filters, hashes, starts):
+        calls.append(np.diff(starts.numpy()).tolist())
+        return real(filters, hashes, starts)
+
+    monkeypatch.setattr(kernels, "bloom_check_segments_ref", spy)
+    return calls
+
+
 @pytest.mark.parametrize("writer", ["port", "jax"])
 def test_large_batch_takes_the_device_probe(writer, monkeypatch):
     """At 32,768 or more keys alive after the statistics stage, the bloom
-    stage runs ``bloom_check`` (its plain version, on the CPU); the hits
-    and counters still equal the reference's."""
-    calls = []
-    real = kernels.bloom_check_ref
-    monkeypatch.setattr(kernels, "bloom_check_ref",
-                        lambda *a: calls.append(a[1].shape[0]) or real(*a))
+    stage runs the segmented probe (its plain version, on the CPU): one
+    call per lookup, one segment per row group; the hits and counters
+    still equal the reference's."""
+    calls = _spy_segments(monkeypatch)
     table = _table(3, nulls=True, sorted_keys=False, key_range=10**9)
     data = _write(table, writer, "plain")
     r = np.random.default_rng(4)
@@ -193,9 +205,41 @@ def test_large_batch_takes_the_device_probe(writer, monkeypatch):
     got, want = _both(data, keys, ["v"])
     _assert_same(got, want, ["v"])
     _assert_counters(got.counters, want.counters)
-    assert len(calls) == RGS
-    assert min(calls) >= tbloom.SplitBlockFilter._DEVICE_PROBE_MIN
+    assert len(calls) == 1 and len(calls[0]) == RGS
+    assert min(calls[0]) >= tbloom.SplitBlockFilter._DEVICE_PROBE_MIN
     assert got.counters["keys_pruned_bloom"] > 30_000
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_mixed_bloom_routes_match_jax(writer, monkeypatch):
+    """With the device threshold set small, the row groups whose bloom
+    batch reaches it are probed together by one segmented call and the
+    others by the numpy probe, each row group by its size alone; hits and
+    counters equal the reference's (which probes all on the host)."""
+    monkeypatch.setattr(tbloom.SplitBlockFilter, "_DEVICE_PROBE_MIN", 200)
+    calls = _spy_segments(monkeypatch)
+    host = []
+    real_host = tbloom.SplitBlockFilter.check_hashes
+    monkeypatch.setattr(tbloom.SplitBlockFilter, "check_hashes",
+                        lambda self, h: host.append(len(h))
+                        or real_host(self, h))
+    table = _table(12, nulls=True, sorted_keys=True)
+    data = _write(table, writer, "plain", sorted_keys=True)
+    k = np.ma.getdata(table["k"])
+    r = np.random.default_rng(12)
+    # sorted keys give each row group its own range: many keys inside row
+    # groups 0 and 2, few inside 1 and 3
+    keys = np.concatenate([
+        r.integers(k[g * PER_RG] + 2, k[(g + 1) * PER_RG - 1] - 2, m)
+        for g, m in enumerate([600, 40, 600, 40])]).astype(np.int64)
+    got, want = _both(data, keys, ["v", "c"])
+    _assert_same(got, want, ["v", "c"])
+    _assert_counters(got.counters, want.counters)
+    assert len(calls) == 1 and len(calls[0]) == 2
+    assert min(calls[0]) >= 200
+    assert len(host) == 2 and max(host) < 200
+    assert got.counters["keys_pruned_bloom"] > 0
+    assert got.counters["rows_matched"] > 0
 
 
 @pytest.mark.parametrize("key_dtype", [np.int32, np.float32, np.float64])
