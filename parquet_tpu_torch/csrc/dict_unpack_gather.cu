@@ -2,78 +2,95 @@
 //
 // Replaces the TPU kernel parquet_tpu/ops/pallas_kernels.py::dict_unpack_gather
 // (body _dict_unpack_gather_kernel).  It unpacks n LSB-first w-bit dictionary
-// indexes from a dense uint32 stream (the layout of unpack_bits.cu: lane j of
-// each 32-value group reads word (j*w)>>5 at shift (j*w)&31) and writes
-// dictionary[index] for each, so the index stream never reaches device
-// memory.  An index past the dictionary's end yields 0, as the TPU kernel's
-// one-hot product does.
+// indexes from a dense uint32 stream (the layout of unpack_bits.cu; words at
+// or past the stream's end read as zero) and writes dictionary[index] for
+// each, so the index stream never reaches device memory.  An index past the
+// dictionary's end yields 0, as the TPU kernel's one-hot product does.
 //
 // Bound on an H100 SXM: it reads n*w/8 bytes of indexes plus the dictionary
 // and writes n*elem_bytes bytes, with a few integer operations per value:
-// memory-bound, (n*w/8 + D*elem_bytes + n*elem_bytes) / 3.35 TB/s.  Design:
-//   - each block first copies the dictionary (D <= 1024 entries of 4 or 8
-//     raw bytes, at most 8 KB) into shared memory, so one kernel serves
-//     int32/float32/int64/float64 dictionaries, and the gather is a direct
-//     shared-memory load instead of the TPU's one-hot matrix product;
-//   - blocks stride over the values (grid-stride loop), so the dictionary
-//     copy is paid once per block, not once per 256 values;
-//   - index loads are a warp's w contiguous words (coalesced), output
-//     stores are contiguous; one pass, nothing allocated.
+// memory-bound, (n*w/8 + D*elem_bytes + n*elem_bytes) / 3.35 TB/s.
+//
+// Design: the tile unpack of unpack_tile.cuh with a dictionary lookup as its
+// map.  Each block copies the dictionary (D <= 1024 entries of 4 or 8 raw
+// bytes, at most 8 KB) into shared memory once, after its warps' first tile
+// copies are in flight, so one kernel serves int32/float32/int64/float64
+// dictionaries and the gather is a shared-memory load.  The first port gave
+// each thread one value on a grid capped at a constant 132 * 8 blocks, with
+// one dependent 4-byte load in flight a thread: bound by latency, not bytes.
+// Here a warp owns 512-value tiles copied with 16-byte cp.async two tiles
+// ahead, each lane stores 16 bytes (4 four-byte or 2 eight-byte values) at
+// a time, and the grid is one wave from the occupancy API and the device's
+// SM count.  On an H100 80GB HBM3 at 700 W it takes 84-93 % of its bound at
+// 8,388,608 values (w = 8, every dictionary size and type), and at a row
+// group's 943,520 values (w = 8, 200 int32 entries) 0.0031-0.0032 ms a
+// launch, 43-45 % of the bound: the launch's ramp and drain and the
+// dictionary's staging, a load and a block barrier before the first tile is
+// unpacked, are what is left (PERF.md).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "unpack_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using pq_tile::Stream;
+
 constexpr int kMaxDict = 1024;
-constexpr long long kMaxBlocks = 132 * 8;  // 8 resident blocks per H100 SM
+
+template <typename T>
+struct DictLookup {
+  const T* dict;  // in shared memory
+  uint32_t size;
+  __device__ __forceinline__ T operator()(uint32_t idx) const {
+    return idx < size ? dict[idx] : T(0);
+  }
+};
+
+template <typename T>
+struct StageDict {
+  const T* src;
+  T* dst;
+  int size;
+  __device__ __forceinline__ void operator()() const {
+    for (int e = threadIdx.x; e < size; e += pq_tile::kThreads) dst[e] = src[e];
+    __syncthreads();
+  }
+};
 
 template <int W, typename T>
-__global__ void dict_unpack_gather_kernel(const uint32_t* __restrict__ words,
-                                          const T* __restrict__ dict,
-                                          int dict_n, T* __restrict__ out,
-                                          long long n) {
-  __shared__ T sdict[kMaxDict];
-  for (int e = threadIdx.x; e < dict_n; e += kThreads) sdict[e] = dict[e];
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    uint32_t idx;
-    if (W == 32) {
-      idx = words[i];
-    } else {
-      const long long g = i >> 5;
-      const int bit = (int)(i & 31) * W;
-      const int k = bit >> 5;
-      const int sh = bit & 31;
-      const uint32_t* grp = words + g * W;
-      idx = grp[k] >> sh;
-      if (sh + W > 32) idx |= grp[k + 1] << (32 - sh);
-      idx &= (1u << (W & 31)) - 1u;  // W < 32 here
-    }
-    out[i] = idx < (uint32_t)dict_n ? sdict[idx] : T(0);
-  }
+__global__ void __launch_bounds__(pq_tile::kThreads)
+    dict_unpack_gather_kernel(Stream s, const T* __restrict__ dict, int dict_n,
+                              T* __restrict__ out, long long n) {
+  extern __shared__ uint4 smem[];
+  T* sdict = reinterpret_cast<T*>(
+      reinterpret_cast<char*>(smem) + pq_tile::Shape<W>::kBlockBytes);
+  pq_tile::run_tiles<W>(s, out, n, smem,
+                        DictLookup<T>{sdict, (uint32_t)dict_n},
+                        StageDict<T>{dict, sdict, dict_n});
 }
 
 template <int W, typename T>
-void launch(const uint32_t* words, const void* dict, int dict_n, void* out,
-            long long n, cudaStream_t stream) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  dict_unpack_gather_kernel<W, T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      words, static_cast<const T*>(dict), dict_n, static_cast<T*>(out), n);
+int launch(const Stream& s, const void* dict, int dict_n, void* out,
+           long long n, cudaStream_t stream) {
+  static pq_tile::Wave wave;
+  const size_t smem = pq_tile::Shape<W>::kBlockBytes + dict_n * sizeof(T);
+  int blocks = 0;
+  cudaError_t e = pq_tile::launch_blocks(
+      wave, dict_unpack_gather_kernel<W, T>, smem,
+      pq_tile::Shape<W>::kBlockBytes + kMaxDict * sizeof(T), n, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  dict_unpack_gather_kernel<W, T>
+      <<<blocks, pq_tile::kThreads, smem, stream>>>(
+          s, static_cast<const T*>(dict), dict_n, static_cast<T*>(out), n);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const uint32_t* words, const void* dict, int dict_n, void* out,
-             long long n, int w, cudaStream_t s) {
+int dispatch(const Stream& s, const void* dict, int dict_n, void* out,
+             long long n, int w, cudaStream_t st) {
   switch (w) {
 #define PQ_CASE(W) \
   case W:          \
-    launch<W, T>(words, dict, dict_n, out, n, s); \
-    break;
+    return launch<W, T>(s, dict, dict_n, out, n, st);
     PQ_CASE(1) PQ_CASE(2) PQ_CASE(3) PQ_CASE(4) PQ_CASE(5) PQ_CASE(6)
     PQ_CASE(7) PQ_CASE(8) PQ_CASE(9) PQ_CASE(10) PQ_CASE(11) PQ_CASE(12)
     PQ_CASE(13) PQ_CASE(14) PQ_CASE(15) PQ_CASE(16) PQ_CASE(17) PQ_CASE(18)
@@ -84,26 +101,29 @@ int dispatch(const uint32_t* words, const void* dict, int dict_n, void* out,
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// words: uint32[ceil(n/32)*w] on the device (zero-padded by the caller);
-// dict: dict_n raw elements of elem_bytes (4 or 8) bytes; out: n elements of
-// elem_bytes bytes.  Returns cudaGetLastError() after the launch; an
-// unsupported width, element size or dictionary size returns
-// cudaErrorInvalidValue without launching.
-extern "C" int pq_dict_unpack_gather(const void* words, const void* dict,
-                                     int dict_n, int elem_bytes, void* out,
-                                     long long n, int w, void* stream) {
-  const uint32_t* in = static_cast<const uint32_t*>(words);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dict_n < 1 || dict_n > kMaxDict) return (int)cudaErrorInvalidValue;
+// words: nwords uint32 on the device, 4-byte aligned, words past the end read
+// as zero; dict: dict_n raw elements of elem_bytes (4 or 8) bytes; out: n
+// elements of elem_bytes bytes, 16-byte aligned.  Returns cudaGetLastError()
+// after the launch; an unsupported width, element size or dictionary size,
+// or a misaligned pointer, returns cudaErrorInvalidValue without launching.
+extern "C" int pq_dict_unpack_gather(const void* words, long long nwords,
+                                     const void* dict, int dict_n,
+                                     int elem_bytes, void* out, long long n,
+                                     int w, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Stream s;
+  if (dict_n < 1 || dict_n > kMaxDict ||
+      !pq_tile::make_stream(words, nwords, &s) ||
+      (reinterpret_cast<uintptr_t>(out) & 15))
+    return (int)cudaErrorInvalidValue;
   if (n <= 0) return (int)cudaSuccess;
   if (elem_bytes == 4)
-    return dispatch<uint32_t>(in, dict, dict_n, out, n, w, s);
+    return dispatch<uint32_t>(s, dict, dict_n, out, n, w, st);
   if (elem_bytes == 8)
-    return dispatch<unsigned long long>(in, dict, dict_n, out, n, w, s);
+    return dispatch<unsigned long long>(s, dict, dict_n, out, n, w, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``_build/lib<name>.<hash>.so`` in
-the package directory, at first use; ``<hash>`` covers the source and the
-flags, so an edited source rebuilds.  The libraries load with ``ctypes``.
+the package directory, at first use; ``<hash>`` covers the source, the
+headers of ``csrc/`` it may include and the flags, so an edited source or
+header rebuilds.  The libraries load with ``ctypes``.
 :func:`build_all` starts one ``nvcc`` per source at once.  A failed build
 raises: there is no fallback.
 """
@@ -22,17 +23,18 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-I", CSRC]
 NVCC_TIMEOUT_S = 600
 
 # C entry points of each source: name -> (restype, argtypes)
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGNATURES = {
     "unpack_bits": {
-        "pq_unpack_bits_dense": (_I, [_P, _P, _LL, _I, _P]),
+        "pq_unpack_bits_dense": (_I, [_P, _LL, _P, _LL, _I, _P]),
     },
     "dict_unpack_gather": {
-        "pq_dict_unpack_gather": (_I, [_P, _P, _I, _I, _P, _LL, _I, _P]),
+        "pq_dict_unpack_gather": (_I, [_P, _LL, _P, _I, _I, _P, _LL, _I,
+                                       _P]),
     },
     "bloom_check": {
         "pq_bloom_check": (_I, [_P, _LL, _P, _P, _LL, _P]),
@@ -55,8 +57,11 @@ def nvcc_path() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
+                                       if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}.{digest.hexdigest()[:12]}.so")
 
 

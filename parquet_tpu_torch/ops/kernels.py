@@ -96,8 +96,8 @@ def unpack_bits_dense_ref(words: torch.Tensor, n: int, w: int) -> torch.Tensor:
 
 def unpack_bits_dense(words: torch.Tensor, n: int, w: int) -> torch.Tensor:
     """Unpack ``n`` LSB-first ``w``-bit integers (w in 1..32) from a dense
-    uint32 stream of ceil(n/32)*w words (shorter streams are zero-padded).
-    Returns int32[n] holding the uint32 bit patterns."""
+    uint32 stream of ceil(n/32)*w words (words past a shorter stream's end
+    read as zero).  Returns int32[n] holding the uint32 bit patterns."""
     words = _as_int32_words(words)
     _check_width(w)
     if words.device.type == "cpu":
@@ -105,15 +105,15 @@ def unpack_bits_dense(words: torch.Tensor, n: int, w: int) -> torch.Tensor:
     if words.device.type != "cuda":
         raise ValueError(f"unpack_bits_dense runs on cuda or cpu tensors, "
                          f"not {words.device}")
-    words = _padded(words, (n + 31) // 32 * w).contiguous()
+    words = words.contiguous()  # the kernel reads words past the end as 0
     out = torch.empty(n, dtype=torch.int32, device=words.device)
     if n == 0:
         return out
     lib = _build.load("unpack_bits")
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pq_unpack_bits_dense(words.data_ptr(), out.data_ptr(), n, w,
-                                      stream)
+        rc = lib.pq_unpack_bits_dense(words.data_ptr(), words.shape[0],
+                                      out.data_ptr(), n, w, stream)
     _raise_on_error(rc, "unpack_bits_dense")
     LAUNCHES["unpack_bits_dense"] += 1
     return out
@@ -159,7 +159,7 @@ def dict_unpack_gather(words: torch.Tensor, dictionary: torch.Tensor, n: int,
     if words.device.type != "cuda" or dictionary.device != words.device:
         raise ValueError(f"dict_unpack_gather runs on cuda or cpu tensors of "
                          f"one device, not {words.device}/{dictionary.device}")
-    words = _padded(words, (n + 31) // 32 * w).contiguous()
+    words = words.contiguous()  # the kernel reads words past the end as 0
     dictionary = dictionary.contiguous()
     out = torch.empty(n, dtype=dictionary.dtype, device=words.device)
     if n == 0:
@@ -168,8 +168,9 @@ def dict_unpack_gather(words: torch.Tensor, dictionary: torch.Tensor, n: int,
     with torch.cuda.device(words.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pq_dict_unpack_gather(
-            words.data_ptr(), dictionary.data_ptr(), dictionary.shape[0],
-            dictionary.element_size(), out.data_ptr(), n, w, stream)
+            words.data_ptr(), words.shape[0], dictionary.data_ptr(),
+            dictionary.shape[0], dictionary.element_size(), out.data_ptr(), n,
+            w, stream)
     _raise_on_error(rc, "dict_unpack_gather")
     LAUNCHES["dict_unpack_gather"] += 1
     return out

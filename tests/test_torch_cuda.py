@@ -36,6 +36,10 @@ def test_kernels_on_card(cuda_device):
                               generator=gen)
         got = kernels.unpack_bits_dense(words, n, w)
         assert torch.equal(got, kernels.unpack_bits_dense_ref(words, n, w))
+        for m in CARD_NS[:-1]:  # the same stream's prefixes
+            got = kernels.unpack_bits_dense(words, m, w)
+            assert torch.equal(got, kernels.unpack_bits_dense_ref(words, m,
+                                                                   w))
     for dtype in (torch.int32, torch.int64, torch.float32, torch.float64):
         dictionary = torch.arange(1024, device=cuda_device).to(dtype)
         words = torch.randint(-2**31, 2**31 - 1, ((n + 31) // 32 * 10,),
@@ -44,6 +48,80 @@ def test_kernels_on_card(cuda_device):
         got = kernels.dict_unpack_gather(words, dictionary, n, 10)
         assert torch.equal(
             got, kernels.dict_unpack_gather_ref(words, dictionary, n, 10))
+
+
+# value counts around the kernels' 32-value groups and 512-value tiles, and
+# one past a row group's 1,048,576
+CARD_NS = (1, 31, 32, 33, 255, 257, 511, 512, 513, (1 << 20) + 7)
+DICT_SIZES = (1, 2, 200, 1024)
+DICT_DTYPES = (torch.int32, torch.int64, torch.float32, torch.float64)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The integer bit patterns of ``t`` (NaN-safe equality)."""
+    return t.view({4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def _words(count: int, gen: torch.Generator, device) -> torch.Tensor:
+    return torch.randint(-2**31, 2**31 - 1, (count,), dtype=torch.int32,
+                         device=device, generator=gen)
+
+
+def _dictionary(d: int, dtype: torch.dtype, gen: torch.Generator, device):
+    if dtype.is_floating_point:
+        return torch.randn(d, dtype=dtype, device=device, generator=gen)
+    lim = 2**31 - 1 if dtype == torch.int32 else 2**62
+    return torch.randint(-lim, lim, (d,), dtype=dtype, device=device,
+                         generator=gen)
+
+
+def _check_both(words: torch.Tensor, n: int, w: int, dictionaries) -> None:
+    """Both kernels on ``words`` equal their plain versions bit for bit."""
+    got = kernels.unpack_bits_dense(words, n, w)
+    assert torch.equal(got, kernels.unpack_bits_dense_ref(words, n, w)), \
+        (n, w)
+    for dictionary in dictionaries:
+        got = kernels.dict_unpack_gather(words, dictionary, n, w)
+        want = kernels.dict_unpack_gather_ref(words, dictionary, n, w)
+        assert torch.equal(_bits(got), _bits(want)), \
+            (n, w, dictionary.shape[0], dictionary.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", range(1, 33))
+def test_dict_unpack_gather_on_card_every_width(cuda_device, w):
+    """``dict_unpack_gather`` at width ``w`` over dictionaries of 1, 2, 200
+    and 1024 entries of the four types, at value counts around a group
+    and a tile: random words give indexes past the dictionary's end
+    wherever 2^w exceeds it, which must read 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(w)
+    dictionaries = [_dictionary(d, dtype, gen, cuda_device)
+                    for d in DICT_SIZES for dtype in DICT_DTYPES]
+    for n in CARD_NS:
+        words = _words((n + 31) // 32 * w, gen, cuda_device)
+        _check_both(words, n, w, dictionaries)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("short", [0, 1, 5, "empty"])
+def test_kernels_on_card_ragged_streams(cuda_device, offset, short):
+    """A stream ``short`` words shorter than ceil(n/32)*w (or empty): the
+    kernels read zeros past its end.  A view ``offset`` words into its
+    storage (``words[1:]``, ``words[3:]``: 4- but not 16-byte aligned):
+    the kernels read from its first word."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7 * offset + 1)
+    dictionaries = [_dictionary(200, torch.int32, gen, cuda_device),
+                    _dictionary(1024, torch.float64, gen, cuda_device)]
+    for w in (1, 5, 8, 10, 15, 16, 17, 24, 31, 32):
+        for n in CARD_NS:
+            need = (n + 31) // 32 * w
+            keep = 0 if short == "empty" else max(need - short, 0)
+            storage = _words(keep + offset, gen, cuda_device)
+            words = storage[offset:]
+            # (an empty tensor's data_ptr() is 0)
+            assert keep == 0 or words.data_ptr() % 16 == 4 * offset
+            _check_both(words, n, w, dictionaries)
 
 
 @pytest.mark.cuda

@@ -108,6 +108,34 @@ def test_dict_unpack_gather_index_past_dictionary_is_zero():
     assert got[3] == 0 and got[4] == 0
 
 
+@pytest.mark.parametrize("w", [3, 8, 15, 31])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_wrappers_short_stream_and_offset_view(w, offset, rng):
+    """A stream shorter than ceil(n/32)*w words reads zeros past its end,
+    and a view that starts ``offset`` words into its storage (4- but not
+    16-byte aligned on a card) reads from its own first word: both
+    wrappers against the Pallas kernels in interpret mode, which zero-pad
+    the same stream."""
+    n = 1000
+    v = rng.integers(0, 1 << w, size=n, dtype=np.uint64)
+    words = _pack_words(v, w)[:(n * w) // 32 - 2]  # last words cut off
+    assert len(words) < (n + 31) // 32 * w
+    storage = np.concatenate([rng.integers(0, 2**32, offset,
+                                           dtype=np.uint32), words])
+    view = _as_torch_words(storage)[offset:]
+    assert view.storage_offset() == offset
+    want = np.asarray(pk.unpack_bits_dense(words, n, w, interpret=True))
+    got = kernels.unpack_bits_dense(view, n, w)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    cut = (len(words) * 32) // w  # values wholly inside the short stream
+    np.testing.assert_array_equal(want[:cut], v[:cut].astype(np.uint32))
+    dictionary = rng.integers(-2**31, 2**31, 1 << min(w, 10)).astype(np.int32)
+    want = np.asarray(pk.dict_unpack_gather(words, dictionary, n, w,
+                                            interpret=True))
+    got = kernels.dict_unpack_gather(view, torch.from_numpy(dictionary), n, w)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_wrappers_reject_bad_operands():
     words = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
