@@ -2,13 +2,14 @@
 CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
-                          [--lookup-rows 8388608] [--out DIR]
+                          [--lookup-rows 8388608] [--lineitem-rows 8388608]
+                          [--enc-rows 4194304] [--out DIR]
 
 Phases, each fatal on failure:
 
 1. card: ``nvidia-smi`` name and power limit, ``torch.cuda`` device name;
 2. build: the CUDA kernels of ``parquet_tpu_torch/csrc`` compile with nvcc
-   (one process per source, started together);
+   and its host C++ with c++ (one process per source, started together);
 3. kernels against their plain PyTorch versions, on the card, bit for bit:
    ``unpack_bits_dense`` at every width 1..32, ``dict_unpack_gather`` at
    w in {1, 8, 10} over int32/int64/float32/float64 dictionaries of 2, 200
@@ -27,6 +28,27 @@ Phases, each fatal on failure:
    are also counted by the column being decoded (the counts must add up
    to the wrappers'); then the time of each column alone and of each
    phase (host prescan, H2D staging, device decode);
+4b. lineitem: TPC-H ``lineitem`` at ``bench.py:_lineitem_path``'s widths
+   and cardinalities (four INT64, three DOUBLE and four INT32 columns
+   PLAIN, four dictionary-encoded string columns of 3, 2, 4 and 7 values,
+   a 27-byte PLAIN ``l_comment``), written by the port's writer from
+   ``--seed`` with Snappy, 4,000,000-row row groups and 1 MiB pages;
+   ``--lineitem-rows`` (8,388,608) cuts cfg 7's 40,000,000 rows so that
+   the host-Python writer and reads fit the run.  One cold and three warm
+   reads, each equal to the generated columns (strings compared on the
+   host), rows/s and decoded GB/s, each column alone and each phase, and
+   ``unpack_bits_dense``'s launches by column (0 where a column's index
+   runs are not all bit-packed), which must add up to the wrapper's;
+4c. enc: every (type, encoding) pair lineitem lacks (BOOLEAN PLAIN and
+   RLE, INT96, FIXED_LEN_BYTE_ARRAY PLAIN and BYTE_STREAM_SPLIT, the
+   numeric types in BYTE_STREAM_SPLIT, DELTA_LENGTH_BYTE_ARRAY, front-coded
+   URLs, and 1,000-entry byte-array and 500-entry FLBA dictionaries whose
+   index runs are all bit-packed), ``--enc-rows`` in 1,048,576-row row
+   groups and 64 KiB pages, 5-10 % nulls on half of the columns; written
+   with v1 pages under Snappy and with v2 pages, then under each of ZSTD,
+   LZ4_RAW, LZ4 and BROTLI whose system library loaded (the
+   ``{"codecs": ...}`` line names them); every read equals the generated
+   columns and launches ``unpack_bits_dense`` on both dictionaries;
 5. lookup path: a 3-column file keyed by ``k`` (1,048,576-row row groups,
    8 KiB pages, bloom filters on ``k``, page index, rows sorted by ``k``)
    and a batch of ``--lookup-rows / 16`` distinct keys, one in eight
@@ -42,7 +64,8 @@ Phases, each fatal on failure:
    the device time of the library call.  ``unpack_bits_dense`` and
    ``dict_unpack_gather`` at the read's three shapes (``k``, ``ts`` and
    ``cat``: the first row group's launches, operands taken from the plan,
-   with the launches of that column in phase 4's reads), bit for bit
+   with the launches of that column in phase 4's reads; and enc's
+   ``ba_dict``, with its launches in phase 4c's first reads), bit for bit
    against their plain versions, each on a warm card with the profiler's
    mean (``ms``) beside the time per launch from the replay of a CUDA
    graph of 100 launches (``graph_ms``) and the SM clock, power draw and
@@ -50,14 +73,20 @@ Phases, each fatal on failure:
    ``bloom_check`` the lookup's segmented probe (``ms``, profiler), and
    beside it the one-filter launch at one row group's shape.  Every kernel
    also gets ``call_ms`` (CUDA events around back-to-back wrapper calls,
-   the host's dispatch included);
-7. one more warm read and one more warm lookup, each under the profiler,
-   for the device's idle share.  They come last: after a window that
-   long the profiler can drop every event of phase 6's short ones.
+   the host's dispatch included); then one ``{"ops": [...]}`` line: the
+   torch ops that stand for the JAX package's XLA ops, at the shapes of
+   enc's and lineitem's first row groups, each with the profiler's device
+   time per call (every kernel of the op), its calls per read and its
+   byte bound;
+7. one more warm read of the 5-column file and of lineitem and one more
+   warm lookup, each under the profiler, for the device's idle share.
+   They come last: after a window that long the profiler can drop every
+   event of phase 6's short ones.  A ``{"phase_s": ...}`` line gives each
+   phase's wall time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero before printing any result.  ``--out DIR`` also writes
-the sweeps and the kernel line to ``DIR/chip_smoke_sweep.json``.
+the sweeps and the kernel and ops lines to ``DIR/chip_smoke_sweep.json``.
 """
 
 from __future__ import annotations
@@ -75,10 +104,16 @@ import numpy as np
 import torch
 
 import parquet_tpu_torch as pq
-from parquet_tpu_torch.format.enums import Encoding
+from parquet_tpu_torch import codecs
+from parquet_tpu_torch.format.enums import Encoding, Type
 from parquet_tpu_torch.io import bloom, lookup
+from parquet_tpu_torch.io.writer import ColumnData
 from parquet_tpu_torch.ops import _build, kernels
+from parquet_tpu_torch.ops import device as dev
+from parquet_tpu_torch.ops.host import gather_byte_arrays, segment_ranges
 from parquet_tpu_torch.parallel import device_reader
+from parquet_tpu_torch.schema.schema import Leaf, Schema
+from parquet_tpu_torch.schema.types import physical_of_dtype
 from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -493,11 +528,15 @@ def check_table(out: dict, table: dict) -> None:
 
 
 def decoded_bytes(out: dict) -> int:
+    """Bytes of the decoded columns: values, byte-array offsets, the int32
+    indexes of a column kept dictionary-encoded (its dictionary left out)
+    and one validity byte per slot of an optional column."""
     total = 0
     for col in out.values():
-        total += col.values.numel() * col.values.element_size()
-        if col.validity is not None:
-            total += col.validity.numel()
+        for t in (col.values, col.offsets, col.validity,
+                  col.dict_indices if col.values is None else None):
+            if t is not None:
+                total += t.numel() * t.element_size()
     return total
 
 
@@ -557,9 +596,11 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
             "columns": phase_times(path)}
 
 
-# (column, kernel) of each read-path shape that phase 6 measures
+# (column, kernel) of each read-path shape that phase 6 measures, on the
+# 5-column file and on enc
 PATH_SHAPES = (("k", "unpack_bits_dense"), ("ts", "unpack_bits_dense"),
                ("cat", "dict_unpack_gather"))
+ENC_SHAPES = (("ba_dict", "unpack_bits_dense"),)
 
 
 class ColumnLaunches:
@@ -591,31 +632,36 @@ class ColumnLaunches:
         device_reader.decode_staged = self._real
 
 
-def path_operands(path: str) -> dict:
-    """For each read-path shape, the arguments of the largest launch of its
-    kernel that decoding the column's first row group makes: the words,
-    value count and width (and dictionary) exactly as the read passes
-    them, taken from the chunk's plan."""
+def first_chunk_calls(path: str, column: str, owner, attr: str) -> list:
+    """The arguments of every call of ``owner.attr`` that decoding the
+    first row group of ``column`` makes, exactly as the read passes them
+    (operands taken from the chunk's plan)."""
     f = pq.ParquetFile(path)
-    leaves = {leaf.name: leaf for leaf in f.schema.leaves}
-    dev = torch.device(DEVICE)
+    reader = f.row_groups[0].column(f.schema.leaf(column).column_index)
+    device = torch.device(DEVICE)
+    calls = []
+    real = getattr(owner, attr)
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    setattr(owner, attr, spy)
+    try:
+        plan = device_reader.build_plan(reader)
+        device_reader.decode_staged(
+            plan, device_reader.stage_plan(plan, device), device)
+    finally:
+        setattr(owner, attr, real)
+    return calls
+
+
+def path_operands(path: str, shapes=PATH_SHAPES) -> dict:
+    """For each read-path shape, the arguments of the largest launch of its
+    kernel that decoding the column's first row group makes."""
     out = {}
-    for column, kernel in PATH_SHAPES:
-        calls = []
-        real = getattr(kernels, kernel)
-
-        def spy(*args, real=real):
-            calls.append(args)
-            return real(*args)
-
-        setattr(kernels, kernel, spy)
-        try:
-            reader = f.row_groups[0].column(leaves[column].column_index)
-            plan = device_reader.build_plan(reader)
-            device_reader.decode_staged(
-                plan, device_reader.stage_plan(plan, dev), dev)
-        finally:
-            setattr(kernels, kernel, real)
+    for column, kernel in shapes:
+        calls = first_chunk_calls(path, column, kernels, kernel)
         if not calls:
             raise AssertionError(f"decoding {column} launched no {kernel}")
         out[column] = max(calls, key=lambda args: args[-2])  # n
@@ -703,6 +749,479 @@ def device_ms(fn, kernel: str = "", reps: int = 20, tries: int = 5):
         if events >= reps / 2:
             return us / events / 1e3
     return None
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: lineitem; phase 4c: every other value encoding
+# ---------------------------------------------------------------------------
+
+LINEITEM_ROW_GROUP = 4_000_000  # bench.py:_lineitem_path
+LINEITEM_STRINGS = {  # bench.py:_lineitem_path's categoricals
+    "l_returnflag": ["A", "N", "R"],
+    "l_linestatus": ["F", "O"],
+    "l_shipinstruct": ["DELIVER IN PERSON", "COLLECT COD", "NONE",
+                       "TAKE BACK RETURN"],
+    "l_shipmode": ["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK"],
+}
+LINEITEM_ORDER = (
+    "l_orderkey", "l_partkey", "l_suppkey", "l_linenumber", "l_quantity",
+    "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+    "l_linestatus", "l_shipdate", "l_commitdate", "l_receiptdate",
+    "l_shipinstruct", "l_shipmode", "l_comment")
+LINEITEM_ENCODINGS = {name: (Encoding.RLE_DICTIONARY
+                             if name in LINEITEM_STRINGS else Encoding.PLAIN)
+                      for name in LINEITEM_ORDER}
+
+
+def make_lineitem(rows: int, seed: int) -> tuple:
+    """TPC-H ``lineitem`` at ``bench.py:_lineitem_path``'s widths and
+    cardinalities, from ``seed``: ``(schema, {name: ColumnData})``.  The
+    four categoricals are byte arrays of 3, 2, 4 and 7 values, ``l_comment``
+    27 random letters or spaces."""
+    rng = np.random.default_rng(seed + 5)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+    ship = rng.integers(8000, 12000, rows).astype(np.int32)
+    numeric = {
+        "l_orderkey": np.sort(rng.integers(1, rows, rows)).astype(np.int64),
+        "l_partkey": rng.integers(1, 200_000, rows).astype(np.int64),
+        "l_suppkey": rng.integers(1, 10_000, rows).astype(np.int64),
+        "l_linenumber": rng.integers(1, 8, rows).astype(np.int32),
+        "l_quantity": rng.integers(1, 51, rows).astype(np.int64),
+        "l_extendedprice": rng.random(rows) * 1e5,
+        "l_discount": np.round(rng.random(rows) * 0.1, 2),
+        "l_tax": np.round(rng.random(rows) * 0.08, 2),
+        "l_shipdate": ship,
+        "l_commitdate": ship + rng.integers(-30, 30, rows).astype(np.int32),
+        "l_receiptdate": ship + rng.integers(1, 30, rows).astype(np.int32),
+    }
+    leaves, data = [], {}
+    for name in LINEITEM_ORDER:
+        if name in LINEITEM_STRINGS:
+            words = [w.encode() for w in LINEITEM_STRINGS[name]]
+            dv, do = _pool(words)
+            values, offsets = gather_byte_arrays(
+                dv, do, rng.integers(0, len(words), rows))
+            data[name] = ColumnData(values=values, offsets=offsets)
+            leaves.append(Leaf(-1, name, Type.BYTE_ARRAY, string=True))
+        elif name == "l_comment":
+            data[name] = ColumnData(
+                values=letters[rng.integers(0, 27, rows * 27,
+                                            dtype=np.int8)],
+                offsets=np.arange(rows + 1, dtype=np.int64) * 27)
+            leaves.append(Leaf(-1, name, Type.BYTE_ARRAY, string=True))
+        else:
+            data[name] = ColumnData(values=numeric[name])
+            leaves.append(Leaf(-1, name,
+                               physical_of_dtype(numeric[name].dtype)))
+    return Schema(leaves), data
+
+
+def _pool(items) -> tuple:
+    """A list of bytes as (values, offsets)."""
+    offsets = np.zeros(len(items) + 1, np.int64)
+    np.cumsum([len(x) for x in items], out=offsets[1:])
+    return np.frombuffer(b"".join(items), np.uint8), offsets
+
+
+ENC_ROW_GROUP = 1 << 20
+ENC_PAGE = 64 << 10
+# name -> (physical, type_length, encoding, null share)
+ENC_COLUMNS = {
+    "bool_plain": (Type.BOOLEAN, None, Encoding.PLAIN, 0.07),
+    "bool_rle": (Type.BOOLEAN, None, Encoding.RLE, 0.0),
+    "i96": (Type.INT96, None, Encoding.PLAIN, 0.05),
+    "flba16": (Type.FIXED_LEN_BYTE_ARRAY, 16, Encoding.PLAIN, 0.05),
+    "flba2_bss": (Type.FIXED_LEN_BYTE_ARRAY, 2, Encoding.BYTE_STREAM_SPLIT,
+                  0.1),
+    "flba4_bss": (Type.FIXED_LEN_BYTE_ARRAY, 4, Encoding.BYTE_STREAM_SPLIT,
+                  0.0),
+    "f32_bss": (Type.FLOAT, None, Encoding.BYTE_STREAM_SPLIT, 0.06),
+    "f64_bss": (Type.DOUBLE, None, Encoding.BYTE_STREAM_SPLIT, 0.0),
+    "i32_bss": (Type.INT32, None, Encoding.BYTE_STREAM_SPLIT, 0.08),
+    "i64_bss": (Type.INT64, None, Encoding.BYTE_STREAM_SPLIT, 0.0),
+    "ba_dlba": (Type.BYTE_ARRAY, None, Encoding.DELTA_LENGTH_BYTE_ARRAY,
+                0.05),
+    "ba_dba": (Type.BYTE_ARRAY, None, Encoding.DELTA_BYTE_ARRAY, 0.0),
+    "ba_dict": (Type.BYTE_ARRAY, None, Encoding.RLE_DICTIONARY, 0.0),
+    "flba_dict": (Type.FIXED_LEN_BYTE_ARRAY, 16, Encoding.RLE_DICTIONARY,
+                  0.0),
+}
+ENC_DENSE = ("ba_dict", "flba_dict")  # every index run bit-packed
+
+
+def _urls(rng, n: int) -> tuple:
+    """``n`` sorted URL-like byte strings with long shared prefixes: one of
+    eight long paths, then a 12-digit item number."""
+    paths = sorted(f"https://www.example-store-{h}.com/catalog/department-"
+                   f"{h * 7 % 5}/category/{'sub/' * h}item-".encode()
+                   for h in range(8))
+    host = rng.integers(0, 8, n)
+    num = rng.integers(0, 10**12, n)
+    order = np.lexsort((num, host))
+    host, num = host[order], num[order]
+    head, head_offs = gather_byte_arrays(*_pool(paths), host)
+    hl = np.diff(head_offs)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(hl + 12, out=offs[1:])
+    out = np.empty(int(offs[-1]), np.uint8)
+    out[np.repeat(offs[:-1], hl) + segment_ranges(hl)] = head
+    out[(offs[:-1] + hl)[:, None] + np.arange(12)] = (
+        num[:, None] // 10 ** np.arange(11, -1, -1) % 10 + 48)
+    return out, offs
+
+
+def make_enc(rows: int, seed: int) -> tuple:
+    """The ``enc`` table, from ``seed``: every (type, encoding) pair of the
+    read path that lineitem lacks, 5-10 % nulls on half of the columns.
+    ``(schema, {name: ColumnData})``."""
+    rng = np.random.default_rng(seed + 6)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    leaves, data = [], {}
+    for name, (physical, tl, _, nulls) in ENC_COLUMNS.items():
+        validity = rng.random(rows) >= nulls if nulls else None
+        n = rows if validity is None else int(validity.sum())
+        offsets = None
+        if physical == Type.BOOLEAN:
+            values = rng.random(n) < 0.3
+        elif physical == Type.INT96:
+            values = rng.integers(-2**31, 2**31, (n, 3)).astype(np.int32)
+        elif name == "flba_dict":  # 500 entries: w = 9
+            pool = rng.integers(0, 256, (500, 16), dtype=np.uint8)
+            values = pool[rng.integers(0, 500, n)]
+        elif physical == Type.FIXED_LEN_BYTE_ARRAY:
+            values = rng.integers(0, 256, (n, tl), dtype=np.uint8)
+        elif physical in (Type.FLOAT, Type.DOUBLE):
+            values = (rng.standard_normal(n) * 1000).astype(
+                np.float32 if physical == Type.FLOAT else np.float64)
+        elif physical in (Type.INT32, Type.INT64):
+            values = rng.integers(-10**6, 10**6, n).astype(
+                np.int32 if physical == Type.INT32 else np.int64)
+        elif name == "ba_dlba":
+            offsets = np.zeros(n + 1, np.int64)
+            np.cumsum(rng.integers(0, 40, n), out=offsets[1:])
+            values = letters[rng.integers(0, 26, int(offsets[-1]),
+                                          dtype=np.int8)]
+        elif name == "ba_dba":
+            values, offsets = _urls(rng, n)
+        else:  # ba_dict: 1,000 city-like names (w = 10)
+            names = [f"City-{i:04d}-{'ville' * (i % 4)}".encode()
+                     for i in range(1000)]
+            values, offsets = gather_byte_arrays(*_pool(names),
+                                                 rng.integers(0, 1000, n))
+        data[name] = ColumnData(values=values, validity=validity,
+                                offsets=offsets)
+        leaves.append(Leaf(-1, name, physical, 1 if nulls else 0, tl))
+    return Schema(leaves), data
+
+
+def check_columns(out: dict, data: dict) -> None:
+    """Each decoded column, materialized on the host, against its generated
+    values, offsets and validity."""
+    for name, cd in data.items():
+        col = out[name]
+        on = (col.values if col.values is not None
+              else col.dict_indices).device
+        if on.type != torch.device(DEVICE).type:
+            raise AssertionError(f"{name}: decoded on {on}")
+        if cd.validity is None:
+            if col.validity is not None and not bool(col.validity.all()):
+                raise AssertionError(f"{name}: unexpected nulls")
+        elif col.validity is None or not np.array_equal(
+                col.validity.cpu().numpy(), cd.validity):
+            raise AssertionError(f"{name}: validity differs")
+        got = col.materialize_host()
+        if cd.offsets is not None:
+            if not (np.array_equal(got[1], cd.offsets)
+                    and np.array_equal(got[0], cd.values)):
+                raise AssertionError(f"{name}: byte arrays differ")
+            continue
+        want = np.asarray(cd.values)
+        if got.dtype != want.dtype or got.shape != want.shape or \
+                not np.array_equal(got.view(np.uint8), want.view(np.uint8)):
+            raise AssertionError(f"{name}: values differ")
+
+
+def read_and_check(path: str, data: dict, reads: int) -> dict:
+    """One cold read and ``reads - 1`` warm ones, each equal to ``data``,
+    with each kernel's launches by column over them, which must add up to
+    the wrappers'."""
+    with ColumnLaunches() as by_column:
+        pq.reset_launches()
+        out, cold_s = timed_read(path)
+        check_columns(out, data)
+        nbytes = decoded_bytes(out)
+        del out
+        warm = []
+        for _ in range(reads - 1):
+            out, s = timed_read(path)
+            warm.append(s)
+            check_columns(out, data)
+            del out
+        launches = dict(pq.LAUNCHES)
+    for name, count in launches.items():
+        counted = sum(c.get(name, 0) for c in by_column.counts.values())
+        if counted != count:
+            raise AssertionError(f"{name}: {counted} launches counted by "
+                                 f"column, {count} by the wrapper")
+    return {"cold_read_s": cold_s, "warm_read_s": warm,
+            "decoded_bytes": nbytes, "launches": launches,
+            "column_launches": by_column.counts}
+
+
+def lineitem_path(rows: int, seed: int, tmp: str) -> dict:
+    """Phase 4b: the port's writer makes lineitem (Snappy, 4,000,000-row
+    row groups, 1 MiB pages, page index), read cold and three times warm
+    on the card, each read equal to the generated columns; then each
+    column alone and the read's phases."""
+    t0 = time.perf_counter()
+    schema, data = make_lineitem(rows, seed)
+    gen_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "lineitem.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(data, path, pq.WriterOptions(
+        compression="snappy", row_group_size=LINEITEM_ROW_GROUP,
+        data_page_size=1 << 20, column_encoding=LINEITEM_ENCODINGS),
+        schema=schema)
+    write_s = time.perf_counter() - t0
+    got = read_and_check(path, data, 4)
+    del data
+    best = min(got["warm_read_s"])
+    per_column = {}
+    for name in LINEITEM_ORDER:
+        _, per_column[name] = timed_read(path, [name])
+    log({"lineitem_path": {
+        "rows": rows, "cut": "rows only: 8,388,608 by default of bench.py "
+        "cfg 7's 40,000,000, so the host-Python writer and the reads fit "
+        "the run; every column, width and cardinality kept",
+        "row_groups": -(-rows // LINEITEM_ROW_GROUP),
+        "file_bytes": os.path.getsize(path), "generate_s": gen_s,
+        "write_s": write_s, **got, "rows_per_s": rows / best,
+        "decoded_bytes_formula": "values + int64 byte-array offsets + the "
+        "int32 indexes of columns kept dictionary-encoded (dictionaries "
+        "left out) = 123 B a row",
+        "decoded_gb_per_s": got["decoded_bytes"] / best / 1e9,
+        "column_read_s": per_column,
+        "unpack_bits_dense_by_column": {
+            c: got["column_launches"].get(c, {}).get("unpack_bits_dense", 0)
+            for c in LINEITEM_ORDER}}})
+    return {"path": path, "columns": phase_times(path),
+            "launches": got["launches"]}
+
+
+def enc_path(rows: int, seed: int, tmp: str) -> dict:
+    """Phase 4c: ``enc`` written with v1 pages under Snappy and with v2
+    pages (each read cold and warm), then under every other codec whose
+    library loaded (read once), each read equal to the generated columns,
+    and the v1 Snappy file's read by column and phase;
+    ``unpack_bits_dense`` must launch on both dense dictionary columns in
+    every read."""
+    schema, data = make_enc(rows, seed)
+    libs = {c.name: codecs.system_library(*names)
+            for c, names in codecs.LIBRARIES.items()}
+    log({"codecs": {**libs, "SNAPPY": "the port's own "
+                    "(parquet_tpu_torch/csrc/host_codec.cpp)",
+                    "GZIP": "zlib", "not_run": sorted(
+                        n for n, lib in libs.items() if lib is None)}})
+    files = [("v1-SNAPPY", 1, "snappy"), ("v2-SNAPPY", 2, "snappy")]
+    files += [(f"v1-{name}", 1, name.lower())
+              for name, lib in libs.items() if lib is not None]
+    results = {}
+    for label, version, codec in files:
+        path = os.path.join(tmp, f"enc-{label}.parquet")
+        t0 = time.perf_counter()
+        pq.write_table(data, path, pq.WriterOptions(
+            compression=codec, data_page_version=version,
+            row_group_size=ENC_ROW_GROUP, data_page_size=ENC_PAGE,
+            column_encoding={n: spec[2] for n, spec in ENC_COLUMNS.items()}),
+            schema=schema)
+        write_s = time.perf_counter() - t0
+        got = read_and_check(path, data, 2 if codec == "snappy" else 1)
+        for name in ENC_DENSE:
+            if not got["column_launches"].get(name, {}).get(
+                    "unpack_bits_dense"):
+                raise AssertionError(f"enc {label}: {name} launched no "
+                                     "unpack_bits_dense")
+        results[label] = {"file_bytes": os.path.getsize(path),
+                          "write_s": write_s, **got}
+        if label != "v1-SNAPPY":
+            os.remove(path)
+    first = os.path.join(tmp, "enc-v1-SNAPPY.parquet")
+    log({"enc_path": {"rows": rows, "row_groups": -(-rows // ENC_ROW_GROUP),
+                      "page_bytes": ENC_PAGE, "files": results,
+                      "v1_snappy_columns": phase_times(first)}})
+    return {"path": first, "launches": results["v1-SNAPPY"]["launches"],
+            "column_launches": results["v1-SNAPPY"]["column_launches"]}
+
+
+# ---------------------------------------------------------------------------
+# the torch ops that stand for XLA ops, at enc's and lineitem's shapes
+# ---------------------------------------------------------------------------
+
+# op -> (owner, attribute) of the function the read calls
+TORCH_OPS = {
+    "byte_stream_split": (device_reader, "_bss_decode"),
+    "delta_byte_array_expand": (dev, "delta_byte_array_expand"),
+    "rle_expand": (dev, "rle_expand"),
+}
+
+
+class OpCalls:
+    """Calls of each torch op of ``TORCH_OPS`` by column over the reads
+    inside the block (``counts[column][op]``)."""
+
+    def __init__(self):
+        self.counts = {}
+        self._saved = []
+        self._column = None
+
+    def __enter__(self):
+        real_decode = device_reader.decode_staged
+
+        def decode(plan, *args, **kwargs):
+            self._column = plan.leaf.name
+            return real_decode(plan, *args, **kwargs)
+
+        self._saved.append((device_reader, "decode_staged", real_decode))
+        device_reader.decode_staged = decode
+        for op, (owner, attr) in TORCH_OPS.items():
+            real = getattr(owner, attr)
+
+            def counted(*args, real=real, op=op, **kwargs):
+                col = self.counts.setdefault(self._column, {})
+                col[op] = col.get(op, 0) + 1
+                return real(*args, **kwargs)
+
+            self._saved.append((owner, attr, real))
+            setattr(owner, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, real in reversed(self._saved):
+            setattr(owner, attr, real)
+        self._saved = []
+
+
+def op_ms(fn, reps: int = 10, tries: int = 3):
+    """Device milliseconds per call of ``fn``, a torch op of several
+    kernels (or a copy): every device event the profiler recorded over
+    ``reps`` calls, summed, over ``reps``; None where a window recorded
+    none."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0)
+        if us > 0:
+            return us / reps / 1e3
+    return None
+
+
+def rle_bytes(args) -> int:
+    """Bytes an ``rle_expand`` call must move: its bit-packed runs' bits,
+    its run table (5 int64 a run) and 4 bytes out a value."""
+    _, n, ends, kinds = args[:4]
+    counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    packed = counts[kinds != 0]
+    w = int(args[6].max()) if args[6].numel() else 0
+    return int(packed.sum()) * w // 8 + 40 * ends.numel() + 4 * n
+
+
+def op_row(op: str, shape: str, fn, nbytes: int, calls: dict,
+           extra=None) -> dict:
+    ms = op_ms(fn)
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    per_read = sum(calls.values())
+    return {"op": op, "shape": shape, **(extra or {}), "ms": ms,
+            "calls_per_read": per_read, "calls_by_column": calls,
+            "bytes": nbytes, "bound_ms": b,
+            "ms_per_read": None if ms is None else ms * per_read,
+            "excess_ms_per_read": None if ms is None
+            else (ms - b) * per_read}
+
+
+def torch_ops(enc: str, lineitem: str) -> list:
+    """The profiler's ``ms`` per call, the calls per read and the byte bound
+    (bytes moved / 3.35 TB/s) of the torch ops at the shapes of the first
+    row group of enc's and lineitem's columns: ``byte_stream_split``
+    (``f64_bss``), ``delta_byte_array_expand`` (``ba_dba``), the boolean
+    expand (``bool_rle``: ``rle_expand`` at w = 1, then ``!= 0``),
+    ``rle_expand`` at lineitem's four dictionary string columns (where
+    their index runs are not all bit-packed) and the H2D copy of
+    ``l_comment``'s bytes."""
+    counts = {}
+    for path in (enc, lineitem):
+        with OpCalls() as calls:
+            timed_read(path)
+        counts[path] = calls.counts
+    rows = []
+
+    def by_column(path, op, columns):
+        return {c: counts[path].get(c, {}).get(op, 0) for c in columns}
+
+    args = first_chunk_calls(enc, "f64_bss", *TORCH_OPS["byte_stream_split"])
+    buf, pages, width, physical = args[0]
+    n = sum(p[1] for p in pages)
+    rows.append(op_row(
+        "byte_stream_split", f"enc.f64_bss: n={n}, width={width}, "
+        f"{len(pages)} pages", lambda: device_reader._bss_decode(*args[0]),
+        2 * n * width, by_column(enc, "byte_stream_split", [
+            c for c, spec in ENC_COLUMNS.items()
+            if spec[2] == Encoding.BYTE_STREAM_SPLIT])))
+    args = first_chunk_calls(enc, "ba_dba",
+                             *TORCH_OPS["delta_byte_array_expand"])[0]
+    total, iters = args[4], args[5]
+    entries = args[1].numel()
+    rows.append(op_row(
+        "delta_byte_array_expand", f"enc.ba_dba: {entries} values, "
+        f"{total} bytes out", lambda: dev.delta_byte_array_expand(*args),
+        total - int(args[1].sum()) + 24 * entries + total,
+        by_column(enc, "delta_byte_array_expand", ["ba_dba"]),
+        {"iters": iters}))
+    args = first_chunk_calls(enc, "bool_rle", *TORCH_OPS["rle_expand"])[0]
+    n = args[1]
+    rows.append(op_row(
+        "bool_expand", f"enc.bool_rle: n={n}, {args[2].numel()} runs",
+        lambda: dev.rle_expand(*args) != 0,
+        rle_bytes(args) - 3 * n,
+        by_column(enc, "rle_expand", ["bool_rle"])))
+    for column in LINEITEM_STRINGS:
+        calls = first_chunk_calls(lineitem, column, *TORCH_OPS["rle_expand"])
+        per_read = by_column(lineitem, "rle_expand", [column])
+        if not calls:  # every run bit-packed: unpack_bits_dense instead
+            rows.append({"op": "rle_expand", "shape": f"lineitem.{column}",
+                         "ms": None, "calls_per_read": 0,
+                         "calls_by_column": per_read, "bound_ms": None,
+                         "note": "all index runs bit-packed: the chunk "
+                         "took unpack_bits_dense"})
+            continue
+        a = calls[0]
+        kinds = a[3]
+        rows.append(op_row(
+            "rle_expand", f"lineitem.{column}: n={a[1]}, "
+            f"w={int(a[6].max())}, {a[2].numel()} runs "
+            f"({int((kinds == 0).sum())} RLE)",
+            lambda a=a: dev.rle_expand(*a), rle_bytes(a), per_read))
+    f = pq.ParquetFile(lineitem)
+    reader = f.row_groups[0].column(f.schema.leaf("l_comment").column_index)
+    plan = device_reader.build_plan(reader)
+    host_bytes, _ = device_reader._host_byte_arrays(plan.host_parts)
+    host_tensor = torch.from_numpy(host_bytes)
+    rows.append(op_row(
+        "h2d", f"lineitem.l_comment: {host_bytes.nbytes} bytes, pageable",
+        lambda: host_tensor.to(DEVICE), host_bytes.nbytes,
+        {"l_comment": len(f.row_groups)},
+        {"note": "the byte bound is at the card's memory rate; the host "
+         "link's rate bounds it more"}))
+    missing = [r["op"] for r in rows
+               if r["ms"] is None and r["calls_per_read"]]
+    if missing:
+        raise AssertionError(f"the profiler recorded no time for {missing}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -942,22 +1461,29 @@ def shape_times(column: str, kernel: str, args: tuple,
 
 
 def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
-                       path_launches: dict, probe: tuple) -> list:
+                       path_launches: dict, probe: tuple, enc: dict,
+                       lineitem_launches: dict) -> list:
     """Each kernel at the shapes its path gives it.  On the read path, the
     first row group's launches as ``path_operands`` took them: ``k``
     (indexes of a 20,000-entry dictionary, unfused), ``ts`` (the delta
     miniblocks) and ``cat`` (indexes fused with its 200-entry int32
-    dictionary); a kernel's top-level numbers are its first shape's.  On
-    the lookup path one lookup's segmented bloom probe (``probe``: every
-    row group's filter and the hashes of the keys that survive its
-    statistics stage)."""
+    dictionary), and on ``enc`` ``ba_dict`` (the indexes of a 1,000-entry
+    byte-array dictionary); a kernel's top-level numbers are its first
+    shape's.  On the lookup path one lookup's segmented bloom probe
+    (``probe``: every row group's filter and the hashes of the keys that
+    survive its statistics stage)."""
     rows = {c: shape_times(c, k, shapes[c], path_launches[c])
             for c, k in PATH_SHAPES}
+    for c, k in ENC_SHAPES:
+        rows[f"enc.{c}"] = shape_times(
+            f"enc.{c}", k, enc["shapes"][c],
+            enc["column_launches"].get(c, {}).get(k, 0))
+    all_shapes = PATH_SHAPES + tuple((f"enc.{c}", k) for c, k in ENC_SHAPES)
     out = []
     for name, source, line in (
             ("unpack_bits_dense", "unpack_bits.cu", 81),
             ("dict_unpack_gather", "dict_unpack_gather.cu", 166)):
-        mine = [rows[c] for c, k in PATH_SHAPES if k == name]
+        mine = [rows[c] for c, k in all_shapes if k == name]
         top = mine[0]
         out.append({
             "name": name, "route": "cuda",
@@ -1001,7 +1527,9 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
             "bound_ms": b1, "bound_by": by1}})
     for k in out:
         k["launches_by_path"] = {"read": launches[k["name"]],
-                                 "lookup": lookup_launches[k["name"]]}
+                                 "lookup": lookup_launches[k["name"]],
+                                 "lineitem": lineitem_launches[k["name"]],
+                                 "enc": enc["launches"][k["name"]]}
     for k in out:
         if k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: kernel differs from its "
@@ -1018,6 +1546,10 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", type=int, default=8_388_608)
     ap.add_argument("--kernel-values", type=int, default=8_388_608)
     ap.add_argument("--lookup-rows", type=int, default=8_388_608)
+    ap.add_argument("--lineitem-rows", type=int, default=8_388_608,
+                    help="lineitem's rows: a cut of bench.py cfg 7's "
+                    "40,000,000")
+    ap.add_argument("--enc-rows", type=int, default=4_194_304)
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke_sweep.json (none by "
                     "default)")
@@ -1045,25 +1577,48 @@ def main(argv=None) -> int:
     for row in sweep:
         log(row)
 
+    phase_s = {}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            phase_s[name] = time.perf_counter() - t0
+
     with tempfile.TemporaryDirectory() as tmp:
-        read = main_path(args.rows, args.seed, tmp)
-        look = lookup_path(args.lookup_rows, args.seed, tmp)
-        # the kernels' short profiler windows come before the profiled
-        # read and lookup: after such a long window the profiler can drop
-        # every event of a short one
-        kern = main_shape_kernels(read["launches"], look["launches"],
-                                  read["shapes"], read["path_launches"],
-                                  look["probe"])
+        read = phase("4_read", main_path, args.rows, args.seed, tmp)
+        item = phase("4b_lineitem", lineitem_path, args.lineitem_rows,
+                     args.seed, tmp)
+        enc = phase("4c_enc", enc_path, args.enc_rows, args.seed, tmp)
+        enc["shapes"] = path_operands(enc["path"], ENC_SHAPES)
+        look = phase("5_lookup", lookup_path, args.lookup_rows, args.seed,
+                     tmp)
+        # the short profiler windows of the kernels and ops come before
+        # the profiled reads and lookup: after such a long window the
+        # profiler can drop every event of a short one
+        kern = phase("6_kernels", main_shape_kernels, read["launches"],
+                     look["launches"], read["shapes"],
+                     read["path_launches"], look["probe"], enc,
+                     item["launches"])
+        ops = phase("6_ops", torch_ops, enc["path"], item["path"])
+        t0 = time.perf_counter()
         log({"breakdown": {"columns": read["columns"], **device_profile(
             lambda: timed_read(read["path"]), "read")}})
+        log({"lineitem_breakdown": {"columns": item["columns"],
+                                    **device_profile(lambda: timed_read(
+                                        item["path"]), "read")}})
         log({"lookup_breakdown": {**look["stages"], **device_profile(
             look["run"], "lookup")}})
+        phase_s["7_profiled"] = time.perf_counter() - t0
+    log({"phase_s": phase_s})
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke_sweep.json"), "w") as f:
-            json.dump({"card": card, "sweep": sweep, "kernels": kern}, f,
-                      indent=1)
+            json.dump({"card": card, "sweep": sweep, "kernels": kern,
+                       "ops": ops}, f, indent=1)
+    log({"ops": ops})
     log(card)
     log({"kernels": kern})
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,

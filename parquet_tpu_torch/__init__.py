@@ -1,9 +1,12 @@
 """parquet_tpu_torch: the PyTorch/CUDA port of parquet_tpu.
 
-This slice reads flat INT32/INT64/FLOAT/DOUBLE columns (PLAIN,
-RLE_DICTIONARY, DELTA_BINARY_PACKED; data pages v1 and v2; UNCOMPRESSED or
-GZIP) into tensors on a CUDA device, through the hand-written kernels of
-``csrc/``, and writes such files.
+It reads flat columns of every physical type (BOOLEAN, INT32, INT64,
+INT96, FLOAT, DOUBLE, BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY) in PLAIN,
+dictionary, RLE, DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY,
+DELTA_BYTE_ARRAY and BYTE_STREAM_SPLIT pages (v1 and v2; UNCOMPRESSED,
+GZIP, SNAPPY, ZSTD, LZ4_RAW, LZ4, BROTLI) into tensors on a CUDA device,
+through the hand-written kernels of ``csrc/``, looks rows up by a numeric
+key, and writes such files.
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")

@@ -4,8 +4,8 @@ writes and point lookups touch.
 The port's copy of ``parquet_tpu/format/metadata.py``.  Field ids, names and
 types mirror the Apache Parquet thrift IDL, so a file written by either
 package reads back in the other.  Structs this port never reads
-(encryption, logical types, size statistics) are left out: the compact
-reader skips their fields by wire type.
+(encryption, logical types other than STRING, size statistics) are left
+out: the compact reader skips their fields by wire type.
 """
 
 from __future__ import annotations
@@ -43,6 +43,14 @@ class Statistics:
 # ---------------------------------------------------------------------------
 # Schema
 # ---------------------------------------------------------------------------
+StringType = _empty("StringType")
+
+
+@thrift_struct
+class LogicalType:  # union; the port writes and reads STRING only
+    _FIELDS = [(1, "STRING", _S(StringType))]
+
+
 @thrift_struct
 class SchemaElement:
     _FIELDS = [
@@ -55,6 +63,7 @@ class SchemaElement:
         (7, "scale", T.I32),
         (8, "precision", T.I32),
         (9, "field_id", T.I32),
+        (10, "logicalType", _S(LogicalType)),
     ]
 
 

@@ -43,8 +43,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..errors import unsupported
 from ..format.enums import BoundaryOrder, Type
-from ..schema.types import PHYSICAL_NP_DTYPE
+from ..schema.types import NUMERIC, PHYSICAL_NP_DTYPE
 
 __all__ = ["KeyHits", "LookupResult", "find_rows"]
 
@@ -652,6 +653,12 @@ def find_rows(pf, path: str, keys, columns: Optional[Sequence[str]] = None,
     dev = resolve_device(device)
     leaf = pf.schema.leaf(path)  # KeyError on an unknown column
     out_leaves = [pf.schema.leaf(c) for c in (columns or [])]
+    for lf in [leaf] + out_leaves:
+        if lf.physical_type not in NUMERIC:
+            raise unsupported(
+                f"a point lookup over the {lf.physical_type.name} column "
+                f"{lf.name!r}", "the lookup leftovers (byte-array, boolean "
+                "and fixed-length keys and values)")
     counters = {k: 0 for k in COUNTER_KEYS}
     counters["keys"] = len(keys)
     prep = _prepare_keys(leaf, keys)

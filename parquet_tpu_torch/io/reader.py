@@ -24,7 +24,6 @@ import struct
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from .. import codecs
@@ -200,16 +199,15 @@ class ColumnChunkReader:
         return self._st
 
 
-def decode_dictionary_page(reader: ColumnChunkReader,
-                           page: PageInfo) -> np.ndarray:
-    """Decompress and decode one PLAIN dictionary page to host numpy."""
+def decode_dictionary_page(reader: ColumnChunkReader, page: PageInfo):
+    """Decompress and decode one PLAIN dictionary page to host numpy: an
+    array, or for byte arrays a ``(values, offsets)`` pair."""
     from ..ops import ref
 
     h = page.header
     raw = reader.codec.decode(page.payload, h.uncompressed_page_size)
-    return ref.decode_plain(np.frombuffer(raw, np.uint8),
-                            h.dictionary_page_header.num_values,
-                            Type(reader.meta.type))
+    return ref.decode_plain(raw, h.dictionary_page_header.num_values,
+                            Type(reader.meta.type), reader.leaf.type_length)
 
 
 class RowGroupReader:
@@ -342,7 +340,11 @@ class ParquetFile:
 
 
 def _empty_column(leaf: Leaf, device: torch.device) -> Column:
-    from ..schema.types import PHYSICAL_TORCH_DTYPE
+    """The zero-row column of a file without row groups."""
+    from ..schema.types import empty_values
 
-    return Column(leaf=leaf, values=torch.zeros(
-        0, dtype=PHYSICAL_TORCH_DTYPE[leaf.physical_type], device=device))
+    offsets = None
+    if leaf.physical_type == Type.BYTE_ARRAY:
+        offsets = torch.zeros(1, dtype=torch.int64, device=device)
+    return Column(leaf=leaf, values=empty_values(
+        leaf.physical_type, leaf.type_length, device), offsets=offsets)

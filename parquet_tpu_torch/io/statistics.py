@@ -36,6 +36,8 @@ def decode_stat_value(raw: Optional[bytes], leaf: Leaf):
 def encode_stat_value(value, physical: Type) -> bytes:
     if value is None:
         return b""
+    if physical == Type.BOOLEAN:
+        return bytes([1 if value else 0])
     if physical == Type.INT32:
         return np.int32(value).tobytes()
     if physical == Type.INT64:

@@ -1,19 +1,29 @@
-"""Parquet writer for flat INT32/INT64/FLOAT/DOUBLE columns.
+"""Parquet writer for flat columns of every physical type.
 
 The port's cut of ``parquet_tpu/io/writer.py`` (``ParquetWriter``,
 ``write_table``, ``WriterOptions`` with the same size defaults).  Columns
-are required or optional; each chunk is PLAIN, RLE_DICTIONARY (with its
-dictionary page) or DELTA_BINARY_PACKED, in v1 or v2 data pages,
-UNCOMPRESSED or GZIP.  As the reference's writer does, it writes chunk and
-page statistics, the page index (column index with its boundary order, and
-offset index), split-block bloom filters for the columns named in
+are required or optional, of BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE,
+BYTE_ARRAY (optionally annotated as UTF-8 strings) or FIXED_LEN_BYTE_ARRAY;
+each chunk is PLAIN, RLE_DICTIONARY (with its dictionary page),
+DELTA_BINARY_PACKED, BYTE_STREAM_SPLIT, RLE (booleans),
+DELTA_LENGTH_BYTE_ARRAY or DELTA_BYTE_ARRAY, in v1 or v2 data pages,
+UNCOMPRESSED, GZIP, SNAPPY, ZSTD, LZ4_RAW, LZ4 or BROTLI.  As the
+reference's writer does, it writes chunk and page statistics (byte arrays
+in unsigned lexicographic order, page-index bounds truncated to 64
+bytes), the page index (column index with its boundary order, and offset
+index), split-block bloom filters for the numeric columns named in
 ``WriterOptions.bloom_filters`` and the row groups' ``sorting_columns``;
-the bloom filters, then the page index, go between the last row group and
-the footer.  Page CRCs are not written.
+the bloom filters, then the page index, go between the last row group
+and the footer.  Byte-array dictionaries keep
+first-seen order, as the reference's do.  Page CRCs are not written.
 
 ``write_table`` takes ``{name: array}``: a numpy array is a required
 column, a ``numpy.ma.MaskedArray`` an optional one whose masked slots are
-null.
+null.  bool arrays are BOOLEAN, 1-D object arrays of ``bytes`` (or
+``str``, written as UTF-8 strings) BYTE_ARRAY, ``(n, 3)`` int32 arrays
+INT96 and ``(n, w)`` uint8 arrays FIXED_LEN_BYTE_ARRAY(w).  A
+:class:`ColumnData` (values, offsets for byte arrays, validity) is taken
+as it is, with the ``schema`` passed beside the table.
 """
 
 from __future__ import annotations
@@ -33,17 +43,38 @@ from ..format.enums import (BoundaryOrder, CompressionCodec, Encoding,
                             PageType, Type)
 from ..format.enums import FieldRepetitionType as Rep
 from ..ops import ref
+from ..ops import host
 from ..schema.schema import Leaf, Schema
-from ..schema.types import PHYSICAL_NP_DTYPE, PHYSICAL_WIDTH, physical_of_dtype
+from ..schema.types import (NUMERIC, PHYSICAL_NP_DTYPE, physical_of_dtype,
+                            value_width)
 
 DEFAULT_CREATED_BY = "parquet_tpu_torch"
 
 _CODEC_NAMES = {"none": CompressionCodec.UNCOMPRESSED,
                 "uncompressed": CompressionCodec.UNCOMPRESSED,
-                "gzip": CompressionCodec.GZIP}
+                "gzip": CompressionCodec.GZIP,
+                "snappy": CompressionCodec.SNAPPY,
+                "zstd": CompressionCodec.ZSTD,
+                "lz4_raw": CompressionCodec.LZ4_RAW,
+                "lz4": CompressionCodec.LZ4,
+                "brotli": CompressionCodec.BROTLI}
 
-_WRITE_ENCODINGS = (Encoding.PLAIN, Encoding.RLE_DICTIONARY,
-                    Encoding.DELTA_BINARY_PACKED)
+# the encodings a column may be forced to, by physical type (dictionary
+# encoding writes RLE_DICTIONARY pages after a PLAIN dictionary page)
+_ENCODABLE = {
+    Encoding.PLAIN: tuple(Type),
+    Encoding.RLE_DICTIONARY: tuple(t for t in Type if t != Type.BOOLEAN),
+    Encoding.DELTA_BINARY_PACKED: (Type.INT32, Type.INT64),
+    Encoding.BYTE_STREAM_SPLIT: NUMERIC + (Type.FIXED_LEN_BYTE_ARRAY,),
+    Encoding.RLE: (Type.BOOLEAN,),
+    Encoding.DELTA_LENGTH_BYTE_ARRAY: (Type.BYTE_ARRAY,),
+    Encoding.DELTA_BYTE_ARRAY: (Type.BYTE_ARRAY,),
+}
+_WRITE_ENCODINGS = tuple(_ENCODABLE)
+
+# page-index bounds of byte arrays are cut to this many bytes (the
+# reference writer's default column_index_truncate_length)
+COLUMN_INDEX_TRUNCATE = 64
 
 
 @dataclass
@@ -58,7 +89,7 @@ class WriterOptions:
     # dictionary fits dictionary_page_limit bytes; PLAIN beyond it
     dictionary: bool = True
     dictionary_page_limit: int = 1 << 20
-    # name -> PLAIN | RLE_DICTIONARY | DELTA_BINARY_PACKED
+    # name -> an encoding of _ENCODABLE for the column's type
     column_encoding: Dict[str, Encoding] = dc_field(default_factory=dict)
     created_by: str = DEFAULT_CREATED_BY
     write_statistics: bool = True
@@ -79,7 +110,7 @@ class WriterOptions:
         for name, enc in self.column_encoding.items():
             if Encoding(enc) not in _WRITE_ENCODINGS:
                 raise ValueError(f"column {name!r}: cannot write "
-                                 f"{Encoding(enc).name} in this slice")
+                                 f"{Encoding(enc).name}")
 
     def codec_id(self) -> CompressionCodec:
         if isinstance(self.compression, str):
@@ -89,10 +120,12 @@ class WriterOptions:
 
 @dataclass
 class ColumnData:
-    """One leaf's input: dense present values + per-slot validity."""
+    """One leaf's input: dense present values (byte arrays: their bytes and
+    ``offsets[n + 1]``) + per-slot validity."""
 
     values: np.ndarray
     validity: Optional[np.ndarray] = None  # bool per slot; None = required
+    offsets: Optional[np.ndarray] = None  # BYTE_ARRAY only
 
 
 class ParquetWriter:
@@ -147,40 +180,33 @@ class ParquetWriter:
         (column index, offset index, bloom blob) that go out at close."""
         opts = self.options
         physical = leaf.physical_type
-        values = np.ascontiguousarray(data.values,
-                                      dtype=PHYSICAL_NP_DTYPE[physical])
+        values, offsets = _normalized(leaf, data)
         validity = (None if data.validity is None
                     else np.asarray(data.validity, bool))
         nvalues = num_rows if validity is None else int(validity.sum())
-        if len(values) != nvalues:
-            raise ValueError(f"column {leaf.name!r}: {len(values)} values "
+        have = len(offsets) - 1 if offsets is not None else len(values)
+        if have != nvalues:
+            raise ValueError(f"column {leaf.name!r}: {have} values "
                              f"for {nvalues} present slots")
         forced = opts.column_encoding.get(leaf.name)
         encoding = Encoding(forced) if forced is not None else None
-        if (encoding == Encoding.DELTA_BINARY_PACKED
-                and physical not in (Type.INT32, Type.INT64)):
-            raise ValueError(f"column {leaf.name!r}: DELTA_BINARY_PACKED "
-                             f"takes INT32/INT64, not {physical.name}")
-        dict_values = indices = None
-        if encoding == Encoding.RLE_DICTIONARY or (
-                encoding is None and opts.dictionary):
-            # unique bit patterns: -0.0 and 0.0, or two NaN payloads, are
-            # distinct entries
-            bits = values.view(f"<i{values.itemsize}")
-            uniq, indices = np.unique(bits, return_inverse=True)
-            dict_values = uniq.view(values.dtype)
-            if (encoding is None and (
-                    not nvalues
-                    or dict_values.nbytes > opts.dictionary_page_limit)):
-                dict_values = indices = None
+        if encoding is not None and physical not in _ENCODABLE[encoding]:
+            raise ValueError(f"column {leaf.name!r}: {encoding.name} does "
+                             f"not take {physical.name} values")
+        dict_values, dict_offsets, indices = _dictionary(
+            leaf, values, offsets, nvalues, encoding == Encoding.RLE_DICTIONARY
+            or (encoding is None and opts.dictionary),
+            forced=encoding is not None, limit=opts.dictionary_page_limit)
         if encoding is None:
             encoding = (Encoding.RLE_DICTIONARY if indices is not None
                         else Encoding.PLAIN)
         stats = None
         if opts.write_statistics:
             # a dictionary holds exactly the chunk's distinct values
-            stats = _statistics(leaf, dict_values if indices is not None
-                                else values, num_rows - nvalues)
+            stats = (_statistics(leaf, dict_values, dict_offsets,
+                                 num_rows - nvalues)
+                     if indices is not None else
+                     _statistics(leaf, values, offsets, num_rows - nvalues))
         bloom_blob = None
         if leaf.name in opts.bloom_filters:
             from .bloom import build_split_block_filter
@@ -206,44 +232,46 @@ class ParquetWriter:
         encodings = {Encoding.RLE, encoding}
         width = 0
         if indices is not None:
-            raw = ref.encode_plain(dict_values, physical)
+            raw = ref.encode_plain(dict_values, physical, dict_offsets)
+            dict_n = (len(dict_offsets) - 1 if dict_offsets is not None
+                      else len(dict_values))
             comp = self._codec.encode(raw)
             emit(md.PageHeader(
                 type=int(PageType.DICTIONARY_PAGE),
                 uncompressed_page_size=len(raw),
                 compressed_page_size=len(comp),
                 dictionary_page_header=md.DictionaryPageHeader(
-                    num_values=len(dict_values),
+                    num_values=dict_n,
                     encoding=int(Encoding.PLAIN), is_sorted=False)),
                 comp)
             dict_page_offset = chunk_start
             encodings.add(Encoding.PLAIN)
             # bit width >= 1: several readers reject zero-width streams
-            width = max(int(len(dict_values) - 1).bit_length(), 1)
+            width = max(int(dict_n - 1).bit_length(), 1)
         data_page_offset = pos
         locations: List[md.PageLocation] = []
         page_stats: List[Tuple[md.Statistics, int]] = []  # (stats, values)
 
-        rows_per_page = max(opts.data_page_size // PHYSICAL_WIDTH[physical],
-                            1)
+        rows_per_page = _rows_per_page(leaf, values, offsets,
+                                       opts.data_page_size)
         present = (None if validity is None
                    else np.concatenate([[0], np.cumsum(validity)]))
         for r0 in range(0, max(num_rows, 1), rows_per_page):
             r1 = min(r0 + rows_per_page, num_rows)
             v0, v1 = ((r0, r1) if present is None
                       else (int(present[r0]), int(present[r1])))
+            sub, sub_offs = _value_span(values, offsets, v0, v1)
             if indices is not None:
                 body = ref.encode_rle_dict_indices(indices[v0:v1], width)
-            elif encoding == Encoding.DELTA_BINARY_PACKED:
-                body = ref.encode_delta_binary_packed(values[v0:v1])
             else:
-                body = ref.encode_plain(values[v0:v1], physical)
+                body = _encode_values(leaf, sub, sub_offs, encoding)
             levels = b""
             if validity is not None:
                 levels = ref.encode_rle(validity[r0:r1].astype(np.int64), 1)
             pstat = None
             if opts.write_statistics:
-                pstat = _statistics(leaf, values[v0:v1], (r1 - r0) - (v1 - v0))
+                pstat = _statistics(leaf, sub, sub_offs,
+                                    (r1 - r0) - (v1 - v0))
                 page_stats.append((pstat, v1 - v0))
             page_start = pos
             emit(*self._data_page(levels, validity is not None, body,
@@ -358,13 +386,121 @@ class ParquetWriter:
             self._f.close()
 
 
-def _statistics(leaf: Leaf, values: np.ndarray,
+def _normalized(leaf: Leaf, data: ColumnData):
+    """(values, offsets) of a chunk's input in the form each physical type
+    is encoded from: byte arrays as uint8 bytes and int64 offsets, INT96
+    as (n, 3) int32, fixed-length byte arrays as (n, w) uint8."""
+    physical = leaf.physical_type
+    if physical == Type.BYTE_ARRAY:
+        if data.offsets is None:
+            raise ValueError(f"column {leaf.name!r}: byte arrays need "
+                             "offsets")
+        return (host.as_u8(np.asarray(data.values)),
+                np.asarray(data.offsets, np.int64))
+    if physical == Type.INT96:
+        return np.ascontiguousarray(data.values, np.int32).reshape(-1, 3), \
+            None
+    if physical == Type.FIXED_LEN_BYTE_ARRAY:
+        return np.ascontiguousarray(data.values, np.uint8).reshape(
+            -1, leaf.type_length), None
+    return np.ascontiguousarray(data.values,
+                                dtype=PHYSICAL_NP_DTYPE[physical]), None
+
+
+def _value_span(values: np.ndarray, offsets: Optional[np.ndarray], v0: int,
+                v1: int):
+    """Values [v0, v1): a slice, and for byte arrays their bytes with
+    offsets from 0."""
+    if offsets is None:
+        return values[v0:v1], None
+    sub = offsets[v0:v1 + 1]
+    return values[sub[0]:sub[-1]], sub - sub[0]
+
+
+def _dictionary(leaf: Leaf, values: np.ndarray, offsets, nvalues: int,
+                wanted: bool, forced: bool, limit: int):
+    """``(dict_values, dict_offsets, indices)`` of a chunk, or three Nones
+    where it is not dictionary-encoded.  Without a forced encoding a
+    dictionary must fit ``limit`` bytes (byte arrays: also at most
+    ``n / 2 + 16`` entries, the reference's rule), and BOOLEAN, INT96 and
+    fixed-length byte arrays stay PLAIN, as the reference writes them.
+    Numbers: distinct bit patterns, sorted (-0.0 and 0.0, or two NaN
+    payloads, are distinct entries); byte strings: first-seen order."""
+    physical = leaf.physical_type
+    none = None, None, None
+    if not wanted or (not forced and (not nvalues or physical in (
+            Type.BOOLEAN, Type.INT96, Type.FIXED_LEN_BYTE_ARRAY))):
+        return none
+    if physical in NUMERIC:
+        bits = values.view(f"<i{values.itemsize}")
+        uniq, indices = np.unique(bits, return_inverse=True)
+        dict_values = uniq.view(values.dtype)
+        if not forced and dict_values.nbytes > limit:
+            return none
+        return dict_values, None, indices.reshape(-1)
+    rows = offsets is None  # INT96 / FLBA: fixed-width rows of bytes
+    if rows:
+        w = values.shape[1] * values.itemsize
+        flat = host.as_u8(values)
+        offsets = np.arange(len(values) + 1, dtype=np.int64) * w
+    else:
+        flat = values
+    n = len(offsets) - 1
+    got = host.dictionary_of_byte_arrays(flat, offsets,
+                                         n if forced else n // 2 + 16)
+    if got is None:
+        return none
+    indices, first = got
+    dvals, doffs = host.gather_byte_arrays(flat, offsets, first)
+    if not forced and int(doffs[-1]) + 4 * len(first) > limit:
+        return none
+    if rows:
+        return dvals.view(values.dtype).reshape(-1, *values.shape[1:]), \
+            None, indices
+    return dvals, doffs, indices
+
+
+def _rows_per_page(leaf: Leaf, values: np.ndarray, offsets,
+                   page_bytes: int) -> int:
+    """Rows per data page: ``page_bytes`` over the value width (a byte
+    array's mean length + 4), as the reference paginates."""
+    width = value_width(leaf.physical_type, leaf.type_length)
+    if leaf.physical_type == Type.BOOLEAN:
+        width = 1
+    elif width is None:
+        n = len(offsets) - 1
+        width = max(int(offsets[-1] - offsets[0]) // max(n, 1), 1) + 4
+    return max(page_bytes // max(width, 1), 1)
+
+
+def _encode_values(leaf: Leaf, values: np.ndarray, offsets,
+                   encoding: Encoding) -> bytes:
+    """One page's values in ``encoding`` (not dictionary)."""
+    physical = leaf.physical_type
+    if encoding == Encoding.PLAIN:
+        return ref.encode_plain(values, physical, offsets)
+    if encoding == Encoding.DELTA_BINARY_PACKED:
+        return ref.encode_delta_binary_packed(values)
+    if encoding == Encoding.BYTE_STREAM_SPLIT:
+        width = values.itemsize * (values.shape[1] if values.ndim == 2
+                                   else 1)
+        return ref.encode_byte_stream_split(values, len(values), width)
+    if encoding == Encoding.RLE:  # booleans: length-prefixed hybrid
+        body = ref.encode_rle(values.astype(np.int64), 1)
+        return struct.pack("<I", len(body)) + body
+    if encoding == Encoding.DELTA_LENGTH_BYTE_ARRAY:
+        return ref.encode_delta_length_byte_array(values, offsets)
+    return ref.encode_delta_byte_array(values, offsets)
+
+
+def _statistics(leaf: Leaf, values: np.ndarray, offsets,
                 null_count: int) -> md.Statistics:
-    """Statistics of a span of present values: min/max (NaNs skipped) in
-    both the current and the deprecated fields, and the null count."""
+    """Statistics of a span of present values: min/max (NaNs skipped; none
+    for INT96) in both the current and the deprecated fields, and the
+    null count."""
     from ..algebra.compare import encode_order_value, min_max
 
-    mn, mx = min_max(leaf, values)
+    mn, mx = min_max(leaf, values, offsets)
     if mn is not None:
         mn, mx = encode_order_value(mn, leaf), encode_order_value(mx, leaf)
     return md.Statistics(null_count=null_count, min_value=mn, max_value=mx,
@@ -374,10 +510,18 @@ def _statistics(leaf: Leaf, values: np.ndarray,
 def _column_index(leaf: Leaf, page_stats: List[Tuple[md.Statistics, int]]
                   ) -> md.ColumnIndex:
     """A page with no values is a null page; a bound that does not exist
-    (no values, or all NaN) is written as empty bytes."""
+    (no values, or all NaN) is written as empty bytes; byte-array bounds
+    longer than ``COLUMN_INDEX_TRUNCATE`` bytes are cut to a prefix that
+    still bounds the page."""
+    from ..algebra.compare import truncate_stat_max, truncate_stat_min
+
     nulls = [nvals == 0 for _, nvals in page_stats]
     mins = [st.min_value or b"" for st, _ in page_stats]
     maxs = [st.max_value or b"" for st, _ in page_stats]
+    if leaf.physical_type in (Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
+        mins = [truncate_stat_min(m, COLUMN_INDEX_TRUNCATE) for m in mins]
+        maxs = [truncate_stat_max(m, COLUMN_INDEX_TRUNCATE) or m
+                for m in maxs]
     return md.ColumnIndex(
         null_pages=nulls, min_values=mins, max_values=maxs,
         boundary_order=int(_boundary_order(mins, maxs, leaf, nulls)),
@@ -387,7 +531,9 @@ def _column_index(leaf: Leaf, page_stats: List[Tuple[md.Statistics, int]]
 def _boundary_order(mins: List[bytes], maxs: List[bytes], leaf: Leaf,
                     null_pages: List[bool]) -> BoundaryOrder:
     """ASCENDING or DESCENDING when the non-null pages' bounds are, else
-    UNORDERED (the reference's rule, over decoded bounds)."""
+    UNORDERED (the reference's rule, over decoded bounds).  Pages without
+    bounds (INT96, all NaN) order as equal when no page has one, as the
+    reference's empty bounds do, and UNORDERED beside pages that have."""
     from .statistics import decode_stat_value
 
     mins = [m for m, n in zip(mins, null_pages) if not n]
@@ -396,6 +542,8 @@ def _boundary_order(mins: List[bytes], maxs: List[bytes], leaf: Leaf,
         return BoundaryOrder.ASCENDING
     dmins = [decode_stat_value(m, leaf) for m in mins]
     dmaxs = [decode_stat_value(m, leaf) for m in maxs]
+    if all(v is None for v in dmins + dmaxs):
+        return BoundaryOrder.ASCENDING
     if any(v is None for v in dmins) or any(v is None for v in dmaxs):
         return BoundaryOrder.UNORDERED
     asc = all(dmins[i] <= dmins[i + 1] for i in range(len(dmins) - 1)) and \
@@ -407,34 +555,90 @@ def _boundary_order(mins: List[bytes], maxs: List[bytes], leaf: Leaf,
     return BoundaryOrder.DESCENDING if desc else BoundaryOrder.UNORDERED
 
 
+def _byte_arrays(items) -> Tuple[np.ndarray, np.ndarray]:
+    """A sequence of bytes (or str, as UTF-8) as (values, offsets)."""
+    items = [x.encode() if isinstance(x, str) else bytes(x) for x in items]
+    offsets = np.zeros(len(items) + 1, np.int64)
+    np.cumsum([len(x) for x in items], out=offsets[1:])
+    return np.frombuffer(b"".join(items), np.uint8), offsets
+
+
 def _column_data(arr) -> ColumnData:
+    if isinstance(arr, ColumnData):
+        return arr
+    validity = None
     if isinstance(arr, np.ma.MaskedArray):
         validity = ~np.ma.getmaskarray(arr)
-        return ColumnData(values=np.asarray(arr.data)[validity],
-                          validity=validity)
-    return ColumnData(values=np.asarray(arr))
+        arr = np.asarray(arr.data)[validity]
+    arr = np.asarray(arr)
+    if arr.dtype.kind in "OSU":
+        values, offsets = _byte_arrays(arr.tolist())
+        return ColumnData(values=values, validity=validity, offsets=offsets)
+    return ColumnData(values=arr, validity=validity)
+
+
+def _leaf_of(name: str, arr) -> Leaf:
+    """The flat leaf an input array is written as."""
+    rep = (Rep.OPTIONAL if isinstance(arr, np.ma.MaskedArray)
+           else Rep.REQUIRED)
+    arr = np.asarray(arr)
+    if arr.ndim == 2 and arr.dtype == np.uint8:
+        return Leaf(-1, name, Type.FIXED_LEN_BYTE_ARRAY, rep, arr.shape[1])
+    if arr.ndim == 2 and arr.dtype == np.int32 and arr.shape[1] == 3:
+        return Leaf(-1, name, Type.INT96, rep)
+    if arr.dtype.kind in "OSU":
+        string = arr.dtype.kind == "U" or any(isinstance(x, str)
+                                              for x in arr.flat)
+        return Leaf(-1, name, Type.BYTE_ARRAY, rep, string=string)
+    return Leaf(-1, name, physical_of_dtype(arr.dtype), rep)
 
 
 def schema_of(table: Dict[str, np.ndarray]) -> Schema:
     """The flat schema of ``{name: array}``: masked arrays are OPTIONAL."""
-    return Schema([
-        Leaf(-1, name, physical_of_dtype(np.asarray(arr).dtype),
-             Rep.OPTIONAL if isinstance(arr, np.ma.MaskedArray)
-             else Rep.REQUIRED)
-        for name, arr in table.items()])
+    return Schema([_leaf_of(name, arr) for name, arr in table.items()])
 
 
-def write_table(table: Dict[str, np.ndarray], sink,
-                options: Optional[WriterOptions] = None) -> None:
-    """Write ``{name: array}`` to ``sink`` (a path or a binary file
-    object) in row groups of ``options.row_group_size`` rows."""
+def _slice_rows(leaf: Leaf, data: ColumnData, r0: int,
+                r1: int) -> ColumnData:
+    """Rows [r0, r1) of a column's input (byte-array offsets rebased)."""
+    v0, v1 = r0, r1
+    validity = None
+    if data.validity is not None:
+        validity = np.asarray(data.validity, bool)
+        v0 = int(np.count_nonzero(validity[:r0]))
+        v1 = v0 + int(np.count_nonzero(validity[r0:r1]))
+        validity = validity[r0:r1]
+    if leaf.physical_type == Type.BYTE_ARRAY:
+        offsets = np.asarray(data.offsets, np.int64)[v0:v1 + 1]
+        return ColumnData(values=np.asarray(data.values)[
+            offsets[0]:offsets[-1]], validity=validity,
+            offsets=offsets - offsets[0])
+    return ColumnData(values=np.asarray(data.values)[v0:v1],
+                      validity=validity)
+
+
+def write_table(table: Dict[str, object], sink,
+                options: Optional[WriterOptions] = None,
+                schema: Optional[Schema] = None) -> None:
+    """Write ``{name: array or ColumnData}`` to ``sink`` (a path or a binary
+    file object) in row groups of ``options.row_group_size`` rows.
+    ``schema`` is needed where the table holds ColumnData."""
     options = options or WriterOptions()
-    lengths = {len(a) for a in table.values()}
+    schema = schema or schema_of(table)
+    columns = {leaf.name: _column_data(table[leaf.name])
+               for leaf in schema.leaves}
+    lengths = set()
+    for leaf in schema.leaves:
+        cd = columns[leaf.name]
+        lengths.add(len(cd.validity) if cd.validity is not None else (
+            len(cd.offsets) - 1 if cd.offsets is not None else len(
+                cd.values)))
     if len(lengths) > 1:
         raise ValueError(f"columns differ in length: {sorted(lengths)}")
     n = lengths.pop() if lengths else 0
-    with ParquetWriter(sink, schema_of(table), options) as w:
+    with ParquetWriter(sink, schema, options) as w:
         for start in range(0, n, options.row_group_size):
             end = min(start + options.row_group_size, n)
-            w.write_row_group({name: _column_data(arr[start:end])
-                               for name, arr in table.items()}, end - start)
+            w.write_row_group({
+                leaf.name: _slice_rows(leaf, columns[leaf.name], start, end)
+                for leaf in schema.leaves}, end - start)

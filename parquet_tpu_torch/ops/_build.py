@@ -1,12 +1,14 @@
-"""Build and load the hand-written CUDA kernels of ``parquet_tpu_torch/csrc``.
+"""Build and load the native code of ``parquet_tpu_torch/csrc``.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, ``_build/lib<name>.<hash>.so`` in
-the package directory, at first use; ``<hash>`` covers the source, the
-headers of ``csrc/`` it may include and the flags, so an edited source or
-header rebuilds.  The libraries load with ``ctypes``.
-:func:`build_all` starts one ``nvcc`` per source at once.  A failed build
-raises: there is no fallback.
+Each ``csrc/<name>.cu`` (a CUDA kernel) compiles with ``nvcc`` for
+``sm_90a``, and each ``csrc/<name>.cpp`` (host code: the Snappy codec and
+the byte-array scans) with the system ``c++``, into its own shared library
+with a plain C interface, ``_build/lib<name>.<hash>.so`` in the package
+directory, at first use; ``<hash>`` covers the source, the headers of
+``csrc/`` a kernel may include and the flags, so an edited source or
+header rebuilds.  The libraries load with ``ctypes``.  :func:`build_all`
+starts one compiler per source at once.  A failed build raises: there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-I", CSRC]
-NVCC_TIMEOUT_S = 600
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+BUILD_TIMEOUT_S = 600
 
 # C entry points of each source: name -> (restype, argtypes)
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -40,7 +43,19 @@ SIGNATURES = {
         "pq_bloom_check": (_I, [_P, _LL, _P, _P, _LL, _P]),
         "pq_bloom_check_segments": (_I, [_P, _P, _I, _P, _P, _LL, _P]),
     },
+    "host_codec": {
+        "pq_snappy_max_compressed_length": (_LL, [_LL]),
+        "pq_snappy_compress": (_LL, [_P, _LL, _P]),
+        "pq_snappy_uncompress": (_I, [_P, _LL, _P, _LL]),
+        "pq_plain_ba_batch": (_LL, [_P, _P, _P, _LL, _P, _P]),
+        "pq_encode_rle": (_LL, [_P, _LL, _I, _LL, _P]),
+        "pq_encode_plain_ba": (None, [_P, _P, _LL, _P]),
+        "pq_minmax_ba": (None, [_P, _P, _LL, _LL, _P, _P]),
+        "pq_dict_build_ba": (_LL, [_P, _P, _LL, _LL, _P, _P]),
+        "pq_common_prefix_lens": (None, [_P, _P, _LL, _P]),
+    },
 }
+HOST_SOURCES = ("host_codec",)  # csrc/<name>.cpp, built with c++
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -56,24 +71,47 @@ def nvcc_path() -> str:
                        "kernels of parquet_tpu_torch cannot be built")
 
 
+def cxx_path() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler found ($CXX, c++, g++): the host "
+                       "code of parquet_tpu_torch cannot be built")
+
+
+def _source(name: str) -> str:
+    return f"{name}.cpp" if name in HOST_SOURCES else f"{name}.cu"
+
+
+def _command(name: str, out: str) -> List[str]:
+    src = os.path.join(CSRC, _source(name))
+    if name in HOST_SOURCES:
+        return [cxx_path(), *CXX_FLAGS, "-o", out, src]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", out, src]
+
+
 def lib_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [f"{name}.cu"] + sorted(f for f in os.listdir(CSRC)
-                                       if f.endswith(".cuh")):
+    host = name in HOST_SOURCES
+    digest = hashlib.sha256(" ".join(CXX_FLAGS if host
+                                     else NVCC_FLAGS).encode())
+    headers = [] if host else sorted(f for f in os.listdir(CSRC)
+                                     if f.endswith(".cuh"))
+    for src in [_source(name)] + headers:
         with open(os.path.join(CSRC, src), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}.{digest.hexdigest()[:12]}.so")
 
 
 def _start(name: str):
-    """Start nvcc for one source into a temporary file; None if built."""
+    """Start the compiler for one source into a temporary file; None if
+    built."""
     out = lib_path(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           os.path.join(CSRC, f"{name}.cu")]
+    cmd = _command(name, tmp)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -82,22 +120,22 @@ def _start(name: str):
 def _finish(name: str, started) -> None:
     proc, tmp, out = started
     try:
-        log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        log, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        raise RuntimeError(f"nvcc timed out building {name}.cu")
+        raise RuntimeError(f"timed out building {_source(name)}")
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed building {name}.cu "
+        raise RuntimeError(f"the compiler failed building {_source(name)} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
 def build_all(names: List[str] = None) -> None:
-    """Build every kernel library that is missing, one nvcc per source, all
-    started together."""
+    """Build every library that is missing (the kernels and the host code),
+    one compiler per source, all started together."""
     names = list(SIGNATURES) if names is None else names
     started = {n: _start(n) for n in names}
     errors = []
@@ -113,7 +151,8 @@ def build_all(names: List[str] = None) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp``, built first if
+    needed."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:

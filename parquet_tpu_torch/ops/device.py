@@ -2,9 +2,11 @@
 
 The port of the XLA (not Pallas) kernels of ``parquet_tpu/ops/device.py``
 that the flat read path runs: PLAIN bitcasts, the word-gather bit unpack at
-arbitrary bit positions, the RLE/bit-packed run expansion, the dictionary
-gather and the level math, plus the host prescan of DELTA_BINARY_PACKED
-miniblocks.  The JAX package keeps 64-bit columns as uint32 pairs because of
+arbitrary bit positions, the RLE/bit-packed run expansion (dictionary
+indexes, levels and booleans), the BYTE_STREAM_SPLIT plane transpose, the
+front-coded (DELTA_BYTE_ARRAY) expansion by pointer jumping, the
+dictionary and byte-array gathers and the level math, plus the host
+prescans of DELTA_BINARY_PACKED miniblocks and of front coding.  The JAX package keeps 64-bit columns as uint32 pairs because of
 the TPU's 32-bit lanes; here 64-bit values are native ``int64``/``float64``
 tensors and all index math runs in ``int64``.
 
@@ -182,6 +184,102 @@ def delta_prescan(data, pos: int = 0):
         np.asarray(mins, dtype=np.int64),
         pos,
     )
+
+
+# ---------------------------------------------------------------------------
+# BYTE_STREAM_SPLIT (plane transpose)
+# ---------------------------------------------------------------------------
+
+
+def byte_stream_split(buf: torch.Tensor, n: int, width: int,
+                      out_dtype=None) -> torch.Tensor:
+    """One page of ``n`` byte-stream-split values: byte plane k is
+    ``buf[k * n:(k + 1) * n]``.  Returns the (n, width) uint8 rows, or
+    with ``out_dtype`` (a 4- or 8-byte dtype) the 1-D values."""
+    rows = buf[:width * n].reshape(width, n).T.contiguous()
+    if out_dtype is None:
+        return rows
+    return rows.view(out_dtype).reshape(n)
+
+
+# ---------------------------------------------------------------------------
+# DELTA_BYTE_ARRAY: host prefix-length prescan, suffix gather and prefix
+# resolution by pointer jumping on the device
+# ---------------------------------------------------------------------------
+
+
+def delta_byte_array_prescan(data, pos: int = 0):
+    """Host prescan of one DELTA_BYTE_ARRAY page: ``(prefix_lens int64,
+    suffix bytes, suffix offsets int64, end)``; no output byte is
+    expanded on the host."""
+    return ref.decode_delta_byte_array_parts(data, pos)
+
+
+def delta_byte_array_iters(prefix_lens: np.ndarray) -> int:
+    """Pointer-jumping rounds :func:`delta_byte_array_expand` needs: a
+    prefix byte chases its parents through at most the longest run of
+    consecutive entries with a nonzero prefix, and each round doubles the
+    distance resolved."""
+    nz = np.asarray(prefix_lens) > 0
+    if not nz.size or not nz.any():
+        return 0
+    edges = np.flatnonzero(np.diff(
+        np.concatenate(([False], nz, [False])).astype(np.int8)))
+    depth = int((edges[1::2] - edges[0::2]).max())
+    return max(int(np.ceil(np.log2(depth + 1))), 1)
+
+
+def delta_byte_array_expand(suffix_buf: torch.Tensor,
+                            prefix_lens: torch.Tensor,
+                            suffix_offs: torch.Tensor,
+                            entry_offs: torch.Tensor, total: int,
+                            iters: int) -> torch.Tensor:
+    """Expand front-coded byte arrays on the device.  Each output byte
+    either lies in its entry's suffix (a direct gather) or repeats the
+    byte at the same position of the previous entry; prefix bytes start as
+    pointers into the previous entry and resolve by ``ptr = ptr[ptr]``
+    (``iters`` rounds), suffix bytes are fixed points.  Positions are
+    int64: about 8 bytes of scratch per output byte."""
+    if total == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=suffix_buf.device)
+    pos = torch.arange(total, dtype=torch.int64, device=suffix_buf.device)
+    e = torch.searchsorted(entry_offs, pos, right=True) - 1
+    j = pos - entry_offs[e]
+    plen = prefix_lens[e]
+    in_suffix = j >= plen
+    direct = suffix_offs[e] + torch.where(in_suffix, j - plen, 0)
+    prev_start = entry_offs[(e - 1).clamp_(min=0)]
+    ptr = torch.where(in_suffix, pos, prev_start + j)
+    for _ in range(iters):
+        ptr = ptr[ptr]
+    return suffix_buf[direct[ptr]]
+
+
+def cumsum_offsets(lengths: torch.Tensor) -> torch.Tensor:
+    """int64 offsets ``[0, l0, l0 + l1, ...]`` of a length array."""
+    out = torch.zeros(lengths.shape[0] + 1, dtype=torch.int64,
+                      device=lengths.device)
+    torch.cumsum(lengths.to(torch.int64), 0, out=out[1:])
+    return out
+
+
+def gather_byte_arrays(values: torch.Tensor, offsets: torch.Tensor,
+                       indices: torch.Tensor) -> tuple:
+    """Entries ``indices`` of a ``(values, offsets)`` byte-array column, as
+    a new ``(values, offsets int64)`` pair; indexes are clamped to the
+    dictionary, as :func:`dict_gather` clamps."""
+    idx = indices.to(torch.int64).clamp(0, max(offsets.shape[0] - 2, 0))
+    starts = offsets[:-1][idx]
+    lens = offsets[1:][idx] - starts
+    out_offs = cumsum_offsets(lens)
+    total = int(out_offs[-1])
+    if total == 0:
+        return values[:0], out_offs
+    within = torch.arange(total, dtype=torch.int64, device=values.device)
+    within -= torch.repeat_interleave(out_offs[:-1], lens,
+                                      output_size=total)
+    src = torch.repeat_interleave(starts, lens, output_size=total) + within
+    return values[src], out_offs
 
 
 # ---------------------------------------------------------------------------

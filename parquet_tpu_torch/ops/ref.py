@@ -1,22 +1,25 @@
-"""numpy host helpers of the slice: varints, PLAIN, the RLE/bit-packed hybrid
-run scan, and the encoders the writer uses.
+"""numpy host helpers: varints, PLAIN, the RLE/bit-packed hybrid run scan,
+the legacy BIT_PACKED levels, the length streams of the delta byte-array
+encodings, the dictionary gather, and the encoders the writer uses.
 
-The port's copy of the parts of ``parquet_tpu/ops/ref.py`` this slice needs,
-as plain Python and numpy (the JAX package routes several of these through a
-C++ shim; the port has none).  Decoding here is metadata-scale only: run
-headers and dictionary pages.  Data-scale decode runs on the device
-(``ops/device.py``, ``ops/kernels.py``).
+The port's copy of the parts of ``parquet_tpu/ops/ref.py`` it needs, in
+numpy; where the JAX package calls its C++ shim, this module calls the
+port's own (``ops/host.py``).  Decoding here is metadata-scale: run
+headers, dictionary pages, the offsets of byte arrays and the lengths of
+front coding.  Data-scale decode runs on the device (``ops/device.py``,
+``ops/kernels.py``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ..errors import CorruptedError
 from ..format.enums import Type
 from ..schema.types import PHYSICAL_NP_DTYPE
+from . import host
 
 # ---------------------------------------------------------------------------
 # varint / zigzag (ULEB128, shared by delta and RLE headers)
@@ -59,15 +62,6 @@ def unzigzag(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def pack_bits(values: np.ndarray, bit_width: int) -> bytes:
-    """Pack integers LSB-first at ``bit_width`` bits each (per-value bit
-    matrix, then ``np.packbits`` little-endian)."""
-    n = len(values)
-    if bit_width == 0 or n == 0:
-        return b""
-    return _pack_rows(np.asarray(values).reshape(1, -1), bit_width).tobytes()
-
-
 def _pack_rows(values: np.ndarray, bit_width: int) -> np.ndarray:
     """Pack each row of a 2-D integer array LSB-first at ``bit_width`` bits;
     rows are zero-padded to whole bytes.  Returns uint8[rows, bytes]."""
@@ -84,19 +78,46 @@ def _pack_rows(values: np.ndarray, bit_width: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def decode_plain(data, num_values: int, physical: Type) -> np.ndarray:
-    """Decode PLAIN fixed-width values (INT32, INT64, FLOAT, DOUBLE)."""
-    buf = (data if isinstance(data, np.ndarray)
-           else np.frombuffer(data, dtype=np.uint8))
-    dt = PHYSICAL_NP_DTYPE[physical]
-    nbytes = dt.itemsize * num_values
+def decode_plain(data, num_values: int, physical: Type,
+                 type_length: Optional[int] = None):
+    """Decode PLAIN values: a numeric type to its 1-D array, BOOLEAN to
+    bool[n], INT96 to (n, 3) int32, FIXED_LEN_BYTE_ARRAY to
+    (n, type_length) uint8, BYTE_ARRAY to ``(values uint8, offsets
+    int64[n + 1])``."""
+    buf = host.as_u8(data)
+    if physical == Type.BYTE_ARRAY:
+        return host.plain_byte_arrays([(buf, num_values)])
+    if physical == Type.BOOLEAN:
+        nbytes = (num_values + 7) // 8
+    elif physical == Type.FIXED_LEN_BYTE_ARRAY:
+        nbytes = type_length * num_values
+    else:
+        nbytes = {Type.INT96: 12}.get(
+            physical, PHYSICAL_NP_DTYPE[physical].itemsize) * num_values
     if len(buf) < nbytes:
         raise CorruptedError(f"PLAIN page holds {len(buf)} bytes, "
                              f"{num_values} values need {nbytes}")
-    return buf[:nbytes].view(dt).copy()
+    if physical == Type.BOOLEAN:
+        bits = np.unpackbits(buf[:nbytes], bitorder="little")
+        return bits[:num_values].astype(np.bool_)
+    if physical == Type.INT96:
+        return buf[:nbytes].view(np.int32).reshape(num_values, 3).copy()
+    if physical == Type.FIXED_LEN_BYTE_ARRAY:
+        return buf[:nbytes].reshape(num_values, type_length).copy()
+    return buf[:nbytes].view(PHYSICAL_NP_DTYPE[physical]).copy()
 
 
-def encode_plain(values, physical: Type) -> bytes:
+def encode_plain(values, physical: Type,
+                 offsets: Optional[np.ndarray] = None) -> bytes:
+    """PLAIN bytes of ``values`` (BYTE_ARRAY: value bytes with their
+    ``offsets``)."""
+    if physical == Type.BOOLEAN:
+        return np.packbits(np.asarray(values, np.uint8),
+                           bitorder="little").tobytes()
+    if physical == Type.BYTE_ARRAY:
+        return host.encode_plain_byte_arrays(values, offsets)
+    if physical == Type.FIXED_LEN_BYTE_ARRAY:
+        return np.ascontiguousarray(values, np.uint8).tobytes()
     return np.ascontiguousarray(values,
                                 dtype=PHYSICAL_NP_DTYPE[physical]).tobytes()
 
@@ -158,55 +179,15 @@ def scan_rle_runs(data, num_values: int, bit_width: int, pos: int = 0):
 
 
 def encode_rle(values: np.ndarray, bit_width: int, min_repeat: int = 8) -> bytes:
-    """Encode the hybrid stream (no prefix).
+    """Encode the hybrid stream (no prefix), in C++ (``ops/host.py``).
 
     A bit-packed run encodes exactly ``ngroups * 8`` values, so mid-stream
     bit-packed spans are whole groups of 8; only the final group may be
     zero-padded.  Runs of >= ``min_repeat`` identical values become RLE
-    runs, the common writer heuristic."""
-    n = len(values)
-    out = bytearray()
-    if n == 0 or bit_width == 0:
-        return bytes(out)
-    values = np.asarray(values, dtype=np.int64)
-    vbytes = (bit_width + 7) // 8
-    vmask = (1 << (8 * vbytes)) - 1
-    change = np.empty(n, dtype=bool)
-    change[0] = True
-    np.not_equal(values[1:], values[:-1], out=change[1:])
-    run_starts = np.flatnonzero(change)
-    run_lens = np.diff(np.append(run_starts, n))
-
-    def emit_rle(value: int, count: int):
-        write_uvarint(out, count << 1)
-        out.extend((value & vmask).to_bytes(vbytes, "little"))
-
-    def emit_packed(span: np.ndarray):
-        cnt = len(span)
-        if not cnt:
-            return
-        ngroups = (cnt + 7) // 8
-        if cnt % 8:
-            span = np.concatenate([span, np.zeros(ngroups * 8 - cnt, np.int64)])
-        write_uvarint(out, (ngroups << 1) | 1)
-        out.extend(pack_bits(span, bit_width))
-
-    # visit only RLE-eligible runs; everything between them is ONE packed
-    # span.  An eligible run donates its first (gap % -8) values to the
-    # packed span before it, so mid-stream packed spans stay whole groups.
-    pos = 0
-    thresh = max(min_repeat, 8)
-    for ri in np.flatnonzero(run_lens >= thresh):
-        s = int(run_starts[ri])
-        length = int(run_lens[ri])
-        pad = -(s - pos) % 8
-        if length - pad < min_repeat:
-            continue  # stays in the packed span
-        emit_packed(values[pos:s + pad])
-        emit_rle(int(values[s]), length - pad)
-        pos = s + length
-    emit_packed(values[pos:n])
-    return bytes(out)
+    runs, the common writer heuristic: each RLE-eligible run first gives
+    the packed span before it values enough to end on a whole group, and
+    stays a run if ``min_repeat`` values are left."""
+    return host.encode_rle(values, bit_width, min_repeat)
 
 
 def encode_rle_dict_indices(values: np.ndarray, bit_width: int) -> bytes:
@@ -220,11 +201,14 @@ def encode_rle_dict_indices(values: np.ndarray, bit_width: int) -> bytes:
 
 
 def _bit_lengths(x: np.ndarray) -> np.ndarray:
-    """Bit length of each uint64 in ``x`` (0 for 0)."""
+    """Bit length of each uint64 in ``x`` (0 for 0), by binary search."""
+    x = np.array(x, np.uint64)
     w = np.zeros(len(x), np.int64)
-    for b in range(64):
-        w += (x >> np.uint64(b)) > 0
-    return w
+    for s in (32, 16, 8, 4, 2, 1):
+        big = x >= np.uint64(1 << s)
+        w[big] += s
+        x[big] >>= np.uint64(s)
+    return w + (x > 0)
 
 
 def encode_delta_binary_packed(values: np.ndarray, block_size: int = 128,
@@ -275,3 +259,143 @@ def encode_delta_binary_packed(values: np.ndarray, block_size: int = 128,
         for m in range(n_written):
             out += payloads[b * n_miniblocks + m]
     return bytes(out)
+
+
+def decode_delta_binary_packed(data, pos: int = 0) -> Tuple[np.ndarray, int]:
+    """Decode a DELTA_BINARY_PACKED stream to int64 values (mod-2^64
+    arithmetic) and its end position: the miniblock prescan, then one
+    vectorized unpack per bit width.  Host-side for length streams only
+    (the delta byte-array encodings); value columns decode on the
+    device."""
+    from .device import delta_prescan
+
+    buf = host.as_u8(data)
+    first, total, vpm, offs, widths, mins, end = delta_prescan(buf, pos)
+    out = np.empty(total, np.int64)
+    if total == 0:
+        return out, end
+    deltas = np.zeros((len(widths), vpm), np.uint64)
+    byte_offs = np.asarray(offs, np.int64) // 8
+    for w in np.unique(widths):
+        w = int(w)
+        if w == 0:
+            continue
+        rows = np.flatnonzero(widths == w)
+        nb = vpm * w // 8
+        # a writer may cut the last miniblock short: clipped reads land in
+        # slots past the page's value count
+        idx = np.minimum(byte_offs[rows][:, None] + np.arange(nb),
+                         len(buf) - 1)
+        bits = np.unpackbits(buf[idx], axis=1, bitorder="little")
+        wide = np.zeros((len(rows), vpm, 64), np.uint8)
+        wide[:, :, :w] = bits.reshape(len(rows), vpm, w)
+        deltas[rows] = np.packbits(wide, axis=2, bitorder="little").view(
+            "<u8")[:, :, 0]
+    deltas += np.asarray(mins, np.int64).view(np.uint64)[:, None]
+    out[0] = first
+    out[1:] = deltas.reshape(-1)[:total - 1].view(np.int64)
+    return np.cumsum(out, out=out), end
+
+
+# ---------------------------------------------------------------------------
+# BIT_PACKED levels (deprecated; MSB-first bit order)
+# ---------------------------------------------------------------------------
+
+
+def decode_bit_packed_levels(data, num_values: int,
+                             bit_width: int) -> np.ndarray:
+    if bit_width == 0:
+        return np.zeros(num_values, np.int64)
+    buf = host.as_u8(data)
+    need = num_values * bit_width
+    if len(buf) * 8 < need:
+        raise CorruptedError(f"BIT_PACKED levels: {len(buf)} bytes for "
+                             f"{num_values} {bit_width}-bit values")
+    bits = np.unpackbits(buf, bitorder="big")[:need]
+    weights = (1 << np.arange(bit_width - 1, -1, -1)).astype(np.int64)
+    return bits.reshape(num_values, bit_width).astype(np.int64) @ weights
+
+
+def encode_bit_packed_levels(values: np.ndarray, bit_width: int) -> bytes:
+    if bit_width == 0 or len(values) == 0:
+        return b""
+    v = np.asarray(values, np.int64)
+    bits = ((v[:, None] >> np.arange(bit_width - 1, -1, -1)) & 1).astype(
+        np.uint8)
+    return np.packbits(bits.reshape(-1), bitorder="big").tobytes()
+
+
+# ---------------------------------------------------------------------------
+# DELTA_LENGTH_BYTE_ARRAY / DELTA_BYTE_ARRAY (front coding)
+# ---------------------------------------------------------------------------
+
+
+def decode_delta_length_byte_array(data, pos: int = 0):
+    """``(values uint8, offsets int64[n + 1], end)``; the values are a view
+    of ``data``."""
+    lengths, pos = decode_delta_binary_packed(data, pos)
+    offsets = np.zeros(len(lengths) + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    buf = host.as_u8(data)
+    total = int(offsets[-1])
+    if (lengths < 0).any() or pos + total > len(buf):
+        raise CorruptedError(f"DELTA_LENGTH_BYTE_ARRAY: {len(lengths)} "
+                             f"lengths of {total} bytes, {len(buf) - pos} "
+                             "in the page")
+    return buf[pos:pos + total], offsets, pos + total
+
+
+def decode_delta_byte_array_parts(data, pos: int = 0):
+    """The two length streams of a DELTA_BYTE_ARRAY page, no prefix
+    expanded: ``(prefix_lens int64, suffix bytes, suffix offsets int64,
+    end)``; the device expands the prefixes."""
+    prefix_lens, pos = decode_delta_binary_packed(data, pos)
+    suffixes, soffs, pos = decode_delta_length_byte_array(data, pos)
+    if len(prefix_lens) != len(soffs) - 1:
+        raise CorruptedError(f"DELTA_BYTE_ARRAY: {len(prefix_lens)} prefix "
+                             f"lengths for {len(soffs) - 1} suffixes")
+    return prefix_lens, suffixes, soffs, pos
+
+
+def encode_delta_length_byte_array(values: np.ndarray,
+                                   offsets: np.ndarray) -> bytes:
+    offs = np.asarray(offsets, np.int64)
+    lengths = offs[1:] - offs[:-1]
+    return encode_delta_binary_packed(lengths) + host.as_u8(
+        values)[offs[0]:offs[-1]].tobytes()
+
+
+def encode_delta_byte_array(values: np.ndarray, offsets: np.ndarray) -> bytes:
+    """Front coding: each value's common prefix with the one before (C++),
+    then the suffixes as DELTA_LENGTH_BYTE_ARRAY; byte for byte the JAX
+    package's encoding."""
+    offs = np.asarray(offsets, np.int64)
+    vals = host.as_u8(values)
+    prefix_lens = host.common_prefix_lengths(vals, offs)
+    lens = offs[1:] - offs[:-1]
+    suffix_lens = lens - prefix_lens
+    idx = np.repeat(offs[:-1] + prefix_lens, suffix_lens) + \
+        host.segment_ranges(suffix_lens)
+    soffs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(suffix_lens, out=soffs[1:])
+    return encode_delta_binary_packed(prefix_lens) + \
+        encode_delta_length_byte_array(vals[idx], soffs)
+
+
+# ---------------------------------------------------------------------------
+# BYTE_STREAM_SPLIT and the dictionary gather
+# ---------------------------------------------------------------------------
+
+
+def encode_byte_stream_split(raw_le_bytes: np.ndarray, num_values: int,
+                             width: int) -> bytes:
+    b = host.as_u8(raw_le_bytes).reshape(num_values, width)
+    return np.ascontiguousarray(b.T).tobytes()
+
+
+def gather_dictionary(dictionary, indices: np.ndarray):
+    """``dictionary[indices]``; a ``(values, offsets)`` byte-array
+    dictionary gives a ``(values, offsets)`` pair."""
+    if isinstance(dictionary, tuple):
+        return host.gather_byte_arrays(dictionary[0], dictionary[1], indices)
+    return np.asarray(dictionary)[np.asarray(indices, np.int64)]

@@ -1,22 +1,29 @@
 """Device decode of column chunks: chunk bytes -> device tensors -> Column.
 
 The port of ``parquet_tpu/parallel/device_reader.py`` for flat columns
-(``max_rep == 0``, ``max_def <= 1``) of INT32/INT64/FLOAT/DOUBLE in PLAIN,
-RLE_DICTIONARY/PLAIN_DICTIONARY and DELTA_BINARY_PACKED pages.  Each chunk
-runs three phases:
+(``max_rep == 0``, ``max_def <= 1``) of every physical type: BOOLEAN,
+INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY and FIXED_LEN_BYTE_ARRAY,
+in PLAIN, RLE_DICTIONARY/PLAIN_DICTIONARY, RLE (booleans),
+DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY and
+BYTE_STREAM_SPLIT pages, v1 or v2, with RLE or legacy BIT_PACKED
+definition levels.  Each chunk runs three phases:
 
 - :func:`build_plan`: host prescan of the pages into a :class:`_Plan`
-  (decompression, RLE run headers, delta miniblock headers: metadata-scale
-  work), of the whole chunk or of a given span of its pages with a given
-  dictionary (the point lookup's page runs);
+  (decompression, RLE run headers, delta miniblock headers, the offsets
+  of PLAIN and DELTA_LENGTH byte arrays, the length streams of front
+  coding: metadata-scale work), of the whole chunk or of a given span of
+  its pages with a given dictionary (the point lookup's page runs);
 - :func:`stage_plan`: the concatenated byte streams and the run tables go
   to the device;
 - :func:`decode_staged`: device decode into a :class:`Column`.  The dense
   dictionary-index and delta-miniblock streams unpack through the CUDA
-  kernels of ``ops/kernels.py``; run expansion, gathers, the level math
-  and the prefix sums are torch ops (``ops/device.py``).
+  kernels of ``ops/kernels.py``; run expansion, gathers, the plane
+  transpose, the front-coded expansion, the level math and the prefix
+  sums are torch ops (``ops/device.py``).
 
-A chunk outside the slice raises ``NotImplementedError`` naming the later
+A BYTE_ARRAY dictionary chunk stays encoded: a device ``(values,
+offsets)`` dictionary plus int32 indexes, as the JAX package keeps it.  A
+chunk outside the port raises ``NotImplementedError`` naming the later
 slice; there is no host-decode fallback.  64-bit values are native int64 /
 float64 tensors, not the JAX package's uint32 pairs.
 """
@@ -34,8 +41,9 @@ from ..errors import CorruptedError, unsupported
 from ..format.enums import Encoding, PageType, Type
 from ..io.column import Column
 from ..ops import device as dev
-from ..ops import kernels, ref
-from ..schema.types import PHYSICAL_TORCH_DTYPE, PHYSICAL_WIDTH
+from ..ops import host, kernels, ref
+from ..schema.types import (PHYSICAL_TORCH_DTYPE, PHYSICAL_WIDTH,
+                            empty_values)
 
 _M32 = 0xFFFFFFFF
 
@@ -72,6 +80,12 @@ class _RunTable:
                 data, n, width, 0)
         self.add_scanned(kinds, cnts, payloads, offs, width, base_byte, n)
         return kinds, cnts, payloads, offs
+
+    def add_bitpacked_span(self, n: int, width: int, base_byte: int):
+        """A raw bit-packed span (a PLAIN BOOLEAN page) as one run."""
+        self.add_scanned(np.ones(1, np.uint8), np.array([n], np.int64),
+                         np.zeros(1, np.int64), np.zeros(1, np.int64), width,
+                         base_byte, n)
 
     def run_arrays(self) -> Tuple[np.ndarray, ...]:
         """(ends, kinds, payloads, bit_offsets, widths), the operands of
@@ -131,9 +145,13 @@ class _Plan:
     levels: _ByteAccum = field(default_factory=_ByteAccum)
     values: _ByteAccum = field(default_factory=_ByteAccum)
     def_runs: _RunTable = field(default_factory=_RunTable)
-    value_kind: Optional[str] = None  # 'plain_fixed' | 'dict' | 'delta'
+    # legacy BIT_PACKED definition levels, decoded on the host per page
+    host_def: List[np.ndarray] = field(default_factory=list)
+    # 'plain_fixed' | 'plain_flba' | 'bool' | 'dict' | 'delta' | 'bss' |
+    # 'dba' | 'host_ba'
+    value_kind: Optional[str] = None
     plain_total: int = 0
-    # dictionary index runs
+    # dictionary index runs, or boolean runs
     vruns: _RunTable = field(default_factory=_RunTable)
     # dense single-width dict-index stream: bit-packed run payloads
     # compacted into one LSB-first w-bit stream, page-aligned to 32-value
@@ -151,9 +169,20 @@ class _Plan:
     d_mb_widths: List[np.ndarray] = field(default_factory=list)
     d_mb_mins: List[np.ndarray] = field(default_factory=list)
     d_vpm: int = 32
+    # byte-stream split: (base in values, value count) per page
+    bss_pages: List[Tuple[int, int]] = field(default_factory=list)
+    # front coding: per page the prefix lengths and suffix offsets (host),
+    # and (base in values, entry count); the suffix bytes are in values
+    dba_plens: List[np.ndarray] = field(default_factory=list)
+    dba_soffs: List[np.ndarray] = field(default_factory=list)
+    dba_pages: List[Tuple[int, int]] = field(default_factory=list)
+    # host byte arrays: ('plain', page bytes, count) or ('dlba', value
+    # bytes, offsets) per page, compacted at staging
+    host_parts: List[tuple] = field(default_factory=list)
     total_slots: int = 0
     total_values: int = 0
-    dictionary_host: Optional[np.ndarray] = None
+    # numpy array, or (values, offsets) for byte arrays
+    dictionary_host = None
     # True once a page's def levels are not the one all-present RLE run
     # (v1) or its header counts nulls (v2): the pages whose levels the
     # reference's host decode expands, giving the span a validity mask
@@ -232,16 +261,13 @@ def _count_present(kinds, cnts, payloads, offs, body, width: int,
 
 
 def build_plan(reader, pages: Optional[Iterable] = None,
-               dictionary: Optional[np.ndarray] = None) -> _Plan:
+               dictionary=None) -> _Plan:
     """Host prescan of a chunk's pages into a staging plan: every page of
     the chunk, or ``pages`` (data pages of one span) decoded with the
     chunk's already-decoded ``dictionary``."""
     leaf = reader.leaf
     codec = reader.codec
     physical = Type(reader.meta.type)
-    if physical not in PHYSICAL_WIDTH:
-        raise unsupported(f"physical type {physical.name}",
-                          "BYTE_ARRAY/BOOLEAN/fixed-length values")
     max_def = leaf.max_definition_level
     if leaf.max_repetition_level or max_def > 1:
         raise unsupported(f"nested column {leaf.name!r}", "nested assembly")
@@ -256,32 +282,35 @@ def build_plan(reader, pages: Optional[Iterable] = None,
         if pt == PageType.DICTIONARY_PAGE:
             raw = codec.decode(page.payload, h.uncompressed_page_size)
             plan.dictionary_host = ref.decode_plain(
-                np.frombuffer(raw, np.uint8),
-                h.dictionary_page_header.num_values, physical)
+                raw, h.dictionary_page_header.num_values, physical,
+                leaf.type_length)
             continue
         if pt == PageType.DATA_PAGE:
             dph = h.data_page_header
             n = dph.num_values
-            raw = np.frombuffer(
-                codec.decode(page.payload, h.uncompressed_page_size),
-                np.uint8)
+            raw = host.as_u8(codec.decode(page.payload,
+                                          h.uncompressed_page_size))
             pos = 0
             n_present = n
             if max_def > 0:
-                if Encoding(dph.definition_level_encoding) != Encoding.RLE:
-                    raise unsupported("BIT_PACKED definition levels",
-                                      "the host-decode route")
-                (length,) = _struct.unpack_from("<I", raw, pos)
-                body = raw[pos + 4:pos + 4 + length]
-                scanned = plan.def_runs.add(body, n, 1, len(plan.levels))
-                plan.levels.extend(body)
-                pos += 4 + length
-                n_present = _count_present(*scanned, body, 1, max_def)
-                single = _single_rle_run(body, n, 1)
-                if single is None or single[0] != 1:
+                if Encoding(dph.definition_level_encoding) == Encoding.RLE:
+                    (length,) = _struct.unpack_from("<I", raw, pos)
+                    body = raw[pos + 4:pos + 4 + length]
+                    scanned = plan.def_runs.add(body, n, 1, len(plan.levels))
+                    plan.levels.extend(body)
+                    pos += 4 + length
+                    n_present = _count_present(*scanned, body, 1, max_def)
+                    single = _single_rle_run(body, n, 1)
+                    if single is None or single[0] != 1:
+                        plan.defs_expanded = True
+                else:  # legacy BIT_PACKED levels: decoded on the host
+                    lv = ref.decode_bit_packed_levels(raw[pos:], n, 1)
+                    plan.host_def.append(lv)
+                    pos += (n + 7) // 8
+                    n_present = int(np.count_nonzero(lv == max_def))
                     plan.defs_expanded = True
             _stage_values(plan, raw, pos, n_present, Encoding(dph.encoding),
-                          physical)
+                          physical, leaf)
             plan.total_slots += n
             plan.total_values += n_present
         elif pt == PageType.DATA_PAGE_V2:
@@ -289,7 +318,7 @@ def build_plan(reader, pages: Optional[Iterable] = None,
             n = dph2.num_values
             rl = dph2.repetition_levels_byte_length or 0
             dl = dph2.definition_levels_byte_length or 0
-            payload = np.frombuffer(page.payload, np.uint8)
+            payload = host.as_u8(page.payload)
             if max_def > 0:
                 body = payload[rl:rl + dl]
                 plan.def_runs.add(body, n, 1, len(plan.levels))
@@ -299,12 +328,15 @@ def build_plan(reader, pages: Optional[Iterable] = None,
             if dph2.is_compressed is not False:
                 raw_body = codec.decode(raw_body,
                                         h.uncompressed_page_size - rl - dl)
-            raw = np.frombuffer(raw_body, np.uint8)
+            raw = host.as_u8(raw_body)
             n_present = n - (dph2.num_nulls or 0)
             _stage_values(plan, raw, 0, n_present, Encoding(dph2.encoding),
-                          physical)
+                          physical, leaf)
             plan.total_slots += n
             plan.total_values += n_present
+    if plan.host_def and plan.def_runs.total:
+        raise unsupported(f"column {leaf.name!r} mixing RLE and BIT_PACKED "
+                          "definition levels", "the host-decode route")
     return plan
 
 
@@ -337,7 +369,7 @@ def _add_dense_page(plan: _Plan, body: np.ndarray, kinds, cnts, offs,
 
 
 def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
-                  encoding: Encoding, physical: Type) -> None:
+                  encoding: Encoding, physical: Type, leaf) -> None:
     if encoding in (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY):
         plan.set_kind("dict")
         width = int(raw[pos]) if pos < len(raw) else 0
@@ -354,12 +386,25 @@ def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
             _add_dense_page(plan, body, kinds, cnts, offs, width, nvals)
         return
     if encoding == Encoding.PLAIN:
-        plan.set_kind("plain_fixed")
-        w = PHYSICAL_WIDTH[physical]
-        if len(raw) - pos < nvals * w:
-            raise CorruptedError(
-                f"PLAIN page holds {len(raw) - pos} bytes, {nvals} values "
-                f"need {nvals * w}")
+        if physical == Type.BOOLEAN:
+            plan.set_kind("bool")
+            nbytes = (nvals + 7) // 8
+            _check_length(raw, pos, nbytes, nvals, "PLAIN")
+            base = len(plan.values)
+            plan.values.extend(raw[pos:pos + nbytes])
+            plan.vruns.add_bitpacked_span(nvals, 1, base)
+            return
+        if physical == Type.BYTE_ARRAY:  # offsets scanned at staging
+            plan.set_kind("host_ba")
+            plan.host_parts.append(("plain", raw[pos:], nvals))
+            return
+        if physical == Type.FIXED_LEN_BYTE_ARRAY:
+            plan.set_kind("plain_flba")
+            w = leaf.type_length
+        else:
+            plan.set_kind("plain_fixed")
+            w = PHYSICAL_WIDTH[physical]
+        _check_length(raw, pos, nvals * w, nvals, "PLAIN")
         plan.values.extend(raw[pos:pos + nvals * w])
         plan.plain_total += nvals
         return
@@ -380,8 +425,62 @@ def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
         plan.d_vpm = vpm
         plan.d_vpms.append(vpm)
         return
-    raise unsupported(f"{encoding.name} pages",
-                      "BYTE_STREAM_SPLIT/DELTA_BYTE_ARRAY values")
+    if encoding == Encoding.BYTE_STREAM_SPLIT:
+        w = (leaf.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
+             else {Type.INT32: 4, Type.INT64: 8, Type.FLOAT: 4,
+                   Type.DOUBLE: 8}.get(physical))
+        if not w:
+            raise unsupported(f"byte-stream-split {physical.name} values",
+                              "the host-decode route")
+        plan.set_kind("bss")
+        _check_length(raw, pos, nvals * w, nvals, "BYTE_STREAM_SPLIT")
+        base = len(plan.values)
+        plan.values.extend(raw[pos:pos + nvals * w])
+        plan.bss_pages.append((base, nvals))
+        return
+    if encoding == Encoding.RLE and physical == Type.BOOLEAN:
+        plan.set_kind("bool")
+        (length,) = _struct.unpack_from("<I", raw, pos)
+        body = raw[pos + 4:pos + 4 + length]
+        base = len(plan.values)
+        plan.values.extend(body)
+        plan.vruns.add(body, nvals, 1, base)
+        return
+    if encoding == Encoding.DELTA_LENGTH_BYTE_ARRAY and \
+            physical == Type.BYTE_ARRAY:
+        plan.set_kind("host_ba")
+        v, o, _ = ref.decode_delta_length_byte_array(raw, pos)
+        plan.host_parts.append(("dlba", v, o))
+        return
+    if encoding == Encoding.DELTA_BYTE_ARRAY and physical in (
+            Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
+        plan.set_kind("dba")
+        plens, suffixes, soffs, _ = dev.delta_byte_array_prescan(raw, pos)
+        if len(plens) and int(plens[0]) != 0:
+            # front coding restarts on every page: a nonzero first prefix
+            # would chase a value of another page
+            raise unsupported("DELTA_BYTE_ARRAY page with a nonzero first "
+                              "prefix", "the host-decode route")
+        if len(plens) and ((plens < 0).any()
+                           or (plens[1:] > np.diff(soffs)[:-1]
+                               + plens[:-1]).any()):
+            raise CorruptedError("DELTA_BYTE_ARRAY prefix longer than the "
+                                 "value before it")
+        base = len(plan.values)
+        plan.values.extend(suffixes)
+        plan.dba_plens.append(plens)
+        plan.dba_soffs.append(soffs)
+        plan.dba_pages.append((base, len(plens)))
+        return
+    raise unsupported(f"{encoding.name} pages of a {physical.name} column",
+                      "the host-decode route")
+
+
+def _check_length(raw: np.ndarray, pos: int, nbytes: int, nvals: int,
+                  what: str) -> None:
+    if len(raw) - pos < nbytes:
+        raise CorruptedError(f"{what} page holds {len(raw) - pos} bytes, "
+                             f"{nvals} values need {nbytes}")
 
 
 # ---------------------------------------------------------------------------
@@ -389,10 +488,14 @@ def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
 # ---------------------------------------------------------------------------
 
 
-def _put(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array as a tensor on ``device`` (a copy: staged tensors never
-    alias page buffers)."""
-    t = torch.from_numpy(np.array(arr, copy=True))
+def _put(arr: np.ndarray, device: torch.device,
+         fresh: bool = False) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  Staged tensors never alias
+    page buffers: an array that is not ``fresh`` (allocated for this
+    staging) is copied first."""
+    if not fresh:
+        arr = np.array(arr, copy=True)
+    t = torch.from_numpy(arr)
     return t.to(device) if device.type != "cpu" else t
 
 
@@ -466,9 +569,11 @@ def _stage_delta_dense(plan: _Plan, meta: dict,
 
 def stage_plan(plan: _Plan, device: torch.device) -> tuple:
     """H2D: the plan's concatenated level and value byte streams and its
-    run tables, dictionary and delta tables go to ``device``.  Returns
-    ``(levels, values, meta)``."""
-    stage_levels = plan.total_values != plan.total_slots
+    run tables, dictionary, delta, front-coding and byte-array tables go
+    to ``device``.  Returns ``(levels, values, meta)``."""
+    kind = plan.value_kind
+    stage_levels = (plan.total_values != plan.total_slots
+                    and not plan.host_def)
     if (stage_levels and len(plan.levels) > dev.MAX_DEVICE_BUF) or \
             len(plan.values) > dev.MAX_DEVICE_BUF:
         raise unsupported(
@@ -476,40 +581,106 @@ def stage_plan(plan: _Plan, device: torch.device) -> tuple:
             "the host-decode route")
     lev_dbuf = None
     if stage_levels and len(plan.levels):
-        lev_dbuf = _put(plan.levels.padded_array(), device)
+        lev_dbuf = _put(plan.levels.padded_array(), device, fresh=True)
     meta = {}
-    dense_route = (plan.value_kind == "dict" and plan.dense_ok
+    dense_route = (kind == "dict" and plan.dense_ok
                    and bool(plan.dense_pages))
-    delta_dense = (plan.value_kind == "delta"
+    delta_dense = (kind == "delta"
                    and _stage_delta_dense(plan, meta, device))
     val_dbuf = None
-    if not dense_route and not delta_dense and plan.value_kind is not None:
+    if not dense_route and not delta_dense and kind not in (None,
+                                                            "host_ba"):
         # staged even when empty (all-null chunks have no value bytes)
-        val_dbuf = _put(plan.values.padded_array(), device)
+        val_dbuf = _put(plan.values.padded_array(), device, fresh=True)
     if dense_route:
-        meta["dense"] = _put(plan.dense.padded_array(extra=4), device)
-    if plan.value_kind == "delta" and not delta_dense:
+        meta["dense"] = _put(plan.dense.padded_array(extra=4), device,
+                             fresh=True)
+    if kind == "delta" and not delta_dense:
         if len(set(plan.d_vpms)) > 1:
             raise unsupported("mixed delta miniblock sizes across pages",
                               "the host-decode route")
-        meta["delta"] = tuple(_put(a, device)
+        meta["delta"] = tuple(_put(a, device, fresh=True)
                               for a in _delta_gather_tables(plan))
-    if plan.value_kind == "dict":
+    if kind == "dict":
         meta["dictionary"] = _stage_dictionary(plan.dictionary_host, device)
-        if not dense_route:
-            meta["vruns"] = tuple(_put(a, device)
-                                  for a in plan.vruns.run_arrays())
+    if (kind == "dict" and not dense_route) or kind == "bool":
+        meta["vruns"] = tuple(_put(a, device, fresh=True)
+                              for a in plan.vruns.run_arrays())
+    if kind == "dba":
+        tables, total, iters = _dba_tables(plan)
+        meta["dba"] = (tuple(_put(a, device, fresh=True) for a in tables),
+                       total, iters)
+    if kind == "host_ba":
+        values, offsets = _host_byte_arrays(plan.host_parts)
+        meta["host_ba"] = (_put(values, device, fresh=True),
+                           _put(offsets, device, fresh=True))
+    if plan.host_def and plan.total_values != plan.total_slots:
+        levels = np.concatenate(plan.host_def)
+        meta["host_def"] = _put(levels == plan.leaf.max_definition_level,
+                                device, fresh=True)
     if stage_levels and plan.def_runs.total:
-        meta["def_runs"] = tuple(_put(a, device)
+        meta["def_runs"] = tuple(_put(a, device, fresh=True)
                                  for a in plan.def_runs.run_arrays())
     return lev_dbuf, val_dbuf, meta
 
 
-def _stage_dictionary(dict_host, device: torch.device) -> torch.Tensor:
+def _stage_dictionary(dict_host, device: torch.device):
     if dict_host is None:
         raise CorruptedError("dictionary-encoded page without a dictionary "
                              "page")
+    if isinstance(dict_host, tuple):  # byte arrays: (values, offsets)
+        return (_put(dict_host[0], device),
+                _put(np.asarray(dict_host[1], np.int64), device))
     return _put(np.ascontiguousarray(dict_host), device)
+
+
+def _dba_tables(plan: _Plan) -> tuple:
+    """The per-page front-coding tables concatenated for the chunk:
+    ``((prefix_lens, suffix_offs, entry_offs), total, iters)`` as int64.
+    Prefix chains never cross pages (every page's first prefix is 0), so
+    the entries concatenate freely, suffix offsets rebased by each page's
+    base in the staged suffix stream; ``entry_offs`` doubles as the
+    column's offsets."""
+    if not plan.dba_pages:
+        empty = np.zeros(0, np.int64)
+        return (empty, empty, np.zeros(1, np.int64)), 0, 0
+    plens = np.concatenate(plan.dba_plens).astype(np.int64)
+    soffs = np.concatenate([so[:-1] + base for (base, _), so in
+                            zip(plan.dba_pages, plan.dba_soffs)])
+    slens = np.concatenate([np.diff(so) for so in plan.dba_soffs])
+    entry_offs = np.zeros(len(plens) + 1, np.int64)
+    np.cumsum(plens + slens, out=entry_offs[1:])
+    return ((plens, soffs.astype(np.int64), entry_offs),
+            int(entry_offs[-1]), dev.delta_byte_array_iters(plens))
+
+
+def _host_byte_arrays(parts) -> tuple:
+    """The chunk's PLAIN and DELTA_LENGTH byte-array pages as one
+    ``(values, offsets int64)`` pair on the host: each run of PLAIN pages
+    is one C++ offset scan that compacts its values, DELTA_LENGTH pages
+    already have theirs.  Fresh arrays: one copy of the bytes, or two
+    where page kinds alternate."""
+    groups, plain = [], []
+    for part in parts:
+        if part[0] == "plain":
+            plain.append((part[1], part[2]))
+            continue
+        if plain:
+            groups.append(host.plain_byte_arrays(plain))
+            plain = []
+        groups.append((part[1], part[2]))
+    if plain:
+        groups.append(host.plain_byte_arrays(plain))
+    if len(groups) == 1 and parts[0][0] == "plain":
+        return groups[0]
+    if not groups:
+        return np.zeros(0, np.uint8), np.zeros(1, np.int64)
+    values = np.concatenate([g[0] for g in groups])
+    offs, base = [np.zeros(1, np.int64)], 0
+    for _, o in groups:
+        offs.append(np.asarray(o[1:], np.int64) - o[0] + base)
+        base += int(o[-1] - o[0])
+    return values, np.concatenate(offs)
 
 
 # ---------------------------------------------------------------------------
@@ -615,23 +786,35 @@ def _delta_decode_multi(buf: torch.Tensor, n: int, page_ends, firsts,
     return out
 
 
-def _decode_dense_dict(plan: _Plan, dense_buf: torch.Tensor,
-                       dictionary: torch.Tensor):
-    """Dict-index decode from the compacted dense stream.  Dictionaries of
-    at most ``kernels.MAX_FUSED_DICT`` entries take the fused
-    unpack+gather kernel (no index stream); larger ones unpack the
-    indexes and gather.  Returns (indices or None, values)."""
+def _fusable(dictionary) -> bool:
+    """Whether the fused unpack+gather kernel takes this dictionary: a 1-D
+    tensor of 4- or 8-byte values of at most ``kernels.MAX_FUSED_DICT``
+    entries (byte-array, fixed-length, INT96 and boolean dictionaries
+    unpack their indexes and gather, as in the JAX package)."""
+    return (isinstance(dictionary, torch.Tensor) and dictionary.dim() == 1
+            and dictionary.element_size() in (4, 8)
+            and dictionary.shape[0] <= kernels.MAX_FUSED_DICT)
+
+
+def _decode_dense_dict(plan: _Plan, dense_buf: torch.Tensor, dictionary):
+    """Dict-index decode from the compacted dense stream.  A fusable
+    dictionary takes the fused unpack+gather kernel (no index stream);
+    every other one unpacks the indexes, and all but a byte-array
+    dictionary (which stays encoded) gather.  Returns (indices or None,
+    values or None)."""
     w = plan.dense_w
     # round UP to whole 32-value groups: the last page's tail group may be
     # partial byte-wise; the unpack kernels zero-pad missing words
     total = -(-(len(plan.dense) * 8 // w) // 32) * 32
     nwords = (len(plan.dense) + 3) // 4
     words = dense_buf[:nwords * 4].view(torch.int32)
-    if dictionary.shape[0] <= kernels.MAX_FUSED_DICT:
+    if _fusable(dictionary):
         allvals = kernels.dict_unpack_gather(words, dictionary, total, w)
         return None, _page_slices(allvals, plan.dense_pages)
     allidx = kernels.unpack_bits_dense(words, total, w)
     indices = _page_slices(allidx, plan.dense_pages)
+    if isinstance(dictionary, tuple):
+        return indices, None
     return indices, dev.dict_gather(dictionary, indices)
 
 
@@ -640,26 +823,54 @@ def _page_slices(x: torch.Tensor, pages) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+def _bss_decode(buf: torch.Tensor, pages, width: int,
+                physical: Type) -> torch.Tensor:
+    """Byte-stream-split pages: plane k of a page is a static slice of the
+    staged stream, so each page is one transpose.  Fixed-length byte
+    arrays stay (n, width) bytes; the other types take their physical
+    dtype (an INT32 column is int32, not float32)."""
+    dtype = (None if physical == Type.FIXED_LEN_BYTE_ARRAY
+             else PHYSICAL_TORCH_DTYPE[physical])
+    if len(pages) == 1 and pages[0][0] == 0:
+        return dev.byte_stream_split(buf, pages[0][1], width, dtype)
+    parts = [buf[b:b + width * n].reshape(width, n).T for b, n in pages]
+    rows = (torch.cat(parts) if parts
+            else buf.new_zeros((0, width)))
+    return rows if dtype is None else rows.view(dtype).reshape(-1)
+
+
 def decode_staged(plan: _Plan, staged: tuple,
                   device: torch.device) -> Column:
     """Device decode phase: staged tensors -> :class:`Column`."""
     leaf, physical = plan.leaf, plan.physical
     lev_dbuf, val_dbuf, meta = staged
     validity = None
-    if plan.total_values != plan.total_slots and plan.def_runs.total:
-        def_levels = plan.def_runs.expand(lev_dbuf, meta["def_runs"])
-        validity = dev.validity_from_def(def_levels,
-                                         leaf.max_definition_level)
+    if plan.total_values != plan.total_slots:
+        if plan.def_runs.total:
+            def_levels = plan.def_runs.expand(lev_dbuf, meta["def_runs"])
+            validity = dev.validity_from_def(def_levels,
+                                             leaf.max_definition_level)
+        elif plan.host_def:
+            validity = meta["host_def"]
 
-    dictionary = dict_indices = None
+    dictionary = dict_indices = offsets = None
     kind = plan.value_kind
     nvals = plan.total_values
-    dtype = PHYSICAL_TORCH_DTYPE[physical]
     if kind == "plain_fixed":
-        if PHYSICAL_WIDTH[physical] == 8:
-            values = dev.bitcast_fixed64(val_dbuf, nvals, dtype)
+        if physical == Type.INT96:
+            values = val_dbuf[:nvals * 12].view(torch.int32).reshape(nvals,
+                                                                     3)
+        elif PHYSICAL_WIDTH[physical] == 8:
+            values = dev.bitcast_fixed64(val_dbuf, nvals,
+                                         PHYSICAL_TORCH_DTYPE[physical])
         else:
-            values = dev.bitcast_fixed32(val_dbuf, nvals, dtype)
+            values = dev.bitcast_fixed32(val_dbuf, nvals,
+                                         PHYSICAL_TORCH_DTYPE[physical])
+    elif kind == "plain_flba":
+        w = leaf.type_length
+        values = val_dbuf[:nvals * w].reshape(nvals, w)
+    elif kind == "bool":
+        values = plan.vruns.expand(val_dbuf, meta["vruns"]) != 0
     elif kind == "dict":
         dictionary = meta["dictionary"]
         if meta.get("dense") is not None:
@@ -667,7 +878,8 @@ def decode_staged(plan: _Plan, staged: tuple,
                                                       dictionary)
         else:
             dict_indices = plan.vruns.expand(val_dbuf, meta["vruns"])
-            values = dev.dict_gather(dictionary, dict_indices)
+            values = (None if isinstance(dictionary, tuple)
+                      else dev.dict_gather(dictionary, dict_indices))
     elif kind == "delta":
         if meta.get("delta_dense") is not None:
             streams, perm, mins, firsts = meta["delta_dense"]
@@ -678,15 +890,31 @@ def decode_staged(plan: _Plan, staged: tuple,
             values = _delta_decode_multi(val_dbuf, int(sum(plan.d_counts)),
                                          *meta["delta"], plan.d_vpm,
                                          physical)
+    elif kind == "bss":
+        w = (leaf.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
+             else PHYSICAL_WIDTH[physical])
+        values = _bss_decode(val_dbuf, plan.bss_pages, w, physical)
+    elif kind == "dba":
+        tables, total, iters = meta["dba"]
+        values = dev.delta_byte_array_expand(val_dbuf, *tables, total, iters)
+        if physical == Type.FIXED_LEN_BYTE_ARRAY:
+            values = values.reshape(-1, leaf.type_length)
+        else:
+            offsets = tables[2]
+    elif kind == "host_ba":
+        values, offsets = meta["host_ba"]
     else:  # no data pages
-        values = torch.zeros(0, dtype=dtype, device=device)
-    if values.shape[0] != nvals:
+        values = empty_values(physical, leaf.type_length, device)
+        if physical == Type.BYTE_ARRAY:
+            offsets = torch.zeros(1, dtype=torch.int64, device=device)
+    col = Column(leaf=leaf, values=values, offsets=offsets,
+                 validity=validity, num_slots=plan.total_slots,
+                 dictionary=dictionary, dict_indices=dict_indices)
+    if col.num_values != nvals:
         raise CorruptedError(
-            f"column {leaf.name!r}: decoded {values.shape[0]} values, the "
+            f"column {leaf.name!r}: decoded {col.num_values} values, the "
             f"pages declare {nvals}")
-    return Column(leaf=leaf, values=values, validity=validity,
-                  num_slots=plan.total_slots, dictionary=dictionary,
-                  dict_indices=dict_indices)
+    return col
 
 
 def decode_chunks_pipelined(chunks: Iterable,

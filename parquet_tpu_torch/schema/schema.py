@@ -2,19 +2,22 @@
 
 The port's cut of ``parquet_tpu/schema/schema.py``.  The flat, depth-first
 ``FileMetaData.schema`` element list parses into one :class:`Leaf` per
-column, with ``max_definition_level``/``max_repetition_level``.  This slice
-reads flat columns only (``max_rep == 0``, ``max_def <= 1``): a nested or
+column, with ``max_definition_level``/``max_repetition_level``, its ``type_length``
+(fixed-length byte arrays) and whether it is annotated as a UTF-8 string
+(the STRING logical type or the UTF8 converted type).  The port reads
+flat columns only (``max_rep == 0``, ``max_def <= 1``): a nested or
 repeated schema raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 from ..errors import CorruptedError, unsupported
 from ..format import metadata as md
-from ..format.enums import FieldRepetitionType as Rep, Type
+from ..format.enums import ConvertedType, Type
+from ..format.enums import FieldRepetitionType as Rep
 
 
 @dataclass
@@ -25,6 +28,8 @@ class Leaf:
     name: str
     physical_type: Type
     repetition: Rep = Rep.REQUIRED
+    type_length: Optional[int] = None  # FIXED_LEN_BYTE_ARRAY only
+    string: bool = False  # BYTE_ARRAY annotated as UTF-8
 
     @property
     def max_definition_level(self) -> int:
@@ -71,7 +76,18 @@ class Schema:
                                   "nested assembly")
             if el.type is None:
                 raise CorruptedError(f"leaf {el.name!r} has no physical type")
-            leaves.append(Leaf(-1, el.name or "", Type(el.type), rep))
+            physical = Type(el.type)
+            if physical == Type.FIXED_LEN_BYTE_ARRAY and not (
+                    el.type_length and el.type_length > 0):
+                raise CorruptedError(f"fixed-length column {el.name!r} has "
+                                     f"type_length {el.type_length}")
+            string = (el.converted_type == ConvertedType.UTF8 or (
+                el.logicalType is not None
+                and el.logicalType.STRING is not None))
+            leaves.append(Leaf(
+                -1, el.name or "", physical, rep,
+                el.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
+                else None, string and physical == Type.BYTE_ARRAY))
         return cls(leaves, root.name or "schema")
 
     def to_elements(self) -> List[md.SchemaElement]:
@@ -79,5 +95,10 @@ class Schema:
         for leaf in self.leaves:
             out.append(md.SchemaElement(
                 name=leaf.name, type=int(leaf.physical_type),
-                repetition_type=int(leaf.repetition)))
+                type_length=leaf.type_length,
+                repetition_type=int(leaf.repetition),
+                converted_type=int(ConvertedType.UTF8) if leaf.string
+                else None,
+                logicalType=md.LogicalType(STRING=md.StringType())
+                if leaf.string else None))
         return out

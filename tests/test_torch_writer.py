@@ -118,10 +118,14 @@ def test_dictionary_keeps_float_bit_patterns():
 
 def test_writer_rejects_what_the_slice_does_not_write():
     with pytest.raises(ValueError):
-        pqt.WriterOptions(column_encoding={"x": Encoding.BYTE_STREAM_SPLIT})
+        pqt.WriterOptions(column_encoding={"x": Encoding.BIT_PACKED})
     with pytest.raises(ValueError):
         pqt.write_table({"x": np.ones(4)}, io.BytesIO(), pqt.WriterOptions(
             column_encoding={"x": Encoding.DELTA_BINARY_PACKED}))
+    with pytest.raises(ValueError):
+        pqt.write_table({"x": np.ones(4, bool)}, io.BytesIO(),
+                        pqt.WriterOptions(column_encoding={
+                            "x": Encoding.BYTE_STREAM_SPLIT}))
     with pytest.raises(TypeError):
         pqt.write_table({"x": np.ones(4, np.int16)}, io.BytesIO())
 
@@ -270,3 +274,180 @@ def test_stat_values_encode_and_decode_as_jax(value, physical):
     want = jstats.decode_stat_value(raw, jleaf)
     assert type(got) is type(want) and repr(got) == repr(want)
     assert tstats.encode_stat_value(None, Type(physical)) == b""
+
+
+def _ba_table(rng, n: int) -> dict:
+    """Byte-array, fixed-length and boolean columns with nulls: random
+    bytes (some longer than the page index's 64-byte bound, some empty),
+    a string category, sorted URLs, 16-byte rows and booleans."""
+    import pyarrow as pa
+
+    lens = rng.integers(0, 90, n)
+    blobs = [bytes(rng.integers(0, 256, int(k), dtype=np.uint8))
+             for k in lens]
+    blobs[::50] = [b"\xff" * 70] * len(blobs[::50])  # a max that cannot
+    # be cut shorter
+    cats = [f"cat-{i}" for i in rng.integers(0, 37, n)]
+    urls = sorted(f"https://h{i % 3}.example.com/{'x' * (i % 80)}/{i}"
+                  for i in rng.integers(0, 10_000, n))
+    rows = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    mask = rng.random(n) < 0.1
+    mask[700:1300] = True  # null pages
+    return {
+        "blob": pa.array(blobs, pa.binary(), mask=mask),
+        "cat": pa.array(cats, pa.string(), mask=mask),
+        "url": pa.array(urls, pa.string()),
+        "fixed": pa.array([r.tobytes() for r in rows], pa.binary(16),
+                          mask=mask),
+        "flag": pa.array(rng.random(n) < 0.3, mask=mask),
+    }
+
+
+def _port_columns(table: dict):
+    """The same table as the port's ColumnData and schema."""
+    from parquet_tpu_torch.format.enums import Type
+    from parquet_tpu_torch.io.writer import ColumnData
+    from parquet_tpu_torch.schema.schema import Leaf, Schema
+
+    leaves, cols = [], {}
+    for name, arr in table.items():
+        valid = np.asarray(arr.is_valid())
+        present = arr.filter(arr.is_valid())
+        rep = 1 if arr.null_count else 0
+        if name == "fixed":
+            leaves.append(Leaf(-1, name, Type.FIXED_LEN_BYTE_ARRAY, rep, 16))
+            vals = np.frombuffer(b"".join(present.to_pylist()),
+                                 np.uint8).reshape(-1, 16)
+            cols[name] = ColumnData(vals, valid if rep else None)
+        elif name == "flag":
+            leaves.append(Leaf(-1, name, Type.BOOLEAN, rep))
+            cols[name] = ColumnData(np.asarray(present), valid if rep
+                                    else None)
+        else:
+            items = [x.encode() if isinstance(x, str) else x
+                     for x in present.to_pylist()]
+            offs = np.zeros(len(items) + 1, np.int64)
+            np.cumsum([len(x) for x in items], out=offs[1:])
+            leaves.append(Leaf(-1, name, Type.BYTE_ARRAY, rep,
+                               string=name != "blob"))
+            cols[name] = ColumnData(np.frombuffer(b"".join(items), np.uint8),
+                                    valid if rep else None, offs)
+    return cols, Schema(leaves)
+
+
+@pytest.mark.parametrize("encoding", ["PLAIN", "RLE_DICTIONARY",
+                                      "DELTA_LENGTH_BYTE_ARRAY",
+                                      "DELTA_BYTE_ARRAY"])
+def test_byte_array_statistics_index_and_dictionaries_match_jax(encoding,
+                                                                rng):
+    """Chunk and page statistics (unsigned lexicographic, page-index bounds
+    cut to 64 bytes), boundary orders, page boundaries and dictionaries of
+    byte-array, fixed-length and boolean columns equal the JAX writer's for
+    the same table, and parquet_tpu and pyarrow read the port's file
+    back."""
+    import pyarrow as pa
+
+    from parquet_tpu.format.enums import Encoding as JEncoding
+    from parquet_tpu.io.writer import WriterOptions as JWriterOptions
+    from parquet_tpu.io.writer import write_table as jwrite_table
+
+    n = 3000
+    table = _ba_table(rng, n)
+    ba = ("blob", "cat", "url")
+    dict_cols = list(ba) if encoding == "RLE_DICTIONARY" else []
+    forced = {} if dict_cols else {c: encoding for c in ba}
+    cols, schema = _port_columns(table)
+    buf = io.BytesIO()
+    pqt.write_table(cols, buf, pqt.WriterOptions(
+        row_group_size=1200, data_page_size=2048, compression="snappy",
+        dictionary=bool(dict_cols),
+        column_encoding={c: Encoding[e] for c, e in forced.items()}),
+        schema=schema)
+    jbuf = io.BytesIO()
+    jwrite_table(pa.table(table), jbuf, JWriterOptions(
+        row_group_size=1200, data_page_size=2048, compression="snappy",
+        dictionary=dict_cols,
+        column_encoding={c: JEncoding[e] for c, e in forced.items()}))
+    data = buf.getvalue()
+    port = parquet_tpu.ParquetFile(data)
+    ref = parquet_tpu.ParquetFile(jbuf.getvalue())
+    tport = pqt.ParquetFile(data)
+    tref = pqt.ParquetFile(jbuf.getvalue())
+    dict_seen = False
+    for prg, jrg, trg, trrg in zip(port.row_groups, ref.row_groups,
+                                   tport.row_groups, tref.row_groups,
+                                   strict=True):
+        for i, name in enumerate(table):
+            pc, jc = prg.column(i), jrg.column(i)
+            assert pc.meta.statistics == jc.meta.statistics, name
+            assert pc.statistics() == jc.statistics(), name
+            assert pc.column_index() == jc.column_index(), name
+            assert trg.column(i).statistics() == trrg.column(i).statistics()
+            assert ([p.first_row_index for p in
+                     pc.offset_index().page_locations]
+                    == [p.first_row_index for p in
+                        jc.offset_index().page_locations]), name
+            assert pc.meta.encodings == jc.meta.encodings, name
+            if pc.meta.dictionary_page_offset is not None:
+                # the same entries in the same (first-seen) order
+                chunks = (trg.column(i), trrg.column(i))
+                got, want = (pqt.io.reader.decode_dictionary_page(
+                    c, next(c.pages())) for c in chunks)
+                for a, b in zip(got, want):
+                    np.testing.assert_array_equal(a, b)
+                dict_seen = True
+    # both readers read the port's file back
+    assert dict_seen == bool(dict_cols)
+    jax_host = port.read(device=False)
+    arrow = papq.read_table(io.BytesIO(data))
+    for name, arr in table.items():
+        assert arrow[name].combine_chunks().equals(arr), name
+        want = arr.to_pylist()
+        got = jax_host[name].to_arrow().to_pylist()
+        assert got == want, name
+
+
+def test_schema_of_every_input_kind(rng):
+    """``write_table`` takes bool arrays (BOOLEAN), object arrays of str
+    (UTF-8 strings) and of bytes (BYTE_ARRAY), ``(n, 3)`` int32 (INT96) and
+    ``(n, w)`` uint8 (FIXED_LEN_BYTE_ARRAY); the port, parquet_tpu and
+    pyarrow read each back."""
+    n = 500
+    strs = [f"s{i % 37}" for i in range(n)]
+    table = {
+        "b": rng.random(n) < 0.5,
+        "s": np.ma.masked_array(np.array(strs, dtype=object),
+                                mask=rng.random(n) < 0.2),
+        "y": np.array([bytes([i % 256]) * (i % 5) for i in range(n)],
+                      dtype=object),
+        "t": rng.integers(0, 2**31, (n, 3)).astype(np.int32),
+        "f": rng.integers(0, 256, (n, 6), dtype=np.uint8),
+    }
+    buf = io.BytesIO()
+    pqt.write_table(table, buf, pqt.WriterOptions(compression="snappy",
+                                                  row_group_size=200))
+    data = buf.getvalue()
+    schema = pqt.ParquetFile(data).schema
+    assert [leaf.physical_type.name for leaf in schema.leaves] == [
+        "BOOLEAN", "BYTE_ARRAY", "BYTE_ARRAY", "INT96",
+        "FIXED_LEN_BYTE_ARRAY"]
+    assert [leaf.string for leaf in schema.leaves] == [False, True, False,
+                                                       False, False]
+    assert schema.leaf("f").type_length == 6
+    port = pqt.ParquetFile(data).read(device="cpu")
+    jax_host = parquet_tpu.ParquetFile(data).read(device=False)
+    arrow = papq.read_table(io.BytesIO(data))
+    np.testing.assert_array_equal(port["b"].values.numpy(), table["b"])
+    np.testing.assert_array_equal(port["t"].values.numpy(), table["t"])
+    np.testing.assert_array_equal(port["f"].values.numpy(), table["f"])
+    np.testing.assert_array_equal(np.asarray(jax_host["f"].values),
+                                  table["f"])
+    valid = ~table["s"].mask
+    v, o = port["s"].materialize_host()
+    assert [bytes(v[o[i]:o[i + 1]]).decode() for i in range(len(o) - 1)] \
+        == [x for x, ok in zip(strs, valid) if ok]
+    np.testing.assert_array_equal(port["s"].validity.numpy(), valid)
+    assert arrow["s"].to_pylist() == [x if ok else None
+                                      for x, ok in zip(strs, valid)]
+    assert arrow["y"].to_pylist() == list(table["y"])
+    assert arrow["b"].to_pylist() == table["b"].tolist()
