@@ -3,7 +3,8 @@ CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
-                          [--enc-rows 4194304] [--out DIR]
+                          [--enc-rows 4194304] [--nested-n 8000000]
+                          [--nest-mix-rows 1048576] [--out DIR]
 
 Phases, each fatal on failure:
 
@@ -49,6 +50,25 @@ Phases, each fatal on failure:
    LZ4_RAW, LZ4 and BROTLI whose system library loaded (the
    ``{"codecs": ...}`` line names them); every read equals the generated
    columns and launches ``unpack_bits_dense`` on both dictionaries;
+4d. nested: (a) ``bench.py:_build4``'s cfg 4 at its default ``n``
+   (``--nested-n`` 8,000,000: 2,000,000 rows of ``list<int64>``, 0-7
+   cumulative timestamps a row with uniform 0-999 deltas, 5 % empty
+   lists), DELTA_BINARY_PACKED, UNCOMPRESSED, read once cold and three
+   times warm; (b) a mixed nested file of ``--nest-mix-rows`` (1,048,576)
+   in four row groups, Snappy, 64 KiB pages: ``tags`` ``list<string>`` of a
+   1,000-entry dictionary (every index run bit-packed), ``scores``
+   ``list<int32>`` of a 200-entry dictionary with 5 % null lists and 5 %
+   null elements, ``attrs`` ``map<string, int64>``, ``pt`` an optional
+   ``struct<x: double, y: double, label: optional string>`` with 10 % null
+   structs, and ``grid`` ``list<list<int64>>``, read cold and warm.  Every
+   leaf's values, validity, list offsets and list validity of every level
+   (and ``pt.label``'s def levels) equal the generated arrays;
+   ``unpack_bits_dense`` launches on ``ts``'s miniblocks and ``tags``'s
+   indexes and ``dict_unpack_gather`` on ``scores``; (c) the host-route
+   fixture (``tests/torch_fixtures/host_route.parquet``, written by
+   pyarrow: dictionaries that overflow into PLAIN pages) reads equal to the
+   arrays beside it with ``HOST_ROUTE`` counting exactly its chunks.  Every
+   main-path file of phases 4-5 leaves ``HOST_ROUTE`` empty;
 5. lookup path: a 3-column file keyed by ``k`` (1,048,576-row row groups,
    8 KiB pages, bloom filters on ``k``, page index, rows sorted by ``k``)
    and a batch of ``--lookup-rows / 16`` distinct keys, one in eight
@@ -65,7 +85,8 @@ Phases, each fatal on failure:
    ``dict_unpack_gather`` at the read's three shapes (``k``, ``ts`` and
    ``cat``: the first row group's launches, operands taken from the plan,
    with the launches of that column in phase 4's reads; and enc's
-   ``ba_dict``, with its launches in phase 4c's first reads), bit for bit
+   ``ba_dict``, with its launches in phase 4c's first reads; and the
+   nested columns ``ts``, ``tags`` and ``scores`` of phase 4d), bit for bit
    against their plain versions, each on a warm card with the profiler's
    mean (``ms``) beside the time per launch from the replay of a CUDA
    graph of 100 launches (``graph_ms``) and the SM clock, power draw and
@@ -75,11 +96,13 @@ Phases, each fatal on failure:
    also gets ``call_ms`` (CUDA events around back-to-back wrapper calls,
    the host's dispatch included); then one ``{"ops": [...]}`` line: the
    torch ops that stand for the JAX package's XLA ops, at the shapes of
-   enc's and lineitem's first row groups, each with the profiler's device
-   time per call (every kernel of the op), its calls per read and its
-   byte bound;
-7. one more warm read of the 5-column file and of lineitem and one more
-   warm lookup, each under the profiler, for the device's idle share.
+   enc's and lineitem's first row groups, and the level assembly at cfg 4's
+   first row group (``assemble_single_list``) and at ``grid``'s
+   (``assemble_nested``), each with the profiler's device time per call
+   (every kernel of the op), its calls per read and its byte bound;
+7. one more warm read of the 5-column file, of lineitem and of cfg 4, and
+   one more warm lookup, each under the profiler, for the device's idle
+   share.
    They come last: after a window that long the profiler can drop every
    event of phase 6's short ones.  A ``{"phase_s": ...}`` line gives each
    phase's wall time.
@@ -112,8 +135,9 @@ from parquet_tpu_torch.ops import _build, kernels
 from parquet_tpu_torch.ops import device as dev
 from parquet_tpu_torch.ops.host import gather_byte_arrays, segment_ranges
 from parquet_tpu_torch.parallel import device_reader
+from parquet_tpu_torch.schema import schema as S
 from parquet_tpu_torch.schema.schema import Leaf, Schema
-from parquet_tpu_torch.schema.types import physical_of_dtype
+from parquet_tpu_torch.schema.types import LogicalKind, physical_of_dtype
 from torch.profiler import ProfilerActivity, profile
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -127,6 +151,13 @@ LOOKUP_KERNELS = ("bloom_check", "dict_unpack_gather")
 
 def log(obj) -> None:
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
+
+
+def no_host_route(what: str) -> None:
+    """A main-path file decodes every chunk on the device route."""
+    if any(pq.HOST_ROUTE.values()):
+        raise AssertionError(f"{what}: chunks took the host decode: "
+                             f"{pq.HOST_ROUTE}")
 
 
 def card_line() -> str:
@@ -529,12 +560,15 @@ def check_table(out: dict, table: dict) -> None:
 
 def decoded_bytes(out: dict) -> int:
     """Bytes of the decoded columns: values, byte-array offsets, the int32
-    indexes of a column kept dictionary-encoded (its dictionary left out)
-    and one validity byte per slot of an optional column."""
+    indexes of a column kept dictionary-encoded (its dictionary left out),
+    one validity byte per slot of an optional column (per element of a
+    repeated one) and each repeated level's int64 offsets and validity
+    bytes."""
     total = 0
     for col in out.values():
         for t in (col.values, col.offsets, col.validity,
-                  col.dict_indices if col.values is None else None):
+                  col.dict_indices if col.values is None else None,
+                  *col.list_offsets, *col.list_validity):
             if t is not None:
                 total += t.numel() * t.element_size()
     return total
@@ -557,6 +591,7 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
 
     with ColumnLaunches() as by_column:
         pq.reset_launches()
+        pq.reset_host_route()
         out, cold_s = timed_read(path)
         check_table(out, table)
         del out
@@ -566,6 +601,7 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
             warm.append(s)
         launches = dict(pq.LAUNCHES)
     column_launches = by_column.counts
+    no_host_route("the 5-column read")
     check_table(out, table)
     nbytes = decoded_bytes(out)
     del out
@@ -601,6 +637,10 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
 PATH_SHAPES = (("k", "unpack_bits_dense"), ("ts", "unpack_bits_dense"),
                ("cat", "dict_unpack_gather"))
 ENC_SHAPES = (("ba_dict", "unpack_bits_dense"),)
+# on cfg 4, and on the mixed nested file
+CFG4_SHAPES = (("ts.list.element", "unpack_bits_dense"),)
+NEST_MIX_SHAPES = (("tags.list.element", "unpack_bits_dense"),
+                   ("scores.list.element", "dict_unpack_gather"))
 
 
 class ColumnLaunches:
@@ -941,23 +981,26 @@ def check_columns(out: dict, data: dict) -> None:
             raise AssertionError(f"{name}: values differ")
 
 
-def read_and_check(path: str, data: dict, reads: int) -> dict:
-    """One cold read and ``reads - 1`` warm ones, each equal to ``data``,
-    with each kernel's launches by column over them, which must add up to
-    the wrappers'."""
+def read_and_check(path: str, data: dict, reads: int,
+                   check=check_columns) -> dict:
+    """One cold read and ``reads - 1`` warm ones, each equal to ``data``
+    (by ``check``) and each on the device route alone, with each kernel's
+    launches by column over them, which must add up to the wrappers'."""
     with ColumnLaunches() as by_column:
         pq.reset_launches()
+        pq.reset_host_route()
         out, cold_s = timed_read(path)
-        check_columns(out, data)
+        check(out, data)
         nbytes = decoded_bytes(out)
         del out
         warm = []
         for _ in range(reads - 1):
             out, s = timed_read(path)
             warm.append(s)
-            check_columns(out, data)
+            check(out, data)
             del out
         launches = dict(pq.LAUNCHES)
+    no_host_route(path)
     for name, count in launches.items():
         counted = sum(c.get(name, 0) for c in by_column.counts.values())
         if counted != count:
@@ -1054,6 +1097,287 @@ def enc_path(rows: int, seed: int, tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: nested columns, and the host route's fixture
+# ---------------------------------------------------------------------------
+
+NEST_MIX_ROW_GROUP = 1 << 18
+NEST_MIX_PAGE = 64 << 10
+NEST_MIX_ENCODINGS = {
+    "tags.list.element": Encoding.RLE_DICTIONARY,
+    "scores.list.element": Encoding.RLE_DICTIONARY,
+    "attrs.key_value.key": Encoding.RLE_DICTIONARY,
+    "attrs.key_value.value": Encoding.PLAIN,
+    "pt.x": Encoding.PLAIN, "pt.y": Encoding.PLAIN,
+    "pt.label": Encoding.RLE_DICTIONARY,
+    "grid.list.element.list.element": Encoding.PLAIN,
+}
+NEST_KERNELS = {"ts.list.element": "unpack_bits_dense",
+                "tags.list.element": "unpack_bits_dense",
+                "scores.list.element": "dict_unpack_gather"}
+
+
+def make_cfg4(n: int, seed: int) -> tuple:
+    """``bench.py:_build4(n, seed)``'s table: ``n // 4`` rows of a
+    ``list<int64>``, each 0-7 cumulative timestamps with uniform 0-999
+    deltas, 5 % of rows empty lists (generator seeded 13, as the bench's).
+    ``(schema, {leaf: ColumnData}, {leaf: expected})``."""
+    rng = np.random.default_rng(13)
+    lens = rng.integers(0, 8, max(n // 4, 1))
+    lens[rng.random(len(lens)) < 0.05] = 0
+    total = int(lens.sum())
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    base = 1_700_000_000_000_000 + seed * 977_777 + np.cumsum(
+        rng.integers(0, 1000, max(total, 1)).astype(np.int64))
+    values = base[:total]
+    schema = S.message("schema", [S.list_of("ts", S.optional(S.leaf(
+        "element", Type.INT64)))])
+    name = "ts.list.element"
+    return schema, {name: ColumnData(values, list_offsets=[offs])}, {
+        name: {"values": values, "validity": None, "list_offsets": [offs],
+               "list_validity": [None]}}
+
+
+def _lists(rng, rows: int, most: int, null_share: float) -> tuple:
+    """Offsets of ``rows`` lists of 0..``most`` entries and their validity
+    (None without nulls); a null list holds no entries."""
+    valid = rng.random(rows) >= null_share if null_share else None
+    lens = rng.integers(0, most + 1, rows)
+    if valid is not None:
+        lens[~valid] = 0
+    offs = np.zeros(rows + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    return offs, valid
+
+
+def make_nest_mix(rows: int, seed: int) -> tuple:
+    """The mixed nested table, from ``seed``: ``(schema, {leaf:
+    ColumnData}, {leaf: expected})``.  ``tags``: 0-4 names a row of a
+    1,000-entry pool drawn uniformly (w = 10, every index run bit-packed);
+    ``scores``: 0-6 int32 a row of 200 values, 5 % null lists, 5 % null
+    elements; ``attrs``: 0-3 distinct keys a row of 40, 4 % null maps, 5 %
+    null values; ``pt``: 10 % null structs, 20 % of the others without a
+    label; ``grid``: 0-3 lists of 0-3 int64, 3 % null at both levels, 2 %
+    null elements."""
+    rng = np.random.default_rng(seed + 7)
+    data, want = {}, {}
+
+    def put(name, cd, validity, offsets, list_validity, def_levels=None):
+        data[name] = cd
+        values = (cd.values if cd.offsets is None
+                  else (cd.values, cd.offsets))
+        want[name] = {"values": values, "validity": validity,
+                      "list_offsets": offsets,
+                      "list_validity": list_validity}
+        if def_levels is not None:
+            want[name]["def_levels"] = def_levels
+
+    offs, _ = _lists(rng, rows, 4, 0.0)
+    names = [f"tag-{i:04d}-{'x' * (i % 5)}".encode() for i in range(1000)]
+    v, o = gather_byte_arrays(*_pool(names),
+                              rng.integers(0, 1000, int(offs[-1])))
+    put("tags.list.element", ColumnData(v, offsets=o, list_offsets=[offs]),
+        None, [offs], [None])
+
+    offs, lv = _lists(rng, rows, 6, 0.05)
+    ev = rng.random(int(offs[-1])) >= 0.05
+    v = (rng.integers(0, 200, int(ev.sum())) * 7 - 300).astype(np.int32)
+    put("scores.list.element", ColumnData(v, ev, list_offsets=[offs],
+                                          list_validity=[lv]),
+        ev, [offs], [lv])
+
+    offs, lv = _lists(rng, rows, 3, 0.04)
+    n = int(offs[-1])
+    j = np.arange(n) - np.repeat(offs[:-1], np.diff(offs))
+    key = (np.repeat(rng.integers(0, 40, rows), np.diff(offs)) + 3 * j) % 40
+    kv, ko = gather_byte_arrays(*_pool([f"attr-{i}".encode()
+                                        for i in range(40)]), key)
+    put("attrs.key_value.key", ColumnData(kv, offsets=ko,
+                                          list_offsets=[offs],
+                                          list_validity=[lv]),
+        None, [offs], [lv])
+    vv = rng.random(n) >= 0.05
+    put("attrs.key_value.value", ColumnData(
+        rng.integers(-10**12, 10**12, int(vv.sum())), vv,
+        list_offsets=[offs], list_validity=[lv]), vv, [offs], [lv])
+
+    sv = rng.random(rows) >= 0.10
+    labelled = sv & (rng.random(rows) >= 0.2)
+    for c in ("x", "y"):
+        put(f"pt.{c}", ColumnData(rng.random(int(sv.sum())) * 360 - 180, sv),
+            sv, [], [])
+    d = sv.astype(np.int32) + labelled
+    lv_, lo = gather_byte_arrays(*_pool([f"label-{i}".encode()
+                                        for i in range(500)]),
+                                 rng.integers(0, 500, int(labelled.sum())))
+    put("pt.label", ColumnData(lv_, offsets=lo, def_levels=d), labelled,
+        [], [], d)
+
+    o1, v1 = _lists(rng, rows, 3, 0.03)
+    o2, v2 = _lists(rng, int(o1[-1]), 3, 0.03)
+    ev = rng.random(int(o2[-1])) >= 0.02
+    put("grid.list.element.list.element", ColumnData(
+        rng.integers(-10**6, 10**6, int(ev.sum())), ev,
+        list_offsets=[o1, o2], list_validity=[v1, v2]),
+        ev, [o1, o2], [v1, v2])
+
+    el = S.optional(S.leaf("element", Type.INT64))
+    schema = S.message("schema", [
+        S.list_of("tags", S.leaf("element", Type.BYTE_ARRAY,
+                                 logical=LogicalKind.STRING)),
+        S.list_of("scores", S.optional(S.leaf("element", Type.INT32))),
+        S.map_of("attrs", S.leaf("key", Type.BYTE_ARRAY,
+                                 logical=LogicalKind.STRING),
+                 S.optional(S.leaf("value", Type.INT64))),
+        S.group("pt", [S.leaf("x", Type.DOUBLE), S.leaf("y", Type.DOUBLE),
+                       S.optional(S.leaf("label", Type.BYTE_ARRAY,
+                                         logical=LogicalKind.STRING))],
+                S.Rep.OPTIONAL),
+        S.list_of("grid", S.list_of("element", el))])
+    return schema, data, want
+
+
+def _equal(got, want) -> bool:
+    if isinstance(want, tuple):
+        return all(np.array_equal(g, w) for g, w in zip(got, want))
+    want = np.asarray(want)
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and np.array_equal(got.view(np.uint8), want.view(np.uint8)))
+
+
+def _mask_equal(got, want) -> bool:
+    """A decoded mask (a tensor or None) against the expected one (None:
+    all valid)."""
+    if want is None:
+        return got is None or bool(got.all())
+    return got is not None and np.array_equal(got.cpu().numpy(), want)
+
+
+def check_nested(out: dict, want: dict) -> None:
+    """Each leaf's values, validity, list offsets and list validity of every
+    level (and def levels where given) against the generated arrays."""
+    for name, w in want.items():
+        col = out[name]
+        on = (col.values if col.values is not None
+              else col.dict_indices).device
+        if on.type != torch.device(DEVICE).type or any(
+                o.device.type != on.type for o in col.list_offsets):
+            raise AssertionError(f"{name}: decoded on {on}")
+        got = col.materialize_host()
+        values = got["values"] if isinstance(got, dict) else got
+        if not _equal(values, w["values"]):
+            raise AssertionError(f"{name}: values differ")
+        if not _mask_equal(col.validity, w["validity"]):
+            raise AssertionError(f"{name}: validity differs")
+        if len(col.list_offsets) != len(w["list_offsets"]):
+            raise AssertionError(f"{name}: {len(col.list_offsets)} levels")
+        for k, (o, wo) in enumerate(zip(col.list_offsets,
+                                        w["list_offsets"])):
+            if o.dtype != torch.int64 or not np.array_equal(
+                    o.cpu().numpy(), wo):
+                raise AssertionError(f"{name}: offsets of level {k} differ")
+            if not _mask_equal(col.list_validity[k], w["list_validity"][k]):
+                raise AssertionError(f"{name}: list validity of level {k} "
+                                     "differs")
+        if "def_levels" in w and not np.array_equal(col.def_levels,
+                                                    w["def_levels"]):
+            raise AssertionError(f"{name}: def levels differ")
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_fixtures")
+
+
+def host_route_fixture() -> dict:
+    """``tests/torch_fixtures/host_route.parquet`` (pyarrow: dictionaries
+    that overflow into PLAIN pages mid-chunk) read on the card, equal to
+    ``host_route.npz``'s arrays, ``HOST_ROUTE`` counting each chunk once
+    and nothing else."""
+    want = np.load(os.path.join(FIXTURES, "host_route.npz"))
+    expected = {"k": {"values": want["k"], "validity": None,
+                      "list_offsets": [], "list_validity": []},
+                "s": {"values": (want["s_values"], want["s_offsets"]),
+                      "validity": None, "list_offsets": [],
+                      "list_validity": []},
+                "l.list.element": {
+                    "values": want["l_values"], "validity": want["l_validity"],
+                    "list_offsets": [want["l_offsets"]],
+                    "list_validity": [want["l_list_validity"]]}}
+    pq.reset_host_route()
+    pq.reset_launches()
+    out, read_s = timed_read(os.path.join(FIXTURES, "host_route.parquet"))
+    counted = dict(pq.HOST_ROUTE)
+    check_nested(out, expected)
+    chunks = int(want["host_route_chunks"])
+    if counted["mixed_page_kinds"] != chunks or \
+            sum(counted.values()) != chunks:
+        raise AssertionError(f"host route counted {counted}, expected "
+                             f"{chunks} mixed_page_kinds chunks")
+    return {"read_s": read_s, "host_route": counted,
+            "launches": dict(pq.LAUNCHES)}
+
+
+def nested_path(n: int, mix_rows: int, seed: int, tmp: str) -> dict:
+    """Phase 4d: cfg 4 and the mixed nested file written by the port's
+    writer and read on the card, each read equal to the generated leaves
+    with no chunk on the host route; the kernels' launches by leaf; the
+    host-route fixture."""
+    t0 = time.perf_counter()
+    schema, data, want = make_cfg4(n, seed)
+    gen_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "cfg4.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(data, path, pq.WriterOptions(column_encoding={
+        "ts.list.element": Encoding.DELTA_BINARY_PACKED}), schema=schema)
+    write_s = time.perf_counter() - t0
+    got = read_and_check(path, want, 4, check_nested)
+    rows = n // 4
+    best = min(got["warm_read_s"])
+    cfg4 = {"n": n, "rows": rows, "elements": len(data[
+        "ts.list.element"].values), "row_groups": -(-rows // ROW_GROUP),
+        "file_bytes": os.path.getsize(path), "generate_s": gen_s,
+        "write_s": write_s, **got, "rows_per_s": rows / best,
+        "decoded_bytes_formula": "int64 values + int64 list offsets + one "
+        "validity byte per element and per list",
+        "decoded_gb_per_s": got["decoded_bytes"] / best / 1e9}
+    if not got["column_launches"].get("ts.list.element", {}).get(
+            "unpack_bits_dense"):
+        raise AssertionError("cfg 4: ts launched no unpack_bits_dense")
+    del data, want
+
+    t0 = time.perf_counter()
+    schema, data, want = make_nest_mix(mix_rows, seed)
+    gen_s = time.perf_counter() - t0
+    mix_path = os.path.join(tmp, "nest_mix.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(data, mix_path, pq.WriterOptions(
+        compression="snappy", row_group_size=NEST_MIX_ROW_GROUP,
+        data_page_size=NEST_MIX_PAGE, column_encoding=NEST_MIX_ENCODINGS),
+        schema=schema)
+    write_s = time.perf_counter() - t0
+    got = read_and_check(mix_path, want, 2, check_nested)
+    for leaf, kernel in NEST_KERNELS.items():
+        if leaf in want and not got["column_launches"].get(leaf, {}).get(
+                kernel):
+            raise AssertionError(f"nest_mix: {leaf} launched no {kernel}")
+    mix = {"rows": mix_rows, "row_groups": -(-mix_rows
+                                            // NEST_MIX_ROW_GROUP),
+           "page_bytes": NEST_MIX_PAGE, "file_bytes":
+           os.path.getsize(mix_path), "generate_s": gen_s,
+           "write_s": write_s, **got,
+           "rows_per_s": mix_rows / min(got["warm_read_s"])}
+    del data, want
+    fixture = host_route_fixture()
+    log({"nested_path": {"cfg4": cfg4, "nest_mix": mix,
+                         "host_route_fixture": fixture}})
+    return {"path": path, "mix_path": mix_path,
+            "launches": cfg4["launches"], "mix_launches": mix["launches"],
+            "column_launches": {**cfg4["column_launches"],
+                                **mix["column_launches"]},
+            "columns": phase_times(path)}
+
+
+# ---------------------------------------------------------------------------
 # the torch ops that stand for XLA ops, at enc's and lineitem's shapes
 # ---------------------------------------------------------------------------
 
@@ -1062,6 +1386,8 @@ TORCH_OPS = {
     "byte_stream_split": (device_reader, "_bss_decode"),
     "delta_byte_array_expand": (dev, "delta_byte_array_expand"),
     "rle_expand": (dev, "rle_expand"),
+    "assemble_single_list": (dev, "assemble_single_list"),
+    "assemble_nested": (dev, "assemble_nested"),
 }
 
 
@@ -1144,7 +1470,18 @@ def op_row(op: str, shape: str, fn, nbytes: int, calls: dict,
             else (ms - b) * per_read}
 
 
-def torch_ops(enc: str, lineitem: str) -> list:
+def assemble_bytes(args, out) -> int:
+    """Bytes an assembly call must move: read each slot's def and rep
+    level, write each level's int64 offsets and list validity bytes and a
+    validity byte per leaf element."""
+    d, r = args[0], args[1]
+    offs, valid, leaf_valid = out
+    return (d.numel() * d.element_size() + r.numel() * r.element_size()
+            + sum(8 * o.numel() + v.numel() for o, v in zip(offs, valid))
+            + leaf_valid.numel())
+
+
+def torch_ops(enc: str, lineitem: str, nested: dict) -> list:
     """The profiler's ``ms`` per call, the calls per read and the byte bound
     (bytes moved / 3.35 TB/s) of the torch ops at the shapes of the first
     row group of enc's and lineitem's columns: ``byte_stream_split``
@@ -1152,9 +1489,11 @@ def torch_ops(enc: str, lineitem: str) -> list:
     expand (``bool_rle``: ``rle_expand`` at w = 1, then ``!= 0``),
     ``rle_expand`` at lineitem's four dictionary string columns (where
     their index runs are not all bit-packed) and the H2D copy of
-    ``l_comment``'s bytes."""
+    ``l_comment``'s bytes; and the level assembly at the first row group
+    of cfg 4 (``assemble_single_list``) and of ``grid``
+    (``assemble_nested``)."""
     counts = {}
-    for path in (enc, lineitem):
+    for path in (enc, lineitem, nested["path"], nested["mix_path"]):
         with OpCalls() as calls:
             timed_read(path)
         counts[path] = calls.counts
@@ -1217,6 +1556,18 @@ def torch_ops(enc: str, lineitem: str) -> list:
         {"l_comment": len(f.row_groups)},
         {"note": "the byte bound is at the card's memory rate; the host "
          "link's rate bounds it more"}))
+    for op, path, column in (
+            ("assemble_single_list", nested["path"], "ts.list.element"),
+            ("assemble_nested", nested["mix_path"],
+             "grid.list.element.list.element")):
+        args = first_chunk_calls(path, column, *TORCH_OPS[op])[0]
+        fn = getattr(dev, op)
+        out = fn(*args)
+        rows.append(op_row(
+            op, f"{column}: {args[0].numel()} slots, lists per level "
+            f"{[o.numel() - 1 for o in out[0]]}, {out[2].numel()} elements",
+            lambda fn=fn, args=args: fn(*args), assemble_bytes(args, out),
+            by_column(path, op, [column])))
     missing = [r["op"] for r in rows
                if r["ms"] is None and r["calls_per_read"]]
     if missing:
@@ -1365,6 +1716,7 @@ def lookup_path(rows: int, seed: int, tmp: str) -> dict:
     row_groups = -(-rows // ROW_GROUP)
 
     pq.reset_launches()
+    pq.reset_host_route()
     f = pq.ParquetFile(path)
     res, cold_s = timed_lookup(f, keys, DEVICE)
     cold_launches = pq.LAUNCHES["bloom_check"]
@@ -1375,6 +1727,7 @@ def lookup_path(rows: int, seed: int, tmp: str) -> dict:
         warm.append(s)
     launches = dict(pq.LAUNCHES)
     check_lookup(res, keys, table)
+    no_host_route("the lookups")
     if cold_launches != 1 or launches["bloom_check"] != 3:
         raise AssertionError(
             f"bloom_check launched {cold_launches} then "
@@ -1462,14 +1815,15 @@ def shape_times(column: str, kernel: str, args: tuple,
 
 def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
                        path_launches: dict, probe: tuple, enc: dict,
-                       lineitem_launches: dict) -> list:
+                       lineitem_launches: dict, nested: dict) -> list:
     """Each kernel at the shapes its path gives it.  On the read path, the
     first row group's launches as ``path_operands`` took them: ``k``
     (indexes of a 20,000-entry dictionary, unfused), ``ts`` (the delta
     miniblocks) and ``cat`` (indexes fused with its 200-entry int32
-    dictionary), and on ``enc`` ``ba_dict`` (the indexes of a 1,000-entry
-    byte-array dictionary); a kernel's top-level numbers are its first
-    shape's.  On the lookup path one lookup's segmented bloom probe
+    dictionary), on ``enc`` ``ba_dict`` (the indexes of a 1,000-entry
+    byte-array dictionary), and the nested leaves of phase 4d (cfg 4's
+    ``ts`` miniblocks, ``tags``'s indexes, ``scores``'s fused gather); a
+    kernel's top-level numbers are its first shape's.  On the lookup path one lookup's segmented bloom probe
     (``probe``: every row group's filter and the hashes of the keys that
     survive its statistics stage)."""
     rows = {c: shape_times(c, k, shapes[c], path_launches[c])
@@ -1478,7 +1832,13 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
         rows[f"enc.{c}"] = shape_times(
             f"enc.{c}", k, enc["shapes"][c],
             enc["column_launches"].get(c, {}).get(k, 0))
-    all_shapes = PATH_SHAPES + tuple((f"enc.{c}", k) for c, k in ENC_SHAPES)
+    for c, k in CFG4_SHAPES + NEST_MIX_SHAPES:
+        rows[f"nested.{c}"] = shape_times(
+            f"nested.{c}", k, nested["shapes"][c],
+            nested["column_launches"].get(c, {}).get(k, 0))
+    all_shapes = PATH_SHAPES + tuple(
+        (f"enc.{c}", k) for c, k in ENC_SHAPES) + tuple(
+        (f"nested.{c}", k) for c, k in CFG4_SHAPES + NEST_MIX_SHAPES)
     out = []
     for name, source, line in (
             ("unpack_bits_dense", "unpack_bits.cu", 81),
@@ -1529,7 +1889,10 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
         k["launches_by_path"] = {"read": launches[k["name"]],
                                  "lookup": lookup_launches[k["name"]],
                                  "lineitem": lineitem_launches[k["name"]],
-                                 "enc": enc["launches"][k["name"]]}
+                                 "enc": enc["launches"][k["name"]],
+                                 "nested": nested["launches"][k["name"]],
+                                 "nest_mix": nested["mix_launches"][
+                                     k["name"]]}
     for k in out:
         if k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: kernel differs from its "
@@ -1550,6 +1913,10 @@ def main(argv=None) -> int:
                     help="lineitem's rows: a cut of bench.py cfg 7's "
                     "40,000,000")
     ap.add_argument("--enc-rows", type=int, default=4_194_304)
+    ap.add_argument("--nested-n", type=int, default=8_000_000,
+                    help="bench.py's n for cfg 4, which writes n // 4 "
+                    "list rows")
+    ap.add_argument("--nest-mix-rows", type=int, default=1 << 20)
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke_sweep.json (none by "
                     "default)")
@@ -1592,6 +1959,11 @@ def main(argv=None) -> int:
                      args.seed, tmp)
         enc = phase("4c_enc", enc_path, args.enc_rows, args.seed, tmp)
         enc["shapes"] = path_operands(enc["path"], ENC_SHAPES)
+        nested = phase("4d_nested", nested_path, args.nested_n,
+                       args.nest_mix_rows, args.seed, tmp)
+        nested["shapes"] = {**path_operands(nested["path"], CFG4_SHAPES),
+                            **path_operands(nested["mix_path"],
+                                            NEST_MIX_SHAPES)}
         look = phase("5_lookup", lookup_path, args.lookup_rows, args.seed,
                      tmp)
         # the short profiler windows of the kernels and ops come before
@@ -1600,14 +1972,17 @@ def main(argv=None) -> int:
         kern = phase("6_kernels", main_shape_kernels, read["launches"],
                      look["launches"], read["shapes"],
                      read["path_launches"], look["probe"], enc,
-                     item["launches"])
-        ops = phase("6_ops", torch_ops, enc["path"], item["path"])
+                     item["launches"], nested)
+        ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested)
         t0 = time.perf_counter()
         log({"breakdown": {"columns": read["columns"], **device_profile(
             lambda: timed_read(read["path"]), "read")}})
         log({"lineitem_breakdown": {"columns": item["columns"],
                                     **device_profile(lambda: timed_read(
                                         item["path"]), "read")}})
+        log({"nested_breakdown": {"columns": nested["columns"],
+                                  **device_profile(lambda: timed_read(
+                                      nested["path"]), "read")}})
         log({"lookup_breakdown": {**look["stages"], **device_profile(
             look["run"], "lookup")}})
         phase_s["7_profiled"] = time.perf_counter() - t0

@@ -1,12 +1,14 @@
 """parquet_tpu_torch: the PyTorch/CUDA port of parquet_tpu.
 
-It reads flat columns of every physical type (BOOLEAN, INT32, INT64,
-INT96, FLOAT, DOUBLE, BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY) in PLAIN,
+It reads columns of every physical type (BOOLEAN, INT32, INT64, INT96,
+FLOAT, DOUBLE, BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY), flat or nested (lists,
+maps and structs at any depth, assembled on the device), in PLAIN,
 dictionary, RLE, DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY,
 DELTA_BYTE_ARRAY and BYTE_STREAM_SPLIT pages (v1 and v2; UNCOMPRESSED,
 GZIP, SNAPPY, ZSTD, LZ4_RAW, LZ4, BROTLI) into tensors on a CUDA device,
-through the hand-written kernels of ``csrc/``, looks rows up by a numeric
-key, and writes such files.
+through the hand-written kernels of ``csrc/``; the chunks its device
+route refuses decode on the host and are counted in ``HOST_ROUTE``.  It
+looks rows up by a numeric key, and writes such files.
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -18,6 +20,7 @@ from .io.column import Column
 from .io.reader import ParquetFile
 from .io.writer import WriterOptions, write_table
 from .ops.kernels import LAUNCHES, reset_launches
+from .parallel.device_reader import HOST_ROUTE, reset_host_route
 
 __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
-           "LAUNCHES", "reset_launches"]
+           "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route"]

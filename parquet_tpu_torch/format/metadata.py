@@ -4,8 +4,8 @@ writes and point lookups touch.
 The port's copy of ``parquet_tpu/format/metadata.py``.  Field ids, names and
 types mirror the Apache Parquet thrift IDL, so a file written by either
 package reads back in the other.  Structs this port never reads
-(encryption, logical types other than STRING, size statistics) are left
-out: the compact reader skips their fields by wire type.
+(encryption, logical types other than STRING, MAP and LIST, size
+statistics) are left out: the compact reader skips their fields by wire type.
 """
 
 from __future__ import annotations
@@ -44,11 +44,14 @@ class Statistics:
 # Schema
 # ---------------------------------------------------------------------------
 StringType = _empty("StringType")
+MapType = _empty("MapType")
+ListType = _empty("ListType")
 
 
 @thrift_struct
-class LogicalType:  # union; the port writes and reads STRING only
-    _FIELDS = [(1, "STRING", _S(StringType))]
+class LogicalType:  # union; the port writes and reads STRING, MAP, LIST
+    _FIELDS = [(1, "STRING", _S(StringType)), (2, "MAP", _S(MapType)),
+               (3, "LIST", _S(ListType))]
 
 
 @thrift_struct

@@ -1,11 +1,16 @@
 """Decoded column: tensors on one device.
 
-The port of ``parquet_tpu/io/column.py::Column`` for flat columns.
+The port of ``parquet_tpu/io/column.py::Column``.
 ``values`` holds the dense present values (nulls are not stored), in the
 form ``schema/types.py`` gives each physical type; a byte-array column adds
 its ``offsets`` (int64, ``[n + 1]``).  ``validity`` holds one bool per slot
-(None when no slot is null), ``num_slots`` the slot count (the row count of
-a flat column).  A dictionary chunk keeps its decoded ``dictionary`` and,
+of a flat column, or per innermost element of a repeated one (None when no
+value is null); ``num_slots`` is the level-stream length (the row count of
+a flat column).  A column under repeated nodes adds, per repeated level
+and outermost first, its ``list_offsets`` (int64 ``[lists + 1]``) and
+``list_validity`` (bool ``[lists]``).  ``def_levels`` and ``rep_levels``
+keep host level streams where the decode expanded them on the host (a
+struct chain keeps its def levels for the nullness of each struct).  A dictionary chunk keeps its decoded ``dictionary`` and,
 where the decode produced them, its int32 ``dict_indices``; the fused
 dictionary kernel never materializes indexes, so they may be None.  A
 byte-array dictionary chunk stays encoded: ``values`` is None,
@@ -16,8 +21,10 @@ which entry each value is (the Arrow DictionaryArray form);
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
+
+import numpy as np
 
 import torch
 
@@ -34,6 +41,10 @@ class Column:
     dictionary: object = None  # tensor, or (values, offsets) tensors
     dict_indices: Optional[torch.Tensor] = None
     offsets: Optional[torch.Tensor] = None  # byte arrays: int64[n + 1]
+    list_offsets: List[torch.Tensor] = field(default_factory=list)
+    list_validity: List[torch.Tensor] = field(default_factory=list)
+    def_levels: Optional[np.ndarray] = None  # host int32, where expanded
+    rep_levels: Optional[np.ndarray] = None
 
     @property
     def num_values(self) -> int:
@@ -55,18 +66,41 @@ class Column:
                 dv, do, self.dict_indices)
         return self
 
+    @property
+    def num_elements(self) -> int:
+        """Entries ``validity`` covers: the innermost elements of a
+        repeated column, the slots of a flat one."""
+        if self.list_offsets:
+            return int(self.list_offsets[-1][-1])
+        return self.num_slots
+
     def materialize_host(self):
-        """The dense present values as host numpy: an array, or for byte
-        arrays a ``(values, offsets)`` pair.  The column is left as it
-        is."""
+        """The column on the host, as numpy; the column is left as it is.
+        A flat column gives its dense present values: an array, or for byte
+        arrays a ``(values, offsets)`` pair.  A column with list levels or
+        host def levels gives a dict: ``values`` (as a flat column's),
+        ``validity``, ``list_offsets`` and ``list_validity`` (one array a
+        repeated level, outermost first), ``def_levels`` and
+        ``rep_levels``."""
         if self.is_dictionary_encoded():
             dv, do = self.dictionary
             values, offsets = dev.gather_byte_arrays(dv, do,
                                                      self.dict_indices)
-            return values.cpu().numpy(), offsets.cpu().numpy()
-        if self.offsets is not None:
-            return self.values.cpu().numpy(), self.offsets.cpu().numpy()
-        return self.values.cpu().numpy()
+            values = values.cpu().numpy(), offsets.cpu().numpy()
+        elif self.offsets is not None:
+            values = self.values.cpu().numpy(), self.offsets.cpu().numpy()
+        else:
+            values = self.values.cpu().numpy()
+        if not self.list_offsets and self.def_levels is None:
+            return values
+        return {"values": values,
+                "validity": None if self.validity is None
+                else self.validity.cpu().numpy(),
+                "list_offsets": [o.cpu().numpy() for o in self.list_offsets],
+                "list_validity": [v.cpu().numpy()
+                                  for v in self.list_validity],
+                "def_levels": self.def_levels,
+                "rep_levels": self.rep_levels}
 
 
 def _concat_byte_arrays(values_parts, offsets_parts) -> tuple:
@@ -91,9 +125,8 @@ def _concat_dict_parts(parts: List[Column]) -> Column:
     dictionary = _concat_byte_arrays([p.dictionary[0] for p in parts],
                                      [p.dictionary[1] for p in parts])
     return Column(leaf=parts[0].leaf, values=None,
-                  validity=_concat_validity(parts),
-                  num_slots=sum(p.num_slots for p in parts),
-                  dictionary=dictionary, dict_indices=torch.cat(idx_parts))
+                  dictionary=dictionary, dict_indices=torch.cat(idx_parts),
+                  **_concat_structure(parts))
 
 
 def _concat_validity(parts: List[Column]) -> Optional[torch.Tensor]:
@@ -103,8 +136,38 @@ def _concat_validity(parts: List[Column]) -> Optional[torch.Tensor]:
                   if p.validity is not None)
     return torch.cat([
         p.validity if p.validity is not None
-        else torch.ones(p.num_slots, dtype=torch.bool, device=device)
+        else torch.ones(p.num_elements, dtype=torch.bool, device=device)
         for p in parts])
+
+
+def _concat_offsets(parts: List[torch.Tensor]) -> torch.Tensor:
+    """List offsets of consecutive parts (each from 0) as one: each part
+    rebased by the lengths before it, on the device (no read-back)."""
+    lasts = torch.stack([o[-1] for o in parts])
+    bases = torch.cumsum(lasts, 0) - lasts
+    return torch.cat([parts[0][:1]] + [o[1:] + bases[i]
+                                       for i, o in enumerate(parts)])
+
+
+def _concat_host(arrays) -> Optional[np.ndarray]:
+    return (None if any(a is None for a in arrays)
+            else np.concatenate(arrays))
+
+
+def _concat_structure(parts: List[Column]) -> dict:
+    """The validity, list levels, level streams and slot count of
+    consecutive parts (row groups) as one column's, as the JAX package's
+    ``_concat_structure``."""
+    nlev = len(parts[0].list_offsets)
+    return {
+        "validity": _concat_validity(parts),
+        "list_offsets": [_concat_offsets([p.list_offsets[k] for p in parts])
+                         for k in range(nlev)],
+        "list_validity": [torch.cat([p.list_validity[k] for p in parts])
+                          for k in range(nlev)],
+        "def_levels": _concat_host([p.def_levels for p in parts]),
+        "rep_levels": _concat_host([p.rep_levels for p in parts]),
+        "num_slots": sum(p.num_slots for p in parts)}
 
 
 def concat_columns(parts: List[Column]) -> Column:
@@ -125,6 +188,5 @@ def concat_columns(parts: List[Column]) -> Column:
     else:
         values = torch.cat([p.values for p in parts])
     return Column(leaf=parts[0].leaf, values=values, offsets=offsets,
-                  validity=_concat_validity(parts),
-                  num_slots=sum(p.num_slots for p in parts))
+                  **_concat_structure(parts))
 

@@ -210,18 +210,30 @@ def decode_aligned(chunk, device, pages=None, dictionary=None
     on ``device`` and return it row-aligned as host numpy ``(values,
     validity)``.  Validity is None where no page's levels needed expanding,
     as the reference's host decode has it."""
-    from ..parallel.device_reader import build_plan, decode_staged, stage_plan
+    from ..errors import _Unsupported
+    from ..parallel.device_reader import (HOST_ROUTE, build_plan,
+                                          decode_staged, stage_plan)
+    from .reader import decode_chunk_host
     from .search import _trim_flat_aligned
 
-    plan = build_plan(chunk, pages=pages, dictionary=dictionary)
-    col = decode_staged(plan, stage_plan(plan, device), device)
+    if pages is not None:
+        pages = list(pages)  # the host route may read them again
+    expanded = False
+    try:
+        plan = build_plan(chunk, pages=pages, dictionary=dictionary)
+        col = decode_staged(plan, stage_plan(plan, device), device)
+        expanded = plan.defs_expanded
+    except _Unsupported as e:  # the read's host route, for this span
+        HOST_ROUTE[e.reason] += 1
+        col = decode_chunk_host(chunk, device, pages=pages,
+                                dictionary=dictionary)
     values = col.values.cpu().numpy()
     validity = None
     if col.validity is not None:
         validity = col.validity.cpu().numpy()
-    elif plan.defs_expanded:
-        validity = np.ones(plan.total_slots, bool)
-    return _trim_flat_aligned(values, validity, 0, plan.total_slots)
+    elif expanded:
+        validity = np.ones(col.num_slots, bool)
+    return _trim_flat_aligned(values, validity, 0, col.num_slots)
 
 
 class _PageFetcher:
@@ -654,6 +666,10 @@ def find_rows(pf, path: str, keys, columns: Optional[Sequence[str]] = None,
     leaf = pf.schema.leaf(path)  # KeyError on an unknown column
     out_leaves = [pf.schema.leaf(c) for c in (columns or [])]
     for lf in [leaf] + out_leaves:
+        if lf.max_repetition_level or lf.max_definition_level > 1:
+            raise unsupported(
+                f"a point lookup over the nested column {lf.name!r}",
+                "the lookup leftovers (nested key and value columns)")
         if lf.physical_type not in NUMERIC:
             raise unsupported(
                 f"a point lookup over the {lf.physical_type.name} column "

@@ -1,14 +1,16 @@
 """Parquet file reader: footer, row groups, column-chunk pages, indexes
-and bloom filters, the device read of whole files and batched point
-lookups.
+and bloom filters, the device read of whole files, the host decode of a
+chunk, and batched point lookups.
 
 The port's cut of ``parquet_tpu/io/reader.py`` (``ParquetFile``,
-``RowGroupReader``, ``ColumnChunkReader``).  :meth:`ParquetFile.read` sends
-every selected (column, row group) chunk through
-``parallel/device_reader.py::decode_chunks_pipelined`` and concatenates
-each column's row-group parts.  The result is a dict of
-:class:`~parquet_tpu_torch.io.column.Column` whose tensors lie on the
-requested device: CUDA by default, the CPU only when the caller asks.
+``RowGroupReader``, ``ColumnChunkReader``, ``decode_chunk_host``).
+:meth:`ParquetFile.read` sends every selected (leaf, row group) chunk
+through ``parallel/device_reader.py::decode_chunks_pipelined`` and
+concatenates each leaf's row-group parts.  The result is a dict of
+:class:`~parquet_tpu_torch.io.column.Column` by dotted path, whose tensors
+lie on the requested device: CUDA by default, the CPU only when the caller
+asks.  :func:`decode_chunk_host` decodes the chunks the device route
+refuses, on the host, and moves the finished column to the device.
 :meth:`ParquetFile.find_rows` is the batched point lookup of
 :mod:`~parquet_tpu_torch.io.lookup`.
 
@@ -24,13 +26,14 @@ import struct
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import codecs
-from ..errors import MAX_PAGE_SIZE, CorruptedError
+from ..errors import MAX_PAGE_SIZE, CorruptedError, unsupported
 from ..format import metadata as md
 from ..format import thrift
-from ..format.enums import PageType, Type
+from ..format.enums import Encoding, PageType, Type
 from ..schema.schema import Leaf, Schema
 from .column import Column, concat_columns
 from .source import Source, as_source
@@ -298,14 +301,13 @@ class ParquetFile:
     def read(self, columns: Optional[Sequence[str]] = None,
              device="cuda") -> Dict[str, Column]:
         """Decode the selected columns (all by default) of every row group
-        on ``device``; returns ``{name: Column}`` in schema order."""
+        on ``device``; returns ``{dotted path: Column}`` in schema order.
+        A name in ``columns`` selects the leaf at that dotted path, or every
+        leaf under that top-level column."""
         from ..parallel.device_reader import decode_chunks_pipelined
 
         dev = resolve_device(device)
-        if columns is None:
-            leaves = list(self.schema.leaves)
-        else:
-            leaves = [self.schema.leaf(c) for c in columns]
+        leaves = _select_leaves(self.schema, columns)
         rgs = self.row_groups
         chunks = [rg.column(leaf.column_index)
                   for leaf in leaves for rg in rgs]
@@ -339,6 +341,21 @@ class ParquetFile:
         self.close()
 
 
+def _select_leaves(schema: Schema, columns) -> List[Leaf]:
+    """The leaves a read selects: all, or for each name the leaf at that
+    dotted path, else every leaf under that top-level column."""
+    if columns is None:
+        return list(schema.leaves)
+    out = []
+    for c in columns:
+        hits = [leaf for leaf in schema.leaves
+                if leaf.name == c or leaf.path[0] == c]
+        if not hits:
+            raise KeyError(f"no column {c!r} in the schema")
+        out.extend(hits)
+    return out
+
+
 def _empty_column(leaf: Leaf, device: torch.device) -> Column:
     """The zero-row column of a file without row groups."""
     from ..schema.types import empty_values
@@ -346,5 +363,203 @@ def _empty_column(leaf: Leaf, device: torch.device) -> Column:
     offsets = None
     if leaf.physical_type == Type.BYTE_ARRAY:
         offsets = torch.zeros(1, dtype=torch.int64, device=device)
+    nlev = leaf.max_repetition_level
     return Column(leaf=leaf, values=empty_values(
-        leaf.physical_type, leaf.type_length, device), offsets=offsets)
+        leaf.physical_type, leaf.type_length, device), offsets=offsets,
+        validity=torch.zeros(0, dtype=torch.bool, device=device)
+        if nlev else None,
+        list_offsets=[torch.zeros(1, dtype=torch.int64, device=device)
+                      for _ in range(nlev)],
+        list_validity=[torch.zeros(0, dtype=torch.bool, device=device)
+                       for _ in range(nlev)])
+
+
+# ---------------------------------------------------------------------------
+# The host decode
+# ---------------------------------------------------------------------------
+
+def _decode_values(raw: np.ndarray, pos: int, nvals: int,
+                   encoding: Encoding, leaf: Leaf, physical: Type,
+                   dictionary):
+    """One page's values on the host, with the port's ``ops/ref.py``
+    decoders: ``("idx", int32 indexes)`` for a dictionary page, else
+    ``("val", values)`` in the column's form (byte arrays: ``(values,
+    offsets)``)."""
+    from ..ops import ref
+    from ..schema.types import PHYSICAL_NP_DTYPE, value_width
+
+    body = raw[pos:]
+    if encoding in (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY):
+        if dictionary is None:
+            raise CorruptedError("dictionary-encoded page without a "
+                                 "dictionary page")
+        width = int(body[0]) if len(body) else 0
+        return "idx", ref.decode_rle(body[1:], nvals, width)
+    if encoding == Encoding.PLAIN:
+        return "val", ref.decode_plain(body, nvals, physical,
+                                       leaf.type_length)
+    if encoding == Encoding.RLE and physical == Type.BOOLEAN:
+        return "val", ref.decode_rle_len_prefixed(body, nvals, 1)[0] != 0
+    if encoding == Encoding.DELTA_BINARY_PACKED and physical in (
+            Type.INT32, Type.INT64):
+        v = ref.decode_delta_binary_packed(body)[0][:nvals]
+        return "val", v.astype(PHYSICAL_NP_DTYPE[physical])
+    if encoding == Encoding.DELTA_LENGTH_BYTE_ARRAY and \
+            physical == Type.BYTE_ARRAY:
+        v, o, _ = ref.decode_delta_length_byte_array(body)
+        return "val", (v, o)
+    if encoding == Encoding.DELTA_BYTE_ARRAY and physical in (
+            Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
+        v, o, _ = ref.decode_delta_byte_array(body)
+        if physical == Type.FIXED_LEN_BYTE_ARRAY:
+            return "val", v.reshape(-1, leaf.type_length)
+        return "val", (v, o)
+    if encoding == Encoding.BYTE_STREAM_SPLIT:
+        w = value_width(physical, leaf.type_length)
+        if not w:
+            raise CorruptedError(f"BYTE_STREAM_SPLIT page in a "
+                                 f"{physical.name} column")
+        rows = ref.decode_byte_stream_split(body, nvals, w)
+        if physical == Type.FIXED_LEN_BYTE_ARRAY:
+            return "val", rows
+        if physical == Type.INT96:
+            return "val", rows.view(np.int32).reshape(nvals, 3)
+        return "val", rows.view(PHYSICAL_NP_DTYPE[physical]).reshape(-1)
+    raise unsupported(f"{encoding.name} pages of a {physical.name} column",
+                      "more encodings")
+
+
+def _page_levels(raw: np.ndarray, pos: int, n: int, encoding: Encoding,
+                 max_level: int) -> Tuple[np.ndarray, int]:
+    """One v1 page's level stream (RLE behind its length, or legacy
+    BIT_PACKED) and the position after it."""
+    from ..ops import ref
+
+    w = int(max_level).bit_length()
+    if encoding == Encoding.RLE:
+        return ref.decode_rle_len_prefixed(raw, n, w, pos)
+    lv = ref.decode_bit_packed_levels(raw[pos:], n, w).astype(np.int32)
+    return lv, pos + (n * w + 7) // 8
+
+
+def _combine(parts: List[tuple], dictionary, physical: Type):
+    """The chunk's pages as one: ``(values, offsets, dict_indices)`` where
+    a BYTE_ARRAY chunk whose pages are all dictionary-encoded stays encoded
+    (values None), as the device route keeps it."""
+    from ..ops import host, ref
+
+    if parts and all(k == "idx" for k, _ in parts) and \
+            physical == Type.BYTE_ARRAY:
+        return None, None, np.concatenate([p for _, p in parts])
+    decoded = [ref.gather_dictionary(dictionary, p) if k == "idx" else p
+               for k, p in parts]
+    if physical == Type.BYTE_ARRAY:
+        if not decoded:
+            return np.zeros(0, np.uint8), np.zeros(1, np.int64), None
+        offs, base = [np.zeros(1, np.int64)], 0
+        for v, o in decoded:
+            o = np.asarray(o, np.int64)
+            offs.append(o[1:] - o[0] + base)
+            base += int(o[-1] - o[0])
+        values = np.concatenate([host.as_u8(v)[o[0]:o[-1]]
+                                 for v, o in decoded])
+        return values, np.concatenate(offs), None
+    if not decoded:
+        return None, None, None
+    return np.concatenate(decoded), None, None
+
+
+def decode_chunk_host(reader: ColumnChunkReader, device,
+                      pages=None, dictionary=None) -> Column:
+    """Decode a chunk (or, with ``pages``, a span of its pages with the
+    chunk's decoded ``dictionary``) on the host, with the port's own
+    ``ops/ref.py`` decoders: every page's levels and values, the levels
+    assembled by ``ops/levels.assemble``, and the finished column moved to
+    ``device`` in one copy per tensor.  The device route sends here the
+    chunks it cannot decode (``device_reader.HOST_ROUTE``); the column has
+    the device route's form."""
+    from ..ops import levels
+    from ..schema.types import empty_values
+
+    device = torch.device(device)
+    leaf = reader.leaf
+    codec = reader.codec
+    physical = Type(reader.meta.type)
+    max_def = leaf.max_definition_level
+    max_rep = leaf.max_repetition_level
+    defs, reps, parts = [], [], []
+    slots = 0
+    for page in (reader.pages() if pages is None else pages):
+        h = page.header
+        pt = page.page_type
+        if pt == PageType.DICTIONARY_PAGE:
+            dictionary = decode_dictionary_page(reader, page)
+            continue
+        if pt == PageType.DATA_PAGE:
+            dph = h.data_page_header
+            n = dph.num_values
+            raw = np.frombuffer(codec.decode(page.payload,
+                                             h.uncompressed_page_size),
+                                np.uint8)
+            pos = 0
+            if max_rep:
+                rep, pos = _page_levels(raw, pos, n, Encoding(
+                    dph.repetition_level_encoding), max_rep)
+                reps.append(rep)
+            if max_def:
+                d, pos = _page_levels(raw, pos, n, Encoding(
+                    dph.definition_level_encoding), max_def)
+                defs.append(d)
+            encoding = Encoding(dph.encoding)
+        elif pt == PageType.DATA_PAGE_V2:
+            from ..ops import ref
+
+            dph2 = h.data_page_header_v2
+            n = dph2.num_values
+            rl = dph2.repetition_levels_byte_length or 0
+            dl = dph2.definition_levels_byte_length or 0
+            payload = np.frombuffer(page.payload, np.uint8)
+            if max_rep:
+                reps.append(ref.decode_rle(payload[:rl], n,
+                                           int(max_rep).bit_length()))
+            if max_def:
+                defs.append(ref.decode_rle(payload[rl:rl + dl], n,
+                                           int(max_def).bit_length()))
+            body = payload[rl + dl:]
+            if dph2.is_compressed is not False:
+                body = codec.decode(body, h.uncompressed_page_size - rl - dl)
+            raw, pos = np.frombuffer(body, np.uint8), 0
+            encoding = Encoding(dph2.encoding)
+        else:
+            continue
+        nvals = (int(np.count_nonzero(defs[-1] == max_def)) if max_def
+                 else n)
+        parts.append(_decode_values(raw, pos, nvals, encoding, leaf,
+                                    physical, dictionary))
+        slots += n
+    values, offsets, indices = _combine(parts, dictionary, physical)
+    def_levels = np.concatenate(defs) if defs else None
+    rep_levels = np.concatenate(reps) if reps else None
+    asm = levels.assemble(def_levels, rep_levels, leaf)
+    validity = asm.validity
+    if max_rep == 0 and validity is not None and validity.all():
+        validity = def_levels = None  # no nulls: the device route's form
+
+    def put(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a)).to(device)
+
+    col = Column(
+        leaf=leaf, values=put(values) if values is not None or indices
+        is not None else empty_values(physical, leaf.type_length, device),
+        offsets=put(offsets),
+        validity=put(validity), num_slots=slots,
+        list_offsets=[put(o) for o in asm.list_offsets],
+        list_validity=[put(v) for v in asm.list_validity],
+        def_levels=def_levels if max_def > 1 else None,
+        rep_levels=rep_levels)
+    if indices is not None:
+        dv, do = dictionary
+        col.dictionary = (put(dv), put(np.asarray(do, np.int64)))
+        col.dict_indices = put(indices.astype(np.int32))
+    return col

@@ -1,8 +1,10 @@
-"""Parquet writer for flat columns of every physical type.
+"""Parquet writer for columns of every physical type, flat or nested.
 
 The port's cut of ``parquet_tpu/io/writer.py`` (``ParquetWriter``,
-``write_table``, ``WriterOptions`` with the same size defaults).  Columns
-are required or optional, of BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE,
+``write_table``, ``WriterOptions`` with the same size defaults).  Leaves
+are required, optional or under repeated groups (lists, maps, structs at
+any depth, through a ``schema`` built with ``schema/schema.py``'s
+builders), of BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE,
 BYTE_ARRAY (optionally annotated as UTF-8 strings) or FIXED_LEN_BYTE_ARRAY;
 each chunk is PLAIN, RLE_DICTIONARY (with its dictionary page),
 DELTA_BINARY_PACKED, BYTE_STREAM_SPLIT, RLE (booleans),
@@ -22,8 +24,13 @@ column, a ``numpy.ma.MaskedArray`` an optional one whose masked slots are
 null.  bool arrays are BOOLEAN, 1-D object arrays of ``bytes`` (or
 ``str``, written as UTF-8 strings) BYTE_ARRAY, ``(n, 3)`` int32 arrays
 INT96 and ``(n, w)`` uint8 arrays FIXED_LEN_BYTE_ARRAY(w).  A
-:class:`ColumnData` (values, offsets for byte arrays, validity) is taken
-as it is, with the ``schema`` passed beside the table.
+:class:`ColumnData` (values, offsets for byte arrays, validity, and for a
+nested leaf its list offsets and validity per repeated level, or its raw
+levels) is taken as it is, keyed by the leaf's dotted path, with the
+``schema`` passed beside the table.  Levels come from ``ops/levels.py``
+(``levels_for_flat``, ``levels_for_list``, ``levels_for_nested``); a data
+page holds whole rows, its ``num_values`` counts level slots, and the
+offset index's ``first_row_index`` counts rows.
 """
 
 from __future__ import annotations
@@ -42,8 +49,7 @@ from ..format import thrift
 from ..format.enums import (BoundaryOrder, CompressionCodec, Encoding,
                             PageType, Type)
 from ..format.enums import FieldRepetitionType as Rep
-from ..ops import ref
-from ..ops import host
+from ..ops import host, levels, ref
 from ..schema.schema import Leaf, Schema
 from ..schema.types import (NUMERIC, PHYSICAL_NP_DTYPE, physical_of_dtype,
                             value_width)
@@ -121,11 +127,21 @@ class WriterOptions:
 @dataclass
 class ColumnData:
     """One leaf's input: dense present values (byte arrays: their bytes and
-    ``offsets[n + 1]``) + per-slot validity."""
+    ``offsets[n + 1]``) and their structure.  ``validity`` is one bool per
+    slot of a flat leaf, or per innermost element of a repeated one.  A
+    leaf under repeated groups gives ``list_offsets``, one array a
+    repeated level, outermost first, and ``list_validity`` (the same, or
+    None; a None entry for a level with no null list); a leaf may instead
+    give its raw ``def_levels`` and ``rep_levels`` (a struct chain with
+    null structs gives its def levels)."""
 
     values: np.ndarray
-    validity: Optional[np.ndarray] = None  # bool per slot; None = required
+    validity: Optional[np.ndarray] = None  # None: no null value
     offsets: Optional[np.ndarray] = None  # BYTE_ARRAY only
+    list_offsets: Optional[List[np.ndarray]] = None
+    list_validity: Optional[List[Optional[np.ndarray]]] = None
+    def_levels: Optional[np.ndarray] = None
+    rep_levels: Optional[np.ndarray] = None
 
 
 class ParquetWriter:
@@ -155,9 +171,6 @@ class ParquetWriter:
         rg_start = self._pos
         for leaf in self.schema.leaves:
             data = columns[leaf.name]
-            if data.validity is not None and len(data.validity) != num_rows:
-                raise ValueError(f"column {leaf.name!r}: {len(data.validity)}"
-                                 f" slots for {num_rows} rows")
             chunk, extra = self._write_chunk(leaf, data, num_rows)
             chunks.append(chunk)
             extras.append(extra)
@@ -181,9 +194,18 @@ class ParquetWriter:
         opts = self.options
         physical = leaf.physical_type
         values, offsets = _normalized(leaf, data)
-        validity = (None if data.validity is None
-                    else np.asarray(data.validity, bool))
-        nvalues = num_rows if validity is None else int(validity.sum())
+        def_levels, rep_levels = _levels(leaf, data, num_rows)
+        row_starts = (None if rep_levels is None
+                      else levels.row_slot_starts(rep_levels))
+        n_slots = num_rows if def_levels is None else len(def_levels)
+        rows = n_slots if row_starts is None else len(row_starts)
+        if rows != num_rows or (row_starts is not None and n_slots
+                                and row_starts[0] != 0):
+            raise ValueError(f"column {leaf.name!r}: {rows} rows in a row "
+                             f"group of {num_rows}")
+        present = (None if def_levels is None
+                   else def_levels == leaf.max_definition_level)
+        nvalues = n_slots if present is None else int(present.sum())
         have = len(offsets) - 1 if offsets is not None else len(values)
         if have != nvalues:
             raise ValueError(f"column {leaf.name!r}: {have} values "
@@ -204,9 +226,9 @@ class ParquetWriter:
         if opts.write_statistics:
             # a dictionary holds exactly the chunk's distinct values
             stats = (_statistics(leaf, dict_values, dict_offsets,
-                                 num_rows - nvalues)
+                                 n_slots - nvalues)
                      if indices is not None else
-                     _statistics(leaf, values, offsets, num_rows - nvalues))
+                     _statistics(leaf, values, offsets, n_slots - nvalues))
         bloom_blob = None
         if leaf.name in opts.bloom_filters:
             from .bloom import build_split_block_filter
@@ -252,30 +274,40 @@ class ParquetWriter:
         locations: List[md.PageLocation] = []
         page_stats: List[Tuple[md.Statistics, int]] = []  # (stats, values)
 
-        rows_per_page = _rows_per_page(leaf, values, offsets,
-                                       opts.data_page_size)
-        present = (None if validity is None
-                   else np.concatenate([[0], np.cumsum(validity)]))
+        # pages hold whole rows: a page's row count comes from its slots'
+        rows_per_page = max(_rows_per_page(leaf, values, offsets,
+                                           opts.data_page_size)
+                            * num_rows // max(n_slots, 1), 1)
+        pcum = (None if present is None
+                else np.concatenate([[0], np.cumsum(present)]))
+
+        def slot(r: int) -> int:
+            if row_starts is None:
+                return r
+            return int(row_starts[r]) if r < num_rows else n_slots
+
         for r0 in range(0, max(num_rows, 1), rows_per_page):
             r1 = min(r0 + rows_per_page, num_rows)
-            v0, v1 = ((r0, r1) if present is None
-                      else (int(present[r0]), int(present[r1])))
+            s0, s1 = slot(r0), slot(r1)
+            v0, v1 = ((s0, s1) if pcum is None
+                      else (int(pcum[s0]), int(pcum[s1])))
             sub, sub_offs = _value_span(values, offsets, v0, v1)
             if indices is not None:
                 body = ref.encode_rle_dict_indices(indices[v0:v1], width)
             else:
                 body = _encode_values(leaf, sub, sub_offs, encoding)
-            levels = b""
-            if validity is not None:
-                levels = ref.encode_rle(validity[r0:r1].astype(np.int64), 1)
+            lv = [None if a is None else ref.encode_rle(
+                a[s0:s1].astype(np.int64), int(m).bit_length())
+                for a, m in ((rep_levels, leaf.max_repetition_level),
+                             (def_levels, leaf.max_definition_level))]
             pstat = None
             if opts.write_statistics:
                 pstat = _statistics(leaf, sub, sub_offs,
-                                    (r1 - r0) - (v1 - v0))
+                                    (s1 - s0) - (v1 - v0))
                 page_stats.append((pstat, v1 - v0))
             page_start = pos
-            emit(*self._data_page(levels, validity is not None, body,
-                                  r1 - r0, v1 - v0, encoding, pstat))
+            emit(*self._data_page(*lv, body, s1 - s0, v1 - v0, r1 - r0,
+                                  encoding, pstat))
             locations.append(md.PageLocation(
                 offset=page_start, compressed_page_size=pos - page_start,
                 first_row_index=r0))
@@ -285,9 +317,9 @@ class ParquetWriter:
         meta = md.ColumnMetaData(
             type=int(physical),
             encodings=sorted(int(e) for e in encodings),
-            path_in_schema=[leaf.name],
+            path_in_schema=list(leaf.path),
             codec=int(opts.codec_id()),
-            num_values=num_rows,
+            num_values=n_slots,
             total_uncompressed_size=uncompressed,
             total_compressed_size=self._pos - chunk_start,
             data_page_offset=data_page_offset,
@@ -301,11 +333,15 @@ class ParquetWriter:
         return (md.ColumnChunk(file_offset=chunk_start, meta_data=meta),
                 (column_index, offset_index, bloom_blob))
 
-    def _data_page(self, levels: bytes, has_levels: bool, values: bytes,
-                   n_slots: int, n_vals: int, encoding: Encoding,
-                   stats: Optional[md.Statistics]):
+    def _data_page(self, rep: Optional[bytes], defs: Optional[bytes],
+                   values: bytes, n_slots: int, n_vals: int, n_rows: int,
+                   encoding: Encoding, stats: Optional[md.Statistics]):
+        """One data page: ``rep`` and ``defs`` are the hybrid level streams
+        (None where the leaf has no such levels)."""
         if self.options.data_page_version == 2:
             # levels sit uncompressed in front of the compressed values
+            rep, defs = rep or b"", defs or b""
+            levels = rep + defs
             comp = self._codec.encode(values)
             return md.PageHeader(
                 type=int(PageType.DATA_PAGE_V2),
@@ -313,12 +349,12 @@ class ParquetWriter:
                 compressed_page_size=len(levels) + len(comp),
                 data_page_header_v2=md.DataPageHeaderV2(
                     num_values=n_slots, num_nulls=n_slots - n_vals,
-                    num_rows=n_slots, encoding=int(encoding),
-                    definition_levels_byte_length=len(levels),
-                    repetition_levels_byte_length=0,
+                    num_rows=n_rows, encoding=int(encoding),
+                    definition_levels_byte_length=len(defs),
+                    repetition_levels_byte_length=len(rep),
                     is_compressed=True, statistics=stats)), levels + comp
-        if has_levels:
-            levels = struct.pack("<I", len(levels)) + levels
+        levels = b"".join(struct.pack("<I", len(x)) + x
+                          for x in (rep, defs) if x is not None)
         raw = levels + values
         comp = self._codec.encode(raw)
         return md.PageHeader(
@@ -598,9 +634,51 @@ def schema_of(table: Dict[str, np.ndarray]) -> Schema:
     return Schema([_leaf_of(name, arr) for name, arr in table.items()])
 
 
+def _levels(leaf: Leaf, data: ColumnData, num_rows: Optional[int]):
+    """``(def_levels, rep_levels)`` of a leaf's input, each None where the
+    leaf has no such levels: the raw levels where given, else from its
+    validity (a flat leaf) or its list offsets and validity."""
+    max_def = leaf.max_definition_level
+    max_rep = leaf.max_repetition_level
+    if data.def_levels is not None or data.rep_levels is not None:
+        d = (None if data.def_levels is None
+             else np.asarray(data.def_levels, np.int32))
+        r = (None if data.rep_levels is None
+             else np.asarray(data.rep_levels, np.int32))
+        if (d is None) != (max_def == 0) or (r is None) != (max_rep == 0):
+            raise ValueError(f"column {leaf.name!r}: levels given do not "
+                             "match the schema")
+        return d, r
+    if max_rep == 0:
+        if num_rows is None:
+            num_rows = _flat_rows(data)
+        return levels.levels_for_flat(data.validity, num_rows, max_def), \
+            None
+    offs = data.list_offsets
+    if offs is None:
+        raise ValueError(f"column {leaf.name!r}: a repeated leaf needs "
+                         "list_offsets")
+    valid = data.list_validity or [None] * len(offs)
+    if len(offs) == 1:
+        return levels.levels_for_list(offs[0], valid[0], data.validity,
+                                      leaf)
+    return levels.levels_for_nested(offs, valid, data.validity, leaf)
+
+
+def _flat_rows(data: ColumnData) -> int:
+    if data.validity is not None:
+        return len(data.validity)
+    if data.offsets is not None:
+        return len(data.offsets) - 1
+    return len(data.values)
+
+
 def _slice_rows(leaf: Leaf, data: ColumnData, r0: int,
                 r1: int) -> ColumnData:
-    """Rows [r0, r1) of a column's input (byte-array offsets rebased)."""
+    """Rows [r0, r1) of a column's input (byte-array offsets rebased); a
+    leaf in level form slices its levels at row starts."""
+    if data.def_levels is not None or data.rep_levels is not None:
+        return _slice_level_rows(leaf, data, r0, r1)
     v0, v1 = r0, r1
     validity = None
     if data.validity is not None:
@@ -617,6 +695,32 @@ def _slice_rows(leaf: Leaf, data: ColumnData, r0: int,
                       validity=validity)
 
 
+def _slice_level_rows(leaf: Leaf, data: ColumnData, r0: int,
+                      r1: int) -> ColumnData:
+    d, r = data.def_levels, data.rep_levels
+    n_slots = len(d if d is not None else r)
+    s0, s1 = r0, r1
+    if r is not None:
+        starts = levels.row_slot_starts(r)
+        s0 = int(starts[r0]) if r0 < len(starts) else n_slots
+        s1 = int(starts[r1]) if r1 < len(starts) else n_slots
+    v0, v1 = s0, s1
+    if d is not None:
+        present = d == leaf.max_definition_level
+        v0 = int(np.count_nonzero(present[:s0]))
+        v1 = v0 + int(np.count_nonzero(present[s0:s1]))
+    values, offsets = np.asarray(data.values), None
+    if leaf.physical_type == Type.BYTE_ARRAY:
+        offsets = np.asarray(data.offsets, np.int64)[v0:v1 + 1]
+        values = values[offsets[0]:offsets[-1]]
+        offsets = offsets - offsets[0]
+    else:
+        values = values[v0:v1]
+    return ColumnData(values=values, offsets=offsets,
+                      def_levels=None if d is None else d[s0:s1],
+                      rep_levels=None if r is None else r[s0:s1])
+
+
 def write_table(table: Dict[str, object], sink,
                 options: Optional[WriterOptions] = None,
                 schema: Optional[Schema] = None) -> None:
@@ -630,9 +734,17 @@ def write_table(table: Dict[str, object], sink,
     lengths = set()
     for leaf in schema.leaves:
         cd = columns[leaf.name]
-        lengths.add(len(cd.validity) if cd.validity is not None else (
-            len(cd.offsets) - 1 if cd.offsets is not None else len(
-                cd.values)))
+        if leaf.max_repetition_level or leaf.max_definition_level > 1 or \
+                cd.def_levels is not None:
+            # nested leaves go in level form, so row groups cut at rows
+            d, r = _levels(leaf, cd, None)
+            cd = columns[leaf.name] = ColumnData(
+                values=cd.values, offsets=cd.offsets, def_levels=d,
+                rep_levels=r)
+            lengths.add(len(d) if r is None
+                        else int(np.count_nonzero(r == 0)))
+            continue
+        lengths.add(_flat_rows(cd))
     if len(lengths) > 1:
         raise ValueError(f"columns differ in length: {sorted(lengths)}")
     n = lengths.pop() if lengths else 0

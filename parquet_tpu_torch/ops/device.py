@@ -305,3 +305,88 @@ def scatter_valid(values: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
     slot_of_value = torch.cumsum(validity.to(torch.int64), 0) - 1
     gathered = values[slot_of_value.clamp(0, values.shape[0] - 1)]
     return torch.where(validity, gathered, torch.zeros_like(gathered))
+
+
+# ---------------------------------------------------------------------------
+# Level assembly: def/rep levels -> list offsets and validity
+# ---------------------------------------------------------------------------
+
+
+def _compact(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """The int64 positions of ``mask``'s True entries, for a ``count`` the
+    caller read back already: a prefix-sum scatter, so no call here waits
+    on the device (``torch.nonzero`` reads its size back itself)."""
+    n = mask.shape[0]
+    slot = torch.cumsum(mask, 0) - 1
+    slot = torch.where(mask, slot, count)  # False entries land past the end
+    out = torch.empty(count + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, slot, torch.arange(n, dtype=torch.int64,
+                                       device=mask.device))
+    return out[:count]
+
+
+def assemble_single_list(def_levels: torch.Tensor, rep_levels: torch.Tensor,
+                         dk: int, max_def: int) -> tuple:
+    """``ops/levels.assemble`` for ONE repeated level, whose def level is
+    ``dk``: ``(list_offsets int64[rows + 1], list_validity bool[rows],
+    leaf_validity bool[elements])``.  Rows are the slots with ``rep == 0``,
+    elements the slots with ``def >= dk``; a row's list is non-null iff its
+    first slot has ``def >= dk - 1``; a value is present iff ``def ==
+    max_def``.  The two data-dependent sizes (rows, elements) are read back
+    in one copy; the rest is cumsum, scatter and gather on the levels'
+    device."""
+    d, r = def_levels, rep_levels
+    inst = r == 0
+    elem = d >= dk
+    n_rows, n_elem = (int(x) for x in torch.stack(
+        [inst.sum(), elem.sum()]).tolist())
+    cum = torch.cumsum(elem, 0)
+    inst_idx = _compact(inst, n_rows)
+    offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=d.device)
+    if n_rows:
+        offsets[:-1] = cum[inst_idx] - elem[inst_idx].to(torch.int64)
+        offsets[-1] = cum[-1]
+    list_validity = d[inst_idx] >= dk - 1
+    leaf_validity = (d == max_def)[_compact(elem, n_elem)]
+    return [offsets], [list_validity], leaf_validity
+
+
+def assemble_nested(def_levels: torch.Tensor, rep_levels: torch.Tensor,
+                    infos, max_def: int) -> tuple:
+    """``ops/levels.assemble`` at any repetition depth, level by level:
+    instances of level k are the slots with ``rep < k`` (below the
+    outermost level also ``def >= d_{k-1}``), its elements those with
+    ``rep < k_next`` and ``def >= d_k`` (the innermost: ``def >= d_k``); a
+    list is non-null iff its first slot has ``def >= d_k - 1``.  ``infos``
+    is ``levels.repeated_ancestors(leaf)``.  Returns ``(list_offsets,
+    list_validity, leaf_validity)``, the first two lists with one tensor a
+    repeated level, outermost first; offsets are int64.  Every level's size
+    is read back in one copy."""
+    d, r = def_levels, rep_levels
+    reps = [int(i.rep_level) for i in infos]
+    defs = [int(i.def_level) for i in infos]
+    insts, elems = [], []
+    for i, (k, dk) in enumerate(zip(reps, defs)):
+        inst = r < k
+        if i:
+            inst &= d >= defs[i - 1]
+        elem = d >= dk
+        if i + 1 < len(reps):
+            elem &= r < reps[i + 1]
+        insts.append(inst)
+        elems.append(elem)
+    inner = d >= defs[-1]
+    sizes = [int(x) for x in torch.stack(
+        [m.sum() for m in insts] + [inner.sum()]).tolist()]
+    offsets, validities = [], []
+    for inst, elem, size, dk in zip(insts, elems, sizes, defs):
+        inst_idx = _compact(inst, size)
+        cum = torch.cumsum(elem, 0)
+        offs = torch.zeros(size + 1, dtype=torch.int64, device=d.device)
+        if size:
+            offs[1:-1] = cum[inst_idx[1:] - 1]
+            offs[-1] = cum[-1]
+        offsets.append(offs)
+        validities.append(d[inst_idx] >= dk - 1)
+    leaf_validity = (d == max_def)[_compact(inner, sizes[-1])]
+    return offsets, validities, leaf_validity

@@ -1,13 +1,17 @@
-"""numpy host helpers: varints, PLAIN, the RLE/bit-packed hybrid run scan,
-the legacy BIT_PACKED levels, the length streams of the delta byte-array
-encodings, the dictionary gather, and the encoders the writer uses.
+"""numpy host helpers: varints, PLAIN, the RLE/bit-packed hybrid run scan
+and expansion, the legacy BIT_PACKED levels, the delta encodings,
+byte-stream split, the dictionary gather, and the encoders the writer
+uses.
 
 The port's copy of the parts of ``parquet_tpu/ops/ref.py`` it needs, in
 numpy; where the JAX package calls its C++ shim, this module calls the
-port's own (``ops/host.py``).  Decoding here is metadata-scale: run
-headers, dictionary pages, the offsets of byte arrays and the lengths of
-front coding.  Data-scale decode runs on the device (``ops/device.py``,
-``ops/kernels.py``).
+port's own (``ops/host.py``).  On the device route, decoding here is
+metadata-scale: run headers, dictionary pages, the offsets of byte arrays
+and the lengths of front coding, while data-scale decode runs on the
+device (``ops/device.py``, ``ops/kernels.py``).  The host route
+(``io/reader.decode_chunk_host``) decodes whole pages with the expanding
+decoders here: :func:`decode_rle`, :func:`decode_delta_byte_array` and
+:func:`decode_byte_stream_split`.
 """
 
 from __future__ import annotations
@@ -176,6 +180,52 @@ def scan_rle_runs(data, num_values: int, bit_width: int, pos: int = 0):
             np.array(payloads, dtype=np.int64),
             np.array(offsets, dtype=np.int64),
             pos)
+
+
+def decode_rle(data, num_values: int, bit_width: int,
+               pos: int = 0) -> np.ndarray:
+    """Expand a hybrid stream to ``num_values`` int32 values: the run scan,
+    then every value at once (an RLE run's payload, or a packed value read
+    from an 8-byte little-endian window at its bit position)."""
+    kinds, counts, payloads, offs, _ = scan_rle_runs(data, num_values,
+                                                     bit_width, pos)
+    out = np.repeat(payloads, counts)
+    if len(out) < num_values:
+        raise CorruptedError(f"RLE hybrid stream holds {len(out)} of "
+                             f"{num_values} values")
+    packed = np.flatnonzero(kinds != 0)
+    if len(packed) and bit_width:
+        starts = np.cumsum(counts) - counts
+        pc = counts[packed]
+        slot = np.repeat(starts[packed], pc) + host.segment_ranges(pc)
+        within = slot - np.repeat(starts[packed], pc)
+        bitpos = np.repeat(offs[packed], pc) * 8 + within * bit_width
+        buf = np.concatenate([host.as_u8(data), np.zeros(8, np.uint8)])
+        b0 = bitpos >> 3
+        if len(b0) and int(b0.max()) + 8 > len(buf):
+            raise CorruptedError("RLE hybrid stream truncated")
+        window = np.zeros(len(b0), np.uint64)
+        for k in range(8):
+            window |= buf[b0 + k].astype(np.uint64) << np.uint64(8 * k)
+        vals = (window >> (bitpos & 7).astype(np.uint64)) & np.uint64(
+            (1 << bit_width) - 1)
+        out[slot] = vals.astype(np.int64)
+    return out[:num_values].astype(np.int32)
+
+
+def decode_rle_len_prefixed(data, num_values: int, bit_width: int,
+                            pos: int = 0) -> Tuple[np.ndarray, int]:
+    """A hybrid stream behind its 4-byte length (v1 page levels, RLE
+    booleans): ``(values int32, end)``."""
+    buf = host.as_u8(data)
+    if pos + 4 > len(buf):
+        raise CorruptedError("level stream length truncated")
+    length = int(buf[pos:pos + 4].view("<u4")[0])
+    if pos + 4 + length > len(buf):
+        raise CorruptedError(f"level stream of {length} bytes overruns its "
+                             "page")
+    body = buf[pos + 4:pos + 4 + length]
+    return decode_rle(body, num_values, bit_width), pos + 4 + length
 
 
 def encode_rle(values: np.ndarray, bit_width: int, min_repeat: int = 8) -> bytes:
@@ -355,6 +405,54 @@ def decode_delta_byte_array_parts(data, pos: int = 0):
         raise CorruptedError(f"DELTA_BYTE_ARRAY: {len(prefix_lens)} prefix "
                              f"lengths for {len(soffs) - 1} suffixes")
     return prefix_lens, suffixes, soffs, pos
+
+
+def decode_delta_byte_array(data, pos: int = 0):
+    """Front coding expanded on the host: ``(values uint8, offsets
+    int64[n + 1], end)``.  Every output byte first points at its source (a
+    suffix byte, or the same byte of the value before), and the prefix
+    chains resolve by pointer jumping, as ``ops/device.py`` does on the
+    device.  A prefix longer than the value before it (the first value's
+    before it is empty) is corrupt."""
+    plens, suffixes, soffs, end = decode_delta_byte_array_parts(data, pos)
+    slens = np.diff(soffs)
+    lens = plens + slens
+    prev = np.concatenate([[0], lens[:-1]])
+    if len(plens) and ((plens < 0).any() or (plens > prev).any()):
+        raise CorruptedError("DELTA_BYTE_ARRAY prefix longer than the "
+                             "value before it")
+    offsets = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    total = int(offsets[-1])
+    vid = np.repeat(np.arange(len(lens)), lens)
+    within = np.arange(total, dtype=np.int64) - offsets[:-1][vid]
+    in_prefix = within < plens[vid]
+    # a prefix byte points at the same byte of the value before, a suffix
+    # byte at itself; chains end at suffix bytes
+    ptr = np.arange(total, dtype=np.int64)
+    ptr[in_prefix] = (offsets[:-1][vid[in_prefix] - 1]
+                      + within[in_prefix])
+    while True:
+        nxt = ptr[ptr]
+        if np.array_equal(nxt, ptr):
+            break
+        ptr = nxt
+    sv = vid[ptr]
+    sidx = soffs[:-1][sv] + (ptr - offsets[:-1][sv]) - plens[sv]
+    return host.as_u8(suffixes)[sidx], offsets, end
+
+
+def decode_byte_stream_split(data, num_values: int,
+                             width: int) -> np.ndarray:
+    """The ``(num_values, width)`` little-endian bytes of a byte-stream-split
+    page: plane k holds byte k of every value."""
+    buf = host.as_u8(data)
+    if len(buf) < num_values * width:
+        raise CorruptedError(f"BYTE_STREAM_SPLIT page holds {len(buf)} "
+                             f"bytes, {num_values} values need "
+                             f"{num_values * width}")
+    return np.ascontiguousarray(
+        buf[:num_values * width].reshape(width, num_values).T)
 
 
 def encode_delta_length_byte_array(values: np.ndarray,

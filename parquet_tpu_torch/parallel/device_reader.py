@@ -1,31 +1,42 @@
 """Device decode of column chunks: chunk bytes -> device tensors -> Column.
 
-The port of ``parquet_tpu/parallel/device_reader.py`` for flat columns
-(``max_rep == 0``, ``max_def <= 1``) of every physical type: BOOLEAN,
-INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY and FIXED_LEN_BYTE_ARRAY,
-in PLAIN, RLE_DICTIONARY/PLAIN_DICTIONARY, RLE (booleans),
-DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY and
-BYTE_STREAM_SPLIT pages, v1 or v2, with RLE or legacy BIT_PACKED
-definition levels.  Each chunk runs three phases:
+The port of ``parquet_tpu/parallel/device_reader.py``: columns of every
+physical type (BOOLEAN, INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY and
+FIXED_LEN_BYTE_ARRAY) at any nesting depth, in PLAIN,
+RLE_DICTIONARY/PLAIN_DICTIONARY, RLE (booleans), DELTA_BINARY_PACKED,
+DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY and BYTE_STREAM_SPLIT pages, v1
+or v2.  Each chunk runs three phases:
 
 - :func:`build_plan`: host prescan of the pages into a :class:`_Plan`
-  (decompression, RLE run headers, delta miniblock headers, the offsets
-  of PLAIN and DELTA_LENGTH byte arrays, the length streams of front
-  coding: metadata-scale work), of the whole chunk or of a given span of
-  its pages with a given dictionary (the point lookup's page runs);
+  (decompression, RLE run headers of levels and values, delta miniblock
+  headers, the offsets of PLAIN and DELTA_LENGTH byte arrays, the length
+  streams of front coding: metadata-scale work), of the whole chunk or of
+  a given span of its pages with a given dictionary (the point lookup's
+  page runs);
 - :func:`stage_plan`: the concatenated byte streams and the run tables go
   to the device;
 - :func:`decode_staged`: device decode into a :class:`Column`.  The dense
   dictionary-index and delta-miniblock streams unpack through the CUDA
   kernels of ``ops/kernels.py``; run expansion, gathers, the plane
-  transpose, the front-coded expansion, the level math and the prefix
-  sums are torch ops (``ops/device.py``).
+  transpose, the front-coded expansion, the level math and assembly and
+  the prefix sums are torch ops (``ops/device.py``).
+
+Levels: a flat optional column expands its def levels on the device into
+its validity.  A column under a repeated node expands both level streams
+on the device and assembles them there (``dev.assemble_single_list`` for
+one repeated level, ``dev.assemble_nested`` for more) into list offsets
+and validity per level, on the card and on the CPU alike.  A struct chain
+(``max_def > 1``, nothing repeated) expands its def levels once on the
+host, keeps them in ``Column.def_levels`` for the nullness of each struct,
+and stages its validity, ``def == max_def``.
 
 A BYTE_ARRAY dictionary chunk stays encoded: a device ``(values,
 offsets)`` dictionary plus int32 indexes, as the JAX package keeps it.  A
-chunk outside the port raises ``NotImplementedError`` naming the later
-slice; there is no host-decode fallback.  64-bit values are native int64 /
-float64 tensors, not the JAX package's uint32 pairs.
+chunk the device route cannot decode raises ``errors._Unsupported``, and
+:func:`decode_chunks_pipelined` sends it, and only it, to
+``io/reader.decode_chunk_host``, counting it in :data:`HOST_ROUTE` by
+reason.  64-bit values are native int64 / float64 tensors, not the JAX
+package's uint32 pairs.
 """
 
 from __future__ import annotations
@@ -37,15 +48,35 @@ from typing import Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..errors import CorruptedError, unsupported
+from ..errors import CorruptedError, _Unsupported, unsupported
 from ..format.enums import Encoding, PageType, Type
 from ..io.column import Column
 from ..ops import device as dev
-from ..ops import host, kernels, ref
+from ..ops import host, kernels, levels, ref
 from ..schema.types import (PHYSICAL_TORCH_DTYPE, PHYSICAL_WIDTH,
                             empty_values)
 
 _M32 = 0xFFFFFFFF
+
+#: chunks the device route sent to the host decode, by reason: pages that
+#: mix value kinds (a dictionary that fell back to PLAIN), a chunk mixing
+#: RLE and legacy BIT_PACKED def levels, legacy BIT_PACKED levels in a
+#: repeated column, INT96 byte-stream split, a front-coded page whose
+#: first prefix is nonzero, a staged stream over ``dev.MAX_DEVICE_BUF``,
+#: and delta pages of different miniblock sizes
+HOST_ROUTE = {"mixed_page_kinds": 0, "mixed_level_encodings": 0,
+              "bit_packed_repeated_levels": 0, "bss_int96": 0,
+              "dba_first_prefix": 0, "stream_bound": 0,
+              "mixed_delta_vpm": 0}
+
+
+def reset_host_route() -> None:
+    for k in HOST_ROUTE:
+        HOST_ROUTE[k] = 0
+
+
+def _bit_width(max_level: int) -> int:
+    return int(max_level).bit_length()
 
 
 @dataclass
@@ -145,7 +176,9 @@ class _Plan:
     levels: _ByteAccum = field(default_factory=_ByteAccum)
     values: _ByteAccum = field(default_factory=_ByteAccum)
     def_runs: _RunTable = field(default_factory=_RunTable)
-    # legacy BIT_PACKED definition levels, decoded on the host per page
+    rep_runs: _RunTable = field(default_factory=_RunTable)
+    # def levels decoded on the host per page: legacy BIT_PACKED levels,
+    # and every page of a struct chain
     host_def: List[np.ndarray] = field(default_factory=list)
     # 'plain_fixed' | 'plain_flba' | 'bool' | 'dict' | 'delta' | 'bss' |
     # 'dba' | 'host_ba'
@@ -194,9 +227,9 @@ class _Plan:
         if self.value_kind is None:
             self.value_kind = kind
         elif self.value_kind != kind:
-            raise unsupported(
-                f"chunk mixing {self.value_kind} and {kind} pages",
-                "the host-decode route")
+            raise _Unsupported(
+                "mixed_page_kinds",
+                f"chunk mixing {self.value_kind} and {kind} pages")
 
 
 def _single_rle_run(body, n: int, w: int):
@@ -269,8 +302,10 @@ def build_plan(reader, pages: Optional[Iterable] = None,
     codec = reader.codec
     physical = Type(reader.meta.type)
     max_def = leaf.max_definition_level
-    if leaf.max_repetition_level or max_def > 1:
-        raise unsupported(f"nested column {leaf.name!r}", "nested assembly")
+    max_rep = leaf.max_repetition_level
+    dw, rw = _bit_width(max_def), _bit_width(max_rep)
+    # a struct chain's def levels expand on the host, once
+    struct_chain = max_rep == 0 and max_def > 1
     plan = _Plan()
     plan.leaf = leaf
     plan.physical = physical
@@ -292,21 +327,41 @@ def build_plan(reader, pages: Optional[Iterable] = None,
                                           h.uncompressed_page_size))
             pos = 0
             n_present = n
+            rle_def = (Encoding(dph.definition_level_encoding)
+                       == Encoding.RLE)
+            if max_rep > 0:
+                if Encoding(dph.repetition_level_encoding) != Encoding.RLE \
+                        or not rle_def:
+                    raise _Unsupported(
+                        "bit_packed_repeated_levels",
+                        f"legacy BIT_PACKED levels in the repeated column "
+                        f"{leaf.name!r}")
+                (length,) = _struct.unpack_from("<I", raw, pos)
+                body = raw[pos + 4:pos + 4 + length]
+                plan.rep_runs.add(body, n, rw, len(plan.levels))
+                plan.levels.extend(body)
+                pos += 4 + length
             if max_def > 0:
-                if Encoding(dph.definition_level_encoding) == Encoding.RLE:
+                if rle_def and struct_chain:
+                    lv, pos = ref.decode_rle_len_prefixed(raw, n, dw, pos)
+                    plan.host_def.append(lv)
+                    n_present = int(np.count_nonzero(lv == max_def))
+                    plan.defs_expanded |= n_present != n
+                elif rle_def:
                     (length,) = _struct.unpack_from("<I", raw, pos)
                     body = raw[pos + 4:pos + 4 + length]
-                    scanned = plan.def_runs.add(body, n, 1, len(plan.levels))
+                    scanned = plan.def_runs.add(body, n, dw,
+                                                len(plan.levels))
                     plan.levels.extend(body)
                     pos += 4 + length
-                    n_present = _count_present(*scanned, body, 1, max_def)
-                    single = _single_rle_run(body, n, 1)
-                    if single is None or single[0] != 1:
+                    n_present = _count_present(*scanned, body, dw, max_def)
+                    single = _single_rle_run(body, n, dw)
+                    if single is None or single[0] != max_def:
                         plan.defs_expanded = True
                 else:  # legacy BIT_PACKED levels: decoded on the host
-                    lv = ref.decode_bit_packed_levels(raw[pos:], n, 1)
+                    lv = ref.decode_bit_packed_levels(raw[pos:], n, dw)
                     plan.host_def.append(lv)
-                    pos += (n + 7) // 8
+                    pos += (n * dw + 7) // 8
                     n_present = int(np.count_nonzero(lv == max_def))
                     plan.defs_expanded = True
             _stage_values(plan, raw, pos, n_present, Encoding(dph.encoding),
@@ -319,10 +374,17 @@ def build_plan(reader, pages: Optional[Iterable] = None,
             rl = dph2.repetition_levels_byte_length or 0
             dl = dph2.definition_levels_byte_length or 0
             payload = host.as_u8(page.payload)
+            if max_rep > 0:
+                body = payload[:rl]
+                plan.rep_runs.add(body, n, rw, len(plan.levels))
+                plan.levels.extend(body)
             if max_def > 0:
                 body = payload[rl:rl + dl]
-                plan.def_runs.add(body, n, 1, len(plan.levels))
-                plan.levels.extend(body)
+                if struct_chain:
+                    plan.host_def.append(ref.decode_rle(body, n, dw))
+                else:
+                    plan.def_runs.add(body, n, dw, len(plan.levels))
+                    plan.levels.extend(body)
                 plan.defs_expanded |= bool(dph2.num_nulls)
             raw_body = payload[rl + dl:]
             if dph2.is_compressed is not False:
@@ -335,8 +397,9 @@ def build_plan(reader, pages: Optional[Iterable] = None,
             plan.total_slots += n
             plan.total_values += n_present
     if plan.host_def and plan.def_runs.total:
-        raise unsupported(f"column {leaf.name!r} mixing RLE and BIT_PACKED "
-                          "definition levels", "the host-decode route")
+        raise _Unsupported("mixed_level_encodings",
+                           f"column {leaf.name!r} mixing RLE and BIT_PACKED "
+                           "definition levels")
     return plan
 
 
@@ -429,9 +492,11 @@ def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
         w = (leaf.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
              else {Type.INT32: 4, Type.INT64: 8, Type.FLOAT: 4,
                    Type.DOUBLE: 8}.get(physical))
+        if physical == Type.INT96:
+            raise _Unsupported("bss_int96", "byte-stream-split INT96 values")
         if not w:
-            raise unsupported(f"byte-stream-split {physical.name} values",
-                              "the host-decode route")
+            raise CorruptedError(f"BYTE_STREAM_SPLIT page in a "
+                                 f"{physical.name} column")
         plan.set_kind("bss")
         _check_length(raw, pos, nvals * w, nvals, "BYTE_STREAM_SPLIT")
         base = len(plan.values)
@@ -459,8 +524,8 @@ def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
         if len(plens) and int(plens[0]) != 0:
             # front coding restarts on every page: a nonzero first prefix
             # would chase a value of another page
-            raise unsupported("DELTA_BYTE_ARRAY page with a nonzero first "
-                              "prefix", "the host-decode route")
+            raise _Unsupported("dba_first_prefix", "DELTA_BYTE_ARRAY page "
+                               "with a nonzero first prefix")
         if len(plens) and ((plens < 0).any()
                            or (plens[1:] > np.diff(soffs)[:-1]
                                + plens[:-1]).any()):
@@ -473,7 +538,7 @@ def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
         plan.dba_pages.append((base, len(plens)))
         return
     raise unsupported(f"{encoding.name} pages of a {physical.name} column",
-                      "the host-decode route")
+                      "more encodings")
 
 
 def _check_length(raw: np.ndarray, pos: int, nbytes: int, nvals: int,
@@ -567,18 +632,27 @@ def _stage_delta_dense(plan: _Plan, meta: dict,
     return True
 
 
+def stage_levels_on_device(leaf, plan: _Plan) -> bool:
+    """Whether the chunk's level streams go to the device: a repeated
+    column's always (its offsets assemble there, nulls or not), a flat
+    optional column's where a value is null, and never levels the plan
+    decoded on the host (a struct chain's, legacy BIT_PACKED ones)."""
+    if plan.host_def:
+        return False
+    return (leaf.max_repetition_level > 0
+            or plan.total_values != plan.total_slots)
+
+
 def stage_plan(plan: _Plan, device: torch.device) -> tuple:
     """H2D: the plan's concatenated level and value byte streams and its
     run tables, dictionary, delta, front-coding and byte-array tables go
     to ``device``.  Returns ``(levels, values, meta)``."""
     kind = plan.value_kind
-    stage_levels = (plan.total_values != plan.total_slots
-                    and not plan.host_def)
+    stage_levels = stage_levels_on_device(plan.leaf, plan)
     if (stage_levels and len(plan.levels) > dev.MAX_DEVICE_BUF) or \
             len(plan.values) > dev.MAX_DEVICE_BUF:
-        raise unsupported(
-            f"a chunk stream over {dev.MAX_DEVICE_BUF} bytes",
-            "the host-decode route")
+        raise _Unsupported("stream_bound", f"a chunk stream over "
+                           f"{dev.MAX_DEVICE_BUF} bytes")
     lev_dbuf = None
     if stage_levels and len(plan.levels):
         lev_dbuf = _put(plan.levels.padded_array(), device, fresh=True)
@@ -597,8 +671,8 @@ def stage_plan(plan: _Plan, device: torch.device) -> tuple:
                              fresh=True)
     if kind == "delta" and not delta_dense:
         if len(set(plan.d_vpms)) > 1:
-            raise unsupported("mixed delta miniblock sizes across pages",
-                              "the host-decode route")
+            raise _Unsupported("mixed_delta_vpm", "mixed delta miniblock "
+                               "sizes across pages")
         meta["delta"] = tuple(_put(a, device, fresh=True)
                               for a in _delta_gather_tables(plan))
     if kind == "dict":
@@ -621,6 +695,9 @@ def stage_plan(plan: _Plan, device: torch.device) -> tuple:
     if stage_levels and plan.def_runs.total:
         meta["def_runs"] = tuple(_put(a, device, fresh=True)
                                  for a in plan.def_runs.run_arrays())
+    if stage_levels and plan.rep_runs.total:
+        meta["rep_runs"] = tuple(_put(a, device, fresh=True)
+                                 for a in plan.rep_runs.run_arrays())
     return lev_dbuf, val_dbuf, meta
 
 
@@ -844,14 +921,20 @@ def decode_staged(plan: _Plan, staged: tuple,
     """Device decode phase: staged tensors -> :class:`Column`."""
     leaf, physical = plan.leaf, plan.physical
     lev_dbuf, val_dbuf, meta = staged
-    validity = None
-    if plan.total_values != plan.total_slots:
+    max_def = leaf.max_definition_level
+    validity = def_host = None
+    list_offsets, list_validity = [], []
+    if leaf.max_repetition_level:
+        list_offsets, list_validity, validity = _assemble(plan, lev_dbuf,
+                                                          meta, device)
+    elif plan.total_values != plan.total_slots:
         if plan.def_runs.total:
             def_levels = plan.def_runs.expand(lev_dbuf, meta["def_runs"])
-            validity = dev.validity_from_def(def_levels,
-                                             leaf.max_definition_level)
+            validity = dev.validity_from_def(def_levels, max_def)
         elif plan.host_def:
             validity = meta["host_def"]
+            if max_def > 1:  # a struct chain keeps its levels
+                def_host = np.concatenate(plan.host_def).astype(np.int32)
 
     dictionary = dict_indices = offsets = None
     kind = plan.value_kind
@@ -909,7 +992,9 @@ def decode_staged(plan: _Plan, staged: tuple,
             offsets = torch.zeros(1, dtype=torch.int64, device=device)
     col = Column(leaf=leaf, values=values, offsets=offsets,
                  validity=validity, num_slots=plan.total_slots,
-                 dictionary=dictionary, dict_indices=dict_indices)
+                 dictionary=dictionary, dict_indices=dict_indices,
+                 list_offsets=list_offsets, list_validity=list_validity,
+                 def_levels=def_host)
     if col.num_values != nvals:
         raise CorruptedError(
             f"column {leaf.name!r}: decoded {col.num_values} values, the "
@@ -917,13 +1002,38 @@ def decode_staged(plan: _Plan, staged: tuple,
     return col
 
 
+def _assemble(plan: _Plan, lev_dbuf, meta: dict,
+              device: torch.device) -> tuple:
+    """A repeated column's level streams, expanded and assembled on the
+    device: ``(list_offsets, list_validity, leaf_validity)``."""
+    leaf = plan.leaf
+    if plan.def_runs.total:
+        d = plan.def_runs.expand(lev_dbuf, meta["def_runs"])
+        r = plan.rep_runs.expand(lev_dbuf, meta["rep_runs"])
+    else:  # no data pages
+        d = r = torch.zeros(0, dtype=torch.int32, device=device)
+    infos = levels.repeated_ancestors(leaf)
+    if len(infos) == 1:
+        return dev.assemble_single_list(d, r, infos[0].def_level,
+                                        leaf.max_definition_level)
+    return dev.assemble_nested(d, r, infos, leaf.max_definition_level)
+
+
 def decode_chunks_pipelined(chunks: Iterable,
                             device: torch.device) -> Iterator[Column]:
     """Decode column chunks on ``device``, in order: plan, stage and decode
     one chunk after another.  Kernels launch asynchronously on the current
     stream, so a chunk's device work overlaps the next chunk's host
-    prescan; stream/event double buffering is a later slice."""
+    prescan; stream/event double buffering is a later slice.  A chunk the
+    device route refuses (``_Unsupported``, and no other error) decodes on
+    the host and is counted in :data:`HOST_ROUTE`."""
+    from ..io.reader import decode_chunk_host
+
     for reader in chunks:
-        plan = build_plan(reader)
-        staged = stage_plan(plan, device)
-        yield decode_staged(plan, staged, device)
+        try:
+            plan = build_plan(reader)
+            col = decode_staged(plan, stage_plan(plan, device), device)
+        except _Unsupported as e:
+            HOST_ROUTE[e.reason] += 1
+            col = decode_chunk_host(reader, device)
+        yield col

@@ -1,79 +1,210 @@
-"""Flat schema: the root message and its leaf columns with their Dremel levels.
+"""Schema tree: groups and leaf columns with their Dremel levels.
 
-The port's cut of ``parquet_tpu/schema/schema.py``.  The flat, depth-first
-``FileMetaData.schema`` element list parses into one :class:`Leaf` per
-column, with ``max_definition_level``/``max_repetition_level``, its ``type_length``
-(fixed-length byte arrays) and whether it is annotated as a UTF-8 string
-(the STRING logical type or the UTF8 converted type).  The port reads
-flat columns only (``max_rep == 0``, ``max_def <= 1``): a nested or
-repeated schema raises.
+The port of ``parquet_tpu/schema/schema.py``.  The flat, depth-first
+``FileMetaData.schema`` element list parses into a tree of :class:`Node`;
+each leaf becomes a :class:`Leaf` with its column ordinal, its path, its
+max definition and repetition levels and the nodes above it (the inputs of
+the level assembly in ``ops/levels.py`` and ``ops/device.py``).  Groups
+may be OPTIONAL or REPEATED at any depth, and carry the LIST and MAP
+annotations.  A leaf's :attr:`Leaf.name` is its dotted path
+(``ts.list.element``); a flat leaf's is its column name.  The builders at
+the end (``leaf``, ``group``, ``list_of``, ``map_of``, ``message``) make
+schemas to write.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-from ..errors import CorruptedError, unsupported
+from ..errors import MAX_COLUMN_DEPTH, CorruptedError
 from ..format import metadata as md
 from ..format.enums import ConvertedType, Type
 from ..format.enums import FieldRepetitionType as Rep
+from .types import LogicalKind
 
 
-@dataclass
-class Leaf:
-    """One flat column: everything the column decoder needs."""
+@dataclass(eq=False)
+class Node:
+    """One element of the schema tree: a leaf (``children`` is None) or a
+    group."""
 
-    column_index: int
     name: str
-    physical_type: Type
     repetition: Rep = Rep.REQUIRED
-    type_length: Optional[int] = None  # FIXED_LEN_BYTE_ARRAY only
-    string: bool = False  # BYTE_ARRAY annotated as UTF-8
+    # leaf fields
+    physical_type: Optional[Type] = None
+    type_length: Optional[int] = None  # FIXED_LEN_BYTE_ARRAY width
+    logical_kind: str = LogicalKind.NONE
+    # group fields
+    children: Optional[List["Node"]] = None
 
     @property
-    def max_definition_level(self) -> int:
-        return 1 if self.repetition == Rep.OPTIONAL else 0
+    def is_leaf(self) -> bool:
+        return self.children is None
+
+
+class Leaf:
+    """One leaf column: everything its decoder needs.
+
+    ``Leaf(column_index, name, physical_type, repetition, type_length,
+    string)`` makes a flat column directly under the root (the form the
+    flat writer and the tests build); :class:`Schema` makes the leaves of a
+    tree with :meth:`at`."""
+
+    def __init__(self, column_index: int, name: str, physical_type: Type,
+                 repetition: Rep = Rep.REQUIRED,
+                 type_length: Optional[int] = None, string: bool = False):
+        physical = Type(physical_type)
+        node = Node(name, Rep(repetition), physical,
+                    type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
+                    else None,
+                    LogicalKind.STRING if string else LogicalKind.NONE)
+        rep = Rep(repetition)
+        self._set(column_index, (name,), node,
+                  int(rep != Rep.REQUIRED), int(rep == Rep.REPEATED),
+                  (node,))
+
+    @classmethod
+    def at(cls, column_index: int, path: Tuple[str, ...], node: Node,
+           max_definition_level: int, max_repetition_level: int,
+           ancestors: Tuple[Node, ...]) -> "Leaf":
+        """The leaf of ``node`` at ``path`` in a tree; ``ancestors`` are the
+        nodes from below the root down to ``node`` itself."""
+        leaf = cls.__new__(cls)
+        leaf._set(column_index, path, node, max_definition_level,
+                  max_repetition_level, ancestors)
+        return leaf
+
+    def _set(self, column_index, path, node, max_def, max_rep, ancestors):
+        self.column_index = column_index
+        self.path = tuple(path)
+        self.node = node
+        self.max_definition_level = max_def
+        self.max_repetition_level = max_rep
+        self.ancestors = tuple(ancestors)
 
     @property
-    def max_repetition_level(self) -> int:
-        return 0
+    def name(self) -> str:
+        """The dotted path (a flat leaf: its column name)."""
+        return ".".join(self.path)
+
+    @property
+    def physical_type(self) -> Type:
+        return self.node.physical_type
+
+    @property
+    def type_length(self) -> Optional[int]:
+        return self.node.type_length
+
+    @property
+    def repetition(self) -> Rep:
+        return self.node.repetition
+
+    @property
+    def string(self) -> bool:
+        """A BYTE_ARRAY annotated as UTF-8."""
+        return (self.node.logical_kind == LogicalKind.STRING
+                and self.node.physical_type == Type.BYTE_ARRAY)
+
+    def __repr__(self):
+        return (f"Leaf({self.name!r}, {Type(self.physical_type).name}, "
+                f"def={self.max_definition_level}, "
+                f"rep={self.max_repetition_level})")
 
 
 class Schema:
-    """A root message of flat leaves, by ordinal and by name."""
+    """A schema tree with its leaves in column order, by dotted path.
 
-    def __init__(self, leaves: List[Leaf], name: str = "schema"):
-        self.name = name
-        self.leaves = leaves
+    ``Schema(root)`` takes the root :class:`Node`; ``Schema(leaves, name)``
+    a list of flat leaves, which become the root's children (the flat
+    writer's form)."""
+
+    def __init__(self, root: Union[Node, Sequence[Leaf]],
+                 name: str = "schema"):
+        given = None
+        if not isinstance(root, Node):
+            given = list(root)
+            if any(len(leaf.path) != 1 for leaf in given):
+                raise ValueError("Schema(leaves) takes flat leaves only")
+            root = Node(name, children=[leaf.node for leaf in given])
+        self.root = root
+        self.name = root.name
+        self.leaves: List[Leaf] = []
+        self._walk(root, (), 0, 0, ())
+        if given is not None:
+            self.leaves = given
+        self._by_path: Dict[Tuple[str, ...], Leaf] = {}
         self._by_name: Dict[str, Leaf] = {}
-        for i, leaf in enumerate(leaves):
+        for i, leaf in enumerate(self.leaves):
             leaf.column_index = i
             if leaf.name in self._by_name:
                 raise ValueError(f"duplicate column name {leaf.name!r}")
             self._by_name[leaf.name] = leaf
+            self._by_path[leaf.path] = leaf
 
-    def leaf(self, name: str) -> Leaf:
-        return self._by_name[name]
+    def _walk(self, n: Node, path, def_level, rep_level, ancestors):
+        if n is not self.root:
+            if n.repetition == Rep.OPTIONAL:
+                def_level += 1
+            elif n.repetition == Rep.REPEATED:
+                def_level += 1
+                rep_level += 1
+            path = path + (n.name,)
+            ancestors = ancestors + (n,)
+        if n.is_leaf:
+            if n is self.root:
+                raise CorruptedError("the schema root is a leaf")
+            self.leaves.append(Leaf.at(-1, path, n, def_level, rep_level,
+                                       ancestors))
+            return
+        for c in n.children:
+            self._walk(c, path, def_level, rep_level, ancestors)
 
+    def leaf(self, path) -> Leaf:
+        """The leaf at a dotted path or a tuple of names; a group's path
+        resolves where exactly one leaf lies beneath it."""
+        if isinstance(path, str):
+            hit = self._by_name.get(path)
+            if hit is not None:
+                return hit
+            path = tuple(path.split("."))
+        path = tuple(path)
+        hit = self._by_path.get(path)
+        if hit is not None:
+            return hit
+        under = [leaf for leaf in self.leaves
+                 if leaf.path[:len(path)] == path]
+        if len(under) == 1:
+            return under[0]
+        raise KeyError(path)
+
+    def __len__(self):
+        return len(self.leaves)
+
+    # ------------------------------------------------------------------ read
     @classmethod
     def from_elements(cls, elements: List[md.SchemaElement]) -> "Schema":
-        """Parse the footer's element list: a root with leaf children only."""
-        root = elements[0]
-        n = root.num_children or 0
-        if len(elements) != n + 1:
-            raise unsupported("nested schema (group columns)",
-                              "nested assembly")
-        leaves = []
-        for el in elements[1:]:
-            if el.num_children:
-                raise unsupported(f"group column {el.name!r}",
-                                  "nested assembly")
+        """Parse the footer's flat, depth-first element list into a
+        tree."""
+        pos = 0
+
+        def build(depth: int) -> Node:
+            nonlocal pos
+            if pos >= len(elements):
+                raise CorruptedError("schema element list ends inside a "
+                                     "group")
+            if depth > MAX_COLUMN_DEPTH:
+                raise CorruptedError(f"schema deeper than "
+                                     f"{MAX_COLUMN_DEPTH} levels")
+            el = elements[pos]
+            pos += 1
             rep = Rep(el.repetition_type if el.repetition_type is not None
                       else Rep.REQUIRED)
-            if rep == Rep.REPEATED:
-                raise unsupported(f"repeated column {el.name!r}",
-                                  "nested assembly")
+            kind = _logical_kind(el)
+            if el.num_children or depth == 0:
+                return Node(el.name or "", rep, logical_kind=kind,
+                            children=[build(depth + 1)
+                                      for _ in range(el.num_children or 0)])
             if el.type is None:
                 raise CorruptedError(f"leaf {el.name!r} has no physical type")
             physical = Type(el.type)
@@ -81,24 +212,116 @@ class Schema:
                     el.type_length and el.type_length > 0):
                 raise CorruptedError(f"fixed-length column {el.name!r} has "
                                      f"type_length {el.type_length}")
-            string = (el.converted_type == ConvertedType.UTF8 or (
-                el.logicalType is not None
-                and el.logicalType.STRING is not None))
-            leaves.append(Leaf(
-                -1, el.name or "", physical, rep,
-                el.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
-                else None, string and physical == Type.BYTE_ARRAY))
-        return cls(leaves, root.name or "schema")
+            if kind == LogicalKind.STRING and physical != Type.BYTE_ARRAY:
+                kind = LogicalKind.NONE
+            return Node(el.name or "", rep, physical,
+                        el.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
+                        else None, kind)
 
+        if not elements:
+            raise CorruptedError("footer has no schema")
+        root = build(0)
+        if pos != len(elements):
+            raise CorruptedError(f"schema element list malformed: the tree "
+                                 f"holds {pos} of {len(elements)}")
+        return cls(root)
+
+    # ----------------------------------------------------------------- write
     def to_elements(self) -> List[md.SchemaElement]:
-        out = [md.SchemaElement(name=self.name, num_children=len(self.leaves))]
-        for leaf in self.leaves:
-            out.append(md.SchemaElement(
-                name=leaf.name, type=int(leaf.physical_type),
-                type_length=leaf.type_length,
-                repetition_type=int(leaf.repetition),
-                converted_type=int(ConvertedType.UTF8) if leaf.string
-                else None,
-                logicalType=md.LogicalType(STRING=md.StringType())
-                if leaf.string else None))
+        out: List[md.SchemaElement] = []
+
+        def emit(n: Node, is_root: bool):
+            el = md.SchemaElement(name=n.name)
+            if not is_root:
+                el.repetition_type = int(n.repetition)
+            if n.is_leaf:
+                el.type = int(n.physical_type)
+                if n.physical_type == Type.FIXED_LEN_BYTE_ARRAY:
+                    el.type_length = n.type_length
+            else:
+                el.num_children = len(n.children)
+            el.logicalType, el.converted_type = _LOGICAL_TO_THRIFT.get(
+                n.logical_kind, (None, None))
+            out.append(el)
+            for c in n.children or ():
+                emit(c, False)
+
+        emit(self.root, True)
         return out
+
+
+def _logical_kind(el: md.SchemaElement) -> str:
+    """The element's annotation among those the port reads."""
+    lt = el.logicalType
+    if lt is not None:
+        for kind, attr in ((LogicalKind.STRING, "STRING"),
+                           (LogicalKind.MAP, "MAP"),
+                           (LogicalKind.LIST, "LIST")):
+            if getattr(lt, attr) is not None:
+                return kind
+    return {ConvertedType.UTF8: LogicalKind.STRING,
+            ConvertedType.MAP: LogicalKind.MAP,
+            ConvertedType.MAP_KEY_VALUE: LogicalKind.MAP,
+            ConvertedType.LIST: LogicalKind.LIST}.get(
+        el.converted_type, LogicalKind.NONE)
+
+
+_LOGICAL_TO_THRIFT = {
+    LogicalKind.STRING: (md.LogicalType(STRING=md.StringType()),
+                         int(ConvertedType.UTF8)),
+    LogicalKind.MAP: (md.LogicalType(MAP=md.MapType()),
+                      int(ConvertedType.MAP)),
+    LogicalKind.LIST: (md.LogicalType(LIST=md.ListType()),
+                       int(ConvertedType.LIST)),
+}
+
+
+# ---------------------------------------------------------------------------
+# Builders, as the JAX package's
+# ---------------------------------------------------------------------------
+
+
+def leaf(name: str, physical: Type, repetition: Rep = Rep.REQUIRED,
+         logical: str = LogicalKind.NONE, type_length=None) -> Node:
+    return Node(name, Rep(repetition), Type(physical), type_length, logical)
+
+
+def group(name: str, children: List[Node], repetition: Rep = Rep.REQUIRED,
+          logical: str = LogicalKind.NONE) -> Node:
+    return Node(name, Rep(repetition), logical_kind=logical,
+                children=children)
+
+
+def optional(n: Node) -> Node:
+    n.repetition = Rep.OPTIONAL
+    return n
+
+
+def repeated(n: Node) -> Node:
+    n.repetition = Rep.REPEATED
+    return n
+
+
+def list_of(name: str, element: Node, repetition: Rep = Rep.OPTIONAL) -> Node:
+    """The standard three-level LIST:
+    ``<name> (LIST) { repeated group list { element } }``."""
+    element.name = "element"
+    inner = Node("list", Rep.REPEATED, children=[element])
+    return Node(name, Rep(repetition), logical_kind=LogicalKind.LIST,
+                children=[inner])
+
+
+def map_of(name: str, key: Node, value: Node,
+           repetition: Rep = Rep.OPTIONAL) -> Node:
+    """The standard MAP:
+    ``<name> (MAP) { repeated group key_value { required key; value } }``."""
+    key.name = "key"
+    key.repetition = Rep.REQUIRED
+    value.name = "value"
+    inner = Node("key_value", Rep.REPEATED, children=[key, value])
+    return Node(name, Rep(repetition), logical_kind=LogicalKind.MAP,
+                children=[inner])
+
+
+def message(name: str, children: List[Node]) -> Schema:
+    return Schema(Node(name, children=children))

@@ -19,6 +19,18 @@ import torch
 
 from ..format.enums import Type
 
+
+class LogicalKind:
+    """The logical annotations the port reads and writes: the STRING
+    annotation of a byte array, and the LIST and MAP annotations of a group
+    (the new LogicalType and the legacy ConvertedType collapse into one of
+    these, as in the JAX package)."""
+
+    NONE = "none"
+    STRING = "string"
+    LIST = "list"
+    MAP = "map"
+
 PHYSICAL_NP_DTYPE = {
     Type.BOOLEAN: np.dtype(np.bool_),
     Type.INT32: np.dtype(np.int32),

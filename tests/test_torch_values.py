@@ -13,8 +13,7 @@ CPU backend through both of its routes: the host routes it takes off the
 TPU, and the device routes forced through the environment (both Pallas
 kernels in interpret mode).  A pyarrow-written mini-lineitem (the
 ``bench.py`` lineitem schema, Snappy) is read the same way, and the chunks
-the port leaves to later slices raise ``NotImplementedError`` naming
-them.
+the device route refuses take the host decode.
 """
 
 import io
@@ -441,25 +440,33 @@ def test_mini_lineitem_matches_jax():
 
 
 def test_later_slices_raise():
-    """Nested columns and a chunk that falls back from dictionary to PLAIN
-    pages mid-chunk raise, naming the slice that brings them; no host
-    decode stands in."""
+    """What earlier slices refused now reads: a nested column, and a chunk
+    that falls back from dictionary to PLAIN pages mid-chunk, which takes
+    the host decode and is counted; the point lookup still leaves
+    byte-array columns to a later slice and raises naming it."""
     buf = io.BytesIO()
     papq.write_table(pa.table({"l": pa.array([[1, 2], None, [3]])}), buf)
-    with pytest.raises(NotImplementedError, match="nested assembly"):
-        pqt.ParquetFile(buf.getvalue()).read(device="cpu")
+    col = pqt.ParquetFile(buf.getvalue()).read(device="cpu")[
+        "l.list.element"]
+    np.testing.assert_array_equal(col.values.numpy(), [1, 2, 3])
+    np.testing.assert_array_equal(col.list_offsets[0].numpy(), [0, 2, 2, 3])
+    np.testing.assert_array_equal(col.list_validity[0].numpy(),
+                                  [True, False, True])
     rng = np.random.default_rng(1)
+    items = [bytes(rng.integers(0, 256, 20, dtype=np.uint8))
+             for _ in range(5000)]
     buf = io.BytesIO()
-    papq.write_table(pa.table({"s": pa.array(
-        [bytes(rng.integers(0, 256, 20, dtype=np.uint8))
-         for _ in range(5000)])}), buf, dictionary_pagesize_limit=2000,
-        data_page_size=1000)
+    papq.write_table(pa.table({"s": pa.array(items)}), buf,
+                     dictionary_pagesize_limit=2000, data_page_size=1000)
     meta = papq.ParquetFile(io.BytesIO(buf.getvalue())).metadata
     assert {"PLAIN", "RLE_DICTIONARY"} <= set(
         meta.row_group(0).column(0).encodings)
-    with pytest.raises(NotImplementedError, match="host-decode route"):
-        pqt.ParquetFile(buf.getvalue()).read(device="cpu")
-    # and the point lookup leaves byte-array columns to a later slice
+    pqt.reset_host_route()
+    v, o = pqt.ParquetFile(buf.getvalue()).read(device="cpu")[
+        "s"].materialize_host()
+    assert pqt.HOST_ROUTE["mixed_page_kinds"] == 1
+    assert sum(pqt.HOST_ROUTE.values()) == 1
+    assert [bytes(v[o[i]:o[i + 1]]) for i in range(len(items))] == items
     with pytest.raises(NotImplementedError, match="lookup leftovers"):
         pqt.ParquetFile(buf.getvalue()).find_rows("s", [b"x"],
                                                   device="cpu")
@@ -470,9 +477,11 @@ def test_later_slices_raise():
 def test_page_shapes_at_the_edge(case):
     """Legacy BIT_PACKED definition levels decode (validity on the host); a
     v2 page whose values are not compressed (``is_compressed=false``)
-    decodes raw under a real codec; byte-stream split over INT96 and a
-    front-coded page whose first prefix is nonzero raise
-    NotImplementedError, as the JAX package's device path refuses them."""
+    decodes raw under a real codec; the device route refuses byte-stream
+    split over INT96 and a front-coded page whose first prefix is nonzero,
+    as the JAX package's does: the host decode reads the first and finds
+    the second corrupt (its first value's prefix reaches into a value
+    before the page)."""
     from parquet_tpu_torch.codecs import get_codec
     from parquet_tpu_torch.format import metadata as md
     from parquet_tpu_torch.io.reader import PageInfo
@@ -528,8 +537,21 @@ def test_page_shapes_at_the_edge(case):
         leaf=leaf, codec=get_codec(0),
         meta=md.ColumnMetaData(type=int(leaf.physical_type)))
     if case != "bit_packed_levels":
-        with pytest.raises(NotImplementedError, match="host-decode route"):
+        from parquet_tpu_torch.errors import CorruptedError, _Unsupported
+        from parquet_tpu_torch.io.reader import decode_chunk_host
+
+        with pytest.raises(_Unsupported) as refused:
             tdr.build_plan(chunk, pages=[page])
+        assert refused.value.reason == {"bss_int96": "bss_int96"}.get(
+            case, "dba_first_prefix")
+        if case == "bss_int96":
+            col = decode_chunk_host(chunk, "cpu", pages=[page])
+            np.testing.assert_array_equal(
+                col.values.numpy().view(np.uint8).reshape(n, 12),
+                np.frombuffer(body, np.uint8).reshape(12, n).T)
+        else:
+            with pytest.raises(CorruptedError, match="prefix longer"):
+                decode_chunk_host(chunk, "cpu", pages=[page])
         return
     plan = tdr.build_plan(chunk, pages=[page])
     col = tdr.decode_staged(plan, tdr.stage_plan(plan, torch.device("cpu")),
