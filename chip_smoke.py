@@ -5,6 +5,7 @@ CUDA card and check them.
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
                           [--enc-rows 4194304] [--nested-n 8000000]
                           [--nest-mix-rows 1048576] [--out DIR]
+    python3 chip_smoke.py --summarize LOG
 
 Phases, each fatal on failure:
 
@@ -69,6 +70,15 @@ Phases, each fatal on failure:
    pyarrow: dictionaries that overflow into PLAIN pages) reads equal to the
    arrays beside it with ``HOST_ROUTE`` counting exactly its chunks.  Every
    main-path file of phases 4-5 leaves ``HOST_ROUTE`` empty;
+4e. prescan: one ``{"prescan": [...]}`` line, each C++ entry point of the
+   host prescan (``csrc/host_prescan.cpp``) timed on the host at one real
+   chunk (the first row group's) beside its Python version on the same
+   bytes, whose outputs must be equal: the run scan and the present count
+   on cfg 4's def and rep levels and ``cat``'s def levels, the delta
+   miniblock table on ``ts``, the delta decode on enc's ``ba_dlba`` and
+   ``ba_dba`` length streams, the page-header table and the batched
+   decompression on lineitem's ``l_comment`` (Snappy) and enc's ZSTD
+   ``ba_dlba``; each with its calls in one read of its file;
 5. lookup path: a 3-column file keyed by ``k`` (1,048,576-row row groups,
    8 KiB pages, bloom filters on ``k``, page index, rows sorted by ``k``)
    and a batch of ``--lookup-rows / 16`` distinct keys, one in eight
@@ -104,8 +114,12 @@ Phases, each fatal on failure:
    one more warm lookup, each under the profiler, for the device's idle
    share.
    They come last: after a window that long the profiler can drop every
-   event of phase 6's short ones.  A ``{"phase_s": ...}`` line gives each
-   phase's wall time.
+   event of phase 6's short ones.  A ``{"path_phases": ...}`` line adds up,
+   for the 5-column file, lineitem, enc v1-Snappy and cfg 4, the host
+   prescan (``plan_s``), staging and decode seconds of one read over its
+   chunks beside the best warm read's rows/s (``--summarize LOG`` prints
+   the same from a saved run of this or an earlier version of the script),
+   and a ``{"phase_s": ...}`` line gives each phase's wall time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero before printing any result.  ``--out DIR`` also writes
@@ -128,10 +142,12 @@ import torch
 
 import parquet_tpu_torch as pq
 from parquet_tpu_torch import codecs
-from parquet_tpu_torch.format.enums import Encoding, Type
+from parquet_tpu_torch.format.enums import Encoding, PageType, Type
 from parquet_tpu_torch.io import bloom, lookup
+from parquet_tpu_torch.io.reader import (data_page_bodies, page_infos,
+                                         thrift_page_walk)
 from parquet_tpu_torch.io.writer import ColumnData
-from parquet_tpu_torch.ops import _build, kernels
+from parquet_tpu_torch.ops import _build, host, kernels, ref
 from parquet_tpu_torch.ops import device as dev
 from parquet_tpu_torch.ops.host import gather_byte_arrays, segment_ranges
 from parquet_tpu_torch.parallel import device_reader
@@ -149,7 +165,11 @@ READ_KERNELS = ("unpack_bits_dense", "dict_unpack_gather")
 LOOKUP_KERNELS = ("bloom_check", "dict_unpack_gather")
 
 
+LOGGED: list = []  # every object this run printed, for the path summary
+
+
 def log(obj) -> None:
+    LOGGED.append(obj)
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
@@ -1086,14 +1106,16 @@ def enc_path(rows: int, seed: int, tmp: str) -> dict:
                                      "unpack_bits_dense")
         results[label] = {"file_bytes": os.path.getsize(path),
                           "write_s": write_s, **got}
-        if label != "v1-SNAPPY":
+        if label not in ("v1-SNAPPY", "v1-ZSTD"):
             os.remove(path)
     first = os.path.join(tmp, "enc-v1-SNAPPY.parquet")
     log({"enc_path": {"rows": rows, "row_groups": -(-rows // ENC_ROW_GROUP),
                       "page_bytes": ENC_PAGE, "files": results,
                       "v1_snappy_columns": phase_times(first)}})
     return {"path": first, "launches": results["v1-SNAPPY"]["launches"],
-            "column_launches": results["v1-SNAPPY"]["column_launches"]}
+            "column_launches": results["v1-SNAPPY"]["column_launches"],
+            "zstd_path": os.path.join(tmp, "enc-v1-ZSTD.parquet")
+            if "v1-ZSTD" in results else None}
 
 
 # ---------------------------------------------------------------------------
@@ -1375,6 +1397,240 @@ def nested_path(n: int, mix_rows: int, seed: int, tmp: str) -> dict:
             "column_launches": {**cfg4["column_launches"],
                                 **mix["column_launches"]},
             "columns": phase_times(path)}
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: the host prescan's C++ entry points against their Python versions
+# ---------------------------------------------------------------------------
+
+# entry point -> (owner, attribute) of its wrapper on the read path
+PRESCAN_ENTRIES = {
+    "pq_scan_rle_runs": (host, "scan_rle_runs"),
+    "pq_count_target_in_runs": (host, "count_present"),
+    "pq_delta_prescan": (host, "delta_prescan"),
+    "pq_delta_decode": (host, "decode_delta_binary_packed"),
+    "pq_scan_page_headers": (host, "scan_page_headers"),
+    "pq_decompress_pages": (host, "decompress_pages"),
+}
+
+
+def host_calls(path: str) -> dict:
+    """Calls of each prescan entry point that one read of ``path`` makes:
+    ``build_plan`` of every chunk, the wrappers counted."""
+    counts = dict.fromkeys(PRESCAN_ENTRIES, 0)
+    saved = {}
+    for entry, (owner, attr) in PRESCAN_ENTRIES.items():
+        fn = saved[entry] = getattr(owner, attr)
+
+        def counted(*a, _fn=fn, _entry=entry, **k):
+            counts[_entry] += 1
+            return _fn(*a, **k)
+
+        setattr(owner, attr, counted)
+    try:
+        f = pq.ParquetFile(path)
+        for leaf in f.schema.leaves:
+            for rg in f.row_groups:
+                device_reader.build_plan(rg.column(leaf.column_index))
+    finally:
+        for entry, (owner, attr) in PRESCAN_ENTRIES.items():
+            setattr(owner, attr, saved[entry])
+    return counts
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median wall milliseconds of ``reps`` calls of the host function
+    ``fn``, after one call to warm it."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def chunk_pages(path: str, column: str):
+    """One row group's chunk of ``column``: its reader, its pages, their
+    decompressed bodies and, per data page, its value count, its level
+    streams (RLE, the writer's) and where its values start."""
+    f = pq.ParquetFile(path)
+    leaf = f.schema.leaf(column)
+    reader = f.row_groups[0].column(leaf.column_index)
+    pages = list(reader.pages())
+    bodies = data_page_bodies(reader, pages)
+    streams = []
+    for page, raw in zip(pages, bodies):
+        if raw is None:
+            continue
+        h = page.header
+        levels = {}
+        if page.page_type == PageType.DATA_PAGE:
+            n, pos = h.data_page_header.num_values, 0
+            for kind, top in (("rep", leaf.max_repetition_level),
+                              ("def", leaf.max_definition_level)):
+                if top:
+                    length = int(raw[pos:pos + 4].view("<u4")[0])
+                    levels[kind] = raw[pos + 4:pos + 4 + length]
+                    pos += 4 + length
+        else:
+            dph2 = h.data_page_header_v2
+            n, pos = dph2.num_values, 0
+            rl = dph2.repetition_levels_byte_length or 0
+            dl = dph2.definition_levels_byte_length or 0
+            payload = host.as_u8(page.payload)
+            levels = {"rep": payload[:rl], "def": payload[rl:rl + dl]}
+        streams.append({"n": n, "raw": raw, "pos": pos, **levels})
+    return reader, leaf, pages, streams
+
+
+def _same(a, b) -> bool:
+    """Equal outputs: tuples and lists item by item, arrays by value and
+    dtype."""
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        b = np.asarray(b)
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def prescan_row(entry: str, chunk: str, cpp, python, reps: int,
+                calls: int, views=(None, None), **sizes) -> dict:
+    """Time ``cpp`` and ``python`` (each a function of no argument that
+    returns a list of outputs) on one chunk; fail unless the outputs (seen
+    through ``views``, untimed) are equal."""
+    got, want = cpp(), python()
+    if views[0] is not None:
+        got, want = views[0](got), views[1](want)
+    if not _same(got, want):
+        raise AssertionError(f"{entry} on {chunk}: the C++ output differs "
+                             "from its Python version's")
+    return {"entry": entry, "chunk": chunk, **sizes,
+            "ms": host_ms(cpp, reps), "python_ms": host_ms(python, 3),
+            "calls_per_read": calls, "equal": True}
+
+
+def _plain_header(h):
+    """A thrift-walked header as the table gives it: no statistics, the
+    CRC unsigned."""
+    for sub in (h.data_page_header, h.data_page_header_v2):
+        if sub is not None:
+            sub.statistics = None
+    if h.dictionary_page_header is not None:
+        h.dictionary_page_header.is_sorted = None
+    if h.crc is not None:
+        h.crc &= 0xFFFFFFFF
+    return h
+
+
+def prescan_path(read: dict, item: dict, enc: dict, nested: dict) -> list:
+    """Phase 4e: each C++ entry point of the prescan at one real chunk of a
+    path (the first row group's), beside its Python version on the same
+    chunk; the outputs must be equal.  ``calls_per_read`` counts the entry
+    point's calls in one read of the chunk's file."""
+    if enc["zstd_path"] is None:
+        raise AssertionError("enc's ZSTD file was not written: no libzstd")
+    files = {"5col": read["path"], "lineitem": item["path"],
+             "enc_snappy": enc["path"], "enc_zstd": enc["zstd_path"],
+             "cfg4": nested["path"]}
+    calls = {name: host_calls(path) for name, path in files.items()}
+    rows = []
+    for file, column, level in (("cfg4", "ts.list.element", "def"),
+                                ("cfg4", "ts.list.element", "rep"),
+                                ("5col", "cat", "def")):
+        _, leaf, _, streams = chunk_pages(files[file], column)
+        top = (leaf.max_definition_level if level == "def"
+               else leaf.max_repetition_level)
+        w = top.bit_length()
+        todo = [(s[level], s["n"]) for s in streams]
+        chunk = f"{file} {column} row group 0, {level} levels"
+        tables = [host.scan_rle_runs(b, n, w) for b, n in todo]
+        sizes = {"pages": len(todo), "values": sum(n for _, n in todo),
+                 "stream_bytes": sum(len(b) for b, _ in todo),
+                 "runs": sum(len(t[0]) for t in tables), "bit_width": w}
+        rows.append(prescan_row(
+            "pq_scan_rle_runs", chunk,
+            lambda: [host.scan_rle_runs(b, n, w) for b, n in todo],
+            lambda: [ref.scan_rle_runs(b, n, w) for b, n in todo], 5,
+            calls[file]["pq_scan_rle_runs"], **sizes))
+        if level == "def":
+            rows.append(prescan_row(
+                "pq_count_target_in_runs", chunk,
+                lambda: [host.count_present(b, *t[:4], w, top)
+                         for (b, _), t in zip(todo, tables)],
+                lambda: [ref.count_in_runs(b, *t[:4], w, top)
+                         for (b, _), t in zip(todo, tables)], 5,
+                calls[file]["pq_count_target_in_runs"], **sizes))
+
+    _, _, _, streams = chunk_pages(files["5col"], "ts")
+    todo = [(s["raw"], s["pos"]) for s in streams]
+    rows.append(prescan_row(
+        "pq_delta_prescan", "5col ts row group 0",
+        lambda: [host.delta_prescan(r, p) for r, p in todo],
+        lambda: [dev.delta_prescan(r, p) for r, p in todo], 5,
+        calls["5col"]["pq_delta_prescan"], pages=len(todo),
+        values=sum(s["n"] for s in streams),
+        miniblocks=sum(len(host.delta_prescan(r, p)[3]) for r, p in todo)))
+
+    for column in ("ba_dlba", "ba_dba"):
+        _, _, _, streams = chunk_pages(files["enc_snappy"], column)
+        todo = []
+        for s in streams:
+            todo.append((s["raw"], s["pos"]))
+            if column == "ba_dba":  # prefix lengths, then suffix lengths
+                todo.append((s["raw"], host.decode_delta_binary_packed(
+                    s["raw"], s["pos"])[1]))
+        rows.append(prescan_row(
+            "pq_delta_decode", f"enc v1-SNAPPY {column} row group 0, "
+            "length streams",
+            lambda: [host.decode_delta_binary_packed(r, p) for r, p in todo],
+            lambda: [ref.decode_delta_binary_packed(r, p) for r, p in todo],
+            5, calls["enc_snappy"]["pq_delta_decode"], pages=len(streams),
+            streams=len(todo), values=sum(
+                len(host.decode_delta_binary_packed(r, p)[0])
+                for r, p in todo)))
+
+    for file, column in (("lineitem", "l_comment"), ("enc_zstd", "ba_dlba")):
+        reader, _, pages, _ = chunk_pages(files[file], column)
+        start, size = reader.byte_range
+        raw = reader.file.source.pread(start, size)
+        total = reader.meta.num_values
+        chunk = f"{file} {column} row group 0"
+        rows.append(prescan_row(
+            "pq_scan_page_headers", chunk,
+            lambda: page_infos(raw, start, host.scan_page_headers(
+                raw, total, base=start)),
+            lambda: list(thrift_page_walk(raw, start, total)), 5,
+            calls[file]["pq_scan_page_headers"],
+            views=(lambda ps: [(p.offset, p.header, bytes(p.payload))
+                               for p in ps],
+                   lambda ps: [(p.offset, _plain_header(p.header),
+                                bytes(p.payload)) for p in ps]),
+            pages=len(pages), chunk_bytes=size))
+        data = [p for p in pages if p.page_type in (PageType.DATA_PAGE,
+                                                    PageType.DATA_PAGE_V2)]
+        srcs = [p.payload for p in data]
+        sizes = [p.header.uncompressed_page_size for p in data]
+        codec = reader.codec
+        threads = host.decompress_threads(sum(sizes))
+
+        def batched():
+            buf, offs = host.decompress_pages(srcs, sizes,
+                                              int(codec.codec_id), threads)
+            return [buf[offs[i]:offs[i + 1]] for i in range(len(srcs))]
+
+        rows.append(prescan_row(
+            "pq_decompress_pages", chunk, batched,
+            lambda: [host.as_u8(codec.decode(b, n))
+                     for b, n in zip(srcs, sizes)], 5,
+            calls[file]["pq_decompress_pages"], codec=codec.codec_id.name,
+            pages=len(data), compressed_bytes=sum(len(b) for b in srcs),
+            bytes_out=sum(sizes), threads=threads))
+    log({"prescan": rows})
+    log({"prescan_calls_per_read": calls})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1903,6 +2159,57 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
     return out
 
 
+# the paths whose phases the summary adds up: (name, the log line with
+# the path's rows and warm reads, the breakdown with its columns' phases)
+SUMMARY_PATHS = (
+    ("5col", ("main_path",), ("breakdown", "columns")),
+    ("lineitem", ("lineitem_path",), ("lineitem_breakdown", "columns")),
+    ("enc_v1_snappy", ("enc_path", "files", "v1-SNAPPY"),
+     ("enc_path", "v1_snappy_columns")),
+    ("cfg4", ("nested_path", "cfg4"), ("nested_breakdown", "columns")),
+)
+
+
+def path_summary(objs) -> dict:
+    """Per path of a ``chip_smoke.py`` run's printed objects (this
+    version's or an earlier one's): the host prescan (``plan_s``), staging
+    and decode seconds of one read summed over its chunks, and the best
+    warm read's seconds and rows/s."""
+    found = {}
+    for obj in objs:
+        if isinstance(obj, dict):
+            found.update(obj)
+    out = {}
+    for name, read_key, cols_key in SUMMARY_PATHS:
+        if read_key[0] not in found or cols_key[0] not in found:
+            continue
+        read, cols = found, found
+        for k in read_key:
+            read = read[k]
+        for k in cols_key:
+            cols = cols[k]
+        rows = read.get("rows") or found[read_key[0]].get("rows")
+        best = min(read["warm_read_s"])
+        out[name] = {ph: sum(c[ph] for c in cols.values())
+                     for ph in ("plan_s", "stage_s", "decode_s")}
+        out[name].update(best_warm_read_s=best, rows_per_s=rows / best)
+    return out
+
+
+def summarize(path: str) -> int:
+    """``--summarize LOG``: the path summary of a saved run's output."""
+    objs = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("{"):
+                try:
+                    objs.append(json.loads(line))
+                except json.JSONDecodeError:
+                    pass
+    print(json.dumps({"path_phases": path_summary(objs)}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1920,7 +2227,13 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke_sweep.json (none by "
                     "default)")
+    ap.add_argument("--summarize", metavar="LOG", default=None,
+                    help="print the per-path phase summary of a saved "
+                    "run's output (of this or an earlier chip_smoke.py) "
+                    "and exit; needs no card")
     args = ap.parse_args(argv)
+    if args.summarize:
+        return summarize(args.summarize)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
@@ -1964,6 +2277,7 @@ def main(argv=None) -> int:
         nested["shapes"] = {**path_operands(nested["path"], CFG4_SHAPES),
                             **path_operands(nested["mix_path"],
                                             NEST_MIX_SHAPES)}
+        phase("4e_prescan", prescan_path, read, item, enc, nested)
         look = phase("5_lookup", lookup_path, args.lookup_rows, args.seed,
                      tmp)
         # the short profiler windows of the kernels and ops come before
@@ -1986,6 +2300,7 @@ def main(argv=None) -> int:
         log({"lookup_breakdown": {**look["stages"], **device_profile(
             look["run"], "lookup")}})
         phase_s["7_profiled"] = time.perf_counter() - t0
+    log({"path_phases": path_summary(LOGGED)})
     log({"phase_s": phase_s})
 
     if args.out:

@@ -30,6 +30,8 @@ from .ops import host
 
 
 class Codec:
+    codec_id: CompressionCodec
+
     def encode(self, data) -> bytes:
         raise NotImplementedError
 
@@ -38,6 +40,8 @@ class Codec:
 
 
 class UncompressedCodec(Codec):
+    codec_id = CompressionCodec.UNCOMPRESSED
+
     def encode(self, data) -> bytes:
         return bytes(data)
 
@@ -48,6 +52,8 @@ class UncompressedCodec(Codec):
 
 class GzipCodec(Codec):
     """RFC 1952 gzip framing over deflate (the parquet GZIP codec)."""
+
+    codec_id = CompressionCodec.GZIP
 
     def encode(self, data) -> bytes:
         c = zlib.compressobj(6, zlib.DEFLATED, 16 + 15)
@@ -63,6 +69,8 @@ class GzipCodec(Codec):
 
 class SnappyCodec(Codec):
     """The raw Snappy block format (no framing), as Parquet stores it."""
+
+    codec_id = CompressionCodec.SNAPPY
 
     def encode(self, data) -> bytes:
         return host.snappy_compress(data)
@@ -96,15 +104,19 @@ LIBRARIES = {
 }
 
 
+def missing_library(codec: CompressionCodec, names) -> NotImplementedError:
+    """The error for ``codec`` when none of ``names`` loads."""
+    return unsupported(f"the {codec.name} codec without {' or '.join(names)}",
+                       "none: the codec needs its system library")
+
+
 def _require(codec: CompressionCodec, names=None) -> ctypes.CDLL:
     """The loaded system library of ``codec`` (``names``: the sonames to
     try, ``LIBRARIES[codec]`` by default)."""
     names = names or LIBRARIES[codec]
     path = system_library(*names)
     if path is None:
-        raise unsupported(
-            f"the {codec.name} codec without {' or '.join(names)}",
-            "none: the codec needs its system library")
+        raise missing_library(codec, names)
     return ctypes.CDLL(path)
 
 
@@ -114,6 +126,8 @@ _P, _SZ = ctypes.c_void_p, ctypes.c_size_t
 class ZstdCodec(Codec):
     """Zstandard through ``libzstd``'s one-shot calls (thread-safe: each call
     makes its own context)."""
+
+    codec_id = CompressionCodec.ZSTD
 
     def __init__(self, level: int = 3):
         lib = _require(CompressionCodec.ZSTD)
@@ -150,6 +164,8 @@ class ZstdCodec(Codec):
 
 class Lz4RawCodec(Codec):
     """The LZ4 block format (LZ4_RAW, the current parquet LZ4 codec)."""
+
+    codec_id = CompressionCodec.LZ4_RAW
 
     def __init__(self):
         lib = _require(CompressionCodec.LZ4_RAW)
@@ -190,6 +206,8 @@ class Lz4HadoopCodec(Codec):
     [LZ4 block].  Some writers stored bare LZ4 blocks under this id, so a
     stream that does not parse as frames decodes as one bare block."""
 
+    codec_id = CompressionCodec.LZ4
+
     def __init__(self):
         self._raw = Lz4RawCodec()
 
@@ -220,6 +238,8 @@ class Lz4HadoopCodec(Codec):
 
 
 class BrotliCodec(Codec):
+    codec_id = CompressionCodec.BROTLI
+
     def __init__(self):
         dec = _require(CompressionCodec.BROTLI)
         enc = _require(CompressionCodec.BROTLI,

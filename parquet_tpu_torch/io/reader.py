@@ -33,7 +33,8 @@ from .. import codecs
 from ..errors import MAX_PAGE_SIZE, CorruptedError, unsupported
 from ..format import metadata as md
 from ..format import thrift
-from ..format.enums import Encoding, PageType, Type
+from ..format.enums import CompressionCodec, Encoding, PageType, Type
+from ..ops import host
 from ..schema.schema import Leaf, Schema
 from .column import Column, concat_columns
 from .source import Source, as_source
@@ -49,7 +50,7 @@ class PageInfo:
     """One parsed page: header + raw (still compressed) payload."""
 
     header: md.PageHeader
-    payload: bytes
+    payload: np.ndarray  # uint8 (a view of the chunk's bytes)
     offset: int  # absolute file offset of the page header
 
     @property
@@ -66,6 +67,92 @@ class PageInfo:
         if h.dictionary_page_header is not None:
             return h.dictionary_page_header.num_values
         return 0
+
+
+_PAGE_TYPES = frozenset(int(t) for t in PageType)
+
+
+def _opt(v: int) -> Optional[int]:
+    return None if v == -1 else v
+
+
+def _page_header(row: List[int]) -> md.PageHeader:
+    """A page-header table row as the thrift walk's ``PageHeader``
+    (statistics are not parsed; the CRC is its unsigned 32-bit value)."""
+    t = row[host.PG_TYPE]
+    h = md.PageHeader(
+        type=t, uncompressed_page_size=_opt(row[host.PG_UNCOMP]),
+        compressed_page_size=row[host.PG_COMP], crc=_opt(row[host.PG_CRC]))
+    enc = _opt(row[host.PG_ENC])
+    if t == PageType.DATA_PAGE:
+        h.data_page_header = md.DataPageHeader(
+            num_values=row[host.PG_NVALS], encoding=enc,
+            definition_level_encoding=_opt(row[host.PG_DEF_ENC]),
+            repetition_level_encoding=_opt(row[host.PG_REP_ENC]))
+    elif t == PageType.DATA_PAGE_V2:
+        comp = row[host.PG_IS_COMPRESSED]
+        h.data_page_header_v2 = md.DataPageHeaderV2(
+            num_values=row[host.PG_NVALS],
+            num_nulls=_opt(row[host.PG_NNULLS]),
+            num_rows=_opt(row[host.PG_NROWS]), encoding=enc,
+            definition_levels_byte_length=_opt(row[host.PG_DL_BYTES]),
+            repetition_levels_byte_length=_opt(row[host.PG_RL_BYTES]),
+            is_compressed=None if comp == -1 else bool(comp))
+    elif t == PageType.DICTIONARY_PAGE:
+        h.dictionary_page_header = md.DictionaryPageHeader(
+            num_values=_opt(row[host.PG_DICT_NVALS]), encoding=enc)
+    return h
+
+
+def page_infos(raw, start: int, table: np.ndarray) -> List[PageInfo]:
+    """The :class:`PageInfo` of each row of ``raw``'s page-header table
+    (``host.scan_page_headers``); payloads are views of ``raw``."""
+    buf = host.as_u8(raw)
+    out = []
+    for row in table.tolist():
+        at = row[host.PG_HEADER_POS]
+        if row[host.PG_TYPE] not in _PAGE_TYPES:
+            raise CorruptedError(f"bad page header at {start + at}: page "
+                                 f"type {row[host.PG_TYPE]}")
+        data = row[host.PG_DATA_POS]
+        out.append(PageInfo(header=_page_header(row),
+                            payload=buf[data:data + row[host.PG_COMP]],
+                            offset=start + at))
+    return out
+
+
+def thrift_page_walk(raw, start: int,
+                     total_values: Optional[int] = None
+                     ) -> Iterator[PageInfo]:
+    """The pages of a page stream, one thrift ``PageHeader`` deserialized a
+    page, while fewer than ``total_values`` data values were seen (None: no
+    limit) and bytes remain.  The plain version of the C++ header table
+    the reader walks (``host.scan_page_headers``), kept as the tests'
+    oracle."""
+    pos = 0
+    values_seen = 0
+    size = len(raw)
+    while ((total_values is None or values_seen < total_values)
+           and pos < size):
+        try:
+            header, data_pos = thrift.deserialize(md.PageHeader, raw, pos)
+        except (thrift.ThriftError, IndexError, struct.error) as e:
+            raise CorruptedError(
+                f"bad page header at {start + pos}: {e}") from e
+        clen = header.compressed_page_size
+        if clen is None or not 0 <= clen <= MAX_PAGE_SIZE:
+            raise CorruptedError(
+                f"page at {start + pos}: compressed size {clen} out of "
+                "range")
+        payload = raw[data_pos:data_pos + clen]
+        if len(payload) != clen:
+            raise CorruptedError(
+                f"truncated page payload at {start + pos}")
+        page = PageInfo(header=header, payload=payload, offset=start + pos)
+        if page.page_type in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
+            values_seen += page.num_values
+        yield page
+        pos = data_pos + clen
 
 
 class ColumnChunkReader:
@@ -99,60 +186,23 @@ class ColumnChunkReader:
         return start, m.total_compressed_size
 
     def pages(self) -> Iterator[PageInfo]:
-        """Parse the chunk's page stream from one contiguous read."""
+        """The chunk's pages, from one contiguous read and its C++
+        page-header table."""
         start, size = self.byte_range
         raw = self.file.source.pread(start, size)
-        pos = 0
-        values_seen = 0
         total = self.meta.num_values
-        while values_seen < total and pos < size:
-            try:
-                header, data_pos = thrift.deserialize(md.PageHeader, raw, pos)
-            except (thrift.ThriftError, IndexError, struct.error) as e:
-                raise CorruptedError(
-                    f"bad page header at {start + pos}: {e}") from e
-            clen = header.compressed_page_size
-            if clen is None or not 0 <= clen <= MAX_PAGE_SIZE:
-                raise CorruptedError(
-                    f"page at {start + pos}: compressed size {clen} out of "
-                    "range")
-            payload = raw[data_pos:data_pos + clen]
-            if len(payload) != clen:
-                raise CorruptedError(
-                    f"truncated page payload at {start + pos}")
-            page = PageInfo(header=header, payload=payload,
-                            offset=start + pos)
-            if page.page_type in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
-                values_seen += page.num_values
-            yield page
-            pos = data_pos + clen
+        table = host.scan_page_headers(raw, -1 if total is None else total,
+                                       base=start)
+        return iter(page_infos(raw, start, table))
 
     def pages_at(self, offset: int, size: int,
                  num_pages: Optional[int] = None) -> Iterator[PageInfo]:
-        """Parse the pages of one byte span of the chunk (an offset-index
-        seek: one pread covering just the selected pages)."""
+        """The pages of one byte span of the chunk (an offset-index seek:
+        one pread covering just the selected pages)."""
         raw = self.file.source.pread(offset, size)
-        pos = 0
-        yielded = 0
-        while pos < size and (num_pages is None or yielded < num_pages):
-            try:
-                header, data_pos = thrift.deserialize(md.PageHeader, raw, pos)
-            except (thrift.ThriftError, IndexError, struct.error) as e:
-                raise CorruptedError(
-                    f"bad page header at {offset + pos}: {e}") from e
-            clen = header.compressed_page_size
-            if clen is None or not 0 <= clen <= MAX_PAGE_SIZE:
-                raise CorruptedError(
-                    f"page at {offset + pos}: compressed size {clen} out of "
-                    "range")
-            payload = raw[data_pos:data_pos + clen]
-            if len(payload) != clen:
-                raise CorruptedError(
-                    f"truncated page payload at {offset + pos}")
-            yield PageInfo(header=header, payload=payload,
-                           offset=offset + pos)
-            yielded += 1
-            pos = data_pos + clen
+        table = host.scan_page_headers(raw, max_pages=num_pages,
+                                       base=offset)
+        return iter(page_infos(raw, offset, table))
 
     def _read_index(self, cls, offset, length, what: str):
         if length is None or not 0 <= length <= MAX_INDEX_SIZE:
@@ -200,6 +250,54 @@ class ColumnChunkReader:
 
             self._st = decode_statistics(self.meta.statistics, self.leaf)
         return self._st
+
+
+#: codecs whose data pages decompress in one C++ call a chunk
+_BATCHED_CODECS = (CompressionCodec.SNAPPY, CompressionCodec.ZSTD)
+
+
+def data_page_bodies(reader: ColumnChunkReader,
+                     pages: Sequence[PageInfo]) -> List[Optional[np.ndarray]]:
+    """The decompressed bytes of each data page of ``pages`` (uint8; a v1
+    page whole, a v2 page after its uncompressed levels), None for the
+    others.  SNAPPY and ZSTD pages decompress in one C++ call
+    (``host.decompress_pages``, threaded only for a batch of 8 MiB or
+    more), UNCOMPRESSED ones stay views of the payload, and the other
+    codecs decode page by page."""
+    out: List[Optional[np.ndarray]] = [None] * len(pages)
+    srcs, sizes, where = [], [], []
+    for i, page in enumerate(pages):
+        h = page.header
+        pt = page.page_type
+        size = h.uncompressed_page_size
+        size = -1 if size is None else size
+        if pt == PageType.DATA_PAGE:
+            src = page.payload
+        elif pt == PageType.DATA_PAGE_V2:
+            dph2 = h.data_page_header_v2
+            skip = ((dph2.repetition_levels_byte_length or 0)
+                    + (dph2.definition_levels_byte_length or 0))
+            src = page.payload[skip:]
+            if dph2.is_compressed is False:
+                out[i] = host.as_u8(src)
+                continue
+            size -= skip
+        else:
+            continue
+        srcs.append(src)
+        sizes.append(size)
+        where.append(i)
+    codec = reader.codec
+    if codec.codec_id in _BATCHED_CODECS and srcs:
+        buf, offs = host.decompress_pages(
+            srcs, sizes, int(codec.codec_id),
+            host.decompress_threads(sum(max(s, 0) for s in sizes)))
+        for j, i in enumerate(where):
+            out[i] = buf[offs[j]:offs[j + 1]]
+    else:
+        for src, size, i in zip(srcs, sizes, where):
+            out[i] = host.as_u8(codec.decode(src, size))
+    return out
 
 
 def decode_dictionary_page(reader: ColumnChunkReader, page: PageInfo):
@@ -402,7 +500,7 @@ def _decode_values(raw: np.ndarray, pos: int, nvals: int,
         return "val", ref.decode_rle_len_prefixed(body, nvals, 1)[0] != 0
     if encoding == Encoding.DELTA_BINARY_PACKED and physical in (
             Type.INT32, Type.INT64):
-        v = ref.decode_delta_binary_packed(body)[0][:nvals]
+        v = host.decode_delta_binary_packed(body)[0][:nvals]
         return "val", v.astype(PHYSICAL_NP_DTYPE[physical])
     if encoding == Encoding.DELTA_LENGTH_BYTE_ARRAY and \
             physical == Type.BYTE_ARRAY:
@@ -483,13 +581,13 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
 
     device = torch.device(device)
     leaf = reader.leaf
-    codec = reader.codec
     physical = Type(reader.meta.type)
     max_def = leaf.max_definition_level
     max_rep = leaf.max_repetition_level
     defs, reps, parts = [], [], []
     slots = 0
-    for page in (reader.pages() if pages is None else pages):
+    pages = list(reader.pages() if pages is None else pages)
+    for page, raw in zip(pages, data_page_bodies(reader, pages)):
         h = page.header
         pt = page.page_type
         if pt == PageType.DICTIONARY_PAGE:
@@ -498,9 +596,6 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
         if pt == PageType.DATA_PAGE:
             dph = h.data_page_header
             n = dph.num_values
-            raw = np.frombuffer(codec.decode(page.payload,
-                                             h.uncompressed_page_size),
-                                np.uint8)
             pos = 0
             if max_rep:
                 rep, pos = _page_levels(raw, pos, n, Encoding(
@@ -518,17 +613,14 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
             n = dph2.num_values
             rl = dph2.repetition_levels_byte_length or 0
             dl = dph2.definition_levels_byte_length or 0
-            payload = np.frombuffer(page.payload, np.uint8)
+            payload = host.as_u8(page.payload)
             if max_rep:
                 reps.append(ref.decode_rle(payload[:rl], n,
                                            int(max_rep).bit_length()))
             if max_def:
                 defs.append(ref.decode_rle(payload[rl:rl + dl], n,
                                            int(max_def).bit_length()))
-            body = payload[rl + dl:]
-            if dph2.is_compressed is not False:
-                body = codec.decode(body, h.uncompressed_page_size - rl - dl)
-            raw, pos = np.frombuffer(body, np.uint8), 0
+            pos = 0
             encoding = Encoding(dph2.encoding)
         else:
             continue

@@ -2,18 +2,26 @@
 
 Each ``csrc/<name>.cu`` (a CUDA kernel) compiles with ``nvcc`` for
 ``sm_90a``, and each ``csrc/<name>.cpp`` (host code: the Snappy codec and
-the byte-array scans) with the system ``c++``, into its own shared library
-with a plain C interface, ``_build/lib<name>.<hash>.so`` in the package
-directory, at first use; ``<hash>`` covers the source, the headers of
-``csrc/`` a kernel may include and the flags, so an edited source or
-header rebuilds.  The libraries load with ``ctypes``.  :func:`build_all`
-starts one compiler per source at once.  A failed build raises: there is
-no fallback.
+the byte-array scans, the read path's prescan) with the system ``c++``,
+into its own shared library with a plain C interface,
+``_build/lib<name>.<hash>.so`` in the package directory, at first use;
+``<hash>`` covers the source, the headers of ``csrc/`` it may include
+(``.cuh`` for a kernel, ``.h`` for host code) and the flags, so an edited
+source or header rebuilds.  The libraries load with ``ctypes``.
+:func:`build_all` starts one compiler per source at once.  A failed build
+raises: there is no fallback.
+
+One compile per library across processes: the check for the library and
+its build run under an ``fcntl.flock`` on ``_build/.<name>.lock``, so the
+first process compiles and the others wait, then load the same file (the
+test workers of one session all start cold).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -26,7 +34,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-I", CSRC]
-CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-I", CSRC]
 BUILD_TIMEOUT_S = 600
 
 # C entry points of each source: name -> (restype, argtypes)
@@ -54,8 +62,20 @@ SIGNATURES = {
         "pq_dict_build_ba": (_LL, [_P, _P, _LL, _LL, _P, _P]),
         "pq_common_prefix_lens": (None, [_P, _P, _LL, _P]),
     },
+    "host_prescan": {
+        "pq_scan_rle_runs": (_LL, [_P, _LL, _LL, _LL, _P, _P, _P, _P, _P]),
+        "pq_count_target_in_runs": (_LL, [_P, _LL, _P, _P, _P, _P, _LL, _LL,
+                                          _LL]),
+        "pq_delta_prescan": (_LL, [_P, _LL, _LL, _LL, _P, _P, _P, _P]),
+        "pq_delta_decode": (_LL, [_P, _LL, _LL, _LL, _LL, _P, _P, _P, _LL,
+                                  _P]),
+        "pq_scan_page_headers": (_LL, [_P, _LL, _LL, _LL, _P, _LL, _P]),
+        "pq_zstd_available": (_LL, []),
+        "pq_decompress_pages": (_LL, [_P, _P, _LL, _LL, _P, _P, _LL]),
+    },
 }
-HOST_SOURCES = ("host_codec",)  # csrc/<name>.cpp, built with c++
+# csrc/<name>.cpp, built with c++
+HOST_SOURCES = ("host_codec", "host_prescan")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -95,21 +115,32 @@ def lib_path(name: str) -> str:
     host = name in HOST_SOURCES
     digest = hashlib.sha256(" ".join(CXX_FLAGS if host
                                      else NVCC_FLAGS).encode())
-    headers = [] if host else sorted(f for f in os.listdir(CSRC)
-                                     if f.endswith(".cuh"))
+    headers = sorted(f for f in os.listdir(CSRC)
+                     if f.endswith(".h" if host else ".cuh"))
     for src in [_source(name)] + headers:
         with open(os.path.join(CSRC, src), "rb") as f:
             digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}.{digest.hexdigest()[:12]}.so")
 
 
+@contextlib.contextmanager
+def _file_lock(name: str):
+    """Hold ``_build/.<name>.lock`` exclusively (blocks while another
+    process builds ``name``)."""
+    with open(os.path.join(BUILD_DIR, f".{name}.lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _start(name: str):
     """Start the compiler for one source into a temporary file; None if
-    built."""
+    built.  The caller holds the source's file lock."""
     out = lib_path(name)
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = _command(name, tmp)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -133,21 +164,28 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
-def build_all(names: List[str] = None) -> None:
+def build_all(names: List[str] = None) -> List[str]:
     """Build every library that is missing (the kernels and the host code),
-    one compiler per source, all started together."""
-    names = list(SIGNATURES) if names is None else names
-    started = {n: _start(n) for n in names}
+    one compiler per source, all started together, under the sources' file
+    locks (taken in name order, so two processes never wait on each other
+    in a cycle).  Returns the names this call compiled."""
+    names = sorted(SIGNATURES if names is None else names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
     errors = []
-    for n, s in started.items():
-        if s is None:
-            continue
-        try:
-            _finish(n, s)
-        except RuntimeError as e:
-            errors.append(str(e))
+    with contextlib.ExitStack() as locks:
+        for n in names:
+            locks.enter_context(_file_lock(n))
+        started = {n: _start(n) for n in names}
+        for n, s in started.items():
+            if s is None:
+                continue
+            try:
+                _finish(n, s)
+            except RuntimeError as e:
+                errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return [n for n, s in started.items() if s is not None]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -150,7 +150,9 @@ def delta_prescan(data, pos: int = 0):
     """Host pre-scan of a DELTA_BINARY_PACKED stream into device metadata.
 
     Returns (first_value, total, vpm, mb_bit_offsets, mb_widths,
-    mb_min_deltas, end_pos).  O(miniblocks), not O(values)."""
+    mb_min_deltas, end_pos).  O(miniblocks), not O(values).  The plain
+    version of the C++ table the read path builds
+    (``host.delta_prescan``), kept as the tests' oracle."""
     block_size, pos = ref.read_uvarint(data, pos)
     n_miniblocks, pos = ref.read_uvarint(data, pos)
     total, pos = ref.read_uvarint(data, pos)

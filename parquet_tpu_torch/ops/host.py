@@ -1,26 +1,48 @@
-"""numpy faces of the host C++ of ``csrc/host_codec.cpp``.
+"""numpy faces of the host C++ of ``csrc/host_codec.cpp`` and
+``csrc/host_prescan.cpp``.
 
-The Snappy raw format both ways, and the byte-array scans of the read and
-write paths: PLAIN BYTE_ARRAY pages to ``(values, offsets)`` and back,
-unsigned lexicographic min/max, first-seen dictionaries and the common
-prefixes of front coding.  The library builds with the system ``c++`` at
-first use (``ops/_build.py``).  Sizes and bounds are checked here before
-a pointer reaches C++, and the C++ checks what only a scan can see.
+``host_codec``: the Snappy raw format both ways, and the byte-array scans
+of the read and write paths: PLAIN BYTE_ARRAY pages to ``(values,
+offsets)`` and back, unsigned lexicographic min/max, first-seen
+dictionaries and the common prefixes of front coding.
+
+``host_prescan``: the read path's prescan.  Each wrapper returns what the
+Python version it replaces returns, and raises its
+:class:`~parquet_tpu_torch.errors.CorruptedError`:
+
+- :func:`scan_rle_runs`: ``ops/ref.py::scan_rle_runs``;
+- :func:`count_present`: the values of a run table equal to a level;
+- :func:`delta_prescan`: ``ops/device.py::delta_prescan``;
+- :func:`decode_delta_binary_packed`: ``ops/ref.py``'s, for the length
+  streams of the delta byte-array encodings;
+- :func:`scan_page_headers`: ``io/reader.py::thrift_page_walk`` as one
+  ``int64[npages, PG_NFIELDS]`` table;
+- :func:`decompress_pages`: every data page of a chunk in one call.
+
+The libraries build with the system ``c++`` at first use
+(``ops/_build.py``).  Sizes and bounds are checked here before a pointer
+reaches C++, and the C++ checks what only a scan can see.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..errors import CorruptedError
+from ..errors import MAX_PAGE_SIZE, CorruptedError
+from ..format.enums import CompressionCodec
 from . import _build
 
 
 def _lib():
     return _build.load("host_codec")
+
+
+def _prescan():
+    return _build.load("host_prescan")
 
 
 def as_u8(data) -> np.ndarray:
@@ -200,3 +222,209 @@ def gather_byte_arrays(values: np.ndarray, offsets: np.ndarray,
     idx = np.repeat(offsets[:-1][indices], lens) + segment_ranges(lens)
     return np.asarray(values)[idx], out_offs
 
+
+
+# ---------------------------------------------------------------------------
+# the read path's prescan (csrc/host_prescan.cpp)
+# ---------------------------------------------------------------------------
+
+_E_ZERO_RUN, _E_TRUNCATED, _E_HEADER, _E_WIDTH, _E_CAPACITY = (
+    -1, -2, -3, -4, -5)
+
+
+def scan_rle_runs(data, num_values: int, bit_width: int, pos: int = 0):
+    """The run table of a hybrid stream at ``pos``: ``(kinds u8 (0 = RLE,
+    1 = bit-packed), counts i64, payloads i64, byte offsets i64, end)``;
+    offsets and ``end`` index ``data``.  A zero-count run, or a header, RLE
+    value or bit-packed payload past the stream, raises."""
+    buf = as_u8(data)[pos:]
+    if not 0 <= bit_width <= 64:
+        raise CorruptedError(f"RLE hybrid bit width {bit_width} outside "
+                             "0..64")
+    cap = max(min(num_values, len(buf)), 1)  # a run takes >= 1 byte
+    kinds = np.empty(cap, np.uint8)
+    counts, payloads, offsets = (np.empty(cap, np.int64) for _ in range(3))
+    end = np.zeros(1, np.int64)
+    k = _prescan().pq_scan_rle_runs(
+        _ptr(buf), len(buf), max(num_values, 0), bit_width,
+        kinds.ctypes.data, counts.ctypes.data, payloads.ctypes.data,
+        offsets.ctypes.data, end.ctypes.data)
+    if k == _E_ZERO_RUN:
+        raise CorruptedError("malformed RLE hybrid stream: zero-count run")
+    if k < 0:
+        raise CorruptedError("RLE hybrid stream truncated")
+    offsets = offsets[:k]
+    offsets += pos
+    return kinds[:k], counts[:k], payloads[:k], offsets, int(end[0]) + pos
+
+
+def count_present(body, kinds, counts, payloads, offsets, width: int,
+                  target: int) -> int:
+    """How many values of ``body``'s scanned run table (offsets into
+    ``body``) equal ``target``: a page's present count, def ==
+    max_def."""
+    body = as_u8(body)
+    kinds = np.ascontiguousarray(kinds, np.uint8)
+    counts, payloads, offsets = (np.ascontiguousarray(a, np.int64)
+                                 for a in (counts, payloads, offsets))
+    if not len(kinds) == len(counts) == len(payloads) == len(offsets):
+        raise ValueError("run table columns of different lengths")
+    n = _prescan().pq_count_target_in_runs(
+        _ptr(body), len(body), _ptr(kinds), _ptr(counts), _ptr(payloads),
+        _ptr(offsets), len(kinds), width, target)
+    if n < 0:
+        raise CorruptedError("RLE hybrid stream truncated")
+    return n
+
+
+def delta_prescan(data, pos: int = 0):
+    """The miniblock table of a DELTA_BINARY_PACKED stream at ``pos``:
+    ``(first, total, vpm, mb_bit_offsets i64, mb_widths i32, mb_mins i64,
+    end)``, offsets into ``data``.  The table is sized from the header's
+    total and the bytes left (a header holds untrusted sizes)."""
+    buf = as_u8(data)
+    header = np.zeros(6, np.int64)
+
+    def scan(cap: int):
+        offs = np.empty(cap, np.int64)
+        widths = np.empty(cap, np.int32)
+        mins = np.empty(cap, np.int64)
+        k = _prescan().pq_delta_prescan(
+            _ptr(buf), len(buf), pos, cap, header.ctypes.data,
+            offs.ctypes.data, widths.ctypes.data, mins.ctypes.data)
+        return k, offs, widths, mins
+
+    k, offs, widths, mins = scan(64)
+    if k == _E_CAPACITY:
+        # one row a counted miniblock, each with a width byte in the stream
+        total, vpm = int(header[1]), int(header[2])
+        k, offs, widths, mins = scan(
+            min(-(-(total - 1) // vpm), len(buf) - pos) + 1)
+    if k == _E_HEADER:
+        raise CorruptedError(
+            f"malformed DELTA_BINARY_PACKED header: block_size="
+            f"{int(header[4])}, miniblocks={int(header[5])}")
+    if k == _E_WIDTH:
+        raise CorruptedError("DELTA_BINARY_PACKED miniblock bit width over "
+                             "64")
+    if k < 0:
+        raise CorruptedError("DELTA_BINARY_PACKED stream truncated")
+    return (int(header[0]), int(header[1]), int(header[2]), offs[:k],
+            widths[:k], mins[:k], int(header[3]))
+
+
+def decode_delta_binary_packed(data, pos: int = 0) -> Tuple[np.ndarray, int]:
+    """A DELTA_BINARY_PACKED stream to int64 values (mod-2^64 sums) and its
+    end: the length streams of DELTA_LENGTH_BYTE_ARRAY and
+    DELTA_BYTE_ARRAY pages, and the host route's delta pages."""
+    buf = as_u8(data)
+    first, total, vpm, offs, widths, mins, end = delta_prescan(buf, pos)
+    out = np.empty(max(total, 1), np.int64)
+    if _prescan().pq_delta_decode(
+            _ptr(buf), len(buf), first, total, vpm, _ptr(offs),
+            _ptr(widths), _ptr(mins), len(offs), out.ctypes.data):
+        raise CorruptedError("DELTA_BINARY_PACKED stream truncated")
+    return out[:total], end
+
+
+# columns of a page-header table row (csrc/host_prescan.cpp's PG_* enum);
+# -1 where the header lacks the field
+(PG_HEADER_POS, PG_DATA_POS, PG_TYPE, PG_COMP, PG_UNCOMP, PG_CRC, PG_NVALS,
+ PG_ENC, PG_DEF_ENC, PG_REP_ENC, PG_RL_BYTES, PG_DL_BYTES, PG_NNULLS,
+ PG_IS_COMPRESSED, PG_DICT_NVALS, PG_NROWS, PG_NFIELDS) = range(17)
+
+_STOP_BAD_HEADER, _STOP_SIZE_RANGE, _STOP_TRUNCATED, _STOP_CAPACITY = (
+    1, 2, 3, 4)
+_BAD_HEADER = {1: "malformed thrift PageHeader", 2: "no page type",
+               3: "a data page without num_values"}
+
+
+def scan_page_headers(buf, total_values: int = -1,
+                      max_pages: Optional[int] = None,
+                      base: int = 0) -> np.ndarray:
+    """The page-header table of a page stream: one ``int64[PG_NFIELDS]``
+    row a page (positions relative to ``buf``), walking while fewer than
+    ``total_values`` data values were seen (negative: no limit), bytes
+    remain and, with ``max_pages``, fewer rows were read.  A malformed
+    header, a compressed size outside ``0..MAX_PAGE_SIZE`` or a payload
+    past ``buf`` raises, naming the header's position plus ``base``.
+    Page-header statistics are skipped."""
+    b = as_u8(buf)
+    cap = max_pages if max_pages is not None else len(b) // 4096 + 16
+    err = np.zeros(3, np.int64)
+    while True:
+        out = np.empty((max(cap, 1), PG_NFIELDS), np.int64)
+        k = _prescan().pq_scan_page_headers(
+            _ptr(b), len(b), total_values, MAX_PAGE_SIZE, out.ctypes.data,
+            cap, err.ctypes.data)
+        if err[0] != _STOP_CAPACITY or max_pages is not None:
+            break
+        cap *= 4
+    why, at = int(err[0]), base + int(err[1])
+    if why == _STOP_BAD_HEADER:
+        raise CorruptedError(f"bad page header at {at}: "
+                             f"{_BAD_HEADER[int(err[2])]}")
+    if why == _STOP_SIZE_RANGE:
+        clen = None if err[2] == np.iinfo(np.int64).min else int(err[2])
+        raise CorruptedError(f"page at {at}: compressed size {clen} out of "
+                             "range")
+    if why == _STOP_TRUNCATED:
+        raise CorruptedError(f"truncated page payload at {at}")
+    return out[:k]
+
+
+def decompress_threads(nbytes: int) -> int:
+    """Threads for a batch of ``nbytes`` of output: one below 8 MiB, else
+    one per 4 MiB up to 8 and the cores this process may use."""
+    if nbytes < 8 << 20:
+        return 1
+    return max(1, min(len(os.sched_getaffinity(0)), 8, nbytes >> 22))
+
+
+# the batched codecs, by the name their per-page errors give them
+_CODEC_NAMES = {CompressionCodec.SNAPPY: "Snappy",
+                CompressionCodec.ZSTD: "ZSTD"}
+
+
+def decompress_pages(srcs: Sequence, sizes: Sequence[int], codec_id: int,
+                     nthreads: int = 1) -> Tuple[np.ndarray, np.ndarray]:
+    """Decompress SNAPPY or ZSTD page payloads in one call on
+    ``nthreads`` threads: ``(buffer, offsets)``, page i at
+    ``buffer[offsets[i]:offsets[i + 1]]``, each exactly ``sizes[i]``
+    bytes.  A page that does not decode raises the codec's
+    ``CorruptedError`` (the first such page); ZSTD without libzstd raises
+    as ``codecs.get_codec`` does."""
+    if codec_id not in _CODEC_NAMES:
+        raise ValueError(f"codec {codec_id} is not batched")
+    lib = _prescan()
+    if codec_id == CompressionCodec.ZSTD and not lib.pq_zstd_available():
+        from ..codecs import LIBRARIES, missing_library
+
+        raise missing_library(CompressionCodec.ZSTD,
+                              LIBRARIES[CompressionCodec.ZSTD])
+    bufs = [as_u8(s) for s in srcs]
+    sizes = np.asarray(sizes, np.int64).reshape(-1)
+    if len(sizes) != len(bufs):
+        raise ValueError(f"{len(bufs)} pages but {len(sizes)} sizes")
+    bad = np.flatnonzero(sizes < 0)
+    offs = np.zeros(len(bufs) + 1, np.int64)
+    np.cumsum(np.maximum(sizes, 0), out=offs[1:])
+    out = np.empty(max(int(offs[-1]), 1), np.uint8)
+    rc = 0
+    if len(bad):
+        rc = -(int(bad[0]) + 1)
+    elif bufs:
+        ptrs = np.array([b.ctypes.data if len(b) else 0 for b in bufs],
+                        np.int64)
+        lens = np.array([len(b) for b in bufs], np.int64)
+        rc = lib.pq_decompress_pages(ptrs.ctypes.data, lens.ctypes.data,
+                                     len(bufs), codec_id, out.ctypes.data,
+                                     offs.ctypes.data, max(int(nthreads), 1))
+    if rc:
+        i = -rc - 1
+        unit = (" bytes out" if codec_id == CompressionCodec.SNAPPY
+                else " out")
+        raise CorruptedError(
+            f"malformed {_CODEC_NAMES[codec_id]} stream ({len(bufs[i])} "
+            f"bytes, expected {int(sizes[i])}{unit})")
+    return out[:int(offs[-1])], offs

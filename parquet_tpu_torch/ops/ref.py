@@ -11,7 +11,10 @@ and the lengths of front coding, while data-scale decode runs on the
 device (``ops/device.py``, ``ops/kernels.py``).  The host route
 (``io/reader.decode_chunk_host``) decodes whole pages with the expanding
 decoders here: :func:`decode_rle`, :func:`decode_delta_byte_array` and
-:func:`decode_byte_stream_split`.
+:func:`decode_byte_stream_split`.  Their run scans and delta length
+streams go through the C++ prescan (``ops/host.py``); :func:`scan_rle_runs`
+and :func:`decode_delta_binary_packed` here are its plain versions, which
+only the tests call.
 """
 
 from __future__ import annotations
@@ -132,7 +135,9 @@ def encode_plain(values, physical: Type,
 
 
 def scan_rle_runs(data, num_values: int, bit_width: int, pos: int = 0):
-    """Parse hybrid run headers into a run table (the host pre-scan).
+    """Parse hybrid run headers into a run table: the plain version of the
+    C++ scan the read path runs (``host.scan_rle_runs``), kept as the
+    tests' oracle.
 
     Returns (kinds u8[k] (0=RLE, 1=bit-packed), counts i64[k], payloads
     i64[k], byte_offsets i64[k], end_pos).  The payload is the repeated value
@@ -182,13 +187,40 @@ def scan_rle_runs(data, num_values: int, bit_width: int, pos: int = 0):
             pos)
 
 
+def count_in_runs(body, kinds, counts, payloads, offsets, width: int,
+                  target: int) -> int:
+    """How many values of ``body``'s scanned run table equal ``target``
+    (vectorized over the bit-packed runs): the plain version of
+    ``host.count_present``, kept as the tests' oracle."""
+    kinds = np.asarray(kinds)
+    counts = np.asarray(counts, np.int64)
+    payloads = np.asarray(payloads, np.int64)
+    total = int(counts[(kinds == 0) & (payloads == target)].sum())
+    packed = np.flatnonzero(kinds != 0)
+    if not len(packed):
+        return total
+    pc = counts[packed]
+    bitpos = (np.repeat(np.asarray(offsets, np.int64)[packed], pc) * 8
+              + host.segment_ranges(pc) * width)
+    buf = np.concatenate([host.as_u8(body), np.zeros(8, np.uint8)])
+    b0 = bitpos >> 3
+    w32 = (buf[b0].astype(np.uint32)
+           | (buf[b0 + 1].astype(np.uint32) << 8)
+           | (buf[b0 + 2].astype(np.uint32) << 16)
+           | (buf[b0 + 3].astype(np.uint32) << 24))
+    vals = (w32 >> (bitpos & 7).astype(np.uint32)) & np.uint32(
+        (1 << width) - 1)
+    return total + int(np.count_nonzero(vals == target))
+
+
 def decode_rle(data, num_values: int, bit_width: int,
                pos: int = 0) -> np.ndarray:
-    """Expand a hybrid stream to ``num_values`` int32 values: the run scan,
-    then every value at once (an RLE run's payload, or a packed value read
-    from an 8-byte little-endian window at its bit position)."""
-    kinds, counts, payloads, offs, _ = scan_rle_runs(data, num_values,
-                                                     bit_width, pos)
+    """Expand a hybrid stream to ``num_values`` int32 values: the run scan
+    (in C++, ``host.scan_rle_runs``), then every value at once (an RLE
+    run's payload, or a packed value read from an 8-byte little-endian
+    window at its bit position)."""
+    kinds, counts, payloads, offs, _ = host.scan_rle_runs(data, num_values,
+                                                          bit_width, pos)
     out = np.repeat(payloads, counts)
     if len(out) < num_values:
         raise CorruptedError(f"RLE hybrid stream holds {len(out)} of "
@@ -314,9 +346,9 @@ def encode_delta_binary_packed(values: np.ndarray, block_size: int = 128,
 def decode_delta_binary_packed(data, pos: int = 0) -> Tuple[np.ndarray, int]:
     """Decode a DELTA_BINARY_PACKED stream to int64 values (mod-2^64
     arithmetic) and its end position: the miniblock prescan, then one
-    vectorized unpack per bit width.  Host-side for length streams only
-    (the delta byte-array encodings); value columns decode on the
-    device."""
+    vectorized unpack per bit width.  The plain version of
+    ``host.decode_delta_binary_packed``, which the read path runs, kept as
+    the tests' oracle."""
     from .device import delta_prescan
 
     buf = host.as_u8(data)
@@ -383,7 +415,7 @@ def encode_bit_packed_levels(values: np.ndarray, bit_width: int) -> bytes:
 def decode_delta_length_byte_array(data, pos: int = 0):
     """``(values uint8, offsets int64[n + 1], end)``; the values are a view
     of ``data``."""
-    lengths, pos = decode_delta_binary_packed(data, pos)
+    lengths, pos = host.decode_delta_binary_packed(data, pos)
     offsets = np.zeros(len(lengths) + 1, np.int64)
     np.cumsum(lengths, out=offsets[1:])
     buf = host.as_u8(data)
@@ -399,7 +431,7 @@ def decode_delta_byte_array_parts(data, pos: int = 0):
     """The two length streams of a DELTA_BYTE_ARRAY page, no prefix
     expanded: ``(prefix_lens int64, suffix bytes, suffix offsets int64,
     end)``; the device expands the prefixes."""
-    prefix_lens, pos = decode_delta_binary_packed(data, pos)
+    prefix_lens, pos = host.decode_delta_binary_packed(data, pos)
     suffixes, soffs, pos = decode_delta_length_byte_array(data, pos)
     if len(prefix_lens) != len(soffs) - 1:
         raise CorruptedError(f"DELTA_BYTE_ARRAY: {len(prefix_lens)} prefix "

@@ -12,7 +12,10 @@ or v2.  Each chunk runs three phases:
   headers, the offsets of PLAIN and DELTA_LENGTH byte arrays, the length
   streams of front coding: metadata-scale work), of the whole chunk or of
   a given span of its pages with a given dictionary (the point lookup's
-  page runs);
+  page runs).  The page walk, the batched decompression, the run scans,
+  the present counts, the delta tables and the length streams are C++
+  (``csrc/host_prescan.cpp`` through ``ops/host.py``); the rest of the
+  walk over a chunk's pages is Python;
 - :func:`stage_plan`: the concatenated byte streams and the run tables go
   to the device;
 - :func:`decode_staged`: device decode into a :class:`Column`.  The dense
@@ -51,6 +54,7 @@ import torch
 from ..errors import CorruptedError, _Unsupported, unsupported
 from ..format.enums import Encoding, PageType, Type
 from ..io.column import Column
+from ..io.reader import data_page_bodies, decode_dictionary_page
 from ..ops import device as dev
 from ..ops import host, kernels, levels, ref
 from ..schema.types import (PHYSICAL_TORCH_DTYPE, PHYSICAL_WIDTH,
@@ -99,16 +103,10 @@ class _RunTable:
         self.total += n
 
     def add(self, data: np.ndarray, n: int, width: int, base_byte: int):
-        single = _single_rle_run(data, n, width)
-        if single is not None:
-            # the common all-present / all-null stream is ONE RLE run
-            kinds = np.zeros(1, np.uint8)
-            cnts = np.array([n], np.int64)
-            payloads = np.array([single[0]], np.int64)
-            offs = np.array([single[1]], np.int64)
-        else:
-            kinds, cnts, payloads, offs, _end = ref.scan_rle_runs(
-                data, n, width, 0)
+        """Scan ``n`` values of a hybrid stream (C++,
+        ``host.scan_rle_runs``) into the table; returns its run table."""
+        kinds, cnts, payloads, offs, _end = host.scan_rle_runs(data, n,
+                                                               width)
         self.add_scanned(kinds, cnts, payloads, offs, width, base_byte, n)
         return kinds, cnts, payloads, offs
 
@@ -232,65 +230,9 @@ class _Plan:
                 f"chunk mixing {self.value_kind} and {kind} pages")
 
 
-def _single_rle_run(body, n: int, w: int):
-    """Parse a level stream that is exactly ONE RLE run covering >= n
-    values (the all-present / all-null page).  Returns (value,
-    payload_offset) or None when the stream is anything else."""
-    m = len(body)
-    if not m:
-        return None
-    header = 0
-    shift = 0
-    i = 0
-    while True:
-        if i >= m or shift > 63:
-            return None
-        b = int(body[i])
-        i += 1
-        header |= (b & 0x7F) << shift
-        if not b & 0x80:
-            break
-        shift += 7
-    if header & 1:
-        return None  # bit-packed run
-    count = header >> 1
-    vbytes = (w + 7) // 8
-    if count < n or i + vbytes > m:
-        return None
-    value = int.from_bytes(bytes(body[i:i + vbytes]), "little")
-    if w < 64:
-        value &= (1 << w) - 1
-    # the byte position AFTER the run's value, as scan_rle_runs reports it
-    return value, i + vbytes
-
-
-def _count_present(kinds, cnts, payloads, offs, body, width: int,
-                   target: int) -> int:
-    """How many of a page's level values equal ``target`` (vectorized over
-    the bit-packed runs)."""
-    kinds = np.asarray(kinds)
-    cnts = np.asarray(cnts, np.int64)
-    payloads = np.asarray(payloads, np.int64)
-    total = int(cnts[(kinds == 0) & (payloads == target)].sum())
-    packed = np.flatnonzero(kinds != 0)
-    if not len(packed):
-        return total
-    pcnts = cnts[packed]
-    rid = np.repeat(packed, pcnts)
-    starts = np.zeros(len(packed), np.int64)
-    np.cumsum(pcnts[:-1], out=starts[1:])
-    within = np.arange(int(pcnts.sum()), dtype=np.int64) - np.repeat(starts,
-                                                                     pcnts)
-    bitpos = np.asarray(offs, np.int64)[rid] * 8 + within * width
-    buf = np.concatenate([np.asarray(body, np.uint8), np.zeros(8, np.uint8)])
-    b0 = bitpos >> 3
-    w32 = (buf[b0].astype(np.uint32)
-           | (buf[b0 + 1].astype(np.uint32) << 8)
-           | (buf[b0 + 2].astype(np.uint32) << 16)
-           | (buf[b0 + 3].astype(np.uint32) << 24))
-    vals = (w32 >> (bitpos & 7).astype(np.uint32)) & np.uint32((1 << width)
-                                                               - 1)
-    return total + int(np.count_nonzero(vals == target))
+def _all_equal(kinds, payloads, level: int) -> bool:
+    """A scanned level stream is one RLE run of ``level``."""
+    return len(kinds) == 1 and kinds[0] == 0 and payloads[0] == level
 
 
 def build_plan(reader, pages: Optional[Iterable] = None,
@@ -299,7 +241,6 @@ def build_plan(reader, pages: Optional[Iterable] = None,
     the chunk, or ``pages`` (data pages of one span) decoded with the
     chunk's already-decoded ``dictionary``."""
     leaf = reader.leaf
-    codec = reader.codec
     physical = Type(reader.meta.type)
     max_def = leaf.max_definition_level
     max_rep = leaf.max_repetition_level
@@ -311,20 +252,16 @@ def build_plan(reader, pages: Optional[Iterable] = None,
     plan.physical = physical
     plan.dictionary_host = dictionary
 
-    for page in (reader.pages() if pages is None else pages):
+    pages = list(reader.pages() if pages is None else pages)
+    for page, raw in zip(pages, data_page_bodies(reader, pages)):
         h = page.header
         pt = page.page_type
         if pt == PageType.DICTIONARY_PAGE:
-            raw = codec.decode(page.payload, h.uncompressed_page_size)
-            plan.dictionary_host = ref.decode_plain(
-                raw, h.dictionary_page_header.num_values, physical,
-                leaf.type_length)
+            plan.dictionary_host = decode_dictionary_page(reader, page)
             continue
         if pt == PageType.DATA_PAGE:
             dph = h.data_page_header
             n = dph.num_values
-            raw = host.as_u8(codec.decode(page.payload,
-                                          h.uncompressed_page_size))
             pos = 0
             n_present = n
             rle_def = (Encoding(dph.definition_level_encoding)
@@ -350,13 +287,14 @@ def build_plan(reader, pages: Optional[Iterable] = None,
                 elif rle_def:
                     (length,) = _struct.unpack_from("<I", raw, pos)
                     body = raw[pos + 4:pos + 4 + length]
-                    scanned = plan.def_runs.add(body, n, dw,
-                                                len(plan.levels))
+                    kinds, cnts, payloads, offs = plan.def_runs.add(
+                        body, n, dw, len(plan.levels))
                     plan.levels.extend(body)
                     pos += 4 + length
-                    n_present = _count_present(*scanned, body, dw, max_def)
-                    single = _single_rle_run(body, n, dw)
-                    if single is None or single[0] != max_def:
+                    n_present = host.count_present(body, kinds, cnts,
+                                                   payloads, offs, dw,
+                                                   max_def)
+                    if n and not _all_equal(kinds, payloads, max_def):
                         plan.defs_expanded = True
                 else:  # legacy BIT_PACKED levels: decoded on the host
                     lv = ref.decode_bit_packed_levels(raw[pos:], n, dw)
@@ -386,11 +324,6 @@ def build_plan(reader, pages: Optional[Iterable] = None,
                     plan.def_runs.add(body, n, dw, len(plan.levels))
                     plan.levels.extend(body)
                 plan.defs_expanded |= bool(dph2.num_nulls)
-            raw_body = payload[rl + dl:]
-            if dph2.is_compressed is not False:
-                raw_body = codec.decode(raw_body,
-                                        h.uncompressed_page_size - rl - dl)
-            raw = host.as_u8(raw_body)
             n_present = n - (dph2.num_nulls or 0)
             _stage_values(plan, raw, 0, n_present, Encoding(dph2.encoding),
                           physical, leaf)
@@ -478,8 +411,8 @@ def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
         plan.set_kind("delta")
         base = len(plan.values)
         plan.values.extend(raw[pos:])
-        first, total, vpm, offs, widths, mins, _ = dev.delta_prescan(raw,
-                                                                     pos)
+        first, total, vpm, offs, widths, mins, _ = host.delta_prescan(raw,
+                                                                      pos)
         plan.d_firsts.append(first)
         plan.d_counts.append(total)
         plan.d_mb_offs.append(offs + (base - pos) * 8)

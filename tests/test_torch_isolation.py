@@ -39,6 +39,29 @@ def test_no_forbidden_import_in_source(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+def _port_sources():
+    """Every source of the port: its Python, its ``csrc/`` (kernels, host
+    C++ and headers) and chip_smoke.py."""
+    pkg = os.path.join(ROOT, "parquet_tpu_torch")
+    for dirpath, dirs, names in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        for name in names:
+            if name.endswith((".py", ".cpp", ".cu", ".cuh", ".h")):
+                yield os.path.join(dirpath, name)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_source_names_the_reference_native_shim(path):
+    """The port keeps its own C++ and never loads or builds the JAX
+    package's native library."""
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    for name in ("parquet_tpu/native", "_native.so"):
+        assert name not in text, f"{os.path.relpath(path, ROOT)} names {name}"
+
+
 def test_import_loads_neither_jax_nor_parquet_tpu():
     code = (
         "import sys\n"
