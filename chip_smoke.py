@@ -22,6 +22,10 @@ Phases, each fatal on failure:
    and on 64 filters of 1 to 65,536 blocks with uneven batches, some
    empty (both bloom probes also against the numpy host probe of each
    filter), with median device times;
+3b. the host link: 256 MiB copied from pinned and from pageable memory,
+   best of 5 (``{"h2d_peak": ...}``, GB/s beside the card's name and
+   power limit); the first pinned allocation must show as a new block of
+   the host caching allocator;
 4. read path: the port's writer makes a 5-column file from ``--seed``
    (1,048,576-row row groups, 1 MiB pages, UNCOMPRESSED), and
    ``ParquetFile(path).read(device="cuda")`` decodes it once cold and
@@ -29,7 +33,14 @@ Phases, each fatal on failure:
    of the read's kernels must be launched during the reads, whose launches
    are also counted by the column being decoded (the counts must add up
    to the wrappers'); then the time of each column alone and of each
-   phase (host prescan, H2D staging, device decode);
+   phase of the serial read (host prescan, the staging batch's host fill
+   and its copy, device decode).  Each read is the pipelined one
+   ``read`` runs (two workers stage later chunks, each chunk in one
+   pinned copy), each of the three warm reads is checked, and the last
+   must equal the serial read (``workers=0``) bit for bit; so must every
+   read of phases 4b-4d and the fixture's.  Lineitem is also read with
+   each staging worker's page decompression on 1 thread and on the
+   default (the cores over the workers), in turns;
 4b. lineitem: TPC-H ``lineitem`` at ``bench.py:_lineitem_path``'s widths
    and cardinalities (four INT64, three DOUBLE and four INT32 columns
    PLAIN, four dictionary-encoded string columns of 3, 2, 4 and 7 values,
@@ -112,14 +123,19 @@ Phases, each fatal on failure:
    (every kernel of the op), its calls per read and its byte bound;
 7. one more warm read of the 5-column file, of lineitem and of cfg 4, and
    one more warm lookup, each under the profiler, for the device's idle
-   share.
+   share; each read must copy nothing over 1 MiB from pageable memory and
+   create no pinned block (the trace's copies and ``cudaHostAlloc`` and
+   ``cudaMalloc`` calls are logged).
    They come last: after a window that long the profiler can drop every
-   event of phase 6's short ones.  A ``{"path_phases": ...}`` line adds up,
-   for the 5-column file, lineitem, enc v1-Snappy and cfg 4, the host
-   prescan (``plan_s``), staging and decode seconds of one read over its
-   chunks beside the best warm read's rows/s (``--summarize LOG`` prints
-   the same from a saved run of this or an earlier version of the script),
-   and a ``{"phase_s": ...}`` line gives each phase's wall time.
+   event of phase 6's short ones.  Then a ``{"pipeline_breakdown": ...}``
+   line: one serial and one pipelined read of each path with each step's
+   seconds summed over the threads.  A ``{"path_phases": ...}`` line adds
+   up, for the 5-column file, lineitem, enc v1-Snappy and cfg 4, the
+   serial read's host prescan (``plan_s``), staging (``pack_s`` +
+   ``h2d_s``) and decode seconds over its chunks beside the best warm
+   pipelined read's wall and rows/s (``--summarize LOG`` prints the same
+   from a saved run of this or an earlier version of the script), and a
+   ``{"phase_s": ...}`` line gives each phase's wall time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA card the
 script exits non-zero before printing any result.  ``--out DIR`` also writes
@@ -135,6 +151,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -144,6 +161,7 @@ import parquet_tpu_torch as pq
 from parquet_tpu_torch import codecs
 from parquet_tpu_torch.format.enums import Encoding, PageType, Type
 from parquet_tpu_torch.io import bloom, lookup
+from parquet_tpu_torch.io.column import concat_columns
 from parquet_tpu_torch.io.reader import (data_page_bodies, page_infos,
                                          thrift_page_walk)
 from parquet_tpu_torch.io.writer import ColumnData
@@ -602,6 +620,48 @@ def timed_read(path: str, columns=None) -> tuple:
     return out, time.perf_counter() - t0
 
 
+def serial_read(path: str) -> dict:
+    """``read`` with the pipeline's ``workers=0``: plan, stage and decode
+    one chunk after another on this thread."""
+    f = pq.ParquetFile(path)
+    rgs = f.row_groups
+    chunks = [rg.column(leaf.column_index)
+              for leaf in f.schema.leaves for rg in rgs]
+    gen = device_reader.decode_chunks_pipelined(chunks, torch.device(DEVICE),
+                                                workers=0)
+    return {leaf.name: concat_columns([next(gen) for _ in rgs])
+            for leaf in f.schema.leaves}
+
+
+def column_parts(col) -> list:
+    """Every tensor and host level stream of a decoded column, in a fixed
+    order (None where it has none)."""
+    dictionary = (list(col.dictionary) if isinstance(col.dictionary, tuple)
+                  else [col.dictionary])
+    return [col.values, col.offsets, col.validity, col.dict_indices,
+            *dictionary, *col.list_offsets, *col.list_validity,
+            col.def_levels, col.rep_levels]
+
+
+def same_bits(got: dict, want: dict, what: str) -> None:
+    """Two reads of one file equal bit for bit, column by column."""
+    for name, col in want.items():
+        a, b = column_parts(got[name]), column_parts(col)
+        ok = len(a) == len(b)
+        for x, y in zip(a, b):
+            if x is None or y is None:
+                ok &= x is None and y is None
+            elif isinstance(x, np.ndarray):
+                ok &= isinstance(y, np.ndarray) and np.array_equal(x, y)
+            else:
+                ok &= (x.dtype == y.dtype and x.shape == y.shape
+                       and torch.equal(x.contiguous().view(torch.uint8),
+                                       y.contiguous().view(torch.uint8)))
+        if not ok:
+            raise AssertionError(f"{what}: {name} differs between the "
+                                 "pipelined and the serial read")
+
+
 def main_path(rows: int, seed: int, tmp: str) -> dict:
     table = make_table(rows, seed)
     path = os.path.join(tmp, "main.parquet")
@@ -612,17 +672,20 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
     with ColumnLaunches() as by_column:
         pq.reset_launches()
         pq.reset_host_route()
+        pq.reset_pipeline()
         out, cold_s = timed_read(path)
         check_table(out, table)
         del out
         warm = []
-        for _ in range(3):
+        for _ in range(3):  # each checked: pinned buffers are reused
             out, s = timed_read(path)
             warm.append(s)
+            check_table(out, table)
         launches = dict(pq.LAUNCHES)
+        pipeline = dict(pq.PIPELINE)
     column_launches = by_column.counts
     no_host_route("the 5-column read")
-    check_table(out, table)
+    same_bits(out, serial_read(path), "the 5-column read")
     nbytes = decoded_bytes(out)
     del out
     for name in READ_KERNELS:
@@ -644,7 +707,7 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
         "cold_read_s": cold_s, "warm_read_s": warm, "rows_per_s": rows / best,
         "decoded_bytes": nbytes, "decoded_gb_per_s": nbytes / best / 1e9,
         "column_read_s": per_column, "launches": launches,
-        "column_launches": column_launches}})
+        "pipeline": pipeline, "column_launches": column_launches}})
     return {"path": path, "launches": launches,
             "shapes": path_operands(path),
             "path_launches": {c: column_launches.get(c, {}).get(k, 0)
@@ -729,47 +792,106 @@ def path_operands(path: str, shapes=PATH_SHAPES) -> dict:
 
 
 def phase_times(path: str) -> dict:
-    """Where a warm read's time goes.  Per column, summed over row groups:
-    host prescan (``build_plan``), H2D staging (``stage_plan``) and device
-    decode (``decode_staged``), each closed by a synchronize."""
+    """Where a warm read's time goes, one chunk after another.  Per column,
+    summed over row groups: host prescan (``build_plan``), the staging
+    batch's host layout and fill (``pack_s``: ``stage_plan`` recording
+    into a batch, then ``pack``), its one H2D copy (``h2d_s``), their sum
+    ``stage_s``, and device decode (``decode_staged``), each closed by a
+    synchronize."""
     dev = torch.device(DEVICE)
     f = pq.ParquetFile(path)
     columns = {}
     for leaf in f.schema.leaves:
-        t = {"plan_s": 0.0, "stage_s": 0.0, "decode_s": 0.0}
+        t = dict.fromkeys(("plan_s", "pack_s", "h2d_s", "stage_s",
+                           "decode_s"), 0.0)
         for rg in f.row_groups:
             reader = rg.column(leaf.column_index)
             t0 = time.perf_counter()
             plan = device_reader.build_plan(reader)
             t1 = time.perf_counter()
-            staged = device_reader.stage_plan(plan, dev)
-            torch.cuda.synchronize()
+            batch = device_reader._StagingBatch()
+            staged = device_reader.stage_plan(plan, dev, batch.put)
+            if batch._slots:
+                batch.pack(pin=True)
             t2 = time.perf_counter()
-            device_reader.decode_staged(plan, staged, dev)
+            if batch._slots:
+                staged = batch.resolve(staged, batch.send(dev))
             torch.cuda.synchronize()
             t3 = time.perf_counter()
+            device_reader.decode_staged(plan, staged, dev)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
             t["plan_s"] += t1 - t0
-            t["stage_s"] += t2 - t1
-            t["decode_s"] += t3 - t2
+            t["pack_s"] += t2 - t1
+            t["h2d_s"] += t3 - t2
+            t["stage_s"] += t3 - t1
+            t["decode_s"] += t4 - t3
         columns[leaf.name] = t
     return columns
 
 
-def device_profile(run, what: str) -> dict:
+def host_allocs() -> int:
+    """Pinned blocks the host caching allocator has created so far."""
+    return int(torch.cuda.host_memory_stats().get("num_host_alloc", 0))
+
+
+def transfer_audit(prof) -> dict:
+    """From a profiler window's trace: its host-to-device copies from
+    pageable memory (how many, how many over 1 MiB, the largest) and
+    from pinned memory, and the ``cudaHostAlloc`` and ``cudaMalloc``
+    calls it recorded."""
+    fd, trace = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(trace)
+    pageable = [int(e.get("args", {}).get("bytes", 0)) for e in events
+                if "HtoD (Pageable -> Device)" in e.get("name", "")]
+    copies = {}
+    for e in events:
+        if e.get("name", "").startswith("Memcpy"):
+            copies[e["name"]] = copies.get(e["name"], 0) + 1
+    return {"copies": copies, "pageable_htod": len(pageable),
+            "pageable_htod_over_1mib": sum(b > 1 << 20 for b in pageable),
+            "pageable_htod_max_bytes": max(pageable, default=0),
+            "pinned_htod": sum("HtoD (Pinned -> Device)" in e.get("name", "")
+                               for e in events),
+            "cuda_host_alloc": sum(e.get("name") == "cudaHostAlloc"
+                                   for e in events),
+            "cuda_malloc": sum(e.get("name") == "cudaMalloc"
+                               for e in events)}
+
+
+def device_profile(run, what: str, audit: bool = False) -> dict:
     """``run()`` (a timed read or lookup returning its result and wall
     seconds) once under ``torch.profiler``: its wall time, the ten event
     names with the most device time, and the device's idle share of the
     wall time (None where the profiler saw no device time: not
-    measured)."""
+    measured).  With ``audit``, the window's transfers
+    (:func:`transfer_audit`) and the pinned blocks created in it: a read
+    after warm-up must copy nothing over 1 MiB from pageable memory and
+    allocate no pinned memory."""
+    allocs = host_allocs()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall_s = run()
+    allocs = host_allocs() - allocs
     by_name = device_times_us(prof)
     busy_s = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {f"profiled_{what}_s": wall_s, "device_busy_s": busy_s or None,
-            "device_idle_share": 1 - busy_s / wall_s if busy_s else None,
-            "top_device_us": dict(top)}
+    out = {f"profiled_{what}_s": wall_s, "device_busy_s": busy_s or None,
+           "device_idle_share": 1 - busy_s / wall_s if busy_s else None,
+           "top_device_us": dict(top)}
+    if audit:
+        t = out["transfers"] = {**transfer_audit(prof),
+                                "pinned_blocks_created": allocs}
+        if t["pageable_htod_over_1mib"] or t["cuda_host_alloc"] or allocs:
+            raise AssertionError(f"profiled {what}: pageable copies over "
+                                 f"1 MiB or pinned allocations left: {t}")
+    return out
 
 
 def device_times_us(prof) -> dict:
@@ -791,8 +913,9 @@ def device_ms(fn, kernel: str = "", reps: int = 20, tries: int = 5):
     the host's dispatch left out.  The profiler drops some of a window's
     device events now and then (more often after a long profiled session),
     so the mean is over the events it recorded, and a window that recorded
-    fewer than half of them is profiled again, up to ``tries`` times; None
-    where no window did."""
+    fewer than half of them is profiled again, up to ``tries`` times.
+    Where no window did, CUDA events around back-to-back calls time it
+    (:func:`time_ms`), and ``PROFILER_FALLBACKS`` names the call."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -808,7 +931,166 @@ def device_ms(fn, kernel: str = "", reps: int = 20, tries: int = 5):
                 events += e.count
         if events >= reps / 2:
             return us / events / 1e3
-    return None
+    PROFILER_FALLBACKS.append(kernel or getattr(fn, "__name__", "call"))
+    return time_ms(fn)
+
+
+#: the timings the profiler recorded nothing for, taken with CUDA events
+PROFILER_FALLBACKS: list = []
+
+
+H2D_PROBE_BYTES = 256 << 20
+PCIE5_X16_BYTES_PER_S = 63e9  # nominal, one direction (PCIe Gen5 x16)
+
+
+def h2d_peak(card: str) -> dict:
+    """The host link's copy rate: 256 MiB from the host to the card, best
+    of 5 after one warm-up, CUDA events, from pinned and from pageable
+    memory; and whether the first pinned allocation shows as a new
+    block of the host caching allocator (it must, or the read's audit
+    could not see one) and as a ``cudaHostAlloc`` in the profiler's
+    trace."""
+    allocs = host_allocs()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pinned = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8,
+                             pin_memory=True)
+    seen = transfer_audit(prof)["cuda_host_alloc"]
+    allocs = host_allocs() - allocs
+    if not allocs:
+        raise AssertionError("the first pinned allocation created no "
+                             "pinned block: the audit cannot see one")
+    pageable = torch.ones(H2D_PROBE_BYTES, dtype=torch.uint8)
+    pinned.fill_(1)
+    target = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, device=DEVICE)
+
+    def best_ms(src) -> float:
+        times = []
+        for _ in range(6):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            target.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return min(times[1:])
+
+    pin_ms, page_ms = best_ms(pinned), best_ms(pageable)
+    return {"card": card, "bytes": H2D_PROBE_BYTES, "pinned_ms": pin_ms,
+            "pinned_gb_per_s": H2D_PROBE_BYTES / pin_ms / 1e6,
+            "pageable_ms": page_ms,
+            "pageable_gb_per_s": H2D_PROBE_BYTES / page_ms / 1e6,
+            "nominal_gb_per_s": PCIE5_X16_BYTES_PER_S / 1e9,
+            "cuda_host_alloc_seen": seen}
+
+
+class _TimedWalk:
+    """Stands for ``device_reader._page_walk`` in a breakdown: the same
+    lock, its wait and its hold timed."""
+
+    def __init__(self, lock, add):
+        self._lock, self._add = lock, add
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        self._lock.acquire()
+        self._t = time.perf_counter()
+        self._add("walk_wait_s", self._t - t0)
+
+    def __exit__(self, *exc):
+        self._add("walk_s", time.perf_counter() - self._t)
+        self._lock.release()
+
+
+def pipeline_breakdown(path: str) -> dict:
+    """One warm read of ``path`` serial (``workers=0``) and one pipelined
+    (the default), each with the wall seconds every thread spent in each
+    step, summed over threads: page decompression (``decompress_s``), the
+    page walk (``walk_s``) and the wait for it (``walk_wait_s``),
+    ``stage_plan``'s recording (``record_s``), the batch's fill
+    (``pack_s``) and copy (``send_s``), the decode (``decode_s``), and
+    the decoding thread's waits for a worker (``wait_s``).  Where a step
+    takes longer pipelined than serial, the threads slowed each other."""
+    from concurrent.futures import Future
+
+    out = {}
+    main_thread = threading.main_thread()
+    for mode, workers in (("serial", 0), ("pipelined", 2)):
+        acc = {}
+        lock = threading.Lock()
+
+        def add(key, dt):
+            with lock:
+                acc[key] = acc.get(key, 0.0) + dt
+
+        saved = []
+
+        def timed(owner, attr, key, when=None):
+            real = getattr(owner, attr)
+            saved.append((owner, attr, real))
+
+            def run(*a, **k):
+                if when is not None and not when(a, k):
+                    return real(*a, **k)
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **k)
+                finally:
+                    add(key, time.perf_counter() - t0)
+
+            setattr(owner, attr, run)
+
+        timed(device_reader, "data_page_bodies", "decompress_s")
+        # the recording only: ``stage_plan`` without a batch records into
+        # its own (a call with one), then packs and sends it
+        timed(device_reader, "stage_plan", "record_s",
+              lambda a, k: len(a) > 2 or "put" in k)
+        timed(device_reader._StagingBatch, "pack", "pack_s")
+        timed(device_reader._StagingBatch, "send", "send_s")
+        timed(device_reader, "decode_staged", "decode_s")
+        timed(Future, "result", "wait_s",
+              lambda a, k: threading.current_thread() is main_thread)
+        saved.append((device_reader, "_page_walk", device_reader._page_walk))
+        device_reader._page_walk = _TimedWalk(device_reader._page_walk, add)
+        try:
+            f = pq.ParquetFile(path)
+            rgs = f.row_groups
+            chunks = [rg.column(leaf.column_index)
+                      for leaf in f.schema.leaves for rg in rgs]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = device_reader.decode_chunks_pipelined(
+                chunks, torch.device(DEVICE), workers)
+            for _ in chunks:
+                next(gen)
+            gen.close()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for owner, attr, real in reversed(saved):
+                setattr(owner, attr, real)
+        out[mode] = {"wall_s": wall, **acc}
+    return out
+
+
+def native_thread_choice(path: str) -> dict:
+    """Warm pipelined reads of ``path`` with each staging worker's native
+    decompression threads at 1 (the JAX package's choice) and at the
+    default (the cores this process may use over the two workers), in
+    turns: default, 1, 1, default."""
+    real = device_reader._native_threads
+    default = real(2)
+    times = {"1": [], str(default): []}
+    for n in (default, 1, 1, default):
+        device_reader._native_threads = lambda workers, n=n: n
+        try:
+            _, s = timed_read(path)
+        finally:
+            device_reader._native_threads = real
+        times[str(n)].append(s)
+    return {"cpus": host.available_cpus(), "workers": 2,
+            "default_threads": default, "read_s": times}
 
 
 # ---------------------------------------------------------------------------
@@ -1009,18 +1291,21 @@ def read_and_check(path: str, data: dict, reads: int,
     with ColumnLaunches() as by_column:
         pq.reset_launches()
         pq.reset_host_route()
+        pq.reset_pipeline()
         out, cold_s = timed_read(path)
         check(out, data)
         nbytes = decoded_bytes(out)
-        del out
         warm = []
         for _ in range(reads - 1):
+            del out
             out, s = timed_read(path)
             warm.append(s)
             check(out, data)
-            del out
         launches = dict(pq.LAUNCHES)
+        pipeline = dict(pq.PIPELINE)
     no_host_route(path)
+    same_bits(out, serial_read(path), path)
+    del out
     for name, count in launches.items():
         counted = sum(c.get(name, 0) for c in by_column.counts.values())
         if counted != count:
@@ -1028,7 +1313,7 @@ def read_and_check(path: str, data: dict, reads: int,
                                  f"column, {count} by the wrapper")
     return {"cold_read_s": cold_s, "warm_read_s": warm,
             "decoded_bytes": nbytes, "launches": launches,
-            "column_launches": by_column.counts}
+            "pipeline": pipeline, "column_launches": by_column.counts}
 
 
 def lineitem_path(rows: int, seed: int, tmp: str) -> dict:
@@ -1049,6 +1334,7 @@ def lineitem_path(rows: int, seed: int, tmp: str) -> dict:
     got = read_and_check(path, data, 4)
     del data
     best = min(got["warm_read_s"])
+    native = native_thread_choice(path)
     per_column = {}
     for name in LINEITEM_ORDER:
         _, per_column[name] = timed_read(path, [name])
@@ -1063,7 +1349,7 @@ def lineitem_path(rows: int, seed: int, tmp: str) -> dict:
         "int32 indexes of columns kept dictionary-encoded (dictionaries "
         "left out) = 123 B a row",
         "decoded_gb_per_s": got["decoded_bytes"] / best / 1e9,
-        "column_read_s": per_column,
+        "column_read_s": per_column, "native_threads": native,
         "unpack_bits_dense_by_column": {
             c: got["column_launches"].get(c, {}).get("unpack_bits_dense", 0)
             for c in LINEITEM_ORDER}}})
@@ -1335,6 +1621,8 @@ def host_route_fixture() -> dict:
             sum(counted.values()) != chunks:
         raise AssertionError(f"host route counted {counted}, expected "
                              f"{chunks} mixed_page_kinds chunks")
+    same_bits(out, serial_read(os.path.join(FIXTURES, "host_route.parquet")),
+              "the host-route fixture")
     return {"read_s": read_s, "host_route": counted,
             "launches": dict(pq.LAUNCHES)}
 
@@ -1686,8 +1974,9 @@ class OpCalls:
 def op_ms(fn, reps: int = 10, tries: int = 3):
     """Device milliseconds per call of ``fn``, a torch op of several
     kernels (or a copy): every device event the profiler recorded over
-    ``reps`` calls, summed, over ``reps``; None where a window recorded
-    none."""
+    ``reps`` calls, summed, over ``reps``; where ``tries`` windows
+    recorded none, CUDA events around back-to-back calls, the call named
+    in ``PROFILER_FALLBACKS``."""
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
@@ -1700,7 +1989,8 @@ def op_ms(fn, reps: int = 10, tries: int = 3):
                  and e.self_device_time_total > 0)
         if us > 0:
             return us / reps / 1e3
-    return None
+    PROFILER_FALLBACKS.append(getattr(fn, "__name__", "op"))
+    return time_ms(fn)
 
 
 def rle_bytes(args) -> int:
@@ -1714,9 +2004,15 @@ def rle_bytes(args) -> int:
 
 
 def op_row(op: str, shape: str, fn, nbytes: int, calls: dict,
-           extra=None) -> dict:
-    ms = op_ms(fn)
-    b = nbytes / HBM_BYTES_PER_S * 1e3
+           extra=None, rate: float = HBM_BYTES_PER_S, timer=None) -> dict:
+    """One op's row: ``ms`` a call by ``timer`` (the profiler's
+    :func:`op_ms` by default); its bound is ``nbytes`` at ``rate``
+    bytes/s (the card's memory, or for a copy the host link)."""
+    fallbacks = len(PROFILER_FALLBACKS)
+    ms = (timer or op_ms)(fn)
+    if len(PROFILER_FALLBACKS) > fallbacks:
+        PROFILER_FALLBACKS[-1] = f"{op} {shape}"
+    b = nbytes / rate * 1e3
     per_read = sum(calls.values())
     return {"op": op, "shape": shape, **(extra or {}), "ms": ms,
             "calls_per_read": per_read, "calls_by_column": calls,
@@ -1737,7 +2033,7 @@ def assemble_bytes(args, out) -> int:
             + leaf_valid.numel())
 
 
-def torch_ops(enc: str, lineitem: str, nested: dict) -> list:
+def torch_ops(enc: str, lineitem: str, nested: dict, h2d: dict) -> list:
     """The profiler's ``ms`` per call, the calls per read and the byte bound
     (bytes moved / 3.35 TB/s) of the torch ops at the shapes of the first
     row group of enc's and lineitem's columns: ``byte_stream_split``
@@ -1745,7 +2041,10 @@ def torch_ops(enc: str, lineitem: str, nested: dict) -> list:
     expand (``bool_rle``: ``rle_expand`` at w = 1, then ``!= 0``),
     ``rle_expand`` at lineitem's four dictionary string columns (where
     their index runs are not all bit-packed) and the H2D copy of
-    ``l_comment``'s bytes; and the level assembly at the first row group
+    ``l_comment``'s bytes from pageable memory (the staging before the
+    pinned batch) and from pinned memory (the read's), bound by the
+    pinned peak of ``h2d`` (:func:`h2d_peak`), the nominal rate beside
+    it; and the level assembly at the first row group
     of cfg 4 (``assemble_single_list``) and of ``grid``
     (``assemble_nested``)."""
     counts = {}
@@ -1805,13 +2104,25 @@ def torch_ops(enc: str, lineitem: str, nested: dict) -> list:
     reader = f.row_groups[0].column(f.schema.leaf("l_comment").column_index)
     plan = device_reader.build_plan(reader)
     host_bytes, _ = device_reader._host_byte_arrays(plan.host_parts)
-    host_tensor = torch.from_numpy(host_bytes)
-    rows.append(op_row(
-        "h2d", f"lineitem.l_comment: {host_bytes.nbytes} bytes, pageable",
-        lambda: host_tensor.to(DEVICE), host_bytes.nbytes,
-        {"l_comment": len(f.row_groups)},
-        {"note": "the byte bound is at the card's memory rate; the host "
-         "link's rate bounds it more"}))
+    pageable = torch.from_numpy(host_bytes)
+    pinned = torch.empty(pageable.shape, dtype=torch.uint8, pin_memory=True)
+    pinned.copy_(pageable)
+    target = torch.empty(pageable.shape, dtype=torch.uint8, device=DEVICE)
+    nbytes = host_bytes.nbytes
+    for kind, src, calls in (("pageable", pageable, 0),
+                             ("pinned", pinned, len(f.row_groups))):
+        rows.append(op_row(
+            "h2d", f"lineitem.l_comment: {nbytes} bytes, {kind}",
+            lambda src=src: target.copy_(src, non_blocking=True), nbytes,
+            {"l_comment": calls},
+            {"bound_nominal_ms": nbytes / PCIE5_X16_BYTES_PER_S * 1e3,
+             "note": "bound_ms: the bytes at the measured pinned peak of "
+             "this run's 256 MiB probe; bound_nominal_ms at PCIe Gen5 "
+             "x16's nominal 63 GB/s; ms from CUDA events around 20 "
+             "copies (a profiler window can drop a lone copy's event)"
+             + ("; the read stages pinned" if kind == "pageable" else "")},
+            rate=h2d["pinned_gb_per_s"] * 1e9, timer=time_ms))
+    del pinned
     for op, path, column in (
             ("assemble_single_list", nested["path"], "ts.list.element"),
             ("assemble_nested", nested["mix_path"],
@@ -2190,9 +2501,16 @@ def path_summary(objs) -> dict:
             cols = cols[k]
         rows = read.get("rows") or found[read_key[0]].get("rows")
         best = min(read["warm_read_s"])
-        out[name] = {ph: sum(c[ph] for c in cols.values())
-                     for ph in ("plan_s", "stage_s", "decode_s")}
-        out[name].update(best_warm_read_s=best, rows_per_s=rows / best)
+        out[name] = {ph: (sum(c[ph] for c in cols.values())
+                          if all(ph in c for c in cols.values()) else None)
+                     for ph in ("plan_s", "pack_s", "h2d_s", "stage_s",
+                                "decode_s")}
+        out[name].update(
+            serial_sum_s=sum(out[name][ph] for ph in ("plan_s", "stage_s",
+                                                      "decode_s")),
+            best_warm_read_s=best, rows_per_s=rows / best,
+            stage_concurrency_peak=read.get("pipeline", {}).get(
+                "stage_concurrency_peak"))
     return out
 
 
@@ -2266,6 +2584,9 @@ def main(argv=None) -> int:
         finally:
             phase_s[name] = time.perf_counter() - t0
 
+    h2d = phase("3b_h2d", h2d_peak, card)
+    log({"h2d_peak": h2d})
+
     with tempfile.TemporaryDirectory() as tmp:
         read = phase("4_read", main_path, args.rows, args.seed, tmp)
         item = phase("4b_lineitem", lineitem_path, args.lineitem_rows,
@@ -2287,21 +2608,32 @@ def main(argv=None) -> int:
                      look["launches"], read["shapes"],
                      read["path_launches"], look["probe"], enc,
                      item["launches"], nested)
-        ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested)
+        ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
+                    h2d)
         t0 = time.perf_counter()
         log({"breakdown": {"columns": read["columns"], **device_profile(
-            lambda: timed_read(read["path"]), "read")}})
+            lambda: timed_read(read["path"]), "read", audit=True)}})
         log({"lineitem_breakdown": {"columns": item["columns"],
                                     **device_profile(lambda: timed_read(
-                                        item["path"]), "read")}})
+                                        item["path"]), "read", audit=True)}})
         log({"nested_breakdown": {"columns": nested["columns"],
                                   **device_profile(lambda: timed_read(
-                                      nested["path"]), "read")}})
+                                      nested["path"]), "read",
+                                      audit=True)}})
         log({"lookup_breakdown": {**look["stages"], **device_profile(
             look["run"], "lookup")}})
         phase_s["7_profiled"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log({"pipeline_breakdown": {name: pipeline_breakdown(path) for name,
+                                    path in (("5col", read["path"]),
+                                             ("lineitem", item["path"]),
+                                             ("enc_v1_snappy", enc["path"]),
+                                             ("cfg4", nested["path"]),
+                                             ("nest_mix",
+                                              nested["mix_path"]))}})
+        phase_s["7b_pipeline"] = time.perf_counter() - t0
     log({"path_phases": path_summary(LOGGED)})
-    log({"phase_s": phase_s})
+    log({"phase_s": phase_s, "profiler_fallbacks": PROFILER_FALLBACKS})
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)

@@ -20,7 +20,9 @@ from .io.column import Column
 from .io.reader import ParquetFile
 from .io.writer import WriterOptions, write_table
 from .ops.kernels import LAUNCHES, reset_launches
-from .parallel.device_reader import HOST_ROUTE, reset_host_route
+from .parallel.device_reader import (HOST_ROUTE, PIPELINE, reset_host_route,
+                                     reset_pipeline)
 
 __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
-           "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route"]
+           "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route",
+           "PIPELINE", "reset_pipeline"]

@@ -22,6 +22,7 @@ again.
 
 from __future__ import annotations
 
+import contextlib
 import struct
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
@@ -185,11 +186,18 @@ class ColumnChunkReader:
             start = m.dictionary_page_offset
         return start, m.total_compressed_size
 
+    def _read(self, offset: int, size: int):
+        """``size`` bytes at ``offset``: a zero-copy view where the source
+        gives one (a mapped file), else bytes."""
+        src = self.file.source
+        view = getattr(src, "pread_view", None)
+        return (view or src.pread)(offset, size)
+
     def pages(self) -> Iterator[PageInfo]:
         """The chunk's pages, from one contiguous read and its C++
         page-header table."""
         start, size = self.byte_range
-        raw = self.file.source.pread(start, size)
+        raw = self._read(start, size)
         total = self.meta.num_values
         table = host.scan_page_headers(raw, -1 if total is None else total,
                                        base=start)
@@ -199,7 +207,7 @@ class ColumnChunkReader:
                  num_pages: Optional[int] = None) -> Iterator[PageInfo]:
         """The pages of one byte span of the chunk (an offset-index seek:
         one pread covering just the selected pages)."""
-        raw = self.file.source.pread(offset, size)
+        raw = self._read(offset, size)
         table = host.scan_page_headers(raw, max_pages=num_pages,
                                        base=offset)
         return iter(page_infos(raw, offset, table))
@@ -409,13 +417,25 @@ class ParquetFile:
         rgs = self.row_groups
         chunks = [rg.column(leaf.column_index)
                   for leaf in leaves for rg in rgs]
-        decoded = decode_chunks_pipelined(chunks, dev)
         out = {}
-        for leaf in leaves:
-            parts = [next(decoded) for _ in rgs]
-            out[leaf.name] = (concat_columns(parts) if parts
-                              else _empty_column(leaf, dev))
+        with contextlib.closing(decode_chunks_pipelined(chunks,
+                                                        dev)) as decoded:
+            for leaf in leaves:
+                parts = [next(decoded) for _ in rgs]
+                out[leaf.name] = (concat_columns(parts) if parts
+                                  else _empty_column(leaf, dev))
         return out
+
+    @contextlib.contextmanager
+    def _source_override(self, src: Source):
+        """Route every pread of this file through ``src`` (a wrapper over
+        the current source, such as the read's chunk prefetcher) inside
+        the block; the caller owns closing ``src``."""
+        prev, self.source = self.source, src
+        try:
+            yield src
+        finally:
+            self.source = prev
 
     def find_rows(self, path: str, keys, columns: Optional[Sequence[str]] = None,
                   device="cuda"):
@@ -638,8 +658,13 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
         validity = def_levels = None  # no nulls: the device route's form
 
     def put(a):
-        return None if a is None else torch.from_numpy(
-            np.ascontiguousarray(a)).to(device)
+        """A fresh tensor on ``device``: page bytes may be views of a
+        mapped file, which no column may alias."""
+        if a is None:
+            return None
+        if device.type == "cpu":
+            return torch.from_numpy(np.array(a, copy=True, order="C"))
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     col = Column(
         leaf=leaf, values=put(values) if values is not None or indices

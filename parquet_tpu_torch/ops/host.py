@@ -26,8 +26,10 @@ reaches C++, and the C++ checks what only a scan can see.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+import threading
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -373,12 +375,35 @@ def scan_page_headers(buf, total_values: int = -1,
     return out[:k]
 
 
+def available_cpus() -> int:
+    """The cores this process may run on (its affinity, not the host's
+    count)."""
+    return len(os.sched_getaffinity(0)) or 1
+
+
+_thread_cap = threading.local()
+
+
+@contextlib.contextmanager
+def native_thread_cap(n: int):
+    """At most ``n`` native threads for each call this thread makes inside
+    the block (a staging worker's share of the cores)."""
+    prev = getattr(_thread_cap, "n", None)
+    _thread_cap.n = n
+    try:
+        yield
+    finally:
+        _thread_cap.n = prev
+
+
 def decompress_threads(nbytes: int) -> int:
     """Threads for a batch of ``nbytes`` of output: one below 8 MiB, else
-    one per 4 MiB up to 8 and the cores this process may use."""
+    one per 4 MiB up to 8, the cores this process may use and the calling
+    thread's cap (:func:`native_thread_cap`)."""
     if nbytes < 8 << 20:
         return 1
-    return max(1, min(len(os.sched_getaffinity(0)), 8, nbytes >> 22))
+    cap = getattr(_thread_cap, "n", None) or 8
+    return max(1, min(available_cpus(), 8, cap, nbytes >> 22))
 
 
 # the batched codecs, by the name their per-page errors give them

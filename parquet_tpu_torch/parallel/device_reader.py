@@ -16,8 +16,11 @@ or v2.  Each chunk runs three phases:
   the present counts, the delta tables and the length streams are C++
   (``csrc/host_prescan.cpp`` through ``ops/host.py``); the rest of the
   walk over a chunk's pages is Python;
-- :func:`stage_plan`: the concatenated byte streams and the run tables go
-  to the device;
+- :func:`stage_plan`: the concatenated byte streams and the run tables
+  are recorded in a :class:`_StagingBatch`, laid out in one host buffer
+  (pinned for a card), written there once and sent in one
+  ``non_blocking`` copy; the staged operands are views of one device
+  buffer;
 - :func:`decode_staged`: device decode into a :class:`Column`.  The dense
   dictionary-index and delta-miniblock streams unpack through the CUDA
   kernels of ``ops/kernels.py``; run expansion, gathers, the plane
@@ -40,11 +43,25 @@ chunk the device route cannot decode raises ``errors._Unsupported``, and
 ``io/reader.decode_chunk_host``, counting it in :data:`HOST_ROUTE` by
 reason.  64-bit values are native int64 / float64 tensors, not the JAX
 package's uint32 pairs.
+
+The read runs the phases as the JAX package does:
+:func:`decode_chunks_pipelined` prescans, packs and copies later chunks
+on worker threads (:func:`prepare_chunk`, each copy on the worker's own
+stream, waited for by :func:`decode_staged`) while it decodes earlier
+ones, and pipelines a lone chunk over its page batches
+(:func:`decode_chunk_batched`); :func:`prepare_chunks_batched` stages
+many chunks in one batch and one copy.  :data:`PIPELINE` keeps the JAX
+package's counters of the pipeline.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import itertools
 import struct as _struct
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Iterable, Iterator, List, Optional, Tuple
 
@@ -128,8 +145,8 @@ class _RunTable:
 
 
 class _ByteAccum:
-    """Byte-stream accumulator holding zero-copy views, concatenated once
-    at staging time, straight into the bucket-padded staging buffer."""
+    """Byte-stream accumulator holding zero-copy views, written once, at
+    staging time, straight into the staging batch's buffer."""
 
     __slots__ = ("_parts", "_n")
 
@@ -154,17 +171,11 @@ class _ByteAccum:
             return self._parts[0]
         return np.concatenate(self._parts)
 
-    def padded_array(self, extra: int = 12) -> np.ndarray:
-        """Like ``dev.pad_to_bucket(self.array(), extra)`` without the
-        intermediate concatenation.  Always a fresh, writable buffer."""
-        n = self._n + extra
-        bucket = 1 << max(int(n - 1).bit_length(), 6)
-        out = np.zeros(bucket, dtype=np.uint8)
-        pos = 0
+    def write_into(self, buf: np.ndarray, off: int) -> None:
+        """The parts, in order, into ``buf[off:off + len(self)]``."""
         for p in self._parts:
-            out[pos:pos + len(p)] = p
-            pos += len(p)
-        return out
+            buf[off:off + len(p)] = p
+            off += len(p)
 
 
 @dataclass
@@ -214,6 +225,9 @@ class _Plan:
     total_values: int = 0
     # numpy array, or (values, offsets) for byte arrays
     dictionary_host = None
+    # the dictionary already staged for another plan of the chunk (a page
+    # batch of ``decode_chunk_batched``): staged once, shared
+    dictionary_dev = None
     # True once a page's def levels are not the one all-present RLE run
     # (v1) or its header counts nulls (v2): the pages whose levels the
     # reference's host decode expands, giving the span a validity mask
@@ -235,6 +249,13 @@ def _all_equal(kinds, payloads, level: int) -> bool:
     return len(kinds) == 1 and kinds[0] == 0 and payloads[0] == level
 
 
+#: one page walk at a time: the walk is Python under the interpreter
+#: lock, and two walks on two threads take turns at it (slower than one
+#: after the other), while the page decompression before the walk and the
+#: staging after it run beside another thread's walk
+_page_walk = threading.Lock()
+
+
 def build_plan(reader, pages: Optional[Iterable] = None,
                dictionary=None) -> _Plan:
     """Host prescan of a chunk's pages into a staging plan: every page of
@@ -253,82 +274,85 @@ def build_plan(reader, pages: Optional[Iterable] = None,
     plan.dictionary_host = dictionary
 
     pages = list(reader.pages() if pages is None else pages)
-    for page, raw in zip(pages, data_page_bodies(reader, pages)):
-        h = page.header
-        pt = page.page_type
-        if pt == PageType.DICTIONARY_PAGE:
-            plan.dictionary_host = decode_dictionary_page(reader, page)
-            continue
-        if pt == PageType.DATA_PAGE:
-            dph = h.data_page_header
-            n = dph.num_values
-            pos = 0
-            n_present = n
-            rle_def = (Encoding(dph.definition_level_encoding)
-                       == Encoding.RLE)
-            if max_rep > 0:
-                if Encoding(dph.repetition_level_encoding) != Encoding.RLE \
-                        or not rle_def:
-                    raise _Unsupported(
-                        "bit_packed_repeated_levels",
-                        f"legacy BIT_PACKED levels in the repeated column "
-                        f"{leaf.name!r}")
-                (length,) = _struct.unpack_from("<I", raw, pos)
-                body = raw[pos + 4:pos + 4 + length]
-                plan.rep_runs.add(body, n, rw, len(plan.levels))
-                plan.levels.extend(body)
-                pos += 4 + length
-            if max_def > 0:
-                if rle_def and struct_chain:
-                    lv, pos = ref.decode_rle_len_prefixed(raw, n, dw, pos)
-                    plan.host_def.append(lv)
-                    n_present = int(np.count_nonzero(lv == max_def))
-                    plan.defs_expanded |= n_present != n
-                elif rle_def:
+    bodies = data_page_bodies(reader, pages)  # threaded C++, no lock
+    with _page_walk:
+        for page, raw in zip(pages, bodies):
+            h = page.header
+            pt = page.page_type
+            if pt == PageType.DICTIONARY_PAGE:
+                plan.dictionary_host = decode_dictionary_page(reader, page)
+                continue
+            if pt == PageType.DATA_PAGE:
+                dph = h.data_page_header
+                n = dph.num_values
+                pos = 0
+                n_present = n
+                rle_def = (Encoding(dph.definition_level_encoding)
+                           == Encoding.RLE)
+                if max_rep > 0:
+                    rle_rep = (Encoding(dph.repetition_level_encoding)
+                               == Encoding.RLE)
+                    if not rle_rep or not rle_def:
+                        raise _Unsupported(
+                            "bit_packed_repeated_levels",
+                            f"legacy BIT_PACKED levels in the repeated column "
+                            f"{leaf.name!r}")
                     (length,) = _struct.unpack_from("<I", raw, pos)
                     body = raw[pos + 4:pos + 4 + length]
-                    kinds, cnts, payloads, offs = plan.def_runs.add(
-                        body, n, dw, len(plan.levels))
+                    plan.rep_runs.add(body, n, rw, len(plan.levels))
                     plan.levels.extend(body)
                     pos += 4 + length
-                    n_present = host.count_present(body, kinds, cnts,
-                                                   payloads, offs, dw,
-                                                   max_def)
-                    if n and not _all_equal(kinds, payloads, max_def):
+                if max_def > 0:
+                    if rle_def and struct_chain:
+                        lv, pos = ref.decode_rle_len_prefixed(raw, n, dw, pos)
+                        plan.host_def.append(lv)
+                        n_present = int(np.count_nonzero(lv == max_def))
+                        plan.defs_expanded |= n_present != n
+                    elif rle_def:
+                        (length,) = _struct.unpack_from("<I", raw, pos)
+                        body = raw[pos + 4:pos + 4 + length]
+                        kinds, cnts, payloads, offs = plan.def_runs.add(
+                            body, n, dw, len(plan.levels))
+                        plan.levels.extend(body)
+                        pos += 4 + length
+                        n_present = host.count_present(body, kinds, cnts,
+                                                       payloads, offs, dw,
+                                                       max_def)
+                        if n and not _all_equal(kinds, payloads, max_def):
+                            plan.defs_expanded = True
+                    else:  # legacy BIT_PACKED levels: decoded on the host
+                        lv = ref.decode_bit_packed_levels(raw[pos:], n, dw)
+                        plan.host_def.append(lv)
+                        pos += (n * dw + 7) // 8
+                        n_present = int(np.count_nonzero(lv == max_def))
                         plan.defs_expanded = True
-                else:  # legacy BIT_PACKED levels: decoded on the host
-                    lv = ref.decode_bit_packed_levels(raw[pos:], n, dw)
-                    plan.host_def.append(lv)
-                    pos += (n * dw + 7) // 8
-                    n_present = int(np.count_nonzero(lv == max_def))
-                    plan.defs_expanded = True
-            _stage_values(plan, raw, pos, n_present, Encoding(dph.encoding),
-                          physical, leaf)
-            plan.total_slots += n
-            plan.total_values += n_present
-        elif pt == PageType.DATA_PAGE_V2:
-            dph2 = h.data_page_header_v2
-            n = dph2.num_values
-            rl = dph2.repetition_levels_byte_length or 0
-            dl = dph2.definition_levels_byte_length or 0
-            payload = host.as_u8(page.payload)
-            if max_rep > 0:
-                body = payload[:rl]
-                plan.rep_runs.add(body, n, rw, len(plan.levels))
-                plan.levels.extend(body)
-            if max_def > 0:
-                body = payload[rl:rl + dl]
-                if struct_chain:
-                    plan.host_def.append(ref.decode_rle(body, n, dw))
-                else:
-                    plan.def_runs.add(body, n, dw, len(plan.levels))
+                _stage_values(plan, raw, pos, n_present,
+                              Encoding(dph.encoding), physical, leaf)
+                plan.total_slots += n
+                plan.total_values += n_present
+            elif pt == PageType.DATA_PAGE_V2:
+                dph2 = h.data_page_header_v2
+                n = dph2.num_values
+                rl = dph2.repetition_levels_byte_length or 0
+                dl = dph2.definition_levels_byte_length or 0
+                payload = host.as_u8(page.payload)
+                if max_rep > 0:
+                    body = payload[:rl]
+                    plan.rep_runs.add(body, n, rw, len(plan.levels))
                     plan.levels.extend(body)
-                plan.defs_expanded |= bool(dph2.num_nulls)
-            n_present = n - (dph2.num_nulls or 0)
-            _stage_values(plan, raw, 0, n_present, Encoding(dph2.encoding),
-                          physical, leaf)
-            plan.total_slots += n
-            plan.total_values += n_present
+                if max_def > 0:
+                    body = payload[rl:rl + dl]
+                    if struct_chain:
+                        plan.host_def.append(ref.decode_rle(body, n, dw))
+                    else:
+                        plan.def_runs.add(body, n, dw, len(plan.levels))
+                        plan.levels.extend(body)
+                    plan.defs_expanded |= bool(dph2.num_nulls)
+                n_present = n - (dph2.num_nulls or 0)
+                _stage_values(plan, raw, 0, n_present, Encoding(dph2.encoding),
+                              physical, leaf)
+                plan.total_slots += n
+                plan.total_values += n_present
     if plan.host_def and plan.def_runs.total:
         raise _Unsupported("mixed_level_encodings",
                            f"column {leaf.name!r} mixing RLE and BIT_PACKED "
@@ -486,15 +510,160 @@ def _check_length(raw: np.ndarray, pos: int, nbytes: int, nvals: int,
 # ---------------------------------------------------------------------------
 
 
-def _put(arr: np.ndarray, device: torch.device,
-         fresh: bool = False) -> torch.Tensor:
-    """A host array as a tensor on ``device``.  Staged tensors never alias
-    page buffers: an array that is not ``fresh`` (allocated for this
-    staging) is copied first."""
-    if not fresh:
-        arr = np.array(arr, copy=True)
-    t = torch.from_numpy(arr)
-    return t.to(device) if device.type != "cpu" else t
+_ALIGN = 256  # every staged operand starts at a multiple of this
+_ROUND = 16  # and spans a multiple of this, so int32/int64 views hold
+COPY_STREAMS = 2  # the staging copy streams of a device, kept for good
+
+
+class _CopyStreams:
+    """Each device's :data:`COPY_STREAMS` staging streams, created once
+    and handed to threads in turn, one a thread.  The caching allocator
+    keeps a free list a stream, so a read's new worker threads must stage
+    on the streams of the reads before them to reuse their device blocks
+    (a fresh stream a read would allocate anew every chunk)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._streams = {}
+        self._turn = itertools.count()
+        self._mine = threading.local()
+
+    def get(self, device: torch.device):
+        key = str(device)
+        stream = self._mine.__dict__.get(key)
+        if stream is None:
+            with self._lock:
+                pool = self._streams.get(key)
+                if pool is None:
+                    pool = self._streams[key] = [torch.cuda.Stream(device)
+                                                 for _ in range(COPY_STREAMS)]
+                stream = pool[next(self._turn) % len(pool)]
+            self._mine.__dict__[key] = stream
+        return stream
+
+
+_copy_streams = _CopyStreams()
+
+
+class _Slot:
+    """One operand's place in a :class:`_StagingBatch`: ``nbytes`` of
+    data at byte ``off``, then zeroed slack up to ``span``; staged as a
+    ``dtype`` view of ``shape`` (a byte stream: all ``span`` bytes)."""
+
+    __slots__ = ("off", "nbytes", "span", "dtype", "shape", "src")
+
+    def __init__(self, off, nbytes, span, dtype, shape, src):
+        self.off, self.nbytes, self.span = off, nbytes, span
+        self.dtype, self.shape, self.src = dtype, shape, src
+
+    def view(self, buf: torch.Tensor) -> torch.Tensor:
+        if self.shape is None:
+            return buf[self.off:self.off + self.span]
+        return buf[self.off:self.off + self.nbytes].view(
+            self.dtype).reshape(self.shape)
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+class _StagingBatch:
+    """Every transfer of one or more chunks' staging, in one buffer.
+
+    :meth:`put` records an operand (a host array, or a byte stream that
+    writes itself: :class:`_ByteAccum`, :class:`_MiniblockGather`) and
+    returns its :class:`_Slot`.  :meth:`pack` lays the slots out in one
+    host buffer (pinned for a card) and writes each operand there once,
+    zeroing its slack (the kernels and gathers read words past a stream's
+    end); :meth:`send` copies it to the device in one ``non_blocking``
+    copy; :meth:`resolve` swaps each slot of a staged structure for its
+    typed view of the device buffer.  On the CPU the host buffer is the
+    device buffer."""
+
+    def __init__(self):
+        self._slots: List[_Slot] = []
+        self.nbytes = 0
+        self.host: Optional[torch.Tensor] = None
+
+    def put(self, src, extra: int = 0) -> _Slot:
+        if isinstance(src, np.ndarray):
+            src = np.ascontiguousarray(src)
+            n, dtype, shape = src.nbytes, _torch_dtype(src.dtype), src.shape
+        else:
+            n, dtype, shape = len(src), torch.uint8, None
+        span = -(-(n + extra) // _ROUND) * _ROUND
+        slot = _Slot(self.nbytes, n, span, dtype, shape, src)
+        self.nbytes += -(-span // _ALIGN) * _ALIGN
+        self._slots.append(slot)
+        return slot
+
+    def pack(self, pin: bool) -> torch.Tensor:
+        """The host buffer, laid out and filled; each operand written once.
+        ``pin``: page-locked (a failed allocation raises)."""
+        self.host = torch.empty(self.nbytes, dtype=torch.uint8,
+                                pin_memory=pin)
+        h = self.host.numpy()
+        for s in self._slots:
+            if isinstance(s.src, np.ndarray):
+                h[s.off:s.off + s.nbytes] = s.src.reshape(-1).view(np.uint8)
+            else:
+                s.src.write_into(h, s.off)
+            h[s.off + s.nbytes:s.off + s.span] = 0
+            s.src = None  # the host data is not needed past the copy
+        return self.host
+
+    def send(self, device: torch.device) -> torch.Tensor:
+        """The packed buffer on ``device``: one ``non_blocking`` copy on the
+        current stream (the host buffer itself on the CPU)."""
+        if device.type == "cpu":
+            return self.host
+        buf = torch.empty(self.nbytes, dtype=torch.uint8, device=device)
+        buf.copy_(self.host, non_blocking=True)
+        return buf
+
+    def resolve(self, obj, buf: torch.Tensor):
+        """``obj`` (tuples, lists, dicts of slots and other values) with
+        every slot replaced by its view of ``buf``."""
+        if isinstance(obj, _Slot):
+            return obj.view(buf)
+        if isinstance(obj, tuple):
+            return tuple(self.resolve(v, buf) for v in obj)
+        if isinstance(obj, list):
+            return [self.resolve(v, buf) for v in obj]
+        if isinstance(obj, dict):
+            return {k: self.resolve(v, buf) for k, v in obj.items()}
+        return obj
+
+    def commit(self, staged, device: torch.device,
+               side_stream: bool = False) -> tuple:
+        """Pack, send and resolve: ``(staged with views, ready)``.  With
+        ``side_stream`` a card's copy runs on the calling thread's copy
+        stream (one of the device's :data:`COPY_STREAMS`), and ``ready``
+        is ``(event, device buffer)``, which :func:`decode_staged` makes
+        its stream wait for; else ``ready`` is None and the copy is
+        ordered on the current stream."""
+        if not self._slots:
+            return staged, None
+        self.pack(pin=device.type == "cuda")
+        if device.type == "cpu" or not side_stream:
+            return self.resolve(staged, self.send(device)), None
+        stream = _copy_streams.get(device)
+        with torch.cuda.stream(stream):
+            buf = self.send(device)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return self.resolve(staged, buf), (event, buf)
+
+
+def _wait_for_copy(meta: dict) -> None:
+    """Order the current stream after the staging copy of ``meta``'s chunk
+    and tell the allocator that the stream uses its buffer."""
+    ready = meta.get("ready")
+    if ready is not None:
+        event, buf = ready
+        stream = torch.cuda.current_stream(buf.device)
+        stream.wait_event(event)
+        buf.record_stream(stream)
 
 
 def _nonempty(parts, dtype, fill=0) -> np.ndarray:
@@ -519,14 +688,49 @@ def _delta_gather_tables(plan: _Plan) -> tuple:
     return page_ends, firsts, mb_base, mb_offs, mb_widths, mb_mins
 
 
-def _stage_delta_dense(plan: _Plan, meta: dict,
-                       device: torch.device) -> bool:
+class _MiniblockGather:
+    """The payloads of one bit width's miniblocks, compacted into one
+    stream as the batch writes it: ``nb`` bytes from each byte offset in
+    ``starts`` of ``values``, gathered as rows of a sliding window.  The
+    writer may truncate the final miniblock's payload: the bytes past the
+    stream repeat its last byte (the garbage lands in delta slots past
+    the page's value count)."""
+
+    __slots__ = ("values", "starts", "nb")
+
+    def __init__(self, values: np.ndarray, starts: np.ndarray, nb: int):
+        self.values, self.starts, self.nb = values, starts, nb
+
+    def __len__(self) -> int:
+        return len(self.starts) * self.nb
+
+    def write_into(self, buf: np.ndarray, off: int) -> None:
+        if not self.nb:  # width 0: every delta is the block's min
+            return
+        src = self.values
+        short = int(self.starts.max()) + self.nb - len(src)
+        if short > 0:
+            src = np.concatenate([src, np.full(short, src[-1], np.uint8)])
+        rows = np.lib.stride_tricks.sliding_window_view(src, self.nb)
+        buf[off:off + len(self)].reshape(-1, self.nb)[...] = rows[
+            self.starts]
+
+
+def _stage_delta_dense(plan: _Plan, meta: dict, device: torch.device,
+                       put=None) -> bool:
     """Host half of the gather-free delta decode: compact all miniblock
     payloads into one contiguous stream per bit width, so the device
-    unpacks each with the dense kernel.  Returns False for shapes the
-    dense decode doesn't cover (mixed vpm, vpm not a multiple of 32, > 512
-    pages, > 8 distinct widths or a width above 32); those use
-    :func:`_delta_decode_multi`."""
+    unpacks each with the dense kernel; recorded through ``put``, or
+    without it staged on ``device`` in a batch of their own.  Returns
+    False for shapes the dense decode doesn't cover (mixed vpm, vpm not a
+    multiple of 32, > 512 pages, > 8 distinct widths or a width above 32);
+    those use :func:`_delta_decode_multi`."""
+    if put is None:
+        batch = _StagingBatch()
+        if not _stage_delta_dense(plan, meta, device, batch.put):
+            return False
+        meta["delta_dense"] = batch.commit(meta["delta_dense"], device)[0]
+        return True
     if not plan.d_counts:
         return False
     vpm = plan.d_vpm
@@ -544,20 +748,15 @@ def _stage_delta_dense(plan: _Plan, meta: dict,
     for w in uw:
         g = np.flatnonzero(widths_all == w)
         groups.append(g)
-        nb = vpm * int(w) // 8
-        idx = boffs[g][:, None] + np.arange(nb, dtype=np.int64)
-        # the writer may truncate the final miniblock's payload: clip (the
-        # garbage lands in delta slots past the page's value count)
-        np.minimum(idx, len(vals_np) - 1, out=idx)
-        streams.append(_put(dev.pad_to_bucket(vals_np[idx].reshape(-1),
-                                              extra=4), device))
+        streams.append(put(_MiniblockGather(vals_np, boffs[g],
+                                            vpm * int(w) // 8), extra=4))
     perm = None
     if len(uw) > 1:
         # row j of the concatenated unpack holds miniblock order[j]: the
         # inverse permutation restores the original order
-        perm = _put(np.argsort(np.concatenate(groups)), device)
-    mins = _put(np.concatenate(plan.d_mb_mins).astype(np.int64), device)
-    firsts = _put(np.asarray(plan.d_firsts, np.int64), device)
+        perm = put(np.argsort(np.concatenate(groups)))
+    mins = put(np.concatenate(plan.d_mb_mins).astype(np.int64))
+    firsts = put(np.asarray(plan.d_firsts, np.int64))
     meta["delta_dense"] = (tuple(streams), perm, mins, firsts)
     plan.d_dense_static = (vpm, tuple(int(w) for w in uw),
                            tuple(len(g) for g in groups),
@@ -576,72 +775,73 @@ def stage_levels_on_device(leaf, plan: _Plan) -> bool:
             or plan.total_values != plan.total_slots)
 
 
-def stage_plan(plan: _Plan, device: torch.device) -> tuple:
+def stage_plan(plan: _Plan, device: torch.device, put=None) -> tuple:
     """H2D: the plan's concatenated level and value byte streams and its
     run tables, dictionary, delta, front-coding and byte-array tables go
-    to ``device``.  Returns ``(levels, values, meta)``."""
+    to ``device``.  Returns ``(levels, values, meta)``.
+
+    With ``put`` (a :meth:`_StagingBatch.put`) every transfer is recorded
+    in the caller's batch and the result holds its slots until the caller
+    commits the batch; without, the plan's own batch is committed here,
+    in one copy on the current stream."""
+    if put is None:
+        batch = _StagingBatch()
+        return batch.commit(stage_plan(plan, device, batch.put), device)[0]
     kind = plan.value_kind
     stage_levels = stage_levels_on_device(plan.leaf, plan)
     if (stage_levels and len(plan.levels) > dev.MAX_DEVICE_BUF) or \
             len(plan.values) > dev.MAX_DEVICE_BUF:
         raise _Unsupported("stream_bound", f"a chunk stream over "
                            f"{dev.MAX_DEVICE_BUF} bytes")
+    if kind == "delta" and len(set(plan.d_vpms)) > 1:
+        raise _Unsupported("mixed_delta_vpm", "mixed delta miniblock sizes "
+                           "across pages")
     lev_dbuf = None
     if stage_levels and len(plan.levels):
-        lev_dbuf = _put(plan.levels.padded_array(), device, fresh=True)
+        lev_dbuf = put(plan.levels, extra=12)
     meta = {}
     dense_route = (kind == "dict" and plan.dense_ok
                    and bool(plan.dense_pages))
-    delta_dense = (kind == "delta"
-                   and _stage_delta_dense(plan, meta, device))
+    delta_dense = kind == "delta" and _stage_delta_dense(plan, meta, device,
+                                                         put)
     val_dbuf = None
     if not dense_route and not delta_dense and kind not in (None,
                                                             "host_ba"):
         # staged even when empty (all-null chunks have no value bytes)
-        val_dbuf = _put(plan.values.padded_array(), device, fresh=True)
+        val_dbuf = put(plan.values, extra=12)
     if dense_route:
-        meta["dense"] = _put(plan.dense.padded_array(extra=4), device,
-                             fresh=True)
+        meta["dense"] = put(plan.dense, extra=4)
     if kind == "delta" and not delta_dense:
-        if len(set(plan.d_vpms)) > 1:
-            raise _Unsupported("mixed_delta_vpm", "mixed delta miniblock "
-                               "sizes across pages")
-        meta["delta"] = tuple(_put(a, device, fresh=True)
-                              for a in _delta_gather_tables(plan))
+        meta["delta"] = tuple(put(a) for a in _delta_gather_tables(plan))
     if kind == "dict":
-        meta["dictionary"] = _stage_dictionary(plan.dictionary_host, device)
+        meta["dictionary"] = (
+            plan.dictionary_dev if plan.dictionary_dev is not None
+            else _stage_dictionary(plan.dictionary_host, put))
     if (kind == "dict" and not dense_route) or kind == "bool":
-        meta["vruns"] = tuple(_put(a, device, fresh=True)
-                              for a in plan.vruns.run_arrays())
+        meta["vruns"] = tuple(put(a) for a in plan.vruns.run_arrays())
     if kind == "dba":
         tables, total, iters = _dba_tables(plan)
-        meta["dba"] = (tuple(_put(a, device, fresh=True) for a in tables),
-                       total, iters)
+        meta["dba"] = (tuple(put(a) for a in tables), total, iters)
     if kind == "host_ba":
-        values, offsets = _host_byte_arrays(plan.host_parts)
-        meta["host_ba"] = (_put(values, device, fresh=True),
-                           _put(offsets, device, fresh=True))
+        meta["host_ba"] = tuple(put(a) for a in
+                                _host_byte_arrays(plan.host_parts))
     if plan.host_def and plan.total_values != plan.total_slots:
         levels = np.concatenate(plan.host_def)
-        meta["host_def"] = _put(levels == plan.leaf.max_definition_level,
-                                device, fresh=True)
+        meta["host_def"] = put(levels == plan.leaf.max_definition_level)
     if stage_levels and plan.def_runs.total:
-        meta["def_runs"] = tuple(_put(a, device, fresh=True)
-                                 for a in plan.def_runs.run_arrays())
+        meta["def_runs"] = tuple(put(a) for a in plan.def_runs.run_arrays())
     if stage_levels and plan.rep_runs.total:
-        meta["rep_runs"] = tuple(_put(a, device, fresh=True)
-                                 for a in plan.rep_runs.run_arrays())
+        meta["rep_runs"] = tuple(put(a) for a in plan.rep_runs.run_arrays())
     return lev_dbuf, val_dbuf, meta
 
 
-def _stage_dictionary(dict_host, device: torch.device):
+def _stage_dictionary(dict_host, put):
     if dict_host is None:
         raise CorruptedError("dictionary-encoded page without a dictionary "
                              "page")
     if isinstance(dict_host, tuple):  # byte arrays: (values, offsets)
-        return (_put(dict_host[0], device),
-                _put(np.asarray(dict_host[1], np.int64), device))
-    return _put(np.ascontiguousarray(dict_host), device)
+        return put(dict_host[0]), put(np.asarray(dict_host[1], np.int64))
+    return put(dict_host)
 
 
 def _dba_tables(plan: _Plan) -> tuple:
@@ -854,6 +1054,7 @@ def decode_staged(plan: _Plan, staged: tuple,
     """Device decode phase: staged tensors -> :class:`Column`."""
     leaf, physical = plan.leaf, plan.physical
     lev_dbuf, val_dbuf, meta = staged
+    _wait_for_copy(meta)
     max_def = leaf.max_definition_level
     validity = def_host = None
     list_offsets, list_validity = [], []
@@ -952,21 +1153,263 @@ def _assemble(plan: _Plan, lev_dbuf, meta: dict,
     return dev.assemble_nested(d, r, infos, leaf.max_definition_level)
 
 
-def decode_chunks_pipelined(chunks: Iterable,
-                            device: torch.device) -> Iterator[Column]:
-    """Decode column chunks on ``device``, in order: plan, stage and decode
-    one chunk after another.  Kernels launch asynchronously on the current
-    stream, so a chunk's device work overlaps the next chunk's host
-    prescan; stream/event double buffering is a later slice.  A chunk the
-    device route refuses (``_Unsupported``, and no other error) decodes on
-    the host and is counted in :data:`HOST_ROUTE`."""
+# ---------------------------------------------------------------------------
+# The read's pipeline
+# ---------------------------------------------------------------------------
+
+#: the device read's pipeline, as the JAX package's counters: the most
+#: chunks prescanned and staged at once, and the chunks decoded on the
+#: device and on the host route
+PIPELINE = {"stage_concurrency_peak": 0, "chunks_device_decoded": 0,
+            "chunks_host_fallback": 0}
+
+def reset_pipeline() -> None:
+    for k in PIPELINE:
+        PIPELINE[k] = 0
+
+
+def _prepare(reader, device: torch.device, pages=None, dictionary=None,
+             dictionary_dev=None) -> tuple:
+    """Prescan, staging batch packed, copy enqueued on the calling thread's
+    copy stream: ``(plan, staged)``."""
+    plan = build_plan(reader, pages, dictionary)
+    plan.dictionary_dev = dictionary_dev
+    batch = _StagingBatch()
+    staged = stage_plan(plan, device, batch.put)
+    staged, ready = batch.commit(staged, device, side_stream=True)
+    if ready is not None:
+        staged[2]["ready"] = ready
+    return plan, staged
+
+
+def prepare_chunk(reader, device) -> tuple:
+    """Host phase of one chunk's device decode: the prescan, its staging
+    batch packed and the batch's one copy enqueued (on a card, on the
+    calling thread's copy stream; :func:`decode_staged` waits for it).
+    Returns ``(plan, staged)``; safe on worker threads."""
+    return _prepare(reader, torch.device(device))
+
+
+def prepare_chunks_batched(readers, device) -> list:
+    """Host phase of many chunks' device decode with one staging batch and
+    one copy: each chunk prescans and stages as :func:`prepare_chunk`, its
+    transfers recorded in the shared batch.  Returns ``[(reader, (plan,
+    staged) | None, error)]`` in input order, a chunk the device route
+    refuses carrying its ``_Unsupported`` as the error."""
+    device = torch.device(device)
+    batch = _StagingBatch()
+    entries = []
+    for reader in readers:
+        try:
+            plan = build_plan(reader)
+            entries.append((reader, plan, stage_plan(plan, device,
+                                                     batch.put), None))
+        except _Unsupported as e:
+            entries.append((reader, None, None, e))
+    staged_all, ready = batch.commit([e[2] for e in entries], device,
+                                     side_stream=True)
+    out = []
+    for (reader, plan, _, err), staged in zip(entries, staged_all):
+        if err is None and ready is not None:
+            staged[2]["ready"] = ready
+        out.append((reader, None if err is not None else (plan, staged),
+                    err))
+    return out
+
+
+def _native_threads(workers: int) -> int:
+    """Native threads (batched page decompression) a staging worker may
+    use: the cores this process may use, shared by the workers."""
+    return max(1, host.available_cpus() // workers)
+
+
+def _concat_batch_columns(leaf, cols: List[Column]) -> Column:
+    """The page batches of one flat chunk as one column: values,
+    dictionary indexes and validity concatenated, byte-array offsets
+    rebased, the shared dictionary kept.  Indexes stay only where every
+    batch has them (the fused kernel makes none)."""
+    if len(cols) == 1:
+        return cols[0]
+    from ..io.column import _concat_byte_arrays, _concat_validity
+
+    first = cols[0]
+    values = offsets = indices = None
+    if all(c.dict_indices is not None for c in cols):
+        indices = torch.cat([c.dict_indices for c in cols])
+    if first.offsets is not None:
+        values, offsets = _concat_byte_arrays([c.values for c in cols],
+                                              [c.offsets for c in cols])
+    elif first.values is not None:
+        values = torch.cat([c.values for c in cols])
+    return Column(leaf=leaf, values=values, offsets=offsets,
+                  validity=_concat_validity(cols),
+                  num_slots=sum(c.num_slots for c in cols),
+                  dictionary=first.dictionary, dict_indices=indices)
+
+
+_MIN_BATCHES = 2  # page batches a chunk must make to be pipelined
+_TARGET_BATCHES = 6  # batches of at least 8 pages a chunk is cut into
+
+
+def decode_chunk_batched(reader, device, workers: int = 2) -> Column:
+    """One chunk pipelined over its page batches: batches prescan and
+    stage on ``workers`` threads while this thread decodes the batches
+    before them, the dictionary decoded and staged once and shared.
+    Flat columns only (no repeated level, ``max_def <= 1``); a nested
+    column, too few pages for two batches, a dictionary page not
+    first, or value kinds that differ between batches (a dictionary that
+    falls back to PLAIN) raise ``_Unsupported``, and the caller decodes
+    the chunk in one plan.  Any other error raises as the one-plan decode
+    raises it."""
+    device = torch.device(device)
+    leaf = reader.leaf
+    if leaf.max_repetition_level > 0 or leaf.max_definition_level > 1:
+        raise _Unsupported("batched", "page batches of a nested column")
+    pages = list(reader.pages())
+    data = [p for p in pages
+            if p.page_type in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2)]
+    per = max(8, -(-len(data) // _TARGET_BATCHES))
+    batches = [data[i:i + per] for i in range(0, len(data), per)]
+    if len(batches) < _MIN_BATCHES:
+        raise _Unsupported("batched", "too few pages to pipeline")
+    dictionary = dictionary_dev = None
+    if len(pages) > len(data):
+        if pages[0].page_type != PageType.DICTIONARY_PAGE or len(pages) \
+                != len(data) + 1:
+            raise _Unsupported("batched", "a dictionary page not first")
+        dictionary = decode_dictionary_page(reader, pages[0])
+        batch = _StagingBatch()
+        dictionary_dev = batch.commit(_stage_dictionary(
+            dictionary, batch.put), device)[0]
+    threads = _native_threads(workers)
+
+    def prep(subset):
+        with host.native_thread_cap(threads):
+            return _prepare(reader, device, subset, dictionary,
+                            dictionary_dev)
+
+    cols = []
+    pool = ThreadPoolExecutor(max_workers=max(workers, 1))
+    try:
+        futs = [pool.submit(prep, b) for b in batches]
+        kind = None
+        for i, fut in enumerate(futs):
+            plan, staged = fut.result()
+            futs[i] = None  # staged memory bounded to the batches in flight
+            if i and plan.value_kind != kind:
+                raise _Unsupported("batched", "value kinds differ between "
+                                   "page batches")
+            kind = plan.value_kind
+            cols.append(decode_staged(plan, staged, device))
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    return _concat_batch_columns(leaf, cols)
+
+
+def decode_chunks_pipelined(chunks: Iterable, device,
+                            workers: int = 2) -> Iterator[Column]:
+    """Decode column chunks on ``device``, yielded in chunk order.
+
+    ``workers`` threads prescan, pack and copy later chunks
+    (:func:`prepare_chunk`, each copy on the worker's copy stream) while
+    this thread decodes earlier ones, at most ``workers + 1`` chunks in
+    flight; a lone chunk is pipelined over its page batches
+    (:func:`decode_chunk_batched`) where this process may use more than
+    one core.  Every file's chunk ranges are planned on its readahead
+    prefetcher first (``io/prefetch.py``, mapped files only).  A chunk
+    the device route refuses (``_Unsupported``, and no other error)
+    decodes on the host on this thread and is counted in
+    :data:`HOST_ROUTE`; any other error raises at its chunk's turn.
+    Closing the generator waits out the chunks in flight and leaves no
+    thread.  ``workers=0`` runs plan, stage and decode one chunk after
+    another on this thread."""
+    from ..io.prefetch import make_chunk_prefetcher
+
+    device = torch.device(device)
+    chunks = list(chunks)
+    if workers <= 0:
+        yield from _decode_serial(chunks, device)
+        return
+    with contextlib.ExitStack() as stack:
+        prefetchers = {}
+        for reader in chunks:
+            f = reader.file
+            if id(f) not in prefetchers:
+                pre = prefetchers[id(f)] = make_chunk_prefetcher(f.source)
+                if pre is not None:
+                    stack.callback(pre.close)
+                    stack.enter_context(f._source_override(pre))
+            if prefetchers[id(f)] is not None:
+                prefetchers[id(f)].plan(*reader.byte_range)
+        yield from _decode_pipelined(chunks, device, workers)
+
+
+def _host_route(reader, err: _Unsupported, device) -> Column:
     from ..io.reader import decode_chunk_host
 
+    HOST_ROUTE[err.reason] += 1
+    PIPELINE["chunks_host_fallback"] += 1
+    return decode_chunk_host(reader, device)
+
+
+def _decode_serial(chunks, device) -> Iterator[Column]:
     for reader in chunks:
         try:
             plan = build_plan(reader)
             col = decode_staged(plan, stage_plan(plan, device), device)
         except _Unsupported as e:
-            HOST_ROUTE[e.reason] += 1
-            col = decode_chunk_host(reader, device)
+            col = _host_route(reader, e, device)
+        else:
+            PIPELINE["chunks_device_decoded"] += 1
         yield col
+
+
+def _decode_pipelined(chunks, device, workers: int) -> Iterator[Column]:
+    if len(chunks) == 1 and host.available_cpus() > 1:
+        try:
+            col = decode_chunk_batched(chunks[0], device, workers)
+        except _Unsupported:
+            pass  # the one-plan path below decides
+        else:
+            PIPELINE["chunks_device_decoded"] += 1
+            yield col
+            return
+    threads = _native_threads(workers)
+    lock = threading.Lock()
+    active = [0]
+
+    def prep(reader):
+        with lock:
+            active[0] += 1
+            PIPELINE["stage_concurrency_peak"] = max(
+                PIPELINE["stage_concurrency_peak"], active[0])
+        try:
+            with host.native_thread_cap(threads):
+                return prepare_chunk(reader, device), None
+        except _Unsupported as e:
+            return None, e
+        finally:
+            with lock:
+                active[0] -= 1
+
+    pool = ThreadPoolExecutor(max_workers=workers)
+    try:
+        it = iter(chunks)
+        pending = collections.deque(
+            (r, pool.submit(prep, r)) for r in itertools.islice(
+                it, workers + 1))
+        while pending:
+            reader, fut = pending.popleft()
+            prepped, err = fut.result()
+            nxt = next(it, None)
+            if nxt is not None:
+                pending.append((nxt, pool.submit(prep, nxt)))
+            if err is not None:
+                col = _host_route(reader, err, device)
+            else:
+                col = decode_staged(*prepped, device)
+                PIPELINE["chunks_device_decoded"] += 1
+            del prepped
+            yield col
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)

@@ -502,3 +502,113 @@ def test_nested_tables_on_card(cuda_device, tmp_path, monkeypatch):
     assert pqt.LAUNCHES["unpack_bits_dense"] > 0
     assert pqt.LAUNCHES["dict_unpack_gather"] > 0
     chip_smoke.host_route_fixture()
+
+
+def _staging_table(n: int, rng) -> dict:
+    """A column of each staged kind: PLAIN with nulls, dictionary indexes
+    (dense and fused), delta miniblocks, byte arrays."""
+    return {
+        "id": np.ma.masked_array(np.arange(n, dtype=np.int64),
+                                 mask=rng.random(n) < 0.1),
+        "small": rng.integers(0, 200, n).astype(np.int32),
+        "large": rng.integers(0, 3000, n).astype(np.int64),
+        "ts": np.cumsum(rng.integers(0, 1000, n)),
+        "s": np.array([b"s%d" % (i % 333) for i in range(n)], dtype=object),
+    }
+
+
+_STAGING_ENCODINGS = {"small": Encoding.RLE_DICTIONARY,
+                      "large": Encoding.RLE_DICTIONARY,
+                      "ts": Encoding.DELTA_BINARY_PACKED}
+
+
+def _flat(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _flat(v)
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            if k != "ready":
+                yield from _flat(v)
+
+
+def _same_column(got, want) -> None:
+    g, w = got.materialize_host(), want.materialize_host()
+    for a, b in zip(g if isinstance(g, tuple) else (g,),
+                    w if isinstance(w, tuple) else (w,)):
+        assert np.array_equal(a, b)
+    if want.validity is None:
+        assert got.validity is None
+    else:
+        assert torch.equal(got.validity.cpu(), want.validity.cpu())
+
+
+@pytest.mark.cuda
+def test_staging_batch_on_card(cuda_device):
+    """Each chunk's operands are views of one device buffer, filled from a
+    pinned host buffer by one copy on a side stream, and decode as on the
+    CPU."""
+    from parquet_tpu_torch.parallel import device_reader as tdr
+
+    rng = np.random.default_rng(11)
+    buf = io.BytesIO()
+    pqt.write_table(_staging_table(60_000, rng), buf, pqt.WriterOptions(
+        row_group_size=30_000, data_page_size=8192,
+        column_encoding=_STAGING_ENCODINGS))
+    f = pqt.ParquetFile(buf.getvalue())
+    for leaf in f.schema.leaves:
+        for rg in f.row_groups:
+            reader = rg.column(leaf.column_index)
+            plan = tdr.build_plan(reader)
+            batch = tdr._StagingBatch()
+            staged = tdr.stage_plan(plan, cuda_device, batch.put)
+            staged, ready = batch.commit(staged, cuda_device,
+                                         side_stream=True)
+            assert batch.host.is_pinned()
+            event, dbuf = ready
+            staged[2]["ready"] = ready
+            ptr = dbuf.untyped_storage().data_ptr()
+            tensors = list(_flat(staged))
+            assert tensors and all(
+                t.device.type == "cuda"
+                and t.untyped_storage().data_ptr() == ptr for t in tensors)
+            got = tdr.decode_staged(plan, staged, cuda_device)
+            cpu_plan = tdr.build_plan(reader)
+            want = tdr.decode_staged(cpu_plan, tdr.stage_plan(
+                cpu_plan, torch.device("cpu")), torch.device("cpu"))
+            _same_column(got, want)
+
+
+@pytest.mark.cuda
+def test_pipelined_read_on_card_equals_serial(cuda_device, tmp_path):
+    """The pipelined read of a mapped file equals its serial read
+    (``workers=0``) and the CPU read, three times back to back, with
+    chunks staged two at a time."""
+    from parquet_tpu_torch.io.column import concat_columns
+    from parquet_tpu_torch.parallel import device_reader as tdr
+
+    rng = np.random.default_rng(12)
+    table = _staging_table(200_000, rng)
+    path = str(tmp_path / "staging.parquet")
+    pqt.write_table(table, path, pqt.WriterOptions(
+        row_group_size=25_000, data_page_size=16 << 10,
+        compression="snappy", column_encoding=_STAGING_ENCODINGS))
+    f = pqt.ParquetFile(path)
+    chunks = [rg.column(leaf.column_index)
+              for leaf in f.schema.leaves for rg in f.row_groups]
+    serial = tdr.decode_chunks_pipelined(chunks, cuda_device, workers=0)
+    serial = {leaf.name: concat_columns([next(serial)
+                                         for _ in f.row_groups])
+              for leaf in f.schema.leaves}
+    cpu = f.read(device="cpu")
+    pqt.reset_pipeline()
+    for _ in range(3):
+        got = f.read(device=cuda_device)
+        torch.cuda.synchronize()
+        for name in table:
+            _same_column(got[name], serial[name])
+            _same_column(got[name], cpu[name])
+    assert pqt.PIPELINE["stage_concurrency_peak"] >= 2
+    assert pqt.PIPELINE["chunks_host_fallback"] == 0
