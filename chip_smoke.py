@@ -80,7 +80,10 @@ Phases, each fatal on failure:
    fixture (``tests/torch_fixtures/host_route.parquet``, written by
    pyarrow: dictionaries that overflow into PLAIN pages) reads equal to the
    arrays beside it with ``HOST_ROUTE`` counting exactly its chunks.  Every
-   main-path file of phases 4-5 leaves ``HOST_ROUTE`` empty;
+   main-path file of phases 4-5 leaves ``HOST_ROUTE`` empty, and every
+   one of its chunks is planned by the C++ planner (no ``python:*`` entry
+   in ``PLAN_ROUTE``; ``native:python_codec`` counts the chunks whose
+   codec, LZ4_RAW or BROTLI on enc, decompressed page by page first);
 4e. prescan: one ``{"prescan": [...]}`` line, each C++ entry point of the
    host prescan (``csrc/host_prescan.cpp``) timed on the host at one real
    chunk (the first row group's) beside its Python version on the same
@@ -89,7 +92,16 @@ Phases, each fatal on failure:
    miniblock table on ``ts``, the delta decode on enc's ``ba_dlba`` and
    ``ba_dba`` length streams, the page-header table and the batched
    decompression on lineitem's ``l_comment`` (Snappy) and enc's ZSTD
-   ``ba_dlba``; each with its calls in one read of its file;
+   ``ba_dlba``; the chunk planner (``pq_chunk_plan``, through
+   ``build_plan``) against the Python walk (``_build_plan_python``) on
+   the largest chunk of each main-path file and every chunk of the
+   5-column file's first row group, every field of the two plans
+   equal, with the planner's call in its parts (``parts_ms``: the
+   page-header table, the per-page sources, the C++ call and the rest of
+   ``build_plan``); and the staging fill (``pq_fill_batch``) against the
+   numpy loop it replaced, into pinned memory, on the 5-column file's
+   first row group (every column in one batch) and on cfg 4's largest
+   chunk, the filled bytes equal; each with its calls in one read of its file;
 5. lookup path: a 3-column file keyed by ``k`` (1,048,576-row row groups,
    8 KiB pages, bloom filters on ``k``, page index, rows sorted by ``k``)
    and a batch of ``--lookup-rows / 16`` distinct keys, one in eight
@@ -123,9 +135,10 @@ Phases, each fatal on failure:
    (every kernel of the op), its calls per read and its byte bound;
 7. one more warm read of the 5-column file, of lineitem and of cfg 4, and
    one more warm lookup, each under the profiler, for the device's idle
-   share; each read must copy nothing over 1 MiB from pageable memory and
-   create no pinned block (the trace's copies and ``cudaHostAlloc`` and
-   ``cudaMalloc`` calls are logged).
+   share; each read follows an unprofiled read of its file (phases 4b-6
+   used the caching allocators in between) and must copy nothing over
+   1 MiB from pageable memory and create no pinned block (the trace's
+   copies and ``cudaHostAlloc`` and ``cudaMalloc`` calls are logged).
    They come last: after a window that long the profiler can drop every
    event of phase 6's short ones.  Then a ``{"pipeline_breakdown": ...}``
    line: one serial and one pipelined read of each path with each step's
@@ -192,10 +205,22 @@ def log(obj) -> None:
 
 
 def no_host_route(what: str) -> None:
-    """A main-path file decodes every chunk on the device route."""
+    """A main-path file decodes every chunk on the device route, each
+    chunk planned by the C++ planner (no Python walk in ``PLAN_ROUTE``)."""
     if any(pq.HOST_ROUTE.values()):
         raise AssertionError(f"{what}: chunks took the host decode: "
                              f"{pq.HOST_ROUTE}")
+    walked = {k: v for k, v in pq.PLAN_ROUTE.items()
+              if k.startswith("python:") and v}
+    native = pq.PLAN_ROUTE["native"] + pq.PLAN_ROUTE["native:python_codec"]
+    if walked or not native:
+        raise AssertionError(f"{what}: chunks planned by the Python walk: "
+                             f"{pq.PLAN_ROUTE}")
+
+
+def reset_routes() -> None:
+    pq.reset_host_route()
+    pq.reset_plan_route()
 
 
 def card_line() -> str:
@@ -671,7 +696,7 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
 
     with ColumnLaunches() as by_column:
         pq.reset_launches()
-        pq.reset_host_route()
+        reset_routes()
         pq.reset_pipeline()
         out, cold_s = timed_read(path)
         check_table(out, table)
@@ -683,6 +708,7 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
             check_table(out, table)
         launches = dict(pq.LAUNCHES)
         pipeline = dict(pq.PIPELINE)
+        plan_route = dict(pq.PLAN_ROUTE)
     column_launches = by_column.counts
     no_host_route("the 5-column read")
     same_bits(out, serial_read(path), "the 5-column read")
@@ -707,7 +733,8 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
         "cold_read_s": cold_s, "warm_read_s": warm, "rows_per_s": rows / best,
         "decoded_bytes": nbytes, "decoded_gb_per_s": nbytes / best / 1e9,
         "column_read_s": per_column, "launches": launches,
-        "pipeline": pipeline, "column_launches": column_launches}})
+        "pipeline": pipeline, "plan_route": plan_route,
+        "column_launches": column_launches}})
     return {"path": path, "launches": launches,
             "shapes": path_operands(path),
             "path_launches": {c: column_launches.get(c, {}).get(k, 0)
@@ -894,6 +921,15 @@ def device_profile(run, what: str, audit: bool = False) -> dict:
     return out
 
 
+def audited_read(path: str) -> dict:
+    """One warm read of ``path``, then one under the profiler, audited
+    (:func:`device_profile`): the first holds in the caching allocators
+    the blocks a read of the file takes, so the second needs no new one
+    unless the read makes fresh allocations."""
+    timed_read(path)
+    return device_profile(lambda: timed_read(path), "read", audit=True)
+
+
 def device_times_us(prof) -> dict:
     """Device microseconds by event name: the kernels and copies the card
     ran.  The host-side operator events that launched them are left out,
@@ -985,29 +1021,14 @@ def h2d_peak(card: str) -> dict:
             "cuda_host_alloc_seen": seen}
 
 
-class _TimedWalk:
-    """Stands for ``device_reader._page_walk`` in a breakdown: the same
-    lock, its wait and its hold timed."""
-
-    def __init__(self, lock, add):
-        self._lock, self._add = lock, add
-
-    def __enter__(self):
-        t0 = time.perf_counter()
-        self._lock.acquire()
-        self._t = time.perf_counter()
-        self._add("walk_wait_s", self._t - t0)
-
-    def __exit__(self, *exc):
-        self._add("walk_s", time.perf_counter() - self._t)
-        self._lock.release()
-
-
 def pipeline_breakdown(path: str) -> dict:
     """One warm read of ``path`` serial (``workers=0``) and one pipelined
     (the default), each with the wall seconds every thread spent in each
-    step, summed over threads: page decompression (``decompress_s``), the
-    page walk (``walk_s``) and the wait for it (``walk_wait_s``),
+    step, summed over threads: the whole prescan (``plan_s``,
+    ``build_plan``), in it the C++ planner's call (``walk_s``,
+    ``host.chunk_plan``: the pages' decompression and walk), the page
+    decompression outside it (``decompress_s``: codecs without a batched
+    C++ decoder) and the Python walk's (``python_walk_s``),
     ``stage_plan``'s recording (``record_s``), the batch's fill
     (``pack_s``) and copy (``send_s``), the decode (``decode_s``), and
     the decoding thread's waits for a worker (``wait_s``).  Where a step
@@ -1041,6 +1062,9 @@ def pipeline_breakdown(path: str) -> dict:
 
             setattr(owner, attr, run)
 
+        timed(device_reader, "build_plan", "plan_s")
+        timed(host, "chunk_plan", "walk_s")
+        timed(device_reader, "_build_plan_python", "python_walk_s")
         timed(device_reader, "data_page_bodies", "decompress_s")
         # the recording only: ``stage_plan`` without a batch records into
         # its own (a call with one), then packs and sends it
@@ -1051,8 +1075,6 @@ def pipeline_breakdown(path: str) -> dict:
         timed(device_reader, "decode_staged", "decode_s")
         timed(Future, "result", "wait_s",
               lambda a, k: threading.current_thread() is main_thread)
-        saved.append((device_reader, "_page_walk", device_reader._page_walk))
-        device_reader._page_walk = _TimedWalk(device_reader._page_walk, add)
         try:
             f = pq.ParquetFile(path)
             rgs = f.row_groups
@@ -1290,7 +1312,7 @@ def read_and_check(path: str, data: dict, reads: int,
     launches by column over them, which must add up to the wrappers'."""
     with ColumnLaunches() as by_column:
         pq.reset_launches()
-        pq.reset_host_route()
+        reset_routes()
         pq.reset_pipeline()
         out, cold_s = timed_read(path)
         check(out, data)
@@ -1303,6 +1325,7 @@ def read_and_check(path: str, data: dict, reads: int,
             check(out, data)
         launches = dict(pq.LAUNCHES)
         pipeline = dict(pq.PIPELINE)
+        plan_route = dict(pq.PLAN_ROUTE)
     no_host_route(path)
     same_bits(out, serial_read(path), path)
     del out
@@ -1313,7 +1336,8 @@ def read_and_check(path: str, data: dict, reads: int,
                                  f"column, {count} by the wrapper")
     return {"cold_read_s": cold_s, "warm_read_s": warm,
             "decoded_bytes": nbytes, "launches": launches,
-            "pipeline": pipeline, "column_launches": by_column.counts}
+            "pipeline": pipeline, "plan_route": plan_route,
+            "column_launches": by_column.counts}
 
 
 def lineitem_path(rows: int, seed: int, tmp: str) -> dict:
@@ -1611,10 +1635,11 @@ def host_route_fixture() -> dict:
                     "values": want["l_values"], "validity": want["l_validity"],
                     "list_offsets": [want["l_offsets"]],
                     "list_validity": [want["l_list_validity"]]}}
-    pq.reset_host_route()
+    reset_routes()
     pq.reset_launches()
     out, read_s = timed_read(os.path.join(FIXTURES, "host_route.parquet"))
     counted = dict(pq.HOST_ROUTE)
+    plan_route = dict(pq.PLAN_ROUTE)
     check_nested(out, expected)
     chunks = int(want["host_route_chunks"])
     if counted["mixed_page_kinds"] != chunks or \
@@ -1624,7 +1649,7 @@ def host_route_fixture() -> dict:
     same_bits(out, serial_read(os.path.join(FIXTURES, "host_route.parquet")),
               "the host-route fixture")
     return {"read_s": read_s, "host_route": counted,
-            "launches": dict(pq.LAUNCHES)}
+            "plan_route": plan_route, "launches": dict(pq.LAUNCHES)}
 
 
 def nested_path(n: int, mix_rows: int, seed: int, tmp: str) -> dict:
@@ -1699,6 +1724,7 @@ PRESCAN_ENTRIES = {
     "pq_delta_decode": (host, "decode_delta_binary_packed"),
     "pq_scan_page_headers": (host, "scan_page_headers"),
     "pq_decompress_pages": (host, "decompress_pages"),
+    "pq_chunk_plan": (host, "chunk_plan"),
 }
 
 
@@ -1785,7 +1811,8 @@ def _same(a, b) -> bool:
 
 
 def prescan_row(entry: str, chunk: str, cpp, python, reps: int,
-                calls: int, views=(None, None), **sizes) -> dict:
+                calls: int, views=(None, None), python_reps: int = 3,
+                **sizes) -> dict:
     """Time ``cpp`` and ``python`` (each a function of no argument that
     returns a list of outputs) on one chunk; fail unless the outputs (seen
     through ``views``, untimed) are equal."""
@@ -1796,7 +1823,8 @@ def prescan_row(entry: str, chunk: str, cpp, python, reps: int,
         raise AssertionError(f"{entry} on {chunk}: the C++ output differs "
                              "from its Python version's")
     return {"entry": entry, "chunk": chunk, **sizes,
-            "ms": host_ms(cpp, reps), "python_ms": host_ms(python, 3),
+            "ms": host_ms(cpp, reps), "python_ms": host_ms(python,
+                                                           python_reps),
             "calls_per_read": calls, "equal": True}
 
 
@@ -1813,6 +1841,152 @@ def _plain_header(h):
     return h
 
 
+def plan_parts_ms(reader, reps: int) -> dict:
+    """``build_plan``'s call on one chunk in its parts (median ms each):
+    the page-header table, the per-page sources, the C++ call
+    (``host.chunk_plan``: the walk and the export, into the bodies buffer
+    of one ``_page_sources`` call, warm after the first) and the rest of
+    ``_native_plan`` (the ``_Plan`` made from its arrays, dictionary
+    pages decoded, and the first touch of the fresh bodies buffer that
+    each of its calls allocates)."""
+    table = reader.page_table()
+    srcs, bodies, _ = device_reader._page_sources(reader, table)
+    leaf = reader.leaf
+    args = (table.rows, srcs, leaf.max_definition_level,
+            leaf.max_repetition_level, int(reader.meta.type),
+            -1 if leaf.type_length is None else leaf.type_length, bodies,
+            host.plan_threads(device_reader._plan_work(table.rows, srcs)))
+    parts = {
+        "page_table": host_ms(reader.page_table, reps),
+        "page_sources": host_ms(
+            lambda: device_reader._page_sources(reader, table), reps),
+        "chunk_plan_call": host_ms(lambda: host.chunk_plan(*args), reps),
+        "native_plan": host_ms(
+            lambda: device_reader._native_plan(reader, table, None), reps),
+    }
+    parts["plan_rest"] = (parts["native_plan"] - parts["page_sources"]
+                          - parts["chunk_plan_call"])
+    return parts
+
+
+def largest_chunk(path: str):
+    """The reader of ``path``'s chunk with the most page bytes."""
+    f = pq.ParquetFile(path)
+    return max((rg.column(leaf.column_index) for rg in f.row_groups
+                for leaf in f.schema.leaves), key=lambda r: r.byte_range[1])
+
+
+# a plan's fields compared as they are (arrays by value and dtype)
+PLAN_SCALARS = ("value_kind", "dense_w", "dense_ok", "d_vpm", "total_slots",
+                "total_values", "defs_expanded")
+PLAN_TABLES = ("dense_pages", "d_firsts", "d_counts", "d_vpms",
+               "d_mb_counts", "d_mb_offs", "d_mb_widths", "d_mb_mins",
+               "bss_pages", "dba_plens", "dba_soffs", "dba_slens", "hb_lens")
+
+
+def plan_fields(plan) -> list:
+    """Every field of a staging plan as a comparable value: the byte
+    streams by content, the host byte-array pages by their columns and
+    their compacted bytes."""
+    out = [getattr(plan, k) for k in PLAN_SCALARS]
+    out += [a.array() for a in (plan.levels, plan.values, plan.dense)]
+    for runs in (plan.def_runs, plan.rep_runs, plan.vruns):
+        out += [runs.total, *runs.run_arrays()]
+    out += [getattr(plan, k) for k in PLAN_TABLES]
+    out += [plan.host_def if plan.host_def is not None else "none",
+            plan.hb_parts[:, [0, 2, 3]],
+            *device_reader._host_byte_arrays(plan)]
+    return out
+
+
+def _segment(ptr: int, n: int) -> np.ndarray:
+    """``n`` bytes at address ``ptr`` as a numpy view."""
+    import ctypes
+
+    return np.ctypeslib.as_array((ctypes.c_uint8 * n).from_address(ptr))
+
+
+def loop_pack(batch) -> torch.Tensor:
+    """The fill ``_StagingBatch.pack`` ran before it was C++: a numpy loop
+    over the slots and over each byte stream's parts, into a pinned
+    buffer."""
+    host_t = torch.empty(batch.nbytes, dtype=torch.uint8, pin_memory=True)
+    h = host_t.numpy()
+    for src, s in zip(batch._keep, batch._slots):
+        if isinstance(src, np.ndarray):
+            h[s.off:s.off + s.nbytes] = src.reshape(-1).view(np.uint8)
+        elif isinstance(src, device_reader._MiniblockGather):
+            if src.nb:
+                vals = src.values
+                short = int(src.starts.max()) + src.nb - len(vals)
+                if short > 0:
+                    vals = np.concatenate([vals, np.full(short, vals[-1],
+                                                         np.uint8)])
+                rows = np.lib.stride_tricks.sliding_window_view(vals, src.nb)
+                h[s.off:s.off + s.nbytes].reshape(-1, src.nb)[...] = rows[
+                    src.starts]
+        else:
+            off = s.off
+            for ptr, n in src.segments().tolist():
+                h[off:off + n] = _segment(ptr, n) if ptr else 0
+                off += n
+        h[s.off + s.nbytes:s.off + s.span] = 0
+    return host_t
+
+
+def fill_row(chunk: str, readers, path: str, reps: int = 5) -> dict:
+    """``pq_fill_batch`` (``_StagingBatch.pack``) against the loop it
+    replaced (:func:`loop_pack`) on the staging batch of ``readers``'
+    plans, both into pinned memory: median milliseconds of ``reps``
+    fills, each of a freshly recorded batch; the filled bytes of every
+    slot must be equal.  ``calls_per_read`` counts the fills of one read
+    of ``path``."""
+    device = torch.device(DEVICE)
+    plans = [device_reader.build_plan(r) for r in readers]
+
+    def record():
+        batch = device_reader._StagingBatch()
+        for plan in plans:
+            device_reader.stage_plan(plan, device, batch.put)
+        return batch
+
+    def timed(fill):
+        times = []
+        for _ in range(reps + 1):
+            batch = record()
+            slots = list(batch._slots)
+            t0 = time.perf_counter()
+            out = fill(batch)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:]) * 1e3, out.numpy(), slots
+
+    ms, got, slots = timed(lambda b: b.pack(pin=True))
+    loop_ms, want, _ = timed(loop_pack)
+    for s in slots:
+        if not np.array_equal(got[s.off:s.off + s.span],
+                              want[s.off:s.off + s.span]):
+            raise AssertionError(f"pq_fill_batch on {chunk}: the slot at "
+                                 f"{s.off} differs from the loop's")
+    calls = [0]
+    real = host.fill_batch
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    host.fill_batch = counted
+    try:
+        timed_read(path)
+    finally:
+        host.fill_batch = real
+    return {"entry": "pq_fill_batch", "chunk": chunk, "slots": len(slots),
+            "bytes": int(got.nbytes), "threads": host.fill_threads(
+                got.nbytes), "ms": ms, "python_ms": loop_ms,
+            "python": "the numpy loop over slots and parts it replaced",
+            "speedup": loop_ms / ms, "calls_per_read": calls[0],
+            "equal": True}
+
+
 def prescan_path(read: dict, item: dict, enc: dict, nested: dict) -> list:
     """Phase 4e: each C++ entry point of the prescan at one real chunk of a
     path (the first row group's), beside its Python version on the same
@@ -1822,7 +1996,7 @@ def prescan_path(read: dict, item: dict, enc: dict, nested: dict) -> list:
         raise AssertionError("enc's ZSTD file was not written: no libzstd")
     files = {"5col": read["path"], "lineitem": item["path"],
              "enc_snappy": enc["path"], "enc_zstd": enc["zstd_path"],
-             "cfg4": nested["path"]}
+             "cfg4": nested["path"], "nest_mix": nested["mix_path"]}
     calls = {name: host_calls(path) for name, path in files.items()}
     rows = []
     for file, column, level in (("cfg4", "ts.list.element", "def"),
@@ -1916,6 +2090,38 @@ def prescan_path(read: dict, item: dict, enc: dict, nested: dict) -> list:
             calls[file]["pq_decompress_pages"], codec=codec.codec_id.name,
             pages=len(data), compressed_bytes=sum(len(b) for b in srcs),
             bytes_out=sum(sizes), threads=threads))
+
+    five = pq.ParquetFile(files["5col"])
+    planned = [("5col", five.row_groups[0].column(leaf.column_index),
+                "every column's") for leaf in five.schema.leaves]
+    planned += [(file, largest_chunk(files[file]), "the file's largest "
+                 "chunk") for file in ("lineitem", "enc_snappy", "cfg4",
+                                       "nest_mix")]
+    for file, reader, which in planned:
+        table = reader.page_table()
+        srcs, _, _ = device_reader._page_sources(reader, table)
+        row = prescan_row(
+            "pq_chunk_plan", f"{file} {reader.leaf.name} row group "
+            f"{reader.rg_index}, {which}",
+            lambda: [device_reader.build_plan(reader)],
+            lambda: [device_reader._build_plan_python(reader)], 21,
+            calls[file]["pq_chunk_plan"], python_reps=21,
+            views=(lambda ps: plan_fields(ps[0]),
+                   lambda ps: plan_fields(ps[0])),
+            pages=len(table), chunk_bytes=reader.byte_range[1],
+            value_kind=device_reader.build_plan(reader).value_kind,
+            threads=host.plan_threads(device_reader._plan_work(table.rows,
+                                                               srcs)))
+        row["python"] = "device_reader._build_plan_python"
+        row["speedup"] = row["python_ms"] / row["ms"]
+        row["parts_ms"] = plan_parts_ms(reader, 21)
+        rows.append(row)
+    f = pq.ParquetFile(files["5col"])
+    rows.append(fill_row("5col row group 0, every column in one batch",
+                         [f.row_groups[0].column(leaf.column_index)
+                          for leaf in f.schema.leaves], files["5col"]))
+    rows.append(fill_row("cfg4 ts.list.element, the largest chunk",
+                         [largest_chunk(files["cfg4"])], files["cfg4"]))
     log({"prescan": rows})
     log({"prescan_calls_per_read": calls})
     return rows
@@ -2059,7 +2265,7 @@ def torch_ops(enc: str, lineitem: str, nested: dict, h2d: dict) -> list:
 
     args = first_chunk_calls(enc, "f64_bss", *TORCH_OPS["byte_stream_split"])
     buf, pages, width, physical = args[0]
-    n = sum(p[1] for p in pages)
+    n = int(pages[:, 1].sum())
     rows.append(op_row(
         "byte_stream_split", f"enc.f64_bss: n={n}, width={width}, "
         f"{len(pages)} pages", lambda: device_reader._bss_decode(*args[0]),
@@ -2103,7 +2309,7 @@ def torch_ops(enc: str, lineitem: str, nested: dict, h2d: dict) -> list:
     f = pq.ParquetFile(lineitem)
     reader = f.row_groups[0].column(f.schema.leaf("l_comment").column_index)
     plan = device_reader.build_plan(reader)
-    host_bytes, _ = device_reader._host_byte_arrays(plan.host_parts)
+    host_bytes, _ = device_reader._host_byte_arrays(plan)
     pageable = torch.from_numpy(host_bytes)
     pinned = torch.empty(pageable.shape, dtype=torch.uint8, pin_memory=True)
     pinned.copy_(pageable)
@@ -2283,7 +2489,7 @@ def lookup_path(rows: int, seed: int, tmp: str) -> dict:
     row_groups = -(-rows // ROW_GROUP)
 
     pq.reset_launches()
-    pq.reset_host_route()
+    reset_routes()
     f = pq.ParquetFile(path)
     res, cold_s = timed_lookup(f, keys, DEVICE)
     cold_launches = pq.LAUNCHES["bloom_check"]
@@ -2611,15 +2817,12 @@ def main(argv=None) -> int:
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         t0 = time.perf_counter()
-        log({"breakdown": {"columns": read["columns"], **device_profile(
-            lambda: timed_read(read["path"]), "read", audit=True)}})
+        log({"breakdown": {"columns": read["columns"],
+                           **audited_read(read["path"])}})
         log({"lineitem_breakdown": {"columns": item["columns"],
-                                    **device_profile(lambda: timed_read(
-                                        item["path"]), "read", audit=True)}})
+                                    **audited_read(item["path"])}})
         log({"nested_breakdown": {"columns": nested["columns"],
-                                  **device_profile(lambda: timed_read(
-                                      nested["path"]), "read",
-                                      audit=True)}})
+                                  **audited_read(nested["path"])}})
         log({"lookup_breakdown": {**look["stages"], **device_profile(
             look["run"], "lookup")}})
         phase_s["7_profiled"] = time.perf_counter() - t0

@@ -7,8 +7,9 @@ dictionary, RLE, DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY,
 DELTA_BYTE_ARRAY and BYTE_STREAM_SPLIT pages (v1 and v2; UNCOMPRESSED,
 GZIP, SNAPPY, ZSTD, LZ4_RAW, LZ4, BROTLI) into tensors on a CUDA device,
 through the hand-written kernels of ``csrc/``; the chunks its device
-route refuses decode on the host and are counted in ``HOST_ROUTE``.  It
-looks rows up by a numeric key, and writes such files.
+route refuses decode on the host and are counted in ``HOST_ROUTE``, and
+the chunks the Python walk plans in place of the C++ planner in
+``PLAN_ROUTE``.  It looks rows up by a numeric key, and writes such files.
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -20,9 +21,10 @@ from .io.column import Column
 from .io.reader import ParquetFile
 from .io.writer import WriterOptions, write_table
 from .ops.kernels import LAUNCHES, reset_launches
-from .parallel.device_reader import (HOST_ROUTE, PIPELINE, reset_host_route,
-                                     reset_pipeline)
+from .parallel.device_reader import (HOST_ROUTE, PIPELINE, PLAN_ROUTE,
+                                     reset_host_route, reset_pipeline,
+                                     reset_plan_route)
 
 __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route",
-           "PIPELINE", "reset_pipeline"]
+           "PLAN_ROUTE", "reset_plan_route", "PIPELINE", "reset_pipeline"]

@@ -213,10 +213,10 @@ def decode_aligned(chunk, device, pages=None, dictionary=None
     from ..errors import _Unsupported
     from ..parallel.device_reader import (HOST_ROUTE, build_plan,
                                           decode_staged, stage_plan)
-    from .reader import decode_chunk_host
+    from .reader import PageTable, decode_chunk_host
     from .search import _trim_flat_aligned
 
-    if pages is not None:
+    if pages is not None and not isinstance(pages, PageTable):
         pages = list(pages)  # the host route may read them again
     expanded = False
     try:
@@ -291,8 +291,8 @@ class _PageFetcher:
             span_len = (self.locs[last].offset
                         + self.locs[last].compressed_page_size - span_start)
             dictionary = self._dictionary()
-            pages = self.chunk.pages_at(span_start, span_len,
-                                        num_pages=len(run))
+            pages = self.chunk.page_table_at(span_start, span_len,
+                                             num_pages=len(run))
             vals, valid = decode_aligned(self.chunk, self.device, pages,
                                          dictionary)
             self.counters["preads"] += 1

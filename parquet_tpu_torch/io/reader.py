@@ -25,7 +25,8 @@ from __future__ import annotations
 import contextlib
 import struct
 from dataclasses import dataclass
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import (Dict, Iterator, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -122,6 +123,133 @@ def page_infos(raw, start: int, table: np.ndarray) -> List[PageInfo]:
     return out
 
 
+def _header_row(h: md.PageHeader) -> List[int]:
+    """A ``PageHeader`` as a page-header table row (the inverse of
+    :func:`_page_header`; -1 where it lacks the field)."""
+    row = [-1] * host.PG_NFIELDS
+
+    def put(col, v):
+        if v is not None:
+            row[col] = int(v)
+
+    put(host.PG_TYPE, h.type)
+    put(host.PG_COMP, h.compressed_page_size)
+    put(host.PG_UNCOMP, h.uncompressed_page_size)
+    put(host.PG_CRC, h.crc)
+    d, d2, dp = (h.data_page_header, h.data_page_header_v2,
+                 h.dictionary_page_header)
+    if d is not None:
+        put(host.PG_NVALS, d.num_values)
+        put(host.PG_ENC, d.encoding)
+        put(host.PG_DEF_ENC, d.definition_level_encoding)
+        put(host.PG_REP_ENC, d.repetition_level_encoding)
+    if d2 is not None:
+        put(host.PG_NVALS, d2.num_values)
+        put(host.PG_NNULLS, d2.num_nulls)
+        put(host.PG_NROWS, d2.num_rows)
+        put(host.PG_ENC, d2.encoding)
+        put(host.PG_DL_BYTES, d2.definition_levels_byte_length)
+        put(host.PG_RL_BYTES, d2.repetition_levels_byte_length)
+        put(host.PG_IS_COMPRESSED, d2.is_compressed)
+    if dp is not None:
+        put(host.PG_DICT_NVALS, dp.num_values)
+        put(host.PG_ENC, dp.encoding)
+    return row
+
+
+class PageBodies(NamedTuple):
+    """Where each page's body lies (:meth:`PageTable.bodies`): a data
+    page's body is its payload, after a v2 page's levels, from ``start``
+    (``length`` bytes), and holds ``size`` bytes decompressed (-1 when
+    the header lacks a size) unless ``compressed`` is false."""
+    data: np.ndarray
+    start: np.ndarray
+    length: np.ndarray
+    size: np.ndarray
+    compressed: np.ndarray
+
+
+class PageTable:
+    """A run of a chunk's pages as arrays: ``rows``, the page-header table
+    (``host.scan_page_headers``'s ``PG_*`` columns), and each page's
+    payload as a pointer and a length (``payloads``, ``int64[n, 2]``),
+    into buffers the table keeps alive.  Made from a chunk's bytes
+    (:meth:`ColumnChunkReader.page_table`) or from :class:`PageInfo`
+    objects (:meth:`of`); indexing it with a slice or an index array
+    gives a table of those pages; :meth:`info` is one page's
+    :class:`PageInfo`, and iterating yields them all (the host route's
+    and the Python walk's form)."""
+
+    def __init__(self, rows: np.ndarray, payloads: np.ndarray, keep,
+                 info_at, all_infos):
+        self.rows, self.payloads, self.keep = rows, payloads, keep
+        self._info_at, self._all = info_at, all_infos
+
+    @classmethod
+    def from_buffer(cls, raw, start: int, rows: np.ndarray) -> "PageTable":
+        pt = rows[:, host.PG_TYPE]  # the page types are 0..3
+        bad = np.flatnonzero((pt < min(_PAGE_TYPES))
+                             | (pt > max(_PAGE_TYPES)))
+        if len(bad):
+            row = rows[bad[0]]
+            raise CorruptedError(
+                f"bad page header at {start + int(row[host.PG_HEADER_POS])}"
+                f": page type {int(row[host.PG_TYPE])}")
+        buf = host.as_u8(raw)
+        payloads = np.empty((len(rows), 2), np.int64)
+        payloads[:, 0] = rows[:, host.PG_DATA_POS] + buf.ctypes.data
+        payloads[:, 1] = rows[:, host.PG_COMP]
+        return cls(rows, payloads, buf,
+                   lambda i: page_infos(buf, start, rows[i:i + 1])[0],
+                   lambda: page_infos(buf, start, rows))
+
+    @classmethod
+    def of(cls, pages: Sequence[PageInfo]) -> "PageTable":
+        pages = list(pages)
+        bufs = [host.as_u8(p.payload) for p in pages]
+        rows = np.array([_header_row(p.header) for p in pages],
+                        np.int64).reshape(-1, host.PG_NFIELDS)
+        payloads = np.array([(b.ctypes.data, len(b)) for b in bufs],
+                            np.int64).reshape(-1, 2)
+        return cls(rows, payloads, bufs, pages.__getitem__, lambda: pages)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, sel) -> "PageTable":
+        sel = np.arange(len(self))[sel] if isinstance(sel, slice) else \
+            np.asarray(sel, np.int64)
+        return PageTable(self.rows[sel], self.payloads[sel], self.keep,
+                         lambda i: self.info(int(sel[i])),
+                         lambda: [self.info(i) for i in sel.tolist()])
+
+    def info(self, i: int) -> PageInfo:
+        return self._info_at(i)
+
+    def bodies(self) -> PageBodies:
+        """Each page's body, as :func:`data_page_bodies` and the chunk
+        planner read it (int64 arrays, one entry a page)."""
+        rows, plen = self.rows, self.payloads[:, 1]
+        pt = rows[:, host.PG_TYPE]
+        v2 = pt == PageType.DATA_PAGE_V2
+        data = v2 | (pt == PageType.DATA_PAGE)
+        levels = (np.where(rows[:, host.PG_RL_BYTES] == -1, 0,
+                           rows[:, host.PG_RL_BYTES])
+                  + np.where(rows[:, host.PG_DL_BYTES] == -1, 0,
+                             rows[:, host.PG_DL_BYTES]))
+        skip = np.where(v2, levels, 0)
+        # payload[skip:], a negative skip counting from the end
+        start = np.where(skip < 0, np.maximum(plen + skip, 0),
+                         np.minimum(skip, plen))
+        return PageBodies(
+            data=data, start=start, length=plen - start,
+            size=rows[:, host.PG_UNCOMP] - skip,
+            compressed=data & (~v2 | (rows[:, host.PG_IS_COMPRESSED] != 0)))
+
+    def __iter__(self) -> Iterator[PageInfo]:
+        return iter(self._all())
+
+
 def thrift_page_walk(raw, start: int,
                      total_values: Optional[int] = None
                      ) -> Iterator[PageInfo]:
@@ -193,24 +321,32 @@ class ColumnChunkReader:
         view = getattr(src, "pread_view", None)
         return (view or src.pread)(offset, size)
 
-    def pages(self) -> Iterator[PageInfo]:
-        """The chunk's pages, from one contiguous read and its C++
-        page-header table."""
+    def page_table(self) -> PageTable:
+        """The chunk's pages as a :class:`PageTable`: one contiguous read
+        and its C++ page-header table."""
         start, size = self.byte_range
         raw = self._read(start, size)
         total = self.meta.num_values
-        table = host.scan_page_headers(raw, -1 if total is None else total,
-                                       base=start)
-        return iter(page_infos(raw, start, table))
+        rows = host.scan_page_headers(raw, -1 if total is None else total,
+                                      base=start)
+        return PageTable.from_buffer(raw, start, rows)
 
-    def pages_at(self, offset: int, size: int,
-                 num_pages: Optional[int] = None) -> Iterator[PageInfo]:
+    def pages(self) -> Iterator[PageInfo]:
+        """The chunk's pages (:meth:`page_table`'s)."""
+        return iter(self.page_table())
+
+    def page_table_at(self, offset: int, size: int,
+                      num_pages: Optional[int] = None) -> PageTable:
         """The pages of one byte span of the chunk (an offset-index seek:
         one pread covering just the selected pages)."""
         raw = self._read(offset, size)
-        table = host.scan_page_headers(raw, max_pages=num_pages,
-                                       base=offset)
-        return iter(page_infos(raw, offset, table))
+        rows = host.scan_page_headers(raw, max_pages=num_pages, base=offset)
+        return PageTable.from_buffer(raw, offset, rows)
+
+    def pages_at(self, offset: int, size: int,
+                 num_pages: Optional[int] = None) -> Iterator[PageInfo]:
+        """The pages of one byte span (:meth:`page_table_at`'s)."""
+        return iter(self.page_table_at(offset, size, num_pages))
 
     def _read_index(self, cls, offset, length, what: str):
         if length is None or not 0 <= length <= MAX_INDEX_SIZE:
@@ -260,40 +396,44 @@ class ColumnChunkReader:
         return self._st
 
 
+def page_table_of(reader, pages=None) -> PageTable:
+    """``pages`` (a :class:`PageTable`, :class:`PageInfo` objects, or None
+    for all of the chunk's) as a :class:`PageTable`."""
+    if isinstance(pages, PageTable):
+        return pages
+    if pages is None:
+        table = getattr(reader, "page_table", None)
+        if table is not None:
+            return table()
+        pages = reader.pages()
+    return PageTable.of(pages)
+
+
 #: codecs whose data pages decompress in one C++ call a chunk
 _BATCHED_CODECS = (CompressionCodec.SNAPPY, CompressionCodec.ZSTD)
 
 
-def data_page_bodies(reader: ColumnChunkReader,
-                     pages: Sequence[PageInfo]) -> List[Optional[np.ndarray]]:
-    """The decompressed bytes of each data page of ``pages`` (uint8; a v1
-    page whole, a v2 page after its uncompressed levels), None for the
-    others.  SNAPPY and ZSTD pages decompress in one C++ call
+def data_page_bodies(reader: ColumnChunkReader, pages
+                     ) -> List[Optional[np.ndarray]]:
+    """The decompressed bytes of each data page of ``pages`` (a
+    :class:`PageTable` or :class:`PageInfo` objects; uint8; a v1 page
+    whole, a v2 page after its uncompressed levels), None for the others.
+    SNAPPY and ZSTD pages decompress in one C++ call
     (``host.decompress_pages``, threaded only for a batch of 8 MiB or
     more), UNCOMPRESSED ones stay views of the payload, and the other
     codecs decode page by page."""
-    out: List[Optional[np.ndarray]] = [None] * len(pages)
+    infos = list(pages)
+    table = pages if isinstance(pages, PageTable) else PageTable.of(infos)
+    b = table.bodies()
+    out: List[Optional[np.ndarray]] = [None] * len(infos)
     srcs, sizes, where = [], [], []
-    for i, page in enumerate(pages):
-        h = page.header
-        pt = page.page_type
-        size = h.uncompressed_page_size
-        size = -1 if size is None else size
-        if pt == PageType.DATA_PAGE:
-            src = page.payload
-        elif pt == PageType.DATA_PAGE_V2:
-            dph2 = h.data_page_header_v2
-            skip = ((dph2.repetition_levels_byte_length or 0)
-                    + (dph2.definition_levels_byte_length or 0))
-            src = page.payload[skip:]
-            if dph2.is_compressed is False:
-                out[i] = host.as_u8(src)
-                continue
-            size -= skip
-        else:
+    for i in np.flatnonzero(b.data).tolist():
+        src = host.as_u8(infos[i].payload)[int(b.start[i]):]
+        if not b.compressed[i]:
+            out[i] = src
             continue
         srcs.append(src)
-        sizes.append(size)
+        sizes.append(int(b.size[i]))
         where.append(i)
     codec = reader.codec
     if codec.codec_id in _BATCHED_CODECS and srcs:
@@ -606,8 +746,9 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
     max_rep = leaf.max_repetition_level
     defs, reps, parts = [], [], []
     slots = 0
-    pages = list(reader.pages() if pages is None else pages)
-    for page, raw in zip(pages, data_page_bodies(reader, pages)):
+    table = page_table_of(reader, pages)
+    pages = list(table)
+    for page, raw in zip(pages, data_page_bodies(reader, table)):
         h = page.header
         pt = page.page_type
         if pt == PageType.DICTIONARY_PAGE:

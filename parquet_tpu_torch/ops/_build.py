@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` (a CUDA kernel) compiles with ``nvcc`` for
 ``sm_90a``, and each ``csrc/<name>.cpp`` (host code: the Snappy codec and
-the byte-array scans, the read path's prescan) with the system ``c++``,
+the byte-array scans, the read path's prescan, chunk planner and staging
+fill) with the system ``c++``,
 into its own shared library with a plain C interface,
 ``_build/lib<name>.<hash>.so`` in the package directory, at first use;
 ``<hash>`` covers the source, the headers of ``csrc/`` it may include
@@ -72,6 +73,12 @@ SIGNATURES = {
         "pq_scan_page_headers": (_LL, [_P, _LL, _LL, _LL, _P, _LL, _P]),
         "pq_zstd_available": (_LL, []),
         "pq_decompress_pages": (_LL, [_P, _P, _LL, _LL, _P, _P, _LL]),
+        "pq_chunk_plan": (_P, [_P, _P, _LL, _LL, _LL, _LL, _LL, _P, _LL,
+                               _LL, _P]),
+        "pq_plan_export": (_LL, [_P, _P, _LL]),
+        "pq_plan_free": (None, [_P]),
+        "pq_fill_batch": (_LL, [_P, _LL, _P, _LL, _P, _LL, _LL]),
+        "pq_byte_array_parts": (_LL, [_P, _LL, _P, _P, _P]),
     },
 }
 # csrc/<name>.cpp, built with c++

@@ -17,6 +17,8 @@ words to ``int64`` first.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -210,11 +212,12 @@ def byte_stream_split(buf: torch.Tensor, n: int, width: int,
 # ---------------------------------------------------------------------------
 
 
-def delta_byte_array_prescan(data, pos: int = 0):
-    """Host prescan of one DELTA_BYTE_ARRAY page: ``(prefix_lens int64,
-    suffix bytes, suffix offsets int64, end)``; no output byte is
-    expanded on the host."""
-    return ref.decode_delta_byte_array_parts(data, pos)
+def delta_byte_array_prescan(data, pos: int = 0,
+                             max_values: Optional[int] = None):
+    """Host prescan of one DELTA_BYTE_ARRAY page of at most
+    ``max_values`` values: ``(prefix_lens int64, suffix bytes, suffix
+    offsets int64, end)``; no output byte is expanded on the host."""
+    return ref.decode_delta_byte_array_parts(data, pos, max_values)
 
 
 def delta_byte_array_iters(prefix_lens: np.ndarray) -> int:

@@ -17,7 +17,13 @@ Python version it replaces returns, and raises its
   streams of the delta byte-array encodings;
 - :func:`scan_page_headers`: ``io/reader.py::thrift_page_walk`` as one
   ``int64[npages, PG_NFIELDS]`` table;
-- :func:`decompress_pages`: every data page of a chunk in one call.
+- :func:`decompress_pages`: every data page of a chunk in one call;
+- :func:`chunk_plan`: every data page of a chunk decompressed and
+  prescanned in one call, into the chunk-level tables of
+  ``parallel/device_reader.py``'s plan (its plain version is
+  ``device_reader._build_plan_python``);
+- :func:`fill_batch`: a staging batch written in one threaded call;
+- :func:`byte_array_parts`: a chunk's host byte-array pages compacted.
 
 The libraries build with the system ``c++`` at first use
 (``ops/_build.py``).  Sizes and bounds are checked here before a pointer
@@ -315,12 +321,24 @@ def delta_prescan(data, pos: int = 0):
             widths[:k], mins[:k], int(header[3]))
 
 
-def decode_delta_binary_packed(data, pos: int = 0) -> Tuple[np.ndarray, int]:
+def length_count_message(count: int, page_values: int) -> str:
+    return (f"delta length stream of {count} values in a page of "
+            f"{page_values}")
+
+
+def decode_delta_binary_packed(data, pos: int = 0,
+                               max_values: Optional[int] = None
+                               ) -> Tuple[np.ndarray, int]:
     """A DELTA_BINARY_PACKED stream to int64 values (mod-2^64 sums) and its
     end: the length streams of DELTA_LENGTH_BYTE_ARRAY and
-    DELTA_BYTE_ARRAY pages, and the host route's delta pages."""
+    DELTA_BYTE_ARRAY pages, and the host route's delta pages.  A header
+    that counts more than ``max_values`` values (a length stream holds
+    one entry for each value of its page) raises before anything is
+    sized from it."""
     buf = as_u8(data)
     first, total, vpm, offs, widths, mins, end = delta_prescan(buf, pos)
+    if max_values is not None and total > max_values:
+        raise CorruptedError(length_count_message(total, max_values))
     out = np.empty(max(total, 1), np.int64)
     if _prescan().pq_delta_decode(
             _ptr(buf), len(buf), first, total, vpm, _ptr(offs),
@@ -411,6 +429,24 @@ _CODEC_NAMES = {CompressionCodec.SNAPPY: "Snappy",
                 CompressionCodec.ZSTD: "ZSTD"}
 
 
+def require_zstd() -> None:
+    """Raise as ``codecs.get_codec`` does where libzstd did not load."""
+    if not _prescan().pq_zstd_available():
+        from ..codecs import LIBRARIES, missing_library
+
+        raise missing_library(CompressionCodec.ZSTD,
+                              LIBRARIES[CompressionCodec.ZSTD])
+
+
+def decompress_error(codec_id: int, src_len: int,
+                     size: int) -> CorruptedError:
+    """The error of a batched page of ``src_len`` bytes that does not
+    decompress to ``size``."""
+    unit = " bytes out" if codec_id == CompressionCodec.SNAPPY else " out"
+    return CorruptedError(f"malformed {_CODEC_NAMES[codec_id]} stream "
+                          f"({src_len} bytes, expected {size}{unit})")
+
+
 def decompress_pages(srcs: Sequence, sizes: Sequence[int], codec_id: int,
                      nthreads: int = 1) -> Tuple[np.ndarray, np.ndarray]:
     """Decompress SNAPPY or ZSTD page payloads in one call on
@@ -422,11 +458,8 @@ def decompress_pages(srcs: Sequence, sizes: Sequence[int], codec_id: int,
     if codec_id not in _CODEC_NAMES:
         raise ValueError(f"codec {codec_id} is not batched")
     lib = _prescan()
-    if codec_id == CompressionCodec.ZSTD and not lib.pq_zstd_available():
-        from ..codecs import LIBRARIES, missing_library
-
-        raise missing_library(CompressionCodec.ZSTD,
-                              LIBRARIES[CompressionCodec.ZSTD])
+    if codec_id == CompressionCodec.ZSTD:
+        require_zstd()
     bufs = [as_u8(s) for s in srcs]
     sizes = np.asarray(sizes, np.int64).reshape(-1)
     if len(sizes) != len(bufs):
@@ -447,9 +480,161 @@ def decompress_pages(srcs: Sequence, sizes: Sequence[int], codec_id: int,
                                      offs.ctypes.data, max(int(nthreads), 1))
     if rc:
         i = -rc - 1
-        unit = (" bytes out" if codec_id == CompressionCodec.SNAPPY
-                else " out")
-        raise CorruptedError(
-            f"malformed {_CODEC_NAMES[codec_id]} stream ({len(bufs[i])} "
-            f"bytes, expected {int(sizes[i])}{unit})")
+        raise decompress_error(codec_id, len(bufs[i]), int(sizes[i]))
     return out[:int(offs[-1])], offs
+
+
+# ---------------------------------------------------------------------------
+# the chunk planner and the staging fill (csrc/host_prescan.cpp)
+# ---------------------------------------------------------------------------
+
+# columns of chunk_plan's per-page sources (csrc/host_prescan.cpp's S_*):
+# the payload (a v2 page's levels lie there), the body to decompress
+# (v1: the payload; v2: what follows the levels), the codec (0: the body
+# is used as it lies), the decompressed size and its offset in the
+# bodies buffer
+(SRC_PAYLOAD, SRC_PAYLOAD_LEN, SRC_BODY, SRC_BODY_LEN, SRC_CODEC, SRC_SIZE,
+ SRC_OUT_OFF, SRC_NFIELDS) = range(8)
+
+#: a plan's value kinds, by the planner's code
+VALUE_KINDS = ("plain_fixed", "plain_flba", "bool", "dict", "delta", "bss",
+               "dba", "host_ba")
+
+# chunk_plan's status (INFO_STATUS), and the slots of its info array:
+# PLAN_MEMORY an allocation failed, PLAN_ENUM an encoding the format does
+# not define, PLAN_NOT_READ an encoding the read does not decode for the
+# column
+(PLAN_OK, PLAN_CORRUPT, PLAN_UNSUPPORTED, PLAN_OUTSIDE, PLAN_DECOMPRESS,
+ PLAN_MEMORY, PLAN_ENUM, PLAN_NOT_READ) = range(8)
+(INFO_STATUS, INFO_PAGE, INFO_CODE, INFO_A0, INFO_A1, INFO_A2, INFO_A3,
+ INFO_KIND, INFO_SLOTS, INFO_VALUES, INFO_EXPANDED, INFO_DENSE_OK,
+ INFO_DENSE_W, INFO_D_VPM, INFO_HOST_DEF, INFO_LEVELS_LEN, INFO_VALUES_LEN,
+ INFO_DENSE_LEN, INFO_DEF_TOTAL, INFO_REP_TOTAL, INFO_V_TOTAL,
+ INFO_SIZES) = range(22)
+
+#: the arrays of a plan, in the order pq_plan_export writes them; every
+#: one int64 but host_def (int32); segment tables are (pointer, bytes)
+#: rows (pointer 0: zeros)
+PLAN_ARRAYS = (
+    "levels", "values", "dense",
+    "def_ends", "def_kinds", "def_payloads", "def_bit_offsets",
+    "def_widths",
+    "rep_ends", "rep_kinds", "rep_payloads", "rep_bit_offsets",
+    "rep_widths",
+    "v_ends", "v_kinds", "v_payloads", "v_bit_offsets", "v_widths",
+    "dense_pages", "d_firsts", "d_counts", "d_vpms", "d_mb_counts",
+    "d_mb_offs", "d_mb_widths", "d_mb_mins", "bss_pages", "dba_plens",
+    "dba_soffs", "dba_slens", "hb_parts", "hb_lens", "host_def")
+_PAIRS = {"levels": 2, "values": 2, "dense": 2, "dense_pages": 2,
+          "bss_pages": 2, "hb_parts": 4}
+
+
+def plan_threads(nbytes: int) -> int:
+    """Threads for planning a chunk whose pages need ``nbytes`` of work
+    (bodies to decompress or decode value by value): one below 1 MiB,
+    else one per 512 KiB up to 8, the cores this process may use and the
+    calling thread's cap (:func:`native_thread_cap`)."""
+    if nbytes < 1 << 20:
+        return 1
+    cap = getattr(_thread_cap, "n", None) or 8
+    return max(1, min(available_cpus(), 8, cap, nbytes >> 19))
+
+
+def chunk_plan(rows: np.ndarray, srcs: np.ndarray, max_def: int,
+               max_rep: int, physical: int, type_length: int,
+               bodies: np.ndarray, nthreads: int = 1):
+    """Plan a chunk's pages in one call (``pq_chunk_plan``, the
+    interpreter lock released) on ``nthreads`` threads, and write the plan
+    out in another (``pq_plan_export``): ``rows`` its page-header table,
+    ``srcs`` its ``int64[n, SRC_NFIELDS]`` sources, ``bodies`` the buffer
+    the compressed bodies decompress into.  Returns ``(info, arrays)``:
+    ``info`` the status and the plan's scalars (``INFO_*``), ``arrays``
+    the plan's arrays by :data:`PLAN_ARRAYS` name, or None unless the
+    status is :data:`PLAN_OK`.  The pointers in ``srcs`` and the arrays'
+    segment tables must stay valid while the plan is used."""
+    rows = np.ascontiguousarray(rows, np.int64)
+    srcs = np.ascontiguousarray(srcs, np.int64)
+    if rows.shape != (len(srcs), PG_NFIELDS) or srcs.shape[1:] != (
+            SRC_NFIELDS,):
+        raise ValueError("page rows and sources of different shapes")
+    lib = _prescan()
+    info = np.zeros(INFO_SIZES + len(PLAN_ARRAYS), np.int64)
+    plan = lib.pq_chunk_plan(_ptr(rows), _ptr(srcs), len(rows), max_def,
+                             max_rep, physical, type_length,
+                             bodies.ctypes.data, len(bodies), nthreads,
+                             info.ctypes.data)
+    if not plan:
+        return info, None
+    try:
+        sizes = info[INFO_SIZES:]
+        # every int64 array a view of one buffer; host_def (int32) apart
+        ends = np.cumsum(sizes[:-1])
+        buf = np.empty(max(int(ends[-1]), 1), np.int64)
+        host_def = np.empty(int(sizes[-1]), np.int32)
+        ptrs = np.zeros(len(PLAN_ARRAYS), np.int64)
+        ptrs[:-1] = buf.ctypes.data + (ends - sizes[:-1]) * 8
+        ptrs[-1] = host_def.ctypes.data
+    except BaseException:
+        lib.pq_plan_free(plan)
+        raise
+    # the export's threads pay off only for tables of megabytes
+    if lib.pq_plan_export(plan, ptrs.ctypes.data,
+                          nthreads if len(buf) >= 1 << 20 else 1):
+        raise MemoryError("out of host memory exporting a chunk plan")
+    arrays = {name: buf[e - n:e] for name, n, e in zip(
+        PLAN_ARRAYS, sizes[:-1].tolist(), ends.tolist())}
+    for name, width in _PAIRS.items():
+        arrays[name] = arrays[name].reshape(-1, width)
+    arrays["host_def"] = host_def
+    return info, arrays
+
+
+def fill_threads(nbytes: int) -> int:
+    """Threads for filling ``nbytes`` of a staging batch: one below 4 MiB,
+    else one per 2 MiB up to 8, the cores this process may use and the
+    calling thread's cap (:func:`native_thread_cap`)."""
+    if nbytes < 4 << 20:
+        return 1
+    cap = getattr(_thread_cap, "n", None) or 8
+    return max(1, min(available_cpus(), 8, cap, nbytes >> 21))
+
+
+def fill_batch(dst: np.ndarray, copies: np.ndarray, gathers: np.ndarray,
+               nthreads: int = 1) -> None:
+    """Write a staging batch in one call (``pq_fill_batch``, the
+    interpreter lock released): ``copies`` rows ``(dst offset, source
+    pointer or 0 for zeros, bytes)`` and ``gathers`` rows ``(dst offset,
+    source pointer, source bytes, pointer to int64 row starts, rows,
+    bytes a row)``, each gathered row the source's bytes from its start,
+    those past the source repeating its last byte.  The sources must
+    stay alive until the call returns."""
+    copies = np.ascontiguousarray(copies, np.int64).reshape(-1, 3)
+    gathers = np.ascontiguousarray(gathers, np.int64).reshape(-1, 6)
+    rc = _prescan().pq_fill_batch(dst.ctypes.data, dst.nbytes, _ptr(copies),
+                                  len(copies), _ptr(gathers), len(gathers),
+                                  max(int(nthreads), 1))
+    if rc == -2:
+        raise MemoryError("out of host memory filling a staging batch")
+    if rc:
+        raise ValueError("a staging entry lies outside the batch")
+
+
+def byte_array_parts(parts: np.ndarray, lens: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """A chunk's host byte-array pages, ``parts`` rows ``(kind, pointer,
+    bytes, values)`` (kind 0: PLAIN, length-prefixed; 1:
+    DELTA_LENGTH_BYTE_ARRAY bytes, their ``lens`` in order), as one fresh
+    ``(values uint8, offsets int64[n + 1])`` pair."""
+    parts = np.ascontiguousarray(parts, np.int64).reshape(-1, 4)
+    lens = np.ascontiguousarray(lens, np.int64)
+    if (parts[:, 3] < 0).any():
+        raise CorruptedError("negative BYTE_ARRAY value count")
+    offsets = np.empty(int(parts[:, 3].sum()) + 1, np.int64)
+    values = np.empty(max(int(parts[:, 2].sum()), 1), np.uint8)
+    got = _prescan().pq_byte_array_parts(_ptr(parts), len(parts), _ptr(lens),
+                                         offsets.ctypes.data,
+                                         values.ctypes.data)
+    if got < 0:
+        raise CorruptedError(f"PLAIN BYTE_ARRAY page {-got - 1} of "
+                             f"{len(parts)} is truncated")
+    return values[:got], offsets

@@ -176,6 +176,8 @@ def scan_rle_runs(data, num_values: int, bit_width: int, pos: int = 0):
                     int.from_bytes(buf[pos:pos + vbytes], "little") & vmask)
                 pos += vbytes
                 offsets.append(pos)
+            if pos > len(buf):  # a value or payload past the stream
+                raise IndexError
             counts.append(min(count, remaining))
             remaining -= count
     except IndexError:
@@ -412,10 +414,11 @@ def encode_bit_packed_levels(values: np.ndarray, bit_width: int) -> bytes:
 # ---------------------------------------------------------------------------
 
 
-def decode_delta_length_byte_array(data, pos: int = 0):
+def decode_delta_length_byte_array(data, pos: int = 0,
+                                   max_values: Optional[int] = None):
     """``(values uint8, offsets int64[n + 1], end)``; the values are a view
-    of ``data``."""
-    lengths, pos = host.decode_delta_binary_packed(data, pos)
+    of ``data``.  ``max_values``: the most lengths the page may hold."""
+    lengths, pos = host.decode_delta_binary_packed(data, pos, max_values)
     offsets = np.zeros(len(lengths) + 1, np.int64)
     np.cumsum(lengths, out=offsets[1:])
     buf = host.as_u8(data)
@@ -427,12 +430,15 @@ def decode_delta_length_byte_array(data, pos: int = 0):
     return buf[pos:pos + total], offsets, pos + total
 
 
-def decode_delta_byte_array_parts(data, pos: int = 0):
+def decode_delta_byte_array_parts(data, pos: int = 0,
+                                  max_values: Optional[int] = None):
     """The two length streams of a DELTA_BYTE_ARRAY page, no prefix
     expanded: ``(prefix_lens int64, suffix bytes, suffix offsets int64,
-    end)``; the device expands the prefixes."""
-    prefix_lens, pos = host.decode_delta_binary_packed(data, pos)
-    suffixes, soffs, pos = decode_delta_length_byte_array(data, pos)
+    end)``; the device expands the prefixes.  ``max_values``: the most
+    values the page may hold."""
+    prefix_lens, pos = host.decode_delta_binary_packed(data, pos, max_values)
+    suffixes, soffs, pos = decode_delta_length_byte_array(data, pos,
+                                                          max_values)
     if len(prefix_lens) != len(soffs) - 1:
         raise CorruptedError(f"DELTA_BYTE_ARRAY: {len(prefix_lens)} prefix "
                              f"lengths for {len(soffs) - 1} suffixes")

@@ -9,18 +9,19 @@ or v2.  Each chunk runs three phases:
 
 - :func:`build_plan`: host prescan of the pages into a :class:`_Plan`
   (decompression, RLE run headers of levels and values, delta miniblock
-  headers, the offsets of PLAIN and DELTA_LENGTH byte arrays, the length
-  streams of front coding: metadata-scale work), of the whole chunk or of
-  a given span of its pages with a given dictionary (the point lookup's
-  page runs).  The page walk, the batched decompression, the run scans,
-  the present counts, the delta tables and the length streams are C++
-  (``csrc/host_prescan.cpp`` through ``ops/host.py``); the rest of the
-  walk over a chunk's pages is Python;
+  headers, the spans of PLAIN and byte-array values, the length streams
+  of front coding: metadata-scale work), of the whole chunk or of a given
+  span of its pages with a given dictionary (the point lookup's page
+  runs), in one C++ call a chunk (``host.chunk_plan``,
+  ``csrc/host_prescan.cpp``) that releases the interpreter lock;
+  :func:`_build_plan_python`, the same walk page by page in Python, is
+  its plain version and plans the one shape it leaves out, legacy
+  BIT_PACKED def levels (:data:`PLAN_ROUTE`);
 - :func:`stage_plan`: the concatenated byte streams and the run tables
   are recorded in a :class:`_StagingBatch`, laid out in one host buffer
-  (pinned for a card), written there once and sent in one
-  ``non_blocking`` copy; the staged operands are views of one device
-  buffer;
+  (pinned for a card), written there once by one C++ call
+  (``host.fill_batch``) and sent in one ``non_blocking`` copy; the staged
+  operands are views of one device buffer;
 - :func:`decode_staged`: device decode into a :class:`Column`.  The dense
   dictionary-index and delta-miniblock streams unpack through the CUDA
   kernels of ``ops/kernels.py``; run expansion, gathers, the plane
@@ -69,9 +70,10 @@ import numpy as np
 import torch
 
 from ..errors import CorruptedError, _Unsupported, unsupported
-from ..format.enums import Encoding, PageType, Type
+from ..format.enums import CompressionCodec, Encoding, PageType, Type
 from ..io.column import Column
-from ..io.reader import data_page_bodies, decode_dictionary_page
+from ..io.reader import (_BATCHED_CODECS, PageTable, data_page_bodies,
+                         decode_dictionary_page, page_table_of)
 from ..ops import device as dev
 from ..ops import host, kernels, levels, ref
 from ..schema.types import (PHYSICAL_TORCH_DTYPE, PHYSICAL_WIDTH,
@@ -96,27 +98,65 @@ def reset_host_route() -> None:
         HOST_ROUTE[k] = 0
 
 
+#: chunks planned by the C++ planner (``build_plan``): ``native``, and
+#: ``native:python_codec`` where a codec without a batched C++ decoder
+#: (GZIP, LZ4, LZ4_RAW, BROTLI) decompressed the pages page by page
+#: first; and by the Python walk (``_build_plan_python``):
+#: ``python:bit_packed_levels``, the one shape the C++ leaves out
+PLAN_ROUTE = {"native": 0, "native:python_codec": 0,
+              "python:bit_packed_levels": 0}
+_route_lock = threading.Lock()
+
+
+def reset_plan_route() -> None:
+    for k in PLAN_ROUTE:
+        PLAN_ROUTE[k] = 0
+
+
+def _count_plan(route: str) -> None:
+    with _route_lock:  # planned on the pipeline's workers
+        PLAN_ROUTE[route] += 1
+
+
 def _bit_width(max_level: int) -> int:
     return int(max_level).bit_length()
 
 
-@dataclass
-class _RunTable:
-    """Chunk-level merged RLE/bit-packed run table (host-scanned)."""
+def _ints(*shape) -> np.ndarray:
+    return np.zeros(shape or (0,), np.int64)
 
-    ends: List[np.ndarray] = field(default_factory=list)
-    kinds: List[np.ndarray] = field(default_factory=list)
-    payloads: List[np.ndarray] = field(default_factory=list)
-    bit_offsets: List[np.ndarray] = field(default_factory=list)
-    widths: List[np.ndarray] = field(default_factory=list)
-    total: int = 0
+
+class _RunTable:
+    """Chunk-level merged RLE/bit-packed run table: ``arrays`` (ends,
+    kinds, payloads, bit_offsets, widths), the int64 operands of
+    ``dev.rle_expand``, over ``total`` values."""
+
+    __slots__ = ("arrays", "total")
+
+    def __init__(self, arrays=None, total: int = 0):
+        self.arrays = arrays if arrays is not None else (_ints(),) * 5
+        self.total = total
+
+    def run_arrays(self) -> Tuple[np.ndarray, ...]:
+        return self.arrays
+
+    def expand(self, dbuf: torch.Tensor, tables) -> torch.Tensor:
+        return dev.rle_expand(dbuf, self.total, *tables)
+
+
+class _RunParts:
+    """A :class:`_RunTable` built page by page (the Python walk)."""
+
+    def __init__(self):
+        self.parts, self.total = [], 0
 
     def add_scanned(self, kinds, cnts, payloads, offs, width, base_byte, n):
-        self.kinds.append(np.asarray(kinds))
-        self.payloads.append(np.asarray(payloads))
-        self.bit_offsets.append((np.asarray(offs) + base_byte) * 8)
-        self.widths.append(np.full(len(kinds), width, dtype=np.int64))
-        self.ends.append(self.total + np.cumsum(cnts))
+        cnts = np.asarray(cnts, np.int64)
+        self.parts.append((self.total + np.cumsum(cnts),
+                           np.asarray(kinds, np.int64),
+                           np.asarray(payloads, np.int64),
+                           (np.asarray(offs, np.int64) + base_byte) * 8,
+                           np.full(len(cnts), width, np.int64)))
         self.total += n
 
     def add(self, data: np.ndarray, n: int, width: int, base_byte: int):
@@ -129,98 +169,111 @@ class _RunTable:
 
     def add_bitpacked_span(self, n: int, width: int, base_byte: int):
         """A raw bit-packed span (a PLAIN BOOLEAN page) as one run."""
-        self.add_scanned(np.ones(1, np.uint8), np.array([n], np.int64),
-                         np.zeros(1, np.int64), np.zeros(1, np.int64), width,
-                         base_byte, n)
+        self.add_scanned([1], [n], [0], [0], width, base_byte, n)
 
-    def run_arrays(self) -> Tuple[np.ndarray, ...]:
-        """(ends, kinds, payloads, bit_offsets, widths), the operands of
-        ``dev.rle_expand``, as flat int64 host arrays."""
-        return tuple(np.concatenate(p).astype(np.int64) for p in
-                     (self.ends, self.kinds, self.payloads, self.bit_offsets,
-                      self.widths))
-
-    def expand(self, dbuf: torch.Tensor, tables) -> torch.Tensor:
-        return dev.rle_expand(dbuf, self.total, *tables)
+    def table(self) -> _RunTable:
+        if not self.parts:
+            return _RunTable(total=self.total)
+        return _RunTable(tuple(np.concatenate(c) for c in zip(*self.parts)),
+                         self.total)
 
 
 class _ByteAccum:
-    """Byte-stream accumulator holding zero-copy views, written once, at
-    staging time, straight into the staging batch's buffer."""
+    """A byte stream as segments, ``(pointer, bytes)`` rows (pointer 0:
+    zeros) into buffers it keeps alive, and the views :meth:`extend`
+    appends; written once, at staging time, straight into the staging
+    batch's buffer."""
 
-    __slots__ = ("_parts", "_n")
+    __slots__ = ("_segs", "_parts", "_n", "_keep")
 
-    def __init__(self):
-        self._parts = []
-        self._n = 0
+    def __init__(self, segs: Optional[np.ndarray] = None, n: int = 0,
+                 keep=None):
+        self._segs = _ints(0, 2) if segs is None else segs
+        self._parts, self._n, self._keep = [], n, keep
 
     def __len__(self) -> int:
         return self._n
 
     def extend(self, b) -> None:
-        if not isinstance(b, np.ndarray):
-            b = np.frombuffer(b, np.uint8)
+        b = host.as_u8(b)
         if len(b):
             self._parts.append(b)
             self._n += len(b)
 
-    def array(self) -> np.ndarray:
-        if not self._parts:
-            return np.empty(0, np.uint8)
-        if len(self._parts) == 1:
-            return self._parts[0]
-        return np.concatenate(self._parts)
+    def segments(self) -> np.ndarray:
+        if self._parts:
+            rows = np.array([(p.ctypes.data, len(p)) for p in self._parts],
+                            np.int64)
+            self._segs = np.concatenate([self._segs, rows])
+            self._keep, self._parts = (self._keep, self._parts), []
+        return self._segs
 
-    def write_into(self, buf: np.ndarray, off: int) -> None:
-        """The parts, in order, into ``buf[off:off + len(self)]``."""
-        for p in self._parts:
-            buf[off:off + len(p)] = p
-            off += len(p)
+    def copies(self, off: int) -> np.ndarray:
+        """The staging copies that write the stream at ``off``: ``(dst
+        offset, pointer, bytes)`` rows."""
+        segs = self.segments()
+        out = np.empty((len(segs), 3), np.int64)
+        out[:, 1:] = segs
+        out[:, 0] = off
+        out[1:, 0] += np.cumsum(segs[:-1, 1])
+        return out
+
+    def array(self) -> np.ndarray:
+        if not self._n:
+            return np.empty(0, np.uint8)
+        out = np.empty(self._n, np.uint8)
+        host.fill_batch(out, self.copies(0), ())
+        return out
 
 
 @dataclass
 class _Plan:
-    """Host-built staging plan for one chunk."""
+    """Host-built staging plan for one chunk: every table chunk-level,
+    as ``build_plan`` (C++) and ``_build_plan_python`` (the plain
+    version) make it alike."""
 
     levels: _ByteAccum = field(default_factory=_ByteAccum)
     values: _ByteAccum = field(default_factory=_ByteAccum)
     def_runs: _RunTable = field(default_factory=_RunTable)
     rep_runs: _RunTable = field(default_factory=_RunTable)
-    # def levels decoded on the host per page: legacy BIT_PACKED levels,
-    # and every page of a struct chain
-    host_def: List[np.ndarray] = field(default_factory=list)
+    # def levels decoded on the host: legacy BIT_PACKED levels, and every
+    # page of a struct chain (None: no page's)
+    host_def: Optional[np.ndarray] = None
     # 'plain_fixed' | 'plain_flba' | 'bool' | 'dict' | 'delta' | 'bss' |
-    # 'dba' | 'host_ba'
+    # 'dba' | 'host_ba' (host.VALUE_KINDS)
     value_kind: Optional[str] = None
-    plain_total: int = 0
     # dictionary index runs, or boolean runs
     vruns: _RunTable = field(default_factory=_RunTable)
     # dense single-width dict-index stream: bit-packed run payloads
     # compacted into one LSB-first w-bit stream, page-aligned to 32-value
-    # groups; (start_value, n_values) per page
+    # groups; (start_value, n_values) per page.  Empty unless dense_ok.
     dense: _ByteAccum = field(default_factory=_ByteAccum)
     dense_w: Optional[int] = None
-    dense_pages: List[Tuple[int, int]] = field(default_factory=list)
+    dense_pages: np.ndarray = field(default_factory=lambda: _ints(0, 2))
     dense_ok: bool = True
-    # delta
-    d_firsts: List[int] = field(default_factory=list)
-    d_counts: List[int] = field(default_factory=list)
-    d_vpms: List[int] = field(default_factory=list)
-    d_dense_static: Optional[tuple] = None
-    d_mb_offs: List[np.ndarray] = field(default_factory=list)
-    d_mb_widths: List[np.ndarray] = field(default_factory=list)
-    d_mb_mins: List[np.ndarray] = field(default_factory=list)
+    # delta: per page its first value, value count, values per miniblock
+    # and miniblocks; per miniblock its bit offset into values, width and
+    # min delta
+    d_firsts: np.ndarray = field(default_factory=_ints)
+    d_counts: np.ndarray = field(default_factory=_ints)
+    d_vpms: np.ndarray = field(default_factory=_ints)
+    d_mb_counts: np.ndarray = field(default_factory=_ints)
+    d_mb_offs: np.ndarray = field(default_factory=_ints)
+    d_mb_widths: np.ndarray = field(default_factory=_ints)
+    d_mb_mins: np.ndarray = field(default_factory=_ints)
     d_vpm: int = 32
+    d_dense_static: Optional[tuple] = None
     # byte-stream split: (base in values, value count) per page
-    bss_pages: List[Tuple[int, int]] = field(default_factory=list)
-    # front coding: per page the prefix lengths and suffix offsets (host),
-    # and (base in values, entry count); the suffix bytes are in values
-    dba_plens: List[np.ndarray] = field(default_factory=list)
-    dba_soffs: List[np.ndarray] = field(default_factory=list)
-    dba_pages: List[Tuple[int, int]] = field(default_factory=list)
-    # host byte arrays: ('plain', page bytes, count) or ('dlba', value
-    # bytes, offsets) per page, compacted at staging
-    host_parts: List[tuple] = field(default_factory=list)
+    bss_pages: np.ndarray = field(default_factory=lambda: _ints(0, 2))
+    # front coding: per entry its prefix length, its suffix's start in
+    # values and its suffix length
+    dba_plens: np.ndarray = field(default_factory=_ints)
+    dba_soffs: np.ndarray = field(default_factory=_ints)
+    dba_slens: np.ndarray = field(default_factory=_ints)
+    # host byte arrays: per page (kind 0 PLAIN | 1 DELTA_LENGTH, pointer,
+    # bytes, values), compacted at staging; the DELTA_LENGTH lengths
+    hb_parts: np.ndarray = field(default_factory=lambda: _ints(0, 4))
+    hb_lens: np.ndarray = field(default_factory=_ints)
     total_slots: int = 0
     total_values: int = 0
     # numpy array, or (values, offsets) for byte arrays
@@ -234,6 +287,260 @@ class _Plan:
     defs_expanded: bool = False
     leaf = None
     physical: Optional[Type] = None
+    # the buffers the plan's pointers point into
+    keep = None
+
+
+def build_plan(reader, pages=None, dictionary=None) -> _Plan:
+    """Host prescan of a chunk's pages into a staging plan: every page of
+    the chunk, or ``pages`` (a :class:`PageTable` or :class:`PageInfo`
+    objects: data pages of one span) decoded with the chunk's
+    already-decoded ``dictionary``.  One C++ call plans every data page
+    (``host.chunk_plan``, the interpreter lock released); a chunk with a
+    shape outside it takes :func:`_build_plan_python`, counted in
+    :data:`PLAN_ROUTE` by reason."""
+    table = page_table_of(reader, pages)
+    plan = _native_plan(reader, table, dictionary)
+    return plan if plan is not None else _build_plan_python(
+        reader, table, dictionary)
+
+
+def _page_sources(reader, table: PageTable) -> tuple:
+    """The planner's per-page sources (``host.SRC_*`` columns), the buffer
+    the compressed bodies decompress into and the bodies decoded here
+    (codecs without a batched C++ decoder), from the bodies
+    ``data_page_bodies`` reads (``PageTable.bodies``)."""
+    b = table.bodies()
+    ptr = table.payloads[:, 0]
+    srcs = np.zeros((len(table), host.SRC_NFIELDS), np.int64)
+    srcs[:, host.SRC_PAYLOAD] = ptr
+    srcs[:, host.SRC_PAYLOAD_LEN] = table.payloads[:, 1]
+    srcs[:, host.SRC_BODY] = ptr + b.start
+    srcs[:, host.SRC_BODY_LEN] = b.length
+    size, compressed = b.size, b.compressed
+    srcs[:, host.SRC_SIZE] = size
+    codec = reader.codec
+    cid = int(codec.codec_id)
+    bodies, decoded = np.empty(1, np.uint8), None
+    if codec.codec_id in _BATCHED_CODECS and compressed.any():
+        bad = np.flatnonzero(compressed & (size < 0))
+        if len(bad):
+            raise _decompress_error(cid, srcs[bad[0]])
+        if codec.codec_id == CompressionCodec.ZSTD:
+            host.require_zstd()
+        out = np.where(compressed, size, 0)
+        srcs[:, host.SRC_OUT_OFF] = np.cumsum(out) - out
+        srcs[:, host.SRC_CODEC] = np.where(compressed, cid, 0)
+        bodies = np.empty(max(int(out.sum()), 1), np.uint8)
+    elif codec.codec_id != CompressionCodec.UNCOMPRESSED and \
+            compressed.any():
+        decoded = data_page_bodies(reader, table)
+        for i in np.flatnonzero(compressed).tolist():
+            srcs[i, host.SRC_BODY] = decoded[i].ctypes.data
+            srcs[i, host.SRC_BODY_LEN] = len(decoded[i])
+    return srcs, bodies, decoded
+
+
+def _decompress_error(codec_id: int, src) -> CorruptedError:
+    """``host.decompress_pages``' error for the page of ``src``."""
+    return host.decompress_error(codec_id, int(src[host.SRC_BODY_LEN]),
+                                 int(src[host.SRC_SIZE]))
+
+
+_STREAMS = ("level", "RLE boolean")
+_CORRUPT = {
+    1: lambda a: "malformed RLE hybrid stream: zero-count run",
+    2: lambda a: "RLE hybrid stream truncated",
+    3: lambda a: f"RLE hybrid bit width {a[0]} outside 0..64",
+    4: lambda a: f"{_STREAMS[a[0]]} stream length truncated",
+    5: lambda a: f"{_STREAMS[a[0]]} stream of {a[1]} bytes overruns its "
+                 "page",
+    6: lambda a: f"{('PLAIN', 'BYTE_STREAM_SPLIT')[a[0]]} page holds {a[1]} "
+                 f"bytes, {a[2]} values need {a[3]}",
+    7: lambda a: f"DELTA_BINARY_PACKED page in a {Type(a[0]).name} column",
+    8: lambda a: f"BYTE_STREAM_SPLIT page in a {Type(a[0]).name} column",
+    9: lambda a: f"malformed DELTA_BINARY_PACKED header: block_size={a[0]}, "
+                 f"miniblocks={a[1]}",
+    10: lambda a: "DELTA_BINARY_PACKED miniblock bit width over 64",
+    11: lambda a: "DELTA_BINARY_PACKED stream truncated",
+    12: lambda a: f"DELTA_LENGTH_BYTE_ARRAY: {a[0]} lengths of {a[1]} bytes, "
+                  f"{a[2]} in the page",
+    13: lambda a: f"DELTA_BYTE_ARRAY: {a[0]} prefix lengths for {a[1]} "
+                  "suffixes",
+    14: lambda a: "DELTA_BYTE_ARRAY prefix longer than the value before it",
+    15: lambda a: _level_bytes_message(*a[:3]),
+    16: lambda a: _counts_message(*a[:2]),
+    17: lambda a: _TYPE_LENGTH,
+    18: lambda a: host.length_count_message(*a[:2]),
+}
+_TYPE_LENGTH = "FIXED_LEN_BYTE_ARRAY column without a type length"
+
+
+def _level_bytes_message(rl: int, dl: int, size: int) -> str:
+    return (f"v2 page levels of {rl} + {dl} bytes do not fit its "
+            f"{size}-byte payload")
+
+
+def _counts_message(n: int, nulls: int) -> str:
+    return f"data page of {n} values with {nulls} nulls"
+
+
+def _plan_error(info: np.ndarray, leaf) -> Exception:
+    """The exception of a planner status, of the type and in the words of
+    the Python walk's."""
+    status = int(info[host.INFO_STATUS])
+    code = int(info[host.INFO_CODE])
+    args = info[host.INFO_A0:host.INFO_A3 + 1].tolist()
+    if status == host.PLAN_CORRUPT:
+        return CorruptedError(_CORRUPT[code](args))
+    if status == host.PLAN_MEMORY:
+        return MemoryError(f"out of host memory planning page "
+                           f"{int(info[host.INFO_PAGE])} of a chunk")
+    if status == host.PLAN_ENUM:  # the walk's Encoding(value)
+        try:
+            Encoding(None if args[0] == -1 else args[0])
+        except ValueError as e:
+            return e
+    if status == host.PLAN_NOT_READ:
+        return _not_read(Encoding(args[0]), Type(args[1]))
+    kinds = host.VALUE_KINDS
+    return {
+        1: lambda: _Unsupported("mixed_page_kinds", f"chunk mixing "
+                                f"{kinds[args[0]]} and {kinds[args[1]]} "
+                                "pages"),
+        2: lambda: _bit_packed_repeated(leaf),
+        3: lambda: _Unsupported("bss_int96", "byte-stream-split INT96 "
+                                "values"),
+        4: lambda: _dba_first_prefix(),
+    }[code]()
+
+
+def _not_read(encoding: Encoding, physical: Type) -> NotImplementedError:
+    return unsupported(f"{encoding.name} pages of a {physical.name} column",
+                       "more encodings")
+
+
+def _bit_packed_repeated(leaf) -> _Unsupported:
+    return _Unsupported("bit_packed_repeated_levels",
+                        f"legacy BIT_PACKED levels in the repeated column "
+                        f"{leaf.name!r}")
+
+
+def _dba_first_prefix() -> _Unsupported:
+    # front coding restarts on every page: a nonzero first prefix would
+    # chase a value of another page
+    return _Unsupported("dba_first_prefix", "DELTA_BYTE_ARRAY page with a "
+                        "nonzero first prefix")
+
+
+#: the encodings whose pages the planner decodes value by value (delta
+#: miniblock tables, the length streams of the delta byte arrays): the
+#: codes from DELTA_BINARY_PACKED to DELTA_BYTE_ARRAY
+_DECODED_FIRST, _DECODED_LAST = (Encoding.DELTA_BINARY_PACKED,
+                                 Encoding.DELTA_BYTE_ARRAY)
+
+
+def _plan_work(rows: np.ndarray, srcs: np.ndarray) -> int:
+    """The bytes a chunk's planning works through, for its thread count:
+    the bodies it decompresses and those it decodes value by value (a
+    PLAIN or dictionary page is a few run headers, whatever its size)."""
+    inflated = srcs[:, host.SRC_CODEC] != 0
+    enc = rows[:, host.PG_ENC]
+    decoded = (enc >= _DECODED_FIRST) & (enc <= _DECODED_LAST)
+    return int(np.where(inflated | decoded, srcs[:, host.SRC_SIZE].clip(0),
+                        0).sum())
+
+
+def _native_plan(reader, table: PageTable, dictionary) -> Optional[_Plan]:
+    """The plan of one ``host.chunk_plan`` call, or None for a chunk
+    outside the C++ planner; counted in :data:`PLAN_ROUTE`.  Raises what
+    the Python walk raises, in the order it raises it (page decompression
+    first, then each page's levels and values and each dictionary page in
+    page order)."""
+    leaf = reader.leaf
+    physical = Type(reader.meta.type)
+    rows = table.rows
+    srcs, bodies, decoded = _page_sources(reader, table)
+    info, arrays = host.chunk_plan(
+        rows, srcs, leaf.max_definition_level, leaf.max_repetition_level,
+        int(physical), -1 if leaf.type_length is None else leaf.type_length,
+        bodies, host.plan_threads(_plan_work(rows, srcs)))
+    status = int(info[host.INFO_STATUS])
+    if status == host.PLAN_OUTSIDE:  # legacy BIT_PACKED def levels
+        _count_plan("python:bit_packed_levels")
+        return None
+    _count_plan("native" if decoded is None else "native:python_codec")
+    if status == host.PLAN_DECOMPRESS:
+        raise _decompress_error(int(reader.codec.codec_id),
+                                srcs[int(info[host.INFO_PAGE])])
+    stop = len(rows) if status == host.PLAN_OK else int(info[host.INFO_PAGE])
+    for i in np.flatnonzero(rows[:stop, host.PG_TYPE]
+                            == PageType.DICTIONARY_PAGE).tolist():
+        dictionary = decode_dictionary_page(reader, table.info(i))
+    if status != host.PLAN_OK:
+        raise _plan_error(info, leaf)
+    keep = (table, bodies, decoded)
+    kind = int(info[host.INFO_KIND])
+    runs = ("ends", "kinds", "payloads", "bit_offsets", "widths")
+    plan = _Plan(
+        levels=_ByteAccum(arrays["levels"], int(info[host.INFO_LEVELS_LEN]),
+                          keep),
+        values=_ByteAccum(arrays["values"], int(info[host.INFO_VALUES_LEN]),
+                          keep),
+        def_runs=_RunTable(tuple(arrays["def_" + r] for r in runs),
+                           int(info[host.INFO_DEF_TOTAL])),
+        rep_runs=_RunTable(tuple(arrays["rep_" + r] for r in runs),
+                           int(info[host.INFO_REP_TOTAL])),
+        host_def=arrays["host_def"] if info[host.INFO_HOST_DEF] else None,
+        value_kind=host.VALUE_KINDS[kind] if kind >= 0 else None,
+        vruns=_RunTable(tuple(arrays["v_" + r] for r in runs),
+                        int(info[host.INFO_V_TOTAL])),
+        dense=_ByteAccum(arrays["dense"], int(info[host.INFO_DENSE_LEN]),
+                         keep),
+        dense_w=(int(info[host.INFO_DENSE_W])
+                 if info[host.INFO_DENSE_W] >= 0 else None),
+        dense_pages=arrays["dense_pages"],
+        dense_ok=bool(info[host.INFO_DENSE_OK]),
+        d_vpm=int(info[host.INFO_D_VPM]),
+        total_slots=int(info[host.INFO_SLOTS]),
+        total_values=int(info[host.INFO_VALUES]),
+        defs_expanded=bool(info[host.INFO_EXPANDED]),
+        **{k: arrays[k] for k in (
+            "d_firsts", "d_counts", "d_vpms", "d_mb_counts", "d_mb_offs",
+            "d_mb_widths", "d_mb_mins", "bss_pages", "dba_plens",
+            "dba_soffs", "dba_slens", "hb_parts", "hb_lens")})
+    plan.leaf, plan.physical, plan.keep = leaf, physical, keep
+    plan.dictionary_host = dictionary
+    return plan
+
+
+def _len_prefixed(raw: np.ndarray, pos: int, what: str) -> tuple:
+    """The hybrid stream behind a 4-byte length at ``pos``: ``(body,
+    end)``."""
+    if pos + 4 > len(raw):
+        raise CorruptedError(f"{what} stream length truncated")
+    (length,) = _struct.unpack_from("<I", raw, pos)
+    if pos + 4 + length > len(raw):
+        raise CorruptedError(f"{what} stream of {length} bytes overruns its "
+                             "page")
+    return raw[pos + 4:pos + 4 + length], pos + 4 + length
+
+
+class _Walk:
+    """The per-page parts of a plan the Python walk gathers, merged into
+    a :class:`_Plan` by :meth:`plan`."""
+
+    def __init__(self):
+        self.levels, self.values, self.dense = (_ByteAccum(), _ByteAccum(),
+                                                _ByteAccum())
+        self.def_runs, self.rep_runs, self.vruns = (
+            _RunParts(), _RunParts(), _RunParts())
+        self.host_def = []
+        self.value_kind = None
+        self.dense_w, self.dense_pages, self.dense_ok = None, [], True
+        self.delta = []  # (first, count, vpm, offs, widths, mins) a page
+        self.bss_pages, self.dba, self.hb_parts, self.hb_lens = [], [], [], []
+        self.keep = []
 
     def set_kind(self, kind: str):
         if self.value_kind is None:
@@ -243,24 +550,44 @@ class _Plan:
                 "mixed_page_kinds",
                 f"chunk mixing {self.value_kind} and {kind} pages")
 
+    def plan(self) -> _Plan:
+        p = _Plan(levels=self.levels, values=self.values,
+                  def_runs=self.def_runs.table(),
+                  rep_runs=self.rep_runs.table(), vruns=self.vruns.table(),
+                  value_kind=self.value_kind, dense_ok=self.dense_ok)
+        if self.host_def:
+            p.host_def = np.concatenate(self.host_def)
+        if self.dense_ok and self.dense_pages:
+            p.dense, p.dense_w = self.dense, self.dense_w
+            p.dense_pages = np.array(self.dense_pages, np.int64)
+        if self.delta:
+            cols = list(zip(*self.delta))
+            p.d_firsts, p.d_counts, p.d_vpms = (np.array(c, np.int64)
+                                                for c in cols[:3])
+            p.d_mb_counts = np.array([len(o) for o in cols[3]], np.int64)
+            p.d_mb_offs, p.d_mb_widths, p.d_mb_mins = (
+                np.concatenate(c).astype(np.int64) for c in cols[3:])
+            p.d_vpm = int(p.d_vpms[-1])
+        if self.bss_pages:
+            p.bss_pages = np.array(self.bss_pages, np.int64)
+        if self.dba:
+            p.dba_plens, p.dba_soffs, p.dba_slens = (
+                np.concatenate(c).astype(np.int64) for c in zip(*self.dba))
+        if self.hb_parts:
+            p.hb_parts = np.array([(k, b.ctypes.data, len(b), c)
+                                   for k, b, c in self.hb_parts], np.int64)
+            self.keep.append(self.hb_parts)
+            if self.hb_lens:
+                p.hb_lens = np.concatenate(self.hb_lens).astype(np.int64)
+        p.keep = self.keep
+        return p
 
-def _all_equal(kinds, payloads, level: int) -> bool:
-    """A scanned level stream is one RLE run of ``level``."""
-    return len(kinds) == 1 and kinds[0] == 0 and payloads[0] == level
 
-
-#: one page walk at a time: the walk is Python under the interpreter
-#: lock, and two walks on two threads take turns at it (slower than one
-#: after the other), while the page decompression before the walk and the
-#: staging after it run beside another thread's walk
-_page_walk = threading.Lock()
-
-
-def build_plan(reader, pages: Optional[Iterable] = None,
-               dictionary=None) -> _Plan:
-    """Host prescan of a chunk's pages into a staging plan: every page of
-    the chunk, or ``pages`` (data pages of one span) decoded with the
-    chunk's already-decoded ``dictionary``."""
+def _build_plan_python(reader, pages=None, dictionary=None) -> _Plan:
+    """The plain version of :func:`build_plan`: the chunk's pages walked
+    one at a time in Python, the C++ scans called page by page.  The
+    tests' oracle for the C++ planner, and the planner of the chunks
+    outside it."""
     leaf = reader.leaf
     physical = Type(reader.meta.type)
     max_def = leaf.max_definition_level
@@ -268,234 +595,236 @@ def build_plan(reader, pages: Optional[Iterable] = None,
     dw, rw = _bit_width(max_def), _bit_width(max_rep)
     # a struct chain's def levels expand on the host, once
     struct_chain = max_rep == 0 and max_def > 1
-    plan = _Plan()
-    plan.leaf = leaf
-    plan.physical = physical
-    plan.dictionary_host = dictionary
+    w = _Walk()
+    total_slots = total_values = 0
+    expanded = False
 
-    pages = list(reader.pages() if pages is None else pages)
-    bodies = data_page_bodies(reader, pages)  # threaded C++, no lock
-    with _page_walk:
-        for page, raw in zip(pages, bodies):
-            h = page.header
-            pt = page.page_type
-            if pt == PageType.DICTIONARY_PAGE:
-                plan.dictionary_host = decode_dictionary_page(reader, page)
-                continue
-            if pt == PageType.DATA_PAGE:
-                dph = h.data_page_header
-                n = dph.num_values
-                pos = 0
-                n_present = n
-                rle_def = (Encoding(dph.definition_level_encoding)
+    table = page_table_of(reader, pages)
+    pages = list(table)
+    bodies = data_page_bodies(reader, table)  # threaded C++
+    for page, raw in zip(pages, bodies):
+        h = page.header
+        pt = page.page_type
+        if pt == PageType.DICTIONARY_PAGE:
+            dictionary = decode_dictionary_page(reader, page)
+            continue
+        if pt == PageType.DATA_PAGE:
+            dph = h.data_page_header
+            n = dph.num_values
+            if n < 0:
+                raise CorruptedError(_counts_message(n, 0))
+            pos = 0
+            n_present = n
+            rle_def = (Encoding(dph.definition_level_encoding)
+                       == Encoding.RLE)
+            if max_rep > 0:
+                rle_rep = (Encoding(dph.repetition_level_encoding)
                            == Encoding.RLE)
-                if max_rep > 0:
-                    rle_rep = (Encoding(dph.repetition_level_encoding)
-                               == Encoding.RLE)
-                    if not rle_rep or not rle_def:
-                        raise _Unsupported(
-                            "bit_packed_repeated_levels",
-                            f"legacy BIT_PACKED levels in the repeated column "
-                            f"{leaf.name!r}")
-                    (length,) = _struct.unpack_from("<I", raw, pos)
-                    body = raw[pos + 4:pos + 4 + length]
-                    plan.rep_runs.add(body, n, rw, len(plan.levels))
-                    plan.levels.extend(body)
-                    pos += 4 + length
-                if max_def > 0:
-                    if rle_def and struct_chain:
-                        lv, pos = ref.decode_rle_len_prefixed(raw, n, dw, pos)
-                        plan.host_def.append(lv)
-                        n_present = int(np.count_nonzero(lv == max_def))
-                        plan.defs_expanded |= n_present != n
-                    elif rle_def:
-                        (length,) = _struct.unpack_from("<I", raw, pos)
-                        body = raw[pos + 4:pos + 4 + length]
-                        kinds, cnts, payloads, offs = plan.def_runs.add(
-                            body, n, dw, len(plan.levels))
-                        plan.levels.extend(body)
-                        pos += 4 + length
-                        n_present = host.count_present(body, kinds, cnts,
-                                                       payloads, offs, dw,
-                                                       max_def)
-                        if n and not _all_equal(kinds, payloads, max_def):
-                            plan.defs_expanded = True
-                    else:  # legacy BIT_PACKED levels: decoded on the host
-                        lv = ref.decode_bit_packed_levels(raw[pos:], n, dw)
-                        plan.host_def.append(lv)
-                        pos += (n * dw + 7) // 8
-                        n_present = int(np.count_nonzero(lv == max_def))
-                        plan.defs_expanded = True
-                _stage_values(plan, raw, pos, n_present,
-                              Encoding(dph.encoding), physical, leaf)
-                plan.total_slots += n
-                plan.total_values += n_present
-            elif pt == PageType.DATA_PAGE_V2:
-                dph2 = h.data_page_header_v2
-                n = dph2.num_values
-                rl = dph2.repetition_levels_byte_length or 0
-                dl = dph2.definition_levels_byte_length or 0
-                payload = host.as_u8(page.payload)
-                if max_rep > 0:
-                    body = payload[:rl]
-                    plan.rep_runs.add(body, n, rw, len(plan.levels))
-                    plan.levels.extend(body)
-                if max_def > 0:
-                    body = payload[rl:rl + dl]
-                    if struct_chain:
-                        plan.host_def.append(ref.decode_rle(body, n, dw))
-                    else:
-                        plan.def_runs.add(body, n, dw, len(plan.levels))
-                        plan.levels.extend(body)
-                    plan.defs_expanded |= bool(dph2.num_nulls)
-                n_present = n - (dph2.num_nulls or 0)
-                _stage_values(plan, raw, 0, n_present, Encoding(dph2.encoding),
-                              physical, leaf)
-                plan.total_slots += n
-                plan.total_values += n_present
-    if plan.host_def and plan.def_runs.total:
+                if not rle_rep or not rle_def:
+                    raise _bit_packed_repeated(leaf)
+                body, end = _len_prefixed(raw, pos, "level")
+                w.rep_runs.add(body, n, rw, len(w.levels))
+                w.levels.extend(body)
+                pos = end
+            if max_def > 0:
+                if rle_def and struct_chain:
+                    lv, pos = ref.decode_rle_len_prefixed(raw, n, dw, pos)
+                    w.host_def.append(lv)
+                    n_present = int(np.count_nonzero(lv == max_def))
+                    expanded |= n_present != n
+                elif rle_def:
+                    body, end = _len_prefixed(raw, pos, "level")
+                    kinds, cnts, payloads, offs = w.def_runs.add(
+                        body, n, dw, len(w.levels))
+                    w.levels.extend(body)
+                    pos = end
+                    n_present = host.count_present(body, kinds, cnts,
+                                                   payloads, offs, dw,
+                                                   max_def)
+                    if n and not _all_equal(kinds, payloads, max_def):
+                        expanded = True
+                else:  # legacy BIT_PACKED levels: decoded on the host
+                    lv = ref.decode_bit_packed_levels(raw[pos:], n, dw)
+                    w.host_def.append(lv)
+                    pos += (n * dw + 7) // 8
+                    n_present = int(np.count_nonzero(lv == max_def))
+                    expanded = True
+            _stage_values(w, raw, pos, n_present, Encoding(dph.encoding),
+                          physical, leaf)
+        elif pt == PageType.DATA_PAGE_V2:
+            dph2 = h.data_page_header_v2
+            n = dph2.num_values
+            nulls = dph2.num_nulls or 0
+            if n < 0 or nulls < 0 or nulls > n:
+                raise CorruptedError(_counts_message(n, nulls))
+            rl = dph2.repetition_levels_byte_length or 0
+            dl = dph2.definition_levels_byte_length or 0
+            payload = host.as_u8(page.payload)
+            if rl < 0 or dl < 0 or rl + dl > len(payload):
+                raise CorruptedError(_level_bytes_message(rl, dl,
+                                                          len(payload)))
+            if max_rep > 0:
+                body = payload[:rl]
+                w.rep_runs.add(body, n, rw, len(w.levels))
+                w.levels.extend(body)
+            if max_def > 0:
+                body = payload[rl:rl + dl]
+                if struct_chain:
+                    w.host_def.append(ref.decode_rle(body, n, dw))
+                else:
+                    w.def_runs.add(body, n, dw, len(w.levels))
+                    w.levels.extend(body)
+                expanded |= bool(nulls)
+            n_present = n - nulls
+            _stage_values(w, raw, 0, n_present, Encoding(dph2.encoding),
+                          physical, leaf)
+        else:
+            continue
+        total_slots += n
+        total_values += n_present
+    if w.host_def and w.def_runs.total:
         raise _Unsupported("mixed_level_encodings",
                            f"column {leaf.name!r} mixing RLE and BIT_PACKED "
                            "definition levels")
+    plan = w.plan()
+    plan.total_slots, plan.total_values = total_slots, total_values
+    plan.defs_expanded = expanded
+    plan.leaf, plan.physical = leaf, physical
+    plan.dictionary_host = dictionary
+    plan.keep.append(pages)
     return plan
 
 
-def _add_dense_page(plan: _Plan, body: np.ndarray, kinds, cnts, offs,
+def _all_equal(kinds, payloads, level: int) -> bool:
+    """A scanned level stream is one RLE run of ``level``."""
+    return len(kinds) == 1 and kinds[0] == 0 and payloads[0] == level
+
+
+def _add_dense_page(w: _Walk, body: np.ndarray, kinds, cnts, offs,
                     width: int, nvals: int) -> None:
     """Compact one dict page's index stream into the chunk's dense w-bit
     stream when every run is bit-packed.  Bit-packed runs hold whole
     8-value groups (8*w bits, byte aligned), so their payloads concatenate
     into one LSB-first stream; pages pad to 32-value boundaries (4*w
     bytes) so unpack groups never straddle pages."""
-    if not plan.dense_ok or not len(kinds) or not np.all(
+    if not w.dense_ok or not len(kinds) or not np.all(
             np.asarray(kinds) == 1):
-        plan.dense_ok = False
+        w.dense_ok = False
         return
-    if plan.dense_w is None:
-        plan.dense_w = width
-    elif plan.dense_w != width:
-        plan.dense_ok = False
+    if w.dense_w is None:
+        w.dense_w = width
+    elif w.dense_w != width:
+        w.dense_ok = False
         return
     group_bytes = 4 * width  # 32 values
-    pad = -len(plan.dense) % group_bytes
-    plan.dense.extend(np.zeros(pad, np.uint8))
-    start_val = len(plan.dense) * 8 // width
+    pad = -len(w.dense) % group_bytes
+    w.dense.extend(np.zeros(pad, np.uint8))
+    start_val = len(w.dense) * 8 // width
     bview = np.asarray(body)
-    for cnt, off in zip(np.asarray(cnts, np.int64),
-                        np.asarray(offs, np.int64)):
-        ngroups = (int(cnt) + 7) // 8
-        plan.dense.extend(bview[int(off):int(off) + ngroups * width])
-    plan.dense_pages.append((start_val, nvals))
+    for cnt, off in zip(np.asarray(cnts, np.int64).tolist(),
+                        np.asarray(offs, np.int64).tolist()):
+        ngroups = (cnt + 7) // 8
+        w.dense.extend(bview[off:off + ngroups * width])
+    w.dense_pages.append((start_val, nvals))
 
 
-def _stage_values(plan: _Plan, raw: np.ndarray, pos: int, nvals: int,
+def _stage_values(w: _Walk, raw: np.ndarray, pos: int, nvals: int,
                   encoding: Encoding, physical: Type, leaf) -> None:
     if encoding in (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY):
-        plan.set_kind("dict")
+        w.set_kind("dict")
         width = int(raw[pos]) if pos < len(raw) else 0
         body = raw[pos + 1:]
-        base = len(plan.values)
-        plan.values.extend(body)
+        base = len(w.values)
+        w.values.extend(body)
         if width == 0:  # single-entry dictionary
-            plan.vruns.add_scanned(np.zeros(1, np.uint8),
-                                   np.array([nvals]), np.zeros(1, np.int64),
-                                   np.zeros(1, np.int64), 1, base, nvals)
-            plan.dense_ok = False
+            w.vruns.add_scanned([0], [nvals], [0], [0], 1, base, nvals)
+            w.dense_ok = False
         else:
-            kinds, cnts, _, offs = plan.vruns.add(body, nvals, width, base)
-            _add_dense_page(plan, body, kinds, cnts, offs, width, nvals)
+            kinds, cnts, _, offs = w.vruns.add(body, nvals, width, base)
+            _add_dense_page(w, body, kinds, cnts, offs, width, nvals)
         return
     if encoding == Encoding.PLAIN:
         if physical == Type.BOOLEAN:
-            plan.set_kind("bool")
+            w.set_kind("bool")
             nbytes = (nvals + 7) // 8
             _check_length(raw, pos, nbytes, nvals, "PLAIN")
-            base = len(plan.values)
-            plan.values.extend(raw[pos:pos + nbytes])
-            plan.vruns.add_bitpacked_span(nvals, 1, base)
+            base = len(w.values)
+            w.values.extend(raw[pos:pos + nbytes])
+            w.vruns.add_bitpacked_span(nvals, 1, base)
             return
         if physical == Type.BYTE_ARRAY:  # offsets scanned at staging
-            plan.set_kind("host_ba")
-            plan.host_parts.append(("plain", raw[pos:], nvals))
+            w.set_kind("host_ba")
+            w.hb_parts.append((0, raw[pos:], nvals))
             return
         if physical == Type.FIXED_LEN_BYTE_ARRAY:
-            plan.set_kind("plain_flba")
-            w = leaf.type_length
+            w.set_kind("plain_flba")
+            width = leaf.type_length
+            if width is None:
+                raise CorruptedError(_TYPE_LENGTH)
         else:
-            plan.set_kind("plain_fixed")
-            w = PHYSICAL_WIDTH[physical]
-        _check_length(raw, pos, nvals * w, nvals, "PLAIN")
-        plan.values.extend(raw[pos:pos + nvals * w])
-        plan.plain_total += nvals
+            w.set_kind("plain_fixed")
+            width = PHYSICAL_WIDTH[physical]
+        _check_length(raw, pos, nvals * width, nvals, "PLAIN")
+        w.values.extend(raw[pos:pos + nvals * width])
         return
     if encoding == Encoding.DELTA_BINARY_PACKED:
         if physical not in (Type.INT32, Type.INT64):
             raise CorruptedError(
                 f"DELTA_BINARY_PACKED page in a {physical.name} column")
-        plan.set_kind("delta")
-        base = len(plan.values)
-        plan.values.extend(raw[pos:])
+        w.set_kind("delta")
+        base = len(w.values)
+        w.values.extend(raw[pos:])
         first, total, vpm, offs, widths, mins, _ = host.delta_prescan(raw,
                                                                       pos)
-        plan.d_firsts.append(first)
-        plan.d_counts.append(total)
-        plan.d_mb_offs.append(offs + (base - pos) * 8)
-        plan.d_mb_widths.append(widths)
-        plan.d_mb_mins.append(mins)
-        plan.d_vpm = vpm
-        plan.d_vpms.append(vpm)
+        w.delta.append((first, total, vpm, offs + (base - pos) * 8, widths,
+                        mins))
         return
     if encoding == Encoding.BYTE_STREAM_SPLIT:
-        w = (leaf.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
-             else {Type.INT32: 4, Type.INT64: 8, Type.FLOAT: 4,
-                   Type.DOUBLE: 8}.get(physical))
+        width = (leaf.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
+                 else {Type.INT32: 4, Type.INT64: 8, Type.FLOAT: 4,
+                       Type.DOUBLE: 8}.get(physical))
         if physical == Type.INT96:
             raise _Unsupported("bss_int96", "byte-stream-split INT96 values")
-        if not w:
+        if not width or width < 0:
             raise CorruptedError(f"BYTE_STREAM_SPLIT page in a "
                                  f"{physical.name} column")
-        plan.set_kind("bss")
-        _check_length(raw, pos, nvals * w, nvals, "BYTE_STREAM_SPLIT")
-        base = len(plan.values)
-        plan.values.extend(raw[pos:pos + nvals * w])
-        plan.bss_pages.append((base, nvals))
+        w.set_kind("bss")
+        _check_length(raw, pos, nvals * width, nvals, "BYTE_STREAM_SPLIT")
+        base = len(w.values)
+        w.values.extend(raw[pos:pos + nvals * width])
+        w.bss_pages.append((base, nvals))
         return
     if encoding == Encoding.RLE and physical == Type.BOOLEAN:
-        plan.set_kind("bool")
-        (length,) = _struct.unpack_from("<I", raw, pos)
-        body = raw[pos + 4:pos + 4 + length]
-        base = len(plan.values)
-        plan.values.extend(body)
-        plan.vruns.add(body, nvals, 1, base)
+        w.set_kind("bool")
+        body, _ = _len_prefixed(raw, pos, "RLE boolean")
+        base = len(w.values)
+        w.values.extend(body)
+        w.vruns.add(body, nvals, 1, base)
         return
     if encoding == Encoding.DELTA_LENGTH_BYTE_ARRAY and \
             physical == Type.BYTE_ARRAY:
-        plan.set_kind("host_ba")
-        v, o, _ = ref.decode_delta_length_byte_array(raw, pos)
-        plan.host_parts.append(("dlba", v, o))
+        w.set_kind("host_ba")
+        v, o, _ = ref.decode_delta_length_byte_array(raw, pos, nvals)
+        w.hb_parts.append((1, v, len(o) - 1))
+        w.hb_lens.append(np.diff(o))
         return
     if encoding == Encoding.DELTA_BYTE_ARRAY and physical in (
             Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
-        plan.set_kind("dba")
-        plens, suffixes, soffs, _ = dev.delta_byte_array_prescan(raw, pos)
+        w.set_kind("dba")
+        plens, suffixes, soffs, _ = dev.delta_byte_array_prescan(raw, pos,
+                                                                 nvals)
         if len(plens) and int(plens[0]) != 0:
-            # front coding restarts on every page: a nonzero first prefix
-            # would chase a value of another page
-            raise _Unsupported("dba_first_prefix", "DELTA_BYTE_ARRAY page "
-                               "with a nonzero first prefix")
+            raise _dba_first_prefix()
         if len(plens) and ((plens < 0).any()
                            or (plens[1:] > np.diff(soffs)[:-1]
                                + plens[:-1]).any()):
             raise CorruptedError("DELTA_BYTE_ARRAY prefix longer than the "
                                  "value before it")
-        base = len(plan.values)
-        plan.values.extend(suffixes)
-        plan.dba_plens.append(plens)
-        plan.dba_soffs.append(soffs)
-        plan.dba_pages.append((base, len(plens)))
+        base = len(w.values)
+        w.values.extend(suffixes)
+        w.dba.append((plens, soffs[:-1] + base, np.diff(soffs)))
         return
-    raise unsupported(f"{encoding.name} pages of a {physical.name} column",
-                      "more encodings")
+    raise _not_read(encoding, physical)
 
 
 def _check_length(raw: np.ndarray, pos: int, nbytes: int, nvals: int,
@@ -550,11 +879,11 @@ class _Slot:
     data at byte ``off``, then zeroed slack up to ``span``; staged as a
     ``dtype`` view of ``shape`` (a byte stream: all ``span`` bytes)."""
 
-    __slots__ = ("off", "nbytes", "span", "dtype", "shape", "src")
+    __slots__ = ("off", "nbytes", "span", "dtype", "shape")
 
-    def __init__(self, off, nbytes, span, dtype, shape, src):
+    def __init__(self, off, nbytes, span, dtype, shape):
         self.off, self.nbytes, self.span = off, nbytes, span
-        self.dtype, self.shape, self.src = dtype, shape, src
+        self.dtype, self.shape = dtype, shape
 
     def view(self, buf: torch.Tensor) -> torch.Tensor:
         if self.shape is None:
@@ -570,11 +899,13 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
 class _StagingBatch:
     """Every transfer of one or more chunks' staging, in one buffer.
 
-    :meth:`put` records an operand (a host array, or a byte stream that
-    writes itself: :class:`_ByteAccum`, :class:`_MiniblockGather`) and
-    returns its :class:`_Slot`.  :meth:`pack` lays the slots out in one
-    host buffer (pinned for a card) and writes each operand there once,
-    zeroing its slack (the kernels and gathers read words past a stream's
+    :meth:`put` records an operand (a host array, or a byte stream:
+    :class:`_ByteAccum`'s segments, :class:`_MiniblockGather`'s rows) as
+    entries of the batch's copy table, its slack as zeros, and returns its
+    :class:`_Slot`.  :meth:`pack` lays the slots out in one host buffer
+    (pinned for a card) and writes every entry in one C++ call
+    (``host.fill_batch``, threaded, the interpreter lock released), the
+    slack zeroed (the kernels and gathers read words past a stream's
     end); :meth:`send` copies it to the device in one ``non_blocking``
     copy; :meth:`resolve` swaps each slot of a staged structure for its
     typed view of the device buffer.  On the CPU the host buffer is the
@@ -584,32 +915,43 @@ class _StagingBatch:
         self._slots: List[_Slot] = []
         self.nbytes = 0
         self.host: Optional[torch.Tensor] = None
+        self._copies: list = []  # int64[k, 3]: (dst, pointer | 0, bytes)
+        self._gathers: list = []  # _MiniblockGather rows
+        self._keep: list = []  # the sources, alive until the fill
 
     def put(self, src, extra: int = 0) -> _Slot:
+        off = self.nbytes
         if isinstance(src, np.ndarray):
             src = np.ascontiguousarray(src)
             n, dtype, shape = src.nbytes, _torch_dtype(src.dtype), src.shape
+            if n:
+                self._copies.append(np.array([[off, src.ctypes.data, n]],
+                                             np.int64))
         else:
             n, dtype, shape = len(src), torch.uint8, None
+            if isinstance(src, _MiniblockGather):
+                self._gathers.append(src.row(off))
+            else:
+                self._copies.append(src.copies(off))
         span = -(-(n + extra) // _ROUND) * _ROUND
-        slot = _Slot(self.nbytes, n, span, dtype, shape, src)
+        self._copies.append(np.array([[off + n, 0, span - n]], np.int64))
+        self._keep.append(src)
+        slot = _Slot(off, n, span, dtype, shape)
         self.nbytes += -(-span // _ALIGN) * _ALIGN
         self._slots.append(slot)
         return slot
 
     def pack(self, pin: bool) -> torch.Tensor:
-        """The host buffer, laid out and filled; each operand written once.
-        ``pin``: page-locked (a failed allocation raises)."""
+        """The host buffer, laid out and filled in one C++ call; each
+        operand written once.  ``pin``: page-locked (a failed allocation
+        raises)."""
         self.host = torch.empty(self.nbytes, dtype=torch.uint8,
                                 pin_memory=pin)
-        h = self.host.numpy()
-        for s in self._slots:
-            if isinstance(s.src, np.ndarray):
-                h[s.off:s.off + s.nbytes] = s.src.reshape(-1).view(np.uint8)
-            else:
-                s.src.write_into(h, s.off)
-            h[s.off + s.nbytes:s.off + s.span] = 0
-            s.src = None  # the host data is not needed past the copy
+        host.fill_batch(self.host.numpy(), np.concatenate(self._copies),
+                        np.array(self._gathers, np.int64).reshape(-1, 6),
+                        host.fill_threads(self.nbytes))
+        # the host data is not needed past the copy
+        self._copies, self._gathers, self._keep = [], [], []
         return self.host
 
     def send(self, device: torch.device) -> torch.Tensor:
@@ -666,26 +1008,19 @@ def _wait_for_copy(meta: dict) -> None:
         buf.record_stream(stream)
 
 
-def _nonempty(parts, dtype, fill=0) -> np.ndarray:
-    """Concatenate per-page metadata; a zero-miniblock chunk (all
-    single-value pages) still gets 1-element tables, so device gathers
-    have an operand."""
-    out = (np.concatenate(parts).astype(dtype) if parts
-           else np.empty(0, dtype))
-    return out if out.size else np.full(1, fill, dtype)
+def _nonempty(a: np.ndarray, fill=0) -> np.ndarray:
+    """A zero-miniblock chunk (all single-value pages) still gets
+    1-element tables, so device gathers have an operand."""
+    return a if a.size else np.full(1, fill, np.int64)
 
 
 def _delta_gather_tables(plan: _Plan) -> tuple:
     """Gather-kernel operands (page_ends, firsts, mb_base, mb_offs,
     mb_widths, mb_mins) as int64 host arrays."""
-    page_ends = np.cumsum(plan.d_counts).astype(np.int64)
-    mb_base = np.zeros(len(plan.d_counts), np.int64)
-    np.cumsum([len(w) for w in plan.d_mb_widths[:-1]], out=mb_base[1:])
-    mb_offs = _nonempty(plan.d_mb_offs, np.int64)
-    mb_widths = _nonempty(plan.d_mb_widths, np.int64, fill=1)
-    mb_mins = _nonempty(plan.d_mb_mins, np.int64)
-    firsts = np.asarray(plan.d_firsts, np.int64)
-    return page_ends, firsts, mb_base, mb_offs, mb_widths, mb_mins
+    page_ends = np.cumsum(plan.d_counts)
+    mb_base = np.cumsum(plan.d_mb_counts) - plan.d_mb_counts
+    return (page_ends, plan.d_firsts, mb_base, _nonempty(plan.d_mb_offs),
+            _nonempty(plan.d_mb_widths, fill=1), _nonempty(plan.d_mb_mins))
 
 
 class _MiniblockGather:
@@ -699,21 +1034,17 @@ class _MiniblockGather:
     __slots__ = ("values", "starts", "nb")
 
     def __init__(self, values: np.ndarray, starts: np.ndarray, nb: int):
-        self.values, self.starts, self.nb = values, starts, nb
+        self.values = host.as_u8(values)
+        self.starts = np.ascontiguousarray(starts, np.int64)
+        self.nb = nb
 
     def __len__(self) -> int:
         return len(self.starts) * self.nb
 
-    def write_into(self, buf: np.ndarray, off: int) -> None:
-        if not self.nb:  # width 0: every delta is the block's min
-            return
-        src = self.values
-        short = int(self.starts.max()) + self.nb - len(src)
-        if short > 0:
-            src = np.concatenate([src, np.full(short, src[-1], np.uint8)])
-        rows = np.lib.stride_tricks.sliding_window_view(src, self.nb)
-        buf[off:off + len(self)].reshape(-1, self.nb)[...] = rows[
-            self.starts]
+    def row(self, off: int) -> tuple:
+        """Its gather entry of ``host.fill_batch`` at ``off``."""
+        return (off, self.values.ctypes.data, len(self.values),
+                self.starts.ctypes.data, len(self.starts), self.nb)
 
 
 def _stage_delta_dense(plan: _Plan, meta: dict, device: torch.device,
@@ -731,19 +1062,19 @@ def _stage_delta_dense(plan: _Plan, meta: dict, device: torch.device,
             return False
         meta["delta_dense"] = batch.commit(meta["delta_dense"], device)[0]
         return True
-    if not plan.d_counts:
+    if not len(plan.d_counts):
         return False
     vpm = plan.d_vpm
-    if len(set(plan.d_vpms)) != 1 or vpm % 32:
+    if len(np.unique(plan.d_vpms)) != 1 or vpm % 32:
         return False
     if len(plan.d_counts) > 512:
         return False
-    widths_all = np.concatenate(plan.d_mb_widths)
+    widths_all = plan.d_mb_widths
     uw = np.unique(widths_all)
     if len(widths_all) == 0 or len(uw) > 8 or int(uw[-1]) > 32:
         return False
     vals_np = plan.values.array()
-    boffs = np.concatenate(plan.d_mb_offs) // 8
+    boffs = plan.d_mb_offs // 8
     streams, groups = [], []
     for w in uw:
         g = np.flatnonzero(widths_all == w)
@@ -755,8 +1086,8 @@ def _stage_delta_dense(plan: _Plan, meta: dict, device: torch.device,
         # row j of the concatenated unpack holds miniblock order[j]: the
         # inverse permutation restores the original order
         perm = put(np.argsort(np.concatenate(groups)))
-    mins = put(np.concatenate(plan.d_mb_mins).astype(np.int64))
-    firsts = put(np.asarray(plan.d_firsts, np.int64))
+    mins = put(plan.d_mb_mins)
+    firsts = put(plan.d_firsts)
     meta["delta_dense"] = (tuple(streams), perm, mins, firsts)
     plan.d_dense_static = (vpm, tuple(int(w) for w in uw),
                            tuple(len(g) for g in groups),
@@ -769,7 +1100,7 @@ def stage_levels_on_device(leaf, plan: _Plan) -> bool:
     column's always (its offsets assemble there, nulls or not), a flat
     optional column's where a value is null, and never levels the plan
     decoded on the host (a struct chain's, legacy BIT_PACKED ones)."""
-    if plan.host_def:
+    if plan.host_def is not None:
         return False
     return (leaf.max_repetition_level > 0
             or plan.total_values != plan.total_slots)
@@ -793,7 +1124,7 @@ def stage_plan(plan: _Plan, device: torch.device, put=None) -> tuple:
             len(plan.values) > dev.MAX_DEVICE_BUF:
         raise _Unsupported("stream_bound", f"a chunk stream over "
                            f"{dev.MAX_DEVICE_BUF} bytes")
-    if kind == "delta" and len(set(plan.d_vpms)) > 1:
+    if kind == "delta" and len(np.unique(plan.d_vpms)) > 1:
         raise _Unsupported("mixed_delta_vpm", "mixed delta miniblock sizes "
                            "across pages")
     lev_dbuf = None
@@ -801,7 +1132,7 @@ def stage_plan(plan: _Plan, device: torch.device, put=None) -> tuple:
         lev_dbuf = put(plan.levels, extra=12)
     meta = {}
     dense_route = (kind == "dict" and plan.dense_ok
-                   and bool(plan.dense_pages))
+                   and len(plan.dense_pages) > 0)
     delta_dense = kind == "delta" and _stage_delta_dense(plan, meta, device,
                                                          put)
     val_dbuf = None
@@ -823,11 +1154,10 @@ def stage_plan(plan: _Plan, device: torch.device, put=None) -> tuple:
         tables, total, iters = _dba_tables(plan)
         meta["dba"] = (tuple(put(a) for a in tables), total, iters)
     if kind == "host_ba":
-        meta["host_ba"] = tuple(put(a) for a in
-                                _host_byte_arrays(plan.host_parts))
-    if plan.host_def and plan.total_values != plan.total_slots:
-        levels = np.concatenate(plan.host_def)
-        meta["host_def"] = put(levels == plan.leaf.max_definition_level)
+        meta["host_ba"] = tuple(put(a) for a in _host_byte_arrays(plan))
+    if plan.host_def is not None and plan.total_values != plan.total_slots:
+        meta["host_def"] = put(plan.host_def
+                               == plan.leaf.max_definition_level)
     if stage_levels and plan.def_runs.total:
         meta["def_runs"] = tuple(put(a) for a in plan.def_runs.run_arrays())
     if stage_levels and plan.rep_runs.total:
@@ -845,52 +1175,23 @@ def _stage_dictionary(dict_host, put):
 
 
 def _dba_tables(plan: _Plan) -> tuple:
-    """The per-page front-coding tables concatenated for the chunk:
-    ``((prefix_lens, suffix_offs, entry_offs), total, iters)`` as int64.
-    Prefix chains never cross pages (every page's first prefix is 0), so
-    the entries concatenate freely, suffix offsets rebased by each page's
-    base in the staged suffix stream; ``entry_offs`` doubles as the
-    column's offsets."""
-    if not plan.dba_pages:
-        empty = np.zeros(0, np.int64)
-        return (empty, empty, np.zeros(1, np.int64)), 0, 0
-    plens = np.concatenate(plan.dba_plens).astype(np.int64)
-    soffs = np.concatenate([so[:-1] + base for (base, _), so in
-                            zip(plan.dba_pages, plan.dba_soffs)])
-    slens = np.concatenate([np.diff(so) for so in plan.dba_soffs])
-    entry_offs = np.zeros(len(plens) + 1, np.int64)
-    np.cumsum(plens + slens, out=entry_offs[1:])
-    return ((plens, soffs.astype(np.int64), entry_offs),
-            int(entry_offs[-1]), dev.delta_byte_array_iters(plens))
+    """The front-coding tables of the chunk: ``((prefix_lens,
+    suffix_offs, entry_offs), total, iters)`` as int64.  Prefix chains
+    never cross pages (every page's first prefix is 0), so the entries
+    concatenate freely, suffix offsets rebased by each page's base in the
+    staged suffix stream; ``entry_offs`` doubles as the column's
+    offsets."""
+    entry_offs = np.zeros(len(plan.dba_plens) + 1, np.int64)
+    np.cumsum(plan.dba_plens + plan.dba_slens, out=entry_offs[1:])
+    return ((plan.dba_plens, plan.dba_soffs, entry_offs),
+            int(entry_offs[-1]), dev.delta_byte_array_iters(plan.dba_plens))
 
 
-def _host_byte_arrays(parts) -> tuple:
-    """The chunk's PLAIN and DELTA_LENGTH byte-array pages as one
-    ``(values, offsets int64)`` pair on the host: each run of PLAIN pages
-    is one C++ offset scan that compacts its values, DELTA_LENGTH pages
-    already have theirs.  Fresh arrays: one copy of the bytes, or two
-    where page kinds alternate."""
-    groups, plain = [], []
-    for part in parts:
-        if part[0] == "plain":
-            plain.append((part[1], part[2]))
-            continue
-        if plain:
-            groups.append(host.plain_byte_arrays(plain))
-            plain = []
-        groups.append((part[1], part[2]))
-    if plain:
-        groups.append(host.plain_byte_arrays(plain))
-    if len(groups) == 1 and parts[0][0] == "plain":
-        return groups[0]
-    if not groups:
-        return np.zeros(0, np.uint8), np.zeros(1, np.int64)
-    values = np.concatenate([g[0] for g in groups])
-    offs, base = [np.zeros(1, np.int64)], 0
-    for _, o in groups:
-        offs.append(np.asarray(o[1:], np.int64) - o[0] + base)
-        base += int(o[-1] - o[0])
-    return values, np.concatenate(offs)
+def _host_byte_arrays(plan: _Plan) -> tuple:
+    """The chunk's PLAIN and DELTA_LENGTH byte-array pages as one fresh
+    ``(values, offsets int64)`` pair on the host: one C++ call scans the
+    PLAIN pages' offsets and compacts every page's values."""
+    return host.byte_array_parts(plan.hb_parts, plan.hb_lens)
 
 
 # ---------------------------------------------------------------------------
@@ -1028,8 +1329,8 @@ def _decode_dense_dict(plan: _Plan, dense_buf: torch.Tensor, dictionary):
     return indices, dev.dict_gather(dictionary, indices)
 
 
-def _page_slices(x: torch.Tensor, pages) -> torch.Tensor:
-    parts = [x[s:s + n] for s, n in pages]
+def _page_slices(x: torch.Tensor, pages: np.ndarray) -> torch.Tensor:
+    parts = [x[s:s + n] for s, n in pages.tolist()]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -1041,6 +1342,7 @@ def _bss_decode(buf: torch.Tensor, pages, width: int,
     dtype (an INT32 column is int32, not float32)."""
     dtype = (None if physical == Type.FIXED_LEN_BYTE_ARRAY
              else PHYSICAL_TORCH_DTYPE[physical])
+    pages = pages.tolist()
     if len(pages) == 1 and pages[0][0] == 0:
         return dev.byte_stream_split(buf, pages[0][1], width, dtype)
     parts = [buf[b:b + width * n].reshape(width, n).T for b, n in pages]
@@ -1065,10 +1367,10 @@ def decode_staged(plan: _Plan, staged: tuple,
         if plan.def_runs.total:
             def_levels = plan.def_runs.expand(lev_dbuf, meta["def_runs"])
             validity = dev.validity_from_def(def_levels, max_def)
-        elif plan.host_def:
+        elif plan.host_def is not None:
             validity = meta["host_def"]
             if max_def > 1:  # a struct chain keeps its levels
-                def_host = np.concatenate(plan.host_def).astype(np.int32)
+                def_host = plan.host_def.astype(np.int32)
 
     dictionary = dict_indices = offsets = None
     kind = plan.value_kind
@@ -1104,7 +1406,7 @@ def decode_staged(plan: _Plan, staged: tuple,
             values = _delta_decode_dense(streams, perm, mins, firsts, vpm,
                                          gw, gk, pcounts, physical)
         else:
-            values = _delta_decode_multi(val_dbuf, int(sum(plan.d_counts)),
+            values = _delta_decode_multi(val_dbuf, int(plan.d_counts.sum()),
                                          *meta["delta"], plan.d_vpm,
                                          physical)
     elif kind == "bss":
@@ -1265,19 +1567,20 @@ def decode_chunk_batched(reader, device, workers: int = 2) -> Column:
     leaf = reader.leaf
     if leaf.max_repetition_level > 0 or leaf.max_definition_level > 1:
         raise _Unsupported("batched", "page batches of a nested column")
-    pages = list(reader.pages())
-    data = [p for p in pages
-            if p.page_type in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2)]
+    pages = page_table_of(reader)
+    types = pages.rows[:, host.PG_TYPE]
+    data = np.flatnonzero((types == PageType.DATA_PAGE)
+                          | (types == PageType.DATA_PAGE_V2))
     per = max(8, -(-len(data) // _TARGET_BATCHES))
-    batches = [data[i:i + per] for i in range(0, len(data), per)]
+    batches = [pages[data[i:i + per]] for i in range(0, len(data), per)]
     if len(batches) < _MIN_BATCHES:
         raise _Unsupported("batched", "too few pages to pipeline")
     dictionary = dictionary_dev = None
     if len(pages) > len(data):
-        if pages[0].page_type != PageType.DICTIONARY_PAGE or len(pages) \
+        if types[0] != PageType.DICTIONARY_PAGE or len(pages) \
                 != len(data) + 1:
             raise _Unsupported("batched", "a dictionary page not first")
-        dictionary = decode_dictionary_page(reader, pages[0])
+        dictionary = decode_dictionary_page(reader, pages.info(0))
         batch = _StagingBatch()
         dictionary_dev = batch.commit(_stage_dictionary(
             dictionary, batch.put), device)[0]

@@ -612,3 +612,57 @@ def test_pipelined_read_on_card_equals_serial(cuda_device, tmp_path):
             _same_column(got[name], cpu[name])
     assert pqt.PIPELINE["stage_concurrency_peak"] >= 2
     assert pqt.PIPELINE["chunks_host_fallback"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("version", [1, 2])
+def test_native_plan_on_card_equals_python_plan(cuda_device, version):
+    """Every chunk planned by the C++ planner, staged on the card and
+    decoded, equals the Python walk's plan decoded on the CPU; no chunk
+    takes the Python walk."""
+    from parquet_tpu_torch.parallel import device_reader as tdr
+
+    rng = np.random.default_rng(13)
+    buf = io.BytesIO()
+    pqt.write_table(_staging_table(60_000, rng), buf, pqt.WriterOptions(
+        row_group_size=30_000, data_page_size=8192, compression="snappy",
+        data_page_version=version, column_encoding=_STAGING_ENCODINGS))
+    f = pqt.ParquetFile(buf.getvalue())
+    pqt.reset_plan_route()
+    for leaf in f.schema.leaves:
+        for rg in f.row_groups:
+            reader = rg.column(leaf.column_index)
+            plan = tdr.build_plan(reader)
+            got = tdr.decode_staged(plan, tdr.stage_plan(plan, cuda_device),
+                                    cuda_device)
+            oracle = tdr._build_plan_python(reader)
+            want = tdr.decode_staged(oracle, tdr.stage_plan(
+                oracle, torch.device("cpu")), torch.device("cpu"))
+            _same_column(got, want)
+    assert pqt.PLAN_ROUTE["native"] == 2 * len(f.schema.leaves)
+    assert sum(pqt.PLAN_ROUTE.values()) == pqt.PLAN_ROUTE["native"]
+
+
+@pytest.mark.cuda
+def test_fill_batch_into_pinned_memory(cuda_device):
+    """One threaded C++ fill of a pinned batch (a large array, byte
+    streams and miniblock rows) copies to the card as written."""
+    from parquet_tpu_torch.ops import host
+    from parquet_tpu_torch.parallel import device_reader as tdr
+
+    rng = np.random.default_rng(14)
+    big = rng.integers(0, 256, 9 << 20, dtype=np.uint8)
+    values = rng.integers(0, 256, 50_000, dtype=np.uint8)
+    starts = np.sort(rng.integers(0, 50_000, 4000))
+    batch = tdr._StagingBatch()
+    slots = [batch.put(big, extra=12),
+             batch.put(tdr._MiniblockGather(values, starts, 40), extra=4)]
+    assert host.fill_threads(batch.nbytes) > 1 or host.available_cpus() == 1
+    staged, ready = batch.commit(slots, cuda_device, side_stream=True)
+    assert batch.host.is_pinned()
+    torch.cuda.synchronize()
+    assert torch.equal(staged[0][:len(big)].cpu(), torch.from_numpy(big))
+    assert not staged[0][len(big):].any()
+    pad = np.concatenate([values, np.full(40, values[-1], np.uint8)])
+    want = np.stack([pad[s:s + 40] for s in starts]).reshape(-1)
+    assert torch.equal(staged[1][:len(want)].cpu(), torch.from_numpy(want))

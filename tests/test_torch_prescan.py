@@ -144,8 +144,9 @@ def test_run_scan_rejects_malformed_streams():
     for w in (1, 3, 9):
         stream, n, _ = _hybrid(rng, w, "mixed", runs=4)
         for cut in range(len(stream)):
-            with pytest.raises(CorruptedError, match="truncated"):
-                host.scan_rle_runs(stream[:cut], n, w)
+            for scan in (host.scan_rle_runs, tref.scan_rle_runs):
+                with pytest.raises(CorruptedError, match="truncated"):
+                    scan(stream[:cut], n, w)
     with pytest.raises(CorruptedError, match="truncated"):
         host.count_present(b"\x00", [1], [8], [0], [0], 3, 1)
 
