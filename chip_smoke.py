@@ -1,10 +1,11 @@
-"""Drive parquet_tpu_torch's device read and batched point lookup on one
-CUDA card and check them.
+"""Drive parquet_tpu_torch's device read, batched point lookup and device
+scan on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
                           [--enc-rows 4194304] [--nested-n 8000000]
-                          [--nest-mix-rows 1048576] [--out DIR]
+                          [--nest-mix-rows 1048576] [--scan-rows 8388608]
+                          [--out DIR]
     python3 chip_smoke.py --summarize LOG
 
 Phases, each fatal on failure:
@@ -112,6 +113,29 @@ Phases, each fatal on failure:
    lookup, and the counters must equal the same lookup's on the CPU; then
    one warm lookup under per-stage timers (key preparation, statistics,
    bloom probe, page search, page fetch, matching, gather, assembly);
+5b. device scan: ``stage_scan(..., device="cuda")`` once, ``decoded_scan``
+   once cold and three times warm, ``scan_filtered_device`` end to end
+   three times, in three cases: (A) ``bench.py:_cfg5`` at ``--scan-rows``
+   (sorted ``l_shipdate`` 8000-12000, ``l_orderkey``, ``l_quantity``,
+   ``l_extendedprice``; 8 row groups, 128 KiB pages, Snappy, PLAIN, page
+   index, a bloom filter on ``l_shipdate``; the port's writer), its range
+   [9000, 9200] and an IN-list of 64 ship dates, each also scanned on the
+   CPU; (B) phase 4b's lineitem, TPC-H Q6's ``l_shipdate`` in [8766, 9130]
+   (outputs ``l_extendedprice``, ``l_discount``, ``l_quantity``,
+   ``l_returnflag``, ``l_comment``) and Q12's ``l_shipmode`` IN ('MAIL',
+   'SHIP'); (C) phase 5's lookup file, a range of about 1 % of ``k``
+   (outputs ``v`` and ``cat``).  Every result equals a numpy oracle over
+   the generated arrays bit for bit, with validity (strings on the host);
+   ``bloom_check`` launches in A's IN-list, ``unpack_bits_dense`` in B's
+   Q12 (the one row group whose ``l_shipmode`` index runs are all
+   bit-packed; ``l_returnflag``'s take ``rle_expand``),
+   ``dict_unpack_gather`` in C; no chunk takes the host route or the
+   Python walk.  One ``{"scan": [...]}`` line a case: rows, candidate rows,
+   spans, rows selected, ``stage_s``, the cold and warm ``decoded_scan``
+   seconds and rows/s (over the file and over the candidates), the end to
+   end seconds, the kernels launched, the synchronizing calls of one warm
+   ``decoded_scan`` (``torch.cuda.set_sync_debug_mode``) and the filter
+   ops' calls in it;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -132,10 +156,14 @@ Phases, each fatal on failure:
    enc's and lineitem's first row groups, and the level assembly at cfg 4's
    first row group (``assemble_single_list``) and at ``grid``'s
    (``assemble_nested``), each with the profiler's device time per call
-   (every kernel of the op), its calls per read and its byte bound;
-7. one more warm read of the 5-column file, of lineitem and of cfg 4, and
-   one more warm lookup, each under the profiler, for the device's idle
-   share; each read follows an unprofiled read of its file (phases 4b-6
+   (every kernel of the op), its calls per read and its byte bound; and
+   the scan's filter ops (``range_mask``, ``in_mask``, ``compact_targets``,
+   ``compact_prefix``) at case A's row group of 1,048,576 rows, with their
+   calls in one ``decoded_scan``;
+7. one warm ``decoded_scan`` of each scan case (``{"scan_breakdown":
+   ...}``, first: short windows), one more warm read of the 5-column
+   file, of lineitem and of cfg 4, and one more warm lookup, each under
+   the profiler, for the device's idle share; each read follows an unprofiled read of its file (phases 4b-6
    used the caching allocators in between) and must copy nothing over
    1 MiB from pageable memory and create no pinned block (the trace's
    copies and ``cudaHostAlloc`` and ``cudaMalloc`` calls are logged).
@@ -751,6 +779,9 @@ ENC_SHAPES = (("ba_dict", "unpack_bits_dense"),)
 CFG4_SHAPES = (("ts.list.element", "unpack_bits_dense"),)
 NEST_MIX_SHAPES = (("tags.list.element", "unpack_bits_dense"),
                    ("scores.list.element", "dict_unpack_gather"))
+# on the device scan: the case whose cold decoded_scan gives the shape
+SCAN_SHAPES = (("B_q12", "unpack_bits_dense"),
+               ("C_lookup", "dict_unpack_gather"))
 
 
 class ColumnLaunches:
@@ -2535,10 +2566,443 @@ def lookup_path(rows: int, seed: int, tmp: str) -> dict:
         "keys_per_s_cold": len(keys) / cold_s,
         "keys_per_s_warm": len(keys) / best,
         "counters": counters, "launches": launches}})
-    return {"launches": launches, "probe": timer.first_bloom,
+    return {"launches": launches, "probe": timer.first_bloom, "path": path,
             "run": lambda: timed_lookup(f, keys, DEVICE),
             "stages": {"timed_lookup_s": timed_s, "stage_s": stages,
                        "stage_calls": timer.calls}}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the device scan
+# ---------------------------------------------------------------------------
+
+SCAN_ROW_GROUPS = 8  # bench.py:_cfg5: n // 8 rows a row group
+SCAN_PAGE = 1 << 17  # bench.py:_cfg5's 128 KiB pages
+SCAN_RANGE = (9000, 9200)  # bench.py:_cfg5's ~5 %
+SCAN_IN_DATES = 64
+# days of case A without a shipment: the IN-list's probes that fall inside
+# a row group's statistics range but not in its data, so that only the
+# bloom filter can prune that row group
+SCAN_HOLES = 16
+SCAN_HOLE_FROM = 10_000  # the holes lie in 10000-11998, the other probes below
+Q6_DATES = (8766, 9130)  # TPC-H Q6: l_shipdate in 1994
+Q6_COLUMNS = ["l_extendedprice", "l_discount", "l_quantity", "l_returnflag",
+              "l_comment"]
+Q12_MODES = ["MAIL", "SHIP"]  # TPC-H Q12's l_shipmode IN-list
+Q12_COLUMNS = ["l_orderkey", "l_shipdate", "l_commitdate", "l_receiptdate"]
+LOOKUP_SCAN_SHARE = 0.01  # case C: a range of about 1 % of the rows
+SCAN_OPS = ("range_mask", "in_mask", "compact_targets", "compact_prefix")
+
+
+def scan_holes(seed: int) -> np.ndarray:
+    """The ship dates case A's data lacks: :data:`SCAN_HOLES` even days
+    from :data:`SCAN_HOLE_FROM` on."""
+    rng = np.random.default_rng(seed + 19)
+    return np.sort(rng.choice(np.arange(SCAN_HOLE_FROM, 12000, 2),
+                              SCAN_HOLES, replace=False)).astype(np.int32)
+
+
+def make_cfg5(rows: int, seed: int) -> dict:
+    """``bench.py:_cfg5``'s mini lineitem from ``seed``: sorted ship dates
+    (8000-12000; the days of :func:`scan_holes` moved to the day after,
+    which keeps them sorted), order keys, quantities and prices."""
+    rng = np.random.default_rng(seed + 17)
+    ship = np.sort(rng.integers(8000, 12000, rows)).astype(np.int32)
+    ship[np.isin(ship, scan_holes(seed))] += 1
+    return {
+        "l_shipdate": ship,
+        "l_orderkey": np.arange(rows, dtype=np.int64),
+        "l_quantity": rng.integers(1, 51, rows).astype(np.int64),
+        "l_extendedprice": rng.random(rows) * 1e5}
+
+
+def scan_in_dates(seed: int) -> list:
+    """Case A's IN-list: days below :data:`SCAN_HOLE_FROM` (each in the
+    data) and every hole, so the row groups past that day hold only absent
+    probes."""
+    rng = np.random.default_rng(seed + 18)
+    present = rng.choice(np.arange(8000, SCAN_HOLE_FROM),
+                         SCAN_IN_DATES - SCAN_HOLES, replace=False)
+    return sorted(int(d) for d in np.concatenate([present,
+                                                  scan_holes(seed)]))
+
+
+def check_scan_plan(path: str, key: str, values: list) -> dict:
+    """The planner's bloom stage on the card, at case A's IN-list: the
+    card's plan equal to the CPU planner's (decisions, counters, candidate
+    rows), at least one row group pruned by the bloom filter alone, and
+    the stage's one ``bloom_check_segments`` call held bit for bit against
+    its plain version and the host probe at the operands the planner gave
+    it.  Returns those operands and the plan's numbers."""
+    from parquet_tpu_torch.algebra.expr import single_pred
+    from parquet_tpu_torch.io.planner import ScanPlanner
+
+    seen = []
+    real = bloom.check_hashes_multi
+
+    def spy(filters, batches, device="cuda"):
+        seen.append((list(filters), [np.asarray(b) for b in batches]))
+        return real(filters, batches, device)
+
+    expr = single_pred(key, values=values)
+    bloom.check_hashes_multi = spy
+    try:
+        card = ScanPlanner(pq.ParquetFile(path), device=DEVICE).plan(expr)
+    finally:
+        bloom.check_hashes_multi = real
+    cpu = ScanPlanner(pq.ParquetFile(path), device="cpu").plan(expr)
+
+    def decided(p):
+        return [(d.rg_index, d.pruned_by, d.killer, d.ranges, d.page_sel)
+                for d in p.decisions]
+
+    if (decided(card) != decided(cpu) or card.counters != cpu.counters
+            or card.candidate_rows != cpu.candidate_rows):
+        raise AssertionError("scan plan: the card's plan differs from the "
+                             f"CPU's: {card.explain()}\n{cpu.explain()}")
+    if not card.counters["rg_pruned_bloom"]:
+        raise AssertionError("scan plan: the bloom stage pruned no row "
+                             f"group: {card.explain()}")
+    if len(seen) != 1:
+        raise AssertionError(f"scan plan: {len(seen)} bloom probes, not 1")
+    filters, batches = seen[0]
+    blocks, h, starts = segmented_probe(filters, batches)
+    check_segmented(filters, batches, blocks, h, starts,
+                    "at the scan planner's shape")
+    return {"probe": (filters, batches), "counters": card.counters,
+            "candidate_rows": card.candidate_rows,
+            "rows": sum(d.num_rows for d in card.decisions)}
+
+
+def rows_equal(cd: ColumnData, word: bytes) -> np.ndarray:
+    """Rows of a byte-array column equal to ``word``."""
+    offs = np.asarray(cd.offsets, np.int64)
+    starts, lens = offs[:-1], np.diff(offs)
+    hit = lens == len(word)
+    vals = np.asarray(cd.values)
+    for j, b in enumerate(word):
+        at = np.minimum(starts + j, len(vals) - 1)
+        hit &= vals[at] == b
+    return hit
+
+
+def oracle(table: dict, mask: np.ndarray) -> dict:
+    """The rows of ``mask`` of each generated column, in file order, as
+    the scan gives them: numbers with 0 at a null and the validity (None
+    without nulls), byte arrays as a ``(values, offsets)`` pair."""
+    rows = np.flatnonzero(mask)
+    out = {}
+    for name, col in table.items():
+        if isinstance(col, ColumnData):
+            out[name] = (gather_byte_arrays(col.values, col.offsets, rows),
+                         None)
+        elif isinstance(col, np.ma.MaskedArray):
+            valid = ~np.ma.getmaskarray(col)[rows]
+            out[name] = (np.where(valid, np.ma.getdata(col)[rows], 0).astype(
+                col.dtype), valid)
+        else:
+            out[name] = (np.asarray(col)[rows], None)
+    return out
+
+
+def scan_form_host(form) -> tuple:
+    """A scan column's form -> ``(values or (values, offsets), validity
+    or None)`` on the host."""
+    valid = None
+    if isinstance(form, tuple) and len(form) == 2 and isinstance(
+            form[1], (torch.Tensor, np.ndarray)) and form[1].dtype in (
+                torch.bool, np.bool_):
+        form, valid = form
+        valid = valid.cpu().numpy() if isinstance(valid, torch.Tensor) \
+            else valid
+    if isinstance(form, tuple) and isinstance(form[0], tuple):
+        (dv, do), idx = form
+        vals = gather_byte_arrays(dv.cpu().numpy(), do.cpu().numpy(),
+                                  idx.cpu().numpy())
+    elif isinstance(form, tuple):
+        vals = (np.asarray(form[0]), np.asarray(form[1], np.int64))
+    else:
+        vals = form.cpu().numpy()
+    return vals, valid
+
+
+def check_scan(out: dict, want: dict, what: str) -> None:
+    """Every column of a scan equal to the oracle, bit for bit, with its
+    validity (strings compared on the host)."""
+    for name, (wv, wvalid) in want.items():
+        gv, gvalid = scan_form_host(out[name])
+        if (gvalid is None) != (wvalid is None) or (
+                gvalid is not None and not np.array_equal(gvalid, wvalid)):
+            raise AssertionError(f"{what}: {name}'s validity differs")
+        if isinstance(wv, tuple):
+            same = (np.array_equal(gv[0], wv[0])
+                    and np.array_equal(gv[1], wv[1]))
+        else:
+            same = (gv.dtype == wv.dtype and gv.shape == wv.shape
+                    and np.array_equal(gv.view(np.uint8), wv.view(np.uint8)))
+        if not same:
+            raise AssertionError(f"{what}: {name} differs from the oracle")
+
+
+def timed_scan(state) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pq.decoded_scan(state)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def count_syncs(fn) -> dict:
+    """The synchronizing CUDA calls ``fn()`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: their count
+    and, by the line of this repository that made each, how many."""
+    import traceback
+    import warnings
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    where = {}
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        site = "?"
+        for frame in reversed(traceback.extract_stack()[:-1]):
+            if frame.filename.startswith(here) and \
+                    not frame.filename.endswith("chip_smoke.py"):
+                site = (f"{os.path.relpath(frame.filename, here)}:"
+                        f"{frame.lineno}")
+                break
+        where[site] = where.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return {"count": sum(where.values()), "by_line": where}
+
+
+class ScanOpCalls:
+    """Calls of the scan's filter ops (:data:`SCAN_OPS`) inside the
+    block."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(SCAN_OPS, 0)
+        self._saved = []
+
+    def __enter__(self):
+        for op in SCAN_OPS:
+            real = getattr(dev, op)
+
+            def counted(*args, real=real, op=op, **kwargs):
+                self.counts[op] += 1
+                return real(*args, **kwargs)
+
+            self._saved.append((op, real))
+            setattr(dev, op, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for op, real in self._saved:
+            setattr(dev, op, real)
+        self._saved = []
+
+
+def scan_case(card: str, name: str, path: str, key: str, kw: dict,
+              want: dict, kernel=None, cpu_check: bool = False) -> dict:
+    """One scan case on the card: ``stage_scan`` once, ``decoded_scan``
+    once cold and three times warm, ``scan_filtered_device`` end to end
+    three times, every result equal to ``want``; the kernels launched
+    over those runs (``kernel`` must be among them, and the operands of
+    its largest launch in the cold ``decoded_scan`` are kept, the scan's
+    own shape for phase 6), the synchronizing calls of one warm
+    ``decoded_scan``, and with ``cpu_check`` the same scan on the CPU,
+    equal form for form."""
+    columns = list(want)
+    f = pq.ParquetFile(path)
+    pq.reset_launches()
+    reset_routes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = pq.stage_scan(f, key, columns=columns, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    operands = []
+    spied = kernel if kernel in ("unpack_bits_dense",
+                                 "dict_unpack_gather") else None
+    real = getattr(kernels, spied) if spied else None
+    if spied:
+        setattr(kernels, spied,
+                lambda *a, **k: operands.append(a) or real(*a, **k))
+    try:
+        out, cold_s = timed_scan(state)
+    finally:
+        if spied:
+            setattr(kernels, spied, real)
+    check_scan(out, want, name)
+    warm = []
+    for _ in range(3):
+        out, s = timed_scan(state)
+        warm.append(s)
+    check_scan(out, want, name)
+    e2e = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pq.scan_filtered_device(f, key, columns=columns, device=DEVICE,
+                                      **kw)
+        torch.cuda.synchronize()
+        e2e.append(time.perf_counter() - t0)
+        check_scan(out, want, name)
+    launches = dict(pq.LAUNCHES)
+    no_host_route(f"scan {name}")
+    if kernel is not None and not launches[kernel]:
+        raise AssertionError(f"scan {name}: {kernel} was not launched: "
+                             f"{launches}")
+    with ScanOpCalls() as ops:
+        syncs = count_syncs(lambda: pq.decoded_scan(state))
+    if cpu_check:
+        cpu = pq.scan_filtered_device(pq.ParquetFile(path), key,
+                                      columns=columns, device="cpu", **kw)
+        check_scan(cpu, want, f"{name} on the CPU")
+    rows = f.num_rows
+    candidates = sum(p.row_count for p, _, _ in state["spans"])
+    best = min(warm)
+    first = want[columns[0]][0]
+    selected = len(first[1]) - 1 if isinstance(first, tuple) else len(first)
+    log({"scan": [{
+        "case": name, "card": card, "key": key,
+        "predicate": {k: (v if k != "values" or len(v) <= 8
+                          else f"{len(v)} values") for k, v in kw.items()},
+        "columns": columns, "rows": rows, "row_groups": len(f.row_groups),
+        "candidate_rows": candidates, "spans": len(state["spans"]),
+        "rows_selected": selected, "stage_s": stage_s,
+        "decoded_scan_cold_s": cold_s, "decoded_scan_warm_s": warm,
+        "rows_per_s_file": rows / best,
+        "rows_per_s_candidates": candidates / best,
+        "scan_filtered_device_s": e2e, "launches": launches,
+        "host_syncs_warm_decoded_scan": syncs,
+        "filter_op_calls": ops.counts,
+        "cpu_equal": cpu_check or None}]})
+    return {"state": state, "launches": launches, "op_calls": ops.counts,
+            "spans": len(state["spans"]),
+            "operands": max(operands, key=lambda a: a[-2], default=None)}
+
+
+def scan_path(card: str, rows: int, seed: int, tmp: str, lineitem: str,
+              lineitem_rows: int, lookup: str, lookup_rows: int) -> dict:
+    """Phase 5b: the device scan's three cases, each checked against a
+    numpy oracle over the generated arrays; returns each case's staged
+    state (for the profiled scans of phase 7), its launches and filter op
+    calls, and case A's table."""
+    cases = {}
+    # A: bench.py:_cfg5 at --scan-rows, written by the port's writer
+    table = make_cfg5(rows, seed)
+    path = os.path.join(tmp, "cfg5.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(table, path, pq.WriterOptions(
+        row_group_size=-(-rows // SCAN_ROW_GROUPS), data_page_size=SCAN_PAGE,
+        compression="snappy", column_encoding=dict.fromkeys(
+            table, Encoding.PLAIN), bloom_filters={"l_shipdate": 10}))
+    log({"scan_cfg5": {"rows": rows, "write_s": time.perf_counter() - t0,
+                       "file_bytes": os.path.getsize(path)}})
+    ship = table["l_shipdate"]
+    outs = ["l_orderkey", "l_quantity", "l_extendedprice"]
+    lo, hi = SCAN_RANGE
+    want = oracle({c: table[c] for c in outs}, (ship >= lo) & (ship <= hi))
+    cases["A_range"] = scan_case(card, "A_range", path, "l_shipdate",
+                                 {"lo": lo, "hi": hi}, want, cpu_check=True)
+    dates = scan_in_dates(seed)
+    want = oracle({c: table[c] for c in outs}, np.isin(ship, dates))
+    cases["A_in"] = scan_case(card, "A_in", path, "l_shipdate",
+                              {"values": dates}, want, "bloom_check",
+                              cpu_check=True)
+    plan = check_scan_plan(path, "l_shipdate", dates)
+    filters, batches = plan["probe"]
+    log({"scan_plan": {
+        "case": "A_in", "card": card, "equal_cpu_plan": True,
+        "holes": scan_holes(seed).tolist(), "counters": plan["counters"],
+        "candidate_rows": plan["candidate_rows"], "rows": plan["rows"],
+        "bloom_probe": {"segments": len(filters),
+                        "n": int(sum(len(b) for b in batches)),
+                        "z": sorted({int(f.blocks.shape[0]) for f in filters}),
+                        "equal_plain": True}}})
+    # B: phase 4b's lineitem, TPC-H Q6's dates and Q12's ship modes
+    _, data = make_lineitem(lineitem_rows, seed)
+    ship = data["l_shipdate"].values
+    lo, hi = Q6_DATES
+    want = oracle({c: data[c] if data[c].offsets is not None
+                   else data[c].values for c in Q6_COLUMNS},
+                  (ship >= lo) & (ship <= hi))
+    cases["B_q6"] = scan_case(card, "B_q6", lineitem, "l_shipdate",
+                              {"lo": lo, "hi": hi}, want)
+    mask = np.zeros(lineitem_rows, bool)
+    for mode in Q12_MODES:
+        mask |= rows_equal(data["l_shipmode"], mode.encode())
+    want = oracle({c: data[c].values for c in Q12_COLUMNS}, mask)
+    cases["B_q12"] = scan_case(card, "B_q12", lineitem, "l_shipmode",
+                               {"values": Q12_MODES}, want,
+                               "unpack_bits_dense")
+    del data, want
+    # C: phase 5's lookup file, a range of about 1 % of its rows on k
+    look = make_lookup_table(lookup_rows, seed)
+    k = look["k"]
+    lo = int(k[-1]) * 2 // 5
+    hi = lo + int(int(k[-1]) * LOOKUP_SCAN_SHARE)
+    want = oracle({c: look[c] for c in LOOKUP_COLUMNS},
+                  (k >= lo) & (k <= hi))
+    cases["C_lookup"] = scan_case(card, "C_lookup", lookup, "k",
+                                  {"lo": lo, "hi": hi}, want,
+                                  "dict_unpack_gather")
+    launches = {name: sum(c["launches"][name] for c in cases.values())
+                for name in pq.LAUNCHES}
+    return {"cases": cases, "launches": launches, "cfg5": table,
+            "in_dates": dates, "bloom_probe": plan["probe"]}
+
+
+def scan_ops(scan: dict) -> list:
+    """The scan's filter ops at case A's span shape (the row group of
+    1,048,576 rows its range meets first): the range and IN masks on the
+    ship dates, the
+    survivors' targets and the compaction of the prices, each with the
+    profiler's device time a call, its calls in one ``decoded_scan`` of
+    each A case and its byte bound."""
+    table = scan["cfg5"]
+    n = -(-len(table["l_shipdate"]) // SCAN_ROW_GROUPS)
+    rg = scan["cases"]["A_range"]["state"]["spans"][0][0].rg_index
+    cut = slice(rg * n, (rg + 1) * n)  # the row group the range meets
+    ship = torch.from_numpy(table["l_shipdate"][cut]).to(DEVICE)
+    price = torch.from_numpy(table["l_extendedprice"][cut]).to(DEVICE)
+    probes = torch.tensor(scan["in_dates"], dtype=torch.int32, device=DEVICE)
+    lo, hi = SCAN_RANGE
+    mask = dev.range_mask(ship, lo, hi)
+    tgt, cnt = dev.compact_targets(mask)
+    kept = int(cnt)
+    calls = {case: scan["cases"][case]["op_calls"]
+             for case in ("A_range", "A_in")}
+
+    def by_case(op):
+        return {case: c[op] for case, c in calls.items()}
+
+    shape = f"cfg5 row group {rg}: n={ship.numel()}"
+    return [
+        op_row("range_mask", f"{shape}, int32 in [{lo}, {hi}]",
+               lambda: dev.range_mask(ship, lo, hi), 5 * n,
+               by_case("range_mask"), {"per": "decoded_scan"}),
+        op_row("in_mask", f"{shape}, {probes.numel()} int32 probes",
+               lambda: dev.in_mask(ship, probes), 5 * n + 4 * probes.numel(),
+               by_case("in_mask"), {"per": "decoded_scan"}),
+        op_row("compact_targets", f"{shape}, {kept} kept",
+               lambda: dev.compact_targets(mask), 9 * n,
+               by_case("compact_targets"), {"per": "decoded_scan"}),
+        op_row("compact_prefix", f"{shape}, float64, {kept} kept",
+               lambda: dev.compact_prefix(price, tgt), 24 * n,
+               by_case("compact_prefix"), {"per": "decoded_scan"}),
+    ]
 
 
 def shape_times(column: str, kernel: str, args: tuple,
@@ -2588,17 +3052,23 @@ def shape_times(column: str, kernel: str, args: tuple,
 
 def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
                        path_launches: dict, probe: tuple, enc: dict,
-                       lineitem_launches: dict, nested: dict) -> list:
+                       lineitem_launches: dict, nested: dict,
+                       scan: dict) -> list:
     """Each kernel at the shapes its path gives it.  On the read path, the
     first row group's launches as ``path_operands`` took them: ``k``
     (indexes of a 20,000-entry dictionary, unfused), ``ts`` (the delta
     miniblocks) and ``cat`` (indexes fused with its 200-entry int32
     dictionary), on ``enc`` ``ba_dict`` (the indexes of a 1,000-entry
     byte-array dictionary), and the nested leaves of phase 4d (cfg 4's
-    ``ts`` miniblocks, ``tags``'s indexes, ``scores``'s fused gather); a
-    kernel's top-level numbers are its first shape's.  On the lookup path one lookup's segmented bloom probe
-    (``probe``: every row group's filter and the hashes of the keys that
-    survive its statistics stage)."""
+    ``ts`` miniblocks, ``tags``'s indexes, ``scores``'s fused gather), and on
+    the device scan the largest launch of each unpack kernel in a cold
+    ``decoded_scan`` (:data:`SCAN_SHAPES`); a kernel's top-level numbers
+    are its first shape's.  On the lookup path one lookup's segmented
+    bloom probe (``probe``: every row group's filter and the hashes of the
+    keys that survive its statistics stage), and on the scan the
+    planner's bloom stage (case A's IN-list: every row group its
+    statistics keep)."""
+    scan_launches = scan["launches"]
     rows = {c: shape_times(c, k, shapes[c], path_launches[c])
             for c, k in PATH_SHAPES}
     for c, k in ENC_SHAPES:
@@ -2609,9 +3079,16 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
         rows[f"nested.{c}"] = shape_times(
             f"nested.{c}", k, nested["shapes"][c],
             nested["column_launches"].get(c, {}).get(k, 0))
+    for case, k in SCAN_SHAPES:
+        got = scan["cases"][case]
+        if got["operands"] is None:
+            raise AssertionError(f"scan {case}: no {k} launch to time")
+        rows[f"scan.{case}"] = shape_times(f"scan.{case}", k, got["operands"],
+                                           got["launches"][k])
     all_shapes = PATH_SHAPES + tuple(
         (f"enc.{c}", k) for c, k in ENC_SHAPES) + tuple(
-        (f"nested.{c}", k) for c, k in CFG4_SHAPES + NEST_MIX_SHAPES)
+        (f"nested.{c}", k) for c, k in CFG4_SHAPES + NEST_MIX_SHAPES) + tuple(
+        (f"scan.{case}", k) for case, k in SCAN_SHAPES)
     out = []
     for name, source, line in (
             ("unpack_bits_dense", "unpack_bits.cu", 81),
@@ -2629,6 +3106,17 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"], "path_shapes": mine})
 
+    filters, batches = scan["bloom_probe"]
+    blocks, h, starts = segmented_probe(filters, batches)
+    got = check_segmented(filters, batches, blocks, h, starts,
+                          "at the scan planner's shape")
+    scan_shape = {
+        "n": h.shape[0], "segments": len(blocks),
+        "z": sorted({b.shape[0] for b in blocks}),
+        "launches": scan_launches["bloom_check"],
+        "max_abs_err": max_abs_err(
+            got, kernels.bloom_check_segments_ref(blocks, h, starts)),
+        **segmented_times(blocks, h, starts)}
     filters, batches = probe
     blocks, h, starts = segmented_probe(filters, batches)
     got = check_segmented(filters, batches, blocks, h, starts,
@@ -2647,7 +3135,8 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
         "replaces": "parquet_tpu/ops/pallas_kernels.py:216",
         "launches": lookup_launches["bloom_check"],
         "max_abs_err": max(max_abs_err(got, want),
-                           max_abs_err(one, got[:n0])),
+                           max_abs_err(one, got[:n0]),
+                           scan_shape["max_abs_err"]),
         **times, "gpu_before": before, "gpu_after": gpu_sample(),
         "shape": {"n": h.shape[0], "segments": len(blocks),
                   "z": sorted({b.shape[0] for b in blocks})},
@@ -2657,7 +3146,8 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
                             "bloom_check_kernel"),
             "call_ms": time_ms(lambda: kernels.bloom_check(blocks[0],
                                                            h[:n0])),
-            "bound_ms": b1, "bound_by": by1}})
+            "bound_ms": b1, "bound_by": by1},
+        "scan_shape": scan_shape})
     for k in out:
         k["launches_by_path"] = {"read": launches[k["name"]],
                                  "lookup": lookup_launches[k["name"]],
@@ -2665,7 +3155,8 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
                                  "enc": enc["launches"][k["name"]],
                                  "nested": nested["launches"][k["name"]],
                                  "nest_mix": nested["mix_launches"][
-                                     k["name"]]}
+                                     k["name"]],
+                                 "scan": scan_launches[k["name"]]}
     for k in out:
         if k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: kernel differs from its "
@@ -2748,6 +3239,8 @@ def main(argv=None) -> int:
                     help="bench.py's n for cfg 4, which writes n // 4 "
                     "list rows")
     ap.add_argument("--nest-mix-rows", type=int, default=1 << 20)
+    ap.add_argument("--scan-rows", type=int, default=8_388_608,
+                    help="rows of the scan's bench.py cfg 5 file")
     ap.add_argument("--out", default=None,
                     help="directory for chip_smoke_sweep.json (none by "
                     "default)")
@@ -2807,16 +3300,27 @@ def main(argv=None) -> int:
         phase("4e_prescan", prescan_path, read, item, enc, nested)
         look = phase("5_lookup", lookup_path, args.lookup_rows, args.seed,
                      tmp)
+        scan = phase("5b_scan", scan_path, card, args.scan_rows, args.seed,
+                     tmp, item["path"], args.lineitem_rows, look["path"],
+                     args.lookup_rows)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
         kern = phase("6_kernels", main_shape_kernels, read["launches"],
                      look["launches"], read["shapes"],
                      read["path_launches"], look["probe"], enc,
-                     item["launches"], nested)
+                     item["launches"], nested, scan)
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
+        ops += phase("6_scan_ops", scan_ops, scan)
         t0 = time.perf_counter()
+        # the scans' short windows before the reads' and the lookup's
+        # long ones, after which the profiler can drop a short window's
+        # events
+        log({"scan_breakdown": {
+            name: {"card": card, **device_profile(
+                lambda c=c: timed_scan(c["state"]), "decoded_scan")}
+            for name, c in scan["cases"].items()}})
         log({"breakdown": {"columns": read["columns"],
                            **audited_read(read["path"])}})
         log({"lineitem_breakdown": {"columns": item["columns"],

@@ -9,22 +9,30 @@ GZIP, SNAPPY, ZSTD, LZ4_RAW, LZ4, BROTLI) into tensors on a CUDA device,
 through the hand-written kernels of ``csrc/``; the chunks its device
 route refuses decode on the host and are counted in ``HOST_ROUTE``, and
 the chunks the Python walk plans in place of the C++ planner in
-``PLAN_ROUTE``.  It looks rows up by a numeric key, and writes such files.
+``PLAN_ROUTE``.  It looks rows up by a numeric key, scans a file with
+predicate pushdown on the card (``scan_filtered_device``: the planner's
+statistics, page-index and bloom stages, then decode, filter and
+compaction on the device), and writes such files.
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
     table = pq.ParquetFile("x.parquet").read()            # on the card
     table = pq.ParquetFile("x.parquet").read(device="cpu")
+    rows = pq.scan_filtered_device(pq.ParquetFile("x.parquet"), "x",
+                                   lo=2, hi=5)                 # on the card
 """
 
 from .io.column import Column
 from .io.reader import ParquetFile
+from .io.search import plan_scan
 from .io.writer import WriterOptions, write_table
 from .ops.kernels import LAUNCHES, reset_launches
 from .parallel.device_reader import (HOST_ROUTE, PIPELINE, PLAN_ROUTE,
                                      reset_host_route, reset_pipeline,
                                      reset_plan_route)
+from .parallel.host_scan import decoded_scan, scan_filtered_device, stage_scan
 
 __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route",
-           "PLAN_ROUTE", "reset_plan_route", "PIPELINE", "reset_pipeline"]
+           "PLAN_ROUTE", "reset_plan_route", "PIPELINE", "reset_pipeline",
+           "plan_scan", "stage_scan", "decoded_scan", "scan_filtered_device"]

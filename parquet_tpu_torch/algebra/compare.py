@@ -1,17 +1,25 @@
 """Order-domain values: statistics bytes <-> python scalars, and probe
 normalization.
 
-The port's cut of ``parquet_tpu/algebra/compare.py``.  The port's schema
-carries no logical types but STRING, so every integer orders signed (the
-reference's ``is_unsigned`` is always False here) and there are no
-decimals.  Numbers decode to python ``int``/``float``, BOOLEAN to
-``bool``, and BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY and INT96 to ``bytes`` in
-unsigned lexicographic order, so statistics, page-index bounds and
-normalized probes compare with each other exactly.
+The port's cut of ``parquet_tpu/algebra/compare.py``, with its ordering
+rules:
+
+- INT32/INT64: signed, or unsigned where the leaf's INT annotation says so
+  (:func:`is_unsigned`: pyarrow's ``uint32``/``uint64``,
+  ``INTEGER(signed=false)`` and the legacy ``UINT_*``), so that an unsigned
+  column's statistics, page-index bounds and probes compare in unsigned
+  order;
+- DECIMAL: the unscaled integer (INT32/INT64 storage as it is, FLBA and
+  BYTE_ARRAY storage big-endian two's complement), and a ``Decimal`` probe
+  scaled into it;
+- FLOAT/DOUBLE: numeric, BOOLEAN as ``bool``;
+- BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY and INT96 (not decimal): ``bytes`` in
+  unsigned lexicographic order (a ``str`` probe is its UTF-8 bytes).
 """
 
 from __future__ import annotations
 
+import decimal
 from typing import Optional
 
 import numpy as np
@@ -19,9 +27,22 @@ import numpy as np
 from ..format.enums import Type
 from ..ops import host
 from ..schema.schema import Leaf
+from ..schema.types import LogicalKind
 
 _DECODE = {Type.INT32: np.int32, Type.INT64: np.int64,
            Type.FLOAT: np.float32, Type.DOUBLE: np.float64}
+_UNSIGNED = {Type.INT32: np.uint32, Type.INT64: np.uint64}
+
+
+def is_unsigned(leaf: Leaf) -> bool:
+    """True when the leaf's logical type orders as an unsigned integer."""
+    if leaf.logical_kind == LogicalKind.INT:
+        return not (leaf.logical_params or {}).get("signed", True)
+    return False
+
+
+def _is_decimal(leaf: Leaf) -> bool:
+    return leaf.logical_kind == LogicalKind.DECIMAL
 
 
 def decode_order_value(raw: Optional[bytes], leaf: Leaf):
@@ -30,20 +51,21 @@ def decode_order_value(raw: Optional[bytes], leaf: Leaf):
     writer gives an all-NaN page), so that every consumer treats it as an
     unknown bound.  The reference keeps ``b""`` there, which its page
     search and boundary order cannot compare.  An empty BYTE_ARRAY bound
-    is the empty string."""
+    is the empty string (a decimal one, 0 as the reference reads it)."""
     if raw is None:
         return None
-    if leaf.physical_type == Type.BYTE_ARRAY:
-        return bytes(raw)
-    if not raw:
+    t = leaf.physical_type
+    if t != Type.BYTE_ARRAY and not raw:
         return None
-    if leaf.physical_type == Type.BOOLEAN:
+    if t == Type.BOOLEAN:
         return bool(raw[0])
-    dt = _DECODE.get(leaf.physical_type)
-    if dt is None:
-        return bytes(raw)
-    width = np.dtype(dt).itemsize
-    return np.frombuffer(bytes(raw[:width]), dt)[0].item()
+    dt = (_UNSIGNED.get(t) if is_unsigned(leaf) else None) or _DECODE.get(t)
+    if dt is not None:
+        width = np.dtype(dt).itemsize
+        return np.frombuffer(bytes(raw[:width]), dt)[0].item()
+    if _is_decimal(leaf):  # FLBA / BYTE_ARRAY: big-endian two's complement
+        return int.from_bytes(bytes(raw), "big", signed=True)
+    return bytes(raw)
 
 
 def encode_order_value(value, leaf: Leaf) -> bytes:
@@ -57,8 +79,17 @@ def encode_order_value(value, leaf: Leaf) -> bytes:
 
 
 def normalize(leaf: Leaf, value):
-    """A user's probe value in the order domain: numpy scalars become
-    python scalars; anything else passes through."""
+    """A user's probe value in the leaf's order domain (the domain
+    :func:`decode_order_value` returns): ``str`` -> UTF-8 bytes,
+    ``Decimal`` -> its unscaled integer at the leaf's scale, numpy scalars
+    -> python scalars; anything else passes through."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        return value.encode("utf-8")
+    if isinstance(value, decimal.Decimal):
+        scale = (leaf.logical_params or {}).get("scale", 0)
+        return int(value.scaleb(scale).to_integral_value())
     if isinstance(value, np.generic):
         return value.item()
     return value
@@ -66,9 +97,9 @@ def normalize(leaf: Leaf, value):
 
 def normalize_probe(leaf: Leaf, value):
     """The canonical form of an equality probe, or None when the value can
-    never equal a value of the leaf's type: a non-integral float or an
-    out-of-range int on an integer column, a non-number on an integer
-    column."""
+    never equal a value of the leaf's type: a non-integral float, a
+    non-number, or an int outside the (signed or unsigned) range of an
+    integer column."""
     value = normalize(leaf, value)
     if value is None:
         return None
@@ -81,9 +112,17 @@ def normalize_probe(leaf: Leaf, value):
         if not isinstance(value, (int, np.integer)):
             return None
         value = int(value)
-        bits = 31 if t == Type.INT32 else 63
-        return value if -(2 ** bits) <= value < 2 ** bits else None
+        lo, hi = int_domain(leaf)
+        return value if lo <= value < hi else None
     return value
+
+
+def int_domain(leaf: Leaf):
+    """``[lo, hi)`` of an INT32/INT64 leaf's order domain."""
+    bits = 32 if leaf.physical_type == Type.INT32 else 64
+    if is_unsigned(leaf):
+        return 0, 2 ** bits
+    return -(2 ** (bits - 1)), 2 ** (bits - 1)
 
 
 def min_max(leaf: Leaf, values: np.ndarray,

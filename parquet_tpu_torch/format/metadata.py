@@ -4,8 +4,8 @@ writes and point lookups touch.
 The port's copy of ``parquet_tpu/format/metadata.py``.  Field ids, names and
 types mirror the Apache Parquet thrift IDL, so a file written by either
 package reads back in the other.  Structs this port never reads
-(encryption, logical types other than STRING, MAP and LIST, size
-statistics) are left out: the compact reader skips their fields by wire type.
+(encryption, logical types other than STRING, MAP, LIST, INTEGER and
+DECIMAL, size statistics) are left out: the compact reader skips their fields by wire type.
 """
 
 from __future__ import annotations
@@ -49,9 +49,20 @@ ListType = _empty("ListType")
 
 
 @thrift_struct
-class LogicalType:  # union; the port writes and reads STRING, MAP, LIST
+class DecimalType:
+    _FIELDS = [(1, "scale", T.I32), (2, "precision", T.I32)]
+
+
+@thrift_struct
+class IntType:
+    _FIELDS = [(1, "bitWidth", T.I8), (2, "isSigned", T.BOOL)]
+
+
+@thrift_struct
+class LogicalType:  # union; the port writes STRING, MAP, LIST
     _FIELDS = [(1, "STRING", _S(StringType)), (2, "MAP", _S(MapType)),
-               (3, "LIST", _S(ListType))]
+               (3, "LIST", _S(ListType)), (5, "DECIMAL", _S(DecimalType)),
+               (10, "INTEGER", _S(IntType))]
 
 
 @thrift_struct

@@ -217,14 +217,17 @@ def hash_values(leaf: Leaf, values) -> np.ndarray:
 
 _PROBE_DTYPE = {Type.INT64: np.int64, Type.DOUBLE: np.float64,
                 Type.INT32: np.int32, Type.FLOAT: np.float32}
+_UNSIGNED_PROBE_DTYPE = {Type.INT64: np.uint64, Type.INT32: np.uint32}
 
 
 def hash_probe_values(leaf: Leaf, values) -> np.ndarray:
     """xxh64 of order-domain probe values, each encoded as the writer
-    encodes the column's values."""
-    from ..algebra.compare import normalize
+    encodes the column's values (an unsigned column's as unsigned)."""
+    from ..algebra.compare import is_unsigned, normalize
 
-    dt = _PROBE_DTYPE.get(leaf.physical_type)
+    dt = ((_UNSIGNED_PROBE_DTYPE.get(leaf.physical_type)
+           if is_unsigned(leaf) else None)
+          or _PROBE_DTYPE.get(leaf.physical_type))
     if dt is None:
         raise ValueError(f"unsupported bloom type {leaf.physical_type}")
     vals = np.array([normalize(leaf, v) for v in values], dtype=dt)

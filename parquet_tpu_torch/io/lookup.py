@@ -30,10 +30,14 @@ page search of a cleanly ordered numeric index and the gather of output
 values run on numpy arrays of keys instead; survivors, stage order and
 counters are the reference's.
 
+Keys of an unsigned column (the INT annotation's ``signed=false``)
+compare in unsigned order at every stage, and a ``Decimal`` key of a
+decimal stored as INT32/INT64 compares as its unscaled integer.
+
 Not in this port: the page cache and the negative-lookup memo, admission
 control, fault policies, metrics and op scopes, key sharding across
-workers, dataset lookups, and BYTE_ARRAY / FLBA / BOOLEAN / decimal /
-unsigned keys.
+workers, dataset lookups, and BYTE_ARRAY / FLBA / BOOLEAN keys (decimals
+stored as byte arrays among them).
 """
 
 from __future__ import annotations
@@ -117,10 +121,6 @@ class _PreparedKeys:
     order: Optional[np.ndarray]
 
 
-_INT_RANGE = {Type.INT32: (-(2 ** 31), 2 ** 31), Type.INT64: (-(2 ** 63),
-                                                              2 ** 63)}
-
-
 def _prepare_keys(leaf, keys) -> _PreparedKeys:
     from ..algebra.compare import normalize_probe
     from .bloom import probe_hashes
@@ -149,16 +149,23 @@ def _prepare_int_array(leaf, keys) -> Optional[_PreparedKeys]:
     """The same preparation for a numpy integer array of keys on an integer
     column, without a Python loop: out-of-range keys never match, the rest
     dedupe in first-seen order."""
+    from ..algebra.compare import int_domain, is_unsigned
     from .bloom import hash_values
 
-    rng = _INT_RANGE.get(leaf.physical_type)
-    if (rng is None or not isinstance(keys, np.ndarray) or keys.ndim != 1
+    if (leaf.physical_type not in (Type.INT32, Type.INT64)
+            or not isinstance(keys, np.ndarray) or keys.ndim != 1
             or keys.dtype.kind != "i"):
         return None
     arr = keys.astype(np.int64)
-    ok = (arr >= rng[0]) & (arr < rng[1]) if keys.dtype.itemsize > (
-        4 if leaf.physical_type == Type.INT32 else 8) else np.ones(
-            len(arr), bool)
+    unsigned = is_unsigned(leaf)
+    width = 4 if leaf.physical_type == Type.INT32 else 8
+    if unsigned or keys.dtype.itemsize > width:
+        lo, hi = int_domain(leaf)
+        ok = arr >= lo
+        if hi < 2 ** 63:
+            ok &= arr < hi
+    else:
+        ok = np.ones(len(arr), bool)
     key_map = np.full(len(arr), -1, np.int64)
     if not ok.any():
         return _PreparedKeys([], key_map, None, np.empty(0, np.int64))
@@ -168,23 +175,29 @@ def _prepare_int_array(leaf, keys) -> Optional[_PreparedKeys]:
     rank[order] = np.arange(len(u))
     key_map[ok] = rank[inv.reshape(-1)]
     uniq_arr = u[order]
-    dt = np.int32 if leaf.physical_type == Type.INT32 else np.int64
+    dt = np.dtype(f"{'u' if unsigned else 'i'}{width}")
     hashes = hash_values(leaf, uniq_arr.astype(dt))
-    return _PreparedKeys(uniq_arr.tolist(), key_map, hashes, uniq_arr)
+    # the order array holds every value of the leaf's domain
+    order_arr = uniq_arr.astype(np.uint64) if dt == np.uint64 else uniq_arr
+    return _PreparedKeys(uniq_arr.tolist(), key_map, hashes, order_arr)
 
 
 def _order_array(leaf, uniq: List) -> Optional[np.ndarray]:
     if not uniq:
         return None
-    if leaf.physical_type in _INT_RANGE:
-        return np.array(uniq, np.int64)  # normalize_probe: in-range ints
+    if leaf.physical_type in (Type.INT32, Type.INT64):
+        # normalize_probe: ints in the leaf's domain
+        from ..algebra.compare import is_unsigned
+
+        unsigned64 = is_unsigned(leaf) and leaf.physical_type == Type.INT64
+        return np.array(uniq, np.uint64 if unsigned64 else np.int64)
     if all(type(v) is float for v in uniq):
         return np.array(uniq, np.float64)
     return None
 
 
 def _is_number(v, order: np.ndarray) -> bool:
-    return type(v) is (int if order.dtype.kind == "i" else float)
+    return type(v) is (int if order.dtype.kind in "iu" else float)
 
 
 # ---------------------------------------------------------------------------
@@ -436,13 +449,15 @@ def _rg_sorted_by(rg, leaf) -> Optional[bool]:
     return bool(sc.nulls_first)
 
 
-def _sorted_page_hits(key, entry: _PageEntry,
+def _sorted_page_hits(leaf, key, entry: _PageEntry,
                       nulls_first: bool) -> Optional[np.ndarray]:
     """Page-local rows equal to ``key`` by binary search within a page of
     rows sorted by the key; None where that is not provably exact (float
     pages, whose NaNs break the search, or nulls that are not one
     contiguous run at the declared end): the caller then masks."""
-    vals, valid = entry.values, entry.validity
+    from ..parallel.host_scan import order_view
+
+    vals, valid = order_view(leaf, entry.values), entry.validity
     a, b = 0, entry.num_rows
     if valid is not None:
         k = int(valid.sum())
@@ -456,7 +471,7 @@ def _sorted_page_hits(key, entry: _PageEntry,
             b = k
             if not valid[:b].all():
                 return None
-    if vals.dtype.kind != "i" or isinstance(key, bool) or not isinstance(
+    if vals.dtype.kind not in "iu" or isinstance(key, bool) or not isinstance(
             key, (int, np.integer)):
         return None
     needle = vals.dtype.type(key)
@@ -573,7 +588,7 @@ def _match_keys(rg, leaf, prep: _PreparedKeys, key_pages, entries,
             e = entries[o]
             hit = None
             if nulls_first is not None:
-                hit = _sorted_page_hits(key, e, nulls_first)
+                hit = _sorted_page_hits(leaf, key, e, nulls_first)
             if hit is None:
                 hit = np.flatnonzero(aligned_key_mask(
                     leaf, key, e.values, e.validity))

@@ -1,0 +1,599 @@
+"""The scan planner: one cascade for every filtered read.
+
+The port's cut of ``parquet_tpu/io/planner.py``, its planning half:
+
+- **Input** is a predicate tree (:mod:`parquet_tpu_torch.algebra.expr`)
+  over any number of columns, prepared against the file's schema; the
+  single-column ``lo``/``hi``/IN-list signatures build a one-leaf tree.
+- **Cheapest-first probes** per row group: the footer's chunk statistics
+  (parsed already, no IO), then the page-index zone maps (one small read
+  a chunk, memoized), then the bloom filters (equality leaves only).
+  ``And``/``Or`` short-circuit; a row group a cheaper probe kills is never
+  probed again, and its chunk bytes are never read.
+- **Output** is a :class:`ScanPlan`: the surviving (row group, row range)
+  slices, per-leaf page intervals intersected and united through the tree,
+  with byte estimates and the cascade's counters; :meth:`ScanPlan.explain`
+  says which probe killed what.
+
+Where the reference probes each row group's filters as it reaches them,
+here the bloom stage runs once over every row group that survives the
+statistics and the page index: each equality leaf's hashes of each such
+row group with a filter go into one
+:func:`~parquet_tpu_torch.io.bloom.check_hashes_multi` on the planner's
+device (one launch of the ``bloom_check`` kernel on a card), and the tree
+is then folded per row group over those verdicts, counting its probes as
+the reference counts them.  A single-leaf tree reads the same filters; a
+tree of several equality leaves may read a filter the reference's
+short-circuit would have skipped.
+
+Left out for later slices: the route half (``CostInputs``,
+``RouteHistory``, ``choose_route``, ``route_scan``), fault policies and
+reports, the coverage proofs of the aggregation cascade, and the metrics
+and trace spans.
+"""
+
+from __future__ import annotations
+
+from bisect import bisect_left
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..algebra.expr import And, Const, Expr, Or, Pred, prepare
+
+__all__ = ["ScanPlanner", "ScanPlan", "RowGroupDecision"]
+
+# local row intervals: half-open (start, end)
+_Intervals = List[Tuple[int, int]]
+
+# the cascade, cheapest first; ``use_bloom=False`` drops its last stage
+_CASCADE = ("stats", "pages", "bloom")
+
+
+def _merge_intervals(iv: _Intervals) -> _Intervals:
+    if len(iv) <= 1:
+        return iv
+    iv = sorted(iv)
+    out = [iv[0]]
+    for s, e in iv[1:]:
+        if s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def _intersect_intervals(a: _Intervals, b: _Intervals) -> _Intervals:
+    out: _Intervals = []
+    i = j = 0
+    while i < len(a) and j < len(b):
+        s = max(a[i][0], b[j][0])
+        e = min(a[i][1], b[j][1])
+        if s < e:
+            out.append((s, e))
+        if a[i][1] <= b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+@dataclass
+class RowGroupDecision:
+    """One row group's fate through the cascade."""
+
+    rg_index: int
+    num_rows: int
+    pruned_by: Optional[str] = None  # "stats" | "pages" | "bloom" |
+    #                                  "const" | None (survived)
+    killer: Optional[str] = None  # repr of the leaf that killed it
+    ranges: _Intervals = field(default_factory=list)  # local [start, end)
+    page_sel: Dict[str, Tuple[int, int]] = field(default_factory=dict)
+    # single-leaf page info: (ords, first_row, row_count), or ("all",
+    # column) for a row group without a usable index
+    _legacy: Optional[tuple] = None
+
+    @property
+    def candidate_rows(self) -> int:
+        return sum(e - s for s, e in self.ranges)
+
+
+def _file_name(pf) -> str:
+    return getattr(pf.source, "path", None) or "<memory>"
+
+
+class ScanPlan:
+    """The survivors and the cascade's accounting for one file's filtered
+    read."""
+
+    def __init__(self, pf, expr: Expr, decisions: List[RowGroupDecision],
+                 counters: Dict[str, int], stages: Tuple[str, ...]):
+        self.pf = pf
+        self.expr = expr
+        self.decisions = decisions
+        self.counters = counters
+        self.stages = stages
+
+    @property
+    def survivors(self) -> List[RowGroupDecision]:
+        return [d for d in self.decisions if d.pruned_by is None and d.ranges]
+
+    @property
+    def candidate_rows(self) -> int:
+        return sum(d.candidate_rows for d in self.survivors)
+
+    def est_bytes(self, out_cols: Sequence[str] = ()) -> int:
+        """Compressed bytes the scan is expected to decode: the selected
+        pages of the filter columns (where a page index narrowed them) and
+        the output columns' chunk bytes prorated by the candidate rows."""
+        total = 0
+        filter_cols = {p.path for p in _collect_preds(self.expr)}
+        rgs = self.pf.row_groups
+        for d in self.survivors:
+            rg = rgs[d.rg_index]
+            frac = d.candidate_rows / max(d.num_rows, 1)
+            for path in set(out_cols) | filter_cols:
+                chunk = rg.column(self.pf.schema.leaf(path).column_index)
+                nbytes = chunk.meta.total_compressed_size or 0
+                sel = d.page_sel.get(path)
+                if sel is not None and sel[1]:
+                    total += int(nbytes * (sel[0] / sel[1]))
+                else:
+                    total += int(nbytes * frac)
+        return total
+
+    def page_plans(self) -> list:
+        """The single-column form of ``plan_scan``: one covering
+        :class:`~parquet_tpu_torch.io.search.PagePlan` a surviving row
+        group.  Defined for one-leaf positive range/IN trees only."""
+        from .search import PagePlan
+
+        out = []
+        rgs = None
+        for d in self.decisions:
+            if d.pruned_by is not None:
+                continue
+            info = d._legacy
+            if info is None:
+                raise ValueError(
+                    "page_plans() is the single-predicate form; this plan "
+                    "was built from a multi-leaf tree: use .survivors / "
+                    ".decisions instead")
+            if info[0] == "all":
+                rgs = rgs or self.pf.row_groups
+                oi = rgs[d.rg_index].column(info[1]).offset_index()
+                n = len(oi.page_locations) if oi and oi.page_locations else 0
+                out.append(PagePlan(d.rg_index, list(range(n)) if oi else [],
+                                    0, d.num_rows))
+            else:
+                ords, first_row, row_count = info
+                out.append(PagePlan(d.rg_index, ords, first_row, row_count))
+        return out
+
+    def explain(self) -> str:
+        """The cascade as text: which probe killed which row group, the
+        surviving candidate ranges and the probe totals."""
+        c = self.counters
+        lines = [f"scan plan: {_file_name(self.pf)}",
+                 f"  predicate: {self.expr!r}",
+                 f"  stages: {' -> '.join(self.stages)}"]
+        for d in self.decisions:
+            if d.pruned_by is not None:
+                why = d.pruned_by + (f" ({d.killer})" if d.killer else "")
+                lines.append(f"  rg {d.rg_index} ({d.num_rows} rows): "
+                             f"pruned by {why}")
+                continue
+            pages = ", ".join(f"{p}={s}/{t}"
+                              for p, (s, t) in sorted(d.page_sel.items()))
+            lines.append(
+                f"  rg {d.rg_index} ({d.num_rows} rows): "
+                f"{len(d.ranges)} range(s), {d.candidate_rows} candidate "
+                f"rows" + (f", pages {pages}" if pages else ""))
+        total_rows = sum(d.num_rows for d in self.decisions)
+        cand = self.candidate_rows
+        pct = 100.0 * cand / total_rows if total_rows else 0.0
+        lines.append(
+            f"  probes: stats={c.get('stats_probes', 0)} "
+            f"pages={c.get('page_probes', 0)} "
+            f"bloom={c.get('bloom_probes', 0)}; pruned row groups: "
+            f"stats={c.get('rg_pruned_stats', 0)} "
+            f"pages={c.get('rg_pruned_pages', 0)} "
+            f"bloom={c.get('rg_pruned_bloom', 0)}; candidates "
+            f"{cand}/{total_rows} rows ({pct:.2f}%)")
+        return "\n".join(lines)
+
+
+def _collect_preds(expr: Expr) -> List[Pred]:
+    if isinstance(expr, Pred):
+        return [expr]
+    if isinstance(expr, (And, Or)):
+        out = []
+        for c in expr.children:
+            out.extend(_collect_preds(c))
+        return out
+    return []
+
+
+def _eval_tree(expr: Expr, leaf_fn) -> Tuple[bool, Optional[Pred]]:
+    """The boolean fold with short-circuit: ``(may_match, killing
+    leaf)``.  ``leaf_fn(pred) -> bool`` is conservative ("may this row
+    group hold a matching row?")."""
+    if isinstance(expr, Const):
+        return expr.value, None
+    if isinstance(expr, Pred):
+        ok = leaf_fn(expr)
+        return ok, (None if ok else expr)
+    if isinstance(expr, And):
+        for c in expr.children:
+            ok, killer = _eval_tree(c, leaf_fn)
+            if not ok:
+                return False, killer
+        return True, None
+    assert isinstance(expr, Or), expr
+    last = None
+    for c in expr.children:
+        ok, killer = _eval_tree(c, leaf_fn)
+        if ok:
+            return True, None
+        last = killer if killer is not None else last
+    return False, last
+
+
+def _tree_intervals(expr: Expr, leaf_fn) -> Optional[_Intervals]:
+    """Candidate row intervals through the tree (None: the whole row
+    group, no leaf narrowed it)."""
+    if isinstance(expr, Const):
+        return None if expr.value else []
+    if isinstance(expr, Pred):
+        return leaf_fn(expr)
+    if isinstance(expr, And):
+        acc: Optional[_Intervals] = None
+        for c in expr.children:
+            got = _tree_intervals(c, leaf_fn)
+            if got is None:
+                continue
+            acc = got if acc is None else _intersect_intervals(acc, got)
+            if acc == []:
+                return []
+        return acc
+    assert isinstance(expr, Or), expr
+    acc = []
+    for c in expr.children:
+        got = _tree_intervals(c, leaf_fn)
+        if got is None:
+            return None
+        acc.extend(got)
+    return _merge_intervals(acc)
+
+
+class ScanPlanner:
+    """Plans filtered reads of one
+    :class:`~parquet_tpu_torch.io.reader.ParquetFile` through the
+    cascade; the bloom stage probes on ``device``."""
+
+    def __init__(self, pf, device="cuda"):
+        self.pf = pf
+        self.device = device
+
+    def plan(self, expr: Expr, use_bloom: bool = True) -> ScanPlan:
+        """Run the cascade over every row group; ``use_bloom=False`` skips
+        the bloom stage."""
+        expr = prepare(expr, self.pf.schema)
+        stages = _CASCADE if use_bloom else _CASCADE[:-1]
+        single = self._single_positive(expr)
+        counters: Dict[str, int] = {
+            "rg_total": 0, "rg_pruned_stats": 0, "rg_pruned_pages": 0,
+            "rg_pruned_bloom": 0, "rg_pruned_const": 0, "rg_survivors": 0,
+            "stats_probes": 0, "page_probes": 0, "bloom_probes": 0,
+            "pages_total": 0, "pages_selected": 0}
+        rgs = self.pf.row_groups
+        counters["rg_total"] = len(rgs)
+        decisions = []
+        for rg in rgs:
+            d = RowGroupDecision(rg.index, rg.num_rows)
+            self._plan_rg(rg, expr, d, counters, single)
+            decisions.append(d)
+        if use_bloom and not isinstance(expr, Const):
+            self._bloom_stage(rgs, expr, decisions, counters)
+        for d in decisions:
+            if d.pruned_by is None:
+                counters["rg_survivors"] += 1
+            else:
+                counters[f"rg_pruned_{d.pruned_by}"] += 1
+        return ScanPlan(self.pf, expr, decisions, counters, stages)
+
+    @staticmethod
+    def _single_positive(expr: Expr) -> Optional[Pred]:
+        """The one positive range/IN leaf of a single-leaf tree, or
+        None."""
+        if isinstance(expr, Pred) and not expr.negated \
+                and expr.kind in ("range", "in"):
+            return expr
+        return None
+
+    def _plan_rg(self, rg, expr, d: RowGroupDecision,
+                 counters: Dict[str, int], single: Optional[Pred]) -> None:
+        """The statistics and page-index stages of one row group."""
+        if isinstance(expr, Const):
+            if expr.value:
+                d.ranges = [(0, rg.num_rows)]
+            else:
+                d.pruned_by = "const"
+            return
+        def stats_probe(p: Pred) -> bool:
+            counters["stats_probes"] += 1
+            return _stats_alive(p, rg)
+
+        alive, killer = _eval_tree(expr, stats_probe)
+        if not alive:
+            d.pruned_by = "stats"
+            d.killer = repr(killer) if killer is not None else None
+            return
+        if single is not None:
+            self._pages_single(rg, single, d, counters)
+        else:
+            self._pages_tree(rg, expr, d, counters)
+
+    def _bloom_stage(self, rgs, expr: Expr, decisions, counters) -> None:
+        """Every surviving row group's equality leaves against its filters,
+        all in one device probe; then the tree folded per row group."""
+        from .bloom import check_hashes_multi
+
+        eq = [p for p in _collect_preds(expr) if p.is_equality]
+        if not eq:
+            return
+        live = [d for d in decisions if d.pruned_by is None]
+        keys, filters, batches = [], [], []
+        for d in live:
+            rg = rgs[d.rg_index]
+            for j, p in enumerate(eq):
+                bf = rg.column(p.leaf.column_index).bloom_filter()
+                hashes = _pred_hashes(p) if bf is not None else None
+                if hashes is not None:
+                    keys.append((d.rg_index, j))
+                    filters.append(bf)
+                    batches.append(hashes)
+        hits = check_hashes_multi(filters, batches, self.device)
+        verdict = {k: bool(h.any()) for k, h in zip(keys, hits)}
+        slot = {id(p): j for j, p in enumerate(eq)}
+        for d in live:
+            rg = rgs[d.rg_index]
+
+            def bloom_probe(p: Pred) -> bool:
+                if not p.is_equality:
+                    return True
+                if rg.column(p.leaf.column_index).bloom_filter() is None:
+                    return True
+                counters["bloom_probes"] += 1
+                return verdict.get((d.rg_index, slot[id(p)]), True)
+
+            alive, killer = _eval_tree(expr, bloom_probe)
+            if not alive:
+                d.pruned_by = "bloom"
+                d.killer = repr(killer) if killer is not None else None
+                d.ranges = []
+
+    def _pages_single(self, rg, pred: Pred, d: RowGroupDecision,
+                      counters: Dict[str, int]) -> None:
+        """The single-leaf page selection: the candidate range is the
+        covering span of the selected pages (gaps included)."""
+        from .search import (_npages, pages_overlapping,
+                             pages_overlapping_values)
+
+        chunk = rg.column(pred.leaf.column_index)
+        ci = chunk.column_index()
+        oi = chunk.offset_index()
+        if ci is None or oi is None:
+            d.ranges = [(0, rg.num_rows)]
+            d._legacy = ("all", pred.leaf.column_index)
+            return
+        counters["page_probes"] += 1
+        if pred.kind == "in":
+            ords = pages_overlapping_values(ci, pred.leaf, pred.values)
+        else:
+            ords = pages_overlapping(ci, pred.leaf, pred.lo, pred.hi)
+        n_pages = _npages(oi)
+        counters["pages_total"] += n_pages
+        counters["pages_selected"] += len(ords)
+        d.page_sel[pred.path] = (len(ords), n_pages)
+        if not ords:
+            d.pruned_by = "pages"
+            d.killer = repr(pred)
+            return
+        locs = oi.page_locations
+        first_row = locs[ords[0]].first_row_index
+        last = ords[-1]
+        end_row = (locs[last + 1].first_row_index if last + 1 < len(locs)
+                   else rg.num_rows)
+        d.ranges = [(first_row, end_row)]
+        d._legacy = (ords, first_row, end_row - first_row)
+
+    def _pages_tree(self, rg, expr, d: RowGroupDecision,
+                    counters: Dict[str, int]) -> None:
+        def page_iv(p: Pred) -> Optional[_Intervals]:
+            chunk = rg.column(p.leaf.column_index)
+            ci = chunk.column_index()
+            oi = chunk.offset_index()
+            if ci is None or oi is None or not oi.page_locations:
+                return None
+            counters["page_probes"] += 1
+            ords = _pred_page_ords(p, ci)
+            locs = oi.page_locations
+            n = len(locs)
+            counters["pages_total"] += n
+            counters["pages_selected"] += len(ords)
+            prev = d.page_sel.get(p.path)
+            if prev is None or len(ords) > prev[0]:
+                d.page_sel[p.path] = (len(ords), n)
+            iv = []
+            for o in ords:
+                s = locs[o].first_row_index
+                e = (locs[o + 1].first_row_index if o + 1 < n
+                     else rg.num_rows)
+                iv.append((s, e))
+            return _merge_intervals(iv)
+
+        iv = _tree_intervals(expr, page_iv)
+        if iv == []:
+            d.pruned_by = "pages"
+            return
+        d.ranges = iv if iv is not None else [(0, rg.num_rows)]
+
+
+# ---------------------------------------------------------------------------
+# leaf probes
+# ---------------------------------------------------------------------------
+
+
+def _not_in_covers(sorted_vals, mn, mx) -> bool:
+    """Does the sorted unique probe list cover every value in [mn, mx]?
+    Provable for a constant span in any domain, and for an integer span
+    the probes blanket (``vals[i0] == mn`` and ``vals[i0 + span] == mx``,
+    one bisect); inconclusive (False) for anything else."""
+    try:
+        if mn == mx:
+            return _bisect_contains(sorted_vals, mn)
+        if isinstance(mn, bool) or isinstance(mx, bool) \
+                or not isinstance(mn, (int, np.integer)) \
+                or not isinstance(mx, (int, np.integer)):
+            return False
+        span = int(mx) - int(mn)
+        i0 = bisect_left(sorted_vals, mn)
+        if i0 + span >= len(sorted_vals):
+            return False
+        v0, v1 = sorted_vals[i0], sorted_vals[i0 + span]
+        return v0 == mn and v1 == mx \
+            and isinstance(v0, (int, np.integer)) \
+            and not isinstance(v0, bool)
+    except TypeError:
+        return False
+
+
+def _bisect_contains(sorted_vals, v) -> bool:
+    i = bisect_left(sorted_vals, v)
+    return i < len(sorted_vals) and sorted_vals[i] == v
+
+
+def _stats_alive(pred: Pred, rg) -> bool:
+    """May this row group hold a row matching ``pred``?  Inconclusive
+    statistics answer True."""
+    chunk = rg.column(pred.leaf.column_index)
+    st = chunk.statistics()
+    nv = chunk.meta.num_values
+    null_count = st.null_count if st is not None else None
+    if pred.kind == "null":
+        if pred.leaf.max_definition_level == 0:
+            return False  # a required column holds no null
+        return null_count is None or null_count > 0
+    if pred.kind == "notnull":
+        return not (null_count is not None and nv is not None
+                    and null_count >= nv)
+    # range / in need a non-null value
+    if null_count is not None and nv is not None and null_count >= nv:
+        return False
+    if st is None or st.min_value is None or st.max_value is None:
+        return True
+    mn, mx = st.min_value, st.max_value
+    try:
+        if pred.kind == "range":
+            if not pred.negated:
+                from .statistics import may_contain_range
+
+                return may_contain_range(st, pred.lo, pred.hi)
+            # negated: dead only when every value lies inside
+            return not ((pred.lo is None or pred.lo <= mn)
+                        and (pred.hi is None or mx <= pred.hi))
+        from .search import _any_in_range
+
+        if not pred.negated:
+            return _any_in_range(pred.values, mn, mx)
+        return not _not_in_covers(pred.values, mn, mx)
+    except TypeError:
+        return True  # a probe the bounds' domain cannot compare
+
+
+def _pred_hashes(pred: Pred) -> Optional[np.ndarray]:
+    """The bloom hashes of an equality leaf's probes, memoized on the
+    leaf; None where they do not encode in the column's type (the probe
+    is then inconclusive)."""
+    if pred._hashes is None:
+        from .bloom import probe_hashes
+
+        vals = [pred.lo] if pred.kind == "range" else pred.values
+        got = probe_hashes(pred.leaf, vals)
+        pred._hashes = False if got is None else got
+    return None if pred._hashes is False else pred._hashes
+
+
+def _bounds_cover(pred: Pred, mn, mx, nulls, nv, page_rows=None) -> bool:
+    """Do conservative [mn, mx] bounds and the null count prove that every
+    row of the span matches ``pred``?  The dual of :func:`_stats_alive`.
+    Stored bounds only ever widen a true span, and every proof here fails
+    on a wider one, so a truncated bound never proves wrongly; a missing
+    input proves nothing.  Float statistics drop NaN, so a positive value
+    leaf on a float domain is never proved (a NaN row fails it); a negated
+    one stays provable (a NaN row matches the negation)."""
+    if pred.kind == "null":
+        rows = page_rows if page_rows is not None else nv
+        return nulls is not None and rows is not None and nulls >= rows \
+            and rows > 0
+    if pred.kind == "notnull":
+        return nulls == 0
+    if nulls != 0 or mn is None or mx is None:
+        return False
+    if not pred.negated and (isinstance(mn, float) or isinstance(mx, float)):
+        return False
+    try:
+        if pred.kind == "range":
+            if not pred.negated:
+                return (pred.lo is None or pred.lo <= mn) and \
+                    (pred.hi is None or mx <= pred.hi)
+            return (pred.lo is not None and mx < pred.lo) or \
+                (pred.hi is not None and mn > pred.hi)
+        if not pred.negated:
+            return _not_in_covers(pred.values, mn, mx)
+        from .search import _any_in_range
+
+        return not _any_in_range(pred.values, mn, mx)
+    except TypeError:
+        return False
+
+
+def _pred_page_ords(pred: Pred, ci) -> List[int]:
+    """Page ordinals that may hold a matching row, per leaf kind."""
+    from .search import (decoded_bounds, pages_overlapping,
+                         pages_overlapping_values)
+
+    if not pred.negated and pred.kind == "range":
+        return pages_overlapping(ci, pred.leaf, pred.lo, pred.hi)
+    if not pred.negated and pred.kind == "in":
+        return pages_overlapping_values(ci, pred.leaf, pred.values)
+    nulls = list(ci.null_pages or [])
+    n = len(nulls)
+    if pred.kind == "null":
+        ncounts = ci.null_counts
+        return [i for i in range(n)
+                if nulls[i] or ncounts is None or (ncounts[i] or 0) > 0]
+    if pred.kind == "notnull":
+        return [i for i in range(n) if not nulls[i]]
+    # negated range / in: a page is dead when provably all inside
+    mins, maxs = decoded_bounds(ci, pred.leaf)
+    out = []
+    for i in range(n):
+        if nulls[i]:
+            continue
+        if i >= len(mins) or mins[i] is None or maxs[i] is None:
+            out.append(i)
+            continue
+        try:
+            if pred.kind == "in":
+                dead = _not_in_covers(pred.values, mins[i], maxs[i])
+            else:
+                dead = ((pred.lo is None or pred.lo <= mins[i])
+                        and (pred.hi is None or maxs[i] <= pred.hi))
+        except TypeError:
+            dead = False
+        if not dead:
+            out.append(i)
+    return out

@@ -1,21 +1,29 @@
-"""Page-index search for point lookups.
+"""Page-index search and predicate pushdown.
 
 The port's cut of ``parquet_tpu/io/search.py``: :func:`find` (the
-reference's ``parquet.Find``) and :func:`pages_overlapping` over a
-``ColumnIndex`` whose bounds :func:`decoded_bounds` decodes once per chunk,
-:func:`dictionary_pages` (the dictionary half of a seek), and
-:func:`_trim_flat_aligned`, the row-aligned form of a decoded span.
+reference's ``parquet.Find``), :func:`pages_overlapping` and
+:func:`pages_overlapping_values` over a ``ColumnIndex`` whose bounds
+:func:`decoded_bounds` decodes once per chunk; :func:`plan_scan`, the
+batch pushdown plan of a single-column predicate (one :class:`PagePlan`
+a surviving row group, from the planner's cascade in ``io/planner.py``);
+the seek of a row span, :func:`seek_pages` and :func:`pages_and_base`
+(with :func:`dictionary_pages`, the dictionary half of a seek); and
+:func:`read_row_range`, a flat column's rows decoded on the host from
+just the pages that cover them.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from bisect import bisect_left, bisect_right
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..algebra.compare import normalize
+from ..errors import unsupported
 from ..format import metadata as md
-from ..format.enums import BoundaryOrder, Encoding, PageType
+from ..format.enums import BoundaryOrder, Encoding, PageType, Type
 from ..schema.schema import Leaf
 from .statistics import decode_stat_value
 
@@ -96,6 +104,218 @@ def pages_overlapping(column_index: md.ColumnIndex, leaf: Leaf,
     return out
 
 
+def _any_in_range(sorted_vals: List, lo, hi) -> bool:
+    """Does the sorted probe list meet [lo, hi]?  (None bound = open.)"""
+    if not sorted_vals:
+        return False
+    i = 0 if lo is None else bisect_left(sorted_vals, lo)
+    return i < len(sorted_vals) and (hi is None or sorted_vals[i] <= hi)
+
+
+def pages_overlapping_values(column_index: md.ColumnIndex, leaf: Leaf,
+                             sorted_vals: List) -> List[int]:
+    """Page ordinals whose [min, max] holds at least one probe value."""
+    n = len(column_index.null_pages or [])
+    mins, maxs = decoded_bounds(column_index, leaf)
+    nulls = column_index.null_pages or [False] * n
+    out = []
+    for i in range(n):
+        if nulls[i]:
+            continue
+        if mins[i] is None or maxs[i] is None or _any_in_range(
+                sorted_vals, mins[i], maxs[i]):
+            out.append(i)
+    return out
+
+
+@dataclass
+class PagePlan:
+    """The selected pages of one chunk: which page ordinals to decode and
+    the rows they cover."""
+
+    rg_index: int
+    page_ordinals: List[int]
+    first_row: int  # first row of the first selected page, in its group
+    row_count: int
+
+
+def plan_scan(pf, path, lo=None, hi=None, use_bloom: bool = False,
+              values: Optional[Sequence] = None,
+              device="cuda") -> List[PagePlan]:
+    """The batch pushdown plan of ``lo <= file[path] <= hi`` (or, with
+    ``values``, ``file[path] in values``): for each surviving row group,
+    the page ordinals whose zone maps meet the predicate.  The predicate
+    becomes a one-leaf tree and the planner (``io/planner.py``) runs its
+    cascade (statistics -> page index -> bloom); with ``use_bloom`` the
+    bloom stage probes every surviving row group's filter on ``device``
+    in one batch.  Planning reads the column and offset indexes and the
+    filters, never a data page."""
+    from ..algebra.expr import single_pred
+    from .planner import ScanPlanner
+    from .reader import resolve_device
+
+    planner = ScanPlanner(pf, device=resolve_device(device))
+    return planner.plan(single_pred(path, lo=lo, hi=hi, values=values),
+                        use_bloom=use_bloom).page_plans()
+
+
+def _npages(oi) -> int:
+    return len(oi.page_locations) if oi and oi.page_locations else 0
+
+
+def pages_and_base(chunk, row_start: int, row_end: int):
+    """The pages covering rows ``[row_start, row_end)`` of a chunk (its
+    dictionary page first) and the first row the selection starts at,
+    the base of a caller's trim."""
+    pages = list(seek_pages(chunk, row_start, row_end))
+    first = 0
+    oi = chunk.offset_index()
+    if oi is not None and oi.page_locations:
+        firsts = [pl.first_row_index for pl in oi.page_locations]
+        first = firsts[max(bisect_right(firsts, row_start) - 1, 0)]
+    return pages, first
+
+
+def seek_pages(chunk, row_start: int, row_end: int):
+    """Yield the dictionary page (if any) and the data pages covering rows
+    ``[row_start, row_end)``: one read of the selected pages' bytes through
+    the offset index, or every page of a chunk without one."""
+    oi = chunk.offset_index()
+    if oi is None or not oi.page_locations:
+        yield from chunk.pages()
+        return
+    locs = oi.page_locations
+    firsts = [pl.first_row_index for pl in locs]
+    i0 = max(bisect_right(firsts, row_start) - 1, 0)
+    i1 = min(bisect_left(firsts, row_end, lo=i0), len(locs))
+    if i1 <= i0:
+        return
+    yield from dictionary_pages(chunk, locs[0].offset)
+    span_start = locs[i0].offset
+    span_len = (locs[i1 - 1].offset + locs[i1 - 1].compressed_page_size
+                - span_start)
+    yield from chunk.pages_at(span_start, span_len, num_pages=i1 - i0)
+
+
+#: tag of the columnar byte-array form of :func:`read_row_range`:
+#: ``("ba_arrays", uint8 values, int64 offsets)``
+BA_ARRAYS = "ba_arrays"
+
+
+def read_row_range(pf, path, row_start: int, row_count: int,
+                   aligned=False):
+    """Rows ``[row_start, row_start + row_count)`` of the flat column
+    ``path``, decoded on the host from only the pages that cover them.
+    ``aligned=False``: the present values (numpy; a list of ``bytes`` for
+    byte arrays).  ``aligned=True``: ``(values, validity)`` with one entry
+    a row, a null holding 0 (``None`` for byte arrays), ``validity`` None
+    where the span has no null.  ``aligned="arrays"``: the same, with a
+    byte-array span as ``("ba_arrays", values, offsets)`` over its present
+    values (the validity maps rows to them)."""
+    from .reader import decode_chunk_host
+
+    leaf = pf.schema.leaf(path)
+    if leaf.max_repetition_level:
+        raise unsupported(f"read_row_range of the nested column "
+                          f"{leaf.name!r}", "the routed scan (nested row "
+                          "ranges)")
+    parts = []
+    start, remaining = row_start, row_count
+    for rg in pf.row_groups:
+        if remaining <= 0:
+            break
+        if start >= rg.num_rows:
+            start -= rg.num_rows
+            continue
+        take = min(rg.num_rows - start, remaining)
+        chunk = rg.column(leaf.column_index)
+        pages, first = pages_and_base(chunk, start, start + take)
+        col = decode_chunk_host(chunk, "cpu", pages=pages)
+        parts.append(_trim_host(col, start - first, take, aligned))
+        start = 0
+        remaining -= take
+    return _concat_ranges(leaf, parts, aligned)
+
+
+def _trim_host(col, offset: int, count: int, aligned):
+    """Rows ``[offset, offset + count)`` of a host-decoded flat span in
+    :func:`read_row_range`'s ``aligned`` form."""
+    got = col.materialize_host()
+    if isinstance(got, dict):  # a struct chain's leaf keeps its levels
+        got = got["values"]
+    validity = None if col.validity is None else col.validity.numpy()
+    if not isinstance(got, tuple):  # fixed width
+        vals, vmask = _trim_flat_aligned(got, validity, offset, count)
+        if aligned:
+            return vals, vmask
+        return vals if vmask is None else vals[vmask]
+    values, offs = got
+    offs = np.asarray(offs, np.int64)
+    vmask = None if validity is None else validity[offset:offset + count]
+    v0 = offset if validity is None else int(np.count_nonzero(
+        validity[:offset]))
+    v1 = v0 + (count if vmask is None else int(np.count_nonzero(vmask)))
+    if aligned == "arrays":
+        base = int(offs[v0])
+        return ((BA_ARRAYS, values[base:int(offs[v1])],
+                 offs[v0:v1 + 1] - base), vmask)
+    items = [values[offs[i]:offs[i + 1]].tobytes() for i in range(v0, v1)]
+    if not aligned:
+        return items
+    if vmask is None:
+        return items, None
+    out = [None] * count
+    for p, v in zip(np.flatnonzero(vmask).tolist(), items):
+        out[p] = v
+    return out, vmask
+
+
+def _concat_ranges(leaf, parts: list, aligned):
+    """:func:`read_row_range`'s row-group parts as one."""
+    ba = leaf.physical_type == Type.BYTE_ARRAY
+    if not aligned:
+        if ba:
+            return [v for p in parts for v in p]
+        if not parts:
+            return _empty_host(leaf)
+        return np.concatenate(parts)
+    if not parts:
+        if ba and aligned == "arrays":
+            return ((BA_ARRAYS, np.zeros(0, np.uint8),
+                     np.zeros(1, np.int64)), None)
+        return ([] if ba else _empty_host(leaf)), None
+    vparts = [p[0] for p in parts]
+    if ba and aligned == "arrays":
+        offs, base = [np.zeros(1, np.int64)], 0
+        for _, v, o in vparts:
+            offs.append(o[1:] + base)
+            base += int(o[-1])
+        vals = (BA_ARRAYS, np.concatenate([v for _, v, _ in vparts]),
+                np.concatenate(offs))
+        lens = [len(o) - 1 for _, _, o in vparts]
+    elif ba:
+        vals = [v for p in vparts for v in p]
+        lens = [len(p) for p in vparts]
+    else:
+        vals = np.concatenate(vparts)
+        lens = [len(p) for p in vparts]
+    if all(p[1] is None for p in parts):
+        return vals, None
+    return vals, np.concatenate([p[1] if p[1] is not None
+                                 else np.ones(n, bool)
+                                 for p, n in zip(parts, lens)])
+
+
+def _empty_host(leaf) -> np.ndarray:
+    from ..schema.types import PHYSICAL_NP_DTYPE
+
+    if leaf.physical_type == Type.FIXED_LEN_BYTE_ARRAY:
+        return np.zeros((0, leaf.type_length or 0), np.uint8)
+    if leaf.physical_type == Type.INT96:
+        return np.zeros((0, 3), np.int32)
+    return np.zeros(0, PHYSICAL_NP_DTYPE[leaf.physical_type])
+
+
 def dictionary_pages(chunk, first_data_offset: int):
     """Yield the chunk's dictionary page, if it has one, given the offset
     of its first data page."""
@@ -124,6 +344,6 @@ def _trim_flat_aligned(values: np.ndarray, validity: Optional[np.ndarray],
     vmask = validity[offset:offset + count]
     vstart = int(np.count_nonzero(validity[:offset]))
     vend = vstart + int(np.count_nonzero(vmask))
-    out = np.zeros(int(count), values.dtype)
+    out = np.zeros((int(count),) + values.shape[1:], values.dtype)
     out[vmask] = values[vstart:vend]
     return out, vmask

@@ -304,12 +304,66 @@ def validity_from_def(def_levels: torch.Tensor, max_def: int) -> torch.Tensor:
 
 
 def scatter_valid(values: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
-    """Dense present values -> slot-aligned array (nulls get 0)."""
+    """Dense present values -> slot-aligned array (nulls get 0); rows of
+    a 2-D ``values`` (INT96, fixed-length byte arrays) move whole."""
     if not values.shape[0]:
-        return values.new_zeros(validity.shape[0])
+        return values.new_zeros((validity.shape[0],) + values.shape[1:])
     slot_of_value = torch.cumsum(validity.to(torch.int64), 0) - 1
     gathered = values[slot_of_value.clamp(0, values.shape[0] - 1)]
-    return torch.where(validity, gathered, torch.zeros_like(gathered))
+    keep = validity.reshape((-1,) + (1,) * (values.dim() - 1))
+    return torch.where(keep, gathered, torch.zeros_like(gathered))
+
+
+# ---------------------------------------------------------------------------
+# The device scan's filter: predicate masks and prefix compaction
+# ---------------------------------------------------------------------------
+
+
+def sign_flip(values: torch.Tensor) -> torch.Tensor:
+    """int32/int64 holding unsigned bits -> signed keys of the same order
+    (the sign bit flipped), so that an unsigned column compares with the
+    signed comparisons every device has."""
+    return values ^ torch.iinfo(values.dtype).min
+
+
+def range_mask(values: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """``lo <= values <= hi`` (None: open), each bound a python number
+    the values' dtype holds (a float bound on a float column compares in
+    the column's precision, as numpy compares it)."""
+    if lo is None and hi is None:
+        return torch.ones(values.shape[0], dtype=torch.bool,
+                          device=values.device)
+    mask = values >= lo if lo is not None else values <= hi
+    if lo is not None and hi is not None:
+        mask &= values <= hi
+    return mask
+
+
+def in_mask(values: torch.Tensor, probes: torch.Tensor) -> torch.Tensor:
+    """``values in probes`` for sorted, non-empty ``probes`` of the values'
+    dtype: one binary search a value, O(n log k)."""
+    idx = torch.searchsorted(probes, values).clamp_(max=probes.shape[0] - 1)
+    return probes[idx] == values
+
+
+def compact_targets(mask: torch.Tensor) -> tuple:
+    """``(targets, count)`` of a row mask, both on its device: a kept row
+    goes to its rank among the kept, a dropped row to ``n`` (past the
+    end).  Nothing is read back."""
+    n = mask.shape[0]
+    pos = torch.cumsum(mask, 0) - 1
+    tgt = torch.where(mask, pos, torch.full_like(pos, n))
+    return tgt, pos[-1] + 1 if n else pos.new_zeros(())
+
+
+def compact_prefix(values: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+    """The kept rows of ``values`` moved to the front in order (a stable
+    prefix compaction by one scatter); the rows past the kept count are
+    zero.  ``tgt`` is :func:`compact_targets`'."""
+    n = values.shape[0]
+    out = values.new_zeros((n + 1,) + values.shape[1:])
+    out[tgt] = values
+    return out[:n]
 
 
 # ---------------------------------------------------------------------------
@@ -319,15 +373,11 @@ def scatter_valid(values: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
 
 def _compact(mask: torch.Tensor, count: int) -> torch.Tensor:
     """The int64 positions of ``mask``'s True entries, for a ``count`` the
-    caller read back already: a prefix-sum scatter, so no call here waits
-    on the device (``torch.nonzero`` reads its size back itself)."""
-    n = mask.shape[0]
-    slot = torch.cumsum(mask, 0) - 1
-    slot = torch.where(mask, slot, count)  # False entries land past the end
-    out = torch.empty(count + 1, dtype=torch.int64, device=mask.device)
-    out.scatter_(0, slot, torch.arange(n, dtype=torch.int64,
-                                       device=mask.device))
-    return out[:count]
+    caller read back already: :func:`compact_prefix` of the row numbers,
+    so no call here waits on the device (``torch.nonzero`` reads its size
+    back itself)."""
+    rows = torch.arange(mask.shape[0], dtype=torch.int64, device=mask.device)
+    return compact_prefix(rows, compact_targets(mask)[0])[:count]
 
 
 def assemble_single_list(def_levels: torch.Tensor, rep_levels: torch.Tensor,

@@ -14,7 +14,7 @@ schemas to write.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from ..errors import MAX_COLUMN_DEPTH, CorruptedError
@@ -37,6 +37,8 @@ class Node:
     logical_kind: str = LogicalKind.NONE
     # group fields
     children: Optional[List["Node"]] = None
+    # INT: bit_width, signed; DECIMAL: precision, scale
+    logical_params: dict = field(default_factory=dict)
 
     @property
     def is_leaf(self) -> bool:
@@ -99,6 +101,14 @@ class Leaf:
     @property
     def repetition(self) -> Rep:
         return self.node.repetition
+
+    @property
+    def logical_kind(self) -> str:
+        return self.node.logical_kind
+
+    @property
+    def logical_params(self) -> dict:
+        return self.node.logical_params
 
     @property
     def string(self) -> bool:
@@ -200,7 +210,7 @@ class Schema:
             pos += 1
             rep = Rep(el.repetition_type if el.repetition_type is not None
                       else Rep.REQUIRED)
-            kind = _logical_kind(el)
+            kind, params = _logical_kind(el)
             if el.num_children or depth == 0:
                 return Node(el.name or "", rep, logical_kind=kind,
                             children=[build(depth + 1)
@@ -216,7 +226,7 @@ class Schema:
                 kind = LogicalKind.NONE
             return Node(el.name or "", rep, physical,
                         el.type_length if physical == Type.FIXED_LEN_BYTE_ARRAY
-                        else None, kind)
+                        else None, kind, logical_params=params)
 
         if not elements:
             raise CorruptedError("footer has no schema")
@@ -250,20 +260,38 @@ class Schema:
         return out
 
 
-def _logical_kind(el: md.SchemaElement) -> str:
-    """The element's annotation among those the port reads."""
+def _logical_kind(el: md.SchemaElement) -> Tuple[str, dict]:
+    """The element's annotation among those the port reads, with its
+    parameters, as the JAX package's ``_logical_from_element`` reads
+    them."""
     lt = el.logicalType
     if lt is not None:
         for kind, attr in ((LogicalKind.STRING, "STRING"),
                            (LogicalKind.MAP, "MAP"),
                            (LogicalKind.LIST, "LIST")):
             if getattr(lt, attr) is not None:
-                return kind
+                return kind, {}
+        if lt.DECIMAL is not None:
+            return LogicalKind.DECIMAL, {
+                "scale": lt.DECIMAL.scale or 0,
+                "precision": lt.DECIMAL.precision or 0}
+        if lt.INTEGER is not None:
+            return LogicalKind.INT, {
+                "bit_width": lt.INTEGER.bitWidth or 64,
+                "signed": bool(lt.INTEGER.isSigned)}
+    ct = el.converted_type
+    if ct == ConvertedType.DECIMAL:
+        return LogicalKind.DECIMAL, {"scale": el.scale or 0,
+                                     "precision": el.precision or 0}
+    if ct is not None and ConvertedType.UINT_8 <= ct <= ConvertedType.INT_64:
+        return LogicalKind.INT, {
+            "bit_width": 8 << ((ct - ConvertedType.UINT_8) % 4),
+            "signed": ct >= ConvertedType.INT_8}
     return {ConvertedType.UTF8: LogicalKind.STRING,
             ConvertedType.MAP: LogicalKind.MAP,
             ConvertedType.MAP_KEY_VALUE: LogicalKind.MAP,
             ConvertedType.LIST: LogicalKind.LIST}.get(
-        el.converted_type, LogicalKind.NONE)
+        ct, LogicalKind.NONE), {}
 
 
 _LOGICAL_TO_THRIFT = {

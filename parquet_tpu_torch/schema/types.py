@@ -21,15 +21,20 @@ from ..format.enums import Type
 
 
 class LogicalKind:
-    """The logical annotations the port reads and writes: the STRING
-    annotation of a byte array, and the LIST and MAP annotations of a group
-    (the new LogicalType and the legacy ConvertedType collapse into one of
-    these, as in the JAX package)."""
+    """The logical annotations the port reads: the STRING annotation of a
+    byte array, the LIST and MAP annotations of a group, and the INT
+    (``bit_width``, ``signed``) and DECIMAL (``precision``, ``scale``)
+    annotations that set a column's order (the new LogicalType and the
+    legacy ConvertedType collapse into one of these, with those parameters
+    in ``logical_params``, as in the JAX package).  The writer writes the
+    first three."""
 
     NONE = "none"
     STRING = "string"
     LIST = "list"
     MAP = "map"
+    INT = "int"
+    DECIMAL = "decimal"
 
 PHYSICAL_NP_DTYPE = {
     Type.BOOLEAN: np.dtype(np.bool_),

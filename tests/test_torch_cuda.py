@@ -666,3 +666,99 @@ def test_fill_batch_into_pinned_memory(cuda_device):
     pad = np.concatenate([values, np.full(40, values[-1], np.uint8)])
     want = np.stack([pad[s:s + 40] for s in starts]).reshape(-1)
     assert torch.equal(staged[1][:len(want)].cpu(), torch.from_numpy(want))
+
+
+def _scan_file(rows: int = 200_000) -> bytes:
+    """The port's writer: a sorted INT32 ``ship`` key with a bloom filter,
+    a 7-mode dictionary string ``mode``, a PLAIN string ``note`` with
+    nulls, a sorted INT64 ``k``, a nullable double ``v`` and a nullable
+    200-entry dictionary INT32 ``cat``, in 65,536-row row groups."""
+    rng = np.random.default_rng(21)
+    modes = np.array(["AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP",
+                      "TRUCK"], object)
+    notes = np.array([f"note {i:03d}"[: 4 + i % 6] for i in range(300)],
+                     object)
+    table = {
+        "ship": np.sort(rng.integers(8000, 12000, rows)).astype(np.int32),
+        "mode": modes[rng.integers(0, 7, rows)],
+        "note": np.ma.masked_array(notes[rng.integers(0, 300, rows)],
+                                   mask=rng.random(rows) < 0.1),
+        "k": np.arange(rows, dtype=np.int64) * 2,
+        "v": np.ma.masked_array(rng.random(rows), mask=rng.random(rows) < .05),
+        "cat": np.ma.masked_array(rng.integers(0, 200, rows).astype(np.int32),
+                                  mask=rng.random(rows) < 0.1)}
+    buf = io.BytesIO()
+    pqt.write_table(table, buf, pqt.WriterOptions(
+        row_group_size=1 << 16, data_page_size=8192, compression="snappy",
+        column_encoding={"ship": Encoding.PLAIN, "k": Encoding.PLAIN,
+                         "v": Encoding.PLAIN, "note": Encoding.PLAIN,
+                         "cat": Encoding.RLE_DICTIONARY},
+        bloom_filters={"ship": 10}))
+    return buf.getvalue()
+
+
+def _host_form(form):
+    if isinstance(form, torch.Tensor):
+        return form.cpu()
+    if isinstance(form, np.ndarray):
+        return form
+    return tuple(_host_form(x) for x in form)
+
+
+def _same_form(a, b) -> None:
+    if isinstance(a, tuple):
+        assert isinstance(b, tuple) and len(a) == len(b)
+        for x, y in zip(a, b):
+            _same_form(x, y)
+    else:
+        assert torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("ship", dict(lo=9000, hi=9200), ["k", "v", "mode", "note"], None),
+    ("ship", dict(values=list(range(9000, 9640, 10))), ["k", "cat"],
+     "bloom_check"),
+    ("mode", dict(values=["MAIL", "SHIP"]), ["k", "ship"],
+     "unpack_bits_dense"),
+    ("k", dict(lo=20_000, hi=24_000), ["v", "cat"], "dict_unpack_gather")],
+    ids=["range", "in_bloom", "dict_key", "nullable"])
+def test_scan_on_card_equals_cpu(case, cuda_device):
+    """One device scan a case on the card, equal to the same scan on the
+    CPU form for form, with its kernel launched."""
+    path, kw, columns, kernel = case
+    data = _scan_file()
+    pqt.reset_launches()
+    got = pqt.scan_filtered_device(pqt.ParquetFile(data), path,
+                                   columns=columns, device=cuda_device, **kw)
+    launches = dict(pqt.LAUNCHES)
+    want = pqt.scan_filtered_device(pqt.ParquetFile(data), path,
+                                    columns=columns, device="cpu", **kw)
+    for c in columns:
+        _same_form(_host_form(got[c]), _host_form(want[c]))
+    if kernel is not None:
+        assert launches[kernel] > 0, launches
+
+
+@pytest.mark.cuda
+def test_scan_ops_on_card(cuda_device):
+    """The scan's filter ops on the card against the CPU: the range and IN
+    masks (signed and sign-flipped unsigned keys) and the compaction."""
+    from parquet_tpu_torch.ops import device as dev
+
+    gen = torch.Generator().manual_seed(3)
+    for dtype in (torch.int32, torch.int64):
+        info = torch.iinfo(dtype)
+        x = torch.randint(info.min, info.max, (1 << 20,), dtype=dtype,
+                          generator=gen)
+        probes = torch.unique(x[:: 4097])
+        for flip in (False, True):
+            v = dev.sign_flip(x) if flip else x
+            for fn in (lambda t: dev.range_mask(t, -5, 1 << 30),
+                       lambda t: dev.in_mask(t, probes.to(t.device))):
+                want = fn(v)
+                got = fn(v.to(cuda_device)).cpu()
+                assert torch.equal(got, want)
+                tgt, cnt = dev.compact_targets(want.to(cuda_device))
+                out = dev.compact_prefix(v.to(cuda_device), tgt)
+                assert torch.equal(out[:int(cnt)].cpu(), v[want])

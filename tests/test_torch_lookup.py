@@ -363,3 +363,43 @@ def test_descending_index_matches_jax(writer):
     _assert_counters(got.counters, want.counters)
     assert got.counters["rows_matched"] > 0
     assert got.counters["binary_search_hits"] == 0
+
+
+@pytest.mark.parametrize("case", ["uint64", "uint64_array", "uint32",
+                                  "decimal"])
+def test_unsigned_and_decimal_keys_match_jax(case):
+    """Keys of an unsigned column order unsigned, in the statistics, the
+    page index and the match: ``uint64`` keys 5 and 2**63 + 7 (whose bit
+    patterns are negative as int64), as a list and as a numpy key array,
+    a ``uint32`` key above 2**31, and a ``Decimal`` key of a decimal
+    stored as INT64, each equal to the JAX package's hits."""
+    import decimal
+
+    if case.startswith("uint64"):
+        base = [1, 5, 2**63 + 7, 2**64 - 1, 9, 3]
+        key = pa.array(base * 1000, pa.uint64())
+        keys = [2**63 + 7, 5, 2**64 - 1, 0, 2**64, -1]
+        if case == "uint64_array":  # the vectorized key preparation
+            keys = np.array([9, 5, 0, -1], np.int64)
+    elif case == "uint32":
+        base = [1, 5, 2**31 + 7, 2**32 - 1, 9, 3]
+        key = pa.array(base * 1000, pa.uint32())
+        keys = [2**31 + 7, 5, 2**32 - 1, 2**32, -1]
+    else:
+        base = [decimal.Decimal(s) for s in
+                ("1.25", "-7.50", "99999.99", "0.00", "3.10", "-0.01")]
+        key = pa.array(base * 1000, pa.decimal128(12, 2))
+        keys = [decimal.Decimal("-7.50"), decimal.Decimal("99999.99"),
+                decimal.Decimal("0.005"), decimal.Decimal("12.34")]
+    t = pa.table({"k": key, "v": pa.array(np.arange(len(key),
+                                                    dtype=np.int64))})
+    buf = io.BytesIO()
+    import pyarrow.parquet as papq
+
+    papq.write_table(t, buf, row_group_size=2000, data_page_size=1024,
+                     write_page_index=True, store_decimal_as_integer=True)
+    data = buf.getvalue()
+    got, want = _both(data, keys, ["v"])
+    _assert_same(got, want, ["v"])
+    assert got[0].num_rows == 1000 and got[1].num_rows == 1000
+    assert got[-1].num_rows == 0
