@@ -1,5 +1,5 @@
-"""Drive parquet_tpu_torch's device read, batched point lookup and device
-scan on one CUDA card and check them.
+"""Drive parquet_tpu_torch's device read, batched point lookup, device
+scan and multi-file and sharded reads on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
@@ -136,6 +136,27 @@ Phases, each fatal on failure:
    end seconds, the kernels launched, the synchronizing calls of one warm
    ``decoded_scan`` (``torch.cuda.set_sync_debug_mode``) and the filter
    ops' calls in it;
+5c. multi-file read: lineitem's generated rows as 8 part files of
+   1,048,576 rows in 524,288-row row groups (the port's writer, Snappy),
+   each read alone (``ParquetFile.read``, best of 3 warm), then read as
+   one by ``Dataset(glob).read()`` at ``[cuda:0]`` (its default device),
+   ``[cuda:0] * 2`` and ``[cuda:0] * 4``, each cold and three times
+   warm: every read equal to the per-file reads bit for bit (the cold
+   one also to the generated columns), no file refused, no chunk on the
+   host route, the staged bytes back at 0, pinned blocks reused (the
+   blocks the reads make never more than the staging buffers they ever
+   had in use at once),
+   ``unpack_bits_dense`` launched and the operands of its largest launch
+   in the cold reads kept for phase 6; one ``{"dataset_read": ...}``
+   line a mesh and a ``{"dataset_path": ...}`` line with the host
+   seconds of one more read's stages;
+5d. sharded read: ``read_table_sharded`` over phase 4b's lineitem with
+   ``scripts/multichip_scale.py``'s 11 columns at 1 and 4 shards of
+   ``cuda:0`` (three row groups: one shard of four is padding), three
+   reads each, equal to the single-file read (the operands of the
+   largest ``unpack_bits_dense`` launch of the first, cold, read kept for
+   phase 6); ``decode_step_sharded`` at
+   4 x 1,048,576 rows against its CPU run (``{"sharded": ...}``);
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -186,6 +207,7 @@ the sweeps and the kernel and ops lines to ``DIR/chip_smoke_sweep.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -1409,7 +1431,7 @@ def lineitem_path(rows: int, seed: int, tmp: str) -> dict:
             c: got["column_launches"].get(c, {}).get("unpack_bits_dense", 0)
             for c in LINEITEM_ORDER}}})
     return {"path": path, "columns": phase_times(path),
-            "launches": got["launches"]}
+            "launches": got["launches"], "best_s": best}
 
 
 def enc_path(rows: int, seed: int, tmp: str) -> dict:
@@ -2964,6 +2986,469 @@ def scan_path(card: str, rows: int, seed: int, tmp: str, lineitem: str,
             "in_dates": dates, "bloom_probe": plan["probe"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 5c: the multi-file read; phase 5d: the sharded read and decode step
+# ---------------------------------------------------------------------------
+
+DATASET_FILES = 8
+DATASET_ROW_GROUP = 1 << 19
+# (name, entries of cuda:0 in the mesh); the first reads through
+# Dataset.read()'s default device, "cuda"
+DATASET_MESHES = (("x1", 1), ("x2", 2), ("x4", 4))
+# scripts/multichip_scale.py:47's READ_COLS: 64-bit, dictionary-string and
+# PLAIN-string (ragged) columns
+SHARDED_COLS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+                "l_extendedprice", "l_discount", "l_tax", "l_shipdate",
+                "l_returnflag", "l_shipmode", "l_comment"]
+SHARDED_MESHES = (("x1", 1), ("x4", 4))
+STEP_ROWS = 1 << 20  # values a shard of the decode step
+STEP_SHARDS = 4
+# the rows phase 6 adds for these paths: (path, kernel), the operands of
+# the kernel's largest launch in the path's cold reads
+MULTI_SHAPES = (("dataset", "unpack_bits_dense"),
+                ("sharded", "unpack_bits_dense"))
+
+
+class LargestLaunch:
+    """The operands of ``kernel``'s largest launch (most values) over the
+    reads inside the block, on whatever thread it launches, and the
+    column whose ``decode_staged`` launched it."""
+
+    def __init__(self, kernel: str):
+        self.kernel = kernel
+        self.operands = None
+        self.column = None
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._real = {}
+
+    def __enter__(self):
+        real_k = self._real["k"] = getattr(kernels, self.kernel)
+        real_d = self._real["d"] = device_reader.decode_staged
+
+        def launch(*a, **k):
+            with self._lock:
+                if self.operands is None or a[-2] > self.operands[-2]:
+                    self.operands = a
+                    self.column = getattr(self._local, "column", None)
+            return real_k(*a, **k)
+
+        def decode(plan, *a, **k):
+            self._local.column = plan.leaf.name
+            return real_d(plan, *a, **k)
+
+        setattr(kernels, self.kernel, launch)
+        device_reader.decode_staged = decode
+        return self
+
+    def __exit__(self, *exc):
+        setattr(kernels, self.kernel, self._real["k"])
+        device_reader.decode_staged = self._real["d"]
+
+
+class PinnedLog:
+    """The staging buffers of the reads inside the block
+    (``_StagingBatch.commit``, on the pool's workers): the most in use at
+    once, each from the start of its fill until its copy's event is seen
+    to have ended (as the host allocator holds a pinned block: it
+    checks a freed block's events when it next allocates), and their
+    sizes.  A buffer's use is counted from before the allocator's own
+    check, so the count is never below the blocks the allocator needs."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._filling = 0
+        self._copies = []  # the copies' events not yet seen to end
+        self.peak = 0
+        self.sizes = set()
+        self._real = None
+
+    def __enter__(self):
+        real = self._real = device_reader._StagingBatch.commit
+
+        def commit(batch, staged, device, side_stream=False):
+            with self._lock:
+                self._copies = [e for e in self._copies if not e.query()]
+                self._filling += 1
+                self.peak = max(self.peak, self._filling + len(self._copies))
+                self.sizes.add(batch.nbytes)
+            out = None
+            try:
+                out = real(batch, staged, device, side_stream)
+                return out
+            finally:
+                with self._lock:
+                    self._filling -= 1
+                    if out is not None and out[1] is not None:
+                        self._copies.append(out[1][0])
+
+        device_reader._StagingBatch.commit = commit
+        return self
+
+    def __exit__(self, *exc):
+        device_reader._StagingBatch.commit = self._real
+
+    def take(self) -> dict:
+        """The most buffers in use at once since the last call, and the
+        buffers' sizes (MiB) and the power-of-two blocks they take."""
+        with self._lock:
+            self._copies = [e for e in self._copies if not e.query()]
+            peak, sizes = self.peak, sorted(self.sizes)
+            self.peak, self.sizes = self._filling + len(self._copies), set()
+        return {"buffers_peak": peak,
+                "buffer_mib": [n / 2 ** 20 for n in sizes],
+                "block_mib": sorted({(1 << max(n - 1, 0).bit_length())
+                                     / 2 ** 20 for n in sizes})}
+
+
+def column_slice(cd: ColumnData, a: int, b: int) -> ColumnData:
+    """Rows ``[a, b)`` of a flat column without nulls."""
+    if cd.offsets is None:
+        return ColumnData(values=cd.values[a:b])
+    o = cd.offsets[a:b + 1]
+    return ColumnData(values=cd.values[o[0]:o[-1]], offsets=o - o[0])
+
+
+def timed_dataset_read(pattern: str, mesh) -> tuple:
+    """``Dataset(pattern).read()`` on ``mesh`` (its default, every card,
+    where None), ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = pq.Dataset(pattern)
+    out = ds.read() if mesh is None else ds.read(device=mesh)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    ds.close()
+    return out, s
+
+
+def dataset_reads(pattern: str, name: str, entries: int, data: dict,
+                  per_file: dict, largest: LargestLaunch,
+                  pinned_state: dict) -> dict:
+    """One mesh's cold read (``largest`` watching its launches) and three
+    warm ones: the cold read equal to the generated columns, every read
+    equal to the per-file reads bit for bit, every file on the device
+    route, the staged bytes drained, and pinned blocks reused: after each
+    read, the pinned blocks the phase's reads have made (``made``) are no
+    more than the most staging buffers any of them had in use at once
+    (``high``; :class:`PinnedLog`), the blocks a host allocator that
+    reuses every free block can need.  Logged as ``{"dataset_read":
+    ...}`` before its checks."""
+    mesh = None if entries == 1 else [torch.device(DEVICE)] * entries
+    pq.reset_mesh()
+    pq.reset_route_refusals()
+    reset_routes()
+    reads = {}
+    with PinnedLog() as pinned:
+        for r in ("cold", "warm1", "warm2", "warm3"):
+            before = host_allocs()
+            with largest if r == "cold" else contextlib.nullcontext():
+                out, wall = timed_dataset_read(pattern, mesh)
+            reads[r] = {"wall_s": wall, **pinned.take(),
+                        "new_pinned_blocks": host_allocs() - before}
+            if r == "cold":
+                check_columns(out, data)
+            same_bits(out, per_file, f"dataset {name}")
+            if r != "warm3":
+                del out
+    counts = dict(pq.MESH)
+    nbytes = decoded_bytes(out)
+    del out
+    warm = [reads[r]["wall_s"] for r in ("warm1", "warm2", "warm3")]
+    best = min(warm)
+    rows = next(iter(per_file.values())).num_slots
+    got = {"mesh": [DEVICE + ":0"] * entries, "window": min(entries, 4),
+           "cold_s": reads["cold"]["wall_s"], "warm_s": warm,
+           "best_s": best, "rows_per_s": rows / best,
+           "decoded_bytes": nbytes, "decoded_gb_per_s": nbytes / best / 1e9,
+           "mesh_counts": counts, "staging": reads,
+           "host_route": dict(pq.HOST_ROUTE),
+           "route_refusals": dict(pq.ROUTE_REFUSALS)}
+    log({"dataset_read": {name: got}})
+    no_host_route(f"dataset {name}")
+    if any(pq.ROUTE_REFUSALS.values()):
+        raise AssertionError(f"dataset {name}: files refused: "
+                             f"{pq.ROUTE_REFUSALS}")
+    if counts["staging_bytes"] or counts["files_sharded"] != \
+            4 * DATASET_FILES:
+        raise AssertionError(f"dataset {name}: {counts}")
+    for r, got_r in reads.items():
+        pinned_state["made"] += got_r["new_pinned_blocks"]
+        pinned_state["high"] = max(pinned_state["high"],
+                                   got_r["buffers_peak"])
+        if pinned_state["made"] > pinned_state["high"]:
+            raise AssertionError(
+                f"dataset {name} {r}: the reads made {pinned_state} pinned "
+                "blocks, more than the staging buffers ever in use at once")
+    return got
+
+
+class StageDecodeTimes:
+    """Host seconds in the dataset reads inside the block: each file's
+    stage (``mesh._stage_dataset_file``: footer check, plan, fill and
+    copy) and decode (``mesh._decode_dataset_file``), summed over the
+    pool's workers, and ``Dataset.read``'s concatenation of the files'
+    columns (``concat_s``)."""
+
+    def __init__(self):
+        self.times = {"stage_s": 0.0, "decode_s": 0.0, "concat_s": 0.0}
+        self._lock = threading.Lock()
+        self._real = {}
+
+    def _timed(self, owner, attr: str, key: str) -> None:
+        real = self._real[(owner, attr)] = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self.times[key] += time.perf_counter() - t0
+
+        setattr(owner, attr, timed)
+
+    def __enter__(self):
+        from parquet_tpu_torch import dataset
+        from parquet_tpu_torch.parallel import mesh
+
+        self._timed(mesh, "_stage_dataset_file", "stage_s")
+        self._timed(mesh, "_decode_dataset_file", "decode_s")
+        self._timed(dataset, "concat_columns", "concat_s")
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, attr), real in self._real.items():
+            setattr(owner, attr, real)
+
+
+def dataset_breakdown(pattern: str) -> dict:
+    """One more warm read at one and at four entries of cuda:0, with the
+    host seconds of its stages (:class:`StageDecodeTimes`)."""
+    out = {}
+    for name, entries in (("x1", 1), ("x4", 4)):
+        with StageDecodeTimes() as t:
+            _, wall = timed_dataset_read(
+                pattern, [torch.device(DEVICE)] * entries)
+        out[name] = {"wall_s": wall, **t.times}
+    return out
+
+
+def dataset_path(card: str, rows: int, seed: int, tmp: str,
+                 lineitem: dict) -> dict:
+    """Phase 5c: phase 4b's lineitem data as 8 part files of 524,288-row
+    row groups (the port's writer, Snappy), read per file and as one
+    ``Dataset`` at each of :data:`DATASET_MESHES`."""
+    schema, data = make_lineitem(rows, seed)
+    root = os.path.join(tmp, "dataset")
+    os.makedirs(root)
+    per = -(-rows // DATASET_FILES)
+    paths = []
+    t0 = time.perf_counter()
+    for i in range(DATASET_FILES):
+        a, b = i * per, min(rows, (i + 1) * per)
+        path = os.path.join(root, f"part-{i:02d}.parquet")
+        pq.write_table({k: column_slice(cd, a, b) for k, cd in data.items()},
+                       path, pq.WriterOptions(
+                           compression="snappy",
+                           row_group_size=DATASET_ROW_GROUP,
+                           data_page_size=1 << 20,
+                           column_encoding=LINEITEM_ENCODINGS),
+                       schema=schema)
+        paths.append(path)
+    write_s = time.perf_counter() - t0
+    pq.reset_launches()
+    best, reads = [], []
+    for path in paths:
+        out, _ = timed_read(path)
+        warm = []
+        for _ in range(3):
+            del out
+            out, s = timed_read(path)
+            warm.append(s)
+        best.append(min(warm))
+        reads.append(out)
+    per_file = {name: concat_columns([r[name] for r in reads])
+                for name in LINEITEM_ORDER}
+    del reads
+    per_file_launches = dict(pq.LAUNCHES)
+    pattern = os.path.join(root, "part-*.parquet")
+    largest = LargestLaunch("unpack_bits_dense")
+    pq.reset_launches()  # the dataset reads: the path this phase drives
+    # the pinned blocks the reads made, the most buffers in use at once
+    pinned_state = {"made": 0, "high": 0}
+    got = {name: dataset_reads(pattern, name, entries, data, per_file,
+                               largest, pinned_state)
+           for name, entries in DATASET_MESHES}
+    launches = dict(pq.LAUNCHES)
+    del per_file, data
+    breakdown = dataset_breakdown(pattern)
+    if launches["unpack_bits_dense"] == 0 or largest.operands is None:
+        raise AssertionError("the dataset reads launched no "
+                             "unpack_bits_dense")
+    log({"dataset_path": {
+        "card": card, "files": DATASET_FILES, "rows": rows,
+        "rows_per_file": per, "row_group": DATASET_ROW_GROUP,
+        "file_bytes": sum(os.path.getsize(p) for p in paths),
+        "write_s": write_s, "per_file_best_s": best,
+        "per_file_sum_best_s": sum(best),
+        "per_file_rows_per_s": rows / sum(best),
+        "one_file_best_s": lineitem["best_s"],
+        "one_file_rows_per_s": rows / lineitem["best_s"],
+        "reads": got, "pinned": pinned_state, "breakdown": breakdown,
+        "launches": launches,
+        "per_file_launches": per_file_launches,
+        "largest_unpack": {"column": largest.column,
+                           "n": largest.operands[-2],
+                           "w": largest.operands[-1]},
+        "equal_generated": True, "equal_per_file_reads": True,
+        "host_route": dict(pq.HOST_ROUTE),
+        "route_refusals": dict(pq.ROUTE_REFUSALS)}})
+    return {"launches": launches, "operands": largest.operands,
+            "column": largest.column}
+
+
+def check_sharded(st, single: dict, rg_rows: list) -> None:
+    """Every column of ``st`` equal to the single-file read, bit for bit:
+    numeric shards as values, dictionary ids through the unified
+    dictionary, ragged shards as values and offsets."""
+    k = len(st.mesh)
+    if st.validity:
+        raise AssertionError(f"sharded: validity on {list(st.validity)}")
+    order = sorted(((g, d) for d in range(k)
+                    for g in range(d, len(rg_rows), k)))
+    for path in SHARDED_COLS:
+        col = single[path]
+        if path in st.ragged:
+            b, o = st.ragged[path]
+            values, offsets, base = [], [o[0][:1]], 0
+            for g, d in order:
+                # row groups before g on shard d
+                skip = sum(rg_rows[h] for h in range(d, g, k))
+                oo = o[d][skip:skip + rg_rows[g] + 1]
+                values.append(b[d][int(oo[0]):int(oo[-1])])
+                offsets.append(oo[1:] - oo[0] + base)
+                base += int(oo[-1] - oo[0])
+            got = torch.cat(values), torch.cat(offsets)
+            want = dev.gather_byte_arrays(*col.dictionary, col.dict_indices) \
+                if col.is_dictionary_encoded() else (col.values, col.offsets)
+        else:
+            ids = torch.cat([st.arrays[path][d][
+                sum(rg_rows[h] for h in range(d, g, k)):][:rg_rows[g]]
+                for g, d in order])
+            if path in st.dictionaries:
+                uv, uo = (torch.from_numpy(a).to(ids.device)
+                          for a in st.dictionaries[path])
+                got = dev.gather_byte_arrays(uv, uo, ids)
+                want = dev.gather_byte_arrays(*col.dictionary,
+                                              col.dict_indices)
+            else:
+                got, want = (ids,), (col.values,)
+        for x, y in zip(got, want):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"sharded {path}: differs from the "
+                                     "single-file read")
+
+
+def step_inputs(n: int, shards: int, seed: int) -> list:
+    """The sharded decode step's inputs: a shard's PLAIN INT64 page and
+    its def levels (90 % present) as an RLE/bit-packed stream with its run
+    table, stacked on a first axis (buffers and run tables padded to one
+    shape; padding runs end at ``n``)."""
+    out = []
+    for d in range(shards):
+        rng = np.random.default_rng(seed + 100 + d)
+        values = rng.integers(0, 2 ** 60, n).astype(np.int64)
+        defs = (rng.random(n) < 0.9).astype(np.int64)
+        lev = np.frombuffer(host.encode_rle(defs, 1, 8), np.uint8)
+        kinds, cnts, payloads, offs, _ = host.scan_rle_runs(lev, n, 1)
+        out.append((dev.pad_to_bucket(values.view(np.uint8)),
+                    dev.pad_to_bucket(lev), np.cumsum(cnts),
+                    kinds.astype(np.uint8), payloads.astype(np.int32),
+                    offs * 8, np.ones(len(kinds), np.int32)))
+    runs = max(len(s[2]) for s in out)
+    fill = (n, 0, 0, 0, 1)
+    return [torch.from_numpy(np.stack([
+        np.pad(s[i], (0, max(len(t[i]) for t in out) - len(s[i])))
+        for s in out])) for i in (0, 1)] + [
+        torch.from_numpy(np.stack([
+            np.pad(s[i], (0, runs - len(s[i])), constant_values=fill[i - 2])
+            for s in out])) for i in range(2, 7)]
+
+
+def sharded_path(card: str, lineitem: str, rows: int, seed: int) -> dict:
+    """Phase 5d: ``read_table_sharded`` over phase 4b's lineitem with
+    ``scripts/multichip_scale.py``'s columns at 1 and 4 shards of cuda:0
+    (three row groups: one shard of four is all padding), each equal to
+    the single-file read; then ``decode_step_sharded`` at 4 x 1,048,576
+    rows against its CPU run."""
+    single = pq.ParquetFile(lineitem).read(columns=SHARDED_COLS,
+                                           device=DEVICE)
+    rg_rows = [rg.num_rows for rg in pq.ParquetFile(lineitem).row_groups]
+    pq.reset_launches()
+    reset_routes()
+    pq.reset_mesh()
+    got = {}
+    largest = LargestLaunch("unpack_bits_dense")
+    for name, k in SHARDED_MESHES:
+        mesh = [torch.device(DEVICE)] * k
+        walls = []
+        for r in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with largest if (r, name) == (0, SHARDED_MESHES[0][0]) \
+                    else contextlib.nullcontext():
+                st = pq.read_table_sharded(lineitem, mesh=mesh,
+                                           columns=SHARDED_COLS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        check_sharded(st, single, rg_rows)
+        got[name] = {
+            "shards": k, "walls_s": walls, "best_s": min(walls),
+            "rows_per_s": rows / min(walls), "row_counts": st.row_counts,
+            "shard_rows": st.shard_rows,
+            "dictionary_sizes": {p: len(o) - 1
+                                 for p, (_, o) in st.dictionaries.items()},
+            "ragged": sorted(st.ragged), "equal_single_read": True}
+        del st
+    launches = dict(pq.LAUNCHES)
+    no_host_route("the sharded reads")
+    if pq.MESH["chunks_host_fallback"] or launches["unpack_bits_dense"] == 0 \
+            or largest.operands is None:
+        raise AssertionError(f"sharded reads: {pq.MESH}, {launches}")
+    del single
+    step_in = step_inputs(STEP_ROWS, STEP_SHARDS, seed)
+    want = pq.decode_step_sharded([torch.device("cpu")] * STEP_SHARDS,
+                                  STEP_ROWS)(*step_in)
+    on_card = [t.to(DEVICE) for t in step_in]
+    step = pq.decode_step_sharded([torch.device(DEVICE)] * STEP_SHARDS,
+                                  STEP_ROWS)
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(*on_card)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    equal = (int(res[2]) == int(want[2]) and all(
+        torch.equal(a.cpu(), b) for xs, ys in zip(res[:2], want[:2])
+        for a, b in zip(xs, ys)))
+    if not equal:
+        raise AssertionError("decode_step_sharded differs from its CPU run")
+    log({"sharded": {
+        "card": card, "file": "phase 4b's lineitem", "rows": rows,
+        "row_groups": rg_rows, "columns": SHARDED_COLS, "reads": got,
+        "launches": launches, "mesh_counts": dict(pq.MESH),
+        "largest_unpack": {"column": largest.column,
+                           "n": largest.operands[-2],
+                           "w": largest.operands[-1]},
+        "decode_step": {"shards": STEP_SHARDS, "rows_per_shard": STEP_ROWS,
+                        "present_rows": int(res[2]), "cold_s": walls[0],
+                        "warm_s": walls[1:], "equal_cpu": True}}})
+    return {"launches": launches, "operands": largest.operands,
+            "column": largest.column}
+
+
 def scan_ops(scan: dict) -> list:
     """The scan's filter ops at case A's span shape (the row group of
     1,048,576 rows its range meets first): the range and IN masks on the
@@ -3053,7 +3538,7 @@ def shape_times(column: str, kernel: str, args: tuple,
 def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
                        path_launches: dict, probe: tuple, enc: dict,
                        lineitem_launches: dict, nested: dict,
-                       scan: dict) -> list:
+                       scan: dict, more: dict) -> list:
     """Each kernel at the shapes its path gives it.  On the read path, the
     first row group's launches as ``path_operands`` took them: ``k``
     (indexes of a 20,000-entry dictionary, unfused), ``ts`` (the delta
@@ -3067,7 +3552,9 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
     bloom probe (``probe``: every row group's filter and the hashes of the
     keys that survive its statistics stage), and on the scan the
     planner's bloom stage (case A's IN-list: every row group its
-    statistics keep)."""
+    statistics keep).  ``more`` holds each later path's launches by
+    kernel and the operands of its largest launch in its cold reads (the
+    dataset and sharded reads, :data:`MULTI_SHAPES`)."""
     scan_launches = scan["launches"]
     rows = {c: shape_times(c, k, shapes[c], path_launches[c])
             for c, k in PATH_SHAPES}
@@ -3085,10 +3572,14 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
             raise AssertionError(f"scan {case}: no {k} launch to time")
         rows[f"scan.{case}"] = shape_times(f"scan.{case}", k, got["operands"],
                                            got["launches"][k])
+    for path, k in MULTI_SHAPES:
+        got = more[path]
+        rows[path] = shape_times(f"{path}.{got['column']}", k,
+                                 got["operands"], got["launches"][k])
     all_shapes = PATH_SHAPES + tuple(
         (f"enc.{c}", k) for c, k in ENC_SHAPES) + tuple(
         (f"nested.{c}", k) for c, k in CFG4_SHAPES + NEST_MIX_SHAPES) + tuple(
-        (f"scan.{case}", k) for case, k in SCAN_SHAPES)
+        (f"scan.{case}", k) for case, k in SCAN_SHAPES) + MULTI_SHAPES
     out = []
     for name, source, line in (
             ("unpack_bits_dense", "unpack_bits.cu", 81),
@@ -3156,7 +3647,9 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
                                  "nested": nested["launches"][k["name"]],
                                  "nest_mix": nested["mix_launches"][
                                      k["name"]],
-                                 "scan": scan_launches[k["name"]]}
+                                 "scan": scan_launches[k["name"]],
+                                 **{path: got["launches"][k["name"]]
+                                    for path, got in more.items()}}
     for k in out:
         if k["max_abs_err"] != 0:
             raise AssertionError(f"{k['name']}: kernel differs from its "
@@ -3303,13 +3796,18 @@ def main(argv=None) -> int:
         scan = phase("5b_scan", scan_path, card, args.scan_rows, args.seed,
                      tmp, item["path"], args.lineitem_rows, look["path"],
                      args.lookup_rows)
+        multi = phase("5c_dataset", dataset_path, card, args.lineitem_rows,
+                      args.seed, tmp, item)
+        sharded = phase("5d_sharded", sharded_path, card, item["path"],
+                        args.lineitem_rows, args.seed)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
         kern = phase("6_kernels", main_shape_kernels, read["launches"],
                      look["launches"], read["shapes"],
                      read["path_launches"], look["probe"], enc,
-                     item["launches"], nested, scan)
+                     item["launches"], nested, scan,
+                     {"dataset": multi, "sharded": sharded})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

@@ -20,9 +20,13 @@ compaction on the device), and writes such files.
     table = pq.ParquetFile("x.parquet").read(device="cpu")
     rows = pq.scan_filtered_device(pq.ParquetFile("x.parquet"), "x",
                                    lo=2, hi=5)                 # on the card
+    table = pq.Dataset("parts/*.parquet").read()            # every card
+    table = pq.Dataset("parts/*.parquet").read(["cpu"] * 8)  # 8 shards
 """
 
+from .dataset import Dataset, expand_paths
 from .io.column import Column
+from .io.planner import ROUTE_REFUSALS, reset_route_refusals
 from .io.reader import ParquetFile
 from .io.search import plan_scan
 from .io.writer import WriterOptions, write_table
@@ -31,8 +35,23 @@ from .parallel.device_reader import (HOST_ROUTE, PIPELINE, PLAN_ROUTE,
                                      reset_host_route, reset_pipeline,
                                      reset_plan_route)
 from .parallel.host_scan import decoded_scan, scan_filtered_device, stage_scan
+from .parallel.mesh import (MESH, ShardedTable, dataset_process_shard,
+                            decode_step_sharded, default_mesh,
+                            read_dataset_device, read_table_sharded,
+                            reset_mesh)
 
 __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route",
            "PLAN_ROUTE", "reset_plan_route", "PIPELINE", "reset_pipeline",
-           "plan_scan", "stage_scan", "decoded_scan", "scan_filtered_device"]
+           "plan_scan", "stage_scan", "decoded_scan", "scan_filtered_device",
+           "Dataset", "expand_paths", "read_table", "ShardedTable",
+           "default_mesh", "read_table_sharded", "decode_step_sharded",
+           "read_dataset_device", "dataset_process_shard", "MESH",
+           "reset_mesh", "ROUTE_REFUSALS", "reset_route_refusals"]
+
+
+def read_table(source, columns=None, device="cuda") -> dict:
+    """Open ``source`` and read its selected columns (all by default) on
+    ``device``: ``ParquetFile(source).read(columns, device)``."""
+    with ParquetFile(source) as pf:
+        return pf.read(columns=columns, device=device)

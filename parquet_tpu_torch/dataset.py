@@ -1,0 +1,302 @@
+"""Many Parquet files as one readable, prunable, shardable unit.
+
+The port's cut of ``parquet_tpu/dataset.py``: :func:`expand_paths` and
+:class:`Dataset` with its file handles, row accounting, sharding, schema
+check, footer pruning and scan plans, and :meth:`Dataset.read`, which
+reads every file on a list of devices through
+``parallel/mesh.py::read_dataset_device`` and concatenates the per-file
+columns in file order.  Remote URLs, the shared footer and chunk caches,
+fault policies and reports, the manifest's snapshot fields, and the
+dataset's ``iter_batches``, ``scan``, ``find_rows`` and ``aggregate``
+belong to later slices and raise naming theirs.
+"""
+
+from __future__ import annotations
+
+import glob as _glob
+import os
+import threading
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from .errors import unsupported
+from .io.column import Column, concat_columns
+from .io.reader import ParquetFile, _empty_column, _select_leaves
+from .io.search import _as_expr, prune_file
+from .utils.pool import map_in_order
+
+__all__ = ["Dataset", "expand_paths"]
+
+_GLOB_CHARS = frozenset("*?[")
+
+
+def expand_paths(paths_or_glob) -> List[str]:
+    """Paths and glob patterns as one path list: a pattern expands sorted
+    (``**`` recurses), explicit paths keep the caller's order, a repeated
+    path keeps its first place, and a path that exists is never read as a
+    pattern (``part[1].parquet``).  A pattern that matches nothing raises
+    ``FileNotFoundError``."""
+    if isinstance(paths_or_glob, (str, os.PathLike)):
+        items = [os.fspath(paths_or_glob)]
+    else:
+        items = [os.fspath(p) for p in paths_or_glob]
+    out: List[str] = []
+    seen = set()
+    for item in items:
+        if _GLOB_CHARS & set(item) and not os.path.lexists(item):
+            got = sorted(_glob.glob(item, recursive="**" in item))
+            if not got:
+                raise FileNotFoundError(f"glob {item!r} matched no files")
+        else:
+            got = [item]
+        for p in got:
+            if p not in seen:
+                seen.add(p)
+                out.append(p)
+    return out
+
+
+def _leaf_signature(pf: ParquetFile) -> tuple:
+    """Each leaf's path, physical type, width, logical annotation with its
+    parameters, and levels: files that differ in any of these cannot be
+    read as one (an INT64 decimal of scale 2 beside one of scale 3 would
+    mis-scale every value of one file)."""
+    return tuple((leaf.name, int(leaf.physical_type), leaf.type_length,
+                  leaf.logical_kind,
+                  tuple(sorted((leaf.logical_params or {}).items())),
+                  leaf.max_definition_level, leaf.max_repetition_level)
+                 for leaf in pf.schema.leaves)
+
+
+class Dataset:
+    """Parquet files read as one.
+
+    ``paths_or_glob`` is a path, a glob pattern, or a list of both
+    (:func:`expand_paths`).  Files open at first use and stay open until
+    :meth:`close`; every file must have the first one's leaves
+    (:func:`_leaf_signature`), checked as each is read or pruned."""
+
+    def __init__(self, paths_or_glob, policy=None):
+        if policy is not None:
+            raise unsupported("Dataset(policy=...)", "fault policies")
+        self.paths = expand_paths(paths_or_glob)
+        if not self.paths:
+            raise ValueError("Dataset needs at least one path")
+        self._init()
+
+    def _init(self) -> None:
+        self._files: Dict[int, ParquetFile] = {}
+        self._lock = threading.Lock()
+        self._schema_sig = None
+
+    @property
+    def _file_stats(self):
+        raise unsupported("Dataset._file_stats (manifest zone maps)",
+                          "manifest")
+
+    @property
+    def snapshot_version(self):
+        raise unsupported("Dataset.snapshot_version", "manifest")
+
+    # ------------------------------------------------------------- files
+    def file(self, i: int) -> ParquetFile:
+        """The i-th file, opened at first use and kept."""
+        with self._lock:
+            pf = self._files.get(i)
+        if pf is not None:
+            return pf
+        pf = ParquetFile(self.paths[i])
+        with self._lock:
+            cur = self._files.setdefault(i, pf)
+        if cur is not pf:  # another thread opened it first
+            pf.close()
+        return cur
+
+    @property
+    def files(self) -> List[ParquetFile]:
+        """Every file, the ones not yet open opened on the shared pool."""
+        with self._lock:
+            cached = [self._files.get(i) for i in range(len(self.paths))]
+        if all(pf is not None for pf in cached):
+            return cached
+        return map_in_order(self.file, range(len(self.paths)))
+
+    @property
+    def num_files(self) -> int:
+        return len(self.paths)
+
+    @property
+    def num_rows(self) -> int:
+        return int(sum(pf.num_rows for pf in self.files))
+
+    @property
+    def schema(self):
+        if not self.paths:
+            raise ValueError("empty dataset shard has no schema; check "
+                             "num_files first")
+        return self.file(0).schema
+
+    def row_offsets(self) -> np.ndarray:
+        """``offsets[i]``: the dataset-wide ordinal of file i's first row
+        (``offsets[num_files]``: the row count); :meth:`read` is in file
+        order."""
+        offs = np.zeros(len(self.paths) + 1, np.int64)
+        np.cumsum([pf.num_rows for pf in self.files], out=offs[1:])
+        return offs
+
+    def shard(self, index: int, count: int) -> "Dataset":
+        """File shard ``index`` of ``count``: ``paths[index::count]``, so
+        shards are disjoint, cover the dataset and differ by at most one
+        file; a shard may be empty."""
+        if not 0 <= index < count:
+            raise ValueError(f"shard index {index} out of range [0, {count})")
+        sub = object.__new__(Dataset)
+        sub.paths = self.paths[index::count]
+        sub._init()
+        return sub
+
+    def _check_schema(self, pf: ParquetFile, path: str) -> None:
+        sig = _leaf_signature(pf)
+        with self._lock:
+            if self._schema_sig is None:
+                self._schema_sig = (path, sig)
+                return
+            ref_path, ref_sig = self._schema_sig
+        if sig != ref_sig:
+            raise ValueError(
+                f"dataset schema mismatch: {path!r} does not match "
+                f"{ref_path!r} (leaf paths/types differ)")
+
+    # -------------------------------------------------------------- read
+    def read(self, columns: Optional[Sequence[str]] = None, device="cuda",
+             policy=None, report=None) -> Dict[str, Column]:
+        """Every file's selected columns (all by default) as one
+        ``{dotted path: Column}``, the files in order.  ``device`` is one
+        device or a list of them (a mesh: ``"cuda"`` is every card, and an
+        entry may repeat): file ``i`` decodes on ``mesh[i % len(mesh)]``
+        (``parallel/mesh.py::read_dataset_device``), and the result lies on
+        ``mesh[0]``.  A file the device route refuses reads on the host
+        decode."""
+        from .parallel.mesh import read_dataset_device, resolve_mesh
+
+        if policy is not None or report is not None:
+            raise unsupported("Dataset.read(policy=..., report=...)",
+                              "fault policies")
+        if not self.paths:
+            raise ValueError("read on an empty dataset shard (no schema to "
+                             "type an empty table by); check num_files first")
+        devs = resolve_mesh(device)
+        parts: Dict[str, List[Column]] = {}
+        def host_read(i, dev):
+            return self._host_read(i, columns, dev)
+
+        for got in read_dataset_device(self, columns, host_read, devs):
+            for path, cols in got.items():
+                parts.setdefault(path, []).extend(cols)
+        out = {}
+        for leaf in _select_leaves(self.schema, columns):
+            cols = [c.to(devs[0]) for c in parts.get(leaf.name, [])]
+            out[leaf.name] = (concat_columns(cols) if cols
+                              else _empty_column(leaf, devs[0]))
+        return out
+
+    def _host_read(self, i: int, columns, device) -> Dict[str, List[Column]]:
+        """File ``i`` decoded chunk by chunk on the host, moved to
+        ``device``: the read of a file the device route refuses."""
+        from .io.reader import decode_chunk_host
+
+        pf = self.file(i)
+        self._check_schema(pf, self.paths[i])
+        return {leaf.name: [decode_chunk_host(rg.column(leaf.column_index),
+                                              device)
+                            for rg in pf.row_groups]
+                for leaf in _select_leaves(pf.schema, columns)}
+
+    # ------------------------------------------------------------- prune
+    def _prepare_where(self, path, lo, hi, values, where):
+        """One predicate tree, prepared once against the first file's
+        schema (every file must share it)."""
+        from .algebra.expr import prepare
+
+        return prepare(_as_expr(path, lo, hi, values, where),
+                       self.file(0).schema)
+
+    def _prune_indices(self, expr) -> List[int]:
+        def check(i):
+            pf = self.file(i)
+            self._check_schema(pf, self.paths[i])
+            return prune_file(pf, where=expr)
+
+        return [i for i, keep in enumerate(
+            map_in_order(check, range(len(self.paths)))) if keep]
+
+    def prune(self, path: Optional[str] = None, lo=None, hi=None,
+              values: Optional[Sequence] = None, policy=None, report=None,
+              where=None) -> List[str]:
+        """The paths of the files that may hold matching rows, by their
+        footers' chunk statistics alone (``io/search.py::prune_file``; no
+        chunk byte is read).  ``where`` takes a predicate tree over any
+        number of columns."""
+        if policy is not None or report is not None:
+            raise unsupported("Dataset.prune(policy=..., report=...)",
+                              "fault policies")
+        expr = self._prepare_where(path, lo, hi, values, where)
+        return [self.paths[i] for i in self._prune_indices(expr)]
+
+    def plan(self, path: Optional[str] = None, lo=None, hi=None,
+             use_bloom: bool = False, values: Optional[Sequence] = None,
+             where=None, device="cuda"):
+        """Files pruned by their footers, then the survivors' pages
+        planned (``io/planner.py::ScanPlanner``, the bloom stage on
+        ``device``): ``{path: [PagePlan, ...]}`` for the single-column
+        form, ``{path: ScanPlan}`` for ``where=``; files without a
+        surviving row group are left out."""
+        from .io.planner import ScanPlanner
+        from .io.reader import resolve_device
+
+        dev = resolve_device(device)
+        expr = self._prepare_where(path, lo, hi, values, where)
+        out = {}
+        for i in self._prune_indices(expr):
+            plan = ScanPlanner(self.file(i), device=dev).plan(
+                expr, use_bloom=use_bloom)
+            if where is None:
+                plans = plan.page_plans()
+                if plans:
+                    out[self.paths[i]] = plans
+            elif plan.survivors:
+                out[self.paths[i]] = plan
+        return out
+
+    # ------------------------------------------------ later slices' routes
+    def iter_batches(self, *args, **kwargs):
+        raise unsupported("Dataset.iter_batches", "stream")
+
+    def scan(self, *args, **kwargs):
+        raise unsupported("Dataset.scan", "host scan and routed scan "
+                          "(scan_expr)")
+
+    def find_rows(self, *args, **kwargs):
+        raise unsupported("Dataset.find_rows", "lookup leftovers")
+
+    def aggregate(self, *args, **kwargs):
+        raise unsupported("Dataset.aggregate", "aggregation")
+
+    # -------------------------------------------------------------- misc
+    def close(self) -> None:
+        with self._lock:
+            files, self._files = list(self._files.values()), {}
+        for pf in files:
+            pf.close()
+
+    def __enter__(self) -> "Dataset":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __repr__(self) -> str:
+        if not self.paths:
+            return "Dataset(0 files: an empty shard)"
+        return f"Dataset({len(self.paths)} file(s), first={self.paths[0]!r})"

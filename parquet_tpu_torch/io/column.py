@@ -57,6 +57,26 @@ class Column:
     def is_dictionary_encoded(self) -> bool:
         return self.values is None and self.dict_indices is not None
 
+    def to(self, device) -> "Column":
+        """A column like this one with every tensor on ``device`` (a
+        tensor already there is shared, not copied)."""
+        device = torch.device(device)
+
+        def move(t):
+            if isinstance(t, tuple):
+                return tuple(move(x) for x in t)
+            return None if t is None else t.to(device)
+
+        return Column(
+            leaf=self.leaf, values=move(self.values),
+            validity=move(self.validity), num_slots=self.num_slots,
+            dictionary=move(self.dictionary),
+            dict_indices=move(self.dict_indices),
+            offsets=move(self.offsets),
+            list_offsets=[move(o) for o in self.list_offsets],
+            list_validity=[move(v) for v in self.list_validity],
+            def_levels=self.def_levels, rep_levels=self.rep_levels)
+
     def materialize(self) -> "Column":
         """Gather an encoded byte-array column into dense ``values`` and
         ``offsets`` on its own device (in place; returns self)."""

@@ -26,7 +26,11 @@ the reference counts them.  A single-leaf tree reads the same filters; a
 tree of several equality leaves may read a filter the reference's
 short-circuit would have skipped.
 
-Left out for later slices: the route half (``CostInputs``,
+From the route half it keeps what the multi-file device read needs:
+:func:`device_encoding_supported`, which says from the footer alone
+whether the device route can place every chunk of a file, and
+:data:`ROUTE_REFUSALS`, the files and chunks it refused, by reason.
+Left out for later slices: the rest of the route half (``CostInputs``,
 ``RouteHistory``, ``choose_route``, ``route_scan``), fault policies and
 reports, the coverage proofs of the aggregation cascade, and the metrics
 and trace spans.
@@ -34,6 +38,7 @@ and trace spans.
 
 from __future__ import annotations
 
+import threading
 from bisect import bisect_left
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -41,8 +46,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..algebra.expr import And, Const, Expr, Or, Pred, prepare
+from ..format.enums import Encoding
 
-__all__ = ["ScanPlanner", "ScanPlan", "RowGroupDecision"]
+__all__ = ["ScanPlanner", "ScanPlan", "RowGroupDecision",
+           "device_encoding_supported", "ROUTE_REFUSALS",
+           "count_device_refusal", "reset_route_refusals"]
 
 # local row intervals: half-open (start, end)
 _Intervals = List[Tuple[int, int]]
@@ -275,6 +283,20 @@ class ScanPlanner:
     def __init__(self, pf, device="cuda"):
         self.pf = pf
         self.device = device
+
+    def any_match_stats(self, expr: Expr) -> bool:
+        """May any row group match?  The statistics stage alone (no I/O),
+        stopping at the first row group that survives it: the file-level
+        prune of the dataset layer, on the same leaf probes as the
+        cascade."""
+        expr = prepare(expr, self.pf.schema)
+        if isinstance(expr, Const):
+            return expr.value and bool(self.pf.row_groups)
+        for rg in self.pf.row_groups:
+            alive, _ = _eval_tree(expr, lambda p: _stats_alive(p, rg))
+            if alive:
+                return True
+        return False
 
     def plan(self, expr: Expr, use_bloom: bool = True) -> ScanPlan:
         """Run the cascade over every row group; ``use_bloom=False`` skips
@@ -597,3 +619,59 @@ def _pred_page_ords(pred: Pred, ci) -> List[int]:
         if not dead:
             out.append(i)
     return out
+
+
+# ---------------------------------------------------------------------------
+# What the device route refuses, known from the footer
+# ---------------------------------------------------------------------------
+
+#: the encodings the device route's plan can place on the card
+_DEVICE_ENCODINGS = frozenset((
+    Encoding.PLAIN, Encoding.RLE, Encoding.PLAIN_DICTIONARY,
+    Encoding.RLE_DICTIONARY, Encoding.DELTA_BINARY_PACKED,
+    Encoding.DELTA_LENGTH_BYTE_ARRAY, Encoding.DELTA_BYTE_ARRAY,
+    Encoding.BYTE_STREAM_SPLIT))
+
+
+def device_encoding_supported(pf, columns: Optional[Sequence[str]] = None
+                              ) -> Tuple[bool, str]:
+    """``(True, "")`` when every chunk of the selected leaves (those whose
+    dotted path ``columns`` names; all by default) lists only encodings the
+    device route places on the card, else ``(False, why)``: the footer's
+    answer, before any byte of the file is staged.  Shapes seen only in the
+    pages still take the host decode chunk by chunk (``HOST_ROUTE``)."""
+    want = set(columns) if columns is not None else None
+    for leaf in pf.schema.leaves:
+        if want is not None and leaf.name not in want:
+            continue
+        for rg in pf.metadata.row_groups or []:
+            for e in rg.columns[leaf.column_index].meta_data.encodings or []:
+                try:
+                    enc = Encoding(e)
+                except ValueError:
+                    return False, (f"column {leaf.name!r} carries unknown "
+                                   f"encoding {e}")
+                if enc not in _DEVICE_ENCODINGS:
+                    return False, (f"column {leaf.name!r} carries encoding "
+                                   f"{enc.name} with no device kernel")
+    return True, ""
+
+
+#: files and chunks the multi-file device read sent to the host decode:
+#: ``unsupported`` (the footer lists an encoding the card does not decode,
+#: or a chunk's plan refused it) and ``error`` (the file's staging raised
+#: ``CorruptedError`` or ``OSError``)
+ROUTE_REFUSALS = {"unsupported": 0, "error": 0}
+_refusal_lock = threading.Lock()
+
+
+def count_device_refusal(reason: str) -> None:
+    """Count one refusal of the device route in :data:`ROUTE_REFUSALS`."""
+    with _refusal_lock:  # counted on the pool's workers
+        ROUTE_REFUSALS[reason] += 1
+
+
+def reset_route_refusals() -> None:
+    with _refusal_lock:
+        for k in ROUTE_REFUSALS:
+            ROUTE_REFUSALS[k] = 0

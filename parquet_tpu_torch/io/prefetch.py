@@ -63,6 +63,11 @@ class AdvisePrefetcher(Source):
             self._plans.append(p)
             self._advise(p, offset)
 
+    def plan_many(self, ranges) -> None:
+        """:meth:`plan` each ``(offset, size)`` of ``ranges``."""
+        for offset, size in ranges:
+            self.plan(offset, size)
+
     def _advise(self, p: _Plan, frontier: int) -> None:
         ahead = min(frontier + self.depth * self.window_bytes, p.end)
         if ahead > p.advised:

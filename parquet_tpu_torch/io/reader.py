@@ -534,6 +534,8 @@ class ParquetFile:
         if not self.metadata.schema:
             raise CorruptedError("footer has no schema")
         self.schema = Schema.from_elements(self.metadata.schema)
+        self._row_groups = [RowGroupReader(self, i, rg) for i, rg in
+                            enumerate(self.metadata.row_groups or [])]
 
     @property
     def num_rows(self) -> int:
@@ -541,20 +543,34 @@ class ParquetFile:
 
     @property
     def row_groups(self) -> List[RowGroupReader]:
-        return [RowGroupReader(self, i, rg)
-                for i, rg in enumerate(self.metadata.row_groups or [])]
+        """The row groups' readers, built once a file."""
+        return list(self._row_groups)
+
+    def row_group(self, i: int) -> RowGroupReader:
+        return self._row_groups[i]
 
     def read(self, columns: Optional[Sequence[str]] = None,
-             device="cuda") -> Dict[str, Column]:
-        """Decode the selected columns (all by default) of every row group
-        on ``device``; returns ``{dotted path: Column}`` in schema order.
+             device="cuda",
+             row_groups: Optional[Sequence[int]] = None
+             ) -> Dict[str, Column]:
+        """Decode the selected columns (all by default) of the selected
+        row groups (all by default; else by index, in the order given) on
+        ``device``; returns ``{dotted path: Column}`` in schema order.
         A name in ``columns`` selects the leaf at that dotted path, or every
-        leaf under that top-level column."""
+        leaf under that top-level column.  An empty ``row_groups`` gives
+        zero-row columns; an index out of range raises ``IndexError``."""
         from ..parallel.device_reader import decode_chunks_pipelined
 
         dev = resolve_device(device)
         leaves = _select_leaves(self.schema, columns)
-        rgs = self.row_groups
+        rgs = self._row_groups
+        if row_groups is not None:
+            every = range(len(rgs))
+            for i in row_groups:
+                if i not in every:
+                    raise IndexError(
+                        f"row group {i} out of range [0, {len(every)})")
+            rgs = [rgs[i] for i in row_groups]
         chunks = [rg.column(leaf.column_index)
                   for leaf in leaves for rg in rgs]
         out = {}

@@ -3,7 +3,8 @@
 The port's cut of ``parquet_tpu/io/search.py``: :func:`find` (the
 reference's ``parquet.Find``), :func:`pages_overlapping` and
 :func:`pages_overlapping_values` over a ``ColumnIndex`` whose bounds
-:func:`decoded_bounds` decodes once per chunk; :func:`plan_scan`, the
+:func:`decoded_bounds` decodes once per chunk; :func:`prune_file`, a
+whole file ruled out by its footer's statistics; :func:`plan_scan`, the
 batch pushdown plan of a single-column predicate (one :class:`PagePlan`
 a surviving row group, from the planner's cascade in ``io/planner.py``);
 the seek of a row span, :func:`seek_pages` and :func:`pages_and_base`
@@ -157,6 +158,36 @@ def plan_scan(pf, path, lo=None, hi=None, use_bloom: bool = False,
     planner = ScanPlanner(pf, device=resolve_device(device))
     return planner.plan(single_pred(path, lo=lo, hi=hi, values=values),
                         use_bloom=use_bloom).page_plans()
+
+
+def prune_file(pf, path=None, lo=None, hi=None,
+               values: Optional[Sequence] = None, where=None) -> bool:
+    """True when any row group of the file may hold a matching row, by the
+    footer's chunk statistics alone (no I/O): the planner's statistics
+    stage (``ScanPlanner.any_match_stats``), the dataset layer's file
+    prune.  ``where`` takes a predicate tree in place of the
+    single-column ``path``/``lo``/``hi``/``values`` form."""
+    from .planner import ScanPlanner
+
+    return ScanPlanner(pf).any_match_stats(
+        _as_expr(path, lo, hi, values, where))
+
+
+def _as_expr(path, lo, hi, values, where):
+    """One predicate tree from either calling convention."""
+    from ..algebra.expr import single_pred
+
+    if where is not None:
+        if path is not None or lo is not None or hi is not None \
+                or values is not None:
+            raise ValueError("pass either where= (a predicate tree) or the "
+                             "single-column path/lo/hi/values form, not both")
+        return where
+    if path is None:
+        raise ValueError("need a predicate: where= or path (+ lo/hi/values)")
+    if isinstance(path, Leaf):
+        path = path.name
+    return single_pred(path, lo=lo, hi=hi, values=values)
 
 
 def _npages(oi) -> int:

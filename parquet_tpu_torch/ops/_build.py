@@ -197,13 +197,19 @@ def build_all(names: List[str] = None) -> List[str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` or ``.cpp``, built first if
-    needed."""
+    needed.  Any failure raises ``RuntimeError`` (an ``OSError`` of the
+    compiler or the loader too, so that no caller takes it for an I/O
+    error of the data)."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        build_all([name])
-        lib = ctypes.CDLL(lib_path(name))
+        try:
+            build_all([name])
+            lib = ctypes.CDLL(lib_path(name))
+        except OSError as e:  # a compiler that will not start, a bad .so
+            raise RuntimeError(f"cannot build or load {_source(name)}: "
+                               f"{e}") from e
         for fn, (restype, argtypes) in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.restype = restype

@@ -26,6 +26,7 @@ else.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Sequence
 
 import numpy as np
@@ -35,6 +36,7 @@ from . import _build
 
 LAUNCHES = {"unpack_bits_dense": 0, "dict_unpack_gather": 0,
             "bloom_check": 0}
+_launch_lock = threading.Lock()
 
 MAX_FUSED_DICT = 1024  # entries the fused kernel stages in shared memory
 
@@ -115,7 +117,7 @@ def unpack_bits_dense(words: torch.Tensor, n: int, w: int) -> torch.Tensor:
         rc = lib.pq_unpack_bits_dense(words.data_ptr(), words.shape[0],
                                       out.data_ptr(), n, w, stream)
     _raise_on_error(rc, "unpack_bits_dense")
-    LAUNCHES["unpack_bits_dense"] += 1
+    _count_launch("unpack_bits_dense")
     return out
 
 
@@ -172,7 +174,7 @@ def dict_unpack_gather(words: torch.Tensor, dictionary: torch.Tensor, n: int,
             dictionary.shape[0], dictionary.element_size(), out.data_ptr(), n,
             w, stream)
     _raise_on_error(rc, "dict_unpack_gather")
-    LAUNCHES["dict_unpack_gather"] += 1
+    _count_launch("dict_unpack_gather")
     return out
 
 
@@ -268,7 +270,7 @@ def bloom_check(filter_blocks: torch.Tensor,
                                 filter_blocks.shape[0], hashes.data_ptr(),
                                 out.data_ptr(), n, stream)
     _raise_on_error(rc, "bloom_check")
-    LAUNCHES["bloom_check"] += 1
+    _count_launch("bloom_check")
     return out
 
 
@@ -357,13 +359,18 @@ def bloom_check_segments(filters: Sequence[torch.Tensor],
                                          len(filters), hashes.data_ptr(),
                                          out.data_ptr(), n, stream)
     _raise_on_error(rc, "bloom_check")
-    LAUNCHES["bloom_check"] += 1
+    _count_launch("bloom_check")
     return out
 
 
 def _raise_on_error(rc: int, kernel: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {rc}")
+
+
+def _count_launch(kernel: str) -> None:
+    with _launch_lock:  # kernels launch on the multi-file read's workers
+        LAUNCHES[kernel] += 1
 
 
 def reset_launches() -> None:

@@ -762,3 +762,103 @@ def test_scan_ops_on_card(cuda_device):
                 tgt, cnt = dev.compact_targets(want.to(cuda_device))
                 out = dev.compact_prefix(v.to(cuda_device), tgt)
                 assert torch.equal(out[:int(cnt)].cpu(), v[want])
+
+
+def _dataset_files(root, files: int = 4) -> list:
+    """Part files written by the port: PLAIN, dictionary (numeric and
+    string), DELTA and nullable columns, three row groups a file."""
+    from parquet_tpu_torch.io.writer import ColumnData
+
+    rng = np.random.default_rng(11)
+    words = [w.encode() for w in ("AIR", "MAIL", "SHIP", "TRUCK")]
+    paths = []
+    for i in range(files):
+        n = 30_000
+        idx = rng.integers(0, len(words), n)
+        values = np.concatenate([np.frombuffer(words[j], np.uint8)
+                                 for j in idx])
+        lens = np.array([len(words[j]) for j in idx], np.int64)
+        table = {
+            "id": np.arange(i * n, (i + 1) * n, dtype=np.int64),
+            "cat": np.ma.masked_array(rng.integers(0, 200, n).astype(
+                np.int32), mask=rng.random(n) < 0.1),
+            "ts": np.cumsum(rng.integers(0, 1000, n)),
+            "mode": ColumnData(values=values, offsets=np.concatenate(
+                [[0], np.cumsum(lens)])),
+        }
+        opts = pqt.WriterOptions(
+            row_group_size=10_000, compression="snappy", column_encoding={
+                "id": Encoding.PLAIN, "cat": Encoding.RLE_DICTIONARY,
+                "ts": Encoding.DELTA_BINARY_PACKED,
+                "mode": Encoding.RLE_DICTIONARY})
+        path = str(root / f"part-{i}.parquet")
+        pqt.write_table(table, path, opts)
+        paths.append(path)
+    return paths
+
+
+def _same_columns(got: dict, want: dict) -> None:
+    assert list(got) == list(want)
+    for name, col in want.items():
+        a, b = got[name].materialize_host(), col.materialize_host()
+        if isinstance(a, tuple):
+            assert all(np.array_equal(x, y) for x, y in zip(a, b)), name
+        else:
+            assert a.dtype == b.dtype and np.array_equal(a, b), name
+        va = None if got[name].validity is None else got[name].validity.cpu()
+        vb = col.validity
+        assert (va is None) == (vb is None) and (
+            va is None or torch.equal(va, vb)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("devices", ["list1", "list4", "cuda"])
+def test_dataset_read_on_card_matches_cpu(cuda_device, tmp_path, devices):
+    """Dataset.read on [cuda:0], [cuda:0] * 4 (four files in flight on
+    one card) and "cuda", each equal to the CPU's read, on the device
+    route alone and with the staged bytes drained."""
+    paths = _dataset_files(tmp_path)
+    want = pqt.Dataset(paths).read(device="cpu")
+    mesh = {"list1": [cuda_device], "list4": [cuda_device] * 4,
+            "cuda": "cuda"}[devices]
+    pqt.reset_mesh()
+    pqt.reset_route_refusals()
+    pqt.reset_launches()
+    got = pqt.Dataset(paths).read(device=mesh)
+    torch.cuda.synchronize()
+    assert got["id"].values.device.type == "cuda"
+    _same_columns(got, want)
+    assert pqt.MESH["files_sharded"] == len(paths)
+    assert pqt.MESH["stage_overlapped"] == (3 if devices == "list4" else 0)
+    assert pqt.MESH["staging_bytes"] == 0
+    assert sum(pqt.ROUTE_REFUSALS.values()) == 0
+    assert pqt.LAUNCHES["dict_unpack_gather"] > 0, pqt.LAUNCHES
+
+
+@pytest.mark.cuda
+def test_read_table_sharded_on_card_matches_cpu(cuda_device, tmp_path):
+    """Four shards on one card: the file's three row groups, one shard
+    all padding, shard for shard equal to the CPU's."""
+    path = _dataset_files(tmp_path, files=1)[0]
+    want = pqt.read_table_sharded(path, mesh=["cpu"] * 4)
+    got = pqt.read_table_sharded(path, mesh=[cuda_device] * 4)
+    torch.cuda.synchronize()
+    assert got.row_counts == want.row_counts == (10_000, 10_000, 10_000, 0)
+    for table in ("arrays", "validity"):
+        g, w = getattr(got, table), getattr(want, table)
+        assert set(g) == set(w)
+        for path_ in w:
+            for a, b in zip(g[path_], w[path_]):
+                assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    for path_, (v, o) in want.dictionaries.items():
+        assert np.array_equal(got.dictionaries[path_][0], v)
+        assert np.array_equal(got.dictionaries[path_][1], o)
+    step_in = [torch.zeros(4, 64, dtype=torch.uint8),
+               torch.zeros(4, 64, dtype=torch.uint8),
+               torch.full((4, 1), 8, dtype=torch.int64),
+               torch.zeros(4, 1, dtype=torch.uint8),
+               torch.ones(4, 1, dtype=torch.int32),
+               torch.zeros(4, 1, dtype=torch.int64),
+               torch.ones(4, 1, dtype=torch.int32)]
+    rows = pqt.decode_step_sharded([cuda_device] * 4, 8)(*step_in)[2]
+    assert rows.device.type == "cuda" and int(rows) == 32
