@@ -2983,7 +2983,8 @@ def scan_path(card: str, rows: int, seed: int, tmp: str, lineitem: str,
     launches = {name: sum(c["launches"][name] for c in cases.values())
                 for name in pq.LAUNCHES}
     return {"cases": cases, "launches": launches, "cfg5": table,
-            "in_dates": dates, "bloom_probe": plan["probe"]}
+            "cfg5_path": path, "in_dates": dates,
+            "bloom_probe": plan["probe"], "plan_counters": plan["counters"]}
 
 
 # ---------------------------------------------------------------------------
@@ -3006,7 +3007,8 @@ STEP_SHARDS = 4
 # the rows phase 6 adds for these paths: (path, kernel), the operands of
 # the kernel's largest launch in the path's cold reads
 MULTI_SHAPES = (("dataset", "unpack_bits_dense"),
-                ("sharded", "unpack_bits_dense"))
+                ("sharded", "unpack_bits_dense"),
+                ("host_scan", "unpack_bits_dense"))
 
 
 class LargestLaunch:
@@ -3305,7 +3307,7 @@ def dataset_path(card: str, rows: int, seed: int, tmp: str,
         "host_route": dict(pq.HOST_ROUTE),
         "route_refusals": dict(pq.ROUTE_REFUSALS)}})
     return {"launches": launches, "operands": largest.operands,
-            "column": largest.column}
+            "column": largest.column, "paths": paths}
 
 
 def check_sharded(st, single: dict, rg_rows: list) -> None:
@@ -3449,6 +3451,426 @@ def sharded_path(card: str, lineitem: str, rows: int, seed: int) -> dict:
             "column": largest.column}
 
 
+# ---------------------------------------------------------------------------
+# phase 5e: the host scan and the routed scan
+# ---------------------------------------------------------------------------
+
+HOST_SCAN_WARM = 3
+Q6_DISCOUNT = (0.05, 0.07)  # TPC-H Q6: l_discount between 0.06 -+ 0.01
+Q6_QUANTITY = 23  # TPC-H Q6: l_quantity < 24
+Q6_OUT = ["l_extendedprice", "l_discount"]
+TREE_COLS = ["l_orderkey", "l_extendedprice"]
+SHARDED_SCAN_RANGE = (8500, 11500)  # cfg 5: six of its eight row groups
+SHARDED_SCAN_MESHES = (("x1", 1), ("x4", 4))
+DATASET_SCAN_MESHES = (("x1", 1), ("x4", 4))
+ROUTE_PIN = "PARQUET_TPU_TORCH_ROUTE"
+
+
+def q6_tree():
+    """TPC-H Q6's predicate over three lineitem columns."""
+    from parquet_tpu_torch.algebra.expr import col
+
+    return (col("l_shipdate").between(*Q6_DATES)
+            & col("l_discount").between(*Q6_DISCOUNT)
+            & (col("l_quantity") <= Q6_QUANTITY))
+
+
+def host_form(col) -> tuple:
+    """A host-scan column as :func:`oracle` gives it: ``(values or
+    (values, offsets), validity or None)``."""
+    if isinstance(col, list):
+        items = [b"" if v is None else v for v in col]
+        offs = np.zeros(len(items) + 1, np.int64)
+        np.cumsum([len(v) for v in items], out=offs[1:])
+        valid = np.array([v is not None for v in col], bool)
+        return ((np.frombuffer(b"".join(items), np.uint8), offs),
+                None if valid.all() else valid)
+    if isinstance(col, np.ma.MaskedArray):
+        m = np.ma.getmaskarray(col)
+        return np.ma.getdata(col), ~(m[:, 0] if m.ndim == 2 else m)
+    return np.asarray(col), None
+
+
+def is_device_result(out: dict) -> bool:
+    return any(isinstance(v, (torch.Tensor, tuple)) for v in out.values())
+
+
+def check_result(out: dict, want: dict, what: str) -> None:
+    """A scan's result equal to the oracle, bit for bit, whichever route
+    gave it (the device scan's forms through :func:`check_scan`)."""
+    if is_device_result(out):
+        check_scan(out, want, what)
+        return
+    for name, (wv, wvalid) in want.items():
+        gv, gvalid = host_form(out[name])
+        if (gvalid is None) != (wvalid is None) or (
+                gvalid is not None and not np.array_equal(gvalid, wvalid)):
+            raise AssertionError(f"{what}: {name}'s validity differs")
+        if isinstance(wv, tuple):
+            same = (np.array_equal(gv[0], wv[0])
+                    and np.array_equal(gv[1], wv[1]))
+        else:
+            same = (gv.dtype == wv.dtype and gv.shape == wv.shape
+                    and np.array_equal(gv.view(np.uint8), wv.view(np.uint8)))
+        if not same:
+            raise AssertionError(f"{what}: {name} differs from the oracle")
+
+
+def host_scan_case(card: str, name: str, path: str, where, columns: list,
+                   want: dict, device_kw=None) -> dict:
+    """One host-scan case: ``scan_expr`` once cold (the bloom probes it
+    launches counted, the planner's probe operands kept) and three times
+    warm, each phase timed, every result equal to ``want``; with
+    ``device_kw`` the same predicate through ``scan_filtered_device``
+    too, equal to the same oracle."""
+    from parquet_tpu_torch.parallel.host_scan import _scan_expr_impl
+
+    probes = []
+    real = bloom.check_hashes_multi
+
+    def spy(filters, batches, device="cuda"):
+        probes.append((list(filters), [np.asarray(b) for b in batches]))
+        return real(filters, batches, device)
+
+    f = pq.ParquetFile(path)
+    before = dict(pq.LAUNCHES)
+    bloom.check_hashes_multi = spy
+    try:
+        t0 = time.perf_counter()
+        out = pq.scan_expr(f, where, columns=columns, device=DEVICE)
+        cold = time.perf_counter() - t0
+    finally:
+        bloom.check_hashes_multi = real
+    cold_bloom = pq.LAUNCHES["bloom_check"] - before["bloom_check"]
+    check_result(out, want, f"host scan {name}")
+    warm, best = [], None
+    for _ in range(HOST_SCAN_WARM):
+        t = {}
+        t0 = time.perf_counter()
+        out = _scan_expr_impl(f, where, columns, None, True,
+                              torch.device(DEVICE), timings=t)
+        t["wall_s"] = time.perf_counter() - t0
+        warm.append(t["wall_s"])
+        if best is None or t["wall_s"] < best["wall_s"]:
+            best = t
+    check_result(out, want, f"host scan {name} warm")
+    if device_kw is not None:
+        check_scan(pq.scan_filtered_device(f, device=DEVICE, **device_kw),
+                   want, f"host scan {name}: scan_filtered_device")
+    row = {"case": name, "card": card, "file_rows": f.num_rows,
+           "columns": columns, "cold_wall_s": cold, "warm_wall_s": warm,
+           "best_warm_s": best["wall_s"], "plan_s": best["plan_s"],
+           "phase1_s": best["phase1_s"], "phase2_s": best["phase2_s"],
+           "candidate_rows": best["candidate_rows"],
+           "survivors": best["survivors"], "spans": best["spans"],
+           "threads_phase1_phase2": best["threads"],
+           "bloom_check_launches_cold": cold_bloom,
+           "rg_pruned": {k: v for k, v in best["plan_counters"].items()
+                         if k.startswith("rg_")},
+           "equal_oracle": True,
+           "equal_device_scan": device_kw is not None or None}
+    log({"host_scan": [row]})
+    return {"out": out, "row": row, "probes": probes}
+
+
+def timed_routed(f, key: str, kw: dict, columns: list) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pq.scan(f, key, columns=columns, device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def routed_case(card: str, name: str, path: str, key: str, kw: dict,
+                columns: list, want: dict, largest) -> dict:
+    """The routed ``scan()`` three ways: unpinned (the cost model on its
+    priors, the history cleared), pinned to the host and pinned to the
+    device, each cold and three times warm (a pin the device scan refuses
+    from the footer runs once), every result equal to ``want``; which
+    route each run took (a page-level refusal falls back to the host
+    scan)."""
+    f = pq.ParquetFile(path)
+    os.environ.pop(ROUTE_PIN, None)
+    pq.route_history().reset()
+    unpinned = pq.route_scan(f, key, columns=columns, device=DEVICE, **kw)
+    out, wall = timed_routed(f, key, kw, columns)
+    check_result(out, want, f"routed {name} unpinned")
+    runs = {"unpinned": {"route": unpinned.route, "reason": unpinned.reason,
+                         "ran": "device" if is_device_result(out)
+                         else "host", "wall_s": wall}}
+    for pin in ("host", "device"):
+        os.environ[ROUTE_PIN] = pin
+        try:
+            d = pq.route_scan(f, key, columns=columns, device=DEVICE, **kw)
+            walls, ran = [], set()
+            reps = 1 + (HOST_SCAN_WARM if d.route == pin else 0)
+            for r in range(reps):
+                with (largest if pin == "device" and r == 0
+                      else contextlib.nullcontext()):
+                    out, s = timed_routed(f, key, kw, columns)
+                walls.append(s)
+                ran.add("device" if is_device_result(out) else "host")
+                check_result(out, want, f"routed {name} pinned {pin}")
+        finally:
+            os.environ.pop(ROUTE_PIN, None)
+        runs[pin] = {"route": d.route, "reason": d.reason, "ran": sorted(ran),
+                     "cold_s": walls[0], "warm_s": walls[1:],
+                     "best_warm_s": min(walls[1:]) if walls[1:] else None}
+    row = {"case": name, "card": card, "routed": True, "key": key,
+           "predicate": {k: (v if k != "values" else f"{len(v)} values")
+                         for k, v in kw.items()},
+           "columns": columns, "est_bytes": unpinned.est_bytes,
+           "route": unpinned.route, "reason": unpinned.reason, "runs": runs,
+           "equal_oracle": True}
+    log({"host_scan": [row]})
+    return row
+
+
+def route_rates(rows: list, card: str) -> dict:
+    """Each route's GB/s over the cases both routes ran (``est_bytes`` over
+    the best warm wall, the median over the cases), the device route's
+    fixed cost (cold minus best warm, the median), and the smallest
+    ``est_bytes`` at which the device route was no slower than the host
+    route."""
+    both = [r for r in rows if r["runs"]["device"]["ran"] == ["device"]
+            and r["runs"]["host"]["ran"] == ["host"]]
+    host = [r["est_bytes"] / r["runs"]["host"]["best_warm_s"] / 1e9
+            for r in both]
+    card_rates = [r["est_bytes"] / r["runs"]["device"]["best_warm_s"] / 1e9
+                  for r in both]
+    fixed = [r["runs"]["device"]["cold_s"] - r["runs"]["device"][
+        "best_warm_s"] for r in both]
+    wins = sorted(r["est_bytes"] for r in both
+                  if r["runs"]["device"]["best_warm_s"]
+                  <= r["runs"]["host"]["best_warm_s"])
+    return {"card": card, "cases": [r["case"] for r in both],
+            "est_bytes": [r["est_bytes"] for r in both],
+            "host_gbps": statistics.median(host) if host else None,
+            "device_gbps": statistics.median(card_rates)
+            if card_rates else None,
+            "host_gbps_by_case": host, "device_gbps_by_case": card_rates,
+            "device_fixed_s": statistics.median(fixed) if fixed else None,
+            "device_no_slower_from_bytes": wins[0] if wins else None}
+
+
+def dataset_scans(card: str, paths: list, want: dict) -> dict:
+    """``Dataset.scan`` of TPC-H Q6 over the lineitem part files at each
+    of :data:`DATASET_SCAN_MESHES`, cold and twice warm, each equal to the
+    one-file scan of the same rows."""
+    got = {}
+    for name, k in DATASET_SCAN_MESHES:
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with pq.Dataset(paths) as ds:
+                out = ds.scan(where=q6_tree(), columns=Q6_OUT,
+                              device=[torch.device(DEVICE)] * k)
+            walls.append(time.perf_counter() - t0)
+            for c in Q6_OUT:
+                if not np.array_equal(np.asarray(out[c]),
+                                      np.asarray(want[c])):
+                    raise AssertionError(f"Dataset.scan at {name}: {c} "
+                                         "differs from the one-file scan")
+        got[name] = {"entries": k, "cold_s": walls[0], "warm_s": walls[1:],
+                     "best_warm_s": min(walls[1:]),
+                     "rows": len(out[Q6_OUT[0]]),
+                     "equal_one_file_scan": True}
+    return {"card": card, "files": len(paths), "predicate": "TPC-H Q6",
+            "meshes": got}
+
+
+def sharded_scans(card: str, path: str) -> dict:
+    """``scan_filtered_sharded`` over cfg 5 at each of
+    :data:`SHARDED_SCAN_MESHES`, cold and twice warm, equal to
+    ``scan_filtered_device`` (the shards' rows put back in file order by
+    ``l_orderkey``, the row ordinal)."""
+    lo, hi = SHARDED_SCAN_RANGE
+    cols = ["l_orderkey", "l_quantity", "l_extendedprice"]
+    f = pq.ParquetFile(path)
+    single = pq.scan_filtered_device(f, "l_shipdate", lo=lo, hi=hi,
+                                     columns=cols, device=DEVICE)
+    want = {c: scan_form_host(single[c])[0] for c in cols}
+    got = {}
+    for name, k in SHARDED_SCAN_MESHES:
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pq.scan_filtered_sharded(f, "l_shipdate", lo=lo, hi=hi,
+                                           columns=cols,
+                                           mesh=[torch.device(DEVICE)] * k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        per = {c: np.concatenate([scan_form_host(p)[0] for p in out[c]])
+               for c in cols}
+        order = np.argsort(per["l_orderkey"], kind="stable")
+        for c in cols:
+            if not np.array_equal(per[c][order], want[c]):
+                raise AssertionError(f"scan_filtered_sharded at {name}: {c} "
+                                     "differs from scan_filtered_device")
+        got[name] = {"entries": k, "shards": len(out[cols[0]]),
+                     "rows": out["#rows"], "cold_s": walls[0],
+                     "warm_s": walls[1:], "best_warm_s": min(walls[1:]),
+                     "equal_scan_filtered_device": True}
+    return {"card": card, "range": SHARDED_SCAN_RANGE, "meshes": got}
+
+
+def gather_rows(card: str, cd: ColumnData, survivors: np.ndarray) -> list:
+    """``gather_byte_arrays``' C++ at Q6's survivors of ``l_comment`` and
+    at one whole ``l_comment`` chunk, each equal to its numpy version and
+    both timed (the median of three calls)."""
+    out = []
+    for name, idx in (("q6_survivors", survivors),
+                      ("chunk", np.arange(min(LINEITEM_ROW_GROUP,
+                                              len(cd.offsets) - 1)))):
+        got = host.gather_byte_arrays(cd.values, cd.offsets, idx)
+        want = host.gather_byte_arrays_numpy(cd.values, cd.offsets, idx)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"gather_byte_arrays at {name} differs "
+                                 "from its numpy version")
+        out.append({"case": name, "card": card, "rows": len(idx),
+                    "bytes": int(got[1][-1]),
+                    "cpp_ms": host_ms(lambda: host.gather_byte_arrays(
+                        cd.values, cd.offsets, idx), 3),
+                    "numpy_ms": host_ms(lambda: host.gather_byte_arrays_numpy(
+                        cd.values, cd.offsets, idx), 3),
+                    "equal_numpy": True})
+    return out
+
+
+def host_scan_path(card: str, scan: dict, lineitem: str, rows: int,
+                   seed: int, parts: list) -> dict:
+    """Phase 5e: the host scan (``scan_expr``) and the routed ``scan()``
+    on the files phases 4b, 5b and 5c wrote, each case against a numpy
+    oracle over the generated arrays; then ``Dataset.scan`` over the part
+    files, ``scan_filtered_sharded`` on cfg 5 and the C++ survivor
+    gather.  Returns the host scan planner's bloom probe (case A_in), the
+    phase's launches and the operands of the routed device scans' largest
+    ``unpack_bits_dense`` launch (None where they launched none: cfg 5 is
+    PLAIN, and lineitem's dictionary chunks mix RLE runs into their
+    indexes, which ``rle_expand`` decodes)."""
+    from parquet_tpu_torch.algebra.expr import col, single_pred
+
+    pq.reset_launches()
+    table, cfg5 = scan["cfg5"], scan["cfg5_path"]
+    ship = table["l_shipdate"]
+    outs = ["l_orderkey", "l_quantity", "l_extendedprice"]
+    lo, hi = SCAN_RANGE
+    dates = scan["in_dates"]
+    cases = {}
+    want_range = oracle({c: table[c] for c in outs},
+                        (ship >= lo) & (ship <= hi))
+    cases["A_range"] = host_scan_case(
+        card, "A_range", cfg5, single_pred("l_shipdate", lo=lo, hi=hi), outs,
+        want_range, {"path": "l_shipdate", "lo": lo, "hi": hi,
+                     "columns": outs})
+    want_in = oracle({c: table[c] for c in outs}, np.isin(ship, dates))
+    cases["A_in"] = host_scan_case(
+        card, "A_in", cfg5, single_pred("l_shipdate", values=dates), outs,
+        want_in, {"path": "l_shipdate", "values": dates, "columns": outs})
+    a_in = cases["A_in"]["row"]
+    if a_in["bloom_check_launches_cold"] != 1 or len(
+            cases["A_in"]["probes"]) != 1:
+        n = a_in["bloom_check_launches_cold"]
+        raise AssertionError(f"host scan A_in: {n} bloom_check launches, "
+                             "not 1")
+    if a_in["rg_pruned"] != {k: v for k, v in scan["plan_counters"].items()
+                             if k.startswith("rg_")}:
+        raise AssertionError("host scan A_in: its plan pruned other row "
+                             f"groups than the device scan's: {a_in}")
+    qty = table["l_quantity"]
+    tree = col("l_shipdate").between(9000, 9100) | ~(col("l_quantity") <= 45)
+    cases["or_not"] = host_scan_case(
+        card, "or_not", cfg5, tree, TREE_COLS,
+        oracle({c: table[c] for c in TREE_COLS},
+               ((ship >= 9000) & (ship <= 9100)) | ~(qty <= 45)))
+    del want_in
+    # TPC-H Q6 whole, on lineitem
+    _, data = make_lineitem(rows, seed)
+    v = {c: data[c].values for c in ("l_shipdate", "l_discount",
+                                     "l_quantity", "l_extendedprice")}
+    q6 = ((v["l_shipdate"] >= Q6_DATES[0]) & (v["l_shipdate"] <= Q6_DATES[1])
+          & (v["l_discount"] >= Q6_DISCOUNT[0])
+          & (v["l_discount"] <= Q6_DISCOUNT[1])
+          & (v["l_quantity"] <= Q6_QUANTITY))
+    cases["q6"] = host_scan_case(card, "q6", lineitem, q6_tree(), Q6_OUT,
+                                 oracle({c: v[c] for c in Q6_OUT}, q6))
+    got = cases["q6"]["out"]
+    revenue = float(np.sum(got["l_extendedprice"] * got["l_discount"]))
+    want_rev = float(np.sum(v["l_extendedprice"][q6] * v["l_discount"][q6]))
+    if abs(revenue - want_rev) > 1e-9 * abs(want_rev):
+        raise AssertionError(f"Q6 revenue {revenue} != {want_rev}")
+    log({"q6": {"card": card, "revenue": revenue, "oracle": want_rev,
+                "rows": int(q6.sum()), "equal_to_rounding": True}})
+    # the routed scan, three ways a case
+    largest = LargestLaunch("unpack_bits_dense")
+    routed = []
+    routed.append(routed_case(card, "A_range", cfg5, "l_shipdate",
+                              {"lo": lo, "hi": hi}, outs, want_range,
+                              largest))
+    routed.append(routed_case(card, "A_in", cfg5, "l_shipdate",
+                              {"values": dates}, outs,
+                              oracle({c: table[c] for c in outs},
+                                     np.isin(ship, dates)), largest))
+    b_mask = (v["l_shipdate"] >= Q6_DATES[0]) & (v["l_shipdate"] <=
+                                                  Q6_DATES[1])
+    routed.append(routed_case(
+        card, "B_q6_dates", lineitem, "l_shipdate",
+        {"lo": Q6_DATES[0], "hi": Q6_DATES[1]}, Q6_COLUMNS,
+        oracle({c: data[c] if data[c].offsets is not None
+                else data[c].values for c in Q6_COLUMNS}, b_mask), largest))
+    # an IN-list on a PLAIN string key (part 0's l_comment), which the
+    # device scan refuses from the footer
+    per = -(-rows // DATASET_FILES)
+    comment = column_slice(data["l_comment"], 0, per)
+    o = comment.offsets
+    words = [comment.values[o[i]:o[i + 1]].tobytes()
+             for i in (3, per // 2, per - 1)] + [b"absent" * 4]
+    mask = np.zeros(per, bool)
+    for w in words:
+        mask |= rows_equal(comment, w)
+    routed.append(routed_case(
+        card, "plain_in", parts[0], "l_comment", {"values": words},
+        ["l_orderkey", "l_quantity"],
+        oracle({c: data[c].values[:per] for c in ("l_orderkey",
+                                                  "l_quantity")}, mask),
+        largest))
+    if routed[-1]["route"] != "host" or "non-dictionary" not in \
+            routed[-1]["reason"]:
+        raise AssertionError(f"plain_in routed: {routed[-1]}")
+    # a dictionary key chunk that falls back to PLAIN mid-chunk: the
+    # footer passes it, the device scan refuses it, the scan falls back
+    fx = np.load(os.path.join(FIXTURES, "host_route.npz"))
+    fo = fx["s_offsets"]
+    probe = [fx["s_values"][fo[i]:fo[i + 1]].tobytes() for i in (3, 2500)]
+    s_col = ColumnData(values=fx["s_values"], offsets=fo)
+    fmask = rows_equal(s_col, probe[0]) | rows_equal(s_col, probe[1])
+    routed.append(routed_case(
+        card, "page_fallback", os.path.join(FIXTURES, "host_route.parquet"),
+        "s", {"values": probe}, ["k"], oracle({"k": fx["k"]}, fmask),
+        largest))
+    if routed[-1]["runs"]["device"]["route"] != "device" or \
+            routed[-1]["runs"]["device"]["ran"] != ["host"]:
+        raise AssertionError(f"page_fallback routed: {routed[-1]}")
+    for r in routed[:3]:
+        if r["runs"]["device"]["ran"] != ["device"]:
+            raise AssertionError(f"routed {r['case']}: pinned to the device "
+                                 f"it ran {r['runs']['device']}")
+    rates = route_rates(routed, card)
+    log({"route_rates": rates})
+    # Dataset.scan and the sharded scan
+    log({"dataset_scan": dataset_scans(card, parts, cases["q6"]["out"])})
+    log({"sharded_scan": sharded_scans(card, cfg5)})
+    log({"gather_byte_arrays": gather_rows(card, data["l_comment"],
+                                           np.flatnonzero(q6))})
+    launches = dict(pq.LAUNCHES)
+    if launches["bloom_check"] == 0:
+        raise AssertionError(f"host scan path: {launches}")
+    return {"probe": cases["A_in"]["probes"][0], "launches": launches,
+            "operands": largest.operands, "column": largest.column,
+            "rates": rates}
+
+
 def scan_ops(scan: dict) -> list:
     """The scan's filter ops at case A's span shape (the row group of
     1,048,576 rows its range meets first): the range and IN masks on the
@@ -3552,9 +3974,11 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
     bloom probe (``probe``: every row group's filter and the hashes of the
     keys that survive its statistics stage), and on the scan the
     planner's bloom stage (case A's IN-list: every row group its
-    statistics keep).  ``more`` holds each later path's launches by
+    statistics keep), and the host scan planner's (phase 5e's case A_in,
+    ``host_scan_shape``).  ``more`` holds each later path's launches by
     kernel and the operands of its largest launch in its cold reads (the
-    dataset and sharded reads, :data:`MULTI_SHAPES`)."""
+    dataset and sharded reads and the routed device scans,
+    :data:`MULTI_SHAPES`), and the host scan's planner probe."""
     scan_launches = scan["launches"]
     rows = {c: shape_times(c, k, shapes[c], path_launches[c])
             for c, k in PATH_SHAPES}
@@ -3572,14 +3996,18 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
             raise AssertionError(f"scan {case}: no {k} launch to time")
         rows[f"scan.{case}"] = shape_times(f"scan.{case}", k, got["operands"],
                                            got["launches"][k])
-    for path, k in MULTI_SHAPES:
+    # the routed device scans may launch no unpack kernel (phase 5e)
+    multi = tuple((path, k) for path, k in MULTI_SHAPES
+                  if path != "host_scan"
+                  or more[path]["operands"] is not None)
+    for path, k in multi:
         got = more[path]
         rows[path] = shape_times(f"{path}.{got['column']}", k,
                                  got["operands"], got["launches"][k])
     all_shapes = PATH_SHAPES + tuple(
         (f"enc.{c}", k) for c, k in ENC_SHAPES) + tuple(
         (f"nested.{c}", k) for c, k in CFG4_SHAPES + NEST_MIX_SHAPES) + tuple(
-        (f"scan.{case}", k) for case, k in SCAN_SHAPES) + MULTI_SHAPES
+        (f"scan.{case}", k) for case, k in SCAN_SHAPES) + multi
     out = []
     for name, source, line in (
             ("unpack_bits_dense", "unpack_bits.cu", 81),
@@ -3608,6 +4036,17 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
         "max_abs_err": max_abs_err(
             got, kernels.bloom_check_segments_ref(blocks, h, starts)),
         **segmented_times(blocks, h, starts)}
+    filters, batches = more["host_scan"]["probe"]
+    blocks, h, starts = segmented_probe(filters, batches)
+    got = check_segmented(filters, batches, blocks, h, starts,
+                          "at the host scan planner's shape")
+    host_scan_shape = {
+        "case": "host_scan.A_in", "n": h.shape[0], "segments": len(blocks),
+        "z": sorted({b.shape[0] for b in blocks}),
+        "launches": more["host_scan"]["launches"]["bloom_check"],
+        "max_abs_err": max_abs_err(
+            got, kernels.bloom_check_segments_ref(blocks, h, starts)),
+        **segmented_times(blocks, h, starts)}
     filters, batches = probe
     blocks, h, starts = segmented_probe(filters, batches)
     got = check_segmented(filters, batches, blocks, h, starts,
@@ -3627,7 +4066,8 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
         "launches": lookup_launches["bloom_check"],
         "max_abs_err": max(max_abs_err(got, want),
                            max_abs_err(one, got[:n0]),
-                           scan_shape["max_abs_err"]),
+                           scan_shape["max_abs_err"],
+                           host_scan_shape["max_abs_err"]),
         **times, "gpu_before": before, "gpu_after": gpu_sample(),
         "shape": {"n": h.shape[0], "segments": len(blocks),
                   "z": sorted({b.shape[0] for b in blocks})},
@@ -3638,7 +4078,7 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
             "call_ms": time_ms(lambda: kernels.bloom_check(blocks[0],
                                                            h[:n0])),
             "bound_ms": b1, "bound_by": by1},
-        "scan_shape": scan_shape})
+        "scan_shape": scan_shape, "host_scan_shape": host_scan_shape})
     for k in out:
         k["launches_by_path"] = {"read": launches[k["name"]],
                                  "lookup": lookup_launches[k["name"]],
@@ -3800,6 +4240,9 @@ def main(argv=None) -> int:
                       args.seed, tmp, item)
         sharded = phase("5d_sharded", sharded_path, card, item["path"],
                         args.lineitem_rows, args.seed)
+        hscan = phase("5e_host_scan", host_scan_path, card, scan,
+                      item["path"], args.lineitem_rows, args.seed,
+                      multi["paths"])
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -3807,7 +4250,8 @@ def main(argv=None) -> int:
                      look["launches"], read["shapes"],
                      read["path_launches"], look["probe"], enc,
                      item["launches"], nested, scan,
-                     {"dataset": multi, "sharded": sharded})
+                     {"dataset": multi, "sharded": sharded,
+                      "host_scan": hscan})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

@@ -12,7 +12,9 @@ the chunks the Python walk plans in place of the C++ planner in
 ``PLAN_ROUTE``.  It looks rows up by a numeric key, scans a file with
 predicate pushdown on the card (``scan_filtered_device``: the planner's
 statistics, page-index and bloom stages, then decode, filter and
-compaction on the device), and writes such files.
+compaction on the device) or on the host (``scan_expr``, predicate trees
+over several columns, late-materialized), lets the planner's cost model
+choose between the two (``scan``), and writes such files.
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -20,13 +22,19 @@ compaction on the device), and writes such files.
     table = pq.ParquetFile("x.parquet").read(device="cpu")
     rows = pq.scan_filtered_device(pq.ParquetFile("x.parquet"), "x",
                                    lo=2, hi=5)                 # on the card
+    rows = pq.scan_expr(pq.ParquetFile("x.parquet"),
+                        (col("x") >= 2) & ~(col("x") == 4))    # on the host
+    rows = pq.scan(pq.ParquetFile("x.parquet"), "x", lo=2, hi=5)  # routed
     table = pq.Dataset("parts/*.parquet").read()            # every card
     table = pq.Dataset("parts/*.parquet").read(["cpu"] * 8)  # 8 shards
+    rows = pq.Dataset("parts/*.parquet").scan("x", values=[3, 7])
 """
 
 from .dataset import Dataset, expand_paths
 from .io.column import Column
-from .io.planner import ROUTE_REFUSALS, reset_route_refusals
+from .io.planner import (ROUTE_REFUSALS, CostInputs, RouteDecision,
+                         RouteHistory, choose_route, device_route_supported,
+                         reset_route_refusals, route_history, route_scan)
 from .io.reader import ParquetFile
 from .io.search import plan_scan
 from .io.writer import WriterOptions, write_table
@@ -34,7 +42,10 @@ from .ops.kernels import LAUNCHES, reset_launches
 from .parallel.device_reader import (HOST_ROUTE, PIPELINE, PLAN_ROUTE,
                                      reset_host_route, reset_pipeline,
                                      reset_plan_route)
-from .parallel.host_scan import decoded_scan, scan_filtered_device, stage_scan
+from .parallel.host_scan import (decoded_scan, expr_mask, merge_scan_results,
+                                 scan, scan_expr, scan_files, scan_filtered,
+                                 scan_filtered_device, scan_filtered_sharded,
+                                 stage_scan)
 from .parallel.mesh import (MESH, ShardedTable, dataset_process_shard,
                             decode_step_sharded, default_mesh,
                             read_dataset_device, read_table_sharded,
@@ -47,7 +58,11 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "Dataset", "expand_paths", "read_table", "ShardedTable",
            "default_mesh", "read_table_sharded", "decode_step_sharded",
            "read_dataset_device", "dataset_process_shard", "MESH",
-           "reset_mesh", "ROUTE_REFUSALS", "reset_route_refusals"]
+           "reset_mesh", "ROUTE_REFUSALS", "reset_route_refusals", "scan",
+           "scan_expr", "scan_filtered", "scan_files", "merge_scan_results",
+           "scan_filtered_sharded", "expr_mask", "CostInputs",
+           "RouteDecision", "RouteHistory", "choose_route", "route_history",
+           "route_scan", "device_route_supported"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

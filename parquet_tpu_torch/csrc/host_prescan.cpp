@@ -6,8 +6,9 @@
 // of DELTA_LENGTH_BYTE_ARRAY and DELTA_BYTE_ARRAY pages; all of them at
 // once, a chunk's pages in one call, in the chunk planner (pq_chunk_plan,
 // the JAX package's pq_dict_chunk_scan design for every page kind); the
-// staging batch's fill (pq_fill_batch) and the compaction of a chunk's
-// host byte-array pages (pq_byte_array_parts).
+// staging batch's fill (pq_fill_batch), the compaction of a chunk's
+// host byte-array pages (pq_byte_array_parts) and the scans' gather of
+// byte-array survivors (pq_gather_ba).
 //
 // Built with the system C++ compiler into a shared library with a plain C
 // interface (ops/_build.py), loaded with ctypes; ops/host.py wraps each
@@ -15,8 +16,8 @@
 // (ops/ref.py, ops/device.py, io/reader.py's thrift walk).  The port's own
 // copy of what the JAX package's native shim does in `pq_scan_rle_runs`,
 // `pq_count_target_in_runs`, `pq_delta_prescan`, `pq_delta_decode`,
-// `pq_scan_page_headers`, `pq_decompress_pages` and `pq_dict_chunk_scan`
-// (its native.cpp), with its own C ABI.
+// `pq_scan_page_headers`, `pq_decompress_pages`, `pq_dict_chunk_scan` and
+// `pq_gather_ba` (its native.cpp), with its own C ABI.
 //
 // Every function checks its bounds itself.  A malformed stream returns a
 // negative error code (PQ_E_* below), which the Python wrapper turns into
@@ -1654,6 +1655,48 @@ int64_t pq_byte_array_parts(const int64_t* parts, int64_t n_parts,
     }
   }
   return base;
+}
+
+// ---------------------------------------------------------------------------
+// The byte-array gather of the scans' survivors: values `indices` of a
+// (values, offsets) column.  With out_vals null, the sizing pass: checks
+// every index against [0, n_offs - 1) and its offsets against the
+// values, writes out_offs (n + 1) and returns the bytes to gather, or -1
+// for an index out of range, -2 for offsets out of order or past the
+// values.  With out_vals, copies each value's bytes to out_offs[i] on
+// nthreads threads that split the indexes evenly, and returns the bytes.
+// ---------------------------------------------------------------------------
+int64_t pq_gather_ba(const uint8_t* values, int64_t n_values,
+                     const int64_t* offs, int64_t n_offs,
+                     const int64_t* indices, int64_t n, int64_t* out_offs,
+                     uint8_t* out_vals, int64_t nthreads) {
+  if (!out_vals) {
+    int64_t total = 0;
+    out_offs[0] = 0;
+    for (int64_t i = 0; i < n; ++i) {
+      const int64_t d = indices[i];
+      if (d < 0 || d >= n_offs - 1) return -1;
+      const int64_t a = offs[d], b = offs[d + 1];
+      if (a < 0 || b < a || b > n_values) return -2;
+      total += b - a;
+      out_offs[i + 1] = total;
+    }
+    return total;
+  }
+  const int64_t T = std::max<int64_t>(1, std::min<int64_t>(nthreads, 64));
+  std::atomic<int64_t> next{0};
+  run_workers(T, [&] {
+    int64_t k;
+    while ((k = next.fetch_add(1)) < T) {
+      for (int64_t i = n * k / T; i < n * (k + 1) / T; ++i) {
+        const int64_t d = indices[i];
+        const int64_t len = out_offs[i + 1] - out_offs[i];
+        if (len) std::memcpy(out_vals + out_offs[i], values + offs[d],
+                             (size_t)len);
+      }
+    }
+  });
+  return out_offs[n];
 }
 
 }  // extern "C"

@@ -5,10 +5,12 @@ The port's cut of ``parquet_tpu/dataset.py``: :func:`expand_paths` and
 check, footer pruning and scan plans, and :meth:`Dataset.read`, which
 reads every file on a list of devices through
 ``parallel/mesh.py::read_dataset_device`` and concatenates the per-file
-columns in file order.  Remote URLs, the shared footer and chunk caches,
-fault policies and reports, the manifest's snapshot fields, and the
-dataset's ``iter_batches``, ``scan``, ``find_rows`` and ``aggregate``
-belong to later slices and raise naming theirs.
+columns in file order, and :meth:`Dataset.scan`, the host scan of every
+file that survives the footer prune (``parallel/host_scan.py::
+scan_files``).  Remote URLs, the shared footer and chunk caches, fault
+policies and reports, the manifest's snapshot fields, and the dataset's
+``iter_batches``, ``find_rows`` and ``aggregate`` belong to later slices
+and raise naming theirs.
 """
 
 from __future__ import annotations
@@ -222,6 +224,51 @@ class Dataset:
         return prepare(_as_expr(path, lo, hi, values, where),
                        self.file(0).schema)
 
+    # -------------------------------------------------------------- scan
+    def scan(self, path: Optional[str] = None, lo=None, hi=None,
+             columns: Optional[Sequence[str]] = None, use_bloom: bool = True,
+             values: Optional[Sequence] = None, policy=None, report=None,
+             where=None, device="cuda") -> Dict[str, object]:
+        """The host scan of the whole dataset: the predicate (``path``
+        with ``lo``/``hi``/``values``, or a ``where=`` tree) is prepared
+        once, files are pruned by their footers' statistics (the schema
+        checked), and the survivors scan on the shared pool
+        (``parallel/host_scan.py::scan_files``), merged in file order, in
+        ``scan_filtered``'s forms.  ``device`` is a mesh (a device, a
+        list whose entries may repeat, or ``"cuda"`` for every card): file
+        ``i`` of the survivors plans its bloom probe on ``mesh[i %
+        len(mesh)]``; the results are the same on any mesh."""
+        from .algebra.expr import prepare
+        from .parallel.host_scan import (_POLICY_SLICE, _output_columns,
+                                         _typed_empty, scan_files)
+        from .parallel.mesh import resolve_mesh
+
+        if policy is not None or report is not None:
+            raise unsupported("Dataset.scan(policy=..., report=...)",
+                              _POLICY_SLICE)
+        if not self.paths:
+            raise ValueError("scan on an empty dataset shard (no schema to "
+                             "type empty results by); check num_files first")
+        devs = resolve_mesh(device)
+        raw = _as_expr(path, lo, hi, values, where)
+        expr = prepare(raw, self.file(0).schema)
+        fcols = sorted(raw.columns())
+        pfs = [self.file(i) for i in self._prune_indices(expr)]
+        if pfs:
+            # the default selection is pinned to the first survivor: a
+            # predicate that folds to a constant in one file would change
+            # the columns that file's scan returns
+            got = scan_files(pfs, where=expr,
+                             columns=_output_columns(pfs[0], fcols, columns),
+                             use_bloom=use_bloom, devices=devs)
+            if got:
+                return got
+        # nothing survived the prune: typed empties, the selection
+        # validated as the scan validates it
+        pf0 = self.file(0)
+        return {c: _typed_empty(pf0.schema.leaf(c))
+                for c in _output_columns(pf0, fcols, columns)}
+
     def _prune_indices(self, expr) -> List[int]:
         def check(i):
             pf = self.file(i)
@@ -272,10 +319,6 @@ class Dataset:
     # ------------------------------------------------ later slices' routes
     def iter_batches(self, *args, **kwargs):
         raise unsupported("Dataset.iter_batches", "stream")
-
-    def scan(self, *args, **kwargs):
-        raise unsupported("Dataset.scan", "host scan and routed scan "
-                          "(scan_expr)")
 
     def find_rows(self, *args, **kwargs):
         raise unsupported("Dataset.find_rows", "lookup leftovers")

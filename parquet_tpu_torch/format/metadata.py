@@ -3,9 +3,10 @@ writes and point lookups touch.
 
 The port's copy of ``parquet_tpu/format/metadata.py``.  Field ids, names and
 types mirror the Apache Parquet thrift IDL, so a file written by either
-package reads back in the other.  Structs this port never reads
-(encryption, logical types other than STRING, MAP, LIST, INTEGER and
-DECIMAL, size statistics) are left out: the compact reader skips their fields by wire type.
+package reads back in the other.  Every member of the ``LogicalType``
+union that the JAX package knows is read; structs this port never reads
+(encryption, size statistics) are left out: the compact reader skips
+their fields by wire type.
 """
 
 from __future__ import annotations
@@ -46,11 +47,38 @@ class Statistics:
 StringType = _empty("StringType")
 MapType = _empty("MapType")
 ListType = _empty("ListType")
+EnumType = _empty("EnumType")
+DateType = _empty("DateType")
+NullType = _empty("NullType")
+JsonType = _empty("JsonType")
+BsonType = _empty("BsonType")
+UUIDType = _empty("UUIDType")
+Float16Type = _empty("Float16Type")
+MilliSeconds = _empty("MilliSeconds")
+MicroSeconds = _empty("MicroSeconds")
+NanoSeconds = _empty("NanoSeconds")
 
 
 @thrift_struct
 class DecimalType:
     _FIELDS = [(1, "scale", T.I32), (2, "precision", T.I32)]
+
+
+@thrift_struct
+class TimeUnit:  # union
+    _FIELDS = [(1, "MILLIS", _S(MilliSeconds)),
+               (2, "MICROS", _S(MicroSeconds)),
+               (3, "NANOS", _S(NanoSeconds))]
+
+
+@thrift_struct
+class TimestampType:
+    _FIELDS = [(1, "isAdjustedToUTC", T.BOOL), (2, "unit", _S(TimeUnit))]
+
+
+@thrift_struct
+class TimeType:
+    _FIELDS = [(1, "isAdjustedToUTC", T.BOOL), (2, "unit", _S(TimeUnit))]
 
 
 @thrift_struct
@@ -61,8 +89,13 @@ class IntType:
 @thrift_struct
 class LogicalType:  # union; the port writes STRING, MAP, LIST
     _FIELDS = [(1, "STRING", _S(StringType)), (2, "MAP", _S(MapType)),
-               (3, "LIST", _S(ListType)), (5, "DECIMAL", _S(DecimalType)),
-               (10, "INTEGER", _S(IntType))]
+               (3, "LIST", _S(ListType)), (4, "ENUM", _S(EnumType)),
+               (5, "DECIMAL", _S(DecimalType)), (6, "DATE", _S(DateType)),
+               (7, "TIME", _S(TimeType)),
+               (8, "TIMESTAMP", _S(TimestampType)),
+               (10, "INTEGER", _S(IntType)), (11, "UNKNOWN", _S(NullType)),
+               (12, "JSON", _S(JsonType)), (13, "BSON", _S(BsonType)),
+               (14, "UUID", _S(UUIDType)), (15, "FLOAT16", _S(Float16Type))]
 
 
 @thrift_struct

@@ -26,14 +26,17 @@ the reference counts them.  A single-leaf tree reads the same filters; a
 tree of several equality leaves may read a filter the reference's
 short-circuit would have skipped.
 
-From the route half it keeps what the multi-file device read needs:
-:func:`device_encoding_supported`, which says from the footer alone
-whether the device route can place every chunk of a file, and
-:data:`ROUTE_REFUSALS`, the files and chunks it refused, by reason.
-Left out for later slices: the rest of the route half (``CostInputs``,
-``RouteHistory``, ``choose_route``, ``route_scan``), fault policies and
-reports, the coverage proofs of the aggregation cascade, and the metrics
-and trace spans.
+The route half: :func:`device_encoding_supported`, which says from the
+footer alone whether the device route can place every chunk of a file,
+and :data:`ROUTE_REFUSALS`, the files and chunks it refused, by reason;
+and the routed scan's cost model: :func:`route_scan` builds
+:class:`CostInputs` from a statistics-only plan (no IO) and
+:func:`device_route_supported`, :func:`choose_route` picks the host or
+the device scan, and :class:`RouteHistory` feeds the measured rates
+back.  Left out for later slices: fault policies and reports, the
+coverage proofs of the aggregation cascade, the pool-wait meter (the
+routed scan observes no pool wait), and the route meters, metrics, trace
+spans and ``/debugz`` section.
 """
 
 from __future__ import annotations
@@ -50,7 +53,9 @@ from ..format.enums import Encoding
 
 __all__ = ["ScanPlanner", "ScanPlan", "RowGroupDecision",
            "device_encoding_supported", "ROUTE_REFUSALS",
-           "count_device_refusal", "reset_route_refusals"]
+           "count_device_refusal", "reset_route_refusals", "CostInputs",
+           "RouteDecision", "RouteHistory", "route_history", "choose_route",
+           "device_route_supported", "route_scan"]
 
 # local row intervals: half-open (start, end)
 _Intervals = List[Tuple[int, int]]
@@ -298,11 +303,19 @@ class ScanPlanner:
                 return True
         return False
 
-    def plan(self, expr: Expr, use_bloom: bool = True) -> ScanPlan:
-        """Run the cascade over every row group; ``use_bloom=False`` skips
-        the bloom stage."""
+    def plan(self, expr: Expr, use_bloom: bool = True,
+             stages: Tuple[str, ...] = _CASCADE) -> ScanPlan:
+        """Run the cascade over every row group.  ``stages``, a prefix of
+        the cascade, says how deep it goes (the router plans with
+        ``("stats",)``: no IO); ``use_bloom=False`` skips the bloom
+        stage."""
+        stages = tuple(stages)
+        if stages != _CASCADE[:len(stages)]:
+            raise ValueError(f"stages must be a prefix of {_CASCADE}, got "
+                             f"{stages}")
         expr = prepare(expr, self.pf.schema)
-        stages = _CASCADE if use_bloom else _CASCADE[:-1]
+        if not use_bloom:
+            stages = tuple(s for s in stages if s != "bloom")
         single = self._single_positive(expr)
         counters: Dict[str, int] = {
             "rg_total": 0, "rg_pruned_stats": 0, "rg_pruned_pages": 0,
@@ -314,9 +327,10 @@ class ScanPlanner:
         decisions = []
         for rg in rgs:
             d = RowGroupDecision(rg.index, rg.num_rows)
-            self._plan_rg(rg, expr, d, counters, single)
+            self._plan_rg(rg, expr, d, counters, single,
+                          "pages" in stages)
             decisions.append(d)
-        if use_bloom and not isinstance(expr, Const):
+        if "bloom" in stages and not isinstance(expr, Const):
             self._bloom_stage(rgs, expr, decisions, counters)
         for d in decisions:
             if d.pruned_by is None:
@@ -335,8 +349,10 @@ class ScanPlanner:
         return None
 
     def _plan_rg(self, rg, expr, d: RowGroupDecision,
-                 counters: Dict[str, int], single: Optional[Pred]) -> None:
-        """The statistics and page-index stages of one row group."""
+                 counters: Dict[str, int], single: Optional[Pred],
+                 pages: bool = True) -> None:
+        """The statistics and (with ``pages``) page-index stages of one
+        row group."""
         if isinstance(expr, Const):
             if expr.value:
                 d.ranges = [(0, rg.num_rows)]
@@ -352,7 +368,9 @@ class ScanPlanner:
             d.pruned_by = "stats"
             d.killer = repr(killer) if killer is not None else None
             return
-        if single is not None:
+        if not pages:
+            d.ranges = [(0, rg.num_rows)]
+        elif single is not None:
             self._pages_single(rg, single, d, counters)
         else:
             self._pages_tree(rg, expr, d, counters)
@@ -675,3 +693,252 @@ def reset_route_refusals() -> None:
     with _refusal_lock:
         for k in ROUTE_REFUSALS:
             ROUTE_REFUSALS[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# The route half: host scan or device scan, by a cost model
+# ---------------------------------------------------------------------------
+
+# The cost model's priors, until the history has measured this process:
+# GB/s of the plan's estimated compressed bytes, the scan's wall clock
+# (staging included), from chip_smoke.py's phase 5e {"route_rates": ...}
+# line on "NVIDIA H100 80GB HBM3, 700.00 W" (run DA in PERF.md): the
+# median over cfg 5's range and IN-list and lineitem's Q6 dates of each
+# route's best warm scan (host 0.506, device 1.364), the device's cold
+# minus warm scan (0.0101 s), and its smallest case, 14,894,211 bytes,
+# at which the device scan was already the faster (10.7 against 29.4 ms).
+_HOST_PRIOR_GBPS = 0.5
+_DEVICE_PRIOR_GBPS = 1.36
+_DEVICE_FIXED_S = 0.01
+_DEVICE_MIN_BYTES = 14 << 20
+_POOL_MIN_CELLS = 2_000_000  # the host scan's serial/threaded crossover
+
+
+@dataclass
+class CostInputs:
+    """Everything :func:`choose_route` looks at: pure data, so the routing
+    is testable on stubbed inputs."""
+
+    backend: str  # the scan device's kind: "cpu" | "gpu"
+    supported: bool  # the device scan takes this shape (the footer's word)
+    reason: str = ""  # why not, when it does not
+    est_bytes: int = 0  # compressed bytes the scan will decode
+    est_rows: int = 0  # candidate rows after the statistics stage
+    total_rows: int = 0
+    n_columns: int = 1  # filter + output columns
+    reuse: int = 1  # expected reuses of the staged scan state
+    host_gbps: Optional[float] = None  # measured (RouteHistory)
+    device_gbps: Optional[float] = None
+    pin: Optional[str] = None  # PARQUET_TPU_TORCH_ROUTE
+
+
+@dataclass
+class RouteDecision:
+    route: str  # "host" | "device"
+    reason: str
+    pool_width: Optional[int] = None  # host fan-out: None auto, 1 serial
+    est_host_s: Optional[float] = None
+    est_device_s: Optional[float] = None
+    est_bytes: int = 0  # what the history observes against the wall time
+
+
+def route_history() -> "RouteHistory":
+    """The process-wide history of measured scan rates the router reads."""
+    return _HISTORY
+
+
+class RouteHistory:
+    """An EWMA of each route's measured scan rate, bucketed by (route,
+    mesh size): the router starts from its priors and converges on what
+    this host and card do.  Rates are the router's own byte estimate over
+    the wall time (both routes observe the same estimate for the same
+    scan, so they compare even where the estimate is off), and a device
+    observation includes its staging, so :func:`choose_route` drops the
+    fixed-cost prior once a device rate is measured.  ``pool_wait_s``, the
+    time the scan's tasks queued on the shared pool, discounts a route's
+    effective rate by the share of its wall time spent waiting."""
+
+    def __init__(self, alpha: float = 0.3):
+        self._lock = threading.Lock()
+        self._alpha = alpha
+        self._gbps: Dict[str, float] = {}
+        self._wait_frac: Dict[str, float] = {}
+        self._n: Dict[str, int] = {}
+
+    @staticmethod
+    def _key(route: str, mesh_size: int) -> str:
+        """The bucket of (route, mesh size); mesh size 1 is the bare
+        route name."""
+        return route if mesh_size <= 1 else f"{route}@{mesh_size}"
+
+    def observe(self, route: str, nbytes: int, seconds: float,
+                pool_wait_s: float = 0.0, mesh_size: int = 1) -> None:
+        """Fold one scan in; a scan under :data:`_DEVICE_MIN_BYTES` is
+        dominated by its fixed cost and is left out."""
+        if seconds <= 0 or nbytes < _DEVICE_MIN_BYTES:
+            return
+        gbps = nbytes / seconds / 1e9
+        wf = min(max(pool_wait_s, 0.0) / seconds, 0.95)
+        key = self._key(route, mesh_size)
+        a = self._alpha
+        with self._lock:
+            cur = self._gbps.get(key)
+            self._gbps[key] = gbps if cur is None else (1 - a) * cur + a * gbps
+            curw = self._wait_frac.get(key)
+            self._wait_frac[key] = wf if curw is None else \
+                (1 - a) * curw + a * wf
+            self._n[key] = self._n.get(key, 0) + 1
+
+    def gbps(self, route: str, mesh_size: int = 1) -> Optional[float]:
+        """The effective rate: the EWMA discounted by the EWMA wait
+        share; None before the first observation."""
+        key = self._key(route, mesh_size)
+        with self._lock:
+            g = self._gbps.get(key)
+            if g is None:
+                return None
+            return g * (1.0 - self._wait_frac.get(key, 0.0))
+
+    def observations(self, route: str, mesh_size: int = 1) -> int:
+        with self._lock:
+            return self._n.get(self._key(route, mesh_size), 0)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._gbps.clear()
+            self._wait_frac.clear()
+            self._n.clear()
+
+
+_HISTORY = RouteHistory()
+_PIN_NAME = "PARQUET_TPU_TORCH_ROUTE"
+
+
+def choose_route(inp: CostInputs) -> RouteDecision:
+    """Host or device, and the host scan's pool width, from the cost
+    inputs: a pure function of ``inp``."""
+    cells = inp.est_rows * max(inp.n_columns, 1)
+    width = 1 if cells < _POOL_MIN_CELLS else None
+    if inp.pin in ("host", "device"):
+        if inp.pin == "device" and not inp.supported:
+            return RouteDecision("host", f"{_PIN_NAME}=device pinned but "
+                                 f"shape unsupported: {inp.reason}", width)
+        return RouteDecision(inp.pin, f"{_PIN_NAME}={inp.pin} pin",
+                             width if inp.pin == "host" else None)
+    if inp.backend == "cpu":
+        return RouteDecision(
+            "host", "cpu backend: the threaded host scan beats the device "
+            "scan's plain versions", width)
+    if not inp.supported:
+        return RouteDecision("host", f"device route unsupported: "
+                             f"{inp.reason}", width)
+    if inp.est_bytes < _DEVICE_MIN_BYTES:
+        return RouteDecision(
+            "host", f"plan too small ({inp.est_bytes} bytes) to amortize "
+            "H2D staging", width)
+    host_s = inp.est_bytes / ((inp.host_gbps or _HOST_PRIOR_GBPS) * 1e9)
+    dev_s = inp.est_bytes / ((inp.device_gbps or _DEVICE_PRIOR_GBPS) * 1e9)
+    if inp.device_gbps is None:  # a measured rate holds the fixed cost
+        dev_s += _DEVICE_FIXED_S / max(inp.reuse, 1)
+    if dev_s <= host_s:
+        return RouteDecision(
+            "device", f"cost model: device {dev_s * 1e3:.1f}ms <= host "
+            f"{host_s * 1e3:.1f}ms", None, host_s, dev_s)
+    return RouteDecision(
+        "host", f"cost model: host {host_s * 1e3:.1f}ms < device "
+        f"{dev_s * 1e3:.1f}ms", width, host_s, dev_s)
+
+
+def device_route_supported(pf, path: str, columns: Optional[Sequence[str]],
+                           values: Optional[Sequence] = None
+                           ) -> Tuple[bool, str]:
+    """The device scan's refusals (``parallel/host_scan.py::_check_key``)
+    answered from the footer alone, plus a byte-array key chunk without
+    a dictionary encoding: ``(True, "")`` or ``(False, why)``.  Shapes
+    seen only in the pages (a dictionary that falls back to PLAIN
+    mid-chunk) pass here; ``stage_scan`` refuses them and the routed scan
+    falls back to the host scan."""
+    from ..format.enums import Type
+    from ..schema.types import LogicalKind
+
+    flat = {leaf.name for leaf in pf.schema.leaves
+            if leaf.max_repetition_level == 0}
+    out_cols = list(columns) if columns is not None else sorted(flat - {path})
+    for c in [path] + out_cols:
+        if c not in flat:
+            return False, f"column {c!r} is nested or unknown"
+    key = pf.schema.leaf(path)
+    t = key.physical_type
+    if t in (Type.FIXED_LEN_BYTE_ARRAY, Type.INT96):
+        return False, f"key {path!r} has physical type {t.name}"
+    if t == Type.BYTE_ARRAY and key.logical_kind == LogicalKind.DECIMAL:
+        return False, f"key {path!r} is a decimal byte array"
+    if values is not None and t in (Type.INT64, Type.DOUBLE):
+        return False, f"IN-list on 64-bit key {path!r}"
+    if t == Type.BYTE_ARRAY:
+        for rg in pf.metadata.row_groups or []:
+            encs = rg.columns[key.column_index].meta_data.encodings or []
+            if not any(e in _DICT_ENCODING_IDS for e in encs):
+                return False, f"key {path!r} has a non-dictionary chunk"
+    return True, ""
+
+
+_DICT_ENCODING_IDS = frozenset((int(Encoding.PLAIN_DICTIONARY),
+                                int(Encoding.RLE_DICTIONARY)))
+
+
+def route_scan(pf, path: str, lo=None, hi=None,
+               columns: Optional[Sequence[str]] = None,
+               values: Optional[Sequence] = None, device="cuda",
+               backend: Optional[str] = None,
+               reuse: int = 1) -> RouteDecision:
+    """Route one single-column scan: :class:`CostInputs` from the footer
+    (a statistics-only plan, no IO) and :data:`route_history`, then
+    :func:`choose_route`.  ``backend`` is ``"cpu"`` for a CPU ``device``
+    and ``"gpu"`` for a card; a test may name it."""
+    from ..algebra.expr import single_pred
+    from .reader import resolve_device
+
+    if backend is None:
+        backend = "cpu" if resolve_device(device).type == "cpu" else "gpu"
+    pin = _route_pin()
+    if pin == "host" or (backend == "cpu" and pin is None):
+        # choose_route answers host here whatever the inputs: skip them
+        reason = (f"{_PIN_NAME}=host pin" if pin == "host" else
+                  "cpu backend: the threaded host scan beats the device "
+                  "scan's plain versions")
+        return RouteDecision("host", reason)
+    try:
+        supported, reason = device_route_supported(pf, path, columns, values)
+    except KeyError as e:
+        supported, reason = False, f"unknown column {e}"
+    est_bytes = est_rows = 0
+    flat = {leaf.name for leaf in pf.schema.leaves
+            if leaf.max_repetition_level == 0}
+    out_cols = list(columns) if columns is not None else sorted(flat - {path})
+    try:
+        plan = ScanPlanner(pf, device="cpu").plan(
+            single_pred(path, lo, hi, values), stages=("stats",))
+        est_rows = plan.candidate_rows
+        est_bytes = plan.est_bytes(out_cols)
+    except (KeyError, ValueError):
+        pass  # the scan itself raises the precise error
+    h = _HISTORY
+    decision = choose_route(CostInputs(
+        backend=backend, supported=supported, reason=reason,
+        est_bytes=est_bytes, est_rows=est_rows, total_rows=pf.num_rows,
+        n_columns=1 + len(out_cols), reuse=reuse,
+        host_gbps=h.gbps("host"), device_gbps=h.gbps("device"), pin=pin))
+    decision.est_bytes = est_bytes
+    return decision
+
+
+def _route_pin() -> Optional[str]:
+    from ..utils.env import env_str
+
+    v = env_str(_PIN_NAME).lower()
+    if v in ("host", "cpu"):
+        return "host"
+    if v in ("device", "cuda"):
+        return "device"
+    return None

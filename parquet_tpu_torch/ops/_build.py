@@ -79,6 +79,7 @@ SIGNATURES = {
         "pq_plan_free": (None, [_P]),
         "pq_fill_batch": (_LL, [_P, _LL, _P, _LL, _P, _LL, _LL]),
         "pq_byte_array_parts": (_LL, [_P, _LL, _P, _P, _P]),
+        "pq_gather_ba": (_LL, [_P, _LL, _P, _LL, _P, _LL, _P, _P, _LL]),
     },
 }
 # csrc/<name>.cpp, built with c++

@@ -23,7 +23,10 @@ Python version it replaces returns, and raises its
   ``parallel/device_reader.py``'s plan (its plain version is
   ``device_reader._build_plan_python``);
 - :func:`fill_batch`: a staging batch written in one threaded call;
-- :func:`byte_array_parts`: a chunk's host byte-array pages compacted.
+- :func:`byte_array_parts`: a chunk's host byte-array pages compacted;
+- :func:`gather_byte_arrays`: byte-array values at given indexes (the
+  scans' survivors), whose plain version is
+  :func:`gather_byte_arrays_numpy`.
 
 The libraries build with the system ``c++`` at first use
 (``ops/_build.py``).  Sizes and bounds are checked here before a pointer
@@ -218,7 +221,36 @@ def segment_ranges(lengths: np.ndarray) -> np.ndarray:
 def gather_byte_arrays(values: np.ndarray, offsets: np.ndarray,
                        indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Values ``indices`` of a ``(values, offsets)`` column, as a new
-    ``(values, offsets int64)`` pair."""
+    ``(uint8 values, int64 offsets)`` pair, in C++ (``pq_gather_ba``: a
+    sizing pass, then the copy on up to 8 threads past 4 MiB).  An index
+    outside the column raises ``ValueError``, as
+    :func:`gather_byte_arrays_numpy`, its plain version, does."""
+    vals = as_u8(values)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    indices = np.ascontiguousarray(indices, np.int64)
+    n = len(indices)
+    out_offs = np.empty(n + 1, np.int64)
+    lib = _prescan()
+    total = lib.pq_gather_ba(_ptr(vals), len(vals), _ptr(offsets),
+                             len(offsets), _ptr(indices), n,
+                             out_offs.ctypes.data, None, 1)
+    if total == -1:
+        raise ValueError("byte-array index out of range")
+    if total < 0:
+        raise ValueError("byte-array offsets out of order or past the "
+                         "values")
+    out = np.empty(total, np.uint8)
+    if total:
+        lib.pq_gather_ba(_ptr(vals), len(vals), _ptr(offsets), len(offsets),
+                         _ptr(indices), n, out_offs.ctypes.data,
+                         out.ctypes.data, fill_threads(total))
+    return out, out_offs
+
+
+def gather_byte_arrays_numpy(values: np.ndarray, offsets: np.ndarray,
+                             indices: np.ndarray
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain version of :func:`gather_byte_arrays`, in numpy."""
     offsets = np.asarray(offsets, np.int64)
     indices = np.asarray(indices, np.int64)
     if len(indices) and (indices.min() < 0
@@ -229,7 +261,6 @@ def gather_byte_arrays(values: np.ndarray, offsets: np.ndarray,
     np.cumsum(lens, out=out_offs[1:])
     idx = np.repeat(offsets[:-1][indices], lens) + segment_ranges(lens)
     return np.asarray(values)[idx], out_offs
-
 
 
 # ---------------------------------------------------------------------------

@@ -533,5 +533,6 @@ def gather_dictionary(dictionary, indices: np.ndarray):
     """``dictionary[indices]``; a ``(values, offsets)`` byte-array
     dictionary gives a ``(values, offsets)`` pair."""
     if isinstance(dictionary, tuple):
-        return host.gather_byte_arrays(dictionary[0], dictionary[1], indices)
+        return host.gather_byte_arrays_numpy(dictionary[0], dictionary[1],
+                                             indices)
     return np.asarray(dictionary)[np.asarray(indices, np.int64)]

@@ -1,36 +1,49 @@
-"""The device pushdown scan, and exact key equality over host spans.
+"""The host scan, the device pushdown scan, and the routed scan.
 
-The port's cut of ``parquet_tpu/parallel/host_scan.py``:
+The port's copy of ``parquet_tpu/parallel/host_scan.py``:
 
+- :func:`scan_expr` (and its single-column face :func:`scan_filtered`):
+  the host scan of a predicate tree over any number of flat columns.  The
+  planner (``io/planner.py``) prunes row groups and pages by statistics,
+  page index and bloom filters (the bloom stage on the scan's device);
+  phase 1 decodes the filter columns' candidate spans on the host
+  (``io/search.py::read_row_range``) and evaluates the exact predicate
+  (:func:`expr_mask`); phase 2 late-materializes: each output column
+  decodes only the pages under [first survivor, last survivor] of a span,
+  and a span without survivors is never read.  Spans fan out on the
+  shared pool above :data:`_POOL_MIN_CELLS` cells.  :func:`scan_files`
+  runs it over many files in file order and :func:`merge_scan_results`
+  joins their results;
 - :func:`scan_filtered_device` = :func:`stage_scan` + :func:`decoded_scan`:
-  the planner (``io/planner.py``, through ``io/search.plan_scan``) prunes
-  row groups and pages by statistics, page index and bloom filters; each
-  surviving span's pages of the key and output columns are planned and
-  staged (``device_reader.build_plan``/``stage_plan``, one staging batch
-  and one copy a span); then, on the device, each span decodes
+  each surviving span's pages of the key and output columns are planned
+  and staged (``device_reader.build_plan``/``stage_plan``, one staging
+  batch and one copy a span); then, on the device, each span decodes
   (``decode_staged``, whose dictionary and delta streams run the read
   path's CUDA kernels), the key predicate becomes a row mask, and every
   output column's surviving rows are compacted to a prefix by one cumsum
   and one scatter, with the survivor counts read back
-  :data:`_SYNC_EVERY` spans at a time;
-- :func:`aligned_key_mask`: the point lookup's face of the same
-  predicate, on host numpy spans.
+  :data:`_SYNC_EVERY` spans at a time.  :func:`scan_filtered_sharded`
+  stages the spans round-robin over a mesh of devices;
+- :func:`scan`: one of the two, chosen by ``io/planner.py::route_scan``;
+- :func:`aligned_key_mask`: the point lookup's face of the predicate.
 
-The key predicate holds in the key column's order domain: signed or
-unsigned integers (an unsigned column's values and bounds compared with
-their sign bits flipped), floats as the host scan compares them (``>=`` /
-``<=``: NaN never matches and ``-0.0 == 0.0``; the JAX package's device
-route orders doubles by their IEEE total order instead, and so disagrees
-with its own host scan there), and a dictionary-encoded string key by one
-verdict a dictionary entry, gathered onto the index stream.  NULL never
-matches.  The JAX package's fused span program (a ``jax.jit`` of the
-mask and the compaction) has no counterpart: the eager torch ops run on
-every call.
+The predicate holds in each column's order domain: signed or unsigned
+integers (an unsigned column's values and bounds compared as unsigned),
+decimals by their unscaled integers, byte arrays and fixed-length byte
+arrays by their bytes, floats as numpy compares them (``>=`` / ``<=``:
+NaN never matches and ``-0.0 == 0.0``; the JAX package's device route
+orders doubles by their IEEE total order instead, and so disagrees with
+its own host scan there, where the port's two routes agree).  NULL never
+matches a range or IN leaf, negated or not.  The JAX package's fused
+phase 1 (``io/fused.py``) and its fused span program have no counterpart
+here: the materializing phase 1 and the eager torch ops run.
 """
 
 from __future__ import annotations
 
 import math
+import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -40,17 +53,115 @@ from ..algebra.compare import int_domain, is_unsigned, normalize
 from ..errors import _Unsupported, unsupported
 from ..format.enums import Encoding, Type
 from ..ops import device as dev
-from ..schema.types import LogicalKind, empty_values
+from ..schema.types import LogicalKind, empty_values, logical_np_dtype
 
-__all__ = ["stage_scan", "decoded_scan", "scan_filtered_device",
+__all__ = ["scan", "scan_expr", "scan_filtered", "scan_files",
+           "merge_scan_results", "expr_mask", "stage_scan", "decoded_scan",
+           "scan_filtered_device", "scan_filtered_sharded",
            "aligned_key_mask"]
 
 # spans between survivor-count reads: bounds the device memory held by
 # uncompacted spans while one read serves many spans
 _SYNC_EVERY = 8
+# the host scan runs serially below this many (candidate rows x columns)
+# cells: a pool task costs about as much as decoding a small span
+_POOL_MIN_CELLS = 2_000_000
 
 _HOST_RAGGED = "host_ragged"
 _DICT_ENCODINGS = (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY)
+_POLICY_SLICE = "the fault-policy slice (parquet_tpu/io/faults.py)"
+
+
+def _refuse_policy(what: str, policy, report) -> None:
+    if policy is not None or report is not None:
+        raise unsupported(f"fault policies and read reports of {what}",
+                          _POLICY_SLICE)
+
+
+# ---------------------------------------------------------------------------
+# the host scan's predicate
+# ---------------------------------------------------------------------------
+
+
+def expr_mask(expr, env: Dict[str, tuple], n: int) -> np.ndarray:
+    """The exact row mask of a prepared tree over ``n`` rows of
+    row-aligned filter columns (``env[path] -> (values, validity)``), with
+    the comparison semantics of every filtered scan."""
+    from ..algebra.expr import And, Const, Pred
+
+    if isinstance(expr, Const):
+        return np.full(n, expr.value, bool)
+    if isinstance(expr, Pred):
+        return _pred_mask(expr, env[expr.path], n)
+    masks = [expr_mask(c, env, n) for c in expr.children]
+    out = masks[0].copy()
+    for m in masks[1:]:
+        if isinstance(expr, And):
+            out &= m
+        else:
+            out |= m
+    return out
+
+
+def _pred_mask(pred, span_val: tuple, n: int) -> np.ndarray:
+    """One leaf's exact mask in the leaf's order domain (byte arrays by
+    their bytes, decimals by their unscaled integers, unsigned columns as
+    unsigned); NULL never matches a range or IN leaf, negated or not."""
+    from ..algebra.compare import decode_order_value
+
+    keys, key_valid = span_val
+    leaf = pred.leaf
+    if pred.kind == "null":
+        return (np.zeros(n, bool) if key_valid is None
+                else ~np.asarray(key_valid, bool))
+    if pred.kind == "notnull":
+        return (np.ones(n, bool) if key_valid is None
+                else np.asarray(key_valid, bool))
+    lo, hi = pred.lo, pred.hi
+    flba_rows = (not isinstance(keys, list)
+                 and getattr(keys, "ndim", 1) == 2
+                 and keys.dtype == np.uint8)
+    if isinstance(keys, list) or flba_rows:
+        # byte-array and FLBA keys: Python comparisons in the order domain
+        if flba_rows:
+            keys = [bytes(r) for r in np.asarray(keys)]
+            if key_valid is not None:
+                keys = [k if v else None for k, v in zip(keys, key_valid)]
+        keys = [None if x is None else decode_order_value(bytes(x), leaf)
+                for x in keys]
+        if pred.kind == "in":
+            probe_set = set(pred.values)
+            base = np.fromiter((x is not None and x in probe_set
+                                for x in keys), bool, count=len(keys))
+        else:
+            base = np.fromiter(
+                ((x is not None
+                  and (lo is None or x >= lo) and (hi is None or x <= hi))
+                 for x in keys), bool, count=len(keys))
+        if pred.negated:
+            present = np.fromiter((x is not None for x in keys), bool,
+                                  count=len(keys))
+            return present & ~base
+        return base
+    if is_unsigned(leaf) and keys.dtype in (np.dtype(np.int32),
+                                            np.dtype(np.int64)):
+        keys = keys.view(np.uint32 if keys.dtype == np.dtype(np.int32)
+                         else np.uint64)
+    if pred.kind == "in":
+        probes = np.array(pred.values, dtype=keys.dtype)
+        base = np.isin(keys, probes)
+    else:
+        base = np.ones(len(keys), bool)
+        if lo is not None:
+            base &= keys >= lo
+        if hi is not None:
+            base &= keys <= hi
+    valid = None if key_valid is None else np.asarray(key_valid, bool)
+    if pred.negated:
+        return ~base if valid is None else valid & ~base
+    if valid is not None:
+        base &= valid  # NULL fails the predicate
+    return base
 
 
 def order_view(leaf, values: np.ndarray) -> np.ndarray:
@@ -62,17 +173,427 @@ def order_view(leaf, values: np.ndarray) -> np.ndarray:
     return values
 
 
-def aligned_key_mask(leaf, key, values: np.ndarray,
-                     validity: Optional[np.ndarray]) -> np.ndarray:
+def aligned_key_mask(leaf, key, values, validity) -> np.ndarray:
     """Rows of a row-aligned span equal to one normalized ``key``: the
-    reference's inclusive range ``key <= v <= key`` in numpy, in the
-    leaf's order domain, so NaN never matches and ``-0.0 == 0.0``; a NULL
-    slot never matches."""
-    values = order_view(leaf, values)
-    base = (values >= key) & (values <= key)
-    if validity is not None:
-        base &= np.asarray(validity, bool)
-    return base
+    scan's :func:`_pred_mask` over the one-point range ``key <= v <=
+    key``, so the lookup matches keys as every filtered scan does."""
+    from ..algebra.expr import Pred
+
+    if isinstance(values, tuple):
+        values = list(values)
+    n = len(values) if validity is None else len(validity)
+    pred = Pred(leaf.name, "range", lo=key, hi=key, leaf=leaf,
+                prepared=True)
+    return _pred_mask(pred, (values, validity), n)
+
+
+# ---------------------------------------------------------------------------
+# the host scan
+# ---------------------------------------------------------------------------
+
+
+def scan_filtered(pf, path: str, lo=None, hi=None,
+                  columns: Optional[Sequence[str]] = None,
+                  num_threads: Optional[int] = None, use_bloom: bool = True,
+                  values: Optional[Sequence] = None, device="cuda",
+                  policy=None, report=None) -> Dict[str, object]:
+    """The rows of ``columns`` where ``lo <= pf[path] <= hi`` (or, with
+    ``values``, ``pf[path] in values``): :func:`scan_expr` over the
+    one-leaf tree."""
+    from ..algebra.expr import single_pred
+
+    return scan_expr(pf, single_pred(path, lo=lo, hi=hi, values=values),
+                     columns=columns, num_threads=num_threads,
+                     use_bloom=use_bloom, device=device, policy=policy,
+                     report=report)
+
+
+_NESTED_MSG = ("column {c!r} is nested; scan_filtered returns row-aligned "
+               "arrays - use read_row_range per plan for nested columns")
+
+
+def scan_expr(pf, where, columns: Optional[Sequence[str]] = None,
+              num_threads: Optional[int] = None, use_bloom: bool = True,
+              device="cuda", policy=None, report=None) -> Dict[str, object]:
+    """The rows of ``columns`` (every flat column outside the predicate by
+    default) that match the predicate tree ``where``
+    (:mod:`parquet_tpu_torch.algebra.expr`), scanned on the host.
+
+    The planner prunes cheapest first (statistics, page index, then the
+    bloom filters of equality leaves, probed on ``device``: CUDA unless
+    the caller names the CPU); phase 1 decodes the filter columns'
+    candidate pages and evaluates the exact predicate; phase 2 decodes
+    each output column only under [first survivor, last survivor] of each
+    span.  ``num_threads``: None fans the spans out on the shared pool
+    above 2,000,000 cells (serial inside a pool worker), 1 is serial,
+    another count a private pool for this call.
+
+    Returns ``{column: values}`` in file order: numpy arrays; a nullable
+    number column as ``np.ma.MaskedArray`` (masked at nulls; an FLBA or
+    INT96 column's ``(n, width)`` rows masked whole); a byte-array column
+    as a list of ``bytes`` with ``None`` at nulls.  ``policy``/``report``
+    (fault policies) are not ported."""
+    from ..io.reader import resolve_device
+
+    _refuse_policy("the host scan", policy, report)
+    return _scan_expr_impl(pf, where, columns, num_threads, use_bloom,
+                           resolve_device(device))
+
+
+def _check_flat(pf, cols, what: str) -> None:
+    """``KeyError`` for a column ``pf`` lacks, ``ValueError`` for a nested
+    one."""
+    nested = {leaf.name for leaf in pf.schema.leaves
+              if leaf.max_repetition_level}
+    flat = {leaf.name for leaf in pf.schema.leaves} - nested
+    for c in cols:
+        if c in nested:
+            raise ValueError(_NESTED_MSG.format(c=c))
+        if c not in flat:
+            raise KeyError(f"unknown {what}{c!r}")
+
+
+def _output_columns(pf, pred_cols, columns) -> list:
+    """``columns``, checked, or by default every flat column outside the
+    predicate's ``pred_cols`` (a nested column has no row-aligned
+    array)."""
+    if columns is not None:
+        _check_flat(pf, columns, "column ")
+        return list(columns)
+    return sorted(leaf.name for leaf in pf.schema.leaves
+                  if leaf.max_repetition_level == 0
+                  and leaf.name not in set(pred_cols))
+
+
+def _fan_width(n_tasks: int, cells: int, num_threads: Optional[int]) -> int:
+    """The threads :func:`_fan_out` runs ``n_tasks`` tasks on."""
+    from ..ops.host import available_cpus
+    from ..utils.pool import in_shared_pool, pool_width
+
+    if num_threads == 1 or n_tasks <= 1 or (
+            num_threads is None and (cells < _POOL_MIN_CELLS
+                                     or in_shared_pool()
+                                     or available_cpus() < 2)):
+        return 1
+    return min(n_tasks, num_threads or pool_width())
+
+
+def _fan_out(fn, tasks: list, cells: int, num_threads: Optional[int]):
+    """``[fn(t) for t in tasks]``: serially for one task, ``num_threads=1``
+    or (by default) under :data:`_POOL_MIN_CELLS` cells; on the shared pool
+    by default (serially inside a pool worker, where a nested map would
+    wait on futures no free worker can run); on a private pool of
+    ``num_threads``, closed before returning, otherwise.  Each pooled task
+    keeps its native calls to one thread."""
+    from ..ops import host
+    from ..utils.pool import map_in_order
+
+    if _fan_width(len(tasks), cells, num_threads) == 1:
+        return [fn(t) for t in tasks]
+
+    def one(t):
+        with host.native_thread_cap(1):
+            return fn(t)
+
+    if num_threads is None:
+        return map_in_order(one, tasks)
+    with ThreadPoolExecutor(max_workers=num_threads) as pool:
+        return list(pool.map(one, tasks))
+
+
+def _materialize_ba(values: np.ndarray, offs: np.ndarray,
+                    sel: np.ndarray) -> List[bytes]:
+    """Python ``bytes`` for the selected value ordinals only: the
+    survivors gathered in C++, then sliced."""
+    from ..ops import host
+
+    if len(sel) == 0:
+        return []
+    gv, go = host.gather_byte_arrays(values, offs, sel)
+    return [gv[go[i]:go[i + 1]].tobytes() for i in range(len(sel))]
+
+
+def _typed_empty(leaf):
+    """A column's result when nothing survives, in the JAX package's
+    form: ``[]`` for a byte array, else a 1-D empty of the leaf's
+    presented dtype (uint8 for FLBA and INT96)."""
+    if leaf.physical_type == Type.BYTE_ARRAY:
+        return []
+    return np.empty(0, logical_np_dtype(
+        leaf.physical_type, leaf.logical_kind, leaf.logical_params or {})
+        or np.uint8)
+
+
+def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
+                    timings: Optional[dict] = None) -> Dict[str, object]:
+    from ..algebra.expr import Expr, prepare
+    from ..io.planner import ScanPlanner, _collect_preds
+    from ..io.search import BA_ARRAYS, read_row_range
+
+    if not isinstance(where, Expr):
+        raise TypeError("where must be an Expr tree (build with col(); "
+                        f"got {type(where).__name__})")
+    pred_cols = sorted(where.columns())
+    _check_flat(pf, pred_cols, "predicate column ")
+    out_cols = _output_columns(pf, pred_cols, columns)
+    t0 = time.perf_counter()
+    expr = prepare(where, pf.schema)
+    plan = ScanPlanner(pf, device=device).plan(expr, use_bloom=use_bloom)
+    fcols = sorted({p.path for p in _collect_preds(expr)})
+    rg_base = np.zeros(len(pf.row_groups), np.int64)
+    np.cumsum([rg.num_rows for rg in pf.row_groups[:-1]], out=rg_base[1:])
+    # the surviving (row group, file row, rows) spans, in row order
+    spans = [(d.rg_index, int(rg_base[d.rg_index]) + s, e - s)
+             for d in plan.survivors for (s, e) in d.ranges]
+    cand_rows = sum(count for _, _, count in spans)
+    t1 = time.perf_counter()
+
+    def read_one(task):
+        start, count, c, form = task
+        return read_row_range(pf, c, start, count, aligned=form)
+
+    # phase 1: the filter columns' candidate spans, row-aligned, and the
+    # exact predicate over them
+    tasks1 = [(start, count, c, True) for (_, start, count) in spans
+              for c in fcols]
+    res1 = _fan_out(read_one, tasks1, cand_rows * max(len(fcols), 1),
+                    num_threads)
+    k = len(fcols)
+    envs = [{c: res1[i * k + j] for j, c in enumerate(fcols)}
+            for i in range(len(spans))]
+    masks = [expr_mask(expr, env, count)
+             for (_, _, count), env in zip(spans, envs)]
+    t2 = time.perf_counter()
+
+    # phase 2: each output column outside the filter decoded under [first
+    # survivor, last survivor] of each span with a survivor
+    trims = []
+    for mask in masks:
+        idx = np.flatnonzero(mask)
+        trims.append((int(idx[0]), int(idx[-1]) + 1) if len(idx) else None)
+    fset = set(fcols)
+    read2_cols = [c for c in out_cols if c not in fset]
+    tasks2 = [(spans[si][1] + t0_, t1_ - t0_, c, "arrays")
+              for si, trim in enumerate(trims) if trim is not None
+              for t0_, t1_ in [trim] for c in read2_cols]
+    cells2 = sum(b - a for t in trims if t is not None
+                 for a, b in [t]) * max(len(read2_cols), 1)
+    res2 = _fan_out(read_one, tasks2, cells2, num_threads)
+
+    # assembly
+    parts: Dict[str, List] = {c: [] for c in out_cols}
+    vparts: Dict[str, List] = {c: [] for c in out_cols}
+    ti = 0
+    for si, ((_, _, count), mask, trim) in enumerate(
+            zip(spans, masks, trims)):
+        if trim is None:
+            continue  # no survivor: its output pages were never decoded
+        a, b = trim
+        span2 = {c: res2[ti + j] for j, c in enumerate(read2_cols)}
+        ti += len(read2_cols)
+        idx = np.flatnonzero(mask)
+        m_t = mask[a:b]
+        for c in out_cols:
+            if c in envs[si]:
+                vals, valid = envs[si][c]  # phase 1's aligned form
+                if isinstance(vals, list):
+                    parts[c].append([vals[i] for i in idx])
+                else:
+                    parts[c].append(np.asarray(vals)[mask])
+                    if valid is not None:
+                        vparts[c].append(np.asarray(valid, bool)[mask])
+                    elif vparts[c]:  # an earlier span had nulls
+                        vparts[c].append(np.ones(int(mask.sum()), bool))
+                continue
+            vals, valid = span2[c]
+            if isinstance(vals, tuple) and vals and vals[0] == BA_ARRAYS:
+                _, v_u8, offs = vals
+                idx_t = np.flatnonzero(m_t)
+                if valid is None:
+                    parts[c].append(_materialize_ba(v_u8, offs, idx_t))
+                else:
+                    ords = np.cumsum(valid) - 1  # row -> present ordinal
+                    tv = np.asarray(valid, bool)[idx_t]
+                    got = _materialize_ba(v_u8, offs, ords[idx_t][tv])
+                    woven = [None] * len(idx_t)
+                    for p, v in zip(np.flatnonzero(tv), got):
+                        woven[p] = v
+                    parts[c].append(woven)
+            elif isinstance(vals, list):
+                parts[c].append([vals[i] for i in np.flatnonzero(m_t)])
+            else:
+                parts[c].append(np.asarray(vals)[m_t])
+                if valid is not None:
+                    vparts[c].append(np.asarray(valid, bool)[m_t])
+                elif vparts[c]:  # an earlier span had nulls
+                    vparts[c].append(np.ones(int(m_t.sum()), bool))
+    out: Dict[str, object] = {}
+    for c in out_cols:
+        if parts[c] and isinstance(parts[c][0], list):
+            out[c] = [v for chunk in parts[c] for v in chunk]
+        elif parts[c]:
+            vals = np.concatenate(parts[c])
+            if vparts[c]:
+                # spans before the first with nulls had none
+                n_missing = len(vals) - sum(len(v) for v in vparts[c])
+                valid = np.concatenate(
+                    ([np.ones(n_missing, bool)] if n_missing else [])
+                    + vparts[c])
+                mask = ~valid
+                if vals.ndim == 2:  # FLBA / INT96 rows masked whole
+                    mask = np.broadcast_to(mask[:, None], vals.shape)
+                out[c] = np.ma.MaskedArray(vals, mask=mask)
+            else:
+                out[c] = vals
+        else:
+            out[c] = _typed_empty(pf.schema.leaf(c))
+    if timings is not None:
+        timings.update(
+            plan_s=t1 - t0, phase1_s=t2 - t1,
+            phase2_s=time.perf_counter() - t2, candidate_rows=cand_rows,
+            survivors=int(sum(int(m.sum()) for m in masks)),
+            spans=len(spans), tasks=len(tasks1) + len(tasks2),
+            threads=[_fan_width(len(tasks1), cand_rows * max(len(fcols), 1),
+                                num_threads),
+                     _fan_width(len(tasks2), cells2, num_threads)],
+            plan_counters=dict(plan.counters))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# many files
+# ---------------------------------------------------------------------------
+
+
+def merge_scan_results(parts: List[Dict[str, object]],
+                       out_cols: Sequence[str]) -> Dict[str, object]:
+    """Per-file host-scan results joined in list order: byte-array lists
+    chain, number columns concatenate (as ``np.ma.MaskedArray`` when any
+    part has nulls).  Zero-row parts are dropped first: a file whose rows
+    all pruned gives the 1-D typed empty even for an ``(n, width)`` FLBA
+    or INT96 column."""
+    out: Dict[str, object] = {}
+    for c in out_cols:
+        vals = [p[c] for p in parts]
+        if any(isinstance(v, list) for v in vals):
+            out[c] = [x for v in vals for x in v]
+            continue
+        filled = [v for v in vals if len(v)]
+        if not filled:
+            out[c] = vals[0]
+        elif len(filled) == 1:
+            out[c] = filled[0]
+        elif any(isinstance(v, np.ma.MaskedArray) for v in filled):
+            out[c] = np.ma.concatenate(filled)
+        else:
+            out[c] = np.concatenate(filled)
+    return out
+
+
+def scan_files(pfs: Sequence, path: Optional[str] = None, lo=None, hi=None,
+               columns: Optional[Sequence[str]] = None,
+               use_bloom: bool = True, values: Optional[Sequence] = None,
+               policy=None, report=None, skip_files: bool = False,
+               where=None, devices: Optional[Sequence] = None
+               ) -> Dict[str, object]:
+    """The host scan over many opened files, one file a task on the shared
+    pool (each file's scan serial inside its worker), results merged in
+    file order (:func:`merge_scan_results`); ``{}`` when no file gives a
+    row.  ``where`` takes a predicate tree (prepared once for the whole
+    set, if the caller likes), else ``path`` with ``lo``/``hi``/``values``.
+    ``devices`` (a mesh: a device, a list, or ``"cuda"``, every card, by
+    default) plans file ``i``'s bloom probe on ``devices[i % n]``.
+    ``policy``, ``report`` and ``skip_files`` (fault policies) are not
+    ported."""
+    from ..utils.pool import map_in_order
+    from .mesh import resolve_mesh
+
+    _refuse_policy("the multi-file scan", policy, report)
+    if skip_files:
+        raise unsupported("scan_files(skip_files=True)", _POLICY_SLICE)
+    if (where is None) == (path is None):
+        raise ValueError("pass exactly one of path (+ lo/hi/values) or "
+                         "where= (a predicate tree)")
+    if not pfs:
+        return {}
+    devs = resolve_mesh(devices)
+
+    def one(item):
+        i, pf = item
+        d = devs[i % len(devs)]
+        if where is not None:
+            return scan_expr(pf, where, columns=columns, use_bloom=use_bloom,
+                             device=d)
+        return scan_filtered(pf, path, lo=lo, hi=hi, columns=columns,
+                             use_bloom=use_bloom, values=values, device=d)
+
+    oks = map_in_order(one, list(enumerate(pfs)))
+    if not oks:
+        return {}
+    return merge_scan_results(oks, list(oks[0]))
+
+
+# ---------------------------------------------------------------------------
+# the routed scan
+# ---------------------------------------------------------------------------
+
+
+def scan(pf, path: str, lo=None, hi=None,
+         columns: Optional[Sequence[str]] = None, use_bloom: bool = True,
+         values: Optional[Sequence] = None, device="cuda", policy=None,
+         report=None):
+    """The pushdown scan, on the host or on ``device`` as the planner's
+    cost model decides (``io/planner.py::choose_route``): the device's
+    kind, whether the device scan takes the shape (the footer's mirror of
+    its refusals), the bytes to decode and the candidate rows of a
+    statistics-only plan, and the measured rates of
+    :func:`~parquet_tpu_torch.io.planner.route_history`.  On the CPU the
+    host scan always runs; ``PARQUET_TPU_TORCH_ROUTE=host|device`` pins
+    the route.  A device-scan refusal seen only in the pages
+    (``ValueError: ... use the host scan``, such as a dictionary chunk
+    that falls back to PLAIN mid-file) falls back to the host scan; every
+    other error raises.
+
+    NOTE the two routes' output forms differ: the device route's are
+    :func:`decoded_scan`'s, resident on the card, the host route's are
+    :func:`scan_filtered`'s numpy arrays and byte lists, and on a card
+    the chosen route, hence the form, can change with the plan's size and
+    the measured history.  A caller that needs one form calls
+    :func:`scan_filtered` or :func:`scan_filtered_device`, or pins the
+    route."""
+    _refuse_policy("the routed scan", policy, report)
+    return _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device)
+
+
+def _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device):
+    from ..io.planner import route_history, route_scan
+    from ..io.reader import resolve_device
+
+    device = resolve_device(device)
+    decision = route_scan(pf, path, lo=lo, hi=hi, columns=columns,
+                          values=values, device=device)
+    if decision.route == "device":
+        t0 = time.monotonic()
+        try:
+            got = scan_filtered_device(pf, path, lo=lo, hi=hi,
+                                       columns=columns, use_bloom=use_bloom,
+                                       values=values, device=device)
+            if device.type == "cuda":  # the history times finished work
+                torch.cuda.synchronize(device)
+            route_history().observe("device", decision.est_bytes,
+                                    time.monotonic() - t0)
+            return got
+        except ValueError as e:
+            # only the device scan's documented refusals fall back
+            if "use the host scan" not in str(e):
+                raise
+    t0 = time.monotonic()
+    got = scan_filtered(pf, path, lo=lo, hi=hi, columns=columns,
+                        use_bloom=use_bloom, values=values, device=device,
+                        num_threads=decision.pool_width)
+    route_history().observe("host", decision.est_bytes,
+                            time.monotonic() - t0)
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -108,6 +629,7 @@ class _KeyFilter:
         if probe is not None:
             self.probes = self._probe_tensor(probe, device)
             self.empty = self.probes.shape[0] == 0
+            self._probes_on = {self.probes.device: self.probes}
         elif t in (Type.INT32, Type.INT64):
             self._int_range()
 
@@ -174,7 +696,11 @@ class _KeyFilter:
         if self.unsigned:
             vals = dev.sign_flip(vals)
         if self.probes is not None:
-            return dev.in_mask(vals, self.probes)
+            probes = self._probes_on.get(vals.device)
+            if probes is None:  # a span staged on another mesh device
+                probes = self._probes_on.setdefault(
+                    vals.device, self.probes.to(vals.device))
+            return dev.in_mask(vals, probes)
         return dev.range_mask(vals, self.lo, self.hi)
 
 
@@ -186,11 +712,15 @@ class _KeyFilter:
 def stage_scan(pf, path: str, lo=None, hi=None,
                columns: Optional[Sequence[str]] = None,
                use_bloom: bool = True, values: Optional[Sequence] = None,
-               device="cuda", policy=None, report=None) -> dict:
+               device="cuda", policy=None, report=None,
+               devices: Optional[Sequence] = None) -> dict:
     """The host phase of a device scan: the pushdown plan, each surviving
     span's prescan and its staging on ``device`` (CUDA unless the caller
-    names the CPU; a CUDA request without a card raises).  Returns the
-    staged state :func:`decoded_scan` consumes, as often as it likes.
+    names the CPU; a CUDA request without a card raises).  ``devices`` (a
+    mesh, whose entries may repeat) stages span ``i`` on
+    ``devices[i % len(devices)]`` instead and plans on the first.
+    Returns the staged state :func:`decoded_scan` consumes, as often as it
+    likes.
 
     Flat columns only; the key cannot be a fixed-length byte array, INT96,
     a decimal byte array or a PLAIN byte array, an IN-list needs a key of
@@ -200,19 +730,21 @@ def stage_scan(pf, path: str, lo=None, hi=None,
     from ..io.prefetch import make_chunk_prefetcher
     from ..io.reader import resolve_device
 
-    if policy is not None or report is not None:
-        raise unsupported("fault policies and read reports of the device "
-                          "scan", "the fault-policy slice "
-                          "(parquet_tpu/io/faults.py)")
-    device = resolve_device(device)
+    _refuse_policy("the device scan", policy, report)
+    if devices is not None:
+        from .mesh import resolve_mesh
+
+        devs = resolve_mesh(devices)
+    else:
+        devs = [resolve_device(device)]
     pre = make_chunk_prefetcher(pf.source)
     if pre is None:
         return _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values,
-                                device)
+                                devs)
     try:
         with pf._source_override(pre):
             return _stage_scan_impl(pf, path, lo, hi, columns, use_bloom,
-                                    values, device, prefetcher=pre)
+                                    values, devs, prefetcher=pre)
     finally:
         pre.close()
 
@@ -241,7 +773,7 @@ def _check_key(pf, path: str, out_cols: list, values) -> None:
                       "supported")
 
 
-def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, device,
+def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, devs,
                      prefetcher=None) -> dict:
     from ..algebra.compare import normalize_probe
     from ..io.search import pages_and_base, plan_scan
@@ -256,6 +788,7 @@ def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, device,
     _check_key(pf, path, out_cols, values)
     leaves = {c: pf.schema.leaf(c) for c in [path] + out_cols}
     key_leaf = leaves[path]
+    device = devs[0]
     plans = plan_scan(pf, path, lo=lo, hi=hi, use_bloom=use_bloom,
                       values=values, device=device)
     rgs = pf.row_groups
@@ -293,7 +826,8 @@ def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, device,
     mixed = {c for c in out_cols
              if len({True in cols[c][3] for _, cols in spans_pages}) == 2}
     spans = []
-    for plan, cols in spans_pages:
+    for si, (plan, cols) in enumerate(spans_pages):
+        span_dev = devs[si % len(devs)]
         batch = _StagingBatch()
         per_col, staged, table = {}, {}, None
         for c, (chunk, pages, trim, kinds) in cols.items():
@@ -304,18 +838,19 @@ def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, device,
                 continue
             try:
                 dplan = build_plan(chunk, pages=pages)
-                staged[c] = stage_plan(dplan, device, batch.put)
+                staged[c] = stage_plan(dplan, span_dev, batch.put)
             except _Unsupported as e:
                 raise _refuse(f"device scan column {c!r}: {e}") from None
             per_col[c] = [dplan, None, trim, chunk, pages]
             if c == path and key_leaf.physical_type == Type.BYTE_ARRAY:
                 table = batch.put(keyf.verdicts(dplan.dictionary_host))
-        (staged, table), _ = batch.commit((staged, table), device)
+        (staged, table), _ = batch.commit((staged, table), span_dev)
         for c, got in staged.items():
             per_col[c][1] = got
         spans.append((plan, per_col, table))
     return {"path": path, "out_cols": out_cols, "key": keyf,
-            "spans": spans, "leaves": leaves, "device": device}
+            "spans": spans, "leaves": leaves, "device": device,
+            "devices": devs}
 
 
 def _data_page_kinds(pages) -> set:
@@ -406,10 +941,12 @@ class _ScanCarrier:
         self.flushed = upto
 
 
-def _scan_dispatch(state, carrier: _ScanCarrier) -> None:
-    """Every span, decoded and filtered with no read-back but the batched
-    counts: the key's mask, its survivors' targets, and each output
-    column's rows compacted to a prefix."""
+def _scan_dispatch(state, carrier: _ScanCarrier,
+                   sync_every: Optional[int] = _SYNC_EVERY) -> None:
+    """Every span, decoded and filtered with no read-back but the counts,
+    batched ``sync_every`` spans at a time (None: none before assembly):
+    the key's mask, its survivors' targets, and each output column's rows
+    compacted to a prefix."""
     from .device_reader import decode_staged
 
     path, out_cols = state["path"], state["out_cols"]
@@ -449,7 +986,8 @@ def _scan_dispatch(state, carrier: _ScanCarrier) -> None:
                                      else dev.compact_prefix(valid, tgt))
             carrier.any_valid[c] |= valid is not None
         carrier.counts.append(cnt)
-        if len(carrier.counts) - carrier.flushed >= _SYNC_EVERY:
+        if sync_every and len(carrier.counts) - carrier.flushed >= \
+                sync_every:
             carrier.flush(out_cols, len(carrier.counts))
 
 
@@ -575,3 +1113,47 @@ def scan_filtered_device(pf, path: str, lo=None, hi=None,
                                    use_bloom=use_bloom, values=values,
                                    device=device, policy=policy,
                                    report=report))
+
+
+def scan_filtered_sharded(pf, path: str, lo=None, hi=None,
+                          columns: Optional[Sequence[str]] = None,
+                          mesh=None, use_bloom: bool = True, policy=None,
+                          report=None) -> Dict[str, object]:
+    """The device scan with its surviving spans staged round-robin over
+    ``mesh`` (a device, a list whose entries may repeat, or None or
+    ``"cuda"`` for every card), span ``i`` decoded and filtered on
+    ``mesh[i % len(mesh)]``.  Every shard's spans are dispatched before
+    any shard's survivor counts are read, so the devices work at once.
+
+    Returns ``{column: [per-device results]}`` (one entry a device that
+    holds a span, in mesh order, each in :func:`decoded_scan`'s forms and
+    resident on its device) plus ``"#rows"``, the survivors in all."""
+    from .mesh import resolve_mesh
+
+    devs = resolve_mesh(mesh)
+    state = stage_scan(pf, path, lo=lo, hi=hi, columns=columns,
+                       use_bloom=use_bloom, devices=devs, policy=policy,
+                       report=report)
+    out_cols = state["out_cols"]
+    if "#rows" in out_cols:
+        raise ValueError('a column named "#rows" collides with the result '
+                         "total; select it via scan_filtered instead")
+    shards = []  # (sub-state, carrier)
+    for di, d in enumerate(devs):
+        spans = [sp for si, sp in enumerate(state["spans"])
+                 if si % len(devs) == di]
+        if spans:
+            shards.append((dict(state, spans=spans, device=d),
+                           _ScanCarrier(out_cols)))
+    for sub, carrier in shards:  # each shard's memory is its own share
+        _scan_dispatch(sub, carrier, sync_every=None)
+    per_dev: Dict[str, List] = {c: [] for c in out_cols}
+    total = 0
+    for sub, carrier in shards:
+        got = _scan_assemble(sub, carrier)
+        for c in out_cols:
+            per_dev[c].append(got[c])
+        total += sum(carrier.ks_all)
+    result: Dict[str, object] = dict(per_dev)
+    result["#rows"] = total
+    return result

@@ -21,20 +21,34 @@ from ..format.enums import Type
 
 
 class LogicalKind:
-    """The logical annotations the port reads: the STRING annotation of a
-    byte array, the LIST and MAP annotations of a group, and the INT
-    (``bit_width``, ``signed``) and DECIMAL (``precision``, ``scale``)
-    annotations that set a column's order (the new LogicalType and the
-    legacy ConvertedType collapse into one of these, with those parameters
-    in ``logical_params``, as in the JAX package).  The writer writes the
-    first three."""
+    """A leaf's or group's logical annotation, as the JAX package names
+    it: the new LogicalType and the legacy ConvertedType collapse into one
+    of these, with their parameters in ``logical_params`` (INT:
+    ``bit_width``, ``signed``; DECIMAL: ``precision``, ``scale``; TIME and
+    TIMESTAMP: ``utc``).  INT and DECIMAL set a column's order; the
+    others only type it.  The writer writes STRING, LIST and MAP."""
 
     NONE = "none"
     STRING = "string"
+    ENUM = "enum"
+    JSON = "json"
+    BSON = "bson"
+    UUID = "uuid"
+    DECIMAL = "decimal"
+    DATE = "date"
+    TIME_MILLIS = "time_millis"
+    TIME_MICROS = "time_micros"
+    TIME_NANOS = "time_nanos"
+    TIMESTAMP_MILLIS = "timestamp_millis"
+    TIMESTAMP_MICROS = "timestamp_micros"
+    TIMESTAMP_NANOS = "timestamp_nanos"
+    INT = "int"
+    FLOAT16 = "float16"
+    INTERVAL = "interval"
     LIST = "list"
     MAP = "map"
-    INT = "int"
-    DECIMAL = "decimal"
+    UNKNOWN = "unknown"  # the Null logical type (an always-null column)
+
 
 PHYSICAL_NP_DTYPE = {
     Type.BOOLEAN: np.dtype(np.bool_),
@@ -64,6 +78,22 @@ NUMERIC = (Type.INT32, Type.INT64, Type.FLOAT, Type.DOUBLE)
 # byte width of one PLAIN value of a fixed-width type (FLBA: type_length)
 PHYSICAL_WIDTH = {Type.INT32: 4, Type.INT64: 8, Type.FLOAT: 4, Type.DOUBLE: 8,
                   Type.INT96: 12}
+
+
+def logical_np_dtype(physical: Type, kind: str, params: dict):
+    """The numpy dtype the JAX package presents a leaf's values in (its
+    ``logical_np_dtype``): an INT annotation's width and sign, FLOAT16,
+    else the physical dtype; None for byte arrays, FLBA and INT96."""
+    if physical == Type.INT32 and kind == LogicalKind.INT:
+        bw, signed = params["bit_width"], params["signed"]
+        return np.dtype(f"{'i' if signed else 'u'}{max(bw, 8) // 8}")
+    if physical == Type.INT64 and kind == LogicalKind.INT:
+        return np.dtype("i8" if params["signed"] else "u8")
+    if kind == LogicalKind.FLOAT16:
+        return np.dtype(np.float16)
+    if physical in NUMERIC or physical == Type.BOOLEAN:
+        return PHYSICAL_NP_DTYPE[physical]
+    return None
 
 
 def value_width(physical: Type, type_length=None):

@@ -862,3 +862,131 @@ def test_read_table_sharded_on_card_matches_cpu(cuda_device, tmp_path):
                torch.ones(4, 1, dtype=torch.int32)]
     rows = pqt.decode_step_sharded([cuda_device] * 4, 8)(*step_in)[2]
     assert rows.device.type == "cuda" and int(rows) == 32
+
+
+def _same_host_result(got: dict, want: dict) -> None:
+    """Two host-scan results equal: byte lists, or arrays (masked or not)
+    of one type and dtype, bit for bit."""
+    assert list(got) == list(want)
+    for c, w in want.items():
+        g = got[c]
+        if isinstance(w, list):
+            assert g == w, c
+            continue
+        assert type(g) is type(w) and g.dtype == w.dtype, c
+        assert np.array_equal(np.ma.getmaskarray(g), np.ma.getmaskarray(w))
+        assert np.array_equal(np.ma.getdata(g).view(np.uint8),
+                              np.ma.getdata(w).view(np.uint8)), c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    ("ship", dict(lo=9000, hi=9200), ["k", "v", "mode", "note"], 0),
+    ("ship", dict(values=list(range(9000, 9640, 10))), ["k", "cat"], 1),
+    ("mode", dict(values=["MAIL", "SHIP"]), ["k", "note"], 0)],
+    ids=["range", "in_bloom", "dict_key"])
+def test_host_scan_on_card_equals_cpu(case, cuda_device):
+    """The host scan with its planner's bloom probe on the card equals it
+    on the CPU, with one ``bloom_check`` launch a plan that probes."""
+    path, kw, columns, probes = case
+    data = _scan_file()
+    pqt.reset_launches()
+    got = pqt.scan_filtered(pqt.ParquetFile(data), path, columns=columns,
+                            device=cuda_device, **kw)
+    assert pqt.LAUNCHES["bloom_check"] == probes, pqt.LAUNCHES
+    want = pqt.scan_filtered(pqt.ParquetFile(data), path, columns=columns,
+                             device="cpu", **kw)
+    _same_host_result(got, want)
+    from parquet_tpu_torch.algebra.expr import col
+
+    tree = (col("ship") <= 8100) | ~col("mode").isin(["AIR", "MAIL"])
+    _same_host_result(
+        pqt.scan_expr(pqt.ParquetFile(data), tree, device=cuda_device),
+        pqt.scan_expr(pqt.ParquetFile(data), tree, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_routed_scan_on_card(cuda_device, monkeypatch):
+    """``scan`` on the card: pinned to the device route it equals the
+    device scan; a PLAIN string key goes to the host scan with the
+    footer's reason; pinned to the host it equals the CPU's host scan."""
+    data = _scan_file()
+    pf = pqt.ParquetFile(data)
+    monkeypatch.setenv("PARQUET_TPU_TORCH_ROUTE", "device")
+    got = pqt.scan(pf, "ship", lo=9000, hi=9200, columns=["k", "v"],
+                   device=cuda_device)
+    want = pqt.scan_filtered_device(pf, "ship", lo=9000, hi=9200,
+                                    columns=["k", "v"], device=cuda_device)
+    for c in ("k", "v"):
+        _same_form(_host_form(got[c]), _host_form(want[c]))
+    d = pqt.route_scan(pf, "note", values=["n1"], device=cuda_device)
+    assert d.route == "host" and "non-dictionary" in d.reason
+    monkeypatch.setenv("PARQUET_TPU_TORCH_ROUTE", "host")
+    _same_host_result(
+        pqt.scan(pf, "ship", lo=9000, hi=9200, columns=["k", "note"],
+                 device=cuda_device),
+        pqt.scan_filtered(pf, "ship", lo=9000, hi=9200,
+                          columns=["k", "note"], device="cpu"))
+
+
+@pytest.mark.cuda
+def test_page_level_fallback_on_card(cuda_device, monkeypatch):
+    """The host-route fixture's string key, whose dictionary falls back to
+    PLAIN mid-chunk: the footer passes it, the device scan refuses it, the
+    routed scan pinned to the card falls back to the host scan."""
+    import os
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "torch_fixtures")
+    a = np.load(os.path.join(here, "host_route.npz"))
+    pf = pqt.ParquetFile(os.path.join(here, "host_route.parquet"))
+    o = a["s_offsets"]
+    probe = [a["s_values"][o[i]:o[i + 1]].tobytes() for i in (3, 2500)]
+    assert pqt.device_route_supported(pf, "s", ["k"], probe)[0]
+    with pytest.raises(ValueError, match="use the host scan"):
+        pqt.stage_scan(pf, "s", values=probe, columns=["k"],
+                       device=cuda_device)
+    monkeypatch.setenv("PARQUET_TPU_TORCH_ROUTE", "device")
+    got = pqt.scan(pf, "s", values=probe, columns=["k"], device=cuda_device)
+    want = pqt.scan_filtered(pf, "s", values=probe, columns=["k"],
+                             device="cpu")
+    _same_host_result(got, want)
+    assert got["k"].tolist() == [int(a["k"][3]), int(a["k"][2500])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entries", [1, 2])
+def test_dataset_scan_and_sharded_scan_on_card(cuda_device, tmp_path,
+                                               entries):
+    """``Dataset.scan`` and ``scan_filtered_sharded`` at
+    ``[cuda:0] * entries``, equal to the CPU's."""
+    paths = _dataset_files(tmp_path)
+    mesh = [cuda_device] * entries
+    _same_host_result(
+        pqt.Dataset(paths).scan("cat", lo=10, hi=40, device=mesh),
+        pqt.Dataset(paths).scan("cat", lo=10, hi=40, device="cpu"))
+    pf = pqt.ParquetFile(paths[0])
+    got = pqt.scan_filtered_sharded(pf, "id", lo=5000, hi=25_000,
+                                    columns=["cat", "ts"], mesh=mesh)
+    want = pqt.scan_filtered_sharded(pf, "id", lo=5000, hi=25_000,
+                                     columns=["cat", "ts"],
+                                     mesh=["cpu"] * entries)
+    assert got["#rows"] == want["#rows"] == 20_001
+    for c in ("cat", "ts"):
+        for a, b in zip(got[c], want[c]):
+            _same_form(_host_form(a), _host_form(b))
+
+
+@pytest.mark.cuda
+def test_gather_byte_arrays_cpp_on_card_machine(cuda_device):
+    """The C++ survivor gather against its numpy version at a chunk's
+    size (the machine's own compiler)."""
+    from parquet_tpu_torch.ops import host
+
+    rng = np.random.default_rng(4)
+    offs = np.arange(1_000_001, dtype=np.int64) * 27
+    vals = rng.integers(0, 256, int(offs[-1])).astype(np.uint8)
+    idx = np.flatnonzero(rng.random(1_000_000) < 0.1)
+    for a, b in zip(host.gather_byte_arrays(vals, offs, idx),
+                    host.gather_byte_arrays_numpy(vals, offs, idx)):
+        assert np.array_equal(a, b)

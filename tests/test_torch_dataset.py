@@ -5,6 +5,10 @@ row_groups=...)`` against parquet_tpu, on the CPU.
 The port reads on ``"cpu"`` and on ``["cpu"] * 8`` (eight shards, eight
 files in a window of four), the JAX package on its host read and on its
 device read over the 8-device CPU mesh the test configuration makes.
+``Dataset.scan`` (the host scan of every file the footers keep) is held
+to ``parquet_tpu.Dataset.scan``, and the schema check to the JAX
+package's on every logical annotation (TIMESTAMP units and UTC
+adjustment among them).
 Files are small and made from a seed with numpy; every equality is exact.
 Every test ends with the threads it started with (the shared pool is
 filled once, before the first).
@@ -512,7 +516,7 @@ def test_cuda_by_default(mixed, monkeypatch):
 
 
 @pytest.mark.parametrize("call,slice_name", [
-    ("iter_batches", "stream"), ("scan", "routed scan"),
+    ("iter_batches", "stream"), ("scan_policy", "fault-policy slice"),
     ("find_rows", "lookup leftovers"), ("aggregate", "aggregation"),
     ("policy", "fault policies"), ("report", "fault policies"),
     ("snapshot_version", "manifest"), ("_file_stats", "manifest"),
@@ -521,7 +525,8 @@ def test_refused_methods_name_their_slice(mixed, call, slice_name):
     ds = pqt.Dataset(mixed["paths"][:1])
     run = {
         "iter_batches": lambda: ds.iter_batches(),
-        "scan": lambda: ds.scan("plain_i64", lo=1),
+        "scan_policy": lambda: ds.scan("plain_i64", lo=1, device="cpu",
+                                       policy=object()),
         "find_rows": lambda: ds.find_rows("plain_i64", [1]),
         "aggregate": lambda: ds.aggregate([]),
         "policy": lambda: ds.read(device="cpu", policy=object()),
@@ -623,3 +628,200 @@ def test_reads_from_many_threads_drain_staging(mixed):
         _same_table(out, mixed["host"], "concurrent")
     assert pqt.MESH["files_sharded"] == 4 * N_FILES
     assert pqt.MESH["staging_bytes"] == 0
+
+
+# ---------------------------------------------------------------------------
+# logical annotations: the schema check sees every one the JAX package sees
+# ---------------------------------------------------------------------------
+
+
+def _annotated_file() -> bytes:
+    """A footer (no row group) whose leaves carry every logical annotation
+    the JAX package's writer writes, LIST and MAP groups among them."""
+    import io
+
+    from parquet_tpu.format.enums import FieldRepetitionType as JRep
+    from parquet_tpu.format.enums import Type as JT
+    from parquet_tpu.io.writer import ParquetWriter, WriterOptions
+    from parquet_tpu.schema import schema as S
+    from parquet_tpu.schema.types import LogicalKind as K
+
+    leaves = [
+        S.leaf("str", JT.BYTE_ARRAY, logical=K.STRING),
+        S.leaf("enum", JT.BYTE_ARRAY, logical=K.ENUM),
+        S.leaf("json", JT.BYTE_ARRAY, logical=K.JSON),
+        S.leaf("bson", JT.BYTE_ARRAY, logical=K.BSON),
+        S.leaf("uuid", JT.FIXED_LEN_BYTE_ARRAY, logical=K.UUID,
+               type_length=16),
+        S.leaf("f16", JT.FIXED_LEN_BYTE_ARRAY, logical=K.FLOAT16,
+               type_length=2),
+        S.leaf("dec32", JT.INT32, logical=K.DECIMAL, precision=9, scale=2),
+        S.leaf("dec64", JT.INT64, logical=K.DECIMAL, precision=18, scale=4),
+        S.leaf("decfl", JT.FIXED_LEN_BYTE_ARRAY, logical=K.DECIMAL,
+               precision=30, scale=3, type_length=13),
+        S.leaf("decba", JT.BYTE_ARRAY, logical=K.DECIMAL, precision=40,
+               scale=0),
+        S.leaf("date", JT.INT32, logical=K.DATE),
+        S.leaf("interval", JT.FIXED_LEN_BYTE_ARRAY, logical=K.INTERVAL,
+               type_length=12),
+        S.leaf("unknown", JT.INT32, JRep.OPTIONAL, logical=K.UNKNOWN)]
+    for unit, phys in (("millis", JT.INT32), ("micros", JT.INT64),
+                       ("nanos", JT.INT64)):
+        for utc in (True, False):
+            leaves.append(S.leaf(f"time_{unit}_{utc}", phys,
+                                 logical=f"time_{unit}", utc=utc))
+            leaves.append(S.leaf(f"ts_{unit}_{utc}", JT.INT64,
+                                 logical=f"timestamp_{unit}", utc=utc))
+    for bw in (8, 16, 32, 64):
+        for signed in (True, False):
+            leaves.append(S.leaf(f"int{bw}_{signed}",
+                                 JT.INT64 if bw == 64 else JT.INT32,
+                                 logical=K.INT, bit_width=bw,
+                                 signed=signed))
+    leaves.append(S.list_of("xs", S.leaf("e", JT.INT32, JRep.OPTIONAL)))
+    leaves.append(S.map_of("m", S.leaf("k", JT.BYTE_ARRAY,
+                                       logical=K.STRING),
+                           S.leaf("v", JT.DOUBLE, JRep.OPTIONAL)))
+    buf = io.BytesIO()
+    ParquetWriter(buf, S.message("m", leaves), WriterOptions()).close()
+    return buf.getvalue()
+
+
+def test_every_logical_annotation_reads_as_jax():
+    raw = _annotated_file()
+    got = [(leaf.name, leaf.logical_kind, leaf.logical_params)
+           for leaf in pqt.ParquetFile(raw).schema.leaves]
+    want = [(leaf.dotted_path, leaf.logical_kind, leaf.logical_params)
+            for leaf in parquet_tpu.ParquetFile(raw).schema.leaves]
+    assert got == want
+    assert len({k for _, k, _ in got}) == 18  # the leaf kinds, NONE too
+    groups = {n.name: n.logical_kind
+              for n in pqt.ParquetFile(raw).schema.root.children}
+    assert (groups["xs"], groups["m"]) == ("list", "map")
+
+
+def test_legacy_converted_types_read_as_jax():
+    """Elements with only a ConvertedType (every value, and one no
+    version names), with and without decimal parameters."""
+    from parquet_tpu.format import metadata as jmd
+    from parquet_tpu.schema.types import _logical_from_element
+
+    from parquet_tpu_torch.format import metadata as tmd
+    from parquet_tpu_torch.schema.schema import _logical_kind
+
+    for ct in list(range(22)) + [None, 40]:
+        kw = dict(name="x", converted_type=ct, scale=3, precision=11)
+        assert _logical_kind(tmd.SchemaElement(**kw)) == \
+            _logical_from_element(jmd.SchemaElement(**kw)), ct
+
+
+@pytest.mark.parametrize("drift", ["timestamp_unit", "utc"])
+def test_timestamp_drift_raises_as_jax(tmp_path, drift):
+    """Files that differ only in a TIMESTAMP unit, or only in
+    ``isAdjustedToUTC``: each package's read, prune and scan refuse them
+    as one dataset."""
+    a = os.path.join(str(tmp_path), "a.parquet")
+    b = os.path.join(str(tmp_path), "b.parquet")
+    ts = np.arange(10, dtype=np.int64) * 1000
+    if drift == "timestamp_unit":
+        types = (pa.timestamp("ms"), pa.timestamp("us"))
+    else:
+        types = (pa.timestamp("ms", tz="UTC"), pa.timestamp("ms"))
+    for p, t in zip((a, b), types):
+        papq.write_table(pa.table({"ts": pa.array(ts, type=t),
+                                   "v": pa.array(ts)}), p)
+    assert pqt.ParquetFile(a).schema.leaf("ts").physical_type == \
+        pqt.ParquetFile(b).schema.leaf("ts").physical_type
+    port, ref = pqt.Dataset([a, b]), parquet_tpu.Dataset([a, b])
+    for call in (lambda ds, kw: ds.read(**kw),
+                 lambda ds, kw: ds.prune("v", lo=0),
+                 lambda ds, kw: ds.scan("v", lo=0, **kw)):
+        for ds, kw in ((port, {"device": "cpu"}), (ref, {})):
+            with pytest.raises(ValueError, match="schema mismatch"):
+                call(ds, kw)
+
+
+# ---------------------------------------------------------------------------
+# Dataset.scan
+# ---------------------------------------------------------------------------
+
+
+def _scan_corpus(root, n_files=4, rows=2000):
+    """Files with disjoint ascending keys ``x`` (file i: [i*rows,
+    (i+1)*rows)), a string ``s``, a nullable float ``f`` (nulls only from
+    file 2 on) and a FIXED_LEN_BYTE_ARRAY ``fl``, a page index."""
+    paths = []
+    for i in range(n_files):
+        x = np.arange(i * rows, (i + 1) * rows, dtype=np.int64)
+        m = (x % 7 == 0) & (i >= 2)
+        t = pa.table({
+            "x": pa.array(x),
+            "s": pa.array([f"s{v % 13}" for v in x]),
+            "f": pa.array(np.where(m, 0.0, x * 0.5), mask=m),
+            "fl": pa.array([int(v % 251).to_bytes(2, "little") for v in x],
+                           type=pa.binary(2))})
+        p = os.path.join(root, f"part-{i:02d}.parquet")
+        papq.write_table(t, p, row_group_size=RG, write_page_index=True,
+                         data_page_size=1024)
+        paths.append(p)
+    return paths
+
+
+@pytest.mark.parametrize("mesh", [[CPU], [CPU] * 4], ids=["x1", "x4"])
+def test_dataset_scan_matches_jax(tmp_path, mesh):
+    from parquet_tpu.algebra.expr import col as jcol
+    from tests.test_torch_host_scan import _same
+
+    from parquet_tpu_torch.algebra.expr import col
+
+    paths = _scan_corpus(str(tmp_path))
+    port, ref = pqt.Dataset(paths), parquet_tpu.Dataset(paths)
+    cases = [({"path": "x", "lo": 3500, "hi": 6200}, {}),
+             ({"path": "x", "values": [7, 2001, 10 ** 9]}, {}),
+             ({"path": "s", "values": ["s3"]}, {"columns": ["x", "f"]}),
+             ({"path": "x", "lo": 10 ** 9}, {}),
+             ({"path": "x", "lo": 10 ** 9}, {"columns": ["fl", "s"]})]
+    for pred, kw in cases:
+        got = port.scan(device=mesh, **pred, **kw)
+        _same(got, ref.scan(**pred, **kw), f"{pred} {kw}")
+    for tree, kw in ((lambda c: (c("x") <= 100) | (c("x") >= 7900), {}),
+                     (lambda c: c("f").is_null() & (c("s") == "s1"),
+                      {"columns": ["x", "fl"]}),
+                     (lambda c: c("x") >= 10 ** 9, {})):
+        got = port.scan(where=tree(col), device=mesh, **kw)
+        _same(got, ref.scan(where=tree(jcol), **kw), f"tree {kw}")
+    # one survivor: a single file's result, unmerged
+    got = port.scan("x", lo=10, hi=20, device=mesh)
+    _same(got, ref.scan("x", lo=10, hi=20), "one file")
+
+
+def test_dataset_scan_equals_per_file_scans(tmp_path):
+    paths = _scan_corpus(str(tmp_path))
+    got = pqt.Dataset(paths).scan("x", lo=1500, hi=5200, device=[CPU] * 2)
+    want_s, want_f = [], []
+    for p in paths:
+        one = pqt.scan_filtered(pqt.ParquetFile(p), "x", lo=1500, hi=5200,
+                                device=CPU)
+        want_s.extend(one["s"])
+        want_f.append(one["f"])
+    assert got["s"] == want_s and len(want_s) == 5200 - 1500 + 1
+    f = np.ma.concatenate([w for w in want_f if len(w)])
+    assert np.array_equal(np.ma.getmaskarray(got["f"]),
+                          np.ma.getmaskarray(f))
+    assert np.array_equal(np.ma.getdata(got["f"]), np.ma.getdata(f))
+
+
+def test_dataset_scan_empty_fallback_validates_columns(tmp_path):
+    p = os.path.join(str(tmp_path), "nested.parquet")
+    papq.write_table(pa.table({
+        "x": pa.array(np.arange(10, dtype=np.int64)),
+        "lst": pa.array([[i, i] for i in range(10)])}), p)
+    for ds, kw in ((pqt.Dataset([p]), {"device": "cpu"}),
+                   (parquet_tpu.Dataset([p]), {})):
+        with pytest.raises(ValueError, match="nested"):
+            ds.scan("x", lo=10 ** 12, columns=["lst.list.element"], **kw)
+        with pytest.raises(KeyError):
+            ds.scan("x", lo=10 ** 12, columns=["nope"], **kw)
+    empty = pqt.Dataset([p]).shard(1, 2)
+    with pytest.raises(ValueError, match="empty dataset shard"):
+        empty.scan("x", lo=1, device="cpu")

@@ -1,6 +1,6 @@
-"""parquet_tpu_torch's row-group-sharded read (``read_table_sharded``) and
-sharded decode step (``decode_step_sharded``) against parquet_tpu's, on
-the CPU.
+"""parquet_tpu_torch's row-group-sharded read (``read_table_sharded``),
+sharded decode step (``decode_step_sharded``) and sharded device scan
+(``scan_filtered_sharded``) against parquet_tpu's, on the CPU.
 
 The port shards over ``["cpu"] * 8`` (or 4), the JAX package over its
 8-device (or 4-device) CPU mesh; each of the port's shards is held to the
@@ -340,3 +340,94 @@ def test_decode_step_sums_over_a_process_group(tmp_path):
         *[torch.from_numpy(c) for c in cols])[2])
     assert [o["rows"] for o in outs] == [single, single]
     assert sum(o["local_rows"] for o in outs) == single
+
+
+# ---------------------------------------------------------------------------
+# the sharded device scan
+# ---------------------------------------------------------------------------
+
+
+def _scan_file() -> bytes:
+    """Eight row groups of a sorted INT32 key, a row id, a nullable double
+    and a dictionary string, with a page index."""
+    rng = np.random.default_rng(23)
+    n = 16_000
+    m = rng.random(n) < 0.1
+    return _write(pa.table({
+        "k": pa.array(np.sort(rng.integers(0, 4000, n)).astype(np.int32)),
+        "v": pa.array(np.arange(n, dtype=np.int64)),
+        "d": pa.array(np.where(m, 0.0, rng.random(n)), mask=m),
+        "s": pa.array([f"s{i % 11}" for i in range(n)])}),
+        row_group_size=n // 8, use_dictionary=["s"], write_page_index=True,
+        data_page_size=1 << 12)
+
+
+def _rows_of(form, col: str) -> tuple:
+    """A device-scan column form on the host: (values, validity)."""
+    if isinstance(form, tuple) and isinstance(form[0], tuple):
+        (dv, do), idx = form
+        dv, do = dv.numpy(), do.numpy()
+        return [dv[do[i]:do[i + 1]].tobytes() for i in idx.numpy()], None
+    if isinstance(form, tuple):
+        return form[0].numpy(), form[1].numpy()
+    return form.numpy(), None
+
+
+@pytest.mark.parametrize("nd", [1, 4])
+def test_scan_filtered_sharded_matches(nd):
+    """Each shard's rows are its spans' (span i on device i % nd): joined
+    and put back in file order they equal ``scan_filtered_device``; each
+    shard's numbers equal the JAX package's shard on its CPU mesh."""
+    from parquet_tpu.io.reader import ParquetFile as JParquetFile
+    from parquet_tpu.parallel import host_scan as jhs
+
+    raw = _scan_file()
+    pf = pqt.ParquetFile(raw)
+    cols = ["v", "d", "s"]
+    for kw in ({"lo": 300, "hi": 3500}, {"lo": 10 ** 6}):
+        got = pqt.scan_filtered_sharded(pf, "k", columns=cols,
+                                        mesh=[CPU] * nd, **kw)
+        want = pqt.scan_filtered_device(pf, "k", columns=cols, device=CPU,
+                                        **kw)
+        assert got["#rows"] == len(want["v"])
+        order = np.argsort(np.concatenate(
+            [_rows_of(p, "v")[0] for p in got["v"]] or [np.zeros(0)]))
+        for c in cols:
+            wv, wvalid = _rows_of(want[c], c)
+            parts = [_rows_of(p, c) for p in got[c]]
+            gv = [x for vals, _ in parts for x in vals]
+            assert [gv[i] for i in order] == list(wv), (c, kw)
+            if wvalid is not None:
+                gvalid = np.concatenate([
+                    v if v is not None else np.ones(len(x), bool)
+                    for x, v in parts])
+                assert np.array_equal(gvalid[order], wvalid), (c, kw)
+        ref = jhs.scan_filtered_sharded(JParquetFile(raw), "k",
+                                        columns=["v", "d"],
+                                        mesh=jmesh.default_mesh(nd), **kw)
+        assert ref["#rows"] == got["#rows"]
+        assert len(ref["v"]) == len(got["v"])
+        for gp, jp in zip(got["v"], ref["v"]):
+            np.testing.assert_array_equal(
+                gp.numpy(), _as_native(np.asarray(jp), pf.schema.leaf("v")))
+        for gp, jp in zip(got["d"], ref["d"]):
+            gvals, gvalid = gp if isinstance(gp, tuple) else (gp, None)
+            jvals, jvalid = jp if isinstance(jp, tuple) else (jp, None)
+            np.testing.assert_array_equal(
+                gvals.numpy(), _as_native(np.asarray(jvals),
+                                          pf.schema.leaf("d")))
+            assert (gvalid is None) == (jvalid is None)
+            if gvalid is not None:
+                np.testing.assert_array_equal(gvalid.numpy(),
+                                              np.asarray(jvalid))
+
+
+def test_scan_filtered_sharded_refuses_a_rows_column():
+    raw = _write(pa.table({"k": pa.array(np.arange(10, dtype=np.int32)),
+                           "#rows": pa.array(np.arange(10))}))
+    with pytest.raises(ValueError, match="#rows"):
+        pqt.scan_filtered_sharded(pqt.ParquetFile(raw), "k", lo=1,
+                                  mesh=[CPU] * 2)
+    with pytest.raises(NotImplementedError, match="fault-policy"):
+        pqt.scan_filtered_sharded(pqt.ParquetFile(raw), "k", lo=1,
+                                  mesh=[CPU], policy=object())
