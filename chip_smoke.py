@@ -1,4 +1,4 @@
-"""Drive parquet_tpu_torch's device read, batched point lookup, device
+"""Drive parquet_tpu_torch's device read, batched point lookups, device
 scan and multi-file and sharded reads on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
@@ -106,13 +106,22 @@ Phases, each fatal on failure:
 5. lookup path: a 3-column file keyed by ``k`` (1,048,576-row row groups,
    8 KiB pages, bloom filters on ``k``, page index, rows sorted by ``k``)
    and a batch of ``--lookup-rows / 16`` distinct keys, one in eight
-   present; ``find_rows("k", keys, columns=["v", "cat"], device="cuda")``
-   runs once cold on a fresh handle and twice warm on the same one.  Every
-   key's rows, values and validity must equal a numpy oracle, the bloom
-   stage of every row group together must launch ``bloom_check`` once per
-   lookup, and the counters must equal the same lookup's on the CPU; then
-   one warm lookup under per-stage timers (key preparation, statistics,
-   bloom probe, page search, page fetch, matching, gather, assembly);
+   present.  From cleared caches ``find_rows("k", keys, columns=["v",
+   "cat"], device="cuda")`` runs once cold on a fresh handle and twice
+   warm on the same one, first at the port's default cache sizes (64 MiB
+   of pages, a 4 MiB memo), then with the page cache at 1 GiB and the
+   memo at 512 MiB (:data:`LOOKUP_CACHE_KNOBS`, not the defaults: this
+   batch's working set fits).  Every key's rows, values and validity must
+   equal a numpy oracle; the bloom stage of every row group together must
+   launch ``bloom_check`` once in a cold lookup and at most once in a warm
+   one; with the larger caches the warm ones must read and decode nothing
+   (``preads`` 0) and hit the page cache and the memo, and each run's
+   counters must equal the same sequence's on the CPU from cleared
+   caches.  Cold and warm keys/s of both cache sizes print beside the
+   earlier calls W2 / W3's warm 102,557.7 / 102,960.0 (PR 10, no page
+   cache); then one cold and one warm lookup at the defaults under
+   per-stage timers (key preparation, statistics, bloom probe, page search, page
+   fetch, matching, gather, assembly);
 5b. device scan: ``stage_scan(..., device="cuda")`` once, ``decoded_scan``
    once cold and three times warm, ``scan_filtered_device`` end to end
    three times, in three cases: (A) ``bench.py:_cfg5`` at ``--scan-rows``
@@ -157,6 +166,22 @@ Phases, each fatal on failure:
    largest ``unpack_bits_dense`` launch of the first, cold, read kept for
    phase 6); ``decode_step_sharded`` at
    4 x 1,048,576 rows against its CPU run (``{"sharded": ...}``);
+5f. the lookup leftovers: (a) a BYTE_ARRAY key, 1,048,576 distinct
+   sorted URLs (phase 4c's ``_urls``) in one row group, PLAIN under Snappy,
+   64 KiB pages, a bloom filter and a page index; 65,536 keys, one in
+   eight present, looked up cold and warm on the card from cleared caches:
+   hits equal to a dict oracle, one ``bloom_check`` launch, the cold
+   counters equal to the CPU's, the warm run served from the caches, and
+   the C++ ``pq_xxh64_batch`` of the keys equal to the plain Python
+   ``io/bloom.py::xxh64_bytes`` (``{"url_lookup": ...}``); (b)
+   ``Dataset.find_rows``: phase 5c's lineitem rows again as 8 part files
+   (``l_orderkey``, ``l_quantity``, ``l_extendedprice``, ``l_shipmode``;
+   524,288-row row groups, Snappy, 64 KiB pages, a bloom filter on
+   ``l_orderkey``, page index), 65,536 keys in ``l_orderkey``'s range, one
+   cold and two warm lookups on the card, each equal to a numpy oracle on
+   the concatenated rows (global rows, values), the cold counters equal to
+   the CPU's, ``read_admission()``'s high water within the lookup budget
+   (``{"dataset_find_rows": ...}``);
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -170,8 +195,9 @@ Phases, each fatal on failure:
    graph of 100 launches (``graph_ms``) and the SM clock, power draw and
    temperature sampled before and after; for
    ``bloom_check`` the lookup's segmented probe (``ms``, profiler), and
-   beside it the one-filter launch at one row group's shape.  Every kernel
-   also gets ``call_ms`` (CUDA events around back-to-back wrapper calls,
+   beside it the one-filter launch at one row group's shape and the
+   byte-array lookup's probe of phase 5f (``byte_array_shape``).  Every
+   kernel also gets ``call_ms`` (CUDA events around back-to-back wrapper calls,
    the host's dispatch included); then one ``{"ops": [...]}`` line: the
    torch ops that stand for the JAX package's XLA ops, at the shapes of
    enc's and lineitem's first row groups, and the level assembly at cfg 4's
@@ -183,8 +209,10 @@ Phases, each fatal on failure:
    calls in one ``decoded_scan``;
 7. one warm ``decoded_scan`` of each scan case (``{"scan_breakdown":
    ...}``, first: short windows), one more warm read of the 5-column
-   file, of lineitem and of cfg 4, and one more warm lookup, each under
-   the profiler, for the device's idle share; each read follows an unprofiled read of its file (phases 4b-6
+   file, of lineitem and of cfg 4, and two more lookups (one cold from
+   cleared caches at the defaults, one warm with the caches sized to the
+   working set), each under the profiler, for the
+   device's idle share; each read follows an unprofiled read of its file (phases 4b-6
    used the caching allocators in between) and must copy nothing over
    1 MiB from pageable memory and create no pinned block (the trace's
    copies and ``cudaHostAlloc`` and ``cudaMalloc`` calls are logged).
@@ -2475,7 +2503,7 @@ class PhaseTimer:
         (bloom, "check_hashes_multi", "bloom"),
         (lookup, "_page_ords_of_keys", "page_search"),
         (lookup._PageFetcher, "fetch", "fetch"),
-        (lookup, "_match_keys", "match"),
+        (lookup, "_match", "match"),
         (lookup, "_gather_columns", "gather"),
         (lookup, "_assemble_hits", "assemble"),
     )
@@ -2483,15 +2511,11 @@ class PhaseTimer:
     def __init__(self):
         self.seconds = {name: 0.0 for _, _, name in self.STAGES}
         self.calls = {name: 0 for _, _, name in self.STAGES}
-        # (filters, hash batches) of the first segmented bloom probe
-        self.first_bloom = None
         self._stack = []
         self._saved = []
 
     def _wrap(self, fn, name):
         def timed(*args, **kwargs):
-            if name == "bloom" and self.first_bloom is None:
-                self.first_bloom = (args[0], args[1])
             self._stack.append(0.0)
             t0 = time.perf_counter()
             try:
@@ -2526,10 +2550,107 @@ def timed_lookup(f, keys: np.ndarray, device) -> tuple:
     return res, time.perf_counter() - t0
 
 
+# keys/s of the warm lookup in two earlier calls (W2, W3: PR 10's chip runs
+# of the same lookup, without a page cache, on NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's
+EARLIER_WARM_KEYS_PER_S = {"W2": 102_557.7, "W3": 102_960.0}
+# the caches sized to the working set of phase 5's lookup (every page of
+# ``k``, ``v`` and ``cat`` the batch touches, and 4,128,768 (key, row
+# group) pairs proven absent), not the port's defaults (64 MiB of pages, a
+# 4 MiB memo): the warm checks of phases 5 and 5f run under them, and
+# phase 5 runs its lookups at the defaults too
+LOOKUP_CACHE_KNOBS = {"PARQUET_TPU_TORCH_PAGE_CACHE": str(1 << 30),
+                      "PARQUET_TPU_TORCH_NEG_LOOKUP": str(512 << 20)}
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """The port's knobs set to ``values`` inside the block."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def bloom_probes():
+    """The operands ``(filters, hash batches)`` of every segmented bloom
+    probe made inside the block."""
+    seen = []
+    real = bloom.check_hashes_multi
+
+    def spy(filters, batches, device="cuda"):
+        seen.append((list(filters), [np.asarray(b) for b in batches]))
+        return real(filters, batches, device)
+
+    bloom.check_hashes_multi = spy
+    try:
+        yield seen
+    finally:
+        bloom.check_hashes_multi = real
+
+
+def lookup_sequence(path: str, keys: np.ndarray, device,
+                    probes: list = None) -> list:
+    """From cleared caches: one cold lookup on a fresh handle, then two
+    warm ones on the same handle; ``[(result, seconds, bloom_check
+    launches)]``.  The cold lookup's bloom probes go to ``probes``."""
+    pq.clear_caches()
+    f = pq.ParquetFile(path)
+    out = []
+    for i in range(3):
+        before = pq.LAUNCHES["bloom_check"]
+        with bloom_probes() as seen:
+            res, s = timed_lookup(f, keys, device)
+        if i == 0 and probes is not None:
+            probes.extend(seen)
+        out.append((res, s, pq.LAUNCHES["bloom_check"] - before))
+    return out
+
+
+def same_hits(a, b, what: str) -> None:
+    """Two lookups' hits equal: rows, values and validity of each key."""
+    for x, y in zip(a, b):
+        if not np.array_equal(x.rows, y.rows):
+            raise AssertionError(f"{what}: rows of key {y.key!r} differ")
+        for c in x.values:
+            xv, yv = x.values[c], y.values[c]
+            same = (xv == yv if isinstance(yv, list)
+                    else np.array_equal(xv, yv))
+            xs, ys = x.validity[c], y.validity[c]
+            if not same or (xs is None) != (ys is None) or (
+                    ys is not None and not np.array_equal(xs, ys)):
+                raise AssertionError(f"{what}: {c} of key {y.key!r} "
+                                     "differs")
+
+
+def check_bloom_runs(bloom_runs: list, row_groups: int, what: str) -> None:
+    """One ``bloom_check`` launch in a cold lookup, at most one in a warm
+    one."""
+    if bloom_runs[0] != 1 or max(bloom_runs[1:]) > 1:
+        raise AssertionError(
+            f"{what}: bloom_check launched {bloom_runs} times in a cold and "
+            f"two warm lookups of {row_groups} row groups: one launch a "
+            "cold lookup, at most one a warm one expected")
+
+
 def lookup_path(rows: int, seed: int, tmp: str) -> dict:
-    """The lookup path at full size; returns its launches, one lookup's
-    segmented bloom probe (filters, surviving hashes of each), its stage
-    times and ``run``, one more warm lookup."""
+    """The lookup path at full size.  From cleared caches one cold lookup
+    and two warm ones on the card at the port's default cache sizes, then
+    the same sequence with the caches sized to the batch's working set
+    (:data:`LOOKUP_CACHE_KNOBS`), where the warm runs must read nothing and
+    each run's counters must equal the same sequence's on the CPU; then a
+    cold and a warm lookup at the defaults under the stage timers.
+    Returns the kernels' launches over the two sequences, one lookup's
+    segmented bloom probe (filters, surviving hashes of each), the stage
+    times, and ``cold`` / ``warm`` (a cold lookup at the defaults; a warm
+    one with the caches sized to the working set) for the profiler."""
     table = make_lookup_table(rows, seed)
     keys = make_keys(rows, seed)
     path = os.path.join(tmp, "lookup.parquet")
@@ -2543,55 +2664,324 @@ def lookup_path(rows: int, seed: int, tmp: str) -> dict:
 
     pq.reset_launches()
     reset_routes()
-    f = pq.ParquetFile(path)
-    res, cold_s = timed_lookup(f, keys, DEVICE)
-    cold_launches = pq.LAUNCHES["bloom_check"]
-    check_lookup(res, keys, table)
-    warm = []
-    for _ in range(2):
-        res, s = timed_lookup(f, keys, DEVICE)
-        warm.append(s)
+    # the shipped defaults (64 MiB of pages, a 4 MiB memo)
+    default_runs = lookup_sequence(path, keys, DEVICE)
+    for res, _, _ in default_runs:
+        check_lookup(res, keys, table)
+    check_bloom_runs([n for _, _, n in default_runs], row_groups,
+                     "the lookups at the default cache sizes")
+    default_s = [s for _, s, _ in default_runs]
+    default_counters = [dict(res.counters) for res, _, _ in default_runs]
+    del default_runs
+    # the caches sized to the working set
+    probes = []
+    with knobs(**LOOKUP_CACHE_KNOBS):
+        card_runs = lookup_sequence(path, keys, DEVICE, probes)
+    run_s = [s for _, s, _ in card_runs]
     launches = dict(pq.LAUNCHES)
-    check_lookup(res, keys, table)
+    for res, _, _ in card_runs:
+        check_lookup(res, keys, table)
     no_host_route("the lookups")
-    if cold_launches != 1 or launches["bloom_check"] != 3:
-        raise AssertionError(
-            f"bloom_check launched {cold_launches} then "
-            f"{launches['bloom_check']} times over 3 lookups of "
-            f"{row_groups} row groups: one launch per lookup expected")
+    bloom_runs = [n for _, _, n in card_runs]
+    check_bloom_runs(bloom_runs, row_groups, "the lookups with the caches "
+                     "sized to the working set")
     for name in LOOKUP_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  "lookups")
-    if res.counters["rows_matched"] != 4 * (len(keys) // 8):
-        raise AssertionError(f"rows_matched {res.counters['rows_matched']}")
+    counters = [dict(res.counters) for res, _, _ in card_runs]
+    if counters[0]["rows_matched"] != 4 * (len(keys) // 8):
+        raise AssertionError(f"rows_matched {counters[0]['rows_matched']}")
+    for c in counters[1:]:  # every page is cached, every miss memoized
+        if c["preads"] or c["pages_read"] or not c["page_cache_hits"] \
+                or not c["neg_hits"]:
+            raise AssertionError(f"a warm lookup read pages or missed the "
+                                 f"memo: {c}")
     t0 = time.perf_counter()
-    cpu = pq.ParquetFile(path).find_rows("k", keys, columns=LOOKUP_COLUMNS,
-                                         device="cpu")
+    with knobs(**LOOKUP_CACHE_KNOBS):
+        cpu_runs = lookup_sequence(path, keys, "cpu")
     cpu_s = time.perf_counter() - t0
-    if cpu.counters != res.counters:
-        raise AssertionError(f"counters on {DEVICE} {res.counters} differ "
-                             f"from the CPU's {cpu.counters}")
-    counters = dict(res.counters)
-    del res, cpu
+    for i, ((res, _, _), (cpu, _, _)) in enumerate(zip(card_runs,
+                                                       cpu_runs)):
+        if cpu.counters != res.counters:
+            raise AssertionError(f"lookup {i}: counters on {DEVICE} "
+                                 f"{res.counters} differ from the CPU's "
+                                 f"{cpu.counters}")
+        same_hits(res, cpu, f"lookup {i} on the CPU")
+    del cpu_runs
+    del card_runs
 
-    # one more warm lookup, under the stage timers
-    with PhaseTimer() as timer:
-        _, timed_s = timed_lookup(f, keys, DEVICE)
-    stages = dict(timer.seconds)
-    stages["other"] = timed_s - sum(stages.values())
-    best = min(warm)
+    # a cold and a warm lookup under the stage timers, at the defaults
+    stages = {}
+    pq.clear_caches()
+    f = pq.ParquetFile(path)
+    for name in ("cold", "warm"):
+        with PhaseTimer() as timer:
+            _, timed_s = timed_lookup(f, keys, DEVICE)
+        st = dict(timer.seconds)
+        st["other"] = timed_s - sum(st.values())
+        stages[name] = {"timed_lookup_s": timed_s, "stage_s": st,
+                        "stage_calls": dict(timer.calls)}
     log({"lookup_path": {
         "rows": rows, "row_groups": row_groups, "keys": len(keys),
         "file_bytes": os.path.getsize(path), "write_s": write_s,
-        "cold_s": cold_s, "warm_s": warm, "cpu_s": cpu_s,
-        "keys_per_s_cold": len(keys) / cold_s,
-        "keys_per_s_warm": len(keys) / best,
-        "counters": counters, "launches": launches}})
-    return {"launches": launches, "probe": timer.first_bloom, "path": path,
-            "run": lambda: timed_lookup(f, keys, DEVICE),
-            "stages": {"timed_lookup_s": timed_s, "stage_s": stages,
-                       "stage_calls": timer.calls}}
+        "default_caches": {"cold_s": default_s[0], "warm_s": default_s[1:],
+                           "keys_per_s_cold": len(keys) / default_s[0],
+                           "keys_per_s_warm": len(keys) / min(default_s[1:]),
+                           "counters_cold": default_counters[0],
+                           "counters_warm": default_counters[1:]},
+        "working_set_caches": {
+            "knobs": LOOKUP_CACHE_KNOBS, "cold_s": run_s[0],
+            "warm_s": run_s[1:], "keys_per_s_cold": len(keys) / run_s[0],
+            "keys_per_s_warm": len(keys) / min(run_s[1:]),
+            "counters_cold": counters[0], "counters_warm": counters[1:],
+            "cpu_sequence_s": cpu_s},
+        "earlier_warm_keys_per_s_no_page_cache": EARLIER_WARM_KEYS_PER_S,
+        "bloom_launches": bloom_runs, "launches": launches,
+        "cache_stats": pq.cache_stats().as_dict()}})
+
+    def cold():
+        pq.clear_caches()
+        return timed_lookup(pq.ParquetFile(path), keys, DEVICE)
+
+    def warm():
+        with knobs(**LOOKUP_CACHE_KNOBS):
+            return timed_lookup(f, keys, DEVICE)
+
+    return {"launches": launches, "probe": probes[0], "path": path,
+            "cold": cold, "warm": warm,
+            "stages": {"stages": stages, "caches": "defaults"}}
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: the lookup leftovers (byte-array keys, Dataset.find_rows)
+# ---------------------------------------------------------------------------
+
+URL_ROWS = 1 << 20  # one row group of phase 4c's URLs
+URL_PAGE = 1 << 16
+URL_KEYS = 65_536  # one in eight present
+ORDERKEY_KEYS = 65_536
+ORDERKEY_PAGE = 1 << 16
+DATASET_LOOKUP_COLUMNS = ("l_quantity", "l_extendedprice", "l_shipmode")
+
+
+def url_lookup(card: str, seed: int, tmp: str) -> dict:
+    """A BYTE_ARRAY key: 1,048,576 distinct sorted URLs (phase 4c's
+    ``_urls``) in one row group, PLAIN under Snappy, 64 KiB pages, a bloom
+    filter and a page index; 65,536 keys, one in eight present (the others
+    a stored URL with an ``x`` appended, inside the column's range).  From
+    cleared caches a cold and a warm lookup on the card, each equal to the
+    numpy oracle (one ``bloom_check`` launch in the cold one), the cold
+    one's counters equal to the CPU's; the C++ ``pq_xxh64_batch`` of the
+    keys equal to the plain Python ``xxh64_bytes``."""
+    rng = np.random.default_rng(seed + 23)
+    values, offsets = _urls(rng, URL_ROWS)
+    urls = [values[offsets[i]:offsets[i + 1]].tobytes()
+            for i in range(URL_ROWS)]
+    where = {}
+    for i, u in enumerate(urls):
+        where.setdefault(u, []).append(i)
+    path = os.path.join(tmp, "urls.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(
+        {"url": ColumnData(values=values, offsets=offsets),
+         "v": ColumnData(values=np.arange(URL_ROWS, dtype=np.int64))},
+        path, pq.WriterOptions(
+            row_group_size=URL_ROWS, data_page_size=URL_PAGE,
+            compression="snappy", bloom_filters={"url": 10},
+            column_encoding={"url": Encoding.PLAIN, "v": Encoding.PLAIN}),
+        schema=Schema([Leaf(-1, "url", Type.BYTE_ARRAY, string=True),
+                       Leaf(-1, "v", Type.INT64)]))
+    write_s = time.perf_counter() - t0
+    present = URL_KEYS // 8
+    keys = ([urls[i] for i in rng.choice(URL_ROWS, present, replace=False)]
+            + [urls[i] + b"x" for i in rng.choice(URL_ROWS, URL_KEYS - present,
+                                                 replace=False)])
+    keys = [keys[i] for i in rng.permutation(URL_KEYS)]
+
+    def check(res, what):
+        for h, key in zip(res, keys):
+            rows = where.get(key, [])
+            if h.rows.tolist() != rows or h.values["v"].tolist() != rows \
+                    or h.values["url"] != [key] * len(rows):
+                raise AssertionError(f"url lookup ({what}): key {key!r}")
+
+    def run(device):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = f.find_rows("url", keys, columns=["v", "url"], device=device)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    pq.clear_caches()
+    before = dict(pq.LAUNCHES)
+    f = pq.ParquetFile(path)
+    with bloom_probes() as probes:
+        cold, cold_s = run(DEVICE)
+    cold_launches = {k: pq.LAUNCHES[k] - before[k] for k in before}
+    check(cold, "cold")
+    warm, warm_s = run(DEVICE)
+    check(warm, "warm")
+    if cold_launches["bloom_check"] != 1 or len(probes) != 1:
+        raise AssertionError(f"url lookup: {cold_launches['bloom_check']} "
+                             "bloom_check launches, not 1")
+    if warm.counters["preads"] or not warm.counters["page_cache_hits"] \
+            or not warm.counters["neg_hits"]:
+        raise AssertionError(f"url lookup: the warm run read pages or "
+                             f"missed the memo: {warm.counters}")
+    pq.clear_caches()
+    t0 = time.perf_counter()
+    cpu = pq.ParquetFile(path).find_rows("url", keys, columns=["v", "url"],
+                                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if cpu.counters != cold.counters:
+        raise AssertionError(f"url lookup: counters on {DEVICE} "
+                             f"{cold.counters} differ from the CPU's "
+                             f"{cpu.counters}")
+    koffs = np.zeros(URL_KEYS + 1, np.int64)
+    np.cumsum([len(k) for k in keys], out=koffs[1:])
+    kvals = np.frombuffer(b"".join(keys), np.uint8)
+    t0 = time.perf_counter()
+    cpp = host.xxh64_batch(kvals, koffs)
+    cpp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = [bloom.xxh64_bytes(k) for k in keys]
+    plain_s = time.perf_counter() - t0
+    if cpp.tolist() != plain:
+        raise AssertionError("pq_xxh64_batch differs from xxh64_bytes on "
+                             "the url keys")
+    counters = dict(cold.counters)
+    del cold, warm, cpu, urls, where
+    log({"url_lookup": {
+        "card": card, "rows": URL_ROWS, "keys": URL_KEYS,
+        "present": present, "file_bytes": os.path.getsize(path),
+        "write_s": write_s, "cold_s": cold_s, "warm_s": warm_s,
+        "cpu_cold_s": cpu_s, "keys_per_s_cold": URL_KEYS / cold_s,
+        "keys_per_s_warm": URL_KEYS / warm_s, "counters": counters,
+        "launches": cold_launches,
+        "xxh64": {"keys": URL_KEYS, "key_bytes": int(koffs[-1]),
+                  "cpp_ms": cpp_s * 1e3, "plain_python_ms": plain_s * 1e3,
+                  "equal": True}}})
+    return {"probe": probes[0], "launches": cold_launches}
+
+
+def dataset_lookup(card: str, rows: int, seed: int, tmp: str) -> dict:
+    """``Dataset.find_rows`` on the card: phase 5c's lineitem rows again as
+    8 part files of 524,288-row row groups (the port's writer, Snappy),
+    this time with a bloom filter on ``l_orderkey``, 64 KiB pages and a
+    page index, holding the key and :data:`DATASET_LOOKUP_COLUMNS`; 65,536
+    keys in ``l_orderkey``'s range.  From cleared caches one cold and two
+    warm lookups, each equal to a numpy oracle on the concatenated rows
+    (global row ordinals, values), the cold one's counters equal to the
+    CPU's; ``read_admission()``'s high water within the lookup budget."""
+    from parquet_tpu_torch.utils.pool import read_admission
+
+    _, data = make_lineitem(rows, seed)
+    names = ("l_orderkey",) + DATASET_LOOKUP_COLUMNS
+    schema = Schema([Leaf(-1, "l_orderkey", Type.INT64),
+                     Leaf(-1, "l_quantity", Type.INT64),
+                     Leaf(-1, "l_extendedprice", Type.DOUBLE),
+                     Leaf(-1, "l_shipmode", Type.BYTE_ARRAY, string=True)])
+    root = os.path.join(tmp, "dataset_lookup")
+    os.makedirs(root)
+    per = -(-rows // DATASET_FILES)
+    paths = []
+    t0 = time.perf_counter()
+    for i in range(DATASET_FILES):
+        a, b = i * per, min(rows, (i + 1) * per)
+        p = os.path.join(root, f"part-{i:02d}.parquet")
+        pq.write_table({k: column_slice(data[k], a, b) for k in names}, p,
+                       pq.WriterOptions(
+                           compression="snappy",
+                           row_group_size=DATASET_ROW_GROUP,
+                           data_page_size=ORDERKEY_PAGE,
+                           bloom_filters={"l_orderkey": 10},
+                           column_encoding={k: LINEITEM_ENCODINGS[k]
+                                            for k in names}),
+                       schema=schema)
+        paths.append(p)
+    write_s = time.perf_counter() - t0
+    ok = data["l_orderkey"].values
+    qty = data["l_quantity"].values
+    price = data["l_extendedprice"].values
+    sv, so = data["l_shipmode"].values, data["l_shipmode"].offsets
+    rng = np.random.default_rng(seed + 29)
+    keys = rng.integers(int(ok[0]), int(ok[-1]) + 1, ORDERKEY_KEYS,
+                        dtype=np.int64)
+    lo = np.searchsorted(ok, keys, "left")
+    hi = np.searchsorted(ok, keys, "right")
+
+    def check(res, what):
+        for h, a, b in zip(res, lo.tolist(), hi.tolist()):
+            rows_ = np.arange(a, b)
+            if not np.array_equal(h.rows, rows_) \
+                    or not np.array_equal(h.values["l_quantity"], qty[a:b]) \
+                    or not np.array_equal(h.values["l_extendedprice"],
+                                          price[a:b]) \
+                    or h.values["l_shipmode"] != [
+                        sv[so[r]:so[r + 1]].tobytes() for r in rows_]:
+                raise AssertionError(f"dataset lookup ({what}): key "
+                                     f"{h.key} differs from the oracle")
+
+    gate = read_admission()
+    pq.clear_caches()
+    gate._reset()
+    before = dict(pq.LAUNCHES)
+    times, results = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pq.Dataset(paths).find_rows("l_orderkey", keys,
+                                          columns=DATASET_LOOKUP_COLUMNS,
+                                          device=DEVICE)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(res, f"run {len(times)}")
+        results.append(dict(res.counters))
+        del res
+    launches = {k: pq.LAUNCHES[k] - before[k] for k in before}
+    budget = gate.budget_bytes("lookup")
+    if not 0 < gate.high_water <= budget:
+        raise AssertionError(f"dataset lookup: admission high water "
+                             f"{gate.high_water} outside (0, {budget}]")
+    admission = {"high_water": gate.high_water, "waits": gate.waits,
+                 "budget": budget}
+    pq.clear_caches()
+    t0 = time.perf_counter()
+    cpu = pq.Dataset(paths).find_rows("l_orderkey", keys,
+                                      columns=DATASET_LOOKUP_COLUMNS,
+                                      device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if cpu.counters != results[0]:
+        raise AssertionError(f"dataset lookup: counters on {DEVICE} "
+                             f"{results[0]} differ from the CPU's "
+                             f"{cpu.counters}")
+    if results[0]["keys"] != ORDERKEY_KEYS or any(
+            c["preads"] for c in results[1:]):
+        raise AssertionError(f"dataset lookup counters: {results}")
+    del cpu, data
+    log({"dataset_find_rows": {
+        "card": card, "files": DATASET_FILES, "rows": rows,
+        "row_group": DATASET_ROW_GROUP, "keys": ORDERKEY_KEYS,
+        "present": int((hi > lo).sum()), "write_s": write_s,
+        "cold_s": times[0], "warm_s": times[1:], "cpu_cold_s": cpu_s,
+        "keys_per_s_cold": ORDERKEY_KEYS / times[0],
+        "keys_per_s_warm": ORDERKEY_KEYS / min(times[1:]),
+        "counters_cold": results[0], "counters_warm": results[1:],
+        "admission": admission, "launches": launches}})
+    return {"launches": launches}
+
+
+def lookup_leftovers_path(card: str, rows: int, seed: int, tmp: str) -> dict:
+    """Phase 5f: :func:`url_lookup` and :func:`dataset_lookup`, with the
+    caches sized to their working sets (:data:`LOOKUP_CACHE_KNOBS`), which
+    their warm checks need."""
+    with knobs(**LOOKUP_CACHE_KNOBS):
+        url = url_lookup(card, seed, tmp)
+        ds = dataset_lookup(card, rows, seed, tmp)
+    return {"probe": url["probe"],
+            "launches": {k: url["launches"][k] + ds["launches"][k]
+                         for k in url["launches"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -4047,6 +4437,17 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
         "max_abs_err": max_abs_err(
             got, kernels.bloom_check_segments_ref(blocks, h, starts)),
         **segmented_times(blocks, h, starts)}
+    filters, batches = more["lookups"]["probe"]
+    blocks, h, starts = segmented_probe(filters, batches)
+    got = check_segmented(filters, batches, blocks, h, starts,
+                          "at the byte-array lookup's shape")
+    byte_array_shape = {
+        "case": "url_lookup", "n": h.shape[0], "segments": len(blocks),
+        "z": sorted({b.shape[0] for b in blocks}),
+        "launches": more["lookups"]["launches"]["bloom_check"],
+        "max_abs_err": max_abs_err(
+            got, kernels.bloom_check_segments_ref(blocks, h, starts)),
+        **segmented_times(blocks, h, starts)}
     filters, batches = probe
     blocks, h, starts = segmented_probe(filters, batches)
     got = check_segmented(filters, batches, blocks, h, starts,
@@ -4067,7 +4468,8 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
         "max_abs_err": max(max_abs_err(got, want),
                            max_abs_err(one, got[:n0]),
                            scan_shape["max_abs_err"],
-                           host_scan_shape["max_abs_err"]),
+                           host_scan_shape["max_abs_err"],
+                           byte_array_shape["max_abs_err"]),
         **times, "gpu_before": before, "gpu_after": gpu_sample(),
         "shape": {"n": h.shape[0], "segments": len(blocks),
                   "z": sorted({b.shape[0] for b in blocks})},
@@ -4078,7 +4480,8 @@ def main_shape_kernels(launches: dict, lookup_launches: dict, shapes: dict,
             "call_ms": time_ms(lambda: kernels.bloom_check(blocks[0],
                                                            h[:n0])),
             "bound_ms": b1, "bound_by": by1},
-        "scan_shape": scan_shape, "host_scan_shape": host_scan_shape})
+        "scan_shape": scan_shape, "host_scan_shape": host_scan_shape,
+        "byte_array_shape": byte_array_shape})
     for k in out:
         k["launches_by_path"] = {"read": launches[k["name"]],
                                  "lookup": lookup_launches[k["name"]],
@@ -4243,6 +4646,8 @@ def main(argv=None) -> int:
         hscan = phase("5e_host_scan", host_scan_path, card, scan,
                       item["path"], args.lineitem_rows, args.seed,
                       multi["paths"])
+        leftovers = phase("5f_lookups", lookup_leftovers_path, card,
+                          args.lineitem_rows, args.seed, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -4251,7 +4656,7 @@ def main(argv=None) -> int:
                      read["path_launches"], look["probe"], enc,
                      item["launches"], nested, scan,
                      {"dataset": multi, "sharded": sharded,
-                      "host_scan": hscan})
+                      "host_scan": hscan, "lookups": leftovers})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)
@@ -4269,8 +4674,12 @@ def main(argv=None) -> int:
                                     **audited_read(item["path"])}})
         log({"nested_breakdown": {"columns": nested["columns"],
                                   **audited_read(nested["path"])}})
-        log({"lookup_breakdown": {**look["stages"], **device_profile(
-            look["run"], "lookup")}})
+        look["warm"]()  # fills the caches sized to the working set
+        log({"lookup_breakdown": {
+            **look["stages"], "card": card,
+            "cold_defaults": device_profile(look["cold"], "lookup"),
+            "warm_working_set_caches": device_profile(look["warm"],
+                                                      "lookup")}})
         phase_s["7_profiled"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         log({"pipeline_breakdown": {name: pipeline_breakdown(path) for name,

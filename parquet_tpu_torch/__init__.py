@@ -9,7 +9,10 @@ GZIP, SNAPPY, ZSTD, LZ4_RAW, LZ4, BROTLI) into tensors on a CUDA device,
 through the hand-written kernels of ``csrc/``; the chunks its device
 route refuses decode on the host and are counted in ``HOST_ROUTE``, and
 the chunks the Python walk plans in place of the C++ planner in
-``PLAN_ROUTE``.  It looks rows up by a numeric key, scans a file with
+``PLAN_ROUTE``.  It looks rows up by a key of any flat column, in one
+file or a dataset (``find_rows``, with a page cache, a negative-lookup
+memo and a footer cache shared by the process: ``cache_stats``,
+``clear_caches``), scans a file with
 predicate pushdown on the card (``scan_filtered_device``: the planner's
 statistics, page-index and bloom stages, then decode, filter and
 compaction on the device) or on the host (``scan_expr``, predicate trees
@@ -28,16 +31,25 @@ choose between the two (``scan``), and writes such files.
     table = pq.Dataset("parts/*.parquet").read()            # every card
     table = pq.Dataset("parts/*.parquet").read(["cpu"] * 8)  # 8 shards
     rows = pq.Dataset("parts/*.parquet").scan("x", values=[3, 7])
+    hits = pq.ParquetFile("x.parquet").find_rows("x", [3, 7])  # on the card
+    hits = pq.Dataset("parts/*.parquet").find_rows("x", [3, 7])
 """
 
+from .algebra.expr import And, Col, Expr, Not, Or, col
 from .dataset import Dataset, expand_paths
+from .errors import CorruptedError
+from .io.cache import CacheStats, cache_stats, clear_caches
 from .io.column import Column
+from .io.lookup import KeyHits, LookupResult, find_rows
 from .io.planner import (ROUTE_REFUSALS, CostInputs, RouteDecision,
-                         RouteHistory, choose_route, device_route_supported,
-                         reset_route_refusals, route_history, route_scan)
-from .io.reader import ParquetFile
-from .io.search import plan_scan
-from .io.writer import WriterOptions, write_table
+                         RouteHistory, ScanPlan, ScanPlanner, choose_route,
+                         device_route_supported, reset_route_refusals,
+                         route_history, route_scan)
+from .io.reader import ParquetFile, RowGroupReader
+from .io.search import find, pages_overlapping, plan_scan, read_row_range
+from .io.source import MmapSource, Source
+from .io.writer import (ColumnData, ParquetWriter, WriterOptions, schema_of,
+                        write_table)
 from .ops.kernels import LAUNCHES, reset_launches
 from .parallel.device_reader import (HOST_ROUTE, PIPELINE, PLAN_ROUTE,
                                      reset_host_route, reset_pipeline,
@@ -50,6 +62,8 @@ from .parallel.mesh import (MESH, ShardedTable, dataset_process_shard,
                             decode_step_sharded, default_mesh,
                             read_dataset_device, read_table_sharded,
                             reset_mesh)
+from .schema.schema import (Schema, group, leaf, list_of, map_of, message,
+                            optional, repeated)
 
 __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route",
@@ -62,7 +76,14 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "scan_expr", "scan_filtered", "scan_files", "merge_scan_results",
            "scan_filtered_sharded", "expr_mask", "CostInputs",
            "RouteDecision", "RouteHistory", "choose_route", "route_history",
-           "route_scan", "device_route_supported"]
+           "route_scan", "device_route_supported", "CacheStats",
+           "cache_stats", "clear_caches", "KeyHits", "LookupResult",
+           "find_rows", "Expr", "Col", "col", "And", "Or", "Not",
+           "ScanPlanner", "ScanPlan", "ParquetWriter", "ColumnData",
+           "schema_of", "Schema", "group", "leaf", "list_of", "map_of",
+           "message", "optional", "repeated", "MmapSource", "Source",
+           "RowGroupReader", "CorruptedError", "read_row_range",
+           "pages_overlapping", "find"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

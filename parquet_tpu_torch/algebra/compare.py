@@ -45,6 +45,14 @@ def _is_decimal(leaf: Leaf) -> bool:
     return leaf.logical_kind == LogicalKind.DECIMAL
 
 
+def int_to_be_bytes(value: int, length: Optional[int] = None) -> bytes:
+    """An unscaled decimal as big-endian two's complement: ``length`` bytes
+    (an FLBA column's width), or the fewest that hold it (BYTE_ARRAY)."""
+    if length is None:
+        length = max(1, (value.bit_length() + 8) // 8)
+    return int(value).to_bytes(length, "big", signed=True)
+
+
 def decode_order_value(raw: Optional[bytes], leaf: Leaf):
     """Statistics bytes -> python int/float/bool/bytes; None when missing,
     or empty for a type whose values are never empty (the empty bound a

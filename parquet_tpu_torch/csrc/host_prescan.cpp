@@ -7,8 +7,9 @@
 // once, a chunk's pages in one call, in the chunk planner (pq_chunk_plan,
 // the JAX package's pq_dict_chunk_scan design for every page kind); the
 // staging batch's fill (pq_fill_batch), the compaction of a chunk's
-// host byte-array pages (pq_byte_array_parts) and the scans' gather of
-// byte-array survivors (pq_gather_ba).
+// host byte-array pages (pq_byte_array_parts), the scans' gather of
+// byte-array survivors (pq_gather_ba) and the bloom hash of byte arrays
+// (pq_xxh64_batch).
 //
 // Built with the system C++ compiler into a shared library with a plain C
 // interface (ops/_build.py), loaded with ctypes; ops/host.py wraps each
@@ -17,7 +18,7 @@
 // copy of what the JAX package's native shim does in `pq_scan_rle_runs`,
 // `pq_count_target_in_runs`, `pq_delta_prescan`, `pq_delta_decode`,
 // `pq_scan_page_headers`, `pq_decompress_pages`, `pq_dict_chunk_scan` and
-// `pq_gather_ba` (its native.cpp), with its own C ABI.
+// `pq_gather_ba` and `pq_xxh64_batch` (its native.cpp), with its own C ABI.
 //
 // Every function checks its bounds itself.  A malformed stream returns a
 // negative error code (PQ_E_* below), which the Python wrapper turns into
@@ -33,6 +34,7 @@
 #include <cstdint>
 #include <cstring>
 #include <exception>
+#include <initializer_list>
 #include <memory>
 #include <thread>
 #include <vector>
@@ -1697,6 +1699,81 @@ int64_t pq_gather_ba(const uint8_t* values, int64_t n_values,
     }
   });
   return out_offs[n];
+}
+
+
+// ---------------------------------------------------------------------------
+// xxhash64 of byte arrays (pq_xxh64_batch): the hash Parquet's bloom filters
+// take, XXH64 with seed 0 over each value's PLAIN bytes without their length
+// prefix.  The JAX package's native shim has the same function; this is the
+// port's own copy.  `offsets` must rise within `n_data`: -1 otherwise.
+// ---------------------------------------------------------------------------
+
+static inline uint64_t xxh_rotl(uint64_t x, int r) {
+  return (x << r) | (x >> (64 - r));
+}
+
+static const uint64_t XP1 = 11400714785074694791ULL;
+static const uint64_t XP2 = 14029467366897019727ULL;
+static const uint64_t XP3 = 1609587929392839161ULL;
+static const uint64_t XP4 = 9650029242287828579ULL;
+static const uint64_t XP5 = 2870177450012600261ULL;
+
+static inline uint64_t xxh_round(uint64_t acc, uint64_t lane) {
+  return xxh_rotl(acc + lane * XP2, 31) * XP1;
+}
+
+static uint64_t xxh64(const uint8_t* p, int64_t len) {
+  const uint8_t* end = p + len;
+  uint64_t h;
+  if (len >= 32) {
+    uint64_t v1 = XP1 + XP2, v2 = XP2, v3 = 0, v4 = 0 - XP1;
+    do {
+      uint64_t k[4];
+      std::memcpy(k, p, 32);
+      v1 = xxh_round(v1, k[0]);
+      v2 = xxh_round(v2, k[1]);
+      v3 = xxh_round(v3, k[2]);
+      v4 = xxh_round(v4, k[3]);
+      p += 32;
+    } while (p + 32 <= end);
+    h = xxh_rotl(v1, 1) + xxh_rotl(v2, 7) + xxh_rotl(v3, 12) +
+        xxh_rotl(v4, 18);
+    for (uint64_t v : {v1, v2, v3, v4}) h = (h ^ xxh_round(0, v)) * XP1 + XP4;
+  } else {
+    h = XP5;
+  }
+  h += (uint64_t)len;
+  for (; p + 8 <= end; p += 8) {  // 8-byte lanes of the tail
+    uint64_t k;
+    std::memcpy(&k, p, 8);
+    h = xxh_rotl(h ^ xxh_round(0, k), 27) * XP1 + XP4;
+  }
+  if (p + 4 <= end) {  // one 4-byte lane
+    uint32_t k;
+    std::memcpy(&k, p, 4);
+    h = xxh_rotl(h ^ ((uint64_t)k * XP1), 23) * XP2 + XP3;
+    p += 4;
+  }
+  for (; p < end; ++p) h = xxh_rotl(h ^ ((uint64_t)*p * XP5), 11) * XP1;
+  h ^= h >> 33;
+  h *= XP2;
+  h ^= h >> 29;
+  h *= XP3;
+  h ^= h >> 32;
+  return h;
+}
+
+int64_t pq_xxh64_batch(const uint8_t* data, int64_t n_data,
+                       const int64_t* offsets, int64_t n, uint64_t* out) {
+  if (n < 0) return -1;
+  for (int64_t i = 0; i < n; ++i)
+    if (offsets[i] < 0 || offsets[i] > offsets[i + 1] ||
+        offsets[i + 1] > n_data)
+      return -1;
+  for (int64_t i = 0; i < n; ++i)
+    out[i] = xxh64(data + offsets[i], offsets[i + 1] - offsets[i]);
+  return 0;
 }
 
 }  // extern "C"

@@ -7,10 +7,11 @@ reads every file on a list of devices through
 ``parallel/mesh.py::read_dataset_device`` and concatenates the per-file
 columns in file order, and :meth:`Dataset.scan`, the host scan of every
 file that survives the footer prune (``parallel/host_scan.py::
-scan_files``).  Remote URLs, the shared footer and chunk caches, fault
-policies and reports, the manifest's snapshot fields, and the dataset's
-``iter_batches``, ``find_rows`` and ``aggregate`` belong to later slices
-and raise naming theirs.
+scan_files``), and :meth:`Dataset.find_rows`, the batched point lookup
+over every file (``io/lookup.py::dataset_find_rows``).  Remote URLs, the
+shared chunk cache, fault policies and reports, the manifest's snapshot
+fields, and the dataset's ``iter_batches`` and ``aggregate`` belong to
+later slices and raise naming theirs.
 """
 
 from __future__ import annotations
@@ -316,12 +317,32 @@ class Dataset:
                 out[self.paths[i]] = plan
         return out
 
+    # ------------------------------------------------------------ lookup
+    def find_rows(self, path: str, keys,
+                  columns: Optional[Sequence[str]] = None, policy=None,
+                  report=None, device="cuda"):
+        """The batched point lookup over the whole dataset: the rows where
+        column ``path`` equals each of ``keys``, as dataset-wide row
+        ordinals (:meth:`row_offsets` indexing), with the row-aligned
+        values of ``columns``.  The keys are prepared once, the files fan
+        out on the shared pool, and each runs the cascade of
+        ``io/lookup.py::find_rows`` on ``device`` (CUDA unless the caller
+        names the CPU)."""
+        from .io.lookup import dataset_find_rows
+
+        if policy is not None or report is not None:
+            raise unsupported("Dataset.find_rows(policy=..., report=...)",
+                              "fault policies")
+        if not self.paths:
+            raise ValueError("find_rows on an empty dataset shard (no "
+                             "schema to probe keys against); check "
+                             "num_files first")
+        return dataset_find_rows(self, path, keys, columns=columns,
+                                 device=device)
+
     # ------------------------------------------------ later slices' routes
     def iter_batches(self, *args, **kwargs):
         raise unsupported("Dataset.iter_batches", "stream")
-
-    def find_rows(self, *args, **kwargs):
-        raise unsupported("Dataset.find_rows", "lookup leftovers")
 
     def aggregate(self, *args, **kwargs):
         raise unsupported("Dataset.aggregate", "aggregation")

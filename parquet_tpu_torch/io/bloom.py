@@ -1,12 +1,16 @@
-"""Split-block bloom filters (SBBF) and xxhash64 for fixed-width values.
+"""Split-block bloom filters (SBBF) and their xxhash64.
 
-The port's cut of ``parquet_tpu/io/bloom.py`` for INT32/INT64/FLOAT/DOUBLE.
-Format (Parquet ``bloom_filter.md``): a filter is ``z`` 32-byte blocks of 8
-little-endian uint32 words; a value's xxh64 ``h`` picks block
-``((h >> 32) * z) >> 32`` and sets, in word ``i``, bit
-``(low32(h) * SALT[i] mod 2^32) >> 27``.  It is stored as a thrift
-``BloomFilterHeader`` and the raw bitset at
-``ColumnMetaData.bloom_filter_offset``.
+The port of ``parquet_tpu/io/bloom.py``.  Format (Parquet
+``bloom_filter.md``): a filter is ``z`` 32-byte blocks of 8 little-endian
+uint32 words; a value's xxh64 ``h`` picks block ``((h >> 32) * z) >> 32``
+and sets, in word ``i``, bit ``(low32(h) * SALT[i] mod 2^32) >> 27``.  It
+is stored as a thrift ``BloomFilterHeader`` and the raw bitset at
+``ColumnMetaData.bloom_filter_offset``.  A value's hash is XXH64 (seed 0)
+of its PLAIN bytes without a length prefix: :func:`xxh64_u32` and
+:func:`xxh64_u64` in numpy for the fixed-width types, the C++
+``pq_xxh64_batch`` (``ops/host.py::xxh64_batch``) for byte arrays and
+fixed-length byte arrays, with :func:`xxh64_bytes` its plain Python
+version; BOOLEAN and INT96 values have no bloom hash.
 
 :meth:`SplitBlockFilter.check_hashes_batch` routes as the reference does,
 by batch size only: a batch of at least ``_DEVICE_PROBE_MIN`` hashes goes to
@@ -78,6 +82,59 @@ def xxh64_u32(values: np.ndarray, seed: int = 0) -> np.ndarray:
     acc = acc ^ ((v * _P1) & _M)
     acc = ((_rotl(acc, 23) * _P2) + _P3) & _M
     return _avalanche(acc)
+
+
+_M64 = (1 << 64) - 1
+_IP1, _IP2, _IP3, _IP4, _IP5 = (int(_P1), int(_P2), int(_P3), int(_P4),
+                                int(_P5))
+
+
+def _irotl(x: int, r: int) -> int:
+    return ((x << r) | (x >> (64 - r))) & _M64
+
+
+def _iround(acc: int, lane: int) -> int:
+    return _irotl((acc + lane * _IP2) & _M64, 31) * _IP1 & _M64
+
+
+def xxh64_bytes(data: bytes, seed: int = 0) -> int:
+    """XXH64 of ``data`` in plain Python: the plain version of the C++
+    ``pq_xxh64_batch``, over the 32-byte stripes, then the 8-byte, 4-byte
+    and 1-byte lanes of the tail."""
+    data = bytes(data)
+    n, p = len(data), 0
+    if n >= 32:
+        v = [(seed + _IP1 + _IP2) & _M64, (seed + _IP2) & _M64, seed,
+             (seed - _IP1) & _M64]
+        while p + 32 <= n:
+            for i in range(4):
+                lane = int.from_bytes(data[p + 8 * i:p + 8 * i + 8],
+                                      "little")
+                v[i] = _iround(v[i], lane)
+            p += 32
+        h = (_irotl(v[0], 1) + _irotl(v[1], 7) + _irotl(v[2], 12)
+             + _irotl(v[3], 18)) & _M64
+        for x in v:
+            h = ((h ^ _iround(0, x)) * _IP1 + _IP4) & _M64
+    else:
+        h = (seed + _IP5) & _M64
+    h = (h + n) & _M64
+    while p + 8 <= n:
+        lane = int.from_bytes(data[p:p + 8], "little")
+        h = (_irotl(h ^ _iround(0, lane), 27) * _IP1 + _IP4) & _M64
+        p += 8
+    if p + 4 <= n:
+        lane = int.from_bytes(data[p:p + 4], "little")
+        h = (_irotl(h ^ (lane * _IP1 & _M64), 23) * _IP2 + _IP3) & _M64
+        p += 4
+    while p < n:
+        h = _irotl(h ^ (data[p] * _IP5 & _M64), 11) * _IP1 & _M64
+        p += 1
+    h ^= h >> 33
+    h = h * _IP2 & _M64
+    h ^= h >> 29
+    h = h * _IP3 & _M64
+    return h ^ (h >> 32)
 
 
 def _device_key(device) -> str:
@@ -204,14 +261,25 @@ def check_hashes_multi(filters: Sequence[SplitBlockFilter],
     return [hit[a:b] for a, b in zip(starts[:-1], starts[1:])]
 
 
-def hash_values(leaf: Leaf, values) -> np.ndarray:
-    """xxh64 of each value's PLAIN bytes (the Parquet bloom hash)."""
+def hash_values(leaf: Leaf, values, offsets=None) -> np.ndarray:
+    """xxh64 of each value's PLAIN bytes (the Parquet bloom hash): byte
+    arrays pass their ``offsets``, fixed-length byte arrays are ``(n, w)``
+    rows."""
+    from ..ops import host
+
     t = leaf.physical_type
     vals = np.asarray(values)
     if t in (Type.INT64, Type.DOUBLE):
         return xxh64_u64(vals.view(np.uint64))
     if t in (Type.INT32, Type.FLOAT):
         return xxh64_u32(vals.view(np.uint32))
+    if t == Type.BYTE_ARRAY:
+        return host.xxh64_batch(vals, offsets)
+    if t == Type.FIXED_LEN_BYTE_ARRAY:
+        rows = vals.reshape(-1, leaf.type_length or 0)
+        return host.xxh64_batch(
+            rows.reshape(-1),
+            np.arange(len(rows) + 1, dtype=np.int64) * rows.shape[1])
     raise ValueError(f"unsupported bloom type {t}")
 
 
@@ -222,16 +290,32 @@ _UNSIGNED_PROBE_DTYPE = {Type.INT64: np.uint64, Type.INT32: np.uint32}
 
 def hash_probe_values(leaf: Leaf, values) -> np.ndarray:
     """xxh64 of order-domain probe values, each encoded as the writer
-    encodes the column's values (an unsigned column's as unsigned)."""
-    from ..algebra.compare import is_unsigned, normalize
+    encodes the column's values: an unsigned column's as unsigned, a
+    decimal of byte storage as its big-endian two's complement (FLBA at
+    the column's width), a byte array's and a fixed-length byte array's as
+    their bytes (a probe of another width than the column's hashes its own
+    bytes: at worst a false positive)."""
+    from ..algebra.compare import int_to_be_bytes, is_unsigned, normalize
+    from ..ops import host
+    from ..schema.types import LogicalKind
 
-    dt = ((_UNSIGNED_PROBE_DTYPE.get(leaf.physical_type)
-           if is_unsigned(leaf) else None)
-          or _PROBE_DTYPE.get(leaf.physical_type))
-    if dt is None:
-        raise ValueError(f"unsupported bloom type {leaf.physical_type}")
-    vals = np.array([normalize(leaf, v) for v in values], dtype=dt)
-    return hash_values(leaf, vals)
+    t = leaf.physical_type
+    dt = ((_UNSIGNED_PROBE_DTYPE.get(t) if is_unsigned(leaf) else None)
+          or _PROBE_DTYPE.get(t))
+    if dt is not None:
+        vals = np.array([normalize(leaf, v) for v in values], dtype=dt)
+        return hash_values(leaf, vals)
+    if t not in (Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
+        raise ValueError(f"unsupported bloom type {t}")
+    vals = [normalize(leaf, v) for v in values]
+    if leaf.logical_kind == LogicalKind.DECIMAL:
+        width = leaf.type_length if t == Type.FIXED_LEN_BYTE_ARRAY else None
+        vals = [int_to_be_bytes(v, width) if isinstance(v, int) else v
+                for v in vals]
+    bs = [bytes(v) for v in vals]
+    offs = np.zeros(len(bs) + 1, np.int64)
+    np.cumsum([len(b) for b in bs], out=offs[1:])
+    return host.xxh64_batch(np.frombuffer(b"".join(bs), np.uint8), offs)
 
 
 def probe_hashes(leaf: Leaf, values) -> Optional[np.ndarray]:
@@ -245,12 +329,18 @@ def probe_hashes(leaf: Leaf, values) -> Optional[np.ndarray]:
 
 def build_split_block_filter(leaf: Leaf, values: np.ndarray,
                              dict_values: Optional[np.ndarray],
-                             bits_per_value: float) -> bytes:
-    """Writer side: a filter sized for the chunk's values (its dictionary
-    when it has one) holding the hash of each."""
-    vals = dict_values if dict_values is not None else values
-    filt = SplitBlockFilter.for_ndv(max(len(vals), 8), bits_per_value)
-    filt.insert_hashes(hash_values(leaf, vals))
+                             bits_per_value: float, offsets=None,
+                             dict_offsets=None) -> bytes:
+    """Writer side: a filter sized for the chunk's distinct values (its
+    dictionary when it has one) holding the hash of each; byte arrays
+    pass their offsets."""
+    if dict_values is not None:
+        vals, offs = dict_values, dict_offsets
+    else:
+        vals, offs = values, offsets
+    ndv = len(offs) - 1 if offs is not None else len(vals)
+    filt = SplitBlockFilter.for_ndv(max(ndv, 8), bits_per_value)
+    filt.insert_hashes(hash_values(leaf, vals, offs))
     return filt.to_bytes()
 
 

@@ -1,47 +1,65 @@
 """Batched point lookups: the rows where a column equals each of many keys.
 
-The port of ``parquet_tpu/io/lookup.py::find_rows`` for flat
-INT32/INT64/FLOAT/DOUBLE key columns.  Each row group runs the reference's
-cheapest-first cascade, with the same counters:
+The port of ``parquet_tpu/io/lookup.py`` (``find_rows`` and
+``dataset_find_rows``) for flat key and value columns of every physical
+type.  Each row group runs the reference's cheapest-first cascade, with
+the same counters:
 
+0. the negative-lookup memo (``io/cache.py::NEGS``): keys an earlier
+   lookup proved absent from the chunk are dropped first (``neg_hits``);
 1. chunk statistics (no IO): keys outside [min, max], and every key of an
    all-null chunk, are pruned;
-2. the bloom filter, probed once with the hashes of every surviving key.
-   Stages 1 and 2 run over every row group first, so that the row groups
-   whose batch has 32,768 hashes or more are probed together: one
+2. the bloom filter, probed once with the hashes of every surviving key
+   (the C++ ``pq_xxh64_batch`` hashes byte-array keys).  Stages 1 and 2
+   run over every row group first, so that the row groups whose batch has
+   32,768 hashes or more are probed together: one
    :func:`~parquet_tpu_torch.io.bloom.check_hashes_multi`, one launch of
    the ``bloom_check`` CUDA kernel per lookup on the lookup's device; a
    smaller batch takes the numpy probe, as in the reference;
 3. the page index: a binary search (:func:`~.search.find`) per key on a
    cleanly ordered index, the zone-map walk otherwise;
-4. page reads: the needed pages of a chunk coalesce into runs of adjacent
-   pages, one pread per run (and one for the dictionary, once per chunk),
-   each run decoded on the lookup's device
-   (:mod:`~parquet_tpu_torch.parallel.device_reader`, whose dictionary
-   columns launch the read path's kernels) and copied back to host numpy
-   row-aligned, then matched exactly (an in-page binary search where the
-   row group declares its rows sorted by the key, else
-   :func:`~parquet_tpu_torch.parallel.host_scan.aligned_key_mask`).
+4. page reads: each needed page is looked up in the page cache
+   (``io/cache.py::PAGES``) first (``page_cache_hits``); the others
+   coalesce into runs of adjacent pages, one pread per run (and one for
+   the dictionary, once per chunk), each run admitted through the lookup
+   tier of the read gate (``utils/pool.py::lookup_admission``), decoded
+   on the lookup's device (:mod:`~parquet_tpu_torch.parallel.
+   device_reader`, whose dictionary and bit-packed streams launch the read
+   path's kernels), copied back to host numpy row-aligned and cached page
+   by page, frozen; then every key of the row group is matched at once
+   against one sorted table of the fetched rows (:class:`_RowTable`: by
+   value for numbers, by xxh64 for byte-array and fixed-length keys with
+   each candidate's bytes compared, by python value for booleans and
+   decimals of byte storage), giving the rows the reference's in-page
+   binary search or exact mask gives.
 
-A chunk without a page index decodes whole (``chunk_fallbacks``).  The
-requested output columns are read through the same coalesced page runs.
-Where the reference loops over keys in Python, the statistics stage, the
-page search of a cleanly ordered numeric index and the gather of output
-values run on numpy arrays of keys instead; survivors, stage order and
-counters are the reference's.
+The keys a row group's cascade leaves unmatched enter the memo.  A chunk
+without a page index decodes whole (``chunk_fallbacks``), admitted at its
+compressed size.  The requested output columns are read through the same
+cached, coalesced page runs; a byte-array column's values come back as a
+list of ``bytes`` (None at a null row), a fixed-length one's as ``(n, w)``
+uint8 rows, as in the reference.  Where the reference loops over keys in
+Python, the statistics stage, the page search of a cleanly ordered numeric
+index and the gather of output values run on numpy arrays of keys instead;
+survivors, stage order and counters are the reference's.
+
+The reference's key sharding (slices of the key set, each running the
+whole cascade on a pool worker) is not ported: a lookup's per-row-group
+work is Python and numpy under the GIL, and shards of it on 8 pool
+workers ran 1.5-1.9 times slower than one thread on an H100 host
+(PERF.md, PR 16).  ``key_shards`` stays 0.
 
 Keys of an unsigned column (the INT annotation's ``signed=false``)
 compare in unsigned order at every stage, and a ``Decimal`` key of a
-decimal stored as INT32/INT64 compares as its unscaled integer.
+decimal compares as its unscaled integer.
 
-Not in this port: the page cache and the negative-lookup memo, admission
-control, fault policies, metrics and op scopes, key sharding across
-workers, dataset lookups, and BYTE_ARRAY / FLBA / BOOLEAN keys (decimals
-stored as byte arrays among them).
+Not in this port: nested key and value columns (the next slice), fault
+policies and reports, metrics and op scopes.
 """
 
 from __future__ import annotations
 
+from bisect import bisect_left, bisect_right
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -49,26 +67,36 @@ import numpy as np
 
 from ..errors import unsupported
 from ..format.enums import BoundaryOrder, Type
-from ..schema.types import NUMERIC, PHYSICAL_NP_DTYPE
+from ..schema.types import PHYSICAL_NP_DTYPE, LogicalKind
+from .cache import ByteRows, PageEntry
 
-__all__ = ["KeyHits", "LookupResult", "find_rows"]
+__all__ = ["KeyHits", "LookupResult", "find_rows", "dataset_find_rows"]
 
 _UNSET = object()  # memo sentinel: None is a valid decoded dictionary
 
+# the reference's counters, in its order.  ``binary_search_hits`` is
+# derived for parity (:func:`_searches_answered`): the (key, page) probes
+# the reference answers by an in-page binary search; the port matches
+# every key against a sorted table and runs no such search.  The port
+# does not shard a batch, so ``key_shards`` is 0.
 COUNTER_KEYS = ("keys", "keys_pruned_stats", "keys_pruned_bloom",
                 "keys_pruned_pages", "rows_matched", "preads", "pages_read",
-                "pages_coalesced", "chunk_fallbacks", "binary_search_hits")
+                "pages_coalesced", "page_cache_hits", "chunk_fallbacks",
+                "neg_hits", "binary_search_hits", "key_shards")
 
 
 @dataclass
 class KeyHits:
-    """Every match of one key: ascending file-local row ordinals, and for
-    each requested column its row-aligned values (numpy) and validity (a
+    """Every match of one key: ascending row ordinals (file-local from
+    :func:`find_rows`, dataset-wide from :func:`dataset_find_rows`), and
+    for each requested column its row-aligned values (a numpy array,
+    ``(n, w)`` uint8 rows for a fixed-length byte array, a list of
+    ``bytes`` with None at null rows for a byte array) and validity (a
     bool mask, or None where the pages read carried none)."""
 
     key: object
     rows: np.ndarray
-    values: Dict[str, np.ndarray] = field(default_factory=dict)
+    values: Dict[str, object] = field(default_factory=dict)
     validity: Dict[str, Optional[np.ndarray]] = field(default_factory=dict)
 
     @property
@@ -102,8 +130,12 @@ class LookupResult:
                 f"{self.rows_total} row(s))")
 
 
+def _new_counters() -> Dict[str, int]:
+    return {k: 0 for k in COUNTER_KEYS}
+
+
 # ---------------------------------------------------------------------------
-# key preparation, once per batch
+# key preparation, once per batch (once per dataset)
 # ---------------------------------------------------------------------------
 
 
@@ -191,7 +223,8 @@ def _order_array(leaf, uniq: List) -> Optional[np.ndarray]:
 
         unsigned64 = is_unsigned(leaf) and leaf.physical_type == Type.INT64
         return np.array(uniq, np.uint64 if unsigned64 else np.int64)
-    if all(type(v) is float for v in uniq):
+    if leaf.physical_type in (Type.FLOAT, Type.DOUBLE) and all(
+            type(v) is float for v in uniq):
         return np.array(uniq, np.float64)
     return None
 
@@ -200,29 +233,49 @@ def _is_number(v, order: np.ndarray) -> bool:
     return type(v) is (int if order.dtype.kind in "iu" else float)
 
 
+def _bytes_keyed(leaf) -> bool:
+    """Does the leaf match keys by their bytes (a byte array or
+    fixed-length byte array that is not a decimal)?"""
+    return (leaf.physical_type in (Type.BYTE_ARRAY,
+                                   Type.FIXED_LEN_BYTE_ARRAY)
+            and leaf.logical_kind != LogicalKind.DECIMAL)
+
+
 # ---------------------------------------------------------------------------
-# page fetch: coalesced runs, decoded on the lookup's device
+# page fetch: the page cache, then coalesced runs decoded on the device
 # ---------------------------------------------------------------------------
 
 
-class _PageEntry:
-    """One decoded page, row-aligned on the host."""
+def _byte_rows(values: np.ndarray, offsets: np.ndarray,
+               validity: Optional[np.ndarray]) -> ByteRows:
+    """Dense present byte arrays as :class:`ByteRows`: one row a slot, a
+    null slot empty."""
+    offsets = np.asarray(offsets, np.int64)
+    data = values[offsets[0]:offsets[-1]]
+    if validity is None:
+        return ByteRows(data, offsets - offsets[0])
+    lens = np.zeros(len(validity), np.int64)
+    lens[validity] = np.diff(offsets)
+    row_offs = np.zeros(len(validity) + 1, np.int64)
+    np.cumsum(lens, out=row_offs[1:])
+    return ByteRows(data, row_offs)
 
-    __slots__ = ("values", "validity", "first_row", "num_rows")
 
-    def __init__(self, values, validity, first_row: int, num_rows: int):
-        self.values = values
-        self.validity = validity
-        self.first_row = first_row
-        self.num_rows = num_rows
+def _slice_rows(values, a: int, n: int):
+    """Rows ``[a, a + n)`` of a row-aligned span."""
+    if isinstance(values, ByteRows):
+        offs = values.offsets[a:a + n + 1]
+        return ByteRows(values.data[offs[0]:offs[-1]], offs - offs[0])
+    return values[a:a + n]
 
 
-def decode_aligned(chunk, device, pages=None, dictionary=None
-                   ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+def decode_aligned(chunk, device, pages=None, dictionary=None):
     """Decode a chunk, or the span ``pages`` of it with its ``dictionary``,
-    on ``device`` and return it row-aligned as host numpy ``(values,
-    validity)``.  Validity is None where no page's levels needed expanding,
-    as the reference's host decode has it."""
+    on ``device`` and return it row-aligned on the host as ``(values,
+    validity)``: values a numpy array (``(n, w)`` rows for fixed-length
+    byte arrays) or :class:`~.cache.ByteRows`, a null row zero-filled or
+    empty.  Validity is None where no page's levels needed expanding, as
+    the reference's host decode has it."""
     from ..errors import _Unsupported
     from ..parallel.device_reader import (HOST_ROUTE, build_plan,
                                           decode_staged, stage_plan)
@@ -240,22 +293,27 @@ def decode_aligned(chunk, device, pages=None, dictionary=None
         HOST_ROUTE[e.reason] += 1
         col = decode_chunk_host(chunk, device, pages=pages,
                                 dictionary=dictionary)
-    values = col.values.cpu().numpy()
     validity = None
     if col.validity is not None:
         validity = col.validity.cpu().numpy()
     elif expanded:
         validity = np.ones(col.num_slots, bool)
-    return _trim_flat_aligned(values, validity, 0, col.num_slots)
+    if chunk.leaf.physical_type == Type.BYTE_ARRAY:
+        col.materialize()
+        return (_byte_rows(col.values.cpu().numpy(),
+                           col.offsets.cpu().numpy(), validity), validity)
+    return _trim_flat_aligned(col.values.cpu().numpy(), validity, 0,
+                              col.num_slots)
 
 
 class _PageFetcher:
-    """Decoded row-aligned pages of one column chunk: requested page
-    ordinals coalesce into runs of adjacent pages, each run one pread and
-    one device decode; the dictionary is read and decoded once per
-    chunk."""
+    """Decoded row-aligned pages of one column chunk: each requested page
+    comes from the page cache when it is there; the others coalesce into
+    runs of adjacent pages, each run one admitted pread and one device
+    decode, and are cached page by page; the dictionary is read and
+    decoded once per chunk, and only where a page is missing."""
 
-    def __init__(self, rg, chunk, counters: Dict[str, int], device):
+    def __init__(self, pf, rg, chunk, counters: Dict[str, int], device):
         self.rg = rg
         self.chunk = chunk
         self.counters = counters
@@ -264,6 +322,9 @@ class _PageFetcher:
         self.firsts = [pl.first_row_index for pl in self.locs]
         self._firsts_arr = np.asarray(self.firsts, np.int64)
         self._dict = _UNSET
+        fk = pf._cache_key
+        self._key_base = (None if fk is None
+                          else (fk, rg.index, chunk.leaf.name))
 
     def page_rows(self, o: int) -> int:
         nxt = (self.firsts[o + 1] if o + 1 < len(self.firsts)
@@ -287,38 +348,52 @@ class _PageFetcher:
                 self._dict = None
         return self._dict
 
-    def fetch(self, ords: Sequence[int]) -> Dict[int, _PageEntry]:
-        out: Dict[int, _PageEntry] = {}
-        wanted = sorted(set(ords))
-        if not wanted:
+    def fetch(self, ords: Sequence[int]) -> Dict[int, PageEntry]:
+        from ..utils.pool import lookup_admission
+        from .cache import PAGES, make_page_entry
+
+        out: Dict[int, PageEntry] = {}
+        missing: List[int] = []
+        base = self._key_base
+        for o in sorted(set(ords)):
+            entry = PAGES.get(base + (o,)) if base is not None else None
+            if entry is not None:
+                self.counters["page_cache_hits"] += 1
+                out[o] = entry
+            else:
+                missing.append(o)
+        if not missing:
             return out
-        runs: List[List[int]] = [[wanted[0]]]
-        for o in wanted[1:]:
+        runs: List[List[int]] = [[missing[0]]]
+        for o in missing[1:]:
             if o == runs[-1][-1] + 1:
                 runs[-1].append(o)
             else:
                 runs.append([o])
+        admission = lookup_admission()
         for run in runs:
             first, last = run[0], run[-1]
             span_start = self.locs[first].offset
             span_len = (self.locs[last].offset
                         + self.locs[last].compressed_page_size - span_start)
-            dictionary = self._dictionary()
-            pages = self.chunk.page_table_at(span_start, span_len,
-                                             num_pages=len(run))
-            vals, valid = decode_aligned(self.chunk, self.device, pages,
-                                         dictionary)
+            with admission.admit(span_len):
+                dictionary = self._dictionary()
+                pages = self.chunk.page_table_at(span_start, span_len,
+                                                 num_pages=len(run))
+                vals, valid = decode_aligned(self.chunk, self.device, pages,
+                                             dictionary)
             self.counters["preads"] += 1
             self.counters["pages_read"] += len(run)
             self.counters["pages_coalesced"] += len(run) - 1
-            base = self.firsts[first]
+            at = self.firsts[first]
             for o in run:
-                a, n = self.firsts[o] - base, self.page_rows(o)
-                out[o] = _PageEntry(vals[a:a + n],
-                                    None if valid is None else valid[a:a + n],
-                                    self.firsts[o], n)
+                a, n = self.firsts[o] - at, self.page_rows(o)
+                pv = _slice_rows(vals, a, n)
+                pvalid = None if valid is None else valid[a:a + n]
+                out[o] = (PAGES.put(base + (o,), pv, pvalid, self.firsts[o], n)
+                          if base is not None else
+                          make_page_entry(pv, pvalid, self.firsts[o], n))
         return out
-
 
 # ---------------------------------------------------------------------------
 # the cascade: stages 1-2 over every row group, then the rest per row group
@@ -415,26 +490,66 @@ def _sorted_bounds(ci, leaf, order: np.ndarray):
     return got
 
 
-def _page_ords_of_keys(ci, leaf, prep: _PreparedKeys, alive: np.ndarray
+def _sorted_byte_bounds(ci, leaf):
+    """(mins, maxs) as lists of ``bytes`` when the index has no null page,
+    every bound is bytes and both ladders are non-decreasing; else None:
+    :func:`_sorted_bounds` for byte keys, searched with ``bisect``."""
+    from .search import decoded_bounds
+
+    got = getattr(ci, "_sorted_byte_bounds", _UNSET)
+    if got is _UNSET:
+        got = None
+        mins, maxs = decoded_bounds(ci, leaf)
+        if (BoundaryOrder(ci.boundary_order or 0) != BoundaryOrder.DESCENDING
+                and not any(ci.null_pages or []) and mins
+                and all(type(v) is bytes for v in mins)
+                and all(type(v) is bytes for v in maxs)
+                and all(a <= b for a, b in zip(mins, mins[1:]))
+                and all(a <= b for a, b in zip(maxs, maxs[1:]))):
+            got = (list(mins), list(maxs))
+        ci._sorted_byte_bounds = got
+    return got
+
+
+def _page_ords_of_keys(ci, leaf, prep: _PreparedKeys, alive: np.ndarray,
+                       counters: Dict[str, int]
                        ) -> List[Tuple[int, List[int]]]:
-    """``(uniq ordinal, page ordinals)`` for each alive key, in order."""
+    """``(uniq ordinal, page ordinals)`` for each alive key that some page
+    may hold, in order; the others count in ``keys_pruned_pages``."""
     bounds = (_sorted_bounds(ci, leaf, prep.order)
               if prep.order is not None else None)
-    if bounds is None:
-        return [(int(u), _key_page_ords(ci, leaf, prep.uniq[u]))
-                for u in alive]
-    amin, amax = bounds
-    keys = prep.order[alive]
-    lo = np.searchsorted(amax, keys, side="left")
-    hi = np.searchsorted(amin, keys, side="right")
-    # a NaN key compares False with every bound: the reference's walk keeps
-    # every page of an unordered index for it, so it takes that walk
-    nan = np.isnan(keys) if keys.dtype.kind == "f" else np.zeros(len(keys),
-                                                                 bool)
-    return [(u, _key_page_ords(ci, leaf, prep.uniq[u]) if isnan
-             else list(range(a, b)) if a < b else [])
-            for u, a, b, isnan in zip(alive.tolist(), lo.tolist(),
-                                      hi.tolist(), nan.tolist())]
+    byte_bounds = (_sorted_byte_bounds(ci, leaf)
+                   if bounds is None and _bytes_keyed(leaf) else None)
+    if byte_bounds is not None:
+        mins, maxs = byte_bounds
+        got = []
+        for u in alive.tolist():
+            key = prep.uniq[u]
+            if type(key) is bytes:
+                got.append((u, list(range(bisect_left(maxs, key),
+                                          bisect_right(mins, key)))))
+            else:
+                got.append((u, _key_page_ords(ci, leaf, key)))
+    elif bounds is None:
+        got = [(int(u), _key_page_ords(ci, leaf, prep.uniq[u]))
+               for u in alive]
+    else:
+        amin, amax = bounds
+        keys = prep.order[alive]
+        lo = np.searchsorted(amax, keys, side="left")
+        hi = np.searchsorted(amin, keys, side="right")
+        # a NaN key compares False with every bound: the reference's walk
+        # keeps every page of an unordered index for it, so it takes that
+        # walk
+        nan = (np.isnan(keys) if keys.dtype.kind == "f"
+               else np.zeros(len(keys), bool))
+        got = [(u, _key_page_ords(ci, leaf, prep.uniq[u]) if isnan
+                else list(range(a, b)) if a < b else [])
+               for u, a, b, isnan in zip(alive.tolist(), lo.tolist(),
+                                         hi.tolist(), nan.tolist())]
+    out = [(u, ords) for u, ords in got if ords]
+    counters["keys_pruned_pages"] += len(got) - len(out)
+    return out
 
 
 def _rg_sorted_by(rg, leaf) -> Optional[bool]:
@@ -449,60 +564,46 @@ def _rg_sorted_by(rg, leaf) -> Optional[bool]:
     return bool(sc.nulls_first)
 
 
-def _sorted_page_hits(leaf, key, entry: _PageEntry,
-                      nulls_first: bool) -> Optional[np.ndarray]:
-    """Page-local rows equal to ``key`` by binary search within a page of
-    rows sorted by the key; None where that is not provably exact (float
-    pages, whose NaNs break the search, or nulls that are not one
-    contiguous run at the declared end): the caller then masks."""
-    from ..parallel.host_scan import order_view
-
-    vals, valid = order_view(leaf, entry.values), entry.validity
-    a, b = 0, entry.num_rows
-    if valid is not None:
-        k = int(valid.sum())
-        if k == 0:
-            return np.empty(0, np.int64)
-        if nulls_first:
-            a = entry.num_rows - k
-            if not valid[a:].all():
-                return None
-        else:
-            b = k
-            if not valid[:b].all():
-                return None
-    if vals.dtype.kind not in "iu" or isinstance(key, bool) or not isinstance(
-            key, (int, np.integer)):
-        return None
-    needle = vals.dtype.type(key)
-    seg = vals[a:b]
-    lo = int(np.searchsorted(seg, needle, side="left"))
-    hi = int(np.searchsorted(seg, needle, side="right"))
-    return a + np.arange(lo, hi, dtype=np.int64)
-
-
-def _prune_row_groups(row_groups, leaf, prep: _PreparedKeys,
+def _prune_row_groups(pf, row_groups, leaf, prep: _PreparedKeys,
                       counters: Dict[str, int], device
-                      ) -> List[np.ndarray]:
-    """Stages 1 and 2 over every row group: the uniq ordinals alive in each
-    after its chunk statistics and its bloom filter.  Each row group's
-    surviving hashes are one probe, routed by size alone as the reference
-    routes them: the batches of at least ``_DEVICE_PROBE_MIN`` hashes are
-    probed together by one :func:`~.bloom.check_hashes_multi` on
-    ``device``, the others by the numpy probe.  A row group that the
-    statistics prune entirely reads no filter."""
+                      ) -> Tuple[List[np.ndarray], List[Optional[tuple]],
+                                 List[np.ndarray]]:
+    """Stages 0-2 over every row group.  Returns, for each row group, the
+    uniq ordinals alive after its chunk statistics and bloom filter, its
+    key in the negative-lookup memo (None: the file is not cached) and the
+    ordinals the memo left to the cascade (the ones a clean run may enter
+    in it).  Each row group's surviving hashes are one probe, routed by
+    size alone as the reference routes them: the batches of at least
+    ``_DEVICE_PROBE_MIN`` hashes are probed together by one
+    :func:`~.bloom.check_hashes_multi` on ``device``, the others by the
+    numpy probe.  A row group that the memo or the statistics prune
+    entirely reads no filter."""
     from . import bloom
+    from .cache import NEGS
 
     alive_by_rg: List[np.ndarray] = []
+    neg_keys: List[Optional[tuple]] = []
+    probed: List[np.ndarray] = []
     on_device = []  # (row group ordinal, filter, hashes)
+    fk = pf._cache_key
     for rg in row_groups:
         chunk = rg.column(leaf.column_index)
         alive = np.arange(len(prep.uniq), dtype=np.int64)
-        # ---- stage 1: chunk statistics (no IO)
-        keep = _stats_alive(chunk.statistics(), chunk.meta.num_values, prep,
-                            alive)
-        counters["keys_pruned_stats"] += int(len(alive) - keep.sum())
-        alive = alive[keep]
+        # ---- stage 0: keys this chunk was proven not to hold
+        neg_key = None if fk is None else (fk, rg.index, leaf.name)
+        if neg_key is not None:
+            known = NEGS.absent_mask(neg_key, prep.uniq)
+            if known is not None:
+                counters["neg_hits"] += int(known.sum())
+                alive = alive[~known]
+        neg_keys.append(neg_key)
+        probed.append(alive)
+        if len(alive):
+            # ---- stage 1: chunk statistics (no IO)
+            keep = _stats_alive(chunk.statistics(), chunk.meta.num_values,
+                                prep, alive)
+            counters["keys_pruned_stats"] += int(len(alive) - keep.sum())
+            alive = alive[keep]
         # ---- stage 2: the bloom filter, every surviving key in one probe
         bf = (chunk.bloom_filter() if len(alive) and prep.hashes is not None
               else None)
@@ -519,7 +620,7 @@ def _prune_row_groups(row_groups, leaf, prep: _PreparedKeys,
                                          [h for _, _, h in on_device], device)
         for (j, _, _), keep in zip(on_device, keeps):
             alive_by_rg[j] = _bloom_survivors(alive_by_rg[j], keep, counters)
-    return alive_by_rg
+    return alive_by_rg, neg_keys, probed
 
 
 def _bloom_survivors(alive: np.ndarray, keep: np.ndarray,
@@ -528,86 +629,293 @@ def _bloom_survivors(alive: np.ndarray, keep: np.ndarray,
     return alive[keep]
 
 
-def _lookup_rg(rg, leaf, prep: _PreparedKeys, alive: np.ndarray, out_leaves,
-               counters: Dict[str, int], device):
-    """Match and gather one row group's ``alive`` keys (the survivors of
-    :func:`_prune_row_groups`).  Returns ``(rows, cols)``: ``rows[u]`` the
-    local row ordinals of uniq key ``u`` and ``cols[u][name]`` its
-    ``(values, validity)``; None when no key matched."""
-    from ..parallel.host_scan import aligned_key_mask
+def _lookup_rg(pf, rg, leaf, prep: _PreparedKeys, alive: np.ndarray,
+               out_leaves, counters: Dict[str, int], device):
+    """Stages 3-4 of one row group for its ``alive`` keys (the survivors
+    of :func:`_prune_row_groups`): the page search, the page reads, the
+    match and the gather of the output columns.  Returns ``(rows,
+    cols)``: ``rows[u]`` the local row ordinals of uniq key ``u`` and
+    ``cols[u][name]`` its ``(values, validity)``; None when no key
+    matched."""
+    from ..utils.pool import lookup_admission
 
     if not len(alive):
         return None
     chunk = rg.column(leaf.column_index)
-    # ---- stage 3: the page index, then page reads
     ci = chunk.column_index()
     oi = chunk.offset_index()
-    per_uniq_rows: Dict[int, np.ndarray] = {}
     if ci is None or oi is None or not oi.page_locations:
+        # the whole chunk, matched as an unsorted row group, as the
+        # reference matches it there
         counters["chunk_fallbacks"] += 1
-        vals, valid = decode_aligned(chunk, device)
-        for u in alive.tolist():
-            rows = np.flatnonzero(aligned_key_mask(leaf, prep.uniq[u], vals,
-                                                   valid))
-            if len(rows):
-                per_uniq_rows[u] = rows.astype(np.int64)
+        with lookup_admission().admit(chunk.meta.total_compressed_size or 0):
+            vals, valid = decode_aligned(chunk, device)
+        entries = {0: PageEntry(vals, valid, 0, rg.num_rows)}
+        key_pages = [(u, [0]) for u in alive.tolist()]
+        nulls_first = None
     else:
-        key_pages = []
-        needed = set()
-        for u, ords in _page_ords_of_keys(ci, leaf, prep, alive):
-            if not ords:
-                counters["keys_pruned_pages"] += 1
-                continue
-            key_pages.append((u, ords))
-            needed.update(ords)
+        # ---- stage 3: the page index, then page reads
+        key_pages = _page_ords_of_keys(ci, leaf, prep, alive, counters)
         if not key_pages:
             return None
-        entries = _PageFetcher(rg, chunk, counters, device).fetch(needed)
-        per_uniq_rows = _match_keys(rg, leaf, prep, key_pages, entries,
-                                    counters)
+        needed = set()
+        for _, ords in key_pages:
+            needed.update(ords)
+        entries = _PageFetcher(pf, rg, chunk, counters, device).fetch(needed)
+        nulls_first = _rg_sorted_by(rg, leaf)
+    per_uniq_rows = _match(leaf, prep, key_pages, entries, nulls_first,
+                           counters)
     if not per_uniq_rows:
         return None
     counters["rows_matched"] += sum(len(r) for r in per_uniq_rows.values())
-    return per_uniq_rows, _gather_columns(rg, per_uniq_rows, out_leaves,
+    return per_uniq_rows, _gather_columns(pf, rg, per_uniq_rows, out_leaves,
                                           counters, device)
 
 
-def _match_keys(rg, leaf, prep: _PreparedKeys, key_pages, entries,
-                counters: Dict[str, int]) -> Dict[int, np.ndarray]:
-    """The local rows equal to each key in its fetched pages: an in-page
-    binary search where the row group declares its rows sorted by the key
-    and the page allows it, the exact mask otherwise."""
-    from ..parallel.host_scan import aligned_key_mask
+# ---------------------------------------------------------------------------
+# stage 4's match: every key of a row group at once, against one sorted
+# table of its fetched rows
+# ---------------------------------------------------------------------------
 
-    nulls_first = _rg_sorted_by(rg, leaf)
-    per_uniq_rows: Dict[int, np.ndarray] = {}
-    for u, ords in key_pages:
-        key = prep.uniq[u]
-        parts = []
-        for o in ords:
+
+def _row_hashes(entry: PageEntry) -> np.ndarray:
+    """The xxh64 of each byte row of a byte-array or fixed-length page,
+    computed once an entry."""
+    got = entry.memo.get("hashes")
+    if got is None:
+        from ..ops import host
+
+        v = entry.values
+        if isinstance(v, ByteRows):
+            got = host.xxh64_batch(v.data, v.offsets)
+        else:
+            w = v.shape[1]
+            got = host.xxh64_batch(
+                v.reshape(-1), np.arange(len(v) + 1, dtype=np.int64) * w)
+        entry.memo["hashes"] = got
+    return got
+
+
+def _row_objects(leaf, entry: PageEntry) -> np.ndarray:
+    """Each row of a page as a python value of the leaf's order domain
+    (:func:`~parquet_tpu_torch.algebra.compare.decode_order_value`'s): a
+    decimal of byte storage as its unscaled integer, other byte rows as
+    ``bytes``, booleans and numbers as python scalars."""
+    from ..algebra.compare import decode_order_value
+    from ..parallel.host_scan import order_view
+
+    v = entry.values
+    if isinstance(v, ByteRows):
+        got = [decode_order_value(v.row(i), leaf) for i in range(len(v))]
+    elif v.ndim == 2:
+        got = [decode_order_value(r.tobytes(), leaf) for r in v]
+    else:
+        got = order_view(leaf, v).tolist()
+    out = np.empty(len(got), object)
+    out[:] = got
+    return out
+
+
+def _equals_itself(values: np.ndarray) -> np.ndarray:
+    """False at a NaN, which equals no key."""
+    if values.dtype.kind == "f":
+        return values == values
+    if values.dtype.kind == "O":
+        return np.fromiter((v == v for v in values.tolist()), bool,
+                           count=len(values))
+    return np.ones(len(values), bool)
+
+
+class _RowTable:
+    """Every present row of a row group's fetched pages, sorted by a key
+    of its own: its value in the leaf's order domain, or the hash of its
+    bytes.  A key's candidate rows are one ``searchsorted`` away, however
+    many pages its bounds span (a page index whose bounds were cut to a
+    common prefix gives a key every page of that prefix)."""
+
+    def __init__(self, entries: Dict[int, PageEntry], sort_key):
+        parts, pages, rows = [], [], []
+        for o in sorted(entries):
             e = entries[o]
-            hit = None
-            if nulls_first is not None:
-                hit = _sorted_page_hits(leaf, key, e, nulls_first)
-            if hit is None:
-                hit = np.flatnonzero(aligned_key_mask(
-                    leaf, key, e.values, e.validity))
-            else:
-                counters["binary_search_hits"] += 1
-            if len(hit):
-                parts.append(e.first_row + hit)
-        if parts:
-            per_uniq_rows[u] = (parts[0] if len(parts) == 1
-                                else np.concatenate(parts))
-    return per_uniq_rows
+            live = (np.arange(e.num_rows) if e.validity is None
+                    else np.flatnonzero(e.validity))
+            vals = sort_key(e)[live]
+            keep = _equals_itself(vals)
+            parts.append(vals[keep])
+            pages.append(np.full(int(keep.sum()), o, np.int64))
+            rows.append(live[keep])
+        values = np.concatenate(parts)
+        order = np.argsort(values, kind="stable")
+        self.values = values[order]
+        self.pages = np.concatenate(pages)[order]
+        self.rows = np.concatenate(rows)[order]
+        self.firsts = np.zeros(max(entries) + 1, np.int64)
+        for o, e in entries.items():
+            self.firsts[o] = e.first_row
+
+    def match(self, key_pages, needles: np.ndarray, exact=None
+              ) -> Dict[int, np.ndarray]:
+        """``{uniq ordinal: ascending local rows}`` of the keys of
+        ``key_pages``: the rows whose sort key is the key's ``needles``
+        entry, on a page its bounds allow, and where ``exact(key index,
+        page, row)`` is given, for which it holds.  A NaN needle matches
+        nothing."""
+        from ..ops.host import segment_ranges
+
+        ok = _equals_itself(needles)
+        if not ok.all():
+            key_pages = [x for x, keep in zip(key_pages, ok.tolist())
+                         if keep]
+            needles = needles[ok]
+        if not key_pages:
+            return {}
+        lo = np.searchsorted(self.values, needles, "left")
+        hi = np.searchsorted(self.values, needles, "right")
+        counts = hi - lo
+        kidx = np.repeat(np.arange(len(needles)), counts)
+        j = np.repeat(lo, counts) + segment_ranges(counts)
+        pages, rows = self.pages[j], self.rows[j]
+        first = np.array([ords[0] for _, ords in key_pages], np.int64)
+        last = np.array([ords[-1] for _, ords in key_pages], np.int64)
+        keep = (pages >= first[kidx]) & (pages <= last[kidx])
+        # a key whose pages are not one run (the zone-map walk) checks
+        # each candidate page
+        for i, (_, ords) in enumerate(key_pages):
+            if len(ords) != ords[-1] - ords[0] + 1 and counts[i]:
+                sel = np.flatnonzero(kidx == i)
+                allowed = set(ords)
+                keep[sel] &= np.fromiter((p in allowed
+                                          for p in pages[sel].tolist()),
+                                         bool, count=len(sel))
+        if exact is not None and keep.any():
+            sel = np.flatnonzero(keep)
+            keep[sel] = np.fromiter(
+                (exact(i, p, r) for i, p, r in zip(
+                    kidx[sel].tolist(), pages[sel].tolist(),
+                    rows[sel].tolist())), bool, count=len(sel))
+        kidx, rows = kidx[keep], self.firsts[pages[keep]] + rows[keep]
+        order = np.lexsort((rows, kidx))
+        kidx, rows = kidx[order], rows[order]
+        cut = np.flatnonzero(np.diff(kidx)) + 1
+        return {key_pages[int(part_k[0])][0]: part_r
+                for part_k, part_r in zip(np.split(kidx, cut),
+                                          np.split(rows, cut))
+                if len(part_k)}
 
 
-def _gather_columns(rg, per_uniq_rows: Dict[int, np.ndarray], out_leaves,
+def _match(leaf, prep: _PreparedKeys, key_pages, entries,
+           nulls_first: Optional[bool], counters: Dict[str, int]
+           ) -> Dict[int, np.ndarray]:
+    """The local rows equal to each key of ``key_pages`` in its fetched
+    pages, ascending, by one :class:`_RowTable` a domain: numbers of the
+    column's order domain (``prep.order``) by value; byte keys of a byte
+    array or fixed-length column that is not a decimal by the rows'
+    xxh64, each candidate's bytes then compared; every other key
+    (booleans, decimals of byte storage) by its python value in the order
+    domain.  The rows are those the reference's in-page binary search or
+    exact mask gives."""
+    from ..parallel.host_scan import order_view
+
+    if nulls_first is not None:
+        counters["binary_search_hits"] += _searches_answered(
+            leaf, prep, key_pages, entries, nulls_first)
+    first = next(iter(entries.values())).values
+    if (prep.order is not None and isinstance(first, np.ndarray)
+            and first.ndim == 1 and first.dtype.kind in "iuf"):
+        table = _RowTable(entries, lambda e: order_view(leaf, e.values))
+        needles = prep.order[np.fromiter((u for u, _ in key_pages), np.int64,
+                                         count=len(key_pages))]
+        return table.match(key_pages, needles.astype(table.values.dtype))
+    hashed, rest = [], key_pages
+    if _bytes_keyed(leaf) and prep.hashes is not None:
+        hashed = [x for x in key_pages
+                  if isinstance(prep.uniq[x[0]], (bytes, bytearray))]
+        rest = [x for x in key_pages
+                if not isinstance(prep.uniq[x[0]], (bytes, bytearray))]
+    got: Dict[int, np.ndarray] = {}
+    if hashed:
+        def same_bytes(i, p, r):
+            v = entries[p].values
+            row = v.row(r) if isinstance(v, ByteRows) else v[r].tobytes()
+            return row == prep.uniq[hashed[i][0]]
+
+        table = _RowTable(entries, _row_hashes)
+        got.update(table.match(hashed, prep.hashes[[u for u, _ in hashed]],
+                               same_bytes))
+    if rest:
+        table = _RowTable(entries, lambda e: _row_objects(leaf, e))
+        needles = np.empty(len(rest), object)
+        needles[:] = [prep.uniq[u] for u, _ in rest]
+        got.update(table.match(rest, needles))
+    return got
+
+
+def _searches_answered(leaf, prep: _PreparedKeys, key_pages, entries,
+                       nulls_first: bool) -> int:
+    """``binary_search_hits``, derived for parity with the reference: the
+    (key, page) probes that the reference answers by a binary search
+    within the page of a row group sorted by the key (the port matches
+    every key against a :class:`_RowTable`, so no such search runs).  A
+    page answers any key when all of it is null, and otherwise only where
+    its nulls are one run at the declared end and it holds integers for
+    an integer key or, outside a decimal, byte arrays for a bytes key."""
+    from collections import Counter
+    from itertools import chain
+
+    verdict = {}  # page: 2 any key, 1 a key of its kind, 0 none
+    for o, e in entries.items():
+        v, valid = e.values, e.validity
+        if valid is not None:
+            k = int(valid.sum())
+            if k == 0:
+                verdict[o] = 2
+                continue
+            run = valid[e.num_rows - k:] if nulls_first else valid[:k]
+            if not run.all():
+                verdict[o] = 0
+                continue
+        if isinstance(v, ByteRows):
+            verdict[o] = int(leaf.logical_kind != LogicalKind.DECIMAL)
+        else:
+            verdict[o] = int(v.ndim == 1 and v.dtype.kind in "iu")
+    if not any(verdict.values()):
+        return 0
+    if isinstance(next(iter(entries.values())).values, ByteRows):
+        kind_ok = [isinstance(prep.uniq[u], (bytes, bytearray))
+                   for u, _ in key_pages]
+    elif prep.order is not None and prep.order.dtype.kind in "iu":
+        kind_ok = None  # integers of the column's domain, every one
+    else:
+        kind_ok = [isinstance(prep.uniq[u], (int, np.integer))
+                   and not isinstance(prep.uniq[u], bool)
+                   for u, _ in key_pages]
+    if kind_ok is None:
+        uses = Counter(chain.from_iterable(ords for _, ords in key_pages))
+        return sum(n for o, n in uses.items() if verdict[o])
+    return sum(verdict[o] == 2 or (verdict[o] == 1 and ok)
+               for (_, ords), ok in zip(key_pages, kind_ok) for o in ords)
+
+
+def _take(values, validity, idx: np.ndarray):
+    """Row-aligned ``(values, validity)`` at ``idx``: byte rows become a
+    list of ``bytes`` with None at null rows."""
+    valid = None if validity is None else validity[idx]
+    if isinstance(values, ByteRows):
+        idx = idx.tolist()
+        flags = [True] * len(idx) if valid is None else valid.tolist()
+        return [values.row(i) if f else None
+                for i, f in zip(idx, flags)], valid
+    return values[idx], valid
+
+
+def _gather_columns(pf, rg, per_uniq_rows: Dict[int, np.ndarray], out_leaves,
                     counters: Dict[str, int], device):
     """Each output column's row-aligned values at every matched row, read
     through one coalesced page fetch per chunk, then cut per key.  A key's
     validity is None when none of the pages its rows lie in carried one,
     as the reference concatenates it."""
+    from ..utils.pool import lookup_admission
+
     us = list(per_uniq_rows)
     lens = np.array([len(per_uniq_rows[u]) for u in us], np.int64)
     starts = np.concatenate([[0], np.cumsum(lens)])
@@ -618,12 +926,13 @@ def _gather_columns(rg, per_uniq_rows: Dict[int, np.ndarray], out_leaves,
         oi = chunk.offset_index()
         if oi is None or not oi.page_locations:
             counters["chunk_fallbacks"] += 1
-            vals, valid = decode_aligned(chunk, device)
-            got_vals = vals[rows]
-            got_valid = None if valid is None else valid[rows]
+            with lookup_admission().admit(
+                    chunk.meta.total_compressed_size or 0):
+                vals, valid = decode_aligned(chunk, device)
+            got_vals, got_valid = _take(vals, valid, rows)
             has_valid = np.full(len(us), valid is not None)
         else:
-            fetcher = _PageFetcher(rg, chunk, counters, device)
+            fetcher = _PageFetcher(pf, rg, chunk, counters, device)
             ords = fetcher.ords_of_rows(rows)
             entries = fetcher.fetch(np.unique(ords).tolist())
             got_vals, got_valid, row_valid = _gather_pages(entries, rows,
@@ -637,11 +946,15 @@ def _gather_columns(rg, per_uniq_rows: Dict[int, np.ndarray], out_leaves,
     return cols
 
 
-def _gather_pages(entries: Dict[int, _PageEntry], rows: np.ndarray,
+def _gather_pages(entries: Dict[int, PageEntry], rows: np.ndarray,
                   ords: np.ndarray):
-    """(values, validity, row_has_validity) at ``rows`` (page ``ords``)."""
-    first = next(iter(entries.values()))
-    vals = np.empty(len(rows), first.values.dtype)
+    """(values, validity, row_has_validity) at ``rows`` (page ``ords``);
+    byte rows gather into a list."""
+    first = next(iter(entries.values())).values
+    if isinstance(first, ByteRows):
+        vals = [None] * len(rows)
+    else:
+        vals = np.empty((len(rows),) + first.shape[1:], first.dtype)
     valid = np.ones(len(rows), bool)
     row_valid = np.zeros(len(rows), np.int64)
     by_page = np.argsort(ords, kind="stable")
@@ -651,20 +964,43 @@ def _gather_pages(entries: Dict[int, _PageEntry], rows: np.ndarray,
         e = entries[o]
         sel = by_page[a:b]
         local = rows[sel] - e.first_row
-        vals[sel] = e.values[local]
-        if e.validity is not None:
-            valid[sel] = e.validity[local]
+        part, pvalid = _take(e.values, e.validity, local)
+        if isinstance(vals, list):
+            for i, v in zip(sel.tolist(), part):
+                vals[i] = v
+        else:
+            vals[sel] = part
+        if pvalid is not None:
+            valid[sel] = pvalid
             row_valid[sel] = 1
     return vals, valid, row_valid
 
 
 # ---------------------------------------------------------------------------
-# entry point
+# entry points
 # ---------------------------------------------------------------------------
 
 
-def _empty_values(leaf) -> np.ndarray:
+def _empty_values(leaf):
+    """A key's values of ``leaf`` where it has no rows, in the reference's
+    forms."""
+    if leaf.physical_type == Type.BYTE_ARRAY:
+        return []
+    if leaf.physical_type == Type.FIXED_LEN_BYTE_ARRAY:
+        return np.empty((0, leaf.type_length or 0), np.uint8)
     return np.empty(0, PHYSICAL_NP_DTYPE[leaf.physical_type])
+
+
+def _flat_leaves(pf, path: str, columns):
+    """The key leaf and the output leaves; a nested one is refused."""
+    leaf = pf.schema.leaf(path)  # KeyError on an unknown column
+    out_leaves = [pf.schema.leaf(c) for c in (columns or [])]
+    for lf in [leaf] + out_leaves:
+        if lf.max_repetition_level or lf.max_definition_level > 1:
+            raise unsupported(
+                f"a point lookup over the nested column {lf.name!r}",
+                "the lookup leftovers (nested key and value columns)")
+    return leaf, out_leaves
 
 
 def find_rows(pf, path: str, keys, columns: Optional[Sequence[str]] = None,
@@ -678,48 +1014,84 @@ def find_rows(pf, path: str, keys, columns: Optional[Sequence[str]] = None,
     from .reader import resolve_device
 
     dev = resolve_device(device)
-    leaf = pf.schema.leaf(path)  # KeyError on an unknown column
-    out_leaves = [pf.schema.leaf(c) for c in (columns or [])]
-    for lf in [leaf] + out_leaves:
-        if lf.max_repetition_level or lf.max_definition_level > 1:
-            raise unsupported(
-                f"a point lookup over the nested column {lf.name!r}",
-                "the lookup leftovers (nested key and value columns)")
-        if lf.physical_type not in NUMERIC:
-            raise unsupported(
-                f"a point lookup over the {lf.physical_type.name} column "
-                f"{lf.name!r}", "the lookup leftovers (byte-array, boolean "
-                "and fixed-length keys and values)")
-    counters = {k: 0 for k in COUNTER_KEYS}
-    counters["keys"] = len(keys)
+    leaf, out_leaves = _flat_leaves(pf, path, columns)
     prep = _prepare_keys(leaf, keys)
-    per_uniq: Dict[int, List[tuple]] = {}
-    if prep.uniq:
-        row_groups = pf.row_groups
-        rg_base = 0
-        for rg, alive in zip(row_groups, _prune_row_groups(
-                row_groups, leaf, prep, counters, dev)):
-            got = _lookup_rg(rg, leaf, prep, alive, out_leaves, counters,
-                             dev)
-            if got is not None:
-                rows_map, cols_map = got
-                for u, rows in rows_map.items():
-                    per_uniq.setdefault(u, []).append(
-                        (rows + rg_base, cols_map[u]))
-            rg_base += rg.num_rows
+    counters, per_uniq = _lookup_file(pf, leaf, prep, out_leaves, dev)
+    counters["keys"] = len(keys)
     return LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
                         counters)
+
+
+def _lookup_file(pf, leaf, prep: _PreparedKeys, out_leaves, dev):
+    """The cascade over every row group of ``pf`` for a prepared batch:
+    ``(counters, {uniq ordinal: [(file-local rows, {column: (values,
+    validity)}), ...]})``, the keys not counted."""
+    from .cache import NEGS
+
+    counters = _new_counters()
+    per_uniq: Dict[int, List[tuple]] = {}
+    if not prep.uniq:
+        return counters, per_uniq
+    row_groups = pf.row_groups
+    alive_by_rg, neg_keys, probed = _prune_row_groups(
+        pf, row_groups, leaf, prep, counters, dev)
+    rg_base = 0
+    for rg, alive, neg_key, tried in zip(row_groups, alive_by_rg, neg_keys,
+                                         probed):
+        got = _lookup_rg(pf, rg, leaf, prep, alive, out_leaves, counters,
+                         dev)
+        if got is not None:
+            rows_map, cols_map = got
+            for u, rows in rows_map.items():
+                per_uniq.setdefault(u, []).append((rows + rg_base,
+                                                   cols_map[u]))
+        if neg_key is not None and len(tried):
+            # the row group's cascade ran to its end: what it left
+            # unmatched is absent
+            if got is not None:
+                tried = tried[~np.isin(tried, np.fromiter(
+                    got[0], np.int64, count=len(got[0])))]
+            NEGS.add(neg_key, _uniq_keys(prep, tried))
+        rg_base += rg.num_rows
+    return counters, per_uniq
+
+
+def _uniq_keys(prep: _PreparedKeys, us: np.ndarray) -> list:
+    """The uniq keys at ordinals ``us`` (integers read off the key array
+    in one call)."""
+    if prep.order is not None and prep.order.dtype.kind in "iu":
+        return prep.order[us].tolist()
+    return [prep.uniq[u] for u in us.tolist()]
+
+
+def _concat_values(vparts):
+    if isinstance(vparts[0], list):
+        return [v for p in vparts for v in p]
+    return vparts[0] if len(vparts) == 1 else np.concatenate(vparts)
+
+
+def _concat_validity(vparts, valparts):
+    if all(v is None for v in valparts):
+        return None
+    return np.concatenate([v if v is not None else np.ones(len(p), bool)
+                           for v, p in zip(valparts, vparts)])
 
 
 def _assemble_hits(keys, prep: _PreparedKeys, per_uniq, out_leaves
                    ) -> List[KeyHits]:
     """One :class:`KeyHits` per uniq key, shared by its duplicates in the
-    input; a key with no rows gets empty arrays (shared, being empty) and
-    None validity."""
+    input; a key with no rows gets empty values and None validity."""
     names = [leaf.name for leaf in out_leaves]
     no_rows = np.empty(0, np.int64)
-    no_values = {leaf.name: _empty_values(leaf) for leaf in out_leaves}
+    no_values = {c: _empty_values(lf) for c, lf in zip(names, out_leaves)}
+    lists = [c for c, v in no_values.items() if isinstance(v, list)]
     no_validity = dict.fromkeys(names)
+
+    def empty(key) -> KeyHits:  # empty arrays shared, lists each their own
+        values = dict(no_values)
+        for c in lists:
+            values[c] = []
+        return KeyHits(key, no_rows, values, dict(no_validity))
 
     def build(u: int, key) -> KeyHits:
         parts = per_uniq[u]
@@ -732,12 +1104,9 @@ def _assemble_hits(keys, prep: _PreparedKeys, per_uniq, out_leaves
         h = KeyHits(key, np.concatenate([p[0] for p in parts]))
         for c in names:
             vparts = [p[1][c][0] for p in parts]
-            valparts = [p[1][c][1] for p in parts]
-            h.values[c] = np.concatenate(vparts)
-            h.validity[c] = (None if all(v is None for v in valparts) else
-                             np.concatenate([
-                                 v if v is not None else np.ones(len(p), bool)
-                                 for v, p in zip(valparts, vparts)]))
+            h.values[c] = _concat_values(vparts)
+            h.validity[c] = _concat_validity(vparts,
+                                             [p[1][c][1] for p in parts])
         return h
 
     built: Dict[int, KeyHits] = {}
@@ -745,11 +1114,48 @@ def _assemble_hits(keys, prep: _PreparedKeys, per_uniq, out_leaves
     for k, u in zip(keys, prep.key_map.tolist()):
         got = built.get(u)
         if got is None:
-            if u >= 0 and u in per_uniq:
-                got = build(u, k)
-            else:
-                got = KeyHits(k, no_rows, dict(no_values), dict(no_validity))
+            got = build(u, k) if u >= 0 and u in per_uniq else empty(k)
             if u >= 0:
                 built[u] = got
         hits.append(got)
     return hits
+
+
+def dataset_find_rows(ds, path: str, keys,
+                      columns: Optional[Sequence[str]] = None,
+                      device="cuda") -> LookupResult:
+    """:func:`find_rows` over every file of a
+    :class:`~parquet_tpu_torch.dataset.Dataset`: the keys are normalized
+    and hashed once for the corpus (``keys`` counted once), the files fan
+    out on the shared pool (each on ``device``, schemas checked against the
+    first), and the hits merge in file order with dataset-wide row
+    ordinals (:meth:`~parquet_tpu_torch.dataset.Dataset.row_offsets`);
+    the other counters are the files' sums."""
+    from ..utils.pool import map_in_order
+    from .reader import resolve_device
+
+    dev = resolve_device(device)
+    pf0 = ds.file(0)
+    ds._check_schema(pf0, ds.paths[0])
+    leaf, out_leaves = _flat_leaves(pf0, path, columns)
+    prep = _prepare_keys(leaf, keys)
+
+    def one(i):
+        pf = ds.file(i)
+        ds._check_schema(pf, ds.paths[i])
+        return _lookup_file(pf, pf.schema.leaf(path), prep,
+                            [pf.schema.leaf(c) for c in (columns or [])],
+                            dev) + (pf.num_rows,)
+
+    counters = _new_counters()
+    counters["keys"] = len(keys)
+    per_uniq: Dict[int, List[tuple]] = {}
+    base = 0
+    for got, parts, rows in map_in_order(one, range(len(ds.paths))):
+        for k, v in got.items():
+            counters[k] += v
+        for u, ps in parts.items():
+            per_uniq.setdefault(u, []).extend((r + base, c) for r, c in ps)
+        base += rows
+    return LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
+                        counters)

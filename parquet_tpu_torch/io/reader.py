@@ -501,7 +501,8 @@ def resolve_device(device) -> torch.device:
 
 class ParquetFile:
     """An open Parquet file: magic check at both ends and the thrift
-    footer."""
+    footer, or, for a path whose bytes were opened before, the footer
+    parsed then (``io/cache.py::FOOTERS``)."""
 
     def __init__(self, source):
         self._chunk_cache: Dict[Tuple[int, int], ColumnChunkReader] = {}
@@ -512,7 +513,28 @@ class ParquetFile:
             self.source.close()
             raise
 
+    @property
+    def _cache_key(self):
+        """The file's key in ``io/cache.py``'s caches: its source's
+        ``stat_key`` (None for in-memory bytes and wrapped sources, which
+        are never cached)."""
+        return getattr(self.source, "stat_key", None)
+
     def _open_footer(self) -> None:
+        from .cache import FOOTERS
+
+        key = self._cache_key
+        hit = FOOTERS.get(key) if key is not None else None
+        if hit is not None:  # these bytes' footer was parsed before
+            self.metadata, self.schema = hit
+        else:
+            self._parse_footer()
+            if key is not None:
+                FOOTERS.put(key, (self.metadata, self.schema))
+        self._row_groups = [RowGroupReader(self, i, rg) for i, rg in
+                            enumerate(self.metadata.row_groups or [])]
+
+    def _parse_footer(self) -> None:
         size = self.source.size()
         if size < 12:
             raise CorruptedError(
@@ -534,8 +556,6 @@ class ParquetFile:
         if not self.metadata.schema:
             raise CorruptedError("footer has no schema")
         self.schema = Schema.from_elements(self.metadata.schema)
-        self._row_groups = [RowGroupReader(self, i, rg) for i, rg in
-                            enumerate(self.metadata.row_groups or [])]
 
     @property
     def num_rows(self) -> int:

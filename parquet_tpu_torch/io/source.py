@@ -4,8 +4,11 @@ The port's cut of ``parquet_tpu/io/source.py``: a :class:`Source` answers
 ``size()`` and ``pread(offset, size)``.  A path opens as a
 :class:`MmapSource`, whose ``pread_view`` is a zero-copy view of the page
 cache, and falls back to :class:`FileSource` (``os.pread``) where the file
-cannot be mapped (an empty file, a FIFO).  Remote and policy-wrapped
-sources belong to a later slice.
+cannot be mapped (an empty file, a FIFO).  Each of the two carries a
+``stat_key``, ``(absolute path, inode, mtime_ns, size)`` from the fstat of
+the descriptor it opened: the identity ``io/cache.py``'s caches key a file
+by (in-memory bytes have none and are never cached).  Remote and
+policy-wrapped sources belong to a later slice.
 """
 
 from __future__ import annotations
@@ -36,6 +39,13 @@ def _check_range(what: str, offset: int, size: int, total: int) -> None:
             f"{total}-byte source")
 
 
+def _stat_key(path: str, st: os.stat_result) -> tuple:
+    """The bytes' identity for the caches: the inode tells a file renamed
+    over this path from the one it replaced, even at the same size within
+    one tick of the clock."""
+    return (os.path.abspath(path), st.st_ino, st.st_mtime_ns, st.st_size)
+
+
 class BytesSource(Source):
     def __init__(self, data):
         self._data = bytes(data)
@@ -52,7 +62,9 @@ class FileSource(Source):
     def __init__(self, path):
         self.path = os.fspath(path)
         self._fd = os.open(self.path, os.O_RDONLY)
-        self._size = os.fstat(self._fd).st_size
+        st = os.fstat(self._fd)
+        self._size = st.st_size
+        self.stat_key = _stat_key(self.path, st)
 
     def size(self) -> int:
         return self._size
@@ -87,7 +99,9 @@ class MmapSource(Source):
         self.path = os.fspath(path)
         fd = os.open(self.path, os.O_RDONLY)
         try:
-            self._size = os.fstat(fd).st_size
+            st = os.fstat(fd)
+            self._size = st.st_size
+            self.stat_key = _stat_key(self.path, st)
             if self._size == 0:
                 raise ValueError(f"cannot map the empty file {self.path!r}")
             self._mm = _mmap.mmap(fd, self._size, prot=_mmap.PROT_READ)

@@ -13,8 +13,9 @@ UNCOMPRESSED, GZIP, SNAPPY, ZSTD, LZ4_RAW, LZ4 or BROTLI.  As the
 reference's writer does, it writes chunk and page statistics (byte arrays
 in unsigned lexicographic order, page-index bounds truncated to 64
 bytes), the page index (column index with its boundary order, and offset
-index), split-block bloom filters for the numeric columns named in
-``WriterOptions.bloom_filters`` and the row groups' ``sorting_columns``;
+index), split-block bloom filters for the columns named in
+``WriterOptions.bloom_filters`` (any physical type but BOOLEAN and INT96)
+and the row groups' ``sorting_columns``;
 the bloom filters, then the page index, go between the last row group
 and the footer.  Byte-array dictionaries keep
 first-seen order, as the reference's do.  Page CRCs are not written.
@@ -153,6 +154,7 @@ class ParquetWriter:
         self.schema = schema
         self.options = options or WriterOptions()
         self._own_sink = isinstance(sink, (str, os.PathLike))
+        self._path = os.fspath(sink) if self._own_sink else None
         self._f = open(sink, "wb") if self._own_sink else sink
         self._codec = codecs.get_codec(self.options.codec_id())
         self._f.write(md.MAGIC)
@@ -233,9 +235,11 @@ class ParquetWriter:
         if leaf.name in opts.bloom_filters:
             from .bloom import build_split_block_filter
 
+            dictionary = indices is not None
             bloom_blob = build_split_block_filter(
-                leaf, values, dict_values if indices is not None else None,
-                opts.bloom_filters[leaf.name])
+                leaf, values, dict_values if dictionary else None,
+                opts.bloom_filters[leaf.name], offsets=offsets,
+                dict_offsets=dict_offsets if dictionary else None)
 
         chunk_start = self._pos
         parts: List[bytes] = []
@@ -381,9 +385,18 @@ class ParquetWriter:
         blob = thrift.serialize(fmd)
         self._f.write(blob + struct.pack("<I", len(blob)) + md.MAGIC)
         if self._own_sink:
-            self._f.close()
+            self._close_path()
         else:
             self._f.flush()
+
+    def _close_path(self) -> None:
+        """Close the file this writer opened and drop its path from the
+        caches: they key a file by its fstat, which a rewrite in place of
+        the same size within one tick of the clock keeps."""
+        from .cache import invalidate_path
+
+        self._f.close()
+        invalidate_path(self._path)
 
     def _write_blooms_and_page_index(self) -> None:
         """The bloom filters, then every column index, then every offset
@@ -419,7 +432,7 @@ class ParquetWriter:
         if exc[0] is None:
             self.close()
         elif self._own_sink:
-            self._f.close()
+            self._close_path()
 
 
 def _normalized(leaf: Leaf, data: ColumnData):

@@ -80,6 +80,7 @@ SIGNATURES = {
         "pq_fill_batch": (_LL, [_P, _LL, _P, _LL, _P, _LL, _LL]),
         "pq_byte_array_parts": (_LL, [_P, _LL, _P, _P, _P]),
         "pq_gather_ba": (_LL, [_P, _LL, _P, _LL, _P, _LL, _P, _P, _LL]),
+        "pq_xxh64_batch": (_LL, [_P, _LL, _P, _LL, _P]),
     },
 }
 # csrc/<name>.cpp, built with c++

@@ -263,6 +263,24 @@ def gather_byte_arrays_numpy(values: np.ndarray, offsets: np.ndarray,
     return np.asarray(values)[idx], out_offs
 
 
+def xxh64_batch(values: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """XXH64 (seed 0) of each value of a ``(values, offsets)`` byte-array
+    column, the Parquet bloom hash, in C++ (``pq_xxh64_batch``); offsets
+    that fall or leave the values raise ``ValueError``.  Its plain version
+    is ``io/bloom.py::xxh64_bytes``."""
+    vals = as_u8(values)
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    n = len(offsets) - 1
+    out = np.empty(max(n, 0), np.uint64)
+    if n <= 0:
+        return out
+    if _prescan().pq_xxh64_batch(_ptr(vals), len(vals), _ptr(offsets), n,
+                                 out.ctypes.data) != 0:
+        raise ValueError("byte-array offsets out of order or past the "
+                         "values")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the read path's prescan (csrc/host_prescan.cpp)
 # ---------------------------------------------------------------------------

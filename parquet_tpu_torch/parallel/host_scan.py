@@ -11,7 +11,10 @@ The port's copy of ``parquet_tpu/parallel/host_scan.py``:
   (:func:`expr_mask`); phase 2 late-materializes: each output column
   decodes only the pages under [first survivor, last survivor] of a span,
   and a span without survivors is never read.  Spans fan out on the
-  shared pool above :data:`_POOL_MIN_CELLS` cells.  :func:`scan_files`
+  shared pool above :data:`_POOL_MIN_CELLS` cells, each read admitted
+  through ``utils/pool.py::read_admission`` under the ``scan`` tier (its
+  chunk's uncompressed size prorated to its rows; the tier is off unless
+  a budget is set).  :func:`scan_files`
   runs it over many files in file order and :func:`merge_scan_results`
   joins their results;
 - :func:`scan_filtered_device` = :func:`stage_scan` + :func:`decoded_scan`:
@@ -54,6 +57,7 @@ from ..errors import _Unsupported, unsupported
 from ..format.enums import Encoding, Type
 from ..ops import device as dev
 from ..schema.types import LogicalKind, empty_values, logical_np_dtype
+from ..utils.pool import read_admission
 
 __all__ = ["scan", "scan_expr", "scan_filtered", "scan_files",
            "merge_scan_results", "expr_mask", "stage_scan", "decoded_scan",
@@ -347,14 +351,29 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
              for d in plan.survivors for (s, e) in d.ranges]
     cand_rows = sum(count for _, _, count in spans)
     t1 = time.perf_counter()
+    admission = read_admission()
+    bytes_per_row: Dict[tuple, float] = {}
+
+    def span_bytes(rg_i: int, c: str, count: int) -> int:
+        """The span's admission estimate, as the JAX package's: the
+        chunk's uncompressed size prorated to the span's rows."""
+        got = bytes_per_row.get((rg_i, c))
+        if got is None:
+            rg_meta = pf.metadata.row_groups[rg_i]
+            meta = rg_meta.columns[pf.schema.leaf(c).column_index].meta_data
+            got = bytes_per_row[(rg_i, c)] = (
+                (meta.total_uncompressed_size or 0)
+                / max(rg_meta.num_rows or 1, 1))
+        return int(got * count)
 
     def read_one(task):
-        start, count, c, form = task
-        return read_row_range(pf, c, start, count, aligned=form)
+        rg_i, start, count, c, form = task
+        with admission.admit(span_bytes(rg_i, c, count), tier="scan"):
+            return read_row_range(pf, c, start, count, aligned=form)
 
     # phase 1: the filter columns' candidate spans, row-aligned, and the
     # exact predicate over them
-    tasks1 = [(start, count, c, True) for (_, start, count) in spans
+    tasks1 = [(rg_i, start, count, c, True) for (rg_i, start, count) in spans
               for c in fcols]
     res1 = _fan_out(read_one, tasks1, cand_rows * max(len(fcols), 1),
                     num_threads)
@@ -373,7 +392,7 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
         trims.append((int(idx[0]), int(idx[-1]) + 1) if len(idx) else None)
     fset = set(fcols)
     read2_cols = [c for c in out_cols if c not in fset]
-    tasks2 = [(spans[si][1] + t0_, t1_ - t0_, c, "arrays")
+    tasks2 = [(spans[si][0], spans[si][1] + t0_, t1_ - t0_, c, "arrays")
               for si, trim in enumerate(trims) if trim is not None
               for t0_, t1_ in [trim] for c in read2_cols]
     cells2 = sum(b - a for t in trims if t is not None

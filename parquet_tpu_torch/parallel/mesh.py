@@ -500,11 +500,21 @@ class _FileStage:
     leaves: list
     device: torch.device
     est_bytes: int
+    grant: int = 0  # the file's read admission, held until its decode ends
     preps: list = field(default_factory=list)
     done: Optional[torch.cuda.Event] = None
     _released: bool = False
 
+    def release_grant(self) -> None:
+        """Hand the file's scan-tier grant back: its staged bytes are
+        consumed once its decode ends.  A grant held until the consumer
+        takes the file would deadlock a window whose later file took the
+        budget first."""
+        grant, self.grant = self.grant, 0
+        _pool.read_admission().release(grant, tier="scan")
+
     def release(self) -> None:
+        self.release_grant()
         if not self._released:
             self._released = True
             _count("staging_bytes", -self.est_bytes)
@@ -535,8 +545,12 @@ def _stage_dataset_file(dataset, i: int, columns, device: torch.device,
     leaves = _select_leaves(pf.schema, columns)
     chunks = [rg.column(leaf.column_index)
               for leaf in leaves for rg in pf.row_groups]
-    st = _FileStage(pf=pf, leaves=leaves, device=device,
-                    est_bytes=sum(r.byte_range[1] for r in chunks))
+    est = sum(r.byte_range[1] for r in chunks)
+    # the file's chunk bytes queue under the read budget's scan tier until
+    # its decode has consumed them (:meth:`_FileStage.release_grant`)
+    grant = _pool.read_admission().acquire(est, tier="scan")
+    st = _FileStage(pf=pf, leaves=leaves, device=device, est_bytes=est,
+                    grant=grant)
     _count("staging_bytes", st.est_bytes)
     try:
         with contextlib.ExitStack() as stack:
@@ -611,6 +625,8 @@ def read_dataset_device(dataset, columns, host_read, mesh=None):
             except BaseException:
                 st.release()
                 raise
+            finally:
+                st.release_grant()
 
     def submit(i):
         device = devs[i % len(devs)]

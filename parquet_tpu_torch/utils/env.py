@@ -2,24 +2,47 @@
 
 The port's cut of ``parquet_tpu/utils/env.py``: every knob is declared in
 :data:`KNOBS` with its default and what it does, named
-``PARQUET_TPU_TORCH_*``, and read through :func:`env_str`, which refuses
-an undeclared name.  Knobs are read at each call, so a test can set one
-with ``monkeypatch.setenv``.
+``PARQUET_TPU_TORCH_*``, and read through :func:`env_str` (or the typed
+:func:`env_int`, :func:`env_bytes` and :func:`env_opt_bytes`, which parse
+it as the JAX package's accessors do: a value that does not parse reads as
+the default), which refuse an undeclared name.  Knobs are read at each
+call, so a test can set one with ``monkeypatch.setenv``.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
-__all__ = ["KNOBS", "env_str"]
+__all__ = ["KNOBS", "env_str", "env_int", "env_bytes", "env_opt_bytes"]
 
-#: name -> (default, what it does)
+#: name -> (default, what it does); "" is unset
 KNOBS = {
     "PARQUET_TPU_TORCH_ROUTE": (
         "", "pins the routed scan's route: host|cpu the host scan, "
         "device|cuda the device scan (a shape the device scan refuses "
         "still takes the host scan); anything else leaves the cost model "
         "to choose (io/planner.py::route_scan)"),
+    "PARQUET_TPU_TORCH_FOOTER_CACHE": (
+        "256", "parsed-footer cache capacity in entries; 0 disables "
+        "(io/cache.py::FOOTERS)"),
+    "PARQUET_TPU_TORCH_PAGE_CACHE": (
+        str(64 << 20), "decoded-page LRU capacity in bytes, the lookup's "
+        "serving tier; 0 disables (io/cache.py::PAGES)"),
+    "PARQUET_TPU_TORCH_NEG_LOOKUP": (
+        str(4 << 20), "negative-lookup memo capacity in bytes (keys a "
+        "lookup proved absent from a chunk); 0 disables (io/cache.py::NEGS)"),
+    "PARQUET_TPU_TORCH_READ_BUDGET": (
+        "", "one FIFO byte budget over every in-flight read span (scans, "
+        "dataset reads, lookups); 0 turns admission off for every tier "
+        "(utils/pool.py::read_admission)"),
+    "PARQUET_TPU_TORCH_LOOKUP_BUDGET": (
+        "", "the lookup tier's budget inside the read budget; unset keeps "
+        "the 64 MiB lookup default, 0 turns the tier's gate off"),
+    "PARQUET_TPU_TORCH_SCAN_BUDGET": (
+        "", "the scan tier's budget (host scan spans, dataset file "
+        "stages) inside the read budget; unset leaves bulk reads "
+        "unbudgeted"),
 }
 
 
@@ -28,3 +51,31 @@ def env_str(name: str) -> str:
     if name not in KNOBS:
         raise KeyError(f"{name} is not a declared knob of parquet_tpu_torch")
     return os.environ.get(name) or KNOBS[name][0]
+
+
+def _parsed(name: str) -> Optional[int]:
+    try:
+        return int(env_str(name))
+    except ValueError:
+        pass
+    try:
+        return int(KNOBS[name][0])  # an unparsable value reads as unset
+    except ValueError:
+        return None
+
+
+def env_int(name: str) -> int:
+    """The knob as an int (0 where it and its default are unset)."""
+    got = _parsed(name)
+    return 0 if got is None else got
+
+
+def env_bytes(name: str) -> int:
+    """The knob as a byte count, at least 0."""
+    return max(0, env_int(name))
+
+
+def env_opt_bytes(name: str) -> Optional[int]:
+    """The knob as a byte count at least 0, or None where it is unset."""
+    got = _parsed(name)
+    return None if got is None else max(0, got)

@@ -1,23 +1,37 @@
-"""The process-wide worker pool of the multi-file reads.
+"""The process-wide worker pool and the read admission gate.
 
 The port's cut of ``parquet_tpu/utils/pool.py``: :func:`shared_pool`, one
 ``ThreadPoolExecutor`` a process, built at first use; :func:`submit`,
-which marks its work so that :func:`in_shared_pool` is true inside it;
-and :func:`map_in_order`, which fans a function out on the pool and
-returns its results in input order.  Work nested inside a pool worker
-runs serially on that worker: a worker that waits on futures no free
-worker can run would wedge the pool.  The tenant and admission machinery
-(``AdmissionController``, ``read_admission``) and the pool's metrics and
-trace spans belong to a later slice.
+which marks its work so that :func:`in_shared_pool` is true inside it and
+runs it in a copy of the submitter's context (so an admission grant held
+by the caller follows its work onto the worker); and
+:func:`map_in_order`, which fans a function out on the pool and returns
+its results in input order.  Work nested inside a pool worker runs
+serially on that worker: a worker that waits on futures no free worker
+can run would wedge the pool.
+
+:class:`AdmissionController` is the FIFO bytes budget over every
+in-flight read span (:func:`read_admission`, :func:`lookup_admission`):
+the ``lookup`` tier (64 MiB unless ``PARQUET_TPU_TORCH_LOOKUP_BUDGET``
+says otherwise) and the ``scan`` tier (off unless
+``PARQUET_TPU_TORCH_SCAN_BUDGET`` sets it), both inside
+``PARQUET_TPU_TORCH_READ_BUDGET`` where that is set (``0`` turns every
+tier off).  Not in this port: tenants and their QoS classes,
+``try_request``'s request-rate gate, blocking under the resource
+ledger's hard watermark, and the pool's metrics and trace spans.
 """
 
 from __future__ import annotations
 
+import contextvars
+import itertools
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from typing import Optional
 
 from ..ops.host import available_cpus
+from .env import env_opt_bytes
 
 _LOCK = threading.Lock()
 _POOL: Optional[ThreadPoolExecutor] = None
@@ -56,8 +70,10 @@ def _run_pooled(fn, args, kwargs):
 
 def submit(fn, *args, **kwargs):
     """``fn(*args, **kwargs)`` on the shared pool, marked so that
-    :func:`in_shared_pool` is true while it runs; returns its future."""
-    return shared_pool().submit(_run_pooled, fn, args, kwargs)
+    :func:`in_shared_pool` is true while it runs, in a copy of the
+    caller's context; returns its future."""
+    ctx = contextvars.copy_context()
+    return shared_pool().submit(ctx.run, _run_pooled, fn, args, kwargs)
 
 
 def map_in_order(fn, items) -> list:
@@ -86,3 +102,160 @@ def map_in_order(fn, items) -> list:
     if first_err is not None:
         raise first_err
     return out
+
+
+# ---------------------------------------------------------------------------
+# the read admission gate
+# ---------------------------------------------------------------------------
+
+# set while a span runs under a grant: a nested acquire (a decode that
+# admits the bytes its caller already admitted) gets grant 0 instead of
+# queueing behind later tickets while it holds budget.  A context
+# variable, so it follows the span's work onto pool workers (submit).
+_ADMISSION_HELD: "contextvars.ContextVar[bool]" = \
+    contextvars.ContextVar("parquet_tpu_torch_admission_held", default=False)
+
+_TIER_KNOBS = {"lookup": "PARQUET_TPU_TORCH_LOOKUP_BUDGET",
+               "scan": "PARQUET_TPU_TORCH_SCAN_BUDGET"}
+
+
+class _Ticket:
+    __slots__ = ("seq", "tier", "grant")
+
+    def __init__(self, seq: int, tier: str, grant: int):
+        self.seq = seq
+        self.tier = tier
+        self.grant = grant
+
+
+class AdmissionController:
+    """A FIFO gate over a bytes budget, shared by every read tier.
+
+    :meth:`acquire` blocks until the request fits its tier's budget and
+    the global one; tickets are granted strictly in arrival order, across
+    tiers, so a stream of small late requests cannot starve a large
+    earlier one.  A request larger than its budget is clamped to it and
+    so admits alone.  A budget of 0 turns the gate off (grant 0, no
+    wait).  A nested acquire inside :meth:`admit` gets grant 0.
+    ``high_water`` is the most bytes ever granted at once, ``waits`` the
+    acquires that had to block."""
+
+    def __init__(self, lookup_default: int = 64 << 20):
+        self._lookup_default = lookup_default
+        self._cv = threading.Condition()
+        self._queue: list = []  # tickets, in arrival order
+        self._seq = itertools.count()
+        self._in_use = 0
+        self._tier_use: dict = {}
+        self.high_water = 0
+        self.waits = 0
+
+    def global_budget_bytes(self) -> Optional[int]:
+        """``PARQUET_TPU_TORCH_READ_BUDGET``: None unset, 0 off."""
+        return env_opt_bytes("PARQUET_TPU_TORCH_READ_BUDGET")
+
+    def budget_bytes(self, tier: str = "lookup") -> int:
+        """The tier's budget (0: off), read per acquire: its own knob, else
+        the global budget, else 64 MiB for lookups and off for scans."""
+        g = self.global_budget_bytes()
+        if g == 0:
+            return 0
+        t = env_opt_bytes(_TIER_KNOBS[tier])
+        if t is not None:
+            return t
+        if g is not None:
+            return g
+        return self._lookup_default if tier == "lookup" else 0
+
+    def _may_grant_locked(self, ticket: _Ticket, budgets: dict,
+                          g: Optional[int]) -> bool:
+        # FIFO: only the oldest ticket may take a grant; the ones behind
+        # it wait even where they would fit
+        head = self._queue[0]
+        if head is not ticket:
+            return False
+        tier_b = budgets[ticket.tier]
+        fits_tier = tier_b <= 0 or (self._tier_use.get(ticket.tier, 0)
+                                    + ticket.grant <= tier_b)
+        fits_global = not g or self._in_use + ticket.grant <= g
+        return fits_tier and fits_global
+
+    def acquire(self, nbytes: int, tier: str = "lookup") -> int:
+        """Block until ``nbytes`` fit; returns the grant to hand back to
+        :meth:`release` (0 when the tier's gate is off or the caller holds
+        a grant already)."""
+        if _ADMISSION_HELD.get():
+            return 0
+        budget = self.budget_bytes(tier)
+        if budget <= 0:
+            return 0
+        g = self.global_budget_bytes()
+        grant = min(max(int(nbytes), 0), budget)
+        if g:
+            grant = min(grant, g)
+        waited = False
+        with self._cv:
+            ticket = _Ticket(next(self._seq), tier, grant)
+            self._queue.append(ticket)
+            budgets = {tier: budget}
+            while not self._may_grant_locked(ticket, budgets, g):
+                waited = True
+                self._cv.wait()
+            self._queue.pop(0)
+            self._in_use += grant
+            self._tier_use[tier] = self._tier_use.get(tier, 0) + grant
+            self.high_water = max(self.high_water, self._in_use)
+            if waited:
+                self.waits += 1
+            # the next ticket may fit too: grants are not exclusive
+            self._cv.notify_all()
+        return grant
+
+    def release(self, grant: int, tier: str = "lookup") -> None:
+        if grant <= 0:
+            return
+        with self._cv:
+            self._in_use -= grant
+            self._tier_use[tier] = self._tier_use.get(tier, 0) - grant
+            self._cv.notify_all()
+
+    @contextmanager
+    def admit(self, nbytes: int, tier: str = "lookup"):
+        """``with gate.admit(span_bytes): read and decode the span``: the
+        grant is held, and nested gates pass, inside the block."""
+        grant = self.acquire(nbytes, tier=tier)
+        token = _ADMISSION_HELD.set(True)
+        try:
+            yield grant
+        finally:
+            _ADMISSION_HELD.reset(token)
+            self.release(grant, tier=tier)
+
+    def queue_depth(self) -> int:
+        """Tickets waiting now."""
+        with self._cv:
+            return len(self._queue)
+
+    def in_flight_bytes(self) -> int:
+        with self._cv:
+            return self._in_use
+
+    def _reset(self) -> None:
+        """Forget the high water and the waits (tests, benchmarks)."""
+        with self._cv:
+            self.high_water = self._in_use
+            self.waits = 0
+
+
+_ADMISSION = AdmissionController()
+
+
+def read_admission() -> AdmissionController:
+    """The process-wide read gate: the host scan's spans, the dataset
+    read's file stages and the lookups' page spans all admit through it."""
+    return _ADMISSION
+
+
+def lookup_admission() -> AdmissionController:
+    """The gate the lookups admit through: :func:`read_admission`'s."""
+    return _ADMISSION

@@ -279,7 +279,9 @@ def test_find_rows_on_card_matches_cpu(cuda_device):
         bloom_filters={"k": 10}, sorting_columns=[("k", False, False)]))
     keys = rng.permutation(np.arange(0, n, dtype=np.int64))
     f = pqt.ParquetFile(buf.getvalue())
+    pqt.clear_caches()
     want = f.find_rows("k", keys, columns=["v", "c"], device="cpu")
+    pqt.clear_caches()
     pqt.reset_launches()
     got = f.find_rows("k", keys, columns=["v", "c"], device=cuda_device)
     assert pqt.LAUNCHES["bloom_check"] == 1  # both row groups, one launch
@@ -990,3 +992,72 @@ def test_gather_byte_arrays_cpp_on_card_machine(cuda_device):
     for a, b in zip(host.gather_byte_arrays(vals, offs, idx),
                     host.gather_byte_arrays_numpy(vals, offs, idx)):
         assert np.array_equal(a, b)
+
+
+def _same_hits(got, want, columns) -> None:
+    assert got.counters == want.counters
+    for g, w in zip(got, want):
+        assert np.array_equal(g.rows, w.rows)
+        for c in columns:
+            if isinstance(w.values[c], list):
+                assert g.values[c] == w.values[c]
+            else:
+                assert np.array_equal(g.values[c], w.values[c])
+            assert (g.validity[c] is None) == (w.validity[c] is None)
+            if w.validity[c] is not None:
+                assert np.array_equal(g.validity[c], w.validity[c])
+
+
+@pytest.mark.cuda
+def test_byte_array_lookup_on_card_matches_cpu(cuda_device, tmp_path):
+    """A BYTE_ARRAY key with a bloom filter, 42,500 keys inside the
+    column's range (one row group's batch above the device probe's
+    32,768): one
+    ``bloom_check`` launch, and hits and counters equal the CPU's, each
+    run from cleared caches, on a file on disk."""
+    n = 60_000
+    rng = np.random.default_rng(4)
+    words = np.empty(n, object)
+    words[:] = sorted(b"sku-%09d" % i for i in rng.choice(10**9, n,
+                                                          replace=False))
+    path = str(tmp_path / "s.parquet")
+    pqt.write_table({"s": words, "v": np.arange(n, dtype=np.int64)}, path,
+                    pqt.WriterOptions(row_group_size=n, data_page_size=8192,
+                                      bloom_filters={"s": 10},
+                                      column_encoding={"s": Encoding.PLAIN}))
+    keys = list(words[::8]) + [b"sku-%09dx" % i for i in
+                               rng.integers(0, 10**9, 35_000)]
+    pqt.clear_caches()
+    want = pqt.ParquetFile(path).find_rows("s", keys, columns=["v", "s"],
+                                           device="cpu")
+    pqt.clear_caches()
+    pqt.reset_launches()
+    got = pqt.ParquetFile(path).find_rows("s", keys, columns=["v", "s"],
+                                          device=cuda_device)
+    assert pqt.LAUNCHES["bloom_check"] == 1
+    _same_hits(got, want, ["v", "s"])
+    assert got.counters["rows_matched"] == len(words[::8])
+
+
+@pytest.mark.cuda
+def test_dataset_find_rows_on_card_matches_cpu(cuda_device, tmp_path):
+    """Three part files, looked up as one dataset on the card and on the
+    CPU from cleared caches: the same global rows, values and counters."""
+    paths = []
+    for i in range(3):
+        p = str(tmp_path / f"part-{i}.parquet")
+        k = np.arange(i * 10_000, (i + 1) * 10_000, dtype=np.int64)
+        pqt.write_table({"k": k, "v": (k * 3).astype(np.float64)}, p,
+                        pqt.WriterOptions(row_group_size=5000,
+                                          data_page_size=4096,
+                                          bloom_filters={"k": 10}))
+        paths.append(p)
+    keys = np.arange(0, 40_000, 7, dtype=np.int64)
+    pqt.clear_caches()
+    want = pqt.Dataset(paths).find_rows("k", keys, columns=["v"],
+                                        device="cpu")
+    pqt.clear_caches()
+    got = pqt.Dataset(paths).find_rows("k", keys, columns=["v"],
+                                       device=cuda_device)
+    _same_hits(got, want, ["v"])
+    assert got.counters["rows_matched"] == int((keys < 30_000).sum())

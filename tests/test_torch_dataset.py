@@ -517,7 +517,7 @@ def test_cuda_by_default(mixed, monkeypatch):
 
 @pytest.mark.parametrize("call,slice_name", [
     ("iter_batches", "stream"), ("scan_policy", "fault-policy slice"),
-    ("find_rows", "lookup leftovers"), ("aggregate", "aggregation"),
+    ("find_rows_policy", "fault policies"), ("aggregate", "aggregation"),
     ("policy", "fault policies"), ("report", "fault policies"),
     ("snapshot_version", "manifest"), ("_file_stats", "manifest"),
     ("to_arrow", "arrow interop"), ("init_policy", "fault policies")])
@@ -527,7 +527,9 @@ def test_refused_methods_name_their_slice(mixed, call, slice_name):
         "iter_batches": lambda: ds.iter_batches(),
         "scan_policy": lambda: ds.scan("plain_i64", lo=1, device="cpu",
                                        policy=object()),
-        "find_rows": lambda: ds.find_rows("plain_i64", [1]),
+        "find_rows_policy": lambda: ds.find_rows("plain_i64", [1],
+                                                 device="cpu",
+                                                 policy=object()),
         "aggregate": lambda: ds.aggregate([]),
         "policy": lambda: ds.read(device="cpu", policy=object()),
         "report": lambda: ds.prune("plain_i64", lo=1, report=object()),

@@ -91,3 +91,44 @@ def test_chip_smoke_refuses_without_cuda():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _reference_exports():
+    """``(module, name)`` of each name the JAX package's ``__init__``
+    imports from one of its own modules."""
+    path = os.path.join(ROOT, "parquet_tpu", "__init__.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if isinstance(node, ast.ImportFrom) and node.level == 1 \
+                and node.module:
+            for alias in node.names:
+                yield node.module, alias.name
+
+
+def test_exports_follow_the_reference():
+    """Every name the JAX package exports from a module the port has, and
+    which that module of the port defines, is exported by the port too
+    (the names of modules not yet ported are left out)."""
+    import importlib
+
+    import parquet_tpu_torch as pqt
+
+    missing = []
+    for module, name in _reference_exports():
+        base = os.path.join(ROOT, "parquet_tpu_torch", *module.split("."))
+        if not (os.path.exists(base + ".py")
+                or os.path.exists(os.path.join(base, "__init__.py"))):
+            continue
+        mod = importlib.import_module(f"parquet_tpu_torch.{module}")
+        if hasattr(mod, name) and not hasattr(pqt, name):
+            missing.append(f"{module}.{name}")
+    assert not missing, missing
+    assert all(hasattr(pqt, n) for n in pqt.__all__)
+    for name in ("Expr", "col", "And", "Or", "Not", "ScanPlanner",
+                 "ScanPlan", "ParquetWriter", "ColumnData", "schema_of",
+                 "Schema", "KeyHits", "LookupResult", "MmapSource",
+                 "RowGroupReader", "CorruptedError", "read_row_range",
+                 "pages_overlapping", "find", "clear_caches", "cache_stats",
+                 "CacheStats"):
+        assert name in pqt.__all__, name

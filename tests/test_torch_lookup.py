@@ -2,10 +2,12 @@
 against parquet_tpu's, on files written by both writers: hits (rows,
 values bit for bit, validity) and stage counters, exact.
 
-The reference runs on in-memory bytes, where its page cache and
-negative-lookup memo never engage, and with key sharding off
-(``PARQUET_TPU_LOOKUP_KEY_SHARD=0``): the port has none of the three, so
-its counters have no ``page_cache_hits``, ``neg_hits`` or ``key_shards``.
+Both packages run on in-memory bytes, where their page caches and
+negative-lookup memos never engage, and the reference with key sharding
+off (``PARQUET_TPU_LOOKUP_KEY_SHARD=0``; the port does not shard), so
+``page_cache_hits``, ``neg_hits`` and ``key_shards`` stay 0 on both
+sides; the caches are held to the reference in
+``test_torch_lookup_leftovers.py`` and ``test_torch_cache.py``.
 """
 
 import io
@@ -29,7 +31,7 @@ from parquet_tpu_torch.ops import kernels
 N = 24_000
 RGS = 4
 PER_RG = N // RGS
-REFERENCE_ONLY = ("page_cache_hits", "neg_hits", "key_shards")
+CACHE_AND_SHARD_KEYS = ("page_cache_hits", "neg_hits", "key_shards")
 
 _ENC = {"plain": Encoding.PLAIN, "dict": Encoding.RLE_DICTIONARY,
         "delta": Encoding.DELTA_BINARY_PACKED}
@@ -117,8 +119,8 @@ def _assert_same(got, want, columns) -> None:
 
 
 def _assert_counters(got: dict, want: dict) -> None:
-    assert all(want.get(k, 0) == 0 for k in REFERENCE_ONLY), want
-    assert got == {k: want[k] for k in got}
+    assert all(want[k] == got[k] == 0 for k in CACHE_AND_SHARD_KEYS), want
+    assert got == want
 
 
 def _both(data: bytes, keys, columns):

@@ -442,8 +442,8 @@ def test_mini_lineitem_matches_jax():
 def test_later_slices_raise():
     """What earlier slices refused now reads: a nested column, and a chunk
     that falls back from dictionary to PLAIN pages mid-chunk, which takes
-    the host decode and is counted; the point lookup still leaves
-    byte-array columns to a later slice and raises naming it."""
+    the host decode and is counted; and the point lookup over that
+    byte-array column, whose hits equal a numpy oracle's rows."""
     buf = io.BytesIO()
     papq.write_table(pa.table({"l": pa.array([[1, 2], None, [3]])}), buf)
     col = pqt.ParquetFile(buf.getvalue()).read(device="cpu")[
@@ -467,9 +467,13 @@ def test_later_slices_raise():
     assert pqt.HOST_ROUTE["mixed_page_kinds"] == 1
     assert sum(pqt.HOST_ROUTE.values()) == 1
     assert [bytes(v[o[i]:o[i + 1]]) for i in range(len(items))] == items
-    with pytest.raises(NotImplementedError, match="lookup leftovers"):
-        pqt.ParquetFile(buf.getvalue()).find_rows("s", [b"x"],
-                                                  device="cpu")
+    keys = [items[7], b"x", items[4999]]
+    res = pqt.ParquetFile(buf.getvalue()).find_rows("s", keys, columns=["s"],
+                                                    device="cpu")
+    for h, key in zip(res, keys):
+        rows = [i for i, v in enumerate(items) if v == key]
+        np.testing.assert_array_equal(h.rows, rows)
+        assert h.values["s"] == [key] * len(rows)
 
 
 @pytest.mark.parametrize("case", ["bit_packed_levels", "v2_raw_values",
