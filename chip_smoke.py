@@ -181,7 +181,31 @@ Phases, each fatal on failure:
    cold and two warm lookups on the card, each equal to a numpy oracle on
    the concatenated rows (global rows, values), the cold counters equal to
    the CPU's, ``read_admission()``'s high water within the lookup budget
-   (``{"dataset_find_rows": ...}``);
+   (``{"dataset_find_rows": ...}``); (c) a key under an optional struct
+   (``user.id`` of ``user {id optional INT64, score DOUBLE}``, 10 % null
+   structs, 5 % null ids, and a flat ``k``; ``--lookup-rows`` rows in
+   1,048,576-row row groups, a bloom filter on ``user.id``, a page index):
+   ``rows / 16`` keys, one in eight a stored id, cold and warm on the card,
+   each equal to a numpy oracle (``user.score`` and its validity), one
+   ``bloom_check`` launch cold, the cold counters equal to the CPU's, and
+   a ``list<int64>`` key refused with ``ValueError``
+   (``{"struct_lookup": ...}``);
+5g. reads through a faulty source, on phase 4's 5-column file: transient
+   errors (``FaultInjectingSource(error_rate=0.1,
+   max_consecutive_errors=2)``) retried under ``FaultPolicy(max_retries=3,
+   backoff_s=0)``, the same under ``PARQUET_TPU_TORCH_PREFETCH=ring``
+   (its ``ReadStats`` printed), each equal bit for bit to the clean read
+   with no chunk on the host route and both unpack kernels launched; a
+   flipped page header in row group 3 under ``skip_row_group`` (the other
+   row groups equal, ``row_groups_skipped == [3]``, its rows dropped); a
+   read past its deadline (``DeadlineError``, no thread left, the card's
+   allocated bytes back, the next read equal); the device scan of phase
+   5b's case A and phase 5's lookup each with one corrupt row group
+   skipped (the rest equal to their numpy oracles); ``Dataset.read`` over
+   phase 5c's 8 parts with one truncated (``files_skipped`` names it, the
+   rest equal to the per-file reads); and the walls, best of 3 warm, of
+   the clean, policy, retry, ring and advise reads
+   (``{"resilience": ...}``);
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -236,6 +260,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -2542,10 +2567,11 @@ class PhaseTimer:
         self._saved = []
 
 
-def timed_lookup(f, keys: np.ndarray, device) -> tuple:
+def timed_lookup(f, keys: np.ndarray, device, key: str = "k",
+                 columns=LOOKUP_COLUMNS) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = f.find_rows("k", keys, columns=LOOKUP_COLUMNS, device=device)
+    res = f.find_rows(key, keys, columns=columns, device=device)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
@@ -2982,6 +3008,384 @@ def lookup_leftovers_path(card: str, rows: int, seed: int, tmp: str) -> dict:
     return {"probe": url["probe"],
             "launches": {k: url["launches"][k] + ds["launches"][k]
                          for k in url["launches"]}}
+
+
+# ---------------------------------------------------------------------------
+# phase 5f(c): struct-leaf lookup keys; phase 5g: reads through faults
+# ---------------------------------------------------------------------------
+
+STRUCT_ROWS_NULL = (0.10, 0.05)  # null structs, null ids among the rest
+
+
+def make_struct_table(rows: int, seed: int) -> dict:
+    """An optional struct ``user {id INT64 optional, score DOUBLE}`` with
+    10 % null structs and 5 % null ids, and a flat ``k``: ``id`` is ``2 *
+    row`` (sorted, so the page index narrows each key), as def levels."""
+    rng = np.random.default_rng(seed + 31)
+    null_struct = rng.random(rows) < STRUCT_ROWS_NULL[0]
+    null_id = (rng.random(rows) < STRUCT_ROWS_NULL[1]) & ~null_struct
+    return {"id": 2 * np.arange(rows, dtype=np.int64),
+            "score": rng.random(rows),
+            "id_def": np.where(null_struct, 0, np.where(null_id, 1, 2)),
+            "score_def": np.where(null_struct, 0, 1),
+            "k": np.arange(rows, dtype=np.int64)}
+
+
+def struct_schema() -> Schema:
+    return S.message("m", [
+        S.optional(S.group("user", [S.optional(S.leaf("id", Type.INT64)),
+                                    S.leaf("score", Type.DOUBLE)])),
+        S.leaf("k", Type.INT64)])
+
+
+def check_struct_hits(res, keys: np.ndarray, t: dict) -> None:
+    """Key ``2r`` hits row ``r`` where its struct and id are present, with
+    ``user.score`` valid; an odd key, or one on a null, hits nothing."""
+    rows = np.where(keys % 2 == 0, keys // 2, -1)
+    ok = rows >= 0
+    ok[ok] = t["id_def"][rows[ok]] == 2
+    for h, r, hit in zip(res, rows.tolist(), ok.tolist()):
+        want = [r] if hit else []
+        if h.rows.tolist() != want:
+            raise AssertionError(f"struct lookup: key {h.key} hits "
+                                 f"{h.rows.tolist()}, not {want}")
+        if hit and (h.values["user.score"].tolist() != [t["score"][r]]
+                    or h.validity["user.score"].tolist() != [True]
+                    or h.values["k"].tolist() != [r]):
+            raise AssertionError(f"struct lookup: key {h.key}'s values")
+
+
+def struct_lookup_path(card: str, rows: int, seed: int, tmp: str) -> dict:
+    """Phase 5f(c): ``find_rows`` on a leaf under an optional struct.  The
+    file (:func:`make_struct_table`, the port's writer, 8 row groups, a
+    page index and a bloom filter on ``user.id``) is looked up with
+    ``rows / 16`` keys, one in eight present, cold and warm on the card:
+    each equal to the numpy oracle, one ``bloom_check`` launch in the cold
+    lookup, its counters equal to the CPU's; a ``list<int64>`` key raises
+    ``ValueError``."""
+    t = make_struct_table(rows, seed)
+    path = os.path.join(tmp, "struct.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(
+        {"user.id": ColumnData(values=t["id"][t["id_def"] == 2],
+                               def_levels=t["id_def"]),
+         "user.score": ColumnData(values=t["score"][t["score_def"] == 1],
+                                  def_levels=t["score_def"]),
+         "k": t["k"]}, path,
+        pq.WriterOptions(row_group_size=ROW_GROUP, data_page_size=8192,
+                         compression="uncompressed",
+                         bloom_filters={"user.id": 10}),
+        schema=struct_schema())
+    write_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 37)
+    n = rows // 16  # one in eight a stored id, the others odd
+    even = rng.choice(rows, n // 8, replace=False) * 2
+    odd = rng.choice(rows, n - n // 8, replace=False) * 2 + 1
+    keys = rng.permutation(np.concatenate([even, odd]).astype(np.int64))
+    columns = ["user.score", "k"]
+    pq.reset_launches()
+    pq.clear_caches()
+    f = pq.ParquetFile(path)
+    runs = []
+    for _ in range(2):
+        before = pq.LAUNCHES["bloom_check"]
+        res, s = timed_lookup(f, keys, DEVICE, "user.id", columns)
+        check_struct_hits(res, keys, t)
+        runs.append((dict(res.counters), s,
+                     pq.LAUNCHES["bloom_check"] - before))
+        del res
+    launches = dict(pq.LAUNCHES)
+    if runs[0][2] != 1 or runs[1][2] > 1:
+        raise AssertionError(f"struct lookup: bloom_check launched "
+                             f"{[r[2] for r in runs]} times, cold and warm")
+    pq.clear_caches()
+    t0 = time.perf_counter()
+    cpu = pq.ParquetFile(path).find_rows("user.id", keys, columns=columns,
+                                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if cpu.counters != runs[0][0]:
+        raise AssertionError(f"struct lookup: counters on {DEVICE} "
+                             f"{runs[0][0]} differ from the CPU's "
+                             f"{cpu.counters}")
+    del cpu
+    lpath = os.path.join(tmp, "list_key.parquet")
+    pq.write_table({"l.list.element": ColumnData(
+        values=np.arange(6, dtype=np.int64),
+        list_offsets=[np.array([0, 2, 2, 6], np.int64)])}, lpath,
+        schema=S.message("m", [S.list_of("l", S.leaf("element",
+                                                     Type.INT64))]))
+    try:
+        pq.ParquetFile(lpath).find_rows("l.list.element", [1], device=DEVICE)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("find_rows on a list<int64> key did not raise "
+                             "ValueError")
+    log({"struct_lookup": {
+        "card": card, "rows": rows, "row_groups": -(-rows // ROW_GROUP),
+        "keys": len(keys), "present": int(runs[0][0]["rows_matched"]),
+        "file_bytes": os.path.getsize(path), "write_s": write_s,
+        "cold_s": runs[0][1], "warm_s": runs[1][1], "cpu_cold_s": cpu_s,
+        "keys_per_s_cold": len(keys) / runs[0][1],
+        "keys_per_s_warm": len(keys) / runs[1][1],
+        "counters_cold": runs[0][0], "counters_warm": runs[1][0],
+        "bloom_launches": [r[2] for r in runs], "launches": launches,
+        "list_key_raises": "ValueError"}})
+    return {"launches": launches}
+
+
+RETRY_FAULTS = {"seed": 7, "error_rate": 0.1, "max_consecutive_errors": 2}
+RETRY_POLICY = pq.FaultPolicy(max_retries=3, backoff_s=0)
+SKIP_POLICY = pq.FaultPolicy(max_retries=3, backoff_s=0,
+                             on_corrupt="skip_row_group")
+SKIP_ROW_GROUP = 3  # the row group phase 5g corrupts
+DEADLINE = {"latency_s": 0.01, "deadline_s": 0.05}
+RESILIENCE_WARM = 3
+
+
+def header_flips(path: str, rg: int, column: int) -> list:
+    """Three bytes of the first page header of a chunk (a flipped header
+    does not parse: the chunk is corrupt)."""
+    meta = pq.ParquetFile(path).metadata.row_groups[rg].columns[column]
+    m = meta.meta_data
+    off = m.dictionary_page_offset or m.data_page_offset
+    return [off, off + 1, off + 2]
+
+
+def injected(path: str, **faults):
+    """``path`` opened through a ``FaultInjectingSource`` over its map."""
+    return pq.FaultInjectingSource(pq.MmapSource(path), **faults)
+
+
+@contextlib.contextmanager
+def prefetchers():
+    """Every chunk prefetcher the reads inside the block make."""
+    from parquet_tpu_torch.io import prefetch
+
+    made, real = [], prefetch.make_chunk_prefetcher
+
+    def spy(source, *a, **k):
+        got = real(source, *a, **k)
+        made.append(got)
+        return got
+
+    prefetch.make_chunk_prefetcher = spy
+    try:
+        yield made
+    finally:
+        prefetch.make_chunk_prefetcher = real
+
+
+def settled_allocated() -> int:
+    """The card's allocated bytes once the allocator has returned the
+    freed blocks that waited on another stream's events (a staged buffer
+    used on the decoding stream): a small allocation processes them."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.empty(1, device=DEVICE)
+    return torch.cuda.memory_allocated()
+
+
+def walls(run) -> dict:
+    """``run()`` once cold and :data:`RESILIENCE_WARM` times warm, each
+    synchronized: its seconds, the best warm one first."""
+    times = []
+    for _ in range(1 + RESILIENCE_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        del out
+    return {"best_warm_s": min(times[1:]), "cold_s": times[0],
+            "warm_s": times[1:]}
+
+
+def resilience_path(card: str, read: dict, scan: dict, look_path: str,
+                    lookup_rows: int, dataset_paths: list, seed: int,
+                    tmp: str) -> dict:
+    """Phase 5g: the reads of phase 4's 5-column file through injected
+    faults, each held to the clean read bit for bit (no chunk on the host
+    route, both unpack kernels launched): transient errors retried under
+    ``FaultPolicy(max_retries=3)``, the same under the ring prefetcher,
+    a corrupt page header skipped under ``skip_row_group`` (the other row
+    groups equal, the loss recorded), and a deadline that fires (no
+    thread left, the card's allocated bytes back, the next read equal);
+    then the device scan of phase 5b's case A and the lookup of phase 5
+    each with one corrupt row group skipped (the rest equal to their numpy
+    oracles), ``Dataset.read`` over phase 5c's 8 parts with one truncated
+    (dropped whole), and the walls of the clean, policy, retry, ring and
+    advise reads."""
+    path = read["path"]
+    clean = pq.ParquetFile(path).read(device=DEVICE)
+    n_rg = len(pq.ParquetFile(path).row_groups)
+    k = min(SKIP_ROW_GROUP, n_rg - 1)
+    pq.reset_launches()
+    reset_routes()
+    pq.reset_plan_route()
+    out = {}
+
+    # retries
+    rep = pq.ReadReport()
+    src = injected(path, **RETRY_FAULTS)
+    got = pq.ParquetFile(src, policy=RETRY_POLICY).read(device=DEVICE,
+                                                        report=rep)
+    same_bits(got, clean, "the retry read")
+    del got
+    if rep.retries <= 0 or not rep.ok or rep.rows_read != pq.ParquetFile(
+            path).num_rows:
+        raise AssertionError(f"retry read: report {rep.as_dict()}")
+    no_host_route("the retry read")
+    out["retry"] = {"retries": rep.retries,
+                    "injected_errors": src.stats.injected_errors,
+                    "preads": src.stats.preads}
+    for name in READ_KERNELS:
+        if pq.LAUNCHES[name] == 0:
+            raise AssertionError(f"the retry read launched no {name}")
+
+    # the same through the ring prefetcher
+    rep = pq.ReadReport()
+    with knobs(PARQUET_TPU_TORCH_PREFETCH="ring"), prefetchers() as made:
+        got = pq.ParquetFile(injected(path, **RETRY_FAULTS),
+                             policy=RETRY_POLICY).read(device=DEVICE,
+                                                       report=rep)
+    same_bits(got, clean, "the ring read")
+    del got
+    if not made or any(p is None or p.backend != "ring" for p in made):
+        raise AssertionError("the ring read did not prefetch on the ring")
+    out["ring"] = {"retries": rep.retries,
+                   "read_stats": [p.stats.as_dict() for p in made]}
+
+    # a corrupt page header under skip_row_group
+    rep = pq.ReadReport()
+    got = pq.ParquetFile(injected(path, flip_offsets=header_flips(
+        path, k, 0)), policy=SKIP_POLICY).read(device=DEVICE, report=rep)
+    keep = [i for i in range(n_rg) if i != k]
+    same_bits(got, pq.ParquetFile(path).read(device=DEVICE, row_groups=keep),
+              "the skip read")
+    del got
+    rg_rows = pq.ParquetFile(path).row_group(k).num_rows
+    if rep.row_groups_skipped != [k] or rep.rows_dropped != rg_rows:
+        raise AssertionError(f"skip read: report {rep.as_dict()}")
+    out["skip"] = {"row_groups_skipped": rep.row_groups_skipped,
+                   "rows_dropped": rep.rows_dropped,
+                   "rows_read": rep.rows_read, "error": rep.errors[0]}
+
+    # a deadline
+    threads, allocated = threading.active_count(), settled_allocated()
+    f = pq.ParquetFile(injected(path, latency_s=DEADLINE["latency_s"]))
+    t0 = time.perf_counter()
+    try:
+        f.read(device=DEVICE, policy=pq.FaultPolicy(
+            deadline_s=DEADLINE["deadline_s"], backoff_s=0))
+    except pq.DeadlineError:
+        raised_s = time.perf_counter() - t0
+    else:
+        raise AssertionError("the deadline read did not raise")
+    if threading.active_count() != threads:
+        raise AssertionError(f"the deadline read left "
+                             f"{threading.active_count() - threads} "
+                             "threads behind")
+    left = settled_allocated() - allocated
+    if left:
+        raise AssertionError(f"the deadline read left {left} bytes "
+                             "allocated on the card")
+    got = pq.ParquetFile(path).read(device=DEVICE)
+    same_bits(got, clean, "the read after the deadline")
+    del got
+    out["deadline"] = {**DEADLINE, "raised_after_s": raised_s}
+    read_launches = dict(pq.LAUNCHES)
+
+    # the device scan of case A with its row group corrupt
+    table, spath = scan["cfg5"], scan["cfg5_path"]
+    ship = table["l_shipdate"]
+    lo, hi = SCAN_RANGE
+    rg_rows = -(-len(ship) // SCAN_ROW_GROUPS)
+    rg = int(np.flatnonzero((ship >= lo) & (ship <= hi))[0]) // rg_rows
+    rep = pq.ReadReport()
+    outs = ["l_orderkey", "l_quantity", "l_extendedprice"]
+    got = pq.scan_filtered_device(
+        pq.ParquetFile(injected(spath, flip_offsets=header_flips(spath, rg,
+                                                                 0)),
+                       policy=SKIP_POLICY), "l_shipdate", lo=lo, hi=hi,
+        columns=outs, device=DEVICE, report=rep)
+    in_rg = np.arange(len(ship)) // rg_rows == rg
+    check_scan(got, oracle({c: table[c] for c in outs},
+                           (ship >= lo) & (ship <= hi) & ~in_rg),
+               "the skip scan")
+    if rep.row_groups_skipped != [rg]:
+        raise AssertionError(f"skip scan: report {rep.as_dict()}")
+    out["scan"] = {"row_groups_skipped": rep.row_groups_skipped,
+                   "rows_dropped": rep.rows_dropped}
+    del got
+
+    # the lookup with one corrupt row group
+    look = make_lookup_table(lookup_rows, seed)
+    keys = make_keys(lookup_rows, seed)
+    k = min(SKIP_ROW_GROUP, len(pq.ParquetFile(look_path).row_groups) - 1)
+    rep = pq.ReadReport()
+    res = pq.ParquetFile(injected(look_path, flip_offsets=header_flips(
+        look_path, k, 0)), policy=SKIP_POLICY).find_rows(
+        "k", keys, columns=LOOKUP_COLUMNS, device=DEVICE, report=rep)
+    in_k = (2 * keys) // ROW_GROUP == k  # key 2j sits in rows 4j..4j+3
+    if any(h.num_rows for h, gone in zip(res, in_k) if gone):
+        raise AssertionError("skip lookup: a key of the dropped row group "
+                             "has rows")
+    if not in_k.all():
+        check_lookup([h for h, gone in zip(res, in_k) if not gone],
+                     keys[~in_k], look)
+    if rep.row_groups_skipped != [k] or rep.rows_dropped != min(
+            ROW_GROUP, lookup_rows - k * ROW_GROUP):
+        raise AssertionError(f"skip lookup: report {rep.as_dict()}")
+    out["lookup"] = {"keys": len(keys),
+                     "row_groups_skipped": rep.row_groups_skipped,
+                     "rows_dropped": rep.rows_dropped,
+                     "counters": dict(res.counters)}
+    del res, look
+
+    # Dataset.read over 8 parts with one truncated
+    bad = os.path.join(tmp, "truncated.parquet")
+    with open(dataset_paths[2], "rb") as fsrc, open(bad, "wb") as fdst:
+        fdst.write(fsrc.read(os.path.getsize(dataset_paths[2]) // 2))
+    paths = list(dataset_paths)
+    paths[2] = bad
+    rep = pq.ReadReport()
+    got = pq.Dataset(paths).read(device=DEVICE, policy=SKIP_POLICY,
+                                 report=rep)
+    parts = [pq.ParquetFile(p).read(device=DEVICE)
+             for i, p in enumerate(dataset_paths) if i != 2]
+    same_bits(got, {c: concat_columns([p[c] for p in parts])
+                    for c in parts[0]}, "the dataset skip read")
+    if rep.files_skipped != [bad] or rep.row_groups_skipped:
+        raise AssertionError(f"dataset skip read: report {rep.as_dict()}")
+    out["dataset"] = {"files": len(paths), "files_skipped": 1,
+                      "rows_read": rep.rows_read}
+    del got, parts
+    launches = dict(pq.LAUNCHES)
+
+    # walls
+    def clean_read():
+        return pq.ParquetFile(path).read(device=DEVICE)
+
+    def policy_read():
+        return pq.ParquetFile(path, policy=RETRY_POLICY).read(device=DEVICE)
+
+    def retry_read():
+        return pq.ParquetFile(injected(path, **RETRY_FAULTS),
+                              policy=RETRY_POLICY).read(device=DEVICE)
+
+    timed = {"clean": walls(clean_read), "policy_no_faults":
+             walls(policy_read), "retry": walls(retry_read)}
+    with knobs(PARQUET_TPU_TORCH_PREFETCH="ring"):
+        timed["ring_retry"] = walls(retry_read)
+    with knobs(PARQUET_TPU_TORCH_PREFETCH="advise"):
+        timed["advise"] = walls(clean_read)
+    del clean
+    log({"resilience": {"card": card, "rows": pq.ParquetFile(path).num_rows,
+                        "row_groups": n_rg, **out, "walls": timed,
+                        "launches_reads": read_launches,
+                        "launches": launches}})
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4648,6 +5052,11 @@ def main(argv=None) -> int:
                       multi["paths"])
         leftovers = phase("5f_lookups", lookup_leftovers_path, card,
                           args.lineitem_rows, args.seed, tmp)
+        struct = phase("5f_struct_keys", struct_lookup_path, card,
+                       args.lookup_rows, args.seed, tmp)
+        resilience = phase("5g_resilience", resilience_path, card, read,
+                           scan, look["path"], args.lookup_rows,
+                           multi["paths"], args.seed, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -4656,7 +5065,8 @@ def main(argv=None) -> int:
                      read["path_launches"], look["probe"], enc,
                      item["launches"], nested, scan,
                      {"dataset": multi, "sharded": sharded,
-                      "host_scan": hscan, "lookups": leftovers})
+                      "host_scan": hscan, "lookups": leftovers,
+                      "struct_keys": struct, "resilience": resilience})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

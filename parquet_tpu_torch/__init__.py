@@ -17,7 +17,11 @@ predicate pushdown on the card (``scan_filtered_device``: the planner's
 statistics, page-index and bloom stages, then decode, filter and
 compaction on the device) or on the host (``scan_expr``, predicate trees
 over several columns, late-materialized), lets the planner's cost model
-choose between the two (``scan``), and writes such files.
+choose between the two (``scan``), and writes such files.  Every read,
+scan and lookup takes a ``FaultPolicy`` (retries, a deadline, and
+``on_corrupt="skip_row_group"``, which drops a corrupt row group and
+accounts for it in a ``ReadReport``); its failures are located
+``ReadError`` errors.
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -33,11 +37,17 @@ choose between the two (``scan``), and writes such files.
     rows = pq.Dataset("parts/*.parquet").scan("x", values=[3, 7])
     hits = pq.ParquetFile("x.parquet").find_rows("x", [3, 7])  # on the card
     hits = pq.Dataset("parts/*.parquet").find_rows("x", [3, 7])
+    report = pq.ReadReport()
+    table = pq.ParquetFile("x.parquet").read(
+        policy=pq.FaultPolicy(on_corrupt="skip_row_group"), report=report)
 """
 
 from .algebra.expr import And, Col, Expr, Not, Or, col
 from .dataset import Dataset, expand_paths
-from .errors import CorruptedError
+from .errors import (CorruptedError, DeadlineError, ReadError, ReadIOError,
+                     ShortReadError)
+from .io.faults import (FaultInjectingSource, FaultPolicy, PolicySource,
+                        ReadReport)
 from .io.cache import CacheStats, cache_stats, clear_caches
 from .io.column import Column
 from .io.lookup import KeyHits, LookupResult, find_rows
@@ -45,9 +55,10 @@ from .io.planner import (ROUTE_REFUSALS, CostInputs, RouteDecision,
                          RouteHistory, ScanPlan, ScanPlanner, choose_route,
                          device_route_supported, reset_route_refusals,
                          route_history, route_scan)
+from .io.prefetch import PrefetchSource, ReadStats
 from .io.reader import ParquetFile, RowGroupReader
 from .io.search import find, pages_overlapping, plan_scan, read_row_range
-from .io.source import MmapSource, Source
+from .io.source import MmapSource, RetryingSource, Source
 from .io.writer import (ColumnData, ParquetWriter, WriterOptions, schema_of,
                         write_table)
 from .ops.kernels import LAUNCHES, reset_launches
@@ -83,7 +94,10 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "schema_of", "Schema", "group", "leaf", "list_of", "map_of",
            "message", "optional", "repeated", "MmapSource", "Source",
            "RowGroupReader", "CorruptedError", "read_row_range",
-           "pages_overlapping", "find"]
+           "pages_overlapping", "find", "FaultPolicy", "ReadReport",
+           "FaultInjectingSource", "PolicySource", "RetryingSource",
+           "PrefetchSource", "ReadStats", "ReadError", "ReadIOError",
+           "DeadlineError", "ShortReadError"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

@@ -8,10 +8,14 @@ reads every file on a list of devices through
 columns in file order, and :meth:`Dataset.scan`, the host scan of every
 file that survives the footer prune (``parallel/host_scan.py::
 scan_files``), and :meth:`Dataset.find_rows`, the batched point lookup
-over every file (``io/lookup.py::dataset_find_rows``).  Remote URLs, the
-shared chunk cache, fault policies and reports, the manifest's snapshot
-fields, and the dataset's ``iter_batches`` and ``aggregate`` belong to
-later slices and raise naming theirs.
+over every file (``io/lookup.py::dataset_find_rows``).  Each takes
+``policy``/``report`` (``io/faults.py``) as the JAX package's: a call's
+policy overrides the dataset's, every file reads under it, and under
+``on_corrupt='skip_row_group'`` a file that cannot be opened or read
+drops as a unit into ``report.files_skipped``.  Remote URLs, the shared
+chunk cache, the manifest's snapshot fields, and the dataset's
+``iter_batches`` and ``aggregate`` belong to later slices and raise
+naming theirs.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .errors import unsupported
+from .errors import CorruptedError, DeadlineError, unsupported
 from .io.column import Column, concat_columns
 from .io.reader import ParquetFile, _empty_column, _select_leaves
 from .io.search import _as_expr, prune_file
@@ -78,14 +82,15 @@ class Dataset:
     ``paths_or_glob`` is a path, a glob pattern, or a list of both
     (:func:`expand_paths`).  Files open at first use and stay open until
     :meth:`close`; every file must have the first one's leaves
-    (:func:`_leaf_signature`), checked as each is read or pruned."""
+    (:func:`_leaf_signature`), checked as each is read or pruned.
+    ``policy`` applies to every file (a call's ``policy=`` overrides
+    it)."""
 
     def __init__(self, paths_or_glob, policy=None):
-        if policy is not None:
-            raise unsupported("Dataset(policy=...)", "fault policies")
         self.paths = expand_paths(paths_or_glob)
         if not self.paths:
             raise ValueError("Dataset needs at least one path")
+        self.policy = policy
         self._init()
 
     def _init(self) -> None:
@@ -109,7 +114,7 @@ class Dataset:
             pf = self._files.get(i)
         if pf is not None:
             return pf
-        pf = ParquetFile(self.paths[i])
+        pf = ParquetFile(self.paths[i], policy=self.policy)
         with self._lock:
             cur = self._files.setdefault(i, pf)
         if cur is not pf:  # another thread opened it first
@@ -156,8 +161,19 @@ class Dataset:
             raise ValueError(f"shard index {index} out of range [0, {count})")
         sub = object.__new__(Dataset)
         sub.paths = self.paths[index::count]
+        sub.policy = self.policy
         sub._init()
         return sub
+
+    def _resolve(self, policy, report):
+        """The call's policy (else the dataset's), its report (a fresh one
+        under a policy), and whether files drop whole."""
+        from .io.faults import ReadReport
+
+        pol = policy if policy is not None else self.policy
+        if report is None and pol is not None:
+            report = ReadReport()
+        return pol, report, pol is not None and pol.skip_corrupt
 
     def _check_schema(self, pf: ParquetFile, path: str) -> None:
         sig = _leaf_signature(pf)
@@ -180,28 +196,78 @@ class Dataset:
         entry may repeat): file ``i`` decodes on ``mesh[i % len(mesh)]``
         (``parallel/mesh.py::read_dataset_device``), and the result lies on
         ``mesh[0]``.  A file the device route refuses reads on the host
-        decode."""
+        decode.  Under a ``policy`` (or with a ``report``) a file whose
+        staging or decode fails reads again through
+        ``ParquetFile.read(policy=...)`` on its device, where corrupt row
+        groups drop; under ``skip_row_group`` a file that cannot be opened
+        or read at all drops whole (``report.files_skipped``, its rows,
+        where its footer parsed, in ``rows_dropped``).  The result's
+        ``report`` is the call's."""
+        from .io.faults import NON_DATA_ERRORS, ReadReport
+        from .io.reader import ColumnSet
         from .parallel.mesh import read_dataset_device, resolve_mesh
 
-        if policy is not None or report is not None:
-            raise unsupported("Dataset.read(policy=..., report=...)",
-                              "fault policies")
         if not self.paths:
             raise ValueError("read on an empty dataset shard (no schema to "
                              "type an empty table by); check num_files first")
+        pol, report, skip = self._resolve(policy, report)
         devs = resolve_mesh(device)
-        parts: Dict[str, List[Column]] = {}
+        with_reports = report is not None
+
+        def read_one(i, dev):
+            """File ``i`` under the policy: ``(parts, report, rows,
+            error)``, a dropped file's parts None."""
+            sub = ReadReport() if with_reports else None
+            rows = 0
+            try:
+                pf = self.file(i)
+                self._check_schema(pf, self.paths[i])
+                rows = pf.num_rows
+                got = pf.read(columns=columns, device=dev, policy=pol,
+                              report=sub)
+                return ({p: [c] for p, c in got.items()}, sub, rows, None)
+            except DeadlineError:
+                raise
+            except NON_DATA_ERRORS:
+                raise
+            except (CorruptedError, OSError) as e:
+                if not skip:
+                    raise
+                return None, sub, rows, e
+
         def host_read(i, dev):
+            if with_reports:
+                return read_one(i, dev)
             return self._host_read(i, columns, dev)
 
-        for got in read_dataset_device(self, columns, host_read, devs):
+        parts: Dict[str, List[Column]] = {}
+        first = None  # the first file read: its schema types the result
+        for i, got in enumerate(read_dataset_device(
+                self, columns, host_read, devs, with_reports=with_reports,
+                policy=pol)):
+            if with_reports:
+                got, sub, rows, err = got
+                if got is None:
+                    if sub is not None:
+                        report.retries += sub.retries  # they happened
+                    report.record_file_skip(self.paths[i], rows=rows,
+                                            error=err)
+                    continue
+                report.merge(sub)
+            if first is None:
+                first = i
             for path, cols in got.items():
                 parts.setdefault(path, []).extend(cols)
-        out = {}
-        for leaf in _select_leaves(self.schema, columns):
+        if first is None:
+            raise CorruptedError(
+                "dataset read: every file failed "
+                f"({', '.join(report.files_skipped) if report else ''})")
+        out = ColumnSet()
+        for leaf in _select_leaves(self.file(first).schema, columns):
             cols = [c.to(devs[0]) for c in parts.get(leaf.name, [])]
             out[leaf.name] = (concat_columns(cols) if cols
                               else _empty_column(leaf, devs[0]))
+        out.report = report
         return out
 
     def _host_read(self, i: int, columns, device) -> Dict[str, List[Column]]:
@@ -217,13 +283,28 @@ class Dataset:
                 for leaf in _select_leaves(pf.schema, columns)}
 
     # ------------------------------------------------------------- prune
-    def _prepare_where(self, path, lo, hi, values, where):
-        """One predicate tree, prepared once against the first file's
-        schema (every file must share it)."""
+    def _prepare_where(self, path, lo, hi, values, where, skip=False):
+        """One predicate tree, prepared once against the schema of the
+        first file that opens (every file must share it); with ``skip`` a
+        file that does not open is passed over here and recorded by the
+        per-file loops."""
         from .algebra.expr import prepare
+        from .io.faults import NON_DATA_ERRORS
 
-        return prepare(_as_expr(path, lo, hi, values, where),
-                       self.file(0).schema)
+        expr = _as_expr(path, lo, hi, values, where)
+        for i in range(len(self.paths)):
+            try:
+                pf = self.file(i)
+            except DeadlineError:
+                raise
+            except NON_DATA_ERRORS:
+                raise
+            except (CorruptedError, OSError):
+                if not skip:
+                    raise
+                continue
+            return prepare(expr, pf.schema)
+        return expr  # nothing opened: the per-file loops record each
 
     # -------------------------------------------------------------- scan
     def scan(self, path: Optional[str] = None, lo=None, hi=None,
@@ -238,46 +319,74 @@ class Dataset:
         ``scan_filtered``'s forms.  ``device`` is a mesh (a device, a
         list whose entries may repeat, or ``"cuda"`` for every card): file
         ``i`` of the survivors plans its bloom probe on ``mesh[i %
-        len(mesh)]``; the results are the same on any mesh."""
-        from .algebra.expr import prepare
-        from .parallel.host_scan import (_POLICY_SLICE, _output_columns,
-                                         _typed_empty, scan_files)
+        len(mesh)]``; the results are the same on any mesh.  Under a
+        degraded ``policy`` unopenable files, files that fail mid-scan and
+        corrupt row groups all drop, the loss in ``report``."""
+        from .parallel.host_scan import (_output_columns, _typed_empty,
+                                         scan_files)
         from .parallel.mesh import resolve_mesh
 
-        if policy is not None or report is not None:
-            raise unsupported("Dataset.scan(policy=..., report=...)",
-                              _POLICY_SLICE)
         if not self.paths:
             raise ValueError("scan on an empty dataset shard (no schema to "
                              "type empty results by); check num_files first")
+        pol, report, skip = self._resolve(policy, report)
         devs = resolve_mesh(device)
         raw = _as_expr(path, lo, hi, values, where)
-        expr = prepare(raw, self.file(0).schema)
+        expr = self._prepare_where(path, lo, hi, values, where, skip)
         fcols = sorted(raw.columns())
-        pfs = [self.file(i) for i in self._prune_indices(expr)]
+        keep, skipped = self._prune_indices(expr, skip, report)
+        pfs = [self.file(i) for i in keep]
         if pfs:
             # the default selection is pinned to the first survivor: a
             # predicate that folds to a constant in one file would change
             # the columns that file's scan returns
             got = scan_files(pfs, where=expr,
                              columns=_output_columns(pfs[0], fcols, columns),
-                             use_bloom=use_bloom, devices=devs)
+                             use_bloom=use_bloom, devices=devs, policy=pol,
+                             report=report, skip_files=skip)
             if got:
                 return got
-        # nothing survived the prune: typed empties, the selection
-        # validated as the scan validates it
-        pf0 = self.file(0)
+        # nothing survived: typed empties, the selection validated as the
+        # scan validates it, by the first file that opened
+        sig = next((i for i in range(len(self.paths)) if i not in skipped),
+                   None)
+        if sig is None:
+            raise CorruptedError(
+                "dataset scan: every file failed "
+                f"({', '.join(report.files_skipped) if report else ''})")
+        pf0 = self.file(sig)
         return {c: _typed_empty(pf0.schema.leaf(c))
                 for c in _output_columns(pf0, fcols, columns)}
 
-    def _prune_indices(self, expr) -> List[int]:
-        def check(i):
-            pf = self.file(i)
-            self._check_schema(pf, self.paths[i])
-            return prune_file(pf, where=expr)
+    def _prune_indices(self, expr, skip: bool = False, report=None):
+        """``(kept, skipped)``: the files whose footers may match, and
+        with ``skip`` those that could not be opened or checked (each
+        recorded in ``report``, 0 rows)."""
+        from .io.faults import NON_DATA_ERRORS
 
-        return [i for i, keep in enumerate(
-            map_in_order(check, range(len(self.paths)))) if keep]
+        def check(i):
+            try:
+                pf = self.file(i)
+                self._check_schema(pf, self.paths[i])
+                return prune_file(pf, where=expr)
+            except DeadlineError:
+                raise
+            except NON_DATA_ERRORS:
+                raise
+            except (CorruptedError, OSError) as e:
+                if not skip:
+                    raise
+                return e
+
+        keep, skipped = [], []
+        for i, r in enumerate(map_in_order(check, range(len(self.paths)))):
+            if r is True:
+                keep.append(i)
+            elif isinstance(r, Exception):
+                skipped.append(i)
+                if report is not None:
+                    report.record_file_skip(self.paths[i], rows=0, error=r)
+        return keep, skipped
 
     def prune(self, path: Optional[str] = None, lo=None, hi=None,
               values: Optional[Sequence] = None, policy=None, report=None,
@@ -285,12 +394,12 @@ class Dataset:
         """The paths of the files that may hold matching rows, by their
         footers' chunk statistics alone (``io/search.py::prune_file``; no
         chunk byte is read).  ``where`` takes a predicate tree over any
-        number of columns."""
-        if policy is not None or report is not None:
-            raise unsupported("Dataset.prune(policy=..., report=...)",
-                              "fault policies")
-        expr = self._prepare_where(path, lo, hi, values, where)
-        return [self.paths[i] for i in self._prune_indices(expr)]
+        number of columns.  Under a degraded ``policy`` an unopenable file
+        is left out and recorded in ``report``."""
+        _, report, skip = self._resolve(policy, report)
+        expr = self._prepare_where(path, lo, hi, values, where, skip)
+        return [self.paths[i]
+                for i in self._prune_indices(expr, skip, report)[0]]
 
     def plan(self, path: Optional[str] = None, lo=None, hi=None,
              use_bloom: bool = False, values: Optional[Sequence] = None,
@@ -306,7 +415,7 @@ class Dataset:
         dev = resolve_device(device)
         expr = self._prepare_where(path, lo, hi, values, where)
         out = {}
-        for i in self._prune_indices(expr):
+        for i in self._prune_indices(expr)[0]:
             plan = ScanPlanner(self.file(i), device=dev).plan(
                 expr, use_bloom=use_bloom)
             if where is None:
@@ -327,18 +436,17 @@ class Dataset:
         values of ``columns``.  The keys are prepared once, the files fan
         out on the shared pool, and each runs the cascade of
         ``io/lookup.py::find_rows`` on ``device`` (CUDA unless the caller
-        names the CPU)."""
+        names the CPU).  Under a degraded ``policy`` an unreadable file
+        drops as a unit (``report.files_skipped``) and a corrupt row group
+        of a readable one drops whole."""
         from .io.lookup import dataset_find_rows
 
-        if policy is not None or report is not None:
-            raise unsupported("Dataset.find_rows(policy=..., report=...)",
-                              "fault policies")
         if not self.paths:
             raise ValueError("find_rows on an empty dataset shard (no "
                              "schema to probe keys against); check "
                              "num_files first")
         return dataset_find_rows(self, path, keys, columns=columns,
-                                 device=device)
+                                 device=device, policy=policy, report=report)
 
     # ------------------------------------------------ later slices' routes
     def iter_batches(self, *args, **kwargs):

@@ -1,11 +1,54 @@
 """Exceptions and hard format limits of the port.
 
-The port's copy of the parts of ``parquet_tpu/errors.py`` this slice raises.
+The port's copy of the parts of ``parquet_tpu/errors.py`` its slices
+raise: the read hierarchy (:class:`ReadError` and its subclasses) that
+``io/faults.py::read_context`` wraps a read's failures in.  The remote and
+write errors come with their slices.
 """
 
 
 class CorruptedError(Exception):
     """The file's bytes do not form a valid Parquet file."""
+
+
+class ReadError(CorruptedError):
+    """A read failure with its place: file path, row-group ordinal, column
+    dotted path and page offset, named in the message; the low-level
+    failure rides as ``__cause__``.  Its subclasses keep the failure
+    catchable under its usual base: :class:`ReadIOError` is an
+    ``OSError``, :class:`DeadlineError` a ``TimeoutError``."""
+
+    def __init__(self, message: str, path=None, row_group=None, column=None,
+                 page_offset=None):
+        loc = []
+        if path is not None:
+            loc.append(f"file={path}")
+        if row_group is not None:
+            loc.append(f"row-group={row_group}")
+        if column is not None:
+            loc.append(f"column={column}")
+        if page_offset is not None:
+            loc.append(f"page-offset={page_offset}")
+        super().__init__(f"[{' '.join(loc)}] {message}" if loc else message)
+        self.path = path
+        self.row_group = row_group
+        self.column = column
+        self.page_offset = page_offset
+
+
+class ReadIOError(ReadError, OSError):
+    """An ``OSError`` of the byte source, with its place in the file."""
+
+
+class DeadlineError(ReadError, TimeoutError):
+    """A read ran past its ``FaultPolicy.deadline_s`` (checked between
+    preads and before each retry's sleep)."""
+
+
+class ShortReadError(ReadIOError):
+    """A source gave fewer bytes than asked (a torn file, a buggy mount):
+    corruption, never retried.  ``read_context`` adds the place where the
+    source raised without one."""
 
 
 # page sizes are i32 in the thrift structs

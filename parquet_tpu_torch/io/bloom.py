@@ -23,11 +23,13 @@ CPU.  A failed build or launch of the kernel raises; nothing falls back.
 
 from __future__ import annotations
 
+import struct
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..errors import CorruptedError
 from ..format import metadata as md
 from ..format import thrift
 from ..format.enums import Type
@@ -345,16 +347,22 @@ def build_split_block_filter(leaf: Leaf, values: np.ndarray,
 
 
 def read_bloom_filter(reader) -> Optional[SplitBlockFilter]:
-    """Reader side: the chunk's filter, or None when it has none."""
+    """Reader side: the chunk's filter, or None when it has none.  A
+    filter whose header or length does not parse raises
+    ``CorruptedError`` (the JAX package lets the thrift error through), so
+    ``skip_row_group`` drops its row group."""
     meta = reader.meta
     off = meta.bloom_filter_offset
     if off is None:
         return None
-    length = meta.bloom_filter_length
-    if length is None:
-        src = reader.file.source
-        probe = src.pread(off, min(64, src.size() - off))
-        header, hend = thrift.deserialize(md.BloomFilterHeader, probe)
-        length = hend + header.numBytes
-    raw = reader.file.source.pread(off, length)
-    return SplitBlockFilter.from_bytes(raw)
+    try:
+        length = meta.bloom_filter_length
+        if length is None:
+            src = reader.file.source
+            probe = src.pread(off, min(64, src.size() - off))
+            header, hend = thrift.deserialize(md.BloomFilterHeader, probe)
+            length = hend + header.numBytes
+        raw = reader.file.source.pread(off, length)
+        return SplitBlockFilter.from_bytes(raw)
+    except (thrift.ThriftError, ValueError, IndexError, struct.error) as e:
+        raise CorruptedError(f"bad bloom filter at {off}: {e}") from e

@@ -1,0 +1,530 @@
+"""Reads that survive a faulty source: fault policy, deadline clock,
+located errors, and a deterministic fault injector.
+
+The port's copy of the read side of ``parquet_tpu/io/faults.py``:
+
+- :class:`FaultPolicy` — retries with jittered exponential backoff, a
+  deadline a top-level operation (``deadline_s``), and ``on_corrupt``:
+  ``'raise'``, or ``'skip_row_group'``, which drops a corrupt row group,
+  goes on reading, and accounts for the loss in a :class:`ReadReport`.
+- :func:`read_context` — wraps a read's failures into the
+  :class:`~parquet_tpu_torch.errors.ReadError` hierarchy with the file
+  path, row group, column and page offset.  Environment and device errors
+  (:data:`NON_DATA_ERRORS`: a missing package, out of memory, a CUDA
+  error or any other ``RuntimeError``, the device route's refusal of a
+  chunk) are never corruption and pass unwrapped.
+- :class:`PolicySource` — applies a policy's retries and deadline to every
+  pread of the source it wraps.
+- :class:`FaultInjectingSource` — a seedable chaos wrapper (transient
+  errors, latency, bit flips, truncation, short reads) whose draws are
+  keyed on ``(seed, offset, size, attempt)``, as the JAX package's.
+
+The writer's, the remote transport's and the metrics' parts come with
+their slices.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import errno
+import random
+import threading
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from ..errors import (DeadlineError, ReadError, ReadIOError, ShortReadError,
+                      _Unsupported)
+from .source import Source
+
+__all__ = ["FaultPolicy", "ReadReport", "Deadline", "PolicySource",
+           "FaultInjectingSource", "FaultStats", "read_context",
+           "resolve_policy", "retry_call", "active_deadline",
+           "NON_DATA_ERRORS", "is_corrupt_oserror"]
+
+
+# ---------------------------------------------------------------------------
+# Policy
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class FaultPolicy:
+    """How a read survives a hostile byte source.
+
+    ``max_retries`` / ``backoff_s`` / ``backoff_multiplier`` / ``jitter``
+    govern the retries of transient ``OSError``\\ s at the source (jitter
+    is a uniform +-fraction of each delay).  ``deadline_s`` bounds each
+    top-level operation (one ``read()``, one scan, one lookup): checked
+    between preads and before every retry's sleep, raising
+    :class:`~parquet_tpu_torch.errors.DeadlineError`.  ``on_corrupt``:
+    ``'raise'`` (default) raises a located
+    :class:`~parquet_tpu_torch.errors.ReadError`; ``'skip_row_group'``
+    drops the whole row group, keeps reading, and records the loss in a
+    :class:`ReadReport`."""
+
+    max_retries: int = 3
+    backoff_s: float = 0.05
+    backoff_multiplier: float = 2.0
+    jitter: float = 0.25
+    deadline_s: Optional[float] = None
+    on_corrupt: str = "raise"  # or "skip_row_group"
+
+    def __post_init__(self):
+        if self.on_corrupt not in ("raise", "skip_row_group"):
+            raise ValueError(
+                f"on_corrupt must be 'raise' or 'skip_row_group', "
+                f"got {self.on_corrupt!r}")
+        if self.max_retries < 0:
+            raise ValueError("max_retries must be >= 0")
+
+    @property
+    def skip_corrupt(self) -> bool:
+        return self.on_corrupt == "skip_row_group"
+
+    def delays(self):
+        """The jittered backoff delay before each retry."""
+        delay = self.backoff_s
+        for _ in range(self.max_retries):
+            j = (1.0 + self.jitter * (2.0 * random.random() - 1.0)
+                 if self.jitter else 1.0)
+            yield max(0.0, delay * j)
+            delay *= self.backoff_multiplier
+
+
+@dataclass
+class ReadReport:
+    """What a degraded read delivered and lost.
+
+    ``rows_read``: rows delivered; ``rows_dropped``: rows of skipped row
+    groups (for scans, the candidate rows of the dropped spans);
+    ``row_groups_skipped``: their ordinals, with ``errors`` the message of
+    each skip, index-aligned; ``retries``: the transient retries the
+    policy made; ``files_skipped``: the dataset layer's whole files that
+    could not be opened or read (their candidate rows in
+    ``rows_dropped``, 0 when the footer never parsed)."""
+
+    path: Optional[str] = None
+    rows_read: int = 0
+    rows_dropped: int = 0
+    row_groups_skipped: List[int] = field(default_factory=list)
+    errors: List[str] = field(default_factory=list)
+    retries: int = 0
+    files_skipped: List[str] = field(default_factory=list)
+
+    @property
+    def ok(self) -> bool:
+        return not self.row_groups_skipped and not self.files_skipped
+
+    def bind(self, path: Optional[str]) -> "ReadReport":
+        """Fill in the file path of a blank report the caller passed."""
+        if self.path is None:
+            self.path = path
+        return self
+
+    def record_skip(self, rg_index: int, rows: int, error) -> None:
+        # no dedup: each call site records one skip a row group an
+        # operation, and a report reused across files records each file's
+        self.row_groups_skipped.append(rg_index)
+        self.errors.append(str(error))
+        self.rows_dropped += rows
+
+    def record_file_skip(self, path: str, rows: int, error) -> None:
+        """One whole file dropped from a dataset-level degraded read."""
+        self.files_skipped.append(str(path))
+        self.errors.append(str(error))
+        self.rows_dropped += rows
+
+    def merge(self, other: "ReadReport") -> "ReadReport":
+        """Fold another report (a file's, a shard's, or a routing
+        attempt's scratch report) into this one."""
+        if self.path is None:
+            self.path = other.path
+        self.rows_read += other.rows_read
+        self.rows_dropped += other.rows_dropped
+        self.row_groups_skipped.extend(other.row_groups_skipped)
+        self.errors.extend(other.errors)
+        self.retries += other.retries
+        self.files_skipped.extend(other.files_skipped)
+        return self
+
+    def as_dict(self) -> dict:
+        return {"path": self.path, "rows_read": self.rows_read,
+                "rows_dropped": self.rows_dropped,
+                "row_groups_skipped": list(self.row_groups_skipped),
+                "errors": list(self.errors), "retries": self.retries,
+                "files_skipped": list(self.files_skipped)}
+
+
+def resolve_policy(pf, policy: Optional[FaultPolicy],
+                   report: Optional[ReadReport]
+                   ) -> Tuple[Optional[FaultPolicy], Optional[ReadReport]]:
+    """The policy and report of one read entry point: a per-call
+    ``policy`` overrides the file's open-time one; a caller's ``report`` is
+    bound to the file's path, and a policy read without one gets a fresh
+    report, so skips are always accounted."""
+    pol = policy if policy is not None else pf.policy
+    if report is not None:
+        report.bind(pf._path)
+    elif pol is not None:
+        report = ReadReport(path=pf._path)
+    return pol, report
+
+
+class Deadline:
+    """A monotonic-clock budget for one top-level read operation."""
+
+    __slots__ = ("_expires",)
+
+    def __init__(self, seconds: Optional[float]):
+        self._expires = None if seconds is None else time.monotonic() + seconds
+
+    def remaining(self) -> Optional[float]:
+        return (None if self._expires is None
+                else self._expires - time.monotonic())
+
+    def expired(self) -> bool:
+        r = self.remaining()
+        return r is not None and r <= 0
+
+    def check(self, what: str = "read") -> None:
+        if self.expired():
+            raise DeadlineError(f"deadline exceeded during {what}")
+
+
+# ---------------------------------------------------------------------------
+# Located errors
+# ---------------------------------------------------------------------------
+# Failures of the environment, the device or the port's own routing are
+# never data corruption: wrapping them would let skip_row_group drop every
+# row group over a missing package, an out-of-memory card or a poisoned
+# CUDA context, and would hide the device route's refusal of a chunk
+# (``_Unsupported``) from the chunk loop that sends it to the host decode.
+# ``RuntimeError`` covers torch's device errors (``torch.OutOfMemoryError``,
+# ``torch.AcceleratorError``, and the plain "CUDA error" of older torch)
+# and a kernel that does not build; the port's decoders raise
+# ``CorruptedError`` for malformed bytes.
+NON_DATA_ERRORS: Tuple[type, ...] = (
+    ImportError, MemoryError, RecursionError, NotImplementedError,
+    RuntimeError, _Unsupported)
+
+
+def is_corrupt_oserror(e: OSError) -> bool:
+    """A short or invalid read is corruption, not transience: the one
+    classifier :func:`retry_call` consults."""
+    if isinstance(e, ShortReadError):
+        return True
+    s = str(e)
+    return "short read" in s or "invalid read" in s
+
+
+# the deadline of the innermost active PolicySource operation, for layers
+# below the policy wrapper (a context variable: pool workers started
+# inside the operation inherit it through ``utils/pool.py::submit``)
+_ACTIVE_DEADLINE: "contextvars.ContextVar[Optional[Deadline]]" = \
+    contextvars.ContextVar("parquet_tpu_torch_active_deadline", default=None)
+
+
+def active_deadline() -> Optional[Deadline]:
+    """The innermost active operation deadline in this context (None when
+    no policy operation runs, or its policy has no ``deadline_s``)."""
+    dl = _ACTIVE_DEADLINE.get()
+    return dl if dl is not None and dl._expires is not None else None
+
+
+def retry_call(fn, offset: int, size: int, policy: FaultPolicy,
+               deadline: Optional[Deadline] = None, on_retry=None):
+    """The retry loop: a transient ``OSError`` is tried again after the
+    policy's jittered backoff, corruption (:func:`is_corrupt_oserror`)
+    raises at once, and the deadline is checked before each attempt and
+    each sleep (a sleep the budget cannot cover fails now).  Shared by
+    :class:`PolicySource` and ``io/source.py::RetryingSource``."""
+    delays = policy.delays()
+    while True:
+        if deadline is not None:
+            deadline.check(f"pread({offset}, {size})")
+        try:
+            return fn(offset, size)
+        except DeadlineError:
+            # the operation's own clock (a TimeoutError is an OSError):
+            # never retried
+            raise
+        except OSError as e:
+            if is_corrupt_oserror(e):
+                raise
+            delay = next(delays, None)
+            if delay is None:
+                raise
+            ra = getattr(e, "retry_after", None)
+            if ra:
+                delay = max(delay, float(ra))
+            if deadline is not None:
+                rem = deadline.remaining()
+                if rem is not None and delay >= rem:
+                    raise DeadlineError(
+                        "deadline exceeded during retry backoff for "
+                        f"pread({offset}, {size})") from e
+            if on_retry is not None:
+                on_retry()
+            if delay > 0:
+                time.sleep(delay)
+
+
+@contextmanager
+def read_context(path=None, row_group=None, column=None, page_offset=None,
+                 kinds: Tuple[type, ...] = (Exception,)):
+    """Wrap the failures escaping the block into the :class:`ReadError`
+    hierarchy with their place.  A located ``ReadError`` and a deadline
+    pass untouched, as do the :data:`NON_DATA_ERRORS`; an ``OSError``
+    becomes a :class:`ReadIOError`, so ``except OSError`` callers keep
+    working.  ``kinds`` narrows what is wrapped (the footer parse wraps
+    only ``(CorruptedError, OSError)``)."""
+    try:
+        yield
+    except ShortReadError as e:
+        # a source knows offsets, not row groups: add the read's place
+        if e.path is not None or path is None:
+            raise
+        raise ShortReadError(str(e), path=path, row_group=row_group,
+                             column=column,
+                             page_offset=(e.page_offset
+                                          if e.page_offset is not None
+                                          else page_offset)) from e
+    except ReadError:
+        raise
+    except NON_DATA_ERRORS:
+        raise
+    except kinds as e:
+        cls = ReadIOError if isinstance(e, OSError) else ReadError
+        raise cls(str(e) or type(e).__name__, path=path, row_group=row_group,
+                  column=column,
+                  page_offset=getattr(e, "page_offset", page_offset)) from e
+
+
+# ---------------------------------------------------------------------------
+# Policy-applying source wrapper
+# ---------------------------------------------------------------------------
+class PolicySource(Source):
+    """Applies a :class:`FaultPolicy`'s retries and deadline to every pread
+    of the wrapped source.  ``ParquetFile(..., policy=...)`` installs one
+    (and a per-call policy one for its call); each top-level operation
+    opens an :meth:`operation` scope that starts its deadline clock and
+    counts its retries into the caller's :class:`ReadReport`.
+
+    The chunks of one operation decode on several threads (the read's
+    staging workers, the dataset's pool), all under the operation's
+    deadline: the active :class:`Deadline` lives on the instance, not in a
+    thread-local.  Where operations overlap, preads run under the most
+    recently started one's clock."""
+
+    def __init__(self, inner: Source, policy: FaultPolicy):
+        self.inner = inner
+        self.policy = policy
+        # a stack: overlapping operations each remove only their own clock
+        self._deadline_stack: List[Deadline] = []
+        self._op_retries: Dict[int, int] = {}  # id(Deadline) -> retries
+        self._lock = threading.Lock()
+        self.retries_performed = 0
+
+    @property
+    def path(self):
+        return getattr(self.inner, "path", None)
+
+    @property
+    def _deadline(self) -> Optional[Deadline]:
+        st = self._deadline_stack[-1:]  # another thread may pop meanwhile
+        return st[0] if st else None
+
+    @contextmanager
+    def operation(self, report: Optional[ReadReport] = None,
+                  what: str = "read"):
+        """One top-level operation: its deadline clock, and its retries
+        counted into ``report``."""
+        dl = Deadline(self.policy.deadline_s)
+        self._deadline_stack.append(dl)
+        tok = _ACTIVE_DEADLINE.set(dl)
+        with self._lock:
+            self._op_retries[id(dl)] = 0
+        try:
+            yield dl
+        finally:
+            try:
+                _ACTIVE_DEADLINE.reset(tok)
+            except ValueError:
+                pass  # closed from another context: nothing to restore
+            st = self._deadline_stack
+            if dl in st:
+                st.remove(dl)
+            with self._lock:
+                mine = self._op_retries.pop(id(dl), 0)
+            if report is not None:
+                report.retries += mine
+
+    def _call(self, fn, offset: int, size: int):
+        dl = self._deadline
+
+        def on_retry():
+            with self._lock:
+                self.retries_performed += 1
+                if dl is not None and id(dl) in self._op_retries:
+                    self._op_retries[id(dl)] += 1
+
+        return retry_call(fn, offset, size, self.policy, deadline=dl,
+                          on_retry=on_retry)
+
+    def pread(self, offset: int, size: int) -> bytes:
+        return self._call(self.inner.pread, offset, size)
+
+    def pread_view(self, offset: int, size: int):
+        fn = getattr(self.inner, "pread_view", self.inner.pread)
+        return self._call(fn, offset, size)
+
+    def size(self) -> int:
+        return self.inner.size()
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+# ---------------------------------------------------------------------------
+# Deterministic fault injection
+# ---------------------------------------------------------------------------
+def _mix_rng(seed: int, *parts: int) -> random.Random:
+    """A keyed RNG for the injector's draws, splitmix64-style: similar
+    ``(offset, size)`` keys land on uncorrelated states.  The JAX
+    package's mixing, so one seed draws the same faults for the same
+    ``(offset, size, attempt)`` in both."""
+    h = 0x9E3779B97F4A7C15
+    for p in (seed, *parts):
+        h ^= p & 0xFFFFFFFFFFFFFFFF
+        h = (h * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+        h ^= h >> 31
+    return random.Random(h)
+
+
+@dataclass
+class FaultStats:
+    """What the injector did."""
+
+    preads: int = 0
+    injected_errors: int = 0
+    injected_flips: int = 0
+    injected_short_reads: int = 0
+    delayed_s: float = 0.0
+
+
+class FaultInjectingSource(Source):
+    """A deterministic, seedable chaos wrapper over any Source.
+
+    Draws are keyed on ``(seed, offset, size, attempt)``, not on a shared
+    stream, so injection does not depend on call order (thread pools
+    included) and each retry of a pread draws again deterministically.
+    ``max_consecutive_errors`` bounds how many times in a row one pread
+    fails, so a policy with ``max_retries >= max_consecutive_errors``
+    always recovers.  It has no ``stat_key``: a file read through it never
+    fills the caches nor is served from them.
+
+    Modes (all composable): ``error_rate`` (a transient ``OSError(EIO)``),
+    ``latency_s`` (a sleep before every pread), ``flip_offsets`` /
+    ``flip_mask`` (the bytes at these file offsets come back XOR'd, every
+    time), ``bit_flip_rate`` (one deterministic bit of a read flips,
+    persistently), ``truncate_at`` (the file seems to end there: reads
+    past it raise :class:`~parquet_tpu_torch.errors.ShortReadError`),
+    ``short_read_rate`` (a pread returns fewer bytes than asked)."""
+
+    def __init__(self, inner: Source, seed: int = 0, error_rate: float = 0.0,
+                 max_consecutive_errors: Optional[int] = None,
+                 latency_s: float = 0.0,
+                 flip_offsets=(), flip_mask: int = 0xFF,
+                 bit_flip_rate: float = 0.0,
+                 truncate_at: Optional[int] = None,
+                 short_read_rate: float = 0.0):
+        self.inner = inner
+        self.seed = seed
+        self.error_rate = error_rate
+        self.max_consecutive_errors = max_consecutive_errors
+        self.latency_s = latency_s
+        self.flip_offsets = sorted(set(flip_offsets))
+        self.flip_mask = flip_mask
+        self.bit_flip_rate = bit_flip_rate
+        self.truncate_at = truncate_at
+        self.short_read_rate = short_read_rate
+        self.stats = FaultStats()
+        self._attempts: Dict[Tuple[int, int], int] = {}
+        self._consecutive: Dict[Tuple[int, int], int] = {}
+        self._lock = threading.Lock()
+
+    @property
+    def path(self):
+        return getattr(self.inner, "path", None)
+
+    def _rng(self, offset: int, size: int, attempt: int) -> random.Random:
+        return _mix_rng(self.seed, offset, size, attempt)
+
+    def _read(self, fn, offset: int, size: int):
+        with self._lock:
+            self.stats.preads += 1
+            key = (offset, size)
+            attempt = self._attempts.get(key, 0)
+            self._attempts[key] = attempt + 1
+            consecutive = self._consecutive.get(key, 0)
+        rng = self._rng(offset, size, attempt)
+        if self.latency_s:
+            time.sleep(self.latency_s)
+            with self._lock:
+                self.stats.delayed_s += self.latency_s
+        if (self.error_rate and rng.random() < self.error_rate
+                and (self.max_consecutive_errors is None
+                     or consecutive < self.max_consecutive_errors)):
+            with self._lock:
+                self.stats.injected_errors += 1
+                self._consecutive[key] = consecutive + 1
+            raise OSError(errno.EIO,
+                          f"injected transient I/O error (attempt {attempt})")
+        with self._lock:
+            self._consecutive[key] = 0
+        if self.truncate_at is not None and offset + size > self.truncate_at:
+            got = max(0, self.truncate_at - offset)
+            raise ShortReadError(
+                f"short read at {offset}: wanted {size}, got {got} "
+                "(injected truncation)")
+        data = fn(offset, size)
+        flips = [o for o in self.flip_offsets if offset <= o < offset + size]
+        # random flips draw on attempt 0: a re-read sees the same rot
+        rng0 = self._rng(offset, size, 0)
+        rand_flip = (self.bit_flip_rate and size > 0
+                     and rng0.random() < self.bit_flip_rate)
+        if flips or rand_flip:
+            buf = bytearray(data)
+            for o in flips:
+                buf[o - offset] ^= self.flip_mask
+            if rand_flip:
+                buf[rng0.randrange(size)] ^= 1 << rng0.randrange(8)
+            with self._lock:
+                self.stats.injected_flips += len(flips) + bool(rand_flip)
+            data = bytes(buf)
+        if (self.short_read_rate and size > 1
+                and rng.random() < self.short_read_rate):
+            with self._lock:
+                self.stats.injected_short_reads += 1
+            data = data[:rng.randrange(1, size)]
+        return data
+
+    def pread(self, offset: int, size: int) -> bytes:
+        out = self._read(self.inner.pread, offset, size)
+        return bytes(out) if not isinstance(out, bytes) else out
+
+    def pread_view(self, offset: int, size: int):
+        # a byte-changing mode takes the copying path (a view would show
+        # the pristine bytes)
+        view = getattr(self.inner, "pread_view", None)
+        if (view is None or self.flip_offsets or self.bit_flip_rate
+                or self.short_read_rate):
+            return self._read(self.inner.pread, offset, size)
+        return self._read(view, offset, size)
+
+    def size(self) -> int:
+        n = self.inner.size()
+        return n if self.truncate_at is None else min(n, self.truncate_at)
+
+    def close(self) -> None:
+        self.inner.close()

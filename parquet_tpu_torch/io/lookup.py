@@ -53,8 +53,16 @@ Keys of an unsigned column (the INT annotation's ``signed=false``)
 compare in unsigned order at every stage, and a ``Decimal`` key of a
 decimal compares as its unscaled integer.
 
-Not in this port: nested key and value columns (the next slice), fault
-policies and reports, metrics and op scopes.
+A key or value column may be a leaf under optional structs (no repeated
+level): a null anywhere on its struct chain never matches, and such a
+value's validity is False; a repeated column raises ``ValueError``, as in
+the reference.  ``policy``/``report`` are the reference's: preads retry
+under the policy, the call runs under its deadline, and with
+``on_corrupt='skip_row_group'`` a row group whose index, bloom filter or
+pages are corrupt drops whole (rows and values together, its full row
+count recorded).
+
+Not in this port: metrics and op scopes.
 """
 
 from __future__ import annotations
@@ -65,7 +73,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..errors import unsupported
+from ..errors import CorruptedError, DeadlineError
 from ..format.enums import BoundaryOrder, Type
 from ..schema.types import PHYSICAL_NP_DTYPE, LogicalKind
 from .cache import ByteRows, PageEntry
@@ -111,6 +119,7 @@ class LookupResult:
     def __init__(self, hits: List[KeyHits], counters: Dict[str, int]):
         self.hits = hits
         self.counters = counters
+        self.report = None  # the call's ReadReport under a policy
 
     def __len__(self) -> int:
         return len(self.hits)
@@ -572,41 +581,39 @@ def _prune_row_groups(pf, row_groups, leaf, prep: _PreparedKeys,
     uniq ordinals alive after its chunk statistics and bloom filter, its
     key in the negative-lookup memo (None: the file is not cached) and the
     ordinals the memo left to the cascade (the ones a clean run may enter
-    in it).  Each row group's surviving hashes are one probe, routed by
+    in it), and the located data error of a row group whose statistics or
+    filter could not be read (None for the others).  Each row group's surviving hashes are one probe, routed by
     size alone as the reference routes them: the batches of at least
     ``_DEVICE_PROBE_MIN`` hashes are probed together by one
     :func:`~.bloom.check_hashes_multi` on ``device``, the others by the
     numpy probe.  A row group that the memo or the statistics prune
     entirely reads no filter."""
     from . import bloom
-    from .cache import NEGS
 
     alive_by_rg: List[np.ndarray] = []
     neg_keys: List[Optional[tuple]] = []
     probed: List[np.ndarray] = []
+    failed: List[Optional[CorruptedError]] = []
     on_device = []  # (row group ordinal, filter, hashes)
     fk = pf._cache_key
+    none = np.empty(0, np.int64)
     for rg in row_groups:
-        chunk = rg.column(leaf.column_index)
-        alive = np.arange(len(prep.uniq), dtype=np.int64)
-        # ---- stage 0: keys this chunk was proven not to hold
-        neg_key = None if fk is None else (fk, rg.index, leaf.name)
-        if neg_key is not None:
-            known = NEGS.absent_mask(neg_key, prep.uniq)
-            if known is not None:
-                counters["neg_hits"] += int(known.sum())
-                alive = alive[~known]
+        try:
+            with _rg_context(pf, rg, leaf):
+                alive, neg_key, tried, bf = _prune_one(
+                    rg, leaf, prep, counters, fk)
+        except DeadlineError:
+            raise
+        except CorruptedError as e:  # the row group fails at its turn
+            alive_by_rg.append(none)
+            neg_keys.append(None)
+            probed.append(none)
+            failed.append(e)
+            continue
         neg_keys.append(neg_key)
-        probed.append(alive)
-        if len(alive):
-            # ---- stage 1: chunk statistics (no IO)
-            keep = _stats_alive(chunk.statistics(), chunk.meta.num_values,
-                                prep, alive)
-            counters["keys_pruned_stats"] += int(len(alive) - keep.sum())
-            alive = alive[keep]
+        probed.append(tried)
+        failed.append(None)
         # ---- stage 2: the bloom filter, every surviving key in one probe
-        bf = (chunk.bloom_filter() if len(alive) and prep.hashes is not None
-              else None)
         if bf is not None:
             hashes = prep.hashes[alive]
             if len(hashes) >= bf._DEVICE_PROBE_MIN:
@@ -620,7 +627,44 @@ def _prune_row_groups(pf, row_groups, leaf, prep: _PreparedKeys,
                                          [h for _, _, h in on_device], device)
         for (j, _, _), keep in zip(on_device, keeps):
             alive_by_rg[j] = _bloom_survivors(alive_by_rg[j], keep, counters)
-    return alive_by_rg, neg_keys, probed
+    return alive_by_rg, neg_keys, probed, failed
+
+
+def _rg_context(pf, rg, leaf):
+    """The located-error scope of one row group's cascade, as the
+    reference's: only data errors (``CorruptedError``, ``OSError``) are
+    wrapped."""
+    from .faults import read_context
+
+    return read_context(path=pf._path, row_group=rg.index, column=leaf.name,
+                        kinds=(CorruptedError, OSError))
+
+
+def _prune_one(rg, leaf, prep: _PreparedKeys, counters: Dict[str, int], fk):
+    """Stages 0-1 of one row group, and its bloom filter where keys
+    survive them: ``(alive, memo key, ordinals the memo left, filter or
+    None)``."""
+    from .cache import NEGS
+
+    chunk = rg.column(leaf.column_index)
+    alive = np.arange(len(prep.uniq), dtype=np.int64)
+    # ---- stage 0: keys this chunk was proven not to hold
+    neg_key = None if fk is None else (fk, rg.index, leaf.name)
+    if neg_key is not None:
+        known = NEGS.absent_mask(neg_key, prep.uniq)
+        if known is not None:
+            counters["neg_hits"] += int(known.sum())
+            alive = alive[~known]
+    tried = alive
+    if len(alive):
+        # ---- stage 1: chunk statistics (no IO)
+        keep = _stats_alive(chunk.statistics(), chunk.meta.num_values,
+                            prep, alive)
+        counters["keys_pruned_stats"] += int(len(alive) - keep.sum())
+        alive = alive[keep]
+    bf = (chunk.bloom_filter() if len(alive) and prep.hashes is not None
+          else None)
+    return alive, neg_key, tried, bf
 
 
 def _bloom_survivors(alive: np.ndarray, keep: np.ndarray,
@@ -991,41 +1035,55 @@ def _empty_values(leaf):
     return np.empty(0, PHYSICAL_NP_DTYPE[leaf.physical_type])
 
 
-def _flat_leaves(pf, path: str, columns):
-    """The key leaf and the output leaves; a nested one is refused."""
+def _validate_flat(pf, path: str):
+    """The leaf at ``path``: a flat column or a leaf under optional
+    structs; a repeated one raises ``ValueError``, as in the reference."""
     leaf = pf.schema.leaf(path)  # KeyError on an unknown column
-    out_leaves = [pf.schema.leaf(c) for c in (columns or [])]
-    for lf in [leaf] + out_leaves:
-        if lf.max_repetition_level or lf.max_definition_level > 1:
-            raise unsupported(
-                f"a point lookup over the nested column {lf.name!r}",
-                "the lookup leftovers (nested key and value columns)")
-    return leaf, out_leaves
+    if leaf.max_repetition_level > 0:
+        raise ValueError(f"column {path!r} is nested; find_rows matches "
+                         "flat columns (the keyed-serving shape)")
+    return leaf
 
 
 def find_rows(pf, path: str, keys, columns: Optional[Sequence[str]] = None,
-              device="cuda") -> LookupResult:
+              device="cuda", policy=None, report=None) -> LookupResult:
     """Every row of ``pf`` where column ``path`` equals each of ``keys``.
     ``hits[i]`` of the result belongs to ``keys[i]``: ascending file-local
     rows and the row-aligned values of each of ``columns``.  NULL cells
     never match; a key outside the column's domain matches nothing.  The
     bloom probe and the page decodes run on ``device``: CUDA unless the
-    caller names the CPU, and a CUDA request without a card raises."""
+    caller names the CPU, and a CUDA request without a card raises.
+    ``policy``/``report``: the module docstring; the result's ``report``
+    is the call's."""
+    from .faults import resolve_policy
     from .reader import resolve_device
 
     dev = resolve_device(device)
-    leaf, out_leaves = _flat_leaves(pf, path, columns)
+    leaf = _validate_flat(pf, path)
+    out_leaves = [_validate_flat(pf, c) for c in (columns or [])]
+    pol, report = resolve_policy(pf, policy, report)
     prep = _prepare_keys(leaf, keys)
-    counters, per_uniq = _lookup_file(pf, leaf, prep, out_leaves, dev)
+    if pol is None and report is None:
+        counters, per_uniq = _lookup_file(pf, leaf, prep, out_leaves, dev)
+    else:
+        with pf._resilient_op(policy, report, "lookup"):
+            counters, per_uniq = _lookup_file(
+                pf, leaf, prep, out_leaves, dev,
+                skip=pol is not None and pol.skip_corrupt, report=report)
     counters["keys"] = len(keys)
-    return LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
-                        counters)
+    res = LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
+                       counters)
+    res.report = report
+    return res
 
 
-def _lookup_file(pf, leaf, prep: _PreparedKeys, out_leaves, dev):
+def _lookup_file(pf, leaf, prep: _PreparedKeys, out_leaves, dev,
+                 skip: bool = False, report=None):
     """The cascade over every row group of ``pf`` for a prepared batch:
     ``(counters, {uniq ordinal: [(file-local rows, {column: (values,
-    validity)}), ...]})``, the keys not counted."""
+    validity)}), ...]})``, the keys not counted.  A row group's data error
+    raises at its turn, or with ``skip`` drops the row group whole into
+    ``report``."""
     from .cache import NEGS
 
     counters = _new_counters()
@@ -1033,13 +1091,27 @@ def _lookup_file(pf, leaf, prep: _PreparedKeys, out_leaves, dev):
     if not prep.uniq:
         return counters, per_uniq
     row_groups = pf.row_groups
-    alive_by_rg, neg_keys, probed = _prune_row_groups(
+    alive_by_rg, neg_keys, probed, failed = _prune_row_groups(
         pf, row_groups, leaf, prep, counters, dev)
     rg_base = 0
-    for rg, alive, neg_key, tried in zip(row_groups, alive_by_rg, neg_keys,
-                                         probed):
-        got = _lookup_rg(pf, rg, leaf, prep, alive, out_leaves, counters,
-                         dev)
+    for rg, alive, neg_key, tried, err in zip(
+            row_groups, alive_by_rg, neg_keys, probed, failed):
+        got = None
+        if err is None:
+            try:
+                with _rg_context(pf, rg, leaf):
+                    got = _lookup_rg(pf, rg, leaf, prep, alive, out_leaves,
+                                     counters, dev)
+            except DeadlineError:
+                raise
+            except CorruptedError as e:
+                err = e
+        if err is not None:
+            if not skip:
+                raise err
+            report.record_skip(rg.index, rows=rg.num_rows, error=err)
+            rg_base += rg.num_rows
+            continue
         if got is not None:
             rows_map, cols_map = got
             for u, rows in rows_map.items():
@@ -1123,39 +1195,95 @@ def _assemble_hits(keys, prep: _PreparedKeys, per_uniq, out_leaves
 
 def dataset_find_rows(ds, path: str, keys,
                       columns: Optional[Sequence[str]] = None,
-                      device="cuda") -> LookupResult:
+                      device="cuda", policy=None,
+                      report=None) -> LookupResult:
     """:func:`find_rows` over every file of a
     :class:`~parquet_tpu_torch.dataset.Dataset`: the keys are normalized
     and hashed once for the corpus (``keys`` counted once), the files fan
     out on the shared pool (each on ``device``, schemas checked against the
     first), and the hits merge in file order with dataset-wide row
     ordinals (:meth:`~parquet_tpu_torch.dataset.Dataset.row_offsets`);
-    the other counters are the files' sums."""
+    the other counters are the files' sums.  Under a degraded ``policy``
+    a file that cannot be opened or read drops as a unit
+    (``report.files_skipped``); a skipped file whose footer parsed keeps
+    its span of the row ordinals."""
     from ..utils.pool import map_in_order
+    from .faults import NON_DATA_ERRORS, ReadReport
     from .reader import resolve_device
 
     dev = resolve_device(device)
-    pf0 = ds.file(0)
-    ds._check_schema(pf0, ds.paths[0])
-    leaf, out_leaves = _flat_leaves(pf0, path, columns)
-    prep = _prepare_keys(leaf, keys)
+    pol, report, skip = ds._resolve(policy, report)
+    prep = leaf = None
+    out_leaves = []
+    for i in range(len(ds.paths)):  # the first footer that opens
+        try:
+            pf0 = ds.file(i)
+        except DeadlineError:
+            raise
+        except NON_DATA_ERRORS:
+            raise
+        except (CorruptedError, OSError):
+            if not skip:
+                raise
+            continue  # recorded by the per-file loop below
+        ds._check_schema(pf0, ds.paths[i])
+        leaf = _validate_flat(pf0, path)
+        out_leaves = [_validate_flat(pf0, c) for c in (columns or [])]
+        prep = _prepare_keys(leaf, keys)
+        break
 
     def one(i):
-        pf = ds.file(i)
-        ds._check_schema(pf, ds.paths[i])
-        return _lookup_file(pf, pf.schema.leaf(path), prep,
-                            [pf.schema.leaf(c) for c in (columns or [])],
-                            dev) + (pf.num_rows,)
+        sub = ReadReport() if report is not None else None
+        rows = 0
+        try:
+            pf = ds.file(i)
+            ds._check_schema(pf, ds.paths[i])
+            rows = pf.num_rows
+            lf = pf.schema.leaf(path)
+            outs = [pf.schema.leaf(c) for c in (columns or [])]
+            if pol is None and sub is None:
+                got = _lookup_file(pf, lf, prep, outs, dev)
+            else:
+                sub.bind(pf._path)
+                with pf._resilient_op(pol, sub, "lookup"):
+                    got = _lookup_file(pf, lf, prep, outs, dev,
+                                       skip=skip, report=sub)
+            return got, sub, rows, None
+        except DeadlineError:
+            raise
+        except NON_DATA_ERRORS:
+            raise
+        except (CorruptedError, OSError) as e:
+            if not skip:
+                raise
+            return None, sub, rows, e
 
+    results = map_in_order(one, range(len(ds.paths)))
     counters = _new_counters()
-    counters["keys"] = len(keys)
     per_uniq: Dict[int, List[tuple]] = {}
     base = 0
-    for got, parts, rows in map_in_order(one, range(len(ds.paths))):
-        for k, v in got.items():
+    for i, (got, sub, rows, err) in enumerate(results):
+        if got is None:
+            if sub is not None:
+                report.retries += sub.retries  # they happened
+            report.record_file_skip(ds.paths[i], rows=rows, error=err)
+            base += rows
+            continue
+        if report is not None and sub is not None:
+            report.merge(sub)
+        file_counters, parts = got
+        for k, v in file_counters.items():
             counters[k] += v
         for u, ps in parts.items():
             per_uniq.setdefault(u, []).extend((r + base, c) for r, c in ps)
         base += rows
-    return LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
-                        counters)
+    if prep is None or len(report.files_skipped if report else ()) \
+            == len(ds.paths):
+        raise CorruptedError(
+            "dataset find_rows: every file failed "
+            f"({', '.join(report.files_skipped) if report else ''})")
+    counters["keys"] = len(keys)
+    res = LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
+                       counters)
+    res.report = report
+    return res

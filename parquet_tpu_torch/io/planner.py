@@ -41,6 +41,8 @@ spans and ``/debugz`` section.
 
 from __future__ import annotations
 
+import contextlib
+
 import threading
 from bisect import bisect_left
 from dataclasses import dataclass, field
@@ -283,11 +285,17 @@ def _tree_intervals(expr: Expr, leaf_fn) -> Optional[_Intervals]:
 class ScanPlanner:
     """Plans filtered reads of one
     :class:`~parquet_tpu_torch.io.reader.ParquetFile` through the
-    cascade; the bloom stage probes on ``device``."""
+    cascade; the bloom stage probes on ``device``.  Under a ``policy``
+    with ``on_corrupt='skip_row_group'``, a row group whose statistics,
+    page index or bloom filter cannot be read is skipped (``pruned_by``
+    ``"corrupt"``) and recorded in ``report`` with its full row count;
+    without one its located error raises."""
 
-    def __init__(self, pf, device="cuda"):
+    def __init__(self, pf, device="cuda", policy=None, report=None):
         self.pf = pf
         self.device = device
+        self.policy = policy
+        self.report = report
 
     def any_match_stats(self, expr: Expr) -> bool:
         """May any row group match?  The statistics stage alone (no I/O),
@@ -319,25 +327,61 @@ class ScanPlanner:
         single = self._single_positive(expr)
         counters: Dict[str, int] = {
             "rg_total": 0, "rg_pruned_stats": 0, "rg_pruned_pages": 0,
-            "rg_pruned_bloom": 0, "rg_pruned_const": 0, "rg_survivors": 0,
+            "rg_pruned_bloom": 0, "rg_pruned_const": 0,
+            "rg_skipped_corrupt": 0, "rg_survivors": 0,
             "stats_probes": 0, "page_probes": 0, "bloom_probes": 0,
             "pages_total": 0, "pages_selected": 0}
         rgs = self.pf.row_groups
         counters["rg_total"] = len(rgs)
+        ctx_col = ",".join(sorted({p.path for p in _collect_preds(expr)})) \
+            or None
+        errors: Dict[int, Exception] = {}  # row group -> its data error
         decisions = []
         for rg in rgs:
             d = RowGroupDecision(rg.index, rg.num_rows)
-            self._plan_rg(rg, expr, d, counters, single,
-                          "pages" in stages)
+            with self._guard(rg, d, ctx_col, errors):
+                self._plan_rg(rg, expr, d, counters, single,
+                              "pages" in stages)
             decisions.append(d)
         if "bloom" in stages and not isinstance(expr, Const):
-            self._bloom_stage(rgs, expr, decisions, counters)
+            self._bloom_stage(rgs, expr, decisions, counters, ctx_col,
+                              errors)
+        if errors:  # the first row group's error, or each recorded
+            if not (self.policy is not None and self.policy.skip_corrupt):
+                raise errors[min(errors)]
+            if self.report is not None:
+                for i in sorted(errors):
+                    self.report.record_skip(i, rows=rgs[i].num_rows,
+                                            error=errors[i])
         for d in decisions:
             if d.pruned_by is None:
                 counters["rg_survivors"] += 1
+            elif d.pruned_by == "corrupt":
+                counters["rg_skipped_corrupt"] += 1
             else:
                 counters[f"rg_pruned_{d.pruned_by}"] += 1
         return ScanPlan(self.pf, expr, decisions, counters, stages)
+
+    @contextlib.contextmanager
+    def _guard(self, rg, d: RowGroupDecision, ctx_col, errors):
+        """A stage of one row group: a data error (located by
+        ``read_context``) marks the row group corrupt and is kept in
+        ``errors``; a deadline raises."""
+        from ..errors import CorruptedError, DeadlineError
+        from .faults import read_context
+
+        try:
+            with read_context(path=self.pf._path, row_group=rg.index,
+                              column=ctx_col,
+                              kinds=(CorruptedError, OSError)):
+                yield
+        except DeadlineError:
+            raise
+        except CorruptedError as e:
+            errors.setdefault(rg.index, e)
+            d.pruned_by = "corrupt"
+            d.killer = None
+            d.ranges = []
 
     @staticmethod
     def _single_positive(expr: Expr) -> Optional[Pred]:
@@ -375,25 +419,34 @@ class ScanPlanner:
         else:
             self._pages_tree(rg, expr, d, counters)
 
-    def _bloom_stage(self, rgs, expr: Expr, decisions, counters) -> None:
+    def _bloom_stage(self, rgs, expr: Expr, decisions, counters,
+                     ctx_col=None, errors=None) -> None:
         """Every surviving row group's equality leaves against its filters,
-        all in one device probe; then the tree folded per row group."""
+        all in one device probe; then the tree folded per row group.  A
+        filter that cannot be read marks its row group corrupt."""
         from .bloom import check_hashes_multi
 
         eq = [p for p in _collect_preds(expr) if p.is_equality]
         if not eq:
             return
-        live = [d for d in decisions if d.pruned_by is None]
         keys, filters, batches = [], [], []
-        for d in live:
+        for d in decisions:
+            if d.pruned_by is not None:
+                continue
             rg = rgs[d.rg_index]
-            for j, p in enumerate(eq):
-                bf = rg.column(p.leaf.column_index).bloom_filter()
-                hashes = _pred_hashes(p) if bf is not None else None
-                if hashes is not None:
-                    keys.append((d.rg_index, j))
+            got = []
+            with self._guard(rg, d, ctx_col, errors):
+                for j, p in enumerate(eq):
+                    bf = rg.column(p.leaf.column_index).bloom_filter()
+                    hashes = _pred_hashes(p) if bf is not None else None
+                    if hashes is not None:
+                        got.append(((d.rg_index, j), bf, hashes))
+            if d.pruned_by is None:
+                for k, bf, hashes in got:
+                    keys.append(k)
                     filters.append(bf)
                     batches.append(hashes)
+        live = [d for d in decisions if d.pruned_by is None]
         hits = check_hashes_multi(filters, batches, self.device)
         verdict = {k: bool(h.any()) for k, h in zip(keys, hits)}
         slot = {id(p): j for j, p in enumerate(eq)}

@@ -1,105 +1,601 @@
-"""Chunk readahead for the device read: the port's cut of
-``parquet_tpu/io/prefetch.py``.
+"""Readahead for the read path: overlap the source's latency with decode.
 
-:func:`make_chunk_prefetcher` wraps a memory-mapped file for the read's
-whole-chunk preads with the advise backend alone: the pipeline plans every
-chunk's byte range up front, :class:`AdvisePrefetcher` asks the kernel
-(``madvise(WILLNEED)``) to read ``depth`` windows ahead of each plan's
-frontier, and serves each pread as a zero-copy view of the map, so the
-disk's readahead of later chunks runs under the prescan and staging of
-earlier ones without a thread.  The ring backend (window preads on a pool)
-and the other prefetch modes belong to a later slice.
+The port's copy of ``parquet_tpu/io/prefetch.py``.  :class:`PrefetchSource`
+wraps a :class:`~parquet_tpu_torch.io.source.Source` for the length of one
+operation, with one of two backends:
+
+- **ring** (any source): planned ranges are carved into windows, read
+  ``depth`` windows ahead on the shared pool (``utils/pool.py::submit``)
+  into segment buffers a few windows long, and ``pread``/``pread_view``
+  are served from the completed windows (a zero-copy view where the read
+  lies in one segment).  The window reads go through the wrapped chain,
+  so a :class:`~parquet_tpu_torch.io.faults.PolicySource` below retries
+  transient errors and keeps the operation's deadline inside the worker;
+  an error that survives is raised on the consuming thread at the
+  ``pread`` that needed the bytes, inside the caller's ``read_context``,
+  and a wait on an unfinished window honours the deadline it finds by
+  walking down the chain.  :meth:`PrefetchSource.close` discards the
+  windows nobody consumed.
+- **advise** (a chain that ends at an
+  :class:`~parquet_tpu_torch.io.source.MmapSource`): reads are views of
+  the page cache, so nothing is staged; planned ranges are hinted to the
+  kernel with ``madvise(WILLNEED)`` ``depth`` windows ahead of each plan's
+  frontier.
+
+Knobs (``utils/env.py``): ``PARQUET_TPU_TORCH_PREFETCH`` (``auto``, the
+default: advise over a mapped file; ``advise``; ``ring``; ``off``),
+``PARQUET_TPU_TORCH_PREFETCH_WINDOW`` and ``_DEPTH`` (pins), and
+``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE`` (``0``: no feedback from one ring's
+stalls to the next ring's depth and window).  Not in this port: the
+drop-behind mode, latency classes of remote sources, and the metrics.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from concurrent.futures import TimeoutError as _FutTimeout
+from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 
+from ..errors import DeadlineError
+from ..utils.env import env_int, env_opt_bytes, env_str
 from .source import MmapSource, Source
 
-DEPTH = 4  # windows kept advised ahead of each plan's frontier
-WINDOW_BYTES = 8 << 20
+__all__ = ["ReadStats", "PrefetchSource", "prefetch_mode", "make_prefetcher",
+           "make_chunk_prefetcher", "autotune_enabled", "prefetch_autotune"]
+
+DEFAULT_WINDOW_BYTES = 8 << 20
+DEFAULT_DEPTH = 4
+# ring windows fill slices of a per-plan segment buffer this many windows
+# long, so a read across a window join inside it is a zero-copy view
+_SEG_WINDOWS = 4
+
+
+def prefetch_mode() -> str:
+    """``PARQUET_TPU_TORCH_PREFETCH`` as off | auto | ring | advise."""
+    v = env_str("PARQUET_TPU_TORCH_PREFETCH").lower()
+    if v in ("0", "off", "false", "no"):
+        return "off"
+    if v in ("ring", "pool"):
+        return "ring"
+    if v in ("mmap", "advise"):
+        return "advise"
+    return "auto"
+
+
+def autotune_enabled() -> bool:
+    """``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE`` (on unless ``0``)."""
+    return env_int("PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE") != 0
+
+
+# the tuner reacts to the consumer's wait a window: a ring whose average
+# wait per issued window passes the raise threshold deepens readahead, one
+# under the decay threshold steps back toward the defaults
+_TUNE_RAISE_S_PER_WINDOW = 5e-3
+_TUNE_DECAY_S_PER_WINDOW = 5e-4
+_MAX_DEPTH = 8
+_MAX_WINDOW_BYTES = 32 << 20
+
+
+class _AutoTuneState:
+    """Process-wide feedback from each ring's :class:`ReadStats` to the
+    next ring's depth and window: a ring that waited more than
+    :data:`_TUNE_RAISE_S_PER_WINDOW` a window deepens readahead (depth
+    first, then the window doubles); one under
+    :data:`_TUNE_DECAY_S_PER_WINDOW` steps back toward the defaults.
+    Explicit arguments, the knobs' pins and
+    ``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE=0`` bypass it."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._state = [None, None]  # depth override, window override
+
+    def suggest(self):
+        with self._lock:
+            return tuple(self._state)
+
+    def observe(self, stats: "ReadStats") -> None:
+        if stats.windows_issued <= 0:
+            return
+        wait_per_window = stats.pool_wait_s / stats.windows_issued
+        with self._lock:
+            st = self._state
+            d = st[0] or DEFAULT_DEPTH
+            w = st[1] or DEFAULT_WINDOW_BYTES
+            if wait_per_window > _TUNE_RAISE_S_PER_WINDOW:
+                if d < _MAX_DEPTH:
+                    st[0] = d + 1
+                elif w < _MAX_WINDOW_BYTES:
+                    st[1] = w * 2
+            elif wait_per_window < _TUNE_DECAY_S_PER_WINDOW:
+                if w > DEFAULT_WINDOW_BYTES:
+                    w //= 2
+                    st[1] = None if w <= DEFAULT_WINDOW_BYTES else w
+                elif d > DEFAULT_DEPTH:
+                    d -= 1
+                    st[0] = None if d <= DEFAULT_DEPTH else d
+
+    def reset(self) -> None:
+        with self._lock:
+            self._state = [None, None]
+
+
+_AUTOTUNE = _AutoTuneState()
+
+
+def prefetch_autotune() -> _AutoTuneState:
+    """The process-wide auto-tune state (tests reset it between cases)."""
+    return _AUTOTUNE
+
+
+@dataclass
+class ReadStats:
+    """What a prefetcher did.
+
+    ``prefetch_hits``/``prefetch_misses``: preads served from the
+    readahead (ring windows; advise: a planned range already hinted) or
+    around it; ``windows_issued`` and ``bytes_prefetched``: windows read
+    ahead (ring) or hinted (advise); ``bytes_discarded``: window bytes
+    dropped unconsumed; ``pool_wait_s``: time the consumer waited on a
+    window still being read (about 0 when readahead hid the source)."""
+
+    backend: str = ""
+    prefetch_hits: int = 0
+    prefetch_misses: int = 0
+    windows_issued: int = 0
+    bytes_prefetched: int = 0
+    bytes_discarded: int = 0
+    pool_wait_s: float = 0.0
+
+    def as_dict(self) -> dict:
+        return {"backend": self.backend,
+                "prefetch_hits": self.prefetch_hits,
+                "prefetch_misses": self.prefetch_misses,
+                "windows_issued": self.windows_issued,
+                "bytes_prefetched": self.bytes_prefetched,
+                "bytes_discarded": self.bytes_discarded,
+                "pool_wait_s": self.pool_wait_s}
+
+
+class _Window:
+    """One window read, in flight or done, filling ``seg[offset -
+    seg_start:end - seg_start]`` of its plan's segment buffer."""
+
+    __slots__ = ("offset", "end", "future", "plan", "seg", "seg_start")
+
+    def __init__(self, offset: int, end: int, future, plan,
+                 seg=None, seg_start: int = 0):
+        self.offset = offset
+        self.end = end
+        self.future = future
+        self.plan = plan
+        self.seg = seg
+        self.seg_start = seg_start
+
+
+def _as_u8(buf) -> np.ndarray:
+    """A window's bytes (an array, a view, or the bytes an injector
+    returns) as a uint8 array, zero-copy where it can."""
+    if isinstance(buf, np.ndarray):
+        return buf
+    return np.frombuffer(buf, np.uint8)
 
 
 class _Plan:
-    __slots__ = ("start", "end", "advised")
+    """One planned sequential range [start, end); bytes below ``issue``
+    are issued (ring) or hinted (advise)."""
+
+    __slots__ = ("start", "issue", "end", "seg_buf", "seg_start", "seg_end",
+                 "pending", "dead")
 
     def __init__(self, start: int, end: int):
         self.start = start
+        self.issue = start
         self.end = end
-        self.advised = start  # advised up to here
+        self.seg_buf = None
+        self.seg_start = 0
+        self.seg_end = 0
+        self.pending = 0      # windows claimed but not yet in the ring
+        self.dead = False     # unplanned while a claim was in flight
 
 
-class AdvisePrefetcher(Source):
-    """Readahead over an :class:`MmapSource` by ``madvise(WILLNEED)``.
-    Callers declare upcoming ranges with :meth:`plan`; each read advances
-    the horizon of the plan that covers it.  It does not own the inner
-    source: :meth:`close` drops the plans and leaves the file open."""
+def _innermost(src: Source) -> Source:
+    seen = set()
+    while hasattr(src, "inner") and id(src) not in seen:
+        seen.add(id(src))
+        src = src.inner
+    return src
 
-    def __init__(self, inner: MmapSource, depth: int = DEPTH,
-                 window_bytes: int = WINDOW_BYTES):
+
+class PrefetchSource(Source):
+    """Readahead over any :class:`Source` (the module docstring has the
+    two backends).  Callers declare upcoming ranges with :meth:`plan` /
+    :meth:`plan_many`; reads outside the issued windows read through and
+    count as misses.  One is made for one operation and does not own the
+    source it wraps: :meth:`close` cancels the outstanding windows and
+    drops their buffers, leaving the file open."""
+
+    def __init__(self, inner: Source, backend: str = "ring",
+                 window_bytes: Optional[int] = None,
+                 depth: Optional[int] = None,
+                 max_windows: int = 32):
+        if backend not in ("ring", "advise"):
+            raise ValueError(f"unknown prefetch backend {backend!r}")
         self.inner = inner
-        self.depth = depth
-        self.window_bytes = window_bytes
+        self.backend = backend
+        env_window = env_opt_bytes("PARQUET_TPU_TORCH_PREFETCH_WINDOW")
+        env_depth = env_opt_bytes("PARQUET_TPU_TORCH_PREFETCH_DEPTH")
+        tuned_depth, tuned_window = ((None, None) if not autotune_enabled()
+                                     else _AUTOTUNE.suggest())
+        self._tunable = (autotune_enabled() and window_bytes is None
+                         and depth is None and env_window is None
+                         and env_depth is None)
+        self.window_bytes = int(window_bytes or env_window or tuned_window
+                                or DEFAULT_WINDOW_BYTES)
+        if self.window_bytes <= 0:
+            raise ValueError("window_bytes must be positive")
+        self.depth = int(depth or env_depth or tuned_depth or DEFAULT_DEPTH)
+        self.max_windows = max(2, int(max_windows))
+        self.stats = ReadStats(backend=backend)
+        self._lock = threading.Lock()
         self._plans: List[_Plan] = []
-        self._lock = threading.Lock()  # workers read through one wrapper
+        self._ring: List[_Window] = []  # issue order (oldest first)
+        self._pending = 0   # windows claimed but not yet in the ring
+        self._pump_rr = 0   # round-robin cursor over the plans
+        self._mmap = _innermost(inner) if backend == "advise" else None
+        if backend == "advise" and not isinstance(self._mmap, MmapSource):
+            raise ValueError("advise backend needs an MmapSource-backed chain")
+        self._closed = False
 
     @property
     def path(self):
-        return self.inner.path
+        return getattr(self.inner, "path", None)
+
+    # ------------------------------------------------------------- planning
+    def plan(self, offset: int, size: int) -> None:
+        """Declare an upcoming read of ``[offset, offset + size)``; up to
+        ``depth`` windows of each plan are kept ahead of its reads."""
+        self.plan_many([(offset, size)])
+
+    def plan_many(self, ranges) -> None:
+        """:meth:`plan` each ``(offset, size)`` of ``ranges``, with one
+        pump for the batch."""
+        batch = [(off, size) for off, size in ranges if size > 0]
+        if not batch or self._closed:
+            return
+        with self._lock:
+            for off, size in batch:
+                self._plans.append(_Plan(off, off + size))
+        self._pump()
+
+    def unplan(self, offset: int, size: int) -> None:
+        """Cancel the plan of ``(offset, size)`` and drop its windows (a
+        skipped row group's chunks: their plans would hold ring slots until
+        consumed, which never comes)."""
+        end = offset + size
+        with self._lock:
+            dead = [p for p in self._plans
+                    if p.start == offset and p.end == end]
+            for p in dead:
+                p.dead = True
+                self._plans.remove(p)
+            dropped = [w for w in self._ring if w.plan in dead]
+            for w in dropped:
+                w.future.cancel()
+                self._ring.remove(w)
+                self.stats.bytes_discarded += w.end - w.offset
+        if dropped:
+            self._pump()
+
+    def _claim_one_locked(self):
+        """The next window to issue, round-robin over the plans, within
+        the ring's capacity and ``depth`` windows a plan (claims in flight
+        counted): ``(plan, offset, end, seg, seg_start)`` or None."""
+        if self._closed:
+            return None
+        if len(self._ring) + self._pending >= self.max_windows:
+            return None
+        plans = list(self._plans)
+        if not plans:
+            return None
+        n = len(plans)
+        start = self._pump_rr % n
+        for k in range(n):
+            plan = plans[(start + k) % n]
+            if plan.issue >= plan.end:
+                if plan.pending == 0 and plan in self._plans:
+                    self._plans.remove(plan)
+                continue
+            if (sum(1 for w in self._ring if w.plan is plan)
+                    + plan.pending >= self.depth):
+                continue
+            self._pump_rr = (start + k) % n + 1
+            end = min(plan.issue + self.window_bytes, plan.end)
+            if plan.seg_buf is None or plan.issue >= plan.seg_end:
+                seg_len = min(_SEG_WINDOWS * self.window_bytes,
+                              plan.end - plan.issue)
+                plan.seg_buf = np.empty(seg_len, np.uint8)
+                plan.seg_start = plan.issue
+                plan.seg_end = plan.issue + seg_len
+            end = min(end, plan.seg_end)
+            offset = plan.issue
+            self.stats.windows_issued += 1
+            self.stats.bytes_prefetched += end - offset
+            plan.issue = end
+            plan.pending += 1
+            self._pending += 1
+            return plan, offset, end, plan.seg_buf, plan.seg_start
+        return None
+
+    def _pump(self) -> None:
+        """Keep windows issued ahead (the caller holds no lock: the pool
+        submit runs between the claim's and the ring's critical
+        sections)."""
+        if self.backend == "advise":
+            with self._lock:
+                self._advise_locked()
+            return
+        from ..utils.pool import submit
+
+        while True:
+            with self._lock:
+                spec = self._claim_one_locked()
+            if spec is None:
+                return
+            plan, offset, end, seg, seg_start = spec
+            try:
+                fut = submit(self._fill_window, seg, offset - seg_start,
+                             offset, end - offset)
+            except BaseException:
+                # the pool is shutting down: the range reads through
+                with self._lock:
+                    self._pending -= 1
+                    plan.pending -= 1
+                    self.stats.bytes_discarded += end - offset
+                raise
+            # retrieve abandoned errors (a window failed after close)
+            fut.add_done_callback(
+                lambda f: None if f.cancelled() else f.exception())
+            win = _Window(offset, end, fut, plan, seg=seg,
+                          seg_start=seg_start)
+            with self._lock:
+                self._pending -= 1
+                plan.pending -= 1
+                if self._closed or plan.dead:
+                    fut.cancel()
+                    self.stats.bytes_discarded += end - offset
+                else:
+                    self._ring.append(win)
+
+    def _fill_window(self, seg: np.ndarray, rel: int, offset: int,
+                     size: int) -> np.ndarray:
+        """A window's read into its segment slice, on a pool worker.  A
+        short read gives a short slice, which :meth:`_serve` sees, so
+        unfilled segment bytes are never served."""
+        src = self.inner
+        data = getattr(src, "pread_view", src.pread)(offset, size)
+        a = _as_u8(data)
+        n = min(len(a), size)
+        seg[rel:rel + n] = a[:n]
+        return seg[rel:rel + n]
+
+    def _advise_locked(self) -> None:
+        """Hint the kernel ``depth`` windows ahead of each plan's
+        frontier."""
+        for plan in self._plans:
+            ahead = min(plan.issue + self.depth * self.window_bytes,
+                        plan.end)
+            if ahead > plan.issue:
+                self._mmap.madvise_willneed(plan.issue, ahead - plan.issue)
+                self.stats.windows_issued += 1
+                self.stats.bytes_prefetched += ahead - plan.issue
+                plan.issue = ahead
+
+    def _advance_advise(self, upto: int) -> None:
+        """The consumer reached ``upto``: keep the hinted horizon ``depth``
+        windows ahead of it in the plan that covers it."""
+        with self._lock:
+            for plan in self._plans:
+                if plan.start <= upto <= plan.end:
+                    ahead = min(upto + (self.depth + 1) * self.window_bytes,
+                                plan.end)
+                    if ahead > plan.issue:
+                        self._mmap.madvise_willneed(plan.issue,
+                                                    ahead - plan.issue)
+                        self.stats.windows_issued += 1
+                        self.stats.bytes_prefetched += ahead - plan.issue
+                        plan.issue = ahead
+                    break
+
+    # ------------------------------------------------------------- serving
+    def _deadline(self):
+        """The active operation deadline of a PolicySource below, if any."""
+        src = self.inner
+        seen = set()
+        while src is not None and id(src) not in seen:
+            seen.add(id(src))
+            dl = getattr(src, "_deadline", None)
+            if dl is not None:
+                return dl
+            src = getattr(src, "inner", None)
+        return None
+
+    def _await(self, win: _Window):
+        """A window's bytes, waited for in laps of at most 50 ms, each
+        checking the deadline: a window queued behind injected latency
+        cannot hold the consumer past ``deadline_s``."""
+        fut = win.future
+        if fut.done():
+            return fut.result()
+        t0 = time.perf_counter()
+        try:
+            while True:
+                dl = self._deadline()
+                rem = dl.remaining() if dl is not None else None
+                if rem is not None and rem <= 0:
+                    raise DeadlineError(
+                        f"deadline exceeded waiting for prefetched window "
+                        f"at {win.offset}")
+                try:
+                    return fut.result(timeout=min(rem, 0.05)
+                                      if rem is not None else 0.05)
+                except (_FutTimeout, TimeoutError):
+                    continue
+        finally:
+            waited = time.perf_counter() - t0
+            with self._lock:
+                self.stats.pool_wait_s += waited
+
+    def _serve(self, offset: int, size: int, want_view: bool):
+        end = offset + size
+        if self.backend == "advise":
+            with self._lock:
+                covered = any(p.start <= offset and end <= p.end
+                              and p.issue >= end for p in self._plans)
+                self.stats.prefetch_hits += covered
+                self.stats.prefetch_misses += not covered
+            inner = self.inner
+            out = (getattr(inner, "pread_view", inner.pread)(offset, size)
+                   if want_view else inner.pread(offset, size))
+            self._advance_advise(end)
+            return out
+        # ring: the chain of windows that covers the read
+        with self._lock:
+            chain = sorted((w for w in self._ring
+                            if w.offset < end and w.end > offset),
+                           key=lambda w: w.offset)
+            covered = bool(chain) and chain[0].offset <= offset \
+                and chain[-1].end >= end
+            pos = offset
+            for w in chain:
+                if covered and w.offset > pos:
+                    covered = False
+                pos = w.end
+        from ..utils.pool import in_shared_pool
+
+        if covered and in_shared_pool():
+            # a window still queued may wait behind this worker's own
+            # caller on the shared pool: cancel the ones never started and
+            # read their bytes through (a worker waiting on them could
+            # wedge the pool)
+            cancelled = [w for w in chain if w.future.cancel()]
+            if cancelled:
+                with self._lock:
+                    for w in cancelled:
+                        if w in self._ring:
+                            self._ring.remove(w)
+                        self.stats.bytes_discarded += w.end - w.offset
+                covered = False
+        if not covered:
+            with self._lock:
+                self.stats.prefetch_misses += 1
+            inner = self.inner
+            return (getattr(inner, "pread_view", inner.pread)(offset, size)
+                    if want_view else inner.pread(offset, size))
+        bufs = []
+        for w in chain:
+            try:
+                bufs.append(self._await(w))
+            except BaseException:
+                # a failed window is never served again; its error raises
+                # here, on the consuming thread
+                with self._lock:
+                    if w in self._ring:
+                        self._ring.remove(w)
+                self._pump()
+                raise
+        with self._lock:
+            self.stats.prefetch_hits += 1
+        full = all(len(b) == (w.end - w.offset) for w, b in zip(chain, bufs))
+        if len(chain) == 1:
+            w = chain[0]
+            out = bufs[0][offset - w.offset:end - w.offset]
+        elif full and all(w.seg is chain[0].seg for w in chain):
+            # the chain lies in one segment: the join is contiguous
+            out = chain[0].seg[offset - chain[0].seg_start:
+                               end - chain[0].seg_start]
+        else:
+            out = np.concatenate(
+                [_as_u8(b)[max(offset - w.offset, 0):
+                           min(end, w.end) - w.offset]
+                 for w, b in zip(chain, bufs)])
+        # windows the sequential reader has passed are consumed
+        with self._lock:
+            drop = [w for w in chain if w.end <= end]
+            for w in drop:
+                if w in self._ring:
+                    self._ring.remove(w)
+        if drop:
+            self._pump()
+        if want_view:
+            return out
+        return out.tobytes()
+
+    def pread(self, offset: int, size: int) -> bytes:
+        return self._serve(offset, size, want_view=False)
+
+    def pread_view(self, offset: int, size: int):
+        return self._serve(offset, size, want_view=True)
 
     def size(self) -> int:
         return self.inner.size()
 
-    def plan(self, offset: int, size: int) -> None:
-        """Declare an upcoming read of ``[offset, offset + size)``."""
-        if size <= 0:
-            return
-        with self._lock:
-            p = _Plan(offset, offset + size)
-            self._plans.append(p)
-            self._advise(p, offset)
-
-    def plan_many(self, ranges) -> None:
-        """:meth:`plan` each ``(offset, size)`` of ``ranges``."""
-        for offset, size in ranges:
-            self.plan(offset, size)
-
-    def _advise(self, p: _Plan, frontier: int) -> None:
-        ahead = min(frontier + self.depth * self.window_bytes, p.end)
-        if ahead > p.advised:
-            self.inner.madvise_willneed(p.advised, ahead - p.advised)
-            p.advised = ahead
-
-    def _serve(self, offset: int, size: int) -> None:
-        end = offset + size
-        with self._lock:
-            for p in self._plans:
-                if p.start <= offset and end <= p.end:
-                    self._advise(p, end)
-                    break
-
-    def pread(self, offset: int, size: int) -> bytes:
-        self._serve(offset, size)
-        return self.inner.pread(offset, size)
-
-    def pread_view(self, offset: int, size: int) -> np.ndarray:
-        self._serve(offset, size)
-        return self.inner.pread_view(offset, size)
-
     def close(self) -> None:
         with self._lock:
+            self._closed = True
             self._plans.clear()
+            for w in self._ring:
+                if not w.future.cancel() and w.future.done():
+                    try:
+                        w.future.result()
+                    except BaseException:
+                        pass  # an abandoned window's error: nobody wants it
+                self.stats.bytes_discarded += w.end - w.offset
+            self._ring.clear()
+        if self.backend == "ring" and self._tunable:
+            _AUTOTUNE.observe(self.stats)
 
 
-def make_chunk_prefetcher(source: Source) -> Optional[AdvisePrefetcher]:
-    """The advise-backed prefetcher of a memory-mapped ``source``, or None
-    for any other source (in-memory bytes have no disk latency to hide).
-    The JAX package's ``n_streams`` sizes its ring backend, which this cut
-    does not have."""
-    if isinstance(source, MmapSource):
-        return AdvisePrefetcher(source)
+def make_prefetcher(source: Source) -> Optional[PrefetchSource]:
+    """The prefetcher the mode picks for ``source``, or None where it is
+    off or cannot pay: advise for a chain that ends at an
+    :class:`MmapSource`; the ring where ``PARQUET_TPU_TORCH_PREFETCH=ring``,
+    or in auto mode for a chain ending at a file read by pread with more
+    than one core (on one core a pread from a warm page cache is a copy
+    that competes with decode) and outside a pool worker."""
+    from ..utils import pool
+    from .source import FileLikeSource, FileSource
+
+    mode = prefetch_mode()
+    if mode == "off":
+        return None
+    deepest = _innermost(source)
+    if mode in ("auto", "advise") and isinstance(deepest, MmapSource):
+        return PrefetchSource(source, backend="advise")
+    if mode == "advise":
+        return None
+    real_io = isinstance(deepest, (FileSource, FileLikeSource))
+    if mode == "ring" or (not pool.in_shared_pool() and real_io
+                          and pool.available_cpus() > 1):
+        return PrefetchSource(source, backend="ring", max_windows=8)
+    return None
+
+
+def make_chunk_prefetcher(source: Source) -> Optional[PrefetchSource]:
+    """The prefetcher of the whole-chunk preads of the device read and
+    the device scan.  A chunk-sized read asked before its windows are read
+    is never covered (only ``depth`` windows are ever ahead), so auto mode
+    takes only the advise backend: the chunk ranges planned, the kernel's
+    readahead running under the prescan and staging of earlier chunks.
+    ``PARQUET_TPU_TORCH_PREFETCH=ring`` forces the ring; ``off`` none."""
+    mode = prefetch_mode()
+    if mode == "off":
+        return None
+    if mode == "ring":
+        return make_prefetcher(source)
+    if isinstance(_innermost(source), MmapSource):
+        return PrefetchSource(source, backend="advise")
     return None

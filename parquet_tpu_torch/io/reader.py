@@ -499,26 +499,58 @@ def resolve_device(device) -> torch.device:
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
 
 
+class ColumnSet(dict):
+    """``{dotted path: Column}``, the result of a read; ``report`` is the
+    read's :class:`~parquet_tpu_torch.io.faults.ReadReport` where it ran
+    under a policy or was given one (else None)."""
+
+    report = None
+
+
 class ParquetFile:
     """An open Parquet file: magic check at both ends and the thrift
     footer, or, for a path whose bytes were opened before, the footer
-    parsed then (``io/cache.py::FOOTERS``)."""
+    parsed then (``io/cache.py::FOOTERS``).
 
-    def __init__(self, source):
+    ``policy`` (a :class:`~parquet_tpu_torch.io.faults.FaultPolicy`)
+    applies to every operation on the file: each pread retries transient
+    errors under it and keeps the operation's deadline, and its
+    ``on_corrupt`` decides what a corrupt row group does.  A call's own
+    ``policy=`` overrides it for that call."""
+
+    def __init__(self, source, policy=None):
+        from .faults import PolicySource, read_context
+        from .source import FileSource, MmapSource
+
+        self.policy = policy
         self._chunk_cache: Dict[Tuple[int, int], ColumnChunkReader] = {}
         self.source: Source = as_source(source)
+        if policy is not None:
+            self.source = PolicySource(self.source, policy)
+        self._base_source = self.source  # overrides revert to this
+        self._override_stack: List[Source] = []
+        # the file's key in io/cache.py's caches, fixed at open: the
+        # open-time fstat of a plain path source under the policy, None
+        # for in-memory bytes and any other wrapper (an injector's bytes
+        # must never fill nor be served from the caches)
+        inner = (self.source.inner if isinstance(self.source, PolicySource)
+                 else self.source)
+        self._cache_key = (inner.stat_key
+                           if type(inner) in (FileSource, MmapSource)
+                           else None)
         try:
-            self._open_footer()
+            with self._resilient_op(None, None, "open"), \
+                    read_context(path=self._path,
+                                 kinds=(CorruptedError, OSError)):
+                self._open_footer()
         except BaseException:
             self.source.close()
             raise
 
     @property
-    def _cache_key(self):
-        """The file's key in ``io/cache.py``'s caches: its source's
-        ``stat_key`` (None for in-memory bytes and wrapped sources, which
-        are never cached)."""
-        return getattr(self.source, "stat_key", None)
+    def _path(self) -> Optional[str]:
+        """The file's path for error context (None for in-memory bytes)."""
+        return getattr(self.source, "path", None)
 
     def _open_footer(self) -> None:
         from .cache import FOOTERS
@@ -569,61 +601,178 @@ class ParquetFile:
     def row_group(self, i: int) -> RowGroupReader:
         return self._row_groups[i]
 
-    def read(self, columns: Optional[Sequence[str]] = None,
-             device="cuda",
-             row_groups: Optional[Sequence[int]] = None
-             ) -> Dict[str, Column]:
-        """Decode the selected columns (all by default) of the selected
-        row groups (all by default; else by index, in the order given) on
-        ``device``; returns ``{dotted path: Column}`` in schema order.
-        A name in ``columns`` selects the leaf at that dotted path, or every
-        leaf under that top-level column.  An empty ``row_groups`` gives
-        zero-row columns; an index out of range raises ``IndexError``."""
-        from ..parallel.device_reader import decode_chunks_pipelined
+    # ---------------------------------------------------------- resilience
+    def _resilient_op(self, policy, report, what: str = "read"):
+        """The scope of one top-level operation under the effective policy
+        (the call's, else the file's): ``self.source`` applies it inside
+        the block (chunk readers read ``file.source`` at each call, so
+        every layer sees it), its deadline clock starts, and its retries
+        are counted into ``report``.  A call's own policy is installed on
+        the override stack, shared with :meth:`_source_override`, so
+        overlapping scopes on several threads each remove only their own
+        wrapper and ``self.source`` always falls back to a live one."""
+        from .faults import PolicySource
 
-        dev = resolve_device(device)
-        leaves = _select_leaves(self.schema, columns)
-        rgs = self._row_groups
-        if row_groups is not None:
-            every = range(len(rgs))
-            for i in row_groups:
-                if i not in every:
-                    raise IndexError(
-                        f"row group {i} out of range [0, {len(every)})")
-            rgs = [rgs[i] for i in row_groups]
-        chunks = [rg.column(leaf.column_index)
-                  for leaf in leaves for rg in rgs]
-        out = {}
-        with contextlib.closing(decode_chunks_pipelined(chunks,
-                                                        dev)) as decoded:
-            for leaf in leaves:
-                parts = [next(decoded) for _ in rgs]
-                out[leaf.name] = (concat_columns(parts) if parts
-                                  else _empty_column(leaf, dev))
-        return out
+        pol = policy if policy is not None else self.policy
+
+        @contextlib.contextmanager
+        def scope():
+            if pol is None:
+                yield None
+                return
+            base = self._base_source
+            if isinstance(base, PolicySource) and base.policy is pol \
+                    and self.source is base:
+                with base.operation(report, what) as dl:
+                    yield dl
+                return
+            inner = base.inner if isinstance(base, PolicySource) else base
+            tmp = PolicySource(inner, pol)
+            self._override_stack.append(tmp)
+            self.source = tmp
+            try:
+                with tmp.operation(report, what) as dl:
+                    yield dl
+            finally:
+                self._pop_override(tmp)
+
+        return scope()
+
+    def _pop_override(self, src: Source) -> None:
+        st = self._override_stack
+        if src in st:
+            st.remove(src)
+        self.source = st[-1] if st else self._base_source
 
     @contextlib.contextmanager
     def _source_override(self, src: Source):
         """Route every pread of this file through ``src`` (a wrapper over
         the current source, such as the read's chunk prefetcher) inside
-        the block; the caller owns closing ``src``."""
-        prev, self.source = self.source, src
+        the block, on the override stack :meth:`_resilient_op` uses; the
+        caller owns closing ``src``."""
+        self._override_stack.append(src)
+        self.source = src
         try:
             yield src
         finally:
-            self.source = prev
+            self._pop_override(src)
+
+    # ---------------------------------------------------------------- read
+    def read(self, columns: Optional[Sequence[str]] = None,
+             device="cuda",
+             row_groups: Optional[Sequence[int]] = None,
+             policy=None, report=None) -> ColumnSet:
+        """Decode the selected columns (all by default) of the selected
+        row groups (all by default; else by index, in the order given) on
+        ``device``; returns ``{dotted path: Column}`` in schema order.
+        A name in ``columns`` selects the leaf at that dotted path, or every
+        leaf under that top-level column.  An empty ``row_groups`` gives
+        zero-row columns; an index out of range raises ``IndexError``.
+
+        ``policy`` (default: the file's) retries transient preads, runs
+        the call under ``deadline_s``, and with
+        ``on_corrupt='skip_row_group'`` decodes row group by row group and
+        drops a corrupt one whole (:meth:`_read_degraded`); ``report``
+        collects the rows read and dropped, the skipped row groups and the
+        retries, and is the result's ``report``.  Every chunk decodes
+        under ``read_context``: a failure names its file, row group and
+        column."""
+        from .faults import resolve_policy
+
+        pol, report = resolve_policy(self, policy, report)
+        if pol is None and report is None:
+            return self._read_impl(columns, device, row_groups, None, None)
+        with self._resilient_op(policy, report):
+            out, rows = self._read_impl(columns, device, row_groups, pol,
+                                        report, with_rows=True)
+        report.rows_read += rows
+        out.report = report
+        return out
+
+    def _read_impl(self, columns, device, row_groups, pol, report,
+                   with_rows: bool = False):
+        from ..parallel.device_reader import decode_chunks_pipelined
+
+        dev = resolve_device(device)
+        leaves = _select_leaves(self.schema, columns)
+        every = range(len(self._row_groups))
+        sel = list(every) if row_groups is None else list(row_groups)
+        for i in sel:
+            if i not in every:
+                raise IndexError(
+                    f"row group {i} out of range [0, {len(every)})")
+        if pol is not None and pol.skip_corrupt and sel:
+            out, rows = self._read_degraded(leaves, sel, dev, report)
+        else:
+            rgs = [self._row_groups[i] for i in sel]
+            chunks = [rg.column(leaf.column_index)
+                      for leaf in leaves for rg in rgs]
+            out = ColumnSet()
+            with contextlib.closing(decode_chunks_pipelined(
+                    chunks, dev)) as decoded:
+                it = iter(chunks)
+                for leaf in leaves:
+                    parts = [self._pull(decoded, next(it)) for _ in rgs]
+                    out[leaf.name] = (concat_columns(parts) if parts
+                                      else _empty_column(leaf, dev))
+            rows = sum(rg.num_rows for rg in rgs)
+        return (out, rows) if with_rows else out
+
+    def _pull(self, decoded, chunk: ColumnChunkReader) -> Column:
+        """The pipeline's next column, ``chunk``'s, its failure located."""
+        from .faults import read_context
+
+        with read_context(path=self._path, row_group=chunk.rg_index,
+                          column=chunk.leaf.name):
+            return next(decoded)
+
+    def _read_degraded(self, leaves, sel, dev, report):
+        """The ``on_corrupt='skip_row_group'`` read: row group by row group,
+        each group's chunks one batch of ``decode_chunks_pipelined`` on
+        ``dev``; a data error in any of them drops the whole group
+        (``report.record_skip``) and a deadline still raises.  The columns
+        hold exactly the intact groups' rows, in the order selected."""
+        from ..errors import DeadlineError
+        from ..parallel.device_reader import decode_chunks_pipelined
+
+        uniq = list({leaf.name: leaf for leaf in leaves}.values())
+        parts: Dict[str, List[Column]] = {leaf.name: [] for leaf in uniq}
+        rows = 0
+        for i in sel:
+            rg = self._row_groups[i]
+            chunks = [rg.column(leaf.column_index) for leaf in uniq]
+            try:
+                with contextlib.closing(decode_chunks_pipelined(
+                        chunks, dev)) as decoded:
+                    cols = [self._pull(decoded, c) for c in chunks]
+            except DeadlineError:
+                raise
+            except CorruptedError as e:
+                report.record_skip(i, rows=rg.num_rows, error=e)
+                continue
+            for leaf, col in zip(uniq, cols):
+                parts[leaf.name].append(col)
+            rows += rg.num_rows
+        out = ColumnSet()
+        for leaf in leaves:
+            got = parts[leaf.name]
+            out[leaf.name] = (concat_columns(got) if got
+                              else _empty_column(leaf, dev))
+        return out, rows
 
     def find_rows(self, path: str, keys, columns: Optional[Sequence[str]] = None,
-                  device="cuda"):
+                  device="cuda", policy=None, report=None):
         """Batched point lookup: the rows where column ``path`` equals each
         of ``keys``, with the row-aligned values of ``columns``.  The bloom
         stage and the page decodes run on ``device`` (CUDA unless the caller
-        names the CPU).  Returns a
+        names the CPU); ``policy``/``report`` as :meth:`read`'s (a corrupt
+        row group drops whole under ``skip_row_group``).  Returns a
         :class:`~parquet_tpu_torch.io.lookup.LookupResult` aligned with
         ``keys``."""
         from .lookup import find_rows
 
-        return find_rows(self, path, keys, columns=columns, device=device)
+        return find_rows(self, path, keys, columns=columns, device=device,
+                         policy=policy, report=report)
 
     def close(self) -> None:
         self.source.close()

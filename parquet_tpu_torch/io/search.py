@@ -142,7 +142,7 @@ class PagePlan:
 
 def plan_scan(pf, path, lo=None, hi=None, use_bloom: bool = False,
               values: Optional[Sequence] = None,
-              device="cuda") -> List[PagePlan]:
+              device="cuda", policy=None, report=None) -> List[PagePlan]:
     """The batch pushdown plan of ``lo <= file[path] <= hi`` (or, with
     ``values``, ``file[path] in values``): for each surviving row group,
     the page ordinals whose zone maps meet the predicate.  The predicate
@@ -150,12 +150,16 @@ def plan_scan(pf, path, lo=None, hi=None, use_bloom: bool = False,
     cascade (statistics -> page index -> bloom); with ``use_bloom`` the
     bloom stage probes every surviving row group's filter on ``device``
     in one batch.  Planning reads the column and offset indexes and the
-    filters, never a data page."""
+    filters, never a data page; under ``policy``'s
+    ``on_corrupt='skip_row_group'`` a row group whose index structures are
+    corrupt is skipped and recorded in ``report``
+    (:class:`~parquet_tpu_torch.io.planner.ScanPlanner`)."""
     from ..algebra.expr import single_pred
     from .planner import ScanPlanner
     from .reader import resolve_device
 
-    planner = ScanPlanner(pf, device=resolve_device(device))
+    planner = ScanPlanner(pf, device=resolve_device(device), policy=policy,
+                          report=report)
     return planner.plan(single_pred(path, lo=lo, hi=hi, values=values),
                         use_bloom=use_bloom).page_plans()
 

@@ -7,18 +7,25 @@ cache, and falls back to :class:`FileSource` (``os.pread``) where the file
 cannot be mapped (an empty file, a FIFO).  Each of the two carries a
 ``stat_key``, ``(absolute path, inode, mtime_ns, size)`` from the fstat of
 the descriptor it opened: the identity ``io/cache.py``'s caches key a file
-by (in-memory bytes have none and are never cached).  Remote and
-policy-wrapped sources belong to a later slice.
+by (in-memory bytes have none and are never cached).
+``PARQUET_TPU_TORCH_MMAP=0`` opens a path as a :class:`FileSource`.  A
+seekable file object opens as a :class:`FileLikeSource`;
+:class:`RetryingSource` retries a bare source's transient errors
+(``io/faults.py`` holds the policy-wide wrapper).  Remote sources belong
+to a later slice.
 """
 
 from __future__ import annotations
 
+import io
 import mmap as _mmap
 import os
+import threading
 
 import numpy as np
 
-from ..errors import CorruptedError
+from ..errors import CorruptedError, ShortReadError
+from ..utils.env import env_int
 
 
 class Source:
@@ -33,8 +40,12 @@ class Source:
 
 
 def _check_range(what: str, offset: int, size: int, total: int) -> None:
-    if offset < 0 or size < 0 or offset + size > total:
+    if offset < 0 or size < 0:
         raise CorruptedError(
+            f"{what}: read of [{offset}, {offset + size}): negative offset "
+            "or size")
+    if offset + size > total:
+        raise ShortReadError(
             f"{what}: read of [{offset}, {offset + size}) past the end of a "
             f"{total}-byte source")
 
@@ -70,12 +81,14 @@ class FileSource(Source):
         return self._size
 
     def pread(self, offset: int, size: int) -> bytes:
+        if self._fd < 0:
+            raise ValueError(f"read on closed source {self.path!r}")
         _check_range(self.path, offset, size, self._size)
         parts = []
         while size:
             b = os.pread(self._fd, size, offset)
             if not b:
-                raise CorruptedError(f"{self.path}: short read at {offset}")
+                raise ShortReadError(f"{self.path}: short read at {offset}")
             parts.append(b)
             offset += len(b)
             size -= len(b)
@@ -147,15 +160,98 @@ class MmapSource(Source):
             pass  # views still alive: unmapped when the last one dies
 
 
+class FileLikeSource(Source):
+    """A seekable file object; each seek and read pair runs under a lock
+    (the prefetcher, the scans and the staging workers pread at once)."""
+
+    def __init__(self, f):
+        self._f = f
+        self._lock = threading.Lock()
+        f.seek(0, io.SEEK_END)
+        self._size = f.tell()
+
+    def size(self) -> int:
+        return self._size
+
+    def pread(self, offset: int, size: int) -> bytes:
+        with self._lock:
+            f = self._f
+            if f is None:
+                raise ValueError("read on closed source")
+            f.seek(offset)
+            out = f.read(size)
+        if len(out) != size:
+            raise ShortReadError(f"short read at {offset}")
+        return out
+
+    def close(self) -> None:
+        with self._lock:  # an in-flight pread ends before the file closes
+            f, self._f = self._f, None
+            if f is not None:
+                f.close()
+
+
+class RetryingSource(Source):
+    """Bounded retries of a bare source's transient ``OSError`` errors, with
+    jittered exponential backoff; a short read is corruption and raises at
+    once.  The loop is ``io/faults.py::retry_call``, the one
+    :class:`~parquet_tpu_torch.io.faults.PolicySource` runs; a read that
+    wants a deadline and degraded reads takes a ``FaultPolicy``."""
+
+    def __init__(self, inner: Source, retries: int = 3,
+                 backoff_s: float = 0.05, jitter: float = 0.25):
+        self.inner = inner
+        self.retries = retries
+        self.backoff_s = backoff_s
+        self.jitter = jitter
+        self._policy = None  # built at first use: faults imports us
+
+    @property
+    def path(self):
+        return getattr(self.inner, "path", None)
+
+    def _retry(self, fn, offset: int, size: int):
+        from .faults import FaultPolicy, retry_call
+
+        if self._policy is None:
+            self._policy = FaultPolicy(max_retries=self.retries,
+                                       backoff_s=self.backoff_s,
+                                       jitter=self.jitter)
+        return retry_call(fn, offset, size, self._policy)
+
+    def pread(self, offset: int, size: int) -> bytes:
+        return self._retry(self.inner.pread, offset, size)
+
+    def pread_view(self, offset: int, size: int):
+        # the inner zero-copy view, retried
+        return self._retry(getattr(self.inner, "pread_view",
+                                   self.inner.pread), offset, size)
+
+    def size(self) -> int:
+        return self.inner.size()
+
+    def close(self) -> None:
+        self.inner.close()
+
+
 def as_source(source) -> Source:
+    """``source`` as a :class:`Source`: a Source as it is, in-memory bytes
+    as a :class:`BytesSource`, a path mapped (:class:`MmapSource`; a
+    :class:`FileSource` where it cannot be mapped or where
+    ``PARQUET_TPU_TORCH_MMAP=0``), a seekable file object as a
+    :class:`FileLikeSource`."""
     if isinstance(source, Source):
         return source
     if isinstance(source, (bytes, bytearray, memoryview)):
         return BytesSource(source)
     if isinstance(source, (str, os.PathLike)):
-        try:
-            return MmapSource(source)
-        except (OSError, ValueError):  # an empty file, a FIFO, no mmap
-            return FileSource(source)
+        if env_int("PARQUET_TPU_TORCH_MMAP"):
+            try:
+                return MmapSource(source)
+            except (OSError, ValueError):  # an empty file, a FIFO, no mmap
+                pass
+        return FileSource(source)
+    if hasattr(source, "read") and hasattr(source, "seek"):
+        return FileLikeSource(source)
     raise TypeError(f"cannot read parquet from {type(source).__name__}: "
-                    "pass bytes or a path")
+                    "pass bytes, a path or a seekable file object")

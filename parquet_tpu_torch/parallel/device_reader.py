@@ -1696,11 +1696,11 @@ def _decode_pipelined(chunks, device, workers: int) -> Iterator[Column]:
                 active[0] -= 1
 
     pool = ThreadPoolExecutor(max_workers=workers)
+    pending = collections.deque()
     try:
         it = iter(chunks)
-        pending = collections.deque(
-            (r, pool.submit(prep, r)) for r in itertools.islice(
-                it, workers + 1))
+        pending.extend((r, pool.submit(prep, r)) for r in itertools.islice(
+            it, workers + 1))
         while pending:
             reader, fut = pending.popleft()
             prepped, err = fut.result()
@@ -1716,3 +1716,6 @@ def _decode_pipelined(chunks, device, workers: int) -> Iterator[Column]:
             yield col
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+        # a failure's traceback keeps this frame: drop the chunks staged
+        # ahead now, not when the collector breaks that cycle
+        pending.clear()

@@ -30,6 +30,15 @@ The port's copy of ``parquet_tpu/parallel/host_scan.py``:
 - :func:`scan`: one of the two, chosen by ``io/planner.py::route_scan``;
 - :func:`aligned_key_mask`: the point lookup's face of the predicate.
 
+Every entry point takes ``policy``/``report`` as the JAX package's
+(``io/faults.py``): preads retry under the policy, the call runs under
+its deadline, and under ``on_corrupt='skip_row_group'`` a corrupt row
+group drops whole: at planning (its index structures), in phase 1 or 2
+of the host scan (its spans), or at staging in the device scan, recorded
+with its candidate rows.  ``scan_files(skip_files=True)`` drops a file
+that fails outright, and the routed scan keeps a device attempt's skips
+only where that attempt's result is kept.
+
 The predicate holds in each column's order domain: signed or unsigned
 integers (an unsigned column's values and bounds compared as unsigned),
 decimals by their unscaled integers, byte arrays and fixed-length byte
@@ -53,7 +62,7 @@ import numpy as np
 import torch
 
 from ..algebra.compare import int_domain, is_unsigned, normalize
-from ..errors import _Unsupported, unsupported
+from ..errors import CorruptedError, DeadlineError, _Unsupported
 from ..format.enums import Encoding, Type
 from ..ops import device as dev
 from ..schema.types import LogicalKind, empty_values, logical_np_dtype
@@ -73,13 +82,6 @@ _POOL_MIN_CELLS = 2_000_000
 
 _HOST_RAGGED = "host_ragged"
 _DICT_ENCODINGS = (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY)
-_POLICY_SLICE = "the fault-policy slice (parquet_tpu/io/faults.py)"
-
-
-def _refuse_policy(what: str, policy, report) -> None:
-    if policy is not None or report is not None:
-        raise unsupported(f"fault policies and read reports of {what}",
-                          _POLICY_SLICE)
 
 
 # ---------------------------------------------------------------------------
@@ -235,13 +237,19 @@ def scan_expr(pf, where, columns: Optional[Sequence[str]] = None,
     Returns ``{column: values}`` in file order: numpy arrays; a nullable
     number column as ``np.ma.MaskedArray`` (masked at nulls; an FLBA or
     INT96 column's ``(n, width)`` rows masked whole); a byte-array column
-    as a list of ``bytes`` with ``None`` at nulls.  ``policy``/``report``
-    (fault policies) are not ported."""
+    as a list of ``bytes`` with ``None`` at nulls.  ``policy`` (default:
+    the file's) and ``report``: the module docstring."""
+    from ..io.faults import resolve_policy
     from ..io.reader import resolve_device
 
-    _refuse_policy("the host scan", policy, report)
-    return _scan_expr_impl(pf, where, columns, num_threads, use_bloom,
-                           resolve_device(device))
+    device = resolve_device(device)
+    pol, report = resolve_policy(pf, policy, report)
+    if pol is None and report is None:
+        return _scan_expr_impl(pf, where, columns, num_threads, use_bloom,
+                               device)
+    with pf._resilient_op(policy, report, "scan_expr"):
+        return _scan_expr_impl(pf, where, columns, num_threads, use_bloom,
+                               device, pol=pol, report=report)
 
 
 def _check_flat(pf, cols, what: str) -> None:
@@ -328,9 +336,22 @@ def _typed_empty(leaf):
         or np.uint8)
 
 
+class _SpanFailure:
+    """A span task's located data error, kept beside its siblings'
+    results so the row group can be dropped or the error raised."""
+
+    __slots__ = ("rg_index", "error")
+
+    def __init__(self, rg_index: int, error: Exception):
+        self.rg_index = rg_index
+        self.error = error
+
+
 def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
+                    pol=None, report=None,
                     timings: Optional[dict] = None) -> Dict[str, object]:
     from ..algebra.expr import Expr, prepare
+    from ..io.faults import read_context
     from ..io.planner import ScanPlanner, _collect_preds
     from ..io.search import BA_ARRAYS, read_row_range
 
@@ -342,7 +363,8 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
     out_cols = _output_columns(pf, pred_cols, columns)
     t0 = time.perf_counter()
     expr = prepare(where, pf.schema)
-    plan = ScanPlanner(pf, device=device).plan(expr, use_bloom=use_bloom)
+    plan = ScanPlanner(pf, device=device, policy=pol,
+                       report=report).plan(expr, use_bloom=use_bloom)
     fcols = sorted({p.path for p in _collect_preds(expr)})
     rg_base = np.zeros(len(pf.row_groups), np.int64)
     np.cumsum([rg.num_rows for rg in pf.row_groups[:-1]], out=rg_base[1:])
@@ -350,6 +372,10 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
     spans = [(d.rg_index, int(rg_base[d.rg_index]) + s, e - s)
              for d in plan.survivors for (s, e) in d.ranges]
     cand_rows = sum(count for _, _, count in spans)
+    rg_cand: Dict[int, int] = {}
+    for rg_i, _, count in spans:
+        rg_cand[rg_i] = rg_cand.get(rg_i, 0) + count
+    skip = pol is not None and pol.skip_corrupt
     t1 = time.perf_counter()
     admission = read_admission()
     bytes_per_row: Dict[tuple, float] = {}
@@ -368,8 +394,29 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
 
     def read_one(task):
         rg_i, start, count, c, form = task
-        with admission.admit(span_bytes(rg_i, c, count), tier="scan"):
-            return read_row_range(pf, c, start, count, aligned=form)
+        try:
+            with read_context(path=pf._path, row_group=rg_i, column=c):
+                with admission.admit(span_bytes(rg_i, c, count),
+                                     tier="scan"):
+                    return read_row_range(pf, c, start, count, aligned=form)
+        except DeadlineError:
+            raise
+        except CorruptedError as e:  # dropped or raised below
+            return _SpanFailure(rg_i, e)
+
+    def drop_bad_rgs(failures) -> set:
+        """Drop every span of each corrupt row group (a partial group
+        would misalign the filter and output columns) and record it; or
+        raise the first failure."""
+        if not skip:
+            raise failures[0].error
+        bad: Dict[int, Exception] = {}
+        for f in failures:
+            bad.setdefault(f.rg_index, f.error)
+        for rg_i in sorted(bad):
+            report.record_skip(rg_i, rows=rg_cand.get(rg_i, 0),
+                               error=bad[rg_i])
+        return set(bad)
 
     # phase 1: the filter columns' candidate spans, row-aligned, and the
     # exact predicate over them
@@ -378,6 +425,12 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
     res1 = _fan_out(read_one, tasks1, cand_rows * max(len(fcols), 1),
                     num_threads)
     k = len(fcols)
+    failures = [r for r in res1 if isinstance(r, _SpanFailure)]
+    if failures:
+        bad = drop_bad_rgs(failures)
+        keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
+        res1 = [res1[i * k + j] for i in keep for j in range(k)]
+        spans = [spans[i] for i in keep]
     envs = [{c: res1[i * k + j] for j, c in enumerate(fcols)}
             for i in range(len(spans))]
     masks = [expr_mask(expr, env, count)
@@ -398,6 +451,20 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
     cells2 = sum(b - a for t in trims if t is not None
                  for a, b in [t]) * max(len(read2_cols), 1)
     res2 = _fan_out(read_one, tasks2, cells2, num_threads)
+    failures = [r for r in res2 if isinstance(r, _SpanFailure)]
+    if failures:
+        bad = drop_bad_rgs(failures)
+        by_span, ti = {}, 0  # each span's phase-2 results
+        for si, trim in enumerate(trims):
+            if trim is not None:
+                by_span[si] = res2[ti:ti + len(read2_cols)]
+                ti += len(read2_cols)
+        keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
+        envs = [envs[i] for i in keep]
+        masks = [masks[i] for i in keep]
+        trims = [trims[i] for i in keep]
+        res2 = [r for i in keep if i in by_span for r in by_span[i]]
+        spans = [spans[i] for i in keep]
 
     # assembly
     parts: Dict[str, List] = {c: [] for c in out_cols}
@@ -466,6 +533,8 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
                 out[c] = vals
         else:
             out[c] = _typed_empty(pf.schema.leaf(c))
+    if report is not None and out_cols:
+        report.rows_read += len(out[out_cols[0]])
     if timings is not None:
         timings.update(
             plan_s=t1 - t0, phase1_s=t2 - t1,
@@ -521,15 +590,19 @@ def scan_files(pfs: Sequence, path: Optional[str] = None, lo=None, hi=None,
     row.  ``where`` takes a predicate tree (prepared once for the whole
     set, if the caller likes), else ``path`` with ``lo``/``hi``/``values``.
     ``devices`` (a mesh: a device, a list, or ``"cuda"``, every card, by
-    default) plans file ``i``'s bloom probe on ``devices[i % n]``.
-    ``policy``, ``report`` and ``skip_files`` (fault policies) are not
-    ported."""
+    default) plans file ``i``'s bloom probe on ``devices[i % n]``.  Each
+    file's row-group skips under a degraded ``policy`` fold into
+    ``report``; ``skip_files=True`` drops a file whose scan fails
+    outright, recorded with its full row count (its partial accounting
+    dropped, its retries kept), and needs a ``report``.  Deadlines and the
+    environment's errors always raise."""
+    from ..io.faults import NON_DATA_ERRORS, ReadReport
     from ..utils.pool import map_in_order
     from .mesh import resolve_mesh
 
-    _refuse_policy("the multi-file scan", policy, report)
-    if skip_files:
-        raise unsupported("scan_files(skip_files=True)", _POLICY_SLICE)
+    if skip_files and report is None:
+        raise ValueError("skip_files=True requires a report to account "
+                         "the dropped files")
     if (where is None) == (path is None):
         raise ValueError("pass exactly one of path (+ lo/hi/values) or "
                          "where= (a predicate tree)")
@@ -540,13 +613,38 @@ def scan_files(pfs: Sequence, path: Optional[str] = None, lo=None, hi=None,
     def one(item):
         i, pf = item
         d = devs[i % len(devs)]
-        if where is not None:
-            return scan_expr(pf, where, columns=columns, use_bloom=use_bloom,
-                             device=d)
-        return scan_filtered(pf, path, lo=lo, hi=hi, columns=columns,
-                             use_bloom=use_bloom, values=values, device=d)
+        sub = ReadReport() if report is not None else None
+        try:
+            if where is not None:
+                got = scan_expr(pf, where, columns=columns,
+                                use_bloom=use_bloom, device=d, policy=policy,
+                                report=sub)
+            else:
+                got = scan_filtered(pf, path, lo=lo, hi=hi, columns=columns,
+                                    use_bloom=use_bloom, values=values,
+                                    device=d, policy=policy, report=sub)
+        except DeadlineError:
+            raise
+        except NON_DATA_ERRORS:
+            raise
+        except (CorruptedError, OSError) as e:
+            if not skip_files:
+                raise
+            return None, sub, e
+        return got, sub, None
 
-    oks = map_in_order(one, list(enumerate(pfs)))
+    oks = []
+    for pf, (got, sub, err) in zip(pfs, map_in_order(
+            one, list(enumerate(pfs)))):
+        if got is None:
+            if sub is not None:
+                report.retries += sub.retries  # they happened
+            report.record_file_skip(pf._path or "<memory>",
+                                    rows=pf.num_rows, error=err)
+            continue
+        if report is not None and sub is not None:
+            report.merge(sub)
+        oks.append(got)
     if not oks:
         return {}
     return merge_scan_results(oks, list(oks[0]))
@@ -579,37 +677,62 @@ def scan(pf, path: str, lo=None, hi=None,
     the chosen route, hence the form, can change with the plan's size and
     the measured history.  A caller that needs one form calls
     :func:`scan_filtered` or :func:`scan_filtered_device`, or pins the
-    route."""
-    _refuse_policy("the routed scan", policy, report)
-    return _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device)
+    route.
+
+    ``policy``/``report``: the device attempt records into a scratch
+    report, merged only where its result is kept; on a fallback only its
+    retries carry over (the host scan records the skips again), and the
+    host scan runs on what is left of the deadline."""
+    return _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device,
+                        policy, report)
 
 
-def _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device):
+def _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device,
+                 policy=None, report=None):
+    import dataclasses
+
+    from ..io.faults import ReadReport
     from ..io.planner import route_history, route_scan
     from ..io.reader import resolve_device
 
     device = resolve_device(device)
+    pol = policy if policy is not None else pf.policy
     decision = route_scan(pf, path, lo=lo, hi=hi, columns=columns,
                           values=values, device=device)
     if decision.route == "device":
         t0 = time.monotonic()
+        scratch = ReadReport() if report is not None else None
         try:
             got = scan_filtered_device(pf, path, lo=lo, hi=hi,
                                        columns=columns, use_bloom=use_bloom,
-                                       values=values, device=device)
+                                       values=values, device=device,
+                                       policy=policy, report=scratch)
             if device.type == "cuda":  # the history times finished work
                 torch.cuda.synchronize(device)
             route_history().observe("device", decision.est_bytes,
                                     time.monotonic() - t0)
+            if report is not None:
+                report.merge(scratch)
             return got
         except ValueError as e:
             # only the device scan's documented refusals fall back
             if "use the host scan" not in str(e):
                 raise
+            if scratch is not None:
+                report.retries += scratch.retries
+        if pol is not None and pol.deadline_s is not None:
+            # the fallback continues the same scan, on the budget left
+            remaining = pol.deadline_s - (time.monotonic() - t0)
+            if remaining <= 0:
+                raise DeadlineError(
+                    "deadline exceeded during scan (device attempt spent "
+                    "the budget before falling back to the host scan)")
+            policy = dataclasses.replace(pol, deadline_s=remaining)
     t0 = time.monotonic()
     got = scan_filtered(pf, path, lo=lo, hi=hi, columns=columns,
                         use_bloom=use_bloom, values=values, device=device,
-                        num_threads=decision.pool_width)
+                        num_threads=decision.pool_width, policy=policy,
+                        report=report)
     route_history().observe("host", decision.est_bytes,
                             time.monotonic() - t0)
     return got
@@ -745,27 +868,34 @@ def stage_scan(pf, path: str, lo=None, hi=None,
     a decimal byte array or a PLAIN byte array, an IN-list needs a key of
     one 32-bit word or less, and a chunk the device route refuses cannot
     be scanned: each of these raises ``ValueError`` saying to use the host
-    scan.  ``policy`` and ``report`` (fault policies) are not ported."""
+    scan (never wrapped: the routed scan falls back on it).  ``policy``
+    and ``report`` cover the staging, where all the scan's IO happens:
+    preads retry under the policy, and under ``skip_row_group`` a row
+    group whose pages fail drops at staging, recorded with its candidate
+    rows."""
+    from ..io.faults import resolve_policy
     from ..io.prefetch import make_chunk_prefetcher
     from ..io.reader import resolve_device
 
-    _refuse_policy("the device scan", policy, report)
     if devices is not None:
         from .mesh import resolve_mesh
 
         devs = resolve_mesh(devices)
     else:
         devs = [resolve_device(device)]
-    pre = make_chunk_prefetcher(pf.source)
-    if pre is None:
-        return _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values,
-                                devs)
-    try:
-        with pf._source_override(pre):
+    pol, report = resolve_policy(pf, policy, report)
+    with pf._resilient_op(policy, report, "stage_scan"):
+        pre = make_chunk_prefetcher(pf.source)
+        if pre is None:
             return _stage_scan_impl(pf, path, lo, hi, columns, use_bloom,
-                                    values, devs, prefetcher=pre)
-    finally:
-        pre.close()
+                                    values, devs, pol=pol, report=report)
+        try:
+            with pf._source_override(pre):
+                return _stage_scan_impl(pf, path, lo, hi, columns, use_bloom,
+                                        values, devs, prefetcher=pre,
+                                        pol=pol, report=report)
+        finally:
+            pre.close()
 
 
 def _refuse(what: str) -> ValueError:
@@ -793,8 +923,9 @@ def _check_key(pf, path: str, out_cols: list, values) -> None:
 
 
 def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, devs,
-                     prefetcher=None) -> dict:
+                     prefetcher=None, pol=None, report=None) -> dict:
     from ..algebra.compare import normalize_probe
+    from ..io.faults import read_context
     from ..io.search import pages_and_base, plan_scan
     from .device_reader import _StagingBatch, build_plan, stage_plan
 
@@ -809,7 +940,8 @@ def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, devs,
     key_leaf = leaves[path]
     device = devs[0]
     plans = plan_scan(pf, path, lo=lo, hi=hi, use_bloom=use_bloom,
-                      values=values, device=device)
+                      values=values, device=device, policy=pol,
+                      report=report)
     rgs = pf.row_groups
     if prefetcher is not None:
         # only the surviving spans' chunks are read
@@ -823,22 +955,47 @@ def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, devs,
     probe = (sorted({normalize_probe(key_leaf, v) for v in values} - {None})
              if values is not None else None)
     keyf = _KeyFilter(key_leaf, lo, hi, probe, device)
+    skip = pol is not None and pol.skip_corrupt
+    failed: Dict[int, Exception] = {}  # row group -> its data error
+
+    def staging(rg_i: int, c: str):
+        """One column of a span: a data error is located (the device
+        scan's refusals, ``ValueError``, pass unwrapped)."""
+        return read_context(path=pf._path, row_group=rg_i, column=c,
+                            kinds=(CorruptedError, OSError))
+
+    def fail(rg_i: int, e: Exception) -> None:
+        if not skip:
+            raise e
+        failed.setdefault(rg_i, e)
+
     # each span's pages, and whether each column takes the host-ragged
     # form there, decided from the page headers before anything is planned
     spans_pages = []
     for plan in plans:
+        if plan.rg_index in failed:
+            continue
         rg = rgs[plan.rg_index]
         row_start, row_end = plan.first_row, plan.first_row + plan.row_count
         cols = {}
-        for c, leaf in leaves.items():
-            chunk = rg.column(leaf.column_index)
-            pages, first = pages_and_base(chunk, row_start, row_end)
-            kinds = (_data_page_kinds(pages)
-                     if leaf.physical_type == Type.BYTE_ARRAY else {True})
-            if True not in kinds and c == path:
-                raise _refuse(f"device scan key {c!r}: plain-encoded "
-                              "BYTE_ARRAY has no row-aligned device form")
-            cols[c] = (chunk, pages, row_start - first, kinds)
+        try:
+            for c, leaf in leaves.items():
+                with staging(plan.rg_index, c):
+                    chunk = rg.column(leaf.column_index)
+                    pages, first = pages_and_base(chunk, row_start, row_end)
+                    kinds = (_data_page_kinds(pages)
+                             if leaf.physical_type == Type.BYTE_ARRAY
+                             else {True})
+                if True not in kinds and c == path:
+                    raise _refuse(f"device scan key {c!r}: plain-encoded "
+                                  "BYTE_ARRAY has no row-aligned device "
+                                  "form")
+                cols[c] = (chunk, pages, row_start - first, kinds)
+        except DeadlineError:
+            raise
+        except CorruptedError as e:
+            fail(plan.rg_index, e)
+            continue
         spans_pages.append((plan, cols))
     # a column dictionary-encoded in one span and PLAIN in another takes
     # the host-ragged form in every span, so that its parts share one form
@@ -846,27 +1003,43 @@ def _stage_scan_impl(pf, path, lo, hi, columns, use_bloom, values, devs,
              if len({True in cols[c][3] for _, cols in spans_pages}) == 2}
     spans = []
     for si, (plan, cols) in enumerate(spans_pages):
+        if plan.rg_index in failed:
+            continue
         span_dev = devs[si % len(devs)]
         batch = _StagingBatch()
         per_col, staged, table = {}, {}, None
-        for c, (chunk, pages, trim, kinds) in cols.items():
-            # a span mixing both kinds of page is planned, and refused
-            if True not in kinds or (c in mixed and kinds == {True}):
-                per_col[c] = _host_ragged_span(chunk, pages, trim,
-                                               plan.row_count)
-                continue
-            try:
-                dplan = build_plan(chunk, pages=pages)
-                staged[c] = stage_plan(dplan, span_dev, batch.put)
-            except _Unsupported as e:
-                raise _refuse(f"device scan column {c!r}: {e}") from None
-            per_col[c] = [dplan, None, trim, chunk, pages]
-            if c == path and key_leaf.physical_type == Type.BYTE_ARRAY:
-                table = batch.put(keyf.verdicts(dplan.dictionary_host))
+        try:
+            for c, (chunk, pages, trim, kinds) in cols.items():
+                # a span mixing both kinds of page is planned, and refused
+                if True not in kinds or (c in mixed and kinds == {True}):
+                    with staging(plan.rg_index, c):
+                        per_col[c] = _host_ragged_span(chunk, pages, trim,
+                                                       plan.row_count)
+                    continue
+                try:
+                    with staging(plan.rg_index, c):
+                        dplan = build_plan(chunk, pages=pages)
+                        staged[c] = stage_plan(dplan, span_dev, batch.put)
+                except _Unsupported as e:
+                    raise _refuse(f"device scan column {c!r}: {e}") from None
+                per_col[c] = [dplan, None, trim, chunk, pages]
+                if c == path and key_leaf.physical_type == Type.BYTE_ARRAY:
+                    table = batch.put(keyf.verdicts(dplan.dictionary_host))
+        except DeadlineError:
+            raise
+        except CorruptedError as e:
+            fail(plan.rg_index, e)
+            continue
         (staged, table), _ = batch.commit((staged, table), span_dev)
         for c, got in staged.items():
             per_col[c][1] = got
         spans.append((plan, per_col, table))
+    if failed:  # a corrupt row group drops whole, its spans staged or not
+        for rg_i in sorted(failed):
+            report.record_skip(rg_i, rows=sum(p.row_count for p in plans
+                                              if p.rg_index == rg_i),
+                               error=failed[rg_i])
+        spans = [sp for sp in spans if sp[0].rg_index not in failed]
     return {"path": path, "out_cols": out_cols, "key": keyf,
             "spans": spans, "leaves": leaves, "device": device,
             "devices": devs}

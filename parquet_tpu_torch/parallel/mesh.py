@@ -521,7 +521,8 @@ class _FileStage:
 
 
 def _stage_dataset_file(dataset, i: int, columns, device: torch.device,
-                        threads: int) -> _FileStage:
+                        threads: int, policy=None, report=None
+                        ) -> _FileStage:
     """The host phase of file ``i``: the schema check, the footer's
     verdict, the chunks' byte ranges planned on the readahead prefetcher,
     and every chunk prescanned and staged in one batch with one copy to
@@ -530,12 +531,18 @@ def _stage_dataset_file(dataset, i: int, columns, device: torch.device,
     file or where reading the footer or staging the chunks raises
     ``CorruptedError`` or ``OSError`` (a library of the port that fails to
     build or load raises ``RuntimeError``, not caught).  A chunk the plan
-    refuses carries its error and decodes on the host route."""
+    refuses carries its error and decodes on the host route.  The
+    staging's preads run under ``policy`` (retries and its deadline), its
+    retries counted into ``report``."""
     from ..io.planner import device_encoding_supported
     from ..io.prefetch import make_chunk_prefetcher
 
+    from ..errors import DeadlineError
+
     try:
         pf = dataset.file(i)
+    except DeadlineError:
+        raise
     except (CorruptedError, OSError) as e:
         raise _HostRoute("error") from e
     dataset._check_schema(pf, dataset.paths[i])
@@ -559,9 +566,13 @@ def _stage_dataset_file(dataset, i: int, columns, device: torch.device,
                 stack.callback(pre.close)
                 stack.enter_context(pf._source_override(pre))
                 pre.plan_many(r.byte_range for r in chunks)
+            stack.enter_context(pf._resilient_op(policy, report))
             with host.native_thread_cap(threads):
                 st.preps = device_reader.prepare_chunks_batched(chunks,
                                                                 device)
+    except DeadlineError:
+        st.release()
+        raise
     except (CorruptedError, OSError) as e:
         st.release()
         raise _HostRoute("error") from e
@@ -594,9 +605,14 @@ def _decode_dataset_file(st: _FileStage) -> Dict[str, list]:
     return parts
 
 
-def read_dataset_device(dataset, columns, host_read, mesh=None):
+def read_dataset_device(dataset, columns, host_read, mesh=None,
+                        with_reports: bool = False, policy=None):
     """Each file of ``dataset`` as ``{path: [Column a row group]}``,
     yielded in file order; file ``i`` decodes on ``mesh[i % len(mesh)]``.
+    With ``with_reports`` each is the tuple ``(parts, report, rows,
+    error)`` of ``Dataset.read``'s per-file read instead: a file read here
+    yields a fresh :class:`~parquet_tpu_torch.io.faults.ReadReport` of its
+    retries and rows, and ``host_read`` returns the tuple itself.
 
     A file's stage and decode run as one shared-pool task on its device,
     with up to ``min(len(mesh), 4)`` files in flight, later ones running
@@ -608,7 +624,15 @@ def read_dataset_device(dataset, columns, host_read, mesh=None):
     ``host_read(i, device)`` and counted in ``ROUTE_REFUSALS``; any other
     error, and every error of a decode, raises at its file's turn.
     Closing the generator early waits out the files in flight and
-    releases their staged bytes."""
+    releases their staged bytes.
+
+    Under a ``policy`` the staging's preads retry under it, and a data
+    error of a file's decode also sends the file to ``host_read`` (the
+    caller's read under the policy, which skips a corrupt row group or
+    file as the policy says); deadlines and the environment's errors
+    always raise."""
+    from ..errors import DeadlineError
+    from ..io.faults import NON_DATA_ERRORS, ReadReport
     from ..io.planner import count_device_refusal
 
     devs = resolve_mesh(mesh)
@@ -618,10 +642,13 @@ def read_dataset_device(dataset, columns, host_read, mesh=None):
     inline = _pool.in_shared_pool()
 
     def stage_decode(i, device):
+        sub = ReadReport() if with_reports else None
         with _on(device):
-            st = _stage_dataset_file(dataset, i, columns, device, threads)
+            st = _stage_dataset_file(dataset, i, columns, device, threads,
+                                     policy, sub)
             try:
-                return st, _decode_dataset_file(st)
+                with st.pf._resilient_op(policy, sub):
+                    return st, _decode_dataset_file(st), sub
             except BaseException:
                 st.release()
                 raise
@@ -647,17 +674,30 @@ def read_dataset_device(dataset, columns, host_read, mesh=None):
                     futs[j] = submit(j)
                     if j > i:
                         _count("stage_overlapped")
+            reason = None
             try:
-                st, parts = futs.pop(i).result()
+                st, parts, sub = futs.pop(i).result()
             except _HostRoute as e:
-                count_device_refusal(e.reason)
+                reason = e.reason
+            except (DeadlineError, *NON_DATA_ERRORS):
+                raise
+            except (CorruptedError, OSError):
+                if policy is None:
+                    raise
+                reason = "error"
+            if reason is not None:
+                count_device_refusal(reason)
                 yield host_read(i, devs[i % len(devs)])
                 continue
             st.release()
             _count("files_sharded")
             if st.done is not None:  # the caller's stream after the decode
                 torch.cuda.current_stream(st.device).wait_event(st.done)
-            yield parts
+            if with_reports:
+                sub.rows_read += st.pf.num_rows
+                yield parts, sub, st.pf.num_rows, None
+            else:
+                yield parts
     finally:
         for f in futs.values():  # files abandoned in flight
             try:

@@ -23,6 +23,22 @@ KNOBS = {
         "device|cuda the device scan (a shape the device scan refuses "
         "still takes the host scan); anything else leaves the cost model "
         "to choose (io/planner.py::route_scan)"),
+    "PARQUET_TPU_TORCH_MMAP": (
+        "1", "0 opens a path with pread (io/source.py::FileSource) in "
+        "place of the memory map (io/source.py::as_source)"),
+    "PARQUET_TPU_TORCH_PREFETCH": (
+        "auto", "the read's chunk prefetcher: auto (advise over a mapped "
+        "file, else the ring), advise, ring, or off "
+        "(io/prefetch.py::prefetch_mode)"),
+    "PARQUET_TPU_TORCH_PREFETCH_WINDOW": (
+        "", "pins the prefetcher's window in bytes; unset: 8 MiB, or "
+        "the auto-tuner's (io/prefetch.py::PrefetchSource)"),
+    "PARQUET_TPU_TORCH_PREFETCH_DEPTH": (
+        "", "pins the windows kept in flight (ring) or advised (advise) "
+        "ahead of each plan's frontier; unset: 4, or the auto-tuner's"),
+    "PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE": (
+        "1", "0 keeps the ring's window and depth fixed; else they adapt "
+        "to the consumer's stalls (io/prefetch.py::prefetch_autotune)"),
     "PARQUET_TPU_TORCH_FOOTER_CACHE": (
         "256", "parsed-footer cache capacity in entries; 0 disables "
         "(io/cache.py::FOOTERS)"),

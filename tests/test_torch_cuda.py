@@ -1061,3 +1061,95 @@ def test_dataset_find_rows_on_card_matches_cpu(cuda_device, tmp_path):
                                        device=cuda_device)
     _same_hits(got, want, ["v"])
     assert got.counters["rows_matched"] == int((keys < 30_000).sum())
+
+
+# ---------------------------------------------------------------------------
+# reads through a faulty source
+# ---------------------------------------------------------------------------
+
+
+def _five_columns(path: str) -> None:
+    """Four row groups of dictionary, delta and nullable columns (both
+    unpack kernels run on the card)."""
+    rng = np.random.default_rng(9)
+    n = 40_000
+    pqt.write_table(
+        {"k": rng.integers(0, 500, n).astype(np.int64),
+         "cat": np.ma.masked_array(rng.integers(0, 50, n).astype(np.int32),
+                                   mask=rng.random(n) < 0.1),
+         "ts": np.cumsum(rng.integers(0, 1000, n)).astype(np.int64)}, path,
+        pqt.WriterOptions(row_group_size=10_000, column_encoding={
+            "k": Encoding.RLE_DICTIONARY, "cat": Encoding.RLE_DICTIONARY,
+            "ts": Encoding.DELTA_BINARY_PACKED}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["policy", "ring", "skip"])
+def test_fault_reads_on_card_match_the_clean_read(cuda_device, tmp_path,
+                                                  monkeypatch, case):
+    """A retried read (transient errors under a policy), the same through
+    the ring prefetcher, and a read that skips a corrupt row group, each
+    equal on the card to the clean read of the rows it keeps."""
+    path = str(tmp_path / "f.parquet")
+    _five_columns(path)
+    clean = pqt.ParquetFile(path).read(device=cuda_device)
+    rep = pqt.ReadReport()
+    if case == "skip":
+        m = pqt.ParquetFile(path).metadata.row_groups[2].columns[0].meta_data
+        off = m.dictionary_page_offset or m.data_page_offset
+        src = pqt.FaultInjectingSource(pqt.MmapSource(path),
+                                       flip_offsets=[off, off + 1, off + 2])
+        pol = pqt.FaultPolicy(backoff_s=0, on_corrupt="skip_row_group")
+        clean = pqt.ParquetFile(path).read(device=cuda_device,
+                                           row_groups=[0, 1, 3])
+    else:
+        if case == "ring":
+            monkeypatch.setenv("PARQUET_TPU_TORCH_PREFETCH", "ring")
+        src = pqt.FaultInjectingSource(pqt.MmapSource(path), seed=3,
+                                       error_rate=0.3,
+                                       max_consecutive_errors=2)
+        pol = pqt.FaultPolicy(max_retries=3, backoff_s=0)
+    clean = {n: c.to(torch.device("cpu")) for n, c in clean.items()}
+    pqt.reset_launches()
+    got = pqt.ParquetFile(src, policy=pol).read(device=cuda_device,
+                                                report=rep)
+    _same_columns(got, clean)
+    assert got["k"].values.device == cuda_device
+    assert pqt.LAUNCHES["unpack_bits_dense"] > 0
+    if case == "skip":
+        assert rep.row_groups_skipped == [2] and rep.rows_dropped == 10_000
+    else:
+        assert rep.ok and rep.retries > 0
+
+
+def _settled_allocated(device) -> int:
+    """Allocated card bytes once the blocks freed while waiting on another
+    stream's events are returned (a small allocation processes them)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.empty(1, device=device)
+    return torch.cuda.memory_allocated()
+
+
+@pytest.mark.cuda
+def test_deadline_read_on_card_then_a_clean_read(cuda_device, tmp_path):
+    """A read past its deadline raises ``DeadlineError`` and leaves no
+    thread and no allocated card memory behind; the next read is equal."""
+    import threading
+
+    path = str(tmp_path / "f.parquet")
+    _five_columns(path)
+    clean = pqt.ParquetFile(path).read(device=cuda_device)
+    threads, allocated = (threading.active_count(),
+                          _settled_allocated(cuda_device))
+    pf = pqt.ParquetFile(pqt.FaultInjectingSource(pqt.MmapSource(path),
+                                                  latency_s=0.05))
+    with pytest.raises(pqt.DeadlineError):
+        pf.read(device=cuda_device,
+                policy=pqt.FaultPolicy(deadline_s=0.005, backoff_s=0))
+    assert threading.active_count() == threads
+    assert _settled_allocated(cuda_device) == allocated
+    _same_columns(pqt.ParquetFile(path).read(device=cuda_device),
+                  {n: c.to(torch.device("cpu")) for n, c in clean.items()})

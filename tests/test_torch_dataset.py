@@ -516,30 +516,66 @@ def test_cuda_by_default(mixed, monkeypatch):
 
 
 @pytest.mark.parametrize("call,slice_name", [
-    ("iter_batches", "stream"), ("scan_policy", "fault-policy slice"),
-    ("find_rows_policy", "fault policies"), ("aggregate", "aggregation"),
-    ("policy", "fault policies"), ("report", "fault policies"),
+    ("iter_batches", "stream"), ("aggregate", "aggregation"),
     ("snapshot_version", "manifest"), ("_file_stats", "manifest"),
-    ("to_arrow", "arrow interop"), ("init_policy", "fault policies")])
+    ("to_arrow", "arrow interop")])
 def test_refused_methods_name_their_slice(mixed, call, slice_name):
     ds = pqt.Dataset(mixed["paths"][:1])
     run = {
         "iter_batches": lambda: ds.iter_batches(),
-        "scan_policy": lambda: ds.scan("plain_i64", lo=1, device="cpu",
-                                       policy=object()),
-        "find_rows_policy": lambda: ds.find_rows("plain_i64", [1],
-                                                 device="cpu",
-                                                 policy=object()),
         "aggregate": lambda: ds.aggregate([]),
-        "policy": lambda: ds.read(device="cpu", policy=object()),
-        "report": lambda: ds.prune("plain_i64", lo=1, report=object()),
         "snapshot_version": lambda: ds.snapshot_version,
         "_file_stats": lambda: ds._file_stats,
         "to_arrow": lambda: pqt.ShardedTable({}, {}, (), ()).to_arrow(),
-        "init_policy": lambda: pqt.Dataset(mixed["paths"], policy=object()),
     }[call]
     with pytest.raises(NotImplementedError, match=slice_name):
         run()
+
+
+@pytest.mark.parametrize("call", ["scan_policy", "find_rows_policy",
+                                  "policy", "report", "init_policy"])
+def test_lifted_policy_calls_match_jax(mixed, call):
+    """The calls that raised ``NotImplementedError`` before the fault
+    layer was ported: on clean files each gives the JAX package's result
+    under the same policy or report, and the report records no loss."""
+    paths = mixed["paths"]
+    pol = pqt.FaultPolicy(backoff_s=0, on_corrupt="skip_row_group")
+    jpol = parquet_tpu.FaultPolicy(backoff_s=0, on_corrupt="skip_row_group")
+    rep, jrep = pqt.ReadReport(), parquet_tpu.ReadReport()
+    port, ref = pqt.Dataset(paths), parquet_tpu.Dataset(paths)
+    if call == "scan_policy":
+        from tests.test_torch_host_scan import _same
+
+        _same(port.scan("plain_i64", lo=100, device="cpu", policy=pol,
+                        report=rep),
+              ref.scan("plain_i64", lo=100, policy=jpol, report=jrep),
+              call)
+    elif call == "find_rows_policy":
+        keys = [5, 1700, 4000, -3]
+        got = port.find_rows("plain_i64", keys, columns=["nul_f"],
+                             device="cpu", policy=pol, report=rep)
+        want = ref.find_rows("plain_i64", keys, columns=["nul_f"],
+                             policy=jpol, report=jrep)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.rows, w.rows)
+            np.testing.assert_array_equal(g.values["nul_f"],
+                                          w.values["nul_f"])
+        assert got.report is rep
+    elif call == "policy":
+        got = port.read(device=EIGHT, policy=pol, report=rep)
+        _same_table(got, ref.read(policy=jpol, report=jrep), call)
+        assert got.report is rep
+    elif call == "report":
+        assert port.prune("plain_i64", lo=1600, report=rep) == \
+            ref.prune("plain_i64", lo=1600, report=jrep)
+    else:
+        got = pqt.Dataset(paths, policy=pol).read(device="cpu")
+        want = parquet_tpu.Dataset(paths, policy=jpol).read()
+        _same_table(got, want, call)
+        rep, jrep = got.report, want.report
+    for r in (rep, jrep):
+        assert r.ok and r.rows_dropped == 0
+    assert rep.rows_read == jrep.rows_read
 
 
 def test_map_in_order():

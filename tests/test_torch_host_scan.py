@@ -288,11 +288,17 @@ def test_validation_and_refusals():
         pqt.scan_expr(pf, col("v") >= 1, columns=["nope"], device=CPU)
     with pytest.raises(TypeError, match="Expr tree"):
         pqt.scan_expr(pf, "v >= 1", device=CPU)
-    for kw in ({"policy": object()}, {"report": object()}):
-        with pytest.raises(NotImplementedError, match="fault-policy"):
-            pqt.scan_filtered(pf, "v", lo=1, device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="fault-policy"):
+    # a policy and a report are taken (io/faults.py), and change nothing
+    # on clean bytes; skip_files without a report is refused, as in jax
+    plain = pqt.scan_filtered(pf, "v", lo=1, device=CPU)
+    for kw in ({"policy": pqt.FaultPolicy(backoff_s=0)},
+               {"report": pqt.ReadReport()}):
+        _same(pqt.scan_filtered(pf, "v", lo=1, device=CPU, **kw), plain,
+              str(kw))
+    with pytest.raises(ValueError, match="requires a report"):
         pqt.scan_files([pf], "v", lo=1, devices=[CPU], skip_files=True)
+    with pytest.raises(ValueError, match="requires a report"):
+        jhs.scan_files([jpf], "v", lo=1, skip_files=True)
     with pytest.raises(ValueError, match="exactly one"):
         pqt.scan_files([pf], devices=[CPU])
 

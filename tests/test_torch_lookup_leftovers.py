@@ -2,7 +2,9 @@
 CPU: ``find_rows`` over BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY, BOOLEAN and
 byte-array DECIMAL key and value columns (files from the port's writer,
 the JAX package's writer and pyarrow, with nulls), byte-array bloom
-filters read across the two writers, key sharding, ``Dataset.find_rows``
+filters read across the two writers, leaves under optional structs as
+keys and values (a repeated column raises as in the reference), a batch
+the reference shards, ``Dataset.find_rows``
 and the C++ ``pq_xxh64_batch``.  Hits (rows, values, validity) and
 counters are held exact.  Every test starts from cleared caches in both
 packages, and the lookups run on in-memory bytes unless a path is the
@@ -284,15 +286,86 @@ def test_byte_array_bloom_filters_cross_writers(direction):
     assert got.counters["keys_pruned_bloom"] >= 30
 
 
-def test_nested_key_and_value_columns_still_refused():
+def _struct_file(writer: str, seed: int) -> tuple:
+    """(bytes, ids): an optional struct ``user {id INT64 optional, score
+    DOUBLE}`` with 10 % null structs and 5 % null ids, and a flat ``k``,
+    three row groups with a page index; the port's writer adds a bloom
+    filter on ``user.id``."""
+    from parquet_tpu_torch.format.enums import Type
+    from parquet_tpu_torch.schema import schema as S
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 500, N).astype(np.int64)
+    score = rng.random(N)
+    null_struct = rng.random(N) < 0.1
+    null_id = (rng.random(N) < 0.05) & ~null_struct
+    buf = io.BytesIO()
+    if writer == "pyarrow":
+        user = pa.StructArray.from_arrays(
+            [pa.array(ids, mask=null_id), pa.array(score)],
+            names=["id", "score"], mask=pa.array(null_struct))
+        papq.write_table(pa.table({"user": user, "k": pa.array(
+            np.arange(N, dtype=np.int64))}), buf, row_group_size=RG,
+            write_page_index=True, data_page_size=512)
+        return buf.getvalue(), ids
+    schema = S.message("m", [
+        S.optional(S.group("user", [S.optional(S.leaf("id", Type.INT64)),
+                                    S.leaf("score", Type.DOUBLE)])),
+        S.leaf("k", Type.INT64)])
+    id_def = np.where(null_struct, 0, np.where(null_id, 1, 2))
+    score_def = np.where(null_struct, 0, 1)
+    pqt.write_table(
+        {"user.id": pqt.ColumnData(values=ids[id_def == 2],
+                                   def_levels=id_def),
+         "user.score": pqt.ColumnData(values=score[score_def == 1],
+                                      def_levels=score_def),
+         "k": np.arange(N, dtype=np.int64)}, buf,
+        pqt.WriterOptions(row_group_size=RG, data_page_size=512,
+                          bloom_filters={"user.id": 10}), schema=schema)
+    return buf.getvalue(), ids
+
+
+@pytest.mark.parametrize("writer", ["port", "pyarrow"])
+def test_struct_leaf_key_matches_jax(writer):
+    """A leaf under an optional struct is a key: a null id or a null
+    struct never matches; hits, values and counters are the reference's
+    (bloom pruning included where the port's writer wrote a filter)."""
+    data, ids = _struct_file(writer, 12)
+    keys = [int(v) for v in ids[:60:3]] + [10 ** 6, 501, -1]
+    got, want = _both(data, "user.id", keys, ["user.score", "k"])
+    _assert_same(got, want, ["user.score", "k"])
+    assert got.counters["rows_matched"] > 0
+    if writer == "port":
+        assert got.counters["keys_pruned_bloom"] > 0
+
+
+@pytest.mark.parametrize("writer", ["port", "pyarrow"])
+def test_struct_leaf_values_match_jax(writer):
+    """Struct leaves as value columns: a row whose struct or id is null
+    has validity False, as in the reference."""
+    data, _ = _struct_file(writer, 13)
+    keys = list(range(0, N, 7)) + [N + 5]
+    got, want = _both(data, "k", keys, ["user.id", "user.score"])
+    _assert_same(got, want, ["user.id", "user.score"])
+    valid = np.concatenate([h.validity["user.id"] for h in got
+                            if h.num_rows])
+    assert not valid.all() and valid.any()
+
+
+@pytest.mark.parametrize("where", ["key", "value"])
+def test_repeated_key_or_value_column_raises_as_jax(where):
     buf = io.BytesIO()
     papq.write_table(pa.table({"l": pa.array([[1, 2], None, [3]]),
                                "k": pa.array([1, 2, 3])}), buf)
-    pf = pqt.ParquetFile(buf.getvalue())
-    for key, columns in (("l.list.element", None), ("k", ["l.list.element"])):
-        with pytest.raises(NotImplementedError,
-                           match="nested key and value columns"):
-            pf.find_rows(key, [1], columns=columns, device=CPU)
+    key, columns = (("l.list.element", None) if where == "key"
+                    else ("k", ["l.list.element"]))
+    with pytest.raises(ValueError, match="nested") as mine:
+        pqt.ParquetFile(buf.getvalue()).find_rows(key, [1], columns=columns,
+                                                  device=CPU)
+    with pytest.raises(ValueError, match="nested") as theirs:
+        parquet_tpu.ParquetFile(buf.getvalue()).find_rows(key, [1],
+                                                          columns=columns)
+    assert type(mine.value) is type(theirs.value)
 
 
 # ---------------------------------------------------------------------------

@@ -428,6 +428,6 @@ def test_scan_filtered_sharded_refuses_a_rows_column():
     with pytest.raises(ValueError, match="#rows"):
         pqt.scan_filtered_sharded(pqt.ParquetFile(raw), "k", lo=1,
                                   mesh=[CPU] * 2)
-    with pytest.raises(NotImplementedError, match="fault-policy"):
+    with pytest.raises(ValueError, match="#rows"):
         pqt.scan_filtered_sharded(pqt.ParquetFile(raw), "k", lo=1,
-                                  mesh=[CPU], policy=object())
+                                  mesh=[CPU], policy=pqt.FaultPolicy())

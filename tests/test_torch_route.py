@@ -412,5 +412,7 @@ def test_other_errors_of_the_device_route_raise(monkeypatch):
     monkeypatch.setattr(ths, "scan_filtered_device", broken)
     with pytest.raises(ValueError, match="a fault of the device scan"):
         pqt.scan(pf, "k", lo=1, device=CPU)
-    with pytest.raises(NotImplementedError, match="fault-policy"):
-        pqt.scan(pf, "k", lo=1, device=CPU, policy=object())
+    with pytest.raises(ValueError, match="a fault of the device scan"):
+        pqt.scan(pf, "k", lo=1, device=CPU,
+                 policy=pqt.FaultPolicy(on_corrupt="skip_row_group"),
+                 report=pqt.ReadReport())

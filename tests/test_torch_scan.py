@@ -566,12 +566,33 @@ def test_refuses_a_chunk_the_device_route_cannot_decode():
                                  columns=["s"])
 
 
-@pytest.mark.parametrize("kw", [dict(policy=object()),
-                                dict(report=object())])
+@pytest.mark.parametrize("kw", [dict(policy="policy"),
+                                dict(report="report")])
 def test_policy_and_report_are_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="fault-policy slice"):
-        pqt.scan_filtered_device(pqt.ParquetFile(lineitem()), "l_shipdate",
-                                 lo=9000, device=CPU, **kw)
+    """A policy or a report is taken now (``io/faults.py``): on clean
+    bytes the device scan under either gives the rows of the scan
+    without, as the JAX package's does, and the report records no loss."""
+    import parquet_tpu
+
+    cols = ["l_quantity", "l_extendedprice"]
+    if "policy" in kw:
+        mine = {"policy": pqt.FaultPolicy(backoff_s=0)}
+        theirs = {"policy": parquet_tpu.FaultPolicy(backoff_s=0)}
+    else:
+        mine = {"report": pqt.ReadReport()}
+        theirs = {"report": parquet_tpu.ReadReport()}
+    got = pqt.scan_filtered_device(pqt.ParquetFile(lineitem()), "l_shipdate",
+                                   lo=9000, columns=cols, device=CPU, **mine)
+    want = jhs.scan_filtered_device(JParquetFile(lineitem()), "l_shipdate",
+                                    lo=9000, columns=cols, **theirs)
+    for c, t in zip(cols, ("INT32", "DOUBLE")):
+        gv, gval = _port_form(got[c], t)
+        wv, wval = _ref_form(want[c], _NP[t])
+        assert (gval is None) == (wval is None), c
+        assert _same_values(gv, wv, gval), c
+    if "report" in kw:
+        assert mine["report"].ok and theirs["report"].ok
+        assert mine["report"].rows_dropped == theirs["report"].rows_dropped
 
 
 def test_bloom_pruned_chunk_is_never_read(tmp_path):
