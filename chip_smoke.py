@@ -1,5 +1,6 @@
 """Drive parquet_tpu_torch's device read, batched point lookups, device
-scan and multi-file and sharded reads on one CUDA card and check them.
+scan, multi-file and sharded reads and streamed reads on one CUDA card
+and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
@@ -206,6 +207,31 @@ Phases, each fatal on failure:
    rest equal to the per-file reads); and the walls, best of 3 warm, of
    the clean, policy, retry, ring and advise reads
    (``{"resilience": ...}``);
+5h. streamed reads (``iter_batches(device="cuda")``): the 5-column file
+   at 65,536, 1,048,576 and 100,000 (``strict_batch_rows``) rows a batch,
+   lineitem at 65,536 and 1,048,576, cfg 4 and the mixed nested file at
+   65,536, and ``Dataset.iter_batches`` over phase 5c's 8 parts at
+   65,536.  Each batch is held as it arrives against the matching rows of
+   the whole read, kept on the host (every leaf's values, validity, list
+   offsets and list validity of every level, struct def levels), and no
+   batch is held; the batches' row counts follow the JAX package's rule;
+   no page span takes the host route or the Python walk;
+   ``unpack_bits_dense`` and ``dict_unpack_gather`` launch in the
+   5-column and mixed nested drains (``unpack_bits_dense`` in cfg 4's);
+   the card's allocated bytes are back at the end of each drain; the
+   5-column drain at 65,536 peaks under a quarter of the whole read's
+   device bytes, and it and lineitem's read no chunk whole (a spy on the
+   source: each pread within ``pages_streamed``'s window bound, or one
+   page and its header).  Each drain's best of 3 warm walls beside the
+   whole read's (in turns), its pulls (page spans decoded), syncs and
+   launches (``{"stream": [...]}``); lineitem's drain again under
+   ``PARQUET_TPU_TORCH_MMAP_DROPBEHIND=1``, equal, with
+   ``bytes_dropbehind > 0``; and the page CRCs the writer now writes:
+   one byte flipped mid-page in row group 2 of the 5-column file makes
+   the read and the drain under ``ReadOptions(verify_crc=True)`` raise
+   ``CorruptedError`` naming the CRC, ``skip_row_group`` drops that row
+   group alone (the rest equal), and the clean file's read with and
+   without the check, best of 3 warm each (``{"crc": ...}``);
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -241,7 +267,11 @@ Phases, each fatal on failure:
    1 MiB from pageable memory and create no pinned block (the trace's
    copies and ``cudaHostAlloc`` and ``cudaMalloc`` calls are logged).
    They come last: after a window that long the profiler can drop every
-   event of phase 6's short ones.  Then a ``{"pipeline_breakdown": ...}``
+   event of phase 6's short ones.  A ``{"stream_breakdown": ...}`` line
+   follows: the 5-column drain at 65,536 rows twice, each step's seconds
+   (a pull's plan and staging, its decode, its row starts, the slices, a
+   batch's concatenation), and one drain under the profiler for the
+   device's idle share.  Then a ``{"pipeline_breakdown": ...}``
    line: one serial and one pipelined read of each path with each step's
    seconds summed over the threads.  A ``{"path_phases": ...}`` line adds
    up, for the 5-column file, lineitem, enc v1-Snappy and cfg 4, the
@@ -3389,6 +3419,512 @@ def resilience_path(card: str, read: dict, scan: dict, look_path: str,
 
 
 # ---------------------------------------------------------------------------
+# phase 5h: streamed reads on the card
+# ---------------------------------------------------------------------------
+
+STREAM_WARM = 3
+STREAM_MEMORY_SHARE = 0.25  # a drain's peak bytes under this share of a read
+STREAM_CRC_ROW_GROUP = 2  # the row group phase 5h's CRC check corrupts
+# the kernels each drain must launch (lineitem's indexes are bit-packed in
+# some row groups only, the dataset's in some parts)
+STREAM_KERNELS = {"5col": READ_KERNELS, "nest_mix": READ_KERNELS,
+                  "cfg4": ("unpack_bits_dense",)}
+
+
+class SpySource(pq.Source):
+    """A source that records every read it passes on, ``(offset, size)``;
+    ``inner`` is the file's source (a prefetcher still finds the map)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.reads = []
+
+    @property
+    def path(self):
+        return getattr(self.inner, "path", None)
+
+    def pread(self, offset: int, size: int):
+        self.reads.append((offset, size))
+        return self.inner.pread(offset, size)
+
+    def pread_view(self, offset: int, size: int):
+        self.reads.append((offset, size))
+        return self.inner.pread_view(offset, size)
+
+    def size(self) -> int:
+        return self.inner.size()
+
+    def close(self) -> None:
+        self.inner.close()
+
+
+def expected_batches(rg_rows: list, batch_rows: int, strict: bool) -> list:
+    """The row counts of a drain's batches by the JAX package's rule: a
+    batch ends at ``batch_rows`` rows, or at a row-group boundary once at
+    least half full (not under ``strict``)."""
+    out, pending = [], 0
+    for rows in rg_rows:
+        while rows:
+            take = min(batch_rows - pending, rows)
+            pending += take
+            rows -= take
+            if pending >= batch_rows or (not strict and rows == 0
+                                         and pending * 2 >= batch_rows):
+                out.append(pending)
+                pending = 0
+    return out + ([pending] if pending else [])
+
+
+class HostRows:
+    """A whole read's columns on the host, cut by rows with numpy alone:
+    each repeated level's offsets, then validity and value starts by a
+    prefix count (the oracle of a streamed batch)."""
+
+    def __init__(self, cols: dict):
+        self.cols = {}
+        for name, col in cols.items():
+            got = col.materialize_host()
+            values = got["values"] if isinstance(got, dict) else got
+            validity = (None if col.validity is None
+                        else col.validity.cpu().numpy())
+            starts = None if validity is None else np.concatenate(
+                [[0], np.cumsum(validity)])
+            self.cols[name] = (
+                values, validity, starts,
+                [o.cpu().numpy() for o in col.list_offsets],
+                [v.cpu().numpy() for v in col.list_validity],
+                col.def_levels)
+
+    def rows(self, name: str, r0: int, r1: int) -> tuple:
+        values, validity, starts, offs, lval, defs = self.cols[name]
+        lo, hi = r0, r1
+        got_offs, got_lval = [], []
+        for o, lv in zip(offs, lval):
+            got_offs.append(o[lo:hi + 1] - o[lo])
+            got_lval.append(lv[lo:hi])
+            lo, hi = int(o[lo]), int(o[hi])
+        v0, v1 = (lo, hi) if starts is None else (int(starts[lo]),
+                                                  int(starts[hi]))
+        if isinstance(values, tuple):
+            data, o = values
+            values = (data[o[v0]:o[v1]], o[v0:v1 + 1] - o[v0])
+        else:
+            values = values[v0:v1]
+        return (values, None if validity is None else validity[lo:hi],
+                got_offs, got_lval,
+                None if defs is None or offs else defs[r0:r1])
+
+
+def batch_rows_of(batch: dict) -> int:
+    col = next(iter(batch.values()))
+    return (col.list_offsets[0].shape[0] - 1 if col.list_offsets
+            else col.num_slots)
+
+
+def check_batch(batch: dict, want: HostRows, r0: int, what: str) -> int:
+    """A streamed batch against rows ``[r0, r0 + its rows)`` of the whole
+    read, column by column; returns its rows."""
+    n = batch_rows_of(batch)
+    if list(batch) != list(want.cols):
+        raise AssertionError(f"{what}: columns {list(batch)}")
+    for name, col in batch.items():
+        on = (col.values if col.values is not None
+              else col.dict_indices).device
+        if on.type != torch.device(DEVICE).type:
+            raise AssertionError(f"{what}: {name} decoded on {on}")
+        values, validity, offs, lval, defs = want.rows(name, r0, r0 + n)
+        got = col.materialize_host()
+        gv = got["values"] if isinstance(got, dict) else got
+        ok = _equal(gv, values) and _mask_equal(col.validity, validity) \
+            and len(col.list_offsets) == len(offs)
+        for k, o in enumerate(offs):
+            ok = ok and np.array_equal(col.list_offsets[k].cpu().numpy(), o)
+            ok = ok and _mask_equal(col.list_validity[k], lval[k])
+        if defs is not None and col.def_levels is not None:
+            ok = ok and np.array_equal(col.def_levels, defs)
+        if not ok:
+            raise AssertionError(f"{what}: {name} differs from the whole "
+                                 f"read at rows [{r0}, {r0 + n})")
+    return n
+
+
+def row_group_rows(path: str) -> list:
+    return [rg.num_rows for rg in pq.ParquetFile(path).row_groups]
+
+
+def window_bound(chunk) -> int:
+    """The largest pread ``pages_streamed`` may make of ``chunk``: its
+    window, or one page and its header where a page is larger."""
+    _, size = chunk.byte_range
+    rows = chunk.page_table().rows
+    page = int((rows[:, host.PG_DATA_POS] + rows[:, host.PG_COMP]
+                - rows[:, host.PG_HEADER_POS]).max())
+    return max(max(min(1 << 20, size // 16), 1 << 16), page)
+
+
+def check_preads(path: str, reads: list, what: str) -> dict:
+    """No pread of a drain covers a whole chunk; each is within the
+    window bound of the chunk it reads."""
+    f = pq.ParquetFile(path)
+    chunks = [rg.column(i) for rg in f.row_groups
+              for i in range(len(f.schema.leaves))]
+    spans = sorted((c.byte_range[0], c.byte_range[1], window_bound(c))
+                   for c in chunks)
+    starts = [s for s, _, _ in spans]
+    import bisect
+
+    worst = 0.0
+    for off, size in reads:
+        i = bisect.bisect_right(starts, off) - 1
+        start, csize, limit = spans[i]
+        if off + size > start + csize:
+            raise AssertionError(f"{what}: a pread of [{off}, {off + size})"
+                                 " runs past its chunk")
+        if size >= csize and csize > limit:
+            raise AssertionError(f"{what}: a pread covers a whole chunk")
+        if size > limit:
+            raise AssertionError(f"{what}: a pread of {size} bytes over "
+                                 f"the bound {limit}")
+        worst = max(worst, size / limit)
+    return {"preads": len(reads), "largest": max(s for _, s in reads),
+            "largest_over_bound": worst}
+
+
+def drain(f, batch_rows: int, strict: bool = False, **kw):
+    """The batches of one drain of ``f`` (a file or a dataset), on the
+    card."""
+    return f.iter_batches(batch_rows=batch_rows, strict_batch_rows=strict,
+                          device=DEVICE, **kw)
+
+
+def consume(batches, sync: bool = True) -> int:
+    """Pull every batch and drop it: the drain's own work (then a
+    synchronize, unless ``sync`` is false)."""
+    n = 0
+    for b in batches:
+        n += batch_rows_of(b)
+    if sync:
+        torch.cuda.synchronize()
+    return n
+
+
+class WholeRead:
+    """A file's (or a dataset's) whole read on the card, the reference of
+    its drains: its columns kept on the host (:class:`HostRows`), its
+    rows, its row groups' rows and its peak device bytes above those
+    allocated before it."""
+
+    def __init__(self, path):
+        self.path = path
+        self.dataset = isinstance(path, list)
+        settled = settled_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        whole = self.read()
+        torch.cuda.synchronize()
+        self.peak = torch.cuda.max_memory_allocated() - settled
+        self.rows = batch_rows_of(whole)
+        self.host = HostRows(whole)
+        del whole
+        self.rg_rows = ([row_group_rows(p) for p in path] if self.dataset
+                        else [row_group_rows(path)])
+
+    def read(self):
+        if self.dataset:
+            return pq.Dataset(self.path).read(device=DEVICE)
+        return pq.ParquetFile(self.path).read(device=DEVICE)
+
+    def open(self):
+        return (pq.Dataset(self.path) if self.dataset
+                else pq.ParquetFile(self.path))
+
+
+def checked_drain(f, ref: WholeRead, batch_rows: int, strict: bool,
+                  what: str) -> list:
+    """Drain ``f`` on the card, each batch held as it arrives against the
+    whole read's rows (the checks outside the count of synchronizing
+    calls: the sync debug mode is off while they run), none kept; the
+    batches' row counts."""
+    sizes, at = [], 0
+    for batch in drain(f, batch_rows, strict):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            n = check_batch(batch, ref.host, at, what)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        sizes.append(n)
+        at += n
+        del batch
+    return sizes
+
+
+def stream_entry(card: str, name: str, ref: WholeRead, batch_rows: int,
+                 strict: bool = False, spy: bool = False,
+                 memory: bool = False) -> dict:
+    """One drain of phase 5h: run once checked (:func:`checked_drain`;
+    its row counts by the rule, no host route, the kernels launched, the
+    card's allocated bytes back at the end, its synchronizing calls
+    counted), its preads spied on where ``spy``, its peak device bytes
+    above its start held under :data:`STREAM_MEMORY_SHARE` of the whole
+    read's where ``memory``; then the best of :data:`STREAM_WARM` warm
+    drains beside as many warm whole reads, in turns."""
+    expect = [n for rgs in ref.rg_rows
+              for n in expected_batches(rgs, batch_rows, strict)]
+    f = ref.open()
+    if spy:
+        f.source = f._base_source = SpySource(f.source)
+    pq.reset_launches()
+    reset_routes()
+    pq.reset_stream()
+    start = settled_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sizes = []
+    what = f"{name} at {batch_rows}"
+    syncs = count_syncs(lambda: sizes.extend(checked_drain(
+        f, ref, batch_rows, strict, what)))
+    peak = torch.cuda.max_memory_allocated() - start
+    left = settled_allocated() - start
+    launches = dict(pq.LAUNCHES)
+    stream = dict(pq.STREAM)
+    if sizes != expect or sum(sizes) != ref.rows:
+        raise AssertionError(f"{what}: batches {sizes[:8]}... "
+                             f"({len(sizes)}, {sum(sizes)} rows), the rule "
+                             f"gives {expect[:8]}... ({len(expect)})")
+    no_host_route(f"the {what} drain")
+    if stream["host_pulls"]:
+        raise AssertionError(f"{what}: {stream['host_pulls']} page spans "
+                             "took the host route")
+    for kernel in STREAM_KERNELS.get(name, ()):
+        if launches[kernel] == 0:
+            raise AssertionError(f"the {what} drain launched no {kernel}")
+    if left:
+        raise AssertionError(f"the {what} drain left {left} bytes "
+                             "allocated on the card")
+    if memory and peak >= STREAM_MEMORY_SHARE * ref.peak:
+        raise AssertionError(f"the {what} drain peaked at {peak} bytes, "
+                             f"the whole read at {ref.peak}")
+    pre = check_preads(ref.path, f.source.reads, what) if spy else None
+
+    walls, read_walls = [], []
+    for _ in range(STREAM_WARM):  # in turns, on one card
+        t0 = time.perf_counter()
+        consume(drain(ref.open(), batch_rows, strict))
+        walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ref.read()
+        torch.cuda.synchronize()
+        read_walls.append(time.perf_counter() - t0)
+        del out
+    best, best_read = min(walls), min(read_walls)
+    return {"file": name, "batch_rows": batch_rows, "strict": strict,
+            "rows": ref.rows, "batches": len(sizes),
+            "pulls": stream["pulls"], "best_warm_s": best, "warm_s": walls,
+            "rows_per_s": ref.rows / best, "read_best_warm_s": best_read,
+            "read_rows_per_s": ref.rows / best_read,
+            "drain_over_read": best / best_read,
+            "syncs": syncs["count"], "syncs_by_line": syncs["by_line"],
+            "launches": {k: launches[k] for k in READ_KERNELS},
+            "peak_bytes": peak, "read_peak_bytes": ref.peak,
+            "peak_share": peak / ref.peak if ref.peak else None,
+            "preads": pre, "card": card}
+
+
+class StageTimes:
+    """Seconds and calls of the streamed read's steps inside the block: a
+    pull's plan and staging (``device_reader._prepare``) and device decode
+    (``decode_staged``), its row starts (``stream.piece_from_column``),
+    the slices (``_slice_rows``) and a batch's concatenation
+    (``_concat_pending``)."""
+
+    def __init__(self):
+        from parquet_tpu_torch.io import stream
+
+        self._targets = {"prepare": (device_reader, "_prepare"),
+                         "decode": (device_reader, "decode_staged"),
+                         "piece": (stream, "piece_from_column"),
+                         "slice": (stream, "_slice_rows"),
+                         "concat": (stream, "_concat_pending")}
+        self.seconds = dict.fromkeys(self._targets, 0.0)
+        self.calls = dict.fromkeys(self._targets, 0)
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def __enter__(self):
+        for name, (owner, attr) in self._targets.items():
+            real = getattr(owner, attr)
+
+            def timed(*a, real=real, name=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **k)
+                finally:
+                    with self._lock:
+                        self.seconds[name] += time.perf_counter() - t0
+                        self.calls[name] += 1
+
+            self._saved.append((owner, attr, real))
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, real in self._saved:
+            setattr(owner, attr, real)
+        self._saved = []
+
+
+def stream_breakdown(card: str, path: str, batch_rows: int = 65_536) -> dict:
+    """The 5-column drain at ``batch_rows`` twice, each with the seconds of
+    its steps (:class:`StageTimes`); then one drain under the profiler,
+    for the device's idle share."""
+    runs = []
+    for _ in range(2):
+        with StageTimes() as st:
+            t0 = time.perf_counter()
+            consume(drain(pq.ParquetFile(path), batch_rows))
+            wall = time.perf_counter() - t0
+        runs.append({"wall_s": wall, "step_s": st.seconds,
+                     "calls": st.calls})
+
+    def timed():
+        t0 = time.perf_counter()
+        consume(drain(pq.ParquetFile(path), batch_rows))
+        return None, time.perf_counter() - t0
+
+    return {"card": card, "batch_rows": batch_rows, "runs": runs,
+            "best_s": min(r["wall_s"] for r in runs),
+            **device_profile(timed, "drain")}
+
+
+class _LastStats:
+    """A file whose drains record each batch's ``read_stats`` in
+    ``stats``."""
+
+    def __init__(self, f, stats: list):
+        self._f, self._stats = f, stats
+
+    def iter_batches(self, **kw):
+        for batch in self._f.iter_batches(**kw):
+            self._stats.append(batch.read_stats)
+            yield batch
+
+
+def payload_flip(path: str, rg: int) -> int:
+    """A byte in the middle of the first data page of row group ``rg``'s
+    first chunk."""
+    chunk = pq.ParquetFile(path).row_group(rg).column(0)
+    rows = chunk.page_table().rows
+    data = int(np.flatnonzero(rows[:, host.PG_TYPE] != int(
+        PageType.DICTIONARY_PAGE))[0])
+    return (chunk.byte_range[0] + int(rows[data, host.PG_DATA_POS])
+            + int(rows[data, host.PG_COMP]) // 2)
+
+
+def crc_checks(card: str, path: str) -> dict:
+    """Phase 5h(e): one byte flipped mid-page in row group 2 of the
+    5-column file.  With ``ReadOptions(verify_crc=True)`` the read and the
+    drain raise ``CorruptedError`` naming the CRC; under
+    ``skip_row_group`` the drain drops that row group alone and the rest
+    equals the clean rows; and the clean file's read with the check and
+    without, best of :data:`STREAM_WARM` warm each, in turns."""
+    k = STREAM_CRC_ROW_GROUP
+    flip = payload_flip(path, k)
+    opts = pq.ReadOptions(verify_crc=True)
+
+    def faulty(**kw):
+        return pq.ParquetFile(injected(path, flip_offsets=[flip]),
+                              options=opts, **kw)
+
+    raised = {}
+    for what, run in (("read", lambda: faulty().read(device=DEVICE)),
+                      ("drain", lambda: consume(drain(faulty(), 65_536)))):
+        try:
+            run()
+        except pq.CorruptedError as e:
+            if "page CRC mismatch" not in str(e) or \
+                    f"row-group={k}" not in str(e):
+                raise AssertionError(f"the CRC {what} raised {e}")
+            raised[what] = str(e)
+        else:
+            raise AssertionError(f"the {what} with a flipped page byte "
+                                 "and verify_crc raised nothing")
+    n_rg = len(pq.ParquetFile(path).row_groups)
+    keep = [i for i in range(n_rg) if i != k]
+    want = HostRows(pq.ParquetFile(path).read(device=DEVICE, row_groups=keep))
+    rep = pq.ReadReport()
+    at = 0
+    for batch in drain(faulty(policy=SKIP_POLICY), 65_536, report=rep):
+        at += check_batch(batch, want, at, "the CRC skip drain")
+    if rep.row_groups_skipped != [k] or at != sum(
+            row_group_rows(path)[i] for i in keep):
+        raise AssertionError(f"CRC skip drain: report {rep.as_dict()}")
+    walls = {"clean": [], "verify_crc": []}
+    for _ in range(STREAM_WARM):
+        for name, o in (("clean", None), ("verify_crc", opts)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pq.ParquetFile(path, options=o).read(device=DEVICE)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            del out
+    return {"card": card, "flip_offset": flip, "raised": raised,
+            "skip": {"row_groups_skipped": rep.row_groups_skipped,
+                     "rows_dropped": rep.rows_dropped, "rows_read": at},
+            "read_best_warm_s": {n: min(w) for n, w in walls.items()},
+            "read_warm_s": walls,
+            "verify_over_clean": min(walls["verify_crc"]) / min(
+                walls["clean"])}
+
+
+def stream_path(card: str, read: dict, item: dict, nested: dict,
+                dataset_paths: list) -> dict:
+    """Phase 5h: ``iter_batches`` on the card.  (a) the 5-column file at
+    65,536 (its preads spied on, its peak device bytes against the whole
+    read's), 1,048,576 and 100,000 strict; (b) lineitem at 65,536 and
+    1,048,576; (c) cfg 4 and the mixed nested file at 65,536; (d)
+    ``Dataset.iter_batches`` over phase 5c's 8 parts at 65,536; each
+    drain checked against its whole read (:func:`stream_entry`); (e) the
+    page CRCs (:func:`crc_checks`); (f) lineitem's 65,536 drain again
+    under ``PARQUET_TPU_TORCH_MMAP_DROPBEHIND=1``, equal, with
+    ``bytes_dropbehind > 0``.  Prints one ``{"stream": [...]}`` line and
+    one ``{"crc": ...}`` line; returns the phase's kernel launches."""
+    total = dict.fromkeys(pq.LAUNCHES, 0)
+    entries = []
+
+    def entry(*a, **kw):
+        got = stream_entry(card, *a, **kw)
+        for k, v in got["launches"].items():
+            total[k] += v
+        entries.append(got)
+
+    ref = WholeRead(read["path"])
+    entry("5col", ref, 65_536, spy=True, memory=True)
+    entry("5col", ref, 1 << 20)
+    entry("5col", ref, 100_000, strict=True)
+    ref = WholeRead(item["path"])
+    entry("lineitem", ref, 65_536, spy=True)
+    entry("lineitem", ref, 1 << 20)
+
+    # (f) drop-behind on lineitem's drain
+    with knobs(PARQUET_TPU_TORCH_MMAP_DROPBEHIND="1"):
+        stats = []
+        checked_drain(_LastStats(ref.open(), stats), ref, 65_536, False,
+                      "the drop-behind drain")
+    last = stats[-1] if stats else None
+    if last is None or last.bytes_dropbehind <= 0 or last.backend != \
+            "advise":
+        raise AssertionError(f"drop-behind drain: {last}")
+    dropbehind = {"rows": ref.rows, **last.as_dict()}
+    entry("cfg4", WholeRead(nested["path"]), 65_536)
+    entry("nest_mix", WholeRead(nested["mix_path"]), 65_536)
+    entry("dataset", WholeRead(list(dataset_paths)), 65_536)
+    del ref
+    log({"stream": entries, "dropbehind": dropbehind, "card": card})
+    log({"crc": crc_checks(card, read["path"])})
+    return {"launches": total}
+
+
+# ---------------------------------------------------------------------------
 # phase 5b: the device scan
 # ---------------------------------------------------------------------------
 
@@ -5057,6 +5593,8 @@ def main(argv=None) -> int:
         resilience = phase("5g_resilience", resilience_path, card, read,
                            scan, look["path"], args.lookup_rows,
                            multi["paths"], args.seed, tmp)
+        stream = phase("5h_stream", stream_path, card, read, item, nested,
+                       multi["paths"])
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -5066,7 +5604,8 @@ def main(argv=None) -> int:
                      item["launches"], nested, scan,
                      {"dataset": multi, "sharded": sharded,
                       "host_scan": hscan, "lookups": leftovers,
-                      "struct_keys": struct, "resilience": resilience})
+                      "struct_keys": struct, "resilience": resilience,
+                      "stream": stream})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)
@@ -5091,6 +5630,9 @@ def main(argv=None) -> int:
             "warm_working_set_caches": device_profile(look["warm"],
                                                       "lookup")}})
         phase_s["7_profiled"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log({"stream_breakdown": stream_breakdown(card, read["path"])})
+        phase_s["7c_stream_breakdown"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         log({"pipeline_breakdown": {name: pipeline_breakdown(path) for name,
                                     path in (("5col", read["path"]),

@@ -21,7 +21,12 @@ choose between the two (``scan``), and writes such files.  Every read,
 scan and lookup takes a ``FaultPolicy`` (retries, a deadline, and
 ``on_corrupt="skip_row_group"``, which drops a corrupt row group and
 accounts for it in a ``ReadReport``); its failures are located
-``ReadError`` errors.
+``ReadError`` errors.  It streams a file or a dataset in bounded batches
+(``iter_batches``: each batch holds only the pages that cover it, each
+pull of pages one device decode of that span, on the card or, with
+``device="cpu"``, on the CPU), and opens files with the JAX package's
+``ReadOptions``, whose ``verify_crc`` holds every page read to the CRC32
+its header carries (the writer writes one, ``WriterOptions.write_crc``).
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -40,6 +45,14 @@ accounts for it in a ``ReadReport``); its failures are located
     report = pq.ReadReport()
     table = pq.ParquetFile("x.parquet").read(
         policy=pq.FaultPolicy(on_corrupt="skip_row_group"), report=report)
+    for batch in pq.ParquetFile("x.parquet").iter_batches(batch_rows=4096):
+        ...                                   # {path: Column} on the card
+    for batch in pq.iter_batches(pq.ParquetFile("x.parquet"),
+                                 batch_rows=4096, device="cpu"):
+        ...
+    for batch in pq.Dataset("parts/*.parquet").iter_batches():
+        ...
+    f = pq.ParquetFile("x.parquet", options=pq.ReadOptions(verify_crc=True))
 """
 
 from .algebra.expr import And, Col, Expr, Not, Or, col
@@ -56,9 +69,10 @@ from .io.planner import (ROUTE_REFUSALS, CostInputs, RouteDecision,
                          device_route_supported, reset_route_refusals,
                          route_history, route_scan)
 from .io.prefetch import PrefetchSource, ReadStats
-from .io.reader import ParquetFile, RowGroupReader
+from .io.reader import ColumnSet, ParquetFile, ReadOptions, RowGroupReader
 from .io.search import find, pages_overlapping, plan_scan, read_row_range
 from .io.source import MmapSource, RetryingSource, Source
+from .io.stream import STREAM, iter_batches, reset_stream
 from .io.writer import (ColumnData, ParquetWriter, WriterOptions, schema_of,
                         write_table)
 from .ops.kernels import LAUNCHES, reset_launches
@@ -97,7 +111,8 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "pages_overlapping", "find", "FaultPolicy", "ReadReport",
            "FaultInjectingSource", "PolicySource", "RetryingSource",
            "PrefetchSource", "ReadStats", "ReadError", "ReadIOError",
-           "DeadlineError", "ShortReadError"]
+           "DeadlineError", "ShortReadError", "iter_batches", "ReadOptions",
+           "ColumnSet", "STREAM", "reset_stream"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

@@ -7,15 +7,17 @@ reads every file on a list of devices through
 ``parallel/mesh.py::read_dataset_device`` and concatenates the per-file
 columns in file order, and :meth:`Dataset.scan`, the host scan of every
 file that survives the footer prune (``parallel/host_scan.py::
-scan_files``), and :meth:`Dataset.find_rows`, the batched point lookup
-over every file (``io/lookup.py::dataset_find_rows``).  Each takes
+scan_files``), :meth:`Dataset.find_rows`, the batched point lookup
+over every file (``io/lookup.py::dataset_find_rows``), and
+:meth:`Dataset.iter_batches`, the streamed read of file after file
+(``io/stream.py``).  Each takes
 ``policy``/``report`` (``io/faults.py``) as the JAX package's: a call's
 policy overrides the dataset's, every file reads under it, and under
 ``on_corrupt='skip_row_group'`` a file that cannot be opened or read
-drops as a unit into ``report.files_skipped``.  Remote URLs, the shared
-chunk cache, the manifest's snapshot fields, and the dataset's
-``iter_batches`` and ``aggregate`` belong to later slices and raise
-naming theirs.
+drops as a unit into ``report.files_skipped``.  Every file opens with
+the dataset's ``options`` (``io/reader.py::ReadOptions``).  Remote URLs,
+the shared chunk cache, the manifest's snapshot fields, and the dataset's
+``aggregate`` belong to later slices and raise naming theirs.
 """
 
 from __future__ import annotations
@@ -83,13 +85,15 @@ class Dataset:
     (:func:`expand_paths`).  Files open at first use and stay open until
     :meth:`close`; every file must have the first one's leaves
     (:func:`_leaf_signature`), checked as each is read or pruned.
-    ``policy`` applies to every file (a call's ``policy=`` overrides
-    it)."""
+    ``options`` (:class:`~parquet_tpu_torch.io.reader.ReadOptions`) open
+    every file; ``policy`` applies to every file (a call's ``policy=``
+    overrides it)."""
 
-    def __init__(self, paths_or_glob, policy=None):
+    def __init__(self, paths_or_glob, options=None, policy=None):
         self.paths = expand_paths(paths_or_glob)
         if not self.paths:
             raise ValueError("Dataset needs at least one path")
+        self.options = options
         self.policy = policy
         self._init()
 
@@ -114,7 +118,8 @@ class Dataset:
             pf = self._files.get(i)
         if pf is not None:
             return pf
-        pf = ParquetFile(self.paths[i], policy=self.policy)
+        pf = ParquetFile(self.paths[i], options=self.options,
+                         policy=self.policy)
         with self._lock:
             cur = self._files.setdefault(i, pf)
         if cur is not pf:  # another thread opened it first
@@ -161,6 +166,7 @@ class Dataset:
             raise ValueError(f"shard index {index} out of range [0, {count})")
         sub = object.__new__(Dataset)
         sub.paths = self.paths[index::count]
+        sub.options = self.options
         sub.policy = self.policy
         sub._init()
         return sub
@@ -448,10 +454,57 @@ class Dataset:
         return dataset_find_rows(self, path, keys, columns=columns,
                                  device=device, policy=policy, report=report)
 
-    # ------------------------------------------------ later slices' routes
-    def iter_batches(self, *args, **kwargs):
-        raise unsupported("Dataset.iter_batches", "stream")
+    def iter_batches(self, columns: Optional[Sequence[str]] = None,
+                     batch_rows: int = 65536,
+                     strict_batch_rows: bool = False, device="cuda",
+                     policy=None, report=None):
+        """Stream the files in order as ``ColumnSet`` batches
+        (:meth:`ParquetFile.iter_batches`, each file's drain with its own
+        prefetcher): batches never span files.  Under a degraded
+        ``policy`` a file that fails to open, or dies mid-drain beyond what
+        row-group skipping absorbs, is dropped (batches already yielded
+        from it stay valid), and ``report.files_skipped`` counts only its
+        rows neither delivered nor already dropped."""
+        if batch_rows <= 0:
+            raise ValueError("batch_rows must be positive")
+        return self._iter_batches_gen(columns, batch_rows, strict_batch_rows,
+                                      device, policy, report)
 
+    def _iter_batches_gen(self, columns, batch_rows, strict_batch_rows,
+                          device, policy, report):
+        from .io.faults import NON_DATA_ERRORS, ReadReport
+
+        pol, report, skip = self._resolve(policy, report)
+        for i in range(len(self.paths)):
+            rows = 0
+            sub = ReadReport() if report is not None else None
+            try:
+                pf = self.file(i)
+                self._check_schema(pf, self.paths[i])
+                rows = pf.num_rows
+                yield from pf.iter_batches(
+                    columns=columns, batch_rows=batch_rows,
+                    strict_batch_rows=strict_batch_rows, device=device,
+                    policy=pol, report=sub)
+            except DeadlineError:
+                raise
+            except NON_DATA_ERRORS:
+                raise
+            except (CorruptedError, OSError) as e:
+                if not skip:
+                    raise
+                report.merge(sub)
+                # the rows the file delivered, and those its row-group
+                # skips already counted, are not lost twice
+                report.record_file_skip(
+                    self.paths[i],
+                    rows=max(rows - sub.rows_read - sub.rows_dropped, 0),
+                    error=e)
+                continue
+            if report is not None:
+                report.merge(sub)
+
+    # ------------------------------------------------ later slices' routes
     def aggregate(self, *args, **kwargs):
         raise unsupported("Dataset.aggregate", "aggregation")
 

@@ -123,41 +123,62 @@ class Column:
                 "rep_levels": self.rep_levels}
 
 
-def _concat_byte_arrays(values_parts, offsets_parts) -> tuple:
+def _concat_byte_arrays(values_parts, offsets_parts, sizes=None) -> tuple:
     """(values, offsets) pairs as one, offsets rebased (each part's from
-    0)."""
-    offs, base = [offsets_parts[0][:1]], 0
-    for o in offsets_parts:
+    0).  ``sizes`` gives each part's byte count where the caller knows it
+    (None: read from its offsets)."""
+    offs, vals, base = [offsets_parts[0][:1]], [], 0
+    for i, (v, o) in enumerate(zip(values_parts, offsets_parts)):
+        n = sizes[i] if sizes is not None and sizes[i] is not None \
+            else int(o[-1])
+        vals.append(v[:n])
         offs.append(o[1:] + base)
-        base += int(o[-1])
-    return torch.cat(values_parts), torch.cat(offs)
+        base += n
+    return torch.cat(vals), torch.cat(offs)
 
 
-def _concat_dict_parts(parts: List[Column]) -> Column:
+def _dict_key(dictionary) -> int:
+    """A dictionary's identity: its tensor's (the staging rebuilds the
+    tuple of a byte-array dictionary around the same tensors)."""
+    return id(dictionary[0] if isinstance(dictionary, tuple) else dictionary)
+
+
+def _concat_dict_parts(parts: List[Column], structure: dict) -> Column:
     """Encoded byte-array parts stay encoded: each part's indexes rebased by
-    the sizes of the dictionaries before it, the dictionaries concatenated
-    (entries repeated across row groups are kept), as the JAX package's
-    ``_concat_dict_parts`` does."""
-    idx_parts, base = [], 0
+    the sizes of the distinct dictionaries before its own, the distinct
+    dictionaries concatenated (entries repeated across row groups are
+    kept), as the JAX package's ``_concat_dict_parts`` does.  Parts that
+    share a dictionary (slices of one chunk) share its entries."""
+    bases, dicts, base = {}, [], 0
     for p in parts:
-        idx_parts.append(p.dict_indices + base)
-        base += p.dictionary[1].shape[0] - 1
-    dictionary = _concat_byte_arrays([p.dictionary[0] for p in parts],
-                                     [p.dictionary[1] for p in parts])
-    return Column(leaf=parts[0].leaf, values=None,
-                  dictionary=dictionary, dict_indices=torch.cat(idx_parts),
-                  **_concat_structure(parts))
+        key = _dict_key(p.dictionary)
+        if key not in bases:
+            bases[key] = base
+            base += p.dictionary[1].shape[0] - 1
+            dicts.append(p.dictionary)
+    indices = torch.cat([
+        p.dict_indices + bases[_dict_key(p.dictionary)]
+        if bases[_dict_key(p.dictionary)] else p.dict_indices
+        for p in parts])
+    # a dictionary's values are exactly its entries' bytes
+    dictionary = dicts[0] if len(dicts) == 1 else _concat_byte_arrays(
+        [d[0] for d in dicts], [d[1] for d in dicts],
+        [d[0].shape[0] for d in dicts])
+    return Column(leaf=parts[0].leaf, values=None, dictionary=dictionary,
+                  dict_indices=indices, **structure)
 
 
-def _concat_validity(parts: List[Column]) -> Optional[torch.Tensor]:
+def _concat_validity(parts: List[Column],
+                     elements=None) -> Optional[torch.Tensor]:
     if all(p.validity is None for p in parts):
         return None
     device = next(p.validity.device for p in parts
                   if p.validity is not None)
     return torch.cat([
         p.validity if p.validity is not None
-        else torch.ones(p.num_elements, dtype=torch.bool, device=device)
-        for p in parts])
+        else torch.ones(p.num_elements if elements is None else elements[i],
+                        dtype=torch.bool, device=device)
+        for i, p in enumerate(parts)])
 
 
 def _concat_offsets(parts: List[torch.Tensor]) -> torch.Tensor:
@@ -174,13 +195,13 @@ def _concat_host(arrays) -> Optional[np.ndarray]:
             else np.concatenate(arrays))
 
 
-def _concat_structure(parts: List[Column]) -> dict:
+def _concat_structure(parts: List[Column], elements=None) -> dict:
     """The validity, list levels, level streams and slot count of
-    consecutive parts (row groups) as one column's, as the JAX package's
+    consecutive parts as one column's, as the JAX package's
     ``_concat_structure``."""
     nlev = len(parts[0].list_offsets)
     return {
-        "validity": _concat_validity(parts),
+        "validity": _concat_validity(parts, elements),
         "list_offsets": [_concat_offsets([p.list_offsets[k] for p in parts])
                          for k in range(nlev)],
         "list_validity": [torch.cat([p.list_validity[k] for p in parts])
@@ -190,23 +211,42 @@ def _concat_structure(parts: List[Column]) -> dict:
         "num_slots": sum(p.num_slots for p in parts)}
 
 
-def concat_columns(parts: List[Column]) -> Column:
-    """One column from its per-row-group parts.  Encoded byte-array parts
-    merge encoded; a mix of encoded and dense parts is gathered first.
-    Other dictionaries and indexes are kept only for a single part: row
-    groups carry their own dictionaries."""
+def concat_columns(parts: List[Column], elements=None,
+                   nbytes=None) -> Column:
+    """One column from consecutive parts: its row groups, or a streamed
+    batch's slices of page spans.  Encoded byte-array parts merge encoded;
+    a mix of encoded and dense parts is gathered dense, each part left as
+    it is.  A dictionary that every part shares (slices of one chunk) is
+    kept once, with the indexes where every part has them; parts with
+    dictionaries of their own (row groups) keep none, except encoded byte
+    arrays.  ``elements`` (each
+    part's validity length) and ``nbytes`` (each dense byte-array part's
+    byte count, None where unknown) spare reading them from the device."""
     if len(parts) == 1:
         return parts[0]
+    structure = _concat_structure(parts, elements)
     if all(p.is_dictionary_encoded() for p in parts):
-        return _concat_dict_parts(parts)
-    for p in parts:
-        p.materialize()
-    offsets = None
-    if parts[0].offsets is not None:
-        values, offsets = _concat_byte_arrays([p.values for p in parts],
-                                              [p.offsets for p in parts])
-    else:
-        values = torch.cat([p.values for p in parts])
-    return Column(leaf=parts[0].leaf, values=values, offsets=offsets,
-                  **_concat_structure(parts))
-
+        return _concat_dict_parts(parts, structure)
+    leaf = parts[0].leaf
+    if any(p.offsets is not None for p in parts):  # byte arrays
+        vparts, oparts, sizes = [], [], []
+        for i, p in enumerate(parts):
+            if p.is_dictionary_encoded():
+                p = Column(leaf=leaf, values=None, dictionary=p.dictionary,
+                           dict_indices=p.dict_indices).materialize()
+                sizes.append(None)
+            else:
+                sizes.append(None if nbytes is None else nbytes[i])
+            vparts.append(p.values)
+            oparts.append(p.offsets)
+        values, offsets = _concat_byte_arrays(vparts, oparts, sizes)
+        return Column(leaf=leaf, values=values, offsets=offsets,
+                      **structure)
+    values = torch.cat([p.values for p in parts])
+    dictionary = indices = None
+    if len({_dict_key(p.dictionary) for p in parts}) == 1:
+        dictionary = parts[0].dictionary
+        if all(p.dict_indices is not None for p in parts):
+            indices = torch.cat([p.dict_indices for p in parts])
+    return Column(leaf=leaf, values=values, dictionary=dictionary,
+                  dict_indices=indices, **structure)

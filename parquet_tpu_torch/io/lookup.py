@@ -332,8 +332,11 @@ class _PageFetcher:
         self._firsts_arr = np.asarray(self.firsts, np.int64)
         self._dict = _UNSET
         fk = pf._cache_key
+        # the CRC check is part of a page's identity: a page decoded
+        # unchecked must not answer a reader that checks
         self._key_base = (None if fk is None
-                          else (fk, rg.index, chunk.leaf.name))
+                          else (fk, rg.index, chunk.leaf.name,
+                                pf.options.verify_crc))
 
     def page_rows(self, o: int) -> int:
         nxt = (self.firsts[o + 1] if o + 1 < len(self.firsts)
@@ -649,7 +652,10 @@ def _prune_one(rg, leaf, prep: _PreparedKeys, counters: Dict[str, int], fk):
     chunk = rg.column(leaf.column_index)
     alive = np.arange(len(prep.uniq), dtype=np.int64)
     # ---- stage 0: keys this chunk was proven not to hold
-    neg_key = None if fk is None else (fk, rg.index, leaf.name)
+    # with the CRC check in the key: an unchecked probe of corrupt pages
+    # cannot prove a key absent to a reader that checks
+    neg_key = (None if fk is None else (fk, rg.index, leaf.name,
+                                        rg.file.options.verify_crc))
     if neg_key is not None:
         known = NEGS.absent_mask(neg_key, prep.uniq)
         if known is not None:

@@ -20,14 +20,18 @@ operation, with one of two backends:
   :class:`~parquet_tpu_torch.io.source.MmapSource`): reads are views of
   the page cache, so nothing is staged; planned ranges are hinted to the
   kernel with ``madvise(WILLNEED)`` ``depth`` windows ahead of each plan's
-  frontier.
+  frontier.  With ``PARQUET_TPU_TORCH_MMAP_DROPBEHIND=1`` it also
+  advises sequential access, releases each plan's consumed span behind
+  the read frontier (``MmapSource.madvise_dontneed``) and the rest of the
+  planned span at :meth:`PrefetchSource.close`, counted in
+  ``ReadStats.bytes_dropbehind``.
 
 Knobs (``utils/env.py``): ``PARQUET_TPU_TORCH_PREFETCH`` (``auto``, the
 default: advise over a mapped file; ``advise``; ``ring``; ``off``),
 ``PARQUET_TPU_TORCH_PREFETCH_WINDOW`` and ``_DEPTH`` (pins), and
 ``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE`` (``0``: no feedback from one ring's
-stalls to the next ring's depth and window).  Not in this port: the
-drop-behind mode, latency classes of remote sources, and the metrics.
+stalls to the next ring's depth and window).  Not in this port: latency
+classes of remote sources, and the metrics.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import numpy as np
 
 from ..errors import DeadlineError
 from ..utils.env import env_int, env_opt_bytes, env_str
-from .source import MmapSource, Source
+from .source import MmapSource, Source, dropbehind_enabled
 
 __all__ = ["ReadStats", "PrefetchSource", "prefetch_mode", "make_prefetcher",
            "make_chunk_prefetcher", "autotune_enabled", "prefetch_autotune"]
@@ -140,7 +144,9 @@ class ReadStats:
     around it; ``windows_issued`` and ``bytes_prefetched``: windows read
     ahead (ring) or hinted (advise); ``bytes_discarded``: window bytes
     dropped unconsumed; ``pool_wait_s``: time the consumer waited on a
-    window still being read (about 0 when readahead hid the source)."""
+    window still being read (about 0 when readahead hid the source);
+    ``bytes_dropbehind``: page-cache bytes the drop-behind mode
+    released."""
 
     backend: str = ""
     prefetch_hits: int = 0
@@ -149,6 +155,7 @@ class ReadStats:
     bytes_prefetched: int = 0
     bytes_discarded: int = 0
     pool_wait_s: float = 0.0
+    bytes_dropbehind: int = 0
 
     def as_dict(self) -> dict:
         return {"backend": self.backend,
@@ -157,7 +164,8 @@ class ReadStats:
                 "windows_issued": self.windows_issued,
                 "bytes_prefetched": self.bytes_prefetched,
                 "bytes_discarded": self.bytes_discarded,
-                "pool_wait_s": self.pool_wait_s}
+                "pool_wait_s": self.pool_wait_s,
+                "bytes_dropbehind": self.bytes_dropbehind}
 
 
 class _Window:
@@ -186,15 +194,17 @@ def _as_u8(buf) -> np.ndarray:
 
 class _Plan:
     """One planned sequential range [start, end); bytes below ``issue``
-    are issued (ring) or hinted (advise)."""
+    are issued (ring) or hinted (advise), and below ``dropped`` released
+    (advise under drop-behind)."""
 
-    __slots__ = ("start", "issue", "end", "seg_buf", "seg_start", "seg_end",
-                 "pending", "dead")
+    __slots__ = ("start", "issue", "end", "dropped", "seg_buf", "seg_start",
+                 "seg_end", "pending", "dead")
 
     def __init__(self, start: int, end: int):
         self.start = start
         self.issue = start
         self.end = end
+        self.dropped = start
         self.seg_buf = None
         self.seg_start = 0
         self.seg_end = 0
@@ -248,6 +258,8 @@ class PrefetchSource(Source):
         self._mmap = _innermost(inner) if backend == "advise" else None
         if backend == "advise" and not isinstance(self._mmap, MmapSource):
             raise ValueError("advise backend needs an MmapSource-backed chain")
+        self._dropbehind = backend == "advise" and dropbehind_enabled()
+        self._advised_sequential = False
         self._closed = False
 
     @property
@@ -384,7 +396,10 @@ class PrefetchSource(Source):
 
     def _advise_locked(self) -> None:
         """Hint the kernel ``depth`` windows ahead of each plan's
-        frontier."""
+        frontier (and, under drop-behind, sequential access once)."""
+        if self._dropbehind and not self._advised_sequential:
+            self._advised_sequential = True
+            self._mmap.madvise_sequential()
         for plan in self._plans:
             ahead = min(plan.issue + self.depth * self.window_bytes,
                         plan.end)
@@ -394,9 +409,12 @@ class PrefetchSource(Source):
                 self.stats.bytes_prefetched += ahead - plan.issue
                 plan.issue = ahead
 
-    def _advance_advise(self, upto: int) -> None:
+    def _advance_advise(self, upto: int, drop_upto: int) -> None:
         """The consumer reached ``upto``: keep the hinted horizon ``depth``
-        windows ahead of it in the plan that covers it."""
+        windows ahead of it in the plan that covers it.  Under drop-behind
+        the plan's span below ``drop_upto`` is released: the start of the
+        read that moved the frontier, whose view the caller has not
+        decoded yet."""
         with self._lock:
             for plan in self._plans:
                 if plan.start <= upto <= plan.end:
@@ -408,6 +426,11 @@ class PrefetchSource(Source):
                         self.stats.windows_issued += 1
                         self.stats.bytes_prefetched += ahead - plan.issue
                         plan.issue = ahead
+                    if self._dropbehind and drop_upto > plan.dropped:
+                        self.stats.bytes_dropbehind += \
+                            self._mmap.madvise_dontneed(
+                                plan.dropped, drop_upto - plan.dropped)
+                        plan.dropped = drop_upto
                     break
 
     # ------------------------------------------------------------- serving
@@ -460,7 +483,7 @@ class PrefetchSource(Source):
             inner = self.inner
             out = (getattr(inner, "pread_view", inner.pread)(offset, size)
                    if want_view else inner.pread(offset, size))
-            self._advance_advise(end)
+            self._advance_advise(end, offset)
             return out
         # ring: the chain of windows that covers the read
         with self._lock:
@@ -545,7 +568,14 @@ class PrefetchSource(Source):
 
     def close(self) -> None:
         with self._lock:
+            first_close = not self._closed
             self._closed = True
+            if self._dropbehind and first_close:
+                # the one-shot drain is over: release the rest of each plan
+                for plan in self._plans:
+                    self.stats.bytes_dropbehind += \
+                        self._mmap.madvise_dontneed(
+                            plan.dropped, plan.end - plan.dropped)
             self._plans.clear()
             for w in self._ring:
                 if not w.future.cancel() and w.future.done():
@@ -559,13 +589,16 @@ class PrefetchSource(Source):
             _AUTOTUNE.observe(self.stats)
 
 
-def make_prefetcher(source: Source) -> Optional[PrefetchSource]:
+def make_prefetcher(source: Source,
+                    n_streams: int = 1) -> Optional[PrefetchSource]:
     """The prefetcher the mode picks for ``source``, or None where it is
     off or cannot pay: advise for a chain that ends at an
     :class:`MmapSource`; the ring where ``PARQUET_TPU_TORCH_PREFETCH=ring``,
     or in auto mode for a chain ending at a file read by pread with more
     than one core (on one core a pread from a warm page cache is a copy
-    that competes with decode) and outside a pool worker."""
+    that competes with decode) and outside a pool worker.  ``n_streams``
+    (the column cursors of a drain) sizes the ring, so that interleaved
+    cursors do not evict each other's windows."""
     from ..utils import pool
     from .source import FileLikeSource, FileSource
 
@@ -580,7 +613,8 @@ def make_prefetcher(source: Source) -> Optional[PrefetchSource]:
     real_io = isinstance(deepest, (FileSource, FileLikeSource))
     if mode == "ring" or (not pool.in_shared_pool() and real_io
                           and pool.available_cpus() > 1):
-        return PrefetchSource(source, backend="ring", max_windows=8)
+        return PrefetchSource(source, backend="ring",
+                              max_windows=max(8, 2 * n_streams))
     return None
 
 

@@ -12,7 +12,11 @@ lie on the requested device: CUDA by default, the CPU only when the caller
 asks.  :func:`decode_chunk_host` decodes the chunks the device route
 refuses, on the host, and moves the finished column to the device.
 :meth:`ParquetFile.find_rows` is the batched point lookup of
-:mod:`~parquet_tpu_torch.io.lookup`.
+:mod:`~parquet_tpu_torch.io.lookup`, and :meth:`ParquetFile.iter_batches`
+the streamed read of :mod:`~parquet_tpu_torch.io.stream`, whose cursors
+read each chunk in windows (:meth:`ColumnChunkReader.pages_streamed`).
+:class:`ReadOptions` are the JAX package's: with ``verify_crc`` every page
+read is held to the CRC32 its header carries (:func:`verify_page_crc`).
 
 Chunk readers are memoized on the file (the file is immutable once open),
 and each memoizes its parsed column index, offset index and bloom filter,
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import struct
+import zlib
 from dataclasses import dataclass
 from typing import (Dict, Iterator, List, NamedTuple, Optional, Sequence,
                     Tuple)
@@ -45,6 +50,51 @@ _UNSET = object()  # memo sentinel: None is a valid parsed value
 
 # an index structure longer than this is corruption, not an index
 MAX_INDEX_SIZE = 64 << 20
+# a page header longer than this is corruption (the streamed walk's cap)
+MAX_PAGE_HEADER_SIZE = 1 << 20
+
+
+@dataclass
+class ReadOptions:
+    """How a file is opened, as the JAX package's ``ReadOptions``.  The
+    page index and the bloom filters are read when a lookup or a scan
+    first needs them (``skip_page_index`` and ``skip_bloom_filters`` keep
+    that default); ``verify_crc`` holds every page read to the CRC32 its
+    header carries; ``footer_read_size`` bytes of the file's tail are read
+    at open, so a footer that fits costs one read."""
+
+    skip_page_index: bool = True
+    skip_bloom_filters: bool = True
+    verify_crc: bool = False
+    footer_read_size: int = 64 * 1024
+
+
+def _crc_error(offset: int) -> CorruptedError:
+    e = CorruptedError(f"page CRC mismatch at offset {offset}")
+    e.page_offset = offset
+    return e
+
+
+def verify_page_crc(reader, page: "PageInfo") -> None:
+    """Under ``ReadOptions(verify_crc=True)``, the CRC32 of ``page``'s
+    stored bytes against its header's (a page without one passes); a
+    mismatch raises :class:`CorruptedError` naming the page's offset."""
+    h = page.header
+    if reader.file.options.verify_crc and h.crc is not None:
+        if zlib.crc32(host.as_u8(page.payload)) != h.crc & 0xFFFFFFFF:
+            raise _crc_error(page.offset)
+
+
+def _verify_table_crcs(reader, raw, start: int, rows: np.ndarray) -> None:
+    """:func:`verify_page_crc` of every page of a page-header table over
+    ``raw`` (positions relative to it, ``start`` its file offset)."""
+    if not reader.file.options.verify_crc:
+        return
+    buf = host.as_u8(raw)
+    for row in rows[rows[:, host.PG_CRC] >= 0].tolist():
+        data = row[host.PG_DATA_POS]
+        if zlib.crc32(buf[data:data + row[host.PG_COMP]]) != row[host.PG_CRC]:
+            raise _crc_error(start + row[host.PG_HEADER_POS])
 
 
 @dataclass
@@ -250,6 +300,39 @@ class PageTable:
         return iter(self._all())
 
 
+def _checked_page_size(header: md.PageHeader, at: int) -> int:
+    """A parsed header's compressed size, which must be present and within
+    ``0..MAX_PAGE_SIZE``."""
+    clen = header.compressed_page_size
+    if clen is None or not 0 <= clen <= MAX_PAGE_SIZE:
+        raise CorruptedError(
+            f"page at {at}: compressed size {clen} out of range")
+    return clen
+
+
+def _parse_page_header(raw, pos: int, at: int, cut: bool = False):
+    """The thrift ``PageHeader`` at ``raw[pos]`` (file offset ``at``): the
+    header, where its payload starts in ``raw`` and its checked compressed
+    size.  A header that does not parse is corrupt, or None where ``cut``
+    (``raw`` may end inside it)."""
+    try:
+        header, data_pos = thrift.deserialize(md.PageHeader, raw, pos)
+    except (thrift.ThriftError, IndexError, struct.error) as e:
+        if cut:
+            return None
+        raise CorruptedError(f"bad page header at {at}: {e}") from e
+    return header, data_pos, _checked_page_size(header, at)
+
+
+def _page_info(header: md.PageHeader, payload, clen: int,
+               at: int) -> PageInfo:
+    """The page at file offset ``at``, its payload of ``clen`` bytes
+    whole."""
+    if len(payload) != clen:
+        raise CorruptedError(f"truncated page payload at {at}")
+    return PageInfo(header=header, payload=payload, offset=at)
+
+
 def thrift_page_walk(raw, start: int,
                      total_values: Optional[int] = None
                      ) -> Iterator[PageInfo]:
@@ -263,21 +346,9 @@ def thrift_page_walk(raw, start: int,
     size = len(raw)
     while ((total_values is None or values_seen < total_values)
            and pos < size):
-        try:
-            header, data_pos = thrift.deserialize(md.PageHeader, raw, pos)
-        except (thrift.ThriftError, IndexError, struct.error) as e:
-            raise CorruptedError(
-                f"bad page header at {start + pos}: {e}") from e
-        clen = header.compressed_page_size
-        if clen is None or not 0 <= clen <= MAX_PAGE_SIZE:
-            raise CorruptedError(
-                f"page at {start + pos}: compressed size {clen} out of "
-                "range")
-        payload = raw[data_pos:data_pos + clen]
-        if len(payload) != clen:
-            raise CorruptedError(
-                f"truncated page payload at {start + pos}")
-        page = PageInfo(header=header, payload=payload, offset=start + pos)
+        header, data_pos, clen = _parse_page_header(raw, pos, start + pos)
+        page = _page_info(header, raw[data_pos:data_pos + clen], clen,
+                          start + pos)
         if page.page_type in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
             values_seen += page.num_values
         yield page
@@ -323,13 +394,16 @@ class ColumnChunkReader:
 
     def page_table(self) -> PageTable:
         """The chunk's pages as a :class:`PageTable`: one contiguous read
-        and its C++ page-header table."""
+        and its C++ page-header table (each page's CRC checked under
+        ``verify_crc``)."""
         start, size = self.byte_range
         raw = self._read(start, size)
         total = self.meta.num_values
         rows = host.scan_page_headers(raw, -1 if total is None else total,
                                       base=start)
-        return PageTable.from_buffer(raw, start, rows)
+        table = PageTable.from_buffer(raw, start, rows)
+        _verify_table_crcs(self, raw, start, rows)
+        return table
 
     def pages(self) -> Iterator[PageInfo]:
         """The chunk's pages (:meth:`page_table`'s)."""
@@ -341,12 +415,113 @@ class ColumnChunkReader:
         one pread covering just the selected pages)."""
         raw = self._read(offset, size)
         rows = host.scan_page_headers(raw, max_pages=num_pages, base=offset)
-        return PageTable.from_buffer(raw, offset, rows)
+        table = PageTable.from_buffer(raw, offset, rows)
+        _verify_table_crcs(self, raw, offset, rows)
+        return table
 
     def pages_at(self, offset: int, size: int,
                  num_pages: Optional[int] = None) -> Iterator[PageInfo]:
         """The pages of one byte span (:meth:`page_table_at`'s)."""
         return iter(self.page_table_at(offset, size, num_pages))
+
+    def pages_streamed(self, window: int = 1 << 20,
+                       source: Optional[Source] = None
+                       ) -> Iterator[PageInfo]:
+        """The chunk's pages read in windows, never the whole chunk at
+        once: each pread is at most ``max(min(window, size // 16), 64
+        KiB)`` bytes, except that a page larger than that gets one read of
+        exactly itself and its header, and the C++ windowed scan
+        (``host.scan_page_headers_partial``) parses each window's whole
+        pages.  The Python walk (:meth:`_pages_streamed_python`) takes
+        over where the scan refuses a whole page in view, and owns the
+        precise errors.  A consumer that stops early reads no more.
+        Each payload is a uint8 view of its window, which it keeps alive:
+        copy what is kept past the iteration.  ``source`` overrides where
+        the preads go (a drain's prefetcher); each page's CRC is checked
+        under ``verify_crc``."""
+        start, size = self.byte_range
+        # at most a sixteenth of the chunk a read (64 KiB at least), so a
+        # small chunk keeps page-sized reads
+        window = max(min(window, size // 16), 1 << 16)
+        src = source if source is not None else self.file.source
+        read = getattr(src, "pread_view", src.pread)
+        total = self.meta.num_values or 0
+        pos = values_seen = 0
+        win = window
+        while values_seen < total and pos < size:
+            view = host.as_u8(read(start + pos, min(win, size - pos)))
+            rows, consumed, seen = host.scan_page_headers_partial(
+                view, total - values_seen)
+            if len(rows) == 0:
+                # the first page does not fit: its header, parsed once,
+                # gives its size (the next read is exactly that page) or
+                # its error
+                parsed = _parse_page_header(
+                    bytes(view[:MAX_PAGE_HEADER_SIZE]), 0, start + pos,
+                    cut=len(view) < min(MAX_PAGE_HEADER_SIZE, size - pos))
+                if parsed is None:
+                    win = min(win * 4, size - pos)  # a longer header
+                    continue
+                header, data_pos, clen = parsed
+                if pos + data_pos + clen > size:
+                    raise CorruptedError(
+                        f"truncated page payload at {start + pos}")
+                if len(view) >= data_pos + clen:
+                    # the whole page was in view and the scan still refused
+                    # it: the Python walk decides
+                    yield from self._pages_streamed_python(
+                        window, pos, values_seen, source)
+                    return
+                win = data_pos + clen
+                continue
+            for page in page_infos(view, start + pos, rows):
+                verify_page_crc(self, page)
+                yield page
+            pos += consumed
+            values_seen += seen
+            win = window
+
+    def _pages_streamed_python(self, window: int, pos: int,
+                               values_seen: int,
+                               source: Optional[Source] = None
+                               ) -> Iterator[PageInfo]:
+        """:meth:`pages_streamed` from ``pos`` by the Python thrift walk,
+        in windows of ``window`` bytes: the precise errors."""
+        start, size = self.byte_range
+        src = source if source is not None else self.file.source
+        total = self.meta.num_values or 0
+        buf = b""
+        boff = 0
+        while values_seen < total and pos < size:
+            if boff >= len(buf):
+                buf = bytes(src.pread(start + pos, min(window, size - pos)))
+                boff = 0
+            parsed = _parse_page_header(
+                buf, boff, start + pos,
+                cut=len(buf) - boff < min(MAX_PAGE_HEADER_SIZE, size - pos))
+            if parsed is None:  # a longer header: read more from it
+                buf = bytes(src.pread(
+                    start + pos, min(max(window, (len(buf) - boff) * 4),
+                                     size - pos)))
+                boff = 0
+                continue
+            header, data_pos, clen = parsed
+            hdr_len = data_pos - boff
+            if pos + hdr_len + clen > size:
+                # past the chunk: the next chunk's bytes
+                raise CorruptedError(
+                    f"truncated page payload at {start + pos}")
+            if data_pos + clen <= len(buf):
+                payload = host.as_u8(buf)[data_pos:data_pos + clen]
+            else:
+                payload = host.as_u8(src.pread(start + pos + hdr_len, clen))
+            page = _page_info(header, payload, clen, start + pos)
+            verify_page_crc(self, page)
+            if page.page_type in (PageType.DATA_PAGE, PageType.DATA_PAGE_V2):
+                values_seen += page.num_values
+            yield page
+            pos += hdr_len + clen
+            boff = data_pos + clen
 
     def _read_index(self, cls, offset, length, what: str):
         if length is None or not 0 <= length <= MAX_INDEX_SIZE:
@@ -500,11 +675,15 @@ def resolve_device(device) -> torch.device:
 
 
 class ColumnSet(dict):
-    """``{dotted path: Column}``, the result of a read; ``report`` is the
-    read's :class:`~parquet_tpu_torch.io.faults.ReadReport` where it ran
-    under a policy or was given one (else None)."""
+    """``{dotted path: Column}``, the result of a read or a streamed
+    batch; ``report`` is the read's
+    :class:`~parquet_tpu_torch.io.faults.ReadReport` where it ran under a
+    policy or was given one (else None), and a batch's ``read_stats`` its
+    drain's prefetcher's :class:`~parquet_tpu_torch.io.prefetch.ReadStats`
+    (None without one)."""
 
     report = None
+    read_stats = None
 
 
 class ParquetFile:
@@ -512,16 +691,20 @@ class ParquetFile:
     footer, or, for a path whose bytes were opened before, the footer
     parsed then (``io/cache.py::FOOTERS``).
 
-    ``policy`` (a :class:`~parquet_tpu_torch.io.faults.FaultPolicy`)
-    applies to every operation on the file: each pread retries transient
-    errors under it and keeps the operation's deadline, and its
-    ``on_corrupt`` decides what a corrupt row group does.  A call's own
-    ``policy=`` overrides it for that call."""
+    ``options`` (:class:`ReadOptions`) say how the file is opened and
+    whether its pages' CRCs are checked.  ``policy`` (a
+    :class:`~parquet_tpu_torch.io.faults.FaultPolicy`) applies to every
+    operation on the file: each pread retries transient errors under it
+    and keeps the operation's deadline, and its ``on_corrupt`` decides
+    what a corrupt row group does.  A call's own ``policy=`` overrides it
+    for that call."""
 
-    def __init__(self, source, policy=None):
+    def __init__(self, source, options: Optional[ReadOptions] = None,
+                 policy=None):
         from .faults import PolicySource, read_context
         from .source import FileSource, MmapSource
 
+        self.options = options if options is not None else ReadOptions()
         self.policy = policy
         self._chunk_cache: Dict[Tuple[int, int], ColumnChunkReader] = {}
         self.source: Source = as_source(source)
@@ -571,16 +754,19 @@ class ParquetFile:
         if size < 12:
             raise CorruptedError(
                 f"file too small ({size} bytes) to be parquet")
-        tail = self.source.pread(size - 8, 8)
-        if tail[4:] != md.MAGIC:
+        # one read of the tail, which holds the footer where it fits
+        tail_len = min(max(self.options.footer_read_size, 8), size)
+        tail = self.source.pread(size - tail_len, tail_len)
+        if tail[-4:] != md.MAGIC:
             raise CorruptedError("missing PAR1 magic at end of file")
-        footer_len = struct.unpack("<I", tail[:4])[0]
+        footer_len = struct.unpack("<I", tail[-8:-4])[0]
         if footer_len + 12 > size:
             raise CorruptedError(
                 f"footer length {footer_len} exceeds file size {size}")
         if self.source.pread(0, 4) != md.MAGIC:
             raise CorruptedError("missing PAR1 magic at start of file")
-        footer = self.source.pread(size - 8 - footer_len, footer_len)
+        footer = (tail[-8 - footer_len:-8] if footer_len + 8 <= tail_len
+                  else self.source.pread(size - 8 - footer_len, footer_len))
         try:
             self.metadata, _ = thrift.deserialize(md.FileMetaData, footer)
         except (thrift.ThriftError, IndexError, struct.error) as e:
@@ -759,6 +945,20 @@ class ParquetFile:
             out[leaf.name] = (concat_columns(got) if got
                               else _empty_column(leaf, dev))
         return out, rows
+
+    def iter_batches(self, columns: Optional[Sequence[str]] = None,
+                     batch_rows: int = 65536,
+                     strict_batch_rows: bool = False, device="cuda",
+                     policy=None, report=None):
+        """The streamed read: ``ColumnSet`` batches of at most
+        ``batch_rows`` rows on ``device``, each holding only the decoded
+        pages that cover it (:func:`~parquet_tpu_torch.io.stream.
+        iter_batches`, which says how batches are cut)."""
+        from .stream import iter_batches
+
+        return iter_batches(self, columns=columns, batch_rows=batch_rows,
+                            strict_batch_rows=strict_batch_rows,
+                            device=device, policy=policy, report=report)
 
     def find_rows(self, path: str, keys, columns: Optional[Sequence[str]] = None,
                   device="cuda", policy=None, report=None):

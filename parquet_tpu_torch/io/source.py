@@ -8,7 +8,9 @@ cannot be mapped (an empty file, a FIFO).  Each of the two carries a
 ``stat_key``, ``(absolute path, inode, mtime_ns, size)`` from the fstat of
 the descriptor it opened: the identity ``io/cache.py``'s caches key a file
 by (in-memory bytes have none and are never cached).
-``PARQUET_TPU_TORCH_MMAP=0`` opens a path as a :class:`FileSource`.  A
+``PARQUET_TPU_TORCH_MMAP=0`` opens a path as a :class:`FileSource`, and
+``PARQUET_TPU_TORCH_MMAP_DROPBEHIND=1`` turns on the drop-behind hints of
+a streamed drain (:func:`dropbehind_enabled`).  A
 seekable file object opens as a :class:`FileLikeSource`;
 :class:`RetryingSource` retries a bare source's transient errors
 (``io/faults.py`` holds the policy-wide wrapper).  Remote sources belong
@@ -25,7 +27,7 @@ import threading
 import numpy as np
 
 from ..errors import CorruptedError, ShortReadError
-from ..utils.env import env_int
+from ..utils.env import env_bool, env_int
 
 
 class Source:
@@ -103,10 +105,18 @@ class FileSource(Source):
 class MmapSource(Source):
     """A memory-mapped local file, as the JAX package's ``MmapSource``:
     ``pread_view`` is a read-only zero-copy view of the page cache
-    (``pread`` still returns bytes), and :meth:`madvise_willneed` starts
-    the kernel's readahead of a range without a thread.  Views keep the
+    (``pread`` still returns bytes), :meth:`madvise_willneed` starts the
+    kernel's readahead of a range without a thread, and
+    :meth:`madvise_sequential` and :meth:`madvise_dontneed` are the
+    drop-behind mode's hints (:func:`dropbehind_enabled`).  Views keep the
     map alive after :meth:`close`; callers copy what they keep, so no
-    decoded column aliases the map."""
+    decoded column aliases the map.
+
+    Releasing page-cache residency takes ``posix_fadvise(DONTNEED)`` on a
+    descriptor: ``madvise(MADV_DONTNEED)`` on a shared file mapping drops
+    only this process's page tables.  The descriptor the map was made from
+    is kept while the drop-behind mode is on at open, else closed and
+    opened again at the first hint that needs one."""
 
     def __init__(self, path):
         self.path = os.fspath(path)
@@ -118,9 +128,28 @@ class MmapSource(Source):
             if self._size == 0:
                 raise ValueError(f"cannot map the empty file {self.path!r}")
             self._mm = _mmap.mmap(fd, self._size, prot=_mmap.PROT_READ)
-        finally:
+        except BaseException:
+            os.close(fd)
+            raise
+        if dropbehind_enabled():
+            self._fd = fd
+        else:
+            self._fd = None
             os.close(fd)  # the map holds the file
+        self._fd_lock = threading.Lock()
         self._view = memoryview(self._mm)
+
+    def _fadvise_fd(self):
+        """The descriptor the drop-behind hints go to, opened at first use
+        where the mode was off at open (None once closed or where it
+        cannot be opened)."""
+        with self._fd_lock:
+            if self._fd is None and self._view is not None:
+                try:
+                    self._fd = os.open(self.path, os.O_RDONLY)
+                except OSError:
+                    return None
+            return self._fd
 
     def size(self) -> int:
         return self._size
@@ -149,15 +178,76 @@ class MmapSource(Source):
         except (OSError, ValueError, AttributeError):
             pass
 
+    def madvise_sequential(self) -> None:
+        """Declare the file read sequentially, to the map (``madvise``)
+        and to the descriptor (``posix_fadvise``): the kernel reads
+        further ahead and recycles the pages behind the reader sooner.
+        Best effort; a closed source ignores it."""
+        mm = self._mm
+        if mm is None:
+            return
+        try:
+            mm.madvise(_mmap.MADV_SEQUENTIAL)
+        except (OSError, ValueError, AttributeError):
+            pass
+        fd = self._fadvise_fd()
+        if fd is not None:
+            try:
+                os.posix_fadvise(fd, 0, self._size, os.POSIX_FADV_SEQUENTIAL)
+            except (OSError, AttributeError):
+                pass
+
+    def madvise_dontneed(self, offset: int, size: int) -> int:
+        """Release the page cache of the pages wholly inside ``[offset,
+        offset + size)`` (rounded inward, so a page read only in part
+        stays): the map's page tables first (``madvise``; the kernel keeps
+        a page still mapped), then the cache (``posix_fadvise``).  Returns
+        the bytes released, 0 where it could not.  Views handed out stay
+        valid: their pages fault in again from the file."""
+        mm = self._mm
+        if mm is None or size <= 0:
+            return 0
+        page = _mmap.PAGESIZE
+        lo = -(-offset // page) * page
+        hi = min(self._size, (offset + size) // page * page)
+        if hi <= lo:
+            return 0
+        try:
+            mm.madvise(_mmap.MADV_DONTNEED, lo, hi - lo)
+        except (OSError, ValueError, AttributeError):
+            pass
+        fd = self._fadvise_fd()
+        if fd is None:
+            return 0
+        try:
+            os.posix_fadvise(fd, lo, hi - lo, os.POSIX_FADV_DONTNEED)
+        except (OSError, AttributeError):
+            return 0
+        return hi - lo
+
     def close(self) -> None:
         if self._view is None:
             return
         self._view = None
         mm, self._mm = self._mm, None
+        with self._fd_lock:
+            fd, self._fd = self._fd, None
+        if fd is not None:
+            os.close(fd)
         try:
             mm.close()
         except BufferError:
             pass  # views still alive: unmapped when the last one dies
+
+
+def dropbehind_enabled() -> bool:
+    """``PARQUET_TPU_TORCH_MMAP_DROPBEHIND=1``: a streamed drain over a
+    mapped file advises sequential access and releases the page cache it
+    has consumed, behind its frontier and at its end, so a one-shot bulk
+    drain passes through the cache without evicting what other reads keep
+    hot.  Off by default: a workload that reads the file again loses its
+    warm cache."""
+    return env_bool("PARQUET_TPU_TORCH_MMAP_DROPBEHIND")
 
 
 class FileLikeSource(Source):

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import os
 import struct
+import zlib
 from dataclasses import dataclass
 from dataclasses import field as dc_field
 from typing import Dict, List, Optional, Tuple, Union
@@ -101,6 +102,9 @@ class WriterOptions:
     created_by: str = DEFAULT_CREATED_BY
     write_statistics: bool = True
     write_page_index: bool = True
+    # a CRC32 of each page's stored bytes in its header, which
+    # ReadOptions(verify_crc=True) checks
+    write_crc: bool = True
     # column name -> bloom filter bits per value
     bloom_filters: Dict[str, float] = dc_field(default_factory=dict)
     # (column name, descending, nulls_first), recorded in every row group
@@ -248,6 +252,8 @@ class ParquetWriter:
 
         def emit(header: md.PageHeader, body: bytes) -> None:
             nonlocal uncompressed, pos
+            if opts.write_crc:  # over the page's bytes as stored
+                header.crc = zlib.crc32(body) & 0xFFFFFFFF
             blob = thrift.serialize(header)
             parts.append(blob)
             parts.append(body)

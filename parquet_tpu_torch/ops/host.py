@@ -16,7 +16,9 @@ Python version it replaces returns, and raises its
 - :func:`decode_delta_binary_packed`: ``ops/ref.py``'s, for the length
   streams of the delta byte-array encodings;
 - :func:`scan_page_headers`: ``io/reader.py::thrift_page_walk`` as one
-  ``int64[npages, PG_NFIELDS]`` table;
+  ``int64[npages, PG_NFIELDS]`` table, and :func:`scan_page_headers_partial`
+  the same walk over a window of a streamed chunk, stopping at the first
+  page the window cuts;
 - :func:`decompress_pages`: every data page of a chunk in one call;
 - :func:`chunk_plan`: every data page of a chunk decompressed and
   prescanned in one call, into the chunk-level tables of
@@ -408,6 +410,23 @@ _BAD_HEADER = {1: "malformed thrift PageHeader", 2: "no page type",
                3: "a data page without num_values"}
 
 
+def _header_table(b: np.ndarray, total_values: int,
+                  max_pages: Optional[int]) -> Tuple[np.ndarray, np.ndarray]:
+    """``pq_scan_page_headers`` over ``b``: the rows it read and its stop
+    record ``(why, position, detail)``; without ``max_pages`` the table
+    grows until the walk is not stopped by its capacity."""
+    cap = max_pages if max_pages is not None else len(b) // 4096 + 16
+    err = np.zeros(3, np.int64)
+    while True:
+        out = np.empty((max(cap, 1), PG_NFIELDS), np.int64)
+        k = _prescan().pq_scan_page_headers(
+            _ptr(b), len(b), total_values, MAX_PAGE_SIZE, out.ctypes.data,
+            cap, err.ctypes.data)
+        if err[0] != _STOP_CAPACITY or max_pages is not None:
+            return out[:k], err
+        cap *= 4
+
+
 def scan_page_headers(buf, total_values: int = -1,
                       max_pages: Optional[int] = None,
                       base: int = 0) -> np.ndarray:
@@ -418,17 +437,7 @@ def scan_page_headers(buf, total_values: int = -1,
     header, a compressed size outside ``0..MAX_PAGE_SIZE`` or a payload
     past ``buf`` raises, naming the header's position plus ``base``.
     Page-header statistics are skipped."""
-    b = as_u8(buf)
-    cap = max_pages if max_pages is not None else len(b) // 4096 + 16
-    err = np.zeros(3, np.int64)
-    while True:
-        out = np.empty((max(cap, 1), PG_NFIELDS), np.int64)
-        k = _prescan().pq_scan_page_headers(
-            _ptr(b), len(b), total_values, MAX_PAGE_SIZE, out.ctypes.data,
-            cap, err.ctypes.data)
-        if err[0] != _STOP_CAPACITY or max_pages is not None:
-            break
-        cap *= 4
+    rows, err = _header_table(as_u8(buf), total_values, max_pages)
     why, at = int(err[0]), base + int(err[1])
     if why == _STOP_BAD_HEADER:
         raise CorruptedError(f"bad page header at {at}: "
@@ -439,7 +448,24 @@ def scan_page_headers(buf, total_values: int = -1,
                              "range")
     if why == _STOP_TRUNCATED:
         raise CorruptedError(f"truncated page payload at {at}")
-    return out[:k]
+    return rows
+
+
+def scan_page_headers_partial(buf, total_values: int
+                              ) -> Tuple[np.ndarray, int, int]:
+    """The windowed header scan of a streamed chunk: the table of the
+    complete pages at the start of ``buf`` (a window of a page stream),
+    walking while fewer than ``total_values`` data values were seen.
+    Returns ``(rows, consumed_bytes, values_seen)``: it stops, without an
+    error, at the first page the window cuts (a header or payload past
+    its end) and at a header it cannot take (the caller's Python walk
+    raises the precise error there); ``rows`` may be empty."""
+    rows, _ = _header_table(as_u8(buf), total_values, None)
+    if not len(rows):
+        return rows, 0, 0
+    data = (rows[:, PG_TYPE] == 0) | (rows[:, PG_TYPE] == 3)
+    consumed = int(rows[-1, PG_DATA_POS] + rows[-1, PG_COMP])
+    return rows, consumed, int(rows[data, PG_NVALS].sum())
 
 
 def available_cpus() -> int:

@@ -5,7 +5,8 @@ The port's cut of ``parquet_tpu/utils/env.py``: every knob is declared in
 ``PARQUET_TPU_TORCH_*``, and read through :func:`env_str` (or the typed
 :func:`env_int`, :func:`env_bytes` and :func:`env_opt_bytes`, which parse
 it as the JAX package's accessors do: a value that does not parse reads as
-the default), which refuse an undeclared name.  Knobs are read at each
+the default; :func:`env_bool` reads ``0``/``off``/``false``/``no`` as
+off), which refuse an undeclared name.  Knobs are read at each
 call, so a test can set one with ``monkeypatch.setenv``.
 """
 
@@ -14,7 +15,8 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["KNOBS", "env_str", "env_int", "env_bytes", "env_opt_bytes"]
+__all__ = ["KNOBS", "env_str", "env_bool", "env_int", "env_bytes",
+           "env_opt_bytes"]
 
 #: name -> (default, what it does); "" is unset
 KNOBS = {
@@ -39,6 +41,11 @@ KNOBS = {
     "PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE": (
         "1", "0 keeps the ring's window and depth fixed; else they adapt "
         "to the consumer's stalls (io/prefetch.py::prefetch_autotune)"),
+    "PARQUET_TPU_TORCH_MMAP_DROPBEHIND": (
+        "0", "1: a streamed drain over a mapped file advises sequential "
+        "access and releases the page cache behind its frontier, and the "
+        "rest of its span when it ends (known one-shot bulk drains only; "
+        "io/source.py::dropbehind_enabled)"),
     "PARQUET_TPU_TORCH_FOOTER_CACHE": (
         "256", "parsed-footer cache capacity in entries; 0 disables "
         "(io/cache.py::FOOTERS)"),
@@ -67,6 +74,15 @@ def env_str(name: str) -> str:
     if name not in KNOBS:
         raise KeyError(f"{name} is not a declared knob of parquet_tpu_torch")
     return os.environ.get(name) or KNOBS[name][0]
+
+
+_FALSEY = ("0", "off", "false", "no")
+
+
+def env_bool(name: str) -> bool:
+    """The knob as a switch: off where its value is one of
+    ``0``/``off``/``false``/``no`` (any case), else on."""
+    return env_str(name).lower() not in _FALSEY
 
 
 def _parsed(name: str) -> Optional[int]:

@@ -1153,3 +1153,106 @@ def test_deadline_read_on_card_then_a_clean_read(cuda_device, tmp_path):
     assert _settled_allocated(cuda_device) == allocated
     _same_columns(pqt.ParquetFile(path).read(device=cuda_device),
                   {n: c.to(torch.device("cpu")) for n, c in clean.items()})
+
+
+# ---------------------------------------------------------------------------
+# streamed drains on the card (io/stream.py)
+# ---------------------------------------------------------------------------
+
+
+def _host_drain(batches) -> list:
+    """Each batch as ``{path: host form}`` (the batch dropped after)."""
+    out = []
+    for b in batches:
+        out.append({p: (c.materialize_host(), None if c.validity is None
+                        else c.validity.cpu().numpy(),
+                        [o.cpu().numpy() for o in c.list_offsets],
+                        [v.cpu().numpy() for v in c.list_validity])
+                    for p, c in b.items()})
+    return out
+
+
+def _same_drain(got: list, want: list) -> None:
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+        for p in g:
+            _same_tree(g[p], w[p], p)
+
+
+def _same_tree(a, b, what) -> None:
+    if isinstance(a, dict):
+        for k in a:
+            if k in ("def_levels", "rep_levels") and (a[k] is None
+                                                      or b[k] is None):
+                continue
+            _same_tree(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), what
+        for x, y in zip(a, b):
+            _same_tree(x, y, what)
+    elif a is None or b is None:
+        assert a is None and b is None, what
+    else:
+        assert np.array_equal(a, b), what
+
+
+@pytest.mark.cuda
+def test_stream_on_card_matches_the_cpu_drain(cuda_device, tmp_path):
+    """A drain of the five-column file on the card equals the CPU's batch
+    by batch, takes both unpack kernels and no host route."""
+    path = str(tmp_path / "f.parquet")
+    _five_columns(path)
+    want = _host_drain(pqt.ParquetFile(path).iter_batches(
+        batch_rows=7_000, device="cpu"))
+    pqt.reset_launches()
+    pqt.reset_host_route()
+    batches = pqt.ParquetFile(path).iter_batches(batch_rows=7_000,
+                                                 device=cuda_device)
+    got = []
+    for b in batches:
+        assert b["k"].values.device == cuda_device
+        got += _host_drain([b])
+    _same_drain(got, want)
+    assert pqt.LAUNCHES["unpack_bits_dense"] > 0
+    assert pqt.LAUNCHES["dict_unpack_gather"] > 0
+    assert not any(pqt.HOST_ROUTE.values()), pqt.HOST_ROUTE
+
+
+@pytest.mark.cuda
+def test_nested_and_dataset_streams_on_card(cuda_device, tmp_path):
+    """``chip_smoke.py``'s mixed nested table and the dataset parts drained
+    on the card equal their CPU drains."""
+    import chip_smoke
+
+    schema, data, _ = chip_smoke.make_nest_mix(20_000, 0)
+    path = str(tmp_path / "mix.parquet")
+    pqt.write_table(data, path, pqt.WriterOptions(
+        compression="snappy", row_group_size=6_000, data_page_size=8 << 10,
+        column_encoding=chip_smoke.NEST_MIX_ENCODINGS), schema=schema)
+    for drain in (lambda d: pqt.ParquetFile(path).iter_batches(
+            batch_rows=2_500, device=d),
+            lambda d: pqt.Dataset(_dataset_files(tmp_path)).iter_batches(
+                batch_rows=4_096, device=d)):
+        _same_drain(_host_drain(drain(cuda_device)), _host_drain(
+            drain("cpu")))
+
+
+@pytest.mark.cuda
+def test_closed_drain_leaves_nothing_on_card(cuda_device, tmp_path):
+    """A drain closed after its first batch leaves no thread and no
+    allocated card memory behind."""
+    import threading
+
+    path = str(tmp_path / "f.parquet")
+    _five_columns(path)
+    threads, allocated = (threading.active_count(),
+                          _settled_allocated(cuda_device))
+    it = pqt.ParquetFile(path).iter_batches(batch_rows=5_000,
+                                            device=cuda_device)
+    first = next(it)
+    assert first["ts"].values.device == cuda_device
+    del first
+    it.close()
+    assert threading.active_count() == threads
+    assert _settled_allocated(cuda_device) == allocated

@@ -28,6 +28,7 @@ from parquet_tpu.dataset import expand_paths as jexpand_paths
 
 import parquet_tpu_torch as pqt
 from parquet_tpu_torch.errors import CorruptedError
+from parquet_tpu_torch.io.column import concat_columns
 from parquet_tpu_torch.io import planner as tplanner
 from parquet_tpu_torch.parallel import mesh as tmesh
 from parquet_tpu_torch.utils import pool as tpool
@@ -515,14 +516,23 @@ def test_cuda_by_default(mixed, monkeypatch):
             call()
 
 
+def _list_file() -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    papq.write_table(pa.table({"l": pa.array([[1, 2], [3]])}), buf)
+    return buf.getvalue()
+
+
 @pytest.mark.parametrize("call,slice_name", [
-    ("iter_batches", "stream"), ("aggregate", "aggregation"),
+    ("nested_row_range", "nested row ranges"), ("aggregate", "aggregation"),
     ("snapshot_version", "manifest"), ("_file_stats", "manifest"),
     ("to_arrow", "arrow interop")])
 def test_refused_methods_name_their_slice(mixed, call, slice_name):
     ds = pqt.Dataset(mixed["paths"][:1])
     run = {
-        "iter_batches": lambda: ds.iter_batches(),
+        "nested_row_range": lambda: pqt.read_row_range(
+            pqt.ParquetFile(_list_file()), "l.list.element", 0, 1),
         "aggregate": lambda: ds.aggregate([]),
         "snapshot_version": lambda: ds.snapshot_version,
         "_file_stats": lambda: ds._file_stats,
@@ -863,3 +873,98 @@ def test_dataset_scan_empty_fallback_validates_columns(tmp_path):
     empty = pqt.Dataset([p]).shard(1, 2)
     with pytest.raises(ValueError, match="empty dataset shard"):
         empty.scan("x", lo=1, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the streamed read
+# ---------------------------------------------------------------------------
+
+
+def _port_drain(batches) -> dict:
+    batches = list(batches)
+    return {p: concat_columns([b[p] for b in batches]) for p in batches[0]}
+
+
+@pytest.mark.parametrize("batch_rows", [1700, 100_000])
+def test_iter_batches_matches_jax_and_read(mixed, batch_rows):
+    paths = mixed["paths"]
+    got = list(pqt.Dataset(paths).iter_batches(batch_rows=batch_rows,
+                                               device=CPU))
+    want = list(parquet_tpu.Dataset(paths).iter_batches(
+        batch_rows=batch_rows))
+    assert [b["plain_i64"].num_slots for b in got] == [b.num_rows
+                                                       for b in want]
+    for k, (g, w) in enumerate(zip(got, want)):
+        _same_table(g, w.columns, f"batch {k}")
+    whole = pqt.Dataset(paths).read(device=CPU)
+    drained = _port_drain(got)
+    for path, col in whole.items():
+        _same_column(drained[path], mixed["host"][path], path)
+        np.testing.assert_array_equal(
+            _port_host(drained[path])[0], _port_host(col)[0], err_msg=path)
+
+
+def test_degraded_iter_batches_skips_bad_file(tmp_path):
+    paths = _keyed_corpus(str(tmp_path))
+    with open(paths[0], "wb") as f:
+        f.write(b"PAR1 not really a parquet file")
+    skip = pqt.FaultPolicy(backoff_s=0.0, on_corrupt="skip_row_group")
+    jskip = parquet_tpu.FaultPolicy(backoff_s=0.0,
+                                    on_corrupt="skip_row_group")
+    rep, jrep = pqt.ReadReport(), parquet_tpu.ReadReport()
+    got = _port_drain(pqt.Dataset(paths, policy=skip).iter_batches(
+        batch_rows=1500, device=CPU, report=rep))
+    want = parquet_tpu.Dataset(paths, policy=jskip)
+    want = [b for b in want.iter_batches(batch_rows=1500, report=jrep)]
+    np.testing.assert_array_equal(
+        got["x"].values.numpy(),
+        np.concatenate([np.asarray(b.columns["x"].values) for b in want]))
+    assert got["x"].num_slots == 3 * 2000
+    assert rep.files_skipped == jrep.files_skipped == [paths[0]]
+    assert rep.rows_read == jrep.rows_read
+
+
+def test_degraded_iter_batches_accounting_never_double_counts(
+        tmp_path, monkeypatch):
+    """A file that dies mid-drain after one batch and one row-group skip:
+    its file skip counts only the rows neither delivered nor dropped, so
+    every row of the dataset is read or dropped exactly once."""
+    paths = _keyed_corpus(str(tmp_path), n_files=2)
+    skip = pqt.FaultPolicy(backoff_s=0.0, on_corrupt="skip_row_group")
+
+    class _DiesMidDrain:
+        def __init__(self, pf):
+            self._pf = pf
+
+        def __getattr__(self, name):
+            return getattr(self._pf, name)
+
+        def iter_batches(self, **kw):
+            it = self._pf.iter_batches(**kw)
+            yield next(it)
+            kw["report"].record_skip(1, rows=RG, error="a row group")
+            raise OSError("the mount died mid-drain")
+
+    real = pqt.Dataset.file
+
+    def file(self, i):
+        pf = real(self, i)
+        return _DiesMidDrain(pf) if i == 0 else pf
+
+    monkeypatch.setattr(pqt.Dataset, "file", file)
+    rep = pqt.ReadReport()
+    got = list(pqt.Dataset(paths, policy=skip).iter_batches(
+        batch_rows=RG, device=CPU, report=rep))
+    rows = sum(b["x"].num_slots for b in got)
+    assert rows == RG + 2000
+    assert rep.files_skipped == [paths[0]]
+    assert rep.row_groups_skipped == [1]
+    assert rep.rows_read == rows
+    assert rep.rows_read + rep.rows_dropped == 2 * 2000
+
+
+def test_dataset_options_reach_every_file(mixed):
+    opts = pqt.ReadOptions(verify_crc=True)
+    ds = pqt.Dataset(mixed["paths"], options=opts)
+    assert all(pf.options is opts for pf in ds.files)
+    assert all(pf.options is opts for pf in ds.shard(1, 2).files)

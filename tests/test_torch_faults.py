@@ -898,3 +898,227 @@ def test_random_flips_are_located_or_skipped(codec):
                         policy=SKIP).read(device=CPU, report=rep)
         skipped += len(rep.row_groups_skipped)
     assert skipped > 0
+
+
+# ---------------------------------------------------------------------------
+# streamed drains (io/stream.py) under the policy, and page CRCs
+# ---------------------------------------------------------------------------
+
+
+def _drained(batches) -> dict:
+    """A port drain's batches concatenated by column."""
+    from parquet_tpu_torch.io.column import concat_columns
+
+    batches = list(batches)
+    return {p: concat_columns([b[p] for b in batches]) for p in batches[0]}
+
+
+def _jax_drained(batches):
+    return _JaxTable(pa.concat_tables(b.to_arrow() for b in batches))
+
+
+class _JaxTable:
+    """A concatenated JAX drain in the form ``_same_read`` takes."""
+
+    def __init__(self, table):
+        self._t = table
+
+    def to_arrow(self):
+        return self._t
+
+
+def test_iter_batches_recovers_transient_errors_as_jax(raw):
+    src, jsrc = _both_sources(raw, seed=3, error_rate=0.2,
+                              max_consecutive_errors=2)
+    rep, jrep = pqt.ReadReport(), parquet_tpu.ReadReport()
+    got = _drained(pqt.ParquetFile(src, policy=FAST).iter_batches(
+        batch_rows=1000, device=CPU, report=rep))
+    want = _jax_drained(parquet_tpu.iter_batches(
+        parquet_tpu.ParquetFile(jsrc, policy=JFAST), batch_rows=1000,
+        report=jrep))
+    _same_read(got, want)
+    _same_read(got, parquet_tpu.ParquetFile(raw).read())
+    assert src.stats.injected_errors > 0
+    assert rep.rows_read == jrep.rows_read == N_ROWS and rep.ok
+
+
+@pytest.mark.parametrize("rgs", [(1,), (0, 3)])
+def test_skip_row_group_stream_matches_jax(raw, rgs):
+    src, jsrc = _both_sources(raw, flip_offsets=_flips(raw, rgs))
+    rep, jrep = pqt.ReadReport(), parquet_tpu.ReadReport()
+    got = _drained(pqt.ParquetFile(src, policy=SKIP).iter_batches(
+        batch_rows=1000, device=CPU, report=rep))
+    want = _jax_drained(parquet_tpu.iter_batches(
+        parquet_tpu.ParquetFile(jsrc, policy=JSKIP), batch_rows=1000,
+        report=jrep))
+    _same_read(got, want)
+    _same_report(rep, jrep)
+    assert rep.row_groups_skipped == list(rgs)
+    assert rep.rows_dropped == ROW_GROUP * len(rgs)
+
+
+def test_stream_corrupt_row_group_raises_located(raw):
+    src, jsrc = _both_sources(raw, flip_offsets=_flips(raw))
+    e = _same_error(
+        lambda: list(pqt.ParquetFile(src, policy=FAST).iter_batches(
+            batch_rows=1000, device=CPU)),
+        lambda: list(parquet_tpu.iter_batches(
+            parquet_tpu.ParquetFile(jsrc, policy=JFAST), batch_rows=1000)))
+    assert "row-group=1" in str(e) and "column=x" in str(e)
+
+
+def test_paused_stream_deadline_does_not_poison_other_ops(raw):
+    """A paused drain keeps its own deadline: a read meanwhile runs on its
+    own clock, and the resumed drain hits its deadline."""
+    import time
+
+    pf = pqt.ParquetFile(BytesSource(raw), policy=pqt.FaultPolicy(
+        deadline_s=0.05, backoff_s=0.0))
+    before = tfaults.active_deadline()
+    it = pf.iter_batches(batch_rows=1000, device=CPU)
+    next(it)
+    # the drain's clock stays in the drain's own context
+    assert tfaults.active_deadline() is before
+    time.sleep(0.08)  # the drain's budget runs out while it is paused
+    assert pf.read(device=CPU)["x"].num_slots == N_ROWS
+    with pytest.raises(DeadlineError):
+        for _ in it:
+            pass
+
+
+def test_interleaved_policy_overrides_restore_source(raw):
+    pf = pqt.ParquetFile(BytesSource(raw))
+    base = pf.source
+    p1 = pqt.FaultPolicy(max_retries=1, backoff_s=0.0)
+    p2 = pqt.FaultPolicy(max_retries=2, backoff_s=0.0)
+    g1 = pf.iter_batches(batch_rows=1000, device=CPU, policy=p1)
+    g2 = pf.iter_batches(batch_rows=1000, device=CPU, policy=p2)
+    next(g1)
+    next(g2)
+    g1.close()  # out of order: g2's wrapper stays installed
+    assert getattr(pf.source, "policy", None) is p2
+    assert sum(b["x"].num_slots for b in g2) > 0
+    assert pf.source is base
+
+
+def test_interleaved_drains_keep_their_deadlines(raw):
+    pf = pqt.ParquetFile(BytesSource(raw), policy=pqt.FaultPolicy(
+        deadline_s=30.0, backoff_s=0.0))
+    g1 = pf.iter_batches(batch_rows=1000, device=CPU)
+    next(g1)
+    g2 = pf.iter_batches(batch_rows=1000, device=CPU)
+    next(g2)
+    g1.close()
+    assert pf.source._deadline is not None  # g2's budget survives
+    g2.close()
+    assert pf.source._deadline is None
+    assert pf.read(device=CPU)["x"].num_slots == N_ROWS
+
+
+def test_stream_deadline_fires_on_injected_latency(raw):
+    src = tfaults.FaultInjectingSource(BytesSource(raw), latency_s=0.02)
+    pf = pqt.ParquetFile(BytesSource(raw))
+    pf.source = pf._base_source = src
+    with pytest.raises(DeadlineError):
+        for _ in pf.iter_batches(batch_rows=1000, device=CPU,
+                                 policy=pqt.FaultPolicy(deadline_s=0.05,
+                                                        backoff_s=0.0)):
+            pass
+    assert pf.source is src
+
+
+CRC_RG = 2
+
+
+@pytest.fixture(scope="module")
+def crc_raw() -> bytes:
+    """The port's writer (page CRCs on): PLAIN int64 and a dictionary
+    string, UNCOMPRESSED, so a flipped payload byte decodes silently
+    unless the CRC is checked."""
+    rng = np.random.default_rng(4)
+    buf = io.BytesIO()
+    pqt.write_table({"x": np.arange(N_ROWS, dtype=np.int64),
+                     "v": rng.random(N_ROWS)}, buf,
+                    pqt.WriterOptions(row_group_size=ROW_GROUP,
+                                      dictionary=False))
+    return buf.getvalue()
+
+
+def _payload_flip(raw) -> int:
+    """A byte in the middle of row group 2's ``x`` data page."""
+    chunk = pqt.ParquetFile(raw).row_group(CRC_RG).column(0)
+    start, size = chunk.byte_range
+    return start + size // 2
+
+
+@pytest.mark.parametrize("policy", ["raise", "skip"])
+@pytest.mark.parametrize("how", ["read", "drain"])
+def test_verify_crc_catches_a_flip_as_jax(crc_raw, how, policy):
+    from parquet_tpu.io.reader import ReadOptions as JReadOptions
+
+    flips = [_payload_flip(crc_raw)]
+    src, jsrc = _both_sources(crc_raw, flip_offsets=flips)
+    # unchecked, the flip is a wrong value, not an error
+    quiet = pqt.ParquetFile(src).read(device=CPU)["x"].values.numpy()
+    assert (quiet != np.arange(N_ROWS)).sum() == 1
+    opts = pqt.ReadOptions(verify_crc=True)
+    jopts = JReadOptions(verify_crc=True)
+    pf = pqt.ParquetFile(src, options=opts,
+                         policy=SKIP if policy == "skip" else FAST)
+    jpf = parquet_tpu.ParquetFile(jsrc, options=jopts,
+                                  policy=JSKIP if policy == "skip"
+                                  else JFAST)
+
+    def port(report=None):
+        if how == "read":
+            return pf.read(device=CPU, report=report)
+        return _drained(pf.iter_batches(batch_rows=1000, device=CPU,
+                                        report=report))
+
+    def jax(report=None):
+        if how == "read":
+            return jpf.read(device=False, report=report)
+        return _jax_drained(parquet_tpu.iter_batches(
+            jpf, batch_rows=1000, report=report))
+
+    if policy == "raise":
+        e = _same_error(port, jax)
+        assert "page CRC mismatch at offset" in str(e)
+        assert f"row-group={CRC_RG}" in str(e) and "page-offset=" in str(e)
+        return
+    rep, jrep = pqt.ReadReport(), parquet_tpu.ReadReport()
+    got, want = port(rep), jax(jrep)
+    _same_read(got, want)
+    _same_report(rep, jrep)
+    assert rep.row_groups_skipped == [CRC_RG]
+    assert "page CRC mismatch" in rep.errors[0]
+
+
+@pytest.mark.parametrize("policy", ["raise", "skip"])
+def test_verify_crc_in_find_rows(crc_raw, policy):
+    flips = [_payload_flip(crc_raw)]
+    src = tfaults.FaultInjectingSource(BytesSource(crc_raw),
+                                       flip_offsets=flips)
+    keys = [5, CRC_RG * ROW_GROUP + 7, 9000]
+    pf = pqt.ParquetFile(src, options=pqt.ReadOptions(verify_crc=True))
+    if policy == "raise":
+        with pytest.raises(CorruptedError, match="page CRC mismatch"):
+            pf.find_rows("x", keys, columns=["v"], device=CPU)
+        return
+    rep = pqt.ReadReport()
+    got = pf.find_rows("x", keys, columns=["v"], device=CPU, policy=SKIP,
+                       report=rep)
+    assert [h.num_rows for h in got] == [1, 0, 1]
+    assert rep.row_groups_skipped == [CRC_RG]
+
+
+def test_verify_crc_clean_file_reads_equal(crc_raw):
+    on = pqt.ParquetFile(crc_raw, options=pqt.ReadOptions(verify_crc=True))
+    got = on.read(device=CPU)
+    np.testing.assert_array_equal(got["x"].values.numpy(),
+                                  np.arange(N_ROWS))
+    drained = _drained(on.iter_batches(batch_rows=777, device=CPU))
+    np.testing.assert_array_equal(drained["v"].values.numpy(),
+                                  got["v"].values.numpy())
+    assert on.options.verify_crc and not pqt.ParquetFile(
+        crc_raw).options.verify_crc

@@ -524,3 +524,180 @@ def test_device_pipeline_plans_on_the_chunk_prefetcher(monkeypatch,
     assert made[0].stats.prefetch_hits >= len(pf.row_groups) * 3
     _same(got, pqt.ParquetFile(raw).read(device=CPU))
     assert type(pf.source) is MmapSource
+
+
+# ---------------------------------------------------------------------------
+# the streamed drain under every prefetch mode, and drop-behind
+# ---------------------------------------------------------------------------
+
+
+def _drain(pf, batch_rows=1500, **kw) -> dict:
+    """A drain's batches concatenated by column."""
+    from parquet_tpu_torch.io.column import concat_columns
+
+    batches = list(pf.iter_batches(batch_rows=batch_rows, device=CPU, **kw))
+    return {p: concat_columns([b[p] for b in batches]) for p in batches[0]}
+
+
+@pytest.mark.parametrize("mode", ["off", "auto", "advise", "ring"])
+def test_stream_is_equal_in_every_mode(monkeypatch, tmp_path, raw, mode):
+    p = tmp_path / "f.parquet"
+    p.write_bytes(raw)
+    want = pqt.ParquetFile(raw).read(device=CPU)
+    jwant = parquet_tpu.ParquetFile(raw).read().to_arrow()
+    monkeypatch.setenv(MODE, mode)
+    for source in (raw, str(p)):
+        pf = pqt.ParquetFile(source)
+        got = _drain(pf)
+        _same(got, want)
+        np.testing.assert_array_equal(got["x"].values.numpy(),
+                                      jwant["x"].to_numpy())
+        assert pf.source is pf._base_source
+        pf.close()
+
+
+def test_stream_ring_retries_transient_errors(monkeypatch, raw):
+    monkeypatch.setenv(MODE, "ring")
+    clean = pqt.ParquetFile(raw).read(device=CPU)
+    pol = pqt.FaultPolicy(max_retries=4, backoff_s=0.0)
+    for seed in range(3):
+        src = tfaults.FaultInjectingSource(BytesSource(raw), seed=seed,
+                                           error_rate=0.25,
+                                           max_consecutive_errors=2)
+        pf = pqt.ParquetFile(src, policy=pol)
+        at_open = src.stats.injected_errors
+        rep = pqt.ReadReport()
+        _same(_drain(pf, report=rep), clean)
+        if src.stats.injected_errors > at_open:
+            assert rep.retries > 0, seed
+
+
+@pytest.mark.parametrize("mode", ["off", "ring"])
+def test_stream_skip_under_each_mode_matches_jax(monkeypatch, raw, mode):
+    from parquet_tpu.io.faults import FaultInjectingSource as JFault
+    from parquet_tpu.io.source import BytesSource as JBytes
+
+    md = papq.ParquetFile(io.BytesIO(raw)).metadata
+    off = md.row_group(2).column(0).data_page_offset
+    flips = [off, off + 1, off + 2]
+    monkeypatch.setenv(MODE, mode)
+    rep = pqt.ReadReport()
+    got = _drain(pqt.ParquetFile(tfaults.FaultInjectingSource(
+        BytesSource(raw), flip_offsets=flips), policy=pqt.FaultPolicy(
+        backoff_s=0.0, on_corrupt="skip_row_group")), report=rep)
+    jrep = parquet_tpu.ReadReport()
+    want = [b.to_arrow() for b in parquet_tpu.iter_batches(
+        parquet_tpu.ParquetFile(JFault(JBytes(raw), flip_offsets=flips),
+                                policy=parquet_tpu.FaultPolicy(
+                                    backoff_s=0.0,
+                                    on_corrupt="skip_row_group")),
+        batch_rows=1500, report=jrep)]
+    np.testing.assert_array_equal(
+        got["x"].values.numpy(),
+        np.concatenate([t["x"].to_numpy() for t in want]))
+    assert rep.row_groups_skipped == jrep.row_groups_skipped == [2]
+    assert rep.rows_dropped == jrep.rows_dropped > 0
+    assert rep.rows_read == jrep.rows_read
+
+
+def test_read_stats_surfaced_on_batches(tmp_path, raw):
+    p = tmp_path / "f.parquet"
+    p.write_bytes(raw)
+    last = None
+    for b in pqt.ParquetFile(str(p)).iter_batches(batch_rows=4000,
+                                                   device=CPU):
+        last = b
+    assert isinstance(last.read_stats, ReadStats)
+    d = last.read_stats.as_dict()
+    assert d["backend"] == "advise" and d["prefetch_hits"] > 0
+    assert last.read_stats.bytes_prefetched > 0
+    assert d["bytes_dropbehind"] == 0
+
+
+def _mmap_file(tmp_path, nbytes=1 << 20):
+    data = (np.arange(nbytes, dtype=np.uint32) * 2654435761).astype(
+        np.uint32).tobytes()[:nbytes]
+    p = tmp_path / "blob.bin"
+    p.write_bytes(data)
+    return str(p), data
+
+
+def test_madvise_sequential_best_effort(tmp_path):
+    path, data = _mmap_file(tmp_path)
+    src = MmapSource(path)
+    src.madvise_sequential()  # never raises
+    assert src.pread(100, 16) == data[100:116]
+    src.close()
+    src.madvise_sequential()  # closed: nothing to do
+    assert src.madvise_dontneed(0, 1 << 20) == 0
+
+
+def test_dropbehind_knob_gates(tmp_path, monkeypatch):
+    from parquet_tpu_torch.io.source import dropbehind_enabled
+
+    monkeypatch.delenv("PARQUET_TPU_TORCH_MMAP_DROPBEHIND", raising=False)
+    assert not dropbehind_enabled()
+    path, data = _mmap_file(tmp_path)
+    src = MmapSource(path)
+    assert src._fd is None  # no descriptor kept while the mode is off
+    pre = PrefetchSource(src, backend="advise")
+    pre.plan(0, len(data))
+    pre.pread(0, 4096)
+    pre.close()
+    assert pre.stats.bytes_dropbehind == 0
+    src.close()
+    monkeypatch.setenv("PARQUET_TPU_TORCH_MMAP_DROPBEHIND", "1")
+    assert dropbehind_enabled()
+    src = MmapSource(path)
+    assert src._fd is not None  # kept for posix_fadvise
+    src.close()
+    assert src._fd is None
+
+
+def test_dropbehind_drain_equal_and_metered(tmp_path, monkeypatch):
+    """A drain with drop-behind on is equal to the one without and counts
+    the page cache it released (sequential advice, then DONTNEED behind
+    the frontier and over the rest at the end)."""
+    monkeypatch.setenv("PARQUET_TPU_TORCH_MMAP_DROPBEHIND", "1")
+    n = 120_000
+    t = pa.table({"a": pa.array(np.arange(n, dtype=np.int64)),
+                  "b": pa.array(np.arange(n, dtype=np.float64))})
+    p = tmp_path / "drain.parquet"
+    papq.write_table(t, str(p), row_group_size=n // 4)
+    pf = pqt.ParquetFile(str(p))
+    last = None
+    parts = []
+    for b in pf.iter_batches(batch_rows=10_000, device=CPU):
+        parts.append(b["a"].values.numpy())
+        last = b
+    np.testing.assert_array_equal(np.concatenate(parts), np.arange(n))
+    rs = last.read_stats
+    assert rs.backend == "advise"
+    assert rs.bytes_dropbehind > 0
+    assert rs.as_dict()["bytes_dropbehind"] == rs.bytes_dropbehind
+    pf.close()
+
+
+def test_dropbehind_trails_the_frontier(tmp_path, monkeypatch):
+    monkeypatch.setenv("PARQUET_TPU_TORCH_MMAP_DROPBEHIND", "1")
+    path, data = _mmap_file(tmp_path, nbytes=1 << 20)
+    src = MmapSource(path)
+    pre = PrefetchSource(src, backend="advise", window_bytes=64 * 1024)
+    pre.plan(0, len(data))
+    assert pre.pread(0, 256 * 1024) == data[:256 * 1024]
+    # the read's own span is not dropped: its view is not decoded yet
+    assert pre.stats.bytes_dropbehind == 0
+    assert pre.pread(256 * 1024, 256 * 1024) == data[256 * 1024:512 * 1024]
+    assert pre.stats.bytes_dropbehind > 0  # the first span, mid-drain
+    mid = pre.stats.bytes_dropbehind
+    pre.close()
+    assert pre.stats.bytes_dropbehind >= mid  # the rest at the end
+    assert src.pread(4096, 64) == data[4096:4160]  # reads still correct
+    src.close()
+
+
+def test_make_prefetcher_sizes_the_ring_by_streams(monkeypatch):
+    monkeypatch.setenv(MODE, "ring")
+    assert make_prefetcher(BytesSource(b"x" * 100)).max_windows == 8
+    assert make_prefetcher(BytesSource(b"x" * 100),
+                           n_streams=7).max_windows == 14
