@@ -1,6 +1,6 @@
 """Drive parquet_tpu_torch's device read, batched point lookups, device
-scan, multi-file and sharded reads and streamed reads on one CUDA card
-and check them.
+scan, multi-file and sharded reads, streamed reads, typed reads, rows,
+merge and sort on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
@@ -232,6 +232,42 @@ Phases, each fatal on failure:
    ``CorruptedError`` naming the CRC, ``skip_row_group`` drops that row
    group alone (the rest equal), and the clean file's read with and
    without the check, best of 3 warm each (``{"crc": ...}``);
+5i. what reads through the stream (the typed reader and writer, the row
+   model, the ordered merge and sort), each check fatal: (a) 1,048,576
+   seeded ``Event`` dataclasses (unique ``id``, ``region`` of 200,
+   ``user`` of 20,000, a UTC ``ts``, a ``day``, ``score`` 5 % None, 0-4
+   ``tags`` of 32, 0-3 ``attrs``, ``geo`` 10 % None) written by
+   ``write_objects`` with the default options (Snappy, checked) in
+   262,144-row row groups, drained by ``TypedReader(..., batch_rows=65,536,
+   device="cuda").read(100,000)`` to the end and read by
+   ``read_objects``, both equal to the generated objects (a null ``geo``
+   read as ``Geo(None, None)``, as the JAX package reads it),
+   ``read_pytree`` equal to ``ParquetFile.read``, both unpack kernels
+   launched and the card's allocated bytes back (``{"typed": ...}``);
+   (b) 262,144 Documents of the Dremel paper's schema written by
+   ``write_rows`` (65,536-row row groups, 8 KiB pages, page index),
+   ``read_rows(device="cuda")`` equal to the records, ``FileRows.seek_to_row``
+   at 16 offsets (0, a page boundary, a row-group boundary, the last row,
+   one past the end, 11 seeded) and ``read_rows(4,096)`` equal to the
+   records there, ``copy_rows`` into a second file whose whole read
+   equals the first's (``{"rows": ...}``); (c) phase 4b's lineitem at
+   4 x 1,048,576 rows (8 runs cut to 4 for the phase's time)
+   lexsorted by (``l_orderkey``, ``l_extendedprice``) and dealt round
+   robin into 4 sorted runs (Snappy, 524,288-row row
+   groups), merged by ``merge_files(..., batch_rows=65,536,
+   device="cuda")`` equal to the sorted input (tie groups as sets) and
+   by ``iter_merged`` in sorted chunks that concatenate to it
+   (``{"merge": ...}``); (d) 1,048,576 lineitem rows in a seeded order
+   through ``SortingWriter`` by (``l_shipdate`` descending,
+   ``l_orderkey``, ``l_extendedprice``), ``buffer_rows=131,072`` (8
+   spills), equal to the input sorted so on the host, no spill left
+   after ``close`` nor after an ``abort`` (``{"sort": ...}``).  Each line
+   gives the write, the cold run and the best of 2 warm runs beside as
+   many whole reads of the same file, objects, records or rows a second,
+   the seconds by step (the stream's pulls; assembly, window keys and
+   permutes, host copies, the writer), pulls, syncs, launches and peak
+   device bytes; ``unpack_bits_dense`` must launch in all four,
+   ``dict_unpack_gather`` in the typed drain;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -290,6 +326,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import datetime
 import gc
 import json
 import os
@@ -299,13 +337,18 @@ import sys
 import tempfile
 import threading
 import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 import parquet_tpu_torch as pq
 from parquet_tpu_torch import codecs
-from parquet_tpu_torch.format.enums import Encoding, PageType, Type
+from parquet_tpu_torch.algebra import buffer as algebra_buffer
+from parquet_tpu_torch.algebra import merge as algebra_merge
+from parquet_tpu_torch.format.enums import (CompressionCodec, Encoding,
+                                            PageType, Type)
+from parquet_tpu_torch.format.enums import FieldRepetitionType as Rep
 from parquet_tpu_torch.io import bloom, lookup
 from parquet_tpu_torch.io.column import concat_columns
 from parquet_tpu_torch.io.reader import (data_page_bodies, page_infos,
@@ -824,7 +867,8 @@ def main_path(rows: int, seed: int, tmp: str) -> dict:
     table = make_table(rows, seed)
     path = os.path.join(tmp, "main.parquet")
     t0 = time.perf_counter()
-    pq.write_table(table, path, pq.WriterOptions(column_encoding=ENCODINGS))
+    pq.write_table(table, path, pq.WriterOptions(
+        column_encoding=ENCODINGS, compression="uncompressed"))
     write_s = time.perf_counter() - t0
 
     with ColumnLaunches() as by_column:
@@ -1799,7 +1843,8 @@ def nested_path(n: int, mix_rows: int, seed: int, tmp: str) -> dict:
     path = os.path.join(tmp, "cfg4.parquet")
     t0 = time.perf_counter()
     pq.write_table(data, path, pq.WriterOptions(column_encoding={
-        "ts.list.element": Encoding.DELTA_BINARY_PACKED}), schema=schema)
+        "ts.list.element": Encoding.DELTA_BINARY_PACKED},
+        compression="uncompressed"), schema=schema)
     write_s = time.perf_counter() - t0
     got = read_and_check(path, want, 4, check_nested)
     rows = n // 4
@@ -3142,6 +3187,7 @@ def struct_lookup_path(card: str, rows: int, seed: int, tmp: str) -> dict:
     pq.write_table({"l.list.element": ColumnData(
         values=np.arange(6, dtype=np.int64),
         list_offsets=[np.array([0, 2, 2, 6], np.int64)])}, lpath,
+        pq.WriterOptions(compression="uncompressed"),
         schema=S.message("m", [S.list_of("l", S.leaf("element",
                                                      Type.INT64))]))
     try:
@@ -3730,23 +3776,16 @@ def stream_entry(card: str, name: str, ref: WholeRead, batch_rows: int,
             "preads": pre, "card": card}
 
 
-class StageTimes:
-    """Seconds and calls of the streamed read's steps inside the block: a
-    pull's plan and staging (``device_reader._prepare``) and device decode
-    (``decode_staged``), its row starts (``stream.piece_from_column``),
-    the slices (``_slice_rows``) and a batch's concatenation
-    (``_concat_pending``)."""
+class Steps:
+    """Seconds and calls, inside the block, of the functions named in
+    ``targets`` (``{step: (owner, attribute)}``), each call timed on its
+    own, from any thread (a step's calls nested in another step count in
+    both)."""
 
-    def __init__(self):
-        from parquet_tpu_torch.io import stream
-
-        self._targets = {"prepare": (device_reader, "_prepare"),
-                         "decode": (device_reader, "decode_staged"),
-                         "piece": (stream, "piece_from_column"),
-                         "slice": (stream, "_slice_rows"),
-                         "concat": (stream, "_concat_pending")}
-        self.seconds = dict.fromkeys(self._targets, 0.0)
-        self.calls = dict.fromkeys(self._targets, 0)
+    def __init__(self, targets: dict):
+        self._targets = targets
+        self.seconds = dict.fromkeys(targets, 0.0)
+        self.calls = dict.fromkeys(targets, 0)
         self._lock = threading.Lock()
         self._saved = []
 
@@ -3768,18 +3807,36 @@ class StageTimes:
         return self
 
     def __exit__(self, *exc):
-        for owner, attr, real in self._saved:
+        for owner, attr, real in reversed(self._saved):
             setattr(owner, attr, real)
         self._saved = []
 
 
+#: a streamed read's steps: a pull's plan and staging, its device decode
+#: and its row starts, the slices and a batch's concatenation
+PULL_STEPS = ("prepare", "decode", "piece", "slice", "concat")
+
+
+def pull_steps() -> dict:
+    from parquet_tpu_torch.io import stream
+
+    return dict(zip(PULL_STEPS, (
+        (device_reader, "_prepare"), (device_reader, "decode_staged"),
+        (stream, "piece_from_column"), (stream, "_slice_rows"),
+        (stream, "_concat_pending"))))
+
+
+def pulls_s(steps: Steps) -> float:
+    return sum(steps.seconds[k] for k in PULL_STEPS if k in steps.seconds)
+
+
 def stream_breakdown(card: str, path: str, batch_rows: int = 65_536) -> dict:
     """The 5-column drain at ``batch_rows`` twice, each with the seconds of
-    its steps (:class:`StageTimes`); then one drain under the profiler,
-    for the device's idle share."""
+    its steps (:class:`Steps` of :func:`pull_steps`); then one drain under
+    the profiler, for the device's idle share."""
     runs = []
     for _ in range(2):
-        with StageTimes() as st:
+        with Steps(pull_steps()) as st:
             t0 = time.perf_counter()
             consume(drain(pq.ParquetFile(path), batch_rows))
             wall = time.perf_counter() - t0
@@ -3921,6 +3978,686 @@ def stream_path(card: str, read: dict, item: dict, nested: dict,
     del ref
     log({"stream": entries, "dropbehind": dropbehind, "card": card})
     log({"crc": crc_checks(card, read["path"])})
+    return {"launches": total}
+
+
+# ---------------------------------------------------------------------------
+# phase 5i: typed reads, rows, merge and sort
+# ---------------------------------------------------------------------------
+
+TYPED_ROWS = 1 << 20
+TYPED_ROW_GROUP = 1 << 18
+TYPED_BATCH = 65_536
+TYPED_READ = 100_000
+DOC_ROWS = 1 << 18
+DOC_ROW_GROUP = 1 << 16
+DOC_PAGE = 8 << 10
+DOC_SEEKS = 16
+DOC_SEEK_ROWS = 4_096
+MERGE_RUNS = 4  # 8 runs cut to 4: phase 5i's merges took 270 s at 8
+MERGE_RUN_ROWS = 1 << 20
+MERGE_ROW_GROUP = 1 << 19
+MERGE_BATCH = 65_536
+MERGE_KEYS = ("l_orderkey", "l_extendedprice")
+SORT_ROWS = 1 << 20
+SORT_BUFFER = 131_072
+SORT_KEYS = (("l_shipdate", True), ("l_orderkey", False),
+             ("l_extendedprice", False))
+WARM_5I = 2  # warm runs a path, the best of them reported
+SNAPPY = int(CompressionCodec.SNAPPY)
+
+
+@dataclasses.dataclass
+class Geo:
+    lat: float
+    lon: float
+
+
+@dataclasses.dataclass
+class Event:
+    id: int
+    region: int
+    user: str
+    ts: datetime.datetime
+    day: datetime.date
+    score: Optional[float]
+    tags: List[str]
+    attrs: Dict[str, int]
+    geo: Optional[Geo]
+
+
+def make_events(n: int, seed: int) -> tuple:
+    """``n`` seeded ``Event``s: unique ids, 200 regions, 20,000 users, 5 %
+    null scores, 0-4 tags of 32, 0-3 attributes, 10 % null geos."""
+    rng = np.random.default_rng(seed + 19)
+    ids = rng.permutation(n).tolist()
+    region = rng.integers(0, 200, n).tolist()
+    users = [f"user{i:05d}" for i in range(20_000)]
+    uidx = rng.integers(0, 20_000, n).tolist()
+    ts = (np.datetime64("2020-01-01T00:00:00", "us") + rng.integers(
+        0, 10**14, n).astype("timedelta64[us]")).astype(object).tolist()
+    day = (np.datetime64("1990-01-01") + rng.integers(0, 15_000, n).astype(
+        "timedelta64[D]")).astype(object).tolist()
+    score = rng.random(n).tolist()
+    null_score = (rng.random(n) < 0.05).tolist()
+    pool = [f"tag{i:02d}" for i in range(32)]
+    ntags = rng.integers(0, 5, n)
+    tag_idx = rng.integers(0, 32, int(ntags.sum())).tolist()
+    nattr = rng.integers(0, 4, n).tolist()
+    attr_vals = rng.integers(-1000, 1000, (n, 3)).tolist()
+    null_geo = (rng.random(n) < 0.10).tolist()
+    lat, lon = rng.random(n).tolist(), rng.random(n).tolist()
+    utc = datetime.timezone.utc
+    objs, t = [], 0
+    for i in range(n):
+        k = int(ntags[i])
+        tags = [pool[j] for j in tag_idx[t:t + k]]
+        t += k
+        objs.append(Event(
+            id=ids[i], region=region[i], user=users[uidx[i]],
+            ts=ts[i].replace(tzinfo=utc), day=day[i],
+            score=None if null_score[i] else score[i], tags=tags,
+            attrs={f"a{j}": attr_vals[i][j] for j in range(nattr[i])},
+            geo=None if null_geo[i] else Geo(lat[i], lon[i])))
+    return objs
+
+
+def as_read(objs: list) -> list:
+    """The objects as the typed read gives them back (in place): a null
+    ``geo`` as ``Geo(None, None)``, the JAX package's reading, which the
+    port keeps."""
+    none_geo = Geo(None, None)
+    for o in objs:
+        if o.geo is None:
+            o.geo = none_geo
+    return objs
+
+
+def measured(run, sync_count: bool = False) -> dict:
+    """``run()`` once on a settled card: its wall, peak device bytes
+    above the start, the bytes left allocated, its launches and pulls
+    (and, with ``sync_count``, its synchronizing calls); ``out`` is its
+    result."""
+    pq.reset_launches()
+    pq.reset_stream()
+    reset_routes()
+    start = settled_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = {}
+
+    def once():
+        t0 = time.perf_counter()
+        got["out"] = run()
+        torch.cuda.synchronize()
+        got["wall_s"] = time.perf_counter() - t0
+
+    syncs = count_syncs(once) if sync_count else None
+    if not sync_count:
+        once()
+    got["peak_bytes"] = torch.cuda.max_memory_allocated() - start
+    got["launches"] = dict(pq.LAUNCHES)
+    got["pulls"] = pq.STREAM["pulls"]
+    got["host_pulls"] = pq.STREAM["host_pulls"]
+    if syncs is not None:
+        got["syncs"], got["syncs_by_line"] = syncs["count"], syncs["by_line"]
+    out = got.pop("out")
+    got["left_bytes"] = settled_allocated() - start
+    return out, got
+
+
+def warm_walls(run, whole_read, steps: dict) -> dict:
+    """:data:`WARM_5I` warm runs of ``run`` (each under :class:`Steps`
+    of ``steps``) in turns with as many whole reads of the same file:
+    the best of each and the best run's seconds by step."""
+    runs, reads = [], []
+    for _ in range(WARM_5I):
+        torch.cuda.synchronize()
+        with Steps(steps) as st:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del out
+        runs.append((wall, st))
+        t0 = time.perf_counter()
+        out = whole_read()
+        torch.cuda.synchronize()
+        reads.append(time.perf_counter() - t0)
+        del out
+    best, st = min(runs, key=lambda r: r[0])
+    return {"best_warm_s": best, "warm_s": [w for w, _ in runs],
+            "read_best_warm_s": min(reads), "read_warm_s": reads,
+            "step_s": st.seconds, "step_calls": st.calls,
+            "pulls_s": pulls_s(st), "host_s": best - pulls_s(st)}
+
+
+def check_launched(what: str, launches: dict, kernels) -> None:
+    for kernel in kernels:
+        if launches[kernel] == 0:
+            raise AssertionError(f"{what} launched no {kernel}")
+
+
+def codecs_of(path: str) -> set:
+    return {rg.rg.columns[i].meta_data.codec
+            for rg in pq.ParquetFile(path).row_groups
+            for i in range(len(rg.rg.columns))}
+
+
+def typed_path(card: str, seed: int, tmp: str) -> dict:
+    """Phase 5i(a): 1,048,576 ``Event``s written by ``write_objects`` with
+    the default options (Snappy, 262,144-row row groups), drained by
+    ``TypedReader(..., batch_rows=65,536, device="cuda").read(100,000)``
+    to the end, equal to the generated objects, as ``read_objects``;
+    ``read_pytree`` equal to ``ParquetFile.read``; both unpack kernels
+    launched, the card's allocated bytes back at the end."""
+    from parquet_tpu_torch import typed
+
+    t0 = time.perf_counter()
+    objs = make_events(TYPED_ROWS, seed)
+    gen_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "events.parquet")
+    t0 = time.perf_counter()
+    pq.write_objects(objs, path, Event, pq.WriterOptions(
+        row_group_size=TYPED_ROW_GROUP))
+    write_s = time.perf_counter() - t0
+    want = as_read(objs)
+    if codecs_of(path) != {SNAPPY}:
+        raise AssertionError(f"typed file codecs {codecs_of(path)}")
+
+    def drain():
+        r = pq.TypedReader(path, Event, batch_rows=TYPED_BATCH,
+                           device=DEVICE)
+        out = []
+        while True:
+            got = r.read(TYPED_READ)
+            if not got:
+                return out
+            out += got
+
+    got, cold = measured(drain, sync_count=True)
+    if got != want:
+        raise AssertionError("typed drain: objects differ from the "
+                             "generated ones")
+    del got
+    check_launched("the typed drain", cold["launches"], READ_KERNELS)
+    no_host_route("the typed drain")
+    if cold["left_bytes"]:
+        raise AssertionError(f"the typed drain left {cold['left_bytes']} "
+                             "bytes allocated on the card")
+    t0 = time.perf_counter()
+    if pq.read_objects(path, Event, device=DEVICE) != want:
+        raise AssertionError("read_objects differs from the generated "
+                             "objects")
+    read_objects_s = time.perf_counter() - t0
+    tree = pq.read_pytree(path, device=DEVICE)
+    whole = pq.ParquetFile(path).read(device=DEVICE)
+    for name, col in whole.items():
+        t = tree[name]
+        pairs = ((t["dictionary"][0], col.dictionary[0]),
+                 (t["dictionary"][1], col.dictionary[1]),
+                 (t["indices"], col.dict_indices)) \
+            if isinstance(t, dict) and "indices" in t else \
+            ((t["values"], col.values), (t["offsets"], col.offsets)) \
+            if isinstance(t, dict) else ((t, col.values),)
+        for a, b in pairs:
+            if a.device.type != torch.device(DEVICE).type or \
+                    not torch.equal(a, b):
+                raise AssertionError(f"read_pytree {name} differs")
+    del tree, whole, want, objs
+    steps = {**pull_steps(), "assembly": (typed, "_assemble"),
+             "to_pylist": (pq.Column, "to_pylist")}
+    warm = warm_walls(drain, lambda: pq.ParquetFile(path).read(
+        device=DEVICE), steps)
+    out = {"rows": TYPED_ROWS, "row_group_rows": TYPED_ROW_GROUP,
+           "batch_rows": TYPED_BATCH, "read_n": TYPED_READ,
+           "file_bytes": os.path.getsize(path), "generate_s": gen_s,
+           "write_s": write_s, "write_objects_per_s": TYPED_ROWS / write_s,
+           "cold_s": cold["wall_s"], **warm,
+           "objects_per_s": TYPED_ROWS / warm["best_warm_s"],
+           "read_rows_per_s": TYPED_ROWS / warm["read_best_warm_s"],
+           "read_objects_s": read_objects_s,
+           "pulls": cold["pulls"], "syncs": cold["syncs"],
+           "syncs_by_line": cold["syncs_by_line"],
+           "launches": cold["launches"], "peak_bytes": cold["peak_bytes"],
+           "card": card}
+    log({"typed": out})
+    return cold["launches"]
+
+
+def doc_schema() -> Schema:
+    """The Dremel paper's ``Document`` (Melnik et al., VLDB 2010, Fig. 2)."""
+    ba = Type.BYTE_ARRAY
+    return S.message("Document", [
+        S.leaf("DocId", Type.INT64),
+        S.group("Links", [S.repeated(S.leaf("Backward", Type.INT64)),
+                          S.repeated(S.leaf("Forward", Type.INT64))],
+                Rep.OPTIONAL),
+        S.group("Name", [
+            S.group("Language", [
+                S.leaf("Code", ba, logical=LogicalKind.STRING),
+                S.optional(S.leaf("Country", ba,
+                                  logical=LogicalKind.STRING))],
+                Rep.REPEATED),
+            S.optional(S.leaf("Url", ba, logical=LogicalKind.STRING))],
+            Rep.REPEATED)])
+
+
+def make_documents(n: int, seed: int) -> list:
+    """``n`` seeded Documents: 20 % without ``Links``, 0-2 backward and
+    forward links, 0-2 names of 0-2 languages (half without a country),
+    60 % of names with a URL."""
+    rng = np.random.default_rng(seed + 23)
+    codes = [f"en-{c}" for c in "abcde"]
+    countries = ["us", "gb", "nz"]
+    out = []
+    for i in range(n):
+        r = rng.random(8)
+        links = None
+        if r[0] < 0.8:
+            links = {"Backward": list(range(i % 3)),
+                     "Forward": [int(x) for x in rng.integers(
+                         0, n, int(r[1] * 3))]}
+        names = []
+        for _ in range(int(r[2] * 3)):
+            names.append({
+                "Language": [{"Code": codes[int(rng.integers(5))],
+                              "Country": (countries[int(rng.integers(3))]
+                                          if rng.random() < 0.5 else None)}
+                             for _ in range(int(rng.integers(0, 3)))],
+                "Url": (f"http://{int(rng.integers(1000))}"
+                        if rng.random() < 0.6 else None)})
+        out.append({"DocId": i, "Links": links, "Name": names})
+    return out
+
+
+def host_columns(cols: dict) -> dict:
+    """A read's columns on the host: values (byte arrays: values and
+    offsets), validity, each level's list offsets and validity."""
+    out = {}
+    for name, col in cols.items():
+        got = col.materialize_host()
+        out[name] = (got["values"] if isinstance(got, dict) else got,
+                     None if col.validity is None
+                     else col.validity.cpu().numpy(),
+                     [o.cpu().numpy() for o in col.list_offsets],
+                     [v.cpu().numpy() for v in col.list_validity])
+    return out
+
+
+def same_host_columns(a: dict, b: dict, what: str) -> None:
+    if list(a) != list(b):
+        raise AssertionError(f"{what}: columns differ")
+    for name in a:
+        (va, ma, oa, la), (vb, mb, ob, lb) = a[name], b[name]
+        same = _equal(va, vb) and len(oa) == len(ob) and all(
+            np.array_equal(x, y) for x, y in zip(oa + la, ob + lb))
+        same = same and ((ma is None and mb is None) or (
+            ma is not None and mb is not None and np.array_equal(ma, mb))
+            or (ma is None and bool(mb.all())) or (mb is None
+                                                   and bool(ma.all())))
+        if not same:
+            raise AssertionError(f"{what}: {name} differs")
+
+
+def rows_path(card: str, seed: int, tmp: str) -> dict:
+    """Phase 5i(b): 262,144 Documents written by ``write_rows`` (65,536-row
+    row groups, 8 KiB pages, page index); ``read_rows(device="cuda")``
+    equal to the records; ``FileRows.seek_to_row`` at 16 offsets (0, a
+    page boundary, a row-group boundary, the last row, one past the end,
+    and seeded ones) then ``read_rows(4,096)`` equal to the records
+    there; ``copy_rows`` into a ``WriterRows`` of a second file whose
+    whole read equals the first's."""
+    from parquet_tpu_torch import rows
+
+    schema = doc_schema()
+    t0 = time.perf_counter()
+    recs = make_documents(DOC_ROWS, seed)
+    gen_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "documents.parquet")
+    opts = pq.WriterOptions(row_group_size=DOC_ROW_GROUP,
+                            data_page_size=DOC_PAGE)
+    t0 = time.perf_counter()
+    pq.write_rows(path, schema, recs, opts)
+    write_s = time.perf_counter() - t0
+    pf = pq.ParquetFile(path)
+    locs = pf.row_group(0).column(0).offset_index().page_locations
+    if len(locs) < 2:
+        raise AssertionError("the Document file's DocId has one page")
+    got, cold = measured(lambda: list(pq.read_rows(path, device=DEVICE)),
+                         sync_count=True)
+    if got != recs:
+        raise AssertionError("read_rows differs from the records")
+    del got
+    check_launched("the row read", cold["launches"], ("unpack_bits_dense",))
+    no_host_route("the row read")
+    rng = np.random.default_rng(seed + 29)
+    offsets = [0, locs[1].first_row_index, DOC_ROW_GROUP, DOC_ROWS - 1,
+               DOC_ROWS] + sorted(rng.integers(
+                   1, DOC_ROWS, DOC_SEEKS - 5).tolist())
+    seek_s = []
+    for r in offsets:
+        t0 = time.perf_counter()
+        cur = pq.FileRows(pq.ParquetFile(path), device=DEVICE)
+        cur.seek_to_row(r)
+        got = [pq.reconstruct(schema, row)
+               for row in cur.read_rows(DOC_SEEK_ROWS)]
+        seek_s.append(time.perf_counter() - t0)
+        if got != recs[r:r + DOC_SEEK_ROWS]:
+            raise AssertionError(f"seek_to_row({r}) differs")
+    copy = os.path.join(tmp, "documents_copy.parquet")
+    t0 = time.perf_counter()
+    w = pq.ParquetWriter(copy, schema, opts)
+    n = pq.copy_rows(rows.WriterRows(w), pq.FileRows(
+        pq.ParquetFile(path), device=DEVICE))
+    w.close()
+    copy_s = time.perf_counter() - t0
+    if n != DOC_ROWS:
+        raise AssertionError(f"copy_rows moved {n} rows")
+    same_host_columns(host_columns(pq.ParquetFile(copy).read(device=DEVICE)),
+                      host_columns(pq.ParquetFile(path).read(device=DEVICE)),
+                      "the copied file")
+    del recs
+    steps = {"decode_span": (device_reader, "decode_chunk_span"),
+             "slots": (rows, "_column_slots"),
+             "assembly": (rows._Assembler, "assemble")}
+    warm = warm_walls(lambda: list(pq.read_rows(path, device=DEVICE)),
+                      lambda: pq.ParquetFile(path).read(device=DEVICE),
+                      steps)
+    warm["pulls_s"] = warm["step_s"]["decode_span"]
+    warm["host_s"] = warm["best_warm_s"] - warm["pulls_s"]
+    out = {"rows": DOC_ROWS, "row_group_rows": DOC_ROW_GROUP,
+           "page_bytes": DOC_PAGE, "file_bytes": os.path.getsize(path),
+           "generate_s": gen_s, "write_s": write_s,
+           "write_records_per_s": DOC_ROWS / write_s,
+           "cold_s": cold["wall_s"], **warm,
+           "records_per_s": DOC_ROWS / warm["best_warm_s"],
+           "read_rows_per_s": DOC_ROWS / warm["read_best_warm_s"],
+           "seek_offsets": offsets, "seek_read_s": seek_s,
+           "copy_rows_s": copy_s, "syncs": cold["syncs"],
+           "syncs_by_line": cold["syncs_by_line"],
+           "launches": cold["launches"], "peak_bytes": cold["peak_bytes"],
+           "card": card}
+    log({"rows": out})
+    return cold["launches"]
+
+
+def host_table(cols: dict, order: Optional[np.ndarray] = None) -> dict:
+    """``{name: ColumnData}`` on the host (rows in ``order``): byte arrays
+    as (values, offsets), the rest as arrays."""
+    out = {}
+    for name, cd in cols.items():
+        if cd.offsets is not None:
+            v, o = np.asarray(cd.values), np.asarray(cd.offsets, np.int64)
+            out[name] = (v, o) if order is None else gather_byte_arrays(
+                v, o, order)
+        else:
+            v = np.asarray(cd.values)
+            out[name] = v if order is None else v[order]
+    return out
+
+
+def rows_of(table: dict, r0: int, r1: int) -> dict:
+    out = {}
+    for name, v in table.items():
+        if isinstance(v, tuple):
+            data, o = v
+            out[name] = (data[o[r0]:o[r1]], o[r0:r1 + 1] - o[r0])
+        else:
+            out[name] = v[r0:r1]
+    return out
+
+
+def row_tuples(table: dict, idx) -> list:
+    """Rows ``idx`` of a host table as tuples (a tie group's set)."""
+    out = []
+    for i in idx:
+        row = []
+        for v in table.values():
+            if isinstance(v, tuple):
+                data, o = v
+                row.append(data[o[i]:o[i + 1]].tobytes())
+            else:
+                row.append(v[i].tobytes())
+        out.append(tuple(row))
+    return sorted(out)
+
+
+def check_sorted_output(got: dict, want: dict, keys, what: str) -> int:
+    """``got`` (host columns of a merge or sort) against ``want`` (the
+    input sorted by ``keys`` on the host): equal row for row, but inside
+    a group of rows that tie on every key, which is compared as a set.
+    Returns the tied rows."""
+    first = next(iter(want.values()))
+    n = len(first[1]) - 1 if isinstance(first, tuple) else len(first)
+    ties = np.ones(max(n - 1, 0), bool)
+    for k in keys:
+        ties &= want[k][1:] == want[k][:-1]
+    tied = np.zeros(n, bool)
+    tied[:-1] |= ties
+    tied[1:] |= ties
+    bad = np.zeros(n, bool)
+    for name, b in want.items():
+        a = got[name]
+        if isinstance(b, tuple):
+            (av, ao), (bv, bo) = a, b
+            if len(ao) != len(bo):
+                raise AssertionError(f"{what}: {name} has {len(ao) - 1} "
+                                     f"rows for {n}")
+            bad |= (ao[1:] != bo[1:]) | (ao[:-1] != bo[:-1])
+            if len(av) != len(bv):
+                raise AssertionError(f"{what}: {name}'s bytes differ")
+            pos = np.flatnonzero(av != bv)
+            bad[np.searchsorted(bo, pos, "right") - 1] = True
+        else:
+            if a.shape != b.shape or a.dtype != b.dtype:
+                raise AssertionError(f"{what}: {name} is {a.dtype} "
+                                     f"{a.shape}, not {b.dtype} {b.shape}")
+            bad |= (a.view(np.uint8).reshape(n, -1)
+                    != b.view(np.uint8).reshape(n, -1)).any(1)
+    if (bad & ~tied).any():
+        raise AssertionError(f"{what}: row {int(np.flatnonzero(bad & ~tied)[0])}"
+                             " differs")
+    edges = np.diff(np.concatenate([[0], tied.astype(np.int8), [0]]))
+    for s0, e0 in zip(np.flatnonzero(edges == 1), np.flatnonzero(edges == -1)):
+        if bad[s0:e0].any() and row_tuples(got, range(s0, e0)) != \
+                row_tuples(want, range(s0, e0)):
+            raise AssertionError(f"{what}: the tie group at row {s0} "
+                                 "differs")
+    return int(tied.sum())
+
+
+def read_host(path: str) -> dict:
+    """A file's flat columns read on the card, on the host."""
+    out = {}
+    for name, col in pq.ParquetFile(path).read(device=DEVICE).items():
+        got = col.materialize_host()
+        out[name] = got
+    return out
+
+
+def merge_steps() -> dict:
+    return {**pull_steps(),
+            "host_copies": (algebra_merge, "column_to_data"),
+            "window_extend": (algebra_merge, "_extend_cd"),
+            "window_keys": (algebra_merge, "_merge_keys"),
+            "window_check": (algebra_merge, "_check_runs_sorted"),
+            "window_permute": (algebra_merge, "permute_column"),
+            "writer": (pq.ParquetWriter, "write_row_group")}
+
+
+def merge_path(card: str, seed: int, tmp: str) -> dict:
+    """Phase 5i(c): phase 4b's lineitem generator at MERGE_RUNS x
+    1,048,576 rows, lexsorted by (``l_orderkey``, ``l_extendedprice``) and
+    dealt round robin into MERGE_RUNS sorted runs (Snappy, 524,288-row row
+    groups, ``l_orderkey`` DELTA_BINARY_PACKED as a sorted key is
+    written), whose key ranges overlap completely; ``merge_files(...,
+    batch_rows=65,536, device="cuda")`` equal to the sorted input (tie
+    groups as sets); ``iter_merged``'s chunks each sorted, together the
+    same rows."""
+    rows = MERGE_RUNS * MERGE_RUN_ROWS
+    t0 = time.perf_counter()
+    schema, data = make_lineitem(rows, seed)
+    order = np.lexsort((data["l_extendedprice"].values,
+                        data["l_orderkey"].values))
+    want = host_table(data, order)
+    del data
+    gen_s = time.perf_counter() - t0
+    runs = []
+    t0 = time.perf_counter()
+    for i in range(MERGE_RUNS):
+        path = os.path.join(tmp, f"merge_run{i}.parquet")
+        part = host_table({k: ColumnData(values=v[0], offsets=v[1])
+                           if isinstance(v, tuple) else ColumnData(values=v)
+                           for k, v in want.items()},
+                          np.arange(i, rows, MERGE_RUNS))
+        pq.write_table({k: ColumnData(values=v[0], offsets=v[1])
+                        if isinstance(v, tuple) else ColumnData(values=v)
+                        for k, v in part.items()}, path, pq.WriterOptions(
+            compression="snappy", row_group_size=MERGE_ROW_GROUP,
+            column_encoding={**LINEITEM_ENCODINGS,
+                             "l_orderkey": Encoding.DELTA_BINARY_PACKED}),
+            schema=schema)
+        runs.append(path)
+    write_s = time.perf_counter() - t0
+    sorting = [pq.SortingColumn(k) for k in MERGE_KEYS]
+    out_path = os.path.join(tmp, "merged.parquet")
+
+    def merge():
+        return pq.merge_files(runs, sorting, out_path,
+                              batch_rows=MERGE_BATCH, device=DEVICE)
+
+    with Steps({"windows": (algebra_merge, "_merge_keys")}) as win:
+        _, cold = measured(merge, sync_count=True)
+    windows = win.calls["windows"]
+    check_launched("the merge", cold["launches"], ("unpack_bits_dense",))
+    no_host_route("the merge")
+    tied = check_sorted_output(read_host(out_path), want, MERGE_KEYS,
+                               "merge_files")
+    if codecs_of(out_path) != {SNAPPY}:
+        raise AssertionError("merged file codecs")
+    # iter_merged: every chunk sorted, together the same rows
+    chunks, at = 0, 0
+    t0 = time.perf_counter()
+    for cols, n in pq.iter_merged(runs, sorting, batch_rows=MERGE_BATCH,
+                                  device=DEVICE):
+        k = np.asarray(cols["l_orderkey"].values)
+        p = np.asarray(cols["l_extendedprice"].values)
+        if ((k[1:] < k[:-1]) | ((k[1:] == k[:-1]) & (p[1:] < p[:-1]))).any():
+            raise AssertionError(f"iter_merged chunk {chunks} not sorted")
+        check_sorted_output(host_table(cols), rows_of(want, at, at + n),
+                            MERGE_KEYS, f"iter_merged chunk {chunks}")
+        at += n
+        chunks += 1
+    iter_s = time.perf_counter() - t0
+    if at != rows:
+        raise AssertionError(f"iter_merged gave {at} of {rows} rows")
+    del want
+    warm = warm_walls(merge, lambda: pq.ParquetFile(out_path).read(
+        device=DEVICE), merge_steps())
+    out = {"runs": MERGE_RUNS, "rows": rows, "run_rows": MERGE_RUN_ROWS,
+           "row_group_rows": MERGE_ROW_GROUP, "batch_rows": MERGE_BATCH,
+           "generate_s": gen_s, "write_runs_s": write_s,
+           "cold_s": cold["wall_s"], **warm,
+           "rows_per_s": rows / warm["best_warm_s"],
+           "read_rows_per_s": rows / warm["read_best_warm_s"],
+           "iter_merged_s": iter_s, "iter_merged_chunks": chunks,
+           "tied_rows": tied, "windows": windows,
+           "pulls": cold["pulls"], "syncs": cold["syncs"],
+           "syncs_per_window": cold["syncs"] / max(windows, 1),
+           "syncs_by_line": cold["syncs_by_line"],
+           "launches": cold["launches"], "peak_bytes": cold["peak_bytes"],
+           "file_bytes": os.path.getsize(out_path), "card": card}
+    log({"merge": out})
+    return cold["launches"]
+
+
+def sort_dirs() -> set:
+    return {d for d in os.listdir(tempfile.gettempdir())
+            if d.startswith("parquet_tpu_torch_sort_")}
+
+
+def sort_path(card: str, seed: int, tmp: str) -> dict:
+    """Phase 5i(d): 1,048,576 lineitem rows in a seeded random order
+    through ``SortingWriter`` by (``l_shipdate`` descending,
+    ``l_orderkey``, ``l_extendedprice``) with ``buffer_rows=131,072``:
+    8 spills, merged on the card; the output equal to the input sorted
+    that way on the host (tie groups as sets); no spill left after
+    ``close``, nor after an ``abort``."""
+    schema, data = make_lineitem(SORT_ROWS, seed + 1)
+    rng = np.random.default_rng(seed + 31)
+    shuffled = host_table(data, rng.permutation(SORT_ROWS))
+    del data
+    order = np.lexsort((shuffled["l_extendedprice"],
+                        shuffled["l_orderkey"], -shuffled["l_shipdate"]))
+    want = host_table({k: ColumnData(values=v[0], offsets=v[1])
+                       if isinstance(v, tuple) else ColumnData(values=v)
+                       for k, v in shuffled.items()}, order)
+    batches = [{k: ColumnData(values=v[0], offsets=v[1])
+                if isinstance(v, tuple) else ColumnData(values=v)
+                for k, v in rows_of(shuffled, r, r + SORT_BUFFER).items()}
+               for r in range(0, SORT_ROWS, SORT_BUFFER)]
+    sorting = [pq.SortingColumn(k, descending=d) for k, d in SORT_KEYS]
+    out_path = os.path.join(tmp, "sorted.parquet")
+    before = sort_dirs()
+    spills = []
+
+    def sort(n_batches=len(batches), abort=False):
+        w = pq.SortingWriter(out_path, schema, sorting,
+                             buffer_rows=SORT_BUFFER, device=DEVICE)
+        for b in batches[:n_batches]:
+            w.write(dict(b), SORT_BUFFER)  # the buffer rebinds its dict
+        spills.append(len(w.spills))
+        if abort:
+            w.abort()
+        else:
+            w.close()
+
+    _, cold = measured(sort, sync_count=True)
+    if spills[-1] != SORT_ROWS // SORT_BUFFER or sort_dirs() != before:
+        raise AssertionError(f"sort: {spills[-1]} spills, temporary "
+                             f"directories left {sort_dirs() - before}")
+    check_launched("the sort", cold["launches"], ("unpack_bits_dense",))
+    no_host_route("the sort")
+    tied = check_sorted_output(read_host(out_path), want,
+                               [k for k, _ in SORT_KEYS], "SortingWriter")
+    os.unlink(out_path)
+    sort(2, abort=True)
+    if sort_dirs() != before or os.path.exists(out_path):
+        raise AssertionError("an aborted sort left a spill or its output")
+    del want
+    steps = {**merge_steps(), "buffer_sort": (algebra_buffer.TableBuffer,
+                                              "sort"),
+             "spill": (pq.SortingWriter, "_spill"),
+             "merge": (pq.SortingWriter, "_merge_spills")}
+    warm = warm_walls(sort, lambda: pq.ParquetFile(out_path).read(
+        device=DEVICE), steps)
+    out = {"rows": SORT_ROWS, "buffer_rows": SORT_BUFFER,
+           "spills": spills[0], "keys": SORT_KEYS,
+           "cold_s": cold["wall_s"], **warm,
+           "rows_per_s": SORT_ROWS / warm["best_warm_s"],
+           "read_rows_per_s": SORT_ROWS / warm["read_best_warm_s"],
+           "tied_rows": tied, "pulls": cold["pulls"],
+           "syncs": cold["syncs"], "syncs_by_line": cold["syncs_by_line"],
+           "launches": cold["launches"], "peak_bytes": cold["peak_bytes"],
+           "card": card}
+    log({"sort": out})
+    return cold["launches"]
+
+
+def typed_rows_merge_path(card: str, seed: int, tmp: str) -> dict:
+    """Phase 5i: the typed reads, the row model, the merge and the sort on
+    the card (:func:`typed_path`, :func:`rows_path`, :func:`merge_path`,
+    :func:`sort_path`), each printing its line; returns their kernel
+    launches together."""
+    total = dict.fromkeys(pq.LAUNCHES, 0)
+    seconds = {}
+    for name, fn in (("typed", typed_path), ("rows", rows_path),
+                     ("merge", merge_path), ("sort", sort_path)):
+        t0 = time.perf_counter()
+        for k, v in fn(card, seed, tmp).items():
+            total[k] += v
+        seconds[name] = time.perf_counter() - t0
+    log({"phase_5i_s": seconds})
     return {"launches": total}
 
 
@@ -5595,6 +6332,8 @@ def main(argv=None) -> int:
                            multi["paths"], args.seed, tmp)
         stream = phase("5h_stream", stream_path, card, read, item, nested,
                        multi["paths"])
+        typed_rows = phase("5i_typed_rows_merge", typed_rows_merge_path,
+                           card, args.seed, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -5605,7 +6344,7 @@ def main(argv=None) -> int:
                      {"dataset": multi, "sharded": sharded,
                       "host_scan": hscan, "lookups": leftovers,
                       "struct_keys": struct, "resilience": resilience,
-                      "stream": stream})
+                      "stream": stream, "typed_rows_merge": typed_rows})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

@@ -27,6 +27,13 @@ pull of pages one device decode of that span, on the card or, with
 ``device="cpu"``, on the CPU), and opens files with the JAX package's
 ``ReadOptions``, whose ``verify_crc`` holds every page read to the CRC32
 its header carries (the writer writes one, ``WriterOptions.write_crc``).
+Above the columns: dataclasses (``schema_of``, ``TypedWriter``,
+``TypedReader``, whose ``read(n)`` drains the stream on the card), records
+of any nesting (``write_rows``, ``read_rows``, ``FileRows`` with
+``seek_to_row``, Dremel's ``deconstruct``/``reconstruct``), and sorted
+files (``SortingWriter``, which spills sorted runs, and ``merge_files`` /
+``iter_merged``, the k-way merge of sorted files, each run streamed from
+the card).
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -53,6 +60,12 @@ its header carries (the writer writes one, ``WriterOptions.write_crc``).
     for batch in pq.Dataset("parts/*.parquet").iter_batches():
         ...
     f = pq.ParquetFile("x.parquet", options=pq.ReadOptions(verify_crc=True))
+    pq.write_objects(events, "ev.parquet")            # dataclass instances
+    for batch in iter(lambda: pq.TypedReader("ev.parquet", Event).read(4096),
+                      []):
+        ...
+    pq.merge_files(["a.parquet", "b.parquet"], [pq.SortingColumn("k")],
+                   "ab.parquet")
 """
 
 from .algebra.expr import And, Col, Expr, Not, Or, col
@@ -73,8 +86,7 @@ from .io.reader import ColumnSet, ParquetFile, ReadOptions, RowGroupReader
 from .io.search import find, pages_overlapping, plan_scan, read_row_range
 from .io.source import MmapSource, RetryingSource, Source
 from .io.stream import STREAM, iter_batches, reset_stream
-from .io.writer import (ColumnData, ParquetWriter, WriterOptions, schema_of,
-                        write_table)
+from .io.writer import ColumnData, ParquetWriter, WriterOptions, write_table
 from .ops.kernels import LAUNCHES, reset_launches
 from .parallel.device_reader import (HOST_ROUTE, PIPELINE, PLAN_ROUTE,
                                      reset_host_route, reset_pipeline,
@@ -89,6 +101,13 @@ from .parallel.mesh import (MESH, ShardedTable, dataset_process_shard,
                             reset_mesh)
 from .schema.schema import (Schema, group, leaf, list_of, map_of, message,
                             optional, repeated)
+from .algebra import (SortingColumn, SortingWriter, TableBuffer,
+                      convert_table, iter_merged, merge_files,
+                      merge_row_groups)
+from .typed import (TypedReader, TypedWriter, read_objects, read_pytree,
+                    schema_of, write_objects)
+from .rows import (FileRows, Row, RowBuilder, Value, copy_rows, deconstruct,
+                   read_rows, reconstruct, write_rows)
 
 __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route",
@@ -112,7 +131,12 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "FaultInjectingSource", "PolicySource", "RetryingSource",
            "PrefetchSource", "ReadStats", "ReadError", "ReadIOError",
            "DeadlineError", "ShortReadError", "iter_batches", "ReadOptions",
-           "ColumnSet", "STREAM", "reset_stream"]
+           "ColumnSet", "STREAM", "reset_stream", "SortingColumn",
+           "SortingWriter", "TableBuffer", "convert_table", "iter_merged",
+           "merge_files", "merge_row_groups", "TypedReader", "TypedWriter",
+           "read_objects", "read_pytree", "write_objects", "FileRows", "Row",
+           "RowBuilder", "Value", "copy_rows", "deconstruct", "read_rows",
+           "reconstruct", "write_rows"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

@@ -15,12 +15,16 @@ rules:
 - FLOAT/DOUBLE: numeric, BOOLEAN as ``bool``;
 - BYTE_ARRAY, FIXED_LEN_BYTE_ARRAY and INT96 (not decimal): ``bytes`` in
   unsigned lexicographic order (a ``str`` probe is its UTF-8 bytes).
+
+The sort's side (:func:`compare_func_of`, :func:`sort_key`): nulls go
+first or last whatever the direction, NaN after every number, and equal
+values take equal ranks, so that ties fall through to the next key.
 """
 
 from __future__ import annotations
 
 import decimal
-from typing import Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 
@@ -180,3 +184,93 @@ def truncate_stat_max(raw: bytes, limit: int) -> Optional[bytes]:
             b[i] += 1
             return bytes(b[:i + 1])
     return None
+
+
+def _twos_complement_be(raw: bytes) -> int:
+    return int.from_bytes(raw, "big", signed=True)
+
+
+def compare_func_of(leaf: Leaf, descending: bool = False,
+                    nulls_first: bool = False) -> Callable[[Any, Any], int]:
+    """``cmp(a, b)`` -> -1/0/1 over order-domain values (None is null):
+    nulls first or last whatever ``descending`` says, NaN after every
+    number."""
+    null_rank = -1 if nulls_first else 1
+
+    def cmp(a, b) -> int:
+        if a is None or b is None:
+            if a is None and b is None:
+                return 0
+            return null_rank if a is None else -null_rank
+        if a != a or b != b:  # NaN: after every number
+            if a != a and b != b:
+                return 0
+            base = 1 if a != a else -1
+        else:
+            base = -1 if a < b else (1 if a > b else 0)
+        return -base if descending else base
+
+    return cmp
+
+
+def _dense_order_values(leaf: Leaf, cd, v0: int = 0,
+                        v1: Optional[int] = None) -> np.ndarray:
+    """Present values ``[v0, v1)`` of a :class:`ColumnData` in the order
+    domain: an object array of ``bytes`` (or decimal ints) for byte
+    arrays, FLBA and INT96, else the numeric array (unsigned columns
+    viewed unsigned)."""
+    t = leaf.physical_type
+    vals = np.asarray(cd.values)
+    if t == Type.BYTE_ARRAY:
+        offs = np.asarray(cd.offsets, np.int64)
+        if v1 is None:
+            v1 = len(offs) - 1
+        u8 = host.as_u8(vals)
+        items = [u8[offs[i]:offs[i + 1]].tobytes() for i in range(v0, v1)]
+    elif t in (Type.FIXED_LEN_BYTE_ARRAY, Type.INT96):
+        rows = host.as_u8(np.ascontiguousarray(vals)).reshape(
+            -1, leaf.type_length if t == Type.FIXED_LEN_BYTE_ARRAY else 12)
+        if v1 is None:
+            v1 = len(rows)
+        items = [r.tobytes() for r in rows[v0:v1]]
+    else:
+        if v1 is None:
+            v1 = len(vals)
+        vals = vals[v0:v1]
+        if is_unsigned(leaf) and vals.dtype in (np.dtype(np.int32),
+                                                np.dtype(np.int64)):
+            return vals.view(_UNSIGNED[t])
+        return vals
+    if _is_decimal(leaf):
+        items = [_twos_complement_be(x) for x in items]
+    out = np.empty(len(items), dtype=object)
+    out[:] = items
+    return out
+
+
+def sort_key(leaf: Leaf, cd, n: int, descending: bool = False,
+             nulls_first: bool = False) -> np.ndarray:
+    """A per-row sort key of one flat leaf for ``np.lexsort``: the values
+    themselves where nothing is null and the order is ascending and
+    numeric, else ranks (equal values equal ranks; nulls before or after
+    every value by ``nulls_first``, whatever the direction)."""
+    dense = _dense_order_values(leaf, cd)
+    validity = cd.validity
+    if validity is None and not descending and dense.dtype != object:
+        return dense
+    uniq, inv = np.unique(dense, return_inverse=True)
+    inv = inv.reshape(-1).astype(np.int64) + 1  # present ranks 1..k
+    k = len(uniq)
+    if validity is None:
+        ranks = inv
+    else:
+        validity = np.asarray(validity, bool)
+        ranks = np.empty(n, np.int64)
+        ranks[validity] = inv
+        ranks[~validity] = 0 if nulls_first else k + 1
+    if descending:  # flip the present ranks; nulls keep their place
+        flipped = (k + 1) - ranks
+        if validity is not None:
+            flipped[~validity] = ranks[~validity]
+        ranks = flipped
+    return ranks

@@ -87,7 +87,7 @@ class IntType:
 
 
 @thrift_struct
-class LogicalType:  # union; the port writes STRING, MAP, LIST
+class LogicalType:  # union
     _FIELDS = [(1, "STRING", _S(StringType)), (2, "MAP", _S(MapType)),
                (3, "LIST", _S(ListType)), (4, "ENUM", _S(EnumType)),
                (5, "DECIMAL", _S(DecimalType)), (6, "DATE", _S(DateType)),

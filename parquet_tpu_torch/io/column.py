@@ -16,11 +16,15 @@ dictionary kernel never materializes indexes, so they may be None.  A
 byte-array dictionary chunk stays encoded: ``values`` is None,
 ``dictionary`` is a ``(values, offsets)`` pair and ``dict_indices`` says
 which entry each value is (the Arrow DictionaryArray form);
-:meth:`Column.materialize` gathers it.
+:meth:`Column.materialize` gathers it.  :meth:`Column.to_pylist` gives
+each row as the Python objects the JAX package's
+``to_arrow().to_pylist()`` gives, without pyarrow.
 """
 
 from __future__ import annotations
 
+import datetime
+import decimal
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -28,8 +32,11 @@ import numpy as np
 
 import torch
 
+from ..errors import unsupported
+from ..format.enums import Type
 from ..ops import device as dev
 from ..schema.schema import Leaf
+from ..schema.types import LogicalKind
 
 
 @dataclass
@@ -102,15 +109,9 @@ class Column:
         ``validity``, ``list_offsets`` and ``list_validity`` (one array a
         repeated level, outermost first), ``def_levels`` and
         ``rep_levels``."""
-        if self.is_dictionary_encoded():
-            dv, do = self.dictionary
-            values, offsets = dev.gather_byte_arrays(dv, do,
-                                                     self.dict_indices)
-            values = values.cpu().numpy(), offsets.cpu().numpy()
-        elif self.offsets is not None:
-            values = self.values.cpu().numpy(), self.offsets.cpu().numpy()
-        else:
-            values = self.values.cpu().numpy()
+        values, offsets = self.host_dense()
+        if offsets is not None:
+            values = values, offsets
         if not self.list_offsets and self.def_levels is None:
             return values
         return {"values": values,
@@ -121,6 +122,132 @@ class Column:
                                   for v in self.list_validity],
                 "def_levels": self.def_levels,
                 "rep_levels": self.rep_levels}
+
+    def host_dense(self) -> tuple:
+        """``(values, offsets)`` of the dense present values on the host,
+        one copy a tensor (``offsets`` None but for byte arrays); an
+        encoded byte-array column copies its dictionary and indexes and
+        gathers on the host."""
+        if self.is_dictionary_encoded():
+            from ..ops import host
+
+            dv, do = self.dictionary
+            return host.gather_byte_arrays(dv.cpu().numpy(), do.cpu().numpy(),
+                                           self.dict_indices.cpu().numpy())
+        return (self.values.cpu().numpy(),
+                None if self.offsets is None else self.offsets.cpu().numpy())
+
+    def to_pylist(self) -> list:
+        """One Python object a row, built on the host from one copy of
+        each tensor: the objects pyarrow's ``to_pylist`` gives for the
+        leaf's type (``int``, ``float``, ``bool``, ``str``, ``bytes``,
+        ``datetime.date``, ``datetime.datetime`` in UTC for a UTC
+        timestamp, ``datetime.time``, ``decimal.Decimal``), ``None`` for a
+        null value or a null list, a list a repeated level.  A dictionary
+        column converts its entries once and gathers them on the host."""
+        leaf = self.leaf
+        validity = (None if self.validity is None
+                    else self.validity.cpu().numpy())
+        if leaf.logical_kind == LogicalKind.UNKNOWN:
+            items = [None] * (self.num_elements if validity is None
+                              else int(validity.sum()))
+        elif self.dictionary is not None and self.dict_indices is not None:
+            d = self.dictionary
+            entries = (_py_items(leaf, d[0].cpu().numpy(), d[1].cpu().numpy())
+                       if isinstance(d, tuple)
+                       else _py_items(leaf, d.cpu().numpy(), None))
+            table = np.empty(len(entries), dtype=object)
+            table[:] = entries
+            items = table[self.dict_indices.cpu().numpy()].tolist()
+        else:
+            items = _py_items(leaf, self.values.cpu().numpy(),
+                              None if self.offsets is None
+                              else self.offsets.cpu().numpy())
+        if validity is not None:
+            out = [None] * len(validity)
+            for i, v in zip(np.flatnonzero(validity).tolist(), items):
+                out[i] = v
+            items = out
+        for offs, lv in zip(reversed(self.list_offsets),
+                            reversed(self.list_validity)):
+            o = offs.cpu().numpy().tolist()
+            ok = (None if lv is None else lv.cpu().numpy().tolist())
+            items = [items[o[i]:o[i + 1]] if ok is None or ok[i] else None
+                     for i in range(len(o) - 1)]
+        return items
+
+
+def _utc():
+    """The ``tzinfo`` pyarrow gives a UTC timestamp: ``ZoneInfo("UTC")``
+    (``datetime.timezone.utc`` where no time-zone database is
+    installed)."""
+    try:
+        from zoneinfo import ZoneInfo
+
+        return ZoneInfo("UTC")
+    except Exception:
+        return datetime.timezone.utc
+
+
+_TS_UNITS = {LogicalKind.TIMESTAMP_MILLIS: "ms",
+             LogicalKind.TIMESTAMP_MICROS: "us"}
+_TIME_UNITS = {LogicalKind.TIME_MILLIS: 1000, LogicalKind.TIME_MICROS: 1}
+
+
+def _py_items(leaf: Leaf, values: np.ndarray, offsets) -> list:
+    """Dense present values as the Python objects of the leaf's type."""
+    kind, physical = leaf.logical_kind, leaf.physical_type
+    params = leaf.logical_params or {}
+    if physical == Type.BYTE_ARRAY:
+        buf = np.ascontiguousarray(values).view(np.uint8).tobytes()
+        o = np.asarray(offsets, np.int64).tolist()
+        raw = [buf[o[i]:o[i + 1]] for i in range(len(o) - 1)]
+        if kind in (LogicalKind.STRING, LogicalKind.ENUM, LogicalKind.JSON):
+            return [b.decode("utf-8") for b in raw]
+        if kind == LogicalKind.DECIMAL:
+            return [_decimal(int.from_bytes(b, "big", signed=True), params)
+                    for b in raw]
+        return raw
+    if physical == Type.FIXED_LEN_BYTE_ARRAY:
+        rows = np.ascontiguousarray(values, np.uint8).reshape(
+            -1, leaf.type_length)
+        if kind == LogicalKind.FLOAT16:
+            return rows.reshape(-1).view(np.float16).tolist()
+        if kind == LogicalKind.DECIMAL:
+            return [_decimal(int.from_bytes(r.tobytes(), "big",
+                                            signed=True), params)
+                    for r in rows]
+        return [r.tobytes() for r in rows]
+    if physical == Type.INT96 or kind in (LogicalKind.TIMESTAMP_NANOS,
+                                          LogicalKind.TIME_NANOS):
+        raise unsupported(f"Column.to_pylist of {leaf.name!r} "
+                          "(nanosecond times)", "arrow interop")
+    if kind == LogicalKind.INT:
+        dt = np.dtype(f"{'i' if params.get('signed', True) else 'u'}"
+                      f"{max(params.get('bit_width', 64), 8) // 8}")
+        return (values.astype(dt) if physical == Type.INT32
+                else values.view(dt)).tolist()
+    if kind == LogicalKind.DATE:
+        return values.astype(np.int64).astype("datetime64[D]").astype(
+            object).tolist()
+    if kind in _TS_UNITS:
+        out = values.astype(f"datetime64[{_TS_UNITS[kind]}]").astype(
+            object).tolist()
+        if params.get("utc"):
+            tz = _utc()
+            out = [v.replace(tzinfo=tz) for v in out]
+        return out
+    if kind in _TIME_UNITS:
+        scale = _TIME_UNITS[kind]
+        return [(datetime.datetime.min + datetime.timedelta(
+            microseconds=int(v) * scale)).time() for v in values.tolist()]
+    if kind == LogicalKind.DECIMAL:
+        return [_decimal(int(v), params) for v in values.tolist()]
+    return values.tolist()
+
+
+def _decimal(unscaled: int, params: dict) -> decimal.Decimal:
+    return decimal.Decimal(unscaled).scaleb(-params.get("scale", 0))
 
 
 def _concat_byte_arrays(values_parts, offsets_parts, sizes=None) -> tuple:

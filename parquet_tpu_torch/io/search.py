@@ -9,8 +9,9 @@ batch pushdown plan of a single-column predicate (one :class:`PagePlan`
 a surviving row group, from the planner's cascade in ``io/planner.py``);
 the seek of a row span, :func:`seek_pages` and :func:`pages_and_base`
 (with :func:`dictionary_pages`, the dictionary half of a seek); and
-:func:`read_row_range`, a flat column's rows decoded on the host from
-just the pages that cover them.
+:func:`read_row_range`, a column's rows decoded from just the pages
+that cover them (a flat column's on the host; a nested column's with its
+level streams, cut at the exact rows).
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..algebra.compare import normalize
-from ..errors import unsupported
 from ..format import metadata as md
 from ..format.enums import BoundaryOrder, Encoding, PageType, Type
 from ..schema.schema import Leaf
@@ -239,21 +239,23 @@ BA_ARRAYS = "ba_arrays"
 
 def read_row_range(pf, path, row_start: int, row_count: int,
                    aligned=False):
-    """Rows ``[row_start, row_start + row_count)`` of the flat column
-    ``path``, decoded on the host from only the pages that cover them.
-    ``aligned=False``: the present values (numpy; a list of ``bytes`` for
-    byte arrays).  ``aligned=True``: ``(values, validity)`` with one entry
-    a row, a null holding 0 (``None`` for byte arrays), ``validity`` None
-    where the span has no null.  ``aligned="arrays"``: the same, with a
-    byte-array span as ``("ba_arrays", values, offsets)`` over its present
-    values (the validity maps rows to them)."""
+    """Rows ``[row_start, row_start + row_count)`` of the column ``path``,
+    decoded from only the pages that cover them.  A flat column on the
+    host: ``aligned=False`` gives the present values (numpy; a list of
+    ``bytes`` for byte arrays), ``aligned=True`` ``(values, validity)``
+    with one entry a row, a null holding 0 (``None`` for byte arrays),
+    ``validity`` None where the span has no null, and
+    ``aligned="arrays"`` the same with a byte-array span as
+    ``("ba_arrays", values, offsets)`` over its present values.  A nested
+    column (``aligned`` refused) gives a :class:`Column` on the CPU of
+    exactly those rows: its level streams decoded with the span, cut at
+    row starts (``rep == 0``) and assembled again."""
     from .reader import decode_chunk_host
 
     leaf = pf.schema.leaf(path)
-    if leaf.max_repetition_level:
-        raise unsupported(f"read_row_range of the nested column "
-                          f"{leaf.name!r}", "the routed scan (nested row "
-                          "ranges)")
+    nested = leaf.max_repetition_level > 0
+    if aligned and nested:
+        raise ValueError("aligned=True is only defined for flat columns")
     parts = []
     start, remaining = row_start, row_count
     for rg in pf.row_groups:
@@ -265,11 +267,78 @@ def read_row_range(pf, path, row_start: int, row_count: int,
         take = min(rg.num_rows - start, remaining)
         chunk = rg.column(leaf.column_index)
         pages, first = pages_and_base(chunk, start, start + take)
-        col = decode_chunk_host(chunk, "cpu", pages=pages)
-        parts.append(_trim_host(col, start - first, take, aligned))
+        if nested:
+            from ..parallel.device_reader import decode_chunk_span
+
+            col = decode_chunk_span(chunk, "cpu", pages=pages,
+                                    keep_levels=True)
+            parts.append(_trim_nested(col, start - first, take))
+        else:
+            col = decode_chunk_host(chunk, "cpu", pages=pages)
+            parts.append(_trim_host(col, start - first, take, aligned))
         start = 0
         remaining -= take
+    if nested:
+        from .column import concat_columns
+
+        return (concat_columns(parts) if parts
+                else _nested_column(leaf, np.zeros(0, np.int32),
+                                    np.zeros(0, np.int32), None, None))
     return _concat_ranges(leaf, parts, aligned)
+
+
+def _trim_nested(col, offset: int, count: int):
+    """Rows ``[offset, offset + count)`` of a nested span decoded with its
+    level streams: the streams cut at row starts, the dense values to the
+    matching span, the lists assembled again for just those rows."""
+    rep = np.asarray(col.rep_levels)
+    d = np.asarray(col.def_levels)
+    starts = np.flatnonzero(rep == 0)
+    s0 = int(starts[offset]) if offset < len(starts) else len(rep)
+    s1 = (int(starts[offset + count]) if offset + count < len(starts)
+          else len(rep))
+    present = d == col.leaf.max_definition_level
+    v0 = int(np.count_nonzero(present[:s0]))
+    v1 = v0 + int(np.count_nonzero(present[s0:s1]))
+    col.materialize()
+    values = col.values.numpy()
+    if col.offsets is not None:
+        offs = col.offsets.numpy()
+        return _nested_column(col.leaf, d[s0:s1], rep[s0:s1],
+                              values[offs[v0]:offs[v1]],
+                              offs[v0:v1 + 1] - offs[v0])
+    return _nested_column(col.leaf, d[s0:s1], rep[s0:s1], values[v0:v1],
+                          None)
+
+
+def _nested_column(leaf, d, r, values, offsets):
+    """A CPU :class:`Column` of a nested leaf from its level streams and
+    dense values (None: no value)."""
+    import torch
+
+    from ..ops import levels
+    from ..schema.types import empty_values
+    from .column import Column
+
+    cpu = torch.device("cpu")
+    asm = levels.assemble(d, r, leaf)
+    if values is None:
+        vals = empty_values(leaf.physical_type, leaf.type_length, cpu)
+        if leaf.physical_type == Type.BYTE_ARRAY:
+            offsets = np.zeros(1, np.int64)
+    else:
+        vals = torch.from_numpy(np.array(values, copy=True))
+
+    def put(a):
+        return None if a is None else torch.from_numpy(np.array(a,
+                                                                copy=True))
+
+    return Column(leaf=leaf, values=vals, offsets=put(offsets),
+                  validity=put(asm.validity), num_slots=len(d),
+                  list_offsets=[put(o) for o in asm.list_offsets],
+                  list_validity=[put(v) for v in asm.list_validity],
+                  def_levels=np.asarray(d, np.int32),
+                  rep_levels=np.asarray(r, np.int32))
 
 
 def _trim_host(col, offset: int, count: int, aligned):

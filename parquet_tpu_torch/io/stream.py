@@ -219,6 +219,7 @@ class _ChunkCursor:
     chunk: object  # ColumnChunkReader
     device: torch.device
     source: object = None
+    keep_levels: bool = False  # the Dremel level streams, on the host
     pages: Iterator = None
     dictionary: object = None
     dictionary_dev: object = None
@@ -271,7 +272,8 @@ class _ChunkCursor:
             plan, staged = dr._prepare(self.chunk, self.device,
                                        PageTable.of(batch), self.dictionary,
                                        self.dictionary_dev)
-            col = dr.decode_staged(plan, staged, self.device)
+            col = dr.decode_staged(plan, staged, self.device,
+                                   keep_levels=self.keep_levels)
             STREAM["pulls"] += 1
             return col
         except _Unsupported as e:
@@ -302,8 +304,8 @@ class _ChunkCursor:
 
 def iter_batches(pf, columns: Optional[Sequence[str]] = None,
                  batch_rows: int = 65536, strict_batch_rows: bool = False,
-                 device="cuda", policy=None,
-                 report=None) -> Iterator[ColumnSet]:
+                 device="cuda", policy=None, report=None,
+                 keep_levels: bool = False) -> Iterator[ColumnSet]:
     """Stream ``pf`` as :class:`ColumnSet` batches of at most
     ``batch_rows`` rows on ``device`` (CUDA unless the caller names the
     CPU), each ``{dotted path: Column}`` of the selected columns (all by
@@ -322,13 +324,15 @@ def iter_batches(pf, columns: Optional[Sequence[str]] = None,
     stay valid), accounted in ``report``.  Each batch's ``report`` is that
     report and its ``read_stats`` the drain's prefetcher's
     :class:`~parquet_tpu_torch.io.prefetch.ReadStats` (None without
-    one)."""
+    one).  ``keep_levels`` keeps each repeated column's (and struct
+    chain's) Dremel level streams on the host, sliced with its rows (the
+    row model's and the merge's need); nothing else pays for them."""
     if batch_rows <= 0:
         raise ValueError("batch_rows must be positive")
     dev = resolve_device(device)
     return _isolated(_iter_batches_gen(pf, columns, batch_rows,
                                        strict_batch_rows, dev, policy,
-                                       report))
+                                       report, keep_levels))
 
 
 def _isolated(gen: Iterator) -> Iterator:
@@ -348,7 +352,7 @@ def _isolated(gen: Iterator) -> Iterator:
 
 
 def _iter_batches_gen(pf, columns, batch_rows, strict_batch_rows, device,
-                      policy, report) -> Iterator[ColumnSet]:
+                      policy, report, keep_levels) -> Iterator[ColumnSet]:
     pol, report = resolve_policy(pf, policy, report)
     skip = pol is not None and pol.skip_corrupt
     paths = [leaf.name for leaf in _select_leaves(pf.schema, columns)]
@@ -356,7 +360,7 @@ def _iter_batches_gen(pf, columns, batch_rows, strict_batch_rows, device,
     with pf._resilient_op(policy, report, "iter_batches"):
         yield from _iter_batches_impl(pf, paths, batch_rows,
                                       strict_batch_rows, device, skip,
-                                      report)
+                                      report, keep_levels)
 
 
 def _take_contextual(pf, cursor: _ChunkCursor, path: str, rg_index: int,
@@ -372,7 +376,7 @@ def _take_contextual(pf, cursor: _ChunkCursor, path: str, rg_index: int,
 
 
 def _iter_batches_impl(pf, paths, batch_rows, strict_batch_rows, device,
-                       skip, report) -> Iterator[ColumnSet]:
+                       skip, report, keep_levels) -> Iterator[ColumnSet]:
     from .prefetch import make_prefetcher
 
     n_rg = len(pf.row_groups)
@@ -421,7 +425,7 @@ def _iter_batches_impl(pf, paths, batch_rows, strict_batch_rows, device,
                 pos += 1
                 cursors = {p: _ChunkCursor(
                     chunk=rg.column(_leaf_index(pf, p)), device=device,
-                    source=pre) for p in paths}
+                    source=pre, keep_levels=keep_levels) for p in paths}
                 rg_rows_left = rg.num_rows
             take = min(batch_rows - pending_rows, rg_rows_left)
             # a step's takes join pending only once every column's

@@ -36,6 +36,7 @@ offset index's ``first_row_index`` counts rows.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import struct
 import zlib
@@ -51,6 +52,7 @@ from ..format import thrift
 from ..format.enums import (BoundaryOrder, CompressionCodec, Encoding,
                             PageType, Type)
 from ..format.enums import FieldRepetitionType as Rep
+from ..errors import unsupported
 from ..ops import host, levels, ref
 from ..schema.schema import Leaf, Schema
 from ..schema.types import (NUMERIC, PHYSICAL_NP_DTYPE, physical_of_dtype,
@@ -89,7 +91,7 @@ COLUMN_INDEX_TRUNCATE = 64
 class WriterOptions:
     """Writer knobs, with the JAX package's size defaults."""
 
-    compression: Union[str, CompressionCodec] = CompressionCodec.UNCOMPRESSED
+    compression: Union[str, CompressionCodec] = CompressionCodec.SNAPPY
     data_page_version: int = 1
     data_page_size: int = 1 << 20  # bytes of values per page
     row_group_size: int = 1 << 20  # max rows per row group
@@ -151,7 +153,10 @@ class ColumnData:
 
 class ParquetWriter:
     """Write row groups to a path or a binary file object; the footer goes
-    out on :meth:`close`."""
+    out on :meth:`close`.  :meth:`write` buffers rows and writes each row
+    group of ``options.row_group_size`` rows as it fills; the tail waits
+    for :meth:`flush` or :meth:`close`.  :meth:`abort` discards the file
+    (a path this writer opened is removed)."""
 
     def __init__(self, sink, schema: Schema,
                  options: Optional[WriterOptions] = None):
@@ -168,11 +173,73 @@ class ParquetWriter:
         self._extras: List[List[tuple]] = []
         self._num_rows = 0
         self._closed = False
+        self._aborted = False
+        # rows handed to write() and not yet in a row group
+        self._buffer: Optional[Dict[str, ColumnData]] = None
+        self._buffered_rows = 0
+
+    def write(self, columns: Dict[str, ColumnData], num_rows: int) -> None:
+        """Buffer ``columns`` (keyed by dotted path); every full row group
+        of ``options.row_group_size`` rows is written as it fills, the
+        tail stays buffered.  The caller's arrays are shared, never
+        mutated."""
+        self._check_open()
+        if self._buffer is None:
+            self._buffer = {k: _shallow_cd(v) for k, v in columns.items()}
+        else:
+            for k, v in columns.items():
+                _extend_cd(self._buffer[k], v)
+        self._buffered_rows += num_rows
+        if self._buffered_rows >= self.options.row_group_size:
+            self._drain(final=False)
+
+    def flush(self) -> None:
+        """Write every buffered row, the tail included."""
+        self._check_open()
+        self._drain(final=True)
+
+    @property
+    def write_stats(self):
+        raise unsupported("ParquetWriter.write_stats (the write "
+                          "pipeline's meter)", "io/sink")
+
+    def _check_open(self) -> None:
+        if self._closed or self._aborted:
+            raise ValueError("write on a " + ("closed" if self._closed
+                                               else "aborted") + " writer")
+
+    def _drain(self, final: bool) -> None:
+        """Write the buffer's full row groups (``final``: all of it) and
+        keep the rest, copied so that the written part's memory frees."""
+        total = self._buffered_rows
+        if self._buffer is None or total == 0:
+            return
+        rgs = self.options.row_group_size
+        emit = total if final else (total // rgs) * rgs
+        if emit == 0:
+            return
+        if emit == total and total <= rgs:
+            buf, self._buffer, self._buffered_rows = self._buffer, None, 0
+            self.write_row_group(buf, total)
+            return
+        leaf_of = {k: self.schema.leaf(k) for k in self._buffer}
+        ctxs = {k: {} for k in self._buffer}  # per-column slice tables
+        for start in range(0, emit, rgs):
+            end = min(start + rgs, emit)
+            self.write_row_group({
+                k: _slice_cd(leaf_of[k], cd, start, end, ctxs[k])
+                for k, cd in self._buffer.items()}, end - start)
+        if emit == total:
+            self._buffer, self._buffered_rows = None, 0
+        else:
+            self._buffer = {k: _copy_cd(_slice_cd(leaf_of[k], cd, emit,
+                                                  total, ctxs[k]))
+                            for k, cd in self._buffer.items()}
+            self._buffered_rows = total - emit
 
     def write_row_group(self, columns: Dict[str, ColumnData],
                         num_rows: int) -> None:
-        if self._closed:
-            raise ValueError("write on a closed writer")
+        self._check_open()
         chunks, extras = [], []
         rg_start = self._pos
         for leaf in self.schema.leaves:
@@ -378,8 +445,17 @@ class ParquetWriter:
                 statistics=stats)), comp
 
     def close(self) -> None:
+        """Write the buffered rows, then the bloom filters, page index and
+        footer.  A failure on the way aborts the file and raises."""
         if self._closed:
             return
+        if self._aborted:
+            raise ValueError("cannot close an aborted writer")
+        try:
+            self._drain(final=True)
+        except BaseException:
+            self.abort()
+            raise
         self._closed = True
         self._write_blooms_and_page_index()
         fmd = md.FileMetaData(
@@ -403,6 +479,21 @@ class ParquetWriter:
 
         self._f.close()
         invalidate_path(self._path)
+
+    def abort(self) -> None:
+        """Discard the write: no footer; a path this writer opened is
+        closed and removed, a caller's file object is left as it is.
+        Idempotent, and a no-op after :meth:`close`."""
+        if self._closed or self._aborted:
+            return
+        self._aborted = True
+        self._buffer, self._buffered_rows = None, 0
+        if self._own_sink:
+            self._close_path()
+            try:
+                os.unlink(self._path)
+            except OSError:
+                pass
 
     def _write_blooms_and_page_index(self) -> None:
         """The bloom filters, then every column index, then every offset
@@ -435,10 +526,10 @@ class ParquetWriter:
         return self
 
     def __exit__(self, *exc):
-        if exc[0] is None:
+        if exc[0] is not None:
+            self.abort()
+        elif not self._aborted:
             self.close()
-        elif self._own_sink:
-            self._close_path()
 
 
 def _normalized(leaf: Leaf, data: ColumnData):
@@ -692,52 +783,150 @@ def _flat_rows(data: ColumnData) -> int:
     return len(data.values)
 
 
-def _slice_rows(leaf: Leaf, data: ColumnData, r0: int,
-                r1: int) -> ColumnData:
-    """Rows [r0, r1) of a column's input (byte-array offsets rebased); a
-    leaf in level form slices its levels at row starts."""
-    if data.def_levels is not None or data.rep_levels is not None:
-        return _slice_level_rows(leaf, data, r0, r1)
-    v0, v1 = r0, r1
-    validity = None
-    if data.validity is not None:
-        validity = np.asarray(data.validity, bool)
-        v0 = int(np.count_nonzero(validity[:r0]))
-        v1 = v0 + int(np.count_nonzero(validity[r0:r1]))
-        validity = validity[r0:r1]
-    if leaf.physical_type == Type.BYTE_ARRAY:
-        offsets = np.asarray(data.offsets, np.int64)[v0:v1 + 1]
-        return ColumnData(values=np.asarray(data.values)[
-            offsets[0]:offsets[-1]], validity=validity,
-            offsets=offsets - offsets[0])
-    return ColumnData(values=np.asarray(data.values)[v0:v1],
-                      validity=validity)
+def _shallow_cd(cd: ColumnData) -> ColumnData:
+    """A new ColumnData sharing ``cd``'s arrays (and a copy of its
+    per-level lists): the writer's buffer rebinds fields, never the
+    caller's."""
+    return dataclasses.replace(
+        cd, list_offsets=None if cd.list_offsets is None
+        else list(cd.list_offsets),
+        list_validity=None if cd.list_validity is None
+        else list(cd.list_validity))
 
 
-def _slice_level_rows(leaf: Leaf, data: ColumnData, r0: int,
-                      r1: int) -> ColumnData:
-    d, r = data.def_levels, data.rep_levels
-    n_slots = len(d if d is not None else r)
-    s0, s1 = r0, r1
-    if r is not None:
-        starts = levels.row_slot_starts(r)
-        s0 = int(starts[r0]) if r0 < len(starts) else n_slots
-        s1 = int(starts[r1]) if r1 < len(starts) else n_slots
-    v0, v1 = s0, s1
-    if d is not None:
-        present = d == leaf.max_definition_level
-        v0 = int(np.count_nonzero(present[:s0]))
-        v1 = v0 + int(np.count_nonzero(present[s0:s1]))
-    values, offsets = np.asarray(data.values), None
-    if leaf.physical_type == Type.BYTE_ARRAY:
-        offsets = np.asarray(data.offsets, np.int64)[v0:v1 + 1]
-        values = values[offsets[0]:offsets[-1]]
-        offsets = offsets - offsets[0]
+def _copy_cd(cd: ColumnData) -> ColumnData:
+    """A deep copy of ``cd``'s arrays."""
+    def cp(a):
+        return None if a is None else np.array(a, copy=True)
+
+    return ColumnData(
+        values=cp(np.asarray(cd.values)), validity=cp(cd.validity),
+        offsets=cp(cd.offsets),
+        list_offsets=None if cd.list_offsets is None
+        else [cp(o) for o in cd.list_offsets],
+        list_validity=None if cd.list_validity is None
+        else [cp(v) for v in cd.list_validity],
+        def_levels=cp(cd.def_levels), rep_levels=cp(cd.rep_levels))
+
+
+def _cd_elements(cd: ColumnData) -> int:
+    """Entries ``validity`` covers: a repeated leaf's innermost elements,
+    a flat leaf's slots (its values where nothing is null)."""
+    if cd.list_offsets:
+        return int(np.asarray(cd.list_offsets[-1])[-1])
+    return _flat_rows(cd)
+
+
+def _extend_cd(dst: ColumnData, src: ColumnData) -> None:
+    """Append ``src``'s rows to ``dst`` (same leaf, same form): values,
+    byte-array offsets rebased, validity (all valid where a side has none),
+    each repeated level's offsets rebased and validity, raw levels."""
+    if (dst.def_levels is None) != (src.def_levels is None) or (
+            dst.rep_levels is None) != (src.rep_levels is None):
+        raise ValueError(
+            "cannot mix raw-level ColumnData (rows path) with vectorized "
+            "ColumnData in one buffered chunk; flush between them")
+    if (dst.list_offsets is None) != (src.list_offsets is None) or (
+            dst.list_offsets is not None
+            and len(dst.list_offsets) != len(src.list_offsets)):
+        raise ValueError("cannot extend a column with one of another "
+                         "nesting depth")
+    n_dst, n_src = _cd_elements(dst), _cd_elements(src)
+    dst.values = np.concatenate([np.asarray(dst.values),
+                                 np.asarray(src.values)])
+    if dst.def_levels is not None:
+        dst.def_levels = np.concatenate([dst.def_levels, src.def_levels])
+    if dst.rep_levels is not None:
+        dst.rep_levels = np.concatenate([dst.rep_levels, src.rep_levels])
+    if dst.offsets is not None:
+        a = np.asarray(dst.offsets, np.int64)
+        dst.offsets = np.concatenate(
+            [a[:-1], np.asarray(src.offsets, np.int64) + a[-1]])
+    if dst.validity is not None or src.validity is not None:
+        dst.validity = np.concatenate([
+            np.asarray(v, bool) if v is not None else np.ones(n, bool)
+            for v, n in ((dst.validity, n_dst), (src.validity, n_src))])
+    if dst.list_offsets is not None:
+        lo, lv = [], []
+        dvs = dst.list_validity or [None] * len(dst.list_offsets)
+        svs = src.list_validity or [None] * len(src.list_offsets)
+        for a, b, va, vb in zip(dst.list_offsets, src.list_offsets, dvs,
+                                svs):
+            a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+            lo.append(np.concatenate([a[:-1], b + a[-1]]))
+            lv.append(None if va is None and vb is None else np.concatenate(
+                [np.asarray(v, bool) if v is not None else np.ones(n, bool)
+                 for v, n in ((va, len(a) - 1), (vb, len(b) - 1))]))
+        dst.list_offsets = lo
+        dst.list_validity = None if all(v is None for v in lv) else lv
+
+
+def _slice_cd(leaf: Leaf, cd: ColumnData, r0: int, r1: int,
+              ctx: Optional[dict] = None) -> ColumnData:
+    """Rows ``[r0, r1)`` of a buffered column in its own form (row-group
+    splitting).  ``ctx`` (a dict a column) keeps the row-start and
+    present-count tables, so that cutting a buffer into P parts is O(N),
+    not O(N P)."""
+    ctx = ctx if ctx is not None else {}
+
+    def cum(mask) -> np.ndarray:
+        if "cum" not in ctx:
+            c = np.zeros(len(mask) + 1, np.int64)
+            np.cumsum(mask, out=c[1:])
+            ctx["cum"] = c
+        return ctx["cum"]
+
+    def span(v0: int, v1: int):
+        vals = np.asarray(cd.values)
+        if cd.offsets is None:
+            return vals[v0:v1], None
+        offs = np.asarray(cd.offsets, np.int64)
+        return vals[offs[v0]:offs[v1]], offs[v0:v1 + 1] - offs[v0]
+
+    if cd.def_levels is not None or cd.rep_levels is not None:
+        d, r = cd.def_levels, cd.rep_levels
+        n_slots = len(d if d is not None else r)
+        s0, s1 = r0, r1
+        if r is not None:
+            if "starts" not in ctx:
+                ctx["starts"] = levels.row_slot_starts(np.asarray(r))
+            starts = ctx["starts"]
+            s0 = int(starts[r0]) if r0 < len(starts) else n_slots
+            s1 = int(starts[r1]) if r1 < len(starts) else n_slots
+        v0, v1 = s0, s1
+        if d is not None:
+            c = cum(np.asarray(d) == leaf.max_definition_level)
+            v0, v1 = int(c[s0]), int(c[s1])
+        vals, offs = span(v0, v1)
+        return ColumnData(values=vals, offsets=offs,
+                          def_levels=None if d is None else d[s0:s1],
+                          rep_levels=None if r is None else r[s0:s1])
+    if cd.list_offsets is not None:
+        lo_out, lv_out = [], []
+        lo, hi = r0, r1
+        lvs = cd.list_validity or [None] * len(cd.list_offsets)
+        for o, v in zip(cd.list_offsets, lvs):
+            o = np.asarray(o, np.int64)
+            lo_out.append(o[lo:hi + 1] - o[lo])
+            lv_out.append(None if v is None else np.asarray(v)[lo:hi])
+            lo, hi = int(o[lo]), int(o[hi])
+        e0, e1 = lo, hi
     else:
-        values = values[v0:v1]
-    return ColumnData(values=values, offsets=offsets,
-                      def_levels=None if d is None else d[s0:s1],
-                      rep_levels=None if r is None else r[s0:s1])
+        e0, e1 = r0, r1
+    validity = None
+    v0, v1 = e0, e1
+    if cd.validity is not None:
+        validity = np.asarray(cd.validity, bool)
+        c = cum(validity)
+        v0, v1 = int(c[e0]), int(c[e1])
+        validity = validity[e0:e1]
+    vals, offs = span(v0, v1)
+    out = ColumnData(values=vals, offsets=offs, validity=validity)
+    if cd.list_offsets is not None:
+        out.list_offsets = lo_out
+        out.list_validity = (None if all(v is None for v in lv_out)
+                             else lv_out)
+    return out
 
 
 def write_table(table: Dict[str, object], sink,
@@ -767,9 +956,11 @@ def write_table(table: Dict[str, object], sink,
     if len(lengths) > 1:
         raise ValueError(f"columns differ in length: {sorted(lengths)}")
     n = lengths.pop() if lengths else 0
+    ctxs = {leaf.name: {} for leaf in schema.leaves}
     with ParquetWriter(sink, schema, options) as w:
         for start in range(0, n, options.row_group_size):
             end = min(start + options.row_group_size, n)
             w.write_row_group({
-                leaf.name: _slice_rows(leaf, columns[leaf.name], start, end)
+                leaf.name: _slice_cd(leaf, columns[leaf.name], start, end,
+                                     ctxs[leaf.name])
                 for leaf in schema.leaves}, end - start)

@@ -35,7 +35,12 @@ one repeated level, ``dev.assemble_nested`` for more) into list offsets
 and validity per level, on the card and on the CPU alike.  A struct chain
 (``max_def > 1``, nothing repeated) expands its def levels once on the
 host, keeps them in ``Column.def_levels`` for the nullness of each struct,
-and stages its validity, ``def == max_def``.
+and stages its validity, ``def == max_def``.  The collapsed form cannot
+carry a null struct between two repeated levels, so the row model and the
+merge ask for the level streams themselves (``decode_staged(...,
+keep_levels=True)``): a repeated column's expanded ``def``/``rep`` tensors,
+or a struct chain's def levels expanded on the device, come to the host in
+one copy each.  Nothing else pays for them.
 
 A BYTE_ARRAY dictionary chunk stays encoded: a device ``(values,
 offsets)`` dictionary plus int32 indexes, as the JAX package keeps it.  A
@@ -1351,22 +1356,28 @@ def _bss_decode(buf: torch.Tensor, pages, width: int,
     return rows if dtype is None else rows.view(dtype).reshape(-1)
 
 
-def decode_staged(plan: _Plan, staged: tuple,
-                  device: torch.device) -> Column:
-    """Device decode phase: staged tensors -> :class:`Column`."""
+def decode_staged(plan: _Plan, staged: tuple, device: torch.device,
+                  keep_levels: bool = False) -> Column:
+    """Device decode phase: staged tensors -> :class:`Column`.  With
+    ``keep_levels`` a repeated column (and a struct chain) also keeps its
+    Dremel level streams on the host (``def_levels``, ``rep_levels``)."""
     leaf, physical = plan.leaf, plan.physical
     lev_dbuf, val_dbuf, meta = staged
     _wait_for_copy(meta)
     max_def = leaf.max_definition_level
-    validity = def_host = None
+    validity = def_host = rep_host = None
     list_offsets, list_validity = [], []
     if leaf.max_repetition_level:
-        list_offsets, list_validity, validity = _assemble(plan, lev_dbuf,
-                                                          meta, device)
+        list_offsets, list_validity, validity, d, r = _assemble(
+            plan, lev_dbuf, meta, device)
+        if keep_levels:  # one copy a stream
+            def_host, rep_host = d.cpu().numpy(), r.cpu().numpy()
     elif plan.total_values != plan.total_slots:
         if plan.def_runs.total:
             def_levels = plan.def_runs.expand(lev_dbuf, meta["def_runs"])
             validity = dev.validity_from_def(def_levels, max_def)
+            if keep_levels and max_def > 1:
+                def_host = def_levels.cpu().numpy().astype(np.int32)
         elif plan.host_def is not None:
             validity = meta["host_def"]
             if max_def > 1:  # a struct chain keeps its levels
@@ -1430,7 +1441,7 @@ def decode_staged(plan: _Plan, staged: tuple,
                  validity=validity, num_slots=plan.total_slots,
                  dictionary=dictionary, dict_indices=dict_indices,
                  list_offsets=list_offsets, list_validity=list_validity,
-                 def_levels=def_host)
+                 def_levels=def_host, rep_levels=rep_host)
     if col.num_values != nvals:
         raise CorruptedError(
             f"column {leaf.name!r}: decoded {col.num_values} values, the "
@@ -1441,7 +1452,7 @@ def decode_staged(plan: _Plan, staged: tuple,
 def _assemble(plan: _Plan, lev_dbuf, meta: dict,
               device: torch.device) -> tuple:
     """A repeated column's level streams, expanded and assembled on the
-    device: ``(list_offsets, list_validity, leaf_validity)``."""
+    device: ``(list_offsets, list_validity, leaf_validity, def, rep)``."""
     leaf = plan.leaf
     if plan.def_runs.total:
         d = plan.def_runs.expand(lev_dbuf, meta["def_runs"])
@@ -1450,9 +1461,11 @@ def _assemble(plan: _Plan, lev_dbuf, meta: dict,
         d = r = torch.zeros(0, dtype=torch.int32, device=device)
     infos = levels.repeated_ancestors(leaf)
     if len(infos) == 1:
-        return dev.assemble_single_list(d, r, infos[0].def_level,
-                                        leaf.max_definition_level)
-    return dev.assemble_nested(d, r, infos, leaf.max_definition_level)
+        got = dev.assemble_single_list(d, r, infos[0].def_level,
+                                       leaf.max_definition_level)
+    else:
+        got = dev.assemble_nested(d, r, infos, leaf.max_definition_level)
+    return (*got, d, r)
 
 
 # ---------------------------------------------------------------------------
@@ -1482,6 +1495,35 @@ def _prepare(reader, device: torch.device, pages=None, dictionary=None,
     if ready is not None:
         staged[2]["ready"] = ready
     return plan, staged
+
+
+def decode_chunk_span(reader, device, pages=None,
+                      keep_levels: bool = False) -> Column:
+    """One chunk, or the span ``pages`` of it (a dictionary page first, as
+    ``io/search.py::pages_and_base`` gives them), decoded on ``device`` in
+    one plan, its level streams kept where ``keep_levels`` asks
+    (:func:`decode_staged`); a chunk the device route refuses decodes on
+    the host, counted in :data:`HOST_ROUTE`."""
+    from ..io.reader import decode_chunk_host
+
+    device = torch.device(device)
+    dictionary = None
+    if pages is not None:
+        data = []
+        for page in pages:
+            if page.page_type == PageType.DICTIONARY_PAGE:
+                dictionary = decode_dictionary_page(reader, page)
+            elif page.page_type in (PageType.DATA_PAGE,
+                                    PageType.DATA_PAGE_V2):
+                data.append(page)
+        pages = PageTable.of(data)
+    try:
+        plan, staged = _prepare(reader, device, pages, dictionary)
+        return decode_staged(plan, staged, device, keep_levels=keep_levels)
+    except _Unsupported as e:
+        HOST_ROUTE[e.reason] += 1
+        return decode_chunk_host(reader, device, pages=pages,
+                                 dictionary=dictionary)
 
 
 def prepare_chunk(reader, device) -> tuple:

@@ -91,6 +91,19 @@ class Leaf:
         return ".".join(self.path)
 
     @property
+    def dotted_path(self) -> str:
+        """The JAX package's name for :attr:`name`."""
+        return self.name
+
+    def np_dtype(self):
+        """The numpy dtype of the leaf's values (``types.logical_np_dtype``;
+        None for byte arrays, FLBA and INT96)."""
+        from .types import logical_np_dtype
+
+        return logical_np_dtype(self.physical_type, self.logical_kind,
+                                self.logical_params)
+
+    @property
     def physical_type(self) -> Type:
         return self.node.physical_type
 
@@ -250,8 +263,10 @@ class Schema:
                     el.type_length = n.type_length
             else:
                 el.num_children = len(n.children)
-            el.logicalType, el.converted_type = _LOGICAL_TO_THRIFT.get(
-                n.logical_kind, (None, None))
+            el.logicalType, el.converted_type, extra = _logical_to_thrift(
+                n.logical_kind, n.logical_params or {})
+            if extra:
+                el.scale, el.precision = extra["scale"], extra["precision"]
             out.append(el)
             for c in n.children or ():
                 emit(c, False)
@@ -314,14 +329,55 @@ def _logical_kind(el: md.SchemaElement) -> Tuple[str, dict]:
             C.LIST: K.LIST, C.MAP: K.MAP}.get(ct, K.NONE), {}
 
 
-_LOGICAL_TO_THRIFT = {
-    LogicalKind.STRING: (md.LogicalType(STRING=md.StringType()),
-                         int(ConvertedType.UTF8)),
-    LogicalKind.MAP: (md.LogicalType(MAP=md.MapType()),
-                      int(ConvertedType.MAP)),
-    LogicalKind.LIST: (md.LogicalType(LIST=md.ListType()),
-                       int(ConvertedType.LIST)),
-}
+def _logical_to_thrift(kind: str, params: dict):
+    """A logical kind and its parameters as ``(LogicalType,
+    converted_type, {scale, precision} or None)``, as the JAX package's
+    ``_logical_to_thrift`` writes them."""
+    L, C, K = md.LogicalType, ConvertedType, LogicalKind
+    simple = {K.STRING: (L(STRING=md.StringType()), C.UTF8),
+              K.ENUM: (L(ENUM=md.EnumType()), C.ENUM),
+              K.JSON: (L(JSON=md.JsonType()), C.JSON),
+              K.BSON: (L(BSON=md.BsonType()), C.BSON),
+              K.UUID: (L(UUID=md.UUIDType()), None),
+              K.FLOAT16: (L(FLOAT16=md.Float16Type()), None),
+              K.DATE: (L(DATE=md.DateType()), C.DATE),
+              K.INTERVAL: (None, C.INTERVAL),
+              K.LIST: (L(LIST=md.ListType()), C.LIST),
+              K.MAP: (L(MAP=md.MapType()), C.MAP),
+              K.UNKNOWN: (L(UNKNOWN=md.NullType()), None)}
+    if kind == K.NONE:
+        return None, None, None
+    if kind in simple:
+        lt, ct = simple[kind]
+        return lt, None if ct is None else int(ct), None
+    if kind == K.DECIMAL:
+        scale, precision = params.get("scale", 0), params.get("precision", 0)
+        return (L(DECIMAL=md.DecimalType(scale=scale, precision=precision)),
+                int(C.DECIMAL), {"scale": scale, "precision": precision})
+    if kind.startswith(("time_", "timestamp_")):
+        family, unit = kind.split("_", 1)
+        name, struct = {"millis": ("MILLIS", md.MilliSeconds),
+                        "micros": ("MICROS", md.MicroSeconds),
+                        "nanos": ("NANOS", md.NanoSeconds)}[unit]
+        tu = md.TimeUnit(**{name: struct()})
+        utc = params.get("utc", True)
+        if family == "time":
+            ct = {"millis": C.TIME_MILLIS, "micros": C.TIME_MICROS}.get(unit)
+            lt = L(TIME=md.TimeType(isAdjustedToUTC=utc, unit=tu))
+        else:
+            ct = {"millis": C.TIMESTAMP_MILLIS,
+                  "micros": C.TIMESTAMP_MICROS}.get(unit)
+            lt = L(TIMESTAMP=md.TimestampType(isAdjustedToUTC=utc, unit=tu))
+        return lt, None if ct is None else int(ct), None
+    if kind == K.INT:
+        bw, signed = params.get("bit_width", 64), params.get("signed", True)
+        ct = {(8, True): C.INT_8, (16, True): C.INT_16, (32, True): C.INT_32,
+              (64, True): C.INT_64, (8, False): C.UINT_8,
+              (16, False): C.UINT_16, (32, False): C.UINT_32,
+              (64, False): C.UINT_64}.get((bw, signed))
+        return (L(INTEGER=md.IntType(bitWidth=bw, isSigned=signed)),
+                None if ct is None else int(ct), None)
+    return None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -330,8 +386,13 @@ _LOGICAL_TO_THRIFT = {
 
 
 def leaf(name: str, physical: Type, repetition: Rep = Rep.REQUIRED,
-         logical: str = LogicalKind.NONE, type_length=None) -> Node:
-    return Node(name, Rep(repetition), Type(physical), type_length, logical)
+         logical: str = LogicalKind.NONE, type_length=None,
+         **params) -> Node:
+    """A leaf node; ``params`` are its logical parameters (INT:
+    ``bit_width``, ``signed``; DECIMAL: ``precision``, ``scale``; TIME and
+    TIMESTAMP: ``utc``)."""
+    return Node(name, Rep(repetition), Type(physical), type_length, logical,
+                logical_params=params)
 
 
 def group(name: str, children: List[Node], repetition: Rep = Rep.REQUIRED,

@@ -26,7 +26,8 @@ class LogicalKind:
     of these, with their parameters in ``logical_params`` (INT:
     ``bit_width``, ``signed``; DECIMAL: ``precision``, ``scale``; TIME and
     TIMESTAMP: ``utc``).  INT and DECIMAL set a column's order; the
-    others only type it.  The writer writes STRING, LIST and MAP."""
+    others only type it.  The writer writes every one, as the JAX
+    package's does."""
 
     NONE = "none"
     STRING = "string"

@@ -81,10 +81,12 @@ def test_in_place_rewrite_by_the_writer_invalidates(tmp_path, monkeypatch):
     path = tmp_path / "f.parquet"
     monkeypatch.setattr(source, "_stat_key",
                         lambda p, st: (os.path.abspath(p), 1, 1, 1))
-    pqt.write_table({"x": np.arange(100, dtype=np.int64)}, str(path))
+    plain = pqt.WriterOptions(compression="uncompressed")  # same size
+    pqt.write_table({"x": np.arange(100, dtype=np.int64)}, str(path), plain)
     size = path.stat().st_size
     assert pqt.ParquetFile(str(path)).read(device=CPU)["x"].values[0] == 0
-    pqt.write_table({"x": np.arange(100, dtype=np.int64) + 7}, str(path))
+    pqt.write_table({"x": np.arange(100, dtype=np.int64) + 7}, str(path),
+                    plain)
     assert path.stat().st_size == size
     got = pqt.ParquetFile(str(path)).read(device=CPU)["x"].values.numpy()
     np.testing.assert_array_equal(got, np.arange(100) + 7)

@@ -6,7 +6,9 @@ neither JAX nor parquet_tpu, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
 import io
+from typing import Dict, List, Optional
 
 import numpy as np
 import pytest
@@ -1256,3 +1258,132 @@ def test_closed_drain_leaves_nothing_on_card(cuda_device, tmp_path):
     it.close()
     assert threading.active_count() == threads
     assert _settled_allocated(cuda_device) == allocated
+
+
+@dataclasses.dataclass
+class _Geo:
+    lat: float
+    lon: float
+
+
+@dataclasses.dataclass
+class _Event:
+    id: int
+    region: int
+    user: str
+    score: Optional[float]
+    tags: List[str]
+    attrs: Dict[str, int]
+    geo: Optional[_Geo]
+
+
+def _typed_events(n: int) -> list:
+    rng = np.random.default_rng(4)
+    return [_Event(i, int(rng.integers(0, 200)), f"u{int(rng.integers(500))}",
+                   None if i % 20 == 0 else float(rng.random()),
+                   [f"t{int(x)}" for x in rng.integers(0, 32, i % 5)],
+                   {f"a{j}": j for j in range(i % 4)},
+                   None if i % 10 == 3 else _Geo(float(i), -float(i)))
+            for i in range(n)]
+
+
+@pytest.mark.cuda
+def test_typed_drain_on_card_matches_cpu(cuda_device, tmp_path):
+    """``TypedReader.read(n)`` draining the stream on the card gives the
+    CPU's objects and launches both unpack kernels; ``read_pytree``'s
+    tensors live on the card and equal the CPU's."""
+    path = str(tmp_path / "ev.parquet")
+    pqt.write_objects(_typed_events(30_000), path,
+                      options=pqt.WriterOptions(row_group_size=8_192))
+    pqt.reset_launches()
+    r = pqt.TypedReader(path, _Event, batch_rows=4_096, device=cuda_device)
+    want = pqt.read_objects(path, _Event, device="cpu")
+    got = []
+    while True:
+        chunk = r.read(5_000)
+        if not chunk:
+            break
+        got += chunk
+    assert got == want
+    assert pqt.LAUNCHES["unpack_bits_dense"] > 0
+    assert pqt.LAUNCHES["dict_unpack_gather"] > 0
+    tree = pqt.read_pytree(path, device=cuda_device)
+    cpu = pqt.read_pytree(path, device="cpu")
+    assert tree["id"].device == cuda_device
+    assert torch.equal(tree["id"].cpu(), cpu["id"])
+
+
+def _sorted_runs(tmp_path, count: int, rows: int) -> list:
+    rng = np.random.default_rng(6)
+    paths = []
+    for i in range(count):
+        k, v = rng.integers(0, 10**5, rows), rng.random(rows)
+        order = np.lexsort((v, k))  # sorted by (k, v)
+        k, v = k[order], v[order]
+        path = str(tmp_path / f"run{i}.parquet")
+        pqt.write_table({"k": k, "v": v,
+                         "s": np.array([f"s{int(x) % 97}" for x in k],
+                                       object)}, path,
+                        pqt.WriterOptions(row_group_size=20_000))
+        paths.append(path)
+    return paths
+
+
+@pytest.mark.cuda
+def test_merge_and_sort_on_card_match_cpu(cuda_device, tmp_path):
+    """``merge_files`` and ``SortingWriter`` reading their runs on the
+    card write the same bytes as on the CPU."""
+    runs = _sorted_runs(tmp_path, 4, 50_000)
+    sorting = [pqt.SortingColumn("k"), pqt.SortingColumn("v")]
+    outs = {}
+    for dev in (cuda_device, "cpu"):
+        out = io.BytesIO()
+        pqt.merge_files(runs, sorting, out, batch_rows=8_192, device=dev)
+        outs[str(dev)] = out.getvalue()
+    assert outs[str(cuda_device)] == outs["cpu"]
+    pf = pqt.ParquetFile(runs[0])
+    cols = pqt.convert_table(pf, pf.schema, device=cuda_device)
+    sorted_outs = {}
+    for dev in (cuda_device, "cpu"):
+        out = io.BytesIO()
+        w = pqt.SortingWriter(out, pf.schema, [pqt.SortingColumn("v")],
+                              buffer_rows=12_000, device=dev)
+        for c, n in cols:
+            w.write(c, n)
+        w.close()
+        sorted_outs[str(dev)] = out.getvalue()
+    assert sorted_outs[str(cuda_device)] == sorted_outs["cpu"]
+
+
+@pytest.mark.cuda
+def test_file_rows_seek_on_card_matches_cpu(cuda_device, tmp_path):
+    """``FileRows.seek_to_row`` and ``read_rows`` on the card give the
+    CPU's rows (a nested file with a page index)."""
+    from parquet_tpu_torch import rows as R
+    from parquet_tpu_torch.format.enums import FieldRepetitionType as Rep
+    from parquet_tpu_torch.format.enums import Type
+    from parquet_tpu_torch.schema import schema as S
+
+    schema = S.message("m", [
+        S.leaf("id", Type.INT64),
+        S.list_of("xs", S.optional(S.group("element", [
+            S.optional(S.leaf("a", Type.INT32))]))),
+        S.group("g", [S.repeated(S.leaf("b", Type.INT64))], Rep.OPTIONAL)])
+    recs = [{"id": i, "xs": None if i % 7 == 1 else [
+        None if j == 1 else {"a": None if j == 2 else i + j}
+        for j in range(i % 4)], "g": None if i % 5 == 2 else {
+        "b": list(range(i % 3))}} for i in range(6_000)]
+    path = str(tmp_path / "rows.parquet")
+    R.write_rows(path, schema, recs, pqt.WriterOptions(
+        row_group_size=2_000, data_page_size=1_024))
+    assert list(R.read_rows(path, device=cuda_device)) == recs
+    card = R.FileRows(pqt.ParquetFile(path), device=cuda_device)
+    cpu = R.FileRows(pqt.ParquetFile(path), device="cpu")
+    for r in (0, 1, 1_999, 2_000, 3_333, 5_999, 6_000):
+        card.seek_to_row(r)
+        cpu.seek_to_row(r)
+        a, b = card.read_rows(300), cpu.read_rows(300)
+        assert [[(v.column, v.value, v.definition_level,
+                  v.repetition_level) for v in row] for row in a] == \
+            [[(v.column, v.value, v.definition_level, v.repetition_level)
+              for v in row] for row in b]

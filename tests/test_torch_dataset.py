@@ -516,23 +516,15 @@ def test_cuda_by_default(mixed, monkeypatch):
             call()
 
 
-def _list_file() -> bytes:
-    import io
-
-    buf = io.BytesIO()
-    papq.write_table(pa.table({"l": pa.array([[1, 2], [3]])}), buf)
-    return buf.getvalue()
-
-
 @pytest.mark.parametrize("call,slice_name", [
-    ("nested_row_range", "nested row ranges"), ("aggregate", "aggregation"),
+    ("write_arrow", "arrow interop"), ("aggregate", "aggregation"),
     ("snapshot_version", "manifest"), ("_file_stats", "manifest"),
     ("to_arrow", "arrow interop")])
 def test_refused_methods_name_their_slice(mixed, call, slice_name):
     ds = pqt.Dataset(mixed["paths"][:1])
     run = {
-        "nested_row_range": lambda: pqt.read_row_range(
-            pqt.ParquetFile(_list_file()), "l.list.element", 0, 1),
+        "write_arrow": lambda: pqt.TableBuffer(
+            pqt.ParquetFile(mixed["paths"][0]).schema).write_arrow(None),
         "aggregate": lambda: ds.aggregate([]),
         "snapshot_version": lambda: ds.snapshot_version,
         "_file_stats": lambda: ds._file_stats,

@@ -1040,7 +1040,8 @@ def crc_raw() -> bytes:
     pqt.write_table({"x": np.arange(N_ROWS, dtype=np.int64),
                      "v": rng.random(N_ROWS)}, buf,
                     pqt.WriterOptions(row_group_size=ROW_GROUP,
-                                      dictionary=False))
+                                      dictionary=False,
+                                      compression="uncompressed"))
     return buf.getvalue()
 
 

@@ -32,6 +32,7 @@ from parquet_tpu.schema.types import LogicalKind as JLogicalKind
 import parquet_tpu_torch as pqt
 from parquet_tpu_torch.format.enums import Encoding
 from parquet_tpu_torch.io import bloom as tbloom
+from parquet_tpu_torch.io.writer import schema_of as table_schema_of
 from parquet_tpu_torch.ops import host
 
 N = 3000
@@ -102,7 +103,7 @@ def _port_table(cols: dict):
                                                         arr.shape[1], 1)
             arr = np.ma.masked_array(arr, mask=mask)
         out[name] = arr
-    schema = pqt.schema_of(out)
+    schema = table_schema_of(out)
     vals, null = cols["fx"]
     out["fx"] = pqt.ColumnData(values=vals[~null], validity=~null)
     return out, schema

@@ -451,3 +451,151 @@ def test_schema_of_every_input_kind(rng):
                                       for x, ok in zip(strs, valid)]
     assert arrow["y"].to_pylist() == list(table["y"])
     assert arrow["b"].to_pylist() == table["b"].tolist()
+
+
+def _buffered_columns(rng, n: int, port: bool):
+    """A flat key, nullable strings, a nullable list (one offsets array
+    a level in the port's form) and a two-level list in the raw-level
+    form, as one package's ColumnData, and its schema."""
+    from parquet_tpu.format.enums import FieldRepetitionType as JRep
+    from parquet_tpu.format.enums import Type as JType
+    from parquet_tpu.io.writer import ColumnData as JCD
+    from parquet_tpu.schema import schema as JS
+    from parquet_tpu_torch.format.enums import FieldRepetitionType as Rep
+    from parquet_tpu_torch.format.enums import Type
+    from parquet_tpu_torch.schema import schema as S
+    from parquet_tpu_torch.schema.types import LogicalKind as K
+
+    S_, R_, T_, CD = (S, Rep, Type, pqt.ColumnData) if port else \
+        (JS, JRep, JType, JCD)
+    schema = S_.message("m", [
+        S_.leaf("k", T_.INT64),
+        S_.leaf("s", T_.BYTE_ARRAY, R_.OPTIONAL, K.STRING),
+        S_.list_of("l", S_.leaf("element", T_.INT32, R_.OPTIONAL)),
+        S_.list_of("ll", S_.list_of("element", S_.leaf("element",
+                                                       T_.INT64)))])
+    valid = rng.random(n) > 0.25
+    words = [f"w{i % 13}".encode() for i in range(n) if valid[i]]
+    offs = np.zeros(len(words) + 1, np.int64)
+    np.cumsum([len(w) for w in words], out=offs[1:])
+    lens = rng.integers(0, 4, n)
+    lvalid = rng.random(n) > 0.1
+    lens[~lvalid] = 0
+    lo = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=lo[1:])
+    evalid = rng.random(int(lo[-1])) > 0.2
+    ll_schema = JS.message("x", [JS.list_of("ll", JS.list_of(
+        "element", JS.leaf("element", JType.INT64)))])
+    max_def = ll_schema.leaves[0].max_definition_level
+    slots = [v for i in range(n) for v in parquet_tpu.rows.deconstruct(
+        ll_schema, {"ll": None if i % 9 == 4 else
+                    [[i] * (j % 3) for j in range(i % 3)]})]
+    defs = np.array([v.definition_level for v in slots], np.int32)
+    reps = np.array([v.repetition_level for v in slots], np.int32)
+    llv = np.array([v.value for v in slots
+                    if v.definition_level == max_def], np.int64)
+    lst = CD(values=rng.integers(-9, 9, int(evalid.sum())).astype(np.int32),
+             validity=evalid)
+    lst.list_offsets = [lo] if port else lo
+    lst.list_validity = [lvalid] if port else lvalid
+    cols = {"k": CD(values=np.arange(n, dtype=np.int64)),
+            "s": CD(values=np.frombuffer(b"".join(words), np.uint8),
+                    offsets=offs, validity=valid),
+            "l.list.element": lst,
+            "ll.list.element.list.element": CD(values=llv, def_levels=defs,
+                                               rep_levels=reps)}
+    return schema, cols
+
+
+@pytest.mark.parametrize("cuts", [(0, 130, 700, 1750, 2600, 3000),
+                                  (0, 3000), (0, 999, 1000, 1001, 3000)])
+def test_buffered_write_matches_jax(cuts):
+    """``write`` in pieces: full row groups go out as they fill, the tail
+    waits for ``flush`` (here, at 1750) or ``close``, as the JAX
+    package's writer does; both files hold the same rows."""
+    from parquet_tpu.io.writer import _slice_cd as jslice
+    from parquet_tpu_torch.io.writer import _slice_cd as tslice
+
+    rng = np.random.default_rng(21)
+    tschema, tcols = _buffered_columns(rng, 3000, True)
+    rng = np.random.default_rng(21)
+    jschema, jcols = _buffered_columns(rng, 3000, False)
+    out, jout = io.BytesIO(), io.BytesIO()
+    w = pqt.ParquetWriter(out, tschema, pqt.WriterOptions(
+        row_group_size=1000))
+    jw = parquet_tpu.ParquetWriter(jout, jschema, parquet_tpu.WriterOptions(
+        row_group_size=1000))
+    for r0, r1 in zip(cuts, cuts[1:]):
+        w.write({k: tslice(tschema.leaf(k), v, r0, r1)
+                 for k, v in tcols.items()}, r1 - r0)
+        jw.write({k: jslice(jschema.leaf(k), v, r0, r1)
+                  for k, v in jcols.items()}, r1 - r0)
+        if r1 == 1750:
+            w.flush()
+            jw.flush()
+    w.close()
+    jw.close()
+    got = papq.ParquetFile(io.BytesIO(out.getvalue()))
+    want = papq.ParquetFile(io.BytesIO(jout.getvalue()))
+    sizes = [got.metadata.row_group(i).num_rows
+             for i in range(got.metadata.num_row_groups)]
+    assert sizes == [want.metadata.row_group(i).num_rows
+                     for i in range(want.metadata.num_row_groups)]
+    assert sum(sizes) == 3000 and max(sizes) <= 1000
+    assert repr(got.read().to_pylist()) == repr(want.read().to_pylist())
+
+
+def test_abort_removes_only_its_own_file(tmp_path):
+    path = tmp_path / "a.parquet"
+    w = pqt.ParquetWriter(str(path), pqt.ParquetFile(
+        _write({"x": np.arange(5)})).schema)
+    w.write({"x": pqt.ColumnData(values=np.arange(5))}, 5)
+    assert path.exists()
+    w.abort()
+    w.abort()  # idempotent
+    assert not path.exists()
+    with pytest.raises(ValueError, match="aborted"):
+        w.write({"x": pqt.ColumnData(values=np.arange(5))}, 5)
+    with pytest.raises(ValueError, match="aborted"):
+        w.close()
+    buf = io.BytesIO()
+    w = pqt.ParquetWriter(buf, pqt.ParquetFile(
+        _write({"x": np.arange(5)})).schema)
+    w.write_row_group({"x": pqt.ColumnData(values=np.arange(5))}, 5)
+    w.abort()
+    assert buf.getvalue().startswith(b"PAR1") and not buf.closed
+    with pytest.raises(RuntimeError):
+        with pqt.ParquetWriter(str(path), w.schema) as w2:
+            w2.write({"x": pqt.ColumnData(values=np.arange(5))}, 5)
+            raise RuntimeError("boom")
+    assert not path.exists()
+    w = pqt.ParquetWriter(str(path), w.schema)
+    w.close()
+    w.abort()  # a no-op after close
+    assert path.exists()
+    with pytest.raises(NotImplementedError, match="io/sink"):
+        w.write_stats
+
+
+def _write(table, options=None) -> bytes:
+    buf = io.BytesIO()
+    pqt.write_table(table, buf, options)
+    return buf.getvalue()
+
+
+def test_default_codec_is_snappy_as_jax():
+    """Default options give SNAPPY in every chunk, in both packages."""
+    table = {"a": np.arange(3000, dtype=np.int64),
+             "b": np.ma.masked_array(np.arange(3000) / 3,
+                                     mask=np.arange(3000) % 4 == 0)}
+    assert pqt.WriterOptions().codec_id() == \
+        parquet_tpu.WriterOptions().codec_id()
+    jbuf = io.BytesIO()
+    parquet_tpu.write_table(
+        __import__("pyarrow").table({"a": table["a"], "b": table["b"]}),
+        jbuf)
+    for raw in (_write(table), jbuf.getvalue()):
+        meta = papq.ParquetFile(io.BytesIO(raw)).metadata
+        assert {meta.row_group(i).column(j).compression
+                for i in range(meta.num_row_groups)
+                for j in range(meta.num_columns)} == {"SNAPPY"}
