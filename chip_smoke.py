@@ -1,10 +1,10 @@
 """Drive parquet_tpu_torch's device read, batched point lookups, device
 scan, multi-file and sharded reads, streamed reads, typed reads, rows,
-merge and sort on one CUDA card and check them.
+merge and sort, and aggregation on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
-                          [--enc-rows 4194304] [--nested-n 8000000]
+                          [--enc-rows 2097152] [--nested-n 8000000]
                           [--nest-mix-rows 1048576] [--scan-rows 8388608]
                           [--out DIR]
     python3 chip_smoke.py --summarize LOG
@@ -58,7 +58,8 @@ Phases, each fatal on failure:
    RLE, INT96, FIXED_LEN_BYTE_ARRAY PLAIN and BYTE_STREAM_SPLIT, the
    numeric types in BYTE_STREAM_SPLIT, DELTA_LENGTH_BYTE_ARRAY, front-coded
    URLs, and 1,000-entry byte-array and 500-entry FLBA dictionaries whose
-   index runs are all bit-packed), ``--enc-rows`` in 1,048,576-row row
+   index runs are all bit-packed), ``--enc-rows`` (2,097,152 since phase
+   5j came: cut from 4,194,304 for the script's time) in 1,048,576-row row
    groups and 64 KiB pages, 5-10 % nulls on half of the columns; written
    with v1 pages under Snappy and with v2 pages, then under each of ZSTD,
    LZ4_RAW, LZ4 and BROTLI whose system library loaded (the
@@ -233,7 +234,8 @@ Phases, each fatal on failure:
    group alone (the rest equal), and the clean file's read with and
    without the check, best of 3 warm each (``{"crc": ...}``);
 5i. what reads through the stream (the typed reader and writer, the row
-   model, the ordered merge and sort), each check fatal: (a) 1,048,576
+   model, the ordered merge and sort), each check fatal: (a) 524,288
+   (cut from 1,048,576 for the script's time when phase 5j came)
    seeded ``Event`` dataclasses (unique ``id``, ``region`` of 200,
    ``user`` of 20,000, a UTC ``ts``, a ``day``, ``score`` 5 % None, 0-4
    ``tags`` of 32, 0-3 ``attrs``, ``geo`` 10 % None) written by
@@ -244,7 +246,8 @@ Phases, each fatal on failure:
    read as ``Geo(None, None)``, as the JAX package reads it),
    ``read_pytree`` equal to ``ParquetFile.read``, both unpack kernels
    launched and the card's allocated bytes back (``{"typed": ...}``);
-   (b) 262,144 Documents of the Dremel paper's schema written by
+   (b) 131,072 Documents (cut from 262,144 likewise) of the Dremel
+   paper's schema written by
    ``write_rows`` (65,536-row row groups, 8 KiB pages, page index),
    ``read_rows(device="cuda")`` equal to the records, ``FileRows.seek_to_row``
    at 16 offsets (0, a page boundary, a row-group boundary, the last row,
@@ -268,6 +271,26 @@ Phases, each fatal on failure:
    permutes, host copies, the writer), pulls, syncs, launches and peak
    device bytes; ``unpack_bits_dense`` must launch in all four,
    ``dict_unpack_gather`` in the typed drain;
+5j. aggregation on the card (``ParquetFile.aggregate(device="cuda")``),
+   each check fatal: (a) TPC-H Q1's shape on phase 4b's lineitem rows
+   (the generated columns written again with the small-cardinality ones
+   dictionary-encoded): ``where l_shipdate <= 1998-09-02`` grouped by
+   ``l_returnflag`` (sums, averages, counts), the same filter ungrouped,
+   the statistics and dictionary tiers over every row
+   (``count_distinct(l_shipmode)``, ``min_``/``max_(l_shipdate)``,
+   ``variance(l_discount)``, ``sum_(l_quantity)``: ``unpack_bits_dense``
+   and no gather) and ``top_k(l_extendedprice, 10)``; (b) about 30 % of
+   phase 4b's keys (its file is sorted by ``l_orderkey``), the bounds on
+   strict page boundaries, answered by the statistics and page tiers
+   (their counters above 0), then decoded sums; (c)
+   ``PARQUET_TPU_TORCH_FUSED=on`` on (a)'s filtered query.  Every answer
+   equals a numpy oracle over the generated columns (float sums to
+   ``1e-9``); both unpack kernels launch (``dict_unpack_gather`` in the
+   exact tier), no chunk takes the host route, the card's allocated bytes
+   come back.  One ``{"aggregate": ...}`` line: each query's cold and
+   best of 3 warm walls beside the best whole read of its columns, tiers,
+   launches, the host route, and ``AGG`` (folds on the card and the
+   host, spans decoded, copies back);
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -3985,11 +4008,11 @@ def stream_path(card: str, read: dict, item: dict, nested: dict,
 # phase 5i: typed reads, rows, merge and sort
 # ---------------------------------------------------------------------------
 
-TYPED_ROWS = 1 << 20
+TYPED_ROWS = 1 << 19  # cut from 1 << 20 when phase 5j came: the script's time
 TYPED_ROW_GROUP = 1 << 18
 TYPED_BATCH = 65_536
 TYPED_READ = 100_000
-DOC_ROWS = 1 << 18
+DOC_ROWS = 1 << 17  # cut from 1 << 18 likewise
 DOC_ROW_GROUP = 1 << 16
 DOC_PAGE = 8 << 10
 DOC_SEEKS = 16
@@ -4144,7 +4167,7 @@ def codecs_of(path: str) -> set:
 
 
 def typed_path(card: str, seed: int, tmp: str) -> dict:
-    """Phase 5i(a): 1,048,576 ``Event``s written by ``write_objects`` with
+    """Phase 5i(a): 524,288 ``Event``s written by ``write_objects`` with
     the default options (Snappy, 262,144-row row groups), drained by
     ``TypedReader(..., batch_rows=65,536, device="cuda").read(100,000)``
     to the end, equal to the generated objects, as ``read_objects``;
@@ -4300,7 +4323,7 @@ def same_host_columns(a: dict, b: dict, what: str) -> None:
 
 
 def rows_path(card: str, seed: int, tmp: str) -> dict:
-    """Phase 5i(b): 262,144 Documents written by ``write_rows`` (65,536-row
+    """Phase 5i(b): 131,072 Documents written by ``write_rows`` (65,536-row
     row groups, 8 KiB pages, page index); ``read_rows(device="cuda")``
     equal to the records; ``FileRows.seek_to_row`` at 16 offsets (0, a
     page boundary, a row-group boundary, the last row, one past the end,
@@ -4659,6 +4682,299 @@ def typed_rows_merge_path(card: str, seed: int, tmp: str) -> dict:
         seconds[name] = time.perf_counter() - t0
     log({"phase_5i_s": seconds})
     return {"launches": total}
+
+
+# ---------------------------------------------------------------------------
+# phase 5j: the aggregation cascade on the card
+# ---------------------------------------------------------------------------
+
+Q1_DATE = 10_471  # TPC-H Q1's 1998-12-01 less 90 days, in days since 1970
+Q1_COLUMNS = ("l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+              "l_tax", "l_returnflag", "l_linestatus", "l_shipdate",
+              "l_shipmode")
+# the Q1 file's dictionary columns: every one of small cardinality
+Q1_DICT = ("l_quantity", "l_discount", "l_tax", "l_returnflag",
+           "l_linestatus", "l_shipmode")
+AGG_WARM = 3
+AGG_RANGE_SHARE = (0.35, 0.65)  # phase 5j(b): about 30 % of the keys
+AGG_RTOL = 1e-9  # float sums add in another order than numpy's
+
+
+def _close(got, want, what: str) -> None:
+    """Exact for ints, bytes and bounds; ``AGG_RTOL`` for float sums."""
+    if isinstance(want, float) and isinstance(got, float):
+        if abs(got - want) > AGG_RTOL * max(abs(want), 1e-300):
+            raise AssertionError(f"{what}: {got!r} != {want!r}")
+        return
+    if got != want or type(got) is not type(want):
+        raise AssertionError(f"{what}: {got!r} != {want!r}")
+
+
+def _check_agg(res, want: dict, what: str) -> None:
+    for name, w in want.items():
+        g = res[name]
+        if isinstance(w, list):
+            if len(g) != len(w):
+                raise AssertionError(f"{what} {name}: {g!r} != {w!r}")
+            for a, b in zip(g, w):
+                _close(a, b, f"{what} {name}")
+        else:
+            _close(g, w, f"{what} {name}")
+
+
+def _strict_page_bounds(path: str, lo_row: int, hi_row: int) -> tuple:
+    """Page bounds of the sorted ``l_orderkey`` near file rows ``lo_row``
+    and ``hi_row``: the min of a page whose previous page's max is below
+    it, and the max of a page whose next page's min is above it, so that
+    the range's boundary pages are covered, not contended."""
+    from parquet_tpu_torch.io.search import decoded_bounds
+
+    f = pq.ParquetFile(path)
+    pages, base = [], 0
+    for rg in f.row_groups:
+        chunk = rg.column(f.schema.leaf("l_orderkey").column_index)
+        ci, oi = chunk.column_index(), chunk.offset_index()
+        mins, maxs = decoded_bounds(ci, f.schema.leaf("l_orderkey"))
+        for pl, mn, mx in zip(oi.page_locations, mins, maxs):
+            pages.append((base + pl.first_row_index, mn, mx))
+        base += rg.num_rows
+    lo = hi = None
+    for i in range(1, len(pages)):
+        if pages[i][0] >= lo_row and pages[i][1] > pages[i - 1][2]:
+            lo = pages[i][1]
+            break
+    for i in range(len(pages) - 1):
+        if pages[i][0] >= hi_row and pages[i][2] < pages[i + 1][1]:
+            hi = pages[i][2]
+            break
+    if lo is None or hi is None:
+        raise AssertionError("phase 5j: no strict page boundary found")
+    return int(lo), int(hi)
+
+
+def _agg_walls(run, whole_read) -> dict:
+    """``run()`` cold (its kernel launches, host routes and ``AGG``
+    counters kept), then :data:`AGG_WARM` warm in turns with as many whole
+    reads of the same columns: the best warm wall of each."""
+    from parquet_tpu_torch.io import aggregate as agg_mod
+
+    reset_routes()
+    pq.reset_launches()
+    agg_mod.reset_agg()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    counted = {"launches": dict(pq.LAUNCHES),
+               "host_route": {k: v for k, v in pq.HOST_ROUTE.items() if v},
+               "agg": {k: v for k, v in agg_mod.AGG.items() if v}}
+    runs, reads = [], []
+    for _ in range(AGG_WARM):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        got = whole_read()
+        torch.cuda.synchronize()
+        reads.append(time.perf_counter() - t0)
+        del got
+    return {"out": out, "cold_s": cold, "warm_s": min(runs),
+            "whole_read_s": min(reads), **counted}
+
+
+def aggregate_path(card: str, rows: int, seed: int, tmp: str,
+                   lineitem: str) -> dict:
+    """Phase 5j: ``ParquetFile.aggregate(device="cuda")``, each check
+    fatal.  (a) TPC-H Q1's shape on phase 4b's lineitem rows (the same
+    generated columns, written again with the small-cardinality columns
+    dictionary-encoded, so that the dictionary tier has indexes to count
+    and the exact tier a dictionary to gather): ``where l_shipdate <=
+    1998-09-02`` grouped by ``l_returnflag`` (sums, averages, counts);
+    the same filter ungrouped (the folds on the card under a mask sent
+    there); ungrouped over every row, ``count_distinct(l_shipmode)``,
+    ``min_``/``max_(l_shipdate)``, ``variance(l_discount)`` and
+    ``sum_(l_quantity)`` (statistics and dictionary tiers: the indexes
+    unpacked by ``unpack_bits_dense``, nothing gathered) and
+    ``top_k(l_extendedprice, 10)``; (b) about 30 % of the keys of phase
+    4b's file, sorted by ``l_orderkey``, its bounds on strict page
+    boundaries: counts and the key's bounds answered by the statistics and
+    page tiers, then sums decoded; (c) ``PARQUET_TPU_TORCH_FUSED=on`` on
+    (a)'s filtered query, equal.  Every answer against a numpy oracle over
+    the generated columns; both unpack kernels launched, no chunk on the
+    host route, the card's allocated bytes back."""
+    from parquet_tpu_torch.io import aggregate as agg_mod
+    from parquet_tpu_torch.io import fused as fused_mod
+
+    t0 = time.perf_counter()
+    schema, data = make_lineitem(rows, seed)
+    gen_s = time.perf_counter() - t0
+    cols = {n: data[n] for n in Q1_COLUMNS}
+    q1_schema = Schema([Leaf(-1, leaf.name, leaf.physical_type,
+                             string=leaf.string)
+                        for leaf in schema.leaves if leaf.name in cols])
+    path = os.path.join(tmp, "lineitem_q1.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(cols, path, pq.WriterOptions(
+        compression="snappy", row_group_size=LINEITEM_ROW_GROUP,
+        data_page_size=1 << 20,
+        column_encoding={n: (Encoding.RLE_DICTIONARY if n in Q1_DICT
+                             else Encoding.PLAIN) for n in Q1_COLUMNS}),
+        schema=q1_schema)
+    write_s = time.perf_counter() - t0
+    # the numpy oracle
+    num = {n: cols[n].values for n in Q1_COLUMNS
+           if n not in LINEITEM_STRINGS}
+    strs = {n: _codes_of(cols[n], LINEITEM_STRINGS[n])
+            for n in ("l_returnflag", "l_shipmode")}
+    q, price, disc = num["l_quantity"], num["l_extendedprice"], \
+        num["l_discount"]
+    ship, okey = num["l_shipdate"], num["l_orderkey"]
+    del data, cols
+    m = ship <= Q1_DATE
+    flags = [w.encode() for w in LINEITEM_STRINGS["l_returnflag"]]
+    fcode = strs["l_returnflag"]
+    groups = [g for g in range(len(flags)) if np.any(m & (fcode == g))]
+    q1_want = {
+        "sum(l_quantity)": [int(q[m & (fcode == g)].sum()) for g in groups],
+        "sum(l_extendedprice)": [float(price[m & (fcode == g)].sum())
+                                 for g in groups],
+        "avg(l_quantity)": [float(q[m & (fcode == g)].sum())
+                            / int((m & (fcode == g)).sum()) for g in groups],
+        "avg(l_discount)": [float(disc[m & (fcode == g)].sum())
+                            / int((m & (fcode == g)).sum()) for g in groups],
+        "count(*)": [int((m & (fcode == g)).sum()) for g in groups]}
+    filt_want = {"count(*)": int(m.sum()), "sum(l_quantity)":
+                 int(q[m].sum()), "sum(l_extendedprice)":
+                 float(price[m].sum()), "min(l_discount)":
+                 float(disc[m].min()), "max(l_discount)":
+                 float(disc[m].max()), "avg(l_extendedprice)":
+                 float(price[m].sum()) / int(m.sum())}
+    n_all = len(disc)
+    dict_want = {
+        "count_distinct(l_shipmode)": len(np.unique(strs["l_shipmode"])),
+        "min(l_shipdate)": int(ship.min()), "max(l_shipdate)":
+        int(ship.max()), "sum(l_quantity)": int(q.sum()),
+        "variance(l_discount)": float(
+            (np.dot(disc, disc) - disc.sum() ** 2 / n_all) / n_all)}
+    topk_want = {"top_k(l_extendedprice,10)":
+                 np.sort(price)[::-1][:10].tolist()}
+    lo_row, hi_row = (int(rows * s) for s in AGG_RANGE_SHARE)
+    lo, hi = _strict_page_bounds(lineitem, lo_row, hi_row)
+    r = (okey >= lo) & (okey <= hi)
+    range_want = {"count(*)": int(r.sum()), "count(l_orderkey)":
+                  int(r.sum()), "min(l_orderkey)": int(okey[r].min()),
+                  "max(l_orderkey)": int(okey[r].max())}
+    range_dec_want = {"sum(l_quantity)": int(q[r].sum()),
+                      "max(l_extendedprice)": float(price[r].max())}
+    q1_where = pq.col("l_shipdate") <= Q1_DATE
+    f = pq.ParquetFile(path)
+    item = pq.ParquetFile(lineitem)
+    queries = {
+        "q1_grouped": (f, dict(aggs=[
+            pq.sum_("l_quantity"), pq.sum_("l_extendedprice"),
+            pq.avg("l_quantity"), pq.avg("l_discount"), pq.count()],
+            where=q1_where, group_by="l_returnflag"), q1_want,
+            ["l_shipdate", "l_returnflag", "l_quantity", "l_extendedprice",
+             "l_discount"]),
+        "q1_filtered": (f, dict(aggs=[
+            pq.count(), pq.sum_("l_quantity"), pq.sum_("l_extendedprice"),
+            pq.min_("l_discount"), pq.max_("l_discount"),
+            pq.avg("l_extendedprice")], where=q1_where), filt_want,
+            ["l_shipdate", "l_quantity", "l_extendedprice", "l_discount"]),
+        "dictionary": (f, dict(aggs=[
+            pq.count_distinct("l_shipmode"), pq.min_("l_shipdate"),
+            pq.max_("l_shipdate"), pq.variance("l_discount"),
+            pq.sum_("l_quantity")]), dict_want,
+            ["l_shipmode", "l_shipdate", "l_discount", "l_quantity"]),
+        "top_k": (f, dict(aggs=[pq.top_k("l_extendedprice", 10)]),
+                  topk_want, ["l_extendedprice"]),
+        "range_metadata": (item, dict(aggs=[
+            pq.count(), pq.count("l_orderkey"), pq.min_("l_orderkey"),
+            pq.max_("l_orderkey")],
+            where=pq.col("l_orderkey").between(lo, hi)), range_want,
+            ["l_orderkey"]),
+        "range_decoded": (item, dict(aggs=[
+            pq.sum_("l_quantity"), pq.max_("l_extendedprice")],
+            where=pq.col("l_orderkey").between(lo, hi)), range_dec_want,
+            ["l_orderkey", "l_quantity", "l_extendedprice"]),
+    }
+    start = settled_allocated()
+    total = dict.fromkeys(pq.LAUNCHES, 0)
+    out = {}
+    for name, (pf, kw, want, read_cols) in queries.items():
+        got = _agg_walls(lambda pf=pf, kw=kw: pf.aggregate(device=DEVICE,
+                                                           **kw),
+                         lambda pf=pf, c=read_cols: pf.read(columns=c,
+                                                            device=DEVICE))
+        res = got.pop("out")
+        _check_agg(res, want, f"phase 5j {name}")
+        if name == "q1_grouped" and res.groups != [flags[g]
+                                                   for g in groups]:
+            raise AssertionError(f"phase 5j q1 groups {res.groups}")
+        if got["host_route"]:
+            raise AssertionError(f"phase 5j {name}: host route "
+                                 f"{got['host_route']}")
+        for k, v in got["launches"].items():
+            total[k] += v
+        out[name] = {**got, "tiers": {k: v for k, v in res.counters.items()
+                                      if v}}
+    d = out["dictionary"]
+    if not d["launches"]["unpack_bits_dense"] or \
+            d["launches"]["dict_unpack_gather"]:
+        raise AssertionError("phase 5j: the dictionary tier must unpack "
+                             f"and never gather: {d['launches']}")
+    if not d["tiers"].get("rg_answered_dict"):
+        raise AssertionError(f"phase 5j: no dictionary tier {d['tiers']}")
+    if not out["q1_filtered"]["launches"]["dict_unpack_gather"]:
+        raise AssertionError("phase 5j: the exact tier launched no "
+                             f"dict_unpack_gather: {out['q1_filtered']}")
+    rt = out["range_metadata"]["tiers"]
+    if not rt.get("rg_answered_stats") or not rt.get("rg_answered_pages"):
+        raise AssertionError(f"phase 5j(b): statistics and page tiers "
+                             f"must answer rows: {rt}")
+    check_launched("phase 5j", total, READ_KERNELS)
+    # (c) the fused page cursor pinned on, against the default
+    fused_mod.reset_fused()
+    with knobs(PARQUET_TPU_TORCH_FUSED="on"):
+        pf, kw, want, read_cols = queries["q1_filtered"]
+        t0 = time.perf_counter()
+        res = pf.aggregate(device=DEVICE, **kw)
+        fused_s = time.perf_counter() - t0
+    _check_agg(res, want, "phase 5j fused")
+    if "(fused)" not in res.explain() or not fused_mod.FUSED["rg_folds"]:
+        raise AssertionError("phase 5j(c): the fused tier did not run")
+    out["fused_on"] = {"wall_s": fused_s, "fused": dict(fused_mod.FUSED)}
+    del res, got
+    left = settled_allocated() - start
+    if left > 0:
+        raise AssertionError(f"phase 5j: {left} device bytes left "
+                             "allocated")
+    log({"aggregate": {"card": card, "rows": rows, "generate_s": gen_s,
+                       "q1_write_s": write_s, "range": [lo, hi],
+                       "queries": out}})
+    return {"launches": total}
+
+
+def _codes_of(cd, words) -> np.ndarray:
+    """Each row's index in ``words`` of a byte-array column built from
+    them (by the first byte, which tells these words apart, else by the
+    whole value)."""
+    firsts = [w.encode()[:1] for w in words]
+    starts = cd.values[cd.offsets[:-1]]
+    if len(set(firsts)) == len(words):
+        table = np.full(256, -1, np.int64)
+        for i, b in enumerate(firsts):
+            table[b[0]] = i
+        return table[starts]
+    lens = np.diff(cd.offsets)
+    key = starts.astype(np.int64) * 1000 + lens
+    out = np.full(len(starts), -1, np.int64)
+    for i, w in enumerate(words):
+        b = w.encode()
+        out[key == b[0] * 1000 + len(b)] = i
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -6247,7 +6563,9 @@ def main(argv=None) -> int:
     ap.add_argument("--lineitem-rows", type=int, default=8_388_608,
                     help="lineitem's rows: a cut of bench.py cfg 7's "
                     "40,000,000")
-    ap.add_argument("--enc-rows", type=int, default=4_194_304)
+    ap.add_argument("--enc-rows", type=int, default=2_097_152,
+                    help="enc's rows: 2,097,152 by default (4,194,304 "
+                    "before phase 5j, cut for the script's time)")
     ap.add_argument("--nested-n", type=int, default=8_000_000,
                     help="bench.py's n for cfg 4, which writes n // 4 "
                     "list rows")
@@ -6334,6 +6652,8 @@ def main(argv=None) -> int:
                        multi["paths"])
         typed_rows = phase("5i_typed_rows_merge", typed_rows_merge_path,
                            card, args.seed, tmp)
+        aggregate = phase("5j_aggregate", aggregate_path, card,
+                          args.lineitem_rows, args.seed, tmp, item["path"])
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -6344,7 +6664,8 @@ def main(argv=None) -> int:
                      {"dataset": multi, "sharded": sharded,
                       "host_scan": hscan, "lookups": leftovers,
                       "struct_keys": struct, "resilience": resilience,
-                      "stream": stream, "typed_rows_merge": typed_rows})
+                      "stream": stream, "typed_rows_merge": typed_rows,
+                      "aggregate": aggregate})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

@@ -33,7 +33,14 @@ of any nesting (``write_rows``, ``read_rows``, ``FileRows`` with
 ``seek_to_row``, Dremel's ``deconstruct``/``reconstruct``), and sorted
 files (``SortingWriter``, which spills sorted runs, and ``merge_files`` /
 ``iter_merged``, the k-way merge of sorted files, each run streamed from
-the card).
+the card).  It answers aggregates (``ParquetFile.aggregate``,
+``Dataset.aggregate``: ``count``, ``min_``, ``max_``, ``sum_``,
+``sum_sq``, ``avg``, ``variance``, ``count_distinct``, ``top_k``,
+optionally grouped) from footer statistics and page-index zone maps
+where they prove the answer, and otherwise decodes the dictionary pages
+and the contended spans on the card and folds there (``AGG`` counts
+where the folds ran); page encodings dispatch through a registry
+(``register_encoding``).
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -66,19 +73,32 @@ the card).
         ...
     pq.merge_files(["a.parquet", "b.parquet"], [pq.SortingColumn("k")],
                    "ab.parquet")
+    res = pq.ParquetFile("x.parquet").aggregate(
+        [pq.count(), pq.sum_("x"), pq.avg("x")], where=col("x") >= 2)
+    res = pq.Dataset("parts/*.parquet").aggregate(
+        [pq.max_("x")], group_by="k", device="cpu")
 """
 
 from .algebra.expr import And, Col, Expr, Not, Or, col
 from .dataset import Dataset, expand_paths
-from .errors import (CorruptedError, DeadlineError, ReadError, ReadIOError,
-                     ShortReadError)
+from .errors import (ColumnTooDeepError, CorruptedError, DeadlineError,
+                     MissingRootColumnError, ReadError, ReadIOError,
+                     ShortReadError, TooManyRowGroupsError, WriteError)
+from .algebra.aggregate import (AggExpr, avg, count, count_distinct, max_,
+                                min_, sum_, sum_sq, top_k, variance)
+from .io.aggregate import (AGG, AggregateResult, decode_agg_state,
+                           encode_agg_state, reset_agg)
+from .io.fused import FUSED, reset_fused
+from .ops.encodings import (DictIndices, EncodingSpec, register_encoding,
+                            registered_encodings)
 from .io.faults import (FaultInjectingSource, FaultPolicy, PolicySource,
                         ReadReport)
 from .io.cache import CacheStats, cache_stats, clear_caches
 from .io.column import Column
 from .io.lookup import KeyHits, LookupResult, find_rows
-from .io.planner import (ROUTE_REFUSALS, CostInputs, RouteDecision,
-                         RouteHistory, ScanPlan, ScanPlanner, choose_route,
+from .io.planner import (FUSED_AUTO_MIN_BYTES, ROUTE_REFUSALS, CostInputs,
+                         RouteDecision, RouteHistory, ScanPlan, ScanPlanner,
+                         choose_fused, choose_route,
                          device_route_supported, reset_route_refusals,
                          route_history, route_scan)
 from .io.prefetch import PrefetchSource, ReadStats
@@ -136,7 +156,14 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "merge_files", "merge_row_groups", "TypedReader", "TypedWriter",
            "read_objects", "read_pytree", "write_objects", "FileRows", "Row",
            "RowBuilder", "Value", "copy_rows", "deconstruct", "read_rows",
-           "reconstruct", "write_rows"]
+           "reconstruct", "write_rows", "AggExpr", "avg", "count",
+           "count_distinct", "max_", "min_", "sum_", "sum_sq", "top_k",
+           "variance", "AggregateResult", "encode_agg_state",
+           "decode_agg_state", "AGG", "reset_agg", "FUSED", "reset_fused",
+           "choose_fused", "FUSED_AUTO_MIN_BYTES", "DictIndices",
+           "EncodingSpec", "register_encoding", "registered_encodings",
+           "WriteError", "ColumnTooDeepError", "MissingRootColumnError",
+           "TooManyRowGroupsError"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

@@ -8,16 +8,17 @@ reads every file on a list of devices through
 columns in file order, and :meth:`Dataset.scan`, the host scan of every
 file that survives the footer prune (``parallel/host_scan.py::
 scan_files``), :meth:`Dataset.find_rows`, the batched point lookup
-over every file (``io/lookup.py::dataset_find_rows``), and
+over every file (``io/lookup.py::dataset_find_rows``),
 :meth:`Dataset.iter_batches`, the streamed read of file after file
-(``io/stream.py``).  Each takes
+(``io/stream.py``), and :meth:`Dataset.aggregate`, the aggregation
+cascade over every file (``io/aggregate.py``).  Each takes
 ``policy``/``report`` (``io/faults.py``) as the JAX package's: a call's
 policy overrides the dataset's, every file reads under it, and under
 ``on_corrupt='skip_row_group'`` a file that cannot be opened or read
 drops as a unit into ``report.files_skipped``.  Every file opens with
 the dataset's ``options`` (``io/reader.py::ReadOptions``).  Remote URLs,
-the shared chunk cache, the manifest's snapshot fields, and the dataset's
-``aggregate`` belong to later slices and raise naming theirs.
+the shared chunk cache and the manifest's snapshot fields and zone maps
+belong to later slices and raise naming theirs.
 """
 
 from __future__ import annotations
@@ -504,9 +505,21 @@ class Dataset:
             if report is not None:
                 report.merge(sub)
 
-    # ------------------------------------------------ later slices' routes
-    def aggregate(self, *args, **kwargs):
-        raise unsupported("Dataset.aggregate", "aggregation")
+    def aggregate(self, aggs, where=None, group_by=None, device="cuda",
+                  policy=None, report=None):
+        """Answer aggregates (``algebra/aggregate.py``'s nodes) over every
+        file at the cheapest tier that proves each row group's answer
+        (``io/aggregate.py::dataset_aggregate``): the predicate prepares
+        once, the files resolve on the shared pool with their dictionary
+        and exact tiers on ``device`` (CUDA unless the caller names the
+        CPU), and the partial states merge in file order.  Under a
+        degraded ``policy`` an unreadable file drops as a unit
+        (``report.files_skipped``) and a corrupt row group of a readable
+        one drops its contribution whole."""
+        from .io.aggregate import dataset_aggregate
+
+        return dataset_aggregate(self, aggs, where=where, group_by=group_by,
+                                 device=device, policy=policy, report=report)
 
     # -------------------------------------------------------------- misc
     def close(self) -> None:

@@ -2,8 +2,10 @@
 
 The port's copy of the parts of ``parquet_tpu/errors.py`` its slices
 raise: the read hierarchy (:class:`ReadError` and its subclasses) that
-``io/faults.py::read_context`` wraps a read's failures in.  The remote and
-write errors come with their slices.
+``io/faults.py::read_context`` wraps a read's failures in, the schema's
+and the writer's limits (:class:`MissingRootColumnError`,
+:class:`ColumnTooDeepError`, :class:`TooManyRowGroupsError`) and
+:class:`WriteError`.  The remote errors come with ``io/remote.py``.
 """
 
 
@@ -51,10 +53,41 @@ class ShortReadError(ReadIOError):
     source raised without one."""
 
 
+class WriteError(OSError):
+    """A write failure with its destination: the target path and, for an
+    atomic sink, the temporary file the bytes live in.  An ``OSError``, so
+    ``except OSError`` still catches it; the low-level failure rides as
+    ``__cause__``."""
+
+    def __init__(self, message: str, path=None, temp_path=None):
+        loc = []
+        if path is not None:
+            loc.append(f"dest={path}")
+        if temp_path is not None:
+            loc.append(f"temp={temp_path}")
+        super().__init__(f"[{' '.join(loc)}] {message}" if loc else message)
+        self.path = path
+        self.temp_path = temp_path
+
+
+class MissingRootColumnError(CorruptedError):
+    """The schema has no root element."""
+
+
+class TooManyRowGroupsError(ValueError):
+    """A file would hold more than :data:`MAX_ROW_GROUPS` row groups."""
+
+
+class ColumnTooDeepError(ValueError):
+    """A column lies deeper than :data:`MAX_COLUMN_DEPTH` nodes."""
+
+
 # page sizes are i32 in the thrift structs
 MAX_PAGE_SIZE = (1 << 31) - 1
 # nodes on a column's path, below the root (the JAX package's limit)
 MAX_COLUMN_DEPTH = 16
+# a row group's ordinal is an i16
+MAX_ROW_GROUPS = 1 << 15
 
 
 def unsupported(what: str, slice_name: str) -> NotImplementedError:

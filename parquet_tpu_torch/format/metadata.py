@@ -4,9 +4,10 @@ writes and point lookups touch.
 The port's copy of ``parquet_tpu/format/metadata.py``.  Field ids, names and
 types mirror the Apache Parquet thrift IDL, so a file written by either
 package reads back in the other.  Every member of the ``LogicalType``
-union that the JAX package knows is read; structs this port never reads
-(encryption, size statistics) are left out: the compact reader skips
-their fields by wire type.
+union that the JAX package knows is read, and so are the footer's column
+orders, a chunk's page encoding stats and size statistics and the
+encryption structs (declared so a reader keeps them, as the JAX package
+declares them).
 """
 
 from __future__ import annotations
@@ -215,6 +216,24 @@ class SortingColumn:
 
 
 @thrift_struct
+class PageEncodingStats:
+    _FIELDS = [
+        (1, "page_type", T.I32),
+        (2, "encoding", T.I32),
+        (3, "count", T.I32),
+    ]
+
+
+@thrift_struct
+class SizeStatistics:
+    _FIELDS = [
+        (1, "unencoded_byte_array_data_bytes", T.I64),
+        (2, "repetition_level_histogram", _L(T.I64)),
+        (3, "definition_level_histogram", _L(T.I64)),
+    ]
+
+
+@thrift_struct
 class ColumnMetaData:
     _FIELDS = [
         (1, "type", T.I32),  # enums.Type
@@ -229,8 +248,28 @@ class ColumnMetaData:
         (10, "index_page_offset", T.I64),
         (11, "dictionary_page_offset", T.I64),
         (12, "statistics", _S(Statistics)),
+        (13, "encoding_stats", _L(_S(PageEncodingStats))),
         (14, "bloom_filter_offset", T.I64),
         (15, "bloom_filter_length", T.I32),
+        (16, "size_statistics", _S(SizeStatistics)),
+    ]
+
+
+# the encryption structs, declared so a reader keeps them
+EncryptionWithFooterKey = _empty("EncryptionWithFooterKey")
+
+
+@thrift_struct
+class EncryptionWithColumnKey:
+    _FIELDS = [(1, "path_in_schema", _L(T.STRING)),
+               (2, "key_metadata", T.BINARY)]
+
+
+@thrift_struct
+class ColumnCryptoMetaData:  # union
+    _FIELDS = [
+        (1, "ENCRYPTION_WITH_FOOTER_KEY", _S(EncryptionWithFooterKey)),
+        (2, "ENCRYPTION_WITH_COLUMN_KEY", _S(EncryptionWithColumnKey)),
     ]
 
 
@@ -244,6 +283,8 @@ class ColumnChunk:
         (5, "offset_index_length", T.I32),
         (6, "column_index_offset", T.I64),
         (7, "column_index_length", T.I32),
+        (8, "crypto_metadata", _S(ColumnCryptoMetaData)),
+        (9, "encrypted_column_metadata", T.BINARY),
     ]
 
 
@@ -258,6 +299,14 @@ class RowGroup:
         (6, "total_compressed_size", T.I64),
         (7, "ordinal", T.I16),
     ]
+
+
+TypeDefinedOrder = _empty("TypeDefinedOrder")
+
+
+@thrift_struct
+class ColumnOrder:  # union
+    _FIELDS = [(1, "TYPE_ORDER", _S(TypeDefinedOrder))]
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +337,33 @@ class ColumnIndex:
         (3, "max_values", _L(T.BINARY)),
         (4, "boundary_order", T.I32),  # enums.BoundaryOrder
         (5, "null_counts", _L(T.I64)),
+        (6, "repetition_level_histograms", _L(T.I64)),
+        (7, "definition_level_histograms", _L(T.I64)),
     ]
+
+
+@thrift_struct
+class AesGcmV1:
+    _FIELDS = [
+        (1, "aad_prefix", T.BINARY),
+        (2, "aad_file_unique", T.BINARY),
+        (3, "supply_aad_prefix", T.BOOL),
+    ]
+
+
+@thrift_struct
+class AesGcmCtrV1:
+    _FIELDS = [
+        (1, "aad_prefix", T.BINARY),
+        (2, "aad_file_unique", T.BINARY),
+        (3, "supply_aad_prefix", T.BOOL),
+    ]
+
+
+@thrift_struct
+class EncryptionAlgorithm:  # union
+    _FIELDS = [(1, "AES_GCM_V1", _S(AesGcmV1)),
+               (2, "AES_GCM_CTR_V1", _S(AesGcmCtrV1))]
 
 
 @thrift_struct
@@ -300,6 +375,9 @@ class FileMetaData:
         (4, "row_groups", _L(_S(RowGroup))),
         (5, "key_value_metadata", _L(_S(KeyValue))),
         (6, "created_by", T.STRING),
+        (7, "column_orders", _L(_S(ColumnOrder))),
+        (8, "encryption_algorithm", _S(EncryptionAlgorithm)),
+        (9, "footer_signing_key_metadata", T.BINARY),
     ]
 
 

@@ -33,10 +33,12 @@ and the routed scan's cost model: :func:`route_scan` builds
 :class:`CostInputs` from a statistics-only plan (no IO) and
 :func:`device_route_supported`, :func:`choose_route` picks the host or
 the device scan, and :class:`RouteHistory` feeds the measured rates
-back.  Left out for later slices: fault policies and reports, the
-coverage proofs of the aggregation cascade, the pool-wait meter (the
-routed scan observes no pool wait), and the route meters, metrics, trace
-spans and ``/debugz`` section.
+back.  The aggregation cascade's half: the coverage proofs
+(:func:`_stats_covers`, :func:`_tree_covers`, :func:`_bounds_cover`) and
+:func:`choose_fused`, the gate of the fused page cursor
+(``io/fused.py``) under ``PARQUET_TPU_TORCH_FUSED``.  Left out for later
+slices: the pool-wait meter (the routed scan observes no pool wait), and
+the route meters, metrics, trace spans and ``/debugz`` section.
 """
 
 from __future__ import annotations
@@ -217,6 +219,36 @@ class ScanPlan:
             f"bloom={c.get('rg_pruned_bloom', 0)}; candidates "
             f"{cand}/{total_rows} rows ({pct:.2f}%)")
         return "\n".join(lines)
+
+
+# the fused page cursor pays a header parse and mask bookkeeping a page:
+# under this many estimated decode bytes the materializing tier's one span
+# read wins (``auto`` only; ``on``/``off`` pin the choice)
+FUSED_AUTO_MIN_BYTES = 8 << 20
+
+
+def choose_fused(est_bytes: int, device=None) -> bool:
+    """Whether the fused page cursor (``io/fused.py``) replaces the
+    materializing exact tier: ``PARQUET_TPU_TORCH_FUSED=on`` pins the
+    cursor, ``off`` the materializing tier; ``auto`` (the default) keeps
+    the JAX package's rule (fuse once ``est_bytes``, the bytes the exact
+    tier would otherwise decode, reach :data:`FUSED_AUTO_MIN_BYTES`) on
+    the CPU and in the host scan, and never fuses for a CUDA ``device``:
+    the card decodes a contended span whole in one plan, where a page at
+    a time would cost a pull a page."""
+    from ..utils.env import env_str
+
+    mode = env_str("PARQUET_TPU_TORCH_FUSED").strip().lower() or "auto"
+    if mode in ("on", "1", "true", "always"):
+        return True
+    if mode in ("off", "0", "false", "never"):
+        return False
+    if device is not None:
+        import torch
+
+        if torch.device(device).type == "cuda":
+            return False
+    return int(est_bytes) >= FUSED_AUTO_MIN_BYTES
 
 
 def _collect_preds(expr: Expr) -> List[Pred]:
@@ -604,6 +636,30 @@ def _stats_alive(pred: Pred, rg) -> bool:
         return not _not_in_covers(pred.values, mn, mx)
     except TypeError:
         return True  # a probe the bounds' domain cannot compare
+
+
+def _tree_covers(expr: Expr, leaf_fn) -> bool:
+    """The coverage dual of :func:`_eval_tree`: does ``expr`` provably
+    match every row?  ``leaf_fn(pred)`` answers True only on proof; an And
+    covers where all its children do, an Or where any does."""
+    if isinstance(expr, Const):
+        return expr.value
+    if isinstance(expr, Pred):
+        return leaf_fn(expr)
+    if isinstance(expr, And):
+        return all(_tree_covers(c, leaf_fn) for c in expr.children)
+    return any(_tree_covers(c, leaf_fn) for c in expr.children)
+
+
+def _stats_covers(pred: Pred, rg) -> bool:
+    """Do the row group's footer statistics prove that every row matches
+    ``pred``?  (The answering dual of :func:`_stats_alive`.)"""
+    chunk = rg.column(pred.leaf.column_index)
+    st = chunk.statistics()
+    if st is None:
+        return False
+    return _bounds_cover(pred, st.min_value, st.max_value, st.null_count,
+                         chunk.meta.num_values)
 
 
 def _pred_hashes(pred: Pred) -> Optional[np.ndarray]:

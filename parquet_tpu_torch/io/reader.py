@@ -42,6 +42,9 @@ from ..format import metadata as md
 from ..format import thrift
 from ..format.enums import CompressionCodec, Encoding, PageType, Type
 from ..ops import host
+from ..ops.encodings import (DictIndices, EncodingSpec, is_builtin_decode,
+                             register_encoding)
+from ..ops.encodings import lookup as lookup_encoding
 from ..schema.schema import Leaf, Schema
 from .column import Column, concat_columns
 from .source import Source, as_source
@@ -648,6 +651,10 @@ class RowGroupReader:
     def sorting_columns(self):
         return self.rg.sorting_columns
 
+    def columns(self) -> List[ColumnChunkReader]:
+        """Every chunk's reader, in column order."""
+        return [self.column(i) for i in range(len(self.rg.columns))]
+
     def column(self, i: int) -> ColumnChunkReader:
         key = (self.index, i)
         reader = self.file._chunk_cache.get(key)
@@ -778,6 +785,15 @@ class ParquetFile:
     @property
     def num_rows(self) -> int:
         return self.metadata.num_rows or 0
+
+    @property
+    def created_by(self) -> Optional[str]:
+        return self.metadata.created_by
+
+    def key_value_metadata(self) -> Dict[str, str]:
+        """The footer's key/value pairs as a dict."""
+        return {kv.key: kv.value
+                for kv in (self.metadata.key_value_metadata or [])}
 
     @property
     def row_groups(self) -> List[RowGroupReader]:
@@ -960,6 +976,22 @@ class ParquetFile:
                             strict_batch_rows=strict_batch_rows,
                             device=device, policy=policy, report=report)
 
+    def aggregate(self, aggs, where=None, group_by=None, device="cuda",
+                  policy=None, report=None):
+        """Answer aggregates (``count()``, ``min_("x")``, ... of
+        ``algebra/aggregate.py``) over the rows matching ``where``,
+        optionally grouped by a flat column, at the cheapest tier that
+        proves each row group's answer: footer statistics, page-index zone
+        maps, dictionary pages, then an exact decode of the contended
+        pages (:mod:`~parquet_tpu_torch.io.aggregate`).  The dictionary
+        and exact tiers decode and fold on ``device`` (CUDA unless the
+        caller names the CPU).  Returns an
+        :class:`~parquet_tpu_torch.io.aggregate.AggregateResult`."""
+        from .aggregate import aggregate_file
+
+        return aggregate_file(self, aggs, where=where, group_by=group_by,
+                              device=device, policy=policy, report=report)
+
     def find_rows(self, path: str, keys, columns: Optional[Sequence[str]] = None,
                   device="cuda", policy=None, report=None):
         """Batched point lookup: the rows where column ``path`` equals each
@@ -1024,52 +1056,154 @@ def _empty_column(leaf: Leaf, device: torch.device) -> Column:
 def _decode_values(raw: np.ndarray, pos: int, nvals: int,
                    encoding: Encoding, leaf: Leaf, physical: Type,
                    dictionary):
-    """One page's values on the host, with the port's ``ops/ref.py``
-    decoders: ``("idx", int32 indexes)`` for a dictionary page, else
+    """One page's values on the host, dispatched through the encoding
+    registry (``ops/encodings.py``; the built-ins below are registered at
+    import): ``("idx", int32 indexes)`` for a dictionary page, else
     ``("val", values)`` in the column's form (byte arrays: ``(values,
     offsets)``)."""
+    spec = lookup_encoding(encoding)
+    if spec is None:
+        raise unsupported(f"{encoding.name} pages of a {physical.name} "
+                          "column", "more encodings")
+    got = spec.decode(raw, pos, nvals, leaf, physical, dictionary)
+    if isinstance(got, DictIndices):
+        return "idx", np.asarray(got.indices).astype(np.int32, copy=False)
+    return "val", got
+
+
+# -- the built-in encodings: the registry's defaults ------------------------
+
+
+def _dec_dict(raw, pos, nvals, leaf, physical, dictionary):
+    from ..ops import ref
+
+    if dictionary is None:
+        raise CorruptedError("dictionary-encoded page without a "
+                             "dictionary page")
+    body = raw[pos:]
+    width = int(body[0]) if len(body) else 0
+    return DictIndices(ref.decode_rle(body[1:], nvals, width))
+
+
+def _dec_plain(raw, pos, nvals, leaf, physical, dictionary):
+    from ..ops import ref
+
+    return ref.decode_plain(raw[pos:], nvals, physical, leaf.type_length)
+
+
+def _dec_rle_bool(raw, pos, nvals, leaf, physical, dictionary):
+    from ..ops import ref
+
+    if physical != Type.BOOLEAN:
+        raise unsupported(f"RLE pages of a {physical.name} column",
+                          "more encodings")
+    return ref.decode_rle_len_prefixed(raw[pos:], nvals, 1)[0] != 0
+
+
+def _dec_delta(raw, pos, nvals, leaf, physical, dictionary):
+    from ..schema.types import PHYSICAL_NP_DTYPE
+
+    if physical not in (Type.INT32, Type.INT64):
+        raise unsupported(f"DELTA_BINARY_PACKED pages of a {physical.name} "
+                          "column", "more encodings")
+    v = host.decode_delta_binary_packed(raw[pos:])[0][:nvals]
+    return v.astype(PHYSICAL_NP_DTYPE[physical])
+
+
+def _dec_delta_len_ba(raw, pos, nvals, leaf, physical, dictionary):
+    from ..ops import ref
+
+    if physical != Type.BYTE_ARRAY:
+        raise unsupported(f"DELTA_LENGTH_BYTE_ARRAY pages of a "
+                          f"{physical.name} column", "more encodings")
+    v, o, _ = ref.decode_delta_length_byte_array(raw[pos:])
+    return v, o
+
+
+def _dec_delta_ba(raw, pos, nvals, leaf, physical, dictionary):
+    from ..ops import ref
+
+    if physical not in (Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
+        raise unsupported(f"DELTA_BYTE_ARRAY pages of a {physical.name} "
+                          "column", "more encodings")
+    v, o, _ = ref.decode_delta_byte_array(raw[pos:])
+    if physical == Type.FIXED_LEN_BYTE_ARRAY:
+        return v.reshape(-1, leaf.type_length)
+    return v, o
+
+
+def _dec_bss(raw, pos, nvals, leaf, physical, dictionary):
     from ..ops import ref
     from ..schema.types import PHYSICAL_NP_DTYPE, value_width
 
-    body = raw[pos:]
-    if encoding in (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY):
-        if dictionary is None:
-            raise CorruptedError("dictionary-encoded page without a "
-                                 "dictionary page")
-        width = int(body[0]) if len(body) else 0
-        return "idx", ref.decode_rle(body[1:], nvals, width)
-    if encoding == Encoding.PLAIN:
-        return "val", ref.decode_plain(body, nvals, physical,
-                                       leaf.type_length)
-    if encoding == Encoding.RLE and physical == Type.BOOLEAN:
-        return "val", ref.decode_rle_len_prefixed(body, nvals, 1)[0] != 0
-    if encoding == Encoding.DELTA_BINARY_PACKED and physical in (
-            Type.INT32, Type.INT64):
-        v = host.decode_delta_binary_packed(body)[0][:nvals]
-        return "val", v.astype(PHYSICAL_NP_DTYPE[physical])
-    if encoding == Encoding.DELTA_LENGTH_BYTE_ARRAY and \
-            physical == Type.BYTE_ARRAY:
-        v, o, _ = ref.decode_delta_length_byte_array(body)
-        return "val", (v, o)
-    if encoding == Encoding.DELTA_BYTE_ARRAY and physical in (
-            Type.BYTE_ARRAY, Type.FIXED_LEN_BYTE_ARRAY):
-        v, o, _ = ref.decode_delta_byte_array(body)
-        if physical == Type.FIXED_LEN_BYTE_ARRAY:
-            return "val", v.reshape(-1, leaf.type_length)
-        return "val", (v, o)
-    if encoding == Encoding.BYTE_STREAM_SPLIT:
-        w = value_width(physical, leaf.type_length)
-        if not w:
-            raise CorruptedError(f"BYTE_STREAM_SPLIT page in a "
-                                 f"{physical.name} column")
-        rows = ref.decode_byte_stream_split(body, nvals, w)
-        if physical == Type.FIXED_LEN_BYTE_ARRAY:
-            return "val", rows
-        if physical == Type.INT96:
-            return "val", rows.view(np.int32).reshape(nvals, 3)
-        return "val", rows.view(PHYSICAL_NP_DTYPE[physical]).reshape(-1)
-    raise unsupported(f"{encoding.name} pages of a {physical.name} column",
-                      "more encodings")
+    w = value_width(physical, leaf.type_length)
+    if not w:
+        raise CorruptedError(f"BYTE_STREAM_SPLIT page in a "
+                             f"{physical.name} column")
+    rows = ref.decode_byte_stream_split(raw[pos:], nvals, w)
+    if physical == Type.FIXED_LEN_BYTE_ARRAY:
+        return rows
+    if physical == Type.INT96:
+        return rows.view(np.int32).reshape(nvals, 3)
+    return rows.view(PHYSICAL_NP_DTYPE[physical]).reshape(-1)
+
+
+# the masked-emit twins the fused page cursor (io/fused.py) calls: the
+# same arguments with the sorted ``take`` ordinals after ``nvals``
+
+
+def _dec_dict_masked(raw, pos, nvals, take, leaf, physical, dictionary):
+    from ..ops import ref
+
+    if dictionary is None:
+        raise CorruptedError("dictionary-encoded page without a "
+                             "dictionary page")
+    return DictIndices(ref.decode_rle_dict_indices_masked(raw, nvals, take,
+                                                          pos))
+
+
+def _dec_plain_masked(raw, pos, nvals, take, leaf, physical, dictionary):
+    from ..ops import ref
+
+    return ref.decode_plain_masked(raw[pos:], nvals, take, physical,
+                                   leaf.type_length)
+
+
+def _dec_delta_masked(raw, pos, nvals, take, leaf, physical, dictionary):
+    from ..ops import ref
+    from ..schema.types import PHYSICAL_NP_DTYPE
+
+    if physical not in (Type.INT32, Type.INT64):
+        return None
+    vals = ref.decode_delta_binary_packed_masked(raw, nvals, take, pos)
+    return vals.astype(PHYSICAL_NP_DTYPE[physical])
+
+
+def _register_builtins() -> None:
+    """Register the built-in encodings (at import): idempotent, and never
+    over a caller's registered shadow of a built-in id."""
+    for spec in (
+            EncodingSpec(Encoding.PLAIN, "PLAIN", _dec_plain,
+                         _dec_plain_masked),
+            EncodingSpec(Encoding.PLAIN_DICTIONARY, "PLAIN_DICTIONARY",
+                         _dec_dict, _dec_dict_masked),
+            EncodingSpec(Encoding.RLE_DICTIONARY, "RLE_DICTIONARY",
+                         _dec_dict, _dec_dict_masked),
+            EncodingSpec(Encoding.DELTA_BINARY_PACKED,
+                         "DELTA_BINARY_PACKED", _dec_delta,
+                         _dec_delta_masked),
+            EncodingSpec(Encoding.DELTA_LENGTH_BYTE_ARRAY,
+                         "DELTA_LENGTH_BYTE_ARRAY", _dec_delta_len_ba),
+            EncodingSpec(Encoding.DELTA_BYTE_ARRAY, "DELTA_BYTE_ARRAY",
+                         _dec_delta_ba),
+            EncodingSpec(Encoding.BYTE_STREAM_SPLIT, "BYTE_STREAM_SPLIT",
+                         _dec_bss),
+            EncodingSpec(Encoding.RLE, "RLE", _dec_rle_bool)):
+        if lookup_encoding(spec.id) is None or is_builtin_decode(spec.id):
+            register_encoding(spec, overwrite=True, _builtin=True)
+
+
+_register_builtins()
 
 
 def _page_levels(raw: np.ndarray, pos: int, n: int, encoding: Encoding,
@@ -1085,14 +1219,16 @@ def _page_levels(raw: np.ndarray, pos: int, n: int, encoding: Encoding,
     return lv, pos + (n * w + 7) // 8
 
 
-def _combine(parts: List[tuple], dictionary, physical: Type):
+def _combine(parts: List[tuple], dictionary, physical: Type,
+             keep_dictionary: bool = False):
     """The chunk's pages as one: ``(values, offsets, dict_indices)`` where
-    a BYTE_ARRAY chunk whose pages are all dictionary-encoded stays encoded
-    (values None), as the device route keeps it."""
+    a chunk whose pages are all dictionary-encoded stays encoded (values
+    None) if it is a BYTE_ARRAY one or ``keep_dictionary`` asks, as the
+    device route keeps it."""
     from ..ops import host, ref
 
     if parts and all(k == "idx" for k, _ in parts) and \
-            physical == Type.BYTE_ARRAY:
+            (physical == Type.BYTE_ARRAY or keep_dictionary):
         return None, None, np.concatenate([p for _, p in parts])
     decoded = [ref.gather_dictionary(dictionary, p) if k == "idx" else p
                for k, p in parts]
@@ -1113,14 +1249,16 @@ def _combine(parts: List[tuple], dictionary, physical: Type):
 
 
 def decode_chunk_host(reader: ColumnChunkReader, device,
-                      pages=None, dictionary=None) -> Column:
+                      pages=None, dictionary=None,
+                      keep_dictionary: bool = False) -> Column:
     """Decode a chunk (or, with ``pages``, a span of its pages with the
     chunk's decoded ``dictionary``) on the host, with the port's own
-    ``ops/ref.py`` decoders: every page's levels and values, the levels
-    assembled by ``ops/levels.assemble``, and the finished column moved to
-    ``device`` in one copy per tensor.  The device route sends here the
-    chunks it cannot decode (``device_reader.HOST_ROUTE``); the column has
-    the device route's form."""
+    ``ops/ref.py`` decoders dispatched through the encoding registry:
+    every page's levels and values, the levels assembled by
+    ``ops/levels.assemble``, and the finished column moved to ``device`` in
+    one copy per tensor.  The device route sends here the chunks it cannot
+    decode (``device_reader.HOST_ROUTE``); the column has the device
+    route's form (``keep_dictionary`` as ``device_reader.decode_staged``'s)."""
     from ..ops import levels
     from ..schema.types import empty_values
 
@@ -1175,7 +1313,8 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
         parts.append(_decode_values(raw, pos, nvals, encoding, leaf,
                                     physical, dictionary))
         slots += n
-    values, offsets, indices = _combine(parts, dictionary, physical)
+    values, offsets, indices = _combine(parts, dictionary, physical,
+                                        keep_dictionary)
     def_levels = np.concatenate(defs) if defs else None
     rep_levels = np.concatenate(reps) if reps else None
     asm = levels.assemble(def_levels, rep_levels, leaf)
@@ -1202,7 +1341,10 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
         def_levels=def_levels if max_def > 1 else None,
         rep_levels=rep_levels)
     if indices is not None:
-        dv, do = dictionary
-        col.dictionary = (put(dv), put(np.asarray(do, np.int64)))
+        if isinstance(dictionary, tuple):
+            dv, do = dictionary
+            col.dictionary = (put(dv), put(np.asarray(do, np.int64)))
+        else:
+            col.dictionary = put(dictionary)
         col.dict_indices = put(indices.astype(np.int32))
     return col

@@ -129,6 +129,45 @@ def pages_overlapping_values(column_index: md.ColumnIndex, leaf: Leaf,
     return out
 
 
+def page_row_spans(oi: md.OffsetIndex, num_rows: int
+                   ) -> List[Tuple[int, int]]:
+    """Each page's local ``[start, end)`` rows from the offset index (the
+    last page ends at the row group's ``num_rows``)."""
+    locs = oi.page_locations or []
+    out = []
+    for i, pl in enumerate(locs):
+        end = locs[i + 1].first_row_index if i + 1 < len(locs) else num_rows
+        out.append((pl.first_row_index, end))
+    return out
+
+
+def pred_cover_page_ords(pred, column_index: md.ColumnIndex, leaf: Leaf,
+                         spans: List[Tuple[int, int]]) -> List[int]:
+    """The page ordinals whose zone maps prove that every row matches
+    ``pred``: the answering dual of :func:`pages_overlapping`, which the
+    aggregation cascade counts and bounds without decoding.  A missing
+    null count proves nothing."""
+    from .planner import _bounds_cover
+
+    nulls = list(column_index.null_pages or [])
+    ncounts = column_index.null_counts
+    mins, maxs = decoded_bounds(column_index, leaf)
+    out = []
+    for i in range(len(nulls)):
+        rows = spans[i][1] - spans[i][0]
+        if pred.kind == "null" and nulls[i] and rows > 0:
+            out.append(i)  # a declared null page holds only nulls
+            continue
+        nc = None if ncounts is None else ncounts[i]
+        mn = mins[i] if i < len(mins) else None
+        mx = maxs[i] if i < len(maxs) else None
+        if nulls[i]:
+            mn = mx = None  # a null page carries no value bounds
+        if _bounds_cover(pred, mn, mx, nc, rows, page_rows=rows):
+            out.append(i)
+    return out
+
+
 @dataclass
 class PagePlan:
     """The selected pages of one chunk: which page ordinals to decode and
@@ -347,7 +386,7 @@ def _trim_host(col, offset: int, count: int, aligned):
     got = col.materialize_host()
     if isinstance(got, dict):  # a struct chain's leaf keeps its levels
         got = got["values"]
-    validity = None if col.validity is None else col.validity.numpy()
+    validity = None if col.validity is None else col.validity.cpu().numpy()
     if not isinstance(got, tuple):  # fixed width
         vals, vmask = _trim_flat_aligned(got, validity, offset, count)
         if aligned:

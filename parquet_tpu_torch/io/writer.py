@@ -52,7 +52,7 @@ from ..format import thrift
 from ..format.enums import (BoundaryOrder, CompressionCodec, Encoding,
                             PageType, Type)
 from ..format.enums import FieldRepetitionType as Rep
-from ..errors import unsupported
+from ..errors import MAX_ROW_GROUPS, TooManyRowGroupsError, unsupported
 from ..ops import host, levels, ref
 from ..schema.schema import Leaf, Schema
 from ..schema.types import (NUMERIC, PHYSICAL_NP_DTYPE, physical_of_dtype,
@@ -240,6 +240,10 @@ class ParquetWriter:
     def write_row_group(self, columns: Dict[str, ColumnData],
                         num_rows: int) -> None:
         self._check_open()
+        if len(self._row_groups) >= MAX_ROW_GROUPS:
+            raise TooManyRowGroupsError(
+                f"file would exceed {MAX_ROW_GROUPS} row groups "
+                "(RowGroup.ordinal is an i16); raise row_group_size")
         chunks, extras = [], []
         rg_start = self._pos
         for leaf in self.schema.leaves:
@@ -463,7 +467,9 @@ class ParquetWriter:
             schema=self.schema.to_elements(),
             num_rows=self._num_rows,
             row_groups=self._row_groups,
-            created_by=self.options.created_by)
+            created_by=self.options.created_by,
+            column_orders=[md.ColumnOrder(TYPE_ORDER=md.TypeDefinedOrder())
+                           for _ in self.schema.leaves])
         blob = thrift.serialize(fmd)
         self._f.write(blob + struct.pack("<I", len(blob)) + md.MAGIC)
         if self._own_sink:

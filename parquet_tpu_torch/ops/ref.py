@@ -247,6 +247,111 @@ def decode_rle(data, num_values: int, bit_width: int,
     return out[:num_values].astype(np.int32)
 
 
+def gather_bits(data, starts_bits: np.ndarray, bit_width: int) -> np.ndarray:
+    """One LSB-first ``bit_width``-bit integer at each bit offset of
+    ``starts_bits`` (int64, in any order), as uint64."""
+    n = len(starts_bits)
+    if bit_width == 0 or n == 0:
+        return np.zeros(n, dtype=np.uint64)
+    buf = host.as_u8(data)
+    starts = np.asarray(starts_bits, dtype=np.int64)
+    byte0 = starts >> 3
+    shift = (starts & 7).astype(np.uint64)
+    nbytes = min((bit_width + 7 + 7) // 8, 9)
+    end = int(byte0.max()) + nbytes
+    if end > len(buf):
+        buf = np.concatenate([buf, np.zeros(end - len(buf), np.uint8)])
+    acc = np.zeros(n, dtype=np.uint64)
+    for k in range(min(nbytes, 8)):
+        acc |= buf[byte0 + k].astype(np.uint64) << np.uint64(8 * k)
+    vals = acc >> shift
+    if bit_width + 7 > 64 and nbytes == 9:
+        hi = buf[byte0 + 8].astype(np.uint64)
+        vals |= np.where(shift > 0, hi << (np.uint64(64) - shift), 0)
+    if bit_width < 64:
+        vals &= (np.uint64(1) << np.uint64(bit_width)) - np.uint64(1)
+    return vals
+
+
+def select_rle(data, num_values: int, bit_width: int, take: np.ndarray,
+               pos: int = 0) -> np.ndarray:
+    """The hybrid stream's value at each ordinal of ``take`` (sorted
+    int64), without expanding the stream: an RLE run answers from its
+    payload, a bit-packed one by :func:`gather_bits` at the value's bit
+    position.  Returns int64[len(take)]."""
+    take = np.asarray(take, dtype=np.int64)
+    if bit_width == 0 or len(take) == 0:
+        return np.zeros(len(take), dtype=np.int64)
+    kinds, counts, payloads, offsets, _ = host.scan_rle_runs(
+        data, num_values, bit_width, pos)
+    ends = np.cumsum(counts)
+    if len(take) and int(take[-1]) >= (int(ends[-1]) if len(ends) else 0):
+        raise CorruptedError("RLE hybrid stream holds fewer values than "
+                             "its page declares")
+    run = np.searchsorted(ends, take, side="right")
+    starts = ends - counts
+    out = payloads[run].astype(np.int64)
+    bp = kinds[run] == 1
+    if bp.any():
+        r = run[bp]
+        bits = offsets[r] * 8 + (take[bp] - starts[r]) * bit_width
+        out[bp] = gather_bits(data, bits, bit_width).astype(np.int64)
+    return out
+
+
+def decode_rle_dict_indices_masked(data, num_values: int, take: np.ndarray,
+                                   pos: int = 0) -> np.ndarray:
+    """The dictionary indexes at the ``take`` ordinals of a page's index
+    stream (its bit-width byte at ``pos``), by :func:`select_rle`."""
+    buf = host.as_u8(data)
+    if pos >= len(buf):
+        raise CorruptedError("dictionary index stream without its bit "
+                             "width")
+    bit_width = int(buf[pos])
+    if bit_width == 0:
+        return np.zeros(len(take), dtype=np.int64)
+    return select_rle(buf, num_values, bit_width, take, pos + 1)
+
+
+def decode_plain_masked(data, num_values: int, take: np.ndarray,
+                        physical: Type, type_length: Optional[int] = None):
+    """The PLAIN values at the ``take`` ordinals of a fixed-width page,
+    gathered from a view of its bytes; None for BYTE_ARRAY (its length
+    prefixes need a sequential scan: the caller decodes the page whole)."""
+    take = np.asarray(take, dtype=np.int64)
+    buf = host.as_u8(data)
+    if physical == Type.BYTE_ARRAY:
+        return None
+    if physical == Type.BOOLEAN:
+        nbytes = (num_values + 7) // 8
+    elif physical == Type.FIXED_LEN_BYTE_ARRAY:
+        nbytes = type_length * num_values
+    else:
+        nbytes = {Type.INT96: 12}.get(
+            physical, PHYSICAL_NP_DTYPE[physical].itemsize) * num_values
+    if len(buf) < nbytes:
+        raise CorruptedError(f"PLAIN page holds {len(buf)} bytes, "
+                             f"{num_values} values need {nbytes}")
+    if physical == Type.BOOLEAN:
+        bits = np.unpackbits(buf[:nbytes], bitorder="little")
+        return bits[:num_values][take].astype(np.bool_)
+    if physical == Type.INT96:
+        return buf[:nbytes].view(np.int32).reshape(num_values, 3)[take]
+    if physical == Type.FIXED_LEN_BYTE_ARRAY:
+        return buf[:nbytes].reshape(num_values, type_length)[take]
+    return buf[:nbytes].view(PHYSICAL_NP_DTYPE[physical])[take]
+
+
+def decode_delta_binary_packed_masked(data, num_values: int,
+                                      take: np.ndarray,
+                                      pos: int = 0) -> np.ndarray:
+    """The DELTA_BINARY_PACKED values at the ``take`` ordinals: every delta
+    feeds the running sum, so the page decodes whole (in C++) and the
+    selection is what is saved downstream."""
+    vals = host.decode_delta_binary_packed(host.as_u8(data)[pos:])[0]
+    return vals[:num_values][np.asarray(take, dtype=np.int64)]
+
+
 def decode_rle_len_prefixed(data, num_values: int, bit_width: int,
                             pos: int = 0) -> Tuple[np.ndarray, int]:
     """A hybrid stream behind its 4-byte length (v1 page levels, RLE

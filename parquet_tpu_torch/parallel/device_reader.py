@@ -80,7 +80,7 @@ from ..io.column import Column
 from ..io.reader import (_BATCHED_CODECS, PageTable, data_page_bodies,
                          decode_dictionary_page, page_table_of)
 from ..ops import device as dev
-from ..ops import host, kernels, levels, ref
+from ..ops import encodings, host, kernels, levels, ref
 from ..schema.types import (PHYSICAL_TORCH_DTYPE, PHYSICAL_WIDTH,
                             empty_values)
 
@@ -91,11 +91,12 @@ _M32 = 0xFFFFFFFF
 #: RLE and legacy BIT_PACKED def levels, legacy BIT_PACKED levels in a
 #: repeated column, INT96 byte-stream split, a front-coded page whose
 #: first prefix is nonzero, a staged stream over ``dev.MAX_DEVICE_BUF``,
-#: and delta pages of different miniblock sizes
+#: and delta pages of different miniblock sizes; and a page whose encoding
+#: a caller's registered decode shadows (``ops/encodings.py``)
 HOST_ROUTE = {"mixed_page_kinds": 0, "mixed_level_encodings": 0,
               "bit_packed_repeated_levels": 0, "bss_int96": 0,
               "dba_first_prefix": 0, "stream_bound": 0,
-              "mixed_delta_vpm": 0}
+              "mixed_delta_vpm": 0, "registered_encoding": 0}
 
 
 def reset_host_route() -> None:
@@ -305,9 +306,26 @@ def build_plan(reader, pages=None, dictionary=None) -> _Plan:
     shape outside it takes :func:`_build_plan_python`, counted in
     :data:`PLAN_ROUTE` by reason."""
     table = page_table_of(reader, pages)
+    if encodings.any_shadowed():
+        _check_builtin_encodings(table)
     plan = _native_plan(reader, table, dictionary)
     return plan if plan is not None else _build_plan_python(
         reader, table, dictionary)
+
+
+def _check_builtin_encodings(table: PageTable) -> None:
+    """Refuse a chunk with a data page whose encoding a registered decode
+    shadows: the planner knows only the built-in ones, and the host decode
+    dispatches through the registry."""
+    rows = table.rows
+    data = np.isin(rows[:, host.PG_TYPE], (int(PageType.DATA_PAGE),
+                                           int(PageType.DATA_PAGE_V2)))
+    for enc in np.unique(rows[data, host.PG_ENC]).tolist():
+        if enc >= 0 and not encodings.is_builtin_decode(enc):
+            name = encodings.lookup(enc).name
+            raise _Unsupported("registered_encoding",
+                               f"encoding {enc} decodes through the "
+                               f"registered {name!r}")
 
 
 def _page_sources(reader, table: PageTable) -> tuple:
@@ -1312,24 +1330,26 @@ def _fusable(dictionary) -> bool:
             and dictionary.shape[0] <= kernels.MAX_FUSED_DICT)
 
 
-def _decode_dense_dict(plan: _Plan, dense_buf: torch.Tensor, dictionary):
+def _decode_dense_dict(plan: _Plan, dense_buf: torch.Tensor, dictionary,
+                       keep_dictionary: bool = False):
     """Dict-index decode from the compacted dense stream.  A fusable
-    dictionary takes the fused unpack+gather kernel (no index stream);
-    every other one unpacks the indexes, and all but a byte-array
-    dictionary (which stays encoded) gather.  Returns (indices or None,
-    values or None)."""
+    dictionary takes the fused unpack+gather kernel (no index stream)
+    unless ``keep_dictionary`` asks for the indexes; every other one
+    unpacks the indexes, and all but a byte-array dictionary (which stays
+    encoded) and a kept one gather.  Returns (indices or None, values or
+    None)."""
     w = plan.dense_w
     # round UP to whole 32-value groups: the last page's tail group may be
     # partial byte-wise; the unpack kernels zero-pad missing words
     total = -(-(len(plan.dense) * 8 // w) // 32) * 32
     nwords = (len(plan.dense) + 3) // 4
     words = dense_buf[:nwords * 4].view(torch.int32)
-    if _fusable(dictionary):
+    if _fusable(dictionary) and not keep_dictionary:
         allvals = kernels.dict_unpack_gather(words, dictionary, total, w)
         return None, _page_slices(allvals, plan.dense_pages)
     allidx = kernels.unpack_bits_dense(words, total, w)
     indices = _page_slices(allidx, plan.dense_pages)
-    if isinstance(dictionary, tuple):
+    if isinstance(dictionary, tuple) or keep_dictionary:
         return indices, None
     return indices, dev.dict_gather(dictionary, indices)
 
@@ -1357,10 +1377,14 @@ def _bss_decode(buf: torch.Tensor, pages, width: int,
 
 
 def decode_staged(plan: _Plan, staged: tuple, device: torch.device,
-                  keep_levels: bool = False) -> Column:
+                  keep_levels: bool = False,
+                  keep_dictionary: bool = False) -> Column:
     """Device decode phase: staged tensors -> :class:`Column`.  With
     ``keep_levels`` a repeated column (and a struct chain) also keeps its
-    Dremel level streams on the host (``def_levels``, ``rep_levels``)."""
+    Dremel level streams on the host (``def_levels``, ``rep_levels``).
+    With ``keep_dictionary`` a dictionary-encoded chunk of any physical
+    type stays ``(dictionary, dict_indices)`` on the device (``values``
+    None): its indexes unpack, nothing gathers."""
     leaf, physical = plan.leaf, plan.physical
     lev_dbuf, val_dbuf, meta = staged
     _wait_for_copy(meta)
@@ -1404,11 +1428,12 @@ def decode_staged(plan: _Plan, staged: tuple, device: torch.device,
     elif kind == "dict":
         dictionary = meta["dictionary"]
         if meta.get("dense") is not None:
-            dict_indices, values = _decode_dense_dict(plan, meta["dense"],
-                                                      dictionary)
+            dict_indices, values = _decode_dense_dict(
+                plan, meta["dense"], dictionary, keep_dictionary)
         else:
             dict_indices = plan.vruns.expand(val_dbuf, meta["vruns"])
             values = (None if isinstance(dictionary, tuple)
+                      or keep_dictionary
                       else dev.dict_gather(dictionary, dict_indices))
     elif kind == "delta":
         if meta.get("delta_dense") is not None:
@@ -1498,10 +1523,12 @@ def _prepare(reader, device: torch.device, pages=None, dictionary=None,
 
 
 def decode_chunk_span(reader, device, pages=None,
-                      keep_levels: bool = False) -> Column:
+                      keep_levels: bool = False,
+                      keep_dictionary: bool = False) -> Column:
     """One chunk, or the span ``pages`` of it (a dictionary page first, as
     ``io/search.py::pages_and_base`` gives them), decoded on ``device`` in
-    one plan, its level streams kept where ``keep_levels`` asks
+    one plan, its level streams kept where ``keep_levels`` asks and a
+    dictionary chunk left encoded where ``keep_dictionary`` does
     (:func:`decode_staged`); a chunk the device route refuses decodes on
     the host, counted in :data:`HOST_ROUTE`."""
     from ..io.reader import decode_chunk_host
@@ -1519,11 +1546,13 @@ def decode_chunk_span(reader, device, pages=None,
         pages = PageTable.of(data)
     try:
         plan, staged = _prepare(reader, device, pages, dictionary)
-        return decode_staged(plan, staged, device, keep_levels=keep_levels)
+        return decode_staged(plan, staged, device, keep_levels=keep_levels,
+                             keep_dictionary=keep_dictionary)
     except _Unsupported as e:
         HOST_ROUTE[e.reason] += 1
         return decode_chunk_host(reader, device, pages=pages,
-                                 dictionary=dictionary)
+                                 dictionary=dictionary,
+                                 keep_dictionary=keep_dictionary)
 
 
 def prepare_chunk(reader, device) -> tuple:

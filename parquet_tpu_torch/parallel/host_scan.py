@@ -46,9 +46,11 @@ arrays by their bytes, floats as numpy compares them (``>=`` / ``<=``:
 NaN never matches and ``-0.0 == 0.0``; the JAX package's device route
 orders doubles by their IEEE total order instead, and so disagrees with
 its own host scan there, where the port's two routes agree).  NULL never
-matches a range or IN leaf, negated or not.  The JAX package's fused
-phase 1 (``io/fused.py``) and its fused span program have no counterpart
-here: the materializing phase 1 and the eager torch ops run.
+matches a range or IN leaf, negated or not.  Phase 1 has the JAX
+package's fused variant (``io/fused.py``'s page cursors, chosen by
+``io/planner.py::choose_fused``), whose masks equal the materializing
+phase 1's; the JAX package's fused span program of the device scan has no
+counterpart here: the eager torch ops run.
 """
 
 from __future__ import annotations
@@ -107,6 +109,28 @@ def expr_mask(expr, env: Dict[str, tuple], n: int) -> np.ndarray:
         else:
             out |= m
     return out
+
+
+def _fused_span_mask(pf, rg_i: int, s: int, count: int,
+                     fcols: Sequence[str], expr) -> np.ndarray:
+    """Phase 1, fused: the span's filter pages decoded, evaluated and
+    dropped a block at a time on the union page grid of the filter
+    columns (each block lies in one page of each; a cursor drops its page
+    as it moves on), so no whole filter span is ever alive.  Raises
+    ``FusedUnsupported`` where a filter column has no offset index."""
+    from ..io.fused import FUSED, PageCursor
+
+    rg = pf.row_groups[rg_i]
+    cursors = {c: PageCursor(rg, pf.schema.leaf(c)) for c in fcols}
+    e = s + count
+    mask = np.empty(count, bool)
+    cuts = sorted({cc for cur in cursors.values() for cc in cur.grid(s, e)})
+    bounds = [s] + cuts + [e]
+    for bs, be in zip(bounds, bounds[1:]):
+        env = {c: cursors[c].aligned(bs, be) for c in fcols}
+        mask[bs - s:be - s] = expr_mask(expr, env, be - bs)
+    FUSED["scan_spans"] += 1
+    return mask
 
 
 def _pred_mask(pred, span_val: tuple, n: int) -> np.ndarray:
@@ -419,22 +443,66 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
         return set(bad)
 
     # phase 1: the filter columns' candidate spans, row-aligned, and the
-    # exact predicate over them
-    tasks1 = [(rg_i, start, count, c, True) for (rg_i, start, count) in spans
-              for c in fcols]
-    res1 = _fan_out(read_one, tasks1, cand_rows * max(len(fcols), 1),
-                    num_threads)
+    # exact predicate over them; fused (io/planner.py::choose_fused on the
+    # plan's filter bytes), each span's filter pages are evaluated and
+    # dropped a page at a time on the union page grid, at the cost of
+    # reading a filter column that is also an output column again in
+    # phase 2
+    from ..io.fused import FUSED, FusedUnsupported
+    from ..io.planner import choose_fused
+
+    use_fused = bool(fcols) and bool(spans) and \
+        choose_fused(plan.est_bytes([]))
     k = len(fcols)
-    failures = [r for r in res1 if isinstance(r, _SpanFailure)]
-    if failures:
-        bad = drop_bad_rgs(failures)
-        keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
-        res1 = [res1[i * k + j] for i in keep for j in range(k)]
-        spans = [spans[i] for i in keep]
-    envs = [{c: res1[i * k + j] for j, c in enumerate(fcols)}
-            for i in range(len(spans))]
-    masks = [expr_mask(expr, env, count)
-             for (_, _, count), env in zip(spans, envs)]
+    if use_fused:
+        def mask_one(si):
+            rg_i, gstart, count = spans[si]
+            s = int(gstart - rg_base[rg_i])
+            try:
+                with read_context(path=pf._path, row_group=rg_i):
+                    try:
+                        return _fused_span_mask(pf, rg_i, s, count, fcols,
+                                                expr)
+                    except FusedUnsupported:
+                        FUSED["fallbacks"] += 1
+                        env = {}
+                        for c in fcols:
+                            with admission.admit(span_bytes(rg_i, c, count),
+                                                 tier="scan"):
+                                env[c] = read_row_range(pf, c, gstart, count,
+                                                        aligned=True)
+                        return expr_mask(expr, env, count)
+            except DeadlineError:
+                raise
+            except CorruptedError as e:
+                return _SpanFailure(rg_i, e)
+
+        tasks1 = list(range(len(spans)))
+        res1 = _fan_out(mask_one, tasks1, cand_rows * max(k, 1),
+                        num_threads)
+        failures = [r for r in res1 if isinstance(r, _SpanFailure)]
+        if failures:
+            bad = drop_bad_rgs(failures)
+            keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
+            res1 = [res1[i] for i in keep]
+            spans = [spans[i] for i in keep]
+        envs = [{} for _ in spans]  # filter pages were folded and dropped
+        masks = res1
+    else:
+        tasks1 = [(rg_i, start, count, c, True)
+                  for (rg_i, start, count) in spans for c in fcols]
+        res1 = _fan_out(read_one, tasks1, cand_rows * max(k, 1),
+                        num_threads)
+        failures = [r for r in res1 if isinstance(r, _SpanFailure)]
+        if failures:
+            bad = drop_bad_rgs(failures)
+            keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
+            res1 = [res1[i * k + j] for i in keep for j in range(k)]
+            spans = [spans[i] for i in keep]
+        envs = [{c: res1[i * k + j] for j, c in enumerate(fcols)}
+                for i in range(len(spans))]
+        masks = [expr_mask(expr, env, count)
+                 for (_, _, count), env in zip(spans, envs)]
     t2 = time.perf_counter()
 
     # phase 2: each output column outside the filter decoded under [first
@@ -443,7 +511,7 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
     for mask in masks:
         idx = np.flatnonzero(mask)
         trims.append((int(idx[0]), int(idx[-1]) + 1) if len(idx) else None)
-    fset = set(fcols)
+    fset = set() if use_fused else set(fcols)
     read2_cols = [c for c in out_cols if c not in fset]
     tasks2 = [(spans[si][0], spans[si][1] + t0_, t1_ - t0_, c, "arrays")
               for si, trim in enumerate(trims) if trim is not None

@@ -17,11 +17,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
-from ..errors import MAX_COLUMN_DEPTH, CorruptedError
+from ..errors import (MAX_COLUMN_DEPTH, ColumnTooDeepError, CorruptedError,
+                      MissingRootColumnError)
 from ..format import metadata as md
 from ..format.enums import ConvertedType, Type
 from ..format.enums import FieldRepetitionType as Rep
 from .types import LogicalKind
+from .types import _logical_from_element as _logical_kind
 
 
 @dataclass(eq=False)
@@ -177,6 +179,10 @@ class Schema:
         if n.is_leaf:
             if n is self.root:
                 raise CorruptedError("the schema root is a leaf")
+            if len(path) > MAX_COLUMN_DEPTH:
+                raise ColumnTooDeepError(
+                    f"column {'.'.join(path)!r} is {len(path)} levels deep "
+                    f"(limit {MAX_COLUMN_DEPTH})")
             self.leaves.append(Leaf.at(-1, path, n, def_level, rep_level,
                                        ancestors))
             return
@@ -242,7 +248,7 @@ class Schema:
                         else None, kind, logical_params=params)
 
         if not elements:
-            raise CorruptedError("footer has no schema")
+            raise MissingRootColumnError("the schema has no root element")
         root = build(0)
         if pos != len(elements):
             raise CorruptedError(f"schema element list malformed: the tree "
@@ -274,59 +280,26 @@ class Schema:
         emit(self.root, True)
         return out
 
+    def __repr__(self):
+        lines = []
 
-def _logical_kind(el: md.SchemaElement) -> Tuple[str, dict]:
-    """The element's annotation and its parameters, read as the JAX
-    package's ``_logical_from_element`` reads them: the LogicalType union
-    first, else the legacy ConvertedType."""
-    K = LogicalKind
-    lt = el.logicalType
-    if lt is not None:
-        for kind, attr in ((K.STRING, "STRING"), (K.ENUM, "ENUM"),
-                           (K.JSON, "JSON"), (K.BSON, "BSON"),
-                           (K.UUID, "UUID"), (K.FLOAT16, "FLOAT16")):
-            if getattr(lt, attr) is not None:
-                return kind, {}
-        if lt.DECIMAL is not None:
-            return K.DECIMAL, {"scale": lt.DECIMAL.scale or 0,
-                               "precision": lt.DECIMAL.precision or 0}
-        if lt.DATE is not None:
-            return K.DATE, {}
-        for attr in ("TIME", "TIMESTAMP"):
-            t = getattr(lt, attr)
-            if t is not None:
-                u = t.unit
-                unit = ("millis" if u.MILLIS is not None else
-                        "micros" if u.MICROS is not None else "nanos")
-                return (f"{attr.lower()}_{unit}",
-                        {"utc": bool(t.isAdjustedToUTC)})
-        if lt.INTEGER is not None:
-            return K.INT, {"bit_width": lt.INTEGER.bitWidth or 64,
-                           "signed": bool(lt.INTEGER.isSigned)}
-        if lt.LIST is not None:
-            return K.LIST, {}
-        if lt.MAP is not None:
-            return K.MAP, {}
-        if lt.UNKNOWN is not None:
-            return K.UNKNOWN, {}
-    ct = el.converted_type
-    if ct is None:
-        return K.NONE, {}
-    C = ConvertedType
-    if ct == C.DECIMAL:
-        return K.DECIMAL, {"scale": el.scale or 0,
-                           "precision": el.precision or 0}
-    if C.UINT_8 <= ct <= C.INT_64:
-        return K.INT, {"bit_width": 8 << ((ct - C.UINT_8) % 4),
-                       "signed": ct >= C.INT_8}
-    utc = {C.TIME_MILLIS: K.TIME_MILLIS, C.TIME_MICROS: K.TIME_MICROS,
-           C.TIMESTAMP_MILLIS: K.TIMESTAMP_MILLIS,
-           C.TIMESTAMP_MICROS: K.TIMESTAMP_MICROS}
-    if ct in utc:
-        return utc[ct], {"utc": True}
-    return {C.UTF8: K.STRING, C.ENUM: K.ENUM, C.JSON: K.JSON,
-            C.BSON: K.BSON, C.DATE: K.DATE, C.INTERVAL: K.INTERVAL,
-            C.LIST: K.LIST, C.MAP: K.MAP}.get(ct, K.NONE), {}
+        def p(n, indent, is_root):
+            pad = "  " * indent
+            rep = "" if is_root else Rep(n.repetition).name.lower() + " "
+            if n.is_leaf:
+                lt = (f" ({n.logical_kind})"
+                      if n.logical_kind != LogicalKind.NONE else "")
+                lines.append(f"{pad}{rep}{Type(n.physical_type).name} "
+                             f"{n.name}{lt};")
+            else:
+                kw = "message" if is_root else "group"
+                lines.append(f"{pad}{rep}{kw} {n.name} {{")
+                for c in n.children:
+                    p(c, indent + 1, False)
+                lines.append(f"{pad}}}")
+
+        p(self.root, 0, True)
+        return "\n".join(lines)
 
 
 def _logical_to_thrift(kind: str, params: dict):

@@ -14,10 +14,12 @@ The port's cut of ``parquet_tpu/schema/types.py``:
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
-from ..format.enums import Type
+from ..format.enums import ConvertedType, Type
 
 
 class LogicalKind:
@@ -129,3 +131,63 @@ def empty_values(physical: Type, type_length, device) -> torch.Tensor:
                            device=device)
     return torch.zeros(0, dtype=PHYSICAL_TORCH_DTYPE[physical],
                        device=device)
+
+
+def _logical_from_element(el) -> Tuple[str, dict]:
+    """A schema element's annotation and its parameters, as the JAX
+    package's ``_logical_from_element`` reads them: the LogicalType union
+    first, else the legacy ConvertedType."""
+    K = LogicalKind
+    lt = el.logicalType
+    if lt is not None:
+        for kind, attr in ((K.STRING, "STRING"), (K.ENUM, "ENUM"),
+                           (K.JSON, "JSON"), (K.BSON, "BSON"),
+                           (K.UUID, "UUID"), (K.FLOAT16, "FLOAT16")):
+            if getattr(lt, attr) is not None:
+                return kind, {}
+        if lt.DECIMAL is not None:
+            return K.DECIMAL, {"scale": lt.DECIMAL.scale or 0,
+                               "precision": lt.DECIMAL.precision or 0}
+        if lt.DATE is not None:
+            return K.DATE, {}
+        for attr in ("TIME", "TIMESTAMP"):
+            t = getattr(lt, attr)
+            if t is not None:
+                u = t.unit
+                unit = ("millis" if u.MILLIS is not None else
+                        "micros" if u.MICROS is not None else "nanos")
+                return (f"{attr.lower()}_{unit}",
+                        {"utc": bool(t.isAdjustedToUTC)})
+        if lt.INTEGER is not None:
+            return K.INT, {"bit_width": lt.INTEGER.bitWidth or 64,
+                           "signed": bool(lt.INTEGER.isSigned)}
+        if lt.LIST is not None:
+            return K.LIST, {}
+        if lt.MAP is not None:
+            return K.MAP, {}
+        if lt.UNKNOWN is not None:
+            return K.UNKNOWN, {}
+    ct = el.converted_type
+    if ct is None:
+        return K.NONE, {}
+    C = ConvertedType
+    if ct == C.DECIMAL:
+        return K.DECIMAL, {"scale": el.scale or 0,
+                           "precision": el.precision or 0}
+    if C.UINT_8 <= ct <= C.INT_64:
+        return K.INT, {"bit_width": 8 << ((ct - C.UINT_8) % 4),
+                       "signed": ct >= C.INT_8}
+    utc = {C.TIME_MILLIS: K.TIME_MILLIS, C.TIME_MICROS: K.TIME_MICROS,
+           C.TIMESTAMP_MILLIS: K.TIMESTAMP_MILLIS,
+           C.TIMESTAMP_MICROS: K.TIMESTAMP_MICROS}
+    if ct in utc:
+        return utc[ct], {"utc": True}
+    return {C.UTF8: K.STRING, C.ENUM: K.ENUM, C.JSON: K.JSON,
+            C.BSON: K.BSON, C.DATE: K.DATE, C.INTERVAL: K.INTERVAL,
+            C.LIST: K.LIST, C.MAP: K.MAP}.get(ct, K.NONE), {}
+
+
+def node(el) -> Tuple[str, dict]:
+    """A schema element's logical ``(kind, params)``, the JAX package's
+    ``node``."""
+    return _logical_from_element(el)

@@ -62,6 +62,16 @@ KNOBS = {
     "PARQUET_TPU_TORCH_LOOKUP_BUDGET": (
         "", "the lookup tier's budget inside the read budget; unset keeps "
         "the 64 MiB lookup default, 0 turns the tier's gate off"),
+    "PARQUET_TPU_TORCH_FUSED": (
+        "auto", "the fused page cursor (io/fused.py) in the aggregate's "
+        "exact tier and the host scan's phase 1: on pins it, off the "
+        "materializing tier; auto fuses from 8 MiB of estimated decode "
+        "bytes on the CPU and in the host scan, and never for an "
+        "aggregate on a CUDA device (io/planner.py::choose_fused)"),
+    "PARQUET_TPU_TORCH_AGG_DICT": (
+        "1", "0 turns the aggregate's dictionary tier off: a fully "
+        "dictionary-encoded chunk then folds through the exact tier "
+        "(io/aggregate.py::_RgReader.dict_column)"),
     "PARQUET_TPU_TORCH_SCAN_BUDGET": (
         "", "the scan tier's budget (host scan spans, dataset file "
         "stages) inside the read budget; unset leaves bulk reads "

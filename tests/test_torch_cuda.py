@@ -1387,3 +1387,106 @@ def test_file_rows_seek_on_card_matches_cpu(cuda_device, tmp_path):
                   v.repetition_level) for v in row] for row in a] == \
             [[(v.column, v.value, v.definition_level, v.repetition_level)
               for v in row] for row in b]
+
+
+# ---------------------------------------------------------------------------
+# the aggregation cascade on the card
+# ---------------------------------------------------------------------------
+
+
+def _agg_file(tmp_path) -> str:
+    """Dictionary-encoded numerics (50 and 11 random values: every index
+    run bit-packed), a PLAIN double, a sorted key and a string."""
+    rng = np.random.default_rng(11)
+    n = 200_000
+    path = str(tmp_path / "agg.parquet")
+    f = rng.standard_normal(n)
+    f[rng.random(n) < 0.01] = np.nan
+    pqt.write_table({
+        "k": np.sort(rng.integers(0, 50_000, n)).astype(np.int64),
+        "q": rng.integers(1, 51, n).astype(np.int64),
+        "d": np.round(rng.random(n) * 0.1, 2),
+        "f": np.ma.MaskedArray(f, mask=rng.random(n) < 0.05),
+        "u": rng.integers(0, 2**31, n).astype(np.int32),
+        "s": np.array([b"A", b"N", b"R"], dtype=object)[
+            rng.integers(0, 3, n)]}, path,
+        pqt.WriterOptions(row_group_size=50_000, data_page_size=64 << 10,
+                          column_encoding={"f": Encoding.PLAIN,
+                                           "k": Encoding.PLAIN}))
+    return path
+
+
+AGGS = [pqt.count(), pqt.count("f"), pqt.sum_("q"), pqt.sum_("f"),
+        pqt.min_("f"), pqt.max_("f"), pqt.avg("d"), pqt.variance("q"),
+        pqt.count_distinct("q"), pqt.top_k("f", 5), pqt.top_k("k", 3, False),
+        pqt.sum_sq("u"), pqt.max_("s")]
+
+
+def _same_agg(got, want) -> None:
+    assert list(got.keys()) == list(want.keys())
+    for name in want.keys():
+        g, w = got[name], want[name]
+        if isinstance(w, float) and name.startswith(("sum(", "avg(",
+                                                      "variance(")):
+            assert g == pytest.approx(w, rel=1e-9, nan_ok=True), name
+        else:
+            assert g == w and type(g) is type(w), (name, g, w)
+    assert got.counters == want.counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["none", "range", "tree"])
+def test_aggregate_on_card_matches_cpu(cuda_device, tmp_path, where):
+    path = _agg_file(tmp_path)
+    w = {"none": None, "range": pqt.col("k").between(10_000, 27_000),
+         "tree": (pqt.col("q") <= 20) & (pqt.col("k") >= 5_000)}[where]
+    pf = pqt.ParquetFile(path)
+    pqt.reset_agg()
+    got = pf.aggregate(AGGS, where=w, device=cuda_device)
+    assert pqt.AGG["device_folds"] > 0 or where == "none"
+    want = pf.aggregate(AGGS, where=w, device="cpu")
+    _same_agg(got, want)
+    got = pf.aggregate([pqt.sum_("q"), pqt.max_("f"), pqt.count()],
+                       where=w, group_by="s", device=cuda_device)
+    want = pf.aggregate([pqt.sum_("q"), pqt.max_("f"), pqt.count()],
+                        where=w, group_by="s", device="cpu")
+    assert got.groups == want.groups
+    _same_agg(got, want)
+
+
+@pytest.mark.cuda
+def test_aggregate_tiers_launch_their_kernels_on_card(cuda_device, tmp_path):
+    """The dictionary tier unpacks indexes with no gather; the exact tier
+    gathers through ``dict_unpack_gather``; no chunk takes the host
+    route."""
+    path = _agg_file(tmp_path)
+    pf = pqt.ParquetFile(path)
+    pqt.reset_launches()
+    pqt.reset_host_route()
+    pf.aggregate([pqt.sum_("q"), pqt.count_distinct("d"),
+                  pqt.variance("d")], device=cuda_device)
+    assert pqt.LAUNCHES["unpack_bits_dense"] > 0
+    assert pqt.LAUNCHES["dict_unpack_gather"] == 0
+    pqt.reset_launches()
+    pf.aggregate([pqt.sum_("q"), pqt.max_("d")],
+                 where=pqt.col("f") >= 0.5, device=cuda_device)
+    assert pqt.LAUNCHES["dict_unpack_gather"] > 0
+    assert sum(pqt.HOST_ROUTE.values()) == 0
+
+
+@pytest.mark.cuda
+def test_aggregate_fused_on_card_equals_default(cuda_device, tmp_path,
+                                                monkeypatch):
+    path = _agg_file(tmp_path)
+    pf = pqt.ParquetFile(path)
+    w = (pqt.col("q") <= 20) & (pqt.col("k") >= 5_000)
+    aggs = [pqt.count(), pqt.sum_("q"), pqt.max_("f"), pqt.avg("d")]
+    want = pf.aggregate(aggs, where=w, device=cuda_device)
+    assert "(fused)" not in want.explain()  # auto never fuses on a card
+    monkeypatch.setenv("PARQUET_TPU_TORCH_FUSED", "on")
+    got = pf.aggregate(aggs, where=w, device=cuda_device)
+    assert "(fused)" in got.explain()
+    _same_agg(got, want)
+    before = torch.cuda.memory_allocated(cuda_device)
+    del got, want
+    assert torch.cuda.memory_allocated(cuda_device) <= before

@@ -14,6 +14,7 @@ Every test ends with the threads it started with (the shared pool is
 filled once, before the first).
 """
 
+import io
 import os
 import threading
 
@@ -517,7 +518,7 @@ def test_cuda_by_default(mixed, monkeypatch):
 
 
 @pytest.mark.parametrize("call,slice_name", [
-    ("write_arrow", "arrow interop"), ("aggregate", "aggregation"),
+    ("write_arrow", "arrow interop"), ("write_stats", "io/sink"),
     ("snapshot_version", "manifest"), ("_file_stats", "manifest"),
     ("to_arrow", "arrow interop")])
 def test_refused_methods_name_their_slice(mixed, call, slice_name):
@@ -525,7 +526,9 @@ def test_refused_methods_name_their_slice(mixed, call, slice_name):
     run = {
         "write_arrow": lambda: pqt.TableBuffer(
             pqt.ParquetFile(mixed["paths"][0]).schema).write_arrow(None),
-        "aggregate": lambda: ds.aggregate([]),
+        "write_stats": lambda: pqt.ParquetWriter(
+            io.BytesIO(), pqt.ParquetFile(mixed["paths"][0]).schema
+        ).write_stats,
         "snapshot_version": lambda: ds.snapshot_version,
         "_file_stats": lambda: ds._file_stats,
         "to_arrow": lambda: pqt.ShardedTable({}, {}, (), ()).to_arrow(),
