@@ -1,6 +1,7 @@
 """Drive parquet_tpu_torch's device read, batched point lookups, device
 scan, multi-file and sharded reads, streamed reads, typed reads, rows,
-merge and sort, and aggregation on one CUDA card and check them.
+merge and sort, aggregation, and durable writes from the card on one
+CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
@@ -291,6 +292,27 @@ Phases, each fatal on failure:
    best of 3 warm walls beside the best whole read of its columns, tiers,
    launches, the host route, and ``AGG`` (folds on the card and the
    host, spans decoded, copies back);
+5k. durable, pipelined writes from the card, each check fatal: (a) the
+   first 2,097,152 rows of phase 4's 5-column file (its first two row
+   groups; cut from 8,388,608 for the script's time) read on the card
+   and handed as CUDA columns to ``write_table`` on a path with the
+   default options (Snappy, atomic commit, fsync), under
+   ``PARQUET_TPU_TORCH_WRITE_OVERLAP=off``, auto and ``force``, each
+   twice: the three files byte-identical, each
+   commit's destination absent until its rename and no ``*.tmp`` left;
+   (b) ``verify_file(decode=True)`` on the card clean, with row groups x 5
+   chunks decoded through ``unpack_bits_dense`` and ``dict_unpack_gather``
+   and no host route, and the file read back equal to the original read
+   bit for bit; (c) ``crash_consistency_check`` on 65,536 rows of the same
+   columns, 12 samples, unbuffered and buffered, under ``force``:
+   every outcome ``absent`` or ``clean``; (d) a full disk
+   (``FaultInjectingSink(enospc_at_byte=half)``) raises and leaves no
+   destination, no temp file, no writer thread and no device bytes; (e)
+   one byte flipped in a page of row group 1 is exactly one CRC issue at
+   that row group, column and page offset.  One ``{"write": ...}`` line:
+   each write's walls, MB/s and ``WriteStats``, ``verify_file``'s walls
+   with and without decode beside the whole read's, the crash matrix's
+   outcomes and walls;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -351,7 +373,9 @@ import argparse
 import contextlib
 import dataclasses
 import datetime
+import errno
 import gc
+import hashlib
 import json
 import os
 import statistics
@@ -4957,6 +4981,290 @@ def aggregate_path(card: str, rows: int, seed: int, tmp: str,
     return {"launches": total}
 
 
+WRITE_ROWS = 1 << 21  # phase 4's first two row groups, cut from 8,388,608
+WRITE_MODES = ("off", "auto", "force")
+WRITE_CRASH_ROWS = 65_536
+WRITE_CRASH_SAMPLES = 12
+WRITE_FLIP_ROW_GROUP = 1
+
+
+def cut_rows(col, n: int) -> ColumnData:
+    """The first ``n`` rows of a flat decoded column, its tensors left on
+    the card: values are the present ones, so an optional column keeps as
+    many values as its first ``n`` slots hold."""
+    if col.validity is None:
+        return ColumnData(values=col.values[:n])
+    valid = col.validity[:n]
+    return ColumnData(values=col.values[:int(valid.sum())], validity=valid)
+
+
+@contextlib.contextmanager
+def commit_spy():
+    """Record, at every ``AtomicFileSink`` commit inside the block,
+    whether the destination existed and the temp file did just before the
+    rename, and whether either does just after."""
+    from parquet_tpu_torch.io import sink as sink_mod
+
+    seen = []
+    real = sink_mod.AtomicFileSink.close
+
+    def spied(self):
+        dest, temp = self.dest, self.temp_path
+        before = (os.path.exists(dest), temp is not None
+                  and os.path.exists(temp))
+        real(self)
+        seen.append({"dest_before": before[0], "temp_before": before[1],
+                     "dest_after": os.path.exists(dest),
+                     "temp_after": temp is not None
+                     and os.path.exists(temp)})
+
+    sink_mod.AtomicFileSink.close = spied
+    try:
+        yield seen
+    finally:
+        sink_mod.AtomicFileSink.close = real
+
+
+def temp_files(d: str) -> list:
+    return sorted(f for f in os.listdir(d) if f.endswith(".tmp"))
+
+
+def threads_started(before) -> list:
+    """The names of the live threads not in ``before``, but for the
+    shared pool's workers (they live for the process)."""
+    return [t.name for t in threading.enumerate()
+            if t not in before and not t.name.startswith("pqt-work")]
+
+
+def same_values(got: dict, want: dict, what: str) -> None:
+    """Two reads of flat columns equal bit for bit: each column's values
+    (as bytes) and validity."""
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: columns {list(got)} != {list(want)}")
+    for name, col in want.items():
+        a, b = got[name], col
+        if (a.values.dtype != b.values.dtype
+                or a.values.shape != b.values.shape
+                or not torch.equal(a.values.contiguous().view(torch.uint8),
+                                   b.values.contiguous().view(torch.uint8))):
+            raise AssertionError(f"{what}: {name} values differ")
+        if (a.validity is None) != (b.validity is None) or (
+                a.validity is not None
+                and not torch.equal(a.validity, b.validity)):
+            raise AssertionError(f"{what}: {name} validity differs")
+
+
+def mid_page(path: str, rg: int) -> tuple:
+    """(a byte in the middle of a page's stored bytes, that page's header
+    offset) for the middle data page of row group ``rg``'s first chunk."""
+    chunk = pq.ParquetFile(path).row_group(rg).column(0)
+    rows = chunk.page_table().rows
+    data = np.flatnonzero(rows[:, host.PG_TYPE] != int(
+        PageType.DICTIONARY_PAGE))
+    page = int(data[len(data) // 2])
+    start = chunk.byte_range[0]
+    return (start + int(rows[page, host.PG_DATA_POS])
+            + int(rows[page, host.PG_COMP]) // 2,
+            start + int(rows[page, host.PG_HEADER_POS]))
+
+
+def write_path(card: str, read: dict, tmp: str) -> dict:
+    """Phase 5k: durable, pipelined writes from the card, each check
+    fatal.  (a) The first 2,097,152 rows of phase 4's 5-column file (its
+    first two row groups; cut from 8,388,608 for the script's time) read
+    on the card, and the CUDA columns handed to ``write_table`` on a path
+    with the default options (Snappy, atomic commit, fsync) three times:
+    ``PARQUET_TPU_TORCH_WRITE_OVERLAP=off``, auto and ``force``, each
+    twice (its best wall kept); the three files
+    are byte-identical, and at each commit the destination did not exist
+    until the rename and no ``*.tmp`` is left.  (b) ``verify_file(path,
+    decode=True)`` is clean with row groups x 5 chunks decoded, its decode
+    launching ``unpack_bits_dense`` and ``dict_unpack_gather`` with no
+    chunk on the host route, and the file read back on the card equals
+    the original read bit for bit.  (c) ``crash_consistency_check`` on the
+    first 65,536 rows of the same columns, 12 samples, unbuffered and
+    buffered, under ``force``: every outcome ``absent`` or ``clean``.
+    (d) ``FaultInjectingSink(enospc_at_byte=half)`` under ``force``
+    makes the write raise; the destination is then
+    absent, no temp file is left, no writer thread is alive and the
+    card's allocated bytes are back.  (e) One byte flipped in the middle
+    of a page of row group 1: ``verify_file`` reports exactly one CRC
+    issue, at that row group, column and page offset.  One ``{"write":
+    ...}`` line."""
+    src = pq.ParquetFile(read["path"])
+    schema = src.schema
+    groups = list(range(-(-WRITE_ROWS // ROW_GROUP)))
+    start = settled_allocated()
+    threads = set(threading.enumerate())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    orig = src.read(device=DEVICE, row_groups=groups)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    cols = {name: cut_rows(col, WRITE_ROWS) for name, col in orig.items()}
+    if any(c.values.device.type != torch.device(DEVICE).type
+           for c in cols.values()):
+        raise AssertionError("phase 5k: the columns are not on the card")
+    in_bytes = decoded_bytes(orig)
+    # the default options' row groups (phase 4's, on the card)
+    out_groups = -(-WRITE_ROWS // pq.WriterOptions().row_group_size)
+
+    # (a) three pipelines, the same bytes
+    writes, digests, commits = {}, {}, []
+    for name in WRITE_MODES:
+        path = os.path.join(tmp, f"write_{name}.parquet")
+        walls_s, stats = [], None
+        for _ in range(2):
+            if os.path.exists(path):  # each write makes its destination
+                os.unlink(path)
+            with knobs(PARQUET_TPU_TORCH_WRITE_OVERLAP=name), \
+                    commit_spy() as seen:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                w = pq.write_table(cols, path, schema=schema)
+                walls_s.append(time.perf_counter() - t0)
+            if len(seen) != 1 or seen[0] != {
+                    "dest_before": False, "temp_before": True,
+                    "dest_after": True, "temp_after": False}:
+                raise AssertionError(f"phase 5k {name}: commit {seen}")
+            commits.extend(seen)
+            if temp_files(tmp):
+                raise AssertionError(f"phase 5k {name}: temp files left "
+                                     f"{temp_files(tmp)}")
+            if stats is None or walls_s[-1] <= min(walls_s[:-1]):
+                stats = w.write_stats.as_dict()
+        size = os.path.getsize(path)
+        if stats["bytes_flushed"] != size or \
+                stats["row_groups"] != out_groups:
+            raise AssertionError(f"phase 5k {name}: stats {stats}, file "
+                                 f"{size} bytes")
+        if name == "force" and stats["overlapped_groups"] != out_groups:
+            raise AssertionError(f"phase 5k {name}: no overlap {stats}")
+        with open(path, "rb") as fh:
+            digests[name] = hashlib.sha256(fh.read()).hexdigest()
+        best = min(walls_s)
+        writes[name] = {"walls_s": walls_s, "best_s": best,
+                        "file_bytes": size, "file_mb_per_s": size / best / 1e6,
+                        "input_mb_per_s": in_bytes / best / 1e6,
+                        "write_stats": stats}
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"phase 5k: the pipelines' bytes differ "
+                             f"{digests}")
+    path = os.path.join(tmp, "write_off.parquet")
+
+    # (b) verification and the read back
+    t0 = time.perf_counter()
+    structural = pq.verify_file(path)
+    verify_s = time.perf_counter() - t0
+    if not structural.ok or structural.crcs_checked == 0:
+        raise AssertionError(f"phase 5k: {structural.summary()}")
+    pq.reset_launches()
+    reset_routes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = pq.verify_file(path, decode=True, device=DEVICE)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    verify_launches = dict(pq.LAUNCHES)
+    if not rep.ok or rep.chunks_decoded != out_groups * len(cols):
+        raise AssertionError(f"phase 5k: {rep.summary()}")
+    check_launched("phase 5k verify_file(decode=True)", verify_launches,
+                   READ_KERNELS)
+    no_host_route("phase 5k verify_file(decode=True)")
+    pq.reset_launches()
+    reset_routes()
+    back, back_s = timed_read(path)
+    back_launches = dict(pq.LAUNCHES)
+    check_launched("phase 5k read back", back_launches, READ_KERNELS)
+    no_host_route("phase 5k read back")
+    same_values(back, orig, "phase 5k read back")
+    del back
+    read_walls = []
+    for _ in range(2):
+        out, s = timed_read(path)
+        read_walls.append(s)
+        del out
+
+    # (c) the crash matrix
+    cut = {name: cut_rows(col, WRITE_CRASH_ROWS)
+           for name, col in orig.items()}
+    crash = {}
+    with knobs(PARQUET_TPU_TORCH_WRITE_OVERLAP="force"):
+        for buffered in (False, True):
+            dest = os.path.join(tmp, f"crash_{int(buffered)}.parquet")
+            t0 = time.perf_counter()
+            res = pq.crash_consistency_check(
+                lambda s: pq.write_table(cut, s, schema=schema), dest,
+                samples=WRITE_CRASH_SAMPLES, seed=0, buffered=buffered)
+            wall = time.perf_counter() - t0
+            outcomes = [r["outcome"] for r in res]
+            if len(res) != WRITE_CRASH_SAMPLES + 1 or not set(
+                    outcomes) <= {"absent", "clean"} or temp_files(tmp):
+                raise AssertionError(f"phase 5k crash matrix: {res}")
+            crash["buffered" if buffered else "unbuffered"] = {
+                "offsets": [r["offset"] for r in res],
+                "outcomes": outcomes, "wall_s": wall}
+            os.unlink(dest)
+
+    # (d) a full disk
+    dest = os.path.join(tmp, "enospc.parquet")
+    half = os.path.getsize(path) // 2
+    sink = pq.FaultInjectingSink(pq.AtomicFileSink(dest),
+                                 enospc_at_byte=half)
+    with knobs(PARQUET_TPU_TORCH_WRITE_OVERLAP="force"):
+        try:
+            pq.write_table(cols, sink, schema=schema)
+        except OSError as e:
+            if e.errno != errno.ENOSPC:
+                raise
+        else:
+            raise AssertionError("phase 5k: the full disk did not raise")
+    sink.abort()
+    del cols, cut, orig
+    left = settled_allocated() - start
+    if os.path.exists(dest) or temp_files(tmp) or threads_started(threads) \
+            or left > 0:
+        raise AssertionError(
+            f"phase 5k full disk: dest {os.path.exists(dest)}, temp "
+            f"{temp_files(tmp)}, threads {threads_started(threads)}, "
+            f"{left} device bytes")
+    enospc = {"at_byte": half, "bytes_written": sink.stats.bytes_written}
+
+    # (e) a flipped byte
+    flipped = os.path.join(tmp, "write_flipped.parquet")
+    at, page = mid_page(path, WRITE_FLIP_ROW_GROUP)
+    with open(path, "rb") as fh:
+        raw = bytearray(fh.read())
+    raw[at] ^= 0x01
+    with open(flipped, "wb") as fh:
+        fh.write(raw)
+    bad = pq.verify_file(flipped)
+    os.unlink(flipped)
+    column = schema.leaves[0].name
+    if [(i.kind, i.row_group, i.column, i.offset) for i in bad.issues] != [
+            ("crc", WRITE_FLIP_ROW_GROUP, column, page)]:
+        raise AssertionError(f"phase 5k flip: {bad.summary()}")
+
+    launches = {k: verify_launches[k] + back_launches[k]
+                for k in verify_launches}
+    log({"write": {
+        "card": card, "rows": WRITE_ROWS, "row_groups": out_groups,
+        "columns": len(schema.leaves), "input_bytes": in_bytes,
+        "source_read_s": read_s, "writes": writes,
+        "sha256": digests["off"], "commits": len(commits),
+        "verify": {"structural_s": verify_s, "decode_s": decode_s,
+                   "read_back_s": back_s, "read_s": read_walls,
+                   "pages_checked": rep.pages_checked,
+                   "crcs_checked": rep.crcs_checked,
+                   "chunks_decoded": rep.chunks_decoded,
+                   "launches": verify_launches},
+        "read_back_launches": back_launches, "crash": crash,
+        "enospc": enospc,
+        "flip": {"at": at, "page_offset": page,
+                 "issue": bad.issues[0].as_dict()}}})
+    return {"launches": launches}
+
+
 def _codes_of(cd, words) -> np.ndarray:
     """Each row's index in ``words`` of a byte-array column built from
     them (by the first byte, which tells these words apart, else by the
@@ -6654,6 +6962,7 @@ def main(argv=None) -> int:
                            card, args.seed, tmp)
         aggregate = phase("5j_aggregate", aggregate_path, card,
                           args.lineitem_rows, args.seed, tmp, item["path"])
+        write = phase("5k_write", write_path, card, read, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -6665,7 +6974,7 @@ def main(argv=None) -> int:
                       "host_scan": hscan, "lookups": leftovers,
                       "struct_keys": struct, "resilience": resilience,
                       "stream": stream, "typed_rows_merge": typed_rows,
-                      "aggregate": aggregate})
+                      "aggregate": aggregate, "write": write})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

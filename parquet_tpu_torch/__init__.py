@@ -40,7 +40,14 @@ optionally grouped) from footer statistics and page-index zone maps
 where they prove the answer, and otherwise decodes the dictionary pages
 and the contended spans on the card and folds there (``AGG`` counts
 where the folds ran); page encodings dispatch through a registry
-(``register_encoding``).
+(``register_encoding``).  It writes durably: a path is written to a temp
+file beside it and renamed over it at close, after an fsync
+(``WriterOptions.atomic_commit``), through a pipelined encode and emit
+and a coalescing ``BufferedSink`` (``ParquetWriter.write_stats``); the
+columns may be tensors on the card.  ``FaultInjectingSink`` and
+``crash_consistency_check`` crash a write at chosen bytes, and
+``verify_file`` walks a file's envelope, pages, CRCs, page index and
+bloom filters, and with ``decode=True`` decodes every chunk on the card.
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -77,6 +84,9 @@ where the folds ran); page encodings dispatch through a registry
         [pq.count(), pq.sum_("x"), pq.avg("x")], where=col("x") >= 2)
     res = pq.Dataset("parts/*.parquet").aggregate(
         [pq.max_("x")], group_by="k", device="cpu")
+    w = pq.write_table({"x": table["x"].values}, "y.parquet")  # CUDA input
+    print(w.write_stats.as_dict())
+    assert pq.verify_file("y.parquet", decode=True).ok      # on the card
 """
 
 from .algebra.expr import And, Col, Expr, Not, Or, col
@@ -91,8 +101,12 @@ from .io.aggregate import (AGG, AggregateResult, decode_agg_state,
 from .io.fused import FUSED, reset_fused
 from .ops.encodings import (DictIndices, EncodingSpec, register_encoding,
                             registered_encodings)
-from .io.faults import (FaultInjectingSource, FaultPolicy, PolicySource,
-                        ReadReport)
+from .io.faults import (FaultInjectingSink, FaultInjectingSource,
+                        FaultPolicy, InjectedWriterCrash, PolicySource,
+                        ReadReport, SinkFaultStats, crash_consistency_check)
+from .io.integrity import IntegrityIssue, IntegrityReport, verify_file
+from .io.sink import (AtomicFileSink, BufferedSink, FileSink, Sink,
+                      WriteStats)
 from .io.cache import CacheStats, cache_stats, clear_caches
 from .io.column import Column
 from .io.lookup import KeyHits, LookupResult, find_rows
@@ -163,7 +177,11 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "choose_fused", "FUSED_AUTO_MIN_BYTES", "DictIndices",
            "EncodingSpec", "register_encoding", "registered_encodings",
            "WriteError", "ColumnTooDeepError", "MissingRootColumnError",
-           "TooManyRowGroupsError"]
+           "TooManyRowGroupsError", "Sink", "FileSink", "AtomicFileSink",
+           "BufferedSink", "WriteStats", "FaultInjectingSink",
+           "InjectedWriterCrash", "SinkFaultStats",
+           "crash_consistency_check", "verify_file", "IntegrityReport",
+           "IntegrityIssue"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

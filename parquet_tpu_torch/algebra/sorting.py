@@ -36,9 +36,12 @@ def _unlink_all(paths: Iterable[str]) -> None:
 
 def _spill_options(**kw) -> WriterOptions:
     """A run's options: Snappy, no page index, 64 KiB pages (the merge
-    holds a pull of pages a run, so small pages bound its window)."""
+    holds a pull of pages a run, so small pages bound its window), and
+    neither the atomic commit nor the fsyncs: a run lives only until
+    :meth:`SortingWriter.close`, and only the output needs durability."""
     return WriterOptions(compression="snappy", write_page_index=False,
-                         data_page_size=1 << 16, **kw)
+                         data_page_size=1 << 16, atomic_commit=False,
+                         fsync=False, **kw)
 
 
 class SortingWriter:
@@ -57,6 +60,9 @@ class SortingWriter:
         self._spills: List[str] = []
         self._tmpdir = tempfile.mkdtemp(prefix="parquet_tpu_torch_sort_")
         self._closed = False
+        # the WriteStats of the writer of the output (runs not counted):
+        # None until close
+        self.write_stats = None
 
     def write(self, columns: Dict[str, ColumnData], num_rows: int) -> None:
         self._buf.write(columns, num_rows)
@@ -65,11 +71,6 @@ class SortingWriter:
 
     def write_arrow(self, table) -> None:
         raise unsupported("SortingWriter.write_arrow", "arrow interop")
-
-    @property
-    def write_stats(self):
-        raise unsupported("SortingWriter.write_stats (the write "
-                          "pipeline's meter)", "io/sink")
 
     @property
     def spills(self) -> List[str]:
@@ -104,6 +105,7 @@ class SortingWriter:
                 except BaseException:
                     w.abort()
                     raise
+                self.write_stats = w.write_stats
             else:
                 self._spill()
                 self._merge_spills()
@@ -152,8 +154,9 @@ class SortingWriter:
         if out_opts.row_group_size > self.buffer_rows:
             out_opts = dataclasses.replace(out_opts,
                                            row_group_size=self.buffer_rows)
-        merge_files(runs, self.sorting, self.sink, out_opts,
-                    batch_rows=batch, device=self.device)
+        w = merge_files(runs, self.sorting, self.sink, out_opts,
+                        batch_rows=batch, device=self.device)
+        self.write_stats = w.write_stats
 
     def __enter__(self):
         return self

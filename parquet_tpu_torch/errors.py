@@ -84,6 +84,10 @@ class ColumnTooDeepError(ValueError):
 
 # page sizes are i32 in the thrift structs
 MAX_PAGE_SIZE = (1 << 31) - 1
+# a column index or offset index longer than this is corruption
+MAX_COLUMN_INDEX_SIZE = 16 * 1024 * 1024
+# a page header longer than this is corruption (the streamed walk's cap)
+MAX_PAGE_HEADER_SIZE = 1 << 20
 # nodes on a column's path, below the root (the JAX package's limit)
 MAX_COLUMN_DEPTH = 16
 # a row group's ordinal is an i16

@@ -19,8 +19,14 @@ The port's copy of the read side of ``parquet_tpu/io/faults.py``:
   errors, latency, bit flips, truncation, short reads) whose draws are
   keyed on ``(seed, offset, size, attempt)``, as the JAX package's.
 
-The writer's, the remote transport's and the metrics' parts come with
-their slices.
+The write side: :class:`FaultInjectingSink` (transient errors, short
+writes, a full disk and a hard crash at a byte, drawn from one seeded
+RNG in write order, as the JAX package's), :class:`InjectedWriterCrash`,
+:class:`SinkFaultStats`, and :func:`crash_consistency_check`, the crash
+matrix of one atomic write, whose oracle is ``io/integrity.py``'s
+``verify_file``.  The table-level crash tools (``SharedCrashState``,
+``table_crash_check``) come with the dataset writer; the remote
+transport's and the metrics' parts come with their slices.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from .source import Source
 __all__ = ["FaultPolicy", "ReadReport", "Deadline", "PolicySource",
            "FaultInjectingSource", "FaultStats", "read_context",
            "resolve_policy", "retry_call", "active_deadline",
-           "NON_DATA_ERRORS", "is_corrupt_oserror"]
+           "NON_DATA_ERRORS", "is_corrupt_oserror", "InjectedWriterCrash",
+           "SinkFaultStats", "FaultInjectingSink", "crash_consistency_check"]
 
 
 # ---------------------------------------------------------------------------
@@ -528,3 +535,209 @@ class FaultInjectingSource(Source):
 
     def close(self) -> None:
         self.inner.close()
+
+
+# ---------------------------------------------------------------------------
+# The write side: a deterministic fault injector over a sink
+# ---------------------------------------------------------------------------
+class InjectedWriterCrash(Exception):
+    """A simulated hard crash in the middle of a write: the bytes past the
+    crash point were never persisted, and the sink can no longer flush or
+    commit, as a killed process or a lost power supply leaves it.  Not an
+    ``OSError``, so that "the environment failed" (which the writer may
+    report) stays apart from "the machine died" (which it cannot)."""
+
+
+@dataclass
+class SinkFaultStats:
+    """What the write-side injector did."""
+
+    writes: int = 0
+    bytes_written: int = 0  # bytes that reached the inner sink
+    injected_errors: int = 0
+    injected_short_writes: int = 0
+    crashed: bool = False
+
+
+class FaultInjectingSink:
+    """A seedable chaos wrapper over a write sink (a
+    :class:`~parquet_tpu_torch.io.sink.Sink` or a binary file object).
+
+    Its draws come from one ``random.Random(seed)`` in write order, as the
+    JAX package's do: the same seed and the same writes give the same
+    faults.  The modes compose:
+
+    - ``error_rate``: the chance that a ``write()`` raises a transient
+      ``OSError(EIO)`` with nothing persisted;
+    - ``short_write_rate``: the chance that a ``write()`` persists a strict
+      prefix of its buffer and raises an ``OSError`` naming the short
+      write (bytes on disk, fewer than the writer counted);
+    - ``enospc_at_byte``: the disk holds this many bytes; the write that
+      crosses it persists up to it and raises ``OSError(ENOSPC)``, as does
+      every later write;
+    - ``crash_at_byte``: bytes up to it persist, the write that crosses it
+      raises :class:`InjectedWriterCrash`, and every later ``write``,
+      ``flush`` and ``close`` raises too (a dead process cannot commit).
+      ``abort()`` still reaches the inner sink, so a harness can sweep the
+      temp file, as a restarted process would."""
+
+    def __init__(self, inner, seed: int = 0, error_rate: float = 0.0,
+                 short_write_rate: float = 0.0,
+                 enospc_at_byte: Optional[int] = None,
+                 crash_at_byte: Optional[int] = None):
+        self.inner = inner
+        self.seed = seed
+        self.error_rate = error_rate
+        self.short_write_rate = short_write_rate
+        self.enospc_at_byte = enospc_at_byte
+        self.crash_at_byte = crash_at_byte
+        self.stats = SinkFaultStats()
+        self._rng = random.Random(seed)
+        self._total = 0  # bytes persisted to the inner sink
+
+    def _check_alive(self, what: str) -> None:
+        if self.stats.crashed:
+            raise InjectedWriterCrash(
+                f"{what} after injected crash at byte {self.crash_at_byte}")
+
+    def _persist(self, data) -> None:
+        self.inner.write(data)
+        n = len(data)
+        self._total += n
+        self.stats.bytes_written += n
+
+    def write(self, data) -> int:
+        self._check_alive("write")
+        data = bytes(data) if not isinstance(data, (bytes, bytearray)) \
+            else data
+        n = len(data)
+        self.stats.writes += 1
+        if self.crash_at_byte is not None \
+                and self._total + n > self.crash_at_byte:
+            keep = self.crash_at_byte - self._total
+            if keep > 0:
+                self._persist(data[:keep])
+            self.stats.crashed = True
+            raise InjectedWriterCrash(
+                f"injected crash at byte {self.crash_at_byte}")
+        if self.enospc_at_byte is not None \
+                and self._total + n > self.enospc_at_byte:
+            keep = self.enospc_at_byte - self._total
+            if keep > 0:
+                self._persist(data[:keep])
+            self.stats.injected_errors += 1
+            raise OSError(errno.ENOSPC,
+                          f"injected ENOSPC at byte {self.enospc_at_byte}")
+        if self.error_rate and self._rng.random() < self.error_rate:
+            self.stats.injected_errors += 1
+            raise OSError(errno.EIO, "injected transient write error")
+        if (self.short_write_rate and n > 1
+                and self._rng.random() < self.short_write_rate):
+            keep = self._rng.randrange(1, n)
+            self._persist(data[:keep])
+            self.stats.injected_short_writes += 1
+            raise OSError(f"short write at {self._total - keep}: "
+                          f"wanted {n}, wrote {keep} (injected)")
+        self._persist(data)
+        return n
+
+    def writelines(self, parts) -> None:
+        for p in parts:
+            self.write(p)
+
+    def flush(self) -> None:
+        self._check_alive("flush")
+        self.inner.flush()
+
+    def close(self) -> None:
+        self._check_alive("close/commit")
+        if self.crash_at_byte is not None \
+                and self._total >= self.crash_at_byte:
+            # the crash point was the last byte written: the process died
+            # after the bytes and before the commit
+            self.stats.crashed = True
+            raise InjectedWriterCrash(
+                f"injected crash at byte {self.crash_at_byte} (pre-commit)")
+        self.inner.close()
+
+    def abort(self) -> None:
+        ab = getattr(self.inner, "abort", None)
+        if ab is not None:
+            ab()
+        else:
+            try:
+                self.inner.close()
+            except OSError:
+                pass
+
+
+def crash_consistency_check(build, dest, samples: int = 12, seed: int = 0,
+                            offsets=None, buffered: bool = False
+                            ) -> List[dict]:
+    """The crash matrix of one atomic write.
+
+    ``build(sink)`` makes a whole write to the sink it is given (for
+    example ``lambda s: write_table(table, s, options)``) without
+    committing it: the harness commits.  A first run without a crash
+    gives the write's byte count N; then, for each sampled crash offset in
+    [0, N] (``samples`` of them, drawn from ``seed``, 0 and N always among
+    them, or ``offsets``), the write runs again into an atomic sink for
+    ``dest`` (``io/sink.py::AtomicFileSink``) behind a
+    :class:`FaultInjectingSink` that crashes at that byte, and the
+    invariant must hold: ``dest`` does not exist, or
+    :func:`~parquet_tpu_torch.io.integrity.verify_file` finds it clean.  A
+    last run without a crash commits and must verify clean.
+    ``buffered=True`` puts a :class:`~parquet_tpu_torch.io.sink.BufferedSink`
+    between the writer and the injector, so the crashes land inside its
+    coalesced flushes.
+
+    Returns one ``{"offset", "outcome"}`` a run, the outcome ``"absent"``
+    or ``"clean"``; raises ``AssertionError`` (with the offset and the
+    issues) on a violation."""
+    import os
+
+    from .integrity import verify_file
+    from .sink import AtomicFileSink, BufferedSink
+
+    if os.path.exists(dest):
+        raise FileExistsError(f"crash harness refuses to overwrite {dest!r}")
+
+    def run(crash_at):
+        inj = FaultInjectingSink(AtomicFileSink(dest),
+                                 crash_at_byte=crash_at)
+        sink = BufferedSink(inj) if buffered else inj
+        try:
+            build(sink)
+            sink.close()  # the commit: runs without a crash only
+        except InjectedWriterCrash:
+            # a dead process leaves its temp file; the restarted one
+            # sweeps it, and the destination never needs a recovery
+            sink.abort()
+        return inj
+
+    total = run(None).stats.bytes_written
+    rep = verify_file(dest)
+    assert rep.ok, f"uncrashed write failed verification: {rep.summary()}"
+    os.unlink(dest)
+
+    if offsets is None:
+        rng = random.Random(seed)
+        pool = range(1, total)
+        picks = rng.sample(pool, min(max(samples - 2, 0), len(pool)))
+        offsets = sorted({0, *picks, total})
+    results = []
+    for off in offsets:
+        run(off)
+        if os.path.exists(dest):
+            rep = verify_file(dest)
+            assert rep.ok, (f"crash at byte {off} left a corrupt "
+                            f"destination: {rep.summary()}")
+            results.append({"offset": off, "outcome": "clean"})
+            os.unlink(dest)
+        else:
+            results.append({"offset": off, "outcome": "absent"})
+    run(None)  # the control: the committed file must verify clean
+    rep = verify_file(dest)
+    assert rep.ok, f"final write failed verification: {rep.summary()}"
+    results.append({"offset": None, "outcome": "clean"})
+    return results

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from .. import codecs
-from ..errors import MAX_PAGE_SIZE, CorruptedError, unsupported
+from ..errors import (MAX_PAGE_HEADER_SIZE, MAX_PAGE_SIZE, CorruptedError,
+                      unsupported)
 from ..format import metadata as md
 from ..format import thrift
 from ..format.enums import CompressionCodec, Encoding, PageType, Type
@@ -53,8 +54,6 @@ _UNSET = object()  # memo sentinel: None is a valid parsed value
 
 # an index structure longer than this is corruption, not an index
 MAX_INDEX_SIZE = 64 << 20
-# a page header longer than this is corruption (the streamed walk's cap)
-MAX_PAGE_HEADER_SIZE = 1 << 20
 
 
 @dataclass

@@ -18,7 +18,10 @@ index), split-block bloom filters for the columns named in
 and the row groups' ``sorting_columns``;
 the bloom filters, then the page index, go between the last row group
 and the footer.  Byte-array dictionaries keep
-first-seen order, as the reference's do.  Page CRCs are not written.
+first-seen order, as the reference's do.  Each page header carries the
+CRC32 of the page's stored bytes (``WriterOptions.write_crc``, on by
+default), which ``ReadOptions(verify_crc=True)`` and ``verify_file``
+check.
 
 ``write_table`` takes ``{name: array}``: a numpy array is a required
 column, a ``numpy.ma.MaskedArray`` an optional one whose masked slots are
@@ -31,7 +34,25 @@ levels) is taken as it is, keyed by the leaf's dotted path, with the
 ``schema`` passed beside the table.  Levels come from ``ops/levels.py``
 (``levels_for_flat``, ``levels_for_list``, ``levels_for_nested``); a data
 page holds whole rows, its ``num_values`` counts level slots, and the
-offset index's ``first_row_index`` counts rows.
+offset index's ``first_row_index`` counts rows.  The arrays may also be
+torch tensors, on the CPU or on a card: each is copied to the host once,
+on the caller's thread, before its encode starts.
+
+The write is pipelined, as the JAX package's is: a chunk's encode is pure
+and knows no file offset (:class:`_EncodedChunk`), and ``_emit_chunk``
+assigns the offsets in order, so ``write_row_group`` encodes row group
+N+1 on the shared pool (``utils/pool.py``) while row group N's pages go
+out.  N+1's encode starts only after N's has finished, so the bytes are
+the same with the overlap on or off.  The pages go out on the caller's
+thread: the JAX package's background emitter (its write depth of 2 or
+more) is not ported.  ``PARQUET_TPU_TORCH_WRITE_OVERLAP`` is ``off``, auto (more than one core
+and 8 MiB of input a row group) or ``force``.  A path is written through
+``io/sink.py``: to a temp file beside it, fsynced and renamed over the
+destination at close (``WriterOptions.atomic_commit``, ``fsync``), behind
+a :class:`~parquet_tpu_torch.io.sink.BufferedSink` that coalesces the
+page writes into vectored flushes (``PARQUET_TPU_TORCH_WRITE_BUFFER``,
+auto-tuned unless pinned); ``abort`` leaves neither the destination nor
+the temp file.  ``ParquetWriter.write_stats`` meters the pipeline.
 """
 
 from __future__ import annotations
@@ -39,12 +60,14 @@ from __future__ import annotations
 import dataclasses
 import os
 import struct
+import time
 import zlib
 from dataclasses import dataclass
 from dataclasses import field as dc_field
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from .. import codecs
 from ..format import metadata as md
@@ -52,13 +75,22 @@ from ..format import thrift
 from ..format.enums import (BoundaryOrder, CompressionCodec, Encoding,
                             PageType, Type)
 from ..format.enums import FieldRepetitionType as Rep
-from ..errors import MAX_ROW_GROUPS, TooManyRowGroupsError, unsupported
+from ..errors import MAX_ROW_GROUPS, TooManyRowGroupsError
 from ..ops import host, levels, ref
 from ..schema.schema import Leaf, Schema
 from ..schema.types import (NUMERIC, PHYSICAL_NP_DTYPE, physical_of_dtype,
                             value_width)
+from ..utils.env import env_str
+from ..utils.pool import cancel_futures, in_shared_pool
+from ..utils.pool import submit as pool_submit
+from .sink import (AtomicFileSink, BufferedSink, FileSink, WriteStats,
+                   write_autotune)
 
 DEFAULT_CREATED_BY = "parquet_tpu_torch"
+
+# under this much input a row group, the pool's dispatch and the overlap's
+# bookkeeping cost more than they hide (the JAX package's crossover)
+_PARALLEL_ENCODE_BYTES = 8 << 20
 
 _CODEC_NAMES = {"none": CompressionCodec.UNCOMPRESSED,
                 "uncompressed": CompressionCodec.UNCOMPRESSED,
@@ -112,6 +144,11 @@ class WriterOptions:
     # (column name, descending, nulls_first), recorded in every row group
     sorting_columns: List[Tuple[str, bool, bool]] = dc_field(
         default_factory=list)
+    # a path is written to <dest>.<rand>.tmp, fsynced and renamed over the
+    # destination at close: the destination is absent or whole, never
+    # torn (io/sink.py); False writes the path in place
+    atomic_commit: bool = True
+    fsync: bool = True
 
     def __post_init__(self):
         if self.row_group_size < 1:
@@ -151,22 +188,64 @@ class ColumnData:
     rep_levels: Optional[np.ndarray] = None
 
 
+@dataclass
+class _EncodedChunk:
+    """One chunk's pages, encoded and knowing no file offsets: what the
+    encode phase hands the emit phase."""
+
+    leaf: Leaf
+    dict_page: Optional[tuple]  # (PageHeader, stored bytes)
+    pages: List[tuple]  # (PageHeader, stored bytes, first row)
+    stats: Optional[md.Statistics]
+    column_index: Optional[md.ColumnIndex]
+    bloom_blob: Optional[bytes]
+    encodings: set
+    n_slots: int
+
+
+def _overlap_mode() -> str:
+    """``PARQUET_TPU_TORCH_WRITE_OVERLAP`` as off, auto or force."""
+    v = env_str("PARQUET_TPU_TORCH_WRITE_OVERLAP").lower()
+    if v in ("0", "off", "false", "no"):
+        return "off"
+    return "force" if v == "force" else "auto"
+
+
 class ParquetWriter:
     """Write row groups to a path or a binary file object; the footer goes
     out on :meth:`close`.  :meth:`write` buffers rows and writes each row
     group of ``options.row_group_size`` rows as it fills; the tail waits
-    for :meth:`flush` or :meth:`close`.  :meth:`abort` discards the file
-    (a path this writer opened is removed)."""
+    for :meth:`flush` or :meth:`close`.  A path is committed atomically
+    (``WriterOptions.atomic_commit``) through a coalescing
+    :class:`~parquet_tpu_torch.io.sink.BufferedSink`; :meth:`abort`
+    discards the file (a path leaves no destination and no temp file).
+    ``write_stats`` (:class:`~parquet_tpu_torch.io.sink.WriteStats`)
+    meters the pipeline."""
 
     def __init__(self, sink, schema: Schema,
                  options: Optional[WriterOptions] = None):
         self.schema = schema
         self.options = options or WriterOptions()
-        self._own_sink = isinstance(sink, (str, os.PathLike))
-        self._path = os.fspath(sink) if self._own_sink else None
-        self._f = open(sink, "wb") if self._own_sink else sink
+        self.write_stats = WriteStats()
         self._codec = codecs.get_codec(self.options.codec_id())
-        self._f.write(md.MAGIC)
+        self._own_sink = isinstance(sink, (str, os.PathLike))
+        if self._own_sink:
+            opts = self.options
+            base = (AtomicFileSink(sink, fsync=opts.fsync)
+                    if opts.atomic_commit
+                    else FileSink(sink, fsync=opts.fsync))
+            try:
+                # the magic goes through the base sink, so an unwritable
+                # sink fails here and not in the first row group's flush
+                base.write(md.MAGIC)
+            except BaseException:
+                base.abort()  # leak neither the file nor its temp file
+                raise
+            self._f = BufferedSink(base, stats=self.write_stats)
+            self.write_stats.bytes_flushed += len(md.MAGIC)
+        else:
+            self._f = sink
+            self._f.write(md.MAGIC)
         self._pos = len(md.MAGIC)
         self._row_groups: List[md.RowGroup] = []
         # per row group, per column: (column index, offset index, bloom blob)
@@ -177,13 +256,17 @@ class ParquetWriter:
         # rows handed to write() and not yet in a row group
         self._buffer: Optional[Dict[str, ColumnData]] = None
         self._buffered_rows = 0
+        # the row group whose background encode may still run while its
+        # predecessor's pages go out: (encode futures in leaf order, rows)
+        self._inflight: Optional[Tuple[list, int]] = None
 
     def write(self, columns: Dict[str, ColumnData], num_rows: int) -> None:
         """Buffer ``columns`` (keyed by dotted path); every full row group
         of ``options.row_group_size`` rows is written as it fills, the
         tail stays buffered.  The caller's arrays are shared, never
-        mutated."""
+        mutated; torch tensors are copied to the host here."""
         self._check_open()
+        columns = {k: _host_cd(v) for k, v in columns.items()}
         if self._buffer is None:
             self._buffer = {k: _shallow_cd(v) for k, v in columns.items()}
         else:
@@ -194,14 +277,11 @@ class ParquetWriter:
             self._drain(final=False)
 
     def flush(self) -> None:
-        """Write every buffered row, the tail included."""
+        """Write every buffered row, the tail included, and the row group
+        whose encode is in flight."""
         self._check_open()
         self._drain(final=True)
-
-    @property
-    def write_stats(self):
-        raise unsupported("ParquetWriter.write_stats (the write "
-                          "pipeline's meter)", "io/sink")
+        self._drain_inflight()
 
     def _check_open(self) -> None:
         if self._closed or self._aborted:
@@ -237,18 +317,109 @@ class ParquetWriter:
                             for k, cd in self._buffer.items()}
             self._buffered_rows = total - emit
 
+    # -------------------------------------------------------- the pipeline
     def write_row_group(self, columns: Dict[str, ColumnData],
                         num_rows: int) -> None:
+        """Encode and emit one row group, pipelined:
+
+        1. wait for the previous row group's background encode (not its
+           emit);
+        2. submit this row group's encode to the shared pool;
+        3. emit the previous row group's pages.
+
+        Step 3's writes overlap step 2's encode.  A row group's encode
+        starts only after its predecessor's finished, so the bytes are
+        those of the serial write.  The group held back is emitted by the
+        next call, :meth:`flush` or :meth:`close`.  Torch tensors among
+        the columns are copied to the host here, on the caller's thread;
+        the caller's numpy arrays are shared and may still be read by the
+        encode after this call returns, so do not change them before the
+        writer flushes."""
         self._check_open()
-        if len(self._row_groups) >= MAX_ROW_GROUPS:
+        if len(self._row_groups) + (self._inflight is not None) \
+                >= MAX_ROW_GROUPS:
             raise TooManyRowGroupsError(
                 f"file would exceed {MAX_ROW_GROUPS} row groups "
                 "(RowGroup.ordinal is an i16); raise row_group_size")
+        leaves = self.schema.leaves
+        datas = [_host_cd(columns[leaf.name]) for leaf in leaves]
+        ncpu = host.available_cpus()
+        work = sum(np.asarray(d.values).nbytes for d in datas)
+        mode = _overlap_mode()
+        # a worker of the shared pool never waits on the pool's futures
+        pooled = (ncpu > 1 and len(leaves) > 1
+                  and work >= _PARALLEL_ENCODE_BYTES and not in_shared_pool())
+        overlap = mode != "off" and not in_shared_pool() and (
+            mode == "force"
+            or (ncpu > 1 and work >= _PARALLEL_ENCODE_BYTES))
+        prev, self._inflight = self._inflight, None
+        if prev is not None:
+            prev = (self._collect(prev[0]), prev[1])
+        if overlap or pooled:
+            encs = [pool_submit(self._timed_encode, leaf, data, num_rows)
+                    for leaf, data in zip(leaves, datas)]
+        else:
+            encs = self._timed_encode_iter(leaves, datas, num_rows)
+        if prev is not None:
+            try:
+                self._emit_group(*prev)
+            except BaseException:
+                if overlap or pooled:  # abort() cannot reach these
+                    cancel_futures(encs)
+                raise
+        if overlap:
+            self._inflight = (encs, num_rows)
+            self.write_stats.overlapped_groups += 1
+        else:
+            self._emit_group(self._collect(encs) if pooled else encs,
+                             num_rows)
+
+    def _timed_encode(self, leaf: Leaf, data: ColumnData, num_rows: int):
+        t0 = time.perf_counter()
+        enc = self._encode_chunk(leaf, data, num_rows)
+        return enc, time.perf_counter() - t0
+
+    def _timed_encode_iter(self, leaves, datas, num_rows: int):
+        """The serial encode: one chunk at a time, interleaved with its
+        emit."""
+        for leaf, data in zip(leaves, datas):
+            enc, dt = self._timed_encode(leaf, data, num_rows)
+            self.write_stats.encode_s += dt
+            yield enc
+
+    def _collect(self, futures) -> list:
+        """A row group's encode futures resolved in leaf order; the time
+        spent blocked is the pipeline's bubble (``pool_wait_s``)."""
+        t0 = time.perf_counter()
+        out = []
+        try:
+            for i, f in enumerate(futures):
+                enc, dt = f.result()
+                self.write_stats.encode_s += dt
+                out.append(enc)
+        except BaseException:
+            cancel_futures(futures[i + 1:])
+            raise
+        finally:
+            self.write_stats.pool_wait_s += time.perf_counter() - t0
+        return out
+
+    def _drain_inflight(self) -> None:
+        if self._inflight is None:
+            return
+        encs, num_rows = self._inflight
+        self._inflight = None
+        self._emit_group(self._collect(encs), num_rows)
+
+    def _emit_group(self, encs, num_rows: int) -> None:
+        """Emit one encoded row group: offsets, pages, and its row-group
+        metadata.  ``encs`` is a list or the serial encode's generator."""
         chunks, extras = [], []
         rg_start = self._pos
-        for leaf in self.schema.leaves:
-            data = columns[leaf.name]
-            chunk, extra = self._write_chunk(leaf, data, num_rows)
+        for enc in encs:
+            t0 = time.perf_counter()
+            chunk, extra = self._emit_chunk(enc)
+            self.write_stats.emit_s += time.perf_counter() - t0
             chunks.append(chunk)
             extras.append(extra)
         sorting = [
@@ -264,10 +435,14 @@ class ParquetWriter:
             ordinal=len(self._row_groups)))
         self._extras.append(extras)
         self._num_rows += num_rows
+        self.write_stats.row_groups += 1
 
-    def _write_chunk(self, leaf: Leaf, data: ColumnData, num_rows: int):
-        """Write one chunk's pages; returns its ``ColumnChunk`` and the
-        (column index, offset index, bloom blob) that go out at close."""
+    # ------------------------------------------------------------ encode
+    def _encode_chunk(self, leaf: Leaf, data: ColumnData,
+                      num_rows: int) -> _EncodedChunk:
+        """One chunk's levels, dictionary, pages (headers with their CRC),
+        statistics, column index and bloom filter: no file offsets, so the
+        chunks of a row group encode at once."""
         opts = self.options
         physical = leaf.physical_type
         values, offsets = _normalized(leaf, data)
@@ -316,22 +491,12 @@ class ParquetWriter:
                 opts.bloom_filters[leaf.name], offsets=offsets,
                 dict_offsets=dict_offsets if dictionary else None)
 
-        chunk_start = self._pos
-        parts: List[bytes] = []
-        uncompressed = 0
-        pos = chunk_start
-
-        def emit(header: md.PageHeader, body: bytes) -> None:
-            nonlocal uncompressed, pos
+        def crc(header: md.PageHeader, body: bytes) -> tuple:
             if opts.write_crc:  # over the page's bytes as stored
                 header.crc = zlib.crc32(body) & 0xFFFFFFFF
-            blob = thrift.serialize(header)
-            parts.append(blob)
-            parts.append(body)
-            pos += len(blob) + len(body)
-            uncompressed += header.uncompressed_page_size + len(blob)
+            return header, body
 
-        dict_page_offset = None
+        dict_page = None
         encodings = {Encoding.RLE, encoding}
         width = 0
         if indices is not None:
@@ -339,7 +504,7 @@ class ParquetWriter:
             dict_n = (len(dict_offsets) - 1 if dict_offsets is not None
                       else len(dict_values))
             comp = self._codec.encode(raw)
-            emit(md.PageHeader(
+            dict_page = crc(md.PageHeader(
                 type=int(PageType.DICTIONARY_PAGE),
                 uncompressed_page_size=len(raw),
                 compressed_page_size=len(comp),
@@ -347,12 +512,10 @@ class ParquetWriter:
                     num_values=dict_n,
                     encoding=int(Encoding.PLAIN), is_sorted=False)),
                 comp)
-            dict_page_offset = chunk_start
             encodings.add(Encoding.PLAIN)
             # bit width >= 1: several readers reject zero-width streams
             width = max(int(dict_n - 1).bit_length(), 1)
-        data_page_offset = pos
-        locations: List[md.PageLocation] = []
+        pages: List[tuple] = []
         page_stats: List[Tuple[md.Statistics, int]] = []  # (stats, values)
 
         # pages hold whole rows: a page's row count comes from its slots'
@@ -386,33 +549,63 @@ class ParquetWriter:
                 pstat = _statistics(leaf, sub, sub_offs,
                                     (s1 - s0) - (v1 - v0))
                 page_stats.append((pstat, v1 - v0))
+            pages.append((*crc(*self._data_page(
+                *lv, body, s1 - s0, v1 - v0, r1 - r0, encoding, pstat)), r0))
+        column_index = None
+        if opts.write_page_index and page_stats:
+            column_index = _column_index(leaf, page_stats)
+        return _EncodedChunk(leaf=leaf, dict_page=dict_page, pages=pages,
+                             stats=stats, column_index=column_index,
+                             bloom_blob=bloom_blob, encodings=encodings,
+                             n_slots=n_slots)
+
+    def _emit_chunk(self, enc: _EncodedChunk):
+        """Write one encoded chunk at the file's position: returns its
+        ``ColumnChunk`` and the (column index, offset index, bloom blob)
+        that go out at close.  The pages go to the sink in one
+        ``writelines``; ``_pos`` moves only after it."""
+        opts = self.options
+        chunk_start = pos = self._pos
+        parts: List[bytes] = []
+        uncompressed = 0
+
+        def emit(header: md.PageHeader, body: bytes) -> None:
+            nonlocal uncompressed, pos
+            blob = thrift.serialize(header)
+            parts.append(blob)
+            parts.append(body)
+            pos += len(blob) + len(body)
+            uncompressed += header.uncompressed_page_size + len(blob)
+
+        dict_page_offset = None
+        if enc.dict_page is not None:
+            dict_page_offset = pos
+            emit(*enc.dict_page)
+        data_page_offset = pos
+        locations: List[md.PageLocation] = []
+        for header, body, first_row in enc.pages:
             page_start = pos
-            emit(*self._data_page(*lv, body, s1 - s0, v1 - v0, r1 - r0,
-                                  encoding, pstat))
+            emit(header, body)
             locations.append(md.PageLocation(
                 offset=page_start, compressed_page_size=pos - page_start,
-                first_row_index=r0))
-
-        self._f.write(b"".join(parts))
+                first_row_index=first_row))
+        self._f.writelines(parts)
         self._pos = pos
         meta = md.ColumnMetaData(
-            type=int(physical),
-            encodings=sorted(int(e) for e in encodings),
-            path_in_schema=list(leaf.path),
+            type=int(enc.leaf.physical_type),
+            encodings=sorted(int(e) for e in enc.encodings),
+            path_in_schema=list(enc.leaf.path),
             codec=int(opts.codec_id()),
-            num_values=n_slots,
+            num_values=enc.n_slots,
             total_uncompressed_size=uncompressed,
-            total_compressed_size=self._pos - chunk_start,
+            total_compressed_size=pos - chunk_start,
             data_page_offset=data_page_offset,
             dictionary_page_offset=dict_page_offset,
-            statistics=stats)
-        column_index = offset_index = None
-        if opts.write_page_index:
-            offset_index = md.OffsetIndex(page_locations=locations)
-            if page_stats:
-                column_index = _column_index(leaf, page_stats)
+            statistics=enc.stats)
+        offset_index = (md.OffsetIndex(page_locations=locations)
+                        if opts.write_page_index else None)
         return (md.ColumnChunk(file_offset=chunk_start, meta_data=meta),
-                (column_index, offset_index, bloom_blob))
+                (enc.column_index, offset_index, enc.bloom_blob))
 
     def _data_page(self, rep: Optional[bytes], defs: Optional[bytes],
                    values: bytes, n_slots: int, n_vals: int, n_rows: int,
@@ -448,19 +641,29 @@ class ParquetWriter:
                 repetition_level_encoding=int(Encoding.RLE),
                 statistics=stats)), comp
 
+    # ------------------------------------------------------------- close
     def close(self) -> None:
-        """Write the buffered rows, then the bloom filters, page index and
-        footer.  A failure on the way aborts the file and raises."""
+        """Write the buffered rows, the bloom filters, the page index and
+        the footer, and commit a path (fsync and rename).  ``closed`` is
+        set only once all of it succeeded; a failure on the way aborts
+        the file (no destination is left) and raises."""
         if self._closed:
             return
         if self._aborted:
             raise ValueError("cannot close an aborted writer")
         try:
-            self._drain(final=True)
+            self._close_impl()
         except BaseException:
-            self.abort()
+            self._discard()
             raise
         self._closed = True
+        if getattr(self._f, "_tunable", False):
+            # the next writer's buffer grows where this one still flushed
+            # many times a row group
+            write_autotune().observe(self.write_stats)
+
+    def _close_impl(self) -> None:
+        self.flush()
         self._write_blooms_and_page_index()
         fmd = md.FileMetaData(
             version=2,
@@ -471,35 +674,32 @@ class ParquetWriter:
             column_orders=[md.ColumnOrder(TYPE_ORDER=md.TypeDefinedOrder())
                            for _ in self.schema.leaves])
         blob = thrift.serialize(fmd)
+        # footer, length and magic in one write: a torn tail lacks the
+        # closing magic and never parses as a whole file
         self._f.write(blob + struct.pack("<I", len(blob)) + md.MAGIC)
+        self._f.flush()
         if self._own_sink:
-            self._close_path()
-        else:
-            self._f.flush()
-
-    def _close_path(self) -> None:
-        """Close the file this writer opened and drop its path from the
-        caches: they key a file by its fstat, which a rewrite in place of
-        the same size within one tick of the clock keeps."""
-        from .cache import invalidate_path
-
-        self._f.close()
-        invalidate_path(self._path)
+            self._f.close()  # the commit: fsync (and the rename)
 
     def abort(self) -> None:
-        """Discard the write: no footer; a path this writer opened is
-        closed and removed, a caller's file object is left as it is.
-        Idempotent, and a no-op after :meth:`close`."""
+        """Discard the write: no footer; a path this writer opened leaves
+        neither its destination nor a temp file, and an encode in flight
+        is cancelled (a started one finishes into the void: it touches
+        neither the sink nor the writer).  A caller's file object is left
+        as it is.  Idempotent, and a no-op after :meth:`close`."""
         if self._closed or self._aborted:
             return
+        self._discard()
+
+    def _discard(self) -> None:
         self._aborted = True
         self._buffer, self._buffered_rows = None, 0
+        if self._inflight is not None:
+            encs, _ = self._inflight
+            self._inflight = None
+            cancel_futures(encs)
         if self._own_sink:
-            self._close_path()
-            try:
-                os.unlink(self._path)
-            except OSError:
-                pass
+            self._f.abort()
 
     def _write_blooms_and_page_index(self) -> None:
         """The bloom filters, then every column index, then every offset
@@ -532,6 +732,8 @@ class ParquetWriter:
         return self
 
     def __exit__(self, *exc):
+        # an exception in flight means a torn row group or footer: a
+        # footer now would make a valid-looking file of it
         if exc[0] is not None:
             self.abort()
         elif not self._aborted:
@@ -713,6 +915,32 @@ def _byte_arrays(items) -> Tuple[np.ndarray, np.ndarray]:
     offsets = np.zeros(len(items) + 1, np.int64)
     np.cumsum([len(x) for x in items], out=offsets[1:])
     return np.frombuffer(b"".join(items), np.uint8), offsets
+
+
+def _host(a):
+    """``a`` with a torch tensor (on the CPU or a card) copied to the host
+    as numpy; anything else as it is."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return a
+
+
+def _host_cd(cd: ColumnData) -> ColumnData:
+    """``cd`` with its torch tensors copied to the host: ``cd`` itself
+    where it holds none."""
+    lists = (cd.list_offsets or []) + (cd.list_validity or [])
+    if not any(isinstance(a, torch.Tensor) for a in (
+            cd.values, cd.validity, cd.offsets, cd.def_levels,
+            cd.rep_levels, *lists)):
+        return cd
+    return ColumnData(
+        values=_host(cd.values), validity=_host(cd.validity),
+        offsets=_host(cd.offsets),
+        list_offsets=None if cd.list_offsets is None
+        else [_host(a) for a in cd.list_offsets],
+        list_validity=None if cd.list_validity is None
+        else [_host(a) for a in cd.list_validity],
+        def_levels=_host(cd.def_levels), rep_levels=_host(cd.rep_levels))
 
 
 def _column_data(arr) -> ColumnData:
@@ -937,11 +1165,16 @@ def _slice_cd(leaf: Leaf, cd: ColumnData, r0: int, r1: int,
 
 def write_table(table: Dict[str, object], sink,
                 options: Optional[WriterOptions] = None,
-                schema: Optional[Schema] = None) -> None:
+                schema: Optional[Schema] = None) -> ParquetWriter:
     """Write ``{name: array or ColumnData}`` to ``sink`` (a path or a binary
-    file object) in row groups of ``options.row_group_size`` rows.
-    ``schema`` is needed where the table holds ColumnData."""
+    file object) in row groups of ``options.row_group_size`` rows;
+    returns the closed writer (its ``write_stats``).  ``schema`` is
+    needed where the table holds ColumnData.  Torch tensors, on the CPU
+    or on a card, are copied to the host once, here.  A failure aborts
+    the writer (a path leaves no file) and raises."""
     options = options or WriterOptions()
+    table = {name: _host_cd(v) if isinstance(v, ColumnData) else _host(v)
+             for name, v in table.items()}
     schema = schema or schema_of(table)
     columns = {leaf.name: _column_data(table[leaf.name])
                for leaf in schema.leaves}
@@ -970,3 +1203,4 @@ def write_table(table: Dict[str, object], sink,
                 leaf.name: _slice_cd(leaf, columns[leaf.name], start, end,
                                      ctxs[leaf.name])
                 for leaf in schema.leaves}, end - start)
+    return w

@@ -23,7 +23,6 @@ from typing import Any, Dict, List, Optional, Sequence, Type as PyType
 
 import numpy as np
 
-from .errors import unsupported
 from .format.enums import FieldRepetitionType as Rep, Type
 from .io.reader import ParquetFile
 from .io.writer import ColumnData, ParquetWriter, WriterOptions
@@ -345,8 +344,9 @@ class TypedWriter:
 
     @property
     def write_stats(self):
-        raise unsupported("TypedWriter.write_stats (the write pipeline's "
-                          "meter)", "io/sink")
+        """The underlying writer's
+        :class:`~parquet_tpu_torch.io.sink.WriteStats`."""
+        return self.writer.write_stats
 
     def __enter__(self):
         return self

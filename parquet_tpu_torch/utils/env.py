@@ -76,6 +76,18 @@ KNOBS = {
         "", "the scan tier's budget (host scan spans, dataset file "
         "stages) inside the read budget; unset leaves bulk reads "
         "unbudgeted"),
+    "PARQUET_TPU_TORCH_WRITE_OVERLAP": (
+        "1", "the writer's encode/emit pipelining: off (0), force, or "
+        "auto (anything else: overlap where the process has more than "
+        "one core and a row group brings 8 MiB of input; "
+        "io/writer.py::_overlap_mode)"),
+    "PARQUET_TPU_TORCH_WRITE_BUFFER": (
+        "", "pins the writeback buffer of a path sink in bytes (0 passes "
+        "every write through); unset: 4 MiB, or the auto-tuner's "
+        "(io/sink.py::write_buffer_bytes)"),
+    "PARQUET_TPU_TORCH_WRITE_AUTOTUNE": (
+        "1", "0 keeps the writeback buffer fixed; else it grows or "
+        "shrinks with the flushes a row group earlier writers needed"),
 }
 
 

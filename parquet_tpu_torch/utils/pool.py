@@ -6,7 +6,8 @@ which marks its work so that :func:`in_shared_pool` is true inside it and
 runs it in a copy of the submitter's context (so an admission grant held
 by the caller follows its work onto the worker); and
 :func:`map_in_order`, which fans a function out on the pool and returns
-its results in input order.  Work nested inside a pool worker runs
+its results in input order; and :func:`cancel_futures`, which tears down
+work whose consumer gave up.  Work nested inside a pool worker runs
 serially on that worker: a worker that waits on futures no free worker
 can run would wedge the pool.
 
@@ -74,6 +75,18 @@ def submit(fn, *args, **kwargs):
     caller's context; returns its future."""
     ctx = contextvars.copy_context()
     return shared_pool().submit(ctx.run, _run_pooled, fn, args, kwargs)
+
+
+def cancel_futures(futures) -> None:
+    """Tear down abandoned background work: cancel what has not started,
+    and retrieve the error of what has (a task that fails after its
+    consumer gave up, a writer's abort, must not log an exception nobody
+    retrieved).  Does not wait: the work is pure compute whose results
+    nobody reads."""
+    for f in futures:
+        if not f.cancel():
+            f.add_done_callback(
+                lambda g: None if g.cancelled() else g.exception())
 
 
 def map_in_order(fn, items) -> list:

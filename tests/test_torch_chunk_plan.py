@@ -18,7 +18,6 @@ with.
 
 import io
 import struct
-import threading
 from types import SimpleNamespace
 
 import numpy as np
@@ -40,17 +39,18 @@ from parquet_tpu_torch.ops import host
 from parquet_tpu_torch.ops import ref as tref
 from parquet_tpu_torch.parallel import device_reader as tdr
 from parquet_tpu_torch.schema.schema import Leaf
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
 def _fresh_counters():
-    before = threading.active_count()
+    before = threads_now()
     pqt.reset_host_route()
     pqt.reset_plan_route()
     yield
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
 
 
 def _python_routes() -> int:

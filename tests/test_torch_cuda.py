@@ -1490,3 +1490,70 @@ def test_aggregate_fused_on_card_equals_default(cuda_device, tmp_path,
     before = torch.cuda.memory_allocated(cuda_device)
     del got, want
     assert torch.cuda.memory_allocated(cuda_device) <= before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", ["off", "force"])
+def test_write_from_cuda_tensors(cuda_device, tmp_path, monkeypatch,
+                                 overlap):
+    """Columns read on the card go straight back to ``write_table`` as
+    CUDA tensors: the file is committed atomically, equals the write of
+    the same columns from the host byte for byte, reads back equal, and
+    leaves no temp file and no writer thread."""
+    from torch_fixtures.threads import assert_no_thread_started, threads_now
+
+    monkeypatch.setenv("PARQUET_TPU_TORCH_WRITE_OVERLAP", overlap)
+    src = str(tmp_path / "src.parquet")
+    _five_columns(src)
+    f = pqt.ParquetFile(src)
+    read = f.read(device=cuda_device)
+    cols = {name: pqt.ColumnData(values=c.values, validity=c.validity)
+            for name, c in read.items()}
+    host = {name: pqt.ColumnData(
+        values=c.values.cpu().numpy(),
+        validity=None if c.validity is None else c.validity.cpu().numpy())
+        for name, c in read.items()}
+    opts = pqt.WriterOptions(row_group_size=10_000)
+    threads = threads_now()
+    dest = tmp_path / "card.parquet"
+    w = pqt.write_table(cols, str(dest), opts, schema=f.schema)
+    assert w.write_stats.row_groups == 4
+    assert w.write_stats.bytes_flushed == dest.stat().st_size
+    buf = io.BytesIO()
+    pqt.write_table(host, buf, opts, schema=f.schema)
+    assert dest.read_bytes() == buf.getvalue()
+    assert not [p for p in tmp_path.iterdir() if p.suffix == ".tmp"]
+    assert_no_thread_started(threads)
+    back = pqt.ParquetFile(str(dest)).read(device=cuda_device)
+    for name, c in read.items():
+        assert torch.equal(back[name].values, c.values)
+        assert (c.validity is None) == (back[name].validity is None)
+        if c.validity is not None:
+            assert torch.equal(back[name].validity, c.validity)
+
+
+@pytest.mark.cuda
+def test_verify_file_decodes_on_card(cuda_device, tmp_path):
+    """``verify_file(decode=True)`` decodes every chunk on the card through
+    both unpack kernels and no host route; a flipped page byte is one CRC
+    issue and one decode issue at its row group and column."""
+    path = str(tmp_path / "f.parquet")
+    _five_columns(path)
+    pqt.reset_launches()
+    pqt.reset_host_route()
+    rep = pqt.verify_file(path, decode=True)
+    assert rep.ok and rep.chunks_decoded == 12, rep.summary()
+    assert pqt.LAUNCHES["unpack_bits_dense"] > 0
+    assert pqt.LAUNCHES["dict_unpack_gather"] > 0
+    assert not any(pqt.HOST_ROUTE.values())
+    chunk = pqt.ParquetFile(path).row_group(2).column(2)
+    page = next(p for p in chunk.pages()
+                if p.header.data_page_header is not None)
+    raw = bytearray(open(path, "rb").read())
+    at = page.offset + (chunk.byte_range[0] + chunk.byte_range[1]
+                        - page.offset) // 2
+    raw[at] ^= 0xFF
+    bad = pqt.verify_file(bytes(raw), decode=True, device=cuda_device)
+    assert [(i.kind, i.row_group, i.column) for i in bad.issues] == [
+        ("crc", 2, "ts"), ("decode", 2, "ts")], bad.summary()
+    assert bad.chunks_decoded == 11

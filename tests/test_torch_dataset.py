@@ -33,6 +33,7 @@ from parquet_tpu_torch.io.column import concat_columns
 from parquet_tpu_torch.io import planner as tplanner
 from parquet_tpu_torch.parallel import mesh as tmesh
 from parquet_tpu_torch.utils import pool as tpool
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = torch.device("cpu")
 EIGHT = [CPU] * 8
@@ -62,10 +63,10 @@ def _fresh():
     pqt.reset_mesh()
     pqt.reset_route_refusals()
     pqt.reset_host_route()
-    before = threading.active_count()
+    before = threads_now()
     yield
     assert pqt.MESH["staging_bytes"] == 0
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
 
 
 def _mixed_corpus(root, n_files=N_FILES, rows=ROWS, seed=0):
@@ -518,7 +519,7 @@ def test_cuda_by_default(mixed, monkeypatch):
 
 
 @pytest.mark.parametrize("call,slice_name", [
-    ("write_arrow", "arrow interop"), ("write_stats", "io/sink"),
+    ("write_arrow", "arrow interop"),
     ("snapshot_version", "manifest"), ("_file_stats", "manifest"),
     ("to_arrow", "arrow interop")])
 def test_refused_methods_name_their_slice(mixed, call, slice_name):
@@ -526,15 +527,29 @@ def test_refused_methods_name_their_slice(mixed, call, slice_name):
     run = {
         "write_arrow": lambda: pqt.TableBuffer(
             pqt.ParquetFile(mixed["paths"][0]).schema).write_arrow(None),
-        "write_stats": lambda: pqt.ParquetWriter(
-            io.BytesIO(), pqt.ParquetFile(mixed["paths"][0]).schema
-        ).write_stats,
         "snapshot_version": lambda: ds.snapshot_version,
         "_file_stats": lambda: ds._file_stats,
         "to_arrow": lambda: pqt.ShardedTable({}, {}, (), ()).to_arrow(),
     }[call]
     with pytest.raises(NotImplementedError, match=slice_name):
         run()
+
+
+def test_writer_write_stats_where_it_was_refused():
+    """``ParquetWriter.write_stats``, refused until the write pipeline
+    came, meters a write to a file object: its row groups, encode and
+    emit seconds (nothing flushed through a path sink)."""
+    table = {"a": np.arange(3000, dtype=np.int64),
+             "b": np.arange(3000) % 7 == 0}
+    w = pqt.ParquetWriter(io.BytesIO(), pqt.io.writer.schema_of(table),
+                          pqt.WriterOptions(row_group_size=1000))
+    assert isinstance(w.write_stats, pqt.WriteStats)
+    assert w.write_stats.as_dict()["row_groups"] == 0
+    w.write({k: pqt.ColumnData(values=v) for k, v in table.items()}, 3000)
+    w.close()
+    st = w.write_stats
+    assert st.row_groups == 3 and st.encode_s > 0 and st.emit_s > 0
+    assert st.bytes_flushed == 0 and st.overlapped_groups == 0
 
 
 @pytest.mark.parametrize("call", ["scan_policy", "find_rows_policy",

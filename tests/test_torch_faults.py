@@ -39,6 +39,7 @@ from parquet_tpu_torch.io.source import (BytesSource, FileLikeSource,
                                          FileSource, RetryingSource)
 from parquet_tpu_torch.parallel import device_reader as tdr
 from parquet_tpu_torch.utils import pool as tpool
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = "cpu"
 N_ROWS = 10_000
@@ -73,10 +74,10 @@ def _fresh():
     pqt.clear_caches()
     pqt.reset_mesh()
     pqt.reset_route_refusals()
-    before = threading.active_count()
+    before = threads_now()
     yield
     assert pqt.MESH["staging_bytes"] == 0
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
     parquet_tpu.clear_caches()
     pqt.clear_caches()
 

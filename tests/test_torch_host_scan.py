@@ -37,6 +37,7 @@ from parquet_tpu_torch.io import search as tsearch
 from parquet_tpu_torch.ops import host
 from parquet_tpu_torch.parallel import host_scan as ths
 from parquet_tpu_torch.utils import pool as tpool
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = torch.device("cpu")
 N = 2000
@@ -60,9 +61,9 @@ def _full_pool():
 
 @pytest.fixture(autouse=True)
 def _no_thread_left():
-    before = threading.active_count()
+    before = threads_now()
     yield
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,6 @@ import os
 import socket
 import subprocess
 import sys
-import threading
 
 import numpy as np
 import pyarrow as pa
@@ -30,6 +29,7 @@ from parquet_tpu.ops import ref as jref
 from parquet_tpu.parallel import mesh as jmesh
 
 import parquet_tpu_torch as pqt
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = torch.device("cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,9 +39,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _fresh():
     pqt.reset_mesh()
     pqt.reset_host_route()
-    before = threading.active_count()
+    before = threads_now()
     yield
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
 
 
 def _write(table: pa.Table, **kw) -> bytes:

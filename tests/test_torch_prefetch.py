@@ -32,6 +32,7 @@ from parquet_tpu_torch.io.prefetch import (PrefetchSource, ReadStats,
 from parquet_tpu_torch.io.source import (BytesSource, FileLikeSource,
                                          FileSource, MmapSource, as_source)
 from parquet_tpu_torch.utils import pool as pool_mod
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = "cpu"
 MODE = "PARQUET_TPU_TORCH_PREFETCH"
@@ -53,10 +54,10 @@ def _full_pool():
 @pytest.fixture(autouse=True)
 def _fresh():
     pre_mod.prefetch_autotune().reset()
-    before = threading.active_count()
+    before = threads_now()
     yield
     pre_mod.prefetch_autotune().reset()
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
 
 
 def _file(n=20_000, row_groups=5) -> bytes:

@@ -15,7 +15,6 @@ dictionary key chunk that falls back to PLAIN mid-chunk) falls back to
 the host scan.  Files are small; no thread is left after any test."""
 
 import io
-import threading
 
 import numpy as np
 import pyarrow as pa
@@ -32,6 +31,7 @@ from parquet_tpu.parallel import host_scan as jhs
 import parquet_tpu_torch as pqt
 from parquet_tpu_torch.io import planner as tplanner
 from parquet_tpu_torch.parallel import host_scan as ths
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = torch.device("cpu")
 PIN = "PARQUET_TPU_TORCH_ROUTE"
@@ -45,11 +45,11 @@ def _clean(monkeypatch):
     monkeypatch.delenv("PARQUET_TPU_ROUTE", raising=False)
     pqt.route_history().reset()
     jplanner.route_history().reset()
-    before = threading.active_count()
+    before = threads_now()
     yield
     pqt.route_history().reset()
     jplanner.route_history().reset()
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
 
 
 @pytest.fixture

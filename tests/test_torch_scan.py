@@ -15,7 +15,6 @@ Files are small (at most 60,000 rows) and built once each."""
 import decimal
 import functools
 import io
-import threading
 
 import numpy as np
 import pyarrow as pa
@@ -32,15 +31,16 @@ from parquet_tpu.parallel import host_scan as jhs
 import parquet_tpu_torch as pqt
 from parquet_tpu_torch.format.enums import Encoding
 from parquet_tpu_torch.parallel import host_scan as ths
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = "cpu"
 
 
 @pytest.fixture(autouse=True)
 def _no_thread_left():
-    before = threading.active_count()
+    before = threads_now()
     yield
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
 
 
 def _pyarrow(table: dict, rg: int, page: int, **kw) -> bytes:

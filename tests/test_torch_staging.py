@@ -10,7 +10,6 @@ every test ends with the threads it started with.
 """
 
 import io
-import threading
 import zlib
 from types import SimpleNamespace
 
@@ -31,17 +30,18 @@ from parquet_tpu_torch.io.reader import PageInfo, decode_chunk_host
 from parquet_tpu_torch.io.source import (BytesSource, FileSource,
                                         MmapSource, as_source)
 from parquet_tpu_torch.parallel import device_reader as tdr
+from torch_fixtures.threads import assert_no_thread_started, threads_now
 
 CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
 def _no_thread_left():
-    before = threading.active_count()
+    before = threads_now()
     pqt.reset_host_route()
     pqt.reset_pipeline()
     yield
-    assert threading.active_count() == before
+    assert_no_thread_started(before)
 
 
 def _chunks(f):

@@ -303,8 +303,10 @@ def test_typed_writer_buffers_row_groups_and_aborts(tmp_path):
     assert [rg.num_rows for rg in got.row_groups] == [
         rg.num_rows for rg in want.row_groups] == [100, 100, 50]
     assert jtyped.read_objects(str(path), Order) == objs
-    with pytest.raises(NotImplementedError, match="io/sink"):
-        ttyped.TypedWriter(io.BytesIO(), Order).write_stats
+    # the write pipeline's meter, the underlying writer's
+    assert w.write_stats is w.writer.write_stats
+    assert w.write_stats.row_groups == 3
+    assert w.write_stats.bytes_flushed == path.stat().st_size
     gone = tmp_path / "gone.parquet"
     with pytest.raises(RuntimeError):
         with ttyped.TypedWriter(str(gone), Order) as w:

@@ -550,10 +550,11 @@ def test_abort_removes_only_its_own_file(tmp_path):
     w = pqt.ParquetWriter(str(path), pqt.ParquetFile(
         _write({"x": np.arange(5)})).schema)
     w.write({"x": pqt.ColumnData(values=np.arange(5))}, 5)
-    assert path.exists()
+    # the atomic commit: a temp file beside the path until close
+    assert not path.exists() and len(list(tmp_path.iterdir())) == 1
     w.abort()
     w.abort()  # idempotent
-    assert not path.exists()
+    assert not path.exists() and not list(tmp_path.iterdir())
     with pytest.raises(ValueError, match="aborted"):
         w.write({"x": pqt.ColumnData(values=np.arange(5))}, 5)
     with pytest.raises(ValueError, match="aborted"):
@@ -573,8 +574,9 @@ def test_abort_removes_only_its_own_file(tmp_path):
     w.close()
     w.abort()  # a no-op after close
     assert path.exists()
-    with pytest.raises(NotImplementedError, match="io/sink"):
-        w.write_stats
+    # the write pipeline's meter: every byte of the committed file
+    assert w.write_stats.row_groups == 0
+    assert w.write_stats.bytes_flushed == path.stat().st_size
 
 
 def _write(table, options=None) -> bytes:
