@@ -1,7 +1,7 @@
 """Drive parquet_tpu_torch's device read, batched point lookups, device
 scan, multi-file and sharded reads, streamed reads, typed reads, rows,
-merge and sort, aggregation, and durable writes from the card on one
-CUDA card and check them.
+merge and sort, aggregation, durable writes from the card and writable
+tables on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
@@ -313,6 +313,40 @@ Phases, each fatal on failure:
    each write's walls, MB/s and ``WriteStats``, ``verify_file``'s walls
    with and without decode beside the whole read's, the crash matrix's
    outcomes and walls;
+5l. writable tables, each check fatal: (a) phase 4b's lineitem rows
+   (phase 5c's parts' rows) ingested by ``DatasetWriter`` into a table in
+   one commit a 1,048,576-row slice (the default ``rows_per_file``,
+   524,288-row row groups, Snappy, the default dictionary rule, a bloom
+   filter on ``l_orderkey``): versions 1-8, a part each, no ``*.tmp``;
+   (b) ``open_table`` pins the snapshot, whose read on the card equals
+   the generated columns and phase 5c's glob read of the same rows bit
+   for bit; a scan of 1 % of the sorted keys in part 0 opens part 0 only
+   and one in a middle part opens it and part 0 (whose footer types the
+   predicate), the manifest dropping the rest unopened, both equal to a
+   numpy oracle; ``count`` with ``sum_(l_quantity)`` and ``count`` with
+   ``min_``/``max_(l_orderkey)`` over the keys of parts 0-1 and 10 % of
+   part 2, equal to the oracle, the parts past it dropped by the
+   manifest, the covered parts answered by their zone maps where every
+   aggregate is provable from them, the dictionary and exact tiers on
+   the card; ``Dataset.find_rows`` of 65,536 keys in one part's two row
+   groups (a quarter absent) equal to the oracle with ``bloom_check``
+   launched; (c) ``compact_table(max_files=2)`` folds 2 parts through
+   ``merge_files`` on the card while (b)'s dataset stays open: version 9
+   with 7 parts, the inputs unlinked, the old dataset's read equal to its
+   first bit for bit, a fresh open's parts equal to the generated rows in
+   the new order, recovery removing nothing; (d) 1,048,576 lineitem rows
+   in a seeded order into a table sorted by ``l_orderkey`` in 4 commits,
+   each part's pages ascending, folded to one part by a
+   ``BackgroundCompactor`` on the card, its read equal to the rows sorted
+   on the host (ties as sets); (e) ``table_crash_check`` on 65,536 rows,
+   10 samples, every outcome ``old`` or ``new``.  Both unpack kernels
+   launch in (b)'s reads and ``bloom_check`` in its lookup, no chunk
+   takes the host route, the card's allocated bytes come back after each
+   step and no writer or compactor thread is left.  One ``{"table":
+   ...}`` line: each commit's write and commit seconds and MB/s, the
+   reads' cold and best warm walls beside the glob read's, the parts
+   each query opened, the compaction's wall and rows/s beside 5i(c)'s
+   merge, the crash matrix's outcomes and wall, the launches;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -393,8 +427,8 @@ import parquet_tpu_torch as pq
 from parquet_tpu_torch import codecs
 from parquet_tpu_torch.algebra import buffer as algebra_buffer
 from parquet_tpu_torch.algebra import merge as algebra_merge
-from parquet_tpu_torch.format.enums import (CompressionCodec, Encoding,
-                                            PageType, Type)
+from parquet_tpu_torch.format.enums import (BoundaryOrder, CompressionCodec,
+                                            Encoding, PageType, Type)
 from parquet_tpu_torch.format.enums import FieldRepetitionType as Rep
 from parquet_tpu_torch.io import bloom, lookup
 from parquet_tpu_torch.io.column import concat_columns
@@ -5265,6 +5299,537 @@ def write_path(card: str, read: dict, tmp: str) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 5l: writable tables on the card
+# ---------------------------------------------------------------------------
+
+TABLE_COMMIT_ROWS = 1 << 20  # DatasetWriter's default rows_per_file
+TABLE_ROW_GROUP = 1 << 19
+TABLE_SORTED_ROWS = 1 << 20
+TABLE_SORTED_COMMITS = 4
+TABLE_LOOKUP_KEYS = 65_536  # a quarter of them absent
+TABLE_CRASH_ROWS = 65_536
+TABLE_CRASH_SAMPLES = 10
+TABLE_SCAN_COLUMNS = ["l_orderkey", "l_quantity", "l_extendedprice",
+                      "l_shipmode"]
+
+
+
+
+def host_columns_data(table: dict) -> dict:
+    """``host_table``'s forms as ColumnData."""
+    return {k: ColumnData(values=v[0], offsets=v[1]) if isinstance(v, tuple)
+            else ColumnData(values=v) for k, v in table.items()}
+
+
+def input_bytes(cols: dict) -> int:
+    return sum(np.asarray(cd.values).nbytes + (
+        0 if cd.offsets is None else np.asarray(cd.offsets).nbytes)
+        for cd in cols.values())
+
+
+def timed_walls(run, reads: int = 3) -> tuple:
+    """``run()`` once cold and ``reads - 1`` (at least 1) times warm,
+    synchronized: the first result and the seconds."""
+    first, times = None, []
+    for _ in range(reads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if first is None:
+            first = out
+        del out
+    return first, {"cold_s": times[0], "warm_s": times[1:],
+                   "best_warm_s": min(times[1:])}
+
+
+def timed_read_of(ds) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ds.read(device=DEVICE)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def boundary_orders(path: str, column: str) -> list:
+    f = pq.ParquetFile(path)
+    leaf = f.schema.leaf(column)
+    return [BoundaryOrder(rg.column(leaf.column_index).column_index()
+                          .boundary_order) for rg in f.row_groups]
+
+
+def last_logged(key: str) -> dict:
+    return next((o[key] for o in reversed(LOGGED)
+                 if isinstance(o, dict) and key in o), {})
+
+
+def table_ingest(t1: str, schema, data: dict, rows: int) -> list:
+    """Phase 5l(a): one commit a ``TABLE_COMMIT_ROWS`` slice."""
+    commits = -(-rows // TABLE_COMMIT_ROWS)
+    w = pq.DatasetWriter(t1, schema, options=pq.WriterOptions(
+        compression="snappy", row_group_size=TABLE_ROW_GROUP,
+        bloom_filters={"l_orderkey": 10}))
+    out = []
+    for i in range(commits):
+        a, b = i * TABLE_COMMIT_ROWS, min(rows, (i + 1) * TABLE_COMMIT_ROWS)
+        part = {k: column_slice(cd, a, b) for k, cd in data.items()}
+        nbytes = input_bytes(part)
+        t0 = time.perf_counter()
+        w.write(part, b - a)  # the part is written as its buffer fills
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = w.commit()
+        commit_s = time.perf_counter() - t0
+        if m.version != i + 1 or len(m.files) != i + 1 or \
+                m.files[-1].num_rows != b - a:
+            raise AssertionError(f"phase 5l ingest: commit {i + 1} gave "
+                                 f"version {m.version}, {len(m.files)} parts")
+        out.append({"rows": b - a, "write_s": write_s, "commit_s": commit_s,
+                    "input_mb_per_s": nbytes / (write_s + commit_s) / 1e6,
+                    "part_bytes": m.files[-1].file_size})
+    w.close()
+    m = pq.read_manifest(t1)
+    if m.version != commits or m.num_rows != rows or len(m.files) != commits \
+            or temp_files(t1):
+        raise AssertionError(f"phase 5l ingest: manifest v{m.version}, "
+                             f"{m.num_rows} rows, temps {temp_files(t1)}")
+    return out
+
+
+def table_scans(t1: str, data: dict, rows: int) -> list:
+    """Phase 5l(b)'s scans: 1 % of the sorted ``l_orderkey`` inside part 0
+    and inside a middle part, each on a table opened unpinned: the parts
+    opened are the survivor and part 0, whose footer types the predicate
+    (the JAX package's rule); the others the manifest drops unopened."""
+    ok = data["l_orderkey"].values
+    span = rows // 100
+    parts = -(-rows // TABLE_COMMIT_ROWS)
+    table = {k: data[k] if data[k].offsets is not None else data[k].values
+             for k in TABLE_SCAN_COLUMNS}
+    out = []
+    for part in sorted({0, parts // 2}):
+        r0 = part * TABLE_COMMIT_ROWS + TABLE_COMMIT_ROWS // 4
+        lo, hi = int(ok[r0]), int(ok[min(r0 + span, rows) - 1])
+        ds = pq.open_table(t1, pin=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ds.scan(where=pq.col("l_orderkey").between(lo, hi),
+                      columns=TABLE_SCAN_COLUMNS, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        opened = sorted(ds._files)
+        ds.close()
+        if opened != sorted({0, part}):
+            raise AssertionError(f"phase 5l scan in part {part}: opened "
+                                 f"parts {opened}")
+        check_result(got, oracle(table, (ok >= lo) & (ok <= hi)),
+                     f"phase 5l scan in part {part}")
+        out.append({"part": part, "lo": lo, "hi": hi,
+                    "rows": int(((ok >= lo) & (ok <= hi)).sum()),
+                    "wall_s": wall, "parts_opened": opened,
+                    "parts_not_opened": parts - len(opened)})
+    return out
+
+
+def table_aggregates(t1: str, data: dict, rows: int) -> dict:
+    """Phase 5l(b)'s aggregates over ``l_orderkey`` from the first key to
+    10 % into part 2: parts 0 and 1 covered, part 2 in part, the rest
+    dropped by the manifest (which counts them in
+    ``files_answered_manifest``, as the JAX package does).  ``count`` and
+    ``sum_(l_quantity)`` resolve the covered parts through their row
+    groups (statistics and dictionary tiers) and part 2 through the exact
+    tier, on the card; ``count``, ``min_`` and ``max_(l_orderkey)`` are
+    answered for the covered parts by their zone maps alone."""
+    ok = data["l_orderkey"].values
+    qty = data["l_quantity"].values
+    parts = -(-rows // TABLE_COMMIT_ROWS)
+    hi_row = 2 * TABLE_COMMIT_ROWS + TABLE_COMMIT_ROWS // 10
+    lo, hi = int(ok[0]), int(ok[hi_row])
+    if int(ok[3 * TABLE_COMMIT_ROWS]) <= hi:
+        raise AssertionError("phase 5l aggregate: part 3 overlaps the range")
+    mask = (ok >= lo) & (ok <= hi)
+    where = pq.col("l_orderkey").between(lo, hi)
+    out = {}
+    for name, aggs, want in (
+            ("count_sum", [pq.count(), pq.sum_("l_quantity")],
+             {"count(*)": int(mask.sum()),
+              "sum(l_quantity)": int(qty[mask].sum())}),
+            ("count_min_max", [pq.count(), pq.min_("l_orderkey"),
+                               pq.max_("l_orderkey")],
+             {"count(*)": int(mask.sum()), "min(l_orderkey)": lo,
+              "max(l_orderkey)": int(ok[mask].max())})):
+        pq.reset_launches()
+        ds = pq.open_table(t1, pin=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ds.aggregate(aggs, where=where, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        opened = sorted(ds._files)
+        ds.close()
+        launches = dict(pq.LAUNCHES)
+        got = {k: res[k] for k in want}
+        answered = sum("answered from manifest" in ln
+                       for ln in res.explain().splitlines())
+        c = res.counters
+        if got != want:
+            raise AssertionError(f"phase 5l aggregate {name}: {got} != "
+                                 f"{want}")
+        if name == "count_sum":
+            ok_tiers = (c["files_answered_manifest"] == parts - 3
+                        and answered == 0 and opened == [0, 1, 2]
+                        and c["rg_answered_dict"] > 0
+                        and c["rg_answered_decoded"] > 0)
+            check_launched("phase 5l aggregate", launches, READ_KERNELS)
+        else:
+            ok_tiers = (c["files_answered_manifest"] == parts - 1
+                        and answered == 2 and opened == [0, 2])
+        if not ok_tiers:
+            raise AssertionError(f"phase 5l aggregate {name}: counters {c},"
+                                 f" {answered} answered by the manifest, "
+                                 f"parts opened {opened}")
+        out[name] = {"wall_s": wall, "answers": got, "counters": c,
+                     "parts_answered_by_manifest": answered,
+                     "parts_opened": opened, "launches": launches}
+    return out
+
+
+def table_lookup(t1: str, data: dict, seed: int) -> dict:
+    """Phase 5l(b)'s lookup on its own open of the snapshot (closed after,
+    with the filters' copies on the card): :data:`TABLE_LOOKUP_KEYS` keys
+    inside part 3's two row groups (part 0's where the table is smaller),
+    a quarter absent, so that each row group's bloom batch takes the
+    device probe; every hit equal to a numpy oracle over the generated
+    rows."""
+    ok = data["l_orderkey"].values
+    qty = data["l_quantity"].values
+    part = 3 if len(ok) >= 4 * TABLE_COMMIT_ROWS else 0
+    rng = np.random.default_rng(seed + 41)
+    keys = []
+    per = TABLE_LOOKUP_KEYS // 2
+    for g in range(2):
+        r0 = part * TABLE_COMMIT_ROWS + g * TABLE_ROW_GROUP
+        seg = ok[r0:r0 + TABLE_ROW_GROUP]
+        present = np.unique(seg)
+        absent = np.setdiff1d(np.arange(seg[0], seg[-1] + 1), present)
+        keys.append(rng.choice(present, per - per // 4, replace=False))
+        keys.append(rng.choice(absent, per // 4, replace=False))
+    keys = rng.permutation(np.concatenate(keys)).astype(np.int64)
+    lo = np.searchsorted(ok, keys, "left")
+    hi = np.searchsorted(ok, keys, "right")
+    if int((hi == lo).sum()) != TABLE_LOOKUP_KEYS // 4:
+        raise AssertionError("phase 5l lookup: absent keys miscounted")
+    pq.clear_caches()
+    pq.reset_launches()
+    reset_routes()
+    with pq.open_table(t1) as ds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ds.find_rows("l_orderkey", keys, columns=["l_quantity"],
+                           device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(pq.LAUNCHES)
+    for h, a, b in zip(res, lo.tolist(), hi.tolist()):
+        if not np.array_equal(h.rows, np.arange(a, b)) or \
+                not np.array_equal(h.values["l_quantity"], qty[a:b]):
+            raise AssertionError(f"phase 5l lookup: key {h.key} differs "
+                                 "from the oracle")
+    check_launched("phase 5l lookup", launches, ("bloom_check",))
+    no_host_route_chunks("phase 5l lookup")
+    return {"keys": TABLE_LOOKUP_KEYS, "absent": TABLE_LOOKUP_KEYS // 4,
+            "part": part, "wall_s": wall, "hits": res.rows_total,
+            "counters": dict(res.counters), "launches": launches}
+
+
+def no_host_route_chunks(what: str) -> None:
+    """No chunk took the host decode (a lookup plans no whole chunk, so
+    the planner's counts are not asked for)."""
+    if any(pq.HOST_ROUTE.values()):
+        raise AssertionError(f"{what}: chunks took the host decode: "
+                             f"{pq.HOST_ROUTE}")
+
+
+def table_compaction(t1: str, ds, t1_read: dict, data: dict) -> dict:
+    """Phase 5l(c): ``compact_table(max_files=2)`` on the card while the
+    dataset of (b) stays open on the old snapshot."""
+    live = pq.read_manifest(t1)
+    victims = sorted(live.files, key=lambda e: e.file_size)[:2]
+    order = {e.name: i for i, e in enumerate(live.files)}
+    victims.sort(key=lambda e: order[e.name])
+    pq.reset_launches()
+    reset_routes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = pq.compact_table(t1, max_files=2, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pq.LAUNCHES)
+    rows = sum(e.num_rows for e in victims)
+    if m is None or m.version != live.version + 1 or \
+            len(m.files) != len(live.files) - 1 or \
+            m.files[0].num_rows != rows or any(
+                os.path.exists(os.path.join(t1, e.name)) for e in victims):
+        raise AssertionError(f"phase 5l compaction: {m}")
+    if not any(launches.values()):
+        raise AssertionError("phase 5l compaction launched no kernel")
+    no_host_route_chunks("phase 5l compaction")
+    # the old snapshot still reads, from the unlinked parts' maps
+    again, again_s = timed_read_of(ds)
+    same_bits(again, t1_read, "phase 5l read of the old snapshot")
+    del again
+    # a fresh snapshot: the merged part (the victims in snapshot order),
+    # then the others
+    fresh = pq.open_table(t1)
+    ranges = {e.name: (order[e.name] * TABLE_COMMIT_ROWS,
+                       order[e.name] * TABLE_COMMIT_ROWS + e.num_rows)
+              for e in live.files}
+    merged = np.concatenate([np.arange(*ranges[e.name]) for e in victims])
+    check_columns(fresh.file(0).read(device=DEVICE),
+                  host_columns_data(host_table(data, merged)))
+    for i, e in enumerate(m.files[1:], 1):
+        a, b = ranges[e.name]
+        check_columns(fresh.file(i).read(device=DEVICE),
+                      {k: column_slice(cd, a, b) for k, cd in data.items()})
+    out, fresh_s = timed_walls(lambda: fresh.read(device=DEVICE), 3)
+    n = out["l_orderkey"].num_slots
+    del out
+    fresh.close()
+    if n != sum(e.num_rows for e in live.files):
+        raise AssertionError(f"phase 5l fresh read: {n} rows")
+    swept = pq.recover_table(t1)
+    if swept:
+        raise AssertionError(f"phase 5l recovery removed {swept}")
+    merge = last_logged("merge")
+    return {"version": m.version, "parts": len(m.files), "rows": rows,
+            "wall_s": wall, "rows_per_s": rows / wall,
+            "merge_5i_rows_per_s": merge.get("rows_per_s"),
+            "merged_bytes": m.files[0].file_size, "launches": launches,
+            "old_snapshot_read_s": again_s,
+            "fresh_read": fresh_s}
+
+
+def table_sorted(t2: str, seed: int) -> dict:
+    """Phase 5l(d): 1,048,576 lineitem rows in a seeded order into a table
+    sorted by ``l_orderkey``, 4 commits of 262,144 rows, compacted to one
+    part by a ``BackgroundCompactor`` on the card; its read equals the rows
+    sorted on the host (ties as sets), and every part's ``l_orderkey``
+    pages are in ascending order."""
+    n = TABLE_SORTED_ROWS
+    schema, d = make_lineitem(n, seed + 1)
+    perm = np.random.default_rng(seed + 43).permutation(n)
+    shuffled = host_table(d, perm)
+    want = host_table(d, perm[np.argsort(d["l_orderkey"].values[perm],
+                                         kind="stable")])
+    del d
+    cols = host_columns_data(shuffled)
+    per = n // TABLE_SORTED_COMMITS
+    w = pq.DatasetWriter(t2, schema, sorting=[pq.SortingColumn("l_orderkey")],
+                         options=pq.WriterOptions(
+                             compression="snappy",
+                             row_group_size=TABLE_ROW_GROUP))
+    t0 = time.perf_counter()
+    for i in range(TABLE_SORTED_COMMITS):
+        w.write({k: column_slice(cd, i * per, (i + 1) * per)
+                 for k, cd in cols.items()}, per)
+        w.commit()
+    w.close()
+    ingest_s = time.perf_counter() - t0
+    live = pq.read_manifest(t2)
+    orders = {e.name: boundary_orders(os.path.join(t2, e.name), "l_orderkey")
+              for e in live.files}
+    if len(live.files) != TABLE_SORTED_COMMITS or live.sorting != [
+            ("l_orderkey", False, False)] or any(
+                o != BoundaryOrder.ASCENDING for v in orders.values()
+                for o in v):
+        raise AssertionError(f"phase 5l sorted ingest: {live.sorting}, "
+                             f"{orders}")
+    pq.reset_launches()
+    reset_routes()
+    t0 = time.perf_counter()
+    with pq.BackgroundCompactor(t2, interval_s=0.05, min_files=2,
+                                device=DEVICE) as bc:
+        deadline = time.monotonic() + 300
+        while len(pq.read_manifest(t2).files) > 1 and bc.last_error is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+    wall = time.perf_counter() - t0
+    launches = dict(pq.LAUNCHES)
+    m = pq.read_manifest(t2)
+    if bc.last_error is not None or bc._thread.is_alive() or \
+            len(m.files) != 1 or bc.passes != 1:
+        raise AssertionError(f"phase 5l background compaction: "
+                             f"{bc.last_error!r}, {len(m.files)} parts")
+    no_host_route_chunks("phase 5l background compaction")
+    if not any(launches.values()):
+        raise AssertionError("phase 5l background compaction launched no "
+                             "kernel")
+    part = os.path.join(t2, m.files[0].name)
+    if boundary_orders(part, "l_orderkey") != [BoundaryOrder.ASCENDING]:
+        raise AssertionError("phase 5l: the compacted part is not "
+                             "ascending")
+    with pq.open_table(t2) as ds:
+        got = {k: c.materialize_host()
+               for k, c in ds.read(device=DEVICE).items()}
+    tied = check_sorted_output(got, want, ("l_orderkey",),
+                               "phase 5l sorted compaction")
+    return {"rows": n, "commits": TABLE_SORTED_COMMITS,
+            "ingest_s": ingest_s, "compaction_wall_s": wall,
+            "rows_per_s": n / wall, "tied_rows": tied,
+            "launches": launches}
+
+
+def table_crash(tmp: str, seed: int) -> dict:
+    """Phase 5l(e): ``table_crash_check`` on 65,536 lineitem rows: a base
+    commit of the first half, then an ingest of the second half in two
+    parts, crashed at sampled bytes; each snapshot read on the card."""
+    schema, d = make_lineitem(TABLE_CRASH_ROWS, seed + 2)
+    half = TABLE_CRASH_ROWS // 2
+
+    def options():
+        return pq.WriterOptions(compression="snappy", row_group_size=16_384)
+
+    def setup(table_dir):
+        with pq.DatasetWriter(table_dir, schema, options=options()) as w:
+            w.write({k: column_slice(cd, 0, half) for k, cd in d.items()},
+                    half)
+
+    def ingest(table_dir, wrap):
+        w = pq.DatasetWriter(table_dir, schema, options=options(),
+                             rows_per_file=half // 2, _sink_wrap=wrap)
+        w.write({k: column_slice(cd, half, TABLE_CRASH_ROWS)
+                 for k, cd in d.items()}, TABLE_CRASH_ROWS - half)
+        w.commit()
+
+    root = os.path.join(tmp, "table_crash")
+    t0 = time.perf_counter()
+    res = pq.table_crash_check(setup, ingest, root,
+                               samples=TABLE_CRASH_SAMPLES, seed=seed,
+                               device=DEVICE)
+    wall = time.perf_counter() - t0
+    outcomes = [r["outcome"] for r in res]
+    if set(outcomes) != {"old", "new"}:
+        raise AssertionError(f"phase 5l crash matrix: {res}")
+    return {"rows": TABLE_CRASH_ROWS, "offsets": [r["offset"] for r in res],
+            "outcomes": outcomes, "wall_s": wall}
+
+
+def table_path(card: str, rows: int, seed: int, tmp: str,
+               dataset_paths: list) -> dict:
+    """Phase 5l: writable tables on the card, each check fatal.  (a) Phase
+    4b's lineitem rows (phase 5c's 8 parts' rows) ingested into table T1
+    by ``DatasetWriter`` (the default ``rows_per_file``, 524,288-row row
+    groups, Snappy, the default dictionary rule, a bloom filter on
+    ``l_orderkey``) in one commit a 1,048,576-row slice: versions 1-8, a
+    part each, no ``*.tmp``.  (b) ``open_table`` pins the snapshot: its
+    read on the card (cold, best of 2 warm) equals the generated columns
+    and phase 5c's glob read of the same rows bit for bit; scans of 1 % of
+    the keys open only the survivor and part 0, which types the predicate
+    (:func:`table_scans`); the aggregates of :func:`table_aggregates`; a
+    lookup of :data:`TABLE_LOOKUP_KEYS` keys (:func:`table_lookup`).  (c)
+    ``compact_table(max_files=2)`` on the card under the pinned dataset of
+    (b), whose read still equals its first; a fresh open reads the new
+    snapshot; recovery removes nothing (:func:`table_compaction`).  (d)
+    :func:`table_sorted`.  (e) :func:`table_crash`.  Both unpack kernels
+    launch in (b)'s reads and ``bloom_check`` in its lookup, no chunk
+    takes the host route, the card's allocated bytes come back after each
+    step and no writer or compactor thread is left.  One ``{"table":
+    ...}`` line."""
+    start = settled_allocated()
+    threads = set(threading.enumerate())
+    launches = dict.fromkeys(pq.LAUNCHES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    steps_s = {}
+    step_t0 = [time.perf_counter()]
+
+    def settled(what, mark):
+        """The step's end: its seconds, and its device bytes back."""
+        steps_s[what] = time.perf_counter() - step_t0[0]
+        left = settled_allocated() - mark
+        if left > 0:
+            raise AssertionError(f"phase 5l {what}: {left} device bytes "
+                                 f"left (steps so far {steps_s})")
+        step_t0[0] = time.perf_counter()
+
+    # (a) ingest
+    schema, data = make_lineitem(rows, seed)
+    t1 = os.path.join(tmp, "table_t1")
+    t0 = time.perf_counter()
+    ingest = table_ingest(t1, schema, data, rows)
+    ingest_s = time.perf_counter() - t0
+    settled("ingest", start)
+    log({"table_ingest": ingest})
+
+    # (b) reads of the pinned snapshot
+    ds = pq.open_table(t1)
+    parts = len(ds.paths)
+    if ds.snapshot_version != parts or sorted(ds._files) != list(
+            range(parts)):
+        raise AssertionError("phase 5l: open_table did not pin every part")
+    pq.reset_launches()
+    reset_routes()
+    t1_read, read_walls = timed_walls(lambda: ds.read(device=DEVICE), 3)
+    read_launches = dict(pq.LAUNCHES)
+    check_launched("phase 5l table read", read_launches, READ_KERNELS)
+    no_host_route("phase 5l table read")
+    add(read_launches)
+    check_columns(t1_read, data)
+    # phase 5c's parts hold the same rows: its glob read equals the
+    # generated columns too, so the two reads are equal
+    glob_read, glob_walls = timed_walls(
+        lambda: pq.Dataset(dataset_paths).read(device=DEVICE), 3)
+    check_columns(glob_read, data)
+    del glob_read
+    mark = settled_allocated()
+    reset_routes()
+    scans = table_scans(t1, data, rows)
+    aggs = table_aggregates(t1, data, rows)
+    no_host_route_chunks("phase 5l scans and aggregates")
+    for a in aggs.values():
+        add(a["launches"])
+    lookup_out = table_lookup(t1, data, seed)
+    add(lookup_out["launches"])
+    settled("reads", mark)
+
+    # (c) compaction under the pinned reader
+    compaction = table_compaction(t1, ds, t1_read, data)
+    add(compaction["launches"])
+    ds.close()
+    del t1_read, data
+    settled("compaction", start)
+
+    # (d) a sorted, keyed table
+    sorted_out = table_sorted(os.path.join(tmp, "table_t2"), seed)
+    add(sorted_out["launches"])
+    settled("sorted table", start)
+
+    # (e) the crash matrix
+    crash = table_crash(tmp, seed)
+    settled("crash matrix", start)
+    if threads_started(threads):
+        raise AssertionError(f"phase 5l: threads left "
+                             f"{threads_started(threads)}")
+    glob5c = last_logged("dataset_path")
+    log({"table": {
+        "card": card, "rows": rows, "commit_rows": TABLE_COMMIT_ROWS,
+        "row_group": TABLE_ROW_GROUP, "ingest_s": ingest_s,
+        "steps_s": steps_s, "commits": ingest,
+        "read": {**read_walls, "rows_per_s": rows / read_walls["best_warm_s"],
+                 "launches": read_launches},
+        "glob_read_5c_parts": glob_walls,
+        "glob_5c_per_file_sum_best_s": glob5c.get("per_file_sum_best_s"),
+        "scans": scans, "aggregates": aggs, "lookup": lookup_out,
+        "compaction": compaction, "sorted": sorted_out, "crash": crash,
+        "launches": launches, "host_route": dict(pq.HOST_ROUTE)}})
+    return {"launches": launches}
+
+
 def _codes_of(cd, words) -> np.ndarray:
     """Each row's index in ``words`` of a byte-array column built from
     them (by the first byte, which tells these words apart, else by the
@@ -6963,6 +7528,8 @@ def main(argv=None) -> int:
         aggregate = phase("5j_aggregate", aggregate_path, card,
                           args.lineitem_rows, args.seed, tmp, item["path"])
         write = phase("5k_write", write_path, card, read, tmp)
+        table = phase("5l_table", table_path, card, args.lineitem_rows,
+                      args.seed, tmp, multi["paths"])
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -6974,7 +7541,8 @@ def main(argv=None) -> int:
                       "host_scan": hscan, "lookups": leftovers,
                       "struct_keys": struct, "resilience": resilience,
                       "stream": stream, "typed_rows_merge": typed_rows,
-                      "aggregate": aggregate, "write": write})
+                      "aggregate": aggregate, "write": write,
+                      "table": table})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

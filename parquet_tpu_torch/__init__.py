@@ -48,6 +48,12 @@ columns may be tensors on the card.  ``FaultInjectingSink`` and
 ``crash_consistency_check`` crash a write at chosen bytes, and
 ``verify_file`` walks a file's envelope, pages, CRCs, page index and
 bloom filters, and with ``decode=True`` decodes every chunk on the card.
+A table is a directory of parts under one manifest: ``DatasetWriter``
+ingests and commits a snapshot atomically, ``open_table`` pins one (its
+zone maps drop a part from a scan or an aggregate without opening it, and
+its reads run on the card), ``compact_table`` and ``BackgroundCompactor``
+merge parts on the card, and ``recover_table`` sweeps what a crash left
+(``SharedCrashState``, ``table_crash_check``).
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -87,10 +93,17 @@ bloom filters, and with ``decode=True`` decodes every chunk on the card.
     w = pq.write_table({"x": table["x"].values}, "y.parquet")  # CUDA input
     print(w.write_stats.as_dict())
     assert pq.verify_file("y.parquet", decode=True).ok      # on the card
+    with pq.DatasetWriter("tbl", schema, [pq.SortingColumn("x")]) as w:
+        w.write({"x": pq.ColumnData(np.arange(10))}, 10)    # one commit
+    rows = pq.open_table("tbl").scan("x", lo=2, hi=5)       # zone maps
+    pq.compact_table("tbl")                                  # on the card
 """
 
 from .algebra.expr import And, Col, Expr, Not, Or, col
 from .dataset import Dataset, expand_paths
+from .dataset_writer import (BackgroundCompactor, DatasetWriter,
+                             compact_table, open_table, recover_table)
+from .io.manifest import Manifest, ManifestEntry, read_manifest
 from .errors import (ColumnTooDeepError, CorruptedError, DeadlineError,
                      MissingRootColumnError, ReadError, ReadIOError,
                      ShortReadError, TooManyRowGroupsError, WriteError)
@@ -103,7 +116,8 @@ from .ops.encodings import (DictIndices, EncodingSpec, register_encoding,
                             registered_encodings)
 from .io.faults import (FaultInjectingSink, FaultInjectingSource,
                         FaultPolicy, InjectedWriterCrash, PolicySource,
-                        ReadReport, SinkFaultStats, crash_consistency_check)
+                        ReadReport, SharedCrashState, SinkFaultStats,
+                        crash_consistency_check, table_crash_check)
 from .io.integrity import IntegrityIssue, IntegrityReport, verify_file
 from .io.sink import (AtomicFileSink, BufferedSink, FileSink, Sink,
                       WriteStats)
@@ -181,7 +195,10 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "BufferedSink", "WriteStats", "FaultInjectingSink",
            "InjectedWriterCrash", "SinkFaultStats",
            "crash_consistency_check", "verify_file", "IntegrityReport",
-           "IntegrityIssue"]
+           "IntegrityIssue", "DatasetWriter", "open_table", "recover_table",
+           "compact_table", "BackgroundCompactor", "Manifest",
+           "ManifestEntry", "read_manifest", "SharedCrashState",
+           "table_crash_check"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

@@ -86,8 +86,16 @@ def encode_order_value(value, leaf: Leaf) -> bytes:
         return b""
     if leaf.physical_type == Type.BOOLEAN:
         return bytes([1 if value else 0])
-    dt = _DECODE.get(leaf.physical_type)
-    return bytes(value) if dt is None else dt(value).tobytes()
+    t = leaf.physical_type
+    dt = (_UNSIGNED.get(t) if is_unsigned(leaf) else None) or _DECODE.get(t)
+    if dt is not None:
+        return dt(value).tobytes()
+    if _is_decimal(leaf) and isinstance(value, int):
+        # the unscaled int as storage bytes: an FLBA's width, a byte
+        # array's fewest
+        width = leaf.type_length if t == Type.FIXED_LEN_BYTE_ARRAY else None
+        return int_to_be_bytes(value, width)
+    return bytes(value)
 
 
 def normalize(leaf: Leaf, value):
@@ -139,10 +147,11 @@ def int_domain(leaf: Leaf):
 
 def min_max(leaf: Leaf, values: np.ndarray,
             offsets: Optional[np.ndarray] = None):
-    """(min, max) of a span of present values in the order domain, NaNs
-    skipped; (None, None) when the span is empty or all NaN, and for INT96
-    (no order).  Byte arrays pass their ``offsets``; fixed-length byte
-    arrays are (n, w) rows."""
+    """(min, max) of a span of present values in the order domain
+    (unsigned ints in unsigned order, byte-array and FLBA decimals as their
+    unscaled ints), NaNs skipped; (None, None) when the span is empty or
+    all NaN, and for INT96 (no order).  Byte arrays pass their
+    ``offsets``; fixed-length byte arrays are (n, w) rows."""
     t = leaf.physical_type
     n = len(offsets) - 1 if offsets is not None else len(values)
     if n == 0 or t == Type.INT96:
@@ -152,10 +161,18 @@ def min_max(leaf: Leaf, values: np.ndarray,
             w = values.shape[1]
             values = np.ascontiguousarray(values).reshape(-1)
             offsets = np.arange(n + 1, dtype=np.int64) * w
-        mi, ma = host.minmax_byte_arrays(values, offsets, 0, n)
         vals = host.as_u8(values)
+        if _is_decimal(leaf):  # two's complement order, not bytewise
+            ints = [int.from_bytes(vals[offsets[i]:offsets[i + 1]].tobytes(),
+                                   "big", signed=True) for i in range(n)]
+            return min(ints), max(ints)
+        mi, ma = host.minmax_byte_arrays(values, offsets, 0, n)
         return (vals[offsets[mi]:offsets[mi + 1]].tobytes(),
                 vals[offsets[ma]:offsets[ma + 1]].tobytes())
+    if is_unsigned(leaf) and values.dtype in (np.dtype(np.int32),
+                                              np.dtype(np.int64)):
+        values = values.view(np.uint32 if values.dtype == np.int32
+                             else np.uint64)
     if leaf.physical_type in (Type.FLOAT, Type.DOUBLE):
         mn = values.min()
         if not np.isnan(mn):

@@ -16,9 +16,14 @@ cascade over every file (``io/aggregate.py``).  Each takes
 policy overrides the dataset's, every file reads under it, and under
 ``on_corrupt='skip_row_group'`` a file that cannot be opened or read
 drops as a unit into ``report.files_skipped``.  Every file opens with
-the dataset's ``options`` (``io/reader.py::ReadOptions``).  Remote URLs,
-the shared chunk cache and the manifest's snapshot fields and zone maps
-belong to later slices and raise naming theirs.
+the dataset's ``options`` (``io/reader.py::ReadOptions``).  A dataset
+that ``dataset_writer.py::open_table`` opened carries its table's
+manifest: ``snapshot_version`` names the pinned snapshot, and
+``_file_stats`` maps each path to its manifest entry, whose zone maps
+drop a part from a prune, plan or scan without opening it
+(``io/manifest.py::manifest_may_match``) and answer a covered part of an
+aggregate.  Remote URLs and the shared chunk cache belong to later
+slices.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .errors import CorruptedError, DeadlineError, unsupported
+from .errors import CorruptedError, DeadlineError
 from .io.column import Column, concat_columns
 from .io.reader import ParquetFile, _empty_column, _select_leaves
 from .io.search import _as_expr, prune_file
@@ -102,15 +107,22 @@ class Dataset:
         self._files: Dict[int, ParquetFile] = {}
         self._lock = threading.Lock()
         self._schema_sig = None
+        # a table's dataset (dataset_writer.open_table): each path's
+        # manifest entry, for pruning without opening, and the pinned
+        # snapshot's version; None for a dataset of paths
+        self._file_stats = None
+        self.snapshot_version = None
 
-    @property
-    def _file_stats(self):
-        raise unsupported("Dataset._file_stats (manifest zone maps)",
-                          "manifest")
-
-    @property
-    def snapshot_version(self):
-        raise unsupported("Dataset.snapshot_version", "manifest")
+    @classmethod
+    def _from_paths(cls, paths: List[str], options, policy) -> "Dataset":
+        """A dataset of exactly ``paths`` (no glob expansion; may be
+        empty)."""
+        obj = object.__new__(cls)
+        obj.paths = list(paths)
+        obj.options = options
+        obj.policy = policy
+        obj._init()
+        return obj
 
     # ------------------------------------------------------------- files
     def file(self, i: int) -> ParquetFile:
@@ -165,11 +177,11 @@ class Dataset:
         file; a shard may be empty."""
         if not 0 <= index < count:
             raise ValueError(f"shard index {index} out of range [0, {count})")
-        sub = object.__new__(Dataset)
-        sub.paths = self.paths[index::count]
-        sub.options = self.options
-        sub.policy = self.policy
-        sub._init()
+        sub = Dataset._from_paths(self.paths[index::count], self.options,
+                                  self.policy)
+        # a shard of a table keeps its zone maps and its snapshot
+        sub._file_stats = self._file_stats
+        sub.snapshot_version = self.snapshot_version
         return sub
 
     def _resolve(self, policy, report):
@@ -366,13 +378,22 @@ class Dataset:
                 for c in _output_columns(pf0, fcols, columns)}
 
     def _prune_indices(self, expr, skip: bool = False, report=None):
-        """``(kept, skipped)``: the files whose footers may match, and
-        with ``skip`` those that could not be opened or checked (each
-        recorded in ``report``, 0 rows)."""
+        """``(kept, skipped)``: the files whose manifest entries and
+        footers may match, and with ``skip`` those that could not be
+        opened or checked (each recorded in ``report``, 0 rows).  A part
+        that its manifest entry proves dead is dropped without being
+        opened."""
         from .io.faults import NON_DATA_ERRORS
+        from .io.manifest import manifest_may_match
+
+        stats = self._file_stats
 
         def check(i):
             try:
+                ent = (stats.get(self.paths[i]) if stats is not None
+                       else None)
+                if ent is not None and not manifest_may_match(ent, expr):
+                    return False
                 pf = self.file(i)
                 self._check_schema(pf, self.paths[i])
                 return prune_file(pf, where=expr)

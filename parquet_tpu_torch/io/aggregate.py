@@ -1838,14 +1838,17 @@ def dataset_aggregate(ds, aggs: Sequence[AggExpr], where=None,
                       group_by=None, device="cuda", policy=None,
                       report=None, _state_only: bool = False):
     """Aggregate across a :class:`~parquet_tpu_torch.dataset.Dataset`: the
-    predicate prepares once, the files resolve on the shared pool, each
-    row group by row group on ``device`` (a port dataset has no manifest
-    zone maps, so no file is answered whole), and the partial states merge
-    in file order.  Under a degraded ``policy`` an unreadable file drops
-    as a unit (``report.files_skipped``).  ``_state_only`` returns the raw
-    merged state."""
+    predicate prepares once; a table's manifest zone maps drop a part the
+    predicate cannot match, or answer one that it covers where every
+    aggregate is provable from them, without opening it
+    (``files_answered_manifest``); the other files resolve on the shared
+    pool, each row group by row group on ``device``, and the partial
+    states merge in file order.  Under a degraded ``policy`` an unreadable
+    file drops as a unit (``report.files_skipped``).  ``_state_only``
+    returns the raw merged state."""
     from ..utils.pool import map_in_order
     from .faults import NON_DATA_ERRORS, ReadReport
+    from .manifest import manifest_all_match, manifest_may_match
     from .reader import resolve_device
 
     if not ds.paths:
@@ -1864,6 +1867,25 @@ def dataset_aggregate(ds, aggs: Sequence[AggExpr], where=None,
              f"  where: {expr!r}"]
     accs = [_Acc(a, leaves[i]) for i, a in enumerate(aggs)]
     groups: Optional[dict] = {} if gleaf is not None else None
+    stats = ds._file_stats
+    idx: List[int] = []
+    for i, path in enumerate(ds.paths):
+        ent = stats.get(path) if stats is not None else None
+        if ent is None:
+            idx.append(i)
+            continue
+        if not manifest_may_match(ent, expr):
+            counters["files_answered_manifest"] += 1
+            lines.append(f"  file {path}: pruned by manifest zone maps "
+                         "(zero IO)")
+            continue
+        if gleaf is None and manifest_all_match(ent, expr) \
+                and _manifest_answer(ent, aggs, leaves, accs):
+            counters["files_answered_manifest"] += 1
+            lines.append(f"  file {path}: answered from manifest zone "
+                         "maps (zero IO)")
+            continue
+        idx.append(i)
 
     def one(i):
         sub = None
@@ -1884,7 +1906,6 @@ def dataset_aggregate(ds, aggs: Sequence[AggExpr], where=None,
                 raise
             return None, sub, 0, e
 
-    idx = list(range(len(ds.paths)))
     for i, (state, sub, rows, err) in zip(idx, map_in_order(one, idx)):
         if state is None:
             if sub is not None:
@@ -1920,3 +1941,42 @@ def dataset_aggregate(ds, aggs: Sequence[AggExpr], where=None,
         return aggs, accs, groups, counters, lines
     return _finalize(aggs, accs, groups, counters, lines, report,
                      plan=plan)
+
+
+def _manifest_answer(ent, aggs, leaves, accs) -> bool:
+    """Answer every aggregate from a part's zone maps alone (only under
+    proven coverage).  All or nothing: unless each is provable it folds
+    nothing and returns False, and the file resolves as any other."""
+    folds = []
+    for a, leaf in zip(aggs, leaves):
+        if a.kind == "count" and a.path is None:
+            folds.append(("count", ent.num_rows))
+            continue
+        if a.kind not in ("count", "min", "max"):
+            return False
+        zm = ent.zone_maps.get(a.path)
+        if zm is None:
+            return False
+        mn, mx, nulls, nv = zm
+        if a.kind == "count":
+            if nulls is None or nv is None:
+                return False
+            folds.append(("count", nv - nulls))
+            continue
+        if leaf is None or not _exact_stats(leaf):
+            return False
+        v = mn if a.kind == "min" else mx
+        if v is None:
+            if nulls is not None and nv is not None and nulls >= nv:
+                folds.append(("skip", None))  # an all-null part
+                continue
+            return False
+        if v != v:  # a NaN bound answers nothing
+            return False
+        folds.append(("bound", v))
+    for (kind, v), acc in zip(folds, accs):
+        if kind == "count":
+            acc.add_count(v)
+        elif kind == "bound":
+            acc.add_bound(v)
+    return True

@@ -24,9 +24,10 @@ writes, a full disk and a hard crash at a byte, drawn from one seeded
 RNG in write order, as the JAX package's), :class:`InjectedWriterCrash`,
 :class:`SinkFaultStats`, and :func:`crash_consistency_check`, the crash
 matrix of one atomic write, whose oracle is ``io/integrity.py``'s
-``verify_file``.  The table-level crash tools (``SharedCrashState``,
-``table_crash_check``) come with the dataset writer; the remote
-transport's and the metrics' parts come with their slices.
+``verify_file``; and at the table level :class:`SharedCrashState`, one
+crash byte shared by every sink of a table's commit, and
+:func:`table_crash_check`, the crash matrix of a table's commit.  The
+remote transport's and the metrics' parts come with their slices.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ __all__ = ["FaultPolicy", "ReadReport", "Deadline", "PolicySource",
            "FaultInjectingSource", "FaultStats", "read_context",
            "resolve_policy", "retry_call", "active_deadline",
            "NON_DATA_ERRORS", "is_corrupt_oserror", "InjectedWriterCrash",
-           "SinkFaultStats", "FaultInjectingSink", "crash_consistency_check"]
+           "SinkFaultStats", "FaultInjectingSink", "crash_consistency_check",
+           "SharedCrashState", "table_crash_check"]
 
 
 # ---------------------------------------------------------------------------
@@ -740,4 +742,238 @@ def crash_consistency_check(build, dest, samples: int = 12, seed: int = 0,
     rep = verify_file(dest)
     assert rep.ok, f"final write failed verification: {rep.summary()}"
     results.append({"offset": None, "outcome": "clean"})
+    return results
+
+
+class SharedCrashState:
+    """One crash byte shared by every sink of a multi-file write: the
+    table-level form of :class:`FaultInjectingSink`'s ``crash_at_byte``.
+    A table's commit writes its parts and then its manifest through
+    separate sinks, and a process dies at one byte of that whole sequence.
+    ``wrap(sink)`` puts the shared count in front of a sink (the
+    ``_sink_wrap`` of ``dataset_writer.DatasetWriter``, ``compact_table``
+    and ``io/manifest.py::write_manifest``).  The write that crosses
+    ``crash_at_byte`` persists its prefix and raises
+    :class:`InjectedWriterCrash`; from then on every write, flush and
+    commit of every sink raises, and ``abort()`` only releases the file (a
+    dead process cleans nothing up: its temps stay for the sweep)."""
+
+    def __init__(self, crash_at_byte: Optional[int] = None):
+        self.crash_at_byte = crash_at_byte
+        self.total = 0  # bytes persisted across every wrapped sink
+        self.crashed = False
+        self._lock = threading.Lock()
+
+    def wrap(self, sink):
+        return _SharedCrashSink(self, sink)
+
+    def _admit(self, n: int) -> int:
+        """How many of ``n`` bytes persist (-1: all of them); crossing the
+        budget marks the process dead, and a dead one raises."""
+        with self._lock:
+            if self.crashed:
+                raise InjectedWriterCrash(
+                    f"write after shared crash at byte {self.crash_at_byte}")
+            if self.crash_at_byte is not None \
+                    and self.total + n > self.crash_at_byte:
+                keep = max(self.crash_at_byte - self.total, 0)
+                self.total += keep
+                self.crashed = True
+                return keep
+            self.total += n
+            return -1
+
+    def _check_alive(self, what: str) -> None:
+        with self._lock:
+            dead = self.crashed or (self.crash_at_byte is not None
+                                    and self.total >= self.crash_at_byte)
+            if dead:
+                self.crashed = True
+        if dead:
+            raise InjectedWriterCrash(
+                f"{what} after shared crash at byte {self.crash_at_byte}")
+
+
+class _SharedCrashSink:
+    """One sink's view of a :class:`SharedCrashState`."""
+
+    def __init__(self, state: SharedCrashState, inner):
+        self.state = state
+        self.inner = inner
+
+    def write(self, data) -> int:
+        data = bytes(data) if not isinstance(data, (bytes, bytearray)) \
+            else data
+        n = len(data)
+        keep = self.state._admit(n)
+        if keep >= 0:
+            if keep > 0:
+                self.inner.write(data[:keep])
+            raise InjectedWriterCrash(
+                f"injected shared crash at byte {self.state.crash_at_byte}")
+        self.inner.write(data)
+        return n
+
+    def writelines(self, parts) -> None:
+        for p in parts:
+            self.write(p)
+
+    def flush(self) -> None:
+        self.state._check_alive("flush")
+        self.inner.flush()
+
+    def close(self) -> None:
+        # the commit: a process whose budget is spent died before it (the
+        # rename boundary, sampled as offset == total)
+        self.state._check_alive("close/commit")
+        self.inner.close()
+
+    def abort(self) -> None:
+        if self.state.crashed:
+            # no cleanup in a dead process: the temp file stays where it
+            # fell, and only its descriptor is released
+            f = getattr(self.inner, "_f", None)
+            if f is not None:
+                try:
+                    f.close()
+                except OSError:
+                    pass
+                self.inner._f = None
+            return
+        ab = getattr(self.inner, "abort", None)
+        if ab is not None:
+            ab()
+        else:
+            try:
+                self.inner.close()
+            except OSError:
+                pass
+
+
+def _host_fingerprint(cols) -> tuple:
+    """A read's columns as exact host bytes: every array's dtype, shape
+    and bytes, a column's validity and list structure included."""
+    import numpy as np
+
+    def arr(a):
+        if a is None:
+            return None
+        a = a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+        return (a.dtype.str, a.shape, a.tobytes())
+
+    def form(x):
+        if isinstance(x, dict):
+            return tuple((k, form(v)) for k, v in sorted(x.items()))
+        if isinstance(x, (list, tuple)):
+            return tuple(form(v) for v in x)
+        return arr(x)
+
+    return tuple((path, form(c.materialize_host()), arr(c.validity))
+                 for path, c in sorted(cols.items()))
+
+
+def table_crash_check(setup, ingest, workdir, samples: int = 10,
+                      seed: int = 0, offsets=None,
+                      device="cuda") -> List[dict]:
+    """The crash matrix of a table's commit: :func:`crash_consistency_check`
+    lifted to the manifest.
+
+    ``setup(table_dir)`` builds the base snapshot (it may commit nothing).
+    ``ingest(table_dir, sink_wrap)`` makes one more ingest and commit,
+    passing ``sink_wrap`` to every sink it opens
+    (``DatasetWriter(..., _sink_wrap=sink_wrap)`` covers the parts and the
+    manifest).  A run without a crash gives the byte count N and the new
+    snapshot.  Then the ingest runs again from a copy of the base at each
+    sampled global byte (``samples`` of them from ``seed``, with 0, N, the
+    rename boundary, and N + 1, a process that outlived the rename, or
+    ``offsets``), recovery runs, and the invariant must hold:
+
+    - the live snapshot is exactly the base or exactly the new one (the
+      manifest's version and every column of the table, read on
+      ``device``, compared byte for byte);
+    - every part the live manifest names passes
+      :func:`~parquet_tpu_torch.io.integrity.verify_file`;
+    - no orphan is left: the directory holds the manifest and its parts.
+
+    Returns one ``{"offset", "outcome"}`` a run, the outcome ``"old"`` or
+    ``"new"``; raises ``AssertionError`` on a violation."""
+    import os
+    import shutil
+
+    from ..dataset_writer import open_table, recover_table
+    from .integrity import verify_file
+    from .manifest import MANIFEST_NAME, read_manifest
+
+    workdir = os.fspath(workdir)
+    base_dir = os.path.join(workdir, "base")
+    os.makedirs(base_dir, exist_ok=True)
+    setup(base_dir)
+    base_manifest = read_manifest(base_dir)
+    base_version = base_manifest.version if base_manifest is not None else 0
+
+    def fingerprint(d):
+        m = read_manifest(d)
+        if m is None or not m.files:
+            return (0 if m is None else m.version, None)
+        ds = open_table(d, pin=False)
+        try:
+            return m.version, _host_fingerprint(ds.read(device=device))
+        finally:
+            ds.close()
+
+    base_fp = fingerprint(base_dir)
+
+    def run(tag, crash_at):
+        d = os.path.join(workdir, f"run_{tag}")
+        shutil.copytree(base_dir, d)
+        state = SharedCrashState(crash_at_byte=crash_at)
+        try:
+            ingest(d, state.wrap)
+        except InjectedWriterCrash:
+            pass
+        return d, state
+
+    # part names are random a run: the new snapshot is known by its
+    # version and its contents
+    probe_dir, probe_state = run("probe", None)
+    total = probe_state.total
+    new_fp = fingerprint(probe_dir)
+    assert new_fp[0] > base_version, \
+        "table_crash_check: ingest() did not commit a new snapshot"
+    shutil.rmtree(probe_dir)
+
+    if offsets is None:
+        rng = random.Random(seed)
+        pool = range(1, total)
+        picks = rng.sample(pool, min(max(samples - 2, 0), len(pool)))
+        offsets = sorted({0, *picks, total, total + 1})
+
+    results = []
+    for off in offsets:
+        d, _ = run(f"off{off}", off)
+        swept = recover_table(d)
+        got = fingerprint(d)
+        if got == base_fp:
+            outcome = "old"
+        else:
+            assert got == new_fp, (
+                f"crash at byte {off}: recovered snapshot is neither the "
+                f"old (v{base_fp[0]}) nor the new (v{new_fp[0]}) one: "
+                f"v{got[0]}")
+            outcome = "new"
+        live = read_manifest(d)
+        names = set(live.names()) if live is not None else set()
+        for name in sorted(names):
+            rep = verify_file(os.path.join(d, name))
+            assert rep.ok, (f"crash at byte {off}: live file {name} "
+                            f"corrupt: {rep.summary()}")
+        leftovers = sorted(set(os.listdir(d)) - names - {MANIFEST_NAME})
+        assert not leftovers, (f"crash at byte {off}: recovery left "
+                               f"orphans {leftovers} (swept {swept})")
+        results.append({"offset": off, "outcome": outcome})
+        shutil.rmtree(d)
+    outcomes = {r["outcome"] for r in results}
+    assert outcomes == {"old", "new"} or len(offsets) < 2, (
+        "crash matrix degenerate: every offset recovered to the same "
+        f"snapshot ({outcomes}): the sampling missed a phase")
     return results

@@ -1557,3 +1557,130 @@ def test_verify_file_decodes_on_card(cuda_device, tmp_path):
     assert [(i.kind, i.row_group, i.column) for i in bad.issues] == [
         ("crc", 2, "ts"), ("decode", 2, "ts")], bad.summary()
     assert bad.chunks_decoded == 11
+
+
+# ---------------------------------------------------------------------------
+# writable tables on the card (dataset_writer.py)
+# ---------------------------------------------------------------------------
+
+TABLE_PART_ROWS = 40_000  # two 20,000-row row groups a part
+TABLE_STEP = 3  # keys step by 3: the gaps are absent keys
+
+
+def _table_columns(part: int, seed: int) -> dict:
+    """Part ``part``'s keys in a seeded order, a dictionary int column, a
+    double and a dictionary string column."""
+    rng = np.random.default_rng(seed)
+    n = TABLE_PART_ROWS
+    k = (np.arange(n, dtype=np.int64) + part * n) * TABLE_STEP
+    rng.shuffle(k)
+    words = [b"AIR", b"MAIL", b"SHIP", b"TRUCK"]
+    s = [words[int(x) % 4] for x in k]
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum([len(x) for x in s], out=offs[1:])
+    return {"k": pqt.ColumnData(k),
+            "q": pqt.ColumnData((k % 50).astype(np.int64)),
+            "v": pqt.ColumnData(k * 0.5),
+            "s": pqt.ColumnData(np.frombuffer(b"".join(s), np.uint8).copy(),
+                                offsets=offs)}
+
+
+def _table_schema():
+    from parquet_tpu_torch.format.enums import Type
+
+    return pqt.message("t", [pqt.leaf("k", Type.INT64),
+                             pqt.leaf("q", Type.INT64),
+                             pqt.leaf("v", Type.DOUBLE),
+                             pqt.leaf("s", Type.BYTE_ARRAY, logical="string")])
+
+
+def _table(root, sort: bool = True, commits: int = 4) -> str:
+    d = str(root / "table")
+    with pqt.DatasetWriter(d, _table_schema(),
+                           sorting=[pqt.SortingColumn("k")] if sort else None,
+                           options=pqt.WriterOptions(
+                               row_group_size=TABLE_PART_ROWS // 2,
+                               bloom_filters={"k": 10})) as w:
+        for i in range(commits):
+            w.write(_table_columns(i, i), TABLE_PART_ROWS)
+            w.commit()
+    return d
+
+
+@pytest.mark.cuda
+def test_table_ingest_reads_on_card_as_on_cpu(cuda_device, tmp_path):
+    """A table's read, lookup and aggregate on the card equal the CPU's,
+    through both unpack kernels and the bloom probe (one row group's
+    36,000 keys take the device probe), no chunk on the host route."""
+    d = _table(tmp_path)
+    assert pqt.read_manifest(d).version == 4
+    with pqt.open_table(d) as ds:
+        pqt.reset_launches()
+        pqt.reset_host_route()
+        got = ds.read(device=cuda_device)
+        assert pqt.LAUNCHES["unpack_bits_dense"] > 0
+        assert pqt.LAUNCHES["dict_unpack_gather"] > 0
+        _same_columns({n: c.to("cpu") for n, c in got.items()},
+                      ds.read(device="cpu"))
+        first = 2 * TABLE_PART_ROWS * TABLE_STEP  # part 2's first key
+        keys = np.arange(first, first + 36_000)
+        pqt.reset_launches()
+        pqt.clear_caches()
+        hits = ds.find_rows("k", keys, columns=["v"], device=cuda_device)
+        assert pqt.LAUNCHES["bloom_check"] > 0
+        pqt.clear_caches()
+        want = ds.find_rows("k", keys, columns=["v"], device="cpu")
+        assert [h.rows.tolist() for h in hits] == \
+            [h.rows.tolist() for h in want]
+        assert hits.rows_total == 12_000 and hits.counters == want.counters
+        w = pqt.col("k").between(150_000, 260_000)
+        aggs = [pqt.count(), pqt.sum_("q"), pqt.max_("k")]
+        _same_agg(ds.aggregate(aggs, where=w, device=cuda_device),
+                  ds.aggregate(aggs, where=w, device="cpu"))
+        assert sum(pqt.HOST_ROUTE.values()) == 0
+
+
+@pytest.mark.cuda
+def test_table_pruned_scan_on_card_opens_one_part(cuda_device, tmp_path):
+    """The manifest drops the parts a scan cannot match before they are
+    opened; the survivors scan on the card as on the CPU."""
+    d = _table(tmp_path)
+    ds = pqt.open_table(d, pin=False)
+    lo = 2 * TABLE_PART_ROWS * TABLE_STEP + 3_000
+    w = pqt.col("k").between(lo, lo + 6_000)
+    got = ds.scan(where=w, columns=["k", "v", "s"], device=cuda_device)
+    assert sorted(ds._files) == [0, 2]  # part 0 types the predicate
+    want = ds.scan(where=w, columns=["k", "v", "s"], device="cpu")
+    ds.close()
+    assert np.array_equal(np.asarray(got["k"]), np.asarray(want["k"]))
+    assert np.array_equal(np.asarray(got["k"]),
+                          np.arange(lo, lo + 6_001, TABLE_STEP))
+    assert list(got["s"]) == list(want["s"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [True, False])
+def test_table_compaction_on_card_as_on_cpu(cuda_device, tmp_path, sort):
+    """``compact_table(device="cuda")`` writes the same part as on the CPU,
+    a pinned reader keeps its snapshot, and the card's allocated bytes
+    come back."""
+    import os
+
+    parts = {}
+    for dev in ("cpu", cuda_device):
+        root = tmp_path / str(dev).replace(":", "_")
+        root.mkdir()
+        d = _table(root, sort=sort)
+        before = _settled_allocated(cuda_device)
+        with pqt.open_table(d) as ds:
+            old = {n: c.to("cpu") for n, c in ds.read(device=dev).items()}
+            m = pqt.compact_table(d, device=dev)
+            assert m.version == 5 and len(m.files) == 1
+            _same_columns({n: c.to("cpu")
+                           for n, c in ds.read(device=dev).items()}, old)
+        with open(os.path.join(d, m.files[0].name), "rb") as f:
+            parts[str(dev)] = f.read()
+        del old
+        assert _settled_allocated(cuda_device) <= before
+        assert pqt.recover_table(d) == []
+    assert parts["cpu"] == parts[str(cuda_device)]

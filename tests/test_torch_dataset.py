@@ -520,19 +520,40 @@ def test_cuda_by_default(mixed, monkeypatch):
 
 @pytest.mark.parametrize("call,slice_name", [
     ("write_arrow", "arrow interop"),
-    ("snapshot_version", "manifest"), ("_file_stats", "manifest"),
+    ("DatasetWriter.write_arrow", "arrow interop"),
+    ("SortingWriter.write_arrow", "arrow interop"),
     ("to_arrow", "arrow interop")])
-def test_refused_methods_name_their_slice(mixed, call, slice_name):
-    ds = pqt.Dataset(mixed["paths"][:1])
+def test_refused_methods_name_their_slice(mixed, call, slice_name,
+                                          tmp_path):
+    schema = pqt.ParquetFile(mixed["paths"][0]).schema
+
+    def write_arrow(writer):
+        try:
+            writer.write_arrow(None)
+        finally:
+            writer.abort()
+
     run = {
-        "write_arrow": lambda: pqt.TableBuffer(
-            pqt.ParquetFile(mixed["paths"][0]).schema).write_arrow(None),
-        "snapshot_version": lambda: ds.snapshot_version,
-        "_file_stats": lambda: ds._file_stats,
+        "write_arrow": lambda: pqt.TableBuffer(schema).write_arrow(None),
+        "DatasetWriter.write_arrow": lambda: write_arrow(pqt.DatasetWriter(
+            str(tmp_path / "t"), schema)),
+        "SortingWriter.write_arrow": lambda: write_arrow(pqt.SortingWriter(
+            str(tmp_path / "s.parquet"), schema, [], device=CPU)),
         "to_arrow": lambda: pqt.ShardedTable({}, {}, (), ()).to_arrow(),
     }[call]
     with pytest.raises(NotImplementedError, match=slice_name):
         run()
+
+
+@pytest.mark.parametrize("field", ["snapshot_version", "_file_stats"])
+def test_manifest_fields_where_they_were_refused(mixed, field):
+    """A dataset of paths carries no manifest: both fields are None, as
+    the JAX package's, and a shard keeps them."""
+    ds = pqt.Dataset(mixed["paths"][:2])
+    jds = parquet_tpu.Dataset(mixed["paths"][:2])
+    assert getattr(ds, field) is None and getattr(jds, field) is None
+    ds._file_stats, ds.snapshot_version = {}, 7
+    assert getattr(ds.shard(1, 2), field) == getattr(ds, field)
 
 
 def test_writer_write_stats_where_it_was_refused():

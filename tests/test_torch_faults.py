@@ -968,11 +968,34 @@ def test_stream_corrupt_row_group_raises_located(raw):
     assert "row-group=1" in str(e) and "column=x" in str(e)
 
 
-def test_paused_stream_deadline_does_not_poison_other_ops(raw):
-    """A paused drain keeps its own deadline: a read meanwhile runs on its
-    own clock, and the resumed drain hits its deadline."""
-    import time
+class _TestClock:
+    """The ``time`` module as ``io/faults.py`` sees it, with a monotonic
+    clock that stands still until the test advances it: a deadline then
+    runs out where the test says, whatever the host's load."""
 
+    def __init__(self):
+        import time
+
+        self._time = time
+        self.now = time.monotonic()
+
+    def monotonic(self) -> float:
+        return self.now
+
+    def advance(self, seconds: float) -> None:
+        self.now += seconds
+
+    def __getattr__(self, name):
+        return getattr(self._time, name)
+
+
+def test_paused_stream_deadline_does_not_poison_other_ops(raw, monkeypatch):
+    """A paused drain keeps its own deadline: a read meanwhile runs on its
+    own clock, and the resumed drain hits its deadline.  Every
+    ``Deadline`` reads the clock of ``io/faults.py``, which the test
+    drives, so the read's fresh budget cannot run out under load."""
+    clock = _TestClock()
+    monkeypatch.setattr(tfaults, "time", clock)
     pf = pqt.ParquetFile(BytesSource(raw), policy=pqt.FaultPolicy(
         deadline_s=0.05, backoff_s=0.0))
     before = tfaults.active_deadline()
@@ -980,7 +1003,7 @@ def test_paused_stream_deadline_does_not_poison_other_ops(raw):
     next(it)
     # the drain's clock stays in the drain's own context
     assert tfaults.active_deadline() is before
-    time.sleep(0.08)  # the drain's budget runs out while it is paused
+    clock.advance(0.08)  # the drain's budget runs out while it is paused
     assert pf.read(device=CPU)["x"].num_slots == N_ROWS
     with pytest.raises(DeadlineError):
         for _ in it:
