@@ -1,7 +1,8 @@
 """Drive parquet_tpu_torch's device read, batched point lookups, device
 scan, multi-file and sharded reads, streamed reads, typed reads, rows,
-merge and sort, aggregation, durable writes from the card and writable
-tables on one CUDA card and check them.
+merge and sort, aggregation, durable writes from the card, writable
+tables, and the read's counters, traces and row-group pruning on one CUDA
+card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
@@ -347,6 +348,27 @@ Phases, each fatal on failure:
    reads' cold and best warm walls beside the glob read's, the parts
    each query opened, the compaction's wall and rows/s beside 5i(c)'s
    merge, the crash matrix's outcomes and wall, the launches;
+5m. observability, each check fatal: (a) phase 4's 5-column file read
+   under ``utils/debug.py::profiler_trace`` (a Chrome trace of host and
+   card activity, every thread; a first read opens the window, since the
+   profiler can miss the device events of its first moments): the
+   second read's columns equal an untraced read's bit for bit, and the
+   trace holds the ``pq.prepare_chunk`` and ``pq.decode_staged:*``
+   regions and each unpack kernel's symbol, launched inside that read,
+   as often as ``LAUNCHES`` counted (a trace that dropped device events
+   is taken again, up to 5 times); (b) ``counters`` over an untraced read:
+   every chunk on the device, none on the host route, ``bytes_h2d`` the
+   bytes of the staging batches sent, and the names ``PIPELINE`` keeps
+   equal to its; (c) ``prune_row_group_values`` of phase 5's lookup file
+   on ``k`` with 65,536 hashes a row group (phase 5's keys; then absent
+   keys only), answers equal to the CPU's, one ``bloom_check`` launch a
+   row group; (d) a line saying whether pyarrow imports on the machine:
+   where it does, a card read's ``to_arrow`` holds the card's columns
+   (timed); where it does not, no Arrow step runs.  One ``{"debug":
+   ...}`` line:
+   the walls untraced and traced (with and without the trace's export),
+   the trace's bytes and events, the counters, the probes' answers and
+   walls, the launches;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -5830,6 +5852,252 @@ def table_path(card: str, rows: int, seed: int, tmp: str,
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5m: counters, a traced read, row-group pruning, no pyarrow
+# ---------------------------------------------------------------------------
+
+#: the probe values of phase 5m(c): as many as its hashes
+DEBUG_PROBES = 65_536
+#: traced reads phase 5m(a) may take before its kernel events must match:
+#: the profiler drops a window's device events now and then
+DEBUG_TRACE_TRIES = 5
+
+
+def trace_events(out_dir: str) -> tuple:
+    """The one Chrome trace in ``out_dir``: ``(events, bytes)``."""
+    names = os.listdir(out_dir)
+    if len(names) != 1:
+        raise AssertionError(f"phase 5m: {len(names)} trace files, not 1")
+    path = os.path.join(out_dir, names[0])
+    with open(path) as f:
+        return json.load(f)["traceEvents"], os.path.getsize(path)
+
+
+#: the region around the read whose kernels phase 5m(a) counts
+CHECKED_READ = "chip_smoke.checked_read"
+
+
+def traced_read(path: str, out_dir: str, want: dict) -> dict:
+    """Two reads of ``path`` on the card under ``profiler_trace(out_dir)``
+    (the profiler can miss the device events of a window's first moments,
+    so the first read only opens the window): the second's columns equal
+    ``want`` bit for bit, the trace holds the read's ``pq.prepare_chunk``
+    and ``pq.decode_staged:*`` regions, and each unpack kernel's CUDA
+    symbol, launched (by its correlation id) inside the second read's
+    region, as often as ``LAUNCHES`` counted in that read."""
+    from parquet_tpu_torch.utils.debug import annotate, profiler_trace
+
+    os.makedirs(out_dir)
+    pq.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profiler_trace(out_dir):
+        first = pq.ParquetFile(path).read(device=DEVICE)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        del first
+        first_launches = dict(pq.LAUNCHES)
+        pq.reset_launches()
+        t1 = time.perf_counter()
+        with annotate(CHECKED_READ):
+            got = pq.ParquetFile(path).read(device=DEVICE)
+            torch.cuda.synchronize()
+        read_s = time.perf_counter() - t1
+    total_s = time.perf_counter() - t0
+    launches = dict(pq.LAUNCHES)
+    same_bits(got, want, "phase 5m traced read")
+    del got
+    events, nbytes = trace_events(out_dir)
+    names = [e.get("name", "") for e in events]
+    regions = {n for n in names if n == "pq.prepare_chunk"
+               or n.startswith("pq.decode_staged:")}
+    if "pq.prepare_chunk" not in regions or len(regions) < 2:
+        raise AssertionError(f"phase 5m: the trace lacks the read's "
+                             f"regions (found {sorted(regions)})")
+    region = next(e for e in events if e.get("name") == CHECKED_READ
+                  and e.get("ph") == "X")
+    lo, hi = region["ts"], region["ts"] + region["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})
+                and lo <= e["ts"] <= hi}
+    in_trace = {k: sum(1 for e in events if e.get("cat") == "kernel"
+                       and f"{k}_kernel" in e.get("name", "")
+                       and e.get("args", {}).get("correlation") in launched)
+                for k in READ_KERNELS}
+    return {"first_traced_read_s": first_s, "traced_read_s": read_s,
+            "traced_with_export_s": total_s, "trace_bytes": nbytes,
+            "trace_events": len(events), "regions": sorted(regions),
+            "first_launches": first_launches, "launches": launches,
+            "kernel_events": in_trace}
+
+
+def debug_path(card: str, read: dict, look_path: str, rows: int,
+               seed: int, tmp: str) -> dict:
+    """Phase 5m: the read's observability on the card, each check fatal.
+    (a) Phase 4's 5-column file read under ``profiler_trace`` (a Chrome
+    trace into a temporary directory; :func:`traced_read`): its columns
+    equal an untraced read's bit for bit, the trace holds the
+    ``pq.prepare_chunk`` and ``pq.decode_staged:*`` regions and as many
+    ``unpack_bits_dense`` and ``dict_unpack_gather`` kernel events as
+    ``LAUNCHES`` counted (a trace that dropped some is taken again, up to
+    :data:`DEBUG_TRACE_TRIES`); the untraced and traced walls.  (b) ``counters`` over an untraced
+    read: ``chunks_device_decoded`` is the file's chunks,
+    ``chunks_host_fallback`` 0, ``bytes_h2d`` the bytes of the staging
+    batches the read sent (summed by a spy on the send), and the three
+    names ``PIPELINE`` keeps equal to its.  (c)
+    ``prune_row_group_values`` of each of phase 5's row groups on the
+    lookup file's ``k`` with :data:`DEBUG_PROBES` hashes (phase 5's keys,
+    one in eight present; then odd keys only, all absent) on the card,
+    its answers the CPU's, ``bloom_check`` launched once a row group.
+    (d) Whether pyarrow imports here: where it does, a card read of the
+    5-column file converts by ``to_arrow`` (timed), each column's nulls
+    and values equal to the card's; where it does not, no Arrow step
+    runs, and every earlier phase having run shows the port needs none.
+    One ``{"debug": ...}`` line."""
+    import importlib.util
+
+    from parquet_tpu_torch.io.search import prune_row_group_values
+    from parquet_tpu_torch.utils.debug import counters
+
+    path = read["path"]
+    launches = dict.fromkeys(pq.LAUNCHES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # (a) the traced read against an untraced one
+    timed_read(path)  # warm
+    pq.reset_launches()
+    want, untraced_s = timed_read(path)
+    add(pq.LAUNCHES)
+    tries = []
+    for i in range(DEBUG_TRACE_TRIES):
+        got = traced_read(path, os.path.join(tmp, f"trace_5m_{i}"), want)
+        add(got["first_launches"])
+        add(got["launches"])
+        tries.append(got)
+        if all(got["kernel_events"][k] == got["launches"][k]
+               for k in READ_KERNELS):
+            break
+    else:
+        raise AssertionError(f"phase 5m: no trace held every kernel "
+                             f"launch: {tries}")
+    check_launched("phase 5m traced read", got["launches"], READ_KERNELS)
+    del want
+
+    # (b) the counters of an untraced read
+    sent = [0]
+    send = device_reader._StagingBatch.send
+
+    def spy(self, device):
+        sent[0] += self.nbytes
+        return send(self, device)
+
+    pf = pq.ParquetFile(path)
+    chunks = len(pf.row_groups) * len(pf.schema.leaves)
+    pq.reset_pipeline()
+    counters.reset()
+    pq.reset_launches()
+    device_reader._StagingBatch.send = spy
+    try:
+        pf.read(device=DEVICE)
+        torch.cuda.synchronize()
+    finally:
+        device_reader._StagingBatch.send = send
+    add(pq.LAUNCHES)
+    snap, pipeline = counters.snapshot(), dict(pq.PIPELINE)
+    if snap.get("chunks_device_decoded") != chunks or snap.get(
+            "chunks_host_fallback", 0) != 0:
+        raise AssertionError(f"phase 5m: counters {snap} for {chunks} "
+                             "chunks on the device")
+    if snap.get("bytes_h2d") != sent[0] or not sent[0]:
+        raise AssertionError(f"phase 5m: bytes_h2d {snap.get('bytes_h2d')}"
+                             f" against {sent[0]} bytes sent")
+    for name in ("chunks_device_decoded", "chunks_host_fallback",
+                 "stage_concurrency_peak"):
+        if snap.get(name, 0) != pipeline[name]:
+            raise AssertionError(f"phase 5m: counters {name} "
+                                 f"{snap.get(name, 0)} != PIPELINE "
+                                 f"{pipeline[name]}")
+
+    # (c) row-group pruning with the bloom probe on the card
+    lpf = pq.ParquetFile(look_path)
+    leaf = lpf.schema.leaf("k")
+    keys = make_keys(rows, seed)
+    probes = {"mixed": np.sort(keys[:DEBUG_PROBES]),
+              "absent": np.sort(keys[keys % 2 == 1][:DEBUG_PROBES])}
+    prune = {}
+    for name, vals in probes.items():
+        vals = vals.tolist()
+        hashes = bloom.probe_hashes(leaf, vals)
+        pq.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = [prune_row_group_values(rg, "k", vals, hashes=hashes,
+                                      device=DEVICE)
+               for rg in lpf.row_groups]
+        card_s = time.perf_counter() - t0
+        probe_launches = pq.LAUNCHES["bloom_check"]
+        add(pq.LAUNCHES)
+        t0 = time.perf_counter()
+        cpu = [prune_row_group_values(rg, "k", vals, hashes=hashes,
+                                      device="cpu")
+               for rg in lpf.row_groups]
+        cpu_s = time.perf_counter() - t0
+        if got != cpu:
+            raise AssertionError(f"phase 5m {name}: card {got} != cpu {cpu}")
+        if probe_launches != len(lpf.row_groups):
+            raise AssertionError(f"phase 5m {name}: {probe_launches} "
+                                 "bloom_check launches for "
+                                 f"{len(lpf.row_groups)} row groups")
+        prune[name] = {"hashes": len(hashes), "kept": got,
+                       "bloom_check_launches": probe_launches,
+                       "card_s": card_s, "cpu_s": cpu_s}
+
+    # (d) no pyarrow: the port ran every phase without it
+    has_pyarrow = importlib.util.find_spec("pyarrow") is not None
+    print(f"phase 5m: pyarrow {'imports' if has_pyarrow else 'does not import'}"
+          " here; "
+          + ("Table.to_arrow of a card read checked against its columns"
+             if has_pyarrow else "no Arrow step runs"), flush=True)
+    arrow = None
+    if has_pyarrow:
+        import pyarrow
+
+        cols = pq.ParquetFile(path).read(device=DEVICE)
+        torch.cuda.synchronize()
+        arrow_s = []
+        for _ in range(2):  # the process's first conversion, then a warm one
+            t0 = time.perf_counter()
+            tbl = cols.to_arrow()
+            arrow_s.append(time.perf_counter() - t0)
+        if tbl.num_rows != pf.num_rows or tbl.column_names != list(cols):
+            raise AssertionError("phase 5m: to_arrow lost rows or columns")
+        for name, col in cols.items():
+            arr = tbl[name].combine_chunks()
+            values, _ = col.host_dense()
+            nulls = 0 if col.validity is None else int(
+                (~col.validity).sum())
+            if arr.null_count != nulls or not np.array_equal(
+                    arr.drop_null().to_numpy(), values):
+                raise AssertionError(f"phase 5m: to_arrow of {name} "
+                                     "differs from the card's column")
+        arrow = {"pyarrow": pyarrow.__version__, "rows": tbl.num_rows,
+                 "columns": tbl.num_columns, "to_arrow_s": arrow_s}
+        del cols, tbl
+    log({"debug": {
+        "card": card, "rows": pf.num_rows, "chunks": chunks,
+        "file_bytes": os.path.getsize(path),
+        "untraced_read_s": untraced_s, "traced": tries,
+        "trace_tries": len(tries),
+        "counters": snap, "pipeline": pipeline,
+        "bytes_sent": sent[0], "prune": prune, "pyarrow": has_pyarrow,
+        "arrow": arrow, "launches": launches}})
+    return {"launches": launches}
+
+
 def _codes_of(cd, words) -> np.ndarray:
     """Each row's index in ``words`` of a byte-array column built from
     them (by the first byte, which tells these words apart, else by the
@@ -7530,6 +7798,8 @@ def main(argv=None) -> int:
         write = phase("5k_write", write_path, card, read, tmp)
         table = phase("5l_table", table_path, card, args.lineitem_rows,
                       args.seed, tmp, multi["paths"])
+        debug = phase("5m_debug", debug_path, card, read, look["path"],
+                      args.lookup_rows, args.seed, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -7542,7 +7812,7 @@ def main(argv=None) -> int:
                       "struct_keys": struct, "resilience": resilience,
                       "stream": stream, "typed_rows_merge": typed_rows,
                       "aggregate": aggregate, "write": write,
-                      "table": table})
+                      "table": table, "debug": debug})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

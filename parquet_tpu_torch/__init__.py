@@ -53,7 +53,13 @@ ingests and commits a snapshot atomically, ``open_table`` pins one (its
 zone maps drop a part from a scan or an aggregate without opening it, and
 its reads run on the card), ``compact_table`` and ``BackgroundCompactor``
 merge parts on the card, and ``recover_table`` sweeps what a crash left
-(``SharedCrashState``, ``table_crash_check``).
+(``SharedCrashState``, ``table_crash_check``).  Where pyarrow is
+installed, a read converts to a ``pyarrow.Table`` (``Table.to_arrow``;
+``Table`` is the read's ``ColumnSet``) and ``write_table`` takes one
+(``schema_from_arrow``); nothing else imports pyarrow.  ``counters``
+counts the read's events, ``utils/debug.py::profiler_trace`` records a
+``torch.profiler`` trace of a read with its regions named, and
+``print_schema``/``print_file``/``print_pages`` dump a file as text.
 
     import parquet_tpu_torch as pq
     pq.write_table({"x": np.arange(10)}, "x.parquet")
@@ -131,10 +137,12 @@ from .io.planner import (FUSED_AUTO_MIN_BYTES, ROUTE_REFUSALS, CostInputs,
                          route_history, route_scan)
 from .io.prefetch import PrefetchSource, ReadStats
 from .io.reader import ColumnSet, ParquetFile, ReadOptions, RowGroupReader
-from .io.search import find, pages_overlapping, plan_scan, read_row_range
+from .io.search import (find, pages_overlapping, plan_scan, prune_row_group,
+                        read_row_range)
 from .io.source import MmapSource, RetryingSource, Source
 from .io.stream import STREAM, iter_batches, reset_stream
-from .io.writer import ColumnData, ParquetWriter, WriterOptions, write_table
+from .io.writer import (ColumnData, ParquetWriter, WriterOptions,
+                        schema_from_arrow, write_table)
 from .ops.kernels import LAUNCHES, reset_launches
 from .parallel.device_reader import (HOST_ROUTE, PIPELINE, PLAN_ROUTE,
                                      reset_host_route, reset_pipeline,
@@ -156,6 +164,11 @@ from .typed import (TypedReader, TypedWriter, read_objects, read_pytree,
                     schema_of, write_objects)
 from .rows import (FileRows, Row, RowBuilder, Value, copy_rows, deconstruct,
                    read_rows, reconstruct, write_rows)
+from .utils.debug import counters
+from .utils.printer import print_file, print_pages, print_schema
+
+#: the JAX package's name for a read's result (a ``ColumnSet``)
+Table = ColumnSet
 
 __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "LAUNCHES", "reset_launches", "HOST_ROUTE", "reset_host_route",
@@ -198,7 +211,8 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "IntegrityIssue", "DatasetWriter", "open_table", "recover_table",
            "compact_table", "BackgroundCompactor", "Manifest",
            "ManifestEntry", "read_manifest", "SharedCrashState",
-           "table_crash_check"]
+           "table_crash_check", "Table", "schema_from_arrow", "counters",
+           "print_schema", "print_file", "print_pages", "prune_row_group"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

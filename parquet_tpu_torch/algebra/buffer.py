@@ -17,7 +17,6 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from ..errors import unsupported
 from ..io.writer import ColumnData, ParquetWriter, _extend_cd
 from ..ops import host
 from ..schema.schema import Schema
@@ -54,7 +53,10 @@ class TableBuffer:
         self.num_rows += num_rows
 
     def write_arrow(self, table) -> None:
-        raise unsupported("TableBuffer.write_arrow", "arrow interop")
+        """Buffer the rows of a ``pyarrow.Table`` (``columns_from_arrow``)."""
+        from ..io.writer import columns_from_arrow
+
+        self.write(columns_from_arrow(table, self.schema), table.num_rows)
 
     def sort_indices(self) -> np.ndarray:
         """The row permutation that orders the buffer by the sorting

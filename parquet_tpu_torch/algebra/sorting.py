@@ -18,7 +18,6 @@ import shutil
 import tempfile
 from typing import Dict, Iterable, List, Optional, Sequence
 
-from ..errors import unsupported
 from ..io.reader import resolve_device
 from ..io.writer import ColumnData, ParquetWriter, WriterOptions
 from ..schema.schema import Schema
@@ -70,7 +69,11 @@ class SortingWriter:
             self._spill()
 
     def write_arrow(self, table) -> None:
-        raise unsupported("SortingWriter.write_arrow", "arrow interop")
+        """Buffer the rows of a ``pyarrow.Table``, spilling a full
+        buffer as :meth:`write` does."""
+        self._buf.write_arrow(table)
+        if self._buf.num_rows >= self.buffer_rows:
+            self._spill()
 
     @property
     def spills(self) -> List[str]:

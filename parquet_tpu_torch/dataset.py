@@ -261,9 +261,11 @@ class Dataset:
 
         parts: Dict[str, List[Column]] = {}
         first = None  # the first file read: its schema types the result
+        spans = []  # the rows read, for ColumnSet.to_arrow
         for i, got in enumerate(read_dataset_device(
                 self, columns, host_read, devs, with_reports=with_reports,
                 policy=pol)):
+            skipped = ()
             if with_reports:
                 got, sub, rows, err = got
                 if got is None:
@@ -273,16 +275,23 @@ class Dataset:
                                             error=err)
                     continue
                 report.merge(sub)
+                skipped = sub.row_groups_skipped if sub is not None else ()
             if first is None:
                 first = i
+            pf = self.file(i)
+            spans += [(pf, g, 0, rg.num_rows)
+                      for g, rg in enumerate(pf.row_groups)
+                      if g not in skipped]
             for path, cols in got.items():
                 parts.setdefault(path, []).extend(cols)
         if first is None:
             raise CorruptedError(
                 "dataset read: every file failed "
                 f"({', '.join(report.files_skipped) if report else ''})")
-        out = ColumnSet()
-        for leaf in _select_leaves(self.file(first).schema, columns):
+        out = ColumnSet(schema=self.file(first).schema,
+                        num_rows=sum(s[3] for s in spans), spans=spans,
+                        device=devs[0])
+        for leaf in _select_leaves(out.schema, columns):
             cols = [c.to(devs[0]) for c in parts.get(leaf.name, [])]
             out[leaf.name] = (concat_columns(cols) if cols
                               else _empty_column(leaf, devs[0]))

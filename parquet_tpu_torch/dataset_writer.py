@@ -27,8 +27,7 @@ the current snapshot.
 
 The JAX package's ``table.*`` meters, its ``table.pending`` ledger
 account with the memory-pressure check, and its op scopes belong to the
-port's ``obs/`` slice; :meth:`DatasetWriter.write_arrow` to the Arrow
-interop slice.
+port's ``obs/`` slice.
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ import numpy as np
 
 from .algebra.buffer import SortingColumn, TableBuffer, permute_column
 from .dataset import Dataset
-from .errors import unsupported
 from .format.enums import Type
 from .io.manifest import (Manifest, collect_entry, commit_manifest,
                           manifest_path, part_file_name, read_manifest,
@@ -199,7 +197,10 @@ class DatasetWriter:
             self._flush_buffer(pid)
 
     def write_arrow(self, table) -> None:
-        raise unsupported("DatasetWriter.write_arrow", "arrow interop")
+        """Buffer the rows of a ``pyarrow.Table`` as :meth:`write` does."""
+        from .io.writer import columns_from_arrow
+
+        self.write(columns_from_arrow(table, self.schema), table.num_rows)
 
     def _append(self, pid: int, cols: Dict[str, ColumnData],
                 n: int) -> None:

@@ -18,7 +18,10 @@ byte-array dictionary chunk stays encoded: ``values`` is None,
 which entry each value is (the Arrow DictionaryArray form);
 :meth:`Column.materialize` gathers it.  :meth:`Column.to_pylist` gives
 each row as the Python objects the JAX package's
-``to_arrow().to_pylist()`` gives, without pyarrow.
+``to_arrow().to_pylist()`` gives, without pyarrow (INT96 and nanosecond
+times go through pyarrow).  :meth:`Column.to_arrow` gives the column as
+the JAX package's pyarrow array; pyarrow is imported only there, so the
+rest of the port runs without it.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ import numpy as np
 
 import torch
 
-from ..errors import unsupported
 from ..format.enums import Type
 from ..ops import device as dev
 from ..schema.schema import Leaf
@@ -144,8 +146,14 @@ class Column:
         ``datetime.date``, ``datetime.datetime`` in UTC for a UTC
         timestamp, ``datetime.time``, ``decimal.Decimal``), ``None`` for a
         null value or a null list, a list a repeated level.  A dictionary
-        column converts its entries once and gathers them on the host."""
+        column converts its entries once and gathers them on the host.
+        INT96 and nanosecond times are ``to_arrow().to_pylist()`` (pyarrow's
+        objects: ``pandas.Timestamp`` where pandas is installed); without
+        pyarrow they raise ``ImportError``."""
         leaf = self.leaf
+        if leaf.physical_type == Type.INT96 or leaf.logical_kind in (
+                LogicalKind.TIMESTAMP_NANOS, LogicalKind.TIME_NANOS):
+            return self.to_arrow().to_pylist()
         validity = (None if self.validity is None
                     else self.validity.cpu().numpy())
         if leaf.logical_kind == LogicalKind.UNKNOWN:
@@ -175,6 +183,57 @@ class Column:
             items = [items[o[i]:o[i + 1]] if ok is None or ok[i] else None
                      for i in range(len(o) - 1)]
         return items
+
+    # ------------------------------------------------------------- arrow
+    def _dict_arrow(self):
+        """An encoded column as a pyarrow ``DictionaryArray`` over its
+        entries and indexes, one slot a value (nulls masked)."""
+        import pyarrow as pa
+
+        d = self.dictionary
+        dv, do = d if isinstance(d, tuple) else (d, None)
+        dict_arr = _leaf_to_arrow(self.leaf, dv.cpu().numpy(),
+                                  None if do is None else do.cpu().numpy(),
+                                  None)
+        idx = self.dict_indices.cpu().numpy().astype(np.int32, copy=False)
+        if self.validity is not None:
+            v = self.validity.cpu().numpy()
+            slot = np.zeros(len(v), np.int32)
+            slot[v] = idx
+            ia = pa.array(slot, mask=~v)
+        else:
+            ia = pa.array(idx)
+        return pa.DictionaryArray.from_arrays(ia, dict_arr)
+
+    def to_arrow(self, prefer_dictionary: bool = False):
+        """The column as the JAX package's pyarrow array, from one copy of
+        each tensor to the host: the leaf's Arrow type (``arrow_type_of``),
+        nulls masked, one list layer a repeated level.  An encoded
+        byte-array column is cast dense from its ``DictionaryArray``, or
+        with ``prefer_dictionary`` (and no list level) kept one, as pyarrow
+        reads a field its embedded schema declares dictionary-typed."""
+        import pyarrow as pa
+
+        leaf = self.leaf
+        if self.is_dictionary_encoded():
+            arr = self._dict_arrow()
+            if not (prefer_dictionary and not self.list_offsets):
+                arr = arr.cast(arr.type.value_type)
+        else:
+            arr = _leaf_to_arrow(
+                leaf, self.values.cpu().numpy(),
+                None if self.offsets is None else self.offsets.cpu().numpy(),
+                None if self.validity is None
+                else self.validity.cpu().numpy())
+        for offs, lv in zip(reversed(self.list_offsets),
+                            reversed(self.list_validity)):
+            offs = pa.array(offs.cpu().numpy().astype(np.int32))
+            lv = None if lv is None else lv.cpu().numpy()
+            if lv is not None and not lv.all():
+                arr = pa.ListArray.from_arrays(offs, arr, mask=pa.array(~lv))
+            else:
+                arr = pa.ListArray.from_arrays(offs, arr)
+        return arr
 
 
 def _utc():
@@ -218,10 +277,6 @@ def _py_items(leaf: Leaf, values: np.ndarray, offsets) -> list:
                                             signed=True), params)
                     for r in rows]
         return [r.tobytes() for r in rows]
-    if physical == Type.INT96 or kind in (LogicalKind.TIMESTAMP_NANOS,
-                                          LogicalKind.TIME_NANOS):
-        raise unsupported(f"Column.to_pylist of {leaf.name!r} "
-                          "(nanosecond times)", "arrow interop")
     if kind == LogicalKind.INT:
         dt = np.dtype(f"{'i' if params.get('signed', True) else 'u'}"
                       f"{max(params.get('bit_width', 64), 8) // 8}")
@@ -248,6 +303,254 @@ def _py_items(leaf: Leaf, values: np.ndarray, offsets) -> list:
 
 def _decimal(unscaled: int, params: dict) -> decimal.Decimal:
     return decimal.Decimal(unscaled).scaleb(-params.get("scale", 0))
+
+
+# ---------------------------------------------------------------------------
+# Host arrays -> pyarrow (the JAX package's converters)
+# ---------------------------------------------------------------------------
+
+# byte-array offsets past this take Arrow's 64-bit (LARGE) layout
+_OFFSET32_LIMIT = int(np.iinfo(np.int32).max)
+_STRING_KINDS = (LogicalKind.STRING, LogicalKind.ENUM, LogicalKind.JSON)
+
+
+def _leaf_to_arrow(leaf: Leaf, values: np.ndarray, offsets, validity):
+    """A leaf's dense host values (with a byte array's offsets) and its
+    slot validity (None: no null) as a pyarrow array of the leaf's type."""
+    import pyarrow as pa
+
+    k = leaf.logical_kind
+    pt = leaf.physical_type
+    params = leaf.logical_params or {}
+    if k == LogicalKind.UNKNOWN:  # the Null logical type
+        return pa.nulls(len(validity) if validity is not None
+                        else len(values))
+    if pt == Type.BYTE_ARRAY:
+        wide = _wide_offsets(offsets)
+        if k in _STRING_KINDS:  # utf8 from the buffers, unvalidated
+            atype = pa.large_utf8() if wide else pa.utf8()
+        else:
+            atype = pa.large_binary() if wide else pa.binary()
+        if validity is not None:
+            return _ragged_with_nulls(values, offsets, validity, atype)
+        return pa.Array.from_buffers(
+            atype, len(offsets) - 1,
+            [None, pa.py_buffer(np.ascontiguousarray(
+                offsets, dtype=np.int64 if wide else np.int32)),
+             pa.py_buffer(np.ascontiguousarray(values).view(np.uint8))])
+    if pt == Type.FIXED_LEN_BYTE_ARRAY:
+        width = leaf.type_length
+        vals = np.asarray(values, dtype=np.uint8).reshape(-1, width)
+        if k == LogicalKind.FLOAT16:
+            return _fixed_with_nulls(vals.reshape(-1).view(np.float16),
+                                     validity, pa.float16())
+        if k == LogicalKind.DECIMAL:
+            return _decimal_with_nulls(
+                _be_bytes_to_int(vals), validity,
+                pa.decimal128(params.get("precision", 38),
+                              params.get("scale", 0)))
+        if validity is None:
+            return pa.FixedSizeBinaryArray.from_buffers(
+                pa.binary(width), len(vals),
+                [None, pa.py_buffer(np.ascontiguousarray(vals))])
+        return _fsb_with_nulls(vals, validity, width)
+    if pt == Type.INT96:
+        # (nanoseconds of the day in two words, the Julian day)
+        v = np.asarray(values).reshape(-1, 3)
+        nanos = v[:, 0].astype(np.uint32).astype(np.uint64) | (
+            v[:, 1].astype(np.uint32).astype(np.uint64) << np.uint64(32))
+        days = v[:, 2].astype(np.int64) - 2440588  # Julian -> Unix days
+        ts = days * 86400_000_000_000 + nanos.astype(np.int64)
+        return _fixed_with_nulls(ts, validity, pa.timestamp("ns"))
+    flat = np.asarray(values)
+    if k == LogicalKind.INT:
+        dt = np.dtype(f"{'i' if params.get('signed', True) else 'u'}"
+                      f"{max(params.get('bit_width', 64), 8) // 8}")
+        flat = (flat.astype(dt) if pt == Type.INT32
+                else flat.view(dt) if flat.dtype.itemsize == dt.itemsize
+                else flat.astype(dt))
+        return _fixed_with_nulls(flat, validity, pa.from_numpy_dtype(dt))
+    tz = "UTC" if params.get("utc") else None
+    if k == LogicalKind.DATE:
+        return _fixed_with_nulls(flat.astype(np.int32, copy=False),
+                                 validity, pa.date32())
+    if k == LogicalKind.TIMESTAMP_MILLIS:
+        return _fixed_with_nulls(flat, validity, pa.timestamp("ms", tz=tz))
+    if k == LogicalKind.TIMESTAMP_MICROS:
+        return _fixed_with_nulls(flat, validity, pa.timestamp("us", tz=tz))
+    if k == LogicalKind.TIMESTAMP_NANOS:
+        return _fixed_with_nulls(flat, validity, pa.timestamp("ns", tz=tz))
+    if k == LogicalKind.TIME_MILLIS:
+        return _fixed_with_nulls(flat.astype(np.int32, copy=False),
+                                 validity, pa.time32("ms"))
+    if k == LogicalKind.TIME_MICROS:
+        return _fixed_with_nulls(flat, validity, pa.time64("us"))
+    if k == LogicalKind.DECIMAL and pt in (Type.INT32, Type.INT64):
+        return _decimal_with_nulls(
+            flat.astype(np.int64), validity,
+            pa.decimal128(params.get("precision", 18),
+                          params.get("scale", 0)))
+    return _fixed_with_nulls(flat, validity, pa.from_numpy_dtype(flat.dtype))
+
+
+def _be_bytes_to_int(vals: np.ndarray) -> np.ndarray:
+    """Big-endian two's-complement FLBA rows as int64 (decimals of at
+    most 8 bytes)."""
+    n, width = vals.shape
+    out = np.zeros(n, dtype=np.int64)
+    for k in range(width):
+        out = (out << 8) | vals[:, k].astype(np.int64)
+    bits = width * 8
+    if bits < 64:  # sign-extend from width * 8 bits
+        sign = np.int64(1) << (bits - 1)
+        out = (out ^ sign) - sign
+    return out
+
+
+def _spread(values: np.ndarray, validity: np.ndarray, fill=0) -> np.ndarray:
+    """Dense present values scattered to their slots."""
+    out = np.full(len(validity), fill, dtype=values.dtype)
+    out[validity] = values
+    return out
+
+
+def _fixed_with_nulls(values: np.ndarray, validity, pa_type):
+    import pyarrow as pa
+
+    if validity is None:
+        arr = pa.array(values)
+    else:
+        arr = pa.array(_spread(values, validity), mask=~np.asarray(validity))
+    if arr.type != pa_type:
+        arr = arr.cast(pa_type)
+    return arr
+
+
+def _decimal_with_nulls(ints: np.ndarray, validity, pa_type):
+    import pyarrow as pa
+
+    vals = ints if validity is None else _spread(ints, validity)
+    raw = np.empty((len(vals), 2), dtype=np.uint64)
+    raw[:, 0] = vals.astype(np.uint64)
+    raw[:, 1] = (vals >> 63).astype(np.int64).astype(np.uint64)
+    bufs = [None, pa.py_buffer(raw)]
+    if validity is not None:
+        bufs[0] = pa.py_buffer(np.packbits(validity, bitorder="little"))
+    return pa.Array.from_buffers(pa_type, len(vals), bufs)
+
+
+def _fsb_with_nulls(vals: np.ndarray, validity: np.ndarray, width: int):
+    import pyarrow as pa
+
+    out = np.zeros((len(validity), width), dtype=np.uint8)
+    out[validity] = vals
+    mask = pa.py_buffer(np.packbits(validity, bitorder="little"))
+    return pa.Array.from_buffers(pa.binary(width), len(validity),
+                                 [mask, pa.py_buffer(out)])
+
+
+def _wide_offsets(offsets) -> bool:
+    """True where byte-array offsets address more bytes than int32 can:
+    Arrow's LARGE layout."""
+    return (offsets is not None and len(offsets) > 1
+            and int(offsets[-1]) > _OFFSET32_LIMIT)
+
+
+def _ragged_with_nulls(values: np.ndarray, offsets: np.ndarray,
+                       validity: np.ndarray, atype):
+    import pyarrow as pa
+
+    n = len(validity)
+    lens = (offsets[1:] - offsets[:-1]).astype(np.int64)
+    slot_lens = np.zeros(n, dtype=np.int64)
+    slot_lens[validity] = lens
+    slot_offs = np.concatenate([[0], np.cumsum(slot_lens)])
+    slot_offs = slot_offs.astype(np.int64 if _wide_offsets(offsets)
+                                 else np.int32)
+    mask = pa.py_buffer(np.packbits(validity, bitorder="little"))
+    return pa.Array.from_buffers(
+        atype, n,
+        [mask, pa.py_buffer(slot_offs),
+         pa.py_buffer(np.ascontiguousarray(values).view(np.uint8))])
+
+
+def arrow_type_of(node):
+    """The pyarrow type of a schema node (a leaf or a group), as
+    :func:`_leaf_to_arrow` and ``ColumnSet.to_arrow`` build its arrays: a
+    LIST a ``list_``, a MAP a ``map_``, another group a ``struct``, a
+    repeated node a list of its type."""
+    import pyarrow as pa
+
+    from ..format.enums import FieldRepetitionType as Rep
+
+    def base(n):
+        if n.is_leaf:
+            return _leaf_arrow_type(n)
+        k = n.logical_kind
+        if k == LogicalKind.LIST and len(n.children) == 1:
+            mid = n.children[0]
+            if mid.children is not None and len(mid.children) == 1:
+                return pa.list_(arrow_type_of(mid.children[0]))  # 3-level
+            return pa.list_(base(mid))  # 2-level: the repeated element
+        if k == LogicalKind.MAP and len(n.children) == 1:
+            kv = n.children[0]
+            if kv.children is not None and len(kv.children) == 2:
+                return pa.map_(base(kv.children[0]),
+                               arrow_type_of(kv.children[1]))
+        return pa.struct([(c.name, arrow_type_of(c)) for c in n.children])
+
+    t = base(node)
+    if node.repetition == Rep.REPEATED:  # a legacy repeated field
+        t = pa.list_(t)
+    return t
+
+
+def _leaf_arrow_type(n):
+    import pyarrow as pa
+
+    k = n.logical_kind
+    pt = n.physical_type
+    p = n.logical_params or {}
+    if k == LogicalKind.UNKNOWN:
+        return pa.null()
+    if pt == Type.BOOLEAN:
+        return pa.bool_()
+    if pt == Type.BYTE_ARRAY:
+        return pa.string() if k in _STRING_KINDS else pa.binary()
+    if pt == Type.FIXED_LEN_BYTE_ARRAY:
+        if k == LogicalKind.FLOAT16:
+            return pa.float16()
+        if k == LogicalKind.DECIMAL:
+            return pa.decimal128(p.get("precision", 38), p.get("scale", 0))
+        return pa.binary(n.type_length)
+    if pt == Type.INT96:
+        return pa.timestamp("ns")
+    if pt == Type.FLOAT:
+        return pa.float32()
+    if pt == Type.DOUBLE:
+        return pa.float64()
+    if k == LogicalKind.INT:
+        bw = max(p.get("bit_width", 64), 8)
+        return pa.from_numpy_dtype(
+            np.dtype(f"{'i' if p.get('signed', True) else 'u'}{bw // 8}"))
+    if k == LogicalKind.DATE:
+        return pa.date32()
+    if k == LogicalKind.DECIMAL:
+        return pa.decimal128(p.get("precision", 38), p.get("scale", 0))
+    tz = "UTC" if p.get("utc") else None
+    if k == LogicalKind.TIMESTAMP_MILLIS:
+        return pa.timestamp("ms", tz=tz)
+    if k == LogicalKind.TIMESTAMP_MICROS:
+        return pa.timestamp("us", tz=tz)
+    if k == LogicalKind.TIMESTAMP_NANOS:
+        return pa.timestamp("ns", tz=tz)
+    if k == LogicalKind.TIME_MILLIS:
+        return pa.time32("ms")
+    if k == LogicalKind.TIME_MICROS:
+        return pa.time64("us")
+    if k == LogicalKind.TIME_NANOS:
+        return pa.time64("ns")
+    return pa.int32() if pt == Type.INT32 else pa.int64()
 
 
 def _concat_byte_arrays(values_parts, offsets_parts, sizes=None) -> tuple:

@@ -28,6 +28,7 @@ import numpy as np
 from ..format.enums import Encoding, PageType, Type
 from ..ops import ref
 from ..ops.encodings import lookup as _lookup_encoding
+from ..utils.debug import counters
 from ..utils.pool import read_admission
 
 __all__ = ["FusedUnsupported", "PageCursor", "FUSED", "reset_fused"]
@@ -86,6 +87,7 @@ class PageCursor:
             d = None
             for pg in dictionary_pages(self.chunk, self.locs[0].offset):
                 d = decode_dictionary_page(self.chunk, pg)
+                counters.inc("dict_pages_decoded")
                 break
             self._dict = d
         return self._dict

@@ -76,6 +76,7 @@ import numpy as np
 from ..errors import CorruptedError, DeadlineError
 from ..format.enums import BoundaryOrder, Type
 from ..schema.types import PHYSICAL_NP_DTYPE, LogicalKind
+from ..utils.debug import counters
 from .cache import ByteRows, PageEntry
 
 __all__ = ["KeyHits", "LookupResult", "find_rows", "dataset_find_rows"]
@@ -356,6 +357,7 @@ class _PageFetcher:
             if pages:
                 self.counters["preads"] += 1
                 self._dict = decode_dictionary_page(self.chunk, pages[0])
+                counters.inc("dict_pages_decoded")
             else:
                 self._dict = None
         return self._dict

@@ -47,6 +47,7 @@ from ..ops.encodings import (DictIndices, EncodingSpec, is_builtin_decode,
                              register_encoding)
 from ..ops.encodings import lookup as lookup_encoding
 from ..schema.schema import Leaf, Schema
+from ..utils.debug import counters
 from .column import Column, concat_columns
 from .source import Source, as_source
 
@@ -682,14 +683,51 @@ def resolve_device(device) -> torch.device:
 
 class ColumnSet(dict):
     """``{dotted path: Column}``, the result of a read or a streamed
-    batch; ``report`` is the read's
+    batch, with the JAX package's ``Table`` surface: ``schema`` (the
+    file's), ``num_rows``, ``columns`` (the set itself) and
+    :meth:`to_arrow`.  ``report`` is the read's
     :class:`~parquet_tpu_torch.io.faults.ReadReport` where it ran under a
     policy or was given one (else None), and a batch's ``read_stats`` its
     drain's prefetcher's :class:`~parquet_tpu_torch.io.prefetch.ReadStats`
-    (None without one)."""
+    (None without one).
+
+    ``spans`` name the rows the set holds, in order, as ``(ParquetFile,
+    row group, first row in it, rows)``: :meth:`to_arrow` decodes again
+    from them, with their level streams, the leaves of a field whose
+    structure the decoded columns do not carry (a struct or map under a
+    list, an optional struct above its leaves), since a read keeps no
+    level stream it was not asked for."""
 
     report = None
     read_stats = None
+
+    def __init__(self, items=(), schema=None, num_rows: int = 0,
+                 spans=(), device=None):
+        super().__init__(items)
+        self.schema = schema
+        self.num_rows = num_rows
+        self.spans = list(spans)
+        self.device = device
+
+    @property
+    def columns(self) -> "ColumnSet":
+        return self
+
+    def to_arrow(self):
+        """The set as a ``pyarrow.Table`` equal to the JAX package's
+        ``Table.to_arrow()`` of the same rows, one chunk a column (the JAX
+        package's has one a row group): each column copied to the host
+        once.  A leaf or a chain of lists converts alone
+        (:meth:`Column.to_arrow`); where every selected field is one, a
+        field the file's embedded Arrow schema declares dictionary-typed
+        stays a ``DictionaryArray`` (re-encoded where it decoded dense).  A
+        struct above any list is zipped from its children, its nulls from
+        the def levels; a struct or map inside a list is assembled from
+        the level streams with vector ops.  A partial selection of a
+        group's leaves gives those leaves flat.  Needs pyarrow."""
+        from .arrow import table_to_arrow
+
+        return table_to_arrow(self)
 
 
 class ParquetFile:
@@ -735,6 +773,7 @@ class ParquetFile:
         except BaseException:
             self.source.close()
             raise
+        counters.inc("files_opened")
 
     @property
     def _path(self) -> Optional[str]:
@@ -793,6 +832,30 @@ class ParquetFile:
         """The footer's key/value pairs as a dict."""
         return {kv.key: kv.value
                 for kv in (self.metadata.key_value_metadata or [])}
+
+    @property
+    def arrow_dictionary_fields(self) -> frozenset:
+        """The top-level fields the footer's embedded ``ARROW:schema``
+        declares dictionary-typed (empty without one, or without
+        pyarrow to parse it), parsed once."""
+        got = getattr(self, "_arrow_dict_fields", None)
+        if got is None:
+            got = frozenset()
+            blob = self.key_value_metadata().get("ARROW:schema")
+            if blob:
+                try:
+                    import base64
+
+                    import pyarrow as pa
+
+                    schema = pa.ipc.read_schema(
+                        pa.BufferReader(base64.b64decode(blob)))
+                    got = frozenset(f.name for f in schema
+                                    if pa.types.is_dictionary(f.type))
+                except Exception:  # no pyarrow, or a schema it refuses
+                    got = frozenset()
+            self._arrow_dict_fields = got
+        return got
 
     @property
     def row_groups(self) -> List[RowGroupReader]:
@@ -908,7 +971,9 @@ class ParquetFile:
             rgs = [self._row_groups[i] for i in sel]
             chunks = [rg.column(leaf.column_index)
                       for leaf in leaves for rg in rgs]
-            out = ColumnSet()
+            out = ColumnSet(schema=self.schema, device=dev,
+                            spans=[(self, i, 0, self._row_groups[i].num_rows)
+                                   for i in sel])
             with contextlib.closing(decode_chunks_pipelined(
                     chunks, dev)) as decoded:
                 it = iter(chunks)
@@ -917,6 +982,7 @@ class ParquetFile:
                     out[leaf.name] = (concat_columns(parts) if parts
                                       else _empty_column(leaf, dev))
             rows = sum(rg.num_rows for rg in rgs)
+        out.num_rows = rows
         return (out, rows) if with_rows else out
 
     def _pull(self, decoded, chunk: ColumnChunkReader) -> Column:
@@ -939,6 +1005,7 @@ class ParquetFile:
         uniq = list({leaf.name: leaf for leaf in leaves}.values())
         parts: Dict[str, List[Column]] = {leaf.name: [] for leaf in uniq}
         rows = 0
+        kept = []
         for i in sel:
             rg = self._row_groups[i]
             chunks = [rg.column(leaf.column_index) for leaf in uniq]
@@ -954,7 +1021,9 @@ class ParquetFile:
             for leaf, col in zip(uniq, cols):
                 parts[leaf.name].append(col)
             rows += rg.num_rows
-        out = ColumnSet()
+            kept.append((self, i, 0, rg.num_rows))
+        out = ColumnSet(schema=self.schema, num_rows=rows, spans=kept,
+                        device=dev)
         for leaf in leaves:
             got = parts[leaf.name]
             out[leaf.name] = (concat_columns(got) if got
@@ -1006,7 +1075,10 @@ class ParquetFile:
                          policy=policy, report=report)
 
     def close(self) -> None:
+        self.closed = True
         self.source.close()
+
+    closed = False
 
     def __enter__(self):
         return self
@@ -1275,6 +1347,7 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
         pt = page.page_type
         if pt == PageType.DICTIONARY_PAGE:
             dictionary = decode_dictionary_page(reader, page)
+            counters.inc("dict_pages_decoded")
             continue
         if pt == PageType.DATA_PAGE:
             dph = h.data_page_header
@@ -1311,6 +1384,7 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
                  else n)
         parts.append(_decode_values(raw, pos, nvals, encoding, leaf,
                                     physical, dictionary))
+        counters.inc("data_pages_decoded")
         slots += n
     values, offsets, indices = _combine(parts, dictionary, physical,
                                         keep_dictionary)

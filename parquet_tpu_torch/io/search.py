@@ -4,7 +4,9 @@ The port's cut of ``parquet_tpu/io/search.py``: :func:`find` (the
 reference's ``parquet.Find``), :func:`pages_overlapping` and
 :func:`pages_overlapping_values` over a ``ColumnIndex`` whose bounds
 :func:`decoded_bounds` decodes once per chunk; :func:`prune_file`, a
-whole file ruled out by its footer's statistics; :func:`plan_scan`, the
+whole file ruled out by its footer's statistics, and
+:func:`prune_row_group` and :func:`prune_row_group_values`, a row group
+by its chunk's statistics and bloom filter; :func:`plan_scan`, the
 batch pushdown plan of a single-column predicate (one :class:`PagePlan`
 a surviving row group, from the planner's cascade in ``io/planner.py``);
 the seek of a row span, :func:`seek_pages` and :func:`pages_and_base`
@@ -201,6 +203,65 @@ def plan_scan(pf, path, lo=None, hi=None, use_bloom: bool = False,
                           report=report)
     return planner.plan(single_pred(path, lo=lo, hi=hi, values=values),
                         use_bloom=use_bloom).page_plans()
+
+
+def _chunk_of(rg, path):
+    if isinstance(path, int):
+        return rg.column(path)
+    if isinstance(path, Leaf):
+        path = path.name
+    return rg.column(rg.file.schema.leaf(path).column_index)
+
+
+def prune_row_group(rg, path, lo=None, hi=None, use_bloom: bool = False,
+                    equals=None, device="cuda") -> bool:
+    """True when row group ``rg`` may hold a row with ``lo <= path <= hi``
+    (and, with ``equals``, ``path == equals``), by the chunk's statistics;
+    with ``use_bloom`` an ``equals`` probe also asks its bloom filter,
+    through ``check_hashes_batch`` on ``device`` (one hash takes the host
+    probe).  A probe that does not encode in the column's type is
+    inconclusive (True)."""
+    from .bloom import probe_hashes
+    from .statistics import may_contain_range
+
+    chunk = _chunk_of(rg, path)
+    lo, hi = normalize(chunk.leaf, lo), normalize(chunk.leaf, hi)
+    equals = normalize(chunk.leaf, equals)
+    st = chunk.statistics()
+    if not may_contain_range(st, lo, hi):
+        return False
+    if equals is not None and not may_contain_range(st, equals, equals):
+        return False
+    if use_bloom and equals is not None:
+        bf = chunk.bloom_filter()
+        h = None if bf is None else probe_hashes(chunk.leaf, [equals])
+        if h is not None and not bf.check_hashes_batch(
+                h, device=device).any():
+            return False
+    return True
+
+
+def prune_row_group_values(rg, path, sorted_vals: List,
+                           hashes: Optional[np.ndarray] = None,
+                           device="cuda") -> bool:
+    """IN-list pruning: True when row group ``rg`` may hold one of
+    ``sorted_vals``.  The statistics meet the sorted probes (one bisect);
+    with ``hashes`` (the probes' xxh64) the bloom filter is probed for the
+    whole batch at once by ``check_hashes_batch`` on ``device``: a batch
+    of at least ``SplitBlockFilter._DEVICE_PROBE_MIN`` hashes launches
+    ``bloom_check`` there."""
+    chunk = _chunk_of(rg, path)
+    st = chunk.statistics()
+    if st is not None and st.min_value is not None \
+            and st.max_value is not None:
+        if not _any_in_range(sorted_vals, st.min_value, st.max_value):
+            return False
+    if hashes is not None:
+        bf = chunk.bloom_filter()
+        if bf is not None and not bf.check_hashes_batch(
+                hashes, device=device).any():
+            return False
+    return True
 
 
 def prune_file(pf, path=None, lo=None, hi=None,

@@ -39,6 +39,7 @@ import torch
 
 from ..errors import CorruptedError, DeadlineError, _Unsupported
 from ..format.enums import PageType
+from ..utils.debug import counters
 from .column import Column, concat_columns
 from .faults import read_context, resolve_policy
 from .reader import (ColumnSet, PageTable, _select_leaves, decode_chunk_host,
@@ -242,6 +243,7 @@ class _ChunkCursor:
             t = page.header.type
             if t == PageType.DICTIONARY_PAGE:
                 self.dictionary = decode_dictionary_page(self.chunk, page)
+                counters.inc("dict_pages_decoded")
                 self.dictionary_dev = None
                 continue
             if t not in _DATA_PAGES:
@@ -399,10 +401,13 @@ def _iter_batches_impl(pf, paths, batch_rows, strict_batch_rows, device,
     rg_rows_left = 0
     pending: Dict[str, List[_Slice]] = {p: [] for p in paths}
     pending_rows = 0
+    pending_spans = []  # (pf, row group, first row, rows) of the batch
 
     def flush() -> ColumnSet:
-        nonlocal pending, pending_rows
-        out = ColumnSet((p, _concat_pending(pending[p])) for p in paths)
+        nonlocal pending, pending_rows, pending_spans
+        out = ColumnSet(((p, _concat_pending(pending[p])) for p in paths),
+                        schema=pf.schema, num_rows=pending_rows,
+                        spans=pending_spans, device=device)
         if report is not None:
             report.rows_read += pending_rows
             out.report = report
@@ -410,6 +415,7 @@ def _iter_batches_impl(pf, paths, batch_rows, strict_batch_rows, device,
         STREAM["batches"] += 1
         pending = {p: [] for p in paths}
         pending_rows = 0
+        pending_spans = []
         return out
 
     try:
@@ -450,6 +456,8 @@ def _iter_batches_impl(pf, paths, batch_rows, strict_batch_rows, device,
                 continue
             for p in paths:
                 pending[p].extend(taken[p])
+            pending_spans.append((pf, rg_index, rg.num_rows - rg_rows_left,
+                                  take))
             pending_rows += take
             rg_rows_left -= take
             if rg_rows_left == 0:

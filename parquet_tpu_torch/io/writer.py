@@ -1163,16 +1163,21 @@ def _slice_cd(leaf: Leaf, cd: ColumnData, r0: int, r1: int,
     return out
 
 
-def write_table(table: Dict[str, object], sink,
-                options: Optional[WriterOptions] = None,
+def write_table(table, sink, options: Optional[WriterOptions] = None,
                 schema: Optional[Schema] = None) -> ParquetWriter:
-    """Write ``{name: array or ColumnData}`` to ``sink`` (a path or a binary
-    file object) in row groups of ``options.row_group_size`` rows;
-    returns the closed writer (its ``write_stats``).  ``schema`` is
-    needed where the table holds ColumnData.  Torch tensors, on the CPU
-    or on a card, are copied to the host once, here.  A failure aborts
-    the writer (a path leaves no file) and raises."""
+    """Write ``{name: array or ColumnData}``, or a ``pyarrow.Table``, to
+    ``sink`` (a path or a binary file object) in row groups of
+    ``options.row_group_size`` rows; returns the closed writer (its
+    ``write_stats``).  ``schema`` is needed where the table holds
+    ColumnData; an Arrow table's is :func:`schema_from_arrow`'s by
+    default, and its columns come in through :func:`columns_from_arrow`
+    (a dict imports no pyarrow).  Torch tensors, on the CPU or on a card,
+    are copied to the host once, here.  A failure aborts the writer (a
+    path leaves no file) and raises."""
     options = options or WriterOptions()
+    if not isinstance(table, dict):  # a pyarrow.Table
+        schema = schema or schema_from_arrow(table.schema)
+        table = columns_from_arrow(table, schema)
     table = {name: _host_cd(v) if isinstance(v, ColumnData) else _host(v)
              for name, v in table.items()}
     schema = schema or schema_of(table)
@@ -1204,3 +1209,272 @@ def write_table(table: Dict[str, object], sink,
                                      ctxs[leaf.name])
                 for leaf in schema.leaves}, end - start)
     return w
+
+
+# ---------------------------------------------------------------------------
+# Arrow in: the JAX package's schema and column mapping
+# ---------------------------------------------------------------------------
+
+
+def schema_from_arrow(aschema) -> Schema:
+    """The Parquet schema tree of a ``pyarrow.Schema``: a nullable field
+    OPTIONAL, a list the three-level LIST, a struct a group, a map the
+    MAP group, a leaf by :func:`_arrow_leaf_type` (``TypeError`` for a
+    type with no mapping)."""
+    import pyarrow as pa
+
+    from ..schema import schema as sch
+
+    def field_node(f):
+        rep = Rep.OPTIONAL if f.nullable else Rep.REQUIRED
+        t = f.type
+        if pa.types.is_list(t) or pa.types.is_large_list(t):
+            elem = field_node(pa.field("element", t.value_type,
+                                       nullable=t.value_field.nullable))
+            return sch.list_of(f.name, elem, rep)
+        if pa.types.is_struct(t):
+            return sch.group(f.name, [field_node(t.field(i))
+                                      for i in range(t.num_fields)], rep)
+        if pa.types.is_map(t):
+            key = field_node(pa.field("key", t.key_type, nullable=False))
+            val = field_node(pa.field("value", t.item_type))
+            return sch.map_of(f.name, key, val, rep)
+        phys, kind, params, tl = _arrow_leaf_type(t)
+        return sch.leaf(f.name, phys, rep, kind, type_length=tl, **params)
+
+    return Schema(sch.Node("schema", children=[field_node(f)
+                                               for f in aschema]))
+
+
+def _arrow_leaf_type(t):
+    """``(physical type, logical kind, logical parameters, FLBA width)`` of
+    an Arrow leaf type, as pyarrow's writer maps it."""
+    import pyarrow as pa
+
+    from ..schema.types import LogicalKind as K
+
+    if pa.types.is_null(t):  # the Null logical type over INT32
+        return Type.INT32, K.UNKNOWN, {}, None
+    if pa.types.is_boolean(t):
+        return Type.BOOLEAN, K.NONE, {}, None
+    if pa.types.is_int8(t):
+        return Type.INT32, K.INT, {"bit_width": 8, "signed": True}, None
+    if pa.types.is_int16(t):
+        return Type.INT32, K.INT, {"bit_width": 16, "signed": True}, None
+    if pa.types.is_int32(t):
+        return Type.INT32, K.NONE, {}, None
+    if pa.types.is_int64(t):
+        return Type.INT64, K.NONE, {}, None
+    if pa.types.is_uint8(t):
+        return Type.INT32, K.INT, {"bit_width": 8, "signed": False}, None
+    if pa.types.is_uint16(t):
+        return Type.INT32, K.INT, {"bit_width": 16, "signed": False}, None
+    if pa.types.is_uint32(t):
+        return Type.INT32, K.INT, {"bit_width": 32, "signed": False}, None
+    if pa.types.is_uint64(t):
+        return Type.INT64, K.INT, {"bit_width": 64, "signed": False}, None
+    if pa.types.is_float16(t):
+        return Type.FIXED_LEN_BYTE_ARRAY, K.FLOAT16, {}, 2
+    if pa.types.is_float32(t):
+        return Type.FLOAT, K.NONE, {}, None
+    if pa.types.is_float64(t):
+        return Type.DOUBLE, K.NONE, {}, None
+    if pa.types.is_string(t) or pa.types.is_large_string(t):
+        return Type.BYTE_ARRAY, K.STRING, {}, None
+    if pa.types.is_binary(t) or pa.types.is_large_binary(t):
+        return Type.BYTE_ARRAY, K.NONE, {}, None
+    if pa.types.is_fixed_size_binary(t):
+        return Type.FIXED_LEN_BYTE_ARRAY, K.NONE, {}, t.byte_width
+    if pa.types.is_date32(t):
+        return Type.INT32, K.DATE, {}, None
+    if pa.types.is_timestamp(t):
+        unit = {"ms": K.TIMESTAMP_MILLIS, "us": K.TIMESTAMP_MICROS,
+                "ns": K.TIMESTAMP_NANOS}.get(t.unit, K.TIMESTAMP_MICROS)
+        return Type.INT64, unit, {"utc": t.tz is not None}, None
+    if pa.types.is_time32(t):
+        return Type.INT32, K.TIME_MILLIS, {"utc": True}, None
+    if pa.types.is_time64(t):
+        return Type.INT64, K.TIME_MICROS, {"utc": True}, None
+    if pa.types.is_decimal(t):
+        params = {"scale": t.scale, "precision": t.precision}
+        if t.precision <= 9:
+            return Type.INT32, K.DECIMAL, params, None
+        if t.precision <= 18:
+            return Type.INT64, K.DECIMAL, params, None
+        return Type.FIXED_LEN_BYTE_ARRAY, K.DECIMAL, params, 16
+    raise TypeError(f"unsupported arrow type {t!r}")
+
+
+def columns_from_arrow(table, schema: Schema) -> Dict[str, ColumnData]:
+    """``{dotted path: ColumnData}`` of an Arrow table (or slice) for
+    ``schema``'s leaves: the one way Arrow data comes in (``write_table``
+    and the buffers' ``write_arrow``).  A flat leaf under a struct that is
+    null somewhere gets its exact def levels, so a null struct and a
+    struct of nulls write apart."""
+    import pyarrow as pa
+
+    cols: Dict[str, ColumnData] = {}
+    for leaf in schema.leaves:
+        arr = table[leaf.path[0]]
+        if isinstance(arr, pa.ChunkedArray):
+            arr = (arr.chunk(0) if arr.num_chunks == 1
+                   else arr.combine_chunks())
+        cd = _column_from_arrow(arr, leaf)
+        if (len(leaf.path) > 1 and leaf.max_repetition_level == 0
+                and cd.def_levels is None
+                and _struct_chain_has_nulls(arr, leaf)):
+            cd.def_levels = _struct_def_levels(arr, schema, leaf)
+        cols[leaf.name] = cd
+    return cols
+
+
+def _struct_chain_has_nulls(arr, leaf: Leaf) -> bool:
+    """True where a struct layer on the path to ``leaf`` has a null."""
+    import pyarrow as pa
+
+    a = arr
+    for name in leaf.path[1:]:
+        if not pa.types.is_struct(a.type):
+            return False
+        if a.null_count:
+            return True
+        a = a.field(name)
+    return False
+
+
+def _struct_def_levels(arr, schema: Schema, leaf: Leaf) -> np.ndarray:
+    """The def levels of a flat struct chain, one a row: a level for each
+    OPTIONAL node present along ``leaf.path``, stopping at the first null
+    ancestor (Arrow leaves the slots under a null parent unspecified)."""
+    node = schema.root
+    d = np.zeros(len(arr), np.int32)
+    alive = np.ones(len(arr), bool)
+    a = arr
+    for i, name in enumerate(leaf.path):
+        node = next(c for c in node.children if c.name == name)
+        if node.repetition == Rep.OPTIONAL:
+            ok = alive & ~np.asarray(a.is_null()) if a.null_count else alive
+            d[ok] += 1
+            alive = ok
+        if i + 1 < len(leaf.path):
+            a = a.field(leaf.path[i + 1])
+    return d
+
+
+def _column_from_arrow(arr, leaf: Leaf, pos: int = 1) -> ColumnData:
+    """One leaf's buffers out of ``arr`` (the top-level array, or one
+    already descended to ``leaf.path[pos - 1]``): a struct descends by
+    field name with its nulls folded into the child; a chain of lists
+    (and maps) gives one offsets array a level, outermost first, with
+    each level's null lists (their spans of child values dropped); a leaf
+    its dense present values and validity.  A null struct under a list
+    raises ``NotImplementedError`` (write such data through the row or
+    typed writers)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    t = arr.type
+    if pa.types.is_struct(t):
+        if arr.null_count and leaf.max_repetition_level > 0:
+            raise NotImplementedError(
+                f"column {leaf.name}: null struct values mixed with "
+                "repetition are not supported by the arrow ingestion path "
+                "(write via rows/typed API for exact def levels)")
+        child = arr.field(leaf.path[pos])
+        if arr.null_count:
+            child = pc.if_else(pc.is_valid(arr), child,
+                               pa.scalar(None, type=child.type))
+        return _column_from_arrow(child, leaf, pos + 1)
+    if pa.types.is_list(t) or pa.types.is_large_list(t) or pa.types.is_map(t):
+        offsets_per_level, validity_per_level = [], []
+        a = arr
+        while True:
+            ty = a.type
+            if pa.types.is_map(ty):
+                child = a.keys if leaf.path[pos + 1] == "key" else a.items
+            elif pa.types.is_list(ty) or pa.types.is_large_list(ty):
+                child = a.values
+            else:
+                break
+            lv = ~np.asarray(a.is_null()) if a.null_count else None
+            raw = np.asarray(a.offsets, dtype=np.int64)
+            pos += 2
+            if raw[0] != 0 or len(child) != raw[-1]:  # a sliced parent
+                child = child.slice(raw[0], raw[-1] - raw[0])
+            offs = raw - raw[0]
+            if lv is not None:
+                # a null list's span may still cover child values, which
+                # Parquet has no slot for: drop them, zero its length
+                lens = np.diff(offs)
+                if lens[~lv].any():
+                    child = child.filter(pa.array(np.repeat(lv, lens)))
+                    offs = np.zeros(len(offs), np.int64)
+                    np.cumsum(np.where(lv, lens, 0), out=offs[1:])
+            offsets_per_level.append(offs)
+            validity_per_level.append(lv)
+            a = child
+        inner = _column_from_arrow(a, leaf, pos)
+        inner.list_offsets = offsets_per_level
+        inner.list_validity = validity_per_level
+        return inner
+    if pa.types.is_null(t):  # an untyped all-null column
+        return ColumnData(values=np.empty(0, np.int32),
+                          validity=np.zeros(len(arr), bool))
+    validity = ~np.asarray(arr.is_null()) if arr.null_count else None
+    if pa.types.is_string(t) or pa.types.is_binary(t) or \
+            pa.types.is_large_string(t) or pa.types.is_large_binary(t):
+        # the present values straight from the Arrow buffers
+        dense = arr.drop_null()
+        large = pa.types.is_large_string(t) or pa.types.is_large_binary(t)
+        bufs = dense.buffers()
+        o0 = dense.offset
+        offs = np.frombuffer(bufs[1], np.int64 if large else np.int32)[
+            o0:o0 + len(dense) + 1].astype(np.int64)
+        data = (np.frombuffer(bufs[2], np.uint8)[offs[0]:offs[-1]]
+                if len(dense) else np.empty(0, np.uint8))
+        return ColumnData(values=data, offsets=offs - offs[0],
+                          validity=validity)
+    if pa.types.is_boolean(t):
+        return ColumnData(values=np.asarray(arr.drop_null()),
+                          validity=validity)
+    if pa.types.is_float16(t):
+        dense = np.asarray(arr.drop_null()).astype(np.float16)
+        return ColumnData(values=dense.view(np.uint8).reshape(-1, 2),
+                          validity=validity)
+    if pa.types.is_fixed_size_binary(t):
+        dense = arr.drop_null()
+        w = t.byte_width
+        flat = np.frombuffer(dense.buffers()[1], np.uint8)[
+            dense.offset * w:(dense.offset + len(dense)) * w]
+        return ColumnData(values=flat.reshape(-1, w), validity=validity)
+    if pa.types.is_decimal(t):
+        dense = arr.drop_null()
+        ints = np.asarray([int(x.as_py().scaleb(t.scale)) for x in dense],
+                          dtype=np.int64)
+        phys = leaf.physical_type
+        if phys == Type.INT32:
+            return ColumnData(values=ints.astype(np.int32),
+                              validity=validity)
+        if phys == Type.INT64:
+            return ColumnData(values=ints, validity=validity)
+        w = leaf.type_length
+        be = np.zeros((len(ints), w), np.uint8)
+        for k in range(w):
+            be[:, w - 1 - k] = (ints >> (8 * k)) & 0xFF
+        return ColumnData(values=be, validity=validity)
+    # fixed-width numbers, dates, times and timestamps
+    dense = arr.drop_null()
+    return ColumnData(values=np.asarray(dense.cast(_storage_type(t))),
+                      validity=validity)
+
+
+def _storage_type(t):
+    import pyarrow as pa
+
+    if pa.types.is_date32(t):
+        return pa.int32()
+    if pa.types.is_timestamp(t) or pa.types.is_time64(t):
+        return pa.int64()
+    if pa.types.is_time32(t):
+        return pa.int32()
+    return t

@@ -83,6 +83,7 @@ from ..ops import device as dev
 from ..ops import encodings, host, kernels, levels, ref
 from ..schema.types import (PHYSICAL_TORCH_DTYPE, PHYSICAL_WIDTH,
                             empty_values)
+from ..utils.debug import annotate, counters
 
 _M32 = 0xFFFFFFFF
 
@@ -982,6 +983,7 @@ class _StagingBatch:
         current stream (the host buffer itself on the CPU)."""
         if device.type == "cpu":
             return self.host
+        counters.inc("bytes_h2d", self.nbytes)
         buf = torch.empty(self.nbytes, dtype=torch.uint8, device=device)
         buf.copy_(self.host, non_blocking=True)
         return buf
@@ -1379,12 +1381,20 @@ def _bss_decode(buf: torch.Tensor, pages, width: int,
 def decode_staged(plan: _Plan, staged: tuple, device: torch.device,
                   keep_levels: bool = False,
                   keep_dictionary: bool = False) -> Column:
-    """Device decode phase: staged tensors -> :class:`Column`.  With
+    """Device decode phase: staged tensors -> :class:`Column`, in the
+    profiler region ``pq.decode_staged:<value kind>``.  With
     ``keep_levels`` a repeated column (and a struct chain) also keeps its
     Dremel level streams on the host (``def_levels``, ``rep_levels``).
     With ``keep_dictionary`` a dictionary-encoded chunk of any physical
     type stays ``(dictionary, dict_indices)`` on the device (``values``
     None): its indexes unpack, nothing gathers."""
+    with annotate(f"pq.decode_staged:{plan.value_kind}"):
+        return _decode_staged(plan, staged, device, keep_levels,
+                              keep_dictionary)
+
+
+def _decode_staged(plan: _Plan, staged: tuple, device: torch.device,
+                   keep_levels: bool, keep_dictionary: bool) -> Column:
     leaf, physical = plan.leaf, plan.physical
     lev_dbuf, val_dbuf, meta = staged
     _wait_for_copy(meta)
@@ -1511,12 +1521,14 @@ def reset_pipeline() -> None:
 def _prepare(reader, device: torch.device, pages=None, dictionary=None,
              dictionary_dev=None) -> tuple:
     """Prescan, staging batch packed, copy enqueued on the calling thread's
-    copy stream: ``(plan, staged)``."""
-    plan = build_plan(reader, pages, dictionary)
-    plan.dictionary_dev = dictionary_dev
-    batch = _StagingBatch()
-    staged = stage_plan(plan, device, batch.put)
-    staged, ready = batch.commit(staged, device, side_stream=True)
+    copy stream, in the profiler region ``pq.prepare_chunk``: ``(plan,
+    staged)``."""
+    with annotate("pq.prepare_chunk"):
+        plan = build_plan(reader, pages, dictionary)
+        plan.dictionary_dev = dictionary_dev
+        batch = _StagingBatch()
+        staged = stage_plan(plan, device, batch.put)
+        staged, ready = batch.commit(staged, device, side_stream=True)
     if ready is not None:
         staged[2]["ready"] = ready
     return plan, staged
@@ -1546,10 +1558,13 @@ def decode_chunk_span(reader, device, pages=None,
         pages = PageTable.of(data)
     try:
         plan, staged = _prepare(reader, device, pages, dictionary)
-        return decode_staged(plan, staged, device, keep_levels=keep_levels,
-                             keep_dictionary=keep_dictionary)
+        col = decode_staged(plan, staged, device, keep_levels=keep_levels,
+                            keep_dictionary=keep_dictionary)
+        counters.inc("chunks_device_decoded")
+        return col
     except _Unsupported as e:
         HOST_ROUTE[e.reason] += 1
+        counters.inc("chunks_host_fallback")
         return decode_chunk_host(reader, device, pages=pages,
                                  dictionary=dictionary,
                                  keep_dictionary=keep_dictionary)
@@ -1572,15 +1587,16 @@ def prepare_chunks_batched(readers, device) -> list:
     device = torch.device(device)
     batch = _StagingBatch()
     entries = []
-    for reader in readers:
-        try:
-            plan = build_plan(reader)
-            entries.append((reader, plan, stage_plan(plan, device,
-                                                     batch.put), None))
-        except _Unsupported as e:
-            entries.append((reader, None, None, e))
-    staged_all, ready = batch.commit([e[2] for e in entries], device,
-                                     side_stream=True)
+    with annotate("pq.prepare_chunks_batched"):
+        for reader in readers:
+            try:
+                plan = build_plan(reader)
+                entries.append((reader, plan, stage_plan(plan, device,
+                                                         batch.put), None))
+            except _Unsupported as e:
+                entries.append((reader, None, None, e))
+        staged_all, ready = batch.commit([e[2] for e in entries], device,
+                                         side_stream=True)
     out = []
     for (reader, plan, _, err), staged in zip(entries, staged_all):
         if err is None and ready is not None:
@@ -1723,6 +1739,7 @@ def _host_route(reader, err: _Unsupported, device) -> Column:
 
     HOST_ROUTE[err.reason] += 1
     PIPELINE["chunks_host_fallback"] += 1
+    counters.inc("chunks_host_fallback")
     return decode_chunk_host(reader, device)
 
 
@@ -1735,6 +1752,7 @@ def _decode_serial(chunks, device) -> Iterator[Column]:
             col = _host_route(reader, e, device)
         else:
             PIPELINE["chunks_device_decoded"] += 1
+            counters.inc("chunks_device_decoded")
         yield col
 
 
@@ -1746,6 +1764,7 @@ def _decode_pipelined(chunks, device, workers: int) -> Iterator[Column]:
             pass  # the one-plan path below decides
         else:
             PIPELINE["chunks_device_decoded"] += 1
+            counters.inc("chunks_device_decoded")
             yield col
             return
     threads = _native_threads(workers)
@@ -1757,6 +1776,7 @@ def _decode_pipelined(chunks, device, workers: int) -> Iterator[Column]:
             active[0] += 1
             PIPELINE["stage_concurrency_peak"] = max(
                 PIPELINE["stage_concurrency_peak"], active[0])
+            counters.high_water("stage_concurrency_peak", active[0])
         try:
             with host.native_thread_cap(threads):
                 return prepare_chunk(reader, device), None
@@ -1783,6 +1803,7 @@ def _decode_pipelined(chunks, device, workers: int) -> Iterator[Column]:
             else:
                 col = decode_staged(*prepped, device)
                 PIPELINE["chunks_device_decoded"] += 1
+                counters.inc("chunks_device_decoded")
             del prepped
             yield col
     finally:

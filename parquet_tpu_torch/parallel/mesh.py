@@ -45,12 +45,13 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..errors import CorruptedError, _Unsupported, unsupported
+from ..errors import CorruptedError, _Unsupported
 from ..format.enums import Type
 from ..io.reader import ParquetFile, _select_leaves, resolve_device
 from ..ops import device as dev
 from ..ops import host, ref
 from ..utils import pool as _pool
+from ..utils.debug import counters
 from . import device_reader
 
 #: the mesh routes' counters: files decoded on the device route, files
@@ -172,8 +173,62 @@ class ShardedTable:
         return [bytes(dvals[doffs[i]:doffs[i + 1]]) for i in np.asarray(ids)]
 
     def to_arrow(self):
-        raise unsupported("ShardedTable.to_arrow", "arrow interop (the "
-                          "card's machine has no pyarrow)")
+        """Every shard brought to the host as one ``pyarrow.Table``, shard
+        after shard, the padding dropped: a dictionary-index column as a
+        ``DictionaryArray`` over its unified dictionary, a ragged column
+        as one chunk a shard, the others by the leaf's type
+        (``io/column.py::_leaf_to_arrow``, as ``ColumnSet.to_arrow``);
+        the columns in the file's schema order.  Needs pyarrow."""
+        import pyarrow as pa
+
+        from ..io.column import _leaf_to_arrow
+
+        masks = [m.cpu().numpy() for m in self.row_mask()]
+
+        def rows(shards):
+            return np.concatenate([s.cpu().numpy()[m]
+                                   for s, m in zip(shards, masks)])
+
+        cols = {}
+        for path, shards in self.arrays.items():
+            leaf = self.leaves.get(path)
+            host_rows = rows(shards)
+            valid = rows(self.validity[path]) if path in self.validity \
+                else None
+            if path in self.dictionaries:
+                dvals, doffs = self.dictionaries[path]
+                entries = _leaf_to_arrow(leaf, np.asarray(dvals),
+                                         np.asarray(doffs, np.int64), None)
+                ids = host_rows.astype(np.int32)
+                ia = (pa.array(ids, mask=~valid) if valid is not None
+                      else pa.array(ids))
+                cols[path] = pa.DictionaryArray.from_arrays(ia, entries)
+            elif leaf is None:  # a table built by hand: numpy's types
+                cols[path] = (pa.array(host_rows, mask=~valid)
+                              if valid is not None else pa.array(host_rows))
+            elif valid is not None:
+                cols[path] = _leaf_to_arrow(leaf, host_rows[valid], None,
+                                            valid)
+            else:
+                cols[path] = _leaf_to_arrow(leaf, host_rows, None, None)
+        for path, (bshards, oshards) in self.ragged.items():
+            leaf = self.leaves.get(path)
+            chunks = []
+            for d, rc in enumerate(self.row_counts):
+                o = oshards[d].cpu().numpy()[:rc + 1]
+                seg = bshards[d].cpu().numpy()[:int(o[-1]) if rc else 0]
+                if path in self.validity:
+                    v = self.validity[path][d].cpu().numpy()[:rc]
+                    # null slots are empty: the dense offsets are the slot
+                    # offsets without the null entries
+                    chunks.append(_leaf_to_arrow(
+                        leaf, seg, np.concatenate([o[:-1][v], o[-1:]]), v))
+                else:
+                    chunks.append(_leaf_to_arrow(leaf, seg, o, None))
+            cols[path] = pa.chunked_array(chunks)
+        order = [p for p in self.leaves if p in cols]
+        order += [p for p in cols if p not in self.leaves]
+        return pa.table({p: cols[p] for p in order})
 
     @property
     def shard_rows(self) -> int:
@@ -197,6 +252,7 @@ def _decode_prepped(reader, prepped, err, device: torch.device) -> tuple:
     if err is None:
         plan, staged = prepped
         col = device_reader.decode_staged(plan, staged, device)
+        counters.inc("chunks_device_decoded")
         return col, plan.total_slots - plan.total_values, \
             plan.dictionary_host
     _count("chunks_host_fallback")

@@ -88,6 +88,12 @@ KNOBS = {
     "PARQUET_TPU_TORCH_WRITE_AUTOTUNE": (
         "1", "0 keeps the writeback buffer fixed; else it grows or "
         "shrinks with the flushes a row group earlier writers needed"),
+    "PARQUET_TPU_TORCH_DEBUG": (
+        "0", "1 makes utils/debug.py::trace log each call of the "
+        "functions it decorates, with its wall time, to stderr"),
+    "PARQUET_TPU_TORCH_TRACE_DIR": (
+        "", "the directory utils/debug.py::profiler_trace writes its "
+        "Chrome trace into when the caller names none; unset: no trace"),
 }
 
 

@@ -1684,3 +1684,115 @@ def test_table_compaction_on_card_as_on_cpu(cuda_device, tmp_path, sort):
         assert _settled_allocated(cuda_device) <= before
         assert pqt.recover_table(d) == []
     assert parts["cpu"] == parts[str(cuda_device)]
+
+
+@pytest.mark.cuda
+def test_card_read_counters(cuda_device, tmp_path):
+    """A card read counts every chunk decoded on the device, none on the
+    host route, the staged bytes it copied, and agrees with ``PIPELINE``
+    on the names both keep."""
+    path = str(tmp_path / "f.parquet")
+    _five_columns(path)
+    pf = pqt.ParquetFile(path)
+    pqt.reset_pipeline()
+    pqt.counters.reset()
+    pf.read(device=cuda_device)
+    snap = pqt.counters.snapshot()
+    assert snap["chunks_device_decoded"] == len(pf.row_groups) * 3
+    assert snap.get("chunks_host_fallback", 0) == 0
+    assert snap["bytes_h2d"] > 0
+    for name in ("chunks_device_decoded", "chunks_host_fallback",
+                 "stage_concurrency_peak"):
+        assert snap.get(name, 0) == pqt.PIPELINE[name]
+
+
+@pytest.mark.cuda
+def test_traced_card_read(cuda_device, tmp_path):
+    """A card read under ``profiler_trace`` writes a Chrome trace with the
+    read's regions and each unpack kernel as often as ``LAUNCHES``
+    counted, and its columns equal an untraced read's."""
+    import json
+    import os
+
+    from parquet_tpu_torch.utils.debug import profiler_trace
+
+    path = str(tmp_path / "f.parquet")
+    _five_columns(path)
+    want = {n: c.to("cpu") for n, c in
+            pqt.ParquetFile(path).read(device=cuda_device).items()}
+    out = str(tmp_path / "trace")
+    pqt.reset_launches()
+    with profiler_trace(out):
+        got = pqt.ParquetFile(path).read(device=cuda_device)
+        torch.cuda.synchronize()
+    _same_columns({n: c.to("cpu") for n, c in got.items()}, want)
+    (name,) = os.listdir(out)
+    with open(os.path.join(out, name)) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    assert "pq.prepare_chunk" in names
+    assert any(n.startswith("pq.decode_staged:") for n in names)
+    for kernel in ("unpack_bits_dense", "dict_unpack_gather"):
+        assert pqt.LAUNCHES[kernel] > 0
+        assert sum(1 for e in events if e.get("cat") == "kernel"
+                   and f"{kernel}_kernel" in e.get("name", "")) \
+            == pqt.LAUNCHES[kernel]
+
+
+@pytest.mark.cuda
+def test_row_group_pruning_probe_on_card(cuda_device, tmp_path):
+    """``prune_row_group_values`` with 40,000 hashes over every row
+    group's key range probes each row group's filter on the card (one
+    ``bloom_check`` launch a row group) and answers as on the CPU."""
+    from parquet_tpu_torch.io.bloom import probe_hashes
+    from parquet_tpu_torch.io.search import prune_row_group_values
+
+    path = str(tmp_path / "b.parquet")
+    pqt.write_table({"k": np.arange(80_000, dtype=np.int64) * 2}, path,
+                    pqt.WriterOptions(row_group_size=20_000,
+                                      bloom_filters={"k": 10}))
+    pf = pqt.ParquetFile(path)
+    for vals in (list(range(1, 160_000, 4)), list(range(0, 160_000, 4))):
+        hashes = probe_hashes(pf.schema.leaf("k"), vals)
+        pqt.reset_launches()
+        got = [prune_row_group_values(rg, "k", vals, hashes=hashes,
+                                      device=cuda_device)
+               for rg in pf.row_groups]
+        assert pqt.LAUNCHES["bloom_check"] == len(pf.row_groups)
+        want = [prune_row_group_values(rg, "k", vals, hashes=hashes,
+                                       device="cpu")
+                for rg in pf.row_groups]
+        assert got == want
+
+
+@pytest.mark.cuda
+def test_to_arrow_of_a_card_read(cuda_device, tmp_path):
+    """Where pyarrow is installed, a card read's ``to_arrow`` (its nested
+    fields' level streams decoded again on the card) equals the CPU
+    read's, whole and batch by batch."""
+    pa = pytest.importorskip("pyarrow")
+    papq = pytest.importorskip("pyarrow.parquet")
+    elem = pa.struct([("a", pa.int32()), ("b", pa.string())])
+    n = 20_000
+    t = pa.table({
+        "k": pa.array(np.arange(n, dtype=np.int64)),
+        "s": pa.array([f"s{i % 13}" for i in range(n)]),
+        "st": pa.array([None if i % 7 == 1 else {"a": i, "b": None}
+                        for i in range(n)], elem),
+        "ls": pa.array([None if i % 9 == 0 else
+                        [None if (i + j) % 5 == 0 else {"a": j, "b": "x"}
+                         for j in range(i % 4)] for i in range(n)],
+                       pa.list_(elem)),
+        "mp": pa.array([[(f"k{j}", i * j) for j in range(i % 3)]
+                        for i in range(n)], pa.map_(pa.string(),
+                                                    pa.int64()))})
+    path = str(tmp_path / "nested.parquet")
+    papq.write_table(t, path, row_group_size=5_000, data_page_size=4096)
+    pf = pqt.ParquetFile(path)
+    got = pf.read(device=cuda_device).to_arrow()
+    assert got.equals(pf.read(device="cpu").to_arrow())
+    for c in t.column_names:
+        assert got[c].to_pylist() == t[c].to_pylist()
+    for b, cb in zip(pf.iter_batches(batch_rows=3_000, device=cuda_device),
+                     pf.iter_batches(batch_rows=3_000, device="cpu")):
+        assert b.to_arrow().equals(cb.to_arrow())

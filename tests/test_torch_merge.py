@@ -229,8 +229,21 @@ def test_table_buffer_sorts_as_jax(sorting):
     jbuf.flush_to(jw)
     jw.close()
     _same_file(out.getvalue(), jout.getvalue())
-    with pytest.raises(NotImplementedError, match="arrow interop"):
-        tbuf.write_arrow(table)
+    # the same rows as a pyarrow.Table, as the JAX package's buffer takes
+    # them (``write_arrow`` refused until the Arrow slice)
+    tbuf = TA.TableBuffer(tschema, [TA.SortingColumn(*s) for s in sorting])
+    jbuf = JA.TableBuffer(jschema, [JA.SortingColumn(*s) for s in sorting])
+    tbuf.write_arrow(table)
+    jbuf.write_arrow(table)
+    np.testing.assert_array_equal(tbuf.sort_indices(), jbuf.sort_indices())
+    out, jout = io.BytesIO(), io.BytesIO()
+    w = pqt.ParquetWriter(out, tschema)
+    tbuf.flush_to(w)
+    w.close()
+    jw = parquet_tpu.ParquetWriter(jout, jschema)
+    jbuf.flush_to(jw)
+    jw.close()
+    _same_file(out.getvalue(), jout.getvalue())
 
 
 # ---------------------------------------------------------------------------
@@ -589,9 +602,15 @@ def test_sorting_writer_leaves_no_spill(tmp_path):
     with pytest.raises(OSError):
         w.close()
     assert not os.path.exists(w._tmpdir)
-    with pytest.raises(NotImplementedError, match="arrow interop"):
-        TA.SortingWriter(io.BytesIO(), schema, [], device=CPU).write_arrow(
-            None)
+    # rows given as a pyarrow.Table spill and go the same way
+    w = TA.SortingWriter(str(tmp_path / "d.parquet"), schema,
+                         [TA.SortingColumn("k")], buffer_rows=300,
+                         device=CPU)
+    w.write_arrow(tables[0])
+    assert w.spills
+    w.abort()
+    assert not os.path.exists(w._tmpdir)
+    assert not (tmp_path / "d.parquet").exists()
 
 
 def test_merge_paths_are_cuda_by_default(monkeypatch):
