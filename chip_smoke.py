@@ -236,35 +236,34 @@ Phases, each fatal on failure:
    group alone (the rest equal), and the clean file's read with and
    without the check, best of 3 warm each (``{"crc": ...}``);
 5i. what reads through the stream (the typed reader and writer, the row
-   model, the ordered merge and sort), each check fatal: (a) 524,288
-   (cut from 1,048,576 for the script's time when phase 5j came)
-   seeded ``Event`` dataclasses (unique ``id``, ``region`` of 200,
+   model, the ordered merge and sort), each check fatal; every size here
+   was halved when phase 5j came and again when phase 5n came, for the
+   script's time: (a) 262,144 seeded ``Event`` dataclasses (unique ``id``, ``region`` of 200,
    ``user`` of 20,000, a UTC ``ts``, a ``day``, ``score`` 5 % None, 0-4
    ``tags`` of 32, 0-3 ``attrs``, ``geo`` 10 % None) written by
    ``write_objects`` with the default options (Snappy, checked) in
-   262,144-row row groups, drained by ``TypedReader(..., batch_rows=65,536,
+   131,072-row row groups, drained by ``TypedReader(..., batch_rows=65,536,
    device="cuda").read(100,000)`` to the end and read by
    ``read_objects``, both equal to the generated objects (a null ``geo``
    read as ``Geo(None, None)``, as the JAX package reads it),
    ``read_pytree`` equal to ``ParquetFile.read``, both unpack kernels
    launched and the card's allocated bytes back (``{"typed": ...}``);
-   (b) 131,072 Documents (cut from 262,144 likewise) of the Dremel
-   paper's schema written by
-   ``write_rows`` (65,536-row row groups, 8 KiB pages, page index),
+   (b) 65,536 Documents of the Dremel paper's schema written by
+   ``write_rows`` (32,768-row row groups, 8 KiB pages, page index),
    ``read_rows(device="cuda")`` equal to the records, ``FileRows.seek_to_row``
    at 16 offsets (0, a page boundary, a row-group boundary, the last row,
    one past the end, 11 seeded) and ``read_rows(4,096)`` equal to the
    records there, ``copy_rows`` into a second file whose whole read
    equals the first's (``{"rows": ...}``); (c) phase 4b's lineitem at
-   4 x 1,048,576 rows (8 runs cut to 4 for the phase's time)
+   4 x 524,288 rows (8 runs cut to 4 for the phase's time)
    lexsorted by (``l_orderkey``, ``l_extendedprice``) and dealt round
-   robin into 4 sorted runs (Snappy, 524,288-row row
+   robin into 4 sorted runs (Snappy, 262,144-row row
    groups), merged by ``merge_files(..., batch_rows=65,536,
    device="cuda")`` equal to the sorted input (tie groups as sets) and
    by ``iter_merged`` in sorted chunks that concatenate to it
-   (``{"merge": ...}``); (d) 1,048,576 lineitem rows in a seeded order
+   (``{"merge": ...}``); (d) 524,288 lineitem rows in a seeded order
    through ``SortingWriter`` by (``l_shipdate`` descending,
-   ``l_orderkey``, ``l_extendedprice``), ``buffer_rows=131,072`` (8
+   ``l_orderkey``, ``l_extendedprice``), ``buffer_rows=65,536`` (8
    spills), equal to the input sorted so on the host, no spill left
    after ``close`` nor after an ``abort`` (``{"sort": ...}``).  Each line
    gives the write, the cold run and the best of 2 warm runs beside as
@@ -4088,22 +4087,25 @@ def stream_path(card: str, read: dict, item: dict, nested: dict,
 # phase 5i: typed reads, rows, merge and sort
 # ---------------------------------------------------------------------------
 
-TYPED_ROWS = 1 << 19  # cut from 1 << 20 when phase 5j came: the script's time
-TYPED_ROW_GROUP = 1 << 18
+# phase 5i's depth, halved again when phase 5n came (the script's time;
+# 5i took 181 s of it before): each size and row group below is half of
+# what it was, so every file keeps its count of row groups
+TYPED_ROWS = 1 << 18  # 1 << 20 before phase 5j, 1 << 19 before 5n
+TYPED_ROW_GROUP = 1 << 17
 TYPED_BATCH = 65_536
 TYPED_READ = 100_000
-DOC_ROWS = 1 << 17  # cut from 1 << 18 likewise
-DOC_ROW_GROUP = 1 << 16
+DOC_ROWS = 1 << 16  # 1 << 18 before phase 5j, 1 << 17 before 5n
+DOC_ROW_GROUP = 1 << 15
 DOC_PAGE = 8 << 10
 DOC_SEEKS = 16
 DOC_SEEK_ROWS = 4_096
 MERGE_RUNS = 4  # 8 runs cut to 4: phase 5i's merges took 270 s at 8
-MERGE_RUN_ROWS = 1 << 20
-MERGE_ROW_GROUP = 1 << 19
+MERGE_RUN_ROWS = 1 << 19  # 1 << 20 before phase 5n
+MERGE_ROW_GROUP = 1 << 18
 MERGE_BATCH = 65_536
 MERGE_KEYS = ("l_orderkey", "l_extendedprice")
-SORT_ROWS = 1 << 20
-SORT_BUFFER = 131_072
+SORT_ROWS = 1 << 19  # 1 << 20 before phase 5n
+SORT_BUFFER = 65_536
 SORT_KEYS = (("l_shipdate", True), ("l_orderkey", False),
              ("l_extendedprice", False))
 WARM_5I = 2  # warm runs a path, the best of them reported
@@ -4247,8 +4249,8 @@ def codecs_of(path: str) -> set:
 
 
 def typed_path(card: str, seed: int, tmp: str) -> dict:
-    """Phase 5i(a): 524,288 ``Event``s written by ``write_objects`` with
-    the default options (Snappy, 262,144-row row groups), drained by
+    """Phase 5i(a): 262,144 ``Event``s written by ``write_objects`` with
+    the default options (Snappy, 131,072-row row groups), drained by
     ``TypedReader(..., batch_rows=65,536, device="cuda").read(100,000)``
     to the end, equal to the generated objects, as ``read_objects``;
     ``read_pytree`` equal to ``ParquetFile.read``; both unpack kernels
@@ -4403,7 +4405,7 @@ def same_host_columns(a: dict, b: dict, what: str) -> None:
 
 
 def rows_path(card: str, seed: int, tmp: str) -> dict:
-    """Phase 5i(b): 131,072 Documents written by ``write_rows`` (65,536-row
+    """Phase 5i(b): 65,536 Documents written by ``write_rows`` (32,768-row
     row groups, 8 KiB pages, page index); ``read_rows(device="cuda")``
     equal to the records; ``FileRows.seek_to_row`` at 16 offsets (0, a
     page boundary, a row-group boundary, the last row, one past the end,
@@ -4590,8 +4592,8 @@ def merge_steps() -> dict:
 
 def merge_path(card: str, seed: int, tmp: str) -> dict:
     """Phase 5i(c): phase 4b's lineitem generator at MERGE_RUNS x
-    1,048,576 rows, lexsorted by (``l_orderkey``, ``l_extendedprice``) and
-    dealt round robin into MERGE_RUNS sorted runs (Snappy, 524,288-row row
+    524,288 rows, lexsorted by (``l_orderkey``, ``l_extendedprice``) and
+    dealt round robin into MERGE_RUNS sorted runs (Snappy, 262,144-row row
     groups, ``l_orderkey`` DELTA_BINARY_PACKED as a sorted key is
     written), whose key ranges overlap completely; ``merge_files(...,
     batch_rows=65,536, device="cuda")`` equal to the sorted input (tie
@@ -4680,9 +4682,9 @@ def sort_dirs() -> set:
 
 
 def sort_path(card: str, seed: int, tmp: str) -> dict:
-    """Phase 5i(d): 1,048,576 lineitem rows in a seeded random order
+    """Phase 5i(d): 524,288 lineitem rows in a seeded random order
     through ``SortingWriter`` by (``l_shipdate`` descending,
-    ``l_orderkey``, ``l_extendedprice``) with ``buffer_rows=131,072``:
+    ``l_orderkey``, ``l_extendedprice``) with ``buffer_rows=65,536``:
     8 spills, merged on the card; the output equal to the input sorted
     that way on the host (tie groups as sets); no spill left after
     ``close``, nor after an ``abort``."""
@@ -5034,7 +5036,8 @@ def aggregate_path(card: str, rows: int, seed: int, tmp: str,
     log({"aggregate": {"card": card, "rows": rows, "generate_s": gen_s,
                        "q1_write_s": write_s, "range": [lo, hi],
                        "queries": out}})
-    return {"launches": total}
+    return {"launches": total, "path": path,
+            "dictionary": (queries["dictionary"][1], dict_want)}
 
 
 WRITE_ROWS = 1 << 21  # phase 4's first two row groups, cut from 8,388,608
@@ -5850,6 +5853,254 @@ def table_path(card: str, rows: int, seed: int, tmp: str,
         "compaction": compaction, "sorted": sorted_out, "crash": crash,
         "launches": launches, "host_route": dict(pq.HOST_ROUTE)}})
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 5n: remote sources on the card
+# ---------------------------------------------------------------------------
+
+#: the faults of phase 5n's faulted read, drawn per (range, attempt) from
+#: the run's seed; two in a row at most, so four retries always recover
+REMOTE_FAULTS = dict(refuse_rate=0.1, reset_rate=0.1, status_rate=0.1,
+                     status_code=503, throttle_rate=0.1, retry_after=0.0,
+                     max_consecutive=2)
+#: the hedge delay pinned for phase 5n's hedged read, in seconds
+REMOTE_HEDGE_S = "0.005"
+REMOTE_WARM = 3  # warm reads of each file, the best reported
+
+
+def gets_of(server, name: str, since: int) -> tuple:
+    """``(GETs, bytes asked for)`` of ``name`` in the server's log from
+    entry ``since`` on."""
+    n = nbytes = 0
+    for method, obj, rng in server.requests[since:]:
+        if method == "GET" and obj == name:
+            n += 1
+            if rng:
+                lo, hi = rng.split("=", 1)[1].split("-")
+                nbytes += int(hi) - int(lo) + 1
+    return n, nbytes
+
+
+def launched(run):
+    """``(run(), launches by kernel during it)``."""
+    before = dict(pq.LAUNCHES)
+    out = run()
+    return out, {k: v - before[k] for k, v in pq.LAUNCHES.items()}
+
+
+def join_remote_threads() -> None:
+    """Wait for the hedge race's attempts that are still out."""
+    for t in threading.enumerate():
+        if t.name in ("pqt-remote-pread", "pqt-remote-hedge"):
+            t.join(timeout=120)
+
+
+def remote_path(card: str, read: dict, look_path: str, lookup_rows: int,
+                seed: int, parts: list, agg: dict) -> dict:
+    """Phase 5n: the port's remote sources on the card, each check fatal.
+    One ``LocalRangeServer`` on 127.0.0.1 serves from memory phase 4's
+    5-column file, phase 5's lookup file, phase 5j's Q1 file and phase
+    5c's 8 lineitem parts (under ``bucket/parts/``, with the s3 dialect);
+    a server that cannot bind fails the phase.  (a) ``ParquetFile(url)
+    .read(device="cuda")`` once cold and ``REMOTE_WARM`` times warm, each
+    equal to the local read bit for bit and launching each unpack kernel
+    as often as it; its GETs and the bytes they asked for against the
+    file's size, its best warm wall against the local read's; a warm
+    re-open sends one HEAD and no GET.  (b) the read through
+    ``FaultInjectingRemoteTransport`` (:data:`REMOTE_FAULTS`, the run's
+    seed) under ``FaultPolicy(max_retries=4)``: equal, with
+    ``ReadReport.retries > 0``.  (c) the read with the first attempt of
+    every range stalled (until released after the read) and
+    ``PARQUET_TPU_TORCH_REMOTE_HEDGE`` pinned: equal, with
+    ``remote.hedges_won > 0``.  (d) ``Dataset`` over the parts' http
+    prefix and their ``s3://bucket/parts/`` prefix, each equal to the
+    local ``Dataset`` read of the parts.  (e) phase 5's lookup over its
+    URL: hits equal to the local lookup's, ``bloom_check`` launched.  (f)
+    phase 5j's dictionary-tier aggregate over its URL: answers equal to
+    the local ones and the numpy oracle, its ranges fetched at once
+    (``remote.parallel_preads``), ``unpack_bits_dense`` launched.  Its
+    launches are those of the URL runs."""
+    from parquet_tpu_torch.io import remote
+
+    t0 = time.perf_counter()
+    files = {}
+    for name, path in (("main.parquet", read["path"]),
+                       ("lookup.parquet", look_path),
+                       ("q1.parquet", agg["path"])):
+        with open(path, "rb") as f:
+            files[name] = f.read()
+    for i, path in enumerate(parts):
+        with open(path, "rb") as f:
+            files[f"bucket/parts/part-{i:02d}.parquet"] = f.read()
+    server = pq.LocalRangeServer(files, s3_dialect=True)
+    load_s = time.perf_counter() - t0
+    size = len(files["main.parquet"])
+    out = {"card": card, "served_bytes": sum(map(len, files.values())),
+           "load_s": load_s}
+    del files
+    total = dict.fromkeys(pq.LAUNCHES, 0)
+    try:
+        url = server.url("main.parquet")
+        reset_routes()
+        # (a) the plain read, against the local one
+        local_s = []
+        for _ in range(REMOTE_WARM):
+            (local, s), local_launches = launched(
+                lambda: timed_read(read["path"]))
+            local_s.append(s)
+        walls, gets = [], []
+        for i in range(REMOTE_WARM + 1):
+            mark = len(server.requests)
+            (got, s), n = launched(lambda: timed_read(url))
+            same_bits(got, local, f"phase 5n: read {i} of the URL")
+            del got
+            if any(n[k] != local_launches[k] for k in READ_KERNELS):
+                raise AssertionError(f"phase 5n: the URL read launched {n}, "
+                                     f"the local read {local_launches}")
+            for k, v in n.items():
+                total[k] += v
+            walls.append(s)
+            gets.append(gets_of(server, "main.parquet", mark))
+        heads = server.request_count("main.parquet", "HEAD")
+        mark = len(server.requests)
+        pq.ParquetFile(url).close()
+        if (server.request_count("main.parquet", "HEAD") != heads + 1
+                or gets_of(server, "main.parquet", mark)[0]):
+            raise AssertionError("phase 5n: a warm re-open sent more than "
+                                 "one HEAD")
+        out["read"] = {
+            "file_bytes": size, "local_warm_s": local_s,
+            "cold_s": walls[0], "warm_s": walls[1:],
+            "best_warm_s": min(walls[1:]),
+            "best_local_s": min(local_s),
+            "vs_local": min(walls[1:]) / min(local_s),
+            "gets": [g[0] for g in gets],
+            "bytes_asked": [g[1] for g in gets],
+            "bytes_over_file": [g[1] / size for g in gets],
+            "launches": local_launches}
+        # (b) through the fault injector, under retries
+        tr = pq.FaultInjectingRemoteTransport(pq.HttpTransport(url),
+                                              seed=seed, **REMOTE_FAULTS)
+        rep = pq.ReadReport()
+        t0 = time.perf_counter()
+        got, n = launched(lambda: pq.ParquetFile(
+            pq.HttpSource(url, transport=tr),
+            policy=pq.FaultPolicy(max_retries=4, backoff_s=0.0)).read(
+                device=DEVICE, report=rep))
+        torch.cuda.synchronize()
+        faulted_s = time.perf_counter() - t0
+        same_bits(got, local, "phase 5n: the faulted read")
+        del got
+        if rep.retries <= 0:
+            raise AssertionError(f"phase 5n: the faulted read retried "
+                                 f"nothing ({dataclasses.asdict(tr.stats)})")
+        for k, v in n.items():
+            total[k] += v
+        out["faulted"] = {"wall_s": faulted_s, "retries": rep.retries,
+                          "injected": dataclasses.asdict(tr.stats)}
+        # (c) every range's first attempt stalled: the hedge wins
+        release = threading.Event()
+        tr = pq.FaultInjectingRemoteTransport(
+            pq.HttpTransport(url), stall_s=600.0, stall_attempts=1,
+            stall_release=release)
+        before = pq.metrics_snapshot()
+        try:
+            with knobs(PARQUET_TPU_TORCH_REMOTE_HEDGE=REMOTE_HEDGE_S):
+                (got, s), n = launched(lambda: timed_read(
+                    pq.HttpSource(url, transport=tr)))
+        finally:
+            release.set()
+            join_remote_threads()
+        delta = pq.metrics_delta(before, pq.metrics_snapshot())["counters"]
+        same_bits(got, local, "phase 5n: the hedged read")
+        del got, local
+        if not delta.get("remote.hedges_won"):
+            raise AssertionError(f"phase 5n: no hedge won: {delta}")
+        for k, v in n.items():
+            total[k] += v
+        out["hedged"] = {"wall_s": s, "hedge_s": float(REMOTE_HEDGE_S),
+                         "stalls": tr.stats.stalls,
+                         "hedges_issued": delta.get("remote.hedges_issued"),
+                         "hedges_won": delta["remote.hedges_won"],
+                         "hedge_in_flight_bytes":
+                             remote.hedge_in_flight_bytes()}
+        # (d) the parts through a listed http prefix and an s3 prefix
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = pq.Dataset(parts).read(device=DEVICE)
+        torch.cuda.synchronize()
+        out["dataset"] = {"local_s": time.perf_counter() - t0}
+        endpoint = f"http://{server.host}:{server.port}"
+        with knobs(PARQUET_TPU_TORCH_S3_ENDPOINT=endpoint):
+            for how, arg in (("http", server.url("bucket/parts/")),
+                             ("s3", "s3://bucket/parts/")):
+                t0 = time.perf_counter()
+                ds = pq.Dataset(arg)
+                if len(ds.paths) != len(parts):
+                    raise AssertionError(f"phase 5n: {how} listing gave "
+                                         f"{ds.paths}")
+                got, n = launched(lambda: ds.read(device=DEVICE))
+                torch.cuda.synchronize()
+                out["dataset"][f"{how}_s"] = time.perf_counter() - t0
+                same_bits(got, want, f"phase 5n: the {how} Dataset")
+                del got
+                for k, v in n.items():
+                    total[k] += v
+        del want
+        # (e) the lookup over the URL
+        keys = make_keys(lookup_rows, seed)
+        pq.clear_caches()
+        want, local_s = timed_lookup(pq.ParquetFile(look_path), keys,
+                                     DEVICE)
+        pq.clear_caches()
+        (got, s), n = launched(lambda: timed_lookup(
+            pq.ParquetFile(server.url("lookup.parquet")), keys, DEVICE))
+        same_hits(got, want, "phase 5n: the URL lookup")
+        if got.counters != want.counters:
+            raise AssertionError(f"phase 5n: lookup counters {got.counters}"
+                                 f" != {want.counters}")
+        if not n["bloom_check"]:
+            raise AssertionError("phase 5n: the URL lookup launched no "
+                                 "bloom_check")
+        for k, v in n.items():
+            total[k] += v
+        out["lookup"] = {"keys": len(keys), "local_s": local_s, "url_s": s,
+                         "launches": n}
+        del got, want
+        # (f) the dictionary-tier aggregate over the URL
+        kw, dict_want = agg["dictionary"]
+        want = pq.ParquetFile(agg["path"]).aggregate(device=DEVICE, **kw)
+        before = pq.metrics_snapshot()
+        t0 = time.perf_counter()
+        got, n = launched(lambda: pq.ParquetFile(
+            server.url("q1.parquet")).aggregate(device=DEVICE, **kw))
+        agg_s = time.perf_counter() - t0
+        delta = pq.metrics_delta(before, pq.metrics_snapshot())["counters"]
+        _check_agg(got, dict_want, "phase 5n aggregate")
+        if dict(got.items()) != dict(want.items()) \
+                or got.counters != want.counters:
+            raise AssertionError(f"phase 5n: aggregate {dict(got.items())} "
+                                 f"!= {dict(want.items())}")
+        if not delta.get("remote.parallel_preads") \
+                or not n["unpack_bits_dense"]:
+            raise AssertionError(f"phase 5n: the URL aggregate fetched "
+                                 f"{delta} and launched {n}")
+        for k, v in n.items():
+            total[k] += v
+        out["aggregate"] = {"wall_s": agg_s, "tiers": {
+            k: v for k, v in got.counters.items() if v},
+            "parallel_preads": delta["remote.parallel_preads"],
+            "launches": n}
+        no_host_route("phase 5n")
+    finally:
+        remote.drain_connection_pools()
+        server.close()
+    out["requests"] = len(server.requests)
+    check_launched("phase 5n", total, READ_KERNELS + ("bloom_check",))
+    out["launches"] = total
+    log({"remote": out})
+    return {"launches": total}
 
 
 # ---------------------------------------------------------------------------
@@ -7800,6 +8051,9 @@ def main(argv=None) -> int:
                       args.seed, tmp, multi["paths"])
         debug = phase("5m_debug", debug_path, card, read, look["path"],
                       args.lookup_rows, args.seed, tmp)
+        remote = phase("5n_remote", remote_path, card, read, look["path"],
+                       args.lookup_rows, args.seed, multi["paths"],
+                       aggregate)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -7812,7 +8066,8 @@ def main(argv=None) -> int:
                       "struct_keys": struct, "resilience": resilience,
                       "stream": stream, "typed_rows_merge": typed_rows,
                       "aggregate": aggregate, "write": write,
-                      "table": table, "debug": debug})
+                      "table": table, "debug": debug,
+                      "remote": remote})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

@@ -53,7 +53,13 @@ ingests and commits a snapshot atomically, ``open_table`` pins one (its
 zone maps drop a part from a scan or an aggregate without opening it, and
 its reads run on the card), ``compact_table`` and ``BackgroundCompactor``
 merge parts on the card, and ``recover_table`` sweeps what a crash left
-(``SharedCrashState``, ``table_crash_check``).  Where pyarrow is
+(``SharedCrashState``, ``table_crash_check``).  Every read, stream,
+lookup, scan, aggregate and ``Dataset`` opens ``http(s)://`` and
+``s3://`` URLs too (``HttpSource``, ``ObjectStoreSource``): hedged
+preads, per-host circuit breakers, auth hooks, prefix listings, and a
+remote aggregate that fetches its ranges at once; the loopback
+``LocalRangeServer`` and ``FaultInjectingRemoteTransport`` test them, and
+``metrics_snapshot`` reads the ``remote.*`` meters.  Where pyarrow is
 installed, a read converts to a ``pyarrow.Table`` (``Table.to_arrow``;
 ``Table`` is the read's ``ColumnSet``) and ``write_table`` takes one
 (``schema_from_arrow``); nothing else imports pyarrow.  ``counters``
@@ -70,6 +76,8 @@ counts the read's events, ``utils/debug.py::profiler_trace`` records a
     rows = pq.scan_expr(pq.ParquetFile("x.parquet"),
                         (col("x") >= 2) & ~(col("x") == 4))    # on the host
     rows = pq.scan(pq.ParquetFile("x.parquet"), "x", lo=2, hi=5)  # routed
+    table = pq.ParquetFile("http://host/x.parquet").read()  # remote
+    table = pq.Dataset("s3://bucket/parts/").read()     # listed prefix
     table = pq.Dataset("parts/*.parquet").read()            # every card
     table = pq.Dataset("parts/*.parquet").read(["cpu"] * 8)  # 8 shards
     rows = pq.Dataset("parts/*.parquet").scan("x", values=[3, 7])
@@ -112,7 +120,10 @@ from .dataset_writer import (BackgroundCompactor, DatasetWriter,
 from .io.manifest import Manifest, ManifestEntry, read_manifest
 from .errors import (ColumnTooDeepError, CorruptedError, DeadlineError,
                      MissingRootColumnError, ReadError, ReadIOError,
-                     ShortReadError, TooManyRowGroupsError, WriteError)
+                     RemoteCircuitOpenError, RemoteError,
+                     RemoteTerminalError, RemoteThrottledError,
+                     RemoteTransientError, ShortReadError,
+                     TooManyRowGroupsError, WriteError)
 from .algebra.aggregate import (AggExpr, avg, count, count_distinct, max_,
                                 min_, sum_, sum_sq, top_k, variance)
 from .io.aggregate import (AGG, AggregateResult, decode_agg_state,
@@ -120,10 +131,14 @@ from .io.aggregate import (AGG, AggregateResult, decode_agg_state,
 from .io.fused import FUSED, reset_fused
 from .ops.encodings import (DictIndices, EncodingSpec, register_encoding,
                             registered_encodings)
-from .io.faults import (FaultInjectingSink, FaultInjectingSource,
-                        FaultPolicy, InjectedWriterCrash, PolicySource,
+from .io.faults import (FaultInjectingRemoteTransport, FaultInjectingSink,
+                        FaultInjectingSource, FaultPolicy,
+                        InjectedWriterCrash, LocalRangeServer, PolicySource,
                         ReadReport, SharedCrashState, SinkFaultStats,
                         crash_consistency_check, table_crash_check)
+from .io.remote import (CircuitBreaker, HttpSource, HttpTransport,
+                        ObjectStoreSource)
+from .obs.metrics import metrics_delta, metrics_snapshot, reset_metrics
 from .io.integrity import IntegrityIssue, IntegrityReport, verify_file
 from .io.sink import (AtomicFileSink, BufferedSink, FileSink, Sink,
                       WriteStats)
@@ -139,7 +154,8 @@ from .io.prefetch import PrefetchSource, ReadStats
 from .io.reader import ColumnSet, ParquetFile, ReadOptions, RowGroupReader
 from .io.search import (find, pages_overlapping, plan_scan, prune_row_group,
                         read_row_range)
-from .io.source import MmapSource, RetryingSource, Source
+from .io.source import (MmapSource, PreloadedSource, RetryingSource,
+                        Source)
 from .io.stream import STREAM, iter_batches, reset_stream
 from .io.writer import (ColumnData, ParquetWriter, WriterOptions,
                         schema_from_arrow, write_table)
@@ -212,7 +228,13 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "compact_table", "BackgroundCompactor", "Manifest",
            "ManifestEntry", "read_manifest", "SharedCrashState",
            "table_crash_check", "Table", "schema_from_arrow", "counters",
-           "print_schema", "print_file", "print_pages", "prune_row_group"]
+           "print_schema", "print_file", "print_pages", "prune_row_group",
+           "RemoteError", "RemoteTransientError", "RemoteThrottledError",
+           "RemoteTerminalError", "RemoteCircuitOpenError",
+           "FaultInjectingRemoteTransport", "LocalRangeServer",
+           "CircuitBreaker", "HttpSource", "HttpTransport",
+           "ObjectStoreSource", "PreloadedSource", "metrics_snapshot",
+           "metrics_delta", "reset_metrics"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

@@ -11,8 +11,9 @@
 // them a greedy Snappy encoder (the public format: one hash table per
 // 64 KiB block, literal, copy-1 and copy-2 tags), the PLAIN BYTE_ARRAY
 // encoder, the hybrid encoder of the writer's levels and dictionary
-// indexes (ops/ref.py's algorithm), first-seen byte-array dictionary
-// building and the common prefixes of front coding.
+// indexes (ops/ref.py's algorithm), first-seen dictionary building of
+// byte arrays and of fixed-width values (as int64 keys), and the common
+// prefixes of front coding.
 //
 // Every function checks its bounds itself: a malformed stream returns an
 // error code, never reads or writes outside the buffers it was given.
@@ -295,6 +296,54 @@ int64_t pq_dict_build_ba(const uint8_t* data, const int64_t* offsets,
       const int64_t r = first_rows[id];
       if (hashes[(size_t)id] == h && offsets[r + 1] - offsets[r] == len &&
           memcmp(data + offsets[r], p, (size_t)len) == 0) {
+        indices[i] = id;
+        break;
+      }
+      s = (s + 1) & (cap - 1);
+    }
+  }
+  return n_unique;
+}
+
+// First-seen dictionary of n int64 keys (a fixed-width column's bit
+// patterns): indices[i] is the id of key i, uniques[id] the key.  The
+// table starts small and doubles at half load, so a long column of few
+// values never allocates for max_unique.  Returns the number of distinct
+// keys, or -1 once it would exceed max_unique.
+int64_t pq_dict_build_i64(const int64_t* keys, int64_t n, int64_t max_unique,
+                          int64_t* indices, int64_t* uniques) {
+  int64_t cap = 256;
+  std::vector<int64_t> slots((size_t)cap, -1);
+  const auto slot_of = [&](int64_t v) {
+    uint64_t h = (uint64_t)v * 0x9E3779B97F4A7C15ull;  // Fibonacci hash
+    h ^= h >> 29;
+    return (int64_t)(h & (uint64_t)(cap - 1));
+  };
+  int64_t n_unique = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t v = keys[i];
+    int64_t s = slot_of(v);
+    while (true) {
+      const int64_t id = slots[(size_t)s];
+      if (id < 0) {
+        if (n_unique == max_unique) return -1;
+        if (2 * (n_unique + 1) > cap) {  // rehash the ids into a larger table
+          cap <<= 1;
+          slots.assign((size_t)cap, -1);
+          for (int64_t u = 0; u < n_unique; ++u) {
+            int64_t t = slot_of(uniques[u]);
+            while (slots[(size_t)t] >= 0) t = (t + 1) & (cap - 1);
+            slots[(size_t)t] = u;
+          }
+          s = slot_of(v);
+          continue;
+        }
+        slots[(size_t)s] = n_unique;
+        uniques[n_unique] = v;
+        indices[i] = n_unique++;
+        break;
+      }
+      if (uniques[id] == v) {
         indices[i] = id;
         break;
       }

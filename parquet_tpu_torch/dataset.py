@@ -50,7 +50,10 @@ def expand_paths(paths_or_glob) -> List[str]:
     """Paths and glob patterns as one path list: a pattern expands sorted
     (``**`` recurses), explicit paths keep the caller's order, a repeated
     path keeps its first place, and a path that exists is never read as a
-    pattern (``part[1].parquet``).  A pattern that matches nothing raises
+    pattern (``part[1].parquet``).  A URL is taken literally, except that
+    an ``http(s)://`` or ``s3://`` prefix ending in ``/`` expands, sorted,
+    through its listing (``io/remote.py::list_prefix``,
+    ``list_prefix_s3``).  A pattern or prefix that matches nothing raises
     ``FileNotFoundError``."""
     if isinstance(paths_or_glob, (str, os.PathLike)):
         items = [os.fspath(paths_or_glob)]
@@ -59,7 +62,16 @@ def expand_paths(paths_or_glob) -> List[str]:
     out: List[str] = []
     seen = set()
     for item in items:
-        if _GLOB_CHARS & set(item) and not os.path.lexists(item):
+        if "://" in item:
+            if (item.startswith(("http://", "https://", "s3://"))
+                    and item.endswith("/")):
+                from .io.remote import list_prefix, list_prefix_s3
+
+                got = (list_prefix_s3 if item.startswith("s3://")
+                       else list_prefix)(item)
+            else:
+                got = [item]
+        elif _GLOB_CHARS & set(item) and not os.path.lexists(item):
             got = sorted(_glob.glob(item, recursive="**" in item))
             if not got:
                 raise FileNotFoundError(f"glob {item!r} matched no files")

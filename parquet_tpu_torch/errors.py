@@ -4,8 +4,9 @@ The port's copy of the parts of ``parquet_tpu/errors.py`` its slices
 raise: the read hierarchy (:class:`ReadError` and its subclasses) that
 ``io/faults.py::read_context`` wraps a read's failures in, the schema's
 and the writer's limits (:class:`MissingRootColumnError`,
-:class:`ColumnTooDeepError`, :class:`TooManyRowGroupsError`) and
-:class:`WriteError`.  The remote errors come with ``io/remote.py``.
+:class:`ColumnTooDeepError`, :class:`TooManyRowGroupsError`),
+:class:`WriteError`, and the remote sources' hierarchy under
+:class:`RemoteError` (``io/remote.py`` raises it).
 """
 
 
@@ -51,6 +52,66 @@ class ShortReadError(ReadIOError):
     """A source gave fewer bytes than asked (a torn file, a buggy mount):
     corruption, never retried.  ``read_context`` adds the place where the
     source raised without one."""
+
+
+class RemoteError(ReadIOError):
+    """A remote source's failure with its network context: host, HTTP
+    status, attempt and byte range, named in the message.  ``retryable``
+    is what the retry loop (``io/faults.py::is_corrupt_oserror``) reads:
+    a transient failure (refused or reset connection, 5xx, 429, a stalled
+    or torn body) is tried again under the policy's backoff, a terminal
+    one (another 4xx, an unsatisfiable range) raises at once and is
+    dropped like corruption by ``on_corrupt='skip_row_group'``."""
+
+    retryable = False
+
+    def __init__(self, message: str, host=None, status=None, attempt=None,
+                 offset=None, size=None, path=None):
+        loc = []
+        if host is not None:
+            loc.append(f"host={host}")
+        if status is not None:
+            loc.append(f"status={status}")
+        if attempt is not None:
+            loc.append(f"attempt={attempt}")
+        if offset is not None and size is not None:
+            loc.append(f"range={offset}+{size}")
+        ReadError.__init__(
+            self, f"{message} [{' '.join(loc)}]" if loc else message,
+            path=path)
+        self.host = host
+        self.status = status
+        self.attempt = attempt
+        self.offset = offset
+        self.size = size
+
+
+class RemoteTransientError(RemoteError):
+    """A retryable remote failure: a refused or reset connection, 5xx, a
+    stalled or torn body, a wrong range."""
+
+    retryable = True
+
+
+class RemoteThrottledError(RemoteTransientError):
+    """HTTP 429: retryable, and the retry loop waits at least the server's
+    ``Retry-After`` seconds (``retry_after``) before the next attempt."""
+
+    def __init__(self, message: str, retry_after=None, **kw):
+        super().__init__(message, **kw)
+        self.retry_after = retry_after
+
+
+class RemoteTerminalError(RemoteError):
+    """A remote answer a retry cannot change: 4xx, an unsatisfiable
+    range.  Classified as corruption."""
+
+
+class RemoteCircuitOpenError(RemoteTransientError):
+    """The refusal of a host's open circuit breaker
+    (``io/remote.py::CircuitBreaker``): the request never reached the
+    network.  Retryable: the policy's backoff is the pause the breaker
+    wants, and a later attempt may be its half-open probe."""
 
 
 class WriteError(OSError):

@@ -39,6 +39,12 @@ decimal and INT96 values (``host_folds_values``), every group-by fold
 ``PARQUET_TPU_TORCH_FUSED=on``).  Results are the JAX package's Python
 types (``int``, ``float``, ``bool``, ``bytes``), never tensors.
 
+Over a remote source (``io/remote.py``), a row group's disjoint byte
+ranges are fetched at once, one a pooled connection
+(``parallel_preads``, at most ``PARQUET_TPU_TORCH_REMOTE_PARALLEL``), and
+its resolution reads them from memory (``io/source.py::
+PreloadedSource``).
+
 A corrupt row group under ``on_corrupt='skip_row_group'`` drops its
 contribution whole (accumulated into a delta, merged only on success),
 recorded in the ``ReadReport``; :meth:`AggregateResult.explain` says
@@ -49,6 +55,7 @@ rounding; every other aggregate is exact.
 
 from __future__ import annotations
 
+import contextlib
 import heapq
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -862,11 +869,13 @@ def _page_bounds(ci, leaf, ords):
 
 
 def _resolve_rg(pf, rg, expr, aggs: Sequence[AggExpr], leaves, group_leaf,
-                device):
+                device, pslots: int = 0):
     """Resolve one row group into fresh accumulator deltas: ``(tier, accs,
     groups, note)``, ``accs`` None where the group contributes nothing.
     Raises CorruptedError/DeadlineError for the caller's policy; nothing
-    merges on failure, so a skipped group drops whole."""
+    merges on failure, so a skipped group drops whole.  With ``pslots``
+    of 2 or more (a remote source's connection slots), the disjoint byte
+    ranges the resolution will read are fetched at once first."""
     alive, killer = _eval_tree(expr, lambda p: _stats_alive(p, rg))
     if not alive:
         note = f"pruned by stats ({killer!r})" if killer is not None \
@@ -877,11 +886,14 @@ def _resolve_rg(pf, rg, expr, aggs: Sequence[AggExpr], leaves, group_leaf,
     accs = [_Acc(a, leaves[i]) for i, a in enumerate(aggs)]
     groups: Optional[dict] = {} if group_leaf is not None else None
     if covered:
-        if group_leaf is not None:
-            _group_full(pf, rg, reader, aggs, leaves, group_leaf, groups)
-        else:
-            for acc in accs:
-                _contrib_full(pf, rg, reader, acc)
+        with _prewarmed(pf, rg, expr, aggs, leaves, group_leaf, pslots,
+                        True, None, None, None):
+            if group_leaf is not None:
+                _group_full(pf, rg, reader, aggs, leaves, group_leaf,
+                            groups)
+            else:
+                for acc in accs:
+                    _contrib_full(pf, rg, reader, acc)
         tier = ("decoded" if reader.decoded
                 else "dict" if reader.dict_used else "stats")
         return tier, accs, groups, f"covered, answered by {tier}"
@@ -893,32 +905,153 @@ def _resolve_rg(pf, rg, expr, aggs: Sequence[AggExpr], leaves, group_leaf,
     cov = may if cov is None else _intersect_intervals(cov, may)
     contended = _subtract_intervals(may, cov)
     cursors = None
-    if group_leaf is None and not any(a.kind == "top_k" for a in aggs):
-        cursors = _fused_cursors(rg, reader, expr, accs, cov, contended)
-    if cursors is not None:
-        from .fused import FUSED
+    with _prewarmed(pf, rg, expr, aggs, leaves, group_leaf, pslots, False,
+                    may, cov, contended):
+        if group_leaf is None and not any(a.kind == "top_k" for a in aggs):
+            cursors = _fused_cursors(rg, reader, expr, accs, cov, contended)
+        if cursors is not None:
+            from .fused import FUSED
 
-        masks = _contended_masks_fused(expr, cursors, contended)
-        for acc in accs:
-            _contrib_partial(pf, rg, reader, acc, cov, masks,
-                             cursors=cursors)
-        if any(c.touched for c in cursors.values()):
-            reader.decoded = True
-        FUSED["rg_folds"] += 1
-    else:
-        masks = _contended_masks(expr, reader, contended)
-        if group_leaf is not None:
-            _group_partial(reader, aggs, leaves, group_leaf, groups, cov,
-                           masks)
-        else:
+            masks = _contended_masks_fused(expr, cursors, contended)
             for acc in accs:
-                _contrib_partial(pf, rg, reader, acc, cov, masks)
+                _contrib_partial(pf, rg, reader, acc, cov, masks,
+                                 cursors=cursors)
+            if any(c.touched for c in cursors.values()):
+                reader.decoded = True
+            FUSED["rg_folds"] += 1
+        else:
+            masks = _contended_masks(expr, reader, contended)
+            if group_leaf is not None:
+                _group_partial(reader, aggs, leaves, group_leaf, groups,
+                               cov, masks)
+            else:
+                for acc in accs:
+                    _contrib_partial(pf, rg, reader, acc, cov, masks)
     tier = ("dict_partial" if reader.dict_partial_used
             else "decoded" if reader.decoded else "pages")
     note = (f"partial: {_iv_rows(cov)} covered + "
             f"{_iv_rows(contended)} contended rows, answered by {tier}"
             + (" (fused)" if cursors is not None else ""))
     return tier, accs, groups, note
+
+
+def _page_span_ranges(pf, rg, leaf, intervals: _Intervals,
+                      out: set) -> None:
+    """Add the byte ranges the reads of ``intervals`` of ``leaf`` will
+    pread to ``out``: one span of pages an interval (``io/search.py::
+    seek_pages``'s arithmetic) and the dictionary page, or the whole
+    chunk without an offset index."""
+    from bisect import bisect_left, bisect_right
+
+    if not intervals:
+        return
+    chunk = rg.column(leaf.column_index)
+    oi = chunk.offset_index()
+    if oi is None or not oi.page_locations:
+        out.add(chunk.byte_range)
+        return
+    locs = oi.page_locations
+    firsts = [pl.first_row_index for pl in locs]
+    added = False
+    for s, e in intervals:
+        i0 = max(bisect_right(firsts, s) - 1, 0)
+        i1 = min(bisect_left(firsts, e, lo=i0), len(locs))
+        if i1 <= i0:
+            continue
+        start = locs[i0].offset
+        end = locs[i1 - 1].offset + locs[i1 - 1].compressed_page_size
+        out.add((start, end - start))
+        added = True
+    dict_off = chunk.meta.dictionary_page_offset
+    if added and dict_off is not None and 0 < dict_off < locs[0].offset:
+        out.add((dict_off, locs[0].offset - dict_off))
+
+
+def _prewarm_ranges(pf, rg, expr, aggs, leaves, gleaf, covered: bool,
+                    may: Optional[_Intervals], cov: Optional[_Intervals],
+                    contended: Optional[_Intervals]) -> list:
+    """The disjoint byte ranges the resolution of a row group will read:
+    a column's intervals of every role (filter, aggregate, group key)
+    merged, then byte spans that touch coalesced, so a page is fetched
+    once (the JAX package's rule)."""
+    full = [(0, rg.num_rows)]
+    per_col: Dict[int, list] = {}
+
+    def want(leaf, iv):
+        if leaf is not None and iv:
+            per_col.setdefault(leaf.column_index, []).extend(iv)
+
+    if not covered:
+        for p in _collect_preds(expr):
+            want(p.leaf, contended)
+    for a, leaf in zip(aggs, leaves):
+        if leaf is None:
+            continue
+        if covered:
+            if a.kind == "count":
+                chunk = rg.column(leaf.column_index)
+                st = chunk.statistics()
+                if (st is not None and st.null_count is not None
+                        and chunk.meta.num_values is not None):
+                    continue  # the statistics answer it
+                want(leaf, full)
+            elif a.kind in ("min", "max"):
+                st = rg.column(leaf.column_index).statistics()
+                v = None if st is None else (
+                    st.min_value if a.kind == "min" else st.max_value)
+                if _exact_stats(leaf) and v is not None and v == v:
+                    continue  # the statistics answer it
+                want(leaf, full)
+            elif a.kind in ("sum", "sum_sq", "count_distinct"):
+                want(leaf, full)
+            # top_k visits pages as its heap allows: left to the reads
+        elif a.kind in ("sum", "sum_sq", "count_distinct"):
+            want(leaf, may)
+        elif a.kind in ("count", "min", "max"):
+            # covered pages answer from their bounds; the boundary rows
+            # and the contended ones decode
+            _f, rem, _s, _ci = _decompose_col(pf, rg, leaf, cov or [])
+            want(leaf, _merge_intervals(list(rem) + list(contended)))
+        elif a.kind == "top_k":
+            want(leaf, contended)
+    if gleaf is not None:
+        want(gleaf, full if covered else may)
+    out: set = set()
+    for ci, ivs in per_col.items():
+        _page_span_ranges(pf, rg, pf.schema.leaves[ci],
+                          _merge_intervals(ivs), out)
+    merged: List[Tuple[int, int]] = []
+    for off, size in sorted(out):
+        if merged and off <= merged[-1][0] + merged[-1][1]:
+            end = max(merged[-1][0] + merged[-1][1], off + size)
+            merged[-1] = (merged[-1][0], end - merged[-1][0])
+        else:
+            merged.append((off, size))
+    return merged
+
+
+@contextlib.contextmanager
+def _prewarmed(pf, rg, expr, aggs, leaves, gleaf, pslots: int, *roles):
+    """A scope in which the file's preads are served from the row group's
+    ranges (:func:`_prewarm_ranges` of ``roles``), fetched at once
+    (``io/remote.py::parallel_preads``) under one grant of the read gate's
+    scan tier; a plain scope without two slots or two ranges."""
+    from .remote import parallel_preads
+    from .source import PreloadedSource
+
+    ranges = (_prewarm_ranges(pf, rg, expr, aggs, leaves, gleaf, *roles)
+              if pslots >= 2 else [])
+    if len(ranges) < 2:
+        yield
+        return
+    with read_admission().admit(sum(sz for _, sz in ranges), tier="scan"):
+        src = PreloadedSource(pf.source,
+                              parallel_preads(pf.source, ranges, pslots))
+        try:
+            with pf._source_override(src):
+                yield
+        finally:
+            src.close()
 
 
 def _fused_cursors(rg, reader: _RgReader, expr, accs, cov: _Intervals,
@@ -1785,6 +1918,7 @@ def aggregate_file(pf, aggs: Sequence[AggExpr], where=None, group_by=None,
 def _aggregate_impl(pf, aggs, where, group_by, device, pol, report,
                     _prepared):
     from .faults import read_context
+    from .remote import parallel_pread_slots
 
     aggs = list(aggs)
     leaves, gleaf = _validate(pf.schema, aggs, group_by)
@@ -1802,12 +1936,13 @@ def _aggregate_impl(pf, aggs, where, group_by, device, pol, report,
              + (f"; group_by: {group_by}" if group_by else ""),
              f"  where: {expr!r}"]
     skip = pol is not None and pol.skip_corrupt
+    pslots = parallel_pread_slots(pf.source)
     for rg in pf.row_groups:
         try:
             with read_context(path=pf._path, row_group=rg.index,
                               kinds=(CorruptedError, OSError)):
                 tier, delta, gdelta, note = _resolve_rg(
-                    pf, rg, expr, aggs, leaves, gleaf, device)
+                    pf, rg, expr, aggs, leaves, gleaf, device, pslots)
         except DeadlineError:
             raise
         except CorruptedError as e:

@@ -351,8 +351,11 @@ NEGS = NegLookupCache()
 
 def invalidate_path(path) -> None:
     """Drop every cached footer, page and absent-key memo of ``path``: the
-    port's writer calls it when it closes a path it wrote."""
-    ap = os.path.abspath(os.fspath(path))
+    port's writer calls it when it closes a path it wrote, and a remote
+    source when an object's HEAD validators moved (a URL is its own
+    identity)."""
+    path = os.fspath(path)
+    ap = path if "://" in path else os.path.abspath(path)
     FOOTERS.invalidate_path(ap)
     PAGES.invalidate_path(ap)
     NEGS.invalidate_path(ap)

@@ -26,8 +26,15 @@ RNG in write order, as the JAX package's), :class:`InjectedWriterCrash`,
 matrix of one atomic write, whose oracle is ``io/integrity.py``'s
 ``verify_file``; and at the table level :class:`SharedCrashState`, one
 crash byte shared by every sink of a table's commit, and
-:func:`table_crash_check`, the crash matrix of a table's commit.  The
-remote transport's and the metrics' parts come with their slices.
+:func:`table_crash_check`, the crash matrix of a table's commit.
+
+The network side: :class:`FaultInjectingRemoteTransport`, a seeded chaos
+wrapper over ``io/remote.py``'s transport (refused and reset connections,
+stalls, 5xx and 429 answers, torn bodies, bit flips, wrong ranges), its
+:class:`RemoteFaultStats`, and :class:`LocalRangeServer`, a loopback HTTP
+range server over in-memory objects (validators, JSON prefix listings,
+ListObjectsV2 pages, a bearer token) whose ``close()`` ends and joins
+every request thread.
 """
 
 from __future__ import annotations
@@ -35,14 +42,15 @@ from __future__ import annotations
 import contextvars
 import errno
 import random
+import socket
 import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-from ..errors import (DeadlineError, ReadError, ReadIOError, ShortReadError,
-                      _Unsupported)
+from ..errors import (DeadlineError, ReadError, ReadIOError, RemoteError,
+                      ShortReadError, _Unsupported)
 from .source import Source
 
 __all__ = ["FaultPolicy", "ReadReport", "Deadline", "PolicySource",
@@ -50,7 +58,8 @@ __all__ = ["FaultPolicy", "ReadReport", "Deadline", "PolicySource",
            "resolve_policy", "retry_call", "active_deadline",
            "NON_DATA_ERRORS", "is_corrupt_oserror", "InjectedWriterCrash",
            "SinkFaultStats", "FaultInjectingSink", "crash_consistency_check",
-           "SharedCrashState", "table_crash_check"]
+           "SharedCrashState", "table_crash_check", "RemoteFaultStats",
+           "FaultInjectingRemoteTransport", "LocalRangeServer"]
 
 
 # ---------------------------------------------------------------------------
@@ -218,8 +227,12 @@ NON_DATA_ERRORS: Tuple[type, ...] = (
 
 
 def is_corrupt_oserror(e: OSError) -> bool:
-    """A short or invalid read is corruption, not transience: the one
-    classifier :func:`retry_call` consults."""
+    """A short or invalid read, or a terminal remote answer, is
+    corruption, not transience: the one classifier :func:`retry_call`
+    consults.  A :class:`~parquet_tpu_torch.errors.RemoteError` decides by
+    its ``retryable``."""
+    if isinstance(e, RemoteError):
+        return not e.retryable
     if isinstance(e, ShortReadError):
         return True
     s = str(e)
@@ -977,3 +990,450 @@ def table_crash_check(setup, ingest, workdir, samples: int = 10,
         "crash matrix degenerate: every offset recovered to the same "
         f"snapshot ({outcomes}): the sampling missed a phase")
     return results
+
+
+# ---------------------------------------------------------------------------
+# The network side: a fault injector over a remote transport, and a
+# loopback range server
+# ---------------------------------------------------------------------------
+@dataclass
+class RemoteFaultStats:
+    """What the remote injector did."""
+
+    requests: int = 0
+    refused: int = 0
+    resets: int = 0
+    stalls: int = 0
+    statuses: int = 0
+    throttles: int = 0
+    truncated: int = 0
+    flipped: int = 0
+    wrong_range: int = 0
+
+
+class FaultInjectingRemoteTransport:
+    """A deterministic, seedable chaos wrapper over a remote transport
+    (``io/remote.py::HttpTransport``, or anything with its ``head`` and
+    ``get_range``).  Draws are keyed on ``(seed, offset, size, attempt)``
+    with :class:`FaultInjectingSource`'s mixing, so injection does not
+    depend on call order (hedge threads included) and one seed draws the
+    JAX package's faults.  ``max_consecutive`` bounds how many times in a
+    row one range fails, so a policy with that many retries recovers.
+
+    Modes (all composable): ``refuse_rate`` / ``reset_rate`` (the
+    connection dies before an answer); ``stall_s`` with ``stall_rate`` or
+    ``stall_attempts`` (the answer comes ``stall_s`` seconds late; the
+    first ``stall_attempts`` attempts of each range stall: a stalled
+    primary and a fast hedge), cut short when ``stall_release`` (a
+    ``threading.Event``) is set; ``status_rate`` / ``status_code`` (an
+    error status, 503 by default); ``throttle_rate`` / ``retry_after``
+    (429 with its ``Retry-After``); ``truncate_rate`` (a torn body under
+    headers that promise the range); ``flip_rate`` (one bit of a range's
+    body flips, on every attempt: rot that a re-read does not cure);
+    ``wrong_range_rate`` (the answer claims another start); and
+    ``head_refuse`` (HEADs are refused)."""
+
+    def __init__(self, inner, seed: int = 0, refuse_rate: float = 0.0,
+                 reset_rate: float = 0.0, stall_s: float = 0.0,
+                 stall_rate: float = 0.0,
+                 stall_attempts: Optional[int] = None,
+                 status_rate: float = 0.0, status_code: int = 503,
+                 throttle_rate: float = 0.0,
+                 retry_after: Optional[float] = None,
+                 truncate_rate: float = 0.0, flip_rate: float = 0.0,
+                 wrong_range_rate: float = 0.0,
+                 max_consecutive: Optional[int] = None,
+                 head_refuse: bool = False,
+                 stall_release: Optional[threading.Event] = None):
+        self.inner = inner
+        self.seed = seed
+        self.refuse_rate = refuse_rate
+        self.reset_rate = reset_rate
+        self.stall_s = stall_s
+        self.stall_rate = stall_rate
+        self.stall_attempts = stall_attempts
+        self.status_rate = status_rate
+        self.status_code = status_code
+        self.throttle_rate = throttle_rate
+        self.retry_after = retry_after
+        self.truncate_rate = truncate_rate
+        self.flip_rate = flip_rate
+        self.wrong_range_rate = wrong_range_rate
+        self.max_consecutive = max_consecutive
+        self.head_refuse = head_refuse
+        self.stall_release = stall_release
+        self.stats = RemoteFaultStats()
+        self._attempts: Dict[Tuple[int, int], int] = {}
+        self._consecutive: Dict[Tuple[int, int], int] = {}
+        self._lock = threading.Lock()
+
+    @property
+    def url(self):
+        return getattr(self.inner, "url", None)
+
+    @property
+    def host(self):
+        return getattr(self.inner, "host", None)
+
+    def _count(self, what: str, key=None) -> None:
+        with self._lock:
+            setattr(self.stats, what, getattr(self.stats, what) + 1)
+            if key is not None:
+                self._consecutive[key] = self._consecutive.get(key, 0) + 1
+
+    def head(self, **kw):
+        if self.head_refuse:
+            self._count("refused")
+            raise ConnectionRefusedError(
+                errno.ECONNREFUSED, "injected connect refused (HEAD)")
+        return self.inner.head(**kw)
+
+    def get_range(self, offset: int, size: int, **kw):
+        key = (offset, size)
+        with self._lock:
+            self.stats.requests += 1
+            attempt = self._attempts.get(key, 0)
+            self._attempts[key] = attempt + 1
+            consecutive = self._consecutive.get(key, 0)
+        rng = _mix_rng(self.seed, offset, size, attempt)
+        inject = (self.max_consecutive is None
+                  or consecutive < self.max_consecutive)
+        if self.stall_s > 0 and (
+                attempt < self.stall_attempts
+                if self.stall_attempts is not None
+                else self.stall_rate and rng.random() < self.stall_rate):
+            self._count("stalls")
+            if self.stall_release is not None:
+                self.stall_release.wait(self.stall_s)
+            else:
+                time.sleep(self.stall_s)
+        if inject and self.refuse_rate and rng.random() < self.refuse_rate:
+            self._count("refused", key)
+            raise ConnectionRefusedError(
+                errno.ECONNREFUSED,
+                f"injected connect refused (attempt {attempt})")
+        if inject and self.reset_rate and rng.random() < self.reset_rate:
+            self._count("resets", key)
+            raise ConnectionResetError(
+                errno.ECONNRESET,
+                f"injected connection reset (attempt {attempt})")
+        if inject and self.status_rate and rng.random() < self.status_rate:
+            self._count("statuses", key)
+            return self.status_code, {"content-length": "0"}, b""
+        if (inject and self.throttle_rate
+                and rng.random() < self.throttle_rate):
+            self._count("throttles", key)
+            hdrs = {"content-length": "0"}
+            if self.retry_after is not None:
+                hdrs["retry-after"] = str(self.retry_after)
+            return 429, hdrs, b""
+        status, headers, body = self.inner.get_range(offset, size, **kw)
+        body_fault = False
+        if (inject and self.wrong_range_rate
+                and rng.random() < self.wrong_range_rate and status == 206):
+            self._count("wrong_range", key)
+            body_fault = True
+            headers = dict(headers)
+            headers["content-range"] = (
+                f"bytes {offset + 7}-{offset + 6 + size}/*")
+        elif (inject and self.truncate_rate and len(body) > 1
+              and rng.random() < self.truncate_rate):
+            self._count("truncated", key)
+            body_fault = True
+            body = body[:rng.randrange(1, len(body))]
+        if not body_fault:
+            with self._lock:
+                self._consecutive[key] = 0
+        rng0 = _mix_rng(self.seed, offset, size, 0)  # rot: every attempt
+        if self.flip_rate and body and rng0.random() < self.flip_rate:
+            buf = bytearray(body)
+            buf[rng0.randrange(len(buf))] ^= 1 << rng0.randrange(8)
+            body = bytes(buf)
+            self._count("flipped")
+        return status, headers, body
+
+    def close(self) -> None:
+        close = getattr(self.inner, "close", None)
+        if close is not None:
+            close()
+
+
+class LocalRangeServer:
+    """A loopback HTTP/1.1 range server over in-memory ``{name: bytes}``:
+    the remote tests' and ``chip_smoke.py``'s server, with no network.
+
+    ``HEAD`` answers ``Content-Length`` with an ``ETag`` and a
+    ``Last-Modified`` (``send_validators``); ``GET`` with one ``Range:
+    bytes=a-b`` answers 206 and ``Content-Range`` (416 past the end; 200
+    and the whole body without a Range, or always with
+    ``ignore_range``).  A GET of a name ending in ``/`` (or of the root)
+    lists the names one level under it as a JSON array; with
+    ``s3_dialect`` a ``?list-type=2`` GET answers ListObjectsV2 XML pages
+    of ``s3_max_keys`` keys.  With ``auth_token`` every request needs
+    ``Authorization: Bearer <token>`` or gets 401
+    (:meth:`set_auth_token` rotates it).  :meth:`put` replaces an object
+    and moves its validators; ``requests`` logs ``(method, name, range
+    header)``.  :meth:`close` stops the server, shuts the sockets of its
+    open keep-alive connections and joins every request thread."""
+
+    def __init__(self, files: Optional[dict] = None,
+                 ignore_range: bool = False, send_validators: bool = True,
+                 auth_token: Optional[str] = None,
+                 s3_dialect: bool = False, s3_max_keys: int = 1000):
+        import hashlib
+        from email.utils import formatdate
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self._lock = threading.Lock()
+        self._files: Dict[str, bytes] = {}
+        self._etag: Dict[str, str] = {}
+        self._mtime: Dict[str, float] = {}
+        self.ignore_range = ignore_range
+        self.send_validators = send_validators
+        self.s3_dialect = s3_dialect
+        self.s3_max_keys = max(int(s3_max_keys), 1)
+        self._auth_token = auth_token
+        self.requests: List[Tuple[str, str, Optional[str]]] = []
+        self._hash = lambda b: hashlib.md5(b).hexdigest()
+        self._fmtdate = formatdate
+        for name, data in (files or {}).items():
+            self.put(name, data)
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"  # keep-alive, as in production
+            # the headers and the body go out as separate writes: without
+            # TCP_NODELAY the body waits out the peer's delayed ACK
+            disable_nagle_algorithm = True
+            timeout = 60  # an idle keep-alive connection ends by itself
+
+            def log_message(self, fmt, *args):
+                pass
+
+            def _lookup(self):
+                # a query string (a presigned signature) names the same
+                # object, as in an object store
+                name = self.path.split("?", 1)[0].lstrip("/")
+                with server._lock:
+                    data = server._files.get(name)
+                    meta = (server._etag.get(name),
+                            server._mtime.get(name))
+                return name, data, meta
+
+            def _log(self, method: str, name: str, rng) -> None:
+                with server._lock:
+                    server.requests.append((method, name, rng))
+
+            def _common_headers(self, meta):
+                if server.send_validators:
+                    self.send_header("ETag", f'"{meta[0]}"')
+                    self.send_header("Last-Modified",
+                                     server._fmtdate(meta[1], usegmt=True))
+                self.send_header("Accept-Ranges",
+                                 "none" if server.ignore_range else "bytes")
+
+            def _send(self, status: int, body: bytes = b"",
+                      ctype: Optional[str] = None, headers=()) -> None:
+                self.send_response(status)
+                if ctype:
+                    self.send_header("Content-Type", ctype)
+                for k, v in headers:
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body and self.command != "HEAD":
+                    self.wfile.write(body)
+
+            def _authorized(self) -> bool:
+                with server._lock:
+                    tok = server._auth_token
+                return (tok is None or self.headers.get("Authorization")
+                        == f"Bearer {tok}")
+
+            def do_HEAD(self):  # noqa: N802 (http.server's naming)
+                name, data, meta = self._lookup()
+                self._log("HEAD", name, None)
+                if not self._authorized():
+                    self._send(401)
+                elif data is None:
+                    self.send_error(404, "no such object")
+                else:
+                    self.send_response(200)
+                    self._common_headers(meta)
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+
+            def _s3_listing(self):
+                # ListObjectsV2 of the path-style bucket: keys relative to
+                # the bucket, pages of s3_max_keys, an integer offset as
+                # the (opaque) continuation token
+                from urllib.parse import parse_qs, urlsplit
+                from xml.sax.saxutils import escape
+
+                parts = urlsplit(self.path)
+                bucket = parts.path.strip("/")
+                q = parse_qs(parts.query)
+                prefix = (q.get("prefix") or [""])[0]
+                token = (q.get("continuation-token") or [None])[0]
+                delim = (q.get("delimiter") or [None])[0]
+                full = (bucket + "/" if bucket else "") + prefix
+                with server._lock:
+                    names = sorted(server._files)
+                cut = len(bucket) + 1 if bucket else 0
+                keys = [n[cut:] for n in names
+                        if n.startswith(full) and n != full]
+                if delim:
+                    keys = [k for k in keys if delim not in k[len(prefix):]]
+                try:
+                    start = max(int(token), 0) if token else 0
+                except ValueError:
+                    start = 0
+                page = keys[start:start + server.s3_max_keys]
+                truncated = start + len(page) < len(keys)
+                xml = ['<?xml version="1.0" encoding="UTF-8"?>',
+                       '<ListBucketResult xmlns="http://s3.amazonaws.com'
+                       '/doc/2006-03-01/">',
+                       f"<Prefix>{escape(prefix)}</Prefix>",
+                       f"<KeyCount>{len(page)}</KeyCount>",
+                       "<IsTruncated>"
+                       f"{'true' if truncated else 'false'}</IsTruncated>"]
+                if truncated:
+                    xml.append("<NextContinuationToken>"
+                               f"{start + len(page)}</NextContinuationToken>")
+                xml += [f"<Contents><Key>{escape(k)}</Key><Size>0</Size>"
+                        "</Contents>" for k in page]
+                xml.append("</ListBucketResult>")
+                self._send(200, "".join(xml).encode("utf-8"),
+                           "application/xml")
+
+            def do_GET(self):  # noqa: N802
+                import json
+
+                name, data, meta = self._lookup()
+                rng = self.headers.get("Range")
+                self._log("GET", name, rng)
+                if not self._authorized():
+                    self._send(401, b"unauthorized")
+                    return
+                if server.s3_dialect and "list-type=2" in (
+                        self.path.split("?", 1) + [""])[1]:
+                    self._s3_listing()
+                    return
+                if data is None and (name == "" or name.endswith("/")):
+                    with server._lock:  # one level, as a glob
+                        kids = sorted(n[len(name):] for n in server._files
+                                      if n.startswith(name) and n != name
+                                      and "/" not in n[len(name):])
+                    self._send(200, json.dumps(kids).encode("utf-8"),
+                               "application/json")
+                    return
+                if data is None:
+                    self.send_error(404, "no such object")
+                    return
+                if rng and not server.ignore_range:
+                    try:
+                        lo_s, hi_s = rng.split("=", 1)[1].split(",")[0] \
+                            .split("-", 1)
+                        lo = int(lo_s)
+                        hi = int(hi_s) if hi_s else len(data) - 1
+                    except (IndexError, ValueError):
+                        self.send_error(400, "bad Range header")
+                        return
+                    if lo >= len(data):
+                        self._send(416, headers=[
+                            ("Content-Range", f"bytes */{len(data)}")])
+                        return
+                    hi = min(hi, len(data) - 1)
+                    body = data[lo:hi + 1]
+                    self.send_response(206)
+                    self._common_headers(meta)
+                    self.send_header("Content-Range",
+                                     f"bytes {lo}-{hi}/{len(data)}")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
+                self.send_response(200)
+                self._common_headers(meta)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        class Server(ThreadingHTTPServer):
+            # request threads are joined at close (daemon_threads=False
+            # with block_on_close), after their sockets are shut down
+            daemon_threads = False
+            block_on_close = True
+
+            def process_request(self, request, client_address):
+                with server._lock:
+                    server._conns.add(request)
+                super().process_request(request, client_address)
+
+            def shutdown_request(self, request):
+                with server._lock:
+                    server._conns.discard(request)
+                super().shutdown_request(request)
+
+            def handle_error(self, request, client_address):
+                if not server._closed:  # a socket close() cut is expected
+                    super().handle_error(request, client_address)
+
+        self._closed = False
+        self._conns: set = set()
+        self._httpd = Server(("127.0.0.1", 0), Handler)
+        # a short poll: close() waits at most this long for the loop
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        args=(0.02,),
+                                        name="pqt-range-server", daemon=True)
+        self._thread.start()
+        self.host, self.port = self._httpd.server_address[:2]
+
+    def set_auth_token(self, token: Optional[str]) -> None:
+        """Rotate (or clear) the bearer token requests must carry."""
+        with self._lock:
+            self._auth_token = token
+
+    def put(self, name: str, data) -> None:
+        """Create or replace an object: new bytes, new ETag, a later
+        Last-Modified (by a second at least, so a rewrite within one tick
+        still moves it)."""
+        data = bytes(data)
+        with self._lock:
+            self._files[name] = data
+            self._etag[name] = self._hash(data)
+            self._mtime[name] = max(time.time(),
+                                    self._mtime.get(name, 0.0) + 1.0)
+
+    def url(self, name: str) -> str:
+        return f"http://{self.host}:{self.port}/{name}"
+
+    def request_count(self, name: Optional[str] = None,
+                      method: Optional[str] = None) -> int:
+        with self._lock:
+            return sum(1 for m, n, _ in self.requests
+                       if (name is None or n == name)
+                       and (method is None or m == method))
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._httpd.shutdown()
+        self._thread.join()
+        # a keep-alive handler waits for its client's next request: shut
+        # its socket so that it ends now, then join every request thread
+        with self._lock:
+            conns = list(self._conns)
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # the client closed it first
+        self._httpd.server_close()
+
+    def __enter__(self) -> "LocalRangeServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

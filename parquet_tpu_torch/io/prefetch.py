@@ -30,8 +30,13 @@ Knobs (``utils/env.py``): ``PARQUET_TPU_TORCH_PREFETCH`` (``auto``, the
 default: advise over a mapped file; ``advise``; ``ring``; ``off``),
 ``PARQUET_TPU_TORCH_PREFETCH_WINDOW`` and ``_DEPTH`` (pins), and
 ``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE`` (``0``: no feedback from one ring's
-stalls to the next ring's depth and window).  Not in this port: latency
-classes of remote sources, and the metrics.
+stalls to the next ring's depth and window).  A chain's latency class is
+its innermost source's ``latency_class`` (``io/remote.py``'s sources say
+``remote``, or ``remote_far`` past 30 ms a pread; a local chain has none):
+it picks the starting depth and window (:data:`_CLASS_DEFAULTS`) and keys
+the auto-tuner's state, and a remote chain rings even on one core (a
+network pread waits in the socket, off the interpreter lock).  Not in
+this port: the metrics.
 """
 
 from __future__ import annotations
@@ -83,48 +88,61 @@ _TUNE_DECAY_S_PER_WINDOW = 5e-4
 _MAX_DEPTH = 8
 _MAX_WINDOW_BYTES = 32 << 20
 
+# each latency class's starting (depth, window): at network round trips
+# the local default leaves the pipe idle, so remote chains start deeper
+_CLASS_DEFAULTS = {
+    "local": (DEFAULT_DEPTH, DEFAULT_WINDOW_BYTES),
+    "remote": (4, 4 << 20),
+    "remote_far": (6, 8 << 20),
+}
+
 
 class _AutoTuneState:
     """Process-wide feedback from each ring's :class:`ReadStats` to the
-    next ring's depth and window: a ring that waited more than
-    :data:`_TUNE_RAISE_S_PER_WINDOW` a window deepens readahead (depth
-    first, then the window doubles); one under
-    :data:`_TUNE_DECAY_S_PER_WINDOW` steps back toward the defaults.
-    Explicit arguments, the knobs' pins and
+    next ring's depth and window, kept per latency class (a remote
+    drain's stalls never deepen local readahead): a ring that waited more
+    than :data:`_TUNE_RAISE_S_PER_WINDOW` a window deepens readahead
+    (depth first, then the window doubles); one under
+    :data:`_TUNE_DECAY_S_PER_WINDOW` steps back toward its class's
+    defaults.  Explicit arguments, the knobs' pins and
     ``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE=0`` bypass it."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._state = [None, None]  # depth override, window override
+        self._state = {}  # class -> [depth override, window override]
 
-    def suggest(self):
+    def _cls(self, cls: str) -> list:
+        return self._state.setdefault(cls, [None, None])
+
+    def suggest(self, cls: str = "local"):
         with self._lock:
-            return tuple(self._state)
+            return tuple(self._cls(cls))
 
-    def observe(self, stats: "ReadStats") -> None:
+    def observe(self, stats: "ReadStats", cls: str = "local") -> None:
         if stats.windows_issued <= 0:
             return
         wait_per_window = stats.pool_wait_s / stats.windows_issued
+        base_d, base_w = _CLASS_DEFAULTS.get(cls, _CLASS_DEFAULTS["local"])
         with self._lock:
-            st = self._state
-            d = st[0] or DEFAULT_DEPTH
-            w = st[1] or DEFAULT_WINDOW_BYTES
+            st = self._cls(cls)
+            d = st[0] or base_d
+            w = st[1] or base_w
             if wait_per_window > _TUNE_RAISE_S_PER_WINDOW:
                 if d < _MAX_DEPTH:
                     st[0] = d + 1
                 elif w < _MAX_WINDOW_BYTES:
                     st[1] = w * 2
             elif wait_per_window < _TUNE_DECAY_S_PER_WINDOW:
-                if w > DEFAULT_WINDOW_BYTES:
+                if w > base_w:
                     w //= 2
-                    st[1] = None if w <= DEFAULT_WINDOW_BYTES else w
-                elif d > DEFAULT_DEPTH:
+                    st[1] = None if w <= base_w else w
+                elif d > base_d:
                     d -= 1
-                    st[0] = None if d <= DEFAULT_DEPTH else d
+                    st[0] = None if d <= base_d else d
 
     def reset(self) -> None:
         with self._lock:
-            self._state = [None, None]
+            self._state = {}
 
 
 _AUTOTUNE = _AutoTuneState()
@@ -238,16 +256,21 @@ class PrefetchSource(Source):
         self.backend = backend
         env_window = env_opt_bytes("PARQUET_TPU_TORCH_PREFETCH_WINDOW")
         env_depth = env_opt_bytes("PARQUET_TPU_TORCH_PREFETCH_DEPTH")
+        self.latency_class = getattr(_innermost(inner), "latency_class",
+                                     "local")
+        base_depth, base_window = _CLASS_DEFAULTS.get(
+            self.latency_class, _CLASS_DEFAULTS["local"])
         tuned_depth, tuned_window = ((None, None) if not autotune_enabled()
-                                     else _AUTOTUNE.suggest())
+                                     else _AUTOTUNE.suggest(
+                                         self.latency_class))
         self._tunable = (autotune_enabled() and window_bytes is None
                          and depth is None and env_window is None
                          and env_depth is None)
         self.window_bytes = int(window_bytes or env_window or tuned_window
-                                or DEFAULT_WINDOW_BYTES)
+                                or base_window)
         if self.window_bytes <= 0:
             raise ValueError("window_bytes must be positive")
-        self.depth = int(depth or env_depth or tuned_depth or DEFAULT_DEPTH)
+        self.depth = int(depth or env_depth or tuned_depth or base_depth)
         self.max_windows = max(2, int(max_windows))
         self.stats = ReadStats(backend=backend)
         self._lock = threading.Lock()
@@ -586,7 +609,7 @@ class PrefetchSource(Source):
                 self.stats.bytes_discarded += w.end - w.offset
             self._ring.clear()
         if self.backend == "ring" and self._tunable:
-            _AUTOTUNE.observe(self.stats)
+            _AUTOTUNE.observe(self.stats, self.latency_class)
 
 
 def make_prefetcher(source: Source,
@@ -594,9 +617,10 @@ def make_prefetcher(source: Source,
     """The prefetcher the mode picks for ``source``, or None where it is
     off or cannot pay: advise for a chain that ends at an
     :class:`MmapSource`; the ring where ``PARQUET_TPU_TORCH_PREFETCH=ring``,
-    or in auto mode for a chain ending at a file read by pread with more
-    than one core (on one core a pread from a warm page cache is a copy
-    that competes with decode) and outside a pool worker.  ``n_streams``
+    or in auto mode outside a pool worker for a remote chain, and for a
+    chain ending at a file read by pread with more than one core (on one
+    core a pread from a warm page cache is a copy that competes with
+    decode; a network pread waits in the socket).  ``n_streams``
     (the column cursors of a drain) sizes the ring, so that interleaved
     cursors do not evict each other's windows."""
     from ..utils import pool
@@ -611,8 +635,9 @@ def make_prefetcher(source: Source,
     if mode == "advise":
         return None
     real_io = isinstance(deepest, (FileSource, FileLikeSource))
-    if mode == "ring" or (not pool.in_shared_pool() and real_io
-                          and pool.available_cpus() > 1):
+    remote = getattr(deepest, "latency_class", "local") != "local"
+    if mode == "ring" or (not pool.in_shared_pool() and (
+            remote or (real_io and pool.available_cpus() > 1))):
         return PrefetchSource(source, backend="ring",
                               max_windows=max(8, 2 * n_streams))
     return None

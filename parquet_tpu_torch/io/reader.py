@@ -746,6 +746,7 @@ class ParquetFile:
     def __init__(self, source, options: Optional[ReadOptions] = None,
                  policy=None):
         from .faults import PolicySource, read_context
+        from .remote import HttpSource
         from .source import FileSource, MmapSource
 
         self.options = options if options is not None else ReadOptions()
@@ -757,13 +758,16 @@ class ParquetFile:
         self._base_source = self.source  # overrides revert to this
         self._override_stack: List[Source] = []
         # the file's key in io/cache.py's caches, fixed at open: the
-        # open-time fstat of a plain path source under the policy, None
-        # for in-memory bytes and any other wrapper (an injector's bytes
-        # must never fill nor be served from the caches)
+        # open-time fstat of a plain path source under the policy, or a
+        # remote source's HEAD validators (None without one, or over a
+        # chaos transport); None for in-memory bytes and any other wrapper
+        # (an injector's bytes must never fill nor be served from the
+        # caches)
         inner = (self.source.inner if isinstance(self.source, PolicySource)
                  else self.source)
         self._cache_key = (inner.stat_key
-                           if type(inner) in (FileSource, MmapSource)
+                           if isinstance(inner, HttpSource)
+                           or type(inner) in (FileSource, MmapSource)
                            else None)
         try:
             with self._resilient_op(None, None, "open"), \

@@ -13,8 +13,10 @@ by (in-memory bytes have none and are never cached).
 a streamed drain (:func:`dropbehind_enabled`).  A
 seekable file object opens as a :class:`FileLikeSource`;
 :class:`RetryingSource` retries a bare source's transient errors
-(``io/faults.py`` holds the policy-wide wrapper).  Remote sources belong
-to a later slice.
+(``io/faults.py`` holds the policy-wide wrapper).  An ``http(s)://`` URL
+opens as ``io/remote.py``'s ``HttpSource`` and an ``s3://`` URL as its
+``ObjectStoreSource``; :class:`PreloadedSource` serves ranges fetched
+ahead (a remote aggregate's) from memory.
 """
 
 from __future__ import annotations
@@ -281,6 +283,42 @@ class FileLikeSource(Source):
                 f.close()
 
 
+class PreloadedSource(Source):
+    """Preads served from byte ranges fetched before, falling through to
+    ``inner`` outside them: the remote aggregate fetches its disjoint
+    ranges at once (``io/remote.py::parallel_preads``), then decodes
+    through this.  It has no ``stat_key``: never cached."""
+
+    def __init__(self, inner: Source, blocks):
+        self.inner = inner
+        self._blocks = sorted(blocks, key=lambda b: b[0])  # (offset, bytes)
+        self._starts = [b[0] for b in self._blocks]
+
+    @property
+    def path(self):
+        return getattr(self.inner, "path", None)
+
+    def pread(self, offset: int, size: int) -> bytes:
+        from bisect import bisect_right
+
+        if offset < 0 or size < 0:
+            raise CorruptedError(f"invalid read: offset={offset} "
+                                 f"size={size}")
+        i = bisect_right(self._starts, offset) - 1
+        if i >= 0:
+            b0, data = self._blocks[i]
+            if offset + size <= b0 + len(data):
+                return bytes(data[offset - b0:offset - b0 + size])
+        return self.inner.pread(offset, size)
+
+    def size(self) -> int:
+        return self.inner.size()
+
+    def close(self) -> None:
+        self._blocks = []
+        self._starts = []
+
+
 class RetryingSource(Source):
     """Bounded retries of a bare source's transient ``OSError`` errors, with
     jittered exponential backoff; a short read is corruption and raises at
@@ -329,12 +367,22 @@ def as_source(source) -> Source:
     as a :class:`BytesSource`, a path mapped (:class:`MmapSource`; a
     :class:`FileSource` where it cannot be mapped or where
     ``PARQUET_TPU_TORCH_MMAP=0``), a seekable file object as a
-    :class:`FileLikeSource`."""
+    :class:`FileLikeSource`, an ``http(s)://`` URL as an ``HttpSource``
+    and an ``s3://`` URL as an ``ObjectStoreSource`` (``io/remote.py``)."""
     if isinstance(source, Source):
         return source
     if isinstance(source, (bytes, bytearray, memoryview)):
         return BytesSource(source)
     if isinstance(source, (str, os.PathLike)):
+        path = os.fspath(source)
+        if path.startswith(("http://", "https://")):
+            from .remote import HttpSource  # deferred: remote imports us
+
+            return HttpSource(path)
+        if path.startswith("s3://"):
+            from .remote import ObjectStoreSource, resolve_s3_url
+
+            return ObjectStoreSource(resolve_s3_url(path))
         if env_int("PARQUET_TPU_TORCH_MMAP"):
             try:
                 return MmapSource(source)

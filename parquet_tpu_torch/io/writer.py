@@ -17,8 +17,12 @@ index), split-block bloom filters for the columns named in
 ``WriterOptions.bloom_filters`` (any physical type but BOOLEAN and INT96)
 and the row groups' ``sorting_columns``;
 the bloom filters, then the page index, go between the last row group
-and the footer.  Byte-array dictionaries keep
-first-seen order, as the reference's do.  Each page header carries the
+and the footer.  Dictionaries keep first-seen order, and the
+reference's rules choose them: at most ``n / 2 + 16`` entries and
+``dictionary_page_limit`` bytes, two sample windows that both predict
+more entries than that skip the build of a long chunk, and once
+a chunk with values overflows, every later row group of its column is
+PLAIN.  Each page header carries the
 CRC32 of the page's stored bytes (``WriterOptions.write_crc``, on by
 default), which ``ReadOptions(verify_crc=True)`` and ``verify_file``
 check.
@@ -58,6 +62,7 @@ the temp file.  ``ParquetWriter.write_stats`` meters the pipeline.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import struct
 import time
@@ -259,6 +264,10 @@ class ParquetWriter:
         # the row group whose background encode may still run while its
         # predecessor's pages go out: (encode futures in leaf order, rows)
         self._inflight: Optional[Tuple[list, int]] = None
+        # columns whose dictionary overflowed in a chunk with values: their
+        # later row groups are PLAIN without a build (the reference's
+        # sticky fallback)
+        self._dict_overflowed: set = set()
 
     def write(self, columns: Dict[str, ColumnData], num_rows: int) -> None:
         """Buffer ``columns`` (keyed by dotted path); every full row group
@@ -467,10 +476,15 @@ class ParquetWriter:
         if encoding is not None and physical not in _ENCODABLE[encoding]:
             raise ValueError(f"column {leaf.name!r}: {encoding.name} does "
                              f"not take {physical.name} values")
+        tried = (encoding is None and opts.dictionary
+                 and leaf.name not in self._dict_overflowed)
         dict_values, dict_offsets, indices = _dictionary(
-            leaf, values, offsets, nvalues, encoding == Encoding.RLE_DICTIONARY
-            or (encoding is None and opts.dictionary),
+            leaf, values, offsets, nvalues,
+            tried or encoding == Encoding.RLE_DICTIONARY,
             forced=encoding is not None, limit=opts.dictionary_page_limit)
+        if tried and indices is None and nvalues:
+            # an empty or all-null chunk says nothing of the cardinality
+            self._dict_overflowed.add(leaf.name)
         if encoding is None:
             encoding = (Encoding.RLE_DICTIONARY if indices is not None
                         else Encoding.PLAIN)
@@ -774,24 +788,33 @@ def _value_span(values: np.ndarray, offsets: Optional[np.ndarray], v0: int,
 def _dictionary(leaf: Leaf, values: np.ndarray, offsets, nvalues: int,
                 wanted: bool, forced: bool, limit: int):
     """``(dict_values, dict_offsets, indices)`` of a chunk, or three Nones
-    where it is not dictionary-encoded.  Without a forced encoding a
-    dictionary must fit ``limit`` bytes (byte arrays: also at most
-    ``n / 2 + 16`` entries, the reference's rule), and BOOLEAN, INT96 and
-    fixed-length byte arrays stay PLAIN, as the reference writes them.
-    Numbers: distinct bit patterns, sorted (-0.0 and 0.0, or two NaN
-    payloads, are distinct entries); byte strings: first-seen order."""
+    where it is not dictionary-encoded.  Entries are in first-seen order;
+    numbers are compared by bit pattern (-0.0 and 0.0, or two NaN
+    payloads, are distinct entries).  Without a forced encoding a
+    dictionary holds at most ``n / 2 + 16`` entries and fits ``limit``
+    bytes, a chunk whose two sample windows (16,384 values, byte arrays
+    32,768) both predict more entries is refused unbuilt, and
+    BOOLEAN, INT96 and fixed-length byte arrays stay PLAIN: the
+    reference's rules."""
     physical = leaf.physical_type
     none = None, None, None
     if not wanted or (not forced and (not nvalues or physical in (
             Type.BOOLEAN, Type.INT96, Type.FIXED_LEN_BYTE_ARRAY))):
         return none
     if physical in NUMERIC:
-        bits = values.view(f"<i{values.itemsize}")
-        uniq, indices = np.unique(bits, return_inverse=True)
-        dict_values = uniq.view(values.dtype)
+        n = len(values)
+        cap = n if forced else n // 2 + 16
+        if not forced and _windows_predict_overflow(
+                n, cap, 1 << 14, lambda s, w: len(
+                    host.dictionary_of_fixed(values[s:s + w], w)[0])):
+            return none
+        got = host.dictionary_of_fixed(values, cap)
+        if got is None:
+            return none
+        dict_values, indices = got
         if not forced and dict_values.nbytes > limit:
             return none
-        return dict_values, None, indices.reshape(-1)
+        return dict_values, None, indices
     rows = offsets is None  # INT96 / FLBA: fixed-width rows of bytes
     if rows:
         w = values.shape[1] * values.itemsize
@@ -800,8 +823,12 @@ def _dictionary(leaf: Leaf, values: np.ndarray, offsets, nvalues: int,
     else:
         flat = values
     n = len(offsets) - 1
-    got = host.dictionary_of_byte_arrays(flat, offsets,
-                                         n if forced else n // 2 + 16)
+    cap = n if forced else n // 2 + 16
+    if not forced and _windows_predict_overflow(
+            n, cap, 1 << 15, lambda s, w: len(host.dictionary_of_byte_arrays(
+                flat, offsets[s:s + w + 1], w)[1])):
+        return none
+    got = host.dictionary_of_byte_arrays(flat, offsets, cap)
     if got is None:
         return none
     indices, first = got
@@ -812,6 +839,39 @@ def _dictionary(leaf: Leaf, values: np.ndarray, offsets, nvalues: int,
         return dvals.view(values.dtype).reshape(-1, *values.shape[1:]), \
             None, indices
     return dvals, doffs, indices
+
+
+def _windows_predict_overflow(n: int, max_unique: int, window: int,
+                              distinct) -> bool:
+    """The reference's sampling bail: above ``4 * window`` values, a prefix
+    window and a middle window whose distinct counts (``distinct(start,
+    window)``) both estimate more than ``1.25 * max_unique`` distinct
+    values predict an overflow.  Values whose first occurrences cluster
+    early repeat in the middle window and are still built."""
+    if n <= 4 * window or max_unique < window:
+        return False
+    return all(_window_predicts_overflow(distinct(s, window), window,
+                                         max_unique) for s in (0, n // 2))
+
+
+def _window_predicts_overflow(distinct: int, window: int,
+                              max_unique: int) -> bool:
+    """Whether ``distinct`` values in a window of ``window`` draws estimate
+    a cardinality K over ``1.25 * max_unique``, from E[distinct] = K(1 -
+    exp(-window/K)) (uniform draws; skew biases K low, towards a build)."""
+    if distinct >= window:  # an all-distinct window: the estimate diverges
+        return True
+    frac = distinct / window
+    if frac <= 0:
+        return False
+    lo, hi = 1e-9, 60.0  # solve (1 - e^-x) / x = frac for x = window / K
+    for _ in range(40):
+        mid = (lo + hi) / 2
+        if (1 - math.exp(-mid)) / mid > frac:
+            lo = mid
+        else:
+            hi = mid
+    return window / ((lo + hi) / 2) > 1.25 * max_unique
 
 
 def _rows_per_page(leaf: Leaf, values: np.ndarray, offsets,

@@ -61,6 +61,7 @@ SIGNATURES = {
         "pq_encode_plain_ba": (None, [_P, _P, _LL, _P]),
         "pq_minmax_ba": (None, [_P, _P, _LL, _LL, _P, _P]),
         "pq_dict_build_ba": (_LL, [_P, _P, _LL, _LL, _P, _P]),
+        "pq_dict_build_i64": (_LL, [_P, _LL, _LL, _P, _P]),
         "pq_common_prefix_lens": (None, [_P, _P, _LL, _P]),
     },
     "host_prescan": {

@@ -4,7 +4,8 @@
 ``host_codec``: the Snappy raw format both ways, and the byte-array scans
 of the read and write paths: PLAIN BYTE_ARRAY pages to ``(values,
 offsets)`` and back, unsigned lexicographic min/max, first-seen
-dictionaries and the common prefixes of front coding.
+dictionaries of byte arrays and of fixed-width values, and the common
+prefixes of front coding.
 
 ``host_prescan``: the read path's prescan.  Each wrapper returns what the
 Python version it replaces returns, and raises its
@@ -192,6 +193,28 @@ def dictionary_of_byte_arrays(values: np.ndarray, offsets: np.ndarray,
     if k < 0:
         return None
     return indices[:n], first[:k]
+
+
+def dictionary_of_fixed(values: np.ndarray, max_unique: int):
+    """First-seen dictionary of a 4- or 8-byte column compared by bit
+    pattern (float -0.0 and 0.0, or two NaN payloads, stay distinct):
+    ``(uniques in values.dtype, indices int64[n])``, or None when there are
+    more than ``max_unique`` distinct values.  4-byte values widen through
+    their int32 bit pattern."""
+    values = np.ascontiguousarray(values).reshape(-1)
+    width = values.dtype.itemsize
+    if width not in (4, 8):
+        raise ValueError(f"no fixed-width dictionary of {values.dtype}")
+    keys = np.ascontiguousarray(values.view(f"<i{width}"), np.int64)
+    n = len(keys)
+    indices = np.empty(max(n, 1), np.int64)
+    uniques = np.empty(max(min(n, max_unique), 1), np.int64)
+    k = _lib().pq_dict_build_i64(_ptr(keys), n, max_unique,
+                                 indices.ctypes.data, uniques.ctypes.data)
+    if k < 0:
+        return None
+    uniq = uniques[:k].astype(f"<i{width}").view(values.dtype)
+    return uniq, indices[:n]
 
 
 def common_prefix_lengths(values: np.ndarray,

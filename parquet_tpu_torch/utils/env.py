@@ -3,7 +3,8 @@
 The port's cut of ``parquet_tpu/utils/env.py``: every knob is declared in
 :data:`KNOBS` with its default and what it does, named
 ``PARQUET_TPU_TORCH_*``, and read through :func:`env_str` (or the typed
-:func:`env_int`, :func:`env_bytes` and :func:`env_opt_bytes`, which parse
+:func:`env_int`, :func:`env_float`, :func:`env_bytes` and
+:func:`env_opt_bytes`, which parse
 it as the JAX package's accessors do: a value that does not parse reads as
 the default; :func:`env_bool` reads ``0``/``off``/``false``/``no`` as
 off), which refuse an undeclared name.  Knobs are read at each
@@ -15,8 +16,8 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-__all__ = ["KNOBS", "env_str", "env_bool", "env_int", "env_bytes",
-           "env_opt_bytes"]
+__all__ = ["KNOBS", "env_str", "env_bool", "env_int", "env_float",
+           "env_bytes", "env_opt_bytes"]
 
 #: name -> (default, what it does); "" is unset
 KNOBS = {
@@ -88,6 +89,33 @@ KNOBS = {
     "PARQUET_TPU_TORCH_WRITE_AUTOTUNE": (
         "1", "0 keeps the writeback buffer fixed; else it grows or "
         "shrinks with the flushes a row group earlier writers needed"),
+    "PARQUET_TPU_TORCH_REMOTE_POOL": (
+        "4", "idle keep-alive connections kept per remote host, shared by "
+        "every source of that host (io/remote.py::HttpTransport)"),
+    "PARQUET_TPU_TORCH_REMOTE_TIMEOUT": (
+        "30", "seconds every socket operation of a remote request may "
+        "take: a stalled server surfaces as a retryable timeout"),
+    "PARQUET_TPU_TORCH_REMOTE_BREAKER": (
+        "5", "consecutive connection failures that open a remote host's "
+        "circuit breaker; 0 never opens it (io/remote.py::CircuitBreaker)"),
+    "PARQUET_TPU_TORCH_REMOTE_BREAKER_COOLDOWN": (
+        "1.0", "seconds an open circuit waits before it lets one "
+        "half-open probe through"),
+    "PARQUET_TPU_TORCH_REMOTE_HEDGE": (
+        "auto", "the hedged remote pread: 0/off none, seconds pins the "
+        "delay before the second attempt, auto the p95 of remote.pread_s "
+        "(io/remote.py::hedge_delay_s)"),
+    "PARQUET_TPU_TORCH_REMOTE_AUTH_RETRY": (
+        "1", "credential refreshes an auth hook is asked for per request "
+        "on a 401 or 403 before the error surfaces"),
+    "PARQUET_TPU_TORCH_REMOTE_PARALLEL": (
+        "4", "ranges a remote aggregate fetches at once "
+        "(io/remote.py::parallel_pread_slots); 0 or 1 fetches them one "
+        "by one"),
+    "PARQUET_TPU_TORCH_S3_ENDPOINT": (
+        "", "the http(s) endpoint s3://bucket/key URLs resolve against, "
+        "path-style (io/remote.py::resolve_s3_url); unset, an s3:// URL "
+        "raises"),
     "PARQUET_TPU_TORCH_DEBUG": (
         "0", "1 makes utils/debug.py::trace log each call of the "
         "functions it decorates, with its wall time, to stderr"),
@@ -128,6 +156,14 @@ def env_int(name: str) -> int:
     """The knob as an int (0 where it and its default are unset)."""
     got = _parsed(name)
     return 0 if got is None else got
+
+
+def env_float(name: str) -> float:
+    """The knob as a float (its default where it does not parse)."""
+    try:
+        return float(env_str(name))
+    except ValueError:
+        return float(KNOBS[name][0] or 0.0)
 
 
 def env_bytes(name: str) -> int:

@@ -14,8 +14,9 @@ can run would wedge the pool.
 :class:`AdmissionController` is the FIFO bytes budget over every
 in-flight read span (:func:`read_admission`, :func:`lookup_admission`):
 the ``lookup`` tier (64 MiB unless ``PARQUET_TPU_TORCH_LOOKUP_BUDGET``
-says otherwise) and the ``scan`` tier (off unless
-``PARQUET_TPU_TORCH_SCAN_BUDGET`` sets it), both inside
+says otherwise), the ``scan`` tier (off unless
+``PARQUET_TPU_TORCH_SCAN_BUDGET`` sets it) and the ``hedge`` tier of the
+remote sources' second attempts (the global budget), all inside
 ``PARQUET_TPU_TORCH_READ_BUDGET`` where that is set (``0`` turns every
 tier off).  Not in this port: tenants and their QoS classes,
 ``try_request``'s request-rate gate, blocking under the resource
@@ -169,11 +170,13 @@ class AdmissionController:
 
     def budget_bytes(self, tier: str = "lookup") -> int:
         """The tier's budget (0: off), read per acquire: its own knob, else
-        the global budget, else 64 MiB for lookups and off for scans."""
+        the global budget, else 64 MiB for lookups and off for the other
+        tiers (scans, remote hedges)."""
         g = self.global_budget_bytes()
         if g == 0:
             return 0
-        t = env_opt_bytes(_TIER_KNOBS[tier])
+        knob = _TIER_KNOBS.get(tier)  # "hedge" has no knob of its own
+        t = env_opt_bytes(knob) if knob is not None else None
         if t is not None:
             return t
         if g is not None:
@@ -193,10 +196,14 @@ class AdmissionController:
         fits_global = not g or self._in_use + ticket.grant <= g
         return fits_tier and fits_global
 
-    def acquire(self, nbytes: int, tier: str = "lookup") -> int:
+    def acquire(self, nbytes: int, tier: str = "lookup",
+                give_up=None) -> int:
         """Block until ``nbytes`` fit; returns the grant to hand back to
         :meth:`release` (0 when the tier's gate is off or the caller holds
-        a grant already)."""
+        a grant already).  ``give_up``, a predicate checked at each wait
+        (every 50 ms at most), withdraws the ticket and grants 0: a hedged
+        read whose primary won must not keep later tickets waiting
+        behind a grant nobody wants."""
         if _ADMISSION_HELD.get():
             return 0
         budget = self.budget_bytes(tier)
@@ -212,8 +219,12 @@ class AdmissionController:
             self._queue.append(ticket)
             budgets = {tier: budget}
             while not self._may_grant_locked(ticket, budgets, g):
+                if give_up is not None and give_up():
+                    self._queue.remove(ticket)
+                    self._cv.notify_all()
+                    return 0
                 waited = True
-                self._cv.wait()
+                self._cv.wait(timeout=None if give_up is None else 0.05)
             self._queue.pop(0)
             self._in_use += grant
             self._tier_use[tier] = self._tier_use.get(tier, 0) + grant

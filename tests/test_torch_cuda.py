@@ -1796,3 +1796,85 @@ def test_to_arrow_of_a_card_read(cuda_device, tmp_path):
     for b, cb in zip(pf.iter_batches(batch_rows=3_000, device=cuda_device),
                      pf.iter_batches(batch_rows=3_000, device="cpu")):
         assert b.to_arrow().equals(cb.to_arrow())
+
+
+def _remote_pools_drained(server) -> None:
+    from parquet_tpu_torch.io import remote
+
+    remote.drain_connection_pools()
+    server.close()
+
+
+@pytest.mark.cuda
+def test_url_read_on_card_equals_the_local_read(cuda_device, tmp_path):
+    """A file read on the card from a loopback ``LocalRangeServer`` equals
+    the same file read from its path bit for bit, and launches both unpack
+    kernels as often as the local read."""
+    rng = np.random.default_rng(11)
+    n = 60_000
+    table = {
+        "id": np.arange(n, dtype=np.int64),
+        "small": np.ma.masked_array(rng.integers(0, 200, n).astype(np.int32),
+                                    mask=rng.random(n) < 0.1),
+        "large": rng.integers(0, 3000, n).astype(np.int64),
+        "ts": np.cumsum(rng.integers(0, 1000, n))}
+    path = str(tmp_path / "t.parquet")
+    pqt.write_table(table, path, pqt.WriterOptions(
+        row_group_size=20_000, compression="snappy", column_encoding={
+            "id": Encoding.PLAIN, "small": Encoding.RLE_DICTIONARY,
+            "large": Encoding.RLE_DICTIONARY,
+            "ts": Encoding.DELTA_BINARY_PACKED}))
+    with open(path, "rb") as f:
+        server = pqt.LocalRangeServer({"t.parquet": f.read()})
+    try:
+        pqt.reset_launches()
+        want = pqt.ParquetFile(path).read(device=cuda_device)
+        local = dict(pqt.LAUNCHES)
+        pqt.reset_launches()
+        got = pqt.ParquetFile(server.url("t.parquet")).read(
+            device=cuda_device)
+        torch.cuda.synchronize()
+        assert dict(pqt.LAUNCHES) == local
+        assert local["unpack_bits_dense"] > 0
+        assert local["dict_unpack_gather"] > 0
+        for name in table:
+            assert got[name].values.device.type == "cuda"
+            assert torch.equal(_bits(got[name].values),
+                               _bits(want[name].values))
+            assert (got[name].validity is None) == \
+                (want[name].validity is None)
+            if want[name].validity is not None:
+                assert torch.equal(got[name].validity, want[name].validity)
+    finally:
+        _remote_pools_drained(server)
+
+
+@pytest.mark.cuda
+def test_url_lookup_on_card_launches_bloom_check(cuda_device):
+    """``find_rows`` over a URL probes its bloom filters with the kernel
+    on the card and equals the same lookup of the bytes on the CPU."""
+    n = 80_000
+    table = {"k": np.arange(n, dtype=np.int64) // 2 * 2,
+             "v": np.arange(n, dtype=np.float64) / 8}
+    buf = io.BytesIO()
+    pqt.write_table(table, buf, pqt.WriterOptions(
+        row_group_size=40_000, data_page_size=8192,
+        bloom_filters={"k": 10}, sorting_columns=[("k", False, False)]))
+    keys = np.random.default_rng(5).permutation(np.arange(n,
+                                                          dtype=np.int64))
+    server = pqt.LocalRangeServer({"k.parquet": buf.getvalue()})
+    try:
+        pqt.clear_caches()
+        want = pqt.ParquetFile(buf.getvalue()).find_rows(
+            "k", keys, columns=["v"], device="cpu")
+        pqt.clear_caches()
+        pqt.reset_launches()
+        got = pqt.ParquetFile(server.url("k.parquet")).find_rows(
+            "k", keys, columns=["v"], device=cuda_device)
+        assert pqt.LAUNCHES["bloom_check"] == 1
+        assert got.counters == want.counters
+        for g, w in zip(got, want):
+            assert np.array_equal(g.rows, w.rows)
+            assert np.array_equal(g.values["v"], w.values["v"])
+    finally:
+        _remote_pools_drained(server)

@@ -452,13 +452,15 @@ def _tensors(col):
 def test_no_column_aliases_the_map(tmp_path):
     """PLAIN, dictionary and byte-array columns, UNCOMPRESSED (page
     bodies are views of the map), read by the device route on the CPU and
-    by the host route: no tensor shares memory with the map."""
+    by the host route: no tensor shares memory with the map.  ``q`` is a
+    dictionary by the default rule, ``d`` and ``s`` by a forced one."""
     rng = np.random.default_rng(6)
     n = 5000
     path = str(tmp_path / "plain.parquet")
     pqt.write_table({
         "p": np.ma.masked_array(rng.integers(0, 10**9, n),
                                 mask=rng.random(n) < 0.1),
+        "q": rng.integers(0, 50, n),
         "d": rng.integers(0, 40, n).astype(np.int32),
         "s": np.array([b"v%d" % (i % 97) for i in range(n)], dtype=object),
         "f": rng.integers(0, 256, (n, 4), dtype=np.uint8)},

@@ -601,3 +601,154 @@ def test_default_codec_is_snappy_as_jax():
         assert {meta.row_group(i).column(j).compression
                 for i in range(meta.num_row_groups)
                 for j in range(meta.num_columns)} == {"SNAPPY"}
+
+
+def _first_seen(values: np.ndarray) -> np.ndarray:
+    """The distinct values of ``values`` (by bit pattern) in the order they
+    first occur: the numpy oracle of a first-seen dictionary."""
+    bits = values.view(f"i{values.itemsize}")
+    _, first = np.unique(bits, return_index=True)
+    return values[np.sort(first)]
+
+
+def _c4_table(case: str, dtype: str):
+    """``(columns of the port, pyarrow table of the JAX writer, row group
+    size, what each row group must hold under the default rule)`` of one
+    dictionary-choice case."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(sum(map(ord, case + dtype)))
+    n = 1000
+    cap = n // 2 + 16
+    mask = None
+    if case in ("under", "over", "forced_under", "forced_over"):
+        under = case.endswith("under")
+        k = cap - 6 if under else cap + 4
+        pool = rng.permutation(1 << 20)[:k] - (1 << 19)
+        idx = np.concatenate([np.arange(k), rng.integers(0, k, n - k)])
+        values = pool[rng.permutation(idx)]
+        rgs, want = n, ["dict" if under else "plain"]
+    elif case == "order":
+        values = np.array([5, 3, 9, 3, 5, 1] * 100)
+        rgs, want = n, ["dict"]
+    elif case == "bail":
+        # distinct values under the cap (n / 2), but both sample windows
+        # (16,384 values; byte arrays 32,768) are all distinct: refused
+        # unbuilt
+        values = np.tile(rng.permutation(
+            70_000 if dtype == "bytes" else 35_000), 2)
+        rgs, want = len(values), ["plain"]
+    elif case == "clustered":
+        # first occurrences all early: the middle window repeats, so the
+        # chunk is built and fits
+        values = np.concatenate([rng.permutation(30_000),
+                                 np.zeros(40_000, np.int64)])
+        rgs, want = len(values), ["dict"]
+    elif case == "sticky":
+        values = np.concatenate([np.arange(n), np.arange(n) % 7])
+        rgs, want = n, ["plain", "plain"]
+    else:  # "null_first": an all-null chunk says nothing of cardinality
+        values = np.concatenate([np.zeros(n, np.int64), np.arange(n) % 7])
+        mask = np.arange(2 * n) < n
+        rgs, want = n, ["none", "dict"]
+    if dtype == "bytes":
+        items = np.array([b"k%d" % v for v in values], dtype=object)
+        port_col = (items if mask is None
+                    else np.ma.masked_array(items, mask=mask))
+        arrow = pa.array(list(items), type=pa.binary(), mask=mask)
+        return port_col, arrow, rgs, want
+    values = values.astype(dtype)
+    if dtype in ("float32", "float64"):
+        values = values / 4  # exact, and 0 becomes -0.0 where negative
+    port_col = values if mask is None else np.ma.masked_array(values,
+                                                              mask=mask)
+    return port_col, pa.array(values, mask=mask), rgs, want
+
+
+_C4_CASES = ([(c, d) for c in ("under", "over", "order")
+              for d in ("int32", "int64", "float32", "float64")]
+             + [("bail", "int64"), ("bail", "float32"), ("bail", "bytes"),
+                ("clustered", "int64"), ("clustered", "float64"),
+                ("sticky", "int64"), ("sticky", "float32"),
+                ("sticky", "bytes"), ("null_first", "int64"),
+                ("null_first", "bytes"), ("forced_under", "int64"),
+                ("forced_over", "int64"), ("forced_over", "float64")])
+
+
+@pytest.mark.parametrize("case,dtype", _C4_CASES)
+def test_dictionary_choice_matches_jax(case, dtype):
+    """Each row group's encodings equal the JAX writer's with default
+    options: at most n / 2 + 16 entries, the two-window bail of a long
+    chunk, and a column that overflowed in a chunk with values staying
+    PLAIN in its later row groups (an all-null chunk does not count).
+    Entries are in first-seen order (numpy's oracle), and where the JAX
+    package's native dictionary build loads, the same as its entries.  A
+    forced RLE_DICTIONARY, which the JAX writer refuses, writes every
+    chunk as a dictionary without the cap."""
+    import pyarrow as pa
+
+    from parquet_tpu import native
+    from parquet_tpu.format.enums import Encoding as JEncoding
+
+    port_col, arrow, rgs, want = _c4_table(case, dtype)
+    forced = case.startswith("forced")
+    data = _write({"a": port_col}, pqt.WriterOptions(
+        row_group_size=rgs, column_encoding={"a": Encoding.RLE_DICTIONARY}
+        if forced else {}))
+    jbuf = io.BytesIO()
+    parquet_tpu.write_table(pa.table({"a": arrow}), jbuf,
+                            parquet_tpu.WriterOptions(row_group_size=rgs))
+    jdata = jbuf.getvalue()
+    if forced:
+        with pytest.raises(ValueError):
+            parquet_tpu.write_table(
+                pa.table({"a": arrow}), io.BytesIO(),
+                parquet_tpu.WriterOptions(column_encoding={
+                    "a": JEncoding.RLE_DICTIONARY}))
+    encs = [[papq.ParquetFile(io.BytesIO(d)).metadata.row_group(r)
+             .column(0).encodings for r in range(len(want))]
+            for d in (data, jdata)]
+    kinds = [["dict" if "RLE_DICTIONARY" in e else "plain" for e in x]
+             for x in encs]
+    assert kinds[1] == [w if w != "none" else "plain" for w in want]
+    if forced:
+        assert kinds[0] == ["dict"] * len(want)
+    else:
+        assert encs[0] == encs[1]
+    for r, rg in enumerate(pqt.ParquetFile(data).row_groups):
+        chunk = rg.column(0)
+        if chunk.meta.dictionary_page_offset is None:
+            continue
+        got = pqt.io.reader.decode_dictionary_page(chunk,
+                                                   next(chunk.pages()))
+        lo, hi = r * rgs, (r + 1) * rgs
+        part = np.asarray(np.ma.getdata(port_col))[lo:hi][
+            ~np.ma.getmaskarray(port_col)[lo:hi]]
+        if dtype == "bytes":
+            vals, offs = got
+            assert [vals[offs[i]:offs[i + 1]].tobytes()
+                    for i in range(len(offs) - 1)] == \
+                list(dict.fromkeys(part.tolist()))
+        else:
+            np.testing.assert_array_equal(
+                got.view(f"i{got.itemsize}"),
+                _first_seen(part).view(f"i{got.itemsize}"))
+        jchunk = pqt.ParquetFile(jdata).row_groups[r].column(0)
+        if native.get_lib() is not None \
+                and jchunk.meta.dictionary_page_offset is not None:
+            want_entries = pqt.io.reader.decode_dictionary_page(
+                jchunk, next(jchunk.pages()))
+            for a, b in zip(*((x if dtype == "bytes" else (x,))
+                              for x in (got, want_entries))):
+                np.testing.assert_array_equal(a, b)
+    back = pqt.ParquetFile(data).read(device="cpu")["a"]
+    keep = ~np.ma.getmaskarray(port_col)
+    if not isinstance(port_col, np.ma.MaskedArray):
+        assert back.validity is None or back.validity.numpy().all()
+    else:
+        np.testing.assert_array_equal(back.validity.numpy(), keep)
+    if dtype != "bytes":
+        values = np.ma.getdata(port_col)[keep]
+        np.testing.assert_array_equal(
+            back.values.numpy().view(f"i{values.itemsize}"),
+            values.view(f"i{values.itemsize}"))
