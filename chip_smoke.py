@@ -368,6 +368,34 @@ Phases, each fatal on failure:
    the walls untraced and traced (with and without the trace's export),
    the trace's bytes and events, the counters, the probes' answers and
    walls, the launches;
+5o. observability in production (``obs/``), each check fatal: (a) phase
+   4's 5-column file read on the card inside ``op_scope("smoke.read")``,
+   3 times untraced, 3 times traced with every op sampled (the first from
+   cleared footer and page caches) and 16 times at
+   ``PARQUET_TPU_TORCH_TRACE_SAMPLE=8``: the columns equal the untraced
+   read's bit for bit, the op's ``read.bytes_read`` equals the global
+   delta and the bytes the file sources served, each unpack kernel
+   launches and each read synchronizes as often as untraced, the trace
+   JSON holds each read's ``op.smoke.read`` event, an ``open.footer``
+   span and one ``device.h2d`` span a staged plan on the reads' tracks
+   from more than one prepare worker, and the sampled run keeps 2 ops
+   of 16 (``trace.ops_sampled`` 2, ``trace.ops_skipped`` 14) with spans
+   of those 2 only; (b) a lookup of phase 5's 65,536 keys in its file's
+   first row group (a batch the card's bloom probe takes) and a
+   ``Dataset.scan`` of phase 5c's parts at once on two threads, each in
+   its own op: their ``read.bytes_read`` sum to the global delta, and
+   ``bloom_check`` launches; (c) ``start_metrics_server(0)`` scraped in
+   the middle of a streamed drain: ``/metrics`` parses as Prometheus
+   text with every family of the registry, ``/debugz`` shows the drain's
+   live op and the ledger, and the server's thread is joined; (d) after
+   a warm lookup the soft watermark at half the ledger's total shrinks
+   the page cache under it with ``ledger.pressure_evictions`` and leaves
+   the next lookup's answers unchanged, and the hard watermark holds a
+   read admission on a thread until the ledger's bytes drop; (e) with
+   ``PARQUET_TPU_TORCH_SLOW_OP_S=0`` the slow log holds one JSON line an
+   op.  One ``{"obs": ...}`` line: the walls, the syncs, the trace's
+   bytes and events, the op reports, the scraped families, the ledger
+   before and after the pressure, the launches;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -433,6 +461,7 @@ import gc
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -6349,6 +6378,491 @@ def debug_path(card: str, read: dict, look_path: str, rows: int,
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5o: observability in production (obs/: scopes, spans, the ledger)
+# ---------------------------------------------------------------------------
+
+OBS_WARM = 3  # untraced and traced reads of the 5-column file, each
+OBS_SAMPLED_READS = 16  # reads under PARQUET_TPU_TORCH_TRACE_SAMPLE=8
+OBS_SAMPLE = 8
+OBS_LOOKUP_KEYS = 65_536  # phase 5's keys in its first row group
+OBS_SCAN = ("l_quantity", 10, 20)  # the dataset scan of phase 5o(b)
+OBS_WAIT_S = 30.0  # the most a blocked admission is polled for
+
+
+class SourceBytes:
+    """Bytes the mapped and plain file sources served inside the block:
+    the preads that ``read.bytes_read`` counts, summed by a spy."""
+
+    def __init__(self):
+        from parquet_tpu_torch.io import source as src
+
+        self._src = src
+        self.bytes = 0
+        self._lock = threading.Lock()
+        self._saved = []
+
+    def __enter__(self):
+        for cls in (self._src.MmapSource, self._src.FileSource):
+            for meth in ("pread", "pread_view"):
+                real = cls.__dict__.get(meth)
+                if real is None:
+                    continue
+
+                def spied(this, offset, size, real=real):
+                    out = real(this, offset, size)
+                    with self._lock:
+                        self.bytes += size
+                    return out
+
+                self._saved.append((cls, meth, real))
+                setattr(cls, meth, spied)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, meth, real in self._saved:
+            setattr(cls, meth, real)
+        self._saved = []
+
+
+def scoped_read(path: str, name: str = "smoke.read") -> dict:
+    """One read of ``path`` on the card inside ``op_scope(name)``, its
+    syncs counted: the columns, the wall (the read and a final
+    synchronize), the op, the global counter delta, the bytes the sources
+    served, the read's launches and its ``ReadStats``."""
+    from parquet_tpu_torch import obs
+
+    box = {}
+    torch.cuda.synchronize()
+    pq.reset_launches()
+    before = obs.metrics_snapshot()
+    with SourceBytes() as spy:
+        t0 = time.perf_counter()
+        with obs.op_scope(name) as op:
+            def run():
+                with pq.ParquetFile(path) as pf:
+                    box["out"] = pf.read(device=DEVICE)
+            syncs = count_syncs(run)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    delta = obs.metrics_delta(before, obs.metrics_snapshot())["counters"]
+    mine = op.counters()
+    if not (mine.get("read.bytes_read") == delta.get("read.bytes_read")
+            == spy.bytes > 0):
+        raise AssertionError(
+            f"phase 5o: the op's read.bytes_read {mine.get('read.bytes_read')}"
+            f", the global delta {delta.get('read.bytes_read')} and the "
+            f"sources' {spy.bytes} differ")
+    return {"out": box["out"], "wall_s": wall, "syncs": syncs, "op": op,
+            "delta": delta, "bytes": spy.bytes,
+            "launches": dict(pq.LAUNCHES)}
+
+
+def _obs_report(op) -> dict:
+    rep = op.report()
+    return {k: rep[k] for k in ("name", "op", "sampled", "duration_s",
+                                "bytes_read", "pool_wait_s", "cache_hits",
+                                "cache_misses", "retries", "rows_pruned",
+                                "rows_decoded", "routes")}
+
+
+def instrumented_reads(path: str, tmp: str) -> dict:
+    """Phase 5o(a): the 5-column file read untraced, traced with every op
+    sampled, and sampled 1 in :data:`OBS_SAMPLE` over
+    :data:`OBS_SAMPLED_READS` reads, each read inside
+    ``op_scope("smoke.read")``."""
+    from parquet_tpu_torch import obs
+    from parquet_tpu_torch.obs import scope as oscope
+    from parquet_tpu_torch.utils.debug import counters
+
+    scoped_read(path)  # warm
+    untraced = [scoped_read(path) for _ in range(OBS_WARM)]
+    want = untraced[-1]["out"]
+    base = untraced[-1]
+
+    # traced, every op sampled; the first read from cleared caches
+    trace_path = os.path.join(tmp, "trace_5o.json")
+    plans = [0]
+    build = device_reader.build_plan
+
+    def counted(*a, **k):
+        plans[0] += 1
+        return build(*a, **k)
+
+    traced = []
+    h2d_sent = []
+    with knobs(PARQUET_TPU_TORCH_TRACE_SAMPLE="1"):
+        obs.reset_trace()
+        pq.clear_caches()
+        obs.enable_tracing(trace_path)
+        device_reader.build_plan = counted
+        try:
+            for i in range(OBS_WARM):
+                counters.reset()
+                got = scoped_read(path)
+                h2d_sent.append(counters.snapshot().get("bytes_h2d", 0))
+                traced.append(got)
+        finally:
+            device_reader.build_plan = build
+            obs.disable_tracing()
+        written = obs.flush_trace()
+    for got in traced:
+        same_bits(got["out"], want, "phase 5o traced read")
+        if got["syncs"]["count"] != base["syncs"]["count"]:
+            raise AssertionError(f"phase 5o: a traced read synchronized "
+                                 f"{got['syncs']} against the untraced "
+                                 f"{base['syncs']}")
+        for k in READ_KERNELS:
+            if got["launches"][k] != base["launches"][k]:
+                raise AssertionError(f"phase 5o: the traced read launched "
+                                     f"{k} {got['launches'][k]} times, the "
+                                     f"untraced {base['launches'][k]}")
+        del got["out"]
+    with open(written) as f:
+        events = json.load(f)["traceEvents"]
+    trace_bytes = os.path.getsize(written)
+    tracks = {oscope._OP_PID_BASE + got["op"].op_id for got in traced}
+    op_events = [e for e in events if e.get("name") == "op.smoke.read"]
+    if {e["pid"] for e in op_events} != tracks:
+        raise AssertionError("phase 5o: the trace lacks a read's own event")
+    h2d = [e for e in events if e.get("name") == "device.h2d"]
+    if len(h2d) != plans[0] or {e["pid"] for e in h2d} != tracks:
+        raise AssertionError(f"phase 5o: {len(h2d)} device.h2d spans on "
+                             f"the reads' tracks for {plans[0]} staged "
+                             "plans")
+    h2d_threads = {e["tid"] for e in h2d}
+    names = {e["args"]["name"] for e in events
+             if e.get("name") == "thread_name" and e.get("tid") in
+             h2d_threads}
+    if len(h2d_threads) < 2 or not all(n.startswith("pqt-prepare")
+                                       for n in names):
+        raise AssertionError(f"phase 5o: the staging spans came from "
+                             f"threads {sorted(names)}, not the prepare "
+                             "workers")
+    if "open.footer" not in {e.get("name") for e in events}:
+        raise AssertionError("phase 5o: the first traced read from cleared "
+                             "caches has no open.footer span")
+    h2d_bytes = sum(e["args"]["bytes"] for e in h2d)
+
+    # sampled one op in OBS_SAMPLE
+    sampled = []
+    obs.reset_trace()
+    before = obs.metrics_snapshot()
+    with knobs(PARQUET_TPU_TORCH_TRACE_SAMPLE=str(OBS_SAMPLE)):
+        obs.enable_tracing()
+        try:
+            for _ in range(OBS_SAMPLED_READS):
+                got = scoped_read(path)
+                same_bits(got.pop("out"), want, "phase 5o sampled read")
+                sampled.append(got)
+        finally:
+            obs.disable_tracing()
+    d = obs.metrics_delta(before, obs.metrics_snapshot())["counters"]
+    kept = [g["op"] for g in sampled if g["op"].sampled]
+    n_kept = OBS_SAMPLED_READS // OBS_SAMPLE
+    if (d.get("trace.ops_sampled") != n_kept
+            or d.get("trace.ops_skipped") != OBS_SAMPLED_READS - n_kept
+            or len(kept) != n_kept):
+        raise AssertionError(f"phase 5o: sampled {d.get('trace.ops_sampled')}"
+                             f", skipped {d.get('trace.ops_skipped')} of "
+                             f"{OBS_SAMPLED_READS} reads at 1 in "
+                             f"{OBS_SAMPLE}")
+    sevents = obs.trace_events()
+    kept_tracks = {oscope._OP_PID_BASE + op.op_id for op in kept}
+    spans_on = {e["pid"] for e in sevents if e.get("ph") == "X"}
+    if spans_on != kept_tracks:
+        raise AssertionError("phase 5o: spans of unsampled reads reached "
+                             "the trace")
+    obs.reset_trace()
+    del want
+    for got in untraced:
+        got.pop("out", None)
+    return {
+        "untraced_s": [g["wall_s"] for g in untraced],
+        "traced_s": [g["wall_s"] for g in traced],
+        "sampled_s": [g["wall_s"] for g in sampled],
+        "best_untraced_s": min(g["wall_s"] for g in untraced),
+        "best_traced_s": min(g["wall_s"] for g in traced[1:]),
+        "best_sampled_s": min(g["wall_s"] for g in sampled),
+        "syncs": {"untraced": base["syncs"], "traced": traced[-1]["syncs"]},
+        "bytes_read": base["bytes"],
+        "trace_bytes": trace_bytes, "trace_events": len(events),
+        "h2d_spans": len(h2d), "staged_plans": plans[0],
+        "h2d_threads": sorted(names),
+        "h2d_span_bytes": h2d_bytes, "counters_bytes_h2d": sum(h2d_sent),
+        "sampled_events": len(sevents),
+        "sampled": {"kept": n_kept, "ops_sampled": d["trace.ops_sampled"],
+                    "ops_skipped": d["trace.ops_skipped"]},
+        "reports": {"untraced": _obs_report(base["op"]),
+                    "traced": _obs_report(traced[-1]["op"])},
+        "launches": base["launches"]}
+
+
+def concurrent_ops(look_path: str, keys: np.ndarray, parts: list) -> dict:
+    """Phase 5o(b): a lookup of phase 5's keys in its file's first row
+    group (a batch the card's bloom probe takes) and a ``Dataset.scan``
+    of phase 5c's parts at once on two threads, each in its own op: their
+    ``read.bytes_read`` sum to the global delta."""
+    from parquet_tpu_torch import obs
+
+    pq.clear_caches()
+    ops, errors = {}, []
+    launches = dict.fromkeys(pq.LAUNCHES, 0)
+
+    def lookup():
+        try:
+            with obs.op_scope("smoke.lookup") as op:
+                with pq.ParquetFile(look_path) as f:
+                    f.find_rows("k", keys, columns=LOOKUP_COLUMNS,
+                                device=DEVICE)
+            ops["lookup"] = op
+        except Exception as e:  # raised below, on the phase's thread
+            errors.append(e)
+
+    def scan():
+        try:
+            key, lo, hi = OBS_SCAN
+            with obs.op_scope("smoke.scan") as op:
+                with pq.Dataset(parts) as ds:
+                    ops["rows"] = len(ds.scan(key, lo=lo, hi=hi,
+                                              columns=["l_extendedprice"],
+                                              device=DEVICE)
+                                      ["l_extendedprice"])
+            ops["scan"] = op
+        except Exception as e:
+            errors.append(e)
+
+    pq.reset_launches()
+    before = obs.metrics_snapshot()
+    threads = [threading.Thread(target=lookup, name="smoke-lookup"),
+               threading.Thread(target=scan, name="smoke-scan")]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    for k, v in pq.LAUNCHES.items():
+        launches[k] += v
+    delta = obs.metrics_delta(before, obs.metrics_snapshot())["counters"]
+    got = {k: ops[k].counters().get("read.bytes_read", 0)
+           for k in ("lookup", "scan")}
+    if not (got["lookup"] > 0 and got["scan"] > 0
+            and got["lookup"] + got["scan"] == delta["read.bytes_read"]):
+        raise AssertionError(f"phase 5o: the ops' bytes {got} do not sum "
+                             f"to the global {delta['read.bytes_read']}")
+    if launches["bloom_check"] == 0:
+        raise AssertionError("phase 5o: the lookup launched no bloom_check")
+    return {"wall_s": wall, "bytes_read": got,
+            "global_bytes_read": delta["read.bytes_read"],
+            "scan_rows": ops["rows"],
+            "reports": {k: _obs_report(ops[k]) for k in ("lookup", "scan")},
+            "launches": launches}
+
+
+_PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="(?:[^"\\]|\\.)*")*\})? '
+    r'(-?\d+(\.\d+)?([eE][+-]?\d+)?|\+Inf|-Inf|NaN)$')
+
+
+def scraped_drain(path: str) -> dict:
+    """Phase 5o(c): ``start_metrics_server(0)`` on 127.0.0.1 scraped in
+    the middle of a streamed drain of the 5-column file on the card:
+    ``/metrics`` parses as Prometheus text with every family of the
+    registry, ``/debugz`` shows the drain's live op and the ledger; the
+    server's thread is joined at the end."""
+    import urllib.request
+
+    from parquet_tpu_torch import obs
+    from parquet_tpu_torch.obs import export, metrics
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=60) as resp:
+            return resp.read().decode()
+
+    pq.reset_launches()
+    srv = pq.start_metrics_server(0, host="127.0.0.1")
+    try:
+        with pq.ParquetFile(path) as f:
+            it = f.iter_batches(batch_rows=1 << 20, device=DEVICE)
+            next(it)
+            text = get(srv.url)
+            dz = json.loads(get(f"http://{srv.host}:{srv.port}/debugz"))
+            batches = 1 + sum(1 for _ in it)
+        torch.cuda.synchronize()
+    finally:
+        srv.close()
+    if srv._thread.is_alive():
+        raise AssertionError("phase 5o: the metrics server's thread lives "
+                             "on after close")
+    families = set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif not line.startswith("# ") and not _PROM_SAMPLE.match(line):
+            raise AssertionError(f"phase 5o: /metrics line {line!r} is "
+                                 "not Prometheus text")
+    want = set()
+    for m in metrics.REGISTRY.collect():
+        fam = export._prom_name(m.name)
+        want.add(fam + "_total" if isinstance(m, metrics.Counter) else fam)
+    missing = sorted(want - families)
+    core = {"parquet_tpu_read_bytes_read_total", "parquet_tpu_pool_tasks_total",
+            "parquet_tpu_ledger_resident_bytes",
+            "parquet_tpu_pool_queue_wait_s"}
+    if missing or not core <= families:
+        raise AssertionError(f"phase 5o: /metrics lacks {missing[:10]}")
+    live = [o["name"] for o in dz["ops"]]
+    if "file.iter_batches" not in live or "accounts" not in dz["ledger"]:
+        raise AssertionError(f"phase 5o: /debugz shows ops {live} and "
+                             f"ledger {sorted(dz['ledger'])}")
+    return {"families": len(families), "metrics_bytes": len(text),
+            "debugz_sections": sorted(dz), "live_ops": live,
+            "batches": batches, "launches": dict(pq.LAUNCHES)}
+
+
+def memory_pressure(look_path: str, keys: np.ndarray) -> dict:
+    """Phase 5o(d): after a warm lookup the soft watermark at half the
+    ledger's total shrinks the page cache under it, and a second lookup's
+    answers are unchanged; the hard watermark holds a read admission on a
+    thread until the ledger's bytes drop."""
+    from parquet_tpu_torch import obs
+    from parquet_tpu_torch.obs import ledger, metrics
+    from parquet_tpu_torch.utils import pool
+
+    pq.clear_caches()
+    pq.reset_launches()
+    with pq.ParquetFile(look_path) as f:
+        timed_lookup(f, keys, DEVICE)
+        first, warm_s = timed_lookup(f, keys, DEVICE)
+        before = obs.ledger_snapshot()
+        total = before["total_bytes"]
+        page = before["accounts"]["cache.page"]["resident_bytes"]
+        ev0 = metrics.counter("ledger.pressure_evictions").value
+        with knobs(PARQUET_TPU_TORCH_MEM_SOFT=str(total // 2)):
+            state = ledger.LEDGER.check_pressure()
+            after = obs.ledger_snapshot()
+            second, second_s = timed_lookup(f, keys, DEVICE)
+        evictions = metrics.counter("ledger.pressure_evictions").value - ev0
+    if not (after["total_bytes"] < total // 2 and evictions > 0
+            and after["accounts"]["cache.page"]["resident_bytes"] < page):
+        raise AssertionError(f"phase 5o: the soft watermark at {total // 2} "
+                             f"left {after['total_bytes']} bytes after "
+                             f"{evictions} evictions")
+    same_hits(second.hits, first.hits, "phase 5o: the lookup under the "
+              "soft watermark")
+
+    # the hard watermark holds an admission until the bytes drop
+    ballast = ledger.LEDGER.account("smoke.ballast")
+    hard = max(total, 1 << 20)
+    gate = pool.read_admission()
+    done = threading.Event()
+    errors = []
+
+    def admit():
+        try:
+            with gate.admit(4096, tier="scan"):
+                done.set()
+        except Exception as e:
+            errors.append(e)
+
+    t = threading.Thread(target=admit, name="smoke-admission")
+    with knobs(PARQUET_TPU_TORCH_MEM_HARD=str(hard)):
+        ballast.add(2 * hard)
+        try:
+            if ledger.LEDGER.state() != "hard":
+                raise AssertionError("phase 5o: the ledger is not over its "
+                                     "hard watermark")
+            t.start()
+            t0 = time.perf_counter()
+            while gate.queue_depth() == 0 and t.is_alive() and \
+                    time.perf_counter() - t0 < OBS_WAIT_S:
+                time.sleep(0.001)
+            held = gate.queue_depth() == 1 and not done.is_set()
+        finally:
+            ballast.sub(2 * hard)
+            t.join(timeout=OBS_WAIT_S)
+    if t.is_alive() or errors or not done.is_set() or not held:
+        raise AssertionError(f"phase 5o: the hard watermark's admission: "
+                             f"held {held}, admitted {done.is_set()}, "
+                             f"errors {errors}")
+    return {"total_before": total, "soft_watermark": total // 2,
+            "state": state, "total_after": after["total_bytes"],
+            "page_before": page,
+            "page_after": after["accounts"]["cache.page"]["resident_bytes"],
+            "pressure_evictions": evictions, "warm_lookup_s": warm_s,
+            "lookup_under_pressure_s": second_s,
+            "hard_watermark": hard, "admission_held": held,
+            "ledger_before": before["accounts"],
+            "ledger_after": after["accounts"],
+            "launches": dict(pq.LAUNCHES)}
+
+
+def slow_log(path: str, look_path: str, keys: np.ndarray, tmp: str) -> dict:
+    """Phase 5o(e): with ``PARQUET_TPU_TORCH_SLOW_OP_S=0`` the slow log
+    holds one JSON line an op (a read and a lookup), each with its
+    report."""
+    log_path = os.path.join(tmp, "slow_5o.jsonl")
+    pq.reset_launches()
+    with knobs(PARQUET_TPU_TORCH_SLOW_OP_S="0",
+               PARQUET_TPU_TORCH_SLOW_LOG=log_path):
+        with pq.ParquetFile(path) as f:
+            f.read(device=DEVICE)
+        with pq.ParquetFile(look_path) as f:
+            f.find_rows("k", keys, columns=LOOKUP_COLUMNS, device=DEVICE)
+        torch.cuda.synchronize()
+    with open(log_path) as f:
+        recs = [json.loads(line) for line in f]
+    names = [r["name"] for r in recs]
+    if names != ["file.read", "lookup.find_rows"] or not all(
+            r["report"].get("read.bytes_read", 0) > 0 for r in recs):
+        raise AssertionError(f"phase 5o: slow log {names}")
+    return {"records": len(recs), "names": names,
+            "duration_s": [r["duration_s"] for r in recs],
+            "launches": dict(pq.LAUNCHES)}
+
+
+def obs_path(card: str, read: dict, look_path: str, lookup_rows: int,
+             seed: int, parts: list, tmp: str) -> dict:
+    """Phase 5o: the port's observability in production, each check
+    fatal (:func:`instrumented_reads`, :func:`concurrent_ops`,
+    :func:`scraped_drain`, :func:`memory_pressure`, :func:`slow_log`).
+    One ``{"obs": ...}`` line (a failing check's line holds the parts
+    done before it)."""
+    # phase 5's keys that fall in its lookup file's first row group: a
+    # row group's batch of 32,768 hashes or more goes to the card's probe
+    keys = make_keys(lookup_rows, seed)
+    keys = keys[keys < 2 * (ROW_GROUP // 4)][:OBS_LOOKUP_KEYS]
+    launches = dict.fromkeys(pq.LAUNCHES, 0)
+    out = {"card": card, "lookup_keys": len(keys)}
+    for name, run in (
+            ("a_reads", lambda: instrumented_reads(read["path"], tmp)),
+            ("b_concurrent", lambda: concurrent_ops(look_path, keys, parts)),
+            ("c_endpoints", lambda: scraped_drain(read["path"])),
+            ("d_pressure", lambda: memory_pressure(look_path, keys)),
+            ("e_slow_log", lambda: slow_log(read["path"], look_path, keys,
+                                            tmp))):
+        t0 = time.perf_counter()
+        try:
+            got = run()
+        except BaseException:
+            log({"obs": out, "failed_in": name})
+            raise
+        got["phase_s"] = time.perf_counter() - t0
+        for k, v in got["launches"].items():
+            launches[k] += v
+        out[name] = got
+    check_launched("phase 5o", launches,
+                   READ_KERNELS + ("bloom_check",))
+    out["launches"] = launches
+    log({"obs": out})
+    return {"launches": launches}
+
+
 def _codes_of(cd, words) -> np.ndarray:
     """Each row's index in ``words`` of a byte-array column built from
     them (by the first byte, which tells these words apart, else by the
@@ -8054,6 +8568,8 @@ def main(argv=None) -> int:
         remote = phase("5n_remote", remote_path, card, read, look["path"],
                        args.lookup_rows, args.seed, multi["paths"],
                        aggregate)
+        obs = phase("5o_obs", obs_path, card, read, look["path"],
+                    args.lookup_rows, args.seed, multi["paths"], tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -8067,7 +8583,7 @@ def main(argv=None) -> int:
                       "stream": stream, "typed_rows_merge": typed_rows,
                       "aggregate": aggregate, "write": write,
                       "table": table, "debug": debug,
-                      "remote": remote})
+                      "remote": remote, "obs": obs})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

@@ -58,8 +58,14 @@ lookup, scan, aggregate and ``Dataset`` opens ``http(s)://`` and
 ``s3://`` URLs too (``HttpSource``, ``ObjectStoreSource``): hedged
 preads, per-host circuit breakers, auth hooks, prefix listings, and a
 remote aggregate that fetches its ranges at once; the loopback
-``LocalRangeServer`` and ``FaultInjectingRemoteTransport`` test them, and
-``metrics_snapshot`` reads the ``remote.*`` meters.  Where pyarrow is
+``LocalRangeServer`` and ``FaultInjectingRemoteTransport`` test them.
+Every read, scan, lookup, aggregate, write and table commit moves the
+JAX package's meters (``metrics_snapshot``, ``render_prometheus``), runs
+in an ``op_scope`` of its own unless the caller opened one (exact per-op
+counters across worker threads), keeps its bytes in the resource ledger
+(``ledger_snapshot``, the ``PARQUET_TPU_TORCH_MEM_SOFT``/``_HARD``
+watermarks), and with ``enable_tracing`` writes Chrome trace spans;
+``start_metrics_server`` serves ``/metrics`` and ``/debugz``.  Where pyarrow is
 installed, a read converts to a ``pyarrow.Table`` (``Table.to_arrow``;
 ``Table`` is the read's ``ColumnSet``) and ``write_table`` takes one
 (``schema_from_arrow``); nothing else imports pyarrow.  ``counters``
@@ -138,7 +144,12 @@ from .io.faults import (FaultInjectingRemoteTransport, FaultInjectingSink,
                         crash_consistency_check, table_crash_check)
 from .io.remote import (CircuitBreaker, HttpSource, HttpTransport,
                         ObjectStoreSource)
-from .obs.metrics import metrics_delta, metrics_snapshot, reset_metrics
+from . import obs
+from .obs import (OpScope, current_op, debugz_snapshot, disable_tracing,
+                  enable_tracing, flush_trace, ledger_snapshot,
+                  metrics_delta, metrics_snapshot, op_scope,
+                  pool_wait_seconds, render_prometheus, reset_metrics,
+                  start_metrics_server, trace_span)
 from .io.integrity import IntegrityIssue, IntegrityReport, verify_file
 from .io.sink import (AtomicFileSink, BufferedSink, FileSink, Sink,
                       WriteStats)
@@ -234,7 +245,11 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "FaultInjectingRemoteTransport", "LocalRangeServer",
            "CircuitBreaker", "HttpSource", "HttpTransport",
            "ObjectStoreSource", "PreloadedSource", "metrics_snapshot",
-           "metrics_delta", "reset_metrics"]
+           "metrics_delta", "reset_metrics", "obs", "OpScope", "op_scope",
+           "current_op", "debugz_snapshot", "enable_tracing",
+           "disable_tracing", "flush_trace", "trace_span",
+           "ledger_snapshot", "pool_wait_seconds", "render_prometheus",
+           "start_metrics_server"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import glob as _glob
 import os
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -39,7 +40,12 @@ from .errors import CorruptedError, DeadlineError
 from .io.column import Column, concat_columns
 from .io.reader import ParquetFile, _empty_column, _select_leaves
 from .io.search import _as_expr, prune_file
+from .obs import scope as _oscope
+from .obs.metrics import histogram as _ohistogram
 from .utils.pool import map_in_order
+
+_M_READ_S = _ohistogram("dataset.read_s")
+_M_SCAN_S = _ohistogram("dataset.scan_s")
 
 __all__ = ["Dataset", "expand_paths"]
 
@@ -234,6 +240,17 @@ class Dataset:
         or read at all drops whole (``report.files_skipped``, its rows,
         where its footer parsed, in ``rows_dropped``).  The result's
         ``report`` is the call's."""
+        t0 = time.perf_counter()
+        # the whole fan-out, the files' reads on pool workers included, is
+        # one op (unless the caller's is active)
+        with _oscope.maybe_op_scope("dataset.read", files=len(self.paths)):
+            try:
+                return self._read_impl(columns, device, policy, report)
+            finally:
+                _M_READ_S.observe(time.perf_counter() - t0)
+
+    def _read_impl(self, columns, device, policy,
+                   report) -> Dict[str, Column]:
         from .io.faults import NON_DATA_ERRORS, ReadReport
         from .io.reader import ColumnSet
         from .parallel.mesh import read_dataset_device, resolve_mesh
@@ -362,6 +379,16 @@ class Dataset:
         len(mesh)]``; the results are the same on any mesh.  Under a
         degraded ``policy`` unopenable files, files that fail mid-scan and
         corrupt row groups all drop, the loss in ``report``."""
+        t0 = time.perf_counter()
+        with _oscope.maybe_op_scope("dataset.scan", files=len(self.paths)):
+            try:
+                return self._scan_impl(path, lo, hi, columns, use_bloom,
+                                       values, policy, report, where, device)
+            finally:
+                _M_SCAN_S.observe(time.perf_counter() - t0)
+
+    def _scan_impl(self, path, lo, hi, columns, use_bloom, values, policy,
+                   report, where, device) -> Dict[str, object]:
         from .parallel.host_scan import (_output_columns, _typed_empty,
                                          scan_files)
         from .parallel.mesh import resolve_mesh
@@ -445,10 +472,11 @@ class Dataset:
         chunk byte is read).  ``where`` takes a predicate tree over any
         number of columns.  Under a degraded ``policy`` an unopenable file
         is left out and recorded in ``report``."""
-        _, report, skip = self._resolve(policy, report)
-        expr = self._prepare_where(path, lo, hi, values, where, skip)
-        return [self.paths[i]
-                for i in self._prune_indices(expr, skip, report)[0]]
+        with _oscope.maybe_op_scope("dataset.prune", files=len(self.paths)):
+            _, report, skip = self._resolve(policy, report)
+            expr = self._prepare_where(path, lo, hi, values, where, skip)
+            return [self.paths[i]
+                    for i in self._prune_indices(expr, skip, report)[0]]
 
     def plan(self, path: Optional[str] = None, lo=None, hi=None,
              use_bloom: bool = False, values: Optional[Sequence] = None,
@@ -510,8 +538,11 @@ class Dataset:
         rows neither delivered nor already dropped."""
         if batch_rows <= 0:
             raise ValueError("batch_rows must be positive")
-        return self._iter_batches_gen(columns, batch_rows, strict_batch_rows,
-                                      device, policy, report)
+        gen = self._iter_batches_gen(columns, batch_rows, strict_batch_rows,
+                                     device, policy, report)
+        # active around each pull; the files' drains join it
+        return _oscope.scoped_iter("dataset.iter_batches", gen,
+                                   files=len(self.paths))
 
     def _iter_batches_gen(self, columns, batch_rows, strict_batch_rows,
                           device, policy, report):

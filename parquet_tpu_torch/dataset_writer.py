@@ -35,6 +35,7 @@ from __future__ import annotations
 import os
 import secrets
 import threading
+import time
 import weakref
 from typing import Dict, List, Optional, Sequence
 
@@ -48,7 +49,24 @@ from .io.manifest import (Manifest, collect_entry, commit_manifest,
                           register_sweep_exempt, sweep_orphans)
 from .io.sink import AtomicFileSink
 from .io.writer import ColumnData, ParquetWriter, WriterOptions
+from .obs import scope as _oscope
+from .obs.ledger import ledger_account, maybe_check_pressure
+from .obs.metrics import counter as _counter
+from .obs.metrics import histogram as _histogram
 from .schema.schema import Schema
+
+_M_COMMITS = _counter("table.commits")
+_M_FILES_WRITTEN = _counter("table.files_written")
+_M_ROWS_INGESTED = _counter("table.rows_ingested")
+_M_BYTES_INGESTED = _counter("table.bytes_ingested")
+_M_COMPACTIONS = _counter("table.compactions")
+_M_FILES_COMPACTED = _counter("table.files_compacted")
+_M_CONFLICTS = _counter("table.commit_conflicts")
+_M_COMPACT_ERRORS = _counter("table.compaction_errors")
+_M_COMMIT_S = _histogram("table.commit_s")
+# the ledger's account of the rows buffered in every DatasetWriter and
+# not yet flushed into a part
+_ACC_PENDING = ledger_account("table.pending")
 
 __all__ = ["DatasetWriter", "open_table", "compact_table",
            "BackgroundCompactor", "recover_table", "table_debug"]
@@ -215,6 +233,9 @@ class DatasetWriter:
         buf.write(cols, n)
         self._pending_bytes[pid] += nb
         self._pending_rows[pid] += n
+        _ACC_PENDING.add(nb)
+        # a growth site: buffered rows can cross a watermark
+        maybe_check_pressure()
 
     # -------------------------------------------------------------- flush
     def pending_rows(self) -> int:
@@ -231,9 +252,10 @@ class DatasetWriter:
 
     def _flush_buffer(self, pid: int) -> None:
         buf = self._buffers.pop(pid)
-        # the rows leave the pending count whether or not the write
-        # succeeds: a crashed flush's rows are lost to the table
-        self._pending_bytes.pop(pid, None)
+        # the rows leave the pending count (and the ledger) whether or
+        # not the write succeeds: a crashed flush's rows are lost to the
+        # table
+        _ACC_PENDING.sub(self._pending_bytes.pop(pid, 0))
         self._pending_rows.pop(pid, None)
         if buf.num_rows == 0:
             return
@@ -275,6 +297,14 @@ class DatasetWriter:
         the live manifest where there was nothing to commit."""
         if self._closed:
             raise ValueError("commit on a closed DatasetWriter")
+        t0 = time.perf_counter()
+        with _oscope.maybe_op_scope("table.commit", dir=self.table_dir):
+            try:
+                return self._commit_impl()
+            finally:
+                _M_COMMIT_S.observe(time.perf_counter() - t0)
+
+    def _commit_impl(self) -> Optional[Manifest]:
         self.flush()
         if not self._flushed:
             live = read_manifest(self.table_dir)
@@ -291,6 +321,11 @@ class DatasetWriter:
 
         new = commit_manifest(self.table_dir, mutate,
                               sink_wrap=self._sink_wrap)
+        _oscope.account(_M_COMMITS)
+        _oscope.account(_M_FILES_WRITTEN, len(entries))
+        _oscope.account(_M_ROWS_INGESTED, sum(e.num_rows for e in entries))
+        _oscope.account(_M_BYTES_INGESTED,
+                        sum(e.file_size for e in entries))
         self._flushed = []
         self.commits += 1
         self.version = new.version
@@ -300,6 +335,7 @@ class DatasetWriter:
     def abort(self) -> None:
         """Drop the buffered rows and remove the uncommitted parts."""
         self._buffers.clear()
+        _ACC_PENDING.sub(sum(self._pending_bytes.values()))
         self._pending_bytes.clear()
         self._pending_rows.clear()
         for name in self._flushed:
@@ -429,6 +465,15 @@ def compact_table(table_dir, max_files: Optional[int] = None,
 
 def _compact_run(table_dir, victims, sorting, name, options, batch_rows,
                  device, _sink_wrap) -> Optional[Manifest]:
+    # a compaction is an op of its own (unless the caller's is active)
+    with _oscope.maybe_op_scope("table.compact", dir=table_dir,
+                                inputs=len(victims)):
+        return _compact_run_impl(table_dir, victims, sorting, name,
+                                 options, batch_rows, device, _sink_wrap)
+
+
+def _compact_run_impl(table_dir, victims, sorting, name, options,
+                      batch_rows, device, _sink_wrap) -> Optional[Manifest]:
     from .algebra.merge import merge_files
     from .io.cache import invalidate_path
 
@@ -456,6 +501,7 @@ def _compact_run(table_dir, victims, sorting, name, options, batch_rows,
 
     new = commit_manifest(table_dir, mutate, sink_wrap=_sink_wrap)
     if new is None:
+        _oscope.account(_M_CONFLICTS)
         try:
             os.unlink(merged_path)
         except OSError:
@@ -470,14 +516,17 @@ def _compact_run(table_dir, victims, sorting, name, options, batch_rows,
             os.unlink(p)
         except OSError:
             pass
+    _oscope.account(_M_COMPACTIONS)
+    _oscope.account(_M_FILES_COMPACTED, len(victims))
     return new
 
 
 class BackgroundCompactor:
     """A thread that compacts the table whenever its live part count
-    reaches ``min_files``, every ``interval_s``.  A failed pass (its error
-    kept in ``last_error``) leaves the table at a valid snapshot, and the
-    next tick tries again.  ``close()`` stops and joins the thread."""
+    reaches ``min_files``, every ``interval_s``.  A failed pass (counted
+    in ``table.compaction_errors``, its error kept in ``last_error``)
+    leaves the table at a valid snapshot, and the next tick tries again.
+    ``close()`` stops and joins the thread."""
 
     def __init__(self, table_dir, interval_s: float = 1.0,
                  min_files: int = 4, max_files: Optional[int] = None,
@@ -509,6 +558,8 @@ class BackgroundCompactor:
                                      device=self.device) is not None:
                         self.passes += 1
             except Exception as e:
+                # one failed pass must not stop the compactor
+                _oscope.account(_M_COMPACT_ERRORS)
                 self.last_error = e
 
     def close(self) -> None:

@@ -67,11 +67,23 @@ from ..algebra.aggregate import DERIVED_KINDS, AggExpr
 from ..algebra.expr import TRUE, Const, Expr, prepare
 from ..errors import CorruptedError, DeadlineError
 from ..format.enums import Encoding, Type
+from ..obs import scope as _oscope
+from ..obs.metrics import counter as _counter
+from ..obs.metrics import histogram as _histogram
 from ..utils.env import env_bool
 from ..utils.pool import read_admission
 from .planner import (_collect_preds, _eval_tree, _intersect_intervals,
                       _merge_intervals, _pred_page_ords, _stats_alive,
                       _stats_covers, _tree_covers)
+
+_M_AGG_S = _histogram("agg.aggregate_s")
+_M_DS_AGG_S = _histogram("dataset.aggregate_s")
+_M_FILES_MANIFEST = _counter("agg.files_answered_manifest")
+# each tier's counter of the row groups it answered
+_TIER_METRIC = {t: _counter("agg.rg_answered_" + t)
+                for t in ("stats", "pages", "dict", "dict_partial",
+                          "decoded")}
+
 
 __all__ = ["AggregateResult", "aggregate_file", "dataset_aggregate",
            "encode_agg_state", "decode_agg_state", "AGG", "reset_agg"]
@@ -910,15 +922,17 @@ def _resolve_rg(pf, rg, expr, aggs: Sequence[AggExpr], leaves, group_leaf,
         if group_leaf is None and not any(a.kind == "top_k" for a in aggs):
             cursors = _fused_cursors(rg, reader, expr, accs, cov, contended)
         if cursors is not None:
-            from .fused import FUSED
+            from .fused import _H_FOLD_S, count_fused
 
+            t0 = time.perf_counter()
             masks = _contended_masks_fused(expr, cursors, contended)
             for acc in accs:
                 _contrib_partial(pf, rg, reader, acc, cov, masks,
                                  cursors=cursors)
             if any(c.touched for c in cursors.values()):
                 reader.decoded = True
-            FUSED["rg_folds"] += 1
+            count_fused("rg_folds")
+            _H_FOLD_S.observe(time.perf_counter() - t0)
         else:
             masks = _contended_masks(expr, reader, contended)
             if group_leaf is not None:
@@ -1061,7 +1075,7 @@ def _fused_cursors(rg, reader: _RgReader, expr, accs, cov: _Intervals,
     every filter and aggregate leaf is flat with an offset index, and
     ``choose_fused`` elects it on the bytes the exact tier would decode
     for this ``device`` (never on a card under ``auto``)."""
-    from .fused import FUSED, FusedUnsupported, PageCursor
+    from .fused import FusedUnsupported, PageCursor, count_fused
     from .planner import choose_fused
 
     if not contended:
@@ -1082,7 +1096,7 @@ def _fused_cursors(rg, reader: _RgReader, expr, accs, cov: _Intervals,
     try:
         return {ci: PageCursor(rg, leaf) for ci, leaf in need.items()}
     except FusedUnsupported:
-        FUSED["fallbacks"] += 1
+        count_fused("fallbacks")
         return None
 
 
@@ -1904,15 +1918,30 @@ def aggregate_file(pf, aggs: Sequence[AggExpr], where=None, group_by=None,
 
     dev = resolve_device(device)
     aggs, plan = _expand_derived(aggs)
-    pol, report = resolve_policy(pf, policy, report)
-    with pf._resilient_op(policy, report, "aggregate"):
-        state = _aggregate_impl(pf, aggs, where, group_by, dev, pol, report,
-                                _prepared)
+    t0 = time.perf_counter()
+    with _oscope.maybe_op_scope("file.aggregate", file=pf._path,
+                                aggs=len(aggs)):
+        try:
+            pol, report = resolve_policy(pf, policy, report)
+            with pf._resilient_op(policy, report, "aggregate"):
+                state = _aggregate_impl(pf, aggs, where, group_by, dev, pol,
+                                        report, _prepared)
+        finally:
+            _M_AGG_S.observe(time.perf_counter() - t0)
     aggs_l, accs, groups, counters, lines = state
+    _publish(counters)
     if _state_only:
         return state
     return _finalize(aggs_l, accs, groups, counters, lines, report,
                      plan=plan)
+
+
+def _publish(counters: Dict[str, int]) -> None:
+    """A file's tier counters into the registry and the op."""
+    for tier, metric in _TIER_METRIC.items():
+        _oscope.account(metric, counters.get(f"rg_answered_{tier}", 0))
+    _oscope.account(_M_FILES_MANIFEST,
+                    counters.get("files_answered_manifest", 0))
 
 
 def _aggregate_impl(pf, aggs, where, group_by, device, pol, report,
@@ -1980,7 +2009,21 @@ def dataset_aggregate(ds, aggs: Sequence[AggExpr], where=None,
     pool, each row group by row group on ``device``, and the partial
     states merge in file order.  Under a degraded ``policy`` an unreadable
     file drops as a unit (``report.files_skipped``).  ``_state_only``
-    returns the raw merged state."""
+    returns the raw merged state.  The call is an op of its own
+    (``dataset.aggregate``) unless the caller's scope is active."""
+    aggs = list(aggs)
+    t0 = time.perf_counter()
+    with _oscope.maybe_op_scope("dataset.aggregate", files=len(ds.paths),
+                                aggs=len(aggs)):
+        try:
+            return _dataset_aggregate_impl(ds, aggs, where, group_by, device,
+                                           policy, report, _state_only)
+        finally:
+            _M_DS_AGG_S.observe(time.perf_counter() - t0)
+
+
+def _dataset_aggregate_impl(ds, aggs, where, group_by, device, policy,
+                            report, _state_only):
     from ..utils.pool import map_in_order
     from .faults import NON_DATA_ERRORS, ReadReport
     from .manifest import manifest_all_match, manifest_may_match
@@ -2072,6 +2115,7 @@ def dataset_aggregate(ds, aggs: Sequence[AggExpr], where=None,
                 else:
                     for acc, d in zip(cur, daccs):
                         acc.merge(d)
+    _oscope.account(_M_FILES_MANIFEST, counters["files_answered_manifest"])
     if _state_only:
         return aggs, accs, groups, counters, lines
     return _finalize(aggs, accs, groups, counters, lines, report,

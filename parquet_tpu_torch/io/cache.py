@@ -23,10 +23,18 @@ an in-memory source has no ``stat_key`` and is never cached.
 
 The port's writer calls :func:`invalidate_path` when it closes a path it
 wrote, which closes the one gap of the fstat key: an in-place rewrite of
-the same size inside one tick of the file system's clock.  Not in this
-port: the whole-chunk ``ChunkCache`` (it serves the streamed reads), page
-pins of the serving daemon's tenants, the resource ledger's accounts and
-its reclaim pass.
+the same size inside one tick of the file system's clock.
+
+Every tier moves the JAX package's ``cache.*`` counters through
+``obs.scope.account`` (so an op's report holds its own hits and misses)
+and keeps its resource-ledger account (``cache.footer``, ``cache.page``,
+``cache.neg_lookup``) current inside the critical section that moves its
+bytes; each registers a reclaimer that the ledger's soft watermark runs,
+and ``top_entries`` lists its largest entries for ``/debugz``.  Not in
+this port: the whole-chunk ``ChunkCache`` (it serves the host whole-chunk
+reads) and the page pins of the serving daemon's tenants, whose families
+(``cache.chunk_*``, the ``cache.chunk`` and ``cache.page_pinned``
+accounts) stay at 0.
 """
 
 from __future__ import annotations
@@ -40,6 +48,11 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 
+from ..obs.ledger import LEDGER, ledger_account
+from ..obs.ledger import maybe_check_pressure as _maybe_pressure
+from ..obs.metrics import counter as _counter
+from ..obs.metrics import gauge as _gauge
+from ..obs.scope import account as _account
 from ..utils.env import env_bytes, env_int
 
 __all__ = ["CacheStats", "FooterCache", "PageCache", "NegLookupCache",
@@ -62,6 +75,30 @@ def page_cache_bytes() -> int:
 def neg_lookup_cache_bytes() -> int:
     """The negative-lookup memo's capacity in bytes (``0``: off)."""
     return env_bytes("PARQUET_TPU_TORCH_NEG_LOOKUP")
+
+
+_M_FOOTER_HITS = _counter("cache.footer_hits")
+_M_FOOTER_MISSES = _counter("cache.footer_misses")
+_M_FOOTER_ENTRIES = _gauge("cache.footer_entries")
+_M_PAGE_HITS = _counter("cache.page_hits")
+_M_PAGE_MISSES = _counter("cache.page_misses")
+_M_PAGE_EVICTIONS = _counter("cache.page_evictions")
+_M_PAGE_ENTRIES = _gauge("cache.page_entries")
+_M_PAGE_BYTES = _gauge("cache.page_bytes")
+
+# the ledger's accounts, moved inside the critical sections that move each
+# tier's own bytes, so the ledger cannot drift from the tier
+_ACC_PAGE = ledger_account("cache.page", capacity=page_cache_bytes)
+_ACC_FOOTER = ledger_account("cache.footer")
+_ACC_NEG = ledger_account("cache.neg_lookup",
+                          capacity=neg_lookup_cache_bytes)
+
+
+def _top_entries(items: list, n: int) -> list:
+    """The largest ``(key, nbytes)`` pairs, as ``/debugz`` shows them."""
+    items.sort(key=lambda kv: kv[1], reverse=True)
+    return [{"key": [str(p) for p in k], "bytes": nb}
+            for k, nb in items[:n]]
 
 
 @dataclass
@@ -87,11 +124,13 @@ class CacheStats:
 class FooterCache:
     """An entry-bounded LRU of parsed footers: key -> (FileMetaData,
     Schema).  Both are immutable after the open, so ParquetFile instances
-    share them."""
+    share them.  An entry weighs its serialized footer's length in the
+    ledger (what the parsed structures pin grows with it)."""
 
     def __init__(self, stats: CacheStats):
         self._lock = threading.Lock()
-        self._entries: "OrderedDict[tuple, Any]" = OrderedDict()
+        self._entries: "OrderedDict[tuple, Tuple[Any, int]]" = OrderedDict()
+        self._bytes = 0
         self.stats = stats
 
     def get(self, key) -> Optional[Any]:
@@ -99,32 +138,63 @@ class FooterCache:
             got = self._entries.get(key)
             if got is None:
                 self.stats.footer_misses += 1
+                _account(_M_FOOTER_MISSES)
                 return None
             self._entries.move_to_end(key)
             self.stats.footer_hits += 1
-            return got
+            _account(_M_FOOTER_HITS)
+            return got[0]
 
-    def put(self, key, value) -> None:
+    def _publish_locked(self) -> None:
+        self.stats.footer_entries = len(self._entries)
+        _M_FOOTER_ENTRIES.set(len(self._entries))
+        _ACC_FOOTER.set(self._bytes)
+
+    def put(self, key, value, nbytes: int = 0) -> None:
         cap = footer_cache_entries()
         if cap <= 0:
             return
         with self._lock:
-            self._entries.pop(key, None)
-            self._entries[key] = value
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (value, int(nbytes))
+            self._bytes += int(nbytes)
             while len(self._entries) > cap:
-                self._entries.popitem(last=False)
-            self.stats.footer_entries = len(self._entries)
+                _, (_, nb) = self._entries.popitem(last=False)
+                self._bytes -= nb
+            self._publish_locked()
+        _maybe_pressure()
+
+    def top_entries(self, n: int = 10) -> list:
+        """The largest cached footers by bytes (``/debugz``)."""
+        with self._lock:
+            items = [(k, nb) for k, (_, nb) in self._entries.items()]
+        return _top_entries(items, n)
+
+    def shrink_to(self, target_entries: int) -> int:
+        """Evict LRU-first down to ``target_entries`` (the soft-pressure
+        response); returns how many entries went."""
+        evicted = 0
+        with self._lock:
+            while len(self._entries) > max(0, target_entries):
+                _, (_, nb) = self._entries.popitem(last=False)
+                self._bytes -= nb
+                evicted += 1
+            self._publish_locked()
+        return evicted
 
     def invalidate_path(self, ap: str) -> None:
         with self._lock:
             for key in [k for k in self._entries if k[0] == ap]:
-                del self._entries[key]
-            self.stats.footer_entries = len(self._entries)
+                self._bytes -= self._entries.pop(key)[1]
+            self._publish_locked()
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
-            self.stats.footer_entries = 0
+            self._bytes = 0
+            self._publish_locked()
 
 
 class ByteRows(NamedTuple):
@@ -208,15 +278,22 @@ class PageCache:
             got = self._entries.get(key)
             if got is None:
                 self.stats.page_misses += 1
+                _account(_M_PAGE_MISSES)
                 return None
             self._entries.move_to_end(key)
             self.stats.page_hits += 1
+            _account(_M_PAGE_HITS)
             return got[0]
 
     def _publish_locked(self, cap: int) -> None:
+        # under self._lock: the gauges and the ledger account move in the
+        # critical section that moved the bytes
         self.stats.page_entries = len(self._entries)
         self.stats.page_bytes = self._bytes
         self.stats.page_capacity = cap
+        _M_PAGE_ENTRIES.set(len(self._entries))
+        _M_PAGE_BYTES.set(self._bytes)
+        _ACC_PAGE.set(self._bytes)
 
     def _evict_locked(self, target: int) -> int:
         evicted = 0
@@ -225,6 +302,7 @@ class PageCache:
             self._bytes -= nb
             evicted += 1
         self.stats.page_evictions += evicted
+        _account(_M_PAGE_EVICTIONS, evicted)
         return evicted
 
     def put(self, key, values, validity, first_row: int,
@@ -244,7 +322,15 @@ class PageCache:
             self._bytes += nb
             self._evict_locked(cap)
             self._publish_locked(cap)
+        _maybe_pressure()
         return entry
+
+    def top_entries(self, n: int = 10) -> list:
+        """The largest resident pages by bytes (``/debugz``; keys are
+        (file key, row group, leaf path, page ordinal) tuples)."""
+        with self._lock:
+            items = [(k, nb) for k, (_, nb) in self._entries.items()]
+        return _top_entries(items, n)
 
     def shrink_to(self, target_bytes: int) -> int:
         """Evict LRU-first until the cache holds at most ``target_bytes``;
@@ -316,6 +402,7 @@ class NegLookupCache:
                 # would empty the memo, this entry last: skip the inserts
                 self._entries.clear()
                 self._bytes = 0
+                _ACC_NEG.set(0)
                 return
             got = self._entries.get(chunk_key)
             if got is None:
@@ -331,22 +418,61 @@ class NegLookupCache:
             while self._bytes > cap and self._entries:
                 _, e = self._entries.popitem(last=False)
                 self._bytes -= e[1]
+            _ACC_NEG.set(self._bytes)
+        _maybe_pressure()
 
     def invalidate_path(self, ap: str) -> None:
         with self._lock:
             for key in [k for k in self._entries if k[0][0] == ap]:
                 self._bytes -= self._entries.pop(key)[1]
+            _ACC_NEG.set(self._bytes)
+
+    def shrink_to(self, target_bytes: int) -> int:
+        """Evict whole chunks LRU-first down to ``target_bytes``; returns
+        how many went."""
+        evicted = 0
+        with self._lock:
+            while self._bytes > max(0, target_bytes) and self._entries:
+                _, e = self._entries.popitem(last=False)
+                self._bytes -= e[1]
+                evicted += 1
+            _ACC_NEG.set(self._bytes)
+        return evicted
+
+    def top_entries(self, n: int = 10) -> list:
+        with self._lock:
+            items = [(k, e[1]) for k, e in self._entries.items()]
+        return _top_entries(items, n)
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
             self._bytes = 0
+            _ACC_NEG.set(0)
 
 
 _STATS = CacheStats()
 FOOTERS = FooterCache(_STATS)
 PAGES = PageCache(_STATS)
 NEGS = NegLookupCache()
+
+
+def _reclaim_pages(fraction: float) -> int:
+    return PAGES.shrink_to(int(PAGES.stats.page_bytes * fraction))
+
+
+def _reclaim_negs(fraction: float) -> int:
+    return NEGS.shrink_to(int(NEGS.resident_bytes * fraction))
+
+
+def _reclaim_footers(fraction: float) -> int:
+    return FOOTERS.shrink_to(int(FOOTERS.stats.footer_entries * fraction))
+
+
+# the soft watermark's order: the decoded pages first, the memo next, the
+# parsed footers last (small, and the dearest to rebuild a byte)
+for _fn in (_reclaim_pages, _reclaim_negs, _reclaim_footers):
+    LEDGER.register_reclaimer(_fn)
 
 
 def invalidate_path(path) -> None:

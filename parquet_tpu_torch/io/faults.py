@@ -51,7 +51,14 @@ from typing import Dict, List, Optional, Tuple
 
 from ..errors import (DeadlineError, ReadError, ReadIOError, RemoteError,
                       ShortReadError, _Unsupported)
+from ..obs.metrics import counter as _counter
+from ..obs.scope import account as _account
 from .source import Source
+
+_M_RETRIES = _counter("read.retries")
+_M_ROWS_DROPPED = _counter("read.rows_dropped")
+_M_RG_SKIPPED = _counter("read.row_groups_skipped")
+_M_FILES_SKIPPED = _counter("read.files_skipped")
 
 __all__ = ["FaultPolicy", "ReadReport", "Deadline", "PolicySource",
            "FaultInjectingSource", "FaultStats", "read_context",
@@ -139,18 +146,38 @@ class ReadReport:
             self.path = path
         return self
 
+    # the registry counts at the record sites only (merge folds without
+    # recording again).  A routing attempt's scratch report sets this
+    # False: its skips are dropped on a fallback (the host scan records
+    # them again) or published once by publish_skips where it is kept.
+    _publish = True
+
     def record_skip(self, rg_index: int, rows: int, error) -> None:
         # no dedup: each call site records one skip a row group an
         # operation, and a report reused across files records each file's
         self.row_groups_skipped.append(rg_index)
         self.errors.append(str(error))
         self.rows_dropped += rows
+        if self._publish:
+            _account(_M_RG_SKIPPED)
+            _account(_M_ROWS_DROPPED, rows)
 
     def record_file_skip(self, path: str, rows: int, error) -> None:
         """One whole file dropped from a dataset-level degraded read."""
         self.files_skipped.append(str(path))
         self.errors.append(str(error))
         self.rows_dropped += rows
+        if self._publish:
+            _account(_M_FILES_SKIPPED)
+            _account(_M_ROWS_DROPPED, rows)
+
+    def publish_skips(self) -> None:
+        """Publish the report's skips to the registry at once: the scratch
+        report's counterpart of the record sites, called once where the
+        attempt that made it is kept."""
+        _account(_M_RG_SKIPPED, len(self.row_groups_skipped))
+        _account(_M_FILES_SKIPPED, len(self.files_skipped))
+        _account(_M_ROWS_DROPPED, self.rows_dropped)
 
     def merge(self, other: "ReadReport") -> "ReadReport":
         """Fold another report (a file's, a shard's, or a routing
@@ -389,6 +416,7 @@ class PolicySource(Source):
                 self.retries_performed += 1
                 if dl is not None and id(dl) in self._op_retries:
                     self._op_retries[id(dl)] += 1
+            _account(_M_RETRIES)
 
         return retry_call(fn, offset, size, self.policy, deadline=dl,
                           on_retry=on_retry)

@@ -26,12 +26,16 @@ from typing import Iterator, List, Optional, Tuple
 import numpy as np
 
 from ..format.enums import Encoding, PageType, Type
+from ..obs.metrics import counter as _counter
+from ..obs.metrics import histogram as _histogram
+from ..obs.scope import account as _account
 from ..ops import ref
 from ..ops.encodings import lookup as _lookup_encoding
 from ..utils.debug import counters
 from ..utils.pool import read_admission
 
-__all__ = ["FusedUnsupported", "PageCursor", "FUSED", "reset_fused"]
+__all__ = ["FusedUnsupported", "PageCursor", "FUSED", "reset_fused",
+           "count_fused"]
 
 #: row groups folded through cursors, pages decoded (whole or masked),
 #: pages masked-emitted, fallbacks to the materializing tier, host scan
@@ -40,6 +44,17 @@ FUSED = {"rg_folds": 0, "pages_folded": 0, "pages_masked_emit": 0,
          "fallbacks": 0, "scan_spans": 0}
 
 _UNSET = object()
+
+
+# each FUSED key's registry family (fused.<key>), and the fold's latency
+_METRIC = {k: _counter("fused." + k) for k in FUSED}
+_H_FOLD_S = _histogram("fused.fold_s")
+
+
+def count_fused(key: str, n: int = 1) -> None:
+    """Count ``n`` in ``FUSED[key]``, in ``fused.<key>`` and in the op."""
+    FUSED[key] += n
+    _account(_METRIC[key], n)
 
 
 def reset_fused() -> None:
@@ -111,7 +126,7 @@ class PageCursor:
             col = decode_chunk_host(self.chunk, "cpu", pages=[pg],
                                     dictionary=self.dictionary())
         self.pages_decoded += 1
-        FUSED["pages_folded"] += 1
+        count_fused("pages_folded")
         self._cur = (o, col)
         return col
 
@@ -222,15 +237,15 @@ class PageCursor:
             present = len(take)
             if present == 0:
                 self.pages_masked += 1
-                FUSED["pages_masked_emit"] += 1
+                count_fused("pages_masked_emit")
                 return None, 0
             dec = spec.decode_masked(raw, pos, nvals, take, leaf, physical,
                                      self.dictionary())
         if dec is None:
             return None, -1
         self.pages_masked += 1
-        FUSED["pages_masked_emit"] += 1
-        FUSED["pages_folded"] += 1
+        count_fused("pages_masked_emit")
+        count_fused("pages_folded")
         return dec, present
 
     @property

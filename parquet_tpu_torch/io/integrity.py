@@ -46,6 +46,7 @@ from ..errors import (MAX_COLUMN_INDEX_SIZE, MAX_PAGE_HEADER_SIZE,
 from ..format import metadata as md
 from ..format import thrift
 from ..format.enums import Encoding, PageType
+from ..obs import scope as _oscope
 from .faults import NON_DATA_ERRORS
 from .source import as_source
 
@@ -142,20 +143,22 @@ def verify_file(source, crc: bool = True, indexes: bool = True,
     own = isinstance(source, (str, os.PathLike, bytes, bytearray,
                               memoryview))
     rep = IntegrityReport(path=getattr(src, "path", None))
-    try:
-        meta = _verify_envelope(src, rep)
-        if meta is not None:
-            _verify_body(src, meta, rep, crc=crc, indexes=indexes,
-                         blooms=blooms)
-            if decode:
-                _verify_decode(src, rep, device)
-    except NON_DATA_ERRORS:
-        raise
-    except Exception as e:  # a verifier degrades to a report
-        rep.add("io", f"verification aborted: {e}")
-    finally:
-        if own:
-            src.close()
+    # a verification walk is an op like a read (unless the caller's is)
+    with _oscope.maybe_op_scope("verify.file", file=rep.path):
+        try:
+            meta = _verify_envelope(src, rep)
+            if meta is not None:
+                _verify_body(src, meta, rep, crc=crc, indexes=indexes,
+                             blooms=blooms)
+                if decode:
+                    _verify_decode(src, rep, device)
+        except NON_DATA_ERRORS:
+            raise
+        except Exception as e:  # a verifier degrades to a report
+            rep.add("io", f"verification aborted: {e}")
+        finally:
+            if own:
+                src.close()
     return rep
 
 

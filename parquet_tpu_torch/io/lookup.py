@@ -67,6 +67,7 @@ Not in this port: metrics and op scopes.
 
 from __future__ import annotations
 
+import time
 from bisect import bisect_left, bisect_right
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -75,9 +76,29 @@ import numpy as np
 
 from ..errors import CorruptedError, DeadlineError
 from ..format.enums import BoundaryOrder, Type
+from ..obs import scope as _oscope
+from ..obs.metrics import counter as _counter
+from ..obs.metrics import histogram as _histogram
 from ..schema.types import PHYSICAL_NP_DTYPE, LogicalKind
 from ..utils.debug import counters
 from .cache import ByteRows, PageEntry
+
+_M_FIND_S = _histogram("lookup.find_rows_s")
+_M_DS_FIND_S = _histogram("dataset.find_rows_s")
+# each counter key's registry family: lookup.<key>
+_METRIC = {k: _counter("lookup." + k) for k in (
+    "keys", "keys_pruned_stats", "keys_pruned_bloom", "keys_pruned_pages",
+    "rows_matched", "preads", "pages_read", "pages_coalesced",
+    "chunk_fallbacks", "neg_hits", "binary_search_hits")}
+
+
+def _count(cdict: Dict[str, int], key: str, n: int) -> None:
+    """Count ``n`` in the lookup's ``cdict[key]``, in ``lookup.<key>``
+    and in the current op: once a batch or a row group, never a key."""
+    if n:
+        cdict[key] += n
+        _oscope.account(_METRIC[key], n)
+
 
 __all__ = ["KeyHits", "LookupResult", "find_rows", "dataset_find_rows"]
 
@@ -355,7 +376,7 @@ class _PageFetcher:
 
             pages = list(dictionary_pages(self.chunk, self.locs[0].offset))
             if pages:
-                self.counters["preads"] += 1
+                _count(self.counters, "preads", 1)
                 self._dict = decode_dictionary_page(self.chunk, pages[0])
                 counters.inc("dict_pages_decoded")
             else:
@@ -396,9 +417,9 @@ class _PageFetcher:
                                                  num_pages=len(run))
                 vals, valid = decode_aligned(self.chunk, self.device, pages,
                                              dictionary)
-            self.counters["preads"] += 1
-            self.counters["pages_read"] += len(run)
-            self.counters["pages_coalesced"] += len(run) - 1
+            _count(self.counters, "preads", 1)
+            _count(self.counters, "pages_read", len(run))
+            _count(self.counters, "pages_coalesced", len(run) - 1)
             at = self.firsts[first]
             for o in run:
                 a, n = self.firsts[o] - at, self.page_rows(o)
@@ -562,7 +583,7 @@ def _page_ords_of_keys(ci, leaf, prep: _PreparedKeys, alive: np.ndarray,
                for u, a, b, isnan in zip(alive.tolist(), lo.tolist(),
                                          hi.tolist(), nan.tolist())]
     out = [(u, ords) for u, ords in got if ords]
-    counters["keys_pruned_pages"] += len(got) - len(out)
+    _count(counters, "keys_pruned_pages", len(got) - len(out))
     return out
 
 
@@ -661,14 +682,15 @@ def _prune_one(rg, leaf, prep: _PreparedKeys, counters: Dict[str, int], fk):
     if neg_key is not None:
         known = NEGS.absent_mask(neg_key, prep.uniq)
         if known is not None:
-            counters["neg_hits"] += int(known.sum())
+            _count(counters, "neg_hits", int(known.sum()))
             alive = alive[~known]
     tried = alive
     if len(alive):
         # ---- stage 1: chunk statistics (no IO)
         keep = _stats_alive(chunk.statistics(), chunk.meta.num_values,
                             prep, alive)
-        counters["keys_pruned_stats"] += int(len(alive) - keep.sum())
+        _count(counters, "keys_pruned_stats",
+               int(len(alive) - keep.sum()))
         alive = alive[keep]
     bf = (chunk.bloom_filter() if len(alive) and prep.hashes is not None
           else None)
@@ -677,7 +699,7 @@ def _prune_one(rg, leaf, prep: _PreparedKeys, counters: Dict[str, int], fk):
 
 def _bloom_survivors(alive: np.ndarray, keep: np.ndarray,
                      counters: Dict[str, int]) -> np.ndarray:
-    counters["keys_pruned_bloom"] += int((~keep).sum())
+    _count(counters, "keys_pruned_bloom", int((~keep).sum()))
     return alive[keep]
 
 
@@ -699,7 +721,7 @@ def _lookup_rg(pf, rg, leaf, prep: _PreparedKeys, alive: np.ndarray,
     if ci is None or oi is None or not oi.page_locations:
         # the whole chunk, matched as an unsorted row group, as the
         # reference matches it there
-        counters["chunk_fallbacks"] += 1
+        _count(counters, "chunk_fallbacks", 1)
         with lookup_admission().admit(chunk.meta.total_compressed_size or 0):
             vals, valid = decode_aligned(chunk, device)
         entries = {0: PageEntry(vals, valid, 0, rg.num_rows)}
@@ -719,7 +741,8 @@ def _lookup_rg(pf, rg, leaf, prep: _PreparedKeys, alive: np.ndarray,
                            counters)
     if not per_uniq_rows:
         return None
-    counters["rows_matched"] += sum(len(r) for r in per_uniq_rows.values())
+    _count(counters, "rows_matched",
+           sum(len(r) for r in per_uniq_rows.values()))
     return per_uniq_rows, _gather_columns(pf, rg, per_uniq_rows, out_leaves,
                                           counters, device)
 
@@ -869,8 +892,8 @@ def _match(leaf, prep: _PreparedKeys, key_pages, entries,
     from ..parallel.host_scan import order_view
 
     if nulls_first is not None:
-        counters["binary_search_hits"] += _searches_answered(
-            leaf, prep, key_pages, entries, nulls_first)
+        _count(counters, "binary_search_hits", _searches_answered(
+            leaf, prep, key_pages, entries, nulls_first))
     first = next(iter(entries.values())).values
     if (prep.order is not None and isinstance(first, np.ndarray)
             and first.ndim == 1 and first.dtype.kind in "iuf"):
@@ -977,7 +1000,7 @@ def _gather_columns(pf, rg, per_uniq_rows: Dict[int, np.ndarray], out_leaves,
         chunk = rg.column(out_leaf.column_index)
         oi = chunk.offset_index()
         if oi is None or not oi.page_locations:
-            counters["chunk_fallbacks"] += 1
+            _count(counters, "chunk_fallbacks", 1)
             with lookup_admission().admit(
                     chunk.meta.total_compressed_size or 0):
                 vals, valid = decode_aligned(chunk, device)
@@ -1063,6 +1086,19 @@ def find_rows(pf, path: str, keys, columns: Optional[Sequence[str]] = None,
     caller names the CPU, and a CUDA request without a card raises.
     ``policy``/``report``: the module docstring; the result's ``report``
     is the call's."""
+    t0 = time.perf_counter()
+    with _oscope.maybe_op_scope("lookup.find_rows", file=pf._path,
+                                keys=len(keys)):
+        try:
+            return _find_rows_impl(pf, path, keys, columns, device, policy,
+                                   report)
+        finally:
+            # failures count too
+            _M_FIND_S.observe(time.perf_counter() - t0)
+
+
+def _find_rows_impl(pf, path, keys, columns, device, policy,
+                    report) -> LookupResult:
     from .faults import resolve_policy
     from .reader import resolve_device
 
@@ -1071,6 +1107,7 @@ def find_rows(pf, path: str, keys, columns: Optional[Sequence[str]] = None,
     out_leaves = [_validate_flat(pf, c) for c in (columns or [])]
     pol, report = resolve_policy(pf, policy, report)
     prep = _prepare_keys(leaf, keys)
+    _oscope.account(_METRIC["keys"], len(keys))
     if pol is None and report is None:
         counters, per_uniq = _lookup_file(pf, leaf, prep, out_leaves, dev)
     else:
@@ -1215,6 +1252,18 @@ def dataset_find_rows(ds, path: str, keys,
     a file that cannot be opened or read drops as a unit
     (``report.files_skipped``); a skipped file whose footer parsed keeps
     its span of the row ordinals."""
+    t0 = time.perf_counter()
+    with _oscope.maybe_op_scope("dataset.find_rows", files=len(ds.paths),
+                                keys=len(keys)):
+        try:
+            return _dataset_find_rows_impl(ds, path, keys, columns, device,
+                                           policy, report)
+        finally:
+            _M_DS_FIND_S.observe(time.perf_counter() - t0)
+
+
+def _dataset_find_rows_impl(ds, path, keys, columns, device, policy,
+                            report) -> LookupResult:
     from ..utils.pool import map_in_order
     from .faults import NON_DATA_ERRORS, ReadReport
     from .reader import resolve_device
@@ -1238,6 +1287,7 @@ def dataset_find_rows(ds, path: str, keys,
         leaf = _validate_flat(pf0, path)
         out_leaves = [_validate_flat(pf0, c) for c in (columns or [])]
         prep = _prepare_keys(leaf, keys)
+        _oscope.account(_METRIC["keys"], len(keys))  # once a batch
         break
 
     def one(i):

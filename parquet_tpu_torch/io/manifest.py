@@ -25,10 +25,12 @@ fsync, rename, fsync of the directory) lifted from one file to the table.
   aborts instead of bringing replaced parts back.
 
 The serialized bytes equal the JAX package's for the same manifest: a
-table written by either package is read by the other.  The JAX package's
-``table.*`` and ``fleet.*`` meters belong to the port's ``obs/`` slice,
-and its lock factory (``utils/locks.py``) is not ported: the locks here
-are plain ``threading`` locks.
+table written by either package is read by the other.  Every arbitrated
+commit counts in ``fleet.cas_commits`` (a lost race in
+``fleet.cas_conflicts``) and a sweep's removals in
+``table.orphans_swept``.  The JAX package's lock factory
+(``utils/locks.py``) is not ported: the locks here are plain
+``threading`` locks.
 """
 
 from __future__ import annotations
@@ -41,7 +43,13 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..errors import CorruptedError
+from ..obs.metrics import counter as _counter
+from ..obs.scope import account as _account
 from .sink import AtomicFileSink
+
+_M_CAS_COMMITS = _counter("fleet.cas_commits")
+_M_CAS_CONFLICTS = _counter("fleet.cas_conflicts")
+_M_ORPHANS = _counter("table.orphans_swept")
 
 __all__ = ["ManifestEntry", "Manifest", "MANIFEST_NAME", "PART_PREFIX",
            "CLAIM_NAME", "read_manifest", "write_manifest",
@@ -357,7 +365,9 @@ def commit_manifest(table_dir,
                 new.created = int(time.time())
             ok, _seen = arbiter(table_dir, expected, new, sink_wrap)
             if ok:
+                _account(_M_CAS_COMMITS)
                 return new
+            _account(_M_CAS_CONFLICTS)
             if attempt + 1 < attempts:
                 time.sleep(min(0.01 * (attempt + 1), 0.2))
         raise OSError(
@@ -549,4 +559,5 @@ def sweep_orphans(table_dir) -> List[str]:
                 removed.append(name)
             except OSError:
                 pass  # the next recovery tries again
+    _account(_M_ORPHANS, len(removed))
     return removed

@@ -54,6 +54,11 @@ import numpy as np
 
 from ..algebra.expr import And, Const, Expr, Or, Pred, prepare
 from ..format.enums import Encoding
+from ..obs import trace as _trace
+from ..obs.export import register_debugz_provider as _register_debugz
+from ..obs.metrics import counter as _mcounter
+from ..obs.metrics import gauge as _mgauge
+from ..obs.scope import account as _maccount
 
 __all__ = ["ScanPlanner", "ScanPlan", "RowGroupDecision",
            "device_encoding_supported", "ROUTE_REFUSALS",
@@ -369,15 +374,19 @@ class ScanPlanner:
             or None
         errors: Dict[int, Exception] = {}  # row group -> its data error
         decisions = []
-        for rg in rgs:
-            d = RowGroupDecision(rg.index, rg.num_rows)
-            with self._guard(rg, d, ctx_col, errors):
-                self._plan_rg(rg, expr, d, counters, single,
-                              "pages" in stages)
-            decisions.append(d)
-        if "bloom" in stages and not isinstance(expr, Const):
-            self._bloom_stage(rgs, expr, decisions, counters, ctx_col,
-                              errors)
+        plan_span = (_trace.span("planner.plan", file=self.pf._path,
+                                 stages=",".join(stages))
+                     if _trace.TRACE_ENABLED else _trace.NULL_SPAN)
+        with plan_span:  # a probe that raises still closes the span
+            for rg in rgs:
+                d = RowGroupDecision(rg.index, rg.num_rows)
+                with self._guard(rg, d, ctx_col, errors):
+                    self._plan_rg(rg, expr, d, counters, single,
+                                  "pages" in stages)
+                decisions.append(d)
+            if "bloom" in stages and not isinstance(expr, Const):
+                self._bloom_stage(rgs, expr, decisions, counters, ctx_col,
+                                  errors)
         if errors:  # the first row group's error, or each recorded
             if not (self.policy is not None and self.policy.skip_corrupt):
                 raise errors[min(errors)]
@@ -392,6 +401,12 @@ class ScanPlanner:
                 counters["rg_skipped_corrupt"] += 1
             else:
                 counters[f"rg_pruned_{d.pruned_by}"] += 1
+        # the plan's counters stay its own view; the registry (and the
+        # op) accumulate them under planner.*
+        for k, v in counters.items():
+            if v:
+                _maccount(_mcounter("planner." + _REGISTRY_KEY.get(k, k)),
+                          v)
         return ScanPlan(self.pf, expr, decisions, counters, stages)
 
     @contextlib.contextmanager
@@ -790,18 +805,30 @@ def device_encoding_supported(pf, columns: Optional[Sequence[str]] = None
 #: ``CorruptedError`` or ``OSError``)
 ROUTE_REFUSALS = {"unsupported": 0, "error": 0}
 _refusal_lock = threading.Lock()
+# the closed label set of device.route_refusals: a reason outside it
+# counts as "other", so no refusal mints a series nobody declared
+_REFUSAL_REASONS = ("unsupported", "policy", "budget", "error", "other")
+_REFUSAL_KEEP = 16  # the latest refusals' details kept for /debugz
+_refusal_recent: List[Tuple[str, str]] = []
 
 
-def count_device_refusal(reason: str) -> None:
-    """Count one refusal of the device route in :data:`ROUTE_REFUSALS`."""
+def count_device_refusal(reason: str, detail: str = "") -> None:
+    """Count one refusal of the device route in :data:`ROUTE_REFUSALS`
+    and ``device.route_refusals{reason=}``, and keep its detail for the
+    ``/debugz`` routes section."""
+    label = reason if reason in _REFUSAL_REASONS else "other"
+    _maccount(_mcounter("device.route_refusals", labels={"reason": label}))
     with _refusal_lock:  # counted on the pool's workers
         ROUTE_REFUSALS[reason] += 1
+        _refusal_recent.append((label, detail or reason))
+        del _refusal_recent[:-_REFUSAL_KEEP]
 
 
 def reset_route_refusals() -> None:
     with _refusal_lock:
         for k in ROUTE_REFUSALS:
             ROUTE_REFUSALS[k] = 0
+        _refusal_recent.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -897,6 +924,10 @@ class RouteHistory:
             self._wait_frac[key] = wf if curw is None else \
                 (1 - a) * curw + a * wf
             self._n[key] = self._n.get(key, 0) + 1
+            eff = self._gbps[key] * (1.0 - self._wait_frac[key])
+        # the label is the bucket key: a mesh size's series stays apart
+        _mgauge("route.gbps", labels={"route": key}).set(round(eff, 4))
+        _maccount(_mcounter("route.observations", labels={"route": key}))
 
     def gbps(self, route: str, mesh_size: int = 1) -> Optional[float]:
         """The effective rate: the EWMA discounted by the EWMA wait
@@ -912,6 +943,14 @@ class RouteHistory:
         with self._lock:
             return self._n.get(self._key(route, mesh_size), 0)
 
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """Each bucket's effective rate and observations (``/debugz``)."""
+        with self._lock:
+            return {k: {"gbps": round(
+                self._gbps[k] * (1.0 - self._wait_frac.get(k, 0.0)), 4),
+                "observations": self._n.get(k, 0)}
+                for k in sorted(self._gbps)}
+
     def reset(self) -> None:
         with self._lock:
             self._gbps.clear()
@@ -921,6 +960,11 @@ class RouteHistory:
 
 _HISTORY = RouteHistory()
 _PIN_NAME = "PARQUET_TPU_TORCH_ROUTE"
+
+# plan-counter key -> registry name where they differ (Prometheus appends
+# _total to a counter: rg_total would render as ..._rg_total_total)
+_REGISTRY_KEY = {"rg_total": "rg_considered", "pages_total":
+                 "pages_considered"}
 
 
 def choose_route(inp: CostInputs) -> RouteDecision:
@@ -1016,6 +1060,7 @@ def route_scan(pf, path: str, lo=None, hi=None,
         reason = (f"{_PIN_NAME}=host pin" if pin == "host" else
                   "cpu backend: the threaded host scan beats the device "
                   "scan's plain versions")
+        _maccount(_mcounter("route.chosen", labels={"route": "host"}))
         return RouteDecision("host", reason)
     try:
         supported, reason = device_route_supported(pf, path, columns, values)
@@ -1039,6 +1084,7 @@ def route_scan(pf, path: str, lo=None, hi=None,
         n_columns=1 + len(out_cols), reuse=reuse,
         host_gbps=h.gbps("host"), device_gbps=h.gbps("device"), pin=pin))
     decision.est_bytes = est_bytes
+    _maccount(_mcounter("route.chosen", labels={"route": decision.route}))
     return decision
 
 
@@ -1051,3 +1097,14 @@ def _route_pin() -> Optional[str]:
     if v in ("device", "cuda"):
         return "device"
     return None
+
+
+def _routes_debugz() -> Dict[str, object]:
+    """``/debugz``'s "routes" section: the measured rate of each (route,
+    mesh size) beside the latest device-route refusals."""
+    with _refusal_lock:
+        recent = [{"reason": r, "detail": d} for r, d in _refusal_recent]
+    return {"history": _HISTORY.snapshot(), "refusals_recent": recent}
+
+
+_register_debugz("routes", _routes_debugz)

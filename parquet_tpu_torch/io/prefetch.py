@@ -35,8 +35,12 @@ its innermost source's ``latency_class`` (``io/remote.py``'s sources say
 ``remote``, or ``remote_far`` past 30 ms a pread; a local chain has none):
 it picks the starting depth and window (:data:`_CLASS_DEFAULTS`) and keys
 the auto-tuner's state, and a remote chain rings even on one core (a
-network pread waits in the socket, off the interpreter lock).  Not in
-this port: the metrics.
+network pread waits in the socket, off the interpreter lock).  The
+ring's windows and segment buffers are the ledger's ``prefetch.ring`` and
+``prefetch.segments`` accounts; each wait on a window lands in the
+``prefetch.wait_s`` histogram and the op's report (with tracing on, the
+``prefetch.window`` and ``prefetch.wait`` spans), and a prefetcher's
+:class:`ReadStats` reach the registry once, when it closes.
 """
 
 from __future__ import annotations
@@ -50,8 +54,21 @@ from typing import List, Optional
 import numpy as np
 
 from ..errors import DeadlineError
+from ..obs import scope as _oscope
+from ..obs import trace as _trace
+from ..obs.ledger import ledger_account, maybe_check_pressure
+from ..obs.metrics import counter as _counter
+from ..obs.metrics import histogram as _histogram
 from ..utils.env import env_int, env_opt_bytes, env_str
 from .source import MmapSource, Source, dropbehind_enabled
+
+# the ledger's accounts: window bytes in the ring (issued and not yet
+# consumed or dropped), and the segment buffers the windows fill
+_ACC_RING = ledger_account("prefetch.ring")
+_ACC_SEG = ledger_account("prefetch.segments")
+# every wait on an unfinished window, as it ends (obs.metrics.
+# pool_wait_seconds sums it for the routed scan)
+_WAIT_HIST = _histogram("prefetch.wait_s")
 
 __all__ = ["ReadStats", "PrefetchSource", "prefetch_mode", "make_prefetcher",
            "make_chunk_prefetcher", "autotune_enabled", "prefetch_autotune"]
@@ -175,6 +192,25 @@ class ReadStats:
     pool_wait_s: float = 0.0
     bytes_dropbehind: int = 0
 
+    def publish(self) -> None:
+        """Add this prefetcher's totals to the registry and the current
+        op, once (:meth:`PrefetchSource.close` calls it; a second call
+        adds nothing)."""
+        if getattr(self, "_published", False):
+            return
+        self._published = True
+        _oscope.account(_counter("prefetch.hits"), self.prefetch_hits)
+        _oscope.account(_counter("prefetch.misses"), self.prefetch_misses)
+        _oscope.account(_counter("prefetch.windows_issued"),
+                        self.windows_issued)
+        _oscope.account(_counter("prefetch.bytes_prefetched"),
+                        self.bytes_prefetched)
+        _oscope.account(_counter("prefetch.bytes_discarded"),
+                        self.bytes_discarded)
+        _oscope.account(_counter("prefetch.bytes_dropbehind"),
+                        self.bytes_dropbehind)
+        _oscope.account(_counter("prefetch.pool_wait_s"), self.pool_wait_s)
+
     def as_dict(self) -> dict:
         return {"backend": self.backend,
                 "prefetch_hits": self.prefetch_hits,
@@ -276,6 +312,7 @@ class PrefetchSource(Source):
         self._lock = threading.Lock()
         self._plans: List[_Plan] = []
         self._ring: List[_Window] = []  # issue order (oldest first)
+        self._segs: dict = {}  # id(segment buffer) -> bytes (the ledger)
         self._pending = 0   # windows claimed but not yet in the ring
         self._pump_rr = 0   # round-robin cursor over the plans
         self._mmap = _innermost(inner) if backend == "advise" else None
@@ -304,6 +341,8 @@ class PrefetchSource(Source):
         with self._lock:
             for off, size in batch:
                 self._plans.append(_Plan(off, off + size))
+        # readahead grows the ledger: let it respond before the windows go
+        maybe_check_pressure()
         self._pump()
 
     def unplan(self, offset: int, size: int) -> None:
@@ -320,8 +359,9 @@ class PrefetchSource(Source):
             dropped = [w for w in self._ring if w.plan in dead]
             for w in dropped:
                 w.future.cancel()
-                self._ring.remove(w)
+                self._drop_locked(w)
                 self.stats.bytes_discarded += w.end - w.offset
+            self._release_segments_locked()
         if dropped:
             self._pump()
 
@@ -355,6 +395,8 @@ class PrefetchSource(Source):
                 plan.seg_buf = np.empty(seg_len, np.uint8)
                 plan.seg_start = plan.issue
                 plan.seg_end = plan.issue + seg_len
+                self._segs[id(plan.seg_buf)] = seg_len
+                _ACC_SEG.add(seg_len)
             end = min(end, plan.seg_end)
             offset = plan.issue
             self.stats.windows_issued += 1
@@ -402,14 +444,41 @@ class PrefetchSource(Source):
                 if self._closed or plan.dead:
                     fut.cancel()
                     self.stats.bytes_discarded += end - offset
+                    self._release_segments_locked()
                 else:
                     self._ring.append(win)
+                    _ACC_RING.add(end - offset)
+
+    def _drop_locked(self, w: _Window) -> None:
+        """Take a window out of the ring (under the lock) and its bytes
+        out of the ledger."""
+        if w in self._ring:
+            self._ring.remove(w)
+            _ACC_RING.sub(w.end - w.offset)
+
+    def _release_segments_locked(self) -> None:
+        """Release the ledger's bytes of the segment buffers that neither
+        a plan nor a window in the ring holds any more."""
+        live = {id(w.seg) for w in self._ring}
+        live.update(id(p.seg_buf) for p in self._plans
+                    if p.seg_buf is not None
+                    and (p.issue < p.end or p.pending))
+        for sid in [s for s in self._segs if s not in live]:
+            _ACC_SEG.sub(self._segs.pop(sid))
 
     def _fill_window(self, seg: np.ndarray, rel: int, offset: int,
                      size: int) -> np.ndarray:
         """A window's read into its segment slice, on a pool worker.  A
         short read gives a short slice, which :meth:`_serve` sees, so
         unfilled segment bytes are never served."""
+        if _trace.TRACE_ENABLED:
+            # on the pool's workers: the span's thread shows the overlap
+            with _trace.span("prefetch.window", offset=offset, bytes=size):
+                return self._fill_window_impl(seg, rel, offset, size)
+        return self._fill_window_impl(seg, rel, offset, size)
+
+    def _fill_window_impl(self, seg: np.ndarray, rel: int, offset: int,
+                          size: int) -> np.ndarray:
         src = self.inner
         data = getattr(src, "pread_view", src.pread)(offset, size)
         a = _as_u8(data)
@@ -477,6 +546,9 @@ class PrefetchSource(Source):
         if fut.done():
             return fut.result()
         t0 = time.perf_counter()
+        wait_span = (_trace.span("prefetch.wait", offset=win.offset)
+                     if _trace.TRACE_ENABLED else _trace.NULL_SPAN)
+        wait_span.__enter__()
         try:
             while True:
                 dl = self._deadline()
@@ -491,7 +563,11 @@ class PrefetchSource(Source):
                 except (_FutTimeout, TimeoutError):
                     continue
         finally:
+            wait_span.__exit__(None, None, None)
             waited = time.perf_counter() - t0
+            _WAIT_HIST.observe(waited)
+            # the op's share of the wait, as it ends
+            _oscope.add_to_current("prefetch.wait_s", waited)
             with self._lock:
                 self.stats.pool_wait_s += waited
 
@@ -531,9 +607,9 @@ class PrefetchSource(Source):
             if cancelled:
                 with self._lock:
                     for w in cancelled:
-                        if w in self._ring:
-                            self._ring.remove(w)
+                        self._drop_locked(w)
                         self.stats.bytes_discarded += w.end - w.offset
+                    self._release_segments_locked()
                 covered = False
         if not covered:
             with self._lock:
@@ -549,8 +625,8 @@ class PrefetchSource(Source):
                 # a failed window is never served again; its error raises
                 # here, on the consuming thread
                 with self._lock:
-                    if w in self._ring:
-                        self._ring.remove(w)
+                    self._drop_locked(w)
+                    self._release_segments_locked()
                 self._pump()
                 raise
         with self._lock:
@@ -572,8 +648,8 @@ class PrefetchSource(Source):
         with self._lock:
             drop = [w for w in chain if w.end <= end]
             for w in drop:
-                if w in self._ring:
-                    self._ring.remove(w)
+                self._drop_locked(w)
+            self._release_segments_locked()
         if drop:
             self._pump()
         if want_view:
@@ -607,7 +683,13 @@ class PrefetchSource(Source):
                     except BaseException:
                         pass  # an abandoned window's error: nobody wants it
                 self.stats.bytes_discarded += w.end - w.offset
+                _ACC_RING.sub(w.end - w.offset)
             self._ring.clear()
+            self._release_segments_locked()
+        if first_close:
+            # one publish a prefetcher: its totals reach the registry and
+            # the op that closes it
+            self.stats.publish()
         if self.backend == "ring" and self._tunable:
             _AUTOTUNE.observe(self.stats, self.latency_class)
 

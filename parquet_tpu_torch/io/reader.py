@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import struct
+import time
 import zlib
 from dataclasses import dataclass
 from typing import (Dict, Iterator, List, NamedTuple, Optional, Sequence,
@@ -42,6 +43,9 @@ from ..errors import (MAX_PAGE_HEADER_SIZE, MAX_PAGE_SIZE, CorruptedError,
 from ..format import metadata as md
 from ..format import thrift
 from ..format.enums import CompressionCodec, Encoding, PageType, Type
+from ..obs import scope as _oscope
+from ..obs import trace as _otrace
+from ..obs.metrics import histogram as _ohistogram
 from ..ops import host
 from ..ops.encodings import (DictIndices, EncodingSpec, is_builtin_decode,
                              register_encoding)
@@ -50,6 +54,9 @@ from ..schema.schema import Leaf, Schema
 from ..utils.debug import counters
 from .column import Column, concat_columns
 from .source import Source, as_source
+
+# resolved once: a read's observation takes no registry lock
+_M_READ_FILE_S = _ohistogram("read.file_s")
 
 _UNSET = object()  # memo sentinel: None is a valid parsed value
 
@@ -785,20 +792,31 @@ class ParquetFile:
         return getattr(self.source, "path", None)
 
     def _open_footer(self) -> None:
+        if _otrace.TRACE_ENABLED:
+            with _otrace.span("open.footer", file=self._path):
+                self._open_footer_impl()
+        else:
+            self._open_footer_impl()
+        self._row_groups = [RowGroupReader(self, i, rg) for i, rg in
+                            enumerate(self.metadata.row_groups or [])]
+
+    def _open_footer_impl(self) -> None:
         from .cache import FOOTERS
 
         key = self._cache_key
         hit = FOOTERS.get(key) if key is not None else None
         if hit is not None:  # these bytes' footer was parsed before
             self.metadata, self.schema = hit
-        else:
-            self._parse_footer()
-            if key is not None:
-                FOOTERS.put(key, (self.metadata, self.schema))
-        self._row_groups = [RowGroupReader(self, i, rg) for i, rg in
-                            enumerate(self.metadata.row_groups or [])]
+            return
+        footer_len = self._parse_footer()
+        if key is not None:
+            # the serialized footer's length is what the ledger's
+            # cache.footer account charges for the parsed entry
+            FOOTERS.put(key, (self.metadata, self.schema),
+                        nbytes=footer_len)
 
-    def _parse_footer(self) -> None:
+    def _parse_footer(self) -> int:
+        """Read and parse the footer; returns its serialized length."""
         size = self.source.size()
         if size < 12:
             raise CorruptedError(
@@ -823,6 +841,7 @@ class ParquetFile:
         if not self.metadata.schema:
             raise CorruptedError("footer has no schema")
         self.schema = Schema.from_elements(self.metadata.schema)
+        return footer_len
 
     @property
     def num_rows(self) -> int:
@@ -944,18 +963,28 @@ class ParquetFile:
         collects the rows read and dropped, the skipped row groups and the
         retries, and is the result's ``report``.  Every chunk decodes
         under ``read_context``: a failure names its file, row group and
-        column."""
+        column.  The read is an op of its own (``file.read``) unless the
+        caller's op scope is active, and its wall lands in ``read.file_s``.
+        """
         from .faults import resolve_policy
 
         pol, report = resolve_policy(self, policy, report)
-        if pol is None and report is None:
-            return self._read_impl(columns, device, row_groups, None, None)
-        with self._resilient_op(policy, report):
-            out, rows = self._read_impl(columns, device, row_groups, pol,
-                                        report, with_rows=True)
-        report.rows_read += rows
-        out.report = report
-        return out
+        t0 = time.perf_counter()
+        with _oscope.maybe_op_scope("file.read", file=self._path):
+            try:
+                if pol is None and report is None:
+                    return self._read_impl(columns, device, row_groups,
+                                           None, None)
+                with self._resilient_op(policy, report):
+                    out, rows = self._read_impl(columns, device, row_groups,
+                                                pol, report, with_rows=True)
+                report.rows_read += rows
+                out.report = report
+                return out
+            finally:
+                # failures count too: a retry storm that dies at its
+                # deadline is the tail
+                _M_READ_FILE_S.observe(time.perf_counter() - t0)
 
     def _read_impl(self, columns, device, row_groups, pol, report,
                    with_rows: bool = False):
@@ -1334,6 +1363,17 @@ def decode_chunk_host(reader: ColumnChunkReader, device,
     one copy per tensor.  The device route sends here the chunks it cannot
     decode (``device_reader.HOST_ROUTE``); the column has the device
     route's form (``keep_dictionary`` as ``device_reader.decode_staged``'s)."""
+    if _otrace.TRACE_ENABLED and pages is None:  # a whole chunk's decode
+        with _otrace.span("decode.chunk", rg=reader.rg_index,
+                          col=reader.leaf.dotted_path):
+            return _decode_chunk_host(reader, device, pages, dictionary,
+                                      keep_dictionary)
+    return _decode_chunk_host(reader, device, pages, dictionary,
+                              keep_dictionary)
+
+
+def _decode_chunk_host(reader: ColumnChunkReader, device, pages,
+                       dictionary, keep_dictionary: bool) -> Column:
     from ..ops import levels
     from ..schema.types import empty_values
 

@@ -38,9 +38,10 @@ file.  Around the transport sits the fault envelope:
 - :func:`parallel_preads`: disjoint ranges fetched at once, one per
   pooled connection (the remote aggregate's pre-fetch).
 
-Not in this port: the resource ledger's ``remote.hedge_in_flight``
-account and the operation scope's byte accounting (``obs/``, later).
-The chaos side, ``FaultInjectingRemoteTransport`` and the loopback
+Every counter moves through ``obs.scope.account`` (the op's report sees
+it), a pread's bytes land in ``read.bytes_read``, and the hedges' bytes in
+flight are the ledger's ``remote.hedge_in_flight`` account.  The chaos
+side, ``FaultInjectingRemoteTransport`` and the loopback
 ``LocalRangeServer``, is in ``io/faults.py``.
 """
 
@@ -58,8 +59,11 @@ from urllib.parse import urlsplit
 from ..errors import (CorruptedError, DeadlineError, RemoteCircuitOpenError,
                       RemoteError, RemoteTerminalError, RemoteThrottledError,
                       RemoteTransientError)
+from ..obs.ledger import ledger_account
 from ..obs.metrics import counter as _counter
 from ..obs.metrics import histogram as _histogram
+from ..obs.scope import account as _account
+from ..obs.scope import account_bytes as _account_bytes
 from ..utils.env import env_float, env_int, env_str
 from ..utils.pool import read_admission
 from .source import Source
@@ -101,20 +105,13 @@ _FAR_LATENCY_S = 0.03
 
 # the hedges' duplicate bytes in flight: added when a hedge starts its
 # fetch, taken away when it ends (won, lost or abandoned)
-_HEDGE_LOCK = threading.Lock()
-_HEDGE_BYTES = 0
-
-
-def _hedge_bytes_add(n: int) -> None:
-    global _HEDGE_BYTES
-    with _HEDGE_LOCK:
-        _HEDGE_BYTES += n
+_ACC_HEDGE = ledger_account("remote.hedge_in_flight")
 
 
 def hedge_in_flight_bytes() -> int:
-    """Bytes the hedged second attempts are fetching now (0 at rest)."""
-    with _HEDGE_LOCK:
-        return _HEDGE_BYTES
+    """Bytes the hedged second attempts are fetching now (0 at rest): a
+    view of the ledger's ``remote.hedge_in_flight`` account."""
+    return _ACC_HEDGE.resident
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +323,7 @@ class CircuitBreaker:
 
     def _transition(self, new: str) -> None:
         self._state = new  # under self._lock
-        _M_TRANSITIONS[new].inc()
+        _account(_M_TRANSITIONS[new])
 
     def allow(self) -> bool:
         """May a request go out now?"""
@@ -520,7 +517,7 @@ def _note_validator(url: str, validator: tuple) -> None:
     if old is not None and old != validator:
         from .cache import invalidate_path  # deferred: cache is heavier
 
-        _M_VALIDATOR_CHANGES.inc()
+        _account(_M_VALIDATOR_CHANGES)
         invalidate_path(url)
 
 
@@ -625,7 +622,7 @@ class HttpSource(Source):
                         path=self.url)
                 self._auth_cached = dict(got)
                 if refresh:
-                    _M_AUTH_REFRESHES.inc()
+                    _account(_M_AUTH_REFRESHES)
             hdrs = dict(self._auth_cached)
         presigned = hdrs.pop("url", None)
         path_override = None
@@ -653,7 +650,7 @@ class HttpSource(Source):
             return got
 
     def _fail_fast(self, **where) -> RemoteCircuitOpenError:
-        _M_FAIL_FAST.inc()
+        _account(_M_FAIL_FAST)
         return RemoteCircuitOpenError(f"circuit open for {self.host}",
                                       host=self.host, path=self.url,
                                       **where)
@@ -784,7 +781,7 @@ class HttpSource(Source):
                     adm = read_admission()
                     grant = adm.acquire(size, tier="hedge",
                                         give_up=abandoned)
-                    _hedge_bytes_add(size)
+                    _ACC_HEDGE.add(size)
                     charged = True
                 if not abandoned():
                     try:
@@ -793,7 +790,7 @@ class HttpSource(Source):
                         out = ("err", e)
             finally:
                 if charged:
-                    _hedge_bytes_add(-size)
+                    _ACC_HEDGE.sub(size)
                 if adm is not None:
                     adm.release(grant, tier="hedge")
                 with cv:
@@ -812,7 +809,7 @@ class HttpSource(Source):
                 if win is not None:
                     state["abandoned"] = True
                     if win == 1:
-                        _M_HEDGES_WON.inc()
+                        _account(_M_HEDGES_WON)
                     return results[win][1]
                 r0 = results.get(0)
                 if r0 is not None:
@@ -841,7 +838,7 @@ class HttpSource(Source):
                     f"pread({offset}, {size}) [host={self.host}]",
                     path=self.url)
             if len(threads) == 1 and time.monotonic() >= hedge_at:
-                _M_HEDGES.inc()
+                _account(_M_HEDGES)
                 threads.append(threading.Thread(
                     target=attempt, args=(1, True), daemon=True,
                     name="pqt-remote-hedge"))
@@ -859,11 +856,11 @@ class HttpSource(Source):
         try:
             data = self._fetch_raced(offset, size)
         except RemoteThrottledError:
-            _M_ERRORS["throttled"].inc()
+            _account(_M_ERRORS["throttled"])
             self._breaker.record_inconclusive()  # alive, only busy
             raise
         except RemoteTransientError as e:
-            _M_ERRORS["retryable"].inc()
+            _account(_M_ERRORS["retryable"])
             if e.status is not None and e.status < 500:
                 # the host answered with a torn or wrong body: retryable,
                 # but not a failure of the host
@@ -872,7 +869,7 @@ class HttpSource(Source):
                 self._breaker.record_failure()
             raise
         except RemoteTerminalError:
-            _M_ERRORS["terminal"].inc()
+            _account(_M_ERRORS["terminal"])
             self._breaker.record_success()  # a 4xx: the host is alive
             raise
         except BaseException:
@@ -880,8 +877,9 @@ class HttpSource(Source):
             raise
         self._breaker.record_success()
         _observe_pread(time.perf_counter() - t0, self.host)
-        _M_PREADS.inc()
-        _M_BYTES.inc(size)
+        _account(_M_PREADS)
+        _account(_M_BYTES, size)
+        _account_bytes(size)  # the terminal source: read.bytes_read
         return data
 
     def size(self) -> int:
@@ -976,7 +974,7 @@ def _listing_get(transport: HttpTransport, url: str, what: str,
     host = transport.host
     breaker = breaker_for(host)
     if not breaker.allow():
-        _M_FAIL_FAST.inc()
+        _account(_M_FAIL_FAST)
         raise RemoteCircuitOpenError(f"circuit open for {host}", host=host,
                                      path=url)
     try:
@@ -1173,7 +1171,7 @@ def parallel_preads(source, ranges, slots: int):
     first = next((e for e in errors if e is not None), None)
     if first is not None:
         raise first
-    _M_PARALLEL_PREADS.inc(len(ranges))
+    _account(_M_PARALLEL_PREADS, len(ranges))
     return [(off, data) for (off, _), data in zip(ranges, results)]
 
 

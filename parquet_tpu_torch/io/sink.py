@@ -23,9 +23,11 @@ still lose.  So:
 ``ParquetWriter`` commits every path it is given through an
 :class:`AtomicFileSink`; ``WriterOptions(atomic_commit=False)`` writes the path in place through a
 :class:`FileSink`, which still fsyncs and still removes its file on abort.
-Not in this port: the metrics and trace calls of the JAX package's sinks
-and ``WriteStats.publish`` (they come with the port's ``obs/``), and its
-opt-in memory-mapped sink and the switch that selects it.
+A :class:`BufferedSink`'s pending bytes are the ledger's ``write.buffer``
+account, each flush a ``sink.flush`` span, and a writer's
+:class:`WriteStats` reach the registry once (:meth:`WriteStats.publish`).
+Not in this port: the JAX package's opt-in memory-mapped sink and the
+switch that selects it (``write.mmap_commits`` stays 0).
 """
 
 from __future__ import annotations
@@ -37,11 +39,21 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 from ..errors import WriteError
+from ..obs import trace as _trace
+from ..obs.ledger import ledger_account, maybe_check_pressure
+from ..obs.metrics import counter as _counter
+from ..obs.scope import account as _account
 from ..utils.env import env_bool, env_opt_bytes
 
 __all__ = ["Sink", "FileSink", "AtomicFileSink",
            "BufferedSink", "WriteStats", "fsync_dir",
            "write_buffer_bytes", "write_autotune", "write_autotune_enabled"]
+
+# the ledger's account of the bytes coalescing in BufferedSinks: added as
+# pages buffer, released as a flush hands them to the file system (or an
+# abort drops them); its capacity is the live writeback knob
+_ACC_WBUF = ledger_account("write.buffer",
+                           capacity=lambda: write_buffer_bytes())
 
 # the writeback buffer's default: page-sized writes coalesce into a few
 # flushes a row group, and the buffer stays cache-resident
@@ -87,6 +99,22 @@ class WriteStats:
         if not self.overlapped_groups or self.encode_s <= 0:
             return 0.0
         return max(0.0, min(1.0, 1.0 - self.pool_wait_s / self.encode_s))
+
+    def publish(self) -> None:
+        """Add this writer's totals to the registry and the current op,
+        once (the writer's close calls it; a second call adds nothing)."""
+        if getattr(self, "_published", False):
+            return
+        self._published = True
+        _account(_counter("write.row_groups"), self.row_groups)
+        _account(_counter("write.overlapped_groups"), self.overlapped_groups)
+        _account(_counter("write.encode_s"), self.encode_s)
+        _account(_counter("write.emit_s"), self.emit_s)
+        _account(_counter("write.pool_wait_s"), self.pool_wait_s)
+        _account(_counter("write.bytes_buffered"), self.bytes_buffered)
+        _account(_counter("write.bytes_flushed"), self.bytes_flushed)
+        _account(_counter("write.sink_flushes"), self.sink_flushes)
+        _account(_counter("write.writev_flushes"), self.writev_flushes)
 
     def as_dict(self) -> dict:
         return {"row_groups": self.row_groups,
@@ -442,10 +470,15 @@ class BufferedSink(Sink):
             return n
         self._parts.append(data)
         self._buffered += n
+        _ACC_WBUF.add(n)
         if self.stats is not None:
             self.stats.bytes_buffered += n
         if self._buffered >= self.buffer_bytes:
             self._flush_buffer()
+        else:
+            # a growth site: the buffer can cross a watermark between
+            # flushes
+            maybe_check_pressure()
         return n
 
     def writelines(self, parts) -> None:
@@ -459,19 +492,31 @@ class BufferedSink(Sink):
         for p in parts:
             self._parts.append(p)
             self._buffered += len(p)
+            _ACC_WBUF.add(len(p))
             if self.stats is not None:
                 self.stats.bytes_buffered += len(p)
         if self._buffered >= self.buffer_bytes:
             self._flush_buffer()
+        else:
+            maybe_check_pressure()
 
     def _flush_buffer(self) -> None:
         if not self._parts:
             return
+        if _trace.TRACE_ENABLED:
+            with _trace.span("sink.flush", bytes=self._buffered,
+                             parts=len(self._parts)):
+                self._flush_buffer_impl()
+        else:
+            self._flush_buffer_impl()
+
+    def _flush_buffer_impl(self) -> None:
         # hand the parts over before writing: a failed flush is never
         # replayed (a prefix may be down; the writer aborts on any write
         # error, and a retry would write that prefix twice)
         parts, self._parts = self._parts, []
         n, self._buffered = self._buffered, 0
+        _ACC_WBUF.sub(n)  # a failed flush's bytes are dropped, not kept
         fd = None
         if _HAS_WRITEV:
             raw = getattr(self.inner, "raw_fd", None)
@@ -497,6 +542,7 @@ class BufferedSink(Sink):
 
     def abort(self) -> None:
         self._parts = []
+        _ACC_WBUF.sub(self._buffered)
         self._buffered = 0
         ab = getattr(self.inner, "abort", None)
         if ab is not None:

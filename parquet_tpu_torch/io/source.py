@@ -29,6 +29,7 @@ import threading
 import numpy as np
 
 from ..errors import CorruptedError, ShortReadError
+from ..obs.scope import account_bytes as _account_bytes
 from ..utils.env import env_bool, env_int
 
 
@@ -70,6 +71,7 @@ class BytesSource(Source):
 
     def pread(self, offset: int, size: int) -> bytes:
         _check_range("buffer", offset, size, len(self._data))
+        _account_bytes(size)
         return self._data[offset:offset + size]
 
 
@@ -96,7 +98,9 @@ class FileSource(Source):
             parts.append(b)
             offset += len(b)
             size -= len(b)
-        return b"".join(parts)
+        out = b"".join(parts)
+        _account_bytes(len(out))
+        return out
 
     def close(self) -> None:
         if self._fd >= 0:
@@ -163,10 +167,14 @@ class MmapSource(Source):
         return self._view[offset:offset + size]
 
     def pread(self, offset: int, size: int) -> bytes:
-        return bytes(self._checked(offset, size))
+        out = bytes(self._checked(offset, size))
+        _account_bytes(size)
+        return out
 
     def pread_view(self, offset: int, size: int) -> np.ndarray:
-        return np.frombuffer(self._checked(offset, size), np.uint8)
+        out = np.frombuffer(self._checked(offset, size), np.uint8)
+        _account_bytes(size)
+        return out
 
     def madvise_willneed(self, offset: int, size: int) -> None:
         """Ask the kernel to read ``[offset, offset + size)`` ahead (best
@@ -274,6 +282,7 @@ class FileLikeSource(Source):
             out = f.read(size)
         if len(out) != size:
             raise ShortReadError(f"short read at {offset}")
+        _account_bytes(size)
         return out
 
     def close(self) -> None:
@@ -339,13 +348,17 @@ class RetryingSource(Source):
         return getattr(self.inner, "path", None)
 
     def _retry(self, fn, offset: int, size: int):
-        from .faults import FaultPolicy, retry_call
+        from ..obs.scope import account
+        from .faults import _M_RETRIES, FaultPolicy, retry_call
 
         if self._policy is None:
             self._policy = FaultPolicy(max_retries=self.retries,
                                        backoff_s=self.backoff_s,
                                        jitter=self.jitter)
-        return retry_call(fn, offset, size, self._policy)
+        # the retries land in read.retries and the op's report, as a
+        # PolicySource's do
+        return retry_call(fn, offset, size, self._policy,
+                          on_retry=lambda: account(_M_RETRIES))
 
     def pread(self, offset: int, size: int) -> bytes:
         return self._retry(self.inner.pread, offset, size)

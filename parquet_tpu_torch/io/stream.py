@@ -39,6 +39,8 @@ import torch
 
 from ..errors import CorruptedError, DeadlineError, _Unsupported
 from ..format.enums import PageType
+from ..obs import scope as _oscope
+from ..obs import trace as _trace
 from ..utils.debug import counters
 from .column import Column, concat_columns
 from .faults import read_context, resolve_policy
@@ -332,9 +334,13 @@ def iter_batches(pf, columns: Optional[Sequence[str]] = None,
     if batch_rows <= 0:
         raise ValueError("batch_rows must be positive")
     dev = resolve_device(device)
-    return _isolated(_iter_batches_gen(pf, columns, batch_rows,
-                                       strict_batch_rows, dev, policy,
-                                       report, keep_levels))
+    gen = _isolated(_iter_batches_gen(pf, columns, batch_rows,
+                                      strict_batch_rows, dev, policy,
+                                      report, keep_levels))
+    # the drain is an op of its own (unless the caller's is active),
+    # active around each pull only: the consumer's work between pulls
+    # is not the drain's
+    return _oscope.scoped_iter("file.iter_batches", gen, file=pf._path)
 
 
 def _isolated(gen: Iterator) -> Iterator:
@@ -367,8 +373,13 @@ def _iter_batches_gen(pf, columns, batch_rows, strict_batch_rows, device,
 
 def _take_contextual(pf, cursor: _ChunkCursor, path: str, rg_index: int,
                      take: int) -> List[_Slice]:
-    """One column's take, its failure located."""
-    with read_context(path=pf._path, row_group=rg_index, column=path):
+    """One column's take, its failure located, in the ``decode.stream``
+    span."""
+    dec_span = (_trace.span("decode.stream", rg=rg_index, col=path,
+                            rows=take)
+                if _trace.TRACE_ENABLED else _trace.NULL_SPAN)
+    with dec_span, \
+            read_context(path=pf._path, row_group=rg_index, column=path):
         slices, got = cursor.take(take)
         if got != take:
             raise CorruptedError(

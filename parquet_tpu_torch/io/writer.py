@@ -61,6 +61,7 @@ the temp file.  ``ParquetWriter.write_stats`` meters the pipeline.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -81,6 +82,8 @@ from ..format.enums import (BoundaryOrder, CompressionCodec, Encoding,
                             PageType, Type)
 from ..format.enums import FieldRepetitionType as Rep
 from ..errors import MAX_ROW_GROUPS, TooManyRowGroupsError
+from ..obs import scope as _oscope
+from ..obs import trace as _otrace
 from ..ops import host, levels, ref
 from ..schema.schema import Leaf, Schema
 from ..schema.types import (NUMERIC, PHYSICAL_NP_DTYPE, physical_of_dtype,
@@ -225,7 +228,10 @@ class ParquetWriter:
     :class:`~parquet_tpu_torch.io.sink.BufferedSink`; :meth:`abort`
     discards the file (a path leaves no destination and no temp file).
     ``write_stats`` (:class:`~parquet_tpu_torch.io.sink.WriteStats`)
-    meters the pipeline."""
+    meters the pipeline, and reaches the registry once, at the commit.
+    The writer's lifetime is one op (``write.file``), active around each
+    public call and finished at close or abort, unless a caller's op
+    scope is active at that call."""
 
     def __init__(self, sink, schema: Schema,
                  options: Optional[WriterOptions] = None):
@@ -234,6 +240,10 @@ class ParquetWriter:
         self.write_stats = WriteStats()
         self._codec = codecs.get_codec(self.options.codec_id())
         self._own_sink = isinstance(sink, (str, os.PathLike))
+        self._op = (_oscope.OpScope(
+            "write.file", {"sink": os.fspath(sink) if self._own_sink
+                           else type(sink).__name__})
+            if _oscope.current_op() is None else None)
         if self._own_sink:
             opts = self.options
             base = (AtomicFileSink(sink, fsync=opts.fsync)
@@ -274,6 +284,22 @@ class ParquetWriter:
         of ``options.row_group_size`` rows is written as it fills, the
         tail stays buffered.  The caller's arrays are shared, never
         mutated; torch tensors are copied to the host here."""
+        with self._op_active():
+            self._write(columns, num_rows)
+
+    def _op_active(self):
+        """The activation of this writer's op around a public call (the
+        encode tasks it submits inherit it); a caller's op scope active
+        at the call wins."""
+        if self._op is None or _oscope.current_op() is not None:
+            return contextlib.nullcontext()
+        return self._op.active()
+
+    def _finish_op(self) -> None:
+        if self._op is not None:
+            self._op.finish()
+
+    def _write(self, columns: Dict[str, ColumnData], num_rows: int) -> None:
         self._check_open()
         columns = {k: _host_cd(v) for k, v in columns.items()}
         if self._buffer is None:
@@ -288,9 +314,10 @@ class ParquetWriter:
     def flush(self) -> None:
         """Write every buffered row, the tail included, and the row group
         whose encode is in flight."""
-        self._check_open()
-        self._drain(final=True)
-        self._drain_inflight()
+        with self._op_active():
+            self._check_open()
+            self._drain(final=True)
+            self._drain_inflight()
 
     def _check_open(self) -> None:
         if self._closed or self._aborted:
@@ -344,6 +371,11 @@ class ParquetWriter:
         the caller's numpy arrays are shared and may still be read by the
         encode after this call returns, so do not change them before the
         writer flushes."""
+        with self._op_active():
+            self._write_row_group(columns, num_rows)
+
+    def _write_row_group(self, columns: Dict[str, ColumnData],
+                         num_rows: int) -> None:
         self._check_open()
         if len(self._row_groups) + (self._inflight is not None) \
                 >= MAX_ROW_GROUPS:
@@ -384,9 +416,15 @@ class ParquetWriter:
                              num_rows)
 
     def _timed_encode(self, leaf: Leaf, data: ColumnData, num_rows: int):
-        t0 = time.perf_counter()
-        enc = self._encode_chunk(leaf, data, num_rows)
-        return enc, time.perf_counter() - t0
+        # on whichever thread encodes (a pool worker under the overlap,
+        # else the caller's): overlap shows as bars on two tracks
+        enc_span = (_otrace.span("write.encode", col=leaf.dotted_path,
+                                 rows=num_rows)
+                    if _otrace.TRACE_ENABLED else _otrace.NULL_SPAN)
+        with enc_span:
+            t0 = time.perf_counter()
+            enc = self._encode_chunk(leaf, data, num_rows)
+            return enc, time.perf_counter() - t0
 
     def _timed_encode_iter(self, leaves, datas, num_rows: int):
         """The serial encode: one chunk at a time, interleaved with its
@@ -425,12 +463,16 @@ class ParquetWriter:
         metadata.  ``encs`` is a list or the serial encode's generator."""
         chunks, extras = [], []
         rg_start = self._pos
-        for enc in encs:
-            t0 = time.perf_counter()
-            chunk, extra = self._emit_chunk(enc)
-            self.write_stats.emit_s += time.perf_counter() - t0
-            chunks.append(chunk)
-            extras.append(extra)
+        emit_span = (_otrace.span("write.emit", rg=len(self._row_groups),
+                                  rows=num_rows)
+                     if _otrace.TRACE_ENABLED else _otrace.NULL_SPAN)
+        with emit_span:  # a failed emit still records the span
+            for enc in encs:
+                t0 = time.perf_counter()
+                chunk, extra = self._emit_chunk(enc)
+                self.write_stats.emit_s += time.perf_counter() - t0
+                chunks.append(chunk)
+                extras.append(extra)
         sorting = [
             md.SortingColumn(column_idx=self.schema.leaf(p).column_index,
                              descending=desc, nulls_first=nf)
@@ -666,11 +708,16 @@ class ParquetWriter:
         if self._aborted:
             raise ValueError("cannot close an aborted writer")
         try:
-            self._close_impl()
+            with self._op_active():
+                self._close_impl()
         except BaseException:
             self._discard()
             raise
         self._closed = True
+        # one publish a writer, when its bytes are committed, into the op
+        with self._op_active():
+            self.write_stats.publish()
+        self._finish_op()
         if getattr(self._f, "_tunable", False):
             # the next writer's buffer grows where this one still flushed
             # many times a row group
@@ -712,8 +759,12 @@ class ParquetWriter:
             encs, _ = self._inflight
             self._inflight = None
             cancel_futures(encs)
-        if self._own_sink:
-            self._f.abort()
+        try:
+            if self._own_sink:
+                self._f.abort()
+        finally:
+            # a failed write is the op the slow log exists for
+            self._finish_op()
 
     def _write_blooms_and_page_index(self) -> None:
         """The bloom filters, then every column index, then every offset

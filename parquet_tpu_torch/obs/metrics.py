@@ -5,14 +5,16 @@ The port's copy of ``parquet_tpu/obs/metrics.py``: :class:`Counter`,
 :class:`Gauge`, :class:`Histogram` (the same log-spaced bucket ladder, and
 percentiles interpolated inside the covering bucket, clamped to the
 observed min and max), the get-or-create :class:`MetricsRegistry`, and
-:func:`metrics_snapshot`, :func:`metrics_delta` and
-:func:`reset_metrics`.  Each metric has its own lock, so increments from
-any number of threads add up exactly; the registry's lock guards only
-get-or-create.
+:func:`metrics_snapshot`, :func:`metrics_delta`, :func:`reset_metrics`
+and :func:`pool_wait_seconds`.  Each metric has its own lock, so
+increments from any number of threads add up exactly; the registry's lock
+guards only get-or-create.
 
-The families declared at import are those the port increments: the
-remote sources' (``io/remote.py``).  A family exists at 0 before the
-first operation that moves it.
+Every family the port's modules move is declared at import, under the JAX
+package's names and help, so that a scrape shows it at 0 before the first
+operation that moves it (scrapers alert on absence, not on zero).  The
+families that only the serving daemon and its tenants move (``serve.*``,
+the fleet's routing meters, the page pins) come with that daemon.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from typing import Dict, List, Optional, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
            "counter", "gauge", "histogram", "metrics_snapshot",
-           "metrics_delta", "reset_metrics", "DEFAULT_LATENCY_BUCKETS"]
+           "metrics_delta", "reset_metrics", "pool_wait_seconds",
+           "DEFAULT_LATENCY_BUCKETS"]
 
 # log-spaced 10 us to 60 s; the overflow bucket above the last edge is
 # implicit
@@ -327,25 +330,185 @@ def reset_metrics() -> None:
     REGISTRY.reset()
 
 
-# the families the port moves, declared at import so that a snapshot
-# shows them at 0 before the first operation
+def pool_wait_seconds() -> float:
+    """Cumulative seconds operations spent waiting on the shared pool:
+    task queue→run wait (utils/pool.py) plus prefetch-window waits
+    (io/prefetch.py).  The saturation signal — diff it across one
+    operation and hand the delta to ``RouteHistory.observe(...,
+    pool_wait_s=)`` so a saturated pool discounts the route's effective
+    GB/s, not just its wall clock.  Both components are LIVE (observed
+    as each wait ends, not published at drain close), so a delta window
+    sees only the waits that actually happened inside it — the
+    close-time ``prefetch.pool_wait_s`` counter would lump a whole
+    drain's lifetime stalls into whichever window straddled its close."""
+    return float(histogram("pool.queue_wait_s").sum
+                 + histogram("prefetch.wait_s").sum)
+
+
+# ---------------------------------------------------------------------------
+# Pre-declared core families: the operational contract of `stats --prom` is
+# that the cache/prefetch/planner/route/read/write families EXIST (at 0)
+# even before any operation ran — scrapers alert on absence, not on zero.
+# ---------------------------------------------------------------------------
 _CORE_COUNTERS = (
+    ("cache.footer_hits", "footer cache hits (open skipped parse)"),
+    ("cache.footer_misses", "footer cache misses"),
+    ("cache.chunk_hits", "decoded-chunk LRU hits"),
+    ("cache.chunk_misses", "decoded-chunk LRU misses"),
+    ("cache.chunk_evictions", "decoded-chunk LRU evictions"),
+    ("cache.page_hits", "decoded-page LRU hits (lookup served with no IO)"),
+    ("cache.page_misses", "decoded-page LRU misses"),
+    ("cache.page_evictions", "decoded-page LRU evictions"),
+    ("prefetch.hits", "preads served from readahead state"),
+    ("prefetch.misses", "preads read through around readahead"),
+    ("prefetch.windows_issued", "readahead windows issued/hinted"),
+    ("prefetch.bytes_prefetched", "bytes issued ahead of consumption"),
+    ("prefetch.bytes_discarded", "prefetched bytes dropped unconsumed"),
+    ("prefetch.bytes_dropbehind", "page-cache bytes released behind "
+     "one-shot drains (PARQUET_TPU_MMAP_DROPBEHIND)"),
+    ("prefetch.pool_wait_s", "seconds blocked on unfinished windows"),
+    # "considered", not the plan-counter key "rg_total": the Prometheus
+    # renderer appends _total to counters, and rg_total_total is a trap
+    # for every dashboard written against the natural name
+    ("planner.rg_considered", "row groups considered by the scan planner"),
+    ("planner.rg_pruned_stats", "row groups pruned by footer stats"),
+    ("planner.rg_pruned_pages", "row groups pruned by the page index"),
+    ("planner.rg_pruned_bloom", "row groups pruned by bloom filters"),
+    ("planner.rg_survivors", "row groups that survived the cascade"),
+    ("planner.stats_probes", "stats-stage predicate probes"),
+    ("planner.page_probes", "page-index predicate probes"),
+    ("planner.bloom_probes", "bloom-filter predicate probes"),
+    ("planner.pages_considered", "pages considered by the page stage"),
+    ("planner.pages_selected", "pages selected by the page stage"),
+    ("read.retries", "transient pread retries performed"),
+    ("read.bytes_read", "bytes fetched from byte sources"),
+    ("scan.rows_pruned", "candidate rows excluded before decode by pruning"),
+    ("scan.rows_decoded", "survivor rows materialized by filtered scans"),
+    ("read.rows_dropped", "rows lost to degraded-mode skips"),
+    ("read.row_groups_skipped", "row groups dropped by degraded reads"),
+    ("read.files_skipped", "whole files dropped by degraded reads"),
+    ("write.row_groups", "row groups written"),
+    ("write.bytes_flushed", "bytes flushed toward the OS by writers"),
+    ("write.sink_flushes", "coalesced sink flushes"),
+    # WriteStats publish families (io/sink.py): the encode/emit overlap
+    # meters — float-seconds totals land as counters so per-op deltas
+    # and rates stay derivable
+    ("write.overlapped_groups", "row groups whose encode overlapped the "
+     "previous group's emit"),
+    ("write.encode_s", "cumulative seconds in parallel/serial encode"),
+    ("write.emit_s", "cumulative seconds emitting pages to sinks"),
+    ("write.pool_wait_s", "seconds writers blocked on pended encodes"),
+    ("write.bytes_buffered", "bytes coalesced through BufferedSinks"),
+    ("write.writev_flushes", "vectored os.writev sink flushes"),
+    ("pool.tasks", "tasks dispatched to the shared pool"),
+    ("trace.events_dropped", "trace events dropped at the buffer cap"),
+    # sampling decisions (obs/scope.py): fleets alert on trace-buffer
+    # pressure and sampler behavior from these
+    ("trace.ops_sampled", "ops head-sampled into the trace"),
+    ("trace.ops_skipped", "ops skipped by head sampling"),
+    ("trace.ops_slow_kept", "slow ops kept by tail capture"),
+    # point-lookup serving path (io/lookup.py): per-stage key attrition,
+    # coalescing ratio (pages_read vs preads), and admission pressure
+    ("lookup.keys", "keys probed by batched find_rows"),
+    ("lookup.keys_pruned_stats", "lookup keys killed by chunk statistics"),
+    ("lookup.keys_pruned_bloom", "lookup keys killed by bloom filters"),
+    ("lookup.keys_pruned_pages", "lookup keys killed by the page index"),
+    ("lookup.rows_matched", "rows returned by batched lookups"),
+    ("lookup.preads", "ranged preads issued by the lookup page fetcher"),
+    ("lookup.pages_read", "pages decoded from storage by lookups"),
+    ("lookup.pages_coalesced", "extra pages riding an already-issued pread"),
+    ("lookup.chunk_fallbacks", "index-less chunks decoded whole by lookups"),
+    ("lookup.admission_waits", "lookup admissions that had to block"),
+    ("lookup.neg_hits", "lookup keys skipped by the negative-lookup memo"),
+    # the unified read gate (utils/pool.py): scan/stream-tier admissions
+    # through the same FIFO budget the lookup path pioneered
+    ("read.admission_waits", "scan/stream admissions that had to block"),
+    # remote sources (io/remote.py): request volume, hedging, breaker
+    # fail-fasts, and cache-identity movement — the serving fleet's
+    # object-store health dashboard families
     ("remote.preads", "range requests served by remote sources"),
     ("remote.bytes", "bytes fetched from remote sources"),
     ("remote.hedges_issued", "hedged second attempts launched"),
     ("remote.hedges_won", "preads whose hedge finished first"),
     ("remote.breaker_fail_fast", "requests refused by an open circuit"),
-    ("remote.validator_changes", "remote rewrites seen in the HEAD "
+    ("remote.validator_changes", "remote rewrites detected by HEAD "
      "validators (caches invalidated)"),
+    # writable tables (dataset_writer.py + io/manifest.py): ingest and
+    # compaction volume, commit conflicts, and recovery sweeps — the
+    # continuous-ingest health dashboard families
+    ("table.commits", "manifest snapshots committed"),
+    ("table.files_written", "part-files committed by ingest"),
+    ("table.rows_ingested", "rows committed into tables"),
+    ("table.bytes_ingested", "part-file bytes committed into tables"),
+    ("table.compactions", "compaction passes committed"),
+    ("table.files_compacted", "part-files replaced by compaction"),
+    ("table.commit_conflicts", "optimistic commits aborted by a rival"),
+    ("table.compaction_errors", "background compaction passes that died"),
+    ("table.orphans_swept", "orphan files removed by table recovery"),
+    # point-lookup fast paths (io/lookup.py): sorted-page binary search
+    # and very-large-batch key sharding
+    ("lookup.binary_search_hits", "page probes answered by in-page "
+     "binary search on sorted files"),
+    ("lookup.key_shards", "key-shard tasks fanned out for very large "
+     "lookup batches"),
+    # aggregation pushdown (io/aggregate.py): per-tier resolution — how
+    # many row groups each cascade tier ANSWERED (stats = zero IO/decode,
+    # pages = zone-map math only, dict = dictionary + index stream,
+    # decoded = exact fallback), plus manifest-level file answers
+    ("agg.rg_answered_stats", "row groups answered by footer statistics "
+     "(zero IO, zero decode)"),
+    ("agg.rg_answered_pages", "row groups answered by page-index zone "
+     "maps (no value decode)"),
+    ("agg.rg_answered_dict", "row groups answered over dictionary pages "
+     "without expanding values"),
+    ("agg.rg_answered_decoded", "row groups resolved by the exact decode "
+     "fallback"),
+    ("agg.files_answered_manifest", "dataset part-files answered or "
+     "dropped from manifest zone maps alone (zero footer IO)"),
+    # multi-range remote reads (io/remote.py parallel_preads): ranges
+    # fetched concurrently across connection-pool slots
     ("remote.parallel_preads", "disjoint ranges fetched concurrently "
      "across connection-pool slots"),
-    ("remote.auth_refreshes", "credential refreshes after a 401 or 403"),
+    # mmap write-sink experiment (io/sink.py MmapFileSink)
+    ("write.mmap_commits", "files committed through the mmap-backed "
+     "sink (PARQUET_TPU_MMAP_SINK)"),
+    # remote auth hooks (io/remote.py): 401/403 -> refresh-and-retry
+    ("remote.auth_refreshes", "credential refreshes triggered by "
+     "401/403 responses (auth hook re-invoked)"),
+    # the commit arbiter of io/manifest.py (a fleet's compare-and-swap)
+    ("fleet.cas_commits", "manifest commits arbitrated through the CAS "
+     "hook"),
+    ("fleet.cas_conflicts", "CAS commit attempts aborted by a rival "
+     "version (re-read and re-mutated)"),
+    # fused single-pass execution (io/fused.py): page-at-a-time
+    # decode+mask+fold streaming with no whole-column intermediates
+    ("fused.rg_folds", "row groups resolved by the fused streaming fold"),
+    ("fused.pages_folded", "pages decoded or masked-emitted through the "
+     "fused fold (at most one alive per column at a time)"),
+    ("fused.pages_masked_emit", "pages whose filter mask applied INSIDE "
+     "the decode loop (masked-emit kernels)"),
+    ("fused.fallbacks", "fused-path attempts that fell back to the "
+     "materializing exact tier (unsupported layout/encoding)"),
+    ("fused.scan_spans", "scan filter spans evaluated page-by-page "
+     "through the fused phase-1 path"),
+    ("agg.rg_answered_dict_partial", "partially-covered row groups whose "
+     "covered rows answered from the dictionary while only contended "
+     "pages took the exact path"),
+    # device-scale dataset reads (parallel/mesh.py read_dataset_sharded):
+    # files round-robined over the mesh with double-buffered H2D staging
+    ("device.files_sharded", "dataset files round-robined over mesh "
+     "devices by device-scale reads"),
+    ("device.stage_overlapped", "files whose H2D staging overlapped the "
+     "previous file's on-chip decode"),
 )
 
 
 def _declare_core() -> None:
     for name, hlp in _CORE_COUNTERS:
         REGISTRY.counter(name, help=hlp)
+    for route in ("host", "device", "device_mesh"):
+        REGISTRY.counter("route.chosen", labels={"route": route},
+                         help="scans routed by the cost model")
     for cls in ("retryable", "terminal", "throttled"):
         REGISTRY.counter("remote.errors", labels={"class": cls},
                          help="remote failures by retry class")
@@ -354,8 +517,74 @@ def _declare_core() -> None:
                          labels={"state": state},
                          help="per-host circuit-breaker transitions")
     REGISTRY.histogram("remote.pread_s",
-                       help="remote range-request latency (its p95 is the "
+                       help="remote range-request latency (seeds the "
                             "adaptive hedge delay)")
+    REGISTRY.histogram("pool.queue_wait_s",
+                       help="shared-pool task queue->run wait")
+    REGISTRY.histogram("lookup.find_rows_s",
+                       help="batched point-lookup latency (p50/p99 serving "
+                            "meter)")
+    REGISTRY.histogram("read.admission_wait_s",
+                       help="scan/stream block time on the read gate")
+    REGISTRY.histogram("table.commit_s",
+                       help="table commit latency (flush + zone-map "
+                            "collection + manifest rename)")
+    REGISTRY.histogram("agg.aggregate_s",
+                       help="per-file aggregation-pushdown latency")
+    REGISTRY.histogram("dataset.aggregate_s",
+                       help="whole-dataset aggregation latency")
+    REGISTRY.histogram("fused.fold_s",
+                       help="per-row-group fused decode+mask+fold latency")
+    # device-scale dataset reads: stage/decode split so the overlap win
+    # (h2d hidden under decode) is measurable from a scrape alone
+    REGISTRY.histogram("device.h2d_s",
+                       help="per-file H2D staging latency on the "
+                            "mesh-sharded device read path")
+    REGISTRY.histogram("device.decode_s",
+                       help="per-file on-chip decode latency on the "
+                            "mesh-sharded device read path")
+    # the reason axis is closed; runtime refusals outside it fold into
+    # "other" (device_refusal_reason) so every series exists at 0
+    for reason in ("unsupported", "policy", "budget", "error", "other"):
+        REGISTRY.counter("device.route_refusals", labels={"reason": reason},
+                         help="device-route refusals that fell back to "
+                              "the host path, by reason")
+    # every family a module get-or-creates is declared here too, so a
+    # process that never imported that module still scrapes it
+    REGISTRY.histogram("prefetch.wait_s",
+                       help="per-wait seconds blocked on unfinished "
+                            "readahead windows (live)")
+    REGISTRY.histogram("lookup.admission_wait_s",
+                       help="lookup-tier block time on the read gate")
+    REGISTRY.histogram("dataset.find_rows_s",
+                       help="dataset-wide batched-lookup latency")
+    REGISTRY.histogram("dataset.read_s",
+                       help="whole-dataset read latency")
+    REGISTRY.histogram("dataset.scan_s",
+                       help="whole-dataset filtered-scan latency")
+    REGISTRY.histogram("dataset.scan_file_s",
+                       help="per-file filtered-scan latency")
+    REGISTRY.histogram("read.file_s",
+                       help="per-file whole-read latency")
+    REGISTRY.gauge("cache.footer_entries",
+                   help="footers resident in the cache")
+    REGISTRY.gauge("cache.chunk_entries",
+                   help="decoded chunks resident in the LRU")
+    REGISTRY.gauge("cache.chunk_bytes",
+                   help="decoded bytes resident in the LRU")
+    REGISTRY.gauge("cache.page_entries",
+                   help="decoded pages resident in the page LRU")
+    REGISTRY.gauge("cache.page_bytes",
+                   help="decoded bytes resident in the page LRU")
+    REGISTRY.gauge("pool.active", help="pool tasks currently running")
+    REGISTRY.gauge("lookup.admitted_bytes",
+                   help="bytes currently admitted through the read gate")
+    for route in ("host", "device", "device_mesh"):
+        REGISTRY.gauge("route.gbps", labels={"route": route},
+                       help="EWMA effective GB/s per route")
+        REGISTRY.counter("route.observations", labels={"route": route},
+                         help="measured samples folded into the route "
+                              "EWMA")
 
 
 _declare_core()

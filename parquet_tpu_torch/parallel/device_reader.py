@@ -77,6 +77,7 @@ import torch
 from ..errors import CorruptedError, _Unsupported, unsupported
 from ..format.enums import CompressionCodec, Encoding, PageType, Type
 from ..io.column import Column
+from ..obs import trace as _otrace
 from ..io.reader import (_BATCHED_CODECS, PageTable, data_page_bodies,
                          decode_dictionary_page, page_table_of)
 from ..ops import device as dev
@@ -1131,6 +1132,17 @@ def stage_levels_on_device(leaf, plan: _Plan) -> bool:
             or plan.total_values != plan.total_slots)
 
 
+def _h2d_span(plan: _Plan):
+    """The ``device.h2d`` span of one plan's staging (a no-op unless
+    tracing is on).  It times the host's packing and the enqueue of the
+    copy, and never waits for the device."""
+    if not _otrace.TRACE_ENABLED:
+        return _otrace.NULL_SPAN
+    return _otrace.span("device.h2d", col=plan.leaf.dotted_path
+                        if plan.leaf is not None else None,
+                        bytes=len(plan.values) + len(plan.levels))
+
+
 def stage_plan(plan: _Plan, device: torch.device, put=None) -> tuple:
     """H2D: the plan's concatenated level and value byte streams and its
     run tables, dictionary, delta, front-coding and byte-array tables go
@@ -1139,10 +1151,16 @@ def stage_plan(plan: _Plan, device: torch.device, put=None) -> tuple:
     With ``put`` (a :meth:`_StagingBatch.put`) every transfer is recorded
     in the caller's batch and the result holds its slots until the caller
     commits the batch; without, the plan's own batch is committed here,
-    in one copy on the current stream."""
+    in one copy on the current stream, inside the ``device.h2d`` span."""
     if put is None:
-        batch = _StagingBatch()
-        return batch.commit(stage_plan(plan, device, batch.put), device)[0]
+        with _h2d_span(plan):
+            batch = _StagingBatch()
+            return batch.commit(_stage_plan(plan, device, batch.put),
+                                device)[0]
+    return _stage_plan(plan, device, put)
+
+
+def _stage_plan(plan: _Plan, device: torch.device, put) -> tuple:
     kind = plan.value_kind
     stage_levels = stage_levels_on_device(plan.leaf, plan)
     if (stage_levels and len(plan.levels) > dev.MAX_DEVICE_BUF) or \
@@ -1526,9 +1544,10 @@ def _prepare(reader, device: torch.device, pages=None, dictionary=None,
     with annotate("pq.prepare_chunk"):
         plan = build_plan(reader, pages, dictionary)
         plan.dictionary_dev = dictionary_dev
-        batch = _StagingBatch()
-        staged = stage_plan(plan, device, batch.put)
-        staged, ready = batch.commit(staged, device, side_stream=True)
+        with _h2d_span(plan):
+            batch = _StagingBatch()
+            staged = stage_plan(plan, device, batch.put)
+            staged, ready = batch.commit(staged, device, side_stream=True)
     if ready is not None:
         staged[2]["ready"] = ready
     return plan, staged
@@ -1591,8 +1610,9 @@ def prepare_chunks_batched(readers, device) -> list:
         for reader in readers:
             try:
                 plan = build_plan(reader)
-                entries.append((reader, plan, stage_plan(plan, device,
-                                                         batch.put), None))
+                with _h2d_span(plan):
+                    staged = stage_plan(plan, device, batch.put)
+                entries.append((reader, plan, staged, None))
             except _Unsupported as e:
                 entries.append((reader, None, None, e))
         staged_all, ready = batch.commit([e[2] for e in entries], device,
@@ -1678,10 +1698,16 @@ def decode_chunk_batched(reader, device, workers: int = 2) -> Column:
             return _prepare(reader, device, subset, dictionary,
                             dictionary_dev)
 
+    from ..utils.pool import instrument_task
+
     cols = []
-    pool = ThreadPoolExecutor(max_workers=max(workers, 1))
+    pool = ThreadPoolExecutor(max_workers=max(workers, 1),
+                              thread_name_prefix="pqt-prepare")
     try:
-        futs = [pool.submit(prep, b) for b in batches]
+        # each task runs in a copy of this context: the op scope (the
+        # preads' bytes, the spans' track) follows it onto the worker
+        futs = [pool.submit(instrument_task(prep, name="prepare_batch"), b)
+                for b in batches]
         kind = None
         for i, fut in enumerate(futs):
             plan, staged = fut.result()
@@ -1786,18 +1812,27 @@ def _decode_pipelined(chunks, device, workers: int) -> Iterator[Column]:
             with lock:
                 active[0] -= 1
 
-    pool = ThreadPoolExecutor(max_workers=workers)
+    from ..utils.pool import instrument_task
+
+    def submit(reader):
+        # in a copy of the consumer's context at this pull: the op scope
+        # follows the chunk's preparation onto the worker
+        return pool.submit(instrument_task(prep, name="prepare_chunk"),
+                           reader)
+
+    pool = ThreadPoolExecutor(max_workers=workers,
+                              thread_name_prefix="pqt-prepare")
     pending = collections.deque()
     try:
         it = iter(chunks)
-        pending.extend((r, pool.submit(prep, r)) for r in itertools.islice(
+        pending.extend((r, submit(r)) for r in itertools.islice(
             it, workers + 1))
         while pending:
             reader, fut = pending.popleft()
             prepped, err = fut.result()
             nxt = next(it, None)
             if nxt is not None:
-                pending.append((nxt, pool.submit(prep, nxt)))
+                pending.append((nxt, submit(nxt)))
             if err is not None:
                 col = _host_route(reader, err, device)
             else:

@@ -66,6 +66,11 @@ import torch
 from ..algebra.compare import int_domain, is_unsigned, normalize
 from ..errors import CorruptedError, DeadlineError, _Unsupported
 from ..format.enums import Encoding, Type
+from ..obs import scope as _oscope
+from ..obs import trace as _otrace
+from ..obs.metrics import counter as _ocounter
+from ..obs.metrics import histogram as _ohistogram
+from ..obs.metrics import pool_wait_seconds as _pool_wait_seconds
 from ..ops import device as dev
 from ..schema.types import LogicalKind, empty_values, logical_np_dtype
 from ..utils.pool import read_admission
@@ -81,6 +86,10 @@ _SYNC_EVERY = 8
 # the host scan runs serially below this many (candidate rows x columns)
 # cells: a pool task costs about as much as decoding a small span
 _POOL_MIN_CELLS = 2_000_000
+
+_M_SCAN_FILE_S = _ohistogram("dataset.scan_file_s")
+_M_ROWS_PRUNED = _ocounter("scan.rows_pruned")
+_M_ROWS_DECODED = _ocounter("scan.rows_decoded")
 
 _HOST_RAGGED = "host_ragged"
 _DICT_ENCODINGS = (Encoding.PLAIN_DICTIONARY, Encoding.RLE_DICTIONARY)
@@ -118,7 +127,7 @@ def _fused_span_mask(pf, rg_i: int, s: int, count: int,
     columns (each block lies in one page of each; a cursor drops its page
     as it moves on), so no whole filter span is ever alive.  Raises
     ``FusedUnsupported`` where a filter column has no offset index."""
-    from ..io.fused import FUSED, PageCursor
+    from ..io.fused import PageCursor, count_fused
 
     rg = pf.row_groups[rg_i]
     cursors = {c: PageCursor(rg, pf.schema.leaf(c)) for c in fcols}
@@ -129,7 +138,7 @@ def _fused_span_mask(pf, rg_i: int, s: int, count: int,
     for bs, be in zip(bounds, bounds[1:]):
         env = {c: cursors[c].aligned(bs, be) for c in fcols}
         mask[bs - s:be - s] = expr_mask(expr, env, be - bs)
-    FUSED["scan_spans"] += 1
+    count_fused("scan_spans")
     return mask
 
 
@@ -268,12 +277,15 @@ def scan_expr(pf, where, columns: Optional[Sequence[str]] = None,
 
     device = resolve_device(device)
     pol, report = resolve_policy(pf, policy, report)
-    if pol is None and report is None:
-        return _scan_expr_impl(pf, where, columns, num_threads, use_bloom,
-                               device)
-    with pf._resilient_op(policy, report, "scan_expr"):
-        return _scan_expr_impl(pf, where, columns, num_threads, use_bloom,
-                               device, pol=pol, report=report)
+    # an op of its own unless the caller's (or the dataset's) is active
+    with _oscope.maybe_op_scope("file.scan", file=pf._path):
+        if pol is None and report is None:
+            return _scan_expr_impl(pf, where, columns, num_threads,
+                                   use_bloom, device)
+        with pf._resilient_op(policy, report, "scan_expr"):
+            return _scan_expr_impl(pf, where, columns, num_threads,
+                                   use_bloom, device, pol=pol,
+                                   report=report)
 
 
 def _check_flat(pf, cols, what: str) -> None:
@@ -320,9 +332,11 @@ def _fan_out(fn, tasks: list, cells: int, num_threads: Optional[int]):
     by default (serially inside a pool worker, where a nested map would
     wait on futures no free worker can run); on a private pool of
     ``num_threads``, closed before returning, otherwise.  Each pooled task
-    keeps its native calls to one thread."""
+    keeps its native calls to one thread, and runs in a copy of the
+    caller's context (its op scope follows it; ``utils/pool.py::
+    instrument_task``)."""
     from ..ops import host
-    from ..utils.pool import map_in_order
+    from ..utils.pool import instrument_task, map_in_order
 
     if _fan_width(len(tasks), cells, num_threads) == 1:
         return [fn(t) for t in tasks]
@@ -333,8 +347,10 @@ def _fan_out(fn, tasks: list, cells: int, num_threads: Optional[int]):
 
     if num_threads is None:
         return map_in_order(one, tasks)
-    with ThreadPoolExecutor(max_workers=num_threads) as pool:
-        return list(pool.map(one, tasks))
+    with ThreadPoolExecutor(max_workers=num_threads,
+                            thread_name_prefix="pqt-scan") as pool:
+        return list(pool.map(instrument_task(one, name="scan_read"),
+                             tasks))
 
 
 def _materialize_ba(values: np.ndarray, offs: np.ndarray,
@@ -448,61 +464,65 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
     # dropped a page at a time on the union page grid, at the cost of
     # reading a filter column that is also an output column again in
     # phase 2
-    from ..io.fused import FUSED, FusedUnsupported
+    from ..io.fused import FusedUnsupported, count_fused
     from ..io.planner import choose_fused
 
     use_fused = bool(fcols) and bool(spans) and \
         choose_fused(plan.est_bytes([]))
     k = len(fcols)
-    if use_fused:
-        def mask_one(si):
-            rg_i, gstart, count = spans[si]
-            s = int(gstart - rg_base[rg_i])
-            try:
-                with read_context(path=pf._path, row_group=rg_i):
-                    try:
-                        return _fused_span_mask(pf, rg_i, s, count, fcols,
-                                                expr)
-                    except FusedUnsupported:
-                        FUSED["fallbacks"] += 1
-                        env = {}
-                        for c in fcols:
-                            with admission.admit(span_bytes(rg_i, c, count),
-                                                 tier="scan"):
-                                env[c] = read_row_range(pf, c, gstart, count,
-                                                        aligned=True)
-                        return expr_mask(expr, env, count)
-            except DeadlineError:
-                raise
-            except CorruptedError as e:
-                return _SpanFailure(rg_i, e)
+    p1_span = (_otrace.span("scan.phase1", file=pf._path,
+                            spans=len(spans), cand_rows=cand_rows)
+               if _otrace.TRACE_ENABLED else _otrace.NULL_SPAN)
+    with p1_span:  # a fan-out that raises still records the span
+        if use_fused:
+            def mask_one(si):
+                rg_i, gstart, count = spans[si]
+                s = int(gstart - rg_base[rg_i])
+                try:
+                    with read_context(path=pf._path, row_group=rg_i):
+                        try:
+                            return _fused_span_mask(pf, rg_i, s, count, fcols,
+                                                    expr)
+                        except FusedUnsupported:
+                            count_fused("fallbacks")
+                            env = {}
+                            for c in fcols:
+                                with admission.admit(span_bytes(rg_i, c, count),
+                                                     tier="scan"):
+                                    env[c] = read_row_range(pf, c, gstart, count,
+                                                            aligned=True)
+                            return expr_mask(expr, env, count)
+                except DeadlineError:
+                    raise
+                except CorruptedError as e:
+                    return _SpanFailure(rg_i, e)
 
-        tasks1 = list(range(len(spans)))
-        res1 = _fan_out(mask_one, tasks1, cand_rows * max(k, 1),
-                        num_threads)
-        failures = [r for r in res1 if isinstance(r, _SpanFailure)]
-        if failures:
-            bad = drop_bad_rgs(failures)
-            keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
-            res1 = [res1[i] for i in keep]
-            spans = [spans[i] for i in keep]
-        envs = [{} for _ in spans]  # filter pages were folded and dropped
-        masks = res1
-    else:
-        tasks1 = [(rg_i, start, count, c, True)
-                  for (rg_i, start, count) in spans for c in fcols]
-        res1 = _fan_out(read_one, tasks1, cand_rows * max(k, 1),
-                        num_threads)
-        failures = [r for r in res1 if isinstance(r, _SpanFailure)]
-        if failures:
-            bad = drop_bad_rgs(failures)
-            keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
-            res1 = [res1[i * k + j] for i in keep for j in range(k)]
-            spans = [spans[i] for i in keep]
-        envs = [{c: res1[i * k + j] for j, c in enumerate(fcols)}
-                for i in range(len(spans))]
-        masks = [expr_mask(expr, env, count)
-                 for (_, _, count), env in zip(spans, envs)]
+            tasks1 = list(range(len(spans)))
+            res1 = _fan_out(mask_one, tasks1, cand_rows * max(k, 1),
+                            num_threads)
+            failures = [r for r in res1 if isinstance(r, _SpanFailure)]
+            if failures:
+                bad = drop_bad_rgs(failures)
+                keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
+                res1 = [res1[i] for i in keep]
+                spans = [spans[i] for i in keep]
+            envs = [{} for _ in spans]  # filter pages were folded and dropped
+            masks = res1
+        else:
+            tasks1 = [(rg_i, start, count, c, True)
+                      for (rg_i, start, count) in spans for c in fcols]
+            res1 = _fan_out(read_one, tasks1, cand_rows * max(k, 1),
+                            num_threads)
+            failures = [r for r in res1 if isinstance(r, _SpanFailure)]
+            if failures:
+                bad = drop_bad_rgs(failures)
+                keep = [i for i, sp in enumerate(spans) if sp[0] not in bad]
+                res1 = [res1[i * k + j] for i in keep for j in range(k)]
+                spans = [spans[i] for i in keep]
+            envs = [{c: res1[i * k + j] for j, c in enumerate(fcols)}
+                    for i in range(len(spans))]
+            masks = [expr_mask(expr, env, count)
+                     for (_, _, count), env in zip(spans, envs)]
     t2 = time.perf_counter()
 
     # phase 2: each output column outside the filter decoded under [first
@@ -518,7 +538,11 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
               for t0_, t1_ in [trim] for c in read2_cols]
     cells2 = sum(b - a for t in trims if t is not None
                  for a, b in [t]) * max(len(read2_cols), 1)
-    res2 = _fan_out(read_one, tasks2, cells2, num_threads)
+    p2_span = (_otrace.span("scan.phase2", file=pf._path,
+                            tasks=len(tasks2), cells=cells2)
+               if _otrace.TRACE_ENABLED else _otrace.NULL_SPAN)
+    with p2_span:
+        res2 = _fan_out(read_one, tasks2, cells2, num_threads)
     failures = [r for r in res2 if isinstance(r, _SpanFailure)]
     if failures:
         bad = drop_bad_rgs(failures)
@@ -603,6 +627,10 @@ def _scan_expr_impl(pf, where, columns, num_threads, use_bloom, device,
             out[c] = _typed_empty(pf.schema.leaf(c))
     if report is not None and out_cols:
         report.rows_read += len(out[out_cols[0]])
+    # rows the pushdown never decoded, and the survivors (the masks are
+    # final here, a degraded scan's drops included)
+    _oscope.account(_M_ROWS_PRUNED, int(pf.num_rows) - cand_rows)
+    _oscope.account(_M_ROWS_DECODED, int(sum(int(m.sum()) for m in masks)))
     if timings is not None:
         timings.update(
             plan_s=t1 - t0, phase1_s=t2 - t1,
@@ -682,6 +710,7 @@ def scan_files(pfs: Sequence, path: Optional[str] = None, lo=None, hi=None,
         i, pf = item
         d = devs[i % len(devs)]
         sub = ReadReport() if report is not None else None
+        t0 = time.perf_counter()
         try:
             if where is not None:
                 got = scan_expr(pf, where, columns=columns,
@@ -699,6 +728,8 @@ def scan_files(pfs: Sequence, path: Optional[str] = None, lo=None, hi=None,
             if not skip_files:
                 raise
             return None, sub, e
+        finally:
+            _M_SCAN_FILE_S.observe(time.perf_counter() - t0)
         return got, sub, None
 
     oks = []
@@ -750,9 +781,12 @@ def scan(pf, path: str, lo=None, hi=None,
     ``policy``/``report``: the device attempt records into a scratch
     report, merged only where its result is kept; on a fallback only its
     retries carry over (the host scan records the skips again), and the
-    host scan runs on what is left of the deadline."""
-    return _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device,
-                        policy, report)
+    host scan runs on what is left of the deadline.  Each route's
+    observation in the history carries the shared pool's wait during the
+    scan (``obs.metrics.pool_wait_seconds``)."""
+    with _oscope.maybe_op_scope("file.scan", file=pf._path):
+        return _scan_routed(pf, path, lo, hi, columns, use_bloom, values,
+                            device, policy, report)
 
 
 def _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device,
@@ -769,7 +803,12 @@ def _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device,
                           values=values, device=device)
     if decision.route == "device":
         t0 = time.monotonic()
+        w0 = _pool_wait_seconds()
         scratch = ReadReport() if report is not None else None
+        if scratch is not None:
+            # its skips publish once, where the attempt is kept: a
+            # fallback's host scan records them again
+            scratch._publish = False
         try:
             got = scan_filtered_device(pf, path, lo=lo, hi=hi,
                                        columns=columns, use_bloom=use_bloom,
@@ -778,9 +817,11 @@ def _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device,
             if device.type == "cuda":  # the history times finished work
                 torch.cuda.synchronize(device)
             route_history().observe("device", decision.est_bytes,
-                                    time.monotonic() - t0)
+                                    time.monotonic() - t0,
+                                    pool_wait_s=_pool_wait_seconds() - w0)
             if report is not None:
                 report.merge(scratch)
+                scratch.publish_skips()
             return got
         except ValueError as e:
             # only the device scan's documented refusals fall back
@@ -797,12 +838,16 @@ def _scan_routed(pf, path, lo, hi, columns, use_bloom, values, device,
                     "the budget before falling back to the host scan)")
             policy = dataclasses.replace(pol, deadline_s=remaining)
     t0 = time.monotonic()
+    w0 = _pool_wait_seconds()
     got = scan_filtered(pf, path, lo=lo, hi=hi, columns=columns,
                         use_bloom=use_bloom, values=values, device=device,
                         num_threads=decision.pool_width, policy=policy,
                         report=report)
+    # the pool's saturation during this scan (queue waits and prefetch
+    # stalls, process-wide) discounts the route's effective rate
     route_history().observe("host", decision.est_bytes,
-                            time.monotonic() - t0)
+                            time.monotonic() - t0,
+                            pool_wait_s=_pool_wait_seconds() - w0)
     return got
 
 

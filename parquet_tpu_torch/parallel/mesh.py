@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -48,6 +49,10 @@ import torch
 from ..errors import CorruptedError, _Unsupported
 from ..format.enums import Type
 from ..io.reader import ParquetFile, _select_leaves, resolve_device
+from ..obs.ledger import ledger_account
+from ..obs.metrics import counter as _ocounter
+from ..obs.metrics import histogram as _ohistogram
+from ..obs.scope import account as _oaccount
 from ..ops import device as dev
 from ..ops import host, ref
 from ..utils import pool as _pool
@@ -62,12 +67,26 @@ MESH = {"files_sharded": 0, "stage_overlapped": 0, "staging_bytes": 0,
 _mesh_lock = threading.Lock()
 
 
+# the registry's view of MESH, and the staged bytes' ledger account
+_M_H2D_S = _ohistogram("device.h2d_s")
+_M_DECODE_S = _ohistogram("device.decode_s")
+_METRIC = {"files_sharded": _ocounter("device.files_sharded"),
+           "stage_overlapped": _ocounter("device.stage_overlapped")}
+_ACC_STAGING = ledger_account("device.staging")
+
+
 def _count(key: str, n: int = 1) -> None:
     with _mesh_lock:  # counted on the pool's workers
         MESH[key] += n
         if key == "staging_bytes":
             MESH["staging_bytes_peak"] = max(MESH["staging_bytes_peak"],
                                              MESH["staging_bytes"])
+            if n >= 0:
+                _ACC_STAGING.add(n)
+            else:
+                _ACC_STAGING.sub(-n)
+    if key in _METRIC:
+        _oaccount(_METRIC[key], n)
 
 
 def reset_mesh() -> None:
@@ -349,8 +368,11 @@ def read_table_sharded(source, mesh=None,
             except _Unsupported as e:
                 return reader, None, e
 
-    with ThreadPoolExecutor(max_workers=workers) as pool:
-        prepped = list(pool.map(prep, tasks))
+    # each task in a copy of this context: the op scope follows it
+    with ThreadPoolExecutor(max_workers=workers,
+                            thread_name_prefix="pqt-shard") as pool:
+        prepped = list(pool.map(
+            _pool.instrument_task(prep, name="prepare_shard"), tasks))
 
     rg_rows = [rg.num_rows for rg in pf.row_groups]
     counts = [sum(rg_rows[d::nd]) for d in range(nd)]
@@ -616,6 +638,7 @@ def _stage_dataset_file(dataset, i: int, columns, device: torch.device,
                     grant=grant)
     _count("staging_bytes", st.est_bytes)
     try:
+        t0 = time.perf_counter()
         with contextlib.ExitStack() as stack:
             pre = make_chunk_prefetcher(pf.source)
             if pre is not None:
@@ -626,6 +649,7 @@ def _stage_dataset_file(dataset, i: int, columns, device: torch.device,
             with host.native_thread_cap(threads):
                 st.preps = device_reader.prepare_chunks_batched(chunks,
                                                                 device)
+        _M_H2D_S.observe(time.perf_counter() - t0)
     except DeadlineError:
         st.release()
         raise
@@ -643,6 +667,7 @@ def _decode_dataset_file(st: _FileStage) -> Dict[str, list]:
     one on the host route, counted), ``{path: [Column a row group]}``."""
     from ..io.planner import count_device_refusal
 
+    t0 = time.perf_counter()
     it = iter(st.preps)
     n_rg = len(st.pf.row_groups)
     parts = {}
@@ -658,6 +683,7 @@ def _decode_dataset_file(st: _FileStage) -> Dict[str, list]:
     if st.device.type == "cuda":
         st.done = torch.cuda.Event()
         st.done.record()
+    _M_DECODE_S.observe(time.perf_counter() - t0)  # the host's enqueue
     return parts
 
 

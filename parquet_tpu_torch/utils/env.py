@@ -3,8 +3,8 @@
 The port's cut of ``parquet_tpu/utils/env.py``: every knob is declared in
 :data:`KNOBS` with its default and what it does, named
 ``PARQUET_TPU_TORCH_*``, and read through :func:`env_str` (or the typed
-:func:`env_int`, :func:`env_float`, :func:`env_bytes` and
-:func:`env_opt_bytes`, which parse
+:func:`env_int`, :func:`env_float`, :func:`env_opt_float`,
+:func:`env_bytes` and :func:`env_opt_bytes`, which parse
 it as the JAX package's accessors do: a value that does not parse reads as
 the default; :func:`env_bool` reads ``0``/``off``/``false``/``no`` as
 off), which refuse an undeclared name.  Knobs are read at each
@@ -17,7 +17,7 @@ import os
 from typing import Optional
 
 __all__ = ["KNOBS", "env_str", "env_bool", "env_int", "env_float",
-           "env_bytes", "env_opt_bytes"]
+           "env_opt_float", "env_bytes", "env_opt_bytes"]
 
 #: name -> (default, what it does); "" is unset
 KNOBS = {
@@ -119,6 +119,27 @@ KNOBS = {
     "PARQUET_TPU_TORCH_DEBUG": (
         "0", "1 makes utils/debug.py::trace log each call of the "
         "functions it decorates, with its wall time, to stderr"),
+    "PARQUET_TPU_TORCH_TRACE": (
+        "", "turns span tracing on for the process (read at import) and "
+        "writes the Chrome trace-event JSON to this path at exit "
+        "(obs/trace.py)"),
+    "PARQUET_TPU_TORCH_TRACE_SAMPLE": (
+        "1", "with tracing on, keeps one operation in each block of N on "
+        "its own trace track; the others park their spans in a ring kept "
+        "only when the op is slow (obs/scope.py; 1 traces every op)"),
+    "PARQUET_TPU_TORCH_SLOW_OP_S": (
+        "", "seconds past which an operation is slow: its spans are kept "
+        "and, with PARQUET_TPU_TORCH_SLOW_LOG, its record written; 0 "
+        "keeps every op; unset: no tail capture"),
+    "PARQUET_TPU_TORCH_SLOW_LOG": (
+        "", "appends one JSON line a slow operation (name, duration, "
+        "stages, its counters) to this file"),
+    "PARQUET_TPU_TORCH_MEM_SOFT": (
+        "0", "soft memory watermark in bytes over the resource ledger's "
+        "total: crossing it shrinks the caches (obs/ledger.py); 0 off"),
+    "PARQUET_TPU_TORCH_MEM_HARD": (
+        "0", "hard memory watermark in bytes: while the ledger's total is "
+        "at or over it, new read admissions block (utils/pool.py); 0 off"),
     "PARQUET_TPU_TORCH_TRACE_DIR": (
         "", "the directory utils/debug.py::profiler_trace writes its "
         "Chrome trace into when the caller names none; unset: no trace"),
@@ -164,6 +185,17 @@ def env_float(name: str) -> float:
         return float(env_str(name))
     except ValueError:
         return float(KNOBS[name][0] or 0.0)
+
+
+def env_opt_float(name: str) -> Optional[float]:
+    """The knob as a float, or None where it is unset or does not parse."""
+    v = env_str(name)
+    if not v:
+        return None
+    try:
+        return float(v)
+    except ValueError:
+        return None
 
 
 def env_bytes(name: str) -> int:

@@ -18,9 +18,17 @@ says otherwise), the ``scan`` tier (off unless
 ``PARQUET_TPU_TORCH_SCAN_BUDGET`` sets it) and the ``hedge`` tier of the
 remote sources' second attempts (the global budget), all inside
 ``PARQUET_TPU_TORCH_READ_BUDGET`` where that is set (``0`` turns every
-tier off).  Not in this port: tenants and their QoS classes,
-``try_request``'s request-rate gate, blocking under the resource
-ledger's hard watermark, and the pool's metrics and trace spans.
+tier off).  While the resource ledger's total is at or over
+``PARQUET_TPU_TORCH_MEM_HARD`` (obs/ledger.py), every tier's new
+admissions block until it drops.  Not in this port: tenants and their QoS
+classes and ``try_request``'s request-rate gate (they come with the
+serving daemon).
+
+Every task :func:`submit` dispatches, and every task of the read's own
+worker pools (:func:`instrument_task`), counts in ``pool.tasks``, its
+queue-to-run wait lands in the ``pool.queue_wait_s`` histogram and in the
+current op's report, and with tracing on it runs inside a ``pool.task``
+span.
 """
 
 from __future__ import annotations
@@ -28,16 +36,35 @@ from __future__ import annotations
 import contextvars
 import itertools
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from typing import Optional
 
+from ..obs import ledger as _ledger
+from ..obs import scope as _scope
+from ..obs import trace as _trace
+from ..obs.metrics import counter as _counter
+from ..obs.metrics import gauge as _gauge
+from ..obs.metrics import histogram as _histogram
 from ..ops.host import available_cpus
 from .env import env_opt_bytes
 
 _LOCK = threading.Lock()
 _POOL: Optional[ThreadPoolExecutor] = None
 _IN_POOL = threading.local()
+
+# the queue-to-run wait of every task (obs.metrics.pool_wait_seconds sums
+# it for the routed scan's cost model)
+_QUEUE_WAIT = _histogram("pool.queue_wait_s")
+_TASKS = _counter("pool.tasks")
+_ACTIVE = _gauge("pool.active")
+_M_ADM_WAITS = _counter("lookup.admission_waits")
+_ADM_WAIT_S = _histogram("lookup.admission_wait_s")
+_M_READ_WAITS = _counter("read.admission_waits")
+_READ_WAIT_S = _histogram("read.admission_wait_s")
+_M_ADMITTED = _gauge("lookup.admitted_bytes")
+_ACC_ADMITTED = _ledger.ledger_account("admission.in_flight")
 
 
 def pool_width() -> int:
@@ -70,12 +97,63 @@ def _run_pooled(fn, args, kwargs):
         _IN_POOL.flag = prev
 
 
+def instrument_task(fn, name: Optional[str] = None):
+    """Wrap a task about to be dispatched to a pool: its queue-to-run wait
+    (from now) lands in the ``pool.queue_wait_s`` histogram and in the
+    current op's report, ``pool.tasks`` counts it, and with tracing on it
+    runs inside a ``pool.task`` span.  The dispatcher's context is
+    captured here and each run executes in a fresh copy of it, so the op
+    scope (its per-op counters, its trace track and ring) and an
+    admission grant follow the work onto the worker.  A copy per run: one
+    wrapped function may run on several workers at once, and a context
+    refuses concurrent entry.  The read's own worker pools wrap their
+    tasks with it too."""
+    t_submit = time.perf_counter()
+    ctx = contextvars.copy_context()
+
+    def run(*a, **k):
+        return ctx.copy().run(_run_instrumented, fn, name, t_submit, a, k)
+
+    return run
+
+
+def _run_instrumented(fn, name, t_submit: float, a, k):
+    wait = time.perf_counter() - t_submit
+    _QUEUE_WAIT.observe(wait)
+    # runs inside the copied context: the wait is the dispatching op's
+    _scope.add_to_current("pool.queue_wait_s", wait)
+    _scope.account(_TASKS)
+    _ACTIVE.inc()
+    try:
+        if _trace.TRACE_ENABLED:
+            with _trace.span("pool.task", fn=name):
+                return fn(*a, **k)
+        return fn(*a, **k)
+    finally:
+        _ACTIVE.dec()
+
+
 def submit(fn, *args, **kwargs):
     """``fn(*args, **kwargs)`` on the shared pool, marked so that
     :func:`in_shared_pool` is true while it runs, in a copy of the
-    caller's context; returns its future."""
-    ctx = contextvars.copy_context()
-    return shared_pool().submit(ctx.run, _run_pooled, fn, args, kwargs)
+    caller's context (:func:`instrument_task`); returns its future."""
+    run = instrument_task(_run_pooled, name=getattr(fn, "__name__", None))
+    return shared_pool().submit(run, fn, args, kwargs)
+
+
+def pool_debug() -> dict:
+    """The shared pool now, for ``/debugz``: its width, whether it was
+    built, the tasks running, and the tasks queued."""
+    with _LOCK:
+        pool = _POOL
+    queued = 0
+    if pool is not None:
+        try:
+            queued = pool._work_queue.qsize()
+        except (AttributeError, NotImplementedError):
+            queued = 0
+    return {"width": pool_width(), "built": pool is not None,
+            "active": _ACTIVE.value, "queued": queued}
 
 
 def cancel_futures(futures) -> None:
@@ -184,9 +262,12 @@ class AdmissionController:
         return self._lookup_default if tier == "lookup" else 0
 
     def _may_grant_locked(self, ticket: _Ticket, budgets: dict,
-                          g: Optional[int]) -> bool:
+                          g: Optional[int], hard: bool = False) -> bool:
         # FIFO: only the oldest ticket may take a grant; the ones behind
-        # it wait even where they would fit
+        # it wait even where they would fit.  Nothing is granted while
+        # the ledger is over its hard watermark.
+        if hard:
+            return False
         head = self._queue[0]
         if head is not ticket:
             return False
@@ -207,32 +288,54 @@ class AdmissionController:
         if _ADMISSION_HELD.get():
             return 0
         budget = self.budget_bytes(tier)
-        if budget <= 0:
+        hard_gate = _ledger.hard_watermark_bytes() > 0
+        if budget <= 0 and not hard_gate:
             return 0
         g = self.global_budget_bytes()
-        grant = min(max(int(nbytes), 0), budget)
+        grant = min(max(int(nbytes), 0), budget) if budget > 0 else 0
         if g:
             grant = min(grant, g)
+        t0 = time.perf_counter()
         waited = False
+        if hard_gate and _ledger.LEDGER.check_pressure() == "hard":
+            # the reclaim runs here, outside the gate's lock
+            waited = True
         with self._cv:
             ticket = _Ticket(next(self._seq), tier, grant)
             self._queue.append(ticket)
             budgets = {tier: budget}
-            while not self._may_grant_locked(ticket, budgets, g):
+            while not self._may_grant_locked(
+                    ticket, budgets, g,
+                    hard_gate and _ledger.LEDGER.state() == "hard"):
                 if give_up is not None and give_up():
                     self._queue.remove(ticket)
                     self._cv.notify_all()
                     return 0
                 waited = True
-                self._cv.wait(timeout=None if give_up is None else 0.05)
+                # a bounded wait under the hard watermark: a release of
+                # ledger bytes elsewhere has no notifier of its own
+                self._cv.wait(timeout=None if give_up is None
+                              and not hard_gate else 0.05)
             self._queue.pop(0)
             self._in_use += grant
             self._tier_use[tier] = self._tier_use.get(tier, 0) + grant
             self.high_water = max(self.high_water, self._in_use)
             if waited:
                 self.waits += 1
+            _M_ADMITTED.set(self._in_use)
+            _ACC_ADMITTED.set(self._in_use)
             # the next ticket may fit too: grants are not exclusive
             self._cv.notify_all()
+        if waited:
+            wait_s = time.perf_counter() - t0
+            if tier == "lookup":
+                _ADM_WAIT_S.observe(wait_s)
+                _scope.account(_M_ADM_WAITS)
+                _scope.add_to_current("lookup.admission_wait_s", wait_s)
+            else:
+                _READ_WAIT_S.observe(wait_s)
+                _scope.account(_M_READ_WAITS)
+                _scope.add_to_current("read.admission_wait_s", wait_s)
         return grant
 
     def release(self, grant: int, tier: str = "lookup") -> None:
@@ -241,6 +344,8 @@ class AdmissionController:
         with self._cv:
             self._in_use -= grant
             self._tier_use[tier] = self._tier_use.get(tier, 0) - grant
+            _M_ADMITTED.set(self._in_use)
+            _ACC_ADMITTED.set(self._in_use)
             self._cv.notify_all()
 
     @contextmanager

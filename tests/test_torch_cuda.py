@@ -1878,3 +1878,106 @@ def test_url_lookup_on_card_launches_bloom_check(cuda_device):
             assert np.array_equal(g.values["v"], w.values["v"])
     finally:
         _remote_pools_drained(server)
+
+
+def _obs_file(path):
+    """A 4-row-group file of the 5-column kinds (a dictionary the unpack
+    kernels decode), at ``path``."""
+    rng = np.random.default_rng(11)
+    n = 80_000
+    table = {"id": np.arange(n, dtype=np.int64),
+             "k": rng.integers(0, 3000, n).astype(np.int64),
+             "cat": rng.integers(0, 200, n).astype(np.int32),
+             "ts": np.cumsum(rng.integers(0, 1000, n))}
+    pqt.write_table(table, str(path), pqt.WriterOptions(
+        row_group_size=20_000, column_encoding={
+            "id": Encoding.PLAIN, "k": Encoding.RLE_DICTIONARY,
+            "cat": Encoding.RLE_DICTIONARY,
+            "ts": Encoding.DELTA_BINARY_PACKED}))
+    return str(path)
+
+
+def _syncs(fn) -> list:
+    """The synchronizing CUDA calls ``fn()`` makes: for each, the file of
+    the package's innermost frame that made it."""
+    import os
+    import traceback
+    import warnings
+
+    pkg = os.path.dirname(os.path.abspath(pqt.__file__))
+    sites = []
+
+    def show(message, *a, **k):
+        if "synchroniz" not in str(message):
+            return
+        files = [f.filename for f in traceback.extract_stack()
+                 if f.filename.startswith(pkg)]
+        sites.append(os.path.relpath(files[-1], pkg) if files else "?")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites
+
+
+@pytest.mark.cuda
+def test_a_traced_read_on_card_adds_no_sync(cuda_device, tmp_path):
+    """Tracing a card read records its spans and adds no synchronization:
+    no sync comes from ``obs/``, the traced read makes no more syncs than
+    the untraced one before it (a first read's pinned allocations may
+    sync; later reads reuse them), and it launches the kernels as
+    often."""
+    from parquet_tpu_torch import obs
+
+    path = _obs_file(tmp_path / "o.parquet")
+
+    def read():
+        with pqt.ParquetFile(path) as f:
+            return f.read(device=cuda_device)
+
+    for _ in range(3):  # warm: the staging buffers and the caches
+        read()
+
+    pqt.reset_launches()
+    untraced = _syncs(read)
+    launches = dict(pqt.LAUNCHES)
+    obs.reset_trace()
+    obs.enable_tracing()
+    try:
+        pqt.reset_launches()
+        traced = _syncs(read)
+    finally:
+        obs.disable_tracing()
+    names = {e["name"] for e in obs.trace_events()}
+    obs.reset_trace()
+    assert len(traced) <= len(untraced), (traced, untraced)
+    assert not [s for s in traced + untraced if s.startswith("obs")]
+    assert dict(pqt.LAUNCHES) == launches, (dict(pqt.LAUNCHES), launches)
+    assert launches["unpack_bits_dense"] > 0
+    assert {"device.h2d", "op.file.read"} <= names
+
+
+@pytest.mark.cuda
+def test_a_card_reads_bytes_are_its_ops(cuda_device, tmp_path):
+    """A card read inside an op: the op's ``read.bytes_read`` equals the
+    global delta (the prepare workers run in the op's context), and its
+    pool tasks are the op's."""
+    from parquet_tpu_torch import obs
+
+    path = _obs_file(tmp_path / "a.parquet")
+    before = obs.metrics_snapshot()
+    with obs.op_scope("t.card") as op:
+        with pqt.ParquetFile(path) as f:
+            f.read(device=cuda_device)
+    torch.cuda.synchronize()
+    delta = obs.metrics_delta(before, obs.metrics_snapshot())["counters"]
+    mine = op.counters()
+    assert delta["read.bytes_read"] > 0
+    assert mine["read.bytes_read"] == delta["read.bytes_read"]
+    assert mine["pool.tasks"] == delta["pool.tasks"] > 0
