@@ -1,8 +1,8 @@
 """Drive parquet_tpu_torch's device read, batched point lookups, device
 scan, multi-file and sharded reads, streamed reads, typed reads, rows,
 merge and sort, aggregation, durable writes from the card, writable
-tables, and the read's counters, traces and row-group pruning on one CUDA
-card and check them.
+tables, the read's counters, traces and row-group pruning, and the
+serving daemon on one CUDA card and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
@@ -225,7 +225,8 @@ Phases, each fatal on failure:
    5-column drain at 65,536 peaks under a quarter of the whole read's
    device bytes, and it and lineitem's read no chunk whole (a spy on the
    source: each pread within ``pages_streamed``'s window bound, or one
-   page and its header).  Each drain's best of 3 warm walls beside the
+   page and its header).  Each drain's best of 2 warm walls (3 before
+   phase 5p came, cut for the script's time) beside the
    whole read's (in turns), its pulls (page spans decoded), syncs and
    launches (``{"stream": [...]}``); lineitem's drain again under
    ``PARQUET_TPU_TORCH_MMAP_DROPBEHIND=1``, equal, with
@@ -234,36 +235,37 @@ Phases, each fatal on failure:
    the read and the drain under ``ReadOptions(verify_crc=True)`` raise
    ``CorruptedError`` naming the CRC, ``skip_row_group`` drops that row
    group alone (the rest equal), and the clean file's read with and
-   without the check, best of 3 warm each (``{"crc": ...}``);
+   without the check, best of 2 warm each (``{"crc": ...}``);
 5i. what reads through the stream (the typed reader and writer, the row
    model, the ordered merge and sort), each check fatal; every size here
-   was halved when phase 5j came and again when phase 5n came, for the
-   script's time: (a) 262,144 seeded ``Event`` dataclasses (unique ``id``, ``region`` of 200,
+   was halved when phase 5j came, again when phase 5n came and again when
+   phase 5p came, for the script's time: (a) 131,072 seeded ``Event``
+   dataclasses (unique ``id``, ``region`` of 200,
    ``user`` of 20,000, a UTC ``ts``, a ``day``, ``score`` 5 % None, 0-4
    ``tags`` of 32, 0-3 ``attrs``, ``geo`` 10 % None) written by
    ``write_objects`` with the default options (Snappy, checked) in
-   131,072-row row groups, drained by ``TypedReader(..., batch_rows=65,536,
+   65,536-row row groups, drained by ``TypedReader(..., batch_rows=65,536,
    device="cuda").read(100,000)`` to the end and read by
    ``read_objects``, both equal to the generated objects (a null ``geo``
    read as ``Geo(None, None)``, as the JAX package reads it),
    ``read_pytree`` equal to ``ParquetFile.read``, both unpack kernels
    launched and the card's allocated bytes back (``{"typed": ...}``);
-   (b) 65,536 Documents of the Dremel paper's schema written by
-   ``write_rows`` (32,768-row row groups, 8 KiB pages, page index),
+   (b) 32,768 Documents of the Dremel paper's schema written by
+   ``write_rows`` (16,384-row row groups, 8 KiB pages, page index),
    ``read_rows(device="cuda")`` equal to the records, ``FileRows.seek_to_row``
    at 16 offsets (0, a page boundary, a row-group boundary, the last row,
    one past the end, 11 seeded) and ``read_rows(4,096)`` equal to the
    records there, ``copy_rows`` into a second file whose whole read
    equals the first's (``{"rows": ...}``); (c) phase 4b's lineitem at
-   4 x 524,288 rows (8 runs cut to 4 for the phase's time)
+   4 x 262,144 rows (8 runs cut to 4 for the phase's time)
    lexsorted by (``l_orderkey``, ``l_extendedprice``) and dealt round
-   robin into 4 sorted runs (Snappy, 262,144-row row
+   robin into 4 sorted runs (Snappy, 131,072-row row
    groups), merged by ``merge_files(..., batch_rows=65,536,
    device="cuda")`` equal to the sorted input (tie groups as sets) and
    by ``iter_merged`` in sorted chunks that concatenate to it
-   (``{"merge": ...}``); (d) 524,288 lineitem rows in a seeded order
+   (``{"merge": ...}``); (d) 262,144 lineitem rows in a seeded order
    through ``SortingWriter`` by (``l_shipdate`` descending,
-   ``l_orderkey``, ``l_extendedprice``), ``buffer_rows=65,536`` (8
+   ``l_orderkey``, ``l_extendedprice``), ``buffer_rows=65,536`` (4
    spills), equal to the input sorted so on the host, no spill left
    after ``close`` nor after an ``abort`` (``{"sort": ...}``).  Each line
    gives the write, the cold run and the best of 2 warm runs beside as
@@ -396,6 +398,41 @@ Phases, each fatal on failure:
    op.  One ``{"obs": ...}`` line: the walls, the syncs, the trace's
    bytes and events, the op reports, the scraped families, the ledger
    before and after the pressure, the launches;
+5p. the serving daemon on the card (``Server(config, port=0,
+   device="cuda")`` on loopback), each check fatal, over phase 4's
+   5-column file, phase 5's lookup file and phase 5j's Q1 file at their
+   full sizes and a writable table sorted on ``k`` with phase 4's schema
+   (4,096 seed rows committed first), for three tenants:
+   ``interactive`` (latency, weight 4, 64 MiB of pinned pages, a bearer
+   token), ``batch`` (bulk, a 256 MiB budget) and ``metered`` (5
+   requests a second, a burst of 5): (a) ``/v1/lookup`` of phase 5's
+   keys in its file's first row group (``v`` and ``cat``) cold and twice
+   warm, equal to
+   ``lookup_to_jsonable`` of the direct ``Dataset.find_rows`` on the
+   card, ``bloom_check`` and ``dict_unpack_gather`` launched, the tenant's
+   pinned bytes above 0 and within its cap, a wrong token 401; (b) the
+   bulk tenant's Arrow ``/v1/scan`` of ``k``, ``cat`` and ``ts`` equal to
+   the direct read's ``to_arrow`` with the same launches, a JSON scan of
+   about 1 % of ``k``'s values equal byte for byte to the direct
+   ``scan_expr``'s lines, and the same scan paged at 1,000,000 rows
+   concatenating to it; (c) Q1 grouped and ungrouped and phase 5j's
+   dictionary-tier query equal to ``Dataset.aggregate`` on the card
+   (floats to ``1e-9``); (d) 4 ``/v1/write`` bodies of 65,536 rows of
+   phase 4's columns from ``--seed``, versions 2-5, the table's scan a
+   part a commit, each its rows sorted on ``k``, and a lookup of the last
+   batch's ids equal to the direct lookup of a fresh ``open_table``; (e)
+   4 threads of 50 lookups of 1,024 keys alone and beside 2 threads of
+   whole-file Arrow scans, every answer equal to its direct call (p50 and
+   p99 both ways), then 20 requests in a row of ``metered``, some 429
+   with ``Retry-After``; (f) ``PARQUET_TPU_TORCH_MEM_HARD`` at half the
+   pinned bytes: ``/healthz`` ``hard``, a bulk scan shed 429, a pinned
+   lookup 200 and unchanged, then ``ok``; (g) ``/metrics``'s
+   ``serve.requests`` of each class the sum of its tenants', ``/debugz``'s
+   tenants section holding the requests and sheds the phase sent; then
+   ``close()`` drains (True) and leaves no thread it started, no pin and
+   no tenant.  Every kernel launches in the phase.  One ``{"serve":
+   ...}`` line: each step's walls, keys/s and rows/s, the launches, the
+   pinned bytes, the sheds and 429s;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -459,6 +496,7 @@ import datetime
 import errno
 import gc
 import hashlib
+import io
 import json
 import os
 import re
@@ -3599,7 +3637,7 @@ def resilience_path(card: str, read: dict, scan: dict, look_path: str,
 # phase 5h: streamed reads on the card
 # ---------------------------------------------------------------------------
 
-STREAM_WARM = 3
+STREAM_WARM = 2  # 3 before phase 5p (the script's time)
 STREAM_MEMORY_SHARE = 0.25  # a drain's peak bytes under this share of a read
 STREAM_CRC_ROW_GROUP = 2  # the row group phase 5h's CRC check corrupts
 # the kernels each drain must launch (lineitem's indexes are bit-packed in
@@ -4116,24 +4154,27 @@ def stream_path(card: str, read: dict, item: dict, nested: dict,
 # phase 5i: typed reads, rows, merge and sort
 # ---------------------------------------------------------------------------
 
-# phase 5i's depth, halved again when phase 5n came (the script's time;
-# 5i took 181 s of it before): each size and row group below is half of
-# what it was, so every file keeps its count of row groups
-TYPED_ROWS = 1 << 18  # 1 << 20 before phase 5j, 1 << 19 before 5n
-TYPED_ROW_GROUP = 1 << 17
+# phase 5i's depth, halved again when phase 5n came and again when 5p came
+# (the script's time: the whole script took 1,107 s on an NVIDIA H100
+# 80GB HBM3 at 700 W before this cut): each size and row group below is
+# half of what it was, so every file keeps its count of row groups
+# 1 << 20 before phase 5j, 1 << 19 before 5n, 1 << 18 before 5p
+TYPED_ROWS = 1 << 17
+TYPED_ROW_GROUP = 1 << 16
 TYPED_BATCH = 65_536
 TYPED_READ = 100_000
-DOC_ROWS = 1 << 16  # 1 << 18 before phase 5j, 1 << 17 before 5n
-DOC_ROW_GROUP = 1 << 15
+# 1 << 18 before phase 5j, 1 << 17 before 5n, 1 << 16 before 5p
+DOC_ROWS = 1 << 15
+DOC_ROW_GROUP = 1 << 14
 DOC_PAGE = 8 << 10
 DOC_SEEKS = 16
 DOC_SEEK_ROWS = 4_096
 MERGE_RUNS = 4  # 8 runs cut to 4: phase 5i's merges took 270 s at 8
-MERGE_RUN_ROWS = 1 << 19  # 1 << 20 before phase 5n
-MERGE_ROW_GROUP = 1 << 18
+MERGE_RUN_ROWS = 1 << 18  # 1 << 20 before phase 5n, 1 << 19 before 5p
+MERGE_ROW_GROUP = 1 << 17
 MERGE_BATCH = 65_536
 MERGE_KEYS = ("l_orderkey", "l_extendedprice")
-SORT_ROWS = 1 << 19  # 1 << 20 before phase 5n
+SORT_ROWS = 1 << 18  # 1 << 20 before phase 5n, 1 << 19 before 5p
 SORT_BUFFER = 65_536
 SORT_KEYS = (("l_shipdate", True), ("l_orderkey", False),
              ("l_extendedprice", False))
@@ -4278,8 +4319,8 @@ def codecs_of(path: str) -> set:
 
 
 def typed_path(card: str, seed: int, tmp: str) -> dict:
-    """Phase 5i(a): 262,144 ``Event``s written by ``write_objects`` with
-    the default options (Snappy, 131,072-row row groups), drained by
+    """Phase 5i(a): 131,072 ``Event``s written by ``write_objects`` with
+    the default options (Snappy, 65,536-row row groups), drained by
     ``TypedReader(..., batch_rows=65,536, device="cuda").read(100,000)``
     to the end, equal to the generated objects, as ``read_objects``;
     ``read_pytree`` equal to ``ParquetFile.read``; both unpack kernels
@@ -4434,7 +4475,7 @@ def same_host_columns(a: dict, b: dict, what: str) -> None:
 
 
 def rows_path(card: str, seed: int, tmp: str) -> dict:
-    """Phase 5i(b): 65,536 Documents written by ``write_rows`` (32,768-row
+    """Phase 5i(b): 32,768 Documents written by ``write_rows`` (16,384-row
     row groups, 8 KiB pages, page index); ``read_rows(device="cuda")``
     equal to the records; ``FileRows.seek_to_row`` at 16 offsets (0, a
     page boundary, a row-group boundary, the last row, one past the end,
@@ -4621,8 +4662,8 @@ def merge_steps() -> dict:
 
 def merge_path(card: str, seed: int, tmp: str) -> dict:
     """Phase 5i(c): phase 4b's lineitem generator at MERGE_RUNS x
-    524,288 rows, lexsorted by (``l_orderkey``, ``l_extendedprice``) and
-    dealt round robin into MERGE_RUNS sorted runs (Snappy, 262,144-row row
+    262,144 rows, lexsorted by (``l_orderkey``, ``l_extendedprice``) and
+    dealt round robin into MERGE_RUNS sorted runs (Snappy, 131,072-row row
     groups, ``l_orderkey`` DELTA_BINARY_PACKED as a sorted key is
     written), whose key ranges overlap completely; ``merge_files(...,
     batch_rows=65,536, device="cuda")`` equal to the sorted input (tie
@@ -4711,10 +4752,10 @@ def sort_dirs() -> set:
 
 
 def sort_path(card: str, seed: int, tmp: str) -> dict:
-    """Phase 5i(d): 524,288 lineitem rows in a seeded random order
+    """Phase 5i(d): 262,144 lineitem rows in a seeded random order
     through ``SortingWriter`` by (``l_shipdate`` descending,
     ``l_orderkey``, ``l_extendedprice``) with ``buffer_rows=65,536``:
-    8 spills, merged on the card; the output equal to the input sorted
+    4 spills, merged on the card; the output equal to the input sorted
     that way on the host (tie groups as sets); no spill left after
     ``close``, nor after an ``abort``."""
     schema, data = make_lineitem(SORT_ROWS, seed + 1)
@@ -6863,6 +6904,628 @@ def obs_path(card: str, read: dict, look_path: str, lookup_rows: int,
     return {"launches": launches}
 
 
+SERVE_PIN = 64 << 20  # the latency tenant's pinned pages
+SERVE_BATCH_BUDGET = 256 << 20
+SERVE_TOKEN = "smoke-bearer-token"
+SERVE_AUTH = {"Authorization": f"Bearer {SERVE_TOKEN}"}
+SERVE_SCAN_COLUMNS = ["k", "cat", "ts"]
+SERVE_SCAN_SHARE = 0.01  # the JSON scan's range: about 1 % of k's values
+SERVE_PAGE_LIMIT = 1_000_000
+SERVE_SEED_ROWS = 4_096  # the table's first commit, before the daemon boots
+SERVE_WRITE_ROWS = 65_536  # a micro-batched ingest service's request
+SERVE_WRITES = 4
+SERVE_TABLE_KEYS = 1_024  # ids of the last batch looked up after the writes
+SERVE_LOAD_THREADS = 4
+SERVE_LOAD_REQUESTS = 50
+SERVE_LOAD_KEYS = 1_024
+SERVE_LOAD_BATCHES = 8
+SERVE_BULK_THREADS = 2
+SERVE_QPS = 5
+SERVE_QPS_BURST = 20
+SERVE_TIMEOUT_S = 600.0  # a liveness bound of one request
+
+
+def serve_call(srv, path: str, doc=None, tenant: str = "default",
+               headers=None) -> tuple:
+    """``(status, body, headers, seconds)`` of one request to the daemon;
+    an error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    hdrs = {"X-Tenant": tenant}
+    hdrs.update(headers or {})
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(srv.url + path, data=data, headers=hdrs)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            out = (r.status, r.read(), dict(r.headers))
+    except urllib.error.HTTPError as e:
+        with e:
+            out = (e.code, e.read(), dict(e.headers))
+    return out + (time.perf_counter() - t0,)
+
+
+def served(srv, path: str, doc, tenant: str, sent: dict, what: str,
+           headers=None) -> tuple:
+    """A request that must answer 200 (a 500 fails the phase with the
+    daemon's error); ``sent`` counts it as its tenant's."""
+    status, body, hdrs, secs = serve_call(srv, path, doc, tenant, headers)
+    sent[tenant] = sent.get(tenant, 0) + 1
+    if status != 200:
+        raise AssertionError(f"phase 5p {what}: {status} "
+                             f"{body[:300]!r}")
+    return body, hdrs, secs
+
+
+def _json_scan_lines(files: list, columns) -> bytes:
+    """The JSON scan's bytes as the daemon's wire format lays them out: a
+    line a file (``{"columns", "num_rows"}``, keys sorted) and the done
+    line."""
+    out, total = [], 0
+    for doc in files:
+        n = len(next(iter(doc.values()))) if doc else 0
+        out.append((json.dumps({"columns": doc, "num_rows": n},
+                               sort_keys=True) + "\n").encode())
+        total += n
+    out.append((json.dumps({"done": True, "num_rows": total})
+                + "\n").encode())
+    return b"".join(out)
+
+
+def _agg_doc(res) -> dict:
+    from parquet_tpu_torch.serve.codecs import jsonable
+
+    doc = {"aggregates": {k: jsonable(v) for k, v in res.items()},
+           "tiers": {k: v for k, v in res.counters.items() if v}}
+    if res.groups is not None:
+        doc["groups"] = [jsonable(k) for k in res.groups]
+    return doc
+
+
+def _same_agg(got: dict, want: dict, what: str) -> None:
+    if set(got) != set(want) or got["tiers"] != want["tiers"] \
+            or got.get("groups") != want.get("groups") \
+            or set(got["aggregates"]) != set(want["aggregates"]):
+        raise AssertionError(f"phase 5p {what}: {got} != {want}")
+    for name, w in want["aggregates"].items():
+        g = got["aggregates"][name]
+        for a, b in (zip(g, w) if isinstance(w, list) else [(g, w)]):
+            _close(a, b, f"phase 5p {what} {name}")
+
+
+def _write_body(rows: int, seed: int) -> dict:
+    """``rows`` rows of phase 4's 5 columns from ``seed`` as the JSON of a
+    ``/v1/write`` body (nulls as ``null``)."""
+    out = {}
+    for name, col in make_table(rows, seed).items():
+        vals = np.asarray(col).astype(object)
+        vals[np.ma.getmaskarray(col)] = None
+        out[name] = vals.tolist()
+    return out
+
+
+def _sorted_rows(cols: dict) -> list:
+    """Row tuples of a JSON column dict ordered by (k, id)."""
+    names = sorted(cols)
+    rows = list(zip(*(cols[n] for n in names)))
+    ki, ii = names.index("k"), names.index("id")
+    return sorted(rows, key=lambda r: (r[ki], r[ii]))
+
+
+def _plus(total: dict, launches: dict) -> dict:
+    """``total`` with ``launches`` added, kernel by kernel."""
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
+
+
+def _percentile(xs: list, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def serve_lookups(srv, look_path: str, keys: np.ndarray, sent: dict,
+                  card: str) -> dict:
+    """Phase 5p(a): the latency tenant's lookup of phase 5's keys in its
+    file's first row group, cold then twice warm, each equal to the
+    direct ``Dataset.find_rows`` on the card; the bloom probe and the
+    dictionary gather launched, the tenant's pages pinned under its cap,
+    and a wrong token refused 401."""
+    from parquet_tpu_torch.io import cache
+    from parquet_tpu_torch.serve.codecs import lookup_to_jsonable
+
+    body = {"dataset": "look", "column": "k",
+            "keys": [int(k) for k in keys], "columns": LOOKUP_COLUMNS}
+    auth = SERVE_AUTH
+    pq.clear_caches()
+    pq.reset_launches()
+    runs = []
+    for i in range(3):
+        got, _, secs = served(srv, "/v1/lookup", body, "interactive", sent,
+                              "(a) lookup", auth)
+        runs.append(secs)
+        if i == 0:
+            cold = dict(pq.LAUNCHES)
+    served_launches = dict(pq.LAUNCHES)
+    pinned = cache.PAGES.pinned_bytes("interactive")
+    t0 = time.perf_counter()
+    with pq.Dataset([look_path]) as ds:
+        want = ds.find_rows("k", keys, columns=LOOKUP_COLUMNS,
+                            device=DEVICE)
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    doc = json.loads(got)
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want_hits = lookup_to_jsonable(want, body["keys"])
+    codec_s = time.perf_counter() - t0
+    if doc["hits"] != want_hits or doc["rows_total"] != want.rows_total:
+        raise AssertionError("phase 5p(a): the served lookup differs from "
+                             "the direct find_rows")
+    check_launched("phase 5p(a) cold lookup", cold, LOOKUP_KERNELS)
+    if not 0 < pinned <= SERVE_PIN:
+        raise AssertionError(f"phase 5p(a): {pinned} bytes pinned for a "
+                             f"{SERVE_PIN}-byte cap")
+    status = serve_call(srv, "/v1/lookup", body, "interactive",
+                        {"Authorization": "Bearer wrong"})
+    if status[0] != 401 or "Bearer" not in status[2].get(
+            "WWW-Authenticate", ""):
+        raise AssertionError(f"phase 5p(a): a wrong token got {status[0]}")
+    return {"keys": len(keys), "rows_total": want.rows_total,
+            "cold_s": runs[0], "warm_s": runs[1:],
+            "keys_per_s": len(keys) / min(runs[1:]),
+            "cold_keys_per_s": len(keys) / runs[0],
+            "direct_warm_s": direct_s, "client_json_decode_s": decode_s,
+            "direct_codec_s": codec_s, "response_bytes": len(got),
+            "pinned_bytes": pinned, "cold_launches": cold,
+            "launches": served_launches}
+
+
+def serve_scans(srv, events: str, sent: dict) -> dict:
+    """Phase 5p(b): the bulk tenant's Arrow scan of three columns of phase
+    4's file equal to the direct read's ``to_arrow`` and launching what
+    it launches; a JSON scan of about 1 % of ``k`` equal byte for byte to
+    the direct ``scan_expr``'s lines; the same scan in pages of
+    ``SERVE_PAGE_LIMIT`` rows concatenating to it."""
+    import pyarrow as pa
+
+    from parquet_tpu_torch.serve.codecs import columns_to_jsonable
+
+    pq.reset_launches()
+    got, _, arrow_s = served(srv, "/v1/scan", {
+        "dataset": "events", "format": "arrow",
+        "columns": SERVE_SCAN_COLUMNS}, "batch", sent, "(b) arrow scan")
+    served_launches = dict(pq.LAUNCHES)
+    table = pa.ipc.open_stream(io.BytesIO(got)).read_all().combine_chunks()
+    pq.reset_launches()
+    t0 = time.perf_counter()
+    with pq.ParquetFile(events) as f:
+        want = f.read(columns=SERVE_SCAN_COLUMNS, device=DEVICE).to_arrow() \
+            .combine_chunks()
+    direct_s = time.perf_counter() - t0
+    direct_launches = dict(pq.LAUNCHES)
+    if not table.equals(want):
+        raise AssertionError("phase 5p(b): the served Arrow scan differs "
+                             "from the direct read")
+    if served_launches != direct_launches:
+        raise AssertionError(f"phase 5p(b): the served scan launched "
+                             f"{served_launches}, the direct read "
+                             f"{direct_launches}")
+    check_launched("phase 5p(b) arrow scan", served_launches, READ_KERNELS)
+    hi = int(20_000 * SERVE_SCAN_SHARE) - 1
+    where = {"col": "k", "ge": 0, "le": hi}
+    (body, _, json_s), json_launches = launched(lambda: served(
+        srv, "/v1/scan", {"dataset": "events", "where": where}, "batch",
+        sent, "(b) json scan"))
+    t0 = time.perf_counter()
+    with pq.ParquetFile(events) as f:
+        rows = pq.scan_expr(f, pq.col("k").between(0, hi), device=DEVICE)
+    want_lines = _json_scan_lines([columns_to_jsonable(rows)], None)
+    direct_json_s = time.perf_counter() - t0
+    if body != want_lines:
+        raise AssertionError("phase 5p(b): the served JSON scan differs "
+                             "from the direct scan_expr's lines")
+    pages, token = [], None
+    while True:
+        doc = {"dataset": "events", "where": where,
+               "limit": SERVE_PAGE_LIMIT}
+        if token:
+            doc["page_token"] = token
+        (page, hdrs, _), got = launched(lambda: served(
+            srv, "/v1/scan", doc, "batch", sent, "(b) paged scan"))
+        json_launches = _plus(json_launches, got)
+        pages.append(page)
+        token = hdrs.get("X-Next-Page-Token")
+        if not token:
+            break
+    if b"".join(pages) != body:
+        raise AssertionError("phase 5p(b): the pages do not concatenate "
+                             "to the unbounded scan")
+    n = table.num_rows
+    matched = json.loads(body.splitlines()[-1])["num_rows"]
+    return {"arrow_rows": n, "arrow_s": arrow_s,
+            "arrow_rows_per_s": n / arrow_s, "arrow_bytes": len(got),
+            "direct_read_to_arrow_s": direct_s,
+            "launches_served": served_launches,
+            "launches_direct": direct_launches,
+            "json_rows": matched, "json_s": json_s,
+            "json_bytes": len(body), "direct_scan_s": direct_json_s,
+            "pages": len(pages),
+            "launches": _plus(served_launches, json_launches)}
+
+
+def serve_aggregates(srv, q1: str, sent: dict) -> dict:
+    """Phase 5p(c): TPC-H Q1 grouped and ungrouped and phase 5j's
+    dictionary-tier query through ``/v1/aggregate``, each equal to
+    ``Dataset.aggregate`` on the card."""
+    from parquet_tpu_torch.serve.codecs import expr_from_wire, parse_aggs
+
+    where = {"col": "l_shipdate", "le": Q1_DATE}
+    queries = {
+        "q1_grouped": {"aggs": ["sum:l_quantity", "sum:l_extendedprice",
+                                "avg:l_quantity", "avg:l_discount",
+                                "count"], "group_by": "l_returnflag",
+                       "where": where},
+        "q1_filtered": {"aggs": ["count", "sum:l_quantity",
+                                 "sum:l_extendedprice", "min:l_discount",
+                                 "max:l_discount", "avg:l_extendedprice"],
+                        "where": where},
+        "dictionary": {"aggs": ["distinct:l_shipmode", "min:l_shipdate",
+                                "max:l_shipdate", "var:l_discount",
+                                "sum:l_quantity"]},
+    }
+    out, total = {}, {}
+    for name, q in queries.items():
+        (body, _, secs), got = launched(lambda q=q, name=name: served(
+            srv, "/v1/aggregate", {"dataset": "q1", **q}, "interactive",
+            sent, f"(c) {name}", SERVE_AUTH))
+        total = _plus(total, got)
+        with pq.Dataset([q1]) as ds:
+            t0 = time.perf_counter()
+            res = ds.aggregate(parse_aggs(q["aggs"]),
+                               where=expr_from_wire(q.get("where")),
+                               group_by=q.get("group_by"), device=DEVICE)
+            direct_s = time.perf_counter() - t0
+        _same_agg(json.loads(body), _agg_doc(res), name)
+        out[name] = {"served_s": secs, "direct_s": direct_s,
+                     "tiers": _agg_doc(res)["tiers"]}
+    out["launches"] = total
+    check_launched("phase 5p(c)", total, READ_KERNELS)
+    return out
+
+
+def serve_writes(srv, tbl: str, seed_rows: dict, seed: int,
+                 sent: dict) -> dict:
+    """Phase 5p(d): 4 ingest requests of 65,536 rows of phase 4's columns
+    (a micro-batched ingest service), each one committed version; then
+    the table's JSON scan holds the seed's part and each request's rows
+    in its own part sorted on ``k``, and a lookup of the last batch's ids
+    finds them (the snapshot refreshed on commit), equal to the direct
+    lookup of a fresh ``open_table``."""
+    from parquet_tpu_torch.serve.codecs import lookup_to_jsonable
+
+    bodies, versions, walls = [seed_rows], [], []
+    for j in range(SERVE_WRITES):
+        rows = _write_body(SERVE_WRITE_ROWS, seed + 100 + j)
+        got, _, secs = served(srv, "/v1/write", {"dataset": "tbl",
+                                                 "rows": rows},
+                              "batch", sent, f"(d) write {j}")
+        doc = json.loads(got)
+        if doc["rows"] != SERVE_WRITE_ROWS:
+            raise AssertionError(f"phase 5p(d): write {j} answered {doc}")
+        versions.append(doc["version"])
+        walls.append(secs)
+        bodies.append(rows)
+    if versions != list(range(2, 2 + SERVE_WRITES)):
+        raise AssertionError(f"phase 5p(d): committed versions {versions}")
+    got, _, scan_s = served(srv, "/v1/scan", {"dataset": "tbl"}, "batch",
+                            sent, "(d) table scan")
+    lines = [json.loads(x) for x in got.splitlines()]
+    parts = [x["columns"] for x in lines[:-1]]
+    if len(parts) != len(bodies):
+        raise AssertionError(f"phase 5p(d): {len(parts)} parts for "
+                             f"{len(bodies)} commits")
+    for i, (part, rows) in enumerate(zip(parts, bodies)):
+        ks = part["k"]
+        if any(a > b for a, b in zip(ks, ks[1:])) or \
+                _sorted_rows(part) != _sorted_rows(rows):
+            raise AssertionError(f"phase 5p(d): part {i} is not its "
+                                 "commit's rows sorted on k")
+    ids = [int(x) for x in bodies[-1]["id"][:SERVE_TABLE_KEYS]]
+    body = {"dataset": "tbl", "column": "id", "keys": ids,
+            "columns": ["k", "cat", "price"]}
+    got, _, look_s = served(srv, "/v1/lookup", body, "interactive", sent,
+                            "(d) table lookup", SERVE_AUTH)
+    served_launches = dict(pq.LAUNCHES)
+    with pq.open_table(tbl) as ds:
+        want = ds.find_rows("id", ids, columns=["k", "cat", "price"],
+                            device=DEVICE)
+    doc = json.loads(got)
+    if doc["hits"] != lookup_to_jsonable(want, ids) or \
+            doc["rows_total"] != len(ids):
+        raise AssertionError("phase 5p(d): the last batch's ids are not "
+                             "found as the direct lookup finds them")
+    n = SERVE_WRITE_ROWS
+    return {"versions": versions, "write_s": walls,
+            "rows_per_s": n / min(walls), "body_bytes": len(json.dumps(
+                {"dataset": "tbl", "rows": bodies[-1]})),
+            "table_rows": sum(x["num_rows"] for x in lines[:-1]),
+            "scan_s": scan_s, "lookup_s": look_s,
+            "launches": served_launches}
+
+
+def serve_load(srv, events: str, look_path: str, keys: np.ndarray,
+               sent: dict) -> dict:
+    """Phase 5p(e): 4 threads of the latency tenant's lookups (1,024 keys,
+    50 requests a thread) alone, then while 2 threads of the bulk
+    tenant's whole-file Arrow scans run: every lookup 200 and equal to its
+    direct call, the lookups' p50/p99 both ways; then the metered tenant
+    at 20 requests in a row gets 429s with ``Retry-After``."""
+    from parquet_tpu_torch.serve.codecs import lookup_to_jsonable
+
+    batches = [[int(k) for k in keys[i * SERVE_LOAD_KEYS:
+                                     (i + 1) * SERVE_LOAD_KEYS]]
+               for i in range(SERVE_LOAD_BATCHES)]
+    with pq.Dataset([look_path]) as ds:
+        want = [lookup_to_jsonable(
+            ds.find_rows("k", b, columns=LOOKUP_COLUMNS, device=DEVICE), b)
+            for b in batches]
+    pq.reset_launches()  # from here every launch is a served request's
+    auth = SERVE_AUTH
+    lock = threading.Lock()
+
+    def lookups(lat: list, errors: list, tid: int):
+        try:
+            for i in range(SERVE_LOAD_REQUESTS):
+                j = (tid * SERVE_LOAD_REQUESTS + i) % len(batches)
+                st, body, _, secs = serve_call(
+                    srv, "/v1/lookup", {"dataset": "look", "column": "k",
+                                        "keys": batches[j],
+                                        "columns": LOOKUP_COLUMNS},
+                    "interactive", auth)
+                with lock:
+                    sent["interactive"] = sent.get("interactive", 0) + 1
+                if st != 200 or json.loads(body)["hits"] != want[j]:
+                    raise AssertionError(f"phase 5p(e): lookup {j} "
+                                         f"answered {st}")
+                lat.append(secs)
+        except BaseException as e:
+            errors.append(e)
+
+    def run_lookups() -> tuple:
+        lat, errors = [], []
+        ts = [threading.Thread(target=lookups, args=(lat, errors, t),
+                               name=f"smoke-serve-lookup-{t}")
+              for t in range(SERVE_LOAD_THREADS)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        return lat, wall
+
+    alone, alone_wall = run_lookups()
+    stop = threading.Event()
+    bulk_errors, bulk_rows, bulk_s = [], [], []
+
+    def bulk():
+        try:
+            while not stop.is_set():
+                st, body, _, secs = serve_call(
+                    srv, "/v1/scan", {"dataset": "events", "format": "arrow",
+                                      "columns": SERVE_SCAN_COLUMNS},
+                    "batch")
+                with lock:
+                    sent["batch"] = sent.get("batch", 0) + 1
+                if st != 200:
+                    raise AssertionError(f"phase 5p(e): bulk scan {st}")
+                bulk_rows.append(len(body))
+                bulk_s.append(secs)
+        except BaseException as e:
+            bulk_errors.append(e)
+
+    bts = [threading.Thread(target=bulk, name=f"smoke-serve-bulk-{i}")
+           for i in range(SERVE_BULK_THREADS)]
+    for t in bts:
+        t.start()
+    try:
+        mixed, mixed_wall = run_lookups()
+    finally:
+        stop.set()
+        for t in bts:
+            t.join()
+    if bulk_errors:
+        raise bulk_errors[0]
+    if not bulk_s:
+        raise AssertionError("phase 5p(e): no bulk scan finished")
+    # the metered tenant over its QPS contract
+    codes, retry = [], []
+    for _ in range(SERVE_QPS_BURST):
+        st, _, hdrs, _ = serve_call(srv, "/v1/lookup", {
+            "dataset": "look", "column": "k", "keys": [0]}, "metered")
+        codes.append(st)
+        if st == 429:
+            retry.append(hdrs.get("Retry-After"))
+        elif st == 200:
+            sent["metered"] = sent.get("metered", 0) + 1
+    if 429 not in codes or None in retry or set(codes) - {200, 429}:
+        raise AssertionError(f"phase 5p(e): the metered tenant got {codes}")
+    n = SERVE_LOAD_THREADS * SERVE_LOAD_REQUESTS
+    return {"lookups": n, "keys_per_lookup": SERVE_LOAD_KEYS,
+            "alone": {"p50_s": _percentile(alone, 50),
+                      "p99_s": _percentile(alone, 99), "wall_s": alone_wall,
+                      "keys_per_s": n * SERVE_LOAD_KEYS / alone_wall},
+            "with_bulk": {"p50_s": _percentile(mixed, 50),
+                          "p99_s": _percentile(mixed, 99),
+                          "wall_s": mixed_wall,
+                          "keys_per_s": n * SERVE_LOAD_KEYS / mixed_wall},
+            "bulk_scans": len(bulk_s), "bulk_scan_s": bulk_s,
+            "bulk_bytes": sum(bulk_rows),
+            "metered_codes": codes, "metered_429": codes.count(429),
+            "retry_after": sorted(set(retry)),
+            "launches": dict(pq.LAUNCHES)}
+
+
+def serve_pressure(srv, keys: np.ndarray, sent: dict) -> dict:
+    """Phase 5p(f): the hard watermark set under the ledger's total (under
+    the pinned bytes, which no reclaim frees): ``/healthz`` reads
+    ``hard``, a bulk scan is shed 429 with ``Retry-After`` and a latency
+    lookup of pinned pages answers 200, equal to its answer before; the
+    knob restored, ``/healthz`` reads ``ok``."""
+    from parquet_tpu_torch import obs
+    from parquet_tpu_torch.io import cache
+
+    auth = SERVE_AUTH
+    body = {"dataset": "look", "column": "k",
+            "keys": [int(k) for k in keys[:SERVE_LOAD_KEYS]],
+            "columns": LOOKUP_COLUMNS}
+    before, _, _ = served(srv, "/v1/lookup", body, "interactive", sent,
+                          "(f) lookup before", auth)
+    total = obs.ledger_snapshot()["total_bytes"]
+    pinned = cache.PAGES.pinned_bytes()
+    hard = min(total, pinned) // 2
+    if hard <= 0:
+        raise AssertionError(f"phase 5p(f): nothing pinned ({pinned})")
+    with knobs(PARQUET_TPU_TORCH_MEM_HARD=str(hard)):
+        health = serve_call(srv, "/healthz")[1]
+        st, _, hdrs, shed_s = serve_call(srv, "/v1/scan", {
+            "dataset": "events", "format": "arrow",
+            "columns": SERVE_SCAN_COLUMNS}, "batch")
+        got, _, look_s = served(srv, "/v1/lookup", body, "interactive",
+                                sent, "(f) lookup under pressure", auth)
+    after = serve_call(srv, "/healthz")[1]
+    if health != b"hard\n" or after != b"ok\n":
+        raise AssertionError(f"phase 5p(f): /healthz {health!r} then "
+                             f"{after!r}")
+    if st != 429 or not hdrs.get("Retry-After"):
+        raise AssertionError(f"phase 5p(f): the bulk scan got {st}")
+    if got != before:
+        raise AssertionError("phase 5p(f): the lookup under pressure "
+                             "differs")
+    return {"ledger_total": total, "pinned": pinned, "hard": hard,
+            "shed_status": st, "retry_after": hdrs.get("Retry-After"),
+            "shed_s": shed_s, "lookup_under_pressure_s": look_s,
+            "launches": dict(pq.LAUNCHES)}
+
+
+def serve_scrape(srv, sent: dict, shed: dict) -> dict:
+    """Phase 5p(g): ``/metrics``: each class's ``serve.requests`` is the
+    sum of its tenants'; ``/debugz``'s tenants section counts the
+    requests and sheds this phase sent."""
+    text = serve_call(srv, "/metrics")[1].decode()
+    dz = json.loads(serve_call(srv, "/debugz")[1])
+    by_class, by_tenant = {}, {}
+    pat = re.compile(r'^parquet_tpu_serve_requests_total\{(.*)\} (\S+)$')
+    for line in text.splitlines():
+        m = pat.match(line)
+        if not m:
+            continue
+        labels = dict(kv.split("=", 1) for kv in m.group(1).split(","))
+        labels = {k: v.strip('"') for k, v in labels.items()}
+        v = float(m.group(2))
+        if "tenant" in labels:
+            by_tenant.setdefault(labels["class"], {})[labels["tenant"]] = v
+        else:
+            by_class[labels["class"]] = v
+    for klass, v in by_class.items():
+        if sum(by_tenant.get(klass, {}).values()) != v:
+            raise AssertionError(f"phase 5p(g): serve.requests of {klass} "
+                                 f"{v} != its tenants' {by_tenant}")
+    tenants = dz.get("tenants", {})
+    got = {t: tenants.get(t, {}).get("requests", 0) for t in sent}
+    got_shed = {t: tenants.get(t, {}).get("shed", 0) for t in shed}
+    if got != sent or got_shed != shed:
+        raise AssertionError(f"phase 5p(g): /debugz counts {got} and sheds "
+                             f"{got_shed}, the phase sent {sent} and saw "
+                             f"{shed} shed")
+    return {"requests_by_class": by_class, "by_tenant": by_tenant,
+            "debugz_tenants": tenants, "launches": dict(pq.LAUNCHES)}
+
+
+def serve_path(card: str, read: dict, look_path: str, lookup_rows: int,
+               q1: str, seed: int, tmp: str) -> dict:
+    """Phase 5p: the serving daemon on the card, each check fatal
+    (:func:`serve_lookups`, :func:`serve_scans`, :func:`serve_aggregates`,
+    :func:`serve_writes`, :func:`serve_load`, :func:`serve_pressure`,
+    :func:`serve_scrape`), then ``close()`` drains and leaves no thread,
+    pin or tenant.  One ``{"serve": ...}`` line."""
+    import pyarrow as pa
+
+    from parquet_tpu_torch.io import cache
+    from parquet_tpu_torch.utils import pool
+
+    keys = make_keys(lookup_rows, seed)
+    keys = keys[keys < 2 * (ROW_GROUP // 4)][:OBS_LOOKUP_KEYS]
+    tbl = os.path.join(tmp, "served_table")
+    schema = pq.ParquetFile(read["path"]).schema
+    seed_rows = _write_body(SERVE_SEED_ROWS, seed + 99)
+    w = pq.DatasetWriter(tbl, schema, sorting=[pq.SortingColumn("k")])
+    w.write_arrow(pa.table(seed_rows))
+    w.commit()
+    w.close()
+    config = {
+        "datasets": {"events": {"paths": [read["path"]]},
+                     "look": {"paths": [look_path]},
+                     "q1": {"paths": [q1]},
+                     "tbl": {"table": tbl, "writable": True,
+                             "sorting": "k"}},
+        "tenants": {
+            "interactive": {"class": "latency", "weight": 4,
+                            "pin_bytes": SERVE_PIN, "token": SERVE_TOKEN},
+            "batch": {"class": "bulk", "budget_bytes": SERVE_BATCH_BUDGET},
+            "metered": {"qps": SERVE_QPS, "burst": SERVE_QPS}}}
+    before = set(threading.enumerate())
+    launches = dict.fromkeys(pq.LAUNCHES, 0)
+    sent: dict = {}
+    out = {"card": card}
+    t0 = time.perf_counter()
+    srv = pq.Server(config, port=0, device=DEVICE)
+    out["boot_s"] = time.perf_counter() - t0
+    try:
+        for name, run in (
+                ("a_lookup", lambda: serve_lookups(srv, look_path, keys,
+                                                   sent, card)),
+                ("b_scan", lambda: serve_scans(srv, read["path"], sent)),
+                ("c_aggregate", lambda: serve_aggregates(srv, q1, sent)),
+                ("d_write", lambda: serve_writes(srv, tbl, seed_rows, seed,
+                                                 sent)),
+                ("e_load", lambda: serve_load(srv, read["path"], look_path,
+                                              keys, sent)),
+                ("f_pressure", lambda: serve_pressure(srv, keys, sent)),
+                ("g_scrape", lambda: serve_scrape(
+                    srv, sent, {"batch": 1, "metered": out["e_load"][
+                        "metered_429"]}))):
+            t1 = time.perf_counter()
+            try:
+                pq.reset_launches()
+                got = run()
+            except BaseException:
+                log({"serve": out, "failed_in": name})
+                raise
+            got["phase_s"] = time.perf_counter() - t1
+            for k, v in got["launches"].items():
+                launches[k] += v
+            out[name] = got
+    finally:
+        t1 = time.perf_counter()
+        drained = srv.close()
+        out["close_s"] = time.perf_counter() - t1
+    left = threads_started(before)
+    if not drained or left or cache.PAGES.pinned_bytes() \
+            or pool.read_admission().tenant_debug():
+        raise AssertionError(f"phase 5p: close drained {drained}, threads "
+                             f"{left}, pinned {cache.PAGES.pinned_bytes()}, "
+                             f"tenants "
+                             f"{pool.read_admission().tenant_debug()}")
+    check_launched("phase 5p", launches, READ_KERNELS + ("bloom_check",))
+    out["launches"] = launches
+    out["requests"] = sent
+    log({"serve": out})
+    return {"launches": launches}
+
+
 def _codes_of(cd, words) -> np.ndarray:
     """Each row's index in ``words`` of a byte-array column built from
     them (by the first byte, which tells these words apart, else by the
@@ -8570,6 +9233,8 @@ def main(argv=None) -> int:
                        aggregate)
         obs = phase("5o_obs", obs_path, card, read, look["path"],
                     args.lookup_rows, args.seed, multi["paths"], tmp)
+        serve = phase("5p_serve", serve_path, card, read, look["path"],
+                      args.lookup_rows, aggregate["path"], args.seed, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -8583,7 +9248,7 @@ def main(argv=None) -> int:
                       "stream": stream, "typed_rows_merge": typed_rows,
                       "aggregate": aggregate, "write": write,
                       "table": table, "debug": debug,
-                      "remote": remote, "obs": obs})
+                      "remote": remote, "obs": obs, "serve": serve})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

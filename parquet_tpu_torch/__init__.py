@@ -65,10 +65,16 @@ in an ``op_scope`` of its own unless the caller opened one (exact per-op
 counters across worker threads), keeps its bytes in the resource ledger
 (``ledger_snapshot``, the ``PARQUET_TPU_TORCH_MEM_SOFT``/``_HARD``
 watermarks), and with ``enable_tracing`` writes Chrome trace spans;
-``start_metrics_server`` serves ``/metrics`` and ``/debugz``.  Where pyarrow is
-installed, a read converts to a ``pyarrow.Table`` (``Table.to_arrow``;
-``Table`` is the read's ``ColumnSet``) and ``write_table`` takes one
-(``schema_from_arrow``); nothing else imports pyarrow.  ``counters``
+``start_metrics_server`` serves ``/metrics``, ``/debugz`` and
+``/healthz``.  ``Server`` is the serving daemon: HTTP lookups, scans,
+aggregates and writes of hosted datasets, answered from the card, with
+tenants (``TenantSpec``, ``tenant_context``: priority classes, budgets and
+weights at the read gate, request rates, bearer tokens, pinned pages) and
+a bulk tier shed under hard memory pressure (``ServeConfig``).  Where
+pyarrow is installed, a read converts to a ``pyarrow.Table``
+(``Table.to_arrow``; ``Table`` is the read's ``ColumnSet``) and
+``write_table`` takes one (``schema_from_arrow``); the serving daemon's
+Arrow streams and ingest need it too.  ``counters``
 counts the read's events, ``utils/debug.py::profiler_trace`` records a
 ``torch.profiler`` trace of a read with its regions named, and
 ``print_schema``/``print_file``/``print_pages`` dump a file as text.
@@ -192,7 +198,9 @@ from .typed import (TypedReader, TypedWriter, read_objects, read_pytree,
 from .rows import (FileRows, Row, RowBuilder, Value, copy_rows, deconstruct,
                    read_rows, reconstruct, write_rows)
 from .utils.debug import counters
+from .utils.pool import TenantSpec, tenant_context
 from .utils.printer import print_file, print_pages, print_schema
+from .serve import ServeConfig, Server
 
 #: the JAX package's name for a read's result (a ``ColumnSet``)
 Table = ColumnSet
@@ -249,7 +257,8 @@ __all__ = ["Column", "ParquetFile", "WriterOptions", "write_table",
            "current_op", "debugz_snapshot", "enable_tracing",
            "disable_tracing", "flush_trace", "trace_span",
            "ledger_snapshot", "pool_wait_seconds", "render_prometheus",
-           "start_metrics_server"]
+           "start_metrics_server", "TenantSpec", "tenant_context",
+           "ServeConfig", "Server"]
 
 
 def read_table(source, columns=None, device="cuda") -> dict:

@@ -30,21 +30,30 @@ Every tier moves the JAX package's ``cache.*`` counters through
 and keeps its resource-ledger account (``cache.footer``, ``cache.page``,
 ``cache.neg_lookup``) current inside the critical section that moves its
 bytes; each registers a reclaimer that the ledger's soft watermark runs,
-and ``top_entries`` lists its largest entries for ``/debugz``.  Not in
-this port: the whole-chunk ``ChunkCache`` (it serves the host whole-chunk
-reads) and the page pins of the serving daemon's tenants, whose families
-(``cache.chunk_*``, the ``cache.chunk`` and ``cache.page_pinned``
-accounts) stay at 0.
+and ``top_entries`` lists its largest entries for ``/debugz``.
+
+Tenant pins (the serving daemon's page-residency contract): inside
+:func:`page_pin_scope` every page the block's lookups put in the page
+cache lands pinned to the tenant, exempt from the LRU's and the soft
+watermark's eviction, until the tenant's pinned bytes reach its cap; a
+page past the cap goes to the LRU (``cache.page_pin_refusals``).  Pinned
+bytes are charged to the ``cache.page_pinned`` ledger account and the
+``cache.page_pinned_bytes`` gauge, and :meth:`PageCache.unpin_tenant`
+hands a tenant's pages back to the LRU.  Not in this port: the
+whole-chunk ``ChunkCache`` (it serves the host whole-chunk reads), whose
+families (``cache.chunk_*``, the ``cache.chunk`` account) stay at 0.
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import os
 import threading
 from collections import OrderedDict
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -58,8 +67,8 @@ from ..utils.env import env_bytes, env_int
 __all__ = ["CacheStats", "FooterCache", "PageCache", "NegLookupCache",
            "PageEntry", "ByteRows", "make_page_entry", "cache_stats",
            "clear_caches", "invalidate_path", "footer_cache_entries",
-           "page_cache_bytes", "neg_lookup_cache_bytes", "FOOTERS", "PAGES",
-           "NEGS"]
+           "page_cache_bytes", "neg_lookup_cache_bytes", "page_pin_scope",
+           "current_pin", "FOOTERS", "PAGES", "NEGS"]
 
 
 def footer_cache_entries() -> int:
@@ -85,13 +94,43 @@ _M_PAGE_MISSES = _counter("cache.page_misses")
 _M_PAGE_EVICTIONS = _counter("cache.page_evictions")
 _M_PAGE_ENTRIES = _gauge("cache.page_entries")
 _M_PAGE_BYTES = _gauge("cache.page_bytes")
+_M_PAGE_PINS = _counter("cache.page_pins")
+_M_PAGE_PIN_REFUSALS = _counter("cache.page_pin_refusals")
+_M_PAGE_PINNED_BYTES = _gauge("cache.page_pinned_bytes")
 
 # the ledger's accounts, moved inside the critical sections that move each
 # tier's own bytes, so the ledger cannot drift from the tier
 _ACC_PAGE = ledger_account("cache.page", capacity=page_cache_bytes)
+_ACC_PINNED = ledger_account("cache.page_pinned")
 _ACC_FOOTER = ledger_account("cache.footer")
 _ACC_NEG = ledger_account("cache.neg_lookup",
                           capacity=neg_lookup_cache_bytes)
+
+
+# the active (tenant, pin cap in bytes): a context variable, so the pins
+# follow a request's work onto pool workers as its op scope does
+_PIN: "contextvars.ContextVar[Optional[Tuple[str, int]]]" = \
+    contextvars.ContextVar("parquet_tpu_torch_page_pin", default=None)
+
+
+def current_pin() -> "Optional[Tuple[str, int]]":
+    """The active ``(tenant, cap_bytes)`` pin contract, or None."""
+    return _PIN.get()
+
+
+@contextmanager
+def page_pin_scope(tenant: str, cap_bytes: int):
+    """Pin, for ``tenant``, every page the block puts in the page cache,
+    until the tenant's pinned bytes would pass ``cap_bytes``
+    (:class:`PageCache`).  A cap of 0 or less pins nothing."""
+    if cap_bytes <= 0:
+        yield
+        return
+    token = _PIN.set((tenant, int(cap_bytes)))
+    try:
+        yield
+    finally:
+        _PIN.reset(token)
 
 
 def _top_entries(items: list, n: int) -> list:
@@ -116,6 +155,9 @@ class CacheStats:
     page_entries: int = 0
     page_bytes: int = 0
     page_capacity: int = 0
+    page_pins: int = 0
+    page_pin_refusals: int = 0
+    page_pinned_bytes: int = 0
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -264,17 +306,31 @@ def make_page_entry(values, validity, first_row: int,
 class PageCache:
     """A byte-capped LRU of decoded pages (:class:`PageEntry`).  An entry
     larger than half the cap is refused, so one page cannot evict the
-    whole working set; eviction is global and by size."""
+    whole working set; eviction is global and by size.
+
+    Beside the LRU, the pinned region: entries keyed as the LRU's but
+    charged to the tenant that pinned them (:func:`page_pin_scope`).
+    They serve :meth:`get` first, no cap or pressure evicts them, and they
+    count against the tenant's pin cap, not the LRU's;
+    :meth:`unpin_tenant` moves a tenant's pins back into the LRU."""
 
     def __init__(self, stats: CacheStats):
         self._lock = threading.Lock()
         self._entries: "OrderedDict[tuple, Tuple[PageEntry, int]]" = \
             OrderedDict()
         self._bytes = 0
+        # key -> (entry, nbytes, tenant); each tenant's pinned bytes
+        self._pinned: "Dict[tuple, Tuple[PageEntry, int, str]]" = {}
+        self._pin_bytes: "Dict[str, int]" = {}
         self.stats = stats
 
     def get(self, key) -> Optional[PageEntry]:
         with self._lock:
+            pinned = self._pinned.get(key)
+            if pinned is not None:
+                self.stats.page_hits += 1
+                _account(_M_PAGE_HITS)
+                return pinned[0]
             got = self._entries.get(key)
             if got is None:
                 self.stats.page_misses += 1
@@ -285,17 +341,52 @@ class PageCache:
             _account(_M_PAGE_HITS)
             return got[0]
 
+    def pinned_bytes(self, tenant: Optional[str] = None) -> int:
+        """The bytes pinned by ``tenant``, or by every tenant."""
+        with self._lock:
+            if tenant is not None:
+                return self._pin_bytes.get(tenant, 0)
+            return sum(self._pin_bytes.values())
+
+    def unpin_tenant(self, tenant: str) -> int:
+        """Move every page ``tenant`` pinned back into the LRU (as the
+        most recently used: they were hot) and drop its pinned bytes;
+        returns how many pages moved.  The LRU's cap applies again."""
+        moved = 0
+        cap = page_cache_bytes()
+        with self._lock:
+            for key in [k for k, v in self._pinned.items()
+                        if v[2] == tenant]:
+                entry, nb, _ = self._pinned.pop(key)
+                moved += 1
+                if cap > 0 and nb <= cap // 2:
+                    old = self._entries.pop(key, None)
+                    if old is not None:
+                        self._bytes -= old[1]
+                    self._entries[key] = (entry, nb)
+                    self._bytes += nb
+            self._pin_bytes.pop(tenant, None)
+            if cap > 0:
+                self._evict_locked(cap)
+            self._publish_locked(cap)
+        return moved
+
     def _publish_locked(self, cap: int) -> None:
-        # under self._lock: the gauges and the ledger account move in the
+        # under self._lock: the gauges and the ledger accounts move in the
         # critical section that moved the bytes
-        self.stats.page_entries = len(self._entries)
+        pinned = sum(self._pin_bytes.values())
+        self.stats.page_entries = len(self._entries) + len(self._pinned)
         self.stats.page_bytes = self._bytes
         self.stats.page_capacity = cap
-        _M_PAGE_ENTRIES.set(len(self._entries))
+        self.stats.page_pinned_bytes = pinned
+        _M_PAGE_ENTRIES.set(len(self._entries) + len(self._pinned))
         _M_PAGE_BYTES.set(self._bytes)
+        _M_PAGE_PINNED_BYTES.set(pinned)
         _ACC_PAGE.set(self._bytes)
+        _ACC_PINNED.set(pinned)
 
     def _evict_locked(self, target: int) -> int:
+        # the LRU's entries only: pins answer to their tenant's cap
         evicted = 0
         while self._bytes > max(0, target) and self._entries:
             _, (_, nb) = self._entries.popitem(last=False)
@@ -307,14 +398,45 @@ class PageCache:
 
     def put(self, key, values, validity, first_row: int,
             num_rows: int) -> PageEntry:
-        """Freeze one decoded page and keep it when the cache is on and the
-        page fits in half the cap; returns the frozen entry either way."""
+        """Freeze one decoded page and keep it: pinned inside a
+        :func:`page_pin_scope` while the tenant's cap allows, else in the
+        LRU when the cache is on and the page fits in half its cap.
+        Returns the entry that serves the key (frozen either way)."""
         cap = page_cache_bytes()
         entry = make_page_entry(values, validity, first_row, num_rows)
         nb = entry.nbytes()
+        pin = _PIN.get()
+        if pin is not None:
+            tenant, pin_cap = pin
+            with self._lock:
+                got = self._pinned.get(key)
+                if got is not None:
+                    return got[0]
+                pinned = self._pin_bytes.get(tenant, 0) + nb <= pin_cap
+                if pinned:
+                    old = self._entries.pop(key, None)
+                    if old is not None:
+                        self._bytes -= old[1]
+                    self._pinned[key] = (entry, nb, tenant)
+                    self._pin_bytes[tenant] = \
+                        self._pin_bytes.get(tenant, 0) + nb
+                    self.stats.page_pins += 1
+                    _account(_M_PAGE_PINS)
+                    self._publish_locked(cap)
+                else:
+                    # past the tenant's cap: no pin (the cap is the
+                    # contract); the page goes to the LRU
+                    self.stats.page_pin_refusals += 1
+                    _account(_M_PAGE_PIN_REFUSALS)
+            if pinned:
+                _maybe_pressure()  # pins grow the ledger as any tier
+                return entry
         if cap <= 0 or nb > cap // 2:
             return entry
         with self._lock:
+            got = self._pinned.get(key)
+            if got is not None:
+                return got[0]
             old = self._entries.pop(key, None)
             if old is not None:
                 self._bytes -= old[1]
@@ -326,15 +448,17 @@ class PageCache:
         return entry
 
     def top_entries(self, n: int = 10) -> list:
-        """The largest resident pages by bytes (``/debugz``; keys are
-        (file key, row group, leaf path, page ordinal) tuples)."""
+        """The largest resident pages by bytes, pinned ones included
+        (``/debugz``; keys are (file key, row group, leaf path, page
+        ordinal) tuples)."""
         with self._lock:
             items = [(k, nb) for k, (_, nb) in self._entries.items()]
+            items += [(k, v[1]) for k, v in self._pinned.items()]
         return _top_entries(items, n)
 
     def shrink_to(self, target_bytes: int) -> int:
-        """Evict LRU-first until the cache holds at most ``target_bytes``;
-        returns how many entries went."""
+        """Evict LRU-first until the LRU holds at most ``target_bytes``
+        (pins stay); returns how many entries went."""
         with self._lock:
             evicted = self._evict_locked(target_bytes)
             self._publish_locked(page_cache_bytes())
@@ -345,11 +469,17 @@ class PageCache:
             for key in [k for k in self._entries if k[0][0] == ap]:
                 _, nb = self._entries.pop(key)
                 self._bytes -= nb
+            # a pin holds residency, never a stale page
+            for key in [k for k in self._pinned if k[0][0] == ap]:
+                _, nb, tenant = self._pinned.pop(key)
+                self._pin_bytes[tenant] = self._pin_bytes.get(tenant, 0) - nb
             self._publish_locked(page_cache_bytes())
 
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
+            self._pinned.clear()
+            self._pin_bytes.clear()
             self._bytes = 0
             self._publish_locked(page_cache_bytes())
 

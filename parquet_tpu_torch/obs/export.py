@@ -13,8 +13,10 @@ a dashboard written for one reads the other:
 
 :func:`start_metrics_server` serves the registry from a thread of its
 own: ``/metrics`` (Prometheus 0.0.4), ``/metrics.json`` (the
-``metrics_snapshot()`` dict) and ``/debugz`` (:func:`debugz_snapshot`).
-``/healthz`` comes with the serving daemon.
+``metrics_snapshot()`` dict), ``/debugz`` (:func:`debugz_snapshot`) and
+``/healthz`` (the ledger's pressure state, ``ok``/``soft``/``hard``, a
+line of text).  The serving daemon (serve/server.py) answers the same
+four on its own port.
 """
 
 from __future__ import annotations
@@ -175,7 +177,7 @@ def debugz_snapshot(top_n: int = 10) -> dict:
         "budget_bytes": {"global": adm.global_budget_bytes(),
                          "lookup": adm.budget_bytes("lookup"),
                          "scan": adm.budget_bytes("scan")},
-        "tenants": {},  # tenants come with the serving daemon
+        "tenants": adm.tenant_debug(),
     }
     try:
         from ..io import cache as _cache
@@ -209,10 +211,20 @@ def debugz_snapshot(top_n: int = 10) -> dict:
 _PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
+def healthz_body() -> bytes:
+    """``/healthz``: the ledger's pressure state and a newline (``ok`` under
+    the watermarks, ``soft`` or ``hard`` over them), so a health check
+    learns of memory pressure from the probe it already runs."""
+    from .ledger import LEDGER
+
+    return (LEDGER.state() + "\n").encode("utf-8")
+
+
 class _MetricsHandler(BaseHTTPRequestHandler):
     """GET-only handler: ``/metrics`` (Prometheus 0.0.4), ``/metrics.json``
     (the ``metrics_snapshot()`` dict), ``/debugz`` (live buffer-tier
-    residency, :func:`debugz_snapshot`)."""
+    residency, :func:`debugz_snapshot`), ``/healthz`` (liveness and the
+    memory pressure state: ``ok``/``soft``/``hard``)."""
 
     server_version = "parquet-tpu-torch-metrics/1.0"
 
@@ -229,6 +241,9 @@ class _MetricsHandler(BaseHTTPRequestHandler):
             body = json.dumps(debugz_snapshot(), sort_keys=True) \
                 .encode("utf-8")
             ctype = "application/json"
+        elif path == "/healthz":
+            body = healthz_body()
+            ctype = "text/plain; charset=utf-8"
         else:
             self.send_error(404, "unknown path (try /metrics)")
             return
@@ -273,7 +288,7 @@ def start_metrics_server(port: int = 0, host: str = "127.0.0.1",
                          ) -> MetricsServer:
     """Serve the metrics registry over HTTP on a thread of its own:
     ``/metrics`` in Prometheus exposition 0.0.4, ``/metrics.json`` as the
-    snapshot dict and ``/debugz``.  ``port=0`` binds an ephemeral port
+    snapshot dict, ``/debugz`` and ``/healthz``.  ``port=0`` binds an ephemeral port
     (read it back from the returned server's ``.port``).  Each request
     runs on a thread that :meth:`MetricsServer.close` joins."""
     httpd = ThreadingHTTPServer((host, port), _MetricsHandler)

@@ -2,15 +2,14 @@
 
 The port's copy of ``parquet_tpu/obs/ledger.py``.  Every tier that holds
 host bytes keeps a named :class:`Account` (:data:`CORE_ACCOUNTS`: the
-page cache, the footer cache, the negative-lookup memo, the prefetcher's
-ring and segment buffers, the writer's writeback buffer, the read gate's
-grants, the trace buffer, the remote hedges in flight, a table writer's
-pending rows, and the mesh read's staged payloads) current at its own
-mutation site, inside the critical section that moves the tier's bytes,
-so the ledger cannot drift from the tier.  ``cache.chunk``,
-``cache.page_pinned`` and ``write.pended`` are declared and stay at 0:
-the port has no whole-chunk cache, no tenant pins and no background
-emitter.
+page cache and its tenant pins, the footer cache, the negative-lookup
+memo, the prefetcher's ring and segment buffers, the writer's writeback
+buffer, the read gate's grants, the trace buffer, the remote hedges in
+flight, a table writer's pending rows, and the mesh read's staged
+payloads) current at its own mutation site, inside the critical section
+that moves the tier's bytes, so the ledger cannot drift from the tier.
+``cache.chunk`` and ``write.pended`` are declared and stay at 0: the port
+has no whole-chunk cache and no background emitter.
 
 - Accounts publish as ``ledger.resident_bytes{account=...}`` /
   ``ledger.high_water_bytes{...}`` / ``ledger.capacity_bytes{...}``

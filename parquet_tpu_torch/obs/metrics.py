@@ -13,8 +13,7 @@ guards only get-or-create.
 Every family the port's modules move is declared at import, under the JAX
 package's names and help, so that a scrape shows it at 0 before the first
 operation that moves it (scrapers alert on absence, not on zero).  The
-families that only the serving daemon and its tenants move (``serve.*``,
-the fleet's routing meters, the page pins) come with that daemon.
+fleet's routing meters (``fleet.forwards`` ...) come with the fleet.
 """
 
 from __future__ import annotations
@@ -472,9 +471,25 @@ _CORE_COUNTERS = (
     # mmap write-sink experiment (io/sink.py MmapFileSink)
     ("write.mmap_commits", "files committed through the mmap-backed "
      "sink (PARQUET_TPU_MMAP_SINK)"),
+    # tenant pins of the page cache (io/cache.py page_pin_scope): pins
+    # granted and refused at a tenant's cap
+    ("cache.page_pins", "decoded pages pinned by tenants "
+     "(eviction-exempt)"),
+    ("cache.page_pin_refusals", "pin attempts refused at the tenant's "
+     "pin cap (entry fell back to the LRU)"),
+    # the serving daemon (serve/server.py); the per-class and per-tenant
+    # request and shed counters are label families declared below
+    ("serve.errors", "requests that failed with a 5xx"),
+    ("serve.writes_committed", "table commits performed by /v1/write"),
+    ("serve.rows_served", "rows returned across all serve endpoints"),
     # remote auth hooks (io/remote.py): 401/403 -> refresh-and-retry
     ("remote.auth_refreshes", "credential refreshes triggered by "
      "401/403 responses (auth hook re-invoked)"),
+    # the daemon's per-tenant request-rate and bearer-token gates
+    ("serve.qps_rejections", "requests refused 429 by a tenant's "
+     "token-bucket QPS limit"),
+    ("serve.auth_failures", "requests refused 401 by the per-tenant "
+     "bearer-token check"),
     # the commit arbiter of io/manifest.py (a fleet's compare-and-swap)
     ("fleet.cas_commits", "manifest commits arbitrated through the CAS "
      "hook"),
@@ -585,6 +600,20 @@ def _declare_core() -> None:
         REGISTRY.counter("route.observations", labels={"route": route},
                          help="measured samples folded into the route "
                               "EWMA")
+    REGISTRY.gauge("cache.page_pinned_bytes",
+                   help="decoded bytes pinned by tenants "
+                        "(eviction-exempt)")
+    # the daemon's per-class families: the class axis is closed, so every
+    # class's series exists at 0; a tenant's series (labels tenant and
+    # class) appear as its requests arrive
+    for klass in ("latency", "default", "bulk"):
+        REGISTRY.counter("serve.requests", labels={"class": klass},
+                         help="requests served per priority class")
+        REGISTRY.counter("serve.shed", labels={"class": klass},
+                         help="requests shed 429 under hard pressure")
+        REGISTRY.histogram("serve.request_s", labels={"class": klass},
+                           help="end-to-end request latency per "
+                                "priority class")
 
 
 _declare_core()

@@ -579,6 +579,7 @@ class _FileStage:
     device: torch.device
     est_bytes: int
     grant: int = 0  # the file's read admission, held until its decode ends
+    tenant: Optional[str] = None  # the tenant the grant is charged to
     preps: list = field(default_factory=list)
     done: Optional[torch.cuda.Event] = None
     _released: bool = False
@@ -589,7 +590,8 @@ class _FileStage:
         takes the file would deadlock a window whose later file took the
         budget first."""
         grant, self.grant = self.grant, 0
-        _pool.read_admission().release(grant, tier="scan")
+        _pool.read_admission().release(grant, tier="scan",
+                                       tenant=self.tenant)
 
     def release(self) -> None:
         self.release_grant()
@@ -634,8 +636,9 @@ def _stage_dataset_file(dataset, i: int, columns, device: torch.device,
     # the file's chunk bytes queue under the read budget's scan tier until
     # its decode has consumed them (:meth:`_FileStage.release_grant`)
     grant = _pool.read_admission().acquire(est, tier="scan")
+    tenant = _pool.current_tenant()
     st = _FileStage(pf=pf, leaves=leaves, device=device, est_bytes=est,
-                    grant=grant)
+                    grant=grant, tenant=tenant[0] if tenant else None)
     _count("staging_bytes", st.est_bytes)
     try:
         t0 = time.perf_counter()

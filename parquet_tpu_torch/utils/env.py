@@ -140,6 +140,15 @@ KNOBS = {
     "PARQUET_TPU_TORCH_MEM_HARD": (
         "0", "hard memory watermark in bytes: while the ledger's total is "
         "at or over it, new read admissions block (utils/pool.py); 0 off"),
+    "PARQUET_TPU_TORCH_SERVE_DRAIN_S": (
+        "10", "seconds the serving daemon's graceful close waits for the "
+        "requests in flight (serve/config.py)"),
+    "PARQUET_TPU_TORCH_SERVE_RETRY_AFTER_S": (
+        "1.0", "the Retry-After seconds of the serving daemon's 429 when "
+        "it sheds a bulk request under hard memory pressure"),
+    "PARQUET_TPU_TORCH_SERVE_MAX_BODY": (
+        str(64 << 20), "the serving daemon's cap on a request body in "
+        "bytes; a longer body is refused 413 before it is read"),
     "PARQUET_TPU_TORCH_TRACE_DIR": (
         "", "the directory utils/debug.py::profiler_trace writes its "
         "Chrome trace into when the caller names none; unset: no trace"),

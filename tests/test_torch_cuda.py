@@ -1981,3 +1981,83 @@ def test_a_card_reads_bytes_are_its_ops(cuda_device, tmp_path):
     assert delta["read.bytes_read"] > 0
     assert mine["read.bytes_read"] == delta["read.bytes_read"]
     assert mine["pool.tasks"] == delta["pool.tasks"] > 0
+
+
+def _post(srv, path: str, doc: dict, tenant: str = "default") -> bytes:
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(srv.url + path, data=json.dumps(doc)
+                                 .encode(), headers={"X-Tenant": tenant})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        assert r.status == 200
+        return r.read()
+
+
+@pytest.mark.cuda
+def test_served_lookup_on_card_equals_find_rows(cuda_device, tmp_path):
+    """``POST /v1/lookup`` of a daemon on its default device (the card)
+    answers what ``Dataset.find_rows(device="cuda")`` does, its bloom
+    probe launched on the card and its pages pinned for the tenant."""
+    import json
+
+    from parquet_tpu_torch.io import cache
+    from parquet_tpu_torch.serve.codecs import lookup_to_jsonable
+
+    n = 80_000
+    rng = np.random.default_rng(3)
+    path = str(tmp_path / "look.parquet")
+    pqt.write_table(
+        {"k": np.arange(n, dtype=np.int64) // 2 * 2,
+         "v": rng.random(n),
+         "cat": rng.integers(0, 200, n).astype(np.int32)},
+        path, pqt.WriterOptions(
+            row_group_size=n, data_page_size=8192, bloom_filters={"k": 10},
+            sorting_columns=[("k", False, False)],
+            column_encoding={"cat": Encoding.RLE_DICTIONARY}))
+    keys = [int(k) for k in rng.permutation(n)[:40_000]]
+    cfg = {"datasets": {"look": {"paths": [path]}},
+           "tenants": {"i": {"class": "latency", "pin_bytes": "64MiB"}}}
+    with pqt.Server(cfg, port=0) as srv:
+        assert srv.device.type == "cuda"
+        pqt.clear_caches()
+        pqt.reset_launches()
+        body = _post(srv, "/v1/lookup", {"dataset": "look", "column": "k",
+                                         "keys": keys,
+                                         "columns": ["v", "cat"]},
+                     tenant="i")
+        launches = dict(pqt.LAUNCHES)
+        assert cache.PAGES.pinned_bytes("i") > 0
+    assert cache.PAGES.pinned_bytes("i") == 0
+    pqt.clear_caches()
+    with pqt.Dataset([path]) as ds:
+        want = ds.find_rows("k", keys, columns=["v", "cat"],
+                            device=cuda_device)
+    doc = json.loads(body)
+    assert doc["hits"] == lookup_to_jsonable(want, keys)
+    assert doc["rows_total"] == want.rows_total > 0
+    assert launches["bloom_check"] >= 1
+    assert launches["dict_unpack_gather"] >= 1
+
+
+@pytest.mark.cuda
+def test_served_arrow_scan_on_card_equals_the_direct_read(cuda_device,
+                                                          tmp_path):
+    """``POST /v1/scan`` (Arrow, no predicate) on the card equals the
+    direct read's ``to_arrow`` and launches the same kernels."""
+    pa = pytest.importorskip("pyarrow")
+    path = _obs_file(tmp_path / "a.parquet")
+    cols = ["k", "cat", "ts"]
+    with pqt.Server({"datasets": {"d": {"paths": [path]}}}, port=0) as srv:
+        pqt.reset_launches()
+        body = _post(srv, "/v1/scan", {"dataset": "d", "format": "arrow",
+                                       "columns": cols})
+        served = dict(pqt.LAUNCHES)
+    pqt.reset_launches()
+    with pqt.ParquetFile(path) as f:
+        want = f.read(columns=cols, device=cuda_device).to_arrow() \
+            .combine_chunks()
+    direct = dict(pqt.LAUNCHES)
+    got = pa.ipc.open_stream(io.BytesIO(body)).read_all().combine_chunks()
+    assert got.equals(want)
+    assert served == direct and served["unpack_bits_dense"] > 0

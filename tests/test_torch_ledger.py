@@ -390,6 +390,53 @@ def test_the_hard_watermark_holds_an_admission_until_bytes_drop(
     assert got["op"].counters()["read.admission_waits"] == 1
 
 
+@pytest.mark.parametrize("state", ["ok", "hard", "soft"])
+def test_healthz_reports_pressure_state(monkeypatch, state):
+    """The port's ``/healthz`` answers what the reference's does under the
+    same watermarks: ``ok``, then ``hard``, then ``soft``."""
+    import http.server
+    import urllib.request
+
+    from parquet_tpu.obs import export as jexport
+
+    before = threads_now()
+    ballast = {"PARQUET_TPU_": jledger.LEDGER.account("test.ballast"),
+               "PARQUET_TPU_TORCH_": LEDGER.account("test.ballast")}
+    marks = {"ok": {}, "hard": {"MEM_HARD": 1 << 20},
+             "soft": {"MEM_HARD": 1 << 40, "MEM_SOFT": 1 << 20}}[state]
+    servers = {"PARQUET_TPU_": jexport.start_metrics_server(0),
+               "PARQUET_TPU_TORCH_": tobs.start_metrics_server(0)}
+    got = {}
+    try:
+        for prefix, acct in ballast.items():
+            if state != "ok":
+                acct.add(4 << 20)
+            for knob, v in marks.items():
+                monkeypatch.setenv(prefix + knob, str(v))
+        for prefix, srv in servers.items():
+            with urllib.request.urlopen(
+                    f"http://{srv.host}:{srv.port}/healthz",
+                    timeout=30) as r:
+                got[prefix] = (r.status, r.headers["Content-Type"],
+                               r.read())
+    finally:
+        for acct in ballast.values():
+            if state != "ok":
+                acct.sub(4 << 20)
+        for srv in servers.values():
+            srv.close()
+        # the reference's request threads are daemon threads its close
+        # does not join
+        for t in threading.enumerate():
+            owner = getattr(getattr(t, "_target", None), "__self__", None)
+            if t not in before and \
+                    type(owner) is http.server.ThreadingHTTPServer:
+                t.join(30)
+    assert got["PARQUET_TPU_TORCH_"] == got["PARQUET_TPU_"]
+    assert got["PARQUET_TPU_TORCH_"] == (
+        200, "text/plain; charset=utf-8", (state + "\n").encode())
+
+
 # ------------------------------------------------- compaction errors
 
 def test_a_failed_compaction_is_counted_beside_its_error(tmp_path,
