@@ -119,9 +119,9 @@ Phases, each fatal on failure:
    equal a numpy oracle; the bloom stage of every row group together must
    launch ``bloom_check`` once in a cold lookup and at most once in a warm
    one; with the larger caches the warm ones must read and decode nothing
-   (``preads`` 0) and hit the page cache and the memo, and each run's
-   counters must equal the same sequence's on the CPU from cleared
-   caches.  Cold and warm keys/s of both cache sizes print beside the
+   (``preads`` 0) and hit the page cache and the memo, and the cold and
+   the first warm run's counters must equal the same runs' on the CPU
+   from cleared caches (all three runs' before phase 5q).  Cold and warm keys/s of both cache sizes print beside the
    earlier calls W2 / W3's warm 102,557.7 / 102,960.0 (PR 10, no page
    cache); then one cold and one warm lookup at the defaults under
    per-stage timers (key preparation, statistics, bloom probe, page search, page
@@ -225,8 +225,9 @@ Phases, each fatal on failure:
    5-column drain at 65,536 peaks under a quarter of the whole read's
    device bytes, and it and lineitem's read no chunk whole (a spy on the
    source: each pread within ``pages_streamed``'s window bound, or one
-   page and its header).  Each drain's best of 2 warm walls (3 before
-   phase 5p came, cut for the script's time) beside the
+   page and its header).  Each drain's one warm wall (the best of 3
+   before phase 5p came, of 2 before 5q, cut for the script's time)
+   beside the
    whole read's (in turns), its pulls (page spans decoded), syncs and
    launches (``{"stream": [...]}``); lineitem's drain again under
    ``PARQUET_TPU_TORCH_MMAP_DROPBEHIND=1``, equal, with
@@ -421,8 +422,9 @@ Phases, each fatal on failure:
    phase 4's columns from ``--seed``, versions 2-5, the table's scan a
    part a commit, each its rows sorted on ``k``, and a lookup of the last
    batch's ids equal to the direct lookup of a fresh ``open_table``; (e)
-   4 threads of 50 lookups of 1,024 keys alone and beside 2 threads of
-   whole-file Arrow scans, every answer equal to its direct call (p50 and
+   4 threads of 10 lookups of 1,024 keys (50 before phase 5q, cut for
+   the script's time) alone and beside 2 threads of whole-file Arrow
+   scans, every answer equal to its direct call (p50 and
    p99 both ways), then 20 requests in a row of ``metered``, some 429
    with ``Retry-After``; (f) ``PARQUET_TPU_TORCH_MEM_HARD`` at half the
    pinned bytes: ``/healthz`` ``hard``, a bulk scan shed 429, a pinned
@@ -433,6 +435,31 @@ Phases, each fatal on failure:
    no tenant.  Every kernel launches in the phase.  One ``{"serve":
    ...}`` line: each step's walls, keys/s and rows/s, the launches, the
    pinned bytes, the sheds and 429s;
+5q. the serving fleet on the card: three fleet members (``Server(config,
+   port=0, device="cuda")`` with a ``cluster`` block, in this process on
+   loopback) over a table that ``DatasetWriter(partition_on=
+   "l_orderkey")`` writes from 4,194,304 lineitem rows (commits of
+   1,048,576 rows, 4 key partitions a commit, a part file each, a bloom
+   filter on the key; more commits only if the ring left a member without
+   a part), each check fatal, against a single node over the same table
+   for the same requests: (a) a scatter lookup of 65,536 keys and (a') one
+   of 131,072 keys inside the first commit's key range (every member's
+   share one device bloom batch a row group), each byte for byte the
+   single node's; (b) a JSON scan of about 1 % of ``l_shipdate`` byte for
+   byte and its Arrow scan by ``Table.equals``; (c) TPC-H Q1 grouped
+   (floats to ``1e-9``, integers exactly); every fleet answer one gather,
+   a forward to each peer, no fallback and no hedge
+   (``PARQUET_TPU_TORCH_FLEET_HEDGE_S=0``); (d) a member other than the
+   coordinator chaos-killed mid-scan (``kill_after(victim, 1)`` then
+   ``chaos_kill()``): the scan still byte for byte, ``fleet.local_
+   fallbacks`` moved; with the victim's files hidden an ``exact`` scan is
+   a 5xx; (e) the two live members take 4 ingest requests of 8,192 rows
+   at once into one table: the version advances by 4, every row lands,
+   ``fleet.cas_commits`` moves; (f) ``/debugz`` has the fleet section,
+   and closing the members leaves no thread, pin, tenant or fleet
+   section.  One ``{"fleet": ...}`` line: each request's wall on the
+   fleet beside the single node's, the fleet counters it moved, and each
+   kernel's launches on the members' legs;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -2867,14 +2894,15 @@ def bloom_probes():
 
 
 def lookup_sequence(path: str, keys: np.ndarray, device,
-                    probes: list = None) -> list:
-    """From cleared caches: one cold lookup on a fresh handle, then two
-    warm ones on the same handle; ``[(result, seconds, bloom_check
-    launches)]``.  The cold lookup's bloom probes go to ``probes``."""
+                    probes: list = None, runs: int = 3) -> list:
+    """From cleared caches: one cold lookup on a fresh handle, then
+    ``runs - 1`` warm ones on the same handle; ``[(result, seconds,
+    bloom_check launches)]``.  The cold lookup's bloom probes go to
+    ``probes``."""
     pq.clear_caches()
     f = pq.ParquetFile(path)
     out = []
-    for i in range(3):
+    for i in range(runs):
         before = pq.LAUNCHES["bloom_check"]
         with bloom_probes() as seen:
             res, s = timed_lookup(f, keys, device)
@@ -2915,7 +2943,8 @@ def lookup_path(rows: int, seed: int, tmp: str) -> dict:
     and two warm ones on the card at the port's default cache sizes, then
     the same sequence with the caches sized to the batch's working set
     (:data:`LOOKUP_CACHE_KNOBS`), where the warm runs must read nothing and
-    each run's counters must equal the same sequence's on the CPU; then a
+    the cold and first warm run's counters must equal the same runs' on
+    the CPU; then a
     cold and a warm lookup at the defaults under the stage timers.
     Returns the kernels' launches over the two sequences, one lookup's
     segmented bloom probe (filters, surviving hashes of each), the stage
@@ -2968,8 +2997,10 @@ def lookup_path(rows: int, seed: int, tmp: str) -> dict:
             raise AssertionError(f"a warm lookup read pages or missed the "
                                  f"memo: {c}")
     t0 = time.perf_counter()
+    # the cold and the first warm run on the CPU (the second warm run's
+    # there until phase 5q, cut for the script's time)
     with knobs(**LOOKUP_CACHE_KNOBS):
-        cpu_runs = lookup_sequence(path, keys, "cpu")
+        cpu_runs = lookup_sequence(path, keys, "cpu", runs=2)
     cpu_s = time.perf_counter() - t0
     for i, ((res, _, _), (cpu, _, _)) in enumerate(zip(card_runs,
                                                        cpu_runs)):
@@ -3637,7 +3668,7 @@ def resilience_path(card: str, read: dict, scan: dict, look_path: str,
 # phase 5h: streamed reads on the card
 # ---------------------------------------------------------------------------
 
-STREAM_WARM = 2  # 3 before phase 5p (the script's time)
+STREAM_WARM = 1  # 3 before phase 5p, 2 before 5q (the script's time)
 STREAM_MEMORY_SHARE = 0.25  # a drain's peak bytes under this share of a read
 STREAM_CRC_ROW_GROUP = 2  # the row group phase 5h's CRC check corrupts
 # the kernels each drain must launch (lineitem's indexes are bit-packed in
@@ -6916,7 +6947,7 @@ SERVE_WRITE_ROWS = 65_536  # a micro-batched ingest service's request
 SERVE_WRITES = 4
 SERVE_TABLE_KEYS = 1_024  # ids of the last batch looked up after the writes
 SERVE_LOAD_THREADS = 4
-SERVE_LOAD_REQUESTS = 50
+SERVE_LOAD_REQUESTS = 10  # 50 before phase 5q (the script's time)
 SERVE_LOAD_KEYS = 1_024
 SERVE_LOAD_BATCHES = 8
 SERVE_BULK_THREADS = 2
@@ -6947,13 +6978,13 @@ def serve_call(srv, path: str, doc=None, tenant: str = "default",
 
 
 def served(srv, path: str, doc, tenant: str, sent: dict, what: str,
-           headers=None) -> tuple:
+           headers=None, phase: str = "5p") -> tuple:
     """A request that must answer 200 (a 500 fails the phase with the
     daemon's error); ``sent`` counts it as its tenant's."""
     status, body, hdrs, secs = serve_call(srv, path, doc, tenant, headers)
     sent[tenant] = sent.get(tenant, 0) + 1
     if status != 200:
-        raise AssertionError(f"phase 5p {what}: {status} "
+        raise AssertionError(f"phase {phase} {what}: {status} "
                              f"{body[:300]!r}")
     return body, hdrs, secs
 
@@ -7256,7 +7287,7 @@ def serve_writes(srv, tbl: str, seed_rows: dict, seed: int,
 def serve_load(srv, events: str, look_path: str, keys: np.ndarray,
                sent: dict) -> dict:
     """Phase 5p(e): 4 threads of the latency tenant's lookups (1,024 keys,
-    50 requests a thread) alone, then while 2 threads of the bulk
+    10 requests a thread) alone, then while 2 threads of the bulk
     tenant's whole-file Arrow scans run: every lookup 200 and equal to its
     direct call, the lookups' p50/p99 both ways; then the metered tenant
     at 20 requests in a row gets 429s with ``Retry-After``."""
@@ -7523,6 +7554,378 @@ def serve_path(card: str, read: dict, look_path: str, lookup_rows: int,
     out["launches"] = launches
     out["requests"] = sent
     log({"serve": out})
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 5q: the serving fleet on the card
+# ---------------------------------------------------------------------------
+
+FLEET_NAMES = ("n1", "n2", "n3")
+FLEET_ROWS = 1 << 22  # half of phase 4b's lineitem rows
+FLEET_COMMIT_ROWS = 1 << 20  # a commit: one slice of the sorted keys
+FLEET_PARTITIONS = 4  # key partitions a commit, one part file each
+FLEET_ROW_GROUP = 1 << 19
+FLEET_LOOKUP_KEYS = 65_536
+# (a'): keys inside the first commit's key range, so that every member's
+# share (at least 29 % of them on this ring) is one bloom batch of at
+# least SplitBlockFilter._DEVICE_PROBE_MIN hashes a row group
+FLEET_PROBE_KEYS = 131_072
+FLEET_LOOKUP_COLUMNS = ["l_quantity", "l_extendedprice", "l_shipmode"]
+FLEET_SCAN_WHERE = {"col": "l_shipdate", "ge": 9000, "le": 9039}  # ~1 %
+FLEET_SCAN_COLUMNS = ["l_orderkey", "l_quantity", "l_extendedprice",
+                      "l_shipmode"]
+FLEET_WRITE_ROWS = 8_192  # an ingest request of (e)
+FLEET_WRITES = 4  # (e): two a writing member, all at once
+FLEET_RTOL = AGG_RTOL  # float sums of shard states add in another order
+# no hedge and no leg timed out: each leg's wall is the peer's own, and a
+# fallback is the chaos check's alone
+FLEET_KNOBS = {"PARQUET_TPU_TORCH_FLEET_HEDGE_S": "0",
+               "PARQUET_TPU_TORCH_FLEET_PEER_TIMEOUT_S":
+               str(SERVE_TIMEOUT_S)}
+
+
+def fleet_counters() -> dict:
+    snap = pq.metrics_snapshot()["counters"]
+    return {k: snap.get(k, 0) for k in (
+        "fleet.forwards", "fleet.gathers", "fleet.peer_errors",
+        "fleet.local_fallbacks", "fleet.hedges_issued", "fleet.hedges_won",
+        "fleet.peer_skips", "fleet.cas_commits", "fleet.cas_conflicts",
+        "read.files_skipped")}
+
+
+def fleet_table(tbl: str, seed: int) -> dict:
+    """Phase 5q's table: lineitem rows in commits of
+    :data:`FLEET_COMMIT_ROWS` through ``DatasetWriter(partition_on=
+    "l_orderkey")``, each commit's slice spread over
+    :data:`FLEET_PARTITIONS` part files by the splitmix64 hash of its key
+    (the ring's key hash), with a bloom filter on the key; commits go on
+    past :data:`FLEET_ROWS` until ``ring.spread`` gives every member a
+    part (the part names are random)."""
+    from parquet_tpu_torch.serve.cluster import HashRing
+
+    schema, data = make_lineitem(FLEET_ROWS, seed + 61)
+    ring = HashRing(FLEET_NAMES)
+    w = pq.DatasetWriter(tbl, schema, options=pq.WriterOptions(
+        compression="snappy", row_group_size=FLEET_ROW_GROUP,
+        bloom_filters={"l_orderkey": 10}),
+        rows_per_file=FLEET_COMMIT_ROWS, partition_on="l_orderkey",
+        num_partitions=FLEET_PARTITIONS)
+    commits, t0 = [], time.perf_counter()
+    i = 0
+    while True:
+        a = (i * FLEET_COMMIT_ROWS) % FLEET_ROWS
+        part = {k: column_slice(cd, a, a + FLEET_COMMIT_ROWS)
+                for k, cd in data.items()}
+        t1 = time.perf_counter()
+        w.write(part, FLEET_COMMIT_ROWS)
+        m = w.commit()
+        commits.append(time.perf_counter() - t1)
+        i += 1
+        owners = ring.spread([os.path.abspath(os.path.join(tbl, f.name))
+                              for f in m.files])
+        if i * FLEET_COMMIT_ROWS >= FLEET_ROWS and \
+                set(owners) == set(FLEET_NAMES):
+            break
+    w.close()
+    m = pq.read_manifest(tbl)
+    if m.num_rows != i * FLEET_COMMIT_ROWS or temp_files(tbl):
+        raise AssertionError(f"phase 5q table: {m.num_rows} rows")
+    return {"rows": m.num_rows, "commits": i, "parts": len(m.files),
+            "parts_by_member": {k: len(v) for k, v in owners.items()},
+            "commit_s": commits, "write_s": time.perf_counter() - t0,
+            "keys": data["l_orderkey"].values}
+
+
+def fleet_requests(table: dict, seed: int) -> dict:
+    """The requests phase 5q sends to the single node and to the fleet."""
+    keys = table["keys"]
+    rng = np.random.default_rng(seed + 67)
+    look = rng.choice(np.unique(keys), FLEET_LOOKUP_KEYS, replace=False)
+    first = np.unique(keys[:FLEET_COMMIT_ROWS])
+    probe = rng.choice(first, FLEET_PROBE_KEYS, replace=False)
+    where = {"col": "l_shipdate", "le": Q1_DATE}
+    return {
+        "a_lookup": ("/v1/lookup", {
+            "dataset": "li", "column": "l_orderkey",
+            "keys": [int(k) for k in look], "columns": FLEET_LOOKUP_COLUMNS},
+            "interactive"),
+        "a_probe_lookup": ("/v1/lookup", {
+            "dataset": "li", "column": "l_orderkey",
+            "keys": [int(k) for k in probe],
+            "columns": FLEET_LOOKUP_COLUMNS}, "interactive"),
+        "b_json_scan": ("/v1/scan", {
+            "dataset": "li", "where": FLEET_SCAN_WHERE,
+            "columns": FLEET_SCAN_COLUMNS}, "batch"),
+        "b_arrow_scan": ("/v1/scan", {
+            "dataset": "li", "where": FLEET_SCAN_WHERE,
+            "columns": FLEET_SCAN_COLUMNS, "format": "arrow"}, "batch"),
+        "c_q1": ("/v1/aggregate", {
+            "dataset": "li", "aggs": ["sum:l_quantity",
+                                      "sum:l_extendedprice",
+                                      "avg:l_quantity", "avg:l_discount",
+                                      "count"],
+            "group_by": "l_returnflag", "where": where}, "interactive"),
+    }
+
+
+def fleet_same(name: str, got: bytes, want: bytes) -> None:
+    """A fleet answer against the single node's: JSON scans and lookups
+    byte for byte, Arrow scans as tables, aggregates under
+    :data:`FLEET_RTOL` (the groups and integer sums exactly)."""
+    import pyarrow as pa
+
+    if name.startswith("c_"):
+        g, w = json.loads(got), json.loads(want)
+        if g.get("groups") != w.get("groups") or \
+                set(g["aggregates"]) != set(w["aggregates"]):
+            raise AssertionError(f"phase 5q {name}: {g} != {w}")
+        for agg, wv in w["aggregates"].items():
+            for a, b in zip(g["aggregates"][agg], wv):
+                if isinstance(b, int) and not isinstance(b, bool):
+                    if a != b:
+                        raise AssertionError(f"phase 5q {name} {agg}: "
+                                             f"{a} != {b}")
+                else:
+                    _close(a, b, f"phase 5q {name} {agg}")
+    elif name == "b_arrow_scan":
+        g = pa.ipc.open_stream(io.BytesIO(got)).read_all()
+        w = pa.ipc.open_stream(io.BytesIO(want)).read_all()
+        if not g.equals(w) or g.num_rows == 0:
+            raise AssertionError(f"phase 5q {name}: the fleet's Arrow scan "
+                                 f"({g.num_rows} rows) differs")
+    elif got != want:
+        raise AssertionError(f"phase 5q {name}: the fleet's answer "
+                             f"({len(got)} bytes) differs from the single "
+                             f"node's ({len(want)} bytes)")
+
+
+def fleet_config(tbl: str, wtbl: str, name: Optional[str]) -> dict:
+    cfg = {"datasets": {"li": {"table": tbl},
+                        "wtbl": {"table": wtbl, "writable": True}},
+           "tenants": {"interactive": {"class": "latency",
+                                       "pin_bytes": SERVE_PIN},
+                       "batch": {"class": "bulk",
+                                 "budget_bytes": SERVE_BATCH_BUDGET}}}
+    if name is not None:
+        cfg["cluster"] = {"self": name,
+                          "peers": {n: None for n in FLEET_NAMES}}
+    return cfg
+
+
+def fleet_chaos(servers: dict, want: bytes, req: tuple) -> dict:
+    """Phase 5q(d): a member other than the coordinator with a shard is
+    chaos-killed mid-scan (one more sub-request allowed, then partitioned,
+    and its daemon closed with no drain): the JSON scan stays byte for
+    byte the single node's and ``fleet.local_fallbacks`` moves; then with
+    the victim's files hidden an ``exact`` scan is a 5xx."""
+    from parquet_tpu_torch.io import faults
+
+    coord = servers["n1"]
+    paths = coord.dataset("li").paths
+    owners = coord.fleet.ring.spread(list(paths))
+    victim = next(nm for nm in FLEET_NAMES if nm != "n1" and owners.get(nm))
+    path, doc, tenant = req
+    chaos = faults.PeerChaos()
+    faults.set_peer_chaos(chaos)
+    out = {"victim": victim, "victim_files": len(owners[victim])}
+    try:
+        chaos.kill_after(victim, 1)
+        servers[victim].chaos_kill()
+        before = fleet_counters()
+        (got, _, secs), launches = launched(lambda: served(
+            coord, path, doc, tenant, {}, "(d) scan after the kill",
+            phase="5q"))
+        moved = {k: v - before[k] for k, v in fleet_counters().items()}
+        if got != want:
+            raise AssertionError("phase 5q(d): the scan after the kill "
+                                 "differs from the single node's")
+        if moved["fleet.local_fallbacks"] < 1 or moved["fleet.peer_skips"]:
+            raise AssertionError(f"phase 5q(d): counters moved {moved}")
+        out.update(scan_s=secs, counters=moved, launches=launches,
+                   trips=len(chaos.trips))
+        hidden = []
+        try:
+            for p in owners[victim]:
+                os.rename(p, p + ".hidden")
+                hidden.append(p)
+            pq.clear_caches()
+            st, body, _, exact_s = serve_call(coord, path,
+                                              dict(doc, exact=True), tenant)
+        finally:
+            for p in hidden:
+                os.rename(p + ".hidden", p)
+        if st < 500:
+            raise AssertionError(f"phase 5q(d): exact with an unservable "
+                                 f"shard answered {st}")
+        out.update(exact_status=st, exact_s=exact_s)
+    finally:
+        faults.set_peer_chaos(None)
+    return out
+
+
+def fleet_writes(servers: dict, wtbl: str, seed: int) -> dict:
+    """Phase 5q(e): the two live members each take two ingest requests
+    of :data:`FLEET_WRITE_ROWS` rows, all four at once: the table's
+    version advances by exactly four (one arbitrated commit a request),
+    every row lands, and ``fleet.cas_commits`` moves."""
+    live = [nm for nm, s in servers.items() if not s._closed]
+    v0 = pq.read_manifest(wtbl).version
+    rng = np.random.default_rng(seed + 71)
+    bodies = [{"dataset": "wtbl", "rows": {
+        "k": [int(x) for x in rng.integers(0, 1 << 40, FLEET_WRITE_ROWS)],
+        "v": [float(x) for x in rng.random(FLEET_WRITE_ROWS)]}}
+        for _ in range(FLEET_WRITES)]
+    before = fleet_counters()
+    results, errors = [None] * FLEET_WRITES, []
+
+    def write(i: int):
+        try:
+            results[i] = served(servers[live[i % len(live)]], "/v1/write",
+                                bodies[i], "batch", {}, f"(e) write {i}",
+                                phase="5q")
+        except BaseException as e:
+            errors.append(e)
+
+    ts = [threading.Thread(target=write, args=(i,), name=f"smoke-fleet-w{i}")
+          for i in range(FLEET_WRITES)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    launches = dict(pq.LAUNCHES)  # the members' own, before the check's read
+    if errors:
+        raise errors[0]
+    moved = {k: v - before[k] for k, v in fleet_counters().items()}
+    versions = sorted(json.loads(r[0])["version"] for r in results)
+    with pq.open_table(wtbl) as ds:
+        got = ds.read(columns=["k"], device=DEVICE).to_arrow()["k"] \
+            .to_pylist()
+    want = [k for b in bodies for k in b["rows"]["k"]]
+    if versions != list(range(v0 + 1, v0 + 1 + FLEET_WRITES)) or \
+            pq.read_manifest(wtbl).version != v0 + FLEET_WRITES:
+        raise AssertionError(f"phase 5q(e): versions {versions} from v{v0}")
+    if sorted(got) != sorted([0] + want) or \
+            moved["fleet.cas_commits"] < FLEET_WRITES:
+        raise AssertionError(f"phase 5q(e): {len(got)} rows, counters "
+                             f"{moved}")
+    return {"members": live, "writes": FLEET_WRITES,
+            "rows_a_write": FLEET_WRITE_ROWS, "versions": versions,
+            "wall_s": wall, "write_s": [r[2] for r in results],
+            "counters": moved, "launches": launches}
+
+
+def fleet_path(card: str, seed: int, tmp: str) -> dict:
+    """Phase 5q: three fleet members (``Server(config, port=0)`` on the
+    card, in this process, on loopback) over a key-partitioned lineitem
+    table (:func:`fleet_table`), against a single node over the same
+    table: (a) scatter lookups equal byte for byte to the single node's;
+    (b) a filtered JSON scan byte for byte and its Arrow scan by
+    ``Table.equals``; (c) TPC-H Q1 grouped under :data:`FLEET_RTOL`; (d)
+    a member chaos-killed mid-scan (:func:`fleet_chaos`); (e) two members
+    ingesting one table (:func:`fleet_writes`); (f) ``/debugz``'s fleet
+    section, and no thread, pin or tenant left after the members close.
+    Each fleet answer's wall beside the single node's for the same
+    request, and each kernel's launches on the members' legs.  One
+    ``{"fleet": ...}`` line."""
+    import pyarrow as pa
+
+    from parquet_tpu_torch.io import cache
+    from parquet_tpu_torch.utils import pool
+
+    tbl = os.path.join(tmp, "fleet_table")
+    wtbl = os.path.join(tmp, "fleet_ingest")
+    table = fleet_table(tbl, seed)
+    keys = table.pop("keys")
+    w = pq.DatasetWriter(wtbl, pq.schema_from_arrow(pa.schema(
+        [("k", pa.int64()), ("v", pa.float64())])))
+    w.write_arrow(pa.table({"k": [0], "v": [0.0]}))
+    w.commit()
+    w.close()
+    reqs = fleet_requests({"keys": keys}, seed)
+    del keys
+    out = {"card": card, "table": table, "checks": {}}
+    before = set(threading.enumerate())
+    launches = dict.fromkeys(pq.LAUNCHES, 0)
+    want = {}
+    with knobs(**FLEET_KNOBS):
+        t0 = time.perf_counter()
+        with pq.Server(fleet_config(tbl, wtbl, None), port=0,
+                       device=DEVICE) as solo:
+            for name, (path, doc, tenant) in reqs.items():
+                pq.clear_caches()
+                (body, _, secs), got = launched(lambda: served(
+                    solo, path, doc, tenant, {}, f"single node {name}",
+                    phase="5q"))
+                want[name] = body
+                out["checks"][name] = {"single_s": secs,
+                                       "single_launches": got,
+                                       "bytes": len(body)}
+        out["single_node_s"] = time.perf_counter() - t0
+        servers = {}
+        try:
+            t0 = time.perf_counter()
+            for nm in FLEET_NAMES:
+                servers[nm] = pq.Server(fleet_config(tbl, wtbl, nm), port=0,
+                                        device=DEVICE)
+            urls = {nm: s.url for nm, s in servers.items()}
+            for s in servers.values():
+                s.set_peers(urls)
+            out["boot_s"] = time.perf_counter() - t0
+            coord = servers["n1"]
+            dz = json.loads(serve_call(coord, "/debugz")[1])
+            if set(dz.get("fleet", {}).get("peers", {})) != \
+                    set(FLEET_NAMES) or "tenants" not in dz:
+                raise AssertionError(f"phase 5q(f): /debugz {dz.get('fleet')}")
+            out["debugz_fleet"] = dz["fleet"]
+            for name, (path, doc, tenant) in reqs.items():
+                pq.clear_caches()
+                before_c = fleet_counters()
+                pq.reset_launches()
+                body, _, secs = served(coord, path, doc, tenant, {},
+                                       f"fleet {name}", phase="5q")
+                got = dict(pq.LAUNCHES)
+                moved = {k: v - before_c[k]
+                         for k, v in fleet_counters().items()}
+                fleet_same(name, body, want[name])
+                if moved["fleet.gathers"] != 1 or \
+                        moved["fleet.forwards"] < 2 or \
+                        moved["fleet.local_fallbacks"] or \
+                        moved["fleet.hedges_issued"]:
+                    raise AssertionError(f"phase 5q {name}: counters "
+                                         f"{moved}")
+                out["checks"][name].update(fleet_s=secs, counters=moved,
+                                           launches=got)
+                launches = _plus(launches, got)
+            check_launched("phase 5q(a') probe lookup",
+                           out["checks"]["a_probe_lookup"]["launches"],
+                           ("bloom_check",))
+            pq.reset_launches()
+            t0 = time.perf_counter()
+            out["d_chaos"] = fleet_chaos(servers, want["b_json_scan"],
+                                         reqs["b_json_scan"])
+            out["d_chaos"]["phase_s"] = time.perf_counter() - t0
+            launches = _plus(launches, dict(pq.LAUNCHES))
+            pq.reset_launches()
+            out["e_writes"] = fleet_writes(servers, wtbl, seed)
+            launches = _plus(launches, out["e_writes"]["launches"])
+        finally:
+            t0 = time.perf_counter()
+            drained = [s.close() for s in reversed(list(servers.values()))]
+            out["close_s"] = time.perf_counter() - t0
+    left = threads_started(before)
+    if not all(drained) or left or cache.PAGES.pinned_bytes() \
+            or pool.read_admission().tenant_debug() \
+            or "fleet" in pq.debugz_snapshot():
+        raise AssertionError(f"phase 5q(f): close drained {drained}, "
+                             f"threads {left}, pinned "
+                             f"{cache.PAGES.pinned_bytes()}, tenants "
+                             f"{pool.read_admission().tenant_debug()}")
+    check_launched("phase 5q", launches, READ_KERNELS + ("bloom_check",))
+    out["launches"] = launches
+    log({"fleet": out})
     return {"launches": launches}
 
 
@@ -9235,6 +9638,7 @@ def main(argv=None) -> int:
                     args.lookup_rows, args.seed, multi["paths"], tmp)
         serve = phase("5p_serve", serve_path, card, read, look["path"],
                       args.lookup_rows, aggregate["path"], args.seed, tmp)
+        fleet = phase("5q_fleet", fleet_path, card, args.seed, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -9248,7 +9652,8 @@ def main(argv=None) -> int:
                       "stream": stream, "typed_rows_merge": typed_rows,
                       "aggregate": aggregate, "write": write,
                       "table": table, "debug": debug,
-                      "remote": remote, "obs": obs, "serve": serve})
+                      "remote": remote, "obs": obs, "serve": serve,
+                      "fleet": fleet})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

@@ -35,6 +35,11 @@ stalls, 5xx and 429 answers, torn bodies, bit flips, wrong ranges), its
 range server over in-memory objects (validators, JSON prefix listings,
 ListObjectsV2 pages, a bearer token) whose ``close()`` ends and joins
 every request thread.
+
+The fleet's side: :class:`PeerChaos`, installed by :func:`set_peer_chaos`
+and consulted by ``serve/cluster.py`` before every peer sub-request, makes
+a peer unreachable (``partition``) or dead after ``n`` more sub-requests
+(``kill_after``), and logs each trip in ``trips``.
 """
 
 from __future__ import annotations
@@ -66,7 +71,8 @@ __all__ = ["FaultPolicy", "ReadReport", "Deadline", "PolicySource",
            "NON_DATA_ERRORS", "is_corrupt_oserror", "InjectedWriterCrash",
            "SinkFaultStats", "FaultInjectingSink", "crash_consistency_check",
            "SharedCrashState", "table_crash_check", "RemoteFaultStats",
-           "FaultInjectingRemoteTransport", "LocalRangeServer"]
+           "FaultInjectingRemoteTransport", "LocalRangeServer",
+           "PeerChaos", "set_peer_chaos", "peer_chaos"]
 
 
 # ---------------------------------------------------------------------------
@@ -1465,3 +1471,68 @@ class LocalRangeServer:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# Fleet peer chaos: deterministic failures on the peer protocol
+# ---------------------------------------------------------------------------
+class PeerChaos:
+    """Deterministic chaos on a fleet's peer sub-requests, installed by
+    :func:`set_peer_chaos`.  The peer client calls :meth:`check` with the
+    target peer's name before it touches the network, so a test makes a
+    peer unreachable (:meth:`partition`) or dead after ``n`` more
+    sub-requests (:meth:`kill_after`) without owning the peer's socket.  (A peer's abrupt death at the socket is
+    ``serve/server.py::Server.chaos_kill`` on the peer itself; this hook
+    is the network between daemons.)"""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._partitioned: set = set()
+        self._kill_after: Dict[str, int] = {}  # name -> requests left
+        self.trips: List[Tuple[str, str]] = []  # (peer, action) log
+
+    def partition(self, peer: str) -> None:
+        """Every sub-request to ``peer`` fails with a connection error
+        (retryable: the breaker sees a dead host)."""
+        with self._lock:
+            self._partitioned.add(peer)
+
+    def kill_after(self, peer: str, n: int) -> None:
+        """Allow ``n`` more sub-requests to ``peer``, then partition it:
+        the mid-scan kill."""
+        with self._lock:
+            self._kill_after[peer] = int(n)
+
+    def check(self, peer: str) -> None:
+        """Before each sub-request: raises ``ConnectionRefusedError``
+        (transient and counted by the breaker, as a real refused connect)
+        where ``peer`` is chaos-dead."""
+        with self._lock:
+            left = self._kill_after.get(peer)
+            if left is not None:
+                if left <= 0:
+                    self._partitioned.add(peer)
+                else:
+                    self._kill_after[peer] = left - 1
+            dead = peer in self._partitioned
+            if dead:
+                self.trips.append((peer, "partition"))
+        if dead:
+            raise ConnectionRefusedError(
+                f"peer {peer!r} chaos-partitioned")
+
+
+_PEER_CHAOS_LOCK = threading.Lock()
+_PEER_CHAOS: Optional[PeerChaos] = None
+
+
+def set_peer_chaos(chaos: Optional[PeerChaos]) -> None:
+    """Install (or with None clear) the process's peer-chaos hook."""
+    global _PEER_CHAOS
+    with _PEER_CHAOS_LOCK:
+        _PEER_CHAOS = chaos
+
+
+def peer_chaos() -> Optional[PeerChaos]:
+    with _PEER_CHAOS_LOCK:
+        return _PEER_CHAOS

@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 from ..errors import CorruptedError
 from ..obs.metrics import counter as _counter
 from ..obs.scope import account as _account
+from ..utils.env import env_float, env_int
 from .sink import AtomicFileSink
 
 _M_CAS_COMMITS = _counter("fleet.cas_commits")
@@ -64,11 +65,6 @@ PART_PREFIX = "part-"
 # that a dead committer left an orphan, which sweep_orphans removes
 CLAIM_NAME = "_manifest_claim.tmp"
 _FORMAT = 1
-# the re-reads a commit makes when a rival holds the claim or moved the
-# version first, and the age past which a claim belongs to a committer
-# that died (the JAX package's defaults of its two knobs)
-CAS_RETRIES = 8
-CAS_TTL_S = 30.0
 
 
 # ---------------------------------------------------------------------------
@@ -306,9 +302,9 @@ def cas_commit_local(table_dir, expected_version: int, manifest: Manifest,
     """The default arbiter: an ``O_EXCL`` claim file is the lock between
     processes, and inside it the live version is read again; the commit
     runs only if it still equals ``expected_version``.  A claim older than
-    :data:`CAS_TTL_S` belongs to a committer that died and is broken; a
-    fresh one held by a rival is a conflict.  Returns
-    ``(committed, live_version_seen)``."""
+    ``PARQUET_TPU_TORCH_FLEET_CAS_TTL_S`` (read at each call) belongs to a
+    committer that died and is broken; a fresh one held by a rival is a
+    conflict.  Returns ``(committed, live_version_seen)``."""
     claim = _claim_path(table_dir)
     if not _try_claim(claim):
         try:
@@ -316,7 +312,8 @@ def cas_commit_local(table_dir, expected_version: int, manifest: Manifest,
             age = time.time() - os.path.getmtime(claim)
         except OSError:
             age = None  # released between the open and the stat
-        if age is None or age <= CAS_TTL_S:
+        if age is None or age <= max(
+                env_float("PARQUET_TPU_TORCH_FLEET_CAS_TTL_S"), 0.0):
             return False, _live_version(table_dir)
         try:  # expired: break it, and race for it again
             os.unlink(claim)
@@ -346,10 +343,10 @@ def commit_manifest(table_dir,
     successor, or None to abort (a compaction whose inputs a rival
     removed).  The successor is stamped ``live.version + 1`` here and
     published through the arbiter; on a conflict the loop reads and
-    mutates again, :data:`CAS_RETRIES` times at most, then raises
-    ``OSError``."""
+    mutates again, ``PARQUET_TPU_TORCH_FLEET_CAS_RETRIES`` times at most
+    (read at each call), then raises ``OSError``."""
     arbiter = _resolve_arbiter(table_dir)
-    attempts = CAS_RETRIES + 1
+    attempts = max(env_int("PARQUET_TPU_TORCH_FLEET_CAS_RETRIES"), 0) + 1
     with _dir_lock(table_dir):
         for attempt in range(attempts):
             live = read_manifest(table_dir)

@@ -173,10 +173,10 @@ def drain_connection_pools() -> int:
 
 
 class HttpTransport:
-    """Ranged HTTP over ``http.client``, with the host's pool of keep-alive
-    connections (``PARQUET_TPU_TORCH_REMOTE_POOL``, 4): concurrent preads
-    each check out a connection and return it when their response is
-    drained.  ``timeout_s`` (``PARQUET_TPU_TORCH_REMOTE_TIMEOUT``, 30 s)
+    """Ranged HTTP (and the fleet's peer POSTs, :meth:`post`) over
+    ``http.client``, with the host's pool of keep-alive connections
+    (``PARQUET_TPU_TORCH_REMOTE_POOL``, 4): concurrent preads each check
+    out a connection and return it when their response is drained.  ``timeout_s`` (``PARQUET_TPU_TORCH_REMOTE_TIMEOUT``, 30 s)
     bounds every socket operation, so a stalled server surfaces as
     ``socket.timeout``.  A pooled connection the server closed while it
     idled fails its first reuse with a reset, and is retried once on
@@ -220,14 +220,15 @@ class HttpTransport:
         return cls(self.host, timeout=self.timeout_s), False
 
     def _roundtrip(self, method: str, headers: Optional[dict] = None,
-                   path_override: Optional[str] = None
+                   path_override: Optional[str] = None,
+                   body: Optional[bytes] = None
                    ) -> Tuple[int, Dict[str, str], bytes]:
         path = (self._request_path if path_override is None
                 else path_override)
         while True:
             conn, reused = self._checkout()
             try:
-                conn.request(method, path, headers=headers or {})
+                conn.request(method, path, body=body, headers=headers or {})
                 resp = conn.getresponse()
                 status = resp.status
                 hdrs = {k.lower(): v for k, v in resp.getheaders()}
@@ -266,6 +267,19 @@ class HttpTransport:
         headers = dict(extra_headers or {})
         headers["Range"] = f"bytes={offset}-{offset + size - 1}"
         return self._roundtrip("GET", headers, path_override)
+
+    def post(self, path: str, body: bytes,
+             extra_headers: Optional[dict] = None
+             ) -> Tuple[int, Dict[str, str], bytes]:
+        """POST ``body`` to ``path`` on this transport's host (the fleet's
+        peer protocol), on the same pooled connections and with the same
+        one retry after a stale reuse as the GETs: every peer sub-request
+        is idempotent (a read, or a commit conditional on a version)."""
+        headers = dict(extra_headers or {})
+        headers.setdefault("Content-Type", "application/json")
+        headers["Content-Length"] = str(len(body))
+        return self._roundtrip("POST", headers, path_override=path,
+                               body=body)
 
     def idle_connections(self) -> int:
         return len(self._pool)

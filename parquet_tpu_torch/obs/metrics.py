@@ -12,8 +12,7 @@ guards only get-or-create.
 
 Every family the port's modules move is declared at import, under the JAX
 package's names and help, so that a scrape shows it at 0 before the first
-operation that moves it (scrapers alert on absence, not on zero).  The
-fleet's routing meters (``fleet.forwards`` ...) come with the fleet.
+operation that moves it (scrapers alert on absence, not on zero).
 """
 
 from __future__ import annotations
@@ -490,7 +489,23 @@ _CORE_COUNTERS = (
      "token-bucket QPS limit"),
     ("serve.auth_failures", "requests refused 401 by the per-tenant "
      "bearer-token check"),
-    # the commit arbiter of io/manifest.py (a fleet's compare-and-swap)
+    # the fleet (serve/cluster.py): consistent-hash routing,
+    # scatter-gather, peer hedging, and the commit arbiter of
+    # io/manifest.py (a compare-and-swap on the manifest's version)
+    ("fleet.forwards", "lookup key subsets / sub-requests forwarded to "
+     "ring-owner peers"),
+    ("fleet.gathers", "scatter-gather requests coordinated across the "
+     "fleet"),
+    ("fleet.peer_errors", "peer sub-requests that failed (before any "
+     "local fallback)"),
+    ("fleet.local_fallbacks", "peer shards recomputed locally after a "
+     "peer failure or hedge win"),
+    ("fleet.hedges_issued", "local hedge executions launched against "
+     "slow peer sub-requests"),
+    ("fleet.hedges_won", "peer sub-requests whose local hedge finished "
+     "first"),
+    ("fleet.peer_skips", "peer shards dropped from a degraded gather "
+     "(skip accounting in the response)"),
     ("fleet.cas_commits", "manifest commits arbitrated through the CAS "
      "hook"),
     ("fleet.cas_conflicts", "CAS commit attempts aborted by a rival "

@@ -1,9 +1,8 @@
 """The serving daemon: one long-lived process that hosts datasets behind
 HTTP endpoints with multi-tenant QoS, answering from the card.
 
-The port's copy of ``parquet_tpu/serve/server.py``, single node.
-:class:`Server` (``Server(config, port=0, device="cuda")``) mounts, on
-one port:
+The port's copy of ``parquet_tpu/serve/server.py``.  :class:`Server`
+(``Server(config, port=0, device="cuda")``) mounts, on one port:
 
 - ``POST /v1/lookup``: a batched ``find_rows`` (latency class by
   default): ``{"dataset", "column", "keys", "columns"?}`` -> each key's
@@ -34,8 +33,22 @@ their tenant in ``X-Tenant``; a tenant with a token must present it as
 with 429 while latency-class requests keep flowing.  :meth:`Server.close`
 stops accepting, drains the requests in flight up to
 ``PARQUET_TPU_TORCH_SERVE_DRAIN_S``, and joins every thread the server
-started.  A fleet (a config with a ``cluster`` block) is refused: it
-comes in a later slice.
+started.
+
+A config with a ``cluster`` block makes the daemon a fleet member
+(serve/cluster.py): its lookups scatter their keys to the keys' ring
+owners, its scans and aggregates their files to the files' owners, and
+each owner answers its shard by reads on its own device (a peer that
+fails is covered by a local run of its shard); its commits are
+arbitrated at the table's ring owner (``/v1/fleet/commit``).  The
+answers equal a single node's: JSON scan lines byte for byte, the
+lookup's global row ordinals, the aggregates merged from the shards'
+partial states.  Sub-requests carry ``X-Fleet-Internal``, which skips
+the QPS bucket (the request that fanned out paid its token).  Several
+members may share a process (the tests' and the card's in-process
+fleet) if they share one tenant table; the first owns the process-wide
+state (the tenant table, the ``/debugz`` sections, the commit arbiter),
+which passes to a surviving member at ``close``.
 """
 
 from __future__ import annotations
@@ -51,7 +64,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 
 from ..dataset import Dataset
-from ..errors import CorruptedError, unsupported
+from ..errors import CorruptedError
 from ..io.cache import PAGES, page_pin_scope
 from ..io.reader import resolve_device
 from ..obs import export as _export
@@ -67,9 +80,11 @@ from .config import (DatasetSpec, ServeConfig, drain_timeout_s,
 
 __all__ = ["Server"]
 
-# the one open Server of the process: its tenant table, pins and /debugz
-# section are process-wide
+# the Server that owns the process-wide QoS state (tenant table, pins,
+# /debugz sections, commit arbiter), and every open Server: more than one
+# only for fleet members that share a tenant table
 _ACTIVE: "Optional[Server]" = None
+_SERVERS: "List[Server]" = []
 _ACTIVE_LOCK = threading.Lock()
 
 # the class axis is closed: each class's series resolved once; a tenant's
@@ -209,8 +224,9 @@ class Server:
     the same dict, or the path of a ``serve.json``.  ``port=0`` binds an
     ephemeral port (``.port``).  ``device`` is where every read, scan,
     lookup and aggregate runs: CUDA unless the caller names the CPU (no
-    card: ``RuntimeError``).  One Server a process.  A context manager;
-    :meth:`close` drains."""
+    card: ``RuntimeError``).  One Server a process, or several fleet
+    members with one tenant table.  A context manager; :meth:`close`
+    drains."""
 
     def __init__(self, config, host: Optional[str] = None,
                  port: Optional[int] = None, device="cuda"):
@@ -221,9 +237,6 @@ class Server:
         if not isinstance(config, ServeConfig):
             raise TypeError(f"config must be a ServeConfig, dict, or "
                             f"path, got {type(config).__name__}")
-        if config.cluster is not None:
-            raise unsupported("a serve config with a 'cluster' block "
-                              "(a fleet of daemons)", "A.1b, the fleet")
         self.device = resolve_device(device)
         self.config = config
         self._ds_lock = threading.Lock()
@@ -237,18 +250,34 @@ class Server:
         self._compactors: List = []
         self._tokens_lock = threading.Lock()
         self._tokens: Dict[str, str] = dict(config.tokens)
-        # the tenant table, the pins and the /debugz section are
-        # process-wide: a second daemon would change the first's
-        # contracts under its running requests
+        self.fleet = None
+        # the tenant table, the pins, the /debugz sections and the commit
+        # arbiter are process-wide: a second daemon would change the
+        # first's contracts under its running requests.  Fleet members
+        # with one tenant table may share a process; the first owns the
+        # state, and a close hands it to a survivor
         global _ACTIVE
         with _ACTIVE_LOCK:
+            refusal = None
             if _ACTIVE is not None:
-                self._close_datasets()
-                raise RuntimeError(
-                    "a Server is already running in this process "
-                    "(the tenant QoS state is process-global); "
-                    "close it before starting another")
-            _ACTIVE = self
+                if config.cluster is None or _ACTIVE.config.cluster is None:
+                    refusal = ("a Server is already running in this "
+                               "process (the tenant QoS state is "
+                               "process-global); close it before starting "
+                               "another")
+                elif config.tenants != _ACTIVE.config.tenants:
+                    refusal = ("fleet members sharing a process must share "
+                               "one tenant QoS table (the admission gate "
+                               "is process-global)")
+                self._qos_owner = False
+            else:
+                _ACTIVE = self
+                self._qos_owner = True
+            if refusal is None:
+                _SERVERS.append(self)
+        if refusal is not None:
+            self._close_datasets()
+            raise RuntimeError(refusal)
         try:
             server = self
 
@@ -262,10 +291,13 @@ class Server:
                  port if port is not None else config.port), Handler)
         except BaseException:
             with _ACTIVE_LOCK:
-                _ACTIVE = None
+                if _ACTIVE is self:
+                    _ACTIVE = None
+                _SERVERS.remove(self)
             self._close_datasets()
             raise
-        read_admission().configure_tenants(config.tenants)
+        if self._qos_owner:
+            read_admission().configure_tenants(config.tenants)
         if config.compact_interval_s:
             from ..dataset_writer import BackgroundCompactor
 
@@ -278,7 +310,20 @@ class Server:
                                         name="pqt-serve", daemon=True)
         self._thread.start()
         self.host, self.port = self._httpd.server_address[:2]
-        _export.register_debugz_provider("tenants", self._tenants_debugz)
+        if config.cluster is not None:
+            from ..io.manifest import set_commit_arbiter
+            from .cluster import FleetRouter
+
+            self.fleet = FleetRouter(config.cluster, tokens=config.tokens)
+            # the arbiter is process-wide; every member's resolver names
+            # the same ring owner and the local compare-and-swap stays
+            # right under any of them: the latest member's is installed,
+            # and close() hands it on
+            set_commit_arbiter(self.fleet.arbiter_resolver())
+        if self._qos_owner:
+            _export.register_debugz_provider("tenants", self._tenants_debugz)
+            if self.fleet is not None:
+                _export.register_debugz_provider("fleet", self.fleet.debug)
 
     # ------------------------------------------------------------ datasets
     @staticmethod
@@ -346,9 +391,11 @@ class Server:
     def close(self, drain: bool = True) -> bool:
         """Stop accepting, wait for the requests in flight (up to
         ``PARQUET_TPU_TORCH_SERVE_DRAIN_S``; none with ``drain=False``),
-        end the open connections, join every thread the server started,
-        and release the tenant table, the pins and the ``/debugz``
-        section.  True when the drain completed.  Idempotent."""
+        end the open connections, join every thread the server started
+        (its fleet router's too), and release the tenant table, the pins,
+        the ``/debugz`` sections and the commit arbiter, or, where another
+        fleet member of the process is still open, hand them to it.  True
+        when the drain completed.  Idempotent."""
         global _ACTIVE
         with self._inflight_cv:
             if self._closed:
@@ -370,15 +417,55 @@ class Server:
         self._httpd.hang_up()
         self._httpd.server_close()  # joins the connections' threads
         self._thread.join()
-        _export.unregister_debugz_provider("tenants")
-        for t in self.config.tenants:
-            PAGES.unpin_tenant(t)
-        read_admission().clear_tenants()
-        self._close_datasets()
+        if self.fleet is not None:
+            self.fleet.close()  # joins the gather's threads
         with _ACTIVE_LOCK:
+            _SERVERS.remove(self)
+            survivor = _SERVERS[0] if _SERVERS else None
+            was_owner = self._qos_owner
+            if was_owner and survivor is not None:
+                survivor._qos_owner = True
             if _ACTIVE is self:
-                _ACTIVE = None
+                _ACTIVE = survivor
+        if was_owner:
+            _export.unregister_debugz_provider("tenants")
+            if self.fleet is not None:
+                _export.unregister_debugz_provider("fleet")
+        if self.fleet is not None:
+            from ..io.manifest import set_commit_arbiter
+
+            set_commit_arbiter(
+                survivor.fleet.arbiter_resolver()
+                if survivor is not None and survivor.fleet is not None
+                else None)
+        if survivor is None:
+            for t in self.config.tenants:
+                PAGES.unpin_tenant(t)
+            read_admission().clear_tenants()
+        elif was_owner:
+            _export.register_debugz_provider("tenants",
+                                             survivor._tenants_debugz)
+            if survivor.fleet is not None:
+                _export.register_debugz_provider("fleet",
+                                                 survivor.fleet.debug)
+        self._close_datasets()
         return drained
+
+    def chaos_kill(self) -> None:
+        """An abrupt death for chaos tests: the listener closes now with no
+        drain, so peers see refused connections as from a killed process.
+        The connections' threads are still joined, and the process-wide
+        state still passes to a survivor (the storage's crash matrix
+        covers a death with no hand-off)."""
+        self.close(drain=False)
+
+    # --------------------------------------------------------------- fleet
+    def set_peers(self, urls: Dict[str, str]) -> None:
+        """Repoint the fleet peers' base URLs after an ephemeral-port boot
+        (bind first, then tell every member where the others landed)."""
+        if self.fleet is None:
+            raise RuntimeError("this daemon has no cluster config")
+        self.fleet.set_peers(urls)
 
     # ---------------------------------------------------------------- auth
     def rotate_token(self, tenant: str, token: Optional[str]) -> None:
@@ -489,7 +576,8 @@ class _RequestHandler(BaseHTTPRequestHandler):
 
     # --------------------------------------------------------------- POST
     _ENDPOINTS = {"/v1/lookup": "lookup", "/v1/scan": "scan",
-                  "/v1/aggregate": "aggregate", "/v1/write": "write"}
+                  "/v1/aggregate": "aggregate", "/v1/write": "write",
+                  "/v1/fleet/commit": "fleet_commit"}
 
     def do_POST(self):  # noqa: N802
         daemon = self.daemon
@@ -533,7 +621,12 @@ class _RequestHandler(BaseHTTPRequestHandler):
             # /metrics for ever, so an unknown tenant runs as default
             tenant = "default"
         klass = daemon.config.klass_for(tenant, endpoint)
-        retry_in = read_admission().try_request(tenant)
+        # a fleet's sub-requests (scatter legs, commit arbitration) skip
+        # the QPS bucket: the request that fanned out paid its token, and
+        # N legs must not charge it N times
+        internal = self.headers.get("X-Fleet-Internal") == "1"
+        retry_in = None if internal else \
+            read_admission().try_request(tenant)
         if retry_in is not None:
             _oscope.account(_M_QPS_REJ)
             _oscope.account(REGISTRY.counter(
@@ -545,6 +638,8 @@ class _RequestHandler(BaseHTTPRequestHandler):
                 headers={"Retry-After":
                          str(max(int(math.ceil(retry_in)), 1))})
             return
+        self._internal = internal
+        self._tenant = tenant
         # under hard pressure the bulk tier sheds first, with a prompt
         # 429 rather than a wait the gate would impose anyway; the
         # latency tier keeps flowing
@@ -635,6 +730,8 @@ class _RequestHandler(BaseHTTPRequestHandler):
             return self._scan(daemon, body)
         if endpoint == "aggregate":
             return self._aggregate(daemon, body)
+        if endpoint == "fleet_commit":
+            return self._fleet_commit(daemon, body)
         return self._write(daemon, body)
 
     def _abort_stream(self) -> bool:
@@ -679,6 +776,50 @@ class _RequestHandler(BaseHTTPRequestHandler):
         data, headers = self._maybe_gzip(data, dict(headers or {}))
         return lambda: self._send(200, data, _JSON, headers=headers)
 
+    def _fleet_for(self, daemon: Server, ds: Dataset):
+        """The router where this request scatters: a fleet member, not a
+        fleet's own leg, more than one member, and files to read."""
+        if self._internal or daemon.fleet is None:
+            return None
+        if len(daemon.fleet.ring.nodes) < 2 or not ds.paths:
+            return None
+        return daemon.fleet
+
+    def _forward(self, fleet, path: str, body: dict, key: str):
+        """The remote leg of a scatter: ``body`` without its ``_``-keys,
+        with ``key`` set to the shard's payload, POSTed to the peer."""
+        base = {k: v for k, v in body.items() if not str(k).startswith("_")}
+
+        def remote(peer, payload):
+            return fleet.post(peer, path, {**base, key: payload},
+                              tenant=self._tenant)
+        return remote
+
+    @staticmethod
+    def _by_path_owner(fleet, ds: Dataset) -> Dict[str, list]:
+        """The dataset's ``[global index, path]`` pairs by ring owner."""
+        shards: Dict[str, list] = {}
+        for i, path in enumerate(ds.paths):
+            shards.setdefault(fleet.ring.owner_of_path(path),
+                              []).append([i, path])
+        return shards
+
+    @staticmethod
+    def _record_skips(shards: Dict[str, list], skips: List[dict]) -> dict:
+        """Each skipped shard's files in ``read.files_skipped`` (a
+        default ``ReadReport`` publishes at record time), and the
+        ``X-Fleet-Skipped`` header naming the skipped peers."""
+        if not skips:
+            return {}
+        from ..io.faults import ReadReport
+
+        rep = ReadReport()
+        for s in skips:
+            for _gi, path in shards.get(s["peer"], []):
+                rep.record_file_skip(path, rows=0, error=s["error"])
+        return {"X-Fleet-Skipped": json.dumps(sorted(s["peer"]
+                                                     for s in skips))}
+
     # -------------------------------------------------------------- lookup
     def _lookup(self, daemon: Server, body: dict):
         ds = daemon.dataset(str(self._required(body, "dataset")))
@@ -687,11 +828,61 @@ class _RequestHandler(BaseHTTPRequestHandler):
         if not isinstance(keys, list) or not keys:
             raise _HttpError(400, "'keys' must be a non-empty list")
         columns = body.get("columns") or []
+        fleet = self._fleet_for(daemon, ds)
+        if fleet is not None:
+            return self._fleet_lookup(fleet, body, ds, column, keys,
+                                      columns)
         res = ds.find_rows(column, keys, columns=columns,
                            device=daemon.device)
         doc = {"hits": lookup_to_jsonable(res, keys),
                "rows_total": res.rows_total}
         return res.rows_total, lambda: self._send_json(200, doc)
+
+    def _fleet_lookup(self, fleet, body: dict, ds: Dataset, column: str,
+                      keys: list, columns: list):
+        """Scatter the keys to their ring owners (splitmix64 of the key,
+        the writer's partition hash), gather each key's hits, and merge
+        them in the request's key order.  Each owner answers its keys over
+        the whole dataset, so the row ordinals stay global."""
+        shards: Dict[str, list] = {}
+        for k in keys:
+            shards.setdefault(fleet.ring.owner_of_key(k), []).append(k)
+        device = self.daemon.device
+
+        def local(peer, subkeys):
+            res = ds.find_rows(column, subkeys, columns=columns,
+                               device=device)
+            return {"hits": lookup_to_jsonable(res, subkeys),
+                    "rows_total": res.rows_total}
+
+        results, skips = fleet.gather(
+            shards, self._forward(fleet, "/v1/lookup", body, "keys"), local,
+            exact=bool(body.get("exact")))
+        by_key: Dict = {}
+        total = 0
+        for peer, doc in results.items():
+            total += int(doc.get("rows_total", 0))
+            for k, hit in zip(shards[peer], doc.get("hits", [])):
+                by_key[self._key_id(k)] = hit
+        hits = []
+        for k in keys:
+            hit = by_key.get(self._key_id(k))
+            if hit is None:  # its shard was skipped (a degraded gather)
+                hit = {"key": jsonable(k), "rows": [], "values": {},
+                       "skipped": True}
+            hits.append(hit)
+        doc = {"hits": hits, "rows_total": total}
+        if skips:
+            doc["fleet"] = {"skipped": skips}
+        return total, lambda: self._send_json(200, doc)
+
+    @staticmethod
+    def _key_id(k):
+        # a key's identity in the merge: a float by its repr (NaN != NaN
+        # would lose its hit), anything else itself
+        if isinstance(k, float):
+            return ("f", repr(k))
+        return k
 
     # ---------------------------------------------------------------- scan
     @staticmethod
@@ -738,6 +929,26 @@ class _RequestHandler(BaseHTTPRequestHandler):
         return (json.dumps({"done": True, "num_rows": total})
                 + "\n").encode("utf-8")
 
+    def _file_arrow_stream(self, pf, prepared, columns, device):
+        """One file's scan as a whole Arrow IPC stream: a fleet shard's
+        unit on the wire, re-batched by the coordinator into one stream
+        in the dataset's file order."""
+        import io as _io
+
+        import pyarrow as pa
+
+        sink = _io.BytesIO()
+        writer = None
+        rows = 0
+        for batch in self._file_batches(pf, prepared, columns, device):
+            if writer is None:
+                writer = pa.ipc.new_stream(sink, batch.schema)
+            writer.write_batch(batch)
+            rows += batch.num_rows
+        if writer is not None:
+            writer.close()
+        return sink.getvalue(), rows
+
     def _scan(self, daemon: Server, body: dict):
         ds = daemon.dataset(str(self._required(body, "dataset")))
         expr = expr_from_wire(body.get("where"))
@@ -745,9 +956,15 @@ class _RequestHandler(BaseHTTPRequestHandler):
         fmt = body.get("format", "json")
         if fmt not in ("json", "arrow"):
             raise _HttpError(400, f"unknown format {fmt!r} (json|arrow)")
-        if body.get("_files") is not None:
+        files = body.get("_files")
+        if files is not None:
             # a fleet's scan leg: no outside caller may send one
-            raise _HttpError(400, "'_files' is fleet-internal")
+            if not self._internal:
+                raise _HttpError(400, "'_files' is fleet-internal")
+            doc = self._shard_scan(self._shard_pairs(files), expr, columns,
+                                   fmt)
+            return (sum(e["rows"] for e in doc["files"]),
+                    lambda: self._send_json(200, doc))
         device = daemon.device
         if body.get("limit") is not None \
                 or body.get("page_token") is not None:
@@ -756,6 +973,9 @@ class _RequestHandler(BaseHTTPRequestHandler):
                                       "format")
             return self._scan_page(ds, expr, columns, body.get("limit"),
                                    body.get("page_token"), device)
+        fleet = self._fleet_for(daemon, ds)
+        if fleet is not None:
+            return self._fleet_scan(fleet, body, ds, expr, columns, fmt)
         prepared = ds._prepare_where(None, None, None, None, expr) \
             if expr is not None else None
         # streamed: one chunk a file as each file scans, so the response
@@ -849,20 +1069,227 @@ class _RequestHandler(BaseHTTPRequestHandler):
         return page_rows, lambda: self._send(200, data, _JSON,
                                              headers=headers)
 
+    def _shard_scan(self, pairs: list, expr, columns, fmt: str) -> dict:
+        """A fleet scan shard's answer: for each ``(global index, path)``
+        the file's unit (its JSON line, or its Arrow stream in base64) and
+        rows, read on the daemon's device.  The coordinator's snapshot
+        names the part files, so a member whose own snapshot lags a commit
+        scans the same bytes (shared storage)."""
+        device = self.daemon.device
+        sub = Dataset([p for _, p in pairs])
+        try:
+            prepared = sub._prepare_where(None, None, None, None, expr) \
+                if expr is not None else None
+            out = []
+            for j, (gi, _path) in enumerate(pairs):
+                pf = sub.file(j)
+                if fmt == "json":
+                    line, n = self._file_json_line(pf, prepared, columns,
+                                                   device)
+                    out.append({"file": gi, "rows": n,
+                                "line": line.decode("utf-8")})
+                else:
+                    data, n = self._file_arrow_stream(pf, prepared, columns,
+                                                      device)
+                    out.append({"file": gi, "rows": n,
+                                "arrow": base64.b64encode(data)
+                                .decode("ascii")})
+        finally:
+            sub.close()
+        return {"files": out}
+
+    @staticmethod
+    def _shard_pairs(files) -> list:
+        if not isinstance(files, list) or not files:
+            raise _HttpError(400, "'_files' must be a non-empty list of "
+                                  "[index, path] pairs")
+        pairs = []
+        for ent in files:
+            if not (isinstance(ent, list) and len(ent) == 2
+                    and isinstance(ent[0], int)
+                    and isinstance(ent[1], str)):
+                raise _HttpError(400, "'_files' entries must be "
+                                      "[index, path] pairs")
+            pairs.append((ent[0], ent[1]))
+        return pairs
+
+    def _fleet_scan(self, fleet, body: dict, ds: Dataset, expr, columns,
+                    fmt: str):
+        """Scatter the files to their path's ring owners, gather each
+        file's unit, and splice them in the dataset's file order: with
+        nothing skipped a JSON scan is the single node's stream byte for
+        byte.  A shard that no one could serve degrades the answer to the
+        files served, with the skips accounted (``fleet.peer_skips``,
+        ``X-Fleet-Skipped``, ``read.files_skipped``), unless ``"exact":
+        true`` asked for a failure instead."""
+        shards = self._by_path_owner(fleet, ds)
+        results, skips = fleet.gather(
+            shards, self._forward(fleet, "/v1/scan", body, "_files"),
+            lambda peer, pairs: self._shard_scan(
+                self._shard_pairs(pairs), expr, columns, fmt),
+            exact=bool(body.get("exact")))
+        entries: Dict[int, dict] = {}
+        for doc in results.values():
+            for ent in doc.get("files", []):
+                entries[int(ent["file"])] = ent
+        ordered = [entries[i] for i in sorted(entries)]
+        total = sum(int(e["rows"]) for e in ordered)
+        headers = self._record_skips(shards, skips)
+        if fmt == "json":
+            data = b"".join([e["line"].encode("utf-8") for e in ordered]
+                            + [self._done_line(total)])
+            ctype = _JSON
+        else:
+            import io as _io
+
+            import pyarrow as pa
+
+            sink = _io.BytesIO()
+            writer = None
+            for e in ordered:
+                for batch in pa.ipc.open_stream(base64.b64decode(e["arrow"])):
+                    if writer is None:
+                        writer = pa.ipc.new_stream(sink, batch.schema)
+                    writer.write_batch(batch)
+            if writer is not None:
+                writer.close()
+            data = sink.getvalue()
+            ctype = _ARROW
+        data, headers = self._maybe_gzip(data, headers)
+        return total, lambda: self._send(200, data, ctype, headers=headers)
+
     # ----------------------------------------------------------- aggregate
     def _aggregate(self, daemon: Server, body: dict):
         ds = daemon.dataset(str(self._required(body, "dataset")))
         aggs = parse_aggs(self._required(body, "aggs"))
         expr = expr_from_wire(body.get("where"))
-        if body.get("_files") is not None:
-            raise _HttpError(400, "'_files' is fleet-internal")
-        res = ds.aggregate(aggs, where=expr, group_by=body.get("group_by"),
+        group_by = body.get("group_by")
+        files = body.get("_files")
+        if files is not None:
+            if not self._internal:
+                raise _HttpError(400, "'_files' is fleet-internal")
+            doc = self._shard_aggregate(self._shard_pairs(files), aggs,
+                                        expr, group_by)
+            return 0, lambda: self._send_json(200, doc)
+        fleet = self._fleet_for(daemon, ds)
+        if fleet is not None:
+            return self._fleet_aggregate(fleet, body, ds, aggs, expr,
+                                         group_by)
+        res = ds.aggregate(aggs, where=expr, group_by=group_by,
                            device=daemon.device)
         doc = {"aggregates": {k: jsonable(v) for k, v in res.items()},
                "tiers": {k: v for k, v in res.counters.items() if v}}
         if res.groups is not None:
             doc["groups"] = [jsonable(k) for k in res.groups]
         return 0, self._respond_json(doc)
+
+    def _shard_aggregate(self, pairs: list, aggs, expr, group_by) -> dict:
+        """A fleet aggregate shard's answer: the named files' partial state
+        (the accumulators, not finalized values, which would lose the
+        distinct sets a merged ``distinct`` needs) through the lossless
+        state codec, folded on the daemon's device."""
+        from ..io.aggregate import dataset_aggregate, encode_agg_state
+
+        sub = Dataset([p for _, p in pairs])
+        try:
+            state = dataset_aggregate(sub, aggs, where=expr,
+                                      group_by=group_by,
+                                      device=self.daemon.device,
+                                      _state_only=True)
+        finally:
+            sub.close()
+        return {"state": encode_agg_state(state)}
+
+    def _fleet_aggregate(self, fleet, body: dict, ds: Dataset, aggs, expr,
+                         group_by):
+        """Scatter an aggregate to the files' ring owners and merge their
+        partial states as the dataset merges its files' states.  The legs
+        carry the request's agg strings: ``_expand_derived`` is
+        deterministic, so every member derives the same positional base
+        list and the state documents line up."""
+        from ..io.aggregate import (_COUNTER_KEYS, _Acc, _expand_derived,
+                                    _finalize, _validate, decode_agg_state)
+
+        base, plan = _expand_derived(aggs)
+        leaves, _gleaf = _validate(ds.schema, base, group_by)
+        shards = self._by_path_owner(fleet, ds)
+        results, skips = fleet.gather(
+            shards, self._forward(fleet, "/v1/aggregate", body, "_files"),
+            lambda peer, pairs: self._shard_aggregate(
+                self._shard_pairs(pairs), aggs, expr, group_by),
+            exact=bool(body.get("exact")))
+        counters = {k: 0 for k in _COUNTER_KEYS}
+        lines = [f"aggregate: fleet of {len(shards)} shard(s), "
+                 f"{len(ds.paths)} file(s)"]
+        accs = [_Acc(a, leaves[i]) for i, a in enumerate(base)]
+        groups: Optional[dict] = {} if group_by is not None else None
+        for peer in sorted(results):
+            doc = results[peer]
+            if not isinstance(doc.get("state"), dict):
+                raise _HttpError(502, f"peer {peer!r} returned no "
+                                      "aggregate state")
+            paccs, pgroups, pcounters = decode_agg_state(doc["state"], base,
+                                                         leaves)
+            for k in _COUNTER_KEYS:
+                counters[k] += pcounters.get(k, 0)
+            for acc, d in zip(accs, paccs):
+                acc.merge(d)
+            for k, daccs in (pgroups or {}).items():
+                cur = groups.get(k)
+                if cur is None:
+                    groups[k] = daccs
+                else:
+                    for acc, d in zip(cur, daccs):
+                        acc.merge(d)
+        headers = self._record_skips(shards, skips)
+        for s in skips:
+            counters["files_skipped"] += len(shards.get(s["peer"], []))
+        res = _finalize(base, accs, groups, counters, lines, None, plan=plan)
+        doc = {"aggregates": {k: jsonable(v) for k, v in res.items()},
+               "tiers": {k: v for k, v in res.counters.items() if v}}
+        if res.groups is not None:
+            doc["groups"] = [jsonable(k) for k in res.groups]
+        if skips:
+            doc["fleet"] = {"skipped": skips}
+        return 0, self._respond_json(doc, headers=headers)
+
+    # -------------------------------------------------------- fleet commit
+    def _fleet_commit(self, daemon: Server, body: dict):
+        """The commit arbiter: the table's ring owner runs every manifest
+        commit of the fleet through its local compare-and-swap, so two
+        daemons ingesting one table converge on one linear history.  Only
+        a fleet's own sub-request may call it
+        (``FleetRouter.arbiter_resolver``)."""
+        if daemon.fleet is None:
+            raise _HttpError(404, "not a fleet member")
+        if not self._internal:
+            raise _HttpError(400, "/v1/fleet/commit is fleet-internal")
+        import os
+
+        from ..io.manifest import Manifest, cas_commit_local
+
+        table_dir = str(self._required(body, "table_dir"))
+        hosted = {os.path.abspath(spec.table): name
+                  for name, spec in daemon.config.datasets.items()
+                  if spec.table}
+        name = hosted.get(os.path.abspath(table_dir))
+        if name is None:
+            # no arbitration for a directory this daemon does not host:
+            # the caller's local compare-and-swap (shared storage, the
+            # O_EXCL claim) still serializes
+            raise _HttpError(403, f"table {table_dir!r} is not hosted "
+                                  "here")
+        try:
+            expected = int(self._required(body, "expected_version"))
+            man = Manifest.deserialize(
+                str(self._required(body, "manifest")).encode("utf-8"))
+        except (ValueError, KeyError, TypeError) as e:
+            raise _HttpError(400, f"bad commit request: {e}") from e
+        committed, version = cas_commit_local(table_dir, expected, man)
+        if committed:
+            daemon._refresh_dataset(name)
+        doc = {"committed": bool(committed), "version": int(version)}
+        return 0, lambda: self._send_json(200, doc)
 
     # --------------------------------------------------------------- write
     def _write(self, daemon: Server, body: dict):

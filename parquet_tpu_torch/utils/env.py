@@ -149,6 +149,29 @@ KNOBS = {
     "PARQUET_TPU_TORCH_SERVE_MAX_BODY": (
         str(64 << 20), "the serving daemon's cap on a request body in "
         "bytes; a longer body is refused 413 before it is read"),
+    "PARQUET_TPU_TORCH_FLEET_VNODES": (
+        "64", "virtual nodes a fleet member places on the consistent-hash "
+        "ring (serve/cluster.py::HashRing); more spread keys and files "
+        "more evenly and build the ring slower"),
+    "PARQUET_TPU_TORCH_FLEET_PEER_TIMEOUT_S": (
+        "10.0", "seconds a fleet scatter-gather gives each peer's "
+        "sub-request when the request carries no deadline"),
+    "PARQUET_TPU_TORCH_FLEET_MARGIN_S": (
+        "0.25", "seconds a fleet gather keeps out of the request's "
+        "deadline to merge the peers' answers (a peer's deadline is the "
+        "time left less this margin)"),
+    "PARQUET_TPU_TORCH_FLEET_HEDGE_S": (
+        "", "seconds before a slow peer's sub-request is hedged by a "
+        "local run of its shard; unset: the remote hedge's adaptive "
+        "delay (io/remote.py::hedge_delay_s); 0 turns hedging off"),
+    "PARQUET_TPU_TORCH_FLEET_CAS_TTL_S": (
+        "30.0", "age in seconds after which a manifest commit's claim "
+        "file left by a crashed committer may be broken "
+        "(io/manifest.py::cas_commit_local)"),
+    "PARQUET_TPU_TORCH_FLEET_CAS_RETRIES": (
+        "8", "times a manifest commit reads and mutates again after the "
+        "commit arbiter reports a rival's version "
+        "(io/manifest.py::commit_manifest)"),
     "PARQUET_TPU_TORCH_TRACE_DIR": (
         "", "the directory utils/debug.py::profiler_trace writes its "
         "Chrome trace into when the caller names none; unset: no trace"),

@@ -2061,3 +2061,96 @@ def test_served_arrow_scan_on_card_equals_the_direct_read(cuda_device,
     got = pa.ipc.open_stream(io.BytesIO(body)).read_all().combine_chunks()
     assert got.equals(want)
     assert served == direct and served["unpack_bits_dense"] > 0
+
+
+@pytest.mark.cuda
+def test_fleet_on_card_answers_as_a_single_node(cuda_device, tmp_path,
+                                                monkeypatch):
+    """Three fleet members on the card (one process, loopback) answer a
+    scan and a lookup byte for byte as a single node over the same
+    key-partitioned table; the members' legs launch the unpack kernels
+    (the scan's dictionary columns) and the bloom probe (each member's
+    share of the keys is one device batch a row group).  No leg is hedged
+    or timed out: each is its member's own."""
+    import json
+
+    monkeypatch.setenv("PARQUET_TPU_TORCH_FLEET_HEDGE_S", "0")
+    monkeypatch.setenv("PARQUET_TPU_TORCH_FLEET_PEER_TIMEOUT_S", "600")
+
+    pa = pytest.importorskip("pyarrow")
+    from parquet_tpu_torch.serve.cluster import HashRing
+
+    names = ("n1", "n2", "n3")
+    ring = HashRing(names)
+    per, commits = 150_000, 3
+    rng = np.random.default_rng(5)
+    tab = pa.table({"k": np.arange(per * commits, dtype=np.int64),
+                    "q": rng.integers(0, 3000, per * commits),
+                    "cat": rng.integers(0, 200, per * commits)
+                    .astype(np.int32)})
+    opts = pqt.WriterOptions(row_group_size=per, bloom_filters={"k": 10},
+                             column_encoding={
+                                 "q": Encoding.RLE_DICTIONARY,
+                                 "cat": Encoding.RLE_DICTIONARY})
+    for attempt in range(50):  # until every member owns a part
+        tbl = str(tmp_path / f"tbl{attempt}")
+        w = pqt.DatasetWriter(tbl, pqt.schema_from_arrow(tab.schema),
+                              options=opts, rows_per_file=per,
+                              partition_on="k", num_partitions=4)
+        for c in range(commits):
+            w.write_arrow(tab.slice(c * per, per))
+            w.commit()
+        w.close()
+        with pqt.open_table(tbl) as ds:
+            paths = list(ds.paths)
+        if set(ring.spread(paths)) == set(names):
+            break
+    keys = list(range(per))  # the first commit's keys
+    shares = {}
+    for k in keys:
+        shares[ring.owner_of_key(k)] = shares.get(ring.owner_of_key(k), 0) + 1
+    assert min(shares.values()) >= 32_768  # SplitBlockFilter's device batch
+    scan = {"dataset": "t", "format": "arrow", "columns": ["k", "q", "cat"]}
+    look = {"dataset": "t", "column": "k", "keys": keys,
+            "columns": ["q", "cat"]}
+
+    def cfg(name=None):
+        doc = {"datasets": {"t": {"table": tbl}}}
+        if name is not None:
+            doc["cluster"] = {"self": name,
+                              "peers": {n: None for n in names}}
+        return doc
+
+    want = {}
+    with pqt.Server(cfg(), port=0) as solo:
+        assert solo.device.type == "cuda"
+        for what, path, doc in (("scan", "/v1/scan", scan),
+                                ("lookup", "/v1/lookup", look)):
+            pqt.clear_caches()
+            want[what] = _post(solo, path, doc)
+    servers = {}
+    got, launches = {}, {}
+    try:
+        for nm in names:
+            servers[nm] = pqt.Server(cfg(nm), port=0)
+        urls = {nm: s.url for nm, s in servers.items()}
+        for s in servers.values():
+            s.set_peers(urls)
+        for what, path, doc in (("scan", "/v1/scan", scan),
+                                ("lookup", "/v1/lookup", look)):
+            pqt.clear_caches()
+            pqt.reset_launches()
+            got[what] = _post(servers["n2"], path, doc)
+            launches[what] = dict(pqt.LAUNCHES)
+    finally:
+        for s in reversed(list(servers.values())):
+            s.close()
+    stream = pa.ipc.open_stream
+    assert stream(io.BytesIO(got["scan"])).read_all().equals(
+        stream(io.BytesIO(want["scan"])).read_all())
+    assert got["lookup"] == want["lookup"]  # no shard skipped either
+    assert json.loads(got["lookup"])["rows_total"] == per
+    assert launches["scan"]["unpack_bits_dense"] > 0
+    assert launches["scan"]["dict_unpack_gather"] > 0
+    # one probe a member over its row groups the statistics keep
+    assert launches["lookup"]["bloom_check"] >= len(names)

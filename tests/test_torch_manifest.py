@@ -147,7 +147,7 @@ def test_a_rival_claim_is_a_conflict(tmp_path, monkeypatch):
     d = str(tmp_path)
     claim = tmp_path / tm.CLAIM_NAME
     claim.write_bytes(b"")
-    monkeypatch.setattr(tm, "CAS_RETRIES", 1)
+    monkeypatch.setenv("PARQUET_TPU_TORCH_FLEET_CAS_RETRIES", "1")
     with pytest.raises(OSError, match="compare-and-swap 2 time"):
         tm.commit_manifest(d, lambda live: tm.Manifest())
     assert tm.read_manifest(d) is None

@@ -46,17 +46,10 @@ CPU = "cpu"
 N_ROWS = 60_000
 ROW_GROUP = 20_000
 
-# the reference's families that only its fleet moves: the port declares
-# them with the fleet's slice (ROADMAP A.1b); the serving daemon's own
-# (``serve.*``) and the page pins' are declared since the daemon came
-FLEET_ONLY = {
-    "counters": {
-        "fleet.forwards", "fleet.gathers", "fleet.peer_errors",
-        "fleet.local_fallbacks", "fleet.hedges_issued", "fleet.hedges_won",
-        "fleet.peer_skips"},
-    "gauges": set(),
-    "histograms": set(),
-}
+# the reference's families that the port does not declare: none since the
+# fleet's slice declared ``fleet.forwards`` ... (serve/cluster.py); the
+# serving daemon's own (``serve.*``) and the page pins' came with the daemon
+FLEET_ONLY = {"counters": set(), "gauges": set(), "histograms": set()}
 SERVE_FAMILIES = {
     "counters": {
         "serve.errors", "serve.writes_committed", "serve.rows_served",
