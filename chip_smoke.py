@@ -1,8 +1,9 @@
 """Drive parquet_tpu_torch's device read, batched point lookups, device
 scan, multi-file and sharded reads, streamed reads, typed reads, rows,
 merge and sort, aggregation, durable writes from the card, writable
-tables, the read's counters, traces and row-group pruning, and the
-serving daemon on one CUDA card and check them.
+tables, the read's counters, traces and row-group pruning, the serving
+daemon and fleet, and the command line and its analyzer on one CUDA card
+and check them.
 
     python3 chip_smoke.py [--seed 0] [--rows 8388608] [--kernel-values 8388608]
                           [--lookup-rows 8388608] [--lineitem-rows 8388608]
@@ -460,6 +461,23 @@ Phases, each fatal on failure:
    section.  One ``{"fleet": ...}`` line: each request's wall on the
    fleet beside the single node's, the fleet counters it moved, and each
    kernel's launches on the members' legs;
+5r. the command line and the analyzer on the card: (a) ``meta``,
+   ``schema``, ``pages``, ``head -n 10``, ``verify --decode --json`` and
+   ``stats --json`` of phase 4's file and ``aggregate`` of 5j's Q1 file
+   (Q1's shape grouped by ``l_returnflag``) through
+   ``parquet_tpu_torch.__main__.main(argv)`` on the default device, each
+   output equal to what the direct call renders (``stats``: its
+   ``read.*`` counters moved as one direct read's; the aggregate's floats
+   to ``1e-9``), ``head``, ``verify`` and ``stats`` launching both unpack
+   kernels; (b) ``python -m parquet_tpu_torch meta`` printing (a)'s
+   text; (c) ``serve --config serve.json --port 0`` in a child answering
+   a lookup of 65,536 of phase 5's keys as the direct
+   ``Dataset.find_rows`` does, then drained by SIGTERM (rc 0); (d)
+   ``python -m parquet_tpu_torch analyze --json --device cuda``: rc 0, no
+   lint finding, the README knob table current, the lock checker's
+   hammer clean with checked acquisitions.  One ``{"cli": ...}`` line:
+   each command's wall and rc, the launches, the hammer's acquisitions,
+   locks and edges;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -7014,15 +7032,15 @@ def _agg_doc(res) -> dict:
     return doc
 
 
-def _same_agg(got: dict, want: dict, what: str) -> None:
+def _same_agg(got: dict, want: dict, what: str, phase: str = "5p") -> None:
     if set(got) != set(want) or got["tiers"] != want["tiers"] \
             or got.get("groups") != want.get("groups") \
             or set(got["aggregates"]) != set(want["aggregates"]):
-        raise AssertionError(f"phase 5p {what}: {got} != {want}")
+        raise AssertionError(f"phase {phase} {what}: {got} != {want}")
     for name, w in want["aggregates"].items():
         g = got["aggregates"][name]
         for a, b in (zip(g, w) if isinstance(w, list) else [(g, w)]):
-            _close(a, b, f"phase 5p {what} {name}")
+            _close(a, b, f"phase {phase} {what} {name}")
 
 
 def _write_body(rows: int, seed: int) -> dict:
@@ -7926,6 +7944,263 @@ def fleet_path(card: str, seed: int, tmp: str) -> dict:
     check_launched("phase 5q", launches, READ_KERNELS + ("bloom_check",))
     out["launches"] = launches
     log({"fleet": out})
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 5r: the command line and the analyzer on the card
+# ---------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_TIMEOUT_S = 900.0  # a liveness bound of one command's subprocess
+CLI_AGG = ["--agg", "count", "--agg", "sum:l_quantity",
+           "--agg", "avg:l_extendedprice", "--group-by", "l_returnflag",
+           "--where", f"l_shipdate::{Q1_DATE}"]
+
+
+def cli_run(argv: list) -> dict:
+    """``parquet_tpu_torch.__main__.main(argv)`` in this process: its rc,
+    stdout, stderr, wall and the kernels it launched."""
+    from parquet_tpu_torch.__main__ import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc, got = launched(lambda: cli_main(argv))
+    torch.cuda.synchronize()
+    return {"rc": rc, "stdout": out.getvalue(), "stderr": err.getvalue(),
+            "wall_s": time.perf_counter() - t0, "launches": got}
+
+
+def cli_child(argv: list, **kw) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "parquet_tpu_torch", *argv],
+                          capture_output=True, text=True, cwd=ROOT,
+                          timeout=CLI_TIMEOUT_S, **kw)
+
+
+def read_counters() -> dict:
+    snap = pq.metrics_snapshot()["counters"]
+    return {k: v for k, v in snap.items() if k.startswith("read.")}
+
+
+def cli_in_process(path: str, q1: str) -> dict:
+    """Phase 5r(a): each command through ``main(argv)`` on the card (the
+    default device), its output equal to what the direct call renders."""
+    from parquet_tpu_torch.utils import printer
+    from parquet_tpu_torch.serve.codecs import jsonable
+
+    out = {}
+
+    def cmd(name: str, argv: list, want: str = None) -> dict:
+        pq.clear_caches()
+        got = cli_run(argv)
+        if got["rc"] != 0 or got["stderr"]:
+            raise AssertionError(f"phase 5r(a) {name}: rc {got['rc']} "
+                                 f"{got['stderr'][-2000:]}")
+        if want is not None and got["stdout"] != want:
+            raise AssertionError(f"phase 5r(a) {name}: the output differs "
+                                 f"from the direct call's")
+        out[name] = {k: got[k] for k in ("rc", "wall_s", "launches")}
+        return got
+
+    with pq.ParquetFile(path) as pf:
+        meta = printer.print_file(pf) + "\n"
+        schema = printer.print_schema(pf.schema) + "\n"
+        pages = printer.print_pages(pf, 0, 0) + "\n"
+        batches = pf.iter_batches(batch_rows=10, device=DEVICE)
+        try:
+            batch = next(batches)
+        finally:
+            batches.close()
+        head = "".join(json.dumps(r, default=repr) + "\n"
+                       for r in batch.to_arrow().to_pylist()[:10])
+    cmd("meta", ["meta", path], meta)
+    cmd("schema", ["schema", path], schema)
+    cmd("pages", ["pages", path], pages)
+    cmd("head", ["head", "-n", "10", path], head)
+    pq.clear_caches()
+    want = pq.verify_file(path, decode=True, device=DEVICE).as_dict()
+    got = cmd("verify", ["verify", "--decode", "--json", path])
+    doc = json.loads(got["stdout"])
+    if not doc["ok"] or doc != want:
+        raise AssertionError(f"phase 5r(a) verify: {doc} != {want}")
+    pq.clear_caches()
+    before = read_counters()
+    with pq.ParquetFile(path) as pf:
+        pf.read(device=DEVICE)
+    direct = {k: v - before.get(k, 0) for k, v in read_counters().items()}
+    before = read_counters()
+    cmd("stats", ["stats", "--json", path])
+    moved = {k: v - before.get(k, 0) for k, v in read_counters().items()}
+    if moved != direct or not direct.get("read.bytes_read"):
+        raise AssertionError(f"phase 5r(a) stats: {moved} != {direct}")
+    out["stats"]["read_counters"] = moved
+    aggs = [pq.count(), pq.sum_("l_quantity"), pq.avg("l_extendedprice")]
+    pq.clear_caches()
+    with pq.Dataset([q1]) as ds:
+        res = ds.aggregate(aggs, where=pq.col("l_shipdate").between(
+            None, Q1_DATE), group_by="l_returnflag", device=DEVICE)
+    want = {"aggregates": {k: jsonable(v) for k, v in res.items()},
+            "tiers": {k: v for k, v in res.counters.items() if v},
+            "groups": [jsonable(k) for k in res.groups]}
+    got = cmd("aggregate", ["aggregate", q1, *CLI_AGG])
+    _same_agg(json.loads(got["stdout"]), want, "aggregate", phase="5r")
+    out["aggregate"]["groups"] = len(want["groups"])
+    for name in ("head", "verify", "stats"):
+        check_launched(f"phase 5r(a) {name}", out[name]["launches"],
+                       READ_KERNELS)
+    # Q1's tiers pick the kernels: a dictionary chunk folds its indexes
+    # (unpack), an exact span gathers its dictionary (fused)
+    if not any(out["aggregate"]["launches"][k] for k in READ_KERNELS):
+        raise AssertionError("phase 5r(a) aggregate launched no kernel")
+    out["meta_stdout"] = meta
+    return out
+
+
+# ``python -m parquet_tpu_torch`` as it is, with the child's kernel launch
+# counts printed to stderr as it exits: the served lookup launches in the
+# child, where no count of this process sees it
+_SERVE_CHILD = (
+    "import json, runpy, sys\n"
+    "try:\n"
+    "    runpy.run_module('parquet_tpu_torch', run_name='__main__',\n"
+    "                     alter_sys=True)\n"
+    "finally:\n"
+    "    from parquet_tpu_torch.ops import kernels\n"
+    "    print(json.dumps({'launches': kernels.LAUNCHES}), file=sys.stderr,\n"
+    "          flush=True)\n")
+
+
+def cli_serve(look_path: str, lookup_rows: int, seed: int, tmp: str) -> dict:
+    """Phase 5r(c): ``serve --config serve.json --port 0`` in a child on
+    the card: one lookup of 65,536 of phase 5's keys equal to the direct
+    ``Dataset.find_rows`` on the card, then SIGTERM drains it (rc 0).  The
+    child's launches, printed as it exits, show the lookup ran on the
+    card: ``bloom_check`` and every kernel the direct call launched."""
+    import signal
+    import urllib.request
+
+    from parquet_tpu_torch.serve.codecs import lookup_to_jsonable
+
+    keys = make_keys(lookup_rows, seed)
+    keys = [int(k) for k in
+            keys[keys < 2 * (ROW_GROUP // 4)][:OBS_LOOKUP_KEYS]]
+    cfg = os.path.join(tmp, "cli_serve.json")
+    with open(cfg, "w") as f:
+        json.dump({"datasets": {"look": {"paths": [look_path]}},
+                   "tenants": {"online": {"class": "latency"}}}, f)
+    out = {"keys": len(keys)}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", _SERVE_CHILD,
+                             "serve", "--config", cfg, "--port", "0"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=ROOT)
+    try:
+        line = proc.stdout.readline()
+        out["boot_s"] = time.perf_counter() - t0
+        if " on http://" not in line:
+            raise AssertionError(f"phase 5r(c): serve printed {line!r}")
+        url = line.split(" on ", 1)[1].split(" ", 1)[0]
+        body = {"dataset": "look", "column": "k", "keys": keys,
+                "columns": LOOKUP_COLUMNS}
+        req = urllib.request.Request(
+            url + "/v1/lookup", data=json.dumps(body).encode(),
+            headers={"X-Tenant": "online"})
+        t1 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            doc = json.loads(r.read())
+        out["lookup_s"] = time.perf_counter() - t1
+        pq.clear_caches()
+        before = dict(pq.LAUNCHES)
+        with pq.Dataset([look_path]) as ds:
+            want = ds.find_rows("k", keys, columns=LOOKUP_COLUMNS,
+                                device=DEVICE)
+        out["direct_launches"] = {k: pq.LAUNCHES[k] - before[k]
+                                  for k in before}
+        if doc["hits"] != lookup_to_jsonable(want, keys) or \
+                doc["rows_total"] != want.rows_total:
+            raise AssertionError("phase 5r(c): the served lookup differs "
+                                 "from the direct find_rows")
+        out["rows_total"] = want.rows_total
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT_S)
+        out["drain_s"] = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out["rc"] = proc.returncode
+    if proc.returncode != 0 or \
+            stdout.strip().splitlines()[-1:] != ["drained and stopped"]:
+        raise AssertionError(f"phase 5r(c): serve exited {proc.returncode}: "
+                             f"{stdout[-500:]} {stderr[-2000:]}")
+    try:
+        child = json.loads(stderr.strip().splitlines()[-1])["launches"]
+    except (ValueError, IndexError, KeyError):
+        raise AssertionError(f"phase 5r(c): no launch counts from the "
+                             f"child: {stderr[-2000:]}") from None
+    out["child_launches"] = child
+    missed = [k for k, n in out["direct_launches"].items()
+              if n and not child.get(k)]
+    if not child.get("bloom_check") or missed:
+        raise AssertionError(f"phase 5r(c): the served lookup did not run "
+                             f"on the card: child {child}, direct "
+                             f"{out['direct_launches']}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def cli_path(card: str, read: dict, look_path: str, lookup_rows: int,
+             q1: str, seed: int, tmp: str) -> dict:
+    """Phase 5r: the command line and the analyzer on the card, each check
+    fatal: (a) :func:`cli_in_process`; (b) ``python -m parquet_tpu_torch
+    meta FILE`` in a child prints what (a)'s ``meta`` printed; (c)
+    :func:`cli_serve`; (d) ``python -m parquet_tpu_torch analyze --json
+    --device cuda`` from the tree: rc 0, no lint finding, the README knob
+    table current, the lock checker's hammer clean on the card.  One
+    ``{"cli": ...}`` line: each command's wall and rc, the launches, and
+    the hammer's acquisitions, locks and edges."""
+    out = {"card": card}
+    t0 = time.perf_counter()
+    a = cli_in_process(read["path"], q1)
+    meta = a.pop("meta_stdout")
+    out["a_in_process"] = a
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    child = cli_child(["meta", read["path"]])
+    out["b_python_m"] = {"rc": child.returncode,
+                         "wall_s": time.perf_counter() - t0}
+    if child.returncode != 0 or child.stdout != meta:
+        raise AssertionError(f"phase 5r(b): rc {child.returncode} "
+                             f"{child.stderr[-2000:]}")
+    out["c_serve"] = cli_serve(look_path, lookup_rows, seed, tmp)
+    t0 = time.perf_counter()
+    child = cli_child(["analyze", "--json", "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    try:
+        rep = json.loads(child.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        rep = {}
+    hammer = rep.get("lockcheck", {})
+    out["d_analyze"] = {
+        "rc": child.returncode, "wall_s": wall, "lint": rep.get("lint"),
+        "knobs_md": rep.get("knobs_md"),
+        "acquisitions": hammer.get("acquisitions"),
+        "locks": hammer.get("locks"), "edges": len(hammer.get("edges", [])),
+        "cycles": hammer.get("cycles"), "findings": hammer.get("findings")}
+    if child.returncode != 0 or rep.get("lint") != [] or \
+            rep["knobs_md"]["stale"] or not hammer.get("ok") or \
+            not hammer.get("acquisitions") or hammer.get("cycles"):
+        log({"cli": out})
+        raise AssertionError(f"phase 5r(d): analyze rc {child.returncode}: "
+                             f"{child.stdout[-3000:]} {child.stderr[-3000:]}")
+    launches = dict.fromkeys(pq.LAUNCHES, 0)
+    for got in a.values():
+        launches = _plus(launches, got["launches"])
+    check_launched("phase 5r", launches, READ_KERNELS)
+    out["launches"] = launches
+    log({"cli": out})
     return {"launches": launches}
 
 
@@ -9639,6 +9914,8 @@ def main(argv=None) -> int:
         serve = phase("5p_serve", serve_path, card, read, look["path"],
                       args.lookup_rows, aggregate["path"], args.seed, tmp)
         fleet = phase("5q_fleet", fleet_path, card, args.seed, tmp)
+        cli = phase("5r_cli", cli_path, card, read, look["path"],
+                    args.lookup_rows, aggregate["path"], args.seed, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -9653,7 +9930,7 @@ def main(argv=None) -> int:
                       "aggregate": aggregate, "write": write,
                       "table": table, "debug": debug,
                       "remote": remote, "obs": obs, "serve": serve,
-                      "fleet": fleet})
+                      "fleet": fleet, "cli": cli})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

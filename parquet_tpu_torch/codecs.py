@@ -18,7 +18,6 @@ from __future__ import annotations
 import ctypes
 import ctypes.util
 import struct
-import threading
 import zlib
 from typing import Dict, Optional
 
@@ -27,6 +26,7 @@ import numpy as np
 from .errors import CorruptedError, unsupported
 from .format.enums import CompressionCodec
 from .ops import host
+from .utils.locks import make_lock
 
 
 class Codec:
@@ -292,7 +292,7 @@ _FACTORIES = {
 }
 
 _codecs: Dict[CompressionCodec, Codec] = {}
-_lock = threading.Lock()
+_lock = make_lock("codecs.registry")
 
 
 def get_codec(codec_id) -> Codec:

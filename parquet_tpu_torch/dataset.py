@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import glob as _glob
 import os
-import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -43,6 +42,7 @@ from .io.search import _as_expr, prune_file
 from .obs import scope as _oscope
 from .obs.metrics import histogram as _ohistogram
 from .utils.pool import map_in_order
+from .utils.locks import make_lock
 
 _M_READ_S = _ohistogram("dataset.read_s")
 _M_SCAN_S = _ohistogram("dataset.scan_s")
@@ -52,7 +52,7 @@ __all__ = ["Dataset", "expand_paths"]
 _GLOB_CHARS = frozenset("*?[")
 
 
-def expand_paths(paths_or_glob) -> List[str]:
+def expand_paths(paths_or_glob, missing: Optional[list] = None) -> List[str]:
     """Paths and glob patterns as one path list: a pattern expands sorted
     (``**`` recurses), explicit paths keep the caller's order, a repeated
     path keeps its first place, and a path that exists is never read as a
@@ -60,7 +60,8 @@ def expand_paths(paths_or_glob) -> List[str]:
     an ``http(s)://`` or ``s3://`` prefix ending in ``/`` expands, sorted,
     through its listing (``io/remote.py::list_prefix``,
     ``list_prefix_s3``).  A pattern or prefix that matches nothing raises
-    ``FileNotFoundError``."""
+    ``FileNotFoundError``, or where ``missing`` is a list is appended to it
+    (the CLI reports each and goes on)."""
     if isinstance(paths_or_glob, (str, os.PathLike)):
         items = [os.fspath(paths_or_glob)]
     else:
@@ -73,14 +74,23 @@ def expand_paths(paths_or_glob) -> List[str]:
                     and item.endswith("/")):
                 from .io.remote import list_prefix, list_prefix_s3
 
-                got = (list_prefix_s3 if item.startswith("s3://")
-                       else list_prefix)(item)
+                try:
+                    got = (list_prefix_s3 if item.startswith("s3://")
+                           else list_prefix)(item)
+                except FileNotFoundError:
+                    if missing is None:
+                        raise
+                    missing.append(item)
+                    continue
             else:
                 got = [item]
         elif _GLOB_CHARS & set(item) and not os.path.lexists(item):
             got = sorted(_glob.glob(item, recursive="**" in item))
             if not got:
-                raise FileNotFoundError(f"glob {item!r} matched no files")
+                if missing is None:
+                    raise FileNotFoundError(f"glob {item!r} matched no files")
+                missing.append(item)
+                continue
         else:
             got = [item]
         for p in got:
@@ -123,7 +133,7 @@ class Dataset:
 
     def _init(self) -> None:
         self._files: Dict[int, ParquetFile] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("dataset.files")
         self._schema_sig = None
         # a table's dataset (dataset_writer.open_table): each path's
         # manifest entry, for pruning without opening, and the pinned

@@ -54,6 +54,7 @@ from .obs.ledger import ledger_account, maybe_check_pressure
 from .obs.metrics import counter as _counter
 from .obs.metrics import histogram as _histogram
 from .schema.schema import Schema
+from .utils.locks import make_lock
 
 _M_COMMITS = _counter("table.commits")
 _M_FILES_WRITTEN = _counter("table.files_written")
@@ -73,12 +74,12 @@ __all__ = ["DatasetWriter", "open_table", "compact_table",
 
 # the open writers, held weakly so that a dropped writer never pins itself
 _LIVE_WRITERS: "weakref.WeakSet[DatasetWriter]" = weakref.WeakSet()
-_LIVE_LOCK = threading.Lock()
+_LIVE_LOCK = make_lock("table.live_writers")
 
 # the merged parts of running compactions, by absolute table directory:
 # until its commit a merged part looks like an orphan on disk
 _COMPACTING: Dict[str, set] = {}
-_COMPACTING_LOCK = threading.Lock()
+_COMPACTING_LOCK = make_lock("table.compacting")
 
 
 def _uncommitted_parts(table_dir_abs: str) -> set:

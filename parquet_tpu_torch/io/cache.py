@@ -49,7 +49,6 @@ from __future__ import annotations
 import contextvars
 import dataclasses
 import os
-import threading
 from collections import OrderedDict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -63,6 +62,7 @@ from ..obs.metrics import counter as _counter
 from ..obs.metrics import gauge as _gauge
 from ..obs.scope import account as _account
 from ..utils.env import env_bytes, env_int
+from ..utils.locks import make_lock
 
 __all__ = ["CacheStats", "FooterCache", "PageCache", "NegLookupCache",
            "PageEntry", "ByteRows", "make_page_entry", "cache_stats",
@@ -170,7 +170,7 @@ class FooterCache:
     ledger (what the parsed structures pin grows with it)."""
 
     def __init__(self, stats: CacheStats):
-        self._lock = threading.Lock()
+        self._lock = make_lock("cache.footer")
         self._entries: "OrderedDict[tuple, Tuple[Any, int]]" = OrderedDict()
         self._bytes = 0
         self.stats = stats
@@ -315,7 +315,7 @@ class PageCache:
     :meth:`unpin_tenant` moves a tenant's pins back into the LRU."""
 
     def __init__(self, stats: CacheStats):
-        self._lock = threading.Lock()
+        self._lock = make_lock("cache.page")
         self._entries: "OrderedDict[tuple, Tuple[PageEntry, int]]" = \
             OrderedDict()
         self._bytes = 0
@@ -499,7 +499,7 @@ class NegLookupCache:
     of chunks capped in bytes (:func:`_key_nbytes` a key)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("cache.neg_lookup")
         self._entries: "OrderedDict[tuple, list]" = OrderedDict()
         self._bytes = 0
 

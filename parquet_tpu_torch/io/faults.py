@@ -59,6 +59,7 @@ from ..errors import (DeadlineError, ReadError, ReadIOError, RemoteError,
 from ..obs.metrics import counter as _counter
 from ..obs.scope import account as _account
 from .source import Source
+from ..utils.locks import make_lock
 
 _M_RETRIES = _counter("read.retries")
 _M_ROWS_DROPPED = _counter("read.rows_dropped")
@@ -377,7 +378,7 @@ class PolicySource(Source):
         # a stack: overlapping operations each remove only their own clock
         self._deadline_stack: List[Deadline] = []
         self._op_retries: Dict[int, int] = {}  # id(Deadline) -> retries
-        self._lock = threading.Lock()
+        self._lock = make_lock("faults.policy")
         self.retries_performed = 0
 
     @property
@@ -507,7 +508,7 @@ class FaultInjectingSource(Source):
         self.stats = FaultStats()
         self._attempts: Dict[Tuple[int, int], int] = {}
         self._consecutive: Dict[Tuple[int, int], int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("faults.injector")
 
     @property
     def path(self):
@@ -809,7 +810,7 @@ class SharedCrashState:
         self.crash_at_byte = crash_at_byte
         self.total = 0  # bytes persisted across every wrapped sink
         self.crashed = False
-        self._lock = threading.Lock()
+        self._lock = make_lock("faults.shared_crash")
 
     def wrap(self, sink):
         return _SharedCrashSink(self, sink)
@@ -1099,7 +1100,7 @@ class FaultInjectingRemoteTransport:
         self.stats = RemoteFaultStats()
         self._attempts: Dict[Tuple[int, int], int] = {}
         self._consecutive: Dict[Tuple[int, int], int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("faults.remote_injector")
 
     @property
     def url(self):
@@ -1218,7 +1219,7 @@ class LocalRangeServer:
         from email.utils import formatdate
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-        self._lock = threading.Lock()
+        self._lock = make_lock("faults.range_server")
         self._files: Dict[str, bytes] = {}
         self._etag: Dict[str, str] = {}
         self._mtime: Dict[str, float] = {}
@@ -1436,6 +1437,8 @@ class LocalRangeServer:
         with self._lock:
             self._files[name] = data
             self._etag[name] = self._hash(data)
+            # ptlint: disable=PT004 -- a simulated HTTP Last-Modified
+            # wall time for the validator tests, not deadline math
             self._mtime[name] = max(time.time(),
                                     self._mtime.get(name, 0.0) + 1.0)
 
@@ -1486,7 +1489,7 @@ class PeerChaos:
     is the network between daemons.)"""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("faults.peer_chaos")
         self._partitioned: set = set()
         self._kill_after: Dict[str, int] = {}  # name -> requests left
         self.trips: List[Tuple[str, str]] = []  # (peer, action) log
@@ -1522,7 +1525,7 @@ class PeerChaos:
                 f"peer {peer!r} chaos-partitioned")
 
 
-_PEER_CHAOS_LOCK = threading.Lock()
+_PEER_CHAOS_LOCK = make_lock("faults.peer_chaos_registry")
 _PEER_CHAOS: Optional[PeerChaos] = None
 
 

@@ -47,6 +47,7 @@ from ..obs.metrics import counter as _counter
 from ..obs.scope import account as _account
 from ..utils.env import env_float, env_int
 from .sink import AtomicFileSink
+from ..utils.locks import make_lock
 
 _M_CAS_COMMITS = _counter("fleet.cas_commits")
 _M_CAS_CONFLICTS = _counter("fleet.cas_conflicts")
@@ -234,7 +235,7 @@ def write_manifest(table_dir, manifest: Manifest,
 # interleave their read-modify-write cycles (other processes go through
 # the claim file of cas_commit_local)
 _DIR_LOCKS: Dict[str, threading.Lock] = {}
-_DIR_LOCKS_GUARD = threading.Lock()
+_DIR_LOCKS_GUARD = make_lock("manifest.dir_registry")
 
 
 def _dir_lock(table_dir) -> threading.Lock:
@@ -242,7 +243,7 @@ def _dir_lock(table_dir) -> threading.Lock:
     with _DIR_LOCKS_GUARD:
         lock = _DIR_LOCKS.get(key)
         if lock is None:
-            lock = _DIR_LOCKS[key] = threading.Lock()
+            lock = _DIR_LOCKS[key] = make_lock("manifest.dir")
         return lock
 
 
@@ -255,7 +256,7 @@ def _dir_lock(table_dir) -> threading.Lock:
 # default is cas_commit_local; a resolver set by set_commit_arbiter may
 # route a table's commits elsewhere.
 
-_ARBITER_GUARD = threading.Lock()
+_ARBITER_GUARD = make_lock("manifest.arbiter")
 _ARBITER_RESOLVER: Optional[Callable] = None
 
 
@@ -309,6 +310,8 @@ def cas_commit_local(table_dir, expected_version: int, manifest: Manifest,
     if not _try_claim(claim):
         try:
             # the claim file's age on the wall clock of file times
+            # ptlint: disable=PT004 -- a file's mtime is wall time: its
+            # age is taken on the same clock, not deadline math
             age = time.time() - os.path.getmtime(claim)
         except OSError:
             age = None  # released between the open and the stat
@@ -359,6 +362,8 @@ def commit_manifest(table_dir,
                 return None
             new.version = expected + 1
             if not new.created:
+                # ptlint: disable=PT004 -- the manifest's creation stamp
+                # (a persisted record), not deadline math
                 new.created = int(time.time())
             ok, _seen = arbiter(table_dir, expected, new, sink_wrap)
             if ok:

@@ -45,7 +45,6 @@ from __future__ import annotations
 
 import contextlib
 
-import threading
 from bisect import bisect_left
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -59,6 +58,7 @@ from ..obs.export import register_debugz_provider as _register_debugz
 from ..obs.metrics import counter as _mcounter
 from ..obs.metrics import gauge as _mgauge
 from ..obs.scope import account as _maccount
+from ..utils.locks import make_lock
 
 __all__ = ["ScanPlanner", "ScanPlan", "RowGroupDecision",
            "device_encoding_supported", "ROUTE_REFUSALS",
@@ -804,7 +804,7 @@ def device_encoding_supported(pf, columns: Optional[Sequence[str]] = None
 #: or a chunk's plan refused it) and ``error`` (the file's staging raised
 #: ``CorruptedError`` or ``OSError``)
 ROUTE_REFUSALS = {"unsupported": 0, "error": 0}
-_refusal_lock = threading.Lock()
+_refusal_lock = make_lock("planner.refusals")
 # the closed label set of device.route_refusals: a reason outside it
 # counts as "other", so no refusal mints a series nobody declared
 _REFUSAL_REASONS = ("unsupported", "policy", "budget", "error", "other")
@@ -895,7 +895,7 @@ class RouteHistory:
     effective rate by the share of its wall time spent waiting."""
 
     def __init__(self, alpha: float = 0.3):
-        self._lock = threading.Lock()
+        self._lock = make_lock("planner.route_history")
         self._alpha = alpha
         self._gbps: Dict[str, float] = {}
         self._wait_frac: Dict[str, float] = {}

@@ -45,7 +45,6 @@ ring's windows and segment buffers are the ledger's ``prefetch.ring`` and
 
 from __future__ import annotations
 
-import threading
 import time
 from concurrent.futures import TimeoutError as _FutTimeout
 from dataclasses import dataclass
@@ -59,8 +58,9 @@ from ..obs import trace as _trace
 from ..obs.ledger import ledger_account, maybe_check_pressure
 from ..obs.metrics import counter as _counter
 from ..obs.metrics import histogram as _histogram
-from ..utils.env import env_int, env_opt_bytes, env_str
+from ..utils.env import env_bool, env_opt_bytes, env_opt_int, env_str
 from .source import MmapSource, Source, dropbehind_enabled
+from ..utils.locks import make_lock
 
 # the ledger's accounts: window bytes in the ring (issued and not yet
 # consumed or dropped), and the segment buffers the windows fill
@@ -93,8 +93,9 @@ def prefetch_mode() -> str:
 
 
 def autotune_enabled() -> bool:
-    """``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE`` (on unless ``0``)."""
-    return env_int("PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE") != 0
+    """``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE`` (on unless
+    ``0``/``off``/``false``/``no``)."""
+    return env_bool("PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE")
 
 
 # the tuner reacts to the consumer's wait a window: a ring whose average
@@ -125,7 +126,7 @@ class _AutoTuneState:
     ``PARQUET_TPU_TORCH_PREFETCH_AUTOTUNE=0`` bypass it."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("prefetch.autotune")
         self._state = {}  # class -> [depth override, window override]
 
     def _cls(self, cls: str) -> list:
@@ -291,7 +292,9 @@ class PrefetchSource(Source):
         self.inner = inner
         self.backend = backend
         env_window = env_opt_bytes("PARQUET_TPU_TORCH_PREFETCH_WINDOW")
-        env_depth = env_opt_bytes("PARQUET_TPU_TORCH_PREFETCH_DEPTH")
+        env_depth = env_opt_int("PARQUET_TPU_TORCH_PREFETCH_DEPTH")
+        if env_depth is not None:
+            env_depth = max(0, env_depth)
         self.latency_class = getattr(_innermost(inner), "latency_class",
                                      "local")
         base_depth, base_window = _CLASS_DEFAULTS.get(
@@ -309,7 +312,7 @@ class PrefetchSource(Source):
         self.depth = int(depth or env_depth or tuned_depth or base_depth)
         self.max_windows = max(2, int(max_windows))
         self.stats = ReadStats(backend=backend)
-        self._lock = threading.Lock()
+        self._lock = make_lock("prefetch.ring")
         self._plans: List[_Plan] = []
         self._ring: List[_Window] = []  # issue order (oldest first)
         self._segs: dict = {}  # id(segment buffer) -> bytes (the ledger)
@@ -680,8 +683,11 @@ class PrefetchSource(Source):
                 if not w.future.cancel() and w.future.done():
                     try:
                         w.future.result()
+                    # ptlint: disable=PT005 -- an abandoned window's
+                    # teardown: taking its error is the point (no
+                    # "exception never retrieved"), and nobody wants it
                     except BaseException:
-                        pass  # an abandoned window's error: nobody wants it
+                        pass
                 self.stats.bytes_discarded += w.end - w.offset
                 _ACC_RING.sub(w.end - w.offset)
             self._ring.clear()

@@ -67,6 +67,8 @@ from ..obs.scope import account_bytes as _account_bytes
 from ..utils.env import env_float, env_int, env_str
 from ..utils.pool import read_admission
 from .source import Source
+from ..utils import locks as _locks
+from ..utils.locks import make_condition, make_lock
 
 __all__ = ["HttpSource", "ObjectStoreSource", "HttpTransport",
            "CircuitBreaker", "breaker_for", "breakers", "reset_breakers",
@@ -124,7 +126,7 @@ class _HostPool:
 
     def __init__(self, cap: int):
         self.cap = cap
-        self._lock = threading.Lock()
+        self._lock = make_lock("remote.host_pool")
         self._idle: List = []
 
     def get(self):
@@ -151,7 +153,7 @@ class _HostPool:
 
 
 _POOLS: Dict[tuple, _HostPool] = {}
-_POOLS_LOCK = threading.Lock()
+_POOLS_LOCK = make_lock("remote.pools_registry")
 
 
 def _host_pool(scheme: str, host: str, timeout_s: float,
@@ -318,7 +320,7 @@ class CircuitBreaker:
 
     def __init__(self, host: str):
         self.host = host
-        self._lock = threading.Lock()
+        self._lock = make_lock("remote.breaker")
         self._state = "closed"
         self._failures = 0
         self._opened_at = 0.0
@@ -386,7 +388,7 @@ class CircuitBreaker:
 
 
 _BREAKERS: Dict[str, CircuitBreaker] = {}
-_BREAKERS_LOCK = threading.Lock()
+_BREAKERS_LOCK = make_lock("remote.breakers_registry")
 
 
 def breaker_for(host: str) -> CircuitBreaker:
@@ -413,7 +415,7 @@ def reset_breakers() -> None:
 # ---------------------------------------------------------------------------
 # Observed latency: the hedge delay and the prefetcher's latency class
 # ---------------------------------------------------------------------------
-_LAT_LOCK = threading.Lock()
+_LAT_LOCK = make_lock("remote.latency_ewma")
 _LAT_EWMA: Dict[str, float] = {}  # host -> seconds
 
 
@@ -464,7 +466,7 @@ def hedge_delay_s() -> Optional[float]:
 # Auth hooks
 # ---------------------------------------------------------------------------
 _AUTH_HOOKS: Dict[str, object] = {}  # URL prefix -> hook
-_AUTH_HOOKS_LOCK = threading.Lock()
+_AUTH_HOOKS_LOCK = make_lock("remote.auth_hooks")
 
 
 def register_auth_hook(url_prefix: str, hook) -> None:
@@ -515,7 +517,7 @@ def auth_refresh_attempts() -> int:
 # ---------------------------------------------------------------------------
 _VALIDATOR_CAP = 4096  # URLs remembered, least recently opened dropped
 _VALIDATORS: "OrderedDict[str, tuple]" = OrderedDict()
-_VALIDATORS_LOCK = threading.Lock()
+_VALIDATORS_LOCK = make_lock("remote.validators")
 
 
 def _note_validator(url: str, validator: tuple) -> None:
@@ -586,7 +588,7 @@ class HttpSource(Source):
         self._breaker = breaker_for(self.host)
         self._closed = False
         self._auth_hook = auth if auth is not None else _auth_hook_for(url)
-        self._auth_lock = threading.Lock()
+        self._auth_lock = make_lock("remote.auth_state")
         self._auth_cached: Optional[dict] = None
         status, hdrs = self._head()
         cl = hdrs.get("content-length")
@@ -777,7 +779,7 @@ class HttpSource(Source):
         delay = hedge_delay_s()
         if delay is None:
             return self._fetch(offset, size, 0)
-        cv = threading.Condition()
+        cv = make_condition("remote.hedge_cv")
         results: Dict[int, tuple] = {}
         state = {"abandoned": False}
 
@@ -800,7 +802,9 @@ class HttpSource(Source):
                 if not abandoned():
                     try:
                         out = ("ok", self._fetch(offset, size, idx))
-                    except BaseException as e:  # raised by the waiter
+                    # ptlint: disable=PT005 -- not swallowed: the error
+                    # goes into the result slot and the waiter raises it
+                    except BaseException as e:
                         out = ("err", e)
             finally:
                 if charged:
@@ -859,6 +863,8 @@ class HttpSource(Source):
                 threads[1].start()
 
     def pread(self, offset: int, size: int) -> bytes:
+        if _locks.LOCKCHECK_ENABLED:
+            _locks.note_blocking("remote.pread", detail=self.host)
         _check_read_args(offset, size)
         if self._closed:
             raise ValueError(f"read on closed source {self.url!r}")
@@ -1155,6 +1161,8 @@ def parallel_preads(source, ranges, slots: int):
     import contextvars
     import itertools
 
+    if _locks.LOCKCHECK_ENABLED:
+        _locks.note_blocking("remote.parallel_preads")
     ranges = list(ranges)
     results: List = [None] * len(ranges)
     errors: List = [None] * len(ranges)
@@ -1169,7 +1177,9 @@ def parallel_preads(source, ranges, slots: int):
             off, size = ranges[i]
             try:
                 results[i] = ctx.copy().run(source.pread, off, size)
-            except BaseException as e:  # raised after the join
+            # ptlint: disable=PT005 -- not swallowed: kept in the
+            # range's error slot and raised after the join below
+            except BaseException as e:
                 errors[i] = e
 
     threads = [threading.Thread(target=worker, daemon=True,

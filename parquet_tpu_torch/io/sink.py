@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import os
 import secrets
-import threading
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -44,6 +43,7 @@ from ..obs.ledger import ledger_account, maybe_check_pressure
 from ..obs.metrics import counter as _counter
 from ..obs.scope import account as _account
 from ..utils.env import env_bool, env_opt_bytes
+from ..utils.locks import make_lock
 
 __all__ = ["Sink", "FileSink", "AtomicFileSink",
            "BufferedSink", "WriteStats", "fsync_dir",
@@ -149,7 +149,7 @@ class _WriteAutoTuneState:
     ``PARQUET_TPU_TORCH_WRITE_AUTOTUNE=0`` bypasses it."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("sink.write_autotune")
         self.buffer = None  # None: the default
 
     def suggest(self):

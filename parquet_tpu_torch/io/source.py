@@ -24,13 +24,14 @@ from __future__ import annotations
 import io
 import mmap as _mmap
 import os
-import threading
 
 import numpy as np
 
 from ..errors import CorruptedError, ShortReadError
 from ..obs.scope import account_bytes as _account_bytes
-from ..utils.env import env_bool, env_int
+from ..utils.env import env_bool
+from ..utils import locks as _locks
+from ..utils.locks import make_lock
 
 
 class Source:
@@ -87,6 +88,8 @@ class FileSource(Source):
         return self._size
 
     def pread(self, offset: int, size: int) -> bytes:
+        if _locks.LOCKCHECK_ENABLED:
+            _locks.note_blocking("source.pread", detail=self.path)
         if self._fd < 0:
             raise ValueError(f"read on closed source {self.path!r}")
         _check_range(self.path, offset, size, self._size)
@@ -142,7 +145,7 @@ class MmapSource(Source):
         else:
             self._fd = None
             os.close(fd)  # the map holds the file
-        self._fd_lock = threading.Lock()
+        self._fd_lock = make_lock("source.mmap_fd", tier=False)
         self._view = memoryview(self._mm)
 
     def _fadvise_fd(self):
@@ -167,6 +170,8 @@ class MmapSource(Source):
         return self._view[offset:offset + size]
 
     def pread(self, offset: int, size: int) -> bytes:
+        if _locks.LOCKCHECK_ENABLED:
+            _locks.note_blocking("source.pread", detail=self.path)
         out = bytes(self._checked(offset, size))
         _account_bytes(size)
         return out
@@ -266,7 +271,7 @@ class FileLikeSource(Source):
 
     def __init__(self, f):
         self._f = f
-        self._lock = threading.Lock()
+        self._lock = make_lock("source.filelike_fd", tier=False)
         f.seek(0, io.SEEK_END)
         self._size = f.tell()
 
@@ -274,6 +279,8 @@ class FileLikeSource(Source):
         return self._size
 
     def pread(self, offset: int, size: int) -> bytes:
+        if _locks.LOCKCHECK_ENABLED:
+            _locks.note_blocking("source.pread", detail="file-like")
         with self._lock:
             f = self._f
             if f is None:
@@ -396,7 +403,7 @@ def as_source(source) -> Source:
             from .remote import ObjectStoreSource, resolve_s3_url
 
             return ObjectStoreSource(resolve_s3_url(path))
-        if env_int("PARQUET_TPU_TORCH_MMAP"):
+        if env_bool("PARQUET_TPU_TORCH_MMAP"):
             try:
                 return MmapSource(source)
             except (OSError, ValueError):  # an empty file, a FIFO, no mmap

@@ -270,6 +270,11 @@ class MetricsServer:
     def url(self) -> str:
         return f"http://{self.host}:{self.port}/metrics"
 
+    def join(self) -> None:
+        """Block until the server stops (``stats --serve`` of the CLI
+        runs until interrupted)."""
+        self._thread.join()
+
     def close(self) -> None:
         """Stop serving, join the request threads, then the server's."""
         self._httpd.shutdown()

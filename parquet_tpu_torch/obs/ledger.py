@@ -36,6 +36,7 @@ from typing import Callable, Dict, List, Optional
 from ..utils.env import env_bytes
 from .metrics import counter as _counter
 from .metrics import gauge as _gauge
+from ..utils.locks import make_lock
 
 __all__ = ["Account", "ResourceLedger", "LEDGER", "ledger_account",
            "ledger_snapshot", "soft_watermark_bytes",
@@ -93,7 +94,7 @@ class Account:
 
     def __init__(self, name: str):
         self.name = name
-        self._lock = threading.Lock()
+        self._lock = make_lock("ledger.account")
         self._resident = 0
         self.high_water = 0
         self._capacity: Optional[Callable[[], int]] = None
@@ -162,7 +163,7 @@ class ResourceLedger:
     (:data:`LEDGER`); tiers reach it through :func:`ledger_account`."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("ledger.registry")
         self._accounts: "Dict[str, Account]" = {}
         self._reclaimers: "List[Callable[[float], int]]" = []
         self._state = "ok"

@@ -17,9 +17,9 @@ operation that moves it (scrapers alert on absence, not on zero).
 
 from __future__ import annotations
 
-import threading
 from bisect import bisect_left
 from typing import Dict, List, Optional, Tuple
+from ..utils.locks import make_lock
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY",
            "counter", "gauge", "histogram", "metrics_snapshot",
@@ -55,7 +55,7 @@ class Counter:
         self.name = name
         self.labels = labels
         self.help = help
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.counter")
         self._value = 0
 
     def inc(self, n=1) -> None:
@@ -83,7 +83,7 @@ class Gauge:
         self.name = name
         self.labels = labels
         self.help = help
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.gauge")
         self._value = 0
 
     def set(self, v) -> None:
@@ -124,7 +124,7 @@ class Histogram:
         self.buckets = tuple(sorted(buckets))
         if not self.buckets:
             raise ValueError("histogram needs at least one bucket edge")
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.histogram")
         self._counts = [0] * (len(self.buckets) + 1)  # last: overflow
         self._sum = 0.0
         self._count = 0
@@ -211,7 +211,7 @@ class MetricsRegistry:
     type: asking for it as another raises ``TypeError``."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("metrics.registry")
         self._metrics: Dict[Tuple[str, tuple], object] = {}
 
     def _get(self, cls, name: str, labels: Optional[Dict[str, str]],

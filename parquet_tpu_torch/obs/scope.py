@@ -43,7 +43,6 @@ free.
 from __future__ import annotations
 
 import contextvars
-import threading
 import itertools
 import json
 import random
@@ -54,6 +53,7 @@ from ..utils.env import env_int, env_opt_float, env_str
 from . import metrics as _metrics
 from . import trace as _trace
 from .metrics import _render_key
+from ..utils.locks import make_lock
 
 __all__ = ["OpScope", "op_scope", "maybe_op_scope", "current_op",
            "scoped_iter", "account", "add_to_current", "account_bytes",
@@ -73,13 +73,13 @@ _OPS_SKIPPED = _metrics.counter("trace.ops_skipped")
 _OPS_SLOW = _metrics.counter("trace.ops_slow_kept")
 _BYTES_READ = _metrics.counter("read.bytes_read")
 
-_SLOW_LOG_LOCK = threading.Lock()
+_SLOW_LOG_LOCK = make_lock("scope.slow_log")
 
 # currently-open operations, op_id → scope: the /debugz op table.  Every
 # scope registers at construction and leaves at finish(); an entry that
 # lingers IS the signal (a stuck or leaked op is exactly what a live
 # introspection endpoint exists to show).
-_LIVE_LOCK = threading.Lock()
+_LIVE_LOCK = make_lock("scope.live_ops")
 _LIVE_OPS: "Dict[int, OpScope]" = {}
 
 
@@ -107,7 +107,7 @@ def live_ops() -> list:
 # per block of N, but WHICH position is drawn fresh each block — a plain
 # `op_id % N` stride would lock onto periodic workloads (2 ops per
 # request + N=2 means one op class is sampled always, the other never)
-_SAMPLE_LOCK = threading.Lock()
+_SAMPLE_LOCK = make_lock("scope.sampler")
 _SAMPLE_I = 0
 _SAMPLE_N: Optional[int] = None
 _SAMPLE_TARGET = 0
@@ -219,7 +219,7 @@ class OpScope:
         self.attrs = dict(attrs or {})
         self.op_id = next(_IDS)
         self.duration_s = None
-        self._lock = threading.Lock()
+        self._lock = make_lock("scope.op")
         self._counters: Dict[str, float] = {}
         self._stages: Dict[str, list] = {}
         self._active = 0
@@ -393,6 +393,8 @@ class OpScope:
         if not path:
             return
         # a wall-clock timestamp, to correlate the record with other logs
+        # ptlint: disable=PT004 -- a record's wall-clock stamp, not
+        # deadline math
         rec = {"ts": round(time.time(), 6), "op": self.op_id,
                "name": self.name,
                "attrs": {k: _trace._jsonable(v)

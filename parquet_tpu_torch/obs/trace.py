@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 from ..utils.env import env_str
 from . import metrics as _metrics
 from .ledger import ledger_account as _ledger_account
+from ..utils.locks import make_lock
 
 __all__ = ["TRACE_ENABLED", "trace_span", "span", "enabled",
            "enable_tracing", "disable_tracing", "flush_trace",
@@ -75,7 +76,7 @@ _EVENT_EST_BYTES = 200
 _ACC_TRACE = _ledger_account("trace.buffer",
                              capacity=lambda: MAX_EVENTS * _EVENT_EST_BYTES)
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("trace.buffer")
 _EVENTS: List[dict] = []
 _SEEN_TIDS: set = set()   # (pid, tid) pairs with thread_name metadata out
 _SEEN_PIDS: Dict[int, str] = {}  # op pid -> label, process_name emitted
@@ -223,7 +224,7 @@ class OpRing:
         self.cap = cap
         self.events: deque = deque()
         self.dropped = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("trace.op_ring")
 
     def append(self, ev: dict, thread_name: str) -> None:
         with self._lock:

@@ -88,11 +88,12 @@ SIGNATURES = {
 HOST_SOURCES = ("host_codec", "host_prescan")
 
 _libs: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
     for cand in (shutil.which("nvcc"),
+                 # ptlint: disable=PT002 -- the CUDA toolkit's location,
+                 # the toolchain's own variable, not a knob of the port
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
@@ -102,6 +103,8 @@ def nvcc_path() -> str:
 
 
 def cxx_path() -> str:
+    # ptlint: disable=PT002 -- the C++ compiler the toolchain's $CXX
+    # names, not a knob of the port
     for cand in (os.environ.get("CXX"), "c++", "g++"):
         path = cand and shutil.which(cand)
         if path:
@@ -202,20 +205,21 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` or ``.cpp``, built first if
     needed.  Any failure raises ``RuntimeError`` (an ``OSError`` of the
     compiler or the loader too, so that no caller takes it for an I/O
-    error of the data)."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        try:
-            build_all([name])
-            lib = ctypes.CDLL(lib_path(name))
-        except OSError as e:  # a compiler that will not start, a bad .so
-            raise RuntimeError(f"cannot build or load {_source(name)}: "
-                               f"{e}") from e
-        for fn, (restype, argtypes) in SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.restype = restype
-            f.argtypes = argtypes
-        _libs[name] = lib
+    error of the data).  Threads of one process need no lock of their own
+    here: each opens the file lock anew, so ``flock`` serializes their
+    builds as it does other processes', and two that race load one file
+    (the loader hands both the same handle; the first kept wins)."""
+    lib = _libs.get(name)
+    if lib is not None:
         return lib
+    try:
+        build_all([name])
+        lib = ctypes.CDLL(lib_path(name))
+    except OSError as e:  # a compiler that will not start, a bad .so
+        raise RuntimeError(f"cannot build or load {_source(name)}: "
+                           f"{e}") from e
+    for fn, (restype, argtypes) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = argtypes
+    return _libs.setdefault(name, lib)

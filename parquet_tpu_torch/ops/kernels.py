@@ -26,17 +26,17 @@ else.
 
 from __future__ import annotations
 
-import threading
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from . import _build
+from ..utils.locks import make_lock
 
 LAUNCHES = {"unpack_bits_dense": 0, "dict_unpack_gather": 0,
             "bloom_check": 0}
-_launch_lock = threading.Lock()
+_launch_lock = make_lock("kernels.launches")
 
 MAX_FUSED_DICT = 1024  # entries the fused kernel stages in shared memory
 

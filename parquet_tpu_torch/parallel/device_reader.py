@@ -85,6 +85,7 @@ from ..ops import encodings, host, kernels, levels, ref
 from ..schema.types import (PHYSICAL_TORCH_DTYPE, PHYSICAL_WIDTH,
                             empty_values)
 from ..utils.debug import annotate, counters
+from ..utils.locks import make_lock
 
 _M32 = 0xFFFFFFFF
 
@@ -113,7 +114,7 @@ def reset_host_route() -> None:
 #: ``python:bit_packed_levels``, the one shape the C++ leaves out
 PLAN_ROUTE = {"native": 0, "native:python_codec": 0,
               "python:bit_packed_levels": 0}
-_route_lock = threading.Lock()
+_route_lock = make_lock("device.plan_route")
 
 
 def reset_plan_route() -> None:
@@ -877,7 +878,7 @@ class _CopyStreams:
     (a fresh stream a read would allocate anew every chunk)."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("device.copy_streams")
         self._streams = {}
         self._turn = itertools.count()
         self._mine = threading.local()
@@ -1794,7 +1795,7 @@ def _decode_pipelined(chunks, device, workers: int) -> Iterator[Column]:
             yield col
             return
     threads = _native_threads(workers)
-    lock = threading.Lock()
+    lock = make_lock("device.stage_concurrency")
     active = [0]
 
     def prep(reader):

@@ -37,7 +37,6 @@ uint32 pairs.  :data:`MESH` holds the counters of both routes.
 from __future__ import annotations
 
 import contextlib
-import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -58,13 +57,14 @@ from ..ops import host, ref
 from ..utils import pool as _pool
 from ..utils.debug import counters
 from . import device_reader
+from ..utils.locks import make_lock
 
 #: the mesh routes' counters: files decoded on the device route, files
 #: that ran ahead of the one being consumed, the staged bytes of files in
 #: flight (a level, with its peak) and the chunks sent to the host decode
 MESH = {"files_sharded": 0, "stage_overlapped": 0, "staging_bytes": 0,
         "staging_bytes_peak": 0, "chunks_host_fallback": 0}
-_mesh_lock = threading.Lock()
+_mesh_lock = make_lock("mesh.counters")
 
 
 # the registry's view of MESH, and the staged bytes' ledger account

@@ -59,6 +59,7 @@ from ..obs.metrics import counter as _counter
 from ..obs.scope import account as _account
 from ..utils.env import env_float, env_int, env_opt_float
 from .config import ClusterSpec
+from ..utils.locks import make_condition, make_lock
 
 __all__ = ["splitmix64", "shard_key", "HashRing", "FleetRouter"]
 
@@ -167,7 +168,7 @@ class FleetRouter:
                  tokens: Optional[Dict[str, str]] = None):
         self.self_name = cluster.self_name
         self.ring = HashRing(cluster.peers)
-        self._lock = threading.Lock()
+        self._lock = make_lock("serve.fleet")
         self._urls: Dict[str, Optional[str]] = dict(cluster.peers)
         self._transports: Dict[str, HttpTransport] = {}
         self._tokens = dict(tokens or {})
@@ -300,7 +301,7 @@ class FleetRouter:
                 return "ok", local_call(peer, payload), "local"
             except Exception as e:
                 return "err", e, peer
-        cv = threading.Condition()
+        cv = make_condition("serve.fleet_legs")
         slots: Dict[str, Tuple[str, Any]] = {}  # leg -> (kind, value)
 
         def leg(name: str, fn) -> Callable[[], None]:

@@ -77,6 +77,7 @@ from .codecs import (columns_to_arrow_batch, columns_to_jsonable,
                      parse_aggs)
 from .config import (DatasetSpec, ServeConfig, drain_timeout_s,
                      load_config, max_body_bytes, shed_retry_after_s)
+from ..utils.locks import make_condition, make_lock
 
 __all__ = ["Server"]
 
@@ -85,7 +86,7 @@ __all__ = ["Server"]
 # only for fleet members that share a tenant table
 _ACTIVE: "Optional[Server]" = None
 _SERVERS: "List[Server]" = []
-_ACTIVE_LOCK = threading.Lock()
+_ACTIVE_LOCK = make_lock("serve.active")
 
 # the class axis is closed: each class's series resolved once; a tenant's
 # labelled series are got-or-created as its requests arrive
@@ -150,7 +151,7 @@ class _TenantStats:
     of the ``/debugz`` tenants section."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("serve.tenant_stats")
         self._by: Dict[str, dict] = {}
 
     def _row(self, tenant: str) -> dict:
@@ -194,7 +195,7 @@ class _HttpServer(ThreadingHTTPServer):
     daemon_threads = False  # ThreadingHTTPServer's default is True
 
     def __init__(self, address, handler):
-        self._conns_lock = threading.Lock()
+        self._conns_lock = make_lock("serve.connections")
         self._conns: set = set()
         super().__init__(address, handler)
 
@@ -239,16 +240,16 @@ class Server:
                             f"path, got {type(config).__name__}")
         self.device = resolve_device(device)
         self.config = config
-        self._ds_lock = threading.Lock()
+        self._ds_lock = make_lock("serve.datasets")
         self._datasets: Dict[str, Dataset] = {
             name: self._open_dataset(spec)
             for name, spec in config.datasets.items()}
         self.tenant_stats = _TenantStats()
         self._inflight = 0
-        self._inflight_cv = threading.Condition()
+        self._inflight_cv = make_condition("serve.inflight")
         self._closed = False
         self._compactors: List = []
-        self._tokens_lock = threading.Lock()
+        self._tokens_lock = make_lock("serve.tokens")
         self._tokens: Dict[str, str] = dict(config.tokens)
         self.fleet = None
         # the tenant table, the pins, the /debugz sections and the commit

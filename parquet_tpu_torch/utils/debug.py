@@ -26,7 +26,6 @@ import contextlib
 import functools
 import os
 import sys
-import threading
 import time
 from collections import defaultdict
 from typing import Optional
@@ -35,6 +34,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from .env import env_bool, env_str
+from .locks import make_lock
 
 __all__ = ["Counters", "counters", "trace", "profiler_trace", "annotate"]
 
@@ -43,7 +43,7 @@ class Counters:
     """Named counters, safe across threads."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("debug.counters")
         self._counts = defaultdict(int)
 
     def inc(self, name: str, by: int = 1) -> None:

@@ -57,8 +57,10 @@ from ..obs.metrics import gauge as _gauge
 from ..obs.metrics import histogram as _histogram
 from ..ops.host import available_cpus
 from .env import env_opt_bytes
+from . import locks as _locks
+from .locks import make_condition, make_lock
 
-_LOCK = threading.Lock()
+_LOCK = make_lock("pool.build")
 _POOL: Optional[ThreadPoolExecutor] = None
 _IN_POOL = threading.local()
 
@@ -145,6 +147,9 @@ def submit(fn, *args, **kwargs):
     """``fn(*args, **kwargs)`` on the shared pool, marked so that
     :func:`in_shared_pool` is true while it runs, in a copy of the
     caller's context (:func:`instrument_task`); returns its future."""
+    if _locks.LOCKCHECK_ENABLED:
+        _locks.note_blocking("pool.submit",
+                             detail=getattr(fn, "__name__", "") or "")
     run = instrument_task(_run_pooled, name=getattr(fn, "__name__", None))
     return shared_pool().submit(run, fn, args, kwargs)
 
@@ -319,10 +324,10 @@ class AdmissionController:
 
     def __init__(self, lookup_default: int = 64 << 20):
         self._lookup_default = lookup_default
-        self._cv = threading.Condition()
+        self._cv = make_condition("pool.admission")
         # the request-rate buckets have a lock of their own: try_request
         # runs before admission and must not wait on the scheduler
-        self._qps_lock = threading.Lock()
+        self._qps_lock = make_lock("pool.qps")
         self._qps_state: "Dict[str, list]" = {}  # name -> [tokens, t_last]
         self._queue: list = []  # tickets, in arrival order
         self._seq = itertools.count()

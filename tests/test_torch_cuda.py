@@ -2154,3 +2154,74 @@ def test_fleet_on_card_answers_as_a_single_node(cuda_device, tmp_path,
     assert launches["scan"]["dict_unpack_gather"] > 0
     # one probe a member over its row groups the statistics keep
     assert launches["lookup"]["bloom_check"] >= len(names)
+
+
+@pytest.mark.cuda
+def test_analyze_on_card_is_clean(cuda_device):
+    """``python -m parquet_tpu_torch analyze --json --device cuda`` from the
+    tree: no lint finding, the README knob table current, and the lock
+    checker's hammer clean on the card (reads, scans, lookups, a table, a
+    two-tenant daemon and a three-member fleet, every lock checked)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "parquet_tpu_torch", "analyze", "--json",
+         "--device", "cuda"], capture_output=True, text=True, cwd=root,
+        timeout=900)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert rep["ok"] and rep["lint"] == [] and not rep["knobs_md"]["stale"]
+    hammer = rep["lockcheck"]
+    assert hammer["ok"] and hammer["cycles"] == [] and \
+        hammer["findings"] == []
+    assert hammer["acquisitions"] > 1000
+    assert "device.stage_concurrency" in hammer["locks"] or \
+        "prefetch.ring" in hammer["locks"]
+
+
+@pytest.mark.cuda
+def test_cli_head_and_aggregate_on_card_launch_the_kernels(cuda_device,
+                                                           tmp_path):
+    """``head`` and ``aggregate`` of the CLI decode on the card (the
+    default device): an unpack kernel launches, and the answers equal the
+    CPU's."""
+    import contextlib
+    import json
+
+    from parquet_tpu_torch.__main__ import main
+
+    rng = np.random.default_rng(3)
+    n = 200_000
+    path = str(tmp_path / "t.parquet")
+    pqt.write_table({"k": rng.integers(0, 50, n).astype(np.int32),
+                     "v": rng.integers(0, 1 << 20, n).astype(np.int64)},
+                    path, options=pqt.WriterOptions(
+                        row_group_size=n // 2, column_encoding={
+                            "k": Encoding.RLE_DICTIONARY}))
+
+    def run(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert main(argv) == 0
+        return out.getvalue()
+
+    for argv in (["head", "-n", "20", path],
+                 ["aggregate", path, "--agg", "count", "--agg", "sum:v",
+                  "--group-by", "k", "--where", "v:1000:"]):
+        pqt.clear_caches()
+        pqt.reset_launches()
+        card = run(argv)
+        launched = dict(pqt.LAUNCHES)
+        pqt.clear_caches()
+        cpu = run(argv + ["--device", "cpu"])
+        assert launched["unpack_bits_dense"] + \
+            launched["dict_unpack_gather"] > 0, (argv, launched)
+        if argv[0] == "head":
+            assert card == cpu
+        else:
+            assert json.loads(card)["aggregates"] == \
+                json.loads(cpu)["aggregates"]

@@ -339,7 +339,7 @@ def test_ring_vnodes_knob(monkeypatch):
 
 def test_fleet_knobs_have_the_reference_defaults():
     for knob in FLEET_KNOBS:
-        mine = tenv.KNOBS["PARQUET_TPU_TORCH_FLEET_" + knob][0]
+        mine = tenv.knob("PARQUET_TPU_TORCH_FLEET_" + knob).default
         theirs = jenv.knob("PARQUET_TPU_FLEET_" + knob).default
         assert (float(mine) if mine else None) == \
             (float(theirs) if theirs is not None else None), knob

@@ -371,7 +371,10 @@ def test_mmap_source_matches_file_source(tmp_path):
 
 
 @pytest.mark.parametrize("value,kind", [("0", FileSource),
-                                        ("1", MmapSource)])
+                                        ("1", MmapSource),
+                                        ("off", FileSource),
+                                        ("false", FileSource),
+                                        ("on", MmapSource)])
 def test_mmap_knob(monkeypatch, tmp_path, value, kind):
     p = tmp_path / "f.bin"
     p.write_bytes(b"x" * 64)
