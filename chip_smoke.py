@@ -478,6 +478,22 @@ Phases, each fatal on failure:
    hammer clean with checked acquisitions.  One ``{"cli": ...}`` line:
    each command's wall and rc, the launches, the hammer's acquisitions,
    locks and edges;
+5s. the lookup's whole-chunk cache and key sharding: (a) two lookups of
+   the same 65,536 keys (64 present) on a file without a page index
+   (phase 4's ``k``, spread to multiples of 64, ``price`` and ``cat``;
+   ``--rows`` rows in 8 row groups), from cleared caches: the first
+   misses the whole-chunk cache on every (row group, column) it decodes
+   and launches both unpack kernels, the second is served from it with
+   ``cache.chunk_hits`` equal to the first's misses, no decode and no
+   unpack launch, both equal to the numpy oracle (``{"chunk_cache_lookup":
+   ...}``: both walls, the cache's deltas); (b) phase 5's 524,288-key
+   lookup with ``PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD`` at 0 (its default)
+   and at the reference's 1,024, each cold from cleared caches and then
+   warm: the same hits,
+   ``key_shards`` >= 2 only where sharded, one ``bloom_check`` launch in
+   each cold lookup (``{"key_shard_lookup": ...}``: cold and warm keys/s
+   and the walls of stages 3-4 of both); the phase launches
+   ``bloom_check``, ``unpack_bits_dense`` and ``dict_unpack_gather``;
 6. one ``{"kernels": [...]}`` line: each kernel at the shapes its path
    gives it, with its launches on that path, bound, plain-version time and
    the device time of the library call.  ``unpack_bits_dense`` and
@@ -8225,6 +8241,237 @@ def _codes_of(cd, words) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# phase 5s: the whole-chunk cache under the lookup, and key sharding
+# ---------------------------------------------------------------------------
+
+CHUNK_KEYS = 65_536  # phase 5f's URL and order-key batches
+CHUNK_PRESENT = 64  # present keys of the batch, the rest absent
+CHUNK_SPACING = 64  # k's 20,000 values are multiples of 64
+CHUNK_COLUMNS = ["price", "cat"]
+CHUNK_ENCODINGS = {"k": Encoding.RLE_DICTIONARY, "price": Encoding.PLAIN,
+                   "cat": Encoding.RLE_DICTIONARY}
+SHARD_KNOB = "PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD"
+
+
+def make_chunk_table(rows: int, seed: int) -> tuple:
+    """Phase 4's ``k`` (20,000 distinct int64 values, dictionary-encoded;
+    here spread to multiples of 64 so that absent keys lie inside every row
+    group's range), ``price`` (a double with 5 % nulls) and ``cat`` (a
+    200-value int32 category with 10 % nulls); and 65,536 keys, 64 of them
+    values of ``k``, the others not multiples of 64."""
+    t = make_table(rows, seed)
+    table = {"k": t["k"] * CHUNK_SPACING, "price": t["price"],
+             "cat": t["cat"]}
+    rng = np.random.default_rng(seed + 53)
+    present = rng.choice(20_000, CHUNK_PRESENT, replace=False) * CHUNK_SPACING
+    absent = rng.choice(20_000 * CHUNK_SPACING, 2 * CHUNK_KEYS,
+                        replace=False)
+    absent = absent[absent % CHUNK_SPACING != 0][:CHUNK_KEYS - CHUNK_PRESENT]
+    keys = rng.permutation(np.concatenate([present, absent]).astype(np.int64))
+    return table, keys
+
+
+def check_chunk_hits(res, keys: np.ndarray, table: dict, order, sk) -> int:
+    """Every key's rows, ``price``, ``cat`` and validity against the numpy
+    oracle (``order``/``sk``: ``k``'s stable argsort and sorted values);
+    returns the rows matched."""
+    total = 0
+    for key, h in zip(keys.tolist(), res):
+        a = np.searchsorted(sk, key, "left")
+        b = np.searchsorted(sk, key, "right")
+        rows = order[a:b]
+        if not np.array_equal(h.rows, rows):
+            raise AssertionError(f"chunk-cache lookup: rows of key {key} "
+                                 "differ from the oracle")
+        total += len(rows)
+        for c in CHUNK_COLUMNS:
+            arr = table[c]
+            valid = ~np.ma.getmaskarray(arr)[rows]
+            want = np.where(valid, np.ma.getdata(arr)[rows], 0)
+            got_valid = (np.ones(len(rows), bool) if h.validity[c] is None
+                         else h.validity[c])
+            if not len(rows):
+                continue
+            if h.values[c].dtype != want.dtype or not np.array_equal(
+                    h.values[c], want) or not np.array_equal(got_valid,
+                                                             valid):
+                raise AssertionError(f"chunk-cache lookup: {c} of key {key} "
+                                     "differs from the oracle")
+    return total
+
+
+@contextlib.contextmanager
+def counted_decodes():
+    """The calls of ``lookup.decode_aligned`` made inside the block."""
+    calls = [0]
+    real = lookup.decode_aligned
+
+    def spy(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    lookup.decode_aligned = spy
+    try:
+        yield calls
+    finally:
+        lookup.decode_aligned = real
+
+
+@contextlib.contextmanager
+def stage34_walls():
+    """The wall seconds of each lookup's stages 3-4
+    (``lookup._dispatch_probes``: every row group's page search, reads,
+    match and gather, sharded or serial) inside the block."""
+    walls = []
+    real = lookup._dispatch_probes
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            walls.append(time.perf_counter() - t0)
+
+    lookup._dispatch_probes = timed
+    try:
+        yield walls
+    finally:
+        lookup._dispatch_probes = real
+
+
+def chunk_cache_lookups(card: str, rows: int, seed: int, tmp: str) -> dict:
+    """Phase 5s(a): two lookups of the same 65,536 keys on a file without a
+    page index (:func:`make_chunk_table`, 8 row groups, the port's writer
+    with ``write_page_index=False``), from cleared caches at the default
+    cache sizes.  The first misses on every (row group, column) it decodes
+    and launches the unpack kernels; the second is served from the
+    whole-chunk cache: ``cache.chunk_hits`` equal to the first's misses, no
+    decode, no unpack launch.  Both equal the numpy oracle."""
+    table, keys = make_chunk_table(rows, seed)
+    path = os.path.join(tmp, "no_page_index.parquet")
+    t0 = time.perf_counter()
+    pq.write_table(table, path, pq.WriterOptions(
+        row_group_size=ROW_GROUP, compression="uncompressed",
+        column_encoding=CHUNK_ENCODINGS, bloom_filters={"k": 10},
+        write_page_index=False))
+    write_s = time.perf_counter() - t0
+    order = np.argsort(table["k"], kind="stable")
+    sk = table["k"][order]
+    pq.clear_caches()
+    f = pq.ParquetFile(path)
+    if f.row_groups[0].column(0).offset_index() is not None:
+        raise AssertionError("chunk-cache lookup: the file has a page index")
+    runs = []
+    for _ in range(2):
+        before = pq.cache_stats()
+        launched = dict(pq.LAUNCHES)
+        with counted_decodes() as decodes:
+            res, s = timed_lookup(f, keys, DEVICE, "k", CHUNK_COLUMNS)
+        after = pq.cache_stats()
+        matched = check_chunk_hits(res, keys, table, order, sk)
+        runs.append({
+            "s": s, "keys_per_s": len(keys) / s, "rows_matched": matched,
+            "decodes": decodes[0],
+            "launches": {k: pq.LAUNCHES[k] - launched[k]
+                         for k in launched},
+            "chunk": {k: getattr(after, k) - getattr(before, k)
+                      for k in ("chunk_hits", "chunk_misses",
+                                "chunk_evictions", "chunk_entries",
+                                "chunk_bytes")},
+            "counters": dict(res.counters)})
+        del res
+    cold, warm = runs
+    row_groups = len(f.row_groups)
+    if cold["chunk"]["chunk_misses"] != row_groups * 3 or \
+            cold["chunk"]["chunk_hits"] or cold["decodes"] != row_groups * 3:
+        raise AssertionError(f"chunk-cache lookup: the cold lookup's cache "
+                             f"{cold['chunk']}, {cold['decodes']} decodes")
+    for k in READ_KERNELS:
+        if cold["launches"][k] == 0:
+            raise AssertionError(f"chunk-cache lookup: the cold lookup "
+                                 f"launched no {k}")
+        if warm["launches"][k]:
+            raise AssertionError(f"chunk-cache lookup: the warm lookup "
+                                 f"launched {k}")
+    if warm["chunk"]["chunk_hits"] != cold["chunk"]["chunk_misses"] or \
+            warm["chunk"]["chunk_misses"] or warm["decodes"]:
+        raise AssertionError(f"chunk-cache lookup: the warm lookup's cache "
+                             f"{warm['chunk']}, {warm['decodes']} decodes")
+    if cold["counters"]["chunk_fallbacks"] != row_groups * 3:
+        raise AssertionError(f"chunk_fallbacks {cold['counters']}")
+    log({"chunk_cache_lookup": {
+        "card": card, "rows": rows, "row_groups": row_groups,
+        "keys": len(keys), "present": CHUNK_PRESENT,
+        "file_bytes": os.path.getsize(path), "write_s": write_s,
+        "cache": pq.cache_stats().as_dict(), "cold": cold, "warm": warm}})
+    return {"cold": cold, "warm": warm}
+
+
+def key_shard_lookups(card: str, look_path: str, rows: int,
+                      seed: int) -> dict:
+    """Phase 5s(b): phase 5's 524,288-key lookup with the port's shard
+    floor at 0 (its default: serial) and at the reference's 1,024 (8
+    shards), each from cleared caches and then warm, at the default cache
+    sizes: the same hits (each equal to the oracle), ``key_shards`` >= 2
+    only in the sharded runs, one ``bloom_check`` launch in each cold
+    lookup; keys/s and the walls of stages 3-4 of all four."""
+    table = make_lookup_table(rows, seed)
+    keys = make_keys(rows, seed)
+    out, results = {}, {}
+    for name, floor in (("serial", "0"), ("sharded", "1024")):
+        with knobs(**{SHARD_KNOB: floor}), stage34_walls() as walls:
+            pq.clear_caches()
+            f = pq.ParquetFile(look_path)
+            runs = []
+            for _ in range(2):
+                before = pq.LAUNCHES["bloom_check"]
+                res, s = timed_lookup(f, keys, DEVICE)
+                check_lookup(res, keys, table)
+                runs.append((res, s, pq.LAUNCHES["bloom_check"] - before))
+        results[name] = [r for r, _, _ in runs]
+        out[name] = {
+            "knob": floor,
+            "cold_s": runs[0][1], "warm_s": runs[1][1],
+            "keys_per_s_cold": len(keys) / runs[0][1],
+            "keys_per_s_warm": len(keys) / runs[1][1],
+            "stage34_s": {"cold": walls[0], "warm": walls[1]},
+            "bloom_launches": [n for _, _, n in runs],
+            "counters_cold": dict(runs[0][0].counters),
+            "counters_warm": dict(runs[1][0].counters)}
+        if runs[0][2] != 1 or runs[1][2] > 1:
+            raise AssertionError(f"key shards ({name}): bloom_check launched "
+                                 f"{out[name]['bloom_launches']} times")
+    for i in range(2):
+        same_hits(results["sharded"][i], results["serial"][i],
+                  f"the sharded lookup {i}")
+    if out["serial"]["counters_cold"]["key_shards"] != 0 or \
+            out["sharded"]["counters_cold"]["key_shards"] < 2:
+        raise AssertionError(f"key_shards: serial "
+                             f"{out['serial']['counters_cold']}, sharded "
+                             f"{out['sharded']['counters_cold']}")
+    del results
+    log({"key_shard_lookup": {"card": card, "rows": rows, "keys": len(keys),
+                              "file": os.path.basename(look_path), **out}})
+    return out
+
+
+def chunk_cache_shards_path(card: str, look_path: str, lookup_rows: int,
+                            rows: int, seed: int, tmp: str) -> dict:
+    """Phase 5s: (a) the whole-chunk cache and (b) key sharding, their
+    kernel launches counted from 0: ``bloom_check``, ``unpack_bits_dense``
+    and ``dict_unpack_gather`` each launched."""
+    pq.reset_launches()
+    reset_routes()
+    cache = chunk_cache_lookups(card, rows, seed, tmp)
+    shards = key_shard_lookups(card, look_path, lookup_rows, seed)
+    launches = dict(pq.LAUNCHES)
+    check_launched("phase 5s", launches, ("bloom_check",) + READ_KERNELS)
+    no_host_route("phase 5s")
+    return {"launches": launches, "cache": cache, "shards": shards}
+
+
+
+# ---------------------------------------------------------------------------
 # phase 5b: the device scan
 # ---------------------------------------------------------------------------
 
@@ -9916,6 +10163,9 @@ def main(argv=None) -> int:
         fleet = phase("5q_fleet", fleet_path, card, args.seed, tmp)
         cli = phase("5r_cli", cli_path, card, read, look["path"],
                     args.lookup_rows, aggregate["path"], args.seed, tmp)
+        chunks = phase("5s_chunk_cache_shards", chunk_cache_shards_path,
+                       card, look["path"], args.lookup_rows, args.rows,
+                       args.seed, tmp)
         # the short profiler windows of the kernels and ops come before
         # the profiled reads and lookup: after such a long window the
         # profiler can drop every event of a short one
@@ -9930,7 +10180,8 @@ def main(argv=None) -> int:
                       "aggregate": aggregate, "write": write,
                       "table": table, "debug": debug,
                       "remote": remote, "obs": obs, "serve": serve,
-                      "fleet": fleet, "cli": cli})
+                      "fleet": fleet, "cli": cli,
+                      "chunk_cache_shards": chunks})
         ops = phase("6_ops", torch_ops, enc["path"], item["path"], nested,
                     h2d)
         ops += phase("6_scan_ops", scan_ops, scan)

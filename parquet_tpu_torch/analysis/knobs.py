@@ -39,12 +39,23 @@ declare("PARQUET_TPU_TORCH_SCAN_BUDGET", "opt_bytes", None,
 declare("PARQUET_TPU_TORCH_FOOTER_CACHE", "int", 256,
         "parsed-footer cache capacity in entries; 0 disables "
         "(io/cache.py::FOOTERS)")
+declare("PARQUET_TPU_TORCH_CHUNK_CACHE", "bytes", 256 << 20,
+        "decoded whole-chunk LRU capacity in bytes, the lookup's tier for "
+        "chunks without a page index; 0 disables (io/cache.py::CHUNKS)")
 declare("PARQUET_TPU_TORCH_PAGE_CACHE", "bytes", 64 << 20,
         "decoded-page LRU capacity in bytes, the lookup's serving tier; "
         "0 disables (io/cache.py::PAGES)")
 declare("PARQUET_TPU_TORCH_NEG_LOOKUP", "bytes", 4 << 20,
         "negative-lookup memo capacity in bytes (keys a lookup proved "
         "absent from a chunk); 0 disables (io/cache.py::NEGS)")
+
+# ------------------------------------------------------------------- lookup
+declare("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", "int", 0,
+        "minimum unique keys per shard before a large lookup batch fans "
+        "its row groups' page search, reads, match and gather across pool "
+        "workers (the reference's 1024 shards); 0, the default, disables "
+        "sharding: on an H100 host the shards ran slower than one thread "
+        "(io/lookup.py::_dispatch_probes)")
 
 # ---------------------------------------------------------- memory pressure
 declare("PARQUET_TPU_TORCH_MEM_SOFT", "bytes", 0,

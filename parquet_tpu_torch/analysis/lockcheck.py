@@ -147,9 +147,10 @@ def _run_clients(n: int, client, meanwhile=None) -> None:
 
 def _hammer_workload(tmpdir: str, device: str) -> None:
     """A mixed, concurrent workload on ``device`` over every family of
-    locks: the writer, the footer and page caches, the prefetch ring, the
-    admission gate (budgeted), the ledger, the meters, the op scopes,
-    batched lookups, a table's ingest and compaction, and the serving
+    locks: the writer, the footer, chunk and page caches, the prefetch
+    ring, the admission gate (budgeted), the ledger, the meters, the op
+    scopes, batched lookups (sharded ones among them), a table's ingest
+    and compaction, and the serving
     daemon and a fleet under concurrent clients (lookup, scan, aggregate,
     write and compaction through the HTTP handler threads)."""
     import os
@@ -189,6 +190,20 @@ def _hammer_workload(tmpdir: str, device: str) -> None:
 
         map_in_order(one, range(12))
 
+        # a sharded lookup (its shards' shared page fetchers) and the
+        # whole-chunk cache (a file without a page index), twice each: a
+        # cold run and a warm one, from the calling thread (a pool worker
+        # does not shard)
+        bare = os.path.join(tmpdir, "hammer-no-index.parquet")
+        pq.write_table(tab, bare, options=pq.WriterOptions(
+            row_group_size=2_000, write_page_index=False))
+        os.environ["PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD"] = "16"
+        keys = np.arange(0, HAMMER_ROWS, 7, dtype=np.int64)[:512]
+        for p in (path, bare) * 2:
+            with pq.ParquetFile(p) as pf:
+                pq.find_rows(pf, "k", keys, columns=["v"], device=device)
+        os.environ.pop("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD")
+
         tdir = os.path.join(tmpdir, "table")
         w = pq.DatasetWriter(tdir, pq.schema_from_arrow(tab.schema),
                              sorting=[pq.SortingColumn("k")],
@@ -209,6 +224,7 @@ def _hammer_workload(tmpdir: str, device: str) -> None:
     finally:
         os.environ.pop("PARQUET_TPU_TORCH_READ_BUDGET", None)
         os.environ.pop("PARQUET_TPU_TORCH_PREFETCH", None)
+        os.environ.pop("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", None)
 
 
 def _serve_hammer(file_path: str, table_dir: str, device: str) -> None:

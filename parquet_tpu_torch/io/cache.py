@@ -1,7 +1,7 @@
-"""Process-wide caches of the lookup path: parsed footers, decoded pages,
-and keys proven absent.
+"""Process-wide caches of the lookup path: parsed footers, decoded whole
+chunks, decoded pages, and keys proven absent.
 
-The port's cut of ``parquet_tpu/io/cache.py``.  Every tier keys a file by
+The port's copy of ``parquet_tpu/io/cache.py``.  Every tier keys a file by
 its source's open-time ``stat_key`` = ``(absolute path, inode, mtime_ns,
 size)`` (``io/source.py``), so a rewritten file cannot serve stale entries;
 an in-memory source has no ``stat_key`` and is never cached.
@@ -10,6 +10,15 @@ an in-memory source has no ``stat_key`` and is never cached.
   ``Schema`` of a file, so a reopen skips the tail preads and the thrift
   parse (``ParquetFile._open_footer``).  An LRU of
   ``PARQUET_TPU_TORCH_FOOTER_CACHE`` entries (256; ``0`` off).
+- :data:`CHUNKS` (:class:`ChunkCache`): decoded whole chunks of the
+  lookup's chunks without a page index, keyed ``(file key, row group, leaf
+  path, verify_crc)``: a warm lookup on such a file decodes nothing.  An
+  entry is the chunk's row-aligned host ``(values, validity)`` as a frozen
+  :class:`PageEntry` (one page of the chunk's rows), so a hit serves a
+  lookup on any device.  A byte-capped LRU
+  (``PARQUET_TPU_TORCH_CHUNK_CACHE``, 256 MiB; ``0`` off); an entry larger
+  than half the cap is refused.  The reads, scans and aggregates do not
+  use it.
 - :data:`PAGES` (:class:`PageCache`): decoded row-aligned pages of the
   lookup path, keyed ``(file key, row group, leaf path, page ordinal)``:
   a warm key reads and decodes nothing.  A byte-capped LRU
@@ -27,10 +36,11 @@ the same size inside one tick of the file system's clock.
 
 Every tier moves the JAX package's ``cache.*`` counters through
 ``obs.scope.account`` (so an op's report holds its own hits and misses)
-and keeps its resource-ledger account (``cache.footer``, ``cache.page``,
-``cache.neg_lookup``) current inside the critical section that moves its
-bytes; each registers a reclaimer that the ledger's soft watermark runs,
-and ``top_entries`` lists its largest entries for ``/debugz``.
+and keeps its resource-ledger account (``cache.footer``, ``cache.chunk``,
+``cache.page``, ``cache.neg_lookup``) current inside the critical section
+that moves its bytes; each registers a reclaimer that the ledger's soft
+watermark runs, and ``top_entries`` lists its largest entries for
+``/debugz``.
 
 Tenant pins (the serving daemon's page-residency contract): inside
 :func:`page_pin_scope` every page the block's lookups put in the page
@@ -39,9 +49,7 @@ watermark's eviction, until the tenant's pinned bytes reach its cap; a
 page past the cap goes to the LRU (``cache.page_pin_refusals``).  Pinned
 bytes are charged to the ``cache.page_pinned`` ledger account and the
 ``cache.page_pinned_bytes`` gauge, and :meth:`PageCache.unpin_tenant`
-hands a tenant's pages back to the LRU.  Not in this port: the
-whole-chunk ``ChunkCache`` (it serves the host whole-chunk reads), whose
-families (``cache.chunk_*``, the ``cache.chunk`` account) stay at 0.
+hands a tenant's pages back to the LRU.
 """
 
 from __future__ import annotations
@@ -64,16 +72,23 @@ from ..obs.scope import account as _account
 from ..utils.env import env_bytes, env_int
 from ..utils.locks import make_lock
 
-__all__ = ["CacheStats", "FooterCache", "PageCache", "NegLookupCache",
-           "PageEntry", "ByteRows", "make_page_entry", "cache_stats",
-           "clear_caches", "invalidate_path", "footer_cache_entries",
-           "page_cache_bytes", "neg_lookup_cache_bytes", "page_pin_scope",
-           "current_pin", "FOOTERS", "PAGES", "NEGS"]
+__all__ = ["CacheStats", "FooterCache", "ChunkCache", "PageCache",
+           "NegLookupCache", "PageEntry", "ByteRows", "make_page_entry",
+           "cache_stats", "clear_caches", "invalidate_path",
+           "footer_cache_entries", "chunk_cache_bytes", "page_cache_bytes",
+           "neg_lookup_cache_bytes", "page_pin_scope", "current_pin",
+           "FOOTERS", "CHUNKS", "PAGES", "NEGS"]
 
 
 def footer_cache_entries() -> int:
     """The footer cache's capacity in entries (``0``: off), read per call."""
     return max(0, env_int("PARQUET_TPU_TORCH_FOOTER_CACHE"))
+
+
+def chunk_cache_bytes() -> int:
+    """The whole-chunk cache's capacity in bytes (``0``: off), read per
+    call."""
+    return env_bytes("PARQUET_TPU_TORCH_CHUNK_CACHE")
 
 
 def page_cache_bytes() -> int:
@@ -89,6 +104,11 @@ def neg_lookup_cache_bytes() -> int:
 _M_FOOTER_HITS = _counter("cache.footer_hits")
 _M_FOOTER_MISSES = _counter("cache.footer_misses")
 _M_FOOTER_ENTRIES = _gauge("cache.footer_entries")
+_M_CHUNK_HITS = _counter("cache.chunk_hits")
+_M_CHUNK_MISSES = _counter("cache.chunk_misses")
+_M_CHUNK_EVICTIONS = _counter("cache.chunk_evictions")
+_M_CHUNK_ENTRIES = _gauge("cache.chunk_entries")
+_M_CHUNK_BYTES = _gauge("cache.chunk_bytes")
 _M_PAGE_HITS = _counter("cache.page_hits")
 _M_PAGE_MISSES = _counter("cache.page_misses")
 _M_PAGE_EVICTIONS = _counter("cache.page_evictions")
@@ -100,6 +120,7 @@ _M_PAGE_PINNED_BYTES = _gauge("cache.page_pinned_bytes")
 
 # the ledger's accounts, moved inside the critical sections that move each
 # tier's own bytes, so the ledger cannot drift from the tier
+_ACC_CHUNK = ledger_account("cache.chunk", capacity=chunk_cache_bytes)
 _ACC_PAGE = ledger_account("cache.page", capacity=page_cache_bytes)
 _ACC_PINNED = ledger_account("cache.page_pinned")
 _ACC_FOOTER = ledger_account("cache.footer")
@@ -149,6 +170,12 @@ class CacheStats:
     footer_hits: int = 0
     footer_misses: int = 0
     footer_entries: int = 0
+    chunk_hits: int = 0
+    chunk_misses: int = 0
+    chunk_evictions: int = 0
+    chunk_entries: int = 0
+    chunk_bytes: int = 0
+    chunk_capacity: int = 0
     page_hits: int = 0
     page_misses: int = 0
     page_evictions: int = 0
@@ -301,6 +328,109 @@ def make_page_entry(values, validity, first_row: int,
     read-only either way."""
     return PageEntry(_readonly(values), _readonly(validity), int(first_row),
                      int(num_rows))
+
+
+class ChunkCache:
+    """A byte-capped LRU of decoded whole chunks, each a frozen
+    :class:`PageEntry` of the chunk's rows (first row 0).  An item larger
+    than half the cap is refused, so one giant chunk cannot evict the
+    whole working set for a single use.  Entries are immutable, so
+    :meth:`get` serves the cached instance itself and
+    :meth:`put_and_freeze` returns the frozen instance the caller must
+    use in place of its writable original."""
+
+    def __init__(self, stats: CacheStats):
+        self._lock = make_lock("cache.chunk")
+        self._entries: "OrderedDict[tuple, Tuple[PageEntry, int]]" = \
+            OrderedDict()
+        self._bytes = 0
+        self.stats = stats
+
+    def contains(self, key) -> bool:
+        """Membership that moves no counter and no LRU position."""
+        with self._lock:
+            return key in self._entries
+
+    def get(self, key) -> Optional[PageEntry]:
+        with self._lock:
+            got = self._entries.get(key)
+            if got is None:
+                self.stats.chunk_misses += 1
+                _account(_M_CHUNK_MISSES)
+                return None
+            self._entries.move_to_end(key)
+            self.stats.chunk_hits += 1
+            _account(_M_CHUNK_HITS)
+            return got[0]
+
+    def _publish_locked(self, cap: int) -> None:
+        # under self._lock: the gauges and the ledger account move in the
+        # critical section that moved the bytes
+        self.stats.chunk_entries = len(self._entries)
+        self.stats.chunk_bytes = self._bytes
+        self.stats.chunk_capacity = cap
+        _M_CHUNK_ENTRIES.set(len(self._entries))
+        _M_CHUNK_BYTES.set(self._bytes)
+        _ACC_CHUNK.set(self._bytes)
+
+    def _evict_locked(self, target: int) -> int:
+        evicted = 0
+        while self._bytes > max(0, target) and self._entries:
+            _, (_, nb) = self._entries.popitem(last=False)
+            self._bytes -= nb
+            evicted += 1
+        self.stats.chunk_evictions += evicted
+        _account(_M_CHUNK_EVICTIONS, evicted)
+        return evicted
+
+    def put_and_freeze(self, key, values, validity,
+                       num_rows: int) -> PageEntry:
+        """Freeze a decoded chunk's rows and keep them when the cache is on
+        and they fit in half its cap; returns the frozen entry either
+        way."""
+        cap = chunk_cache_bytes()
+        entry = make_page_entry(values, validity, 0, num_rows)
+        nb = entry.nbytes()
+        if cap <= 0 or nb > cap // 2:
+            return entry
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self._bytes -= old[1]
+            self._entries[key] = (entry, nb)
+            self._bytes += nb
+            self._evict_locked(cap)
+            self._publish_locked(cap)
+        _maybe_pressure()
+        return entry
+
+    def top_entries(self, n: int = 10) -> list:
+        """The largest resident chunks by bytes (``/debugz``; keys are
+        (file key, row group, leaf path, verify_crc) tuples)."""
+        with self._lock:
+            items = [(k, nb) for k, (_, nb) in self._entries.items()]
+        return _top_entries(items, n)
+
+    def shrink_to(self, target_bytes: int) -> int:
+        """Evict LRU-first down to ``target_bytes`` (the soft-pressure
+        response, counted in the tier's evictions too); returns how many
+        entries went."""
+        with self._lock:
+            evicted = self._evict_locked(target_bytes)
+            self._publish_locked(chunk_cache_bytes())
+        return evicted
+
+    def invalidate_path(self, ap: str) -> None:
+        with self._lock:
+            for key in [k for k in self._entries if k[0][0] == ap]:
+                self._bytes -= self._entries.pop(key)[1]
+            self._publish_locked(chunk_cache_bytes())
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+            self._bytes = 0
+            self._publish_locked(chunk_cache_bytes())
 
 
 class PageCache:
@@ -583,8 +713,13 @@ class NegLookupCache:
 
 _STATS = CacheStats()
 FOOTERS = FooterCache(_STATS)
+CHUNKS = ChunkCache(_STATS)
 PAGES = PageCache(_STATS)
 NEGS = NegLookupCache()
+
+
+def _reclaim_chunks(fraction: float) -> int:
+    return CHUNKS.shrink_to(int(CHUNKS.stats.chunk_bytes * fraction))
 
 
 def _reclaim_pages(fraction: float) -> int:
@@ -599,20 +734,22 @@ def _reclaim_footers(fraction: float) -> int:
     return FOOTERS.shrink_to(int(FOOTERS.stats.footer_entries * fraction))
 
 
-# the soft watermark's order: the decoded pages first, the memo next, the
-# parsed footers last (small, and the dearest to rebuild a byte)
-for _fn in (_reclaim_pages, _reclaim_negs, _reclaim_footers):
+# the soft watermark's order: the decoded chunks and pages first, the memo
+# next, the parsed footers last (small, and the dearest to rebuild a byte)
+for _fn in (_reclaim_chunks, _reclaim_pages, _reclaim_negs,
+            _reclaim_footers):
     LEDGER.register_reclaimer(_fn)
 
 
 def invalidate_path(path) -> None:
-    """Drop every cached footer, page and absent-key memo of ``path``: the
-    port's writer calls it when it closes a path it wrote, and a remote
-    source when an object's HEAD validators moved (a URL is its own
-    identity)."""
+    """Drop every cached footer, chunk, page and absent-key memo of
+    ``path``: the port's writer calls it when it closes a path it wrote,
+    and a remote source when an object's HEAD validators moved (a URL is
+    its own identity)."""
     path = os.fspath(path)
     ap = path if "://" in path else os.path.abspath(path)
     FOOTERS.invalidate_path(ap)
+    CHUNKS.invalidate_path(ap)
     PAGES.invalidate_path(ap)
     NEGS.invalidate_path(ap)
 
@@ -620,14 +757,16 @@ def invalidate_path(path) -> None:
 def cache_stats() -> CacheStats:
     """A snapshot of the caches' counters (a copy)."""
     s = dataclasses.replace(_STATS)
+    s.chunk_capacity = chunk_cache_bytes()
     s.page_capacity = page_cache_bytes()
     return s
 
 
 def clear_caches(reset_stats: bool = False) -> None:
-    """Drop every cached footer, page and absent-key memo (tests,
+    """Drop every cached footer, chunk, page and absent-key memo (tests,
     benchmarks); ``reset_stats=True`` also zeroes the counters."""
     FOOTERS.clear()
+    CHUNKS.clear()
     PAGES.clear()
     NEGS.clear()
     if reset_stats:

@@ -16,8 +16,9 @@ the same counters:
    :func:`~parquet_tpu_torch.io.bloom.check_hashes_multi`, one launch of
    the ``bloom_check`` CUDA kernel per lookup on the lookup's device; a
    smaller batch takes the numpy probe, as in the reference;
-3. the page index: a binary search (:func:`~.search.find`) per key on a
-   cleanly ordered index, the zone-map walk otherwise;
+3. the page index: the page runs of every key at once (``searchsorted``
+   over a cleanly ordered index's bounds, the zone-map walk over the
+   sorted keys otherwise; :func:`_page_ords_of_keys`);
 4. page reads: each needed page is looked up in the page cache
    (``io/cache.py::PAGES``) first (``page_cache_hits``); the others
    coalesce into runs of adjacent pages, one pread per run (and one for
@@ -26,28 +27,40 @@ the same counters:
    on the lookup's device (:mod:`~parquet_tpu_torch.parallel.
    device_reader`, whose dictionary and bit-packed streams launch the read
    path's kernels), copied back to host numpy row-aligned and cached page
-   by page, frozen; then every key of the row group is matched at once
-   against one sorted table of the fetched rows (:class:`_RowTable`: by
-   value for numbers, by xxh64 for byte-array and fixed-length keys with
-   each candidate's bytes compared, by python value for booleans and
-   decimals of byte storage), giving the rows the reference's in-page
-   binary search or exact mask gives.
+   by page, frozen; then every key of the row group is matched at once in
+   one C++ call (``csrc/host_lookup.cpp`` through
+   :func:`~parquet_tpu_torch.ops.host.lookup_match`: the fetched rows
+   sorted by value for numbers, by xxh64 for byte-array and fixed-length
+   keys with each candidate's bytes compared), giving the rows the
+   reference's in-page binary search or exact mask gives; booleans and
+   decimals of byte storage match in numpy over python values.
 
 The keys a row group's cascade leaves unmatched enter the memo.  A chunk
-without a page index decodes whole (``chunk_fallbacks``), admitted at its
-compressed size.  The requested output columns are read through the same
-cached, coalesced page runs; a byte-array column's values come back as a
-list of ``bytes`` (None at a null row), a fixed-length one's as ``(n, w)``
-uint8 rows, as in the reference.  Where the reference loops over keys in
-Python, the statistics stage, the page search of a cleanly ordered numeric
-index and the gather of output values run on numpy arrays of keys instead;
-survivors, stage order and counters are the reference's.
+without a page index decodes whole (``chunk_fallbacks``) through the
+decoded whole-chunk cache (``io/cache.py::CHUNKS``, the reference's
+``ParquetFile._decode_chunk_ctx``): a hit is served gate-free and decodes
+nothing, a miss is admitted at the chunk's compressed size, decoded on
+the lookup's device and cached frozen.  The requested output columns are
+read through the same cached, coalesced page runs (or whole chunks) and
+gathered at the matched rows in one C++ call a column
+(:func:`~parquet_tpu_torch.ops.host.lookup_gather`); a row group's result
+stays in arrays until :func:`_assemble_hits` cuts it per key.  A
+byte-array column's values come back as a list of ``bytes`` (None at a
+null row), a fixed-length one's as ``(n, w)`` uint8 rows, as in the
+reference.  Survivors, stage order and counters are the reference's.
 
-The reference's key sharding (slices of the key set, each running the
-whole cascade on a pool worker) is not ported: a lookup's per-row-group
-work is Python and numpy under the GIL, and shards of it on 8 pool
-workers ran 1.5-1.9 times slower than one thread on an H100 host
-(PERF.md, PR 16).  ``key_shards`` stays 0.
+Key sharding (:func:`_dispatch_probes`, the reference's rule; its floor
+``PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD`` is 0, off, by default, where the
+reference's is 1,024: shards ran slower than one thread on an H100 host,
+whose stages 3-4 are mostly Python a page): a batch of at least twice the
+floor in uniq keys splits into contiguous slices of the keys' sorted
+order, each running stages 3-4 of every row group on a pool worker in the
+caller's context; stages 0-2 stay whole for the batch (one ``bloom_check``
+launch a lookup).  The shards share their page fetchers, so each page is
+read and decoded once, and the C++ match and gather release the
+interpreter lock, so they run side by side.  ``key_shards`` counts the
+slices; the counters are the serial run's but for ``preads`` and
+``pages_coalesced`` (the shards' runs of adjacent pages are shorter).
 
 Keys of an unsigned column (the INT annotation's ``signed=false``)
 compare in unsigned order at every stage, and a ``Decimal`` key of a
@@ -61,16 +74,14 @@ under the policy, the call runs under its deadline, and with
 ``on_corrupt='skip_row_group'`` a row group whose index, bloom filter or
 pages are corrupt drops whole (rows and values together, its full row
 count recorded).
-
-Not in this port: metrics and op scopes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from bisect import bisect_left, bisect_right
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -80,7 +91,9 @@ from ..obs import scope as _oscope
 from ..obs.metrics import counter as _counter
 from ..obs.metrics import histogram as _histogram
 from ..schema.types import PHYSICAL_NP_DTYPE, LogicalKind
-from ..utils.debug import counters
+from ..utils.debug import counters as _debug_counters
+from ..utils.env import env_int
+from ..utils.locks import make_lock
 from .cache import ByteRows, PageEntry
 
 _M_FIND_S = _histogram("lookup.find_rows_s")
@@ -89,7 +102,7 @@ _M_DS_FIND_S = _histogram("dataset.find_rows_s")
 _METRIC = {k: _counter("lookup." + k) for k in (
     "keys", "keys_pruned_stats", "keys_pruned_bloom", "keys_pruned_pages",
     "rows_matched", "preads", "pages_read", "pages_coalesced",
-    "chunk_fallbacks", "neg_hits", "binary_search_hits")}
+    "chunk_fallbacks", "neg_hits", "binary_search_hits", "key_shards")}
 
 
 def _count(cdict: Dict[str, int], key: str, n: int) -> None:
@@ -107,8 +120,7 @@ _UNSET = object()  # memo sentinel: None is a valid decoded dictionary
 # the reference's counters, in its order.  ``binary_search_hits`` is
 # derived for parity (:func:`_searches_answered`): the (key, page) probes
 # the reference answers by an in-page binary search; the port matches
-# every key against a sorted table and runs no such search.  The port
-# does not shard a batch, so ``key_shards`` is 0.
+# every key in C++ and runs no such search.
 COUNTER_KEYS = ("keys", "keys_pruned_stats", "keys_pruned_bloom",
                 "keys_pruned_pages", "rows_matched", "preads", "pages_read",
                 "pages_coalesced", "page_cache_hits", "chunk_fallbacks",
@@ -182,6 +194,9 @@ class _PreparedKeys:
     key_map: np.ndarray
     hashes: Optional[np.ndarray]
     order: Optional[np.ndarray]
+    # what the cascade derives from the batch once (:func:`_is_bytes`,
+    # :func:`_is_int`, :func:`_object_keys`, :func:`_key_bytes`)
+    memo: dict = field(default_factory=dict, repr=False)
 
 
 def _prepare_keys(leaf, keys) -> _PreparedKeys:
@@ -258,6 +273,52 @@ def _order_array(leaf, uniq: List) -> Optional[np.ndarray]:
             type(v) is float for v in uniq):
         return np.array(uniq, np.float64)
     return None
+
+
+def _is_bytes(prep: _PreparedKeys) -> np.ndarray:
+    """Which uniq keys are byte strings, once a batch."""
+    got = prep.memo.get("is_bytes")
+    if got is None:
+        got = prep.memo["is_bytes"] = np.fromiter(
+            (isinstance(k, (bytes, bytearray)) for k in prep.uniq), bool,
+            count=len(prep.uniq))
+    return got
+
+
+def _is_int(prep: _PreparedKeys) -> np.ndarray:
+    """Which uniq keys are integers (not booleans), once a batch."""
+    got = prep.memo.get("is_int")
+    if got is None:
+        got = prep.memo["is_int"] = np.fromiter(
+            (isinstance(k, (int, np.integer)) and not isinstance(k, bool)
+             for k in prep.uniq), bool, count=len(prep.uniq))
+    return got
+
+
+def _object_keys(prep: _PreparedKeys) -> np.ndarray:
+    """The uniq keys as an object array, once a batch."""
+    got = prep.memo.get("objects")
+    if got is None:
+        got = np.empty(len(prep.uniq), object)
+        got[:] = prep.uniq
+        prep.memo["objects"] = got
+    return got
+
+
+def _key_bytes(prep: _PreparedKeys) -> Tuple[np.ndarray, np.ndarray]:
+    """``(uint8 bytes, int64 offsets)`` of every uniq key, a key that is
+    not a byte string empty: the needles' bytes of the C++ match, once a
+    batch."""
+    got = prep.memo.get("bytes")
+    if got is None:
+        parts = [bytes(k) if isinstance(k, (bytes, bytearray)) else b""
+                 for k in prep.uniq]
+        offs = np.zeros(len(parts) + 1, np.int64)
+        np.cumsum(np.fromiter(map(len, parts), np.int64, count=len(parts)),
+                  out=offs[1:])
+        got = prep.memo["bytes"] = (
+            np.frombuffer(b"".join(parts), np.uint8), offs)
+    return got
 
 
 def _is_number(v, order: np.ndarray) -> bool:
@@ -338,21 +399,28 @@ def decode_aligned(chunk, device, pages=None, dictionary=None):
 
 
 class _PageFetcher:
-    """Decoded row-aligned pages of one column chunk: each requested page
+    """Decoded row-aligned pages of one column chunk for one role (the key
+    column's match or an output column's gather): each requested page
     comes from the page cache when it is there; the others coalesce into
     runs of adjacent pages, each run one admitted pread and one device
     decode, and are cached page by page; the dictionary is read and
-    decoded once per chunk, and only where a page is missing."""
+    decoded once per chunk, and only where a page is missing.  A chunk
+    without a page index comes whole through :func:`_decode_chunk_ctx`
+    (``chunk_fallbacks``).  What one fetcher got is kept, so the key
+    shards of a lookup, which share their fetchers, read and decode each
+    page once; a shared fetcher fetches under its own lock."""
 
-    def __init__(self, pf, rg, chunk, counters: Dict[str, int], device):
+    def __init__(self, pf, rg, chunk, device, shared: bool):
+        self.pf = pf
         self.rg = rg
         self.chunk = chunk
-        self.counters = counters
         self.device = device
-        self.locs = chunk.offset_index().page_locations
-        self.firsts = [pl.first_row_index for pl in self.locs]
-        self._firsts_arr = np.asarray(self.firsts, np.int64)
+        self._lock = (make_lock("lookup.fetch", tier=False) if shared
+                      else contextlib.nullcontext())
+        self._got: Dict[int, PageEntry] = {}
+        self._whole: Optional[PageEntry] = None
         self._dict = _UNSET
+        self._locs = None
         fk = pf._cache_key
         # the CRC check is part of a page's identity: a page decoded
         # unchecked must not answer a reader that checks
@@ -360,40 +428,71 @@ class _PageFetcher:
                           else (fk, rg.index, chunk.leaf.name,
                                 pf.options.verify_crc))
 
+    def _index(self):
+        """The page locations and each page's first row, read at first
+        use (a chunk without a page index never asks)."""
+        if self._locs is None:
+            locs = self.chunk.offset_index().page_locations
+            self._firsts = np.asarray([pl.first_row_index for pl in locs],
+                                      np.int64)
+            self._locs = locs  # last: a racing shard sees both or neither
+        return self._locs, self._firsts
+
     def page_rows(self, o: int) -> int:
-        nxt = (self.firsts[o + 1] if o + 1 < len(self.firsts)
-               else self.rg.num_rows)
-        return nxt - self.firsts[o]
+        _, firsts = self._index()
+        nxt = int(firsts[o + 1]) if o + 1 < len(firsts) else self.rg.num_rows
+        return nxt - int(firsts[o])
 
     def ords_of_rows(self, rows: np.ndarray) -> np.ndarray:
-        return np.maximum(
-            np.searchsorted(self._firsts_arr, rows, side="right") - 1, 0)
+        _, firsts = self._index()
+        return np.maximum(np.searchsorted(firsts, rows, side="right") - 1, 0)
 
-    def _dictionary(self):
+    def whole(self, counters: Dict[str, int]) -> PageEntry:
+        """The whole chunk, once a fetcher: counted in ``chunk_fallbacks``
+        and served by :func:`_decode_chunk_ctx`."""
+        with self._lock:
+            if self._whole is None:
+                _count(counters, "chunk_fallbacks", 1)
+                self._whole = _decode_chunk_ctx(self.pf, self.rg, self.chunk,
+                                                self.device)
+            return self._whole
+
+    def _dictionary(self, counters: Dict[str, int]):
         if self._dict is _UNSET:
             from .reader import decode_dictionary_page
             from .search import dictionary_pages
 
-            pages = list(dictionary_pages(self.chunk, self.locs[0].offset))
+            pages = list(dictionary_pages(self.chunk,
+                                          self._index()[0][0].offset))
             if pages:
-                _count(self.counters, "preads", 1)
+                _count(counters, "preads", 1)
                 self._dict = decode_dictionary_page(self.chunk, pages[0])
-                counters.inc("dict_pages_decoded")
+                _debug_counters.inc("dict_pages_decoded")
             else:
                 self._dict = None
         return self._dict
 
-    def fetch(self, ords: Sequence[int]) -> Dict[int, PageEntry]:
+    def fetch(self, ords: np.ndarray, counters: Dict[str, int]
+              ) -> Dict[int, PageEntry]:
+        """The pages ``ords`` (ascending distinct ordinals)."""
+        with self._lock:
+            return self._fetch(ords, counters)
+
+    def _fetch(self, ords, counters: Dict[str, int]) -> Dict[int, PageEntry]:
         from ..utils.pool import lookup_admission
         from .cache import PAGES, make_page_entry
 
         out: Dict[int, PageEntry] = {}
         missing: List[int] = []
         base = self._key_base
-        for o in sorted(set(ords)):
-            entry = PAGES.get(base + (o,)) if base is not None else None
+        for o in np.asarray(ords).tolist():  # a loop over pages
+            entry = self._got.get(o)
+            if entry is None and base is not None:
+                entry = PAGES.get(base + (o,))
+                if entry is not None:
+                    counters["page_cache_hits"] += 1
+                    self._got[o] = entry
             if entry is not None:
-                self.counters["page_cache_hits"] += 1
                 out[o] = entry
             else:
                 missing.append(o)
@@ -405,30 +504,81 @@ class _PageFetcher:
                 runs[-1].append(o)
             else:
                 runs.append([o])
+        locs, firsts = self._index()
         admission = lookup_admission()
         for run in runs:
             first, last = run[0], run[-1]
-            span_start = self.locs[first].offset
-            span_len = (self.locs[last].offset
-                        + self.locs[last].compressed_page_size - span_start)
+            span_start = locs[first].offset
+            span_len = (locs[last].offset
+                        + locs[last].compressed_page_size - span_start)
             with admission.admit(span_len):
-                dictionary = self._dictionary()
+                dictionary = self._dictionary(counters)
                 pages = self.chunk.page_table_at(span_start, span_len,
                                                  num_pages=len(run))
                 vals, valid = decode_aligned(self.chunk, self.device, pages,
                                              dictionary)
-            _count(self.counters, "preads", 1)
-            _count(self.counters, "pages_read", len(run))
-            _count(self.counters, "pages_coalesced", len(run) - 1)
-            at = self.firsts[first]
+            _count(counters, "preads", 1)
+            _count(counters, "pages_read", len(run))
+            _count(counters, "pages_coalesced", len(run) - 1)
+            at = int(firsts[first])
             for o in run:
-                a, n = self.firsts[o] - at, self.page_rows(o)
+                f = int(firsts[o])
+                a, n = f - at, self.page_rows(o)
                 pv = _slice_rows(vals, a, n)
                 pvalid = None if valid is None else valid[a:a + n]
-                out[o] = (PAGES.put(base + (o,), pv, pvalid, self.firsts[o], n)
-                          if base is not None else
-                          make_page_entry(pv, pvalid, self.firsts[o], n))
+                out[o] = self._got[o] = (
+                    PAGES.put(base + (o,), pv, pvalid, f, n)
+                    if base is not None else
+                    make_page_entry(pv, pvalid, f, n))
         return out
+
+
+class _Fetchers:
+    """One :class:`_PageFetcher` a (row group, column, role): a serial
+    lookup makes a set a row group, a sharded one a set its shards
+    share."""
+
+    def __init__(self, pf, device, shared: bool):
+        self.pf = pf
+        self.device = device
+        self.shared = shared
+        self._by: Dict[tuple, _PageFetcher] = {}
+
+    def get(self, rg, chunk, role: str) -> _PageFetcher:
+        key = (rg.index, chunk.leaf.column_index, role)
+        got = self._by.get(key)
+        if got is None:
+            # setdefault is atomic: two shards that race keep one fetcher
+            got = self._by.setdefault(key, _PageFetcher(
+                self.pf, rg, chunk, self.device, self.shared))
+        return got
+
+
+def _decode_chunk_ctx(pf, rg, chunk, device) -> PageEntry:
+    """A whole chunk's row-aligned rows, as the reference's
+    ``ParquetFile._decode_chunk_ctx`` serves the lookup: from the decoded
+    whole-chunk cache (``io/cache.py::CHUNKS``) when the file has a cache
+    key, gate-free on a hit; a miss is admitted through the lookup tier of
+    the read gate at the chunk's compressed size, decoded on ``device``
+    and put frozen.  A source without a cache key (in-memory bytes, an
+    injector) neither fills the cache nor is served from it; its rows are
+    frozen all the same."""
+    from ..utils.pool import lookup_admission
+    from .cache import CHUNKS, make_page_entry
+
+    fk = pf._cache_key
+    key = (None if fk is None
+           else (fk, rg.index, chunk.leaf.name, pf.options.verify_crc))
+    if key is not None:
+        got = CHUNKS.get(key)
+        if got is not None:
+            return got
+    with lookup_admission().admit(chunk.meta.total_compressed_size or 0):
+        vals, valid = decode_aligned(chunk, device)
+    if key is None:
+        return make_page_entry(vals, valid, 0, rg.num_rows)
+    return CHUNKS.put_and_freeze(key, vals, valid, rg.num_rows)
+
 
 # ---------------------------------------------------------------------------
 # the cascade: stages 1-2 over every row group, then the rest per row group
@@ -546,45 +696,234 @@ def _sorted_byte_bounds(ci, leaf):
     return got
 
 
-def _page_ords_of_keys(ci, leaf, prep: _PreparedKeys, alive: np.ndarray,
-                       counters: Dict[str, int]
-                       ) -> List[Tuple[int, List[int]]]:
-    """``(uniq ordinal, page ordinals)`` for each alive key that some page
-    may hold, in order; the others count in ``keys_pruned_pages``."""
-    bounds = (_sorted_bounds(ci, leaf, prep.order)
-              if prep.order is not None else None)
-    byte_bounds = (_sorted_byte_bounds(ci, leaf)
-                   if bounds is None and _bytes_keyed(leaf) else None)
-    if byte_bounds is not None:
-        mins, maxs = byte_bounds
-        got = []
-        for u in alive.tolist():
-            key = prep.uniq[u]
-            if type(key) is bytes:
-                got.append((u, list(range(bisect_left(maxs, key),
-                                          bisect_right(mins, key)))))
-            else:
-                got.append((u, _key_page_ords(ci, leaf, key)))
-    elif bounds is None:
-        got = [(int(u), _key_page_ords(ci, leaf, prep.uniq[u]))
-               for u in alive]
+@dataclass
+class _KeyPages:
+    """Stage 3's answer for a row group: the uniq ordinals ``us`` of the
+    keys some page may hold, each with its page run ``[lo, hi)`` and, where
+    ``lists = (offsets, pages)`` gives a key a non-empty ascending list
+    (the zone-map walk's pages, when they are not one run), only those
+    pages."""
+
+    us: np.ndarray
+    lo: np.ndarray
+    hi: np.ndarray
+    lists: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+    def needed(self) -> np.ndarray:
+        """The ascending distinct pages of every key."""
+        if not len(self.us):
+            return np.empty(0, np.int64)
+        n = int(self.hi.max()) + 1
+        edge = np.zeros(n + 1, np.int64)
+        if self.lists is None:
+            np.add.at(edge, self.lo, 1)
+            np.add.at(edge, self.hi, -1)
+            return np.flatnonzero(np.cumsum(edge)[:n] > 0)
+        offs, pages = self.lists
+        runs = offs[1:] == offs[:-1]
+        np.add.at(edge, self.lo[runs], 1)
+        np.add.at(edge, self.hi[runs], -1)
+        return np.union1d(np.flatnonzero(np.cumsum(edge)[:n] > 0), pages)
+
+    def per_key_sum(self, weight: np.ndarray) -> np.ndarray:
+        """Each key's sum of ``weight`` (an array over page ordinals) over
+        its pages."""
+        csum = np.concatenate([[0], np.cumsum(weight)])
+        got = csum[self.hi] - csum[self.lo]
+        if self.lists is not None:
+            offs, pages = self.lists
+            listed = offs[1:] > offs[:-1]
+            if listed.any():
+                sums = np.add.reduceat(weight[pages], offs[:-1][listed])
+                got[listed] = sums
+        return got
+
+
+def _key_pages_of_lists(us, lists: List[List[int]]) -> _KeyPages:
+    """A :class:`_KeyPages` of per-key page lists (each non-empty and
+    ascending)."""
+    us = np.asarray(us, np.int64)
+    lo = np.array([ords[0] for ords in lists], np.int64)
+    hi = np.array([ords[-1] + 1 for ords in lists], np.int64)
+    lens = np.array([len(ords) for ords in lists], np.int64)
+    if np.array_equal(lens, hi - lo):
+        return _KeyPages(us, lo, hi)
+    offs = np.zeros(len(lists) + 1, np.int64)
+    np.cumsum(np.where(lens == hi - lo, 0, lens), out=offs[1:])
+    pages = [p for ords, n, a, b in zip(lists, lens.tolist(), lo.tolist(),
+                                        hi.tolist()) if n != b - a
+             for p in ords]
+    return _KeyPages(us, lo, hi, (offs, np.array(pages, np.int64)))
+
+
+def _key_pages_of_pairs(us: np.ndarray, kidx: np.ndarray,
+                        pg: np.ndarray) -> _KeyPages:
+    """A :class:`_KeyPages` of (key index, page) pairs, the keys with no
+    page dropped."""
+    order = np.lexsort((pg, kidx))
+    kidx, pg = kidx[order], pg[order]
+    cnt = np.bincount(kidx, minlength=len(us))
+    keep = cnt > 0
+    offs = np.zeros(len(us) + 1, np.int64)
+    np.cumsum(cnt, out=offs[1:])
+    lo = pg[offs[:-1][keep]]
+    hi = pg[offs[1:][keep] - 1] + 1
+    cnt = cnt[keep]
+    if np.array_equal(cnt, hi - lo):
+        return _KeyPages(us[keep], lo, hi)
+    run = cnt == hi - lo
+    loffs = np.zeros(len(cnt) + 1, np.int64)
+    np.cumsum(np.where(run, 0, cnt), out=loffs[1:])
+    listed = np.repeat(~run, cnt)
+    return _KeyPages(us[keep], lo, hi, (loffs, pg[listed]))
+
+
+def _walk_bounds(ci, leaf, domain):
+    """The zone-map walk's bounds as arrays of ``domain`` (a numpy dtype,
+    or ``bytes`` for an object array of byte strings): ``(pages with
+    bounds, their mins, their maxs, open pages)``, an open page being a
+    non-null page with a missing or NaN bound (it may hold any key); None
+    when a bound is of another kind (the per-key walk then runs)."""
+    from .search import decoded_bounds
+
+    memo = getattr(ci, "_walk_bounds", None)
+    if memo is None:
+        memo = ci._walk_bounds = {}
+    got = memo.get(domain, _UNSET)
+    if got is not _UNSET:
+        return got
+    mins, maxs = decoded_bounds(ci, leaf)
+    nulls = list(ci.null_pages or [])
+    want = (bytes if domain is bytes
+            else int if np.dtype(domain).kind in "iu" else float)
+    bounded, open_ = [], []
+    got = None
+    for i, null in enumerate(nulls):
+        if null:
+            continue
+        mn = mins[i] if i < len(mins) else None
+        mx = maxs[i] if i < len(maxs) else None
+        if mn is None or mx is None or mn != mn or mx != mx:
+            open_.append(i)
+        elif type(mn) is want and type(mx) is want:
+            bounded.append(i)
+        else:
+            break
     else:
-        amin, amax = bounds
+        dt = object if domain is bytes else domain
+        got = (np.array(bounded, np.int64),
+               np.array([mins[i] for i in bounded], dt),
+               np.array([maxs[i] for i in bounded], dt),
+               np.array(open_, np.int64))
+    memo[domain] = got
+    return got
+
+
+def _walk_pairs(keys: np.ndarray, walk) -> Tuple[np.ndarray, np.ndarray]:
+    """The zone-map walk (:func:`~.search.pages_overlapping`) for every key
+    at once: the (key index, page) pairs with ``min <= key <= max`` on a
+    bounded page, every key on an open page, and a NaN key (which compares
+    False with every bound) on every non-null page."""
+    from ..ops.host import segment_ranges
+
+    pages, amin, amax, open_ = walk
+    m = len(keys)
+    nan = (keys != keys) if keys.dtype.kind == "f" else np.zeros(m, bool)
+    ok = np.flatnonzero(~nan)
+    order = ok[np.argsort(keys[ok], kind="stable")]
+    sk = keys[order]
+    a = np.searchsorted(sk, amin, "left")
+    b = np.searchsorted(sk, amax, "right")
+    cnt = np.maximum(b - a, 0)
+    kidx = [order[np.repeat(a, cnt) + segment_ranges(cnt)]]
+    pg = [np.repeat(pages, cnt)]
+    if len(open_):
+        kidx.append(np.tile(np.arange(m, dtype=np.int64), len(open_)))
+        pg.append(np.repeat(open_, m))
+    nan_idx = np.flatnonzero(nan)
+    if len(nan_idx) and len(pages):
+        kidx.append(np.repeat(nan_idx, len(pages)))
+        pg.append(np.tile(pages, len(nan_idx)))
+    return np.concatenate(kidx), np.concatenate(pg)
+
+
+def _page_ords_of_keys(ci, leaf, prep: _PreparedKeys, alive: np.ndarray,
+                       counters: Dict[str, int]) -> _KeyPages:
+    """Stage 3's page search for the alive keys, on arrays of keys: a
+    cleanly ascending index by ``searchsorted`` over its bounds, an index
+    the binary search may not take (unordered, or with null pages or
+    missing bounds) by the zone-map walk over the sorted keys
+    (:func:`_walk_pairs`); the keys that no page may hold count in
+    ``keys_pruned_pages``.  The per-key search of the reference
+    (:func:`_key_page_ords`) still answers a NaN key on an ordered index,
+    a DESCENDING index, an ordered index whose ladders do not ascend, and
+    keys of the python-object domain (booleans, byte-stored decimals)."""
+    got = None
+    if prep.order is not None:
         keys = prep.order[alive]
-        lo = np.searchsorted(amax, keys, side="left")
-        hi = np.searchsorted(amin, keys, side="right")
-        # a NaN key compares False with every bound: the reference's walk
-        # keeps every page of an unordered index for it, so it takes that
-        # walk
-        nan = (np.isnan(keys) if keys.dtype.kind == "f"
-               else np.zeros(len(keys), bool))
-        got = [(u, _key_page_ords(ci, leaf, prep.uniq[u]) if isnan
-                else list(range(a, b)) if a < b else [])
-               for u, a, b, isnan in zip(alive.tolist(), lo.tolist(),
-                                         hi.tolist(), nan.tolist())]
-    out = [(u, ords) for u, ords in got if ords]
-    _count(counters, "keys_pruned_pages", len(got) - len(out))
-    return out
+        bounds = _sorted_bounds(ci, leaf, prep.order)
+        if bounds is not None:
+            got = _run_pages(ci, leaf, prep, alive, keys, bounds)
+        elif not _ordered_searchable(ci, leaf):
+            walk = _walk_bounds(ci, leaf, prep.order.dtype.type)
+            if walk is not None:
+                got = _key_pages_of_pairs(alive, *_walk_pairs(keys, walk))
+    elif _bytes_keyed(leaf) and _is_bytes(prep)[alive].all():
+        keys = _object_keys(prep)[alive]
+        byte_bounds = _sorted_byte_bounds(ci, leaf)
+        if byte_bounds is not None:
+            mins, maxs = (np.array(b, object) for b in byte_bounds)
+            lo = np.searchsorted(maxs, keys, "left")
+            hi = np.searchsorted(mins, keys, "right")
+            keep = lo < hi
+            got = _KeyPages(alive[keep], lo[keep].astype(np.int64),
+                            hi[keep].astype(np.int64))
+        elif not _ordered_searchable(ci, leaf):
+            walk = _walk_bounds(ci, leaf, bytes)
+            if walk is not None:
+                got = _key_pages_of_pairs(alive, *_walk_pairs(keys, walk))
+    if got is None:  # the reference's search, key by key
+        pairs = [(u, _key_page_ords(ci, leaf, prep.uniq[u]))
+                 for u in alive.tolist()]
+        pairs = [(u, ords) for u, ords in pairs if ords]
+        got = (_key_pages_of_lists([u for u, _ in pairs],
+                                   [ords for _, ords in pairs])
+               if pairs else _KeyPages(*(np.empty(0, np.int64),) * 3))
+    _count(counters, "keys_pruned_pages", len(alive) - len(got.us))
+    return got
+
+
+def _run_pages(ci, leaf, prep: _PreparedKeys, alive: np.ndarray,
+               keys: np.ndarray, bounds) -> _KeyPages:
+    """Page runs ``[searchsorted(maxs, key, 'left'), searchsorted(mins,
+    key, 'right'))`` on a cleanly ascending index (:func:`_sorted_bounds`);
+    a NaN key, which compares False with every bound, takes the reference's
+    search."""
+    amin, amax = bounds
+    lo = np.searchsorted(amax, keys, side="left").astype(np.int64)
+    hi = np.searchsorted(amin, keys, side="right").astype(np.int64)
+    keep = lo < hi
+    nan_pos = (np.flatnonzero(np.isnan(keys)) if keys.dtype.kind == "f"
+               else np.empty(0, np.int64))
+    listed = {}
+    for i in nan_pos.tolist():  # NaN keys only
+        ords = _key_page_ords(ci, leaf, prep.uniq[int(alive[i])])
+        keep[i] = bool(ords)
+        if ords:
+            lo[i], hi[i] = ords[0], ords[-1] + 1
+            if len(ords) != hi[i] - lo[i]:
+                listed[i] = ords
+    kept = np.flatnonzero(keep)
+    if not listed:
+        return _KeyPages(alive[kept], lo[kept], hi[kept])
+    at = np.searchsorted(kept, np.fromiter(listed, np.int64))
+    cnt = np.zeros(len(kept), np.int64)
+    cnt[at] = [len(v) for v in listed.values()]
+    offs = np.zeros(len(kept) + 1, np.int64)
+    np.cumsum(cnt, out=offs[1:])
+    pages = np.concatenate([np.asarray(listed[i], np.int64)
+                            for i in sorted(listed)])
+    return _KeyPages(alive[kept], lo[kept], hi[kept], (offs, pages))
 
 
 def _rg_sorted_by(rg, leaf) -> Optional[bool]:
@@ -703,53 +1042,59 @@ def _bloom_survivors(alive: np.ndarray, keep: np.ndarray,
     return alive[keep]
 
 
-def _lookup_rg(pf, rg, leaf, prep: _PreparedKeys, alive: np.ndarray,
-               out_leaves, counters: Dict[str, int], device):
-    """Stages 3-4 of one row group for its ``alive`` keys (the survivors
-    of :func:`_prune_row_groups`): the page search, the page reads, the
-    match and the gather of the output columns.  Returns ``(rows,
-    cols)``: ``rows[u]`` the local row ordinals of uniq key ``u`` and
-    ``cols[u][name]`` its ``(values, validity)``; None when no key
-    matched."""
-    from ..utils.pool import lookup_admission
+class _Part(NamedTuple):
+    """A row group's hits, in arrays until :func:`_assemble_hits`: the
+    matched keys' uniq ordinals ``us``; key ``j``'s rows are
+    ``rows[offs[j]:offs[j + 1]]`` (ascending); ``cols[name]`` is the output
+    column's ``(values, valid, row_valid)`` at those rows (values a numpy
+    array or :class:`~.cache.ByteRows`, ``valid`` True where the row's
+    page carried no validity, ``row_valid`` whether it carried one)."""
 
+    us: np.ndarray
+    offs: np.ndarray
+    rows: np.ndarray
+    cols: Dict[str, tuple]
+
+
+def _lookup_rg(pf, rg, leaf, prep: _PreparedKeys, alive: np.ndarray,
+               out_leaves, counters: Dict[str, int], device,
+               fetchers: "_Fetchers") -> Optional[_Part]:
+    """Stages 3-4 of one row group for its ``alive`` keys (the survivors
+    of :func:`_prune_row_groups`, or a shard's slice of them): the page
+    search, the page reads, the match and the gather of the output
+    columns.  Returns the row group's :class:`_Part` (row-group rows), or
+    None when no key matched."""
     if not len(alive):
         return None
     chunk = rg.column(leaf.column_index)
     ci = chunk.column_index()
     oi = chunk.offset_index()
+    fetcher = fetchers.get(rg, chunk, "key")
     if ci is None or oi is None or not oi.page_locations:
         # the whole chunk, matched as an unsorted row group, as the
         # reference matches it there
-        _count(counters, "chunk_fallbacks", 1)
-        with lookup_admission().admit(chunk.meta.total_compressed_size or 0):
-            vals, valid = decode_aligned(chunk, device)
-        entries = {0: PageEntry(vals, valid, 0, rg.num_rows)}
-        key_pages = [(u, [0]) for u in alive.tolist()]
+        entries = {0: fetcher.whole(counters)}
+        kp = _KeyPages(alive, np.zeros(len(alive), np.int64),
+                       np.ones(len(alive), np.int64))
         nulls_first = None
     else:
         # ---- stage 3: the page index, then page reads
-        key_pages = _page_ords_of_keys(ci, leaf, prep, alive, counters)
-        if not key_pages:
+        kp = _page_ords_of_keys(ci, leaf, prep, alive, counters)
+        if not len(kp.us):
             return None
-        needed = set()
-        for _, ords in key_pages:
-            needed.update(ords)
-        entries = _PageFetcher(pf, rg, chunk, counters, device).fetch(needed)
+        entries = fetcher.fetch(kp.needed(), counters)
         nulls_first = _rg_sorted_by(rg, leaf)
-    per_uniq_rows = _match(leaf, prep, key_pages, entries, nulls_first,
-                           counters)
-    if not per_uniq_rows:
+    us, offs, rows = _match(leaf, prep, kp, entries, nulls_first, counters)
+    if not len(us):
         return None
-    _count(counters, "rows_matched",
-           sum(len(r) for r in per_uniq_rows.values()))
-    return per_uniq_rows, _gather_columns(pf, rg, per_uniq_rows, out_leaves,
-                                          counters, device)
+    _count(counters, "rows_matched", len(rows))
+    return _Part(us, offs, rows,
+                 _gather_columns(rg, rows, out_leaves, counters, fetchers))
 
 
 # ---------------------------------------------------------------------------
-# stage 4's match: every key of a row group at once, against one sorted
-# table of its fetched rows
+# stage 4's match: every key of a row group at once, against the rows of
+# its fetched pages, in C++ (ops/host.py::lookup_match)
 # ---------------------------------------------------------------------------
 
 
@@ -769,6 +1114,143 @@ def _row_hashes(entry: PageEntry) -> np.ndarray:
                 v.reshape(-1), np.arange(len(v) + 1, dtype=np.int64) * w)
         entry.memo["hashes"] = got
     return got
+
+
+def _live_rows(entry: PageEntry) -> np.ndarray:
+    """The present rows of a page, computed once an entry."""
+    got = entry.memo.get("live")
+    if got is None:
+        got = entry.memo["live"] = (
+            np.arange(entry.num_rows, dtype=np.int64)
+            if entry.validity is None else np.flatnonzero(entry.validity))
+    return got
+
+
+# a numeric page's dtype kind -> the 8-byte key domain of the C++ match
+def _number_kind(dtype: np.dtype) -> str:
+    if dtype.kind == "f":
+        return "f64"
+    return "u64" if dtype == np.uint64 else "i64"
+
+
+def _number_keys(leaf, entry: PageEntry) -> np.ndarray:
+    """The present rows' values in the leaf's order domain, widened to the
+    8-byte key of :func:`_number_kind`, computed once an entry."""
+    from ..parallel.host_scan import order_view
+
+    got = entry.memo.get("number_keys")
+    if got is None:
+        v = order_view(leaf, entry.values)
+        dt = {"f64": np.float64, "u64": np.uint64,
+              "i64": np.int64}[_number_kind(v.dtype)]
+        got = entry.memo["number_keys"] = v[_live_rows(entry)].astype(dt)
+    return got
+
+
+def _row_table(entries: Dict[int, PageEntry], keys_of):
+    """The present rows of the fetched pages in page and row order: their
+    8-byte keys, page ordinals and rows in the page, and each page
+    ordinal's first row and row count.  A loop over pages."""
+    n = max(entries) + 1
+    page_first = np.zeros(n, np.int64)
+    page_rows = np.zeros(n, np.int64)
+    keys, pages, local = [], [], []
+    for o in sorted(entries):
+        e = entries[o]
+        page_first[o], page_rows[o] = e.first_row, e.num_rows
+        live = _live_rows(e)
+        keys.append(keys_of(e))
+        pages.append(np.full(len(live), o, np.int64))
+        local.append(live)
+    return (np.concatenate(keys), np.concatenate(pages),
+            np.concatenate(local), page_first, page_rows)
+
+
+def _matched(us: np.ndarray, offs: np.ndarray, rows: np.ndarray):
+    """``(us, offs, rows)`` without the keys that matched no row."""
+    cnt = np.diff(offs)
+    keep = cnt > 0
+    if keep.all():
+        return us, offs, rows
+    new = np.zeros(int(keep.sum()) + 1, np.int64)
+    np.cumsum(cnt[keep], out=new[1:])
+    return us[keep], new, rows
+
+
+def _subset(kp: _KeyPages, sel: np.ndarray) -> _KeyPages:
+    """The keys ``sel`` (a bool mask) of ``kp``."""
+    if kp.lists is None:
+        return _KeyPages(kp.us[sel], kp.lo[sel], kp.hi[sel])
+    from ..ops.host import segment_ranges
+
+    offs, pages = kp.lists
+    cnt = np.diff(offs)[sel]
+    new = np.zeros(len(cnt) + 1, np.int64)
+    np.cumsum(cnt, out=new[1:])
+    idx = np.repeat(offs[:-1][sel], cnt) + segment_ranges(cnt)
+    return _KeyPages(kp.us[sel], kp.lo[sel], kp.hi[sel], (new, pages[idx]))
+
+
+def _match(leaf, prep: _PreparedKeys, kp: _KeyPages, entries,
+           nulls_first: Optional[bool], counters: Dict[str, int]):
+    """The rows equal to each key of ``kp`` in its fetched pages, as
+    ``(us, offs, rows)`` of the keys that matched (row-group rows,
+    ascending a key): numbers of the column's order domain (``prep.order``)
+    by value, and byte keys of a byte array or fixed-length column that is
+    not a decimal by the rows' xxh64 with each candidate's bytes compared,
+    each domain in one C++ call (:func:`~parquet_tpu_torch.ops.host.
+    lookup_match`); every other key (booleans, decimals of byte storage)
+    by its python value in the order domain (:func:`_match_objects`).  The
+    rows are those the reference's in-page binary search or exact mask
+    gives."""
+    from ..ops import host
+
+    if nulls_first is not None:
+        _count(counters, "binary_search_hits", _searches_answered(
+            leaf, prep, kp, entries, nulls_first))
+    first = next(iter(entries.values())).values
+    if (prep.order is not None and isinstance(first, np.ndarray)
+            and first.ndim == 1 and first.dtype.kind in "iuf"):
+        from ..parallel.host_scan import order_view
+
+        vdt = order_view(leaf, first[:0]).dtype
+        kind = _number_kind(vdt)
+        keys, pages, local, pfirst, prows = _row_table(
+            entries, lambda e: _number_keys(leaf, e))
+        # a needle compares as the column's values do (a float32 column
+        # rounds it, as numpy compares a float32 array with a float)
+        needles = prep.order[kp.us].astype(vdt)
+        offs, rows = host.lookup_match(kind, keys, pages, local, pfirst,
+                                       prows, needles, kp.lo, kp.hi,
+                                       kp.lists)
+        return _matched(kp.us, offs, rows)
+    parts = []
+    rest = kp
+    if _bytes_keyed(leaf) and prep.hashes is not None:
+        hashed = _is_bytes(prep)[kp.us]
+        rest = _subset(kp, ~hashed) if not hashed.all() else None
+        if hashed.any():
+            sub = kp if rest is None else _subset(kp, hashed)
+            keys, pages, local, pfirst, prows = _row_table(
+                entries, lambda e: _row_hashes(e)[_live_rows(e)])
+            values = [None] * len(pfirst)
+            for o, e in entries.items():
+                values[o] = e.values
+            offs, rows = host.lookup_match(
+                "hash", keys, pages, local, pfirst, prows,
+                prep.hashes[sub.us], sub.lo, sub.hi, sub.lists,
+                page_values=values, key_table=_key_bytes(prep),
+                needle_ids=sub.us)
+            parts.append(_matched(sub.us, offs, rows))
+    if rest is not None and len(rest.us):
+        parts.append(_match_objects(leaf, prep, rest, entries))
+    if len(parts) == 1:
+        return parts[0]
+    us = np.concatenate([p[0] for p in parts])
+    lens = np.concatenate([np.diff(p[1]) for p in parts])
+    offs = np.zeros(len(us) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    return us, offs, np.concatenate([p[2] for p in parts])
 
 
 def _row_objects(leaf, entry: PageEntry) -> np.ndarray:
@@ -801,143 +1283,66 @@ def _equals_itself(values: np.ndarray) -> np.ndarray:
     return np.ones(len(values), bool)
 
 
-class _RowTable:
-    """Every present row of a row group's fetched pages, sorted by a key
-    of its own: its value in the leaf's order domain, or the hash of its
-    bytes.  A key's candidate rows are one ``searchsorted`` away, however
-    many pages its bounds span (a page index whose bounds were cut to a
-    common prefix gives a key every page of that prefix)."""
+def _match_objects(leaf, prep: _PreparedKeys, kp: _KeyPages, entries):
+    """:func:`_match` for keys of the python-object domain (booleans,
+    decimals of byte storage), in numpy over python values: the rows are
+    sorted by value and each key's candidates are one ``searchsorted``
+    away; a key whose pages are not one run checks each candidate page."""
+    from ..ops.host import segment_ranges
 
-    def __init__(self, entries: Dict[int, PageEntry], sort_key):
-        parts, pages, rows = [], [], []
-        for o in sorted(entries):
-            e = entries[o]
-            live = (np.arange(e.num_rows) if e.validity is None
-                    else np.flatnonzero(e.validity))
-            vals = sort_key(e)[live]
-            keep = _equals_itself(vals)
-            parts.append(vals[keep])
-            pages.append(np.full(int(keep.sum()), o, np.int64))
-            rows.append(live[keep])
-        values = np.concatenate(parts)
-        order = np.argsort(values, kind="stable")
-        self.values = values[order]
-        self.pages = np.concatenate(pages)[order]
-        self.rows = np.concatenate(rows)[order]
-        self.firsts = np.zeros(max(entries) + 1, np.int64)
-        for o, e in entries.items():
-            self.firsts[o] = e.first_row
-
-    def match(self, key_pages, needles: np.ndarray, exact=None
-              ) -> Dict[int, np.ndarray]:
-        """``{uniq ordinal: ascending local rows}`` of the keys of
-        ``key_pages``: the rows whose sort key is the key's ``needles``
-        entry, on a page its bounds allow, and where ``exact(key index,
-        page, row)`` is given, for which it holds.  A NaN needle matches
-        nothing."""
-        from ..ops.host import segment_ranges
-
-        ok = _equals_itself(needles)
-        if not ok.all():
-            key_pages = [x for x, keep in zip(key_pages, ok.tolist())
-                         if keep]
-            needles = needles[ok]
-        if not key_pages:
-            return {}
-        lo = np.searchsorted(self.values, needles, "left")
-        hi = np.searchsorted(self.values, needles, "right")
-        counts = hi - lo
-        kidx = np.repeat(np.arange(len(needles)), counts)
-        j = np.repeat(lo, counts) + segment_ranges(counts)
-        pages, rows = self.pages[j], self.rows[j]
-        first = np.array([ords[0] for _, ords in key_pages], np.int64)
-        last = np.array([ords[-1] for _, ords in key_pages], np.int64)
-        keep = (pages >= first[kidx]) & (pages <= last[kidx])
-        # a key whose pages are not one run (the zone-map walk) checks
-        # each candidate page
-        for i, (_, ords) in enumerate(key_pages):
-            if len(ords) != ords[-1] - ords[0] + 1 and counts[i]:
-                sel = np.flatnonzero(kidx == i)
-                allowed = set(ords)
-                keep[sel] &= np.fromiter((p in allowed
-                                          for p in pages[sel].tolist()),
-                                         bool, count=len(sel))
-        if exact is not None and keep.any():
-            sel = np.flatnonzero(keep)
-            keep[sel] = np.fromiter(
-                (exact(i, p, r) for i, p, r in zip(
-                    kidx[sel].tolist(), pages[sel].tolist(),
-                    rows[sel].tolist())), bool, count=len(sel))
-        kidx, rows = kidx[keep], self.firsts[pages[keep]] + rows[keep]
-        order = np.lexsort((rows, kidx))
-        kidx, rows = kidx[order], rows[order]
-        cut = np.flatnonzero(np.diff(kidx)) + 1
-        return {key_pages[int(part_k[0])][0]: part_r
-                for part_k, part_r in zip(np.split(kidx, cut),
-                                          np.split(rows, cut))
-                if len(part_k)}
+    parts, pages, rows = [], [], []
+    firsts = np.zeros(max(entries) + 1, np.int64)
+    for o in sorted(entries):
+        e = entries[o]
+        firsts[o] = e.first_row
+        live = _live_rows(e)
+        vals = _row_objects(leaf, e)[live]
+        keep = _equals_itself(vals)
+        parts.append(vals[keep])
+        pages.append(np.full(int(keep.sum()), o, np.int64))
+        rows.append(live[keep])
+    values = np.concatenate(parts)
+    order = np.argsort(values, kind="stable")
+    values = values[order]
+    tpages = np.concatenate(pages)[order]
+    trows = np.concatenate(rows)[order]
+    needles = np.empty(len(kp.us), object)
+    needles[:] = [prep.uniq[u] for u in kp.us.tolist()]
+    # a NaN needle matches nothing, and is kept out of the search (numpy's
+    # search of object arrays assumes the needles compare)
+    ok = np.flatnonzero(_equals_itself(needles))
+    lo = np.zeros(len(needles), np.int64)
+    counts = np.zeros(len(needles), np.int64)
+    lo[ok] = np.searchsorted(values, needles[ok], "left")
+    counts[ok] = np.searchsorted(values, needles[ok], "right") - lo[ok]
+    kidx = np.repeat(np.arange(len(needles)), counts)
+    j = np.repeat(lo, counts) + segment_ranges(counts)
+    pg, rw = tpages[j], trows[j]
+    keep = (pg >= kp.lo[kidx]) & (pg < kp.hi[kidx])
+    if kp.lists is not None:
+        loffs, lpages = kp.lists
+        for i in np.flatnonzero(np.diff(loffs) > 0).tolist():
+            sel = np.flatnonzero(kidx == i)
+            keep[sel] &= np.isin(pg[sel], lpages[loffs[i]:loffs[i + 1]])
+    kidx, out = kidx[keep], firsts[pg[keep]] + rw[keep]
+    order = np.lexsort((out, kidx))
+    kidx, out = kidx[order], out[order]
+    offs = np.zeros(len(needles) + 1, np.int64)
+    np.cumsum(np.bincount(kidx, minlength=len(needles)), out=offs[1:])
+    return _matched(kp.us, offs, out)
 
 
-def _match(leaf, prep: _PreparedKeys, key_pages, entries,
-           nulls_first: Optional[bool], counters: Dict[str, int]
-           ) -> Dict[int, np.ndarray]:
-    """The local rows equal to each key of ``key_pages`` in its fetched
-    pages, ascending, by one :class:`_RowTable` a domain: numbers of the
-    column's order domain (``prep.order``) by value; byte keys of a byte
-    array or fixed-length column that is not a decimal by the rows'
-    xxh64, each candidate's bytes then compared; every other key
-    (booleans, decimals of byte storage) by its python value in the order
-    domain.  The rows are those the reference's in-page binary search or
-    exact mask gives."""
-    from ..parallel.host_scan import order_view
-
-    if nulls_first is not None:
-        _count(counters, "binary_search_hits", _searches_answered(
-            leaf, prep, key_pages, entries, nulls_first))
-    first = next(iter(entries.values())).values
-    if (prep.order is not None and isinstance(first, np.ndarray)
-            and first.ndim == 1 and first.dtype.kind in "iuf"):
-        table = _RowTable(entries, lambda e: order_view(leaf, e.values))
-        needles = prep.order[np.fromiter((u for u, _ in key_pages), np.int64,
-                                         count=len(key_pages))]
-        return table.match(key_pages, needles.astype(table.values.dtype))
-    hashed, rest = [], key_pages
-    if _bytes_keyed(leaf) and prep.hashes is not None:
-        hashed = [x for x in key_pages
-                  if isinstance(prep.uniq[x[0]], (bytes, bytearray))]
-        rest = [x for x in key_pages
-                if not isinstance(prep.uniq[x[0]], (bytes, bytearray))]
-    got: Dict[int, np.ndarray] = {}
-    if hashed:
-        def same_bytes(i, p, r):
-            v = entries[p].values
-            row = v.row(r) if isinstance(v, ByteRows) else v[r].tobytes()
-            return row == prep.uniq[hashed[i][0]]
-
-        table = _RowTable(entries, _row_hashes)
-        got.update(table.match(hashed, prep.hashes[[u for u, _ in hashed]],
-                               same_bytes))
-    if rest:
-        table = _RowTable(entries, lambda e: _row_objects(leaf, e))
-        needles = np.empty(len(rest), object)
-        needles[:] = [prep.uniq[u] for u, _ in rest]
-        got.update(table.match(rest, needles))
-    return got
-
-
-def _searches_answered(leaf, prep: _PreparedKeys, key_pages, entries,
+def _searches_answered(leaf, prep: _PreparedKeys, kp: _KeyPages, entries,
                        nulls_first: bool) -> int:
     """``binary_search_hits``, derived for parity with the reference: the
     (key, page) probes that the reference answers by a binary search
     within the page of a row group sorted by the key (the port matches
-    every key against a :class:`_RowTable`, so no such search runs).  A
-    page answers any key when all of it is null, and otherwise only where
-    its nulls are one run at the declared end and it holds integers for
-    an integer key or, outside a decimal, byte arrays for a bytes key."""
-    from collections import Counter
-    from itertools import chain
-
-    verdict = {}  # page: 2 any key, 1 a key of its kind, 0 none
+    every key in C++, so no such search runs).  A page answers any key
+    when all of it is null, and otherwise only where its nulls are one run
+    at the declared end and it holds integers for an integer key or,
+    outside a decimal, byte arrays for a bytes key.  A loop over pages;
+    the keys are summed on arrays."""
+    verdict = np.zeros(max(entries) + 1, np.int64)  # 2 any key, 1 its kind
     for o, e in entries.items():
         v, valid = e.values, e.validity
         if valid is not None:
@@ -947,108 +1352,51 @@ def _searches_answered(leaf, prep: _PreparedKeys, key_pages, entries,
                 continue
             run = valid[e.num_rows - k:] if nulls_first else valid[:k]
             if not run.all():
-                verdict[o] = 0
                 continue
         if isinstance(v, ByteRows):
             verdict[o] = int(leaf.logical_kind != LogicalKind.DECIMAL)
         else:
             verdict[o] = int(v.ndim == 1 and v.dtype.kind in "iu")
-    if not any(verdict.values()):
+    if not verdict.any():
         return 0
     if isinstance(next(iter(entries.values())).values, ByteRows):
-        kind_ok = [isinstance(prep.uniq[u], (bytes, bytearray))
-                   for u, _ in key_pages]
+        kind_ok = _is_bytes(prep)[kp.us]
     elif prep.order is not None and prep.order.dtype.kind in "iu":
-        kind_ok = None  # integers of the column's domain, every one
+        return int(kp.per_key_sum(verdict > 0).sum())
     else:
-        kind_ok = [isinstance(prep.uniq[u], (int, np.integer))
-                   and not isinstance(prep.uniq[u], bool)
-                   for u, _ in key_pages]
-    if kind_ok is None:
-        uses = Counter(chain.from_iterable(ords for _, ords in key_pages))
-        return sum(n for o, n in uses.items() if verdict[o])
-    return sum(verdict[o] == 2 or (verdict[o] == 1 and ok)
-               for (_, ords), ok in zip(key_pages, kind_ok) for o in ords)
+        kind_ok = _is_int(prep)[kp.us]
+    anykey = kp.per_key_sum(verdict == 2)
+    itskind = kp.per_key_sum(verdict == 1)
+    return int(anykey.sum() + itskind[kind_ok].sum())
 
 
-def _take(values, validity, idx: np.ndarray):
-    """Row-aligned ``(values, validity)`` at ``idx``: byte rows become a
-    list of ``bytes`` with None at null rows."""
-    valid = None if validity is None else validity[idx]
-    if isinstance(values, ByteRows):
-        idx = idx.tolist()
-        flags = [True] * len(idx) if valid is None else valid.tolist()
-        return [values.row(i) if f else None
-                for i, f in zip(idx, flags)], valid
-    return values[idx], valid
+def _gather_columns(rg, rows: np.ndarray, out_leaves,
+                    counters: Dict[str, int], fetchers: "_Fetchers"
+                    ) -> Dict[str, tuple]:
+    """Each output column's row-aligned ``(values, valid, row_valid)`` at
+    the matched ``rows``, read through one coalesced page fetch per chunk
+    (or the whole chunk) and gathered in one C++ call
+    (:func:`~parquet_tpu_torch.ops.host.lookup_gather`)."""
+    from ..ops import host
 
-
-def _gather_columns(pf, rg, per_uniq_rows: Dict[int, np.ndarray], out_leaves,
-                    counters: Dict[str, int], device):
-    """Each output column's row-aligned values at every matched row, read
-    through one coalesced page fetch per chunk, then cut per key.  A key's
-    validity is None when none of the pages its rows lie in carried one,
-    as the reference concatenates it."""
-    from ..utils.pool import lookup_admission
-
-    us = list(per_uniq_rows)
-    lens = np.array([len(per_uniq_rows[u]) for u in us], np.int64)
-    starts = np.concatenate([[0], np.cumsum(lens)])
-    rows = np.concatenate([per_uniq_rows[u] for u in us])
-    cols: Dict[int, Dict[str, tuple]] = {u: {} for u in us}
+    cols: Dict[str, tuple] = {}
     for out_leaf in out_leaves:
         chunk = rg.column(out_leaf.column_index)
+        fetcher = fetchers.get(rg, chunk, "out")
         oi = chunk.offset_index()
         if oi is None or not oi.page_locations:
-            _count(counters, "chunk_fallbacks", 1)
-            with lookup_admission().admit(
-                    chunk.meta.total_compressed_size or 0):
-                vals, valid = decode_aligned(chunk, device)
-            got_vals, got_valid = _take(vals, valid, rows)
-            has_valid = np.full(len(us), valid is not None)
+            pages = [fetcher.whole(counters)]
         else:
-            fetcher = _PageFetcher(pf, rg, chunk, counters, device)
-            ords = fetcher.ords_of_rows(rows)
-            entries = fetcher.fetch(np.unique(ords).tolist())
-            got_vals, got_valid, row_valid = _gather_pages(entries, rows,
-                                                           ords)
-            has_valid = (np.add.reduceat(row_valid, starts[:-1]) > 0
-                         if len(rows) else np.zeros(len(us), bool))
-        for j, u in enumerate(us):
-            a, b = starts[j], starts[j + 1]
-            cols[u][out_leaf.name] = (
-                got_vals[a:b], got_valid[a:b] if has_valid[j] else None)
+            got = fetcher.fetch(np.unique(fetcher.ords_of_rows(rows)),
+                                counters)
+            pages = [got[o] for o in sorted(got)]
+        vals, valid, row_valid = host.lookup_gather(
+            [(e.first_row, e.num_rows, e.values, e.validity) for e in pages],
+            rows)
+        if isinstance(vals, tuple):
+            vals = ByteRows(*vals)
+        cols[out_leaf.name] = (vals, valid, row_valid)
     return cols
-
-
-def _gather_pages(entries: Dict[int, PageEntry], rows: np.ndarray,
-                  ords: np.ndarray):
-    """(values, validity, row_has_validity) at ``rows`` (page ``ords``);
-    byte rows gather into a list."""
-    first = next(iter(entries.values())).values
-    if isinstance(first, ByteRows):
-        vals = [None] * len(rows)
-    else:
-        vals = np.empty((len(rows),) + first.shape[1:], first.dtype)
-    valid = np.ones(len(rows), bool)
-    row_valid = np.zeros(len(rows), np.int64)
-    by_page = np.argsort(ords, kind="stable")
-    uo, cut = np.unique(ords[by_page], return_index=True)
-    cut = np.append(cut, len(rows))
-    for o, a, b in zip(uo.tolist(), cut[:-1].tolist(), cut[1:].tolist()):
-        e = entries[o]
-        sel = by_page[a:b]
-        local = rows[sel] - e.first_row
-        part, pvalid = _take(e.values, e.validity, local)
-        if isinstance(vals, list):
-            for i, v in zip(sel.tolist(), part):
-                vals[i] = v
-        else:
-            vals[sel] = part
-        if pvalid is not None:
-            valid[sel] = pvalid
-            row_valid[sel] = 1
-    return vals, valid, row_valid
 
 
 # ---------------------------------------------------------------------------
@@ -1109,14 +1457,14 @@ def _find_rows_impl(pf, path, keys, columns, device, policy,
     prep = _prepare_keys(leaf, keys)
     _oscope.account(_METRIC["keys"], len(keys))
     if pol is None and report is None:
-        counters, per_uniq = _lookup_file(pf, leaf, prep, out_leaves, dev)
+        counters, parts = _lookup_file(pf, leaf, prep, out_leaves, dev)
     else:
         with pf._resilient_op(policy, report, "lookup"):
-            counters, per_uniq = _lookup_file(
+            counters, parts = _lookup_file(
                 pf, leaf, prep, out_leaves, dev,
                 skip=pol is not None and pol.skip_corrupt, report=report)
     counters["keys"] = len(keys)
-    res = LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
+    res = LookupResult(_assemble_hits(keys, prep, parts, out_leaves),
                        counters)
     res.report = report
     return res
@@ -1125,52 +1473,143 @@ def _find_rows_impl(pf, path, keys, columns, device, policy,
 def _lookup_file(pf, leaf, prep: _PreparedKeys, out_leaves, dev,
                  skip: bool = False, report=None):
     """The cascade over every row group of ``pf`` for a prepared batch:
-    ``(counters, {uniq ordinal: [(file-local rows, {column: (values,
-    validity)}), ...]})``, the keys not counted.  A row group's data error
+    ``(counters, parts)``, each :class:`_Part` with file-local rows, in
+    row-group order, the keys not counted.  A row group's data error
     raises at its turn, or with ``skip`` drops the row group whole into
     ``report``."""
     from .cache import NEGS
 
     counters = _new_counters()
-    per_uniq: Dict[int, List[tuple]] = {}
     if not prep.uniq:
-        return counters, per_uniq
+        return counters, []
     row_groups = pf.row_groups
     alive_by_rg, neg_keys, probed, failed = _prune_row_groups(
         pf, row_groups, leaf, prep, counters, dev)
+    got_by_rg = _dispatch_probes(pf, row_groups, leaf, prep, alive_by_rg,
+                                 failed, out_leaves, counters, dev, skip)
+    parts: List[_Part] = []
     rg_base = 0
-    for rg, alive, neg_key, tried, err in zip(
-            row_groups, alive_by_rg, neg_keys, probed, failed):
-        got = None
-        if err is None:
-            try:
-                with _rg_context(pf, rg, leaf):
-                    got = _lookup_rg(pf, rg, leaf, prep, alive, out_leaves,
-                                     counters, dev)
-            except DeadlineError:
-                raise
-            except CorruptedError as e:
-                err = e
+    for rg, neg_key, tried, err, got in zip(row_groups, neg_keys, probed,
+                                            failed, got_by_rg):
+        if isinstance(got, CorruptedError):
+            err = got
         if err is not None:
             if not skip:
                 raise err
             report.record_skip(rg.index, rows=rg.num_rows, error=err)
             rg_base += rg.num_rows
             continue
-        if got is not None:
-            rows_map, cols_map = got
-            for u, rows in rows_map.items():
-                per_uniq.setdefault(u, []).append((rows + rg_base,
-                                                   cols_map[u]))
+        parts.extend(p._replace(rows=p.rows + rg_base) for p in got)
         if neg_key is not None and len(tried):
             # the row group's cascade ran to its end: what it left
             # unmatched is absent
-            if got is not None:
-                tried = tried[~np.isin(tried, np.fromiter(
-                    got[0], np.int64, count=len(got[0])))]
+            if got:
+                tried = tried[~np.isin(tried, np.concatenate(
+                    [p.us for p in got]))]
             NEGS.add(neg_key, _uniq_keys(prep, tried))
         rg_base += rg.num_rows
-    return counters, per_uniq
+    return counters, parts
+
+
+def _key_shard_min() -> int:
+    """The fewest uniq keys a shard takes before a large batch fans its
+    row groups' stages 3-4 out across pool workers
+    (``PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD``; ``0``, the port's default,
+    no sharding: the reference's 1,024 made phase 5's lookup slower on
+    an H100 host, PERF.md)."""
+    return max(0, env_int("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD"))
+
+
+def _dispatch_probes(pf, row_groups, leaf, prep: _PreparedKeys,
+                     alive_by_rg, failed, out_leaves,
+                     counters: Dict[str, int], dev, skip: bool) -> list:
+    """Stages 3-4 of every row group: for each, its list of
+    :class:`_Part` (row-group rows), or the ``CorruptedError`` that
+    stopped it (None for a row group stages 0-2 already failed).
+
+    Key sharding, the reference's rule: when the floor
+    (:func:`_key_shard_min`) is set, the batch holds at least twice it in
+    uniq keys, the policy does not skip corrupt row groups, the caller is
+    not itself on the shared pool (a dataset lookup's per-file workers
+    stay serial) and no row group failed stages 0-2, the uniq keys split
+    into ``min(pool_width(), nuniq // floor)`` contiguous slices of their
+    sorted order, each slice running stages 3-4 over every row group on a
+    pool worker (:func:`~parquet_tpu_torch.utils.pool.map_in_order`, in
+    the caller's context: its op scope, deadline and page pin), starting
+    at its own row group.  The shards share one :class:`_Fetchers`, so
+    each page and whole chunk is read and decoded once; the C++ match and
+    gather release the interpreter lock, so the shards' matches and
+    gathers run side by side.  ``key_shards`` counts the slices."""
+    from ..utils.pool import in_shared_pool, map_in_order, pool_width
+
+    floor = _key_shard_min()
+    nuniq = len(prep.uniq)
+    nshards = 0
+    if floor and nuniq >= 2 * floor and not skip and not in_shared_pool() \
+            and not any(e is not None for e in failed):
+        nshards = min(pool_width(), nuniq // floor)
+    if nshards < 2:
+        out = []
+        for rg, alive, err in zip(row_groups, alive_by_rg, failed):
+            if err is not None:
+                out.append(None)
+                continue
+            try:
+                with _rg_context(pf, rg, leaf):
+                    got = _lookup_rg(pf, rg, leaf, prep, alive, out_leaves,
+                                     counters, dev,
+                                     _Fetchers(pf, dev, shared=False))
+            except DeadlineError:
+                raise
+            except CorruptedError as e:
+                if not skip:
+                    raise
+                out.append(e)
+                continue
+            out.append([] if got is None else [got])
+        return out
+    _count(counters, "key_shards", nshards)
+    rank = np.empty(nuniq, np.int64)
+    rank[_key_order(prep)] = np.arange(nuniq, dtype=np.int64)
+    cuts = np.linspace(0, nuniq, nshards + 1).astype(np.int64)
+    shard_of = np.searchsorted(cuts[1:], rank, side="right")
+    fetchers = _Fetchers(pf, dev, shared=True)
+    shard_counters = [_new_counters() for _ in range(nshards)]
+    nrg = len(row_groups)
+
+    def one(si: int) -> Dict[int, _Part]:
+        got_by = {}
+        start = si * nrg // nshards
+        for j in list(range(start, nrg)) + list(range(start)):
+            alive = alive_by_rg[j]
+            mine = alive[shard_of[alive] == si]
+            if not len(mine):
+                continue
+            with _rg_context(pf, row_groups[j], leaf):
+                got = _lookup_rg(pf, row_groups[j], leaf, prep, mine,
+                                 out_leaves, shard_counters[si], dev,
+                                 fetchers)
+            if got is not None:
+                got_by[j] = got
+        return got_by
+
+    shards = map_in_order(one, range(nshards))
+    for sc in shard_counters:
+        # the registry saw each shard's counts once already
+        for k, v in sc.items():
+            counters[k] += v
+    return [[s[j] for s in shards if j in s] for j in range(nrg)]
+
+
+def _key_order(prep: _PreparedKeys) -> np.ndarray:
+    """The uniq ordinals in the keys' sorted order where they have one (a
+    slice of it touches few pages of a file sorted by the key), else in
+    arrival order."""
+    if prep.order is not None:
+        return np.argsort(prep.order, kind="stable")
+    if _is_bytes(prep).all():
+        return np.argsort(_object_keys(prep), kind="stable")
+    return np.arange(len(prep.uniq), dtype=np.int64)
 
 
 def _uniq_keys(prep: _PreparedKeys, us: np.ndarray) -> list:
@@ -1181,23 +1620,28 @@ def _uniq_keys(prep: _PreparedKeys, us: np.ndarray) -> list:
     return [prep.uniq[u] for u in us.tolist()]
 
 
-def _concat_values(vparts):
-    if isinstance(vparts[0], list):
-        return [v for p in vparts for v in p]
+def _flat_values(vparts: list):
+    """One column's values of several parts, concatenated."""
+    if isinstance(vparts[0], ByteRows):
+        sizes = np.array([len(p.data) for p in vparts], np.int64)
+        base = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        offs = np.concatenate([vparts[0].offsets[:1]] + [
+            p.offsets[1:] - p.offsets[0] + b
+            for p, b in zip(vparts, base.tolist())])
+        return ByteRows(np.concatenate([p.data for p in vparts]), offs)
     return vparts[0] if len(vparts) == 1 else np.concatenate(vparts)
 
 
-def _concat_validity(vparts, valparts):
-    if all(v is None for v in valparts):
-        return None
-    return np.concatenate([v if v is not None else np.ones(len(p), bool)
-                           for v, p in zip(valparts, vparts)])
-
-
-def _assemble_hits(keys, prep: _PreparedKeys, per_uniq, out_leaves
-                   ) -> List[KeyHits]:
+def _assemble_hits(keys, prep: _PreparedKeys, parts: List[_Part],
+                   out_leaves) -> List[KeyHits]:
     """One :class:`KeyHits` per uniq key, shared by its duplicates in the
-    input; a key with no rows gets empty values and None validity."""
+    input; a key with no rows gets empty values and None validity.  The
+    parts' arrays are put in key order at once; a key's validity of a
+    column is None when none of its rows' pages carried one, as the
+    reference concatenates it."""
+    from ..ops import host
+    from ..ops.host import segment_ranges
+
     names = [leaf.name for leaf in out_leaves]
     no_rows = np.empty(0, np.int64)
     no_values = {c: _empty_values(lf) for c, lf in zip(names, out_leaves)}
@@ -1210,20 +1654,49 @@ def _assemble_hits(keys, prep: _PreparedKeys, per_uniq, out_leaves
             values[c] = []
         return KeyHits(key, no_rows, values, dict(no_validity))
 
-    def build(u: int, key) -> KeyHits:
-        parts = per_uniq[u]
-        if len(parts) == 1:
-            rows, cols = parts[0]
-            h = KeyHits(key, rows)
-            for c in names:
-                h.values[c], h.validity[c] = cols[c]
-            return h
-        h = KeyHits(key, np.concatenate([p[0] for p in parts]))
+    found: Dict[int, Tuple[int, int]] = {}
+    if parts:
+        us = np.concatenate([p.us for p in parts])
+        lens = np.concatenate([np.diff(p.offs) for p in parts])
+        sizes = np.array([len(p.rows) for p in parts], np.int64)
+        base = np.repeat(np.concatenate([[0], np.cumsum(sizes)[:-1]]),
+                         [len(p.us) for p in parts])
+        starts = np.concatenate([p.offs[:-1] for p in parts]) + base
+        order = np.argsort(us, kind="stable")  # a key's parts in file order
+        lens = lens[order]
+        idx = np.repeat(starts[order], lens) + segment_ranges(lens)
+        rows = np.concatenate([p.rows for p in parts])[idx]
+        ku, first = np.unique(us[order], return_index=True)
+        bounds = np.concatenate([np.concatenate([[0], np.cumsum(lens)])[
+            first], [len(idx)]])
+        cols = {}
         for c in names:
-            vparts = [p[1][c][0] for p in parts]
-            h.values[c] = _concat_values(vparts)
-            h.validity[c] = _concat_validity(vparts,
-                                             [p[1][c][1] for p in parts])
+            vals = _flat_values([p.cols[c][0] for p in parts])
+            valid = np.concatenate([p.cols[c][1] for p in parts])[idx]
+            row_valid = np.concatenate([p.cols[c][2] for p in parts])[idx]
+            has_valid = np.maximum.reduceat(row_valid, bounds[:-1]) \
+                if len(idx) else np.zeros(0, bool)
+            if isinstance(vals, ByteRows):
+                data, offs = host.gather_byte_arrays(vals.data, vals.offsets,
+                                                     idx)
+                vals = (data.tobytes(), offs.tolist(), valid.tolist())
+            else:
+                vals = vals[idx]
+            cols[c] = (vals, valid, has_valid)
+        found = {u: (a, b, i) for i, (u, a, b) in enumerate(zip(
+            ku.tolist(), bounds[:-1].tolist(), bounds[1:].tolist()))}
+
+    def build(key, a: int, b: int, i: int) -> KeyHits:
+        h = KeyHits(key, rows[a:b])
+        for c in names:
+            vals, valid, has_valid = cols[c]
+            if isinstance(vals, tuple):  # byte rows: bytes, None at a null
+                buf, offs, ok = vals
+                h.values[c] = [buf[offs[r]:offs[r + 1]] if ok[r] else None
+                               for r in range(a, b)]
+            else:
+                h.values[c] = vals[a:b]
+            h.validity[c] = valid[a:b] if has_valid[i] else None
         return h
 
     built: Dict[int, KeyHits] = {}
@@ -1231,7 +1704,8 @@ def _assemble_hits(keys, prep: _PreparedKeys, per_uniq, out_leaves
     for k, u in zip(keys, prep.key_map.tolist()):
         got = built.get(u)
         if got is None:
-            got = build(u, k) if u >= 0 and u in per_uniq else empty(k)
+            where = found.get(u)
+            got = build(k, *where) if where is not None else empty(k)
             if u >= 0:
                 built[u] = got
         hits.append(got)
@@ -1318,7 +1792,7 @@ def _dataset_find_rows_impl(ds, path, keys, columns, device, policy,
 
     results = map_in_order(one, range(len(ds.paths)))
     counters = _new_counters()
-    per_uniq: Dict[int, List[tuple]] = {}
+    parts: List[_Part] = []
     base = 0
     for i, (got, sub, rows, err) in enumerate(results):
         if got is None:
@@ -1329,11 +1803,10 @@ def _dataset_find_rows_impl(ds, path, keys, columns, device, policy,
             continue
         if report is not None and sub is not None:
             report.merge(sub)
-        file_counters, parts = got
+        file_counters, file_parts = got
         for k, v in file_counters.items():
             counters[k] += v
-        for u, ps in parts.items():
-            per_uniq.setdefault(u, []).extend((r + base, c) for r, c in ps)
+        parts.extend(p._replace(rows=p.rows + base) for p in file_parts)
         base += rows
     if prep is None or len(report.files_skipped if report else ()) \
             == len(ds.paths):
@@ -1341,7 +1814,7 @@ def _dataset_find_rows_impl(ds, path, keys, columns, device, policy,
             "dataset find_rows: every file failed "
             f"({', '.join(report.files_skipped) if report else ''})")
     counters["keys"] = len(keys)
-    res = LookupResult(_assemble_hits(keys, prep, per_uniq, out_leaves),
+    res = LookupResult(_assemble_hits(keys, prep, parts, out_leaves),
                        counters)
     res.report = report
     return res

@@ -133,9 +133,8 @@ def debugz_snapshot(top_n: int = 10) -> dict:
     - ``ledger``: per-account resident/capacity/high-water bytes, the
       process total, watermark state and thresholds (obs/ledger.py);
     - ``caches``: per-cache entry/byte counts plus the top-N entries by
-      bytes WITH their keys — "which file's pages are pinning memory"
-      answered from a running process (``chunk`` stays empty: the port
-      has no whole-chunk cache);
+      bytes WITH their keys — "which file's chunks or pages are pinning
+      memory" answered from a running process;
     - ``admission``: the unified read gate — bytes in flight, queue
       depth (waiters), lifetime blocked-acquire count, high water, and
       the effective budgets;
@@ -184,7 +183,9 @@ def debugz_snapshot(top_n: int = 10) -> dict:
 
         st = _cache.cache_stats()
         out["caches"] = {
-            "chunk": {"entries": 0, "bytes": 0, "capacity": 0, "top": []},
+            "chunk": {"entries": st.chunk_entries, "bytes": st.chunk_bytes,
+                      "capacity": st.chunk_capacity,
+                      "top": _cache.CHUNKS.top_entries(top_n)},
             "page": {"entries": st.page_entries, "bytes": st.page_bytes,
                      "capacity": st.page_capacity,
                      "top": _cache.PAGES.top_entries(top_n)},

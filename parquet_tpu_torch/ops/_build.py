@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` (a CUDA kernel) compiles with ``nvcc`` for
 ``sm_90a``, and each ``csrc/<name>.cpp`` (host code: the Snappy codec and
 the byte-array scans, the read path's prescan, chunk planner and staging
-fill) with the system ``c++``,
+fill, the lookup's match and gather) with the system ``c++``,
 into its own shared library with a plain C interface,
 ``_build/lib<name>.<hash>.so`` in the package directory, at first use;
 ``<hash>`` covers the source, the headers of ``csrc/`` it may include
@@ -83,9 +83,18 @@ SIGNATURES = {
         "pq_gather_ba": (_LL, [_P, _LL, _P, _LL, _P, _LL, _P, _P, _LL]),
         "pq_xxh64_batch": (_LL, [_P, _LL, _P, _LL, _P]),
     },
+    "host_lookup": {
+        "pq_lookup_match": (_LL, [_I, _P, _LL, _P, _P, _P, _P, _LL, _P, _P,
+                                  _LL, _P, _P, _P, _P, _LL, _P, _P, _P, _P,
+                                  _P, _P, _LL, _LL, _P, _P, _LL]),
+        "pq_lookup_gather": (_LL, [_P, _P, _P, _P, _LL, _LL, _P, _LL, _P, _P,
+                                   _P]),
+        "pq_lookup_gather_ba": (_LL, [_P, _P, _P, _P, _P, _P, _LL, _P, _LL,
+                                      _P, _P, _P, _P]),
+    },
 }
 # csrc/<name>.cpp, built with c++
-HOST_SOURCES = ("host_codec", "host_prescan")
+HOST_SOURCES = ("host_codec", "host_prescan", "host_lookup")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

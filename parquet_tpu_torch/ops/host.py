@@ -1,5 +1,5 @@
-"""numpy faces of the host C++ of ``csrc/host_codec.cpp`` and
-``csrc/host_prescan.cpp``.
+"""numpy faces of the host C++ of ``csrc/host_codec.cpp``,
+``csrc/host_prescan.cpp`` and ``csrc/host_lookup.cpp``.
 
 ``host_codec``: the Snappy raw format both ways, and the byte-array scans
 of the read and write paths: PLAIN BYTE_ARRAY pages to ``(values,
@@ -30,6 +30,12 @@ Python version it replaces returns, and raises its
 - :func:`gather_byte_arrays`: byte-array values at given indexes (the
   scans' survivors), whose plain version is
   :func:`gather_byte_arrays_numpy`.
+
+``host_lookup``: a lookup's row-group work, :func:`lookup_match` (every
+key against the rows of the fetched pages) and :func:`lookup_gather` (the
+output columns at the matched rows), whose plain versions
+:func:`lookup_match_numpy` and :func:`lookup_gather_numpy` serve the tests
+only.
 
 The libraries build with the system ``c++`` at first use
 (``ops/_build.py``).  Sizes and bounds are checked here before a pointer
@@ -736,3 +742,294 @@ def byte_array_parts(parts: np.ndarray, lens: np.ndarray
         raise CorruptedError(f"PLAIN BYTE_ARRAY page {-got - 1} of "
                              f"{len(parts)} is truncated")
     return values[:got], offsets
+
+
+# ---------------------------------------------------------------------------
+# the lookup's match and gather (csrc/host_lookup.cpp)
+# ---------------------------------------------------------------------------
+
+#: the key domains of :func:`lookup_match`: 8-byte keys compared as signed
+#: or unsigned integers, doubles, or the xxh64 of byte rows (whose bytes
+#: are then compared)
+LOOKUP_KINDS = {"i64": 0, "u64": 1, "f64": 2, "hash": 3}
+_KIND_DTYPE = {"i64": np.int64, "u64": np.uint64, "f64": np.float64,
+               "hash": np.uint64}
+
+
+def _lookup():
+    return _build.load("host_lookup")
+
+
+def _i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, np.int64)
+
+
+def _byte_table(page_values: Sequence, keep: list):
+    """The (data, offsets, width, nbytes) pointer table of ``page_values``
+    (a page's byte rows: an object with ``data`` and ``offsets``, or
+    ``(n, w)`` uint8 rows; None for a page not given).  The arrays the
+    pointers reach go to ``keep``."""
+    n = len(page_values)
+    data, offs, width, nbytes = (np.zeros(n, np.int64) for _ in range(4))
+    for p, v in enumerate(page_values):
+        if v is None:
+            continue
+        if hasattr(v, "offsets"):
+            d, o = as_u8(v.data), _i64(v.offsets)
+            keep += [d, o]
+            data[p], offs[p], nbytes[p] = d.ctypes.data, o.ctypes.data, d.size
+        else:
+            d = np.ascontiguousarray(v)
+            keep.append(d)
+            data[p], nbytes[p] = d.ctypes.data, d.nbytes
+            width[p] = d.shape[1] if d.ndim == 2 else d.itemsize
+    return data, offs, width, nbytes
+
+
+def lookup_match(kind: str, keys: np.ndarray, row_page: np.ndarray,
+                 row_local: np.ndarray, page_first: np.ndarray,
+                 page_rows: np.ndarray, needles: np.ndarray,
+                 run_lo: np.ndarray, run_hi: np.ndarray, lists=None,
+                 page_values: Optional[Sequence] = None, key_table=None,
+                 needle_ids: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Every row of a row group's fetched pages equal to each needle, in
+    C++ (``pq_lookup_match``; the interpreter lock is released for the
+    call).  The rows: present rows' 8-byte ``keys`` of ``kind``
+    (:data:`LOOKUP_KINDS`), each row's page ordinal and row in the page;
+    ``page_first``/``page_rows`` a page ordinal's first row in the row
+    group and row count.  Needle ``k`` matches rows on pages
+    ``[run_lo[k], run_hi[k])``, and where ``lists = (offsets, pages)``
+    gives it a non-empty ascending page list, only on those pages.  With
+    kind ``hash`` a row's bytes (``page_values[p]``'s row) must equal key
+    ``needle_ids[k]`` of ``key_table = (bytes, offsets)``.  NaN needles
+    and NaN rows match nothing.  Returns ``(offsets, rows)``: needle
+    ``k``'s row-group rows, ascending when the rows were given in page
+    and row order, are ``rows[offsets[k]:offsets[k + 1]]``.  Its plain
+    version is :func:`lookup_match_numpy`."""
+    dt = _KIND_DTYPE[kind]
+    keys = np.ascontiguousarray(keys, dt)
+    needles = np.ascontiguousarray(needles, dt)
+    row_page, row_local = _i64(row_page), _i64(row_local)
+    page_first, page_rows = _i64(page_first), _i64(page_rows)
+    run_lo, run_hi = _i64(run_lo), _i64(run_hi)
+    n, m = len(keys), len(needles)
+    if not (len(row_page) == len(row_local) == n and len(run_lo) == m
+            and len(run_hi) == m and len(page_first) == len(page_rows)):
+        raise ValueError("lookup_match: array lengths disagree")
+    keep: list = []
+    list_offs = list_pages = None
+    if lists is not None:
+        list_offs, list_pages = _i64(lists[0]), _i64(lists[1])
+        if len(list_offs) != m + 1:
+            raise ValueError("lookup_match: list offsets need m + 1 entries")
+    hashed = kind == "hash"
+    tables = (None,) * 4
+    key_bytes = key_offs = ids = None
+    if hashed:
+        if page_values is None or key_table is None or needle_ids is None:
+            raise ValueError("lookup_match: hashed keys need page_values, "
+                             "key_table and needle_ids")
+        tables = _byte_table(page_values, keep)
+        if len(tables[0]) != len(page_first):
+            raise ValueError("lookup_match: one page value a page ordinal")
+        key_bytes, key_offs = as_u8(key_table[0]), _i64(key_table[1])
+        ids = _i64(needle_ids)
+        if len(ids) != m:
+            raise ValueError("lookup_match: one needle id a needle")
+    lib = _lookup()
+    offs = np.empty(m + 1, np.int64)
+    cap = n
+    while True:
+        rows = np.empty(max(cap, 1), np.int64)
+        got = lib.pq_lookup_match(
+            LOOKUP_KINDS[kind], _ptr(keys), n, _ptr(row_page),
+            _ptr(row_local), _ptr(page_first), _ptr(page_rows),
+            len(page_first), _ptr(needles), None if ids is None else
+            _ptr(ids), m, _ptr(run_lo), _ptr(run_hi),
+            None if list_offs is None else list_offs.ctypes.data,
+            None if list_pages is None else _ptr(list_pages),
+            0 if list_pages is None else len(list_pages),
+            *(None if t is None else _ptr(t) for t in tables),
+            None if key_bytes is None else _ptr(key_bytes),
+            None if key_offs is None else _ptr(key_offs),
+            0 if key_offs is None else len(key_offs) - 1,
+            0 if key_bytes is None else len(key_bytes),
+            offs.ctypes.data, rows.ctypes.data, cap)
+        if got == -6:
+            raise MemoryError("out of host memory matching lookup keys")
+        if got < 0:
+            raise ValueError(f"lookup_match: an index or offset outside its "
+                             f"table (code {got})")
+        if got <= cap:
+            return offs, rows[:got]
+        cap = got
+
+
+def lookup_match_numpy(kind: str, keys: np.ndarray, row_page: np.ndarray,
+                       row_local: np.ndarray, page_first: np.ndarray,
+                       page_rows: np.ndarray, needles: np.ndarray,
+                       run_lo: np.ndarray, run_hi: np.ndarray, lists=None,
+                       page_values: Optional[Sequence] = None,
+                       key_table=None, needle_ids: Optional[np.ndarray] = None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """The plain version of :func:`lookup_match`, in numpy (the tests'
+    oracle)."""
+    dt = _KIND_DTYPE[kind]
+    keys, needles = np.asarray(keys, dt), np.asarray(needles, dt)
+    row_page, row_local = _i64(row_page), _i64(row_local)
+    page_first = _i64(page_first)
+    if len(row_page) and (row_page.min() < 0
+                          or row_page.max() >= len(page_first)
+                          or (row_local < 0).any() or (
+                              row_local >= _i64(page_rows)[row_page]).any()):
+        raise ValueError("lookup_match: an index or offset outside its "
+                         "table")
+    live = np.flatnonzero(keys == keys)
+    order = live[np.argsort(keys[live], kind="stable")]
+    table = keys[order]
+    offs = np.zeros(len(needles) + 1, np.int64)
+    out = []
+    for k, v in enumerate(needles.tolist()):
+        rows = np.empty(0, np.int64)
+        if v == v:
+            j = order[np.searchsorted(table, dt(v), "left"):
+                      np.searchsorted(table, dt(v), "right")]
+            p = row_page[j]
+            ok = (p >= run_lo[k]) & (p < run_hi[k])
+            if lists is not None and lists[0][k + 1] > lists[0][k]:
+                ok &= np.isin(p, lists[1][lists[0][k]:lists[0][k + 1]])
+            if kind == "hash":
+                kb = key_table[1]
+                want = bytes(as_u8(key_table[0])[
+                    kb[needle_ids[k]]:kb[needle_ids[k] + 1]])
+                ok &= np.array([_row_of(page_values[pi], li) == want
+                                for pi, li in zip(p.tolist(),
+                                                  row_local[j].tolist())],
+                               bool)
+            rows = page_first[p[ok]] + row_local[j[ok]]
+        out.append(rows)
+        offs[k + 1] = offs[k] + len(rows)
+    return offs, (np.concatenate(out) if out else np.empty(0, np.int64))
+
+
+def _row_of(values, i: int) -> bytes:
+    if hasattr(values, "offsets"):
+        return bytes(as_u8(values.data)[values.offsets[i]:
+                                        values.offsets[i + 1]])
+    return np.asarray(values)[i].tobytes()
+
+
+def _page_table(pages: Sequence, keep: list):
+    """``(first, rows, values pointer, validity pointer)`` of ``pages``
+    (``(first row, rows, values, validity or None)`` sorted by first row);
+    the arrays reached go to ``keep``."""
+    n = len(pages)
+    first, nrows, vals, valid = (np.zeros(n, np.int64) for _ in range(4))
+    for p, (f, r, v, ok) in enumerate(pages):
+        first[p], nrows[p] = f, r
+        if ok is not None:
+            ok = np.ascontiguousarray(ok, np.bool_)
+            if len(ok) < r:
+                raise ValueError("lookup_gather: a validity shorter than "
+                                 "its page")
+            keep.append(ok)
+            valid[p] = ok.ctypes.data
+    if n > 1 and (np.diff(first) < 0).any():
+        raise ValueError("lookup_gather: pages must ascend by first row")
+    return first, nrows, vals, valid
+
+
+def lookup_gather(pages: Sequence, rows: np.ndarray):
+    """The values and validity at row-group ``rows`` across ``pages``
+    (``(first row, rows, values, validity or None)`` sorted by first row),
+    in C++ (``pq_lookup_gather`` / ``pq_lookup_gather_ba``, the
+    interpreter lock released).  Values are a page's numpy array (``(n,
+    w)`` rows for fixed-length byte arrays) or byte rows (an object with
+    ``data`` and ``offsets``, a null row empty).  Returns ``(values,
+    valid, row_valid)``: a numpy array of the pages' dtype, or a
+    ``(uint8 data, int64 offsets)`` pair for byte rows; each row's
+    validity (True where its page has none); whether its page carried
+    one.  A row on no page raises ``ValueError``, as in
+    :func:`lookup_gather_numpy`, its plain version."""
+    rows = _i64(rows)
+    n = len(rows)
+    keep: list = []
+    first, nrows, vals, valid = _page_table(pages, keep)
+    out_valid = np.empty(n, np.bool_)
+    out_row_valid = np.empty(n, np.bool_)
+    lib = _lookup()
+    if pages and hasattr(pages[0][2], "offsets"):
+        offs = np.zeros(len(pages), np.int64)
+        nbytes = np.zeros(len(pages), np.int64)
+        for p, (_, r, v, _) in enumerate(pages):
+            d, o = as_u8(v.data), _i64(v.offsets)
+            if len(o) != r + 1:
+                raise ValueError("lookup_gather: byte rows need rows + 1 "
+                                 "offsets")
+            keep += [d, o]
+            vals[p], offs[p], nbytes[p] = d.ctypes.data, o.ctypes.data, d.size
+        out_offs = np.empty(n + 1, np.int64)
+        args = (_ptr(first), _ptr(nrows), _ptr(vals), _ptr(offs),
+                _ptr(valid), _ptr(nbytes), len(pages), _ptr(rows), n,
+                out_offs.ctypes.data)
+        total = lib.pq_lookup_gather_ba(*args, None, None, None)
+        if total < 0:
+            raise ValueError("lookup_gather: a row on no page, or byte-row "
+                             "offsets outside their page")
+        data = np.empty(max(total, 1), np.uint8)
+        lib.pq_lookup_gather_ba(*args, data.ctypes.data,
+                                _ptr(out_valid), _ptr(out_row_valid))
+        return (data[:total], out_offs), out_valid, out_row_valid
+    if not pages:
+        if n:
+            raise ValueError("lookup_gather: a row on no page")
+        return np.empty(0, np.uint8), out_valid, out_row_valid
+    proto = np.asarray(pages[0][2])
+    out = np.empty((n,) + proto.shape[1:], proto.dtype)
+    elem = out.itemsize * int(np.prod(proto.shape[1:], dtype=np.int64))
+    for p, (_, r, v, _) in enumerate(pages):
+        v = np.ascontiguousarray(v)
+        if v.dtype != proto.dtype or v.shape[1:] != proto.shape[1:] \
+                or len(v) < r:
+            raise ValueError("lookup_gather: pages of different shapes")
+        keep.append(v)
+        vals[p] = v.ctypes.data
+    if lib.pq_lookup_gather(_ptr(first), _ptr(nrows), _ptr(vals),
+                            _ptr(valid), len(pages), elem, _ptr(rows), n,
+                            _ptr(out), _ptr(out_valid),
+                            _ptr(out_row_valid)) != 0:
+        raise ValueError("lookup_gather: a row on no page")
+    return out, out_valid, out_row_valid
+
+
+def lookup_gather_numpy(pages: Sequence, rows: np.ndarray):
+    """The plain version of :func:`lookup_gather`, in numpy (the tests'
+    oracle)."""
+    rows = _i64(rows)
+    first = np.array([p[0] for p in pages], np.int64)
+    nrows = np.array([p[1] for p in pages], np.int64)
+    at = np.searchsorted(first, rows, "right") - 1
+    if len(rows) and ((at < 0).any()
+                      or (rows - first[np.maximum(at, 0)]
+                          >= nrows[np.maximum(at, 0)]).any()):
+        raise ValueError("lookup_gather: a row on no page")
+    valid = np.ones(len(rows), bool)
+    row_valid = np.zeros(len(rows), bool)
+    parts = []
+    for i, (r, p) in enumerate(zip(rows.tolist(), at.tolist())):
+        f, _, v, ok = pages[p]
+        parts.append(_row_of(v, r - f) if hasattr(v, "offsets")
+                     else np.asarray(v)[r - f])
+        if ok is not None:
+            valid[i], row_valid[i] = ok[r - f], True
+    if pages and hasattr(pages[0][2], "offsets"):
+        offs = np.zeros(len(parts) + 1, np.int64)
+        np.cumsum([len(b) for b in parts], out=offs[1:])
+        return ((np.frombuffer(b"".join(parts), np.uint8), offs), valid,
+                row_valid)
+    proto = np.asarray(pages[0][2]) if pages else np.empty(0, np.uint8)
+    out = np.empty((len(rows),) + proto.shape[1:], proto.dtype)
+    for i, v in enumerate(parts):
+        out[i] = v
+    return out, valid, row_valid

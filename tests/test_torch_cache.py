@@ -28,6 +28,7 @@ def _fresh(monkeypatch):
     parquet_tpu.clear_caches()
     pqt.clear_caches(reset_stats=True)
     monkeypatch.setenv("PARQUET_TPU_LOOKUP_KEY_SHARD", "0")
+    monkeypatch.setenv("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", "0")
     yield
     parquet_tpu.clear_caches()
     pqt.clear_caches(reset_stats=True)

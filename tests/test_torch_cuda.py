@@ -2225,3 +2225,104 @@ def test_cli_head_and_aggregate_on_card_launch_the_kernels(cuda_device,
         else:
             assert json.loads(card)["aggregates"] == \
                 json.loads(cpu)["aggregates"]
+
+
+def _no_index_file(path: str, n: int = 400_000) -> np.ndarray:
+    """A file without a page index: ``k`` 5,000 values dictionary-encoded,
+    ``v`` a double, ``c`` a 100-value int32 dictionary with nulls; returns
+    ``k``."""
+    rng = np.random.default_rng(11)
+    k = rng.integers(0, 5_000, n).astype(np.int64) * 4
+    pqt.write_table(
+        {"k": k, "v": rng.random(n),
+         "c": np.ma.masked_array(rng.integers(0, 100, n).astype(np.int32),
+                                 mask=rng.random(n) < 0.1)},
+        path, options=pqt.WriterOptions(
+            row_group_size=n // 4, write_page_index=False,
+            bloom_filters={"k": 10}, column_encoding={
+                "k": Encoding.RLE_DICTIONARY, "c": Encoding.RLE_DICTIONARY}))
+    return k
+
+
+def _same_hits(got, want, columns) -> None:
+    assert got.counters == want.counters
+    for g, w in zip(got, want):
+        assert np.array_equal(g.rows, w.rows)
+        for c in columns:
+            assert np.array_equal(g.values[c], w.values[c])
+            assert (g.validity[c] is None) == (w.validity[c] is None)
+            if w.validity[c] is not None:
+                assert np.array_equal(g.validity[c], w.validity[c])
+
+
+@pytest.mark.cuda
+def test_chunk_cache_serves_a_warm_lookup_on_card(cuda_device, tmp_path):
+    """On a file without a page index the cold lookup on the card decodes
+    every whole chunk it needs there (the unpack kernels launch) and puts
+    it in the whole-chunk cache; the warm one is served from it, with no
+    launch, and both equal the CPU's lookup."""
+    path = str(tmp_path / "bare.parquet")
+    k = _no_index_file(path)
+    keys = np.concatenate([k[:40], np.arange(1, 400, 2)]).astype(np.int64)
+    cols = ["v", "c"]
+    pqt.clear_caches(reset_stats=True)
+    pqt.reset_launches()
+    cold = pqt.ParquetFile(path).find_rows("k", keys, columns=cols,
+                                           device=cuda_device)
+    launched = dict(pqt.LAUNCHES)
+    misses = pqt.cache_stats().chunk_misses
+    pqt.reset_launches()
+    warm = pqt.ParquetFile(path).find_rows("k", keys, columns=cols,
+                                           device=cuda_device)
+    st = pqt.cache_stats()
+    assert launched["unpack_bits_dense"] > 0
+    assert launched["dict_unpack_gather"] > 0
+    assert misses == 12 and st.chunk_hits == misses
+    assert st.chunk_misses == misses
+    assert pqt.LAUNCHES["unpack_bits_dense"] == 0
+    assert pqt.LAUNCHES["dict_unpack_gather"] == 0
+    pqt.clear_caches()
+    cpu = pqt.ParquetFile(path).find_rows("k", keys, columns=cols,
+                                          device="cpu")
+    _same_hits(cold, cpu, cols)
+    assert warm.counters["chunk_fallbacks"] == cpu.counters["chunk_fallbacks"]
+    for g, w in zip(warm, cpu):
+        assert np.array_equal(g.rows, w.rows)
+
+
+@pytest.mark.cuda
+def test_key_shard_lookup_on_card_is_the_serial_one(cuda_device, tmp_path,
+                                                    monkeypatch):
+    """A batch of 200,000 keys (about 50,000 a row group after the
+    statistics, a device probe) at the reference's shard floor of 1,024 on
+    the card:
+    ``key_shards`` >= 2, one ``bloom_check`` launch, and the hits and
+    counters (but ``preads`` and ``pages_coalesced``) of the serial
+    lookup at a floor of 0."""
+    n = 1 << 20
+    path = str(tmp_path / "sorted.parquet")
+    rng = np.random.default_rng(5)
+    pqt.write_table({"k": np.arange(n, dtype=np.int64) // 2 * 2,
+                     "v": rng.random(n)}, path,
+                    options=pqt.WriterOptions(
+                        row_group_size=n // 4, data_page_size=8192,
+                        bloom_filters={"k": 10}))
+    keys = rng.choice(n, 200_000, replace=False).astype(np.int64)
+    runs = {}
+    for floor in ("0", "1024"):
+        monkeypatch.setenv("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", floor)
+        pqt.clear_caches()
+        pqt.reset_launches()
+        runs[floor] = (pqt.ParquetFile(path).find_rows(
+            "k", keys, columns=["v"], device=cuda_device),
+            pqt.LAUNCHES["bloom_check"])
+    (serial, b0), (sharded, b1) = runs["0"], runs["1024"]
+    assert serial.counters["key_shards"] == 0
+    assert sharded.counters["key_shards"] >= 2
+    assert b0 == b1 == 1
+    for k in serial.counters:
+        if k not in ("preads", "pages_coalesced", "key_shards"):
+            assert sharded.counters[k] == serial.counters[k], k
+    for g, w in zip(sharded, serial):
+        assert np.array_equal(g.rows, w.rows)
+        assert np.array_equal(g.values["v"], w.values["v"])

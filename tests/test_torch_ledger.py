@@ -137,6 +137,7 @@ def test_a_lookup_leaves_the_references_cache_residency(path, monkeypatch):
     one buffer and its int64 row offsets in the port (``ByteRows``), and
     a tuple of ``bytes`` whose payload alone the reference weighs."""
     monkeypatch.setenv("PARQUET_TPU_LOOKUP_KEY_SHARD", "0")
+    monkeypatch.setenv("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", "0")
     keys = [3, 4, 9, 30_000, 10**9, 6 * ROW_GROUP]
     with pqt.ParquetFile(path) as pf:
         pf.find_rows("k", keys, columns=["v", "s"], device=CPU)
@@ -359,8 +360,10 @@ def test_the_reclaim_order_and_fraction_are_the_references():
     assert tledger.PRESSURE_EVICT_FRACTION == jledger.PRESSURE_EVICT_FRACTION
     assert tledger._MAX_RECLAIM_PASSES == jledger._MAX_RECLAIM_PASSES
     names = [f.__name__ for f in LEDGER._reclaimers]
-    assert names[:3] == ["_reclaim_pages", "_reclaim_negs",
-                         "_reclaim_footers"]
+    assert names[:4] == ["_reclaim_chunks", "_reclaim_pages",
+                         "_reclaim_negs", "_reclaim_footers"]
+    assert names[:4] == [f.__name__
+                         for f in jledger.LEDGER._reclaimers][:4]
 
 
 def test_the_hard_watermark_holds_an_admission_until_bytes_drop(

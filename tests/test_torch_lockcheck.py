@@ -457,13 +457,12 @@ _LOCK_SITE = re.compile(
 
 # the reference's locks with no counterpart, each with the reason
 _REFERENCE_ONLY = {
-    "cache.chunk": "ChunkCache is not ported yet (ROADMAP A.4)",
     "native.build": "each kernel build holds a per-library file lock",
     "write.pended_cv": "the port's writer queues no encoded row groups",
 }
 _PORT_ONLY = {"codecs.registry", "device.copy_streams", "device.plan_route",
-              "kernels.launches", "mesh.counters", "serve.connections",
-              "serve.fleet_legs"}
+              "kernels.launches", "lookup.fetch", "mesh.counters",
+              "serve.connections", "serve.fleet_legs"}
 
 
 def _lock_sites(pkg: str) -> dict:

@@ -40,6 +40,7 @@ _ENC = {"plain": Encoding.PLAIN, "dict": Encoding.RLE_DICTIONARY,
 @pytest.fixture(autouse=True)
 def _no_key_shards(monkeypatch):
     monkeypatch.setenv("PARQUET_TPU_LOOKUP_KEY_SHARD", "0")
+    monkeypatch.setenv("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", "0")
 
 
 def _table(seed: int, nulls: bool, sorted_keys: bool, key_dtype=np.int64,

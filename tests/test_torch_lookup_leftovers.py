@@ -32,6 +32,7 @@ from parquet_tpu.schema.types import LogicalKind as JLogicalKind
 import parquet_tpu_torch as pqt
 from parquet_tpu_torch.format.enums import Encoding
 from parquet_tpu_torch.io import bloom as tbloom
+from parquet_tpu_torch.io.lookup import COUNTER_KEYS
 from parquet_tpu_torch.io.writer import schema_of as table_schema_of
 from parquet_tpu_torch.ops import host
 
@@ -45,6 +46,7 @@ def _fresh(monkeypatch):
     parquet_tpu.clear_caches()
     pqt.clear_caches()
     monkeypatch.setenv("PARQUET_TPU_LOOKUP_KEY_SHARD", "0")
+    monkeypatch.setenv("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", "0")
     yield
     parquet_tpu.clear_caches()
     pqt.clear_caches()
@@ -396,17 +398,12 @@ def _big_batch(source: str, tmp_path):
             np.arange(0, 3 * N, 2, dtype=np.int64), ["v"])
 
 
-@pytest.mark.parametrize("source", ["bytes", "path"])
-def test_a_batch_the_reference_shards_matches_jax(monkeypatch, tmp_path,
-                                                  source):
-    """With its shard floor at 8 the reference fans the batch out on its
-    pool (``key_shards`` >= 2); the port, which does not shard, gives the
-    same hits and the same key counters, with ``key_shards`` 0."""
-    data, key, keys, columns = _big_batch(source, tmp_path)
-    monkeypatch.setenv("PARQUET_TPU_LOOKUP_KEY_SHARD", "8")
-    got, want = _both(data, key, keys, columns)
-    assert want.counters["key_shards"] >= 2
-    assert got.counters["key_shards"] == 0
+def _shard_both(monkeypatch, floor: str) -> None:
+    monkeypatch.setenv("PARQUET_TPU_LOOKUP_KEY_SHARD", floor)
+    monkeypatch.setenv("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", floor)
+
+
+def _same(got, want, columns) -> None:
     for g, h in zip(got, want):
         np.testing.assert_array_equal(g.rows, h.rows)
         for c in columns:
@@ -414,15 +411,114 @@ def test_a_batch_the_reference_shards_matches_jax(monkeypatch, tmp_path,
                 assert g.values[c] == h.values[c]
             else:
                 np.testing.assert_array_equal(g.values[c], h.values[c])
+            if h.validity[c] is None:
+                assert g.validity[c] is None
+            else:
+                np.testing.assert_array_equal(g.validity[c], h.validity[c])
+
+
+@pytest.mark.parametrize("source", ["bytes", "path"])
+def test_a_batch_the_reference_shards_matches_jax(monkeypatch, tmp_path,
+                                                  source):
+    """With both packages' shard floors at 8, both fan the batch out on
+    their pools (``key_shards`` >= 2) and give the same hits and the same
+    key counters."""
+    data, key, keys, columns = _big_batch(source, tmp_path)
+    _shard_both(monkeypatch, "8")
+    got, want = _both(data, key, keys, columns)
+    assert want.counters["key_shards"] >= 2
+    assert got.counters["key_shards"] >= 2
+    _same(got, want, columns)
     for k in ("keys", "keys_pruned_stats", "keys_pruned_bloom",
-              "keys_pruned_pages", "rows_matched"):
+              "keys_pruned_pages", "rows_matched", "chunk_fallbacks",
+              "binary_search_hits"):
         assert got.counters[k] == want.counters[k], k
 
 
+# the counters a sharded lookup may move otherwise than the serial one: the
+# shards fetch the pages their keys need, so a run of adjacent pages the
+# serial run reads in one pread can take several
+SHARD_MAY_DIFFER = ("preads", "pages_coalesced", "key_shards")
+
+
+@pytest.mark.parametrize("source", ["bytes", "path"])
+def test_a_sharded_lookup_is_the_serial_one(monkeypatch, tmp_path, source):
+    """At a floor of 8 against 0, from cleared caches: the same hits and
+    every counter but ``preads`` and ``pages_coalesced``: each page is
+    read once (``pages_read``) and asked of the page cache once
+    (``page_cache_hits``), and the absent-key memo holds the same keys.
+    Then a warm run of each, which on a path reads nothing."""
+    from parquet_tpu_torch.io import cache as tcache
+
+    data, key, keys, columns = _big_batch(source, tmp_path)
+    runs = {}
+    for floor in ("0", "8"):
+        _shard_both(monkeypatch, floor)
+        pqt.clear_caches()
+        f = pqt.ParquetFile(data)
+        cold = f.find_rows(key, keys, columns=columns, device=CPU)
+        negs = {k: set(v[0]) for k, v in tcache.NEGS._entries.items()}
+        warm = f.find_rows(key, keys, columns=columns, device=CPU)
+        runs[floor] = (cold, warm, negs)
+    (cold0, warm0, negs0), (cold8, warm8, negs8) = runs["0"], runs["8"]
+    assert cold0.counters["key_shards"] == 0
+    assert cold8.counters["key_shards"] >= 2
+    for a, b in ((cold0, cold8), (warm0, warm8)):
+        _same(b, a, columns)
+        for k in COUNTER_KEYS:
+            if k not in SHARD_MAY_DIFFER:
+                assert a.counters[k] == b.counters[k], k
+    assert cold8.counters["preads"] >= cold0.counters["preads"]
+    assert negs8 == negs0
+    if source == "path":
+        assert cold0.counters["pages_read"] > 0
+        assert warm0.counters["pages_read"] == 0
+        assert warm8.counters["preads"] == warm0.counters["preads"] == 0
+        assert warm0.counters["page_cache_hits"] > 0
+
+
+def test_shards_run_on_pool_workers_in_the_callers_context(tmp_path,
+                                                           monkeypatch):
+    """At a floor of 8, ``_lookup_rg`` runs on the shared pool's workers,
+    inside the caller's op scope and under the tenant's page pin: the
+    pages the shards fetch land pinned."""
+    from parquet_tpu_torch.io import cache as tcache
+    from parquet_tpu_torch.io import lookup as tlookup
+    from parquet_tpu_torch.obs import scope as tscope
+    from parquet_tpu_torch.utils import pool as tpool
+
+    data, key, keys, columns = _big_batch("path", tmp_path)
+    monkeypatch.setenv("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", "8")
+    seen = []
+    real = tlookup._lookup_rg
+
+    def lookup_rg(pf, rg, *args):
+        seen.append((tpool.in_shared_pool(), tscope.current_op(),
+                     tcache.current_pin()))
+        return real(pf, rg, *args)
+
+    monkeypatch.setattr(tlookup, "_lookup_rg", lookup_rg)
+    with tscope.op_scope("test.sharded") as op, \
+            tcache.page_pin_scope("tenant-a", 1 << 30):
+        got = pqt.ParquetFile(data).find_rows(key, keys, columns=columns,
+                                              device=CPU)
+    assert got.counters["key_shards"] >= 2
+    assert seen and all(s == (True, op, ("tenant-a", 1 << 30))
+                        for s in seen)
+    assert op.counters().get("lookup.key_shards") == \
+        got.counters["key_shards"]
+    assert op.counters().get("lookup.rows_matched") == \
+        got.counters["rows_matched"]
+    assert tcache.PAGES.pinned_bytes("tenant-a") > 0
+    assert len(tcache.PAGES._pinned) == got.counters["pages_read"]
+    tcache.PAGES.unpin_tenant("tenant-a")
+
+
 def test_a_large_batch_runs_on_the_calling_thread(tmp_path, monkeypatch):
-    """4,500 distinct keys, more than two of the reference's shards: every
-    row group's page search, reads and match run on the caller's thread,
-    never on the shared pool."""
+    """4,500 distinct keys, more than two shards at the reference's floor
+    of 1,024: at the port's floor of 0, its default, every row group's page
+    search, reads and match run on the caller's thread, never on the
+    shared pool."""
     from parquet_tpu_torch.io import lookup as tlookup
     from parquet_tpu_torch.utils import pool as tpool
 

@@ -347,6 +347,7 @@ def test_manifest_prune_is_conservative_on_unknown(tmp_path):
 
 def test_scan_and_lookup_parity_on_table(tmp_path, monkeypatch):
     monkeypatch.setenv("PARQUET_TPU_LOOKUP_KEY_SHARD", "0")
+    monkeypatch.setenv("PARQUET_TPU_TORCH_LOOKUP_KEY_SHARD", "0")
     td, jd = str(tmp_path / "port"), str(tmp_path / "jax")
     for pkg, d in (("port", td), ("jax", jd)):
         with _writer(pkg, d, rows_per_file=2000) as w:
